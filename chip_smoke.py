@@ -7,22 +7,28 @@ Run from the root of a checkout on a machine with a CUDA card and the CUDA
 toolkit (``nvcc``).  It imports ``dynamo_tpu_torch`` and nothing of JAX.
 Every phase is fatal on failure:
 
-1. build: both hand-written kernels build from ``dynamo_tpu_torch/csrc/``
-   (one ``nvcc`` per source, all started together); their ``-Xptxas -v``
-   register / shared-memory lines are printed.
-2. kernels: each kernel against its plain PyTorch version at the
-   Llama-3-8B shapes the main path gives it (Hq=32, Hkv=8, D=128,
-   page=16), with and without a sliding window (the packed kernel's
-   prefill chunk both over a resident prefix and from position 0), in bf16
-   (the main path's dtype) and in f32 (where a misplaced key shows);
-   CUDA-event times of the kernel, the plain version and one
-   ``scaled_dot_product_attention`` call over the gathered K/V (a
-   yardstick the port never calls), beside the least time the card could
-   take (bytes at 3.35 TB/s or bf16 operations at 989 TFLOP/s, whichever
-   is larger).
+1. build: every hand-written kernel builds from ``dynamo_tpu_torch/csrc/``
+   (one ``nvcc`` per source, all started together; a source may hold
+   several kernels); their ``-Xptxas -v`` register / shared-memory lines
+   are printed, and an instantiation that spills fails the run.
+2. kernels: each of the five kernels against its plain PyTorch version at
+   the Llama-3-8B shapes the serve phases give it (Hq=32, Hkv=8, D=128,
+   page=16), with and without a sliding window, in bf16 (the main path's
+   dtype) and in f32 (where a misplaced key shows): paged decode; packed
+   ragged (its prefill chunk both over a resident prefix and from position
+   0); the rectangle ragged layout; full flash prefill of the 2048 bucket;
+   prefix-suffix flash prefill of a 476-token suffix over a 1024-token
+   prefix.  CUDA-event times of the kernel, the plain version and one
+   ``scaled_dot_product_attention`` call over the gathered K/V with the
+   same mask (a yardstick the port never calls), beside the least time the
+   card could take (bytes at 3.35 TB/s or bf16 operations at 989 TFLOP/s,
+   whichever is larger).
 3. reference: a small f32 model served on the card (kernels) and on the
    CPU (plain versions) from the same weights gives the same greedy
-   streams.
+   streams, under the default config, ``mixed_batching=False`` (with
+   chunked prefill) and ``packed_ragged=False``, with a
+   ``frequency_penalty`` lane and a ``repetition_penalty`` lane in the
+   batch; on the card the unpenalized lanes agree across the three.
 4. serve: ``TorchEngine.random_init(ModelConfig.llama3_8b(),
    EngineConfig(num_pages=1024))`` -- full width, 32 layers, bf16, random
    weights from a seed, default engine settings (mixed batching, packed
@@ -34,10 +40,21 @@ Every phase is fatal on failure:
    launch counts must be > 0 for this run, and a K > 1 dispatch must have
    run.  A second engine built the same way serves the same requests and
    must give identical streams.
+5. serve-classic: the same model, random weights made once and shared by
+   two engines: run A, ``EngineConfig(num_pages=1024,
+   mixed_batching=False)``, serves the serve phase's primer and batch with
+   one greedy lane carrying ``frequency_penalty=0.5`` and another
+   ``repetition_penalty=1.1`` (classic prefill groups, suffix prefills on
+   the prefix hits, decode blocks of 16 with penalty histograms); run B,
+   ``EngineConfig(num_pages=1024, packed_ragged=False)``, serves the same
+   requests without penalties (rectangle unified dispatches, decode
+   blocks).  Every stream must finish with 64 tokens; kernels 1, 2 and 3
+   must launch in run A, kernels 1 and 4 in run B.
 
-``--profile OUT.txt`` adds a fifth phase: the serve phase's requests once
-more under ``torch.profiler``, with the device's idle share and its kernel
-time by kind (see ``profile_phase``); the full table goes to ``OUT.txt``.
+``--profile OUT.txt`` adds a last phase: the serve phase's run and
+serve-classic runs A and B once more under ``torch.profiler``, each with
+the device's idle share and its kernel time by kind (see
+``profile_phase``); the full tables go to ``OUT.txt``.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the kernels' numbers as JSON.  With no CUDA device, or
@@ -51,6 +68,7 @@ import asyncio
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -175,6 +193,34 @@ def sdpa_padded(q, k, v, mask):
     return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
 
+def sdpa_lanes(pool, table, bases, lanes, S):
+    """The ragged kernels' yardstick operands: ``(q, k, v, mask)`` for one
+    SDPA call over the lanes padded to ``[B, Hq, S, K]``, each lane's
+    resident prefix (layer 0, through its table row) followed by its fresh
+    rows, with the same causal-over-prefix mask.  ``lanes`` holds each
+    lane's fresh ``(q [n, Hq, D], k [n, Hkv, D], v)`` rows."""
+    B = len(lanes)
+    K = max(bs + lq.shape[0] for bs, (lq, _, _) in zip(bases, lanes))
+    dtype = lanes[0][0].dtype
+    qp = torch.zeros((B, HQ, S, D), dtype=dtype, device="cuda")
+    kp = torch.zeros((B, HQ, K, D), dtype=dtype, device="cuda")
+    vp = torch.zeros_like(kp)
+    mask = torch.zeros((B, 1, S, K), dtype=torch.bool, device="cuda")
+    r = torch.arange(S, device="cuda")[:, None]
+    c = torch.arange(K, device="cuda")[None, :]
+    for b, (bs, (lq, lk, lv)) in enumerate(zip(bases, lanes)):
+        n = lq.shape[0]
+        pages = table[b, : -(-bs // PAGE)].long()
+        keys = torch.cat([pool[0, 0][pages].reshape(-1, HKV, D)[:bs], lk])
+        vals = torch.cat([pool[0, 1][pages].reshape(-1, HKV, D)[:bs], lv])
+        qp[b, :, :n] = lq.transpose(0, 1)
+        kp[b, :, : bs + n] = keys.repeat_interleave(HQ // HKV, 1).transpose(0, 1)
+        vp[b, :, : bs + n] = vals.repeat_interleave(HQ // HKV, 1).transpose(0, 1)
+        mask[b, 0] = (c <= bs + r) & (r < n)
+    mask[:, :, :, 0] |= ~mask.any(-1)  # no fully masked row (pad rows)
+    return qp, kp, vp, mask
+
+
 def check_decode(pa, rng, gen) -> Dict[str, object]:
     B = 8
     kv_lens = [2048, 1791, 1500, 1203, 1024, 640, 257, 33]
@@ -274,27 +320,11 @@ def check_ragged(ra, bucketing, rng, gen) -> Dict[str, object]:
     err = check(q, k, v, pool)
     ms = cuda_ms(lambda i: ra.packed_ragged_attention(*args, s_max, i % LAYERS), 32)
     plain_ms = cuda_ms(lambda i: ra.packed_ragged_attention_plain(*args, i % LAYERS), 4)
-    # yardstick: one SDPA call over the lanes padded to [B, Hq, s_max, K]
-    # with the same causal-over-prefix mask
-    K = max(b + n for b, n in zip(bases, q_lens))
-    qp = torch.zeros((B, HQ, s_max, D), dtype=q.dtype, device="cuda")
-    kp = torch.zeros((B, HQ, K, D), dtype=q.dtype, device="cuda")
-    vp = torch.zeros_like(kp)
-    mask = torch.zeros((B, 1, s_max, K), dtype=torch.bool, device="cuda")
-    for b, (bs, n, o) in enumerate(zip(bases, q_lens, seg_off.tolist())):
-        pages = table[b, : -(-bs // PAGE)].long()
-        pk = pool[0, 0][pages].reshape(-1, HKV, D)[:bs]
-        pv = pool[0, 1][pages].reshape(-1, HKV, D)[:bs]
-        keys = torch.cat([pk, k[o : o + n]]).repeat_interleave(HQ // HKV, 1)
-        vals = torch.cat([pv, v[o : o + n]]).repeat_interleave(HQ // HKV, 1)
-        qp[b, :, :n] = q[o : o + n].transpose(0, 1)
-        kp[b, :, : bs + n] = keys.transpose(0, 1)
-        vp[b, :, : bs + n] = vals.transpose(0, 1)
-        r = torch.arange(s_max, device="cuda")[:, None]
-        c = torch.arange(K, device="cuda")[None, :]
-        mask[b, 0] = (c <= bs + r) & (r < n)
-    mask[:, :, :, 0] |= ~mask.any(-1)  # no fully masked row (pad rows)
-    library_ms = cuda_ms(lambda i: sdpa_padded(qp, kp, vp, mask), 32)
+    segs = [slice(o, o + n) for o, n in zip(seg_off.tolist(), q_lens)]
+    padded = sdpa_lanes(
+        pool, table, bases, [(q[s], k[s], v[s]) for s in segs], s_max
+    )
+    library_ms = cuda_ms(lambda i: sdpa_padded(*padded), 32)
     rows = sum(q_lens)
     keys_seen = sum(bs * n + n * (n + 1) // 2 for bs, n in zip(bases, q_lens))
     bytes_moved = (
@@ -305,7 +335,7 @@ def check_ragged(ra, bucketing, rng, gen) -> Dict[str, object]:
         + table.numel() * 4 + 3 * B * 4
     )
     bound_ms, bound_by = bound(bytes_moved, 4.0 * keys_seen * HQ * D)
-    del pool, kp, vp
+    del pool, padded
     g32 = f32_generator()
     pool = make_pool(n_pages, g32, torch.float32, 4)
     check(*[torch.randn((Np, h, D), generator=g32, device="cuda") for h in (HQ, HKV, HKV)], pool)
@@ -314,6 +344,170 @@ def check_ragged(ra, bucketing, rng, gen) -> Dict[str, object]:
         name="packed_ragged_attention", route="cuda",
         source="dynamo_tpu_torch/csrc/packed_ragged_attention.cu",
         replaces="dynamo_tpu/ops/ragged_attention.py:527",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=library_ms,
+    )
+
+
+def sdpa_rows(q_rows, keys, vals, mask):
+    """One SDPA call over ``[1, Hq, rows, D]`` queries and the keys
+    ``[K, Hkv, D]`` expanded to every query head (outside the timed call)."""
+    rep = HQ // HKV
+
+    def heads(x):
+        return x.repeat_interleave(rep, 1).transpose(0, 1)[None].contiguous()
+
+    kh, vh = heads(keys), heads(vals)
+    return lambda i: sdpa_padded(q_rows, kh, vh, mask)
+
+
+def check_flash(fp, gen) -> Dict[str, object]:
+    # run A's full-prefill group of the 2048 bucket: one lane of 1200
+    # tokens (the batch's longest uncached prompt; the primer's 1032-token
+    # prompt lands in the same bucket)
+    B, T, n = 1, 2048, 1200
+    lens = torch.tensor([n], dtype=torch.int32, device="cuda")
+
+    def rand(h, dtype=torch.bfloat16, g=gen):
+        return torch.randn((B, T, h, D), generator=g, device="cuda").to(dtype)
+
+    def check(q, k, v) -> float:
+        err = 0.0
+        for window in (0, 512):
+            out = fp.flash_prefill_attention(q, k, v, lens, window)
+            ref = fp.flash_prefill_attention_plain(q, k, v, lens, window)
+            err = max(err, agree(f"flash_prefill_attention T={T} len={n} window={window}", out, ref))
+        return err
+
+    q, k, v = rand(HQ), rand(HKV), rand(HKV)
+    err = check(q, k, v)
+    ms = cuda_ms(lambda i: fp.flash_prefill_attention(q, k, v, lens), 16)
+    plain_ms = cuda_ms(lambda i: fp.flash_prefill_attention_plain(q, k, v, lens), 4)
+    r = torch.arange(n, device="cuda")[:, None]
+    mask = (torch.arange(n, device="cuda")[None, :] <= r)[None, None]
+    library_ms = cuda_ms(
+        sdpa_rows(q[:, :n].transpose(1, 2).contiguous(), k[0, :n], v[0, :n], mask), 16
+    )
+    bytes_moved = (
+        n * HQ * D * 2 + 2 * n * HKV * D * 2  # the valid q, k, v rows read
+        + B * T * HQ * D * 2  # the whole output written
+        + B * 4
+    )
+    flops = 4.0 * HQ * D * n * (n + 1) / 2  # causal (query, key) pairs
+    bound_ms, bound_by = bound(bytes_moved, flops)
+    g32 = f32_generator()
+    check(*[rand(h, torch.float32, g32) for h in (HQ, HKV, HKV)])
+    return dict(
+        name="flash_prefill_attention", route="cuda",
+        source="dynamo_tpu_torch/csrc/flash_prefill.cu",
+        replaces="dynamo_tpu/ops/flash_prefill.py:125",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=library_ms,
+    )
+
+
+def check_flash_prefix(fp, gen) -> Dict[str, object]:
+    # run A's prefix hit: a 476-token suffix (bucket 512) over the cached
+    # 1024-token prefix (64 pages, the page bucket of 64)
+    B, T, Kp, off, n = 1, 512, 1024, 1024, 476
+    offset = torch.tensor([off], dtype=torch.int32, device="cuda")
+    lens = torch.tensor([n], dtype=torch.int32, device="cuda")
+
+    def rand(rows, h, dtype=torch.bfloat16, g=gen):
+        return torch.randn((B, rows, h, D), generator=g, device="cuda").to(dtype)
+
+    def check(q, kc, vc) -> float:
+        err = 0.0
+        for window in (0, 512):
+            out = fp.flash_prefix_prefill_attention(q, kc, vc, offset, lens, window)
+            ref = fp.flash_prefix_prefill_attention_plain(q, kc, vc, offset, lens, window)
+            what = f"flash_prefix_prefill_attention T={T} Kp={Kp} len={n} window={window}"
+            err = max(err, agree(what, out, ref))
+        return err
+
+    q, kc, vc = rand(T, HQ), rand(Kp + T, HKV), rand(Kp + T, HKV)
+    err = check(q, kc, vc)
+    ms = cuda_ms(lambda i: fp.flash_prefix_prefill_attention(q, kc, vc, offset, lens), 16)
+    plain_ms = cuda_ms(
+        lambda i: fp.flash_prefix_prefill_attention_plain(q, kc, vc, offset, lens), 4
+    )
+    keys = torch.cat([kc[0, :off], kc[0, Kp : Kp + n]])
+    vals = torch.cat([vc[0, :off], vc[0, Kp : Kp + n]])
+    r = torch.arange(n, device="cuda")[:, None]
+    kpos = torch.cat([torch.arange(off, device="cuda"), off + torch.arange(n, device="cuda")])
+    mask = (kpos[None, :] <= off + r)[None, None]
+    library_ms = cuda_ms(sdpa_rows(q[:, :n].transpose(1, 2).contiguous(), keys, vals, mask), 16)
+    bytes_moved = (
+        n * HQ * D * 2 + 2 * (off + n) * HKV * D * 2  # q rows, prefix and suffix K/V
+        + B * T * HQ * D * 2  # the whole output written
+        + 2 * B * 4
+    )
+    flops = 4.0 * HQ * D * (n * off + n * (n + 1) / 2)
+    bound_ms, bound_by = bound(bytes_moved, flops)
+    g32 = f32_generator()
+    check(rand(T, HQ, torch.float32, g32), rand(Kp + T, HKV, torch.float32, g32),
+          rand(Kp + T, HKV, torch.float32, g32))
+    return dict(
+        name="flash_prefix_prefill_attention", route="cuda",
+        source="dynamo_tpu_torch/csrc/flash_prefill.cu",
+        replaces="dynamo_tpu/ops/flash_prefill.py:311",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=library_ms,
+    )
+
+
+def check_rect(ra, rng, gen) -> Dict[str, object]:
+    # the rectangle at the packed check's geometry: 7 decode lanes and one
+    # 505-row chunk over a 1024-token resident prefix, S = pow2(505) = 512
+    bases = [2047, 1790, 1499, 1202, 640, 256, 32, 1024]
+    q_lens = [1, 1, 1, 1, 1, 1, 1, 505]
+    B, S = len(bases), 512
+    width = 2048 // PAGE
+    n_pages = B * width + 1
+    pool = make_pool(n_pages, gen)
+    table = lane_tables([-(-(b + n) // PAGE) for b, n in zip(bases, q_lens)], width, n_pages, rng)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    base_t = torch.tensor(bases, **i32)
+    ql_t = torch.tensor(q_lens, **i32)
+
+    def rand(h, dtype=torch.bfloat16, g=gen):
+        return torch.randn((B, S, h, D), generator=g, device="cuda").to(dtype)
+
+    def check(q, k, v, pool) -> float:
+        err = 0.0
+        for window in (0, 512):
+            out = ra.ragged_paged_attention(q, k, v, pool, table, base_t, ql_t, 3, window)
+            ref = ra.ragged_paged_attention_plain(q, k, v, pool, table, base_t, ql_t, 3, window)
+            err = max(err, agree(f"ragged_paged_attention S={S} window={window}", out, ref))
+        return err
+
+    q, k, v = rand(HQ), rand(HKV), rand(HKV)
+    err = check(q, k, v, pool)
+    args = (q, k, v, pool, table, base_t, ql_t)
+    ms = cuda_ms(lambda i: ra.ragged_paged_attention(*args, i % LAYERS), 32)
+    plain_ms = cuda_ms(lambda i: ra.ragged_paged_attention_plain(*args, i % LAYERS), 4)
+    padded = sdpa_lanes(
+        pool, table, bases, [(q[b, :n], k[b, :n], v[b, :n]) for b, n in enumerate(q_lens)], S
+    )
+    library_ms = cuda_ms(lambda i: sdpa_padded(*padded), 32)
+    rows = sum(q_lens)
+    keys_seen = sum(bs * n + n * (n + 1) // 2 for bs, n in zip(bases, q_lens))
+    bytes_moved = (
+        rows * HQ * D * 2 + 2 * rows * HKV * D * 2  # the valid q, k, v rows read
+        + sum(bases) * HKV * D * 2 * 2  # resident prefix K and V rows read
+        + B * S * HQ * D * 2  # the whole output written
+        + table.numel() * 4 + 2 * B * 4
+    )
+    bound_ms, bound_by = bound(bytes_moved, 4.0 * keys_seen * HQ * D)
+    del pool, padded
+    g32 = f32_generator()
+    pool = make_pool(n_pages, g32, torch.float32, 4)
+    check(*[rand(h, torch.float32, g32) for h in (HQ, HKV, HKV)], pool)
+    del pool
+    return dict(
+        name="ragged_paged_attention", route="cuda",
+        source="dynamo_tpu_torch/csrc/packed_ragged_attention.cu",
+        replaces="dynamo_tpu/ops/ragged_attention.py:205",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=library_ms,
     )
@@ -367,9 +561,19 @@ def request(tokens: List[int], max_tokens: int, **sampling) -> dict:
     }
 
 
+REFERENCE_CONFIGS = {
+    "default": {},
+    "classic": dict(mixed_batching=False, prefill_chunk_tokens=32),
+    "rectangle": dict(packed_ragged=False),
+}
+
+
 def reference_phase() -> None:
     """A small f32 model: greedy streams on the card (kernels) equal the
-    CPU's (plain versions) from the same weights."""
+    CPU's (plain versions) from the same weights, under each of the
+    reference configs, with one frequency-penalty lane and one
+    repetition-penalty lane in the batch; on the card the unpenalized
+    lanes agree across the configs."""
     from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.engine.model import init_params
@@ -379,23 +583,39 @@ def reference_phase() -> None:
     params = init_params(cfg, 3, torch.device("cpu"), torch.float32)
     rng = np.random.default_rng(3)
     shared = rng.integers(1, cfg.vocab_size, 40).tolist()
-    batch = [
-        request(rng.integers(1, cfg.vocab_size, 70), 12),
-        request(shared + [5, 6], 12),
-        request(shared + [9], 12),
-        request(rng.integers(1, cfg.vocab_size, 3), 12),
+    # the first batch runs each config's own path; in the second, the
+    # penalized lanes turn every tick classic
+    batches = [
+        [
+            request(rng.integers(1, cfg.vocab_size, 70), 12),
+            request(shared + [5, 6], 12),
+            request(shared + [9], 12),
+            request(rng.integers(1, cfg.vocab_size, 3), 12),
+        ],
+        [
+            request(rng.integers(1, cfg.vocab_size, 50), 12, frequency_penalty=0.7),
+            request(rng.integers(1, cfg.vocab_size, 20), 12, repetition_penalty=1.3),
+            request(shared + [7, 7, 7], 12),
+        ],
     ]
-    streams = {}
-    for dev in ("cuda", "cpu"):
-        p = {
-            k: ({n: w.to(dev) for n, w in v.items()} if isinstance(v, dict) else v.to(dev))
-            for k, v in params.items()
-        }
-        eng = TorchEngine(cfg, p, EngineConfig(**ecfg), device=dev)
-        streams[dev] = [r["tokens"] for r in asyncio.run(serve(eng, [batch]))]
-    print(f"reference: card {streams['cuda']}")
-    if streams["cuda"] != streams["cpu"]:
-        fail(f"small-model greedy streams differ: cpu {streams['cpu']}")
+    unpenalized = {}
+    for name, kw in REFERENCE_CONFIGS.items():
+        streams = {}
+        for dev in ("cuda", "cpu"):
+            p = {
+                k: ({n: w.to(dev) for n, w in v.items()} if isinstance(v, dict) else v.to(dev))
+                for k, v in params.items()
+            }
+            eng = TorchEngine(cfg, p, EngineConfig(**ecfg, **kw), device=dev)
+            streams[dev] = [r["tokens"] for r in asyncio.run(serve(eng, batches))]
+        print(f"reference: {name} card {streams['cuda']}")
+        if streams["cuda"] != streams["cpu"]:
+            fail(f"small-model greedy streams differ under {name}: cpu {streams['cpu']}")
+        if not all(len(t) == 12 for t in streams["cuda"]):
+            fail(f"small-model streams under {name} end early")
+        unpenalized[name] = streams["cuda"][:4] + streams["cuda"][6:]
+    if len({json.dumps(v) for v in unpenalized.values()}) != 1:
+        fail(f"the unpenalized lanes differ across configs: {unpenalized}")
 
 
 def serve_requests(vocab: int) -> Tuple[List[dict], List[dict]]:
@@ -447,24 +667,12 @@ def serve_phase(kernels, card: str) -> Dict[str, object]:
         gc.collect()
         torch.cuda.empty_cache()
         out = res[1:]
-        for i, r in enumerate(out):
-            if len(r["tokens"]) != 64 or r["finish"] != "length":
-                fail(f"run {run} request {i}: {len(r['tokens'])} tokens, finish {r['finish']}")
-            if not all(0 <= t < cfg.vocab_size for t in r["tokens"]):
-                fail(f"run {run} request {i}: token out of range")
-        # end to end: every generated token (primer and batch) over the
-        # run's wall time, prefills included
-        tok_s = sum(len(r["tokens"]) for r in res) / wall
-        # decode phase only: tokens streamed once every request of the batch
-        # had its first one, over that window
-        t_all = max(r["frames"][0][0] for r in out)
-        t_end = max(r["frames"][-1][0] for r in out)
-        n_dec = sum(n for r in out for t, n in r["frames"] if t > t_all)
-        dec = n_dec / (t_end - t_all) if t_end > t_all else float("nan")
+        check_streams(f"serve run {run}", res, cfg.vocab_size)
+        st = served_stats(res, wall)
         print(
             f"serve: run {run} init_s={init_s:.3f} wall_s={wall:.3f} "
             f"dispatches_by_k={by_k} prefix_hit_rate={hits:.4f} "
-            f"tok_s={tok_s:.3f} decode_phase_tok_s={dec:.3f} "
+            f"tok_s={st['tok_s']:.3f} decode_phase_tok_s={st['dec']:.3f} "
             f"peak_mem_gib={peak_gib:.3f} on {card}"
         )
         print(
@@ -485,63 +693,173 @@ def serve_phase(kernels, card: str) -> Dict[str, object]:
     return first
 
 
-def profile_phase(out_path: str, plain_wall_s: float) -> None:
-    """``--profile OUT.txt``: one more served run of the serve phase's
-    requests under ``torch.profiler``; prints the device's busy and idle
-    share of the run's wall time and its kernel time by kind and by name,
-    and writes the full table to ``out_path``.  The profiler slows the
-    host, so the idle share it shows is an upper bound; ``idle_share_est``
-    sets the profiled busy time against ``plain_wall_s``, the wall time of
-    the serve phase's unprofiled run of the same requests (an estimate that
-    assumes the profiler leaves device times as they are)."""
+def served_stats(res: List[dict], wall: float) -> Dict[str, float]:
+    """End to end: every generated token (primer and batch) over the run's
+    wall time, prefills included; decode phase only: tokens streamed once
+    every request of the batch had its first one, over that window."""
+    out = res[1:]
+    t_all = max(r["frames"][0][0] for r in out)
+    t_end = max(r["frames"][-1][0] for r in out)
+    n_dec = sum(n for r in out for t, n in r["frames"] if t > t_all)
+    return dict(
+        tok_s=sum(len(r["tokens"]) for r in res) / wall,
+        dec=n_dec / (t_end - t_all) if t_end > t_all else float("nan"),
+    )
+
+
+def check_streams(what: str, res: List[dict], vocab: int) -> None:
+    for i, r in enumerate(res[1:]):
+        if len(r["tokens"]) != 64 or r["finish"] != "length":
+            fail(f"{what} request {i}: {len(r['tokens'])} tokens, finish {r['finish']}")
+        if not all(0 <= t < vocab for t in r["tokens"]):
+            fail(f"{what} request {i}: token out of range")
+
+
+def penalized_requests(batch: List[dict]) -> List[dict]:
+    """Run A's batch: two greedy lanes carry a frequency and a repetition
+    penalty."""
+    penalized = [dict(r, sampling_options=dict(r["sampling_options"])) for r in batch]
+    penalized[2]["sampling_options"]["frequency_penalty"] = 0.5
+    penalized[5]["sampling_options"]["repetition_penalty"] = 1.1
+    return penalized
+
+
+def serve_classic_phase(
+    kernels, card: str
+) -> Tuple[Dict[str, Dict[str, int]], Dict[str, float]]:
+    """Run A (classic, two penalized lanes) and run B (rectangle) at
+    Llama-3-8B width on one set of random weights; returns each run's
+    kernel launches and wall time."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.model import init_params
+
+    cfg = ModelConfig.llama3_8b()
+    primer, batch = serve_requests(cfg.vocab_size)
+    params = init_params(cfg, 0, torch.device("cuda"), torch.bfloat16)
+    runs = {
+        "A": (dict(mixed_batching=False), penalized_requests(batch),
+              ("paged_decode_attention", "flash_prefill_attention",
+               "flash_prefix_prefill_attention")),
+        "B": (dict(packed_ragged=False), batch,
+              ("paged_decode_attention", "ragged_paged_attention")),
+    }
+    launches: Dict[str, Dict[str, int]] = {}
+    walls: Dict[str, float] = {}
+    for run, (kw, reqs, needed) in runs.items():
+        torch.cuda.reset_peak_memory_stats()
+        engine = TorchEngine(cfg, params, EngineConfig(num_pages=1024, **kw))
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        res = asyncio.run(serve(engine, [primer, reqs]))
+        walls[run] = wall = time.perf_counter() - t0
+        launches[run] = {k.name: k.launches for k in kernels}
+        kinds = dict(engine.dispatches)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        check_streams(f"serve-classic run {run}", res, cfg.vocab_size)
+        st = served_stats(res, wall)
+        print(
+            f"serve-classic: run {run} {kw} wall_s={wall:.3f} "
+            f"dispatches_by_kind={kinds} tok_s={st['tok_s']:.3f} "
+            f"decode_phase_tok_s={st['dec']:.3f} peak_mem_gib={peak_gib:.3f} on {card}"
+        )
+        print(
+            "serve-classic: run %s ttft_ms=%s"
+            % (run, [round(r["ttft"] * 1e3, 3) for r in res[1:]])
+        )
+        print(f"serve-classic: run {run} launches {launches[run]}")
+        for name in needed:
+            if launches[run][name] <= 0:
+                fail(f"{name} never launched in serve-classic run {run}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, walls
+
+
+def profile_phase(out_path: str, plain_walls: Dict[str, float]) -> None:
+    """``--profile OUT.txt``: each served cell once more under
+    ``torch.profiler`` -- the serve phase's run and serve-classic runs A and
+    B, the same configs and requests on one set of random weights; prints
+    per cell the device's busy and idle share of the run's wall time and
+    its kernel time by kind and by name, and writes the full tables to
+    ``out_path``.  The profiler slows the host, so the idle share it shows
+    is an upper bound; ``idle_share_est`` sets the profiled busy time
+    against ``plain_walls[cell]``, the wall time of the cell's unprofiled
+    run in this call (an estimate that assumes the profiler leaves device
+    times as they are)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
     from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.model import init_params
 
     cfg = ModelConfig.llama3_8b()
     primer, batch = serve_requests(cfg.vocab_size)
-    engine = TorchEngine.random_init(cfg, EngineConfig(num_pages=1024), seed=0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        asyncio.run(serve(engine, [primer, batch]))
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = sorted(
-        (
-            (e.self_device_time_total / 1e3, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-        ),
-        reverse=True,
-    )
-    if not kernels:
-        fail("the profiler recorded no device time")
+    params = init_params(cfg, 0, torch.device("cuda"), torch.bfloat16)
+    cells = {
+        "serve": ({}, batch),
+        "A": (dict(mixed_batching=False), penalized_requests(batch)),
+        "B": (dict(packed_ragged=False), batch),
+    }
     kinds = {
         "paged_decode_attention": ("paged_decode_kernel",),
-        "packed_ragged_attention": ("packed_ragged_kernel",),
+        "ragged_attention": ("ragged_kernel",),
+        "flash_prefill": ("flash_kernel",),
         "matmul": ("gemm", "nvjet", "xmma", "cutlass"),
     }
-    by_kind: Dict[str, float] = {}
-    for ms, _, name in kernels:
-        kind = next((k for k, keys in kinds.items() if any(x in name for x in keys)), "other")
-        by_kind[kind] = by_kind.get(kind, 0.0) + ms
-    busy_ms = sum(ms for ms, _, _ in kernels)
-    print(
-        f"profile: wall_ms={wall_ms:.3f} device_busy_ms={busy_ms:.3f} "
-        f"idle_share={1.0 - busy_ms / wall_ms:.4f} "
-        f"unprofiled_wall_ms={plain_wall_s * 1e3:.3f} "
-        f"idle_share_est={1.0 - busy_ms / (plain_wall_s * 1e3):.4f} "
-        f"by_kind_ms={by_kind}"
-    )
-    for ms, n, name in kernels[:12]:
-        print(f"profile: {ms:.3f} ms over {n} launches: {name[:100]}")
+    tables = []
+    for cell, (kw, reqs) in cells.items():
+        engine = TorchEngine(cfg, params, EngineConfig(num_pages=1024, **kw))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            asyncio.run(serve(engine, [primer, reqs]))
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        del engine
+        kernels = sorted(
+            (
+                (e.self_device_time_total / 1e3, e.count, e.key)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            ),
+            reverse=True,
+        )
+        if not kernels:
+            fail(f"the profiler recorded no device time in cell {cell}")
+        by_kind: Dict[str, float] = {}
+        for ms, _, name in kernels:
+            kind = next(
+                (k for k, keys in kinds.items() if any(x in name for x in keys)), "other"
+            )
+            by_kind[kind] = round(by_kind.get(kind, 0.0) + ms, 3)
+        busy_ms = sum(ms for ms, _, _ in kernels)
+        plain_ms = plain_walls[cell] * 1e3
+        print(
+            f"profile: {cell} {kw} wall_ms={wall_ms:.3f} device_busy_ms={busy_ms:.3f} "
+            f"idle_share={1.0 - busy_ms / wall_ms:.4f} "
+            f"unprofiled_wall_ms={plain_ms:.3f} "
+            f"idle_share_est={1.0 - busy_ms / plain_ms:.4f} by_kind_ms={by_kind}"
+        )
+        for ms, n, name in kernels[:8]:
+            print(f"profile: {cell} {ms:.3f} ms over {n} launches: {name[:100]}")
+        tables.append(
+            f"== {cell} {kw}\n"
+            + prof.key_averages().table(sort_by="self_device_time_total", row_limit=60)
+        )
+        del prof
+        gc.collect()
+        torch.cuda.empty_cache()
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     with open(out_path, "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=80))
-    del engine
+        f.write("\n\n".join(tables))
+    del params
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -559,6 +877,7 @@ def main() -> None:
     try:
         from dynamo_tpu_torch.engine import bucketing
         from dynamo_tpu_torch.ops import build
+        from dynamo_tpu_torch.ops import flash_prefill as fp
         from dynamo_tpu_torch.ops import paged_attention as pa
         from dynamo_tpu_torch.ops import ragged_attention as ra
     except ImportError as e:
@@ -570,16 +889,27 @@ def main() -> None:
     print(card, flush=True)
 
     t0 = time.perf_counter()
-    kernels = [pa.KERNEL, ra.KERNEL]
+    # the main path's kernels (the serve phase) and the classic and
+    # rectangle paths' (the serve-classic phase)
+    main_kernels = [pa.KERNEL, ra.KERNEL]
+    kernels = main_kernels + [fp.KERNEL, fp.PREFIX_KERNEL, ra.RECT_KERNEL]
     for name, lines in build.build_all(kernels).items():
         for ln in lines:
             print(f"build: {name}: {ln}")
+            if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln)):
+                fail(f"{name} spills: {ln}")
     print(f"build: {time.perf_counter() - t0:.3f} s", flush=True)
 
     rng = np.random.default_rng(0)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    rows = [check_decode(pa, rng, gen), check_ragged(ra, bucketing, rng, gen)]
+    rows = [
+        check_decode(pa, rng, gen),
+        check_flash(fp, gen),
+        check_flash_prefix(fp, gen),
+        check_rect(ra, rng, gen),
+        check_ragged(ra, bucketing, rng, gen),
+    ]
     for r in rows:
         print(
             f"kernels: {r['name']} ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} "
@@ -590,11 +920,20 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     reference_phase()
-    served = serve_phase(kernels, card)
+    served = serve_phase(main_kernels, card)
+    classic, classic_walls = serve_classic_phase(kernels, card)
     if profile_out is not None:
-        profile_phase(profile_out, served["wall"])
+        profile_phase(profile_out, {"serve": served["wall"], **classic_walls})
+    # each kernel's launches from the phase that runs it
+    launches = {
+        "paged_decode_attention": served["launches"]["paged_decode_attention"],
+        "packed_ragged_attention": served["launches"]["packed_ragged_attention"],
+        "flash_prefill_attention": classic["A"]["flash_prefill_attention"],
+        "flash_prefix_prefill_attention": classic["A"]["flash_prefix_prefill_attention"],
+        "ragged_paged_attention": classic["B"]["ragged_paged_attention"],
+    }
     for r in rows:
-        r["launches"] = served["launches"][r["name"]]
+        r["launches"] = launches[r["name"]]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({
         "ok": True,

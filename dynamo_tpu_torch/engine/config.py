@@ -100,3 +100,16 @@ class EngineConfig:
     # ticks fuse up to this many decode steps into one dispatch (1 pins
     # single-step dispatches)
     multistep_max_k: int = 8
+    # decode steps of one classic decode block (ticks with a penalized lane
+    # slotted, the rectangle layout's pure-decode ticks, --no-mixed-batching)
+    decode_block_size: int = 16
+    # classic path: prompts whose uncached part is longer prefill in
+    # page-aligned chunks of this many tokens, one chunk per tick (rounded
+    # up to a page); mixed ticks cap one lane's chunk at it.  None = whole
+    prefill_chunk_tokens: Optional[int] = None
+    # pack prefill chunks and decode rows into one unified dispatch per
+    # tick; False runs the classic separate prefill and decode dispatches
+    mixed_batching: bool = True
+    # the unified dispatch's layout: one flat packed token axis, or the
+    # [B, S] rectangle (False); multistep decode needs the packed layout
+    packed_ragged: bool = True

@@ -16,7 +16,7 @@ token for token across the two packages.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +39,11 @@ class SamplingParams:
     # 1..2^32-1) or its engine nonce (unseeded lanes)
     key: torch.Tensor
     seeded: torch.Tensor  # [B] bool
+    # OpenAI frequency/presence penalties (0 = off), over the generated-token
+    # histogram, and HF repetition_penalty (1 = off), over prompt and output
+    freq: Optional[torch.Tensor] = None  # [B] f32
+    pres: Optional[torch.Tensor] = None  # [B] f32
+    rep: Optional[torch.Tensor] = None  # [B] f32
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -102,6 +107,36 @@ def sample_tokens(
         scaled = torch.where(scaled >= thresh, masked, _NEG_INF)
     sampled = torch.argmax(scaled + gumbel, dim=-1)
     return torch.where(params.temperature <= 0.0, greedy, sampled)
+
+
+# Penalty histograms pack two facts into ONE [B, V] int32 buffer: the low
+# 16 bits count GENERATED occurrences (frequency/presence, output-only) and
+# each PROMPT occurrence adds PROMPT_FLAG (repetition sees prompt + output).
+# Prompts of a few thousand tokens and outputs < 65536 never overflow one
+# field into the other.  The JAX package's layout, kept bit for bit.
+PROMPT_FLAG = 1 << 16
+
+
+def apply_penalties(
+    logits: torch.Tensor,  # [B, V] f32
+    counts: torch.Tensor,  # [B, V] int32 packed histogram (see PROMPT_FLAG)
+    freq: torch.Tensor,  # [B] frequency_penalty
+    pres: torch.Tensor,  # [B] presence_penalty
+    rep: Optional[torch.Tensor] = None,  # [B] repetition_penalty (1 = off)
+) -> torch.Tensor:
+    """``l' = l/rep if seen and l>0 else l*rep if seen else l``, then
+    ``l' - out_count*freq - (out_count>0)*pres``: applied to the raw
+    logits, before temperature."""
+    out_count = (counts % PROMPT_FLAG).float()
+    if rep is not None:
+        r = rep.float()[:, None]
+        rep_applied = torch.where(logits > 0, logits / r, logits * r)
+        logits = torch.where(counts > 0, rep_applied, logits)
+    return (
+        logits
+        - freq.float()[:, None] * out_count
+        - pres.float()[:, None] * (out_count > 0).float()
+    )
 
 
 def token_logprobs(

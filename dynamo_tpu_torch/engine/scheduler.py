@@ -3,7 +3,8 @@
 A copy of the JAX package's scheduler (``engine/scheduler.py``) restricted
 to what the PyTorch engine serves: FIFO slot admission with prefix-cache
 reuse, mixed-batch chunk formation, page growth with recompute preemption,
-and the host replay of the stop rules at commit.  Not carried over: the
+and the host replay of the stop rules at commit (decode blocks and the
+classic path's first token).  Not carried over: the
 KV-budget admission planner, data-parallel slot balancing, the offload /
 swap / disaggregation hooks and multimodal prompts.  Speculation fields
 stay inert (``spec_live`` is always False here: the engine never arms a
@@ -287,19 +288,24 @@ class Scheduler:
         if seq not in self.mix_pending:
             self.mix_pending.append(seq)
 
-    def form_mixed_chunks(self, budget: int) -> List[MixedChunk]:
+    def form_mixed_chunks(
+        self, budget: int, chunk_cap: Optional[int] = None
+    ) -> List[MixedChunk]:
         """Pack pending prefill work into this tick's unified dispatch.
 
         ``budget`` is the dispatch's total fresh-token budget: every
         decode-runnable lane costs one token, the remainder goes to
         prefill chunks in arrival order.  At least one prompt token always
         packs when prefill work is pending, so a decode batch as wide as
-        the budget can never starve admission.
+        the budget can never starve admission.  ``chunk_cap`` bounds one
+        lane's chunk (the ``prefill_chunk_tokens`` knob).
 
-        Non-final chunk boundaries are rounded DOWN to a page multiple
-        (the JAX engine's rule, kept so both engines chunk a prompt alike).
-        When alignment rounds the head lane's chunk to zero, one full page
-        packs anyway (slight budget overshoot beats starvation).
+        Non-final chunk boundaries are rounded DOWN to a page multiple: a
+        lane drained to the classic path (a penalized arrival turned the
+        tick classic) resumes through the suffix prefill, whose prefix page
+        table covers whole pages only.  When alignment rounds the head
+        lane's chunk to zero, one full page packs anyway (slight budget
+        overshoot beats starvation).
         """
         ps = self.cfg.page_size
         left = max(budget - self.num_decode_runnable, 1)
@@ -321,6 +327,8 @@ class Scheduler:
                 seq.prefilling = False
                 continue
             take = min(remaining, left) if left > 0 else 0
+            if chunk_cap is not None:
+                take = min(take, chunk_cap)
             if take < remaining:
                 # non-final: keep the boundary page-aligned (start is
                 # aligned by induction)
@@ -540,6 +548,25 @@ class Scheduler:
             seq=seq, tokens=tokens, finished=finished, completed_blocks=blocks,
             logprobs=logprobs, top_logprobs=tops,
         )
+
+    def commit_prefill_token(
+        self,
+        seq: SeqState,
+        token: int,
+        logprob: Optional[float] = None,
+        top: Optional[List[List[float]]] = None,
+    ) -> StepEvent:
+        """Apply the first token sampled from a classic prefill's logits."""
+        ev = self._commit_token(seq, token)
+        if ev.tokens:
+            if logprob is not None:
+                ev.logprobs = [logprob]
+            if top is not None:
+                ev.top_logprobs = [top]
+        if ev.finished is not None:
+            seq.finish = ev.finished
+            self._release_slot(seq)
+        return ev
 
     def commit_block(
         self,

@@ -1,22 +1,29 @@
-"""Engine steps of the main path: the packed unified step and its
-multi-step decode tail.
+"""Engine steps: the packed unified step and its multi-step decode tail
+(the default path), the rectangle unified step (``packed_ragged=False``),
+and the classic separate dispatches: full and prefix-suffix prefill with
+first-token sampling, and the fixed-width decode block with penalty
+histograms.
 
 The counterparts of the JAX package's ``step.py`` functions
 ``_packed_unified_step`` (without folded speculative verify),
-``_mixed_sample_epilogue``, ``_decode_once`` and
-``_packed_unified_multistep``.  They run eagerly; the KV pool is updated in
-place.  Decode state (last token, cache length, active flag) enters and
-leaves each call as tensors; the sampled rows come back packed
-(``sampling.pack_sampled_logprobs``) for one host transfer per dispatch.
+``_unified_step``, ``_mixed_sample_epilogue``, ``_decode_once``,
+``_packed_unified_multistep``, ``_decode_block``, ``prefill_step``,
+``prefill_and_sample``, ``prefill_suffix_and_sample``,
+``sample_step_packed`` and ``_prompt_penalized_logits``.  They run eagerly;
+the KV pool is updated in place.  Decode state (last token, cache length,
+active flag, penalty histogram) enters and leaves each call as tensors;
+the sampled rows come back packed (``sampling.pack_sampled_logprobs``) for
+one host transfer per dispatch.
 
-Multi-step rule: the tail always runs all ``num_steps - 1`` steps, because
-branching on ``active.any()`` between steps would cost a host sync per
-step.  A step whose lanes are all inactive is the JAX package's
-``dead_step`` by device-side selects: its row comes out all ``-1`` and its
-KV writes go to trash page 0, so the pool ends as the JAX pool does.
-Sampling noise is a stateless hash of (lane key, position), so the extra
-steps draw nothing that a later token depends on: K fused steps give the
-same tokens as K single-step dispatches, for greedy and seeded lanes alike.
+Multi-step rule (the multistep tail and the decode block): every step
+runs, because branching on ``active.any()`` between steps would cost a host
+sync per step.  A step whose lanes are all inactive is the JAX package's
+``dead_step`` by device-side selects: its row comes out all ``-1``, its KV
+writes go to trash page 0 and its histogram bump is empty, so the pool
+ends as the JAX pool does.  Sampling noise is a stateless hash of (lane
+key, position), so the extra steps draw nothing that a later token depends
+on: K fused steps give the same tokens as K single-step dispatches, for
+greedy and seeded lanes alike.
 """
 
 from __future__ import annotations
@@ -29,7 +36,9 @@ from . import attention as att
 from .config import ModelConfig
 from .model import Params, lm_logits, transformer
 from .sampling import (
+    PROMPT_FLAG,
     SamplingParams,
+    apply_penalties,
     pack_sampled_logprobs,
     sample_tokens,
     token_logprobs,
@@ -196,19 +205,278 @@ def packed_unified_multistep(
     )
     rows = [packed0]
     for _ in range(num_steps - 1):
-        live = active.any()  # a device scalar: no host sync
-        logits = decode_once(
-            params, cfg, kv_pages, tokens, seq_lens, page_table, live
+        row, tokens, seq_lens, active, _ = _decode_step(
+            params, cfg, kv_pages, tokens, seq_lens, limit_lens, active,
+            stop_ids, page_table, sampling, top_n, use_filters,
         )
-        sampled = sample_tokens(logits, sampling, seq_lens + 1, use_filters)
-        lp, top_ids, top_lps = token_logprobs(logits, sampled, top_n)
-        hit_stop = (sampled[:, None] == stop_ids).any(dim=1)
-        emit = active & ~hit_stop
-        new_seq = seq_lens + emit.long()
-        out = torch.where(active, sampled, -1)
-        row = pack_sampled_logprobs(out, lp, top_ids, top_lps)
-        rows.append(torch.where(live, row, -1))
-        active = emit & (new_seq < limit_lens)
-        tokens = torch.where(emit, sampled, tokens)
-        seq_lens = new_seq
+        rows.append(row)
     return torch.stack(rows, dim=1), tokens, seq_lens, active
+
+
+def _decode_step(
+    params: Params,
+    cfg: ModelConfig,
+    kv_pages: torch.Tensor,
+    tokens: torch.Tensor,
+    seq_lens: torch.Tensor,
+    limit_lens: torch.Tensor,
+    active: torch.Tensor,
+    stop_ids: torch.Tensor,
+    page_table: torch.Tensor,
+    sampling: SamplingParams,
+    top_n: int,
+    use_filters: bool,
+    counts: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """One decode+sample iteration of the JAX package's ``live_step`` /
+    ``dead_step`` pair, chosen by device-side selects (see the module
+    docstring).  With ``counts`` (the packed penalty histogram) the lanes
+    sample from penalized logits and their emitted tokens bump it; the
+    logprobs report the raw logits.  Returns ``(row [B, 2 + 2*top_n],
+    tokens, seq_lens, active, counts)``."""
+    live = active.any()  # a device scalar: no host sync
+    logits = decode_once(params, cfg, kv_pages, tokens, seq_lens, page_table, live)
+    logits_s = logits
+    if counts is not None:
+        logits_s = apply_penalties(
+            logits, counts, sampling.freq, sampling.pres, sampling.rep
+        )
+    # seeded lanes key their noise by the position being filled
+    sampled = sample_tokens(logits_s, sampling, seq_lens + 1, use_filters)
+    lp, top_ids, top_lps = token_logprobs(logits, sampled, top_n)
+    hit_stop = (sampled[:, None] == stop_ids).any(dim=1)
+    emit = active & ~hit_stop  # stop tokens are swallowed, not emitted
+    new_seq = seq_lens + emit.long()
+    out = torch.where(active, sampled, -1)
+    row = torch.where(live, pack_sampled_logprobs(out, lp, top_ids, top_lps), -1)
+    if counts is not None:
+        B = tokens.shape[0]
+        counts = counts.index_put(
+            (torch.arange(B, device=counts.device), sampled),
+            emit.to(counts.dtype),
+            accumulate=True,
+        )
+    return (
+        row,
+        torch.where(emit, sampled, tokens),
+        new_seq,
+        emit & (new_seq < limit_lens),
+        counts,
+    )
+
+
+def decode_block(
+    params: Params,
+    cfg: ModelConfig,
+    kv_pages: torch.Tensor,  # updated in place
+    tokens: torch.Tensor,  # [B] last committed token per lane
+    seq_lens: torch.Tensor,  # [B] cache length (position of the incoming token)
+    limit_lens: torch.Tensor,  # [B] cache length at which a lane must stop
+    active: torch.Tensor,  # [B] bool
+    stop_ids: torch.Tensor,  # [B, E] device-checked stop tokens (-1 = pad)
+    page_table: torch.Tensor,  # [B, P] (pre-grown for num_steps of growth)
+    sampling: SamplingParams,
+    num_steps: int,
+    use_filters: bool = True,
+    top_n: int = 0,
+    counts: Optional[torch.Tensor] = None,  # [B, V] int32 packed histogram
+    use_penalties: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """``num_steps`` decode+sample iterations in one dispatch (the classic
+    decode block).  Lanes self-deactivate on a ``stop_ids`` token or at
+    ``limit_lens``; the host replays the stop rules at commit.  Returns
+    ``(packed [B, num_steps, 2 + 2*top_n], tokens, seq_lens, active,
+    counts)``; ``-1`` tokens mark steps a lane was already inactive for."""
+    if not use_penalties:
+        counts = None
+    rows = []
+    for _ in range(num_steps):
+        row, tokens, seq_lens, active, counts = _decode_step(
+            params, cfg, kv_pages, tokens, seq_lens, limit_lens, active,
+            stop_ids, page_table, sampling, top_n, use_filters, counts,
+        )
+        rows.append(row)
+    return torch.stack(rows, dim=1), tokens, seq_lens, active, counts
+
+
+def unified_step(
+    params: Params,
+    cfg: ModelConfig,
+    kv_pages: torch.Tensor,  # updated in place
+    tokens: torch.Tensor,  # [B] last committed token per lane
+    seq_lens: torch.Tensor,  # [B] cache length (next decode write position)
+    limit_lens: torch.Tensor,  # [B]
+    active: torch.Tensor,  # [B] bool: decode lanes
+    stop_ids: torch.Tensor,  # [B, E]
+    page_table: torch.Tensor,  # [B, P] int32
+    p_tokens: torch.Tensor,  # [B, S] prefill chunk tokens (0 on decode lanes)
+    p_start: torch.Tensor,  # [B] chunk start position
+    p_lens: torch.Tensor,  # [B] chunk length; 0 = decode / idle lane
+    p_sample: torch.Tensor,  # [B] bool: final chunk -> sample first token
+    p_activate: torch.Tensor,  # [B] bool: final chunk also joins decode
+    sampling: SamplingParams,
+    top_n: int = 0,
+    use_filters: bool = True,
+) -> Tuple[torch.Tensor, ...]:
+    """ONE mixed prefill+decode dispatch over the ``[B, S]`` rectangle
+    (``packed_ragged=False``): decode lanes contribute row 0 (their last
+    token), prefill lanes their chunk's rows.  The same epilogue as the
+    packed step.  Returns ``(packed [B, 2 + 2*top_n], tokens, seq_lens,
+    active)``."""
+    B, S = p_tokens.shape
+    is_pf = p_lens > 0
+    q_lens = torch.where(is_pf, p_lens, active.long())
+    base = torch.where(is_pf, p_start, seq_lens)
+    toks2d = p_tokens.clone()
+    toks2d[:, 0] = torch.where(is_pf, p_tokens[:, 0], tokens)
+    positions = base[:, None] + torch.arange(S, device=base.device)[None, :]
+    window = cfg.sliding_window or 0
+
+    def attn_fn(q, k, v, kv, layer):
+        q4, k4, v4 = (x.view(B, S, *x.shape[1:]) for x in (q, k, v))
+        out = att.ragged_attention_dispatch(
+            q4, k4, v4, kv, layer, page_table, base, q_lens, window
+        )
+        att.write_spec_kv(kv, k4, v4, page_table, base, q_lens, layer)
+        return out.view(q.shape)
+
+    hidden = transformer(
+        params, cfg, toks2d.reshape(-1), positions.reshape(-1), kv_pages, attn_fn
+    )
+    last = torch.arange(B, device=base.device) * S + (q_lens - 1).clamp(0, S - 1)
+    logits = lm_logits(params, cfg, hidden[last])  # [B, V]
+    return mixed_sample_epilogue(
+        logits, base, q_lens, is_pf, p_start, p_lens, p_sample, p_activate,
+        tokens, seq_lens, limit_lens, active, stop_ids, sampling, top_n,
+        use_filters,
+    )
+
+
+# ---------------------------------------------------------------------------
+# classic prefill dispatches
+# ---------------------------------------------------------------------------
+
+
+def prompt_penalized_logits(
+    logits: torch.Tensor,  # [B, V]
+    tokens: torch.Tensor,  # [B, T] the tokens this dispatch carries
+    seq_lens: torch.Tensor,  # [B] valid lengths
+    sampling: SamplingParams,
+) -> torch.Tensor:
+    """Repetition-penalize first-token logits over the dispatch's own
+    prompt tokens (frequency/presence are output-only: the histogram's
+    output field stays 0 here).  A suffix dispatch carries only the suffix,
+    so a cached prefix is not penalized for this one token; the decode
+    histogram covers every later step."""
+    B, T = tokens.shape
+    V = logits.shape[1]
+    valid = torch.arange(T, device=tokens.device)[None, :] < seq_lens[:, None]
+    seen = torch.zeros((B, V), dtype=torch.int32, device=logits.device)
+    seen.scatter_add_(
+        1, tokens.long().clamp(0, V - 1), valid.to(torch.int32) * PROMPT_FLAG
+    )
+    return apply_penalties(logits, seen, sampling.freq, sampling.pres, sampling.rep)
+
+
+def sample_step_packed(
+    logits: torch.Tensor,  # [B, V] raw logits (the logprobs report these)
+    sampling: SamplingParams,
+    top_n: int,
+    positions: torch.Tensor,  # [B] position identity of the sampled token
+    sample_logits: Optional[torch.Tensor] = None,  # penalized logits to sample
+) -> torch.Tensor:
+    """Sample + logprob packing: ``[B, 2 + 2*top_n]`` int32."""
+    src = logits if sample_logits is None else sample_logits
+    sampled = sample_tokens(src, sampling, positions)
+    lp, top_ids, top_lps = token_logprobs(logits, sampled, top_n)
+    return pack_sampled_logprobs(sampled, lp, top_ids, top_lps)
+
+
+def _last_row_logits(params, cfg, hidden, lens, B, T) -> torch.Tensor:
+    last = torch.arange(B, device=lens.device) * T + (lens - 1).clamp(0, T - 1)
+    return lm_logits(params, cfg, hidden[last])
+
+
+def prefill_step(
+    params: Params,
+    cfg: ModelConfig,
+    kv_pages: torch.Tensor,  # updated in place
+    tokens: torch.Tensor,  # [B, T] bucket-padded prompts (T a page multiple)
+    seq_lens: torch.Tensor,  # [B] true prompt lengths (0 = pad lane)
+    page_table: torch.Tensor,  # [B, T // page] the lanes' pages
+) -> torch.Tensor:
+    """Run full prompts from position 0, write their KV pages, return the
+    last prompt row's logits ``[B, V]``."""
+    B, T = tokens.shape
+    positions = torch.arange(T, device=tokens.device).repeat(B)
+    window = cfg.sliding_window or 0
+
+    def attn_fn(q, k, v, kv, layer):
+        q4, k4, v4 = (x.view(B, T, *x.shape[1:]) for x in (q, k, v))
+        out = att.prefill_attention_dispatch(q4, k4, v4, seq_lens, window)
+        att.write_prefill_kv(kv, k4, v4, page_table, layer)
+        return out.view(q.shape)
+
+    hidden = transformer(params, cfg, tokens.reshape(-1), positions, kv_pages, attn_fn)
+    return _last_row_logits(params, cfg, hidden, seq_lens, B, T)
+
+
+def prefill_and_sample(
+    params: Params,
+    cfg: ModelConfig,
+    kv_pages: torch.Tensor,
+    tokens: torch.Tensor,
+    seq_lens: torch.Tensor,
+    page_table: torch.Tensor,
+    sampling: SamplingParams,
+    top_n: int = 0,
+    use_penalties: bool = False,
+) -> torch.Tensor:
+    """Prefill plus first-token sampling: ``packed [B, 2 + 2*top_n]``."""
+    logits = prefill_step(params, cfg, kv_pages, tokens, seq_lens, page_table)
+    pen = (
+        prompt_penalized_logits(logits, tokens, seq_lens, sampling)
+        if use_penalties
+        else None
+    )
+    return sample_step_packed(logits, sampling, top_n, seq_lens, pen)
+
+
+def prefill_suffix_and_sample(
+    params: Params,
+    cfg: ModelConfig,
+    kv_pages: torch.Tensor,  # updated in place
+    tokens: torch.Tensor,  # [B, T] bucket-padded suffix tokens
+    offset: torch.Tensor,  # [B] cached prefix length (page-aligned)
+    suffix_lens: torch.Tensor,  # [B] true suffix length
+    prefix_table: torch.Tensor,  # [B, Pp] reused-prefix pages (0-padded)
+    suffix_table: torch.Tensor,  # [B, T // page] pages the suffix writes into
+    sampling: SamplingParams,
+    top_n: int = 0,
+    use_penalties: bool = False,
+) -> torch.Tensor:
+    """Prefix-cache restart (and each classic prefill chunk): prefill only
+    the suffix, attending to the resident prefix pages; sample the first
+    token.  Returns ``packed [B, 2 + 2*top_n]``."""
+    B, T = tokens.shape
+    positions = (offset[:, None] + torch.arange(T, device=offset.device)[None, :])
+    window = cfg.sliding_window or 0
+
+    def attn_fn(q, k, v, kv, layer):
+        q4, k4, v4 = (x.view(B, T, *x.shape[1:]) for x in (q, k, v))
+        out = att.prefill_prefix_attention_dispatch(
+            q4, k4, v4, kv, layer, prefix_table, offset, suffix_lens, window
+        )
+        att.write_prefill_kv(kv, k4, v4, suffix_table, layer)
+        return out.view(q.shape)
+
+    hidden = transformer(
+        params, cfg, tokens.reshape(-1), positions.reshape(-1), kv_pages, attn_fn
+    )
+    logits = _last_row_logits(params, cfg, hidden, suffix_lens, B, T)
+    pen = (
+        prompt_penalized_logits(logits, tokens, suffix_lens, sampling)
+        if use_penalties
+        else None
+    )
+    return sample_step_packed(logits, sampling, top_n, offset + suffix_lens, pen)

@@ -1,10 +1,11 @@
 """Build and bind the port's hand-written CUDA kernels.
 
-Each kernel is one source under ``dynamo_tpu_torch/csrc/`` with a plain C
-entry point.  At its first launch it is compiled by ``nvcc`` for ``sm_90a``
-into a shared library under ``dynamo_tpu_torch/csrc/build/`` (named by a
-digest of the sources, so an edited source rebuilds) and loaded with
-``ctypes``.  Nothing here runs at import: the CPU test machines import every
+Each kernel is a plain C entry point in a source under
+``dynamo_tpu_torch/csrc/``; one source may hold several entries.  At the
+first launch of one of its entries a source is compiled by ``nvcc`` for
+``sm_90a`` into a shared library under ``dynamo_tpu_torch/csrc/build/``
+(named by a digest of the sources, so an edited source rebuilds) and loaded
+with ``ctypes``.  Nothing here runs at import: the CPU test machines import every
 module and have no ``nvcc``.
 
 A C entry returns ``cudaGetLastError()`` after its launch (or
@@ -29,6 +30,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 # dtype codes of the C entries (csrc/common.cuh DTYPE_*)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the head geometries the kernels instantiate: those of the port's configs
+SUPPORTED_HEAD_DIMS = (64, 128)
+SUPPORTED_GROUPS = (2, 4)  # GQA groups of ModelConfig.tiny and llama3_8b
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -46,20 +50,28 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build on a CUDA machine")
 
 
+# one build at a time in this process: entries sharing a source share its
+# library and its temporary output path
+_BUILD_LOCK = threading.Lock()
+
+
 class CudaKernel:
-    """One hand-written kernel: its source, its lazily built library and its
+    """One hand-written kernel: its C entry ``name`` in ``csrc/<source>.cu``
+    (``source`` defaults to ``name``), its lazily built library and its
     launch count (a plain integer the smoke run resets and reads)."""
 
-    def __init__(self, name: str, argtypes: Sequence[type]) -> None:
+    def __init__(
+        self, name: str, argtypes: Sequence[type], source: Optional[str] = None
+    ) -> None:
         self.name = name
+        self.source_name = source or name
         self.argtypes = list(argtypes)
         self.launches = 0
         self._fn = None
-        self._lock = threading.Lock()
 
     @property
     def source(self) -> Path:
-        return CSRC / f"{self.name}.cu"
+        return CSRC / f"{self.source_name}.cu"
 
     def _digest(self) -> str:
         h = hashlib.sha1()
@@ -69,7 +81,7 @@ class CudaKernel:
         return h.hexdigest()[:12]
 
     def library_path(self) -> Path:
-        return BUILD_DIR / f"lib{self.name}-{self._digest()}.so"
+        return BUILD_DIR / f"lib{self.source_name}-{self._digest()}.so"
 
     def log_path(self) -> Path:
         return self.library_path().with_suffix(".log")
@@ -103,9 +115,10 @@ class CudaKernel:
         os.replace(tmp, self.library_path())
 
     def build(self) -> None:
-        started = self.start_build()
-        if started is not None:
-            self.finish_build(*started)
+        with _BUILD_LOCK:
+            started = self.start_build()
+            if started is not None:
+                self.finish_build(*started)
 
     def ptxas_info(self) -> List[str]:
         """The ``-Xptxas -v`` lines (registers, shared memory, spills) of
@@ -121,15 +134,14 @@ class CudaKernel:
         ]
 
     def _load(self):
-        with self._lock:
-            if self._fn is None:
-                self.build()
-                lib = ctypes.CDLL(str(self.library_path()))
-                fn = getattr(lib, self.name)
-                fn.argtypes = self.argtypes
-                fn.restype = ctypes.c_int
-                self._fn = fn
-            return self._fn
+        if self._fn is None:
+            self.build()
+            lib = ctypes.CDLL(str(self.library_path()))
+            fn = getattr(lib, self.name)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
 
     def launch(self, *args) -> None:
         rc = self._load()(*args)
@@ -139,24 +151,34 @@ class CudaKernel:
 
 
 def build_all(kernels: Sequence[CudaKernel]) -> Dict[str, List[str]]:
-    """Build every kernel at once (one ``nvcc`` per source, all started
-    together); returns each kernel's ptxas lines."""
-    started = [(k, k.start_build()) for k in kernels]
+    """Build every kernel's source at once (one ``nvcc`` per source, all
+    started together); returns each source's ptxas lines."""
+    by_source = {k.source_name: k for k in kernels}
     errors = []
-    for k, s in started:
-        if s is None:
-            continue
-        try:
-            k.finish_build(*s)
-        except RuntimeError as e:
-            errors.append(str(e))
+    with _BUILD_LOCK:
+        started = [(k, k.start_build()) for k in by_source.values()]
+        for k, s in started:
+            if s is None:
+                continue
+            try:
+                k.finish_build(*s)
+            except RuntimeError as e:
+                errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
-    return {k.name: k.ptxas_info() for k in kernels}
+    return {name: k.ptxas_info() for name, k in by_source.items()}
 
 
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_geometry(dtype: torch.dtype, Hq: int, Hkv: int, D: int) -> None:
+    """Refuse a dtype or head geometry no kernel instantiation takes."""
+    if dtype not in DTYPE_CODES:
+        raise ValueError(f"unsupported dtype {dtype}")
+    if D not in SUPPORTED_HEAD_DIMS or Hq % Hkv or Hq // Hkv not in SUPPORTED_GROUPS:
+        raise ValueError(f"unsupported head geometry Hq={Hq} Hkv={Hkv} D={D}")
 
 
 def check_cuda_operand(

@@ -16,14 +16,20 @@ import math
 
 import torch
 
-from .build import DTYPE_CODES, CudaKernel, I, P, check_cuda_operand, stream_ptr
+from .build import (
+    DTYPE_CODES,
+    CudaKernel,
+    I,
+    P,
+    check_cuda_operand,
+    check_geometry,
+    stream_ptr,
+)
 
 KERNEL = CudaKernel(
     "paged_decode_attention",
     [P, P, P, P, P] + [I] * 11 + [P],
 )
-SUPPORTED_HEAD_DIMS = (64, 128)
-SUPPORTED_GROUPS = (2, 4)  # the GQA groups of the port's configs
 
 
 def paged_decode_attention_plain(
@@ -77,10 +83,7 @@ def paged_decode_attention(
         raise ValueError(f"no kernel for device {q.device}")
     B, Hq, D = q.shape
     L, _, N, page, Hkv, _ = kv_pages.shape
-    if q.dtype not in DTYPE_CODES:
-        raise ValueError(f"unsupported dtype {q.dtype}")
-    if D not in SUPPORTED_HEAD_DIMS or Hq % Hkv or Hq // Hkv not in SUPPORTED_GROUPS:
-        raise ValueError(f"unsupported head geometry Hq={Hq} Hkv={Hkv} D={D}")
+    check_geometry(q.dtype, Hq, Hkv, D)
     check_cuda_operand("q", q, q.device, q.dtype, 3)
     check_cuda_operand("kv_pages", kv_pages, q.device, q.dtype, 6)
     check_cuda_operand("page_table", page_table, q.device, torch.int32, 2)

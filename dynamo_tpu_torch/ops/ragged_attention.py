@@ -1,22 +1,25 @@
-"""Packed ragged paged attention: the CUDA kernel's wrapper and its plain
-version.
+"""Ragged paged attention, packed and rectangle layouts: the CUDA kernels'
+wrappers and their plain versions.
 
-Replaces the dense-pool branch of the TPU Pallas kernel
-``packed_ragged_attention`` (``dynamo_tpu/ops/ragged_attention.py:527``).
-The kernel is hand-written CUDA C++ for ``sm_90a`` in
-``csrc/packed_ragged_attention.cu``; its source comment says what bounds it
-on the card and how the design answers.
+Replaces the dense-pool branches of the TPU Pallas kernels
+``packed_ragged_attention`` (``dynamo_tpu/ops/ragged_attention.py:527``)
+and ``ragged_paged_attention`` (:205).  Both kernels are hand-written CUDA
+C++ for ``sm_90a``: two C entries of ``csrc/packed_ragged_attention.cu``
+over one kernel, whose CTA routine (``csrc/attention_tile.cuh``) the flash
+prefill kernels share; the source comments say what bounds them on the card
+and how the design answers.
 
-Layout: a dispatch's fresh tokens lie on one flat axis ``[Np]``; lane b's
-``q_lens[b]`` rows start at ``seg_off[b]`` and sit at absolute positions
-``base[b] + r``.  Row r attends to the lane's resident prefix (positions
-``< base`` through its page table row) and to the lane's own fresh rows
-``j <= r``; with a window, only to keys ``qpos - kpos < window``.  Rows
-past ``q_len`` and pad rows come out as zeros.
+Packed layout: a dispatch's fresh tokens lie on one flat axis ``[Np]``;
+lane b's ``q_lens[b]`` rows start at ``seg_off[b]`` and sit at absolute
+positions ``base[b] + r``.  Row r attends to the lane's resident prefix
+(positions ``< base`` through its page table row) and to the lane's own
+fresh rows ``j <= r``; with a window, only to keys ``qpos - kpos <
+window``.  Rows past ``q_len`` and pad rows come out as zeros.  The
+rectangle layout ``[B, S]`` is the packed axis with ``seg_off[b] = b * S``.
 
-``packed_ragged_attention`` launches the kernel for CUDA tensors and runs
-:func:`packed_ragged_attention_plain` for CPU tensors -- on the tensors'
-device alone, with no switch and no fallback.
+Each wrapper launches its kernel for CUDA tensors and runs its plain
+version for CPU tensors -- on the tensors' device alone, with no switch and
+no fallback.
 """
 
 from __future__ import annotations
@@ -26,13 +29,49 @@ from typing import Optional
 
 import torch
 
-from .build import DTYPE_CODES, CudaKernel, I, P, check_cuda_operand, stream_ptr
-from .paged_attention import SUPPORTED_GROUPS, SUPPORTED_HEAD_DIMS
+from .build import (
+    DTYPE_CODES,
+    CudaKernel,
+    I,
+    P,
+    check_cuda_operand,
+    check_geometry,
+    stream_ptr,
+)
 
 KERNEL = CudaKernel(
     "packed_ragged_attention",
     [P] * 9 + [I] * 12 + [P],
 )
+RECT_KERNEL = CudaKernel(
+    "ragged_paged_attention",
+    [P] * 8 + [I] * 12 + [P],
+    source="packed_ragged_attention",
+)
+
+
+def lane_attention_plain(
+    q: torch.Tensor,  # [n, Hq, D] one lane's query rows
+    keys: torch.Tensor,  # [K, Hkv, D]
+    vals: torch.Tensor,  # [K, Hkv, D]
+    qpos: torch.Tensor,  # [n] absolute query positions
+    kpos: torch.Tensor,  # [K] absolute key positions
+    window: int = 0,
+) -> torch.Tensor:
+    """One lane's masked GQA attention in f32: query i sees key j when
+    ``kpos[j] <= qpos[i]`` (and, with a window, ``qpos[i] - kpos[j] <
+    window``); a row with no visible key gives zeros, as the kernels'."""
+    n, Hq, D = q.shape
+    Hkv = keys.shape[1]
+    mask = kpos[None, :] <= qpos[:, None]
+    if window > 0:
+        mask = mask & (qpos[:, None] - kpos[None, :] < window)
+    qf = q.float().view(n, Hkv, Hq // Hkv, D)
+    scores = torch.einsum("qgrd,kgd->gqrk", qf, keys.float()) / math.sqrt(D)
+    scores = scores.masked_fill(~mask[None, :, None, :], float("-inf"))
+    probs = torch.nan_to_num(torch.softmax(scores, dim=-1))
+    o = torch.einsum("gqrk,kgd->qgrd", probs, vals.float())
+    return o.reshape(n, Hq, D).to(q.dtype)
 
 
 def packed_ragged_attention_plain(
@@ -53,9 +92,9 @@ def packed_ragged_attention_plain(
     Np, Hq, D = q.shape
     L, _, N, page, Hkv, _ = kv_pages.shape
     Pw = page_table.shape[1]
-    n_rep = Hq // Hkv
     layer = min(max(int(layer), 0), L - 1)
     out = torch.zeros_like(q)
+    dev = q.device
     geometry = zip(base.tolist(), seg_off.tolist(), q_lens.tolist())
     for b, (bs, off, ql) in enumerate(geometry):
         if ql <= 0:
@@ -68,21 +107,12 @@ def packed_ragged_attention_plain(
         keys = torch.cat([kp.float(), k[off : off + ql].float()])
         vals = torch.cat([vp.float(), v[off : off + ql].float()])
         kpos = torch.cat(
-            [
-                torch.arange(n_prefix, device=q.device),
-                bs + torch.arange(ql, device=q.device),
-            ]
+            [torch.arange(n_prefix, device=dev), bs + torch.arange(ql, device=dev)]
         )
-        qpos = bs + torch.arange(ql, device=q.device)
-        mask = kpos[None, :] <= qpos[:, None]
-        if window > 0:
-            mask = mask & (qpos[:, None] - kpos[None, :] < window)
-        qf = q[off : off + ql].float().view(ql, Hkv, n_rep, D)
-        scores = torch.einsum("qgrd,kgd->gqrk", qf, keys) / math.sqrt(D)
-        scores = scores.masked_fill(~mask[None, :, None, :], float("-inf"))
-        probs = torch.softmax(scores, dim=-1)
-        o = torch.einsum("gqrk,kgd->qgrd", probs, vals)
-        out[off : off + ql] = o.reshape(ql, Hq, D).to(q.dtype)
+        qpos = bs + torch.arange(ql, device=dev)
+        out[off : off + ql] = lane_attention_plain(
+            q[off : off + ql], keys, vals, qpos, kpos, window
+        )
     return out
 
 
@@ -114,10 +144,7 @@ def packed_ragged_attention(
     Np, Hq, D = q.shape
     L, _, N, page, Hkv, _ = kv_pages.shape
     B, Pw = page_table.shape
-    if q.dtype not in DTYPE_CODES:
-        raise ValueError(f"unsupported dtype {q.dtype}")
-    if D not in SUPPORTED_HEAD_DIMS or Hq % Hkv or Hq // Hkv not in SUPPORTED_GROUPS:
-        raise ValueError(f"unsupported head geometry Hq={Hq} Hkv={Hkv} D={D}")
+    check_geometry(q.dtype, Hq, Hkv, D)
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_cuda_operand(name, t, q.device, q.dtype, 3)
     check_cuda_operand("kv_pages", kv_pages, q.device, q.dtype, 6)
@@ -137,5 +164,73 @@ def packed_ragged_attention(
         q_lens.data_ptr(), out.data_ptr(),
         DTYPE_CODES[q.dtype], B, Hq, Hkv, D, L, N, page, Pw,
         int(layer), int(window), int(s_max), stream_ptr(q),
+    )
+    return out
+
+
+def ragged_paged_attention_plain(
+    q: torch.Tensor,  # [B, S, Hq, D]
+    k: torch.Tensor,  # [B, S, Hkv, D] fresh keys
+    v: torch.Tensor,  # [B, S, Hkv, D]
+    kv_pages: torch.Tensor,  # [L, 2, num_pages, page, Hkv, D]
+    page_table: torch.Tensor,  # [B, P]
+    base: torch.Tensor,  # [B]
+    q_lens: torch.Tensor,  # [B]
+    layer: int = 0,
+    window: int = 0,
+) -> torch.Tensor:
+    """The packed plain version over the rectangle's rows
+    (``seg_off[b] = b * S``); rows past ``min(q_len, S)`` give zeros."""
+    B, S = q.shape[:2]
+    seg_off = torch.arange(B, device=q.device) * S
+    out = packed_ragged_attention_plain(
+        q.flatten(0, 1), k.flatten(0, 1), v.flatten(0, 1), kv_pages,
+        page_table, base, seg_off, q_lens.clamp(max=S), layer, window,
+    )
+    return out.view(q.shape)
+
+
+def ragged_paged_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    base: torch.Tensor,
+    q_lens: torch.Tensor,
+    layer: int = 0,
+    window: int = 0,
+    kv_scales: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Rectangle ragged attention (see the module docstring); ``kv_scales``
+    (the int8 pool) is not ported and raises."""
+    if kv_scales is not None:
+        raise NotImplementedError("the int8 pool branch is not ported")
+    if q.device.type == "cpu":
+        return ragged_paged_attention_plain(
+            q, k, v, kv_pages, page_table, base, q_lens, layer, window
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    B, S, Hq, D = q.shape
+    L, _, N, page, Hkv, _ = kv_pages.shape
+    Pw = page_table.shape[1]
+    check_geometry(q.dtype, Hq, Hkv, D)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        check_cuda_operand(name, t, q.device, q.dtype, 4)
+    check_cuda_operand("kv_pages", kv_pages, q.device, q.dtype, 6)
+    check_cuda_operand("page_table", page_table, q.device, torch.int32, 2)
+    for name, t in (("base", base), ("q_lens", q_lens)):
+        check_cuda_operand(name, t, q.device, torch.int32, 1)
+    if base.shape[0] != B or q_lens.shape[0] != B or page_table.shape[0] != B:
+        raise ValueError("lane operands disagree with the batch")
+    if k.shape != (B, S, Hkv, D) or v.shape != (B, S, Hkv, D):
+        raise ValueError("fresh K/V must be [B, S, Hkv, D]")
+    out = torch.zeros_like(q)
+    RECT_KERNEL.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_pages.data_ptr(),
+        page_table.data_ptr(), base.data_ptr(), q_lens.data_ptr(),
+        out.data_ptr(), DTYPE_CODES[q.dtype], B, S, Hq, Hkv, D, L, N, page,
+        Pw, int(layer), int(window), stream_ptr(q),
     )
     return out

@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels against their plain versions, on the
-card.  Every instantiation the wrappers can launch (f32 and bf16, head
-dims 64 and 128, GQA groups 2 and 4: those of the port's configs), with and
-without a sliding window, at small shapes.
+card: paged decode, packed and rectangle ragged, full and prefix-suffix
+flash prefill.  Every instantiation the wrappers can launch (f32 and bf16,
+head dims 64 and 128, GQA groups 2 and 4: those of the port's configs),
+with and without a sliding window, at small shapes.
 
 These tests need an NVIDIA card and ``nvcc``, so they carry the ``cuda``
 marker and skip elsewhere.  They import no JAX (the card's machine has
@@ -21,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from dynamo_tpu_torch.ops import flash_prefill as fp
 from dynamo_tpu_torch.ops import paged_attention as pa
 from dynamo_tpu_torch.ops import ragged_attention as ra
 
@@ -96,6 +98,84 @@ def test_packed_ragged_kernel_matches_plain(card, D, n_rep, dtype, window):
     assert not got[off:].any(), "pad rows give zeros"
 
 
+@pytest.mark.parametrize("window", [0, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,n_rep", GEOMETRY)
+def test_rectangle_ragged_kernel_matches_plain(card, D, n_rep, dtype, window):
+    # a decode lane, a chunk from position 0 spanning several query tiles,
+    # a prefix-hit chunk, an idle lane with a resident prefix; S = 64
+    base = [37, 0, 16, 20]
+    q_lens = [1, 40, 7, 0]
+    B, S = len(base), 64
+    gen, pool, table = _setup(card, dtype, D, B, 4)
+
+    def rand(h):
+        return torch.randn((B, S, h, D), generator=gen, device=card).to(dtype)
+
+    q, k, v = rand(HKV * n_rep), rand(HKV), rand(HKV)
+    lanes = [torch.tensor(x, dtype=torch.int32, device=card) for x in (base, q_lens)]
+    before = ra.RECT_KERNEL.launches
+    got = ra.ragged_paged_attention(q, k, v, pool, table, *lanes, 1, window)
+    torch.cuda.synchronize()
+    assert ra.RECT_KERNEL.launches == before + 1
+    want = ra.ragged_paged_attention_plain(q, k, v, pool, table, *lanes, 1, window)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=0)
+    for b, n in enumerate(q_lens):
+        assert not got[b, n:].any(), "rows past q_len give zeros"
+
+
+@pytest.mark.parametrize("window", [0, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,n_rep", GEOMETRY)
+def test_flash_prefill_kernel_matches_plain(card, D, n_rep, dtype, window):
+    seq_lens = [96, 45, 1, 0]  # full bucket, short lane, one token, pad lane
+    B, T = len(seq_lens), 96
+    gen = torch.Generator(device=card)
+    gen.manual_seed(5)
+
+    def rand(h):
+        return torch.randn((B, T, h, D), generator=gen, device=card).to(dtype)
+
+    q, k, v = rand(HKV * n_rep), rand(HKV), rand(HKV)
+    lens = torch.tensor(seq_lens, dtype=torch.int32, device=card)
+    before = fp.KERNEL.launches
+    got = fp.flash_prefill_attention(q, k, v, lens, window)
+    torch.cuda.synchronize()
+    assert fp.KERNEL.launches == before + 1
+    want = fp.flash_prefill_attention_plain(q, k, v, lens, window)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=0)
+    for b, n in enumerate(seq_lens):
+        assert not got[b, n:].any(), "rows past seq_len give zeros"
+
+
+@pytest.mark.parametrize("window", [0, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,n_rep", GEOMETRY)
+def test_flash_prefix_prefill_kernel_matches_plain(card, D, n_rep, dtype, window):
+    # Kp = 37 (no tile multiple); a partial-page prefix, a full one, an
+    # empty one, and a pad lane
+    offset = [21, 37, 0, 8]
+    suffix = [40, 3, 19, 0]
+    B, T, Kp = len(offset), 48, 37
+    gen = torch.Generator(device=card)
+    gen.manual_seed(6)
+
+    def rand(n, h):
+        return torch.randn((B, n, h, D), generator=gen, device=card).to(dtype)
+
+    q, k, v = rand(T, HKV * n_rep), rand(Kp + T, HKV), rand(Kp + T, HKV)
+    off = torch.tensor(offset, dtype=torch.int32, device=card)
+    lens = torch.tensor(suffix, dtype=torch.int32, device=card)
+    before = fp.PREFIX_KERNEL.launches
+    got = fp.flash_prefix_prefill_attention(q, k, v, off, lens, window)
+    torch.cuda.synchronize()
+    assert fp.PREFIX_KERNEL.launches == before + 1
+    want = fp.flash_prefix_prefill_attention_plain(q, k, v, off, lens, window)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=0)
+    for b, n in enumerate(suffix):
+        assert not got[b, n:].any(), "rows past suffix_len give zeros"
+
+
 def test_wrappers_refuse_mixed_devices_and_layouts(card):
     gen, pool, table = _setup(card, torch.bfloat16, 128, 2, 3)
     q = torch.randn((2, 8, 128), generator=gen, device=card).to(torch.bfloat16)
@@ -109,3 +189,22 @@ def test_wrappers_refuse_mixed_devices_and_layouts(card):
     q8 = torch.randn((2, 8 * HKV, 128), generator=gen, device=card).to(torch.bfloat16)
     with pytest.raises(ValueError):  # GQA group 8: no config of the port has it
         pa.paged_decode_attention(q8, pool, table, lens)
+
+
+def test_new_wrappers_refuse_what_their_kernels_do_not_take(card):
+    gen = torch.Generator(device=card)
+    gen.manual_seed(7)
+    q = torch.randn((2, 32, 8, 128), generator=gen, device=card).to(torch.bfloat16)
+    k = torch.randn((2, 32, HKV, 128), generator=gen, device=card).to(torch.bfloat16)
+    lens = torch.tensor([5, 9], dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):  # lengths on the host
+        fp.flash_prefill_attention(q, k, k, lens.cpu())
+    with pytest.raises(ValueError):  # K/V of another dtype
+        fp.flash_prefill_attention(q, k.float(), k.float(), lens)
+    with pytest.raises(ValueError):  # a suffix longer than the keys
+        fp.flash_prefix_prefill_attention(q, k[:, :16], k[:, :16], lens, lens)
+    _, pool, table = _setup(card, torch.bfloat16, 128, 2, 8)
+    with pytest.raises(ValueError):  # a pool of another dtype than q
+        ra.ragged_paged_attention(q, k, k, pool.float(), table, lens, lens)
+    with pytest.raises(NotImplementedError):
+        ra.ragged_paged_attention(q, k, k, pool, table, lens, lens, kv_scales=lens)

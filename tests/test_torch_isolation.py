@@ -54,5 +54,6 @@ def test_port_imports_nothing_refused():
         cwd=root, capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    # the package, its subpackages and every module beneath them
-    assert int(out.stdout.strip().splitlines()[-1]) >= 20
+    # the package, its subpackages and every module beneath them (26 with
+    # ops/flash_prefill.py)
+    assert int(out.stdout.strip().splitlines()[-1]) >= 26
