@@ -11,24 +11,29 @@ Every phase is fatal on failure:
    (one ``nvcc`` per source, all started together; a source may hold
    several kernels); their ``-Xptxas -v`` register / shared-memory lines
    are printed, and an instantiation that spills fails the run.
-2. kernels: each of the five kernels against its plain PyTorch version at
+2. kernels: each of the seven kernel entries against its plain PyTorch version at
    the Llama-3-8B shapes the serve phases give it (Hq=32, Hkv=8, D=128,
    page=16), with and without a sliding window, in bf16 (the main path's
    dtype) and in f32 (where a misplaced key shows): paged decode; packed
    ragged (its prefill chunk both over a resident prefix and from position
    0); the rectangle ragged layout; full flash prefill of the 2048 bucket;
    prefix-suffix flash prefill of a 476-token suffix over a 1024-token
-   prefix.  CUDA-event times of the kernel, the plain version and one
-   ``scaled_dot_product_attention`` call over the gathered K/V with the
-   same mask (a yardstick the port never calls), beside the least time the
-   card could take (bytes at 3.35 TB/s or bf16 operations at 989 TFLOP/s,
-   whichever is larger).
+   prefix; the int8 entries of packed and rectangle ragged at the shapes of
+   their dense checks, over the int8 pool the port's ``quantize_kv_rows``
+   makes of the dense check's pool.  CUDA-event times of the kernel, the
+   plain version and one ``scaled_dot_product_attention`` call over the
+   gathered (dequantized) K/V with the same mask (a yardstick the port
+   never calls), beside the least time the card could take (bytes at 3.35
+   TB/s or bf16 operations at 989 TFLOP/s, whichever is larger).  And
+   ``quantize_kv_rows`` on the card gives the CPU's int8 bytes and f32
+   scales bit for bit on a ``[4096, 8, 128]`` bf16 input.
 3. reference: a small f32 model served on the card (kernels) and on the
    CPU (plain versions) from the same weights gives the same greedy
    streams, under the default config, ``mixed_batching=False`` (with
    chunked prefill) and ``packed_ragged=False``, with a
    ``frequency_penalty`` lane and a ``repetition_penalty`` lane in the
-   batch; on the card the unpenalized lanes agree across the three.
+   batch; on the card the unpenalized lanes agree across the three.  The
+   same three with ``kv_dtype="int8"``: card streams equal the CPU's.
 4. serve: ``TorchEngine.random_init(ModelConfig.llama3_8b(),
    EngineConfig(num_pages=1024))`` -- full width, 32 layers, bf16, random
    weights from a seed, default engine settings (mixed batching, packed
@@ -51,8 +56,19 @@ Every phase is fatal on failure:
    blocks).  Every stream must finish with 64 tokens; kernels 1, 2 and 3
    must launch in run A, kernels 1 and 4 in run B.
 
-``--profile OUT.txt`` adds a last phase: the serve phase's run and
-serve-classic runs A and B once more under ``torch.profiler``, each with
+6. serve-int8: the same model, random weights made once and shared by
+   three engines with ``EngineConfig(num_pages=1024, kv_dtype="int8")``:
+   run Q, the default config (the serve phase's), run QA,
+   ``mixed_batching=False`` with run A's penalized lanes, and run QB,
+   ``packed_ragged=False``.  Every stream must finish with 64 tokens; the
+   int8 entry of packed ragged must launch in Q, flash prefill and
+   prefix-suffix prefill in QA, the int8 entry of rectangle ragged in QB;
+   paged decode and the dense ragged entries launch in none of them (an
+   int8 pool's decode steps take the gathered composition, counted).
+
+``--profile OUT.txt`` adds a last phase: the serve phase's run,
+serve-classic runs A and B and serve-int8 run Q once more under
+``torch.profiler``, each with
 the device's idle share and its kernel time by kind (see
 ``profile_phase``); the full tables go to ``OUT.txt``.
 
@@ -178,6 +194,18 @@ def agree(what: str, out: torch.Tensor, ref: torch.Tensor) -> float:
     return err
 
 
+def int8_pool(pool: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The int8 pool the port's rule makes of a dense one: ``(data,
+    scales)``."""
+    from dynamo_tpu_torch.engine.kv_cache import quantize_kv_rows
+
+    return quantize_kv_rows(pool)
+
+
+def dequantized(pq: torch.Tensor, ps: torch.Tensor, dtype) -> torch.Tensor:
+    return (pq.float() * ps[..., None, None]).to(dtype)
+
+
 def lane_tables(need: List[int], width: int, n_pages: int, rng) -> torch.Tensor:
     """Distinct random pool pages for each lane (page 0 stays trash)."""
     perm = rng.permutation(np.arange(1, n_pages))
@@ -274,11 +302,13 @@ def check_decode(pa, rng, gen) -> Dict[str, object]:
     )
 
 
-def check_ragged(ra, bucketing, rng, gen) -> Dict[str, object]:
+def check_ragged(ra, bucketing, rng, gen) -> Tuple[Dict[str, object], Dict[str, object]]:
     # the engine's tick at the Llama-3-8B shapes: 7 decode lanes and one
     # 505-row prefill chunk over a 1024-token resident prefix (a prefix
     # hit), packed by the engine's rule (s_max = pow2, off + s_max <= Np);
-    # checked also with that chunk starting at position 0
+    # checked also with that chunk starting at position 0.  The dense
+    # entry's row, then the int8 entry's over the int8 pool of the same
+    # random pool
     bases = [2047, 1790, 1499, 1202, 640, 256, 32, 1024]
     q_lens = [1, 1, 1, 1, 1, 1, 1, 505]
     B = len(bases)
@@ -299,54 +329,70 @@ def check_ragged(ra, bucketing, rng, gen) -> Dict[str, object]:
         return torch.randn((Np, h, D), generator=gen, device="cuda").to(torch.bfloat16)
 
     q, k, v = rand(HQ), rand(HKV), rand(HKV)
-    args = (q, k, v, pool, table, base_t, off_t, ql_t)
     base_0 = base_t.clone()
     base_0[-1] = 0
 
-    def check(q, k, v, pool) -> float:
+    def check(q, k, v, pool, scales=None, what="packed_ragged_attention") -> float:
         err = 0.0
         for chunk_base, bt in ((bases[-1], base_t), (0, base_0)):
             for window in (0, 512):
                 lane_args = (q, k, v, pool, table, bt, off_t, ql_t)
-                out = ra.packed_ragged_attention(*lane_args, s_max, 3, window)
-                ref = ra.packed_ragged_attention_plain(*lane_args, 3, window)
-                what = (
-                    f"packed_ragged_attention chunk_base={chunk_base} "
-                    f"window={window} Np={Np}"
-                )
-                err = max(err, agree(what, out, ref))
+                out = ra.packed_ragged_attention(*lane_args, s_max, 3, window, scales)
+                ref = ra.packed_ragged_attention_plain(*lane_args, 3, window, scales)
+                where = f"{what} chunk_base={chunk_base} window={window} Np={Np}"
+                err = max(err, agree(where, out, ref))
         return err
 
-    err = check(q, k, v, pool)
-    ms = cuda_ms(lambda i: ra.packed_ragged_attention(*args, s_max, i % LAYERS), 32)
-    plain_ms = cuda_ms(lambda i: ra.packed_ragged_attention_plain(*args, i % LAYERS), 4)
     segs = [slice(o, o + n) for o, n in zip(seg_off.tolist(), q_lens)]
-    padded = sdpa_lanes(
-        pool, table, bases, [(q[s], k[s], v[s]) for s in segs], s_max
-    )
-    library_ms = cuda_ms(lambda i: sdpa_padded(*padded), 32)
     rows = sum(q_lens)
     keys_seen = sum(bs * n + n * (n + 1) // 2 for bs, n in zip(bases, q_lens))
-    bytes_moved = (
+    other_bytes = (
         rows * HQ * D * 2  # q rows read
         + 2 * rows * HKV * D * 2  # fresh K and V rows read
-        + sum(bases) * HKV * D * 2 * 2  # resident prefix K and V rows read
         + Np * HQ * D * 2  # the whole output written
         + table.numel() * 4 + 3 * B * 4
     )
-    bound_ms, bound_by = bound(bytes_moved, 4.0 * keys_seen * HQ * D)
-    del pool, padded
+    # resident prefix positions, each read once for K and once for V
+    prefix_kv = sum(bases) * 2
+
+    def measure(pool, scales, prefix_bytes, name, source_pool) -> Dict[str, object]:
+        args = (q, k, v, pool, table, base_t, off_t, ql_t)
+        ms = cuda_ms(lambda i: ra.packed_ragged_attention(*args, s_max, i % LAYERS, 0, scales), 32)
+        plain_ms = cuda_ms(
+            lambda i: ra.packed_ragged_attention_plain(*args, i % LAYERS, 0, scales), 4
+        )
+        padded = sdpa_lanes(source_pool, table, bases, [(q[s], k[s], v[s]) for s in segs], s_max)
+        library_ms = cuda_ms(lambda i: sdpa_padded(*padded), 32)
+        del padded
+        bound_ms, bound_by = bound(other_bytes + prefix_bytes, 4.0 * keys_seen * HQ * D)
+        return dict(
+            name=name, route="cuda",
+            source="dynamo_tpu_torch/csrc/packed_ragged_attention.cu",
+            replaces="dynamo_tpu/ops/ragged_attention.py:527", ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+        )
+
+    err = check(q, k, v, pool)
+    dense = dict(measure(pool, None, prefix_kv * HKV * D * 2, "packed_ragged_attention", pool),
+                 max_abs_err=err)
+    pq, ps = int8_pool(pool)
+    del pool
+    err8 = check(q, k, v, pq, ps, "packed_ragged_attention_int8")
+    # int8 prefix rows plus one f32 scale per position; the yardstick
+    # attends to the dequantized rows
+    quant = dict(
+        measure(pq, ps, prefix_kv * (HKV * D + 4), "packed_ragged_attention_int8",
+                dequantized(pq[:1], ps[:1], torch.bfloat16)),
+        max_abs_err=err8,
+    )
+    del pq, ps
     g32 = f32_generator()
     pool = make_pool(n_pages, g32, torch.float32, 4)
-    check(*[torch.randn((Np, h, D), generator=g32, device="cuda") for h in (HQ, HKV, HKV)], pool)
+    f32_in = [torch.randn((Np, h, D), generator=g32, device="cuda") for h in (HQ, HKV, HKV)]
+    check(*f32_in, pool)
+    check(*f32_in, *int8_pool(pool), "packed_ragged_attention_int8")
     del pool
-    return dict(
-        name="packed_ragged_attention", route="cuda",
-        source="dynamo_tpu_torch/csrc/packed_ragged_attention.cu",
-        replaces="dynamo_tpu/ops/ragged_attention.py:527",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=library_ms,
-    )
+    return dense, quant
 
 
 def sdpa_rows(q_rows, keys, vals, mask):
@@ -456,9 +502,10 @@ def check_flash_prefix(fp, gen) -> Dict[str, object]:
     )
 
 
-def check_rect(ra, rng, gen) -> Dict[str, object]:
+def check_rect(ra, rng, gen) -> Tuple[Dict[str, object], Dict[str, object]]:
     # the rectangle at the packed check's geometry: 7 decode lanes and one
-    # 505-row chunk over a 1024-token resident prefix, S = pow2(505) = 512
+    # 505-row chunk over a 1024-token resident prefix, S = pow2(505) = 512;
+    # the dense entry's row, then the int8 entry's (as in check_ragged)
     bases = [2047, 1790, 1499, 1202, 640, 256, 32, 1024]
     q_lens = [1, 1, 1, 1, 1, 1, 1, 505]
     B, S = len(bases), 512
@@ -473,44 +520,85 @@ def check_rect(ra, rng, gen) -> Dict[str, object]:
     def rand(h, dtype=torch.bfloat16, g=gen):
         return torch.randn((B, S, h, D), generator=g, device="cuda").to(dtype)
 
-    def check(q, k, v, pool) -> float:
+    def check(q, k, v, pool, scales=None, what="ragged_paged_attention") -> float:
         err = 0.0
         for window in (0, 512):
-            out = ra.ragged_paged_attention(q, k, v, pool, table, base_t, ql_t, 3, window)
-            ref = ra.ragged_paged_attention_plain(q, k, v, pool, table, base_t, ql_t, 3, window)
-            err = max(err, agree(f"ragged_paged_attention S={S} window={window}", out, ref))
+            args = (q, k, v, pool, table, base_t, ql_t, 3, window, scales)
+            out = ra.ragged_paged_attention(*args)
+            ref = ra.ragged_paged_attention_plain(*args)
+            err = max(err, agree(f"{what} S={S} window={window}", out, ref))
         return err
 
     q, k, v = rand(HQ), rand(HKV), rand(HKV)
-    err = check(q, k, v, pool)
-    args = (q, k, v, pool, table, base_t, ql_t)
-    ms = cuda_ms(lambda i: ra.ragged_paged_attention(*args, i % LAYERS), 32)
-    plain_ms = cuda_ms(lambda i: ra.ragged_paged_attention_plain(*args, i % LAYERS), 4)
-    padded = sdpa_lanes(
-        pool, table, bases, [(q[b, :n], k[b, :n], v[b, :n]) for b, n in enumerate(q_lens)], S
-    )
-    library_ms = cuda_ms(lambda i: sdpa_padded(*padded), 32)
     rows = sum(q_lens)
     keys_seen = sum(bs * n + n * (n + 1) // 2 for bs, n in zip(bases, q_lens))
-    bytes_moved = (
+    other_bytes = (
         rows * HQ * D * 2 + 2 * rows * HKV * D * 2  # the valid q, k, v rows read
-        + sum(bases) * HKV * D * 2 * 2  # resident prefix K and V rows read
         + B * S * HQ * D * 2  # the whole output written
         + table.numel() * 4 + 2 * B * 4
     )
-    bound_ms, bound_by = bound(bytes_moved, 4.0 * keys_seen * HQ * D)
-    del pool, padded
+    # resident prefix positions, each read once for K and once for V
+    prefix_kv = sum(bases) * 2
+
+    def measure(pool, scales, prefix_bytes, name, source_pool) -> Dict[str, object]:
+        args = (q, k, v, pool, table, base_t, ql_t)
+        ms = cuda_ms(lambda i: ra.ragged_paged_attention(*args, i % LAYERS, 0, scales), 32)
+        plain_ms = cuda_ms(
+            lambda i: ra.ragged_paged_attention_plain(*args, i % LAYERS, 0, scales), 4
+        )
+        padded = sdpa_lanes(
+            source_pool, table, bases,
+            [(q[b, :n], k[b, :n], v[b, :n]) for b, n in enumerate(q_lens)], S,
+        )
+        library_ms = cuda_ms(lambda i: sdpa_padded(*padded), 32)
+        del padded
+        bound_ms, bound_by = bound(other_bytes + prefix_bytes, 4.0 * keys_seen * HQ * D)
+        return dict(
+            name=name, route="cuda",
+            source="dynamo_tpu_torch/csrc/packed_ragged_attention.cu",
+            replaces="dynamo_tpu/ops/ragged_attention.py:205", ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+        )
+
+    err = check(q, k, v, pool)
+    dense = dict(measure(pool, None, prefix_kv * HKV * D * 2, "ragged_paged_attention", pool),
+                 max_abs_err=err)
+    pq, ps = int8_pool(pool)
+    del pool
+    err8 = check(q, k, v, pq, ps, "ragged_paged_attention_int8")
+    quant = dict(
+        measure(pq, ps, prefix_kv * (HKV * D + 4), "ragged_paged_attention_int8",
+                dequantized(pq[:1], ps[:1], torch.bfloat16)),
+        max_abs_err=err8,
+    )
+    del pq, ps
     g32 = f32_generator()
     pool = make_pool(n_pages, g32, torch.float32, 4)
-    check(*[rand(h, torch.float32, g32) for h in (HQ, HKV, HKV)], pool)
+    f32_in = [rand(h, torch.float32, g32) for h in (HQ, HKV, HKV)]
+    check(*f32_in, pool)
+    check(*f32_in, *int8_pool(pool), "ragged_paged_attention_int8")
     del pool
-    return dict(
-        name="ragged_paged_attention", route="cuda",
-        source="dynamo_tpu_torch/csrc/packed_ragged_attention.cu",
-        replaces="dynamo_tpu/ops/ragged_attention.py:205",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=library_ms,
-    )
+    return dense, quant
+
+
+def check_quantize_rule() -> None:
+    """``quantize_kv_rows`` on the card gives the CPU's int8 bytes and f32
+    scales bit for bit (the JAX package's rule, which the CPU tests hold the
+    port to), on bf16 rows of magnitudes 0.01 to 50 and one all-zero row."""
+    from dynamo_tpu_torch.engine.kv_cache import quantize_kv_rows
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    mag = torch.logspace(-2, 1.7, 4096, device="cuda")[:, None, None]
+    x = (torch.randn((4096, HKV, D), generator=gen, device="cuda") * mag).to(torch.bfloat16)
+    x[100] = 0.0
+    qc, sc = quantize_kv_rows(x)
+    qh, sh = quantize_kv_rows(x.cpu())
+    same_q = torch.equal(qc.cpu(), qh)
+    same_s = torch.equal(sc.cpu().view(torch.int32), sh.view(torch.int32))
+    print(f"kernels: quantize_kv_rows card == cpu: int8 {same_q}, scales {same_s}")
+    if not (same_q and same_s):
+        fail("quantize_kv_rows on the card differs from the CPU's")
 
 
 # ---------------------------------------------------------------------------
@@ -528,6 +616,7 @@ async def serve(engine, batches: List[List[dict]]) -> List[dict]:
     async def one(req: dict, t0: float) -> dict:
         stream = await engine.generate(Context.new(PreprocessedRequest.from_dict(req)))
         tokens: List[int] = []
+        top: List[list] = []
         frames: List[Tuple[float, int]] = []
         finish = None
         async for item in stream:
@@ -538,9 +627,10 @@ async def serve(engine, batches: List[List[dict]]) -> List[dict]:
             if got:
                 frames.append((time.perf_counter(), len(got)))
                 tokens += got
+            top += data.get("top_logprobs") or []
             finish = data.get("finish_reason") or finish
         ttft = frames[0][0] - t0 if frames else float("nan")
-        return dict(tokens=tokens, finish=finish, frames=frames, ttft=ttft)
+        return dict(tokens=tokens, finish=finish, frames=frames, ttft=ttft, top=top)
 
     results: List[dict] = []
     try:
@@ -566,6 +656,10 @@ REFERENCE_CONFIGS = {
     "classic": dict(mixed_batching=False, prefill_chunk_tokens=32),
     "rectangle": dict(packed_ragged=False),
 }
+# each config's int8 pool twin
+REFERENCE_CONFIGS.update(
+    {f"{name}-int8": dict(kw, kv_dtype="int8") for name, kw in list(REFERENCE_CONFIGS.items())}
+)
 
 
 def reference_phase() -> None:
@@ -573,7 +667,11 @@ def reference_phase() -> None:
     CPU's (plain versions) from the same weights, under each of the
     reference configs, with one frequency-penalty lane and one
     repetition-penalty lane in the batch; on the card the unpenalized
-    lanes agree across the configs."""
+    lanes agree across the dense configs (the int8 twins' agreement is
+    printed: their rounding may move a token).  On a card/CPU mismatch the
+    config is served once more on both with top-2 logprobs, and the margin
+    between the two best tokens at the first differing token is printed
+    before the run fails."""
     from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.engine.model import init_params
@@ -598,24 +696,50 @@ def reference_phase() -> None:
             request(shared + [7, 7, 7], 12),
         ],
     ]
+    def run(kw, dev, reqs) -> List[dict]:
+        p = {
+            k: ({n: w.to(dev) for n, w in v.items()} if isinstance(v, dict) else v.to(dev))
+            for k, v in params.items()
+        }
+        eng = TorchEngine(cfg, p, EngineConfig(**ecfg, **kw), device=dev)
+        return asyncio.run(serve(eng, reqs))
+
     unpenalized = {}
     for name, kw in REFERENCE_CONFIGS.items():
-        streams = {}
-        for dev in ("cuda", "cpu"):
-            p = {
-                k: ({n: w.to(dev) for n, w in v.items()} if isinstance(v, dict) else v.to(dev))
-                for k, v in params.items()
-            }
-            eng = TorchEngine(cfg, p, EngineConfig(**ecfg, **kw), device=dev)
-            streams[dev] = [r["tokens"] for r in asyncio.run(serve(eng, batches))]
+        streams = {dev: [r["tokens"] for r in run(kw, dev, batches)] for dev in ("cuda", "cpu")}
         print(f"reference: {name} card {streams['cuda']}")
         if streams["cuda"] != streams["cpu"]:
+            report_margin(name, streams, lambda dev, reqs: run(kw, dev, reqs), batches)
             fail(f"small-model greedy streams differ under {name}: cpu {streams['cpu']}")
         if not all(len(t) == 12 for t in streams["cuda"]):
             fail(f"small-model streams under {name} end early")
         unpenalized[name] = streams["cuda"][:4] + streams["cuda"][6:]
-    if len({json.dumps(v) for v in unpenalized.values()}) != 1:
-        fail(f"the unpenalized lanes differ across configs: {unpenalized}")
+    for pool in ("dense", "int8"):
+        group = {n: v for n, v in unpenalized.items() if n.endswith("-int8") == (pool == "int8")}
+        agree_all = len({json.dumps(v) for v in group.values()}) == 1
+        print(f"reference: unpenalized lanes agree across the {pool} configs: {agree_all}")
+        if pool == "dense" and not agree_all:
+            fail(f"the unpenalized lanes differ across configs: {group}")
+
+
+def report_margin(name: str, streams, run, batches) -> None:
+    """Print, for the first token where the card's stream leaves the
+    CPU's, each device's top-2 logprobs there (served once more with
+    ``logprobs=2``)."""
+    flat = [r for batch in batches for r in batch]
+    i, j = next(
+        (i, next(j for j, (a, b) in enumerate(zip(c, h)) if a != b))
+        for i, (c, h) in enumerate(zip(streams["cuda"], streams["cpu"]))
+        if c != h
+    )
+    with_lp = [
+        [dict(r, sampling_options=dict(r["sampling_options"], logprobs=2)) for r in batch]
+        for batch in batches
+    ]
+    for dev in ("cuda", "cpu"):
+        top = run(dev, with_lp)[i]["top"]
+        print(f"reference: {name} {dev} request {i} token {j} top-2 logprobs "
+              f"{top[j] if j < len(top) else None} (prompt {len(flat[i]['token_ids'])} tokens)")
 
 
 def serve_requests(vocab: int) -> Tuple[List[dict], List[dict]]:
@@ -781,10 +905,83 @@ def serve_classic_phase(
     return launches, walls
 
 
+def serve_int8_phase(
+    kernels, card: str
+) -> Tuple[Dict[str, Dict[str, int]], Dict[str, float]]:
+    """Runs Q (default config), QA (classic, run A's penalized lanes) and
+    QB (rectangle) over the int8 pool at Llama-3-8B width on one set of
+    random weights; returns each run's kernel launches and wall time."""
+    from dynamo_tpu_torch.engine import attention as att
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.model import init_params
+
+    cfg = ModelConfig.llama3_8b()
+    primer, batch = serve_requests(cfg.vocab_size)
+    params = init_params(cfg, 0, torch.device("cuda"), torch.bfloat16)
+    runs = {
+        "Q": ({}, batch, ("packed_ragged_attention_int8",)),
+        "QA": (dict(mixed_batching=False), penalized_requests(batch),
+               ("flash_prefill_attention", "flash_prefix_prefill_attention")),
+        "QB": (dict(packed_ragged=False), batch, ("ragged_paged_attention_int8",)),
+    }
+    # the dense pool's attention kernels: an int8 pool reaches none of them
+    dense_only = ("paged_decode_attention", "packed_ragged_attention", "ragged_paged_attention")
+    launches: Dict[str, Dict[str, int]] = {}
+    walls: Dict[str, float] = {}
+    for run, (kw, reqs, needed) in runs.items():
+        torch.cuda.reset_peak_memory_stats()
+        engine = TorchEngine(cfg, params, EngineConfig(num_pages=1024, kv_dtype="int8", **kw))
+        pool_bytes, pool_nbytes = engine.kv.pool_bytes, engine.kv.pages.nbytes
+        if pool_bytes != pool_nbytes:
+            fail(f"serve-int8 run {run}: pool_bytes {pool_bytes} != the tensors' {pool_nbytes}")
+        for k in kernels:
+            k.launches = 0
+        att.gathered_decode_calls = 0
+        t0 = time.perf_counter()
+        res = asyncio.run(serve(engine, [primer, reqs]))
+        walls[run] = wall = time.perf_counter() - t0
+        launches[run] = {k.name: k.launches for k in kernels}
+        gathered = att.gathered_decode_calls
+        kinds, by_k = dict(engine.dispatches), dict(engine.dispatches_by_k)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        check_streams(f"serve-int8 run {run}", res, cfg.vocab_size)
+        st = served_stats(res, wall)
+        print(
+            f"serve-int8: run {run} {kw} wall_s={wall:.3f} dispatches_by_kind={kinds} "
+            f"dispatches_by_k={by_k} tok_s={st['tok_s']:.3f} "
+            f"decode_phase_tok_s={st['dec']:.3f} peak_mem_gib={peak_gib:.3f} "
+            f"pool_bytes={pool_bytes} gathered_decode_calls={gathered} on {card}"
+        )
+        print(
+            "serve-int8: run %s ttft_ms=%s"
+            % (run, [round(r["ttft"] * 1e3, 3) for r in res[1:]])
+        )
+        print(f"serve-int8: run {run} launches {launches[run]}")
+        for name in needed:
+            if launches[run][name] <= 0:
+                fail(f"{name} never launched in serve-int8 run {run}")
+        for name in dense_only:
+            if launches[run][name] != 0:
+                fail(f"{name} launched {launches[run][name]} times over the int8 pool in run {run}")
+        if gathered <= 0:
+            fail(f"no gathered decode call in serve-int8 run {run}")
+        if run == "Q" and not any(k > 1 and n > 0 for k, n in by_k.items()):
+            fail("no multistep (K > 1) dispatch ran in serve-int8 run Q")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, walls
+
+
 def profile_phase(out_path: str, plain_walls: Dict[str, float]) -> None:
     """``--profile OUT.txt``: each served cell once more under
-    ``torch.profiler`` -- the serve phase's run and serve-classic runs A and
-    B, the same configs and requests on one set of random weights; prints
+    ``torch.profiler`` -- the serve phase's run, serve-classic runs A and B
+    and serve-int8 run Q, the same configs and requests on one set of
+    random weights; prints
     per cell the device's busy and idle share of the run's wall time and
     its kernel time by kind and by name, and writes the full tables to
     ``out_path``.  The profiler slows the host, so the idle share it shows
@@ -806,6 +1003,7 @@ def profile_phase(out_path: str, plain_walls: Dict[str, float]) -> None:
         "serve": ({}, batch),
         "A": (dict(mixed_batching=False), penalized_requests(batch)),
         "B": (dict(packed_ragged=False), batch),
+        "Q": (dict(kv_dtype="int8"), batch),
     }
     kinds = {
         "paged_decode_attention": ("paged_decode_kernel",),
@@ -889,10 +1087,13 @@ def main() -> None:
     print(card, flush=True)
 
     t0 = time.perf_counter()
-    # the main path's kernels (the serve phase) and the classic and
-    # rectangle paths' (the serve-classic phase)
+    # the main path's kernels (the serve phase), the classic and rectangle
+    # paths' (the serve-classic phase) and the int8 pool's entries (the
+    # serve-int8 phase)
     main_kernels = [pa.KERNEL, ra.KERNEL]
-    kernels = main_kernels + [fp.KERNEL, fp.PREFIX_KERNEL, ra.RECT_KERNEL]
+    kernels = main_kernels + [
+        fp.KERNEL, fp.PREFIX_KERNEL, ra.RECT_KERNEL, ra.INT8_KERNEL, ra.RECT_INT8_KERNEL,
+    ]
     for name, lines in build.build_all(kernels).items():
         for ln in lines:
             print(f"build: {name}: {ln}")
@@ -903,13 +1104,11 @@ def main() -> None:
     rng = np.random.default_rng(0)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    rows = [
-        check_decode(pa, rng, gen),
-        check_flash(fp, gen),
-        check_flash_prefix(fp, gen),
-        check_rect(ra, rng, gen),
-        check_ragged(ra, bucketing, rng, gen),
-    ]
+    rows = [check_decode(pa, rng, gen), check_flash(fp, gen), check_flash_prefix(fp, gen)]
+    rect, rect8 = check_rect(ra, rng, gen)
+    packed, packed8 = check_ragged(ra, bucketing, rng, gen)
+    rows += [rect, packed, rect8, packed8]
+    check_quantize_rule()
     for r in rows:
         print(
             f"kernels: {r['name']} ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} "
@@ -922,8 +1121,11 @@ def main() -> None:
     reference_phase()
     served = serve_phase(main_kernels, card)
     classic, classic_walls = serve_classic_phase(kernels, card)
+    quant, quant_walls = serve_int8_phase(kernels, card)
     if profile_out is not None:
-        profile_phase(profile_out, {"serve": served["wall"], **classic_walls})
+        profile_phase(
+            profile_out, {"serve": served["wall"], **classic_walls, "Q": quant_walls["Q"]}
+        )
     # each kernel's launches from the phase that runs it
     launches = {
         "paged_decode_attention": served["launches"]["paged_decode_attention"],
@@ -931,6 +1133,8 @@ def main() -> None:
         "flash_prefill_attention": classic["A"]["flash_prefill_attention"],
         "flash_prefix_prefill_attention": classic["A"]["flash_prefix_prefill_attention"],
         "ragged_paged_attention": classic["B"]["ragged_paged_attention"],
+        "packed_ragged_attention_int8": quant["Q"]["packed_ragged_attention_int8"],
+        "ragged_paged_attention_int8": quant["QB"]["ragged_paged_attention_int8"],
     }
     for r in rows:
         r["launches"] = launches[r["name"]]

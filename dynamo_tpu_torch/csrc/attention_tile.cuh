@@ -7,8 +7,9 @@
 // operand layouts.  A lane's fresh query rows sit at absolute positions
 // base + r and attend, under one f32 online softmax, to
 //   (a) a resident prefix, positions p < base, wherever the layout keeps it
-//       (the paged pool through a page table, or a gathered contiguous span),
-//       and only while the prefix source reaches p;
+//       (the paged pool, dense or int8 with row scales, through a page
+//       table, or a gathered contiguous span), and only while the prefix
+//       source reaches p;
 //   (b) the lane's own fresh rows j <= r (position base + j);
 // with a window, only to keys with qpos - kpos < window.  A full prefill is
 // the case base = 0 with no prefix.
@@ -16,8 +17,10 @@
 // One CTA serves TILE_QV = 64 query vectors: TQ = 64 / NREP consecutive rows
 // times the NREP query heads of one KV head, so every K/V row it loads
 // serves the whole GQA group.  The query vectors sit pre-scaled in shared
-// memory; keys stream through shared memory TILE_KT = 32 at a time with
-// 16-byte vector loads; each warp owns 16 query vectors: lane j scores key
+// memory; keys stream through shared memory TILE_KT = 32 at a time as f32,
+// with 16-byte vector loads of the compute type (an int8 prefix row loads
+// the same elements in 4 or 8 bytes and dequantizes on the way in); each
+// warp owns 16 query vectors: lane j scores key
 // j, the warp takes the tile max / sum by shuffles, and each lane
 // accumulates D / 32 output dims of every vector in registers.  Every
 // product runs on the CUDA cores in f32.
@@ -43,6 +46,14 @@ constexpr size_t tile_smem_bytes() {
            ((size_t)TILE_QV * D + (size_t)TILE_KT * (D + 1) + (size_t)TILE_KT * D);
 }
 
+// A prefix source says which positions it reaches and how their K and V
+// rows come in.  A source of rows in the compute type T (kRows) hands out
+// row pointers, and attend_tile loads them through the same load site as
+// the fresh rows: nvcc then batches a tile's loads (on an H100 the dense
+// packed entry runs 1.61 ms so, 1.84 ms with a load call per source; see
+// PERF.md).  Any other source (the int8 pool) loads W elements (dims d0 ..
+// d0 + W) of a reachable position's K and V rows into f32 registers itself.
+//
 // Prefix source: the paged pool through one lane's page-table row.  Table
 // ids are clamped into the pool, and positions past the table are
 // unreachable (the Pallas kernels' clamping).
@@ -55,11 +66,37 @@ struct PagedPrefix {
     size_t row_stride;   // elements per position (Hkv * D)
     int page, N, reach;  // page size, pool pages, positions the table covers
 
+    static constexpr bool kRows = true;
     __device__ __forceinline__ bool reachable(int p) const { return p < reach; }
     __device__ __forceinline__ void rows(int p, const T*& ks, const T*& vs) const {
         const int pid = clampi(table[p / page], 0, N - 1);
         ks = k + (size_t)pid * page_stride + (size_t)(p % page) * row_stride;
         vs = ks + kv_stride;
+    }
+};
+
+// Prefix source: the int8 pool through one lane's page-table row, each row
+// dequantized by its f32 scale (load_dequant: rounded to T, as the JAX
+// package's _dequant_block does).  Clamping as in PagedPrefix.
+template <typename T>
+struct QuantPagedPrefix {
+    const int8_t* k;     // int8 pool[layer, 0] at KV head g
+    const float* s;      // scales[layer, 0], one per (page, slot)
+    const int* table;    // the lane's page-table row
+    size_t kv_stride;    // elements from a K row to its V row
+    size_t row_stride;   // elements per position (Hkv * D)
+    size_t s_kv_stride;  // scales from a K row's to its V row's (N * page)
+    int page, N, reach;
+
+    static constexpr bool kRows = false;
+    __device__ __forceinline__ bool reachable(int p) const { return p < reach; }
+    template <int W>
+    __device__ __forceinline__ void load(int p, int d0, float (&kx)[W], float (&vx)[W]) const {
+        const int pid = clampi(table[p / page], 0, N - 1);
+        const size_t row = (size_t)pid * page + (size_t)(p % page);
+        const int8_t* ks = k + row * row_stride + d0;
+        load_dequant<T, W>(ks, s[row], kx);
+        load_dequant<T, W>(ks + kv_stride, s[row + s_kv_stride], vx);
     }
 };
 
@@ -71,6 +108,7 @@ struct ContiguousPrefix {
     size_t row_stride;  // elements per position (Hkv * D)
     int reach;
 
+    static constexpr bool kRows = true;
     __device__ __forceinline__ bool reachable(int p) const { return p < reach; }
     __device__ __forceinline__ void rows(int p, const T*& ks, const T*& vs) const {
         ks = k + (size_t)p * row_stride;
@@ -143,22 +181,41 @@ __device__ __forceinline__ void attend_tile(const T* __restrict__ q, T* __restri
             const int d0 = (c % CPR) * VEC;
             const int kpos = t0 + j;
             float kx[VEC], vx[VEC];
-            const T* ks = nullptr;
-            const T* vs = nullptr;
-            if (kpos < hi) {
-                if (kpos >= base) {
-                    ks = fk + (size_t)(kpos - base) * f_stride;
-                    vs = fv + (size_t)(kpos - base) * f_stride;
-                } else if (prefix.reachable(kpos)) {
-                    prefix.rows(kpos, ks, vs);
+            if constexpr (Prefix::kRows) {
+                const T* ks = nullptr;
+                const T* vs = nullptr;
+                if (kpos < hi) {
+                    if (kpos >= base) {
+                        ks = fk + (size_t)(kpos - base) * f_stride;
+                        vs = fv + (size_t)(kpos - base) * f_stride;
+                    } else if (prefix.reachable(kpos)) {
+                        prefix.rows(kpos, ks, vs);
+                    }
                 }
-            }
-            if (ks != nullptr) {
-                load_vec<T, VEC>(ks + d0, kx);
-                load_vec<T, VEC>(vs + d0, vx);
-            } else {
+                if (ks != nullptr) {
+                    load_vec<T, VEC>(ks + d0, kx);
+                    load_vec<T, VEC>(vs + d0, vx);
+                } else {
 #pragma unroll
-                for (int i = 0; i < VEC; ++i) kx[i] = vx[i] = 0.f;
+                    for (int i = 0; i < VEC; ++i) kx[i] = vx[i] = 0.f;
+                }
+            } else {
+                bool loaded = false;
+                if (kpos < hi) {
+                    if (kpos >= base) {
+                        const size_t at = (size_t)(kpos - base) * f_stride + d0;
+                        load_vec<T, VEC>(fk + at, kx);
+                        load_vec<T, VEC>(fv + at, vx);
+                        loaded = true;
+                    } else if (prefix.reachable(kpos)) {
+                        prefix.load(kpos, d0, kx, vx);
+                        loaded = true;
+                    }
+                }
+                if (!loaded) {
+#pragma unroll
+                    for (int i = 0; i < VEC; ++i) kx[i] = vx[i] = 0.f;
+                }
             }
 #pragma unroll
             for (int i = 0; i < VEC; ++i) {

@@ -58,6 +58,20 @@ __device__ __forceinline__ void load_vec(const T* __restrict__ p, float (&out)[N
     }
 }
 
+// N contiguous int8 elements (N = 4, 8 or 16 bytes, aligned) of a row whose
+// scale is ``scale``, dequantized to f32 by the int8 pool's rule: the product
+// float(q) * scale rounds to the compute type T, as the JAX package's
+// dequant does (_dequant_block, gather_layer_kv), before it widens again
+template <typename T, int N>
+__device__ __forceinline__ void load_dequant(const int8_t* __restrict__ p, float scale,
+                                             float (&out)[N]) {
+    using V = typename VecType<N>::type;
+    V raw = *reinterpret_cast<const V*>(p);
+    const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = to_float(from_float<T>((float)e[i] * scale));
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);

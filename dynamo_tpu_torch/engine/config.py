@@ -113,3 +113,7 @@ class EngineConfig:
     # the unified dispatch's layout: one flat packed token axis, or the
     # [B, S] rectangle (False); multistep decode needs the packed layout
     packed_ragged: bool = True
+    # KV pool dtype: None or the model's dtype is the dense pool, "int8"
+    # the quantized one (per-row f32 scales; about half the pool's bytes
+    # under a bf16 model); another dtype is refused at engine construction
+    kv_dtype: Optional[str] = None

@@ -32,8 +32,10 @@ executor thread; the event loop keeps serving I/O meanwhile.
 Not served yet (later slices): multimodal prompts and prompt logprobs
 (such a request gets an error frame), speculative decoding (its request
 fields are ignored: output is the contract, speculation an optimization),
-async double-buffering, offload/swap, disaggregation, tensor/data
-parallelism and int8 pools.
+async double-buffering, offload/swap, disaggregation and tensor/data
+parallelism.  The KV pool is dense in the model's dtype or, with
+``EngineConfig(kv_dtype="int8")``, int8 with per-row scales; a dense pool
+of another dtype is refused at construction.
 """
 
 from __future__ import annotations
@@ -63,7 +65,7 @@ from .bucketing import (
     prefill_buckets,
 )
 from .config import EngineConfig, ModelConfig
-from .kv_cache import PagedKVCache, torch_dtype
+from .kv_cache import PagedKVCache, pool_is_quantized, torch_dtype
 from .model import Params, init_params
 from .sampling import PROMPT_FLAG, SamplingParams, unpack_sampled_logprobs
 from .scheduler import MixedChunk, Scheduler, SchedulerConfig, SeqState, StepEvent
@@ -110,7 +112,8 @@ class TorchEngine:
         self.dtype = torch_dtype(model_cfg.dtype)
         c = self.cfg
         self.kv = PagedKVCache(
-            model_cfg, c.num_pages, c.page_size, self.dtype, self.device
+            model_cfg, c.num_pages, c.page_size, self.dtype, self.device,
+            quantized=pool_is_quantized(c.kv_dtype, model_cfg.dtype),
         )
         self.sched = Scheduler(
             SchedulerConfig(

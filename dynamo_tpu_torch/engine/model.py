@@ -5,9 +5,9 @@ weights are stored ``[in, out]`` so the forward is ``x @ W``, and every
 per-layer weight carries a leading ``[num_layers, ...]`` axis.  The layer
 loop is a Python loop over views of those stacks.
 
-The KV pool ``[L, 2, num_pages, page, Hkv, D]`` is updated IN PLACE by the
-attention callback (the writers in ``attention.py`` scatter into it at the
-layer index).  This replaces the JAX package's buffer donation: there the
+The KV pool ``[L, 2, num_pages, page, Hkv, D]`` (a tensor, or the int8
+pool's ``QuantKV`` pair) is updated IN PLACE by the attention callback
+(the writers in ``attention.py`` scatter into it at the layer index).  This replaces the JAX package's buffer donation: there the
 pool rides the ``lax.scan`` carry and XLA aliases it; here the one tensor
 is simply mutated, so no step ever copies the cache.
 
@@ -25,13 +25,14 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
+from .kv_cache import KVPool, torch_dtype
 
 Params = Dict[str, Any]
 
 # (q [T, Hq, D], k [T, Hkv, D], v [T, Hkv, D], kv_pages, layer) -> [T, Hq, D];
 # the callback writes the fresh K/V into kv_pages in place
 AttnFn = Callable[
-    [torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, int], torch.Tensor
+    [torch.Tensor, torch.Tensor, torch.Tensor, KVPool, int], torch.Tensor
 ]
 
 
@@ -74,8 +75,6 @@ def init_params(
     by 1/sqrt(fan_in) like the JAX package's ``init_params``; norms are
     ones).  Filled one layer at a time in the target dtype, so a full-width
     model never holds an f32 copy of itself."""
-    from .kv_cache import torch_dtype
-
     check_supported(cfg)
     dtype = dtype or torch_dtype(cfg.dtype)
     gen = torch.Generator(device=device)
@@ -192,7 +191,7 @@ def transformer_layer(
     sin: torch.Tensor,
     cfg: ModelConfig,
     attn_fn: AttnFn,
-    kv_pages: torch.Tensor,  # [L, 2, num_pages, page, Hkv, D], updated in place
+    kv_pages: KVPool,  # [L, 2, num_pages, page, Hkv, D], updated in place
     layer: int,
 ) -> torch.Tensor:
     """One decoder layer (norm -> attention -> norm -> MLP, residuals)."""
@@ -225,7 +224,7 @@ def transformer(
     cfg: ModelConfig,
     tokens: torch.Tensor,  # [T] int64
     positions: torch.Tensor,  # [T]
-    kv_pages: torch.Tensor,
+    kv_pages: KVPool,
     attn_fn: AttnFn,
 ) -> torch.Tensor:
     """Run the trunk over a flat token axis; returns hidden [T, H] after

@@ -12,6 +12,7 @@ The counterparts of the JAX package's ``step.py`` functions
 ``sample_step_packed`` and ``_prompt_penalized_logits``.  They run eagerly;
 the KV pool is updated in place.  Decode state (last token, cache length,
 active flag, penalty histogram) enters and leaves each call as tensors;
+the pool is a tensor or the int8 pool's ``QuantKV`` pair;
 the sampled rows come back packed (``sampling.pack_sampled_logprobs``) for
 one host transfer per dispatch.
 
@@ -19,11 +20,11 @@ Multi-step rule (the multistep tail and the decode block): every step
 runs, because branching on ``active.any()`` between steps would cost a host
 sync per step.  A step whose lanes are all inactive is the JAX package's
 ``dead_step`` by device-side selects: its row comes out all ``-1``, its KV
-writes go to trash page 0 and its histogram bump is empty, so the pool
-ends as the JAX pool does.  Sampling noise is a stateless hash of (lane
-key, position), so the extra steps draw nothing that a later token depends
-on: K fused steps give the same tokens as K single-step dispatches, for
-greedy and seeded lanes alike.
+writes go to trash page 0 (an int8 pool's data and scales alike) and its
+histogram bump is empty, so the pool ends as the JAX pool does.  Sampling
+noise is a stateless hash of (lane key, position), so the extra steps draw
+nothing that a later token depends on: K fused steps give the same tokens
+as K single-step dispatches, for greedy and seeded lanes alike.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import torch
 
 from . import attention as att
 from .config import ModelConfig
+from .kv_cache import KVPool
 from .model import Params, lm_logits, transformer
 from .sampling import (
     PROMPT_FLAG,
@@ -86,7 +88,7 @@ def mixed_sample_epilogue(
 def packed_unified_step(
     params: Params,
     cfg: ModelConfig,
-    kv_pages: torch.Tensor,  # updated in place
+    kv_pages: KVPool,  # updated in place
     tokens: torch.Tensor,  # [B] last committed token per lane (int64)
     seq_lens: torch.Tensor,  # [B] cache length (next decode write position)
     limit_lens: torch.Tensor,  # [B] cache length at which a lane must stop
@@ -147,7 +149,7 @@ def packed_unified_step(
 def decode_once(
     params: Params,
     cfg: ModelConfig,
-    kv_pages: torch.Tensor,  # updated in place
+    kv_pages: KVPool,  # updated in place
     tokens: torch.Tensor,  # [B] last sampled token per lane
     seq_lens: torch.Tensor,  # [B] tokens already in cache (= new position)
     page_table: torch.Tensor,  # [B, P] int32
@@ -170,7 +172,7 @@ def decode_once(
 def packed_unified_multistep(
     params: Params,
     cfg: ModelConfig,
-    kv_pages: torch.Tensor,
+    kv_pages: KVPool,
     tokens: torch.Tensor,
     seq_lens: torch.Tensor,
     limit_lens: torch.Tensor,
@@ -216,7 +218,7 @@ def packed_unified_multistep(
 def _decode_step(
     params: Params,
     cfg: ModelConfig,
-    kv_pages: torch.Tensor,
+    kv_pages: KVPool,
     tokens: torch.Tensor,
     seq_lens: torch.Tensor,
     limit_lens: torch.Tensor,
@@ -268,7 +270,7 @@ def _decode_step(
 def decode_block(
     params: Params,
     cfg: ModelConfig,
-    kv_pages: torch.Tensor,  # updated in place
+    kv_pages: KVPool,  # updated in place
     tokens: torch.Tensor,  # [B] last committed token per lane
     seq_lens: torch.Tensor,  # [B] cache length (position of the incoming token)
     limit_lens: torch.Tensor,  # [B] cache length at which a lane must stop
@@ -302,7 +304,7 @@ def decode_block(
 def unified_step(
     params: Params,
     cfg: ModelConfig,
-    kv_pages: torch.Tensor,  # updated in place
+    kv_pages: KVPool,  # updated in place
     tokens: torch.Tensor,  # [B] last committed token per lane
     seq_lens: torch.Tensor,  # [B] cache length (next decode write position)
     limit_lens: torch.Tensor,  # [B]
@@ -400,7 +402,7 @@ def _last_row_logits(params, cfg, hidden, lens, B, T) -> torch.Tensor:
 def prefill_step(
     params: Params,
     cfg: ModelConfig,
-    kv_pages: torch.Tensor,  # updated in place
+    kv_pages: KVPool,  # updated in place
     tokens: torch.Tensor,  # [B, T] bucket-padded prompts (T a page multiple)
     seq_lens: torch.Tensor,  # [B] true prompt lengths (0 = pad lane)
     page_table: torch.Tensor,  # [B, T // page] the lanes' pages
@@ -424,7 +426,7 @@ def prefill_step(
 def prefill_and_sample(
     params: Params,
     cfg: ModelConfig,
-    kv_pages: torch.Tensor,
+    kv_pages: KVPool,
     tokens: torch.Tensor,
     seq_lens: torch.Tensor,
     page_table: torch.Tensor,
@@ -445,7 +447,7 @@ def prefill_and_sample(
 def prefill_suffix_and_sample(
     params: Params,
     cfg: ModelConfig,
-    kv_pages: torch.Tensor,  # updated in place
+    kv_pages: KVPool,  # updated in place
     tokens: torch.Tensor,  # [B, T] bucket-padded suffix tokens
     offset: torch.Tensor,  # [B] cached prefix length (page-aligned)
     suffix_lens: torch.Tensor,  # [B] true suffix length

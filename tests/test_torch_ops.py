@@ -201,14 +201,25 @@ def test_packed_ragged_clips_table_and_layer():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
-def test_wrappers_refuse_int8_branch_and_unknown_devices():
+def test_wrappers_refuse_bad_int8_scales_and_unknown_devices():
     c = _packed_case(np.random.default_rng(5), "float32")
     t = {n: torch.from_numpy(v.copy()) for n, v in c.items() if isinstance(v, np.ndarray)}
-    with pytest.raises(NotImplementedError):
-        packed_ragged_attention(
-            t["q"], t["k"], t["v"], t["pool"], t["table"], t["base"],
-            t["seg_off"], t["q_lens"], c["s_max"], 0, 0,
-            kv_scales=torch.ones(1),
+    pool8 = t["pool"].to(torch.int8)
+    good = torch.ones(pool8.shape[:4])
+    for pool, scales in (
+        (pool8, good.double()),  # scales of another dtype
+        (pool8, good[:, :, :-1]),  # scales of another shape
+        (t["pool"], good),  # data that is not int8
+    ):
+        with pytest.raises(ValueError):
+            packed_ragged_attention(
+                t["q"], t["k"], t["v"], pool, t["table"], t["base"],
+                t["seg_off"], t["q_lens"], c["s_max"], 0, 0, kv_scales=scales,
+            )
+    with pytest.raises(ValueError):
+        ragged_paged_attention(
+            t["q"][None], t["k"][None], t["v"][None], pool8, t["table"][:1],
+            t["base"][:1], t["q_lens"][:1], kv_scales=good.half(),
         )
     meta = torch.empty((2, HQ, D), device="meta")
     with pytest.raises(ValueError):
