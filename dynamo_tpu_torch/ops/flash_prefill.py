@@ -4,10 +4,11 @@ wrappers and their plain versions.
 Replaces the TPU Pallas kernels ``flash_prefill_attention``
 (``dynamo_tpu/ops/flash_prefill.py:125``) and
 ``flash_prefix_prefill_attention`` (:311).  Both are hand-written CUDA C++
-for ``sm_90a``: two C entries of ``csrc/flash_prefill.cu`` over one kernel,
-whose CTA routine (``csrc/attention_tile.cuh``) the ragged kernels share;
-the source comments say what bounds them on the card and how the design
-answers.
+for ``sm_90a``: two C entries of ``csrc/flash_prefill.cu``, each of which
+launches the bf16 tensor-core kernel (``csrc/flash_prefill_tc.cuh``) for
+bf16 operands and the CUDA-core kernel over the CTA routine the ragged
+kernels share (``csrc/attention_tile.cuh``) for f32 operands; the source
+comments say what bounds them on the card and how the design answers.
 
 Full prefill: lane b's prompt starts at position 0; query row i attends to
 keys ``j <= i`` with ``j < seq_lens[b]`` and, with a window, ``i - j <
@@ -16,7 +17,9 @@ window``.  Prefix-suffix prefill: suffix row i sits at absolute position
 ``[B, Kp + T, Hkv, D]``); prefix key p is valid while ``p < offset[b]``,
 suffix key j while ``j <= i`` and ``j < suffix_lens[b]``, the window on
 absolute positions.  Rows at or past the lane's valid length come out as
-zeros (the Pallas kernels compute them; nothing reads them).
+zeros (the Pallas kernels compute them; nothing reads them): the kernels
+write those zeros themselves, so the wrappers allocate the output
+uninitialised.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version for CPU tensors -- on the tensors' device alone, with no switch and
@@ -120,7 +123,7 @@ def flash_prefill_attention(
     _check_prefill(q, k, v, (("seq_lens", seq_lens),))
     if k.shape[1] != T:
         raise ValueError("K/V must be [B, T, Hkv, D]")
-    out = torch.zeros_like(q)
+    out = torch.empty_like(q)
     KERNEL.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seq_lens.data_ptr(),
         out.data_ptr(), DTYPE_CODES[q.dtype], B, T, Hq, k.shape[2], D,
@@ -147,7 +150,7 @@ def flash_prefix_prefill_attention(
         raise ValueError(f"no kernel for device {q.device}")
     B, T, Hq, D = q.shape
     _check_prefill(q, k_cat, v_cat, (("offset", offset), ("suffix_lens", suffix_lens)))
-    out = torch.zeros_like(q)
+    out = torch.empty_like(q)
     PREFIX_KERNEL.launch(
         q.data_ptr(), k_cat.data_ptr(), v_cat.data_ptr(), offset.data_ptr(),
         suffix_lens.data_ptr(), out.data_ptr(), DTYPE_CODES[q.dtype], B, T,

@@ -3,10 +3,10 @@ card: paged decode, packed and rectangle ragged (the dense pool's entries
 and the int8 pool's), full and prefix-suffix flash prefill.  Every
 instantiation the wrappers can launch (f32 and bf16, head dims 64 and 128,
 GQA groups 2 and 4: those of the port's configs), with and without a
-sliding window, at small shapes.  The dense entries of the ragged and flash
-kernels also give, bit for bit, the outputs recorded from their build
-before the CTA routine's prefix sources learnt to load int8 rows
-(``DENSE_DIGESTS``).
+sliding window, at small shapes; the flash kernels also at lengths around
+their 64-row tiles and at the serve shape of kernel 2 in ``chip_smoke.py``.
+The dense entries of the ragged and flash kernels also give, bit for bit,
+the outputs recorded in ``DENSE_DIGESTS``.
 
 These tests need an NVIDIA card and ``nvcc``, so they carry the ``cuda``
 marker and skip elsewhere.  They import no JAX (the card's machine has
@@ -17,7 +17,11 @@ none); run them there without the JAX-loading conftest:
 Tolerances: in f32 the kernel and the plain version differ by the order of
 their sums and by the kernel's fast exponential (``__expf``, a few ulp),
 5e-5 on outputs of order one; in bf16 each side rounds its output once,
-2e-2 (two bf16 ulps of values of order one).
+2e-2 (two bf16 ulps of values of order one).  The bf16 flash kernel also
+rounds P to bf16 for its product with V (as the Pallas kernel does; the
+plain version keeps P in f32): a relative error of at most 2^-9 on each
+term's weight, some 2e-3 on an output built from a few keys of |v| up to
+~4, inside the same 2e-2.
 """
 
 from __future__ import annotations
@@ -131,12 +135,28 @@ def test_rectangle_ragged_kernel_matches_plain(card, D, n_rep, dtype, window):
         assert not got[b, n:].any(), "rows past q_len give zeros"
 
 
-@pytest.mark.parametrize("window", [0, 7])
+def _dirty_cache(like: torch.Tensor) -> None:
+    """Hand the caching allocator a freed block of ``like``'s size full of
+    NaNs, so that the wrapper's uninitialised output is not a fresh zeroed
+    block and the zero-row checks test the kernel's own writes."""
+    dirty = torch.full_like(like, float("nan"))
+    del dirty
+
+
+# (lens, T): rows on both sides of the 64-row query tiles and 64-key tiles
+FLASH_CASES = {
+    "small": ([96, 45, 1, 0], 96),  # full bucket, short lane, one token, pad lane
+    "tile-edges": ([63, 64, 65, 130, 0], 130),  # around the tiles; an idle lane
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+@pytest.mark.parametrize("window", [0, 7, 70])  # 7 and 70 cut inside a key tile
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D,n_rep", GEOMETRY)
-def test_flash_prefill_kernel_matches_plain(card, D, n_rep, dtype, window):
-    seq_lens = [96, 45, 1, 0]  # full bucket, short lane, one token, pad lane
-    B, T = len(seq_lens), 96
+def test_flash_prefill_kernel_matches_plain(card, D, n_rep, dtype, window, case):
+    seq_lens, T = FLASH_CASES[case]
+    B = len(seq_lens)
     gen = torch.Generator(device=card)
     gen.manual_seed(5)
 
@@ -146,6 +166,7 @@ def test_flash_prefill_kernel_matches_plain(card, D, n_rep, dtype, window):
     q, k, v = rand(HKV * n_rep), rand(HKV), rand(HKV)
     lens = torch.tensor(seq_lens, dtype=torch.int32, device=card)
     before = fp.KERNEL.launches
+    _dirty_cache(q)
     got = fp.flash_prefill_attention(q, k, v, lens, window)
     torch.cuda.synchronize()
     assert fp.KERNEL.launches == before + 1
@@ -155,15 +176,47 @@ def test_flash_prefill_kernel_matches_plain(card, D, n_rep, dtype, window):
         assert not got[b, n:].any(), "rows past seq_len give zeros"
 
 
-@pytest.mark.parametrize("window", [0, 7])
+def test_flash_prefill_kernel_at_the_serve_shape(card):
+    # kernel 2's check in chip_smoke.py: one 1200-token lane of the 2048
+    # bucket at Llama-3-8B heads, bf16
+    T, n, Hq, Hkv, D = 2048, 1200, 32, 8, 128
+    gen = torch.Generator(device=card)
+    gen.manual_seed(11)
+
+    def rand(h):
+        return torch.randn((1, T, h, D), generator=gen, device=card).to(torch.bfloat16)
+
+    q, k, v = rand(Hq), rand(Hkv), rand(Hkv)
+    lens = torch.tensor([n], dtype=torch.int32, device=card)
+    before = fp.KERNEL.launches
+    _dirty_cache(q)
+    got = fp.flash_prefill_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert fp.KERNEL.launches == before + 1
+    want = fp.flash_prefill_attention_plain(q, k, v, lens)
+    torch.testing.assert_close(
+        got.float(), want.float(), atol=TOL[torch.bfloat16], rtol=0
+    )
+    assert not got[0, n:].any(), "rows past seq_len give zeros"
+
+
+# (offset, suffix lens, T, Kp)
+PREFIX_CASES = {
+    # Kp = 37: a partial-page prefix, a full one, an empty one, a pad lane
+    "small": ([21, 37, 0, 8], [40, 3, 19, 0], 48, 37),
+    # Kp = 100, no multiple of the 64-key tile: offsets below, at and past
+    # it, suffixes around the 64-row tiles, an idle lane
+    "tile-edges": ([70, 100, 0, 130, 30], [65, 63, 130, 64, 0], 130, 100),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PREFIX_CASES))
+@pytest.mark.parametrize("window", [0, 7, 70])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D,n_rep", GEOMETRY)
-def test_flash_prefix_prefill_kernel_matches_plain(card, D, n_rep, dtype, window):
-    # Kp = 37 (no tile multiple); a partial-page prefix, a full one, an
-    # empty one, and a pad lane
-    offset = [21, 37, 0, 8]
-    suffix = [40, 3, 19, 0]
-    B, T, Kp = len(offset), 48, 37
+def test_flash_prefix_prefill_kernel_matches_plain(card, D, n_rep, dtype, window, case):
+    offset, suffix, T, Kp = PREFIX_CASES[case]
+    B = len(offset)
     gen = torch.Generator(device=card)
     gen.manual_seed(6)
 
@@ -174,6 +227,7 @@ def test_flash_prefix_prefill_kernel_matches_plain(card, D, n_rep, dtype, window
     off = torch.tensor(offset, dtype=torch.int32, device=card)
     lens = torch.tensor(suffix, dtype=torch.int32, device=card)
     before = fp.PREFIX_KERNEL.launches
+    _dirty_cache(q)
     got = fp.flash_prefix_prefill_attention(q, k, v, off, lens, window)
     torch.cuda.synchronize()
     assert fp.PREFIX_KERNEL.launches == before + 1
@@ -368,10 +422,15 @@ def dense_digests(fp, ra, card) -> dict:
     return out
 
 
-# the outputs of the build before the prefix sources' refactor (sources of
-# the parent commit, NVIDIA H100 80GB HBM3, nvcc of the CUDA toolkit on the
-# card's machine); a change that alters the kernels' arithmetic on purpose
-# records them anew and says why
+# outputs recorded on an NVIDIA H100 80GB HBM3 (nvcc of the CUDA toolkit on
+# the card's machine); a change that alters a kernel's arithmetic on purpose
+# records its entries anew and says why.  The f32 entries and every packed-
+# and rect- entry are those of the build before the CTA routine's prefix
+# sources learnt to load int8 rows.  The eight bf16 flash- and prefix-
+# entries were recorded anew when bf16 flash prefill moved to the tensor
+# cores: its products run as bf16 mma with f32 accumulators in another
+# order, and P is rounded to bf16 before its product with V (the Pallas
+# kernel's arithmetic), so those outputs changed on purpose.
 DENSE_DIGESTS = {
     "flash-float32-D128-r4-w0": "626bc3177bcaef20",
     "prefix-float32-D128-r4-w0": "58e3dab768f8e5bb",
@@ -389,20 +448,20 @@ DENSE_DIGESTS = {
     "prefix-float32-D64-r2-w7": "b49a17e9cfd8740e",
     "packed-float32-D64-r2-w7": "0b5ac49edfffc19a",
     "rect-float32-D64-r2-w7": "cb52c3eb00be7ebb",
-    "flash-bfloat16-D128-r4-w0": "6921d4e2d3cb42b3",
-    "prefix-bfloat16-D128-r4-w0": "b46feb6cd082e609",
+    "flash-bfloat16-D128-r4-w0": "500dc9ea4944794a",
+    "prefix-bfloat16-D128-r4-w0": "9baba191b5f38057",
     "packed-bfloat16-D128-r4-w0": "04008ce5cc74feb5",
     "rect-bfloat16-D128-r4-w0": "8a88ee922d3d495e",
-    "flash-bfloat16-D128-r4-w7": "43ed1e623081c56e",
-    "prefix-bfloat16-D128-r4-w7": "aa6ea029a1ed2e9e",
+    "flash-bfloat16-D128-r4-w7": "082e8c980f71fc85",
+    "prefix-bfloat16-D128-r4-w7": "213c960ba4502f04",
     "packed-bfloat16-D128-r4-w7": "d5ea4ab8004cf71b",
     "rect-bfloat16-D128-r4-w7": "6c2667f7e3aae6f1",
-    "flash-bfloat16-D64-r2-w0": "72f947e1e7a831ae",
-    "prefix-bfloat16-D64-r2-w0": "c9833f1f344a0a1a",
+    "flash-bfloat16-D64-r2-w0": "e1dd51de38bd5b5e",
+    "prefix-bfloat16-D64-r2-w0": "ee1281e57e27546e",
     "packed-bfloat16-D64-r2-w0": "5736ab0d19ef8cf6",
     "rect-bfloat16-D64-r2-w0": "67c2caf3f31ca9ae",
-    "flash-bfloat16-D64-r2-w7": "8765f50c985c13d5",
-    "prefix-bfloat16-D64-r2-w7": "a9cd741324e80fac",
+    "flash-bfloat16-D64-r2-w7": "110030a9c40c43e0",
+    "prefix-bfloat16-D64-r2-w7": "96ae7c645ea9629b",
     "packed-bfloat16-D64-r2-w7": "456965155f521eec",
     "rect-bfloat16-D64-r2-w7": "18c949ff3c3ecbc5",
 }

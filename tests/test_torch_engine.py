@@ -18,8 +18,8 @@ config, fused multistep (K up to 8) gives the tokens of K=1 for greedy and
 seeded lanes, a seeded lane gives the same tokens alone and in a batch,
 recompute preemption in a tight pool changes no token, a cancel leaks no
 pages, and the entry points refuse to run without a card unless the CPU is
-asked for.  Every wait of a new test is bounded (``asyncio.wait_for``), so
-a hang fails in seconds.
+asked for.  Every wait is bounded (``asyncio.wait_for``), so a hang fails
+in seconds.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ ENGINE = dict(
     mixed_token_budget=16,
 )
 SHARED = [(7 * i + 3) % 250 + 1 for i in range(12)]  # three whole pages
-WAIT_S = 60  # bound on any one served batch of the new tests
+WAIT_S = 60  # bound on any one served batch
 # the configs held against the JAX engine, and whether their batch carries
 # the two penalized lanes
 CONFIGS = {
@@ -106,7 +106,7 @@ async def collect(engine, req: dict, first=None, after=None):
     return tokens, str(finish) if finish is not None else None
 
 
-async def serve_mixed(engine, reqs, timeout=None):
+async def serve_mixed(engine, reqs, timeout=WAIT_S):
     """``reqs[1]`` and ``reqs[2]`` share a prefix: the second starts after
     the first has streamed, so its prompt finds the prefix registered."""
     try:
@@ -181,7 +181,7 @@ def test_engine_greedy_streams_match_jax(weights, stop_token):
     assert [len(t) for t, _ in port] == [10, 10, 10, len(port[3][0]), 14]
 
 
-async def logprob_frames(engine, req: dict, timeout=None) -> dict:
+async def logprob_frames(engine, req: dict, timeout=WAIT_S) -> dict:
     """Token ids, chosen logprobs and top logprobs of one stream."""
     try:
         if isinstance(engine, JaxEngine):
@@ -252,7 +252,9 @@ def test_multistep_matches_single_step_and_seeded_lanes_are_isolated(weights):
 
     async def run(engine, batch):
         try:
-            return await asyncio.gather(*[collect(engine, r) for r in batch])
+            return await asyncio.wait_for(
+                asyncio.gather(*[collect(engine, r) for r in batch]), WAIT_S
+            )
         finally:
             await engine.stop()
 
@@ -276,7 +278,9 @@ def test_recompute_preemption_keeps_streams(weights):
 
     async def run(engine):
         try:
-            return await asyncio.gather(*[collect(engine, r) for r in reqs])
+            return await asyncio.wait_for(
+                asyncio.gather(*[collect(engine, r) for r in reqs]), WAIT_S
+            )
         finally:
             await engine.stop()
 
@@ -313,7 +317,7 @@ def test_cancel_frees_every_page(weights):
         finally:
             await engine.stop()
 
-    asyncio.run(body())
+    asyncio.run(asyncio.wait_for(body(), WAIT_S))
 
 
 @pytest.mark.parametrize("config", list(CONFIGS))
