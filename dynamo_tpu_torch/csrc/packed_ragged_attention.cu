@@ -1,5 +1,5 @@
 // Ragged paged attention for Hopper (sm_90a), hand-written CUDA C++: four C
-// entries over one kernel template.
+// entries over two kernels, one for each dtype.
 //
 //   packed_ragged_attention replaces the dense-pool branch of the TPU Pallas
 //     kernel packed_ragged_attention (dynamo_tpu/ops/ragged_attention.py:527,
@@ -14,7 +14,8 @@
 // ragged_paged_attention_int8) for the int8 pool: the kv_scales branch of the
 // same Pallas kernels (_dequant_block, ragged_attention.py:58), which reads
 // the int8 data and one f32 scale per (layer, k|v, page, slot) row and
-// dequantizes each prefix row as it loads it (QuantPagedPrefix).
+// dequantizes each prefix row as it loads it (QuantPagedPrefix in f32; in
+// shared memory in bf16).
 //
 // Function: lane b's q_len rows start at seg_off[b] (b * S in the rectangle)
 // and sit at absolute positions base[b] + r.  Row r attends to (a) the
@@ -31,15 +32,27 @@
 // What bounds it on an H100: bytes for decode rows (a q_len = 1 row reads
 // the whole prefix for n_rep query heads; the int8 pool halves those bytes
 // under bf16), operations for long prefill chunks (each key tile serves 64
-// query vectors).  This first version runs
-// every product on the CUDA cores in f32 (no wgmma / mma yet): one CTA per
-// (lane, KV head, tile of 64 / n_rep query rows); CTAs whose tile starts
-// past q_len exit at once, so decode lanes cost one CTA per KV head.
-// Tensor-core products (mma / wgmma), TMA staging and split-K are later work.
+// query vectors).  The entries dispatch on the dtype between two
+// hand-written kernels; neither is a fallback of the other:
+//   bf16 (the serving dtype): ragged_tc_kernel (ragged_tc.cuh), every
+//     product on the bf16 tensor cores, K/V gathered through the page table
+//     by cp.async into a ring of swizzled tiles, int8 prefix rows
+//     dequantized in shared memory; its note says how the design meets the
+//     bound.
+//   f32 (the card-equals-CPU reference dtype of chip_smoke.py and the card
+//     tests): ragged_kernel over the CUDA-core routine attend_tile
+//     (attention_tile.cuh), every product in f32 on the CUDA cores (the
+//     tensor cores take f32 only as TF32, far outside the f32 checks).
+// Both run one CTA per (lane, KV head, tile of 64 / n_rep query rows); CTAs
+// whose tile starts past q_len exit at once, so decode lanes cost one CTA
+// per KV head.
 
 #include <math.h>
 
+#include <type_traits>
+
 #include "attention_tile.cuh"
+#include "ragged_tc.cuh"
 
 namespace {
 
@@ -111,16 +124,35 @@ struct RaggedLaunch {
 
     template <typename T, int D, int NREP, bool QUANT>
     cudaError_t launch_pool() {
+        if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+            return launch_tc<D, NREP, QUANT>();
+        } else {
+            static bool smem_ok = false;
+            auto kern = ragged_kernel<T, D, NREP, QUANT>;
+            cudaError_t e = allow_smem(kern, tile_smem_bytes<D>(), smem_ok);
+            if (e != cudaSuccess) return e;
+            constexpr int TQ = TILE_QV / NREP;
+            dim3 grid((S + TQ - 1) / TQ, Hkv, B);
+            kern<<<grid, TILE_WARPS * 32, tile_smem_bytes<D>(), stream>>>(
+                static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+                pool, scales, table, base, seg_off, q_lens, static_cast<T*>(out), Hkv, N, page,
+                P, layer, window, S, 1.0f / sqrtf((float)D));
+            return cudaGetLastError();
+        }
+    }
+
+    template <int D, int NREP, bool QUANT>
+    cudaError_t launch_tc() {
+        using bf16 = __nv_bfloat16;
         static bool smem_ok = false;
-        auto kern = ragged_kernel<T, D, NREP, QUANT>;
-        cudaError_t e = allow_smem(kern, tile_smem_bytes<D>(), smem_ok);
+        auto kern = ragged_tc_kernel<D, NREP, QUANT>;
+        cudaError_t e = allow_smem(kern, ragged_tc_smem_bytes<D>(), smem_ok);
         if (e != cudaSuccess) return e;
-        constexpr int TQ = TILE_QV / NREP;
-        dim3 grid((S + TQ - 1) / TQ, Hkv, B);
-        kern<<<grid, TILE_WARPS * 32, tile_smem_bytes<D>(), stream>>>(
-            static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), pool,
-            scales, table, base, seg_off, q_lens, static_cast<T*>(out), Hkv, N, page, P, layer,
-            window, S, 1.0f / sqrtf((float)D));
+        dim3 grid((S + 64 / NREP - 1) / (64 / NREP), Hkv, B);
+        kern<<<grid, 128, ragged_tc_smem_bytes<D>(), stream>>>(
+            static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+            pool, scales, table, base, seg_off, q_lens, static_cast<bf16*>(out), Hkv, N, page, P,
+            layer, window, S, 1.4426950408889634f / sqrtf((float)D));
         return cudaGetLastError();
     }
 };

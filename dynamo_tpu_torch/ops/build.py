@@ -58,14 +58,22 @@ _BUILD_LOCK = threading.Lock()
 class CudaKernel:
     """One hand-written kernel: its C entry ``name`` in ``csrc/<source>.cu``
     (``source`` defaults to ``name``), its lazily built library and its
-    launch count (a plain integer the smoke run resets and reads)."""
+    launch count (a plain integer the smoke run resets and reads).
+    ``defines`` (``NAME=VALUE`` strings passed to ``nvcc -D``) build a
+    variant of the source into a library of its own; the port's kernels
+    take none, a measurement script may."""
 
     def __init__(
-        self, name: str, argtypes: Sequence[type], source: Optional[str] = None
+        self,
+        name: str,
+        argtypes: Sequence[type],
+        source: Optional[str] = None,
+        defines: Sequence[str] = (),
     ) -> None:
         self.name = name
         self.source_name = source or name
         self.argtypes = list(argtypes)
+        self.defines = list(defines)
         self.launches = 0
         self._fn = None
 
@@ -75,6 +83,8 @@ class CudaKernel:
 
     def _digest(self) -> str:
         h = hashlib.sha1()
+        for d in self.defines:
+            h.update(d.encode())
         for path in sorted([self.source, *CSRC.glob("*.cuh")]):
             h.update(path.name.encode())
             h.update(path.read_bytes())
@@ -98,7 +108,11 @@ class CudaKernel:
             nvcc_path(),
             "-gencode", "arch=compute_90a,code=sm_90a",
             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+            # optimize a source's kernel instantiations on parallel threads
+            # (the ragged source has sixteen)
+            "--split-compile=0",
             "-Xptxas", "-v",
+            *[f"-D{d}" for d in self.defines],
             "-o", str(tmp), str(self.source),
         ]
         proc = subprocess.Popen(

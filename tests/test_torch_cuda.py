@@ -4,7 +4,8 @@ and the int8 pool's), full and prefix-suffix flash prefill.  Every
 instantiation the wrappers can launch (f32 and bf16, head dims 64 and 128,
 GQA groups 2 and 4: those of the port's configs), with and without a
 sliding window, at small shapes; the flash kernels also at lengths around
-their 64-row tiles and at the serve shape of kernel 2 in ``chip_smoke.py``.
+their 64-row tiles and at the serve shape of kernel 2 in ``chip_smoke.py``,
+the ragged kernels (both layouts, both pools) at their tile and page edges.
 The dense entries of the ragged and flash kernels also give, bit for bit,
 the outputs recorded in ``DENSE_DIGESTS``.
 
@@ -17,11 +18,11 @@ none); run them there without the JAX-loading conftest:
 Tolerances: in f32 the kernel and the plain version differ by the order of
 their sums and by the kernel's fast exponential (``__expf``, a few ulp),
 5e-5 on outputs of order one; in bf16 each side rounds its output once,
-2e-2 (two bf16 ulps of values of order one).  The bf16 flash kernel also
-rounds P to bf16 for its product with V (as the Pallas kernel does; the
-plain version keeps P in f32): a relative error of at most 2^-9 on each
-term's weight, some 2e-3 on an output built from a few keys of |v| up to
-~4, inside the same 2e-2.
+2e-2 (two bf16 ulps of values of order one).  The bf16 flash and ragged
+kernels also round P to bf16 for its product with V (as the Pallas kernels
+do; the plain versions keep P in f32): a relative error of at most 2^-9 on
+each term's weight, some 2e-3 on an output built from a few keys of |v| up
+to ~4, inside the same 2e-2.
 """
 
 from __future__ import annotations
@@ -337,6 +338,88 @@ def test_rectangle_ragged_int8_kernel_matches_plain(card, D, n_rep, dtype, windo
         assert not got[b, n:].any(), "rows past q_len give zeros"
 
 
+def _edge_lanes(n_rep):
+    """Lanes at the tile and page edges of the ragged kernels: chunk lengths
+    around a CTA's 64 / n_rep query rows and around a 64-key tile, bases
+    that are multiples of neither 64 nor the page, base 0, a lane whose
+    prefix reaches past its table (reach = P * PAGE < base), a decode lane,
+    an idle lane.  Returns (base, q_lens)."""
+    tq = 64 // n_rep
+    base = [37, 0, 13, 0, 3, 91, 70, 100, 5]
+    q_lens = [tq - 1, tq, tq + 1, 63, 64, 65, 20, 1, 0]
+    return base, q_lens
+
+
+def _edge_operands(card, dtype, D, n_rep, quant, layout, seed):
+    """The pool (rows of magnitudes 10^-3 to 1, so that int8 scales
+    differ by orders of magnitude between rows; page 2 never written in the
+    int8 pool), a table with one id past the pool (clamped), the lanes of
+    ``_edge_lanes`` and fresh rows in ``layout`` ("packed" or "rect")."""
+    base, q_lens = _edge_lanes(n_rep)
+    B = len(base)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed)
+    rs = np.random.default_rng(seed)
+    mag = torch.logspace(-3, 0, N * PAGE, device=card).view(1, 1, N, PAGE, 1, 1)
+    pool = (torch.randn((L, 2, N, PAGE, HKV, D), generator=gen, device=card) * mag).to(dtype)
+    table = np.stack([rs.permutation(N - 1)[:P] + 1 for _ in range(B)]).astype(np.int32)
+    table[2, 1] = N + 3  # clamped to the pool's last page
+    table = torch.from_numpy(table).to(card)
+    scales = None
+    if quant:
+        pool, scales = _int8_pool(pool)
+        table[0, 2] = 2
+    i32 = dict(dtype=torch.int32, device=card)
+    if layout == "packed":
+        offs, off = [], 0
+        for n in q_lens:
+            offs.append(off if n else 0)
+            off += n
+        s_max = 128
+        Np = off + s_max
+        shape = (Np,)
+        lanes = (torch.tensor(base, **i32), torch.tensor(offs, **i32), torch.tensor(q_lens, **i32))
+    else:
+        S = 72
+        shape = (B, S)
+        lanes = (torch.tensor(base, **i32), torch.tensor(q_lens, **i32))
+
+    def rand(h):
+        return torch.randn((*shape, h, D), generator=gen, device=card).to(dtype)
+
+    q, k, v = rand(HKV * n_rep), rand(HKV), rand(HKV)
+    return q, k, v, pool, scales, table, lanes, q_lens
+
+
+@pytest.mark.parametrize("window", [0, 7, 70, 512])
+@pytest.mark.parametrize("quant", [False, True], ids=["dense", "int8"])
+@pytest.mark.parametrize("layout", ["packed", "rect"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,n_rep", GEOMETRY)
+def test_ragged_kernels_at_tile_and_page_edges(card, D, n_rep, dtype, layout, quant, window):
+    q, k, v, pool, scales, table, lanes, q_lens = _edge_operands(
+        card, dtype, D, n_rep, quant, layout, 20
+    )
+    if layout == "packed":
+        kernel = ra.INT8_KERNEL if quant else ra.KERNEL
+        before = kernel.launches
+        got = ra.packed_ragged_attention(q, k, v, pool, table, *lanes, 128, 1, window, scales)
+        want = ra.packed_ragged_attention_plain(q, k, v, pool, table, *lanes, 1, window, scales)
+    else:
+        kernel = ra.RECT_INT8_KERNEL if quant else ra.RECT_KERNEL
+        before = kernel.launches
+        got = ra.ragged_paged_attention(q, k, v, pool, table, *lanes, 1, window, scales)
+        want = ra.ragged_paged_attention_plain(q, k, v, pool, table, *lanes, 1, window, scales)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=0)
+    if layout == "packed":
+        assert not got[sum(q_lens):].any(), "pad rows give zeros"
+    else:
+        for b, n in enumerate(q_lens):
+            assert not got[b, n:].any(), "rows past q_len give zeros"
+
+
 def test_int8_wrappers_refuse_what_their_kernels_do_not_take(card):
     gen, pool, table = _setup(card, torch.bfloat16, 128, 2, 9)
     pq, ps = _int8_pool(pool)
@@ -424,13 +507,14 @@ def dense_digests(fp, ra, card) -> dict:
 
 # outputs recorded on an NVIDIA H100 80GB HBM3 (nvcc of the CUDA toolkit on
 # the card's machine); a change that alters a kernel's arithmetic on purpose
-# records its entries anew and says why.  The f32 entries and every packed-
-# and rect- entry are those of the build before the CTA routine's prefix
-# sources learnt to load int8 rows.  The eight bf16 flash- and prefix-
-# entries were recorded anew when bf16 flash prefill moved to the tensor
-# cores: its products run as bf16 mma with f32 accumulators in another
-# order, and P is rounded to bf16 before its product with V (the Pallas
-# kernel's arithmetic), so those outputs changed on purpose.
+# records its entries anew and says why.  The f32 entries are those of the
+# build before the CTA routine's prefix sources learnt to load int8 rows.
+# The eight bf16 flash- and prefix- entries were recorded anew when bf16
+# flash prefill moved to the tensor cores, and the eight bf16 packed- and
+# rect- entries when bf16 ragged attention did: their products run as bf16
+# mma with f32 accumulators in another order, and P is rounded to bf16
+# before its product with V (the Pallas kernels' arithmetic), so those
+# outputs changed on purpose.
 DENSE_DIGESTS = {
     "flash-float32-D128-r4-w0": "626bc3177bcaef20",
     "prefix-float32-D128-r4-w0": "58e3dab768f8e5bb",
@@ -450,20 +534,20 @@ DENSE_DIGESTS = {
     "rect-float32-D64-r2-w7": "cb52c3eb00be7ebb",
     "flash-bfloat16-D128-r4-w0": "500dc9ea4944794a",
     "prefix-bfloat16-D128-r4-w0": "9baba191b5f38057",
-    "packed-bfloat16-D128-r4-w0": "04008ce5cc74feb5",
-    "rect-bfloat16-D128-r4-w0": "8a88ee922d3d495e",
+    "packed-bfloat16-D128-r4-w0": "dd038986836d0c45",
+    "rect-bfloat16-D128-r4-w0": "4201591537f2a80d",
     "flash-bfloat16-D128-r4-w7": "082e8c980f71fc85",
     "prefix-bfloat16-D128-r4-w7": "213c960ba4502f04",
-    "packed-bfloat16-D128-r4-w7": "d5ea4ab8004cf71b",
-    "rect-bfloat16-D128-r4-w7": "6c2667f7e3aae6f1",
+    "packed-bfloat16-D128-r4-w7": "766d9074769048b0",
+    "rect-bfloat16-D128-r4-w7": "a862290d09670517",
     "flash-bfloat16-D64-r2-w0": "e1dd51de38bd5b5e",
     "prefix-bfloat16-D64-r2-w0": "ee1281e57e27546e",
-    "packed-bfloat16-D64-r2-w0": "5736ab0d19ef8cf6",
-    "rect-bfloat16-D64-r2-w0": "67c2caf3f31ca9ae",
+    "packed-bfloat16-D64-r2-w0": "bbd0829b8b5e4e5e",
+    "rect-bfloat16-D64-r2-w0": "e9e7c675a5f157e3",
     "flash-bfloat16-D64-r2-w7": "110030a9c40c43e0",
     "prefix-bfloat16-D64-r2-w7": "96ae7c645ea9629b",
-    "packed-bfloat16-D64-r2-w7": "456965155f521eec",
-    "rect-bfloat16-D64-r2-w7": "18c949ff3c3ecbc5",
+    "packed-bfloat16-D64-r2-w7": "c970984e2f3ab079",
+    "rect-bfloat16-D64-r2-w7": "eef4ab56c15ae1c2",
 }
 
 
