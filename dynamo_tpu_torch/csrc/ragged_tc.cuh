@@ -26,11 +26,8 @@
 //   16 runs its products as one warpgroup on wgmma m64n64k16: Q and K from
 //   shared memory, P from registers, V through the descriptor's transpose
 //   bit, P V right after the softmax, so a tile's stage is free when its
-//   products are.  (Built with -DDYN_RAGGED_FORM=0 it runs them instead on
-//   mma.sync m16n8k16, each warp its 16 query vectors, fragments by
-//   ldmatrix(.trans), a warp with no live vector skipping its products: the
-//   first form built, slower on an H100; time_ragged_forms.py times the two
-//   in turns.)
+//   products are.  (A form on mma.sync m16n8k16, each warp its 16 query
+//   vectors, ran 21% slower on an H100; PERF.md has both times.)
 // - A CTA whose live vectors all sit in its first 16 (a decode lane's NREP
 //   vectors; rows * NREP <= 16) splits every key tile over its warps
 //   instead: warp w takes keys 16 w .. 16 w + 15 of each tile for those 16
@@ -67,21 +64,9 @@
 //   q_len or behind the window floor are never loaded, and element masks
 //   apply only on tiles that cross the diagonal, the window floor, the
 //   prefix's reach or a length edge.
-//
-// Build macros, for time_ragged_forms.py only (the port's build sets none):
-// DYN_RAGGED_FORM 0 takes the mma.sync form above; DYN_RAGGED_SKIP 1 leaves
-// out every product and 2 every K/V copy, to time the copies and the
-// products apart (the outputs are then wrong).
 #pragma once
 
 #include "tc_common.cuh"
-
-#ifndef DYN_RAGGED_FORM
-#define DYN_RAGGED_FORM 1
-#endif
-#ifndef DYN_RAGGED_SKIP
-#define DYN_RAGGED_SKIP 0
-#endif
 
 namespace dyn {
 
@@ -212,7 +197,7 @@ ragged_tc_kernel(const __nv_bfloat16* __restrict__ q,   // [Np, Hq, D] (rectangl
     // 64 of side tid / 64), 0 where there is none.  Thread tid copies chunk
     // tid % (chunks a row) of every (128 / chunks a row)-th row.
     auto issue = [&](int t, int stage) -> float {
-        if (t >= walk.n_tiles || (DYN_RAGGED_SKIP & 2)) return 0.f;
+        if (t >= walk.n_tiles) return 0.f;
         int mem0, pos0, nv;
         walk.at(t, mem0, pos0, nv);
         bf16* dk = sK + stage * AREA;
@@ -311,7 +296,7 @@ ragged_tc_kernel(const __nv_bfloat16* __restrict__ q,   // [Np, Hq, D] (rectangl
                 fence_proxy_async();
                 __syncthreads();
             }
-            if (!(DYN_RAGGED_SKIP & 1)) products(t, stage);
+            products(t, stage);
         }
         cp_async_wait<0>();
     };
@@ -337,16 +322,16 @@ ragged_tc_kernel(const __nv_bfloat16* __restrict__ q,   // [Np, Hq, D] (rectangl
             mma_16816(o[2 * dp + 1], pa, bv[2], bv[3]);
         }
     };
-    // s (16 query vectors from ``q_row`` x NT 8-key columns from key row
-    // ``k0`` of ``k_st``) = Q K^T
-    auto qk = [&](auto& s, int q_row, const bf16* k_st, int k0) {
+    // s (query vectors 0 .. 15 x NT 8-key columns from key row ``k0`` of
+    // ``k_st``) = Q K^T
+    auto qk = [&](auto& s, const bf16* k_st, int k0) {
         constexpr int NT = sizeof(s) / sizeof(s[0]);
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
         for (int kd = 0; kd < D / 16; ++kd) {
             uint32_t a[4];
-            ldmatrix_x4(a, smem_addr(sQ + box_at(q_row + (lane & 15), 2 * kd + (lane >> 4))));
+            ldmatrix_x4(a, smem_addr(sQ + box_at(lane & 15, 2 * kd + (lane >> 4))));
 #pragma unroll
             for (int np = 0; np < NT / 2; ++np) {
                 uint32_t bk[4];
@@ -373,7 +358,7 @@ ragged_tc_kernel(const __nv_bfloat16* __restrict__ q,   // [Np, Hq, D] (rectangl
             const int k0 = 16 * warp;
             if (k0 >= nv) return;  // warp-uniform: no valid key in this quarter
             float s[2][4];
-            qk(s, 0, sK + stage * AREA, k0);
+            qk(s, sK + stage * AREA, k0);
             const int kp0 = pos0 + k0;
             const bool edge = nv - k0 < 16 || kp0 + 15 > wq_lo ||
                               (window > 0 && wq_hi - kp0 >= window);
@@ -456,34 +441,6 @@ ragged_tc_kernel(const __nv_bfloat16* __restrict__ q,   // [Np, Hq, D] (rectangl
             sm.l0 = tq == 0 ? L0 : 0.f;
             sm.l1 = tq == 0 ? L1 : 0.f;
         }
-    } else if constexpr (DYN_RAGGED_FORM == 0) {
-        const bool live = wr / NREP < rows;  // warp-uniform
-        const int wq_lo = qrow0 + wr / NREP;         // positions of the warp's
-        const int wq_hi = qrow0 + (wr + 15) / NREP;  // oldest and newest rows
-        const int qpos0 = qrow0 + (wr + (lane >> 2)) / NREP;
-        const int qpos1 = qrow0 + (wr + (lane >> 2) + 8) / NREP;
-        ring([&](int t, int stage) {
-            if (!live) return;
-            int mem0, pos0, nv;
-            walk.at(t, mem0, pos0, nv);
-            float s[8][4];
-            qk(s, wr, sK + stage * AREA, 0);
-            const bool edge = nv < TC_BN || pos0 + TC_BN - 1 > wq_lo ||
-                              (window > 0 && wq_hi - pos0 >= window);
-            float a0, a1;
-            sm.step(s, a0, a1, edge, pos0, nv, qpos0, qpos1, window, scale_log2, tq);
-#pragma unroll
-            for (int i = 0; i < D / 8; ++i) {
-                o[i][0] *= a0;
-                o[i][1] *= a0;
-                o[i][2] *= a1;
-                o[i][3] *= a1;
-            }
-            uint32_t pa[4][4];
-            p_fragments(s, pa);
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk) pv16(sV + stage * AREA, 16 * kk, pa[kk]);
-        });
     } else {
         const int wq_lo = qrow0 + wr / NREP;
         const int wq_hi = qrow0 + (wr + 15) / NREP;

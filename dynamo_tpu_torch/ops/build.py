@@ -58,22 +58,14 @@ _BUILD_LOCK = threading.Lock()
 class CudaKernel:
     """One hand-written kernel: its C entry ``name`` in ``csrc/<source>.cu``
     (``source`` defaults to ``name``), its lazily built library and its
-    launch count (a plain integer the smoke run resets and reads).
-    ``defines`` (``NAME=VALUE`` strings passed to ``nvcc -D``) build a
-    variant of the source into a library of its own; the port's kernels
-    take none, a measurement script may."""
+    launch count (a plain integer the smoke run resets and reads)."""
 
     def __init__(
-        self,
-        name: str,
-        argtypes: Sequence[type],
-        source: Optional[str] = None,
-        defines: Sequence[str] = (),
+        self, name: str, argtypes: Sequence[type], source: Optional[str] = None
     ) -> None:
         self.name = name
         self.source_name = source or name
         self.argtypes = list(argtypes)
-        self.defines = list(defines)
         self.launches = 0
         self._fn = None
 
@@ -83,8 +75,6 @@ class CudaKernel:
 
     def _digest(self) -> str:
         h = hashlib.sha1()
-        for d in self.defines:
-            h.update(d.encode())
         for path in sorted([self.source, *CSRC.glob("*.cuh")]):
             h.update(path.name.encode())
             h.update(path.read_bytes())
@@ -112,7 +102,6 @@ class CudaKernel:
             # (the ragged source has sixteen)
             "--split-compile=0",
             "-Xptxas", "-v",
-            *[f"-D{d}" for d in self.defines],
             "-o", str(tmp), str(self.source),
         ]
         proc = subprocess.Popen(

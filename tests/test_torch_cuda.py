@@ -340,13 +340,14 @@ def test_rectangle_ragged_int8_kernel_matches_plain(card, D, n_rep, dtype, windo
 
 def _edge_lanes(n_rep):
     """Lanes at the tile and page edges of the ragged kernels: chunk lengths
-    around a CTA's 64 / n_rep query rows and around a 64-key tile, bases
-    that are multiples of neither 64 nor the page, base 0, a lane whose
-    prefix reaches past its table (reach = P * PAGE < base), a decode lane,
-    an idle lane.  Returns (base, q_lens)."""
+    around a CTA's 64 / n_rep query rows and around a 64-key tile, a length
+    that leaves 5 rows in the last CTA (at group 2 a causal CTA on the
+    key-split path), bases that are multiples of neither 64 nor the page,
+    base 0, a lane whose prefix reaches past its table (reach = P * PAGE <
+    base), a decode lane, an idle lane.  Returns (base, q_lens)."""
     tq = 64 // n_rep
-    base = [37, 0, 13, 0, 3, 91, 70, 100, 5]
-    q_lens = [tq - 1, tq, tq + 1, 63, 64, 65, 20, 1, 0]
+    base = [37, 0, 13, 0, 3, 91, 70, 29, 100, 5]
+    q_lens = [tq - 1, tq, tq + 1, 63, 64, 65, 20, 37, 1, 0]
     return base, q_lens
 
 
