@@ -11,15 +11,17 @@ Every phase is fatal on failure:
    (one ``nvcc`` per source, all started together; a source may hold
    several kernels); their ``-Xptxas -v`` register / shared-memory lines
    are printed, and an instantiation that spills fails the run.  The SASS
-   of the flash prefill and ragged attention libraries (``cuobjdump
-   --dump-sass``) must show every bf16 instantiation of their tensor-core
-   kernels (``flash_tc_kernel``, ``ragged_tc_kernel``) on the tensor cores
-   (``HMMA`` or ``HGMMA``) and no bf16 instantiation of the CUDA-core
+   of the paged decode, flash prefill and ragged attention libraries
+   (``cuobjdump --dump-sass``) must show every bf16 instantiation of their
+   tensor-core kernels (``paged_decode_tc_kernel``, ``flash_tc_kernel``,
+   ``ragged_tc_kernel``) on the tensor cores (``HMMA`` or ``HGMMA``) and no
+   bf16 instantiation of the CUDA-core ``paged_decode_kernel``,
    ``flash_kernel`` or ``ragged_kernel``.
 2. kernels: each of the seven kernel entries against its plain PyTorch version at
    the Llama-3-8B shapes the serve phases give it (Hq=32, Hkv=8, D=128,
    page=16), with and without a sliding window, in bf16 (the main path's
-   dtype) and in f32 (where a misplaced key shows): paged decode; packed
+   dtype) and in f32 (where a misplaced key shows): paged decode (also
+   over a short table of 8 pages, within one of its splits); packed
    ragged (its prefill chunk both over a resident prefix and from position
    0); the rectangle ragged layout; full flash prefill of the 2048 bucket;
    prefix-suffix flash prefill of a 476-token suffix over a 1024-token
@@ -29,9 +31,9 @@ Every phase is fatal on failure:
    plain version and one ``scaled_dot_product_attention`` call over the
    gathered (dequantized) K/V with the same mask (a yardstick the port
    never calls), beside the least time the card could take (bytes at 3.35
-   TB/s or bf16 operations at 989 TFLOP/s, whichever is larger); the flash
-   and ragged rows add their rate (``tflops``, operations over kernel time)
-   and ``bound_share`` (bound over kernel time).  And
+   TB/s or bf16 operations at 989 TFLOP/s, whichever is larger); each row
+   adds its rate (``tflops``, operations over kernel time) and
+   ``bound_share`` (bound over kernel time).  And
    ``quantize_kv_rows`` on the card gives the CPU's int8 bytes and f32
    scales bit for bit on a ``[4096, 8, 128]`` bf16 input.
 3. reference: a small f32 model served on the card (kernels) and on the
@@ -120,10 +122,10 @@ F32_TOL = 5e-5
 # each one rounding step of the value it was seen at).
 BF16_ATOL = 2e-3
 BF16_RTOL = 2.0**-7
-# The bf16 tensor-core kernels (flash prefill, kernels 2 and 3, and ragged
-# attention, kernels 4 and 5) also round P to bf16 before its product with
-# V, as the Pallas kernels do (probs.astype(v.dtype)); the
-# plain version keeps P in f32.  Each weight then moves by at most 2^-9 of
+# The bf16 tensor-core kernels (paged decode, kernel 1, flash prefill,
+# kernels 2 and 3, and ragged attention, kernels 4 and 5) also round P to
+# bf16 before its product with V, as the Pallas kernels do
+# (probs.astype(v.dtype)); the plain version keeps P in f32.  Each weight then moves by at most 2^-9 of
 # itself, so an output, a weighted average of V rows, moves by at most
 # 2^-9 * max|v| before its final rounding.  It shows on rows with few keys
 # (an H100 run at kernel 2's check shape: 1 element of 4.9 million over the
@@ -303,21 +305,36 @@ def sdpa_lanes(pool, table, bases, lanes, S):
 
 
 def check_decode(pa, rng, gen) -> Dict[str, object]:
+    # the served decode mix: 8 lanes of 33 to 2048 positions over a
+    # 128-page table (the bf16 kernel's 8 splits of 256 positions), then a
+    # short table of 8 pages (one split: no merge), each in bf16 and f32,
+    # with and without a window
     B = 8
-    kv_lens = [2048, 1791, 1500, 1203, 1024, 640, 257, 33]
-    width = 2048 // PAGE
-    n_pages = B * width + 1
-    pool = make_pool(n_pages, gen)
-    table = lane_tables([-(-n // PAGE) for n in kv_lens], width, n_pages, rng)
-    lens = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
-    q = torch.randn((B, HQ, D), generator=gen, device="cuda").to(torch.bfloat16)
+    cases = {
+        "": ([2048, 1791, 1500, 1203, 1024, 640, 257, 33], 2048 // PAGE, 512),
+        " short-table": ([128, 100, 77, 64, 63, 17, 1, 0], 8, 50),
+    }
     err = 0.0
-    for window in (0, 512):
-        out = pa.paged_decode_attention(q, pool, table, lens, 3, window)
-        ref = pa.paged_decode_attention_plain(q, pool, table, lens, 3, window)
-        err = max(err, agree(f"paged_decode_attention window={window}", out, ref))
+    operands = {}
+    for case, (kv_lens, width, win) in cases.items():
+        n_pages = B * width + 1
+        pool = make_pool(n_pages, gen)
+        table = lane_tables([-(-n // PAGE) for n in kv_lens], width, n_pages, rng)
+        lens = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
+        q = torch.randn((B, HQ, D), generator=gen, device="cuda").to(torch.bfloat16)
+        for window in (0, win):
+            out = pa.paged_decode_attention(q, pool, table, lens, 3, window)
+            ref = pa.paged_decode_attention_plain(q, pool, table, lens, 3, window)
+            what = f"paged_decode_attention{case} window={window}"
+            err = max(err, agree(what, out, ref, p_rounding(pool[3, 1])))
+        operands[case] = (q, pool, table, lens, kv_lens, width)
+    q, pool, table, lens, kv_lens, width = operands[" short-table"]
+    short_ms = cuda_ms(lambda i: pa.paged_decode_attention(q, pool, table, lens, i % LAYERS), 64)
+    print(f"kernels: paged_decode_attention short-table ms={short_ms:.5f}")
+    del operands[" short-table"], pool
     # timing at the main path's shape (no window: Llama-3 has none);
     # rotating the layer keeps each launch's K/V cold in L2, as in a step
+    q, pool, table, lens, kv_lens, width = operands.pop("")
     ms = cuda_ms(lambda i: pa.paged_decode_attention(q, pool, table, lens, i % LAYERS), 64)
     plain_ms = cuda_ms(
         lambda i: pa.paged_decode_attention_plain(q, pool, table, lens, i % LAYERS), 8
@@ -336,22 +353,28 @@ def check_decode(pa, rng, gen) -> Dict[str, object]:
         + live * HKV * D * 2 * 2  # each live K and V row once
         + table.numel() * 4 + B * 4
     )
-    bound_ms, bound_by = bound(bytes_moved, 4.0 * live * HQ * D)
+    flops = 4.0 * live * HQ * D
+    bound_ms, bound_by = bound(bytes_moved, flops)
     del pool, k, v
     g32 = f32_generator()
-    pool = make_pool(n_pages, g32, torch.float32, 4)
-    q = torch.randn((B, HQ, D), generator=g32, device="cuda")
-    for window in (0, 512):
-        out = pa.paged_decode_attention(q, pool, table, lens, 3, window)
-        ref = pa.paged_decode_attention_plain(q, pool, table, lens, 3, window)
-        agree(f"paged_decode_attention window={window}", out, ref)
-    del pool
+    for case, (kv_lens, width, win) in cases.items():
+        n_pages = B * width + 1
+        pool = make_pool(n_pages, g32, torch.float32, 4)
+        table = lane_tables([-(-n // PAGE) for n in kv_lens], width, n_pages, rng)
+        lens = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
+        q = torch.randn((B, HQ, D), generator=g32, device="cuda")
+        for window in (0, win):
+            out = pa.paged_decode_attention(q, pool, table, lens, 3, window)
+            ref = pa.paged_decode_attention_plain(q, pool, table, lens, 3, window)
+            agree(f"paged_decode_attention{case} window={window}", out, ref)
+        del pool
     return dict(
         name="paged_decode_attention", route="cuda",
         source="dynamo_tpu_torch/csrc/paged_decode_attention.cu",
         replaces="dynamo_tpu/ops/paged_attention.py:124",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=library_ms,
+        tflops=flops / ms / 1e9, bound_share=bound_ms / ms,
     )
 
 
@@ -1079,7 +1102,9 @@ def profile_phase(out_path: str, plain_walls: Dict[str, float]) -> None:
         "Q": (dict(kv_dtype="int8"), batch),
     }
     kinds = {
-        "paged_decode_attention": ("paged_decode_kernel",),
+        "paged_decode_attention": (
+            "paged_decode_kernel", "paged_decode_tc_kernel", "paged_decode_merge_kernel",
+        ),
         "ragged_attention": ("ragged_kernel", "ragged_tc_kernel"),
         "flash_prefill": ("flash_kernel", "flash_tc_kernel"),
         "matmul": ("gemm", "nvjet", "xmma", "cutlass"),
@@ -1173,6 +1198,8 @@ def main() -> None:
             if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln)):
                 fail(f"{name} spills: {ln}")
     check_tensor_cores(build, [
+        # head dims 64 and 128, groups 2 and 4
+        (pa.KERNEL, "paged_decode_tc_kernel", "paged_decode_kernel", 4),
         (fp.KERNEL, "flash_tc_kernel", "flash_kernel", 2),  # head dims 64 and 128
         # head dims 64 and 128, groups 2 and 4, the dense and the int8 pool
         (ra.KERNEL, "ragged_tc_kernel", "ragged_kernel", 8),
@@ -1188,14 +1215,11 @@ def main() -> None:
     rows += [rect, packed, rect8, packed8]
     check_quantize_rule()
     for r in rows:
-        rate = (
-            f" tflops={r['tflops']:.3f} bound_share={r['bound_share']:.4f}"
-            if "tflops" in r else ""
-        )
         print(
             f"kernels: {r['name']} ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} "
             f"library_ms={r['library_ms']:.5f} bound_ms={r['bound_ms']:.5f} "
-            f"({r['bound_by']}){rate} on {card}"
+            f"({r['bound_by']}) tflops={r['tflops']:.3f} "
+            f"bound_share={r['bound_share']:.4f} on {card}"
         )
     gc.collect()
     torch.cuda.empty_cache()

@@ -303,16 +303,4 @@ cudaError_t by_geometry(int dtype, int D, int n_rep, F& f) {
     return cudaErrorInvalidValue;
 }
 
-// Lifts a kernel's dynamic shared-memory cap to ``bytes`` (above 48 KB a
-// kernel must opt in before its launch).  ``done`` is the caller's flag, a
-// static of the launching template, so each instantiation asks once.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes, bool& done) {
-    if (done) return cudaSuccess;
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
-    if (e == cudaSuccess) done = true;
-    return e;
-}
-
 }  // namespace dyn

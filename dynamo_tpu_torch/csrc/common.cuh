@@ -88,4 +88,16 @@ __host__ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
     return x < lo ? lo : (x > hi ? hi : x);
 }
 
+// Lifts a kernel's dynamic shared-memory cap to ``bytes`` (above 48 KB a
+// kernel must opt in before its launch).  ``done`` is the caller's flag, a
+// static of the launching template, so each instantiation asks once.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes, bool& done) {
+    if (done) return cudaSuccess;
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes);
+    if (e == cudaSuccess) done = true;
+    return e;
+}
+
 }  // namespace dyn

@@ -14,23 +14,31 @@
 // What bounds it on an H100: bytes.  Each step reads every live K/V row once
 // (2 * kv_len * D * 2 bytes per lane and KV head in bf16) for ~4 * n_rep
 // flops per byte -- far below the ~295 flop/byte where the tensor cores
-// would become the limit.  The design therefore spends nothing on matrix
-// units and everything on reading each page once:
-//   * one CTA per (lane, KV head) serves all n_rep query heads of the GQA
-//     group, so a K/V row is fetched once per group, not once per head;
-//   * the CTA walks only the live positions [lo, kv_len) -- never the padded
-//     table width -- with 8 warps, each keeping UNROLL tokens' K and V rows
-//     in flight (16-byte vector loads per lane) before it computes on them;
-//   * each warp keeps its own f32 running max / sum / accumulator in
-//     registers, and the warps merge once through shared memory at the end.
+// would become the limit.  So the design reads each page once, for the whole
+// GQA group, and spreads the reading over every SM:
+//
+// - bf16 (the main path): paged_decode_tc_kernel (decode_tc.cuh) splits a
+//   lane's positions over CTAs of 4 warps (grid: split, KV head, lane),
+//   gathers K/V tiles by cp.async into a 3-stage ring and runs S and P V on
+//   the tensor cores (mma.sync), P rounded to bf16 as the Pallas kernel
+//   rounds it; paged_decode_merge_kernel merges the splits' softmax states
+//   from a workspace the wrapper allocates.
+// - f32 (the tensor cores take f32 only as TF32): paged_decode_kernel below,
+//   on the CUDA cores, one CTA per (lane, KV head) serving the group's n_rep
+//   query heads.  It walks only the live positions [lo, kv_len) with 8
+//   warps, each keeping UNROLL tokens' K and V rows in flight before it
+//   computes on them, each with its own f32 running max / sum /
+//   accumulator; the warps merge once through shared memory at the end.
+//
 // The TPU kernel's grid walked pages in order and carried the softmax state
-// from one grid step to the next; here the sequential walk is the loop inside
-// the CTA, and the cross-warp merge replaces the carried scratch.
-// Split-K over positions (for few lanes x long caches) is later work.
+// from one grid step to the next; here a CTA's sequential walk is the loop
+// inside it, and the merges (across warps, then across splits) replace the
+// carried scratch.
 
 #include <math.h>
 
 #include "common.cuh"
+#include "decode_tc.cuh"
 
 namespace {
 
@@ -149,63 +157,132 @@ paged_decode_kernel(const T* __restrict__ q,          // [B, Hq, D]
     }
 }
 
-template <typename T, int D, int NREP>
-cudaError_t launch(const void* q, const void* pool, const int* table, const int* kv_lens,
-                   void* out, int B, int Hkv, int N, int page, int P, int layer,
-                   int window, cudaStream_t stream) {
-    dim3 grid(Hkv, B);
-    paged_decode_kernel<T, D, NREP><<<grid, WARPS * 32, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(pool), table, kv_lens,
-        static_cast<T*>(out), Hkv, N, page, P, layer, window, 1.0f / sqrtf((float)D));
+// The bf16 launch: the split kernel, then the merge of the splits (a lane
+// within one split gets its output from the split kernel alone, so a table
+// of one split needs no merge).
+template <int D, int NREP, bool FUSED, int STAGES>
+cudaError_t launch_tc(const void* q, const void* pool, const int* table, const int* kv_lens,
+                      void* out, float* ws, int* counters, int B, int Hkv, int N, int page,
+                      int P, int layer, int window, int chunk, cudaStream_t stream) {
+    using bf16 = __nv_bfloat16;
+    static bool smem_ok = false;
+    auto kern = paged_decode_tc_kernel<D, NREP, FUSED, STAGES>;
+    cudaError_t e = allow_smem(kern, decode_tc_smem_bytes<D, STAGES>(), smem_ok);
+    if (e != cudaSuccess) return e;
+    const int splits = (P * page + chunk - 1) / chunk;
+    const int Hq = Hkv * NREP;
+    float* ws_o = ws;
+    float* ws_ml = ws + (size_t)B * Hq * splits * D;
+    kern<<<dim3(splits, Hkv, B), 128, decode_tc_smem_bytes<D, STAGES>(), stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(pool), table, kv_lens, ws_o, ws_ml,
+        counters, static_cast<bf16*>(out), Hkv, N, page, P, layer, window, chunk,
+        1.4426950408889634f / sqrtf((float)D));
+    e = cudaGetLastError();
+    if (e != cudaSuccess || FUSED || splits == 1) return e;
+    paged_decode_merge_kernel<D><<<dim3(Hq, B), D, 0, stream>>>(
+        ws_o, ws_ml, kv_lens, static_cast<bf16*>(out), P * page, window, chunk, splits);
     return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t by_rep(int n_rep, const void* q, const void* pool, const int* table,
-                   const int* kv_lens, void* out, int B, int Hkv, int N, int page,
-                   int P, int layer, int window, cudaStream_t s) {
-    // the GQA groups of the port's configs: 2 (ModelConfig.tiny), 4
-    // (Llama-3-8B); another group is refused
+// The f32 launch: one CTA per (KV head, lane).
+template <int D, int NREP>
+cudaError_t launch_f32(const void* q, const void* pool, const int* table, const int* kv_lens,
+                       void* out, int B, int Hkv, int N, int page, int P, int layer, int window,
+                       cudaStream_t stream) {
+    paged_decode_kernel<float, D, NREP><<<dim3(Hkv, B), WARPS * 32, 0, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(pool), table, kv_lens,
+        static_cast<float*>(out), Hkv, N, page, P, layer, window, 1.0f / sqrtf((float)D));
+    return cudaGetLastError();
+}
+
+struct DecodeLaunch {
+    const void* q;
+    const void* pool;
+    const int* table;
+    const int* kv_lens;
+    void* out;
+    float* ws;
+    int* counters;
+    int stages;
+    int B, Hkv, N, page, P, layer, window, chunk;
+    cudaStream_t stream;
+
+    template <int D, int NREP>
+    cudaError_t run(int dtype) {
+        if (dtype == DTYPE_F32) {
+            return launch_f32<D, NREP>(q, pool, table, kv_lens, out, B, Hkv, N, page, P, layer,
+                                       window, stream);
+        }
+        if (counters != nullptr) {
+            return launch_tc<D, NREP, true, 3>(q, pool, table, kv_lens, out, ws, counters, B,
+                                               Hkv, N, page, P, layer, window, chunk, stream);
+        }
+        if (stages == 5) {
+            return launch_tc<D, NREP, false, 5>(q, pool, table, kv_lens, out, ws, nullptr, B,
+                                                Hkv, N, page, P, layer, window, chunk, stream);
+        }
+        return launch_tc<D, NREP, false, 3>(q, pool, table, kv_lens, out, ws, nullptr, B, Hkv,
+                                            N, page, P, layer, window, chunk, stream);
+    }
+};
+
+// The GQA groups of the port's configs: 2 (ModelConfig.tiny), 4
+// (Llama-3-8B); head dims 64 and 128.  Another geometry is refused.
+template <int D>
+cudaError_t by_rep(int n_rep, int dtype, DecodeLaunch& r) {
     switch (n_rep) {
-        case 2: return launch<T, D, 2>(q, pool, table, kv_lens, out, B, Hkv, N, page, P, layer, window, s);
-        case 4: return launch<T, D, 4>(q, pool, table, kv_lens, out, B, Hkv, N, page, P, layer, window, s);
+        case 2: return r.run<D, 2>(dtype);
+        case 4: return r.run<D, 4>(dtype);
         default: return cudaErrorInvalidValue;
     }
 }
 
-template <typename T>
-cudaError_t by_dim(int D, int n_rep, const void* q, const void* pool, const int* table,
-                   const int* kv_lens, void* out, int B, int Hkv, int N, int page, int P,
-                   int layer, int window, cudaStream_t s) {
+int entry(DecodeLaunch& r, int dtype, int Hq, int D, int L) {
+    if (r.B <= 0) return 0;
+    if (r.Hkv <= 0 || Hq % r.Hkv || r.N <= 0 || r.page <= 0 || r.P <= 0 || L <= 0) {
+        return (int)cudaErrorInvalidValue;
+    }
+    if (dtype != DTYPE_F32 && dtype != DTYPE_BF16) return (int)cudaErrorInvalidValue;
+    // the bf16 form's splits: positions per split a positive multiple of 64
+    if (dtype == DTYPE_BF16 && (r.ws == nullptr || r.chunk <= 0 || r.chunk % TC_BN)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    r.layer = clampi(r.layer, 0, L - 1);
     switch (D) {
-        case 64: return by_rep<T, 64>(n_rep, q, pool, table, kv_lens, out, B, Hkv, N, page, P, layer, window, s);
-        case 128: return by_rep<T, 128>(n_rep, q, pool, table, kv_lens, out, B, Hkv, N, page, P, layer, window, s);
-        default: return cudaErrorInvalidValue;
+        case 64: return (int)by_rep<64>(Hq / r.Hkv, dtype, r);
+        case 128: return (int)by_rep<128>(Hq / r.Hkv, dtype, r);
+        default: return (int)cudaErrorInvalidValue;
     }
 }
 
 }  // namespace
 
 // Plain C entry (bound with ctypes).  Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for a shape the kernel does not take.
+// launches, or cudaErrorInvalidValue for a shape the kernel does not take.
+// ``ws`` is the bf16 form's f32 workspace of B * Hq * splits * (D + 2)
+// floats, splits = ceil(P * page / chunk); the f32 form reads neither.
 extern "C" int paged_decode_attention(const void* q, const void* pool, const void* table,
-                                      const void* kv_lens, void* out, int dtype, int B,
-                                      int Hq, int Hkv, int D, int L, int N, int page, int P,
-                                      int layer, int window, void* stream) {
-    if (B <= 0) return 0;
-    if (Hkv <= 0 || Hq % Hkv || N <= 0 || page <= 0 || P <= 0 || L <= 0) {
-        return (int)cudaErrorInvalidValue;
-    }
-    layer = dyn::clampi(layer, 0, L - 1);
-    const int n_rep = Hq / Hkv;
-    const int* tab = static_cast<const int*>(table);
-    const int* lens = static_cast<const int*>(kv_lens);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == dyn::DTYPE_BF16) {
-        return (int)by_dim<__nv_bfloat16>(D, n_rep, q, pool, tab, lens, out, B, Hkv, N, page, P, layer, window, s);
-    }
-    if (dtype == dyn::DTYPE_F32) {
-        return (int)by_dim<float>(D, n_rep, q, pool, tab, lens, out, B, Hkv, N, page, P, layer, window, s);
-    }
-    return (int)cudaErrorInvalidValue;
+                                      const void* kv_lens, void* out, void* ws, int dtype,
+                                      int B, int Hq, int Hkv, int D, int L, int N, int page,
+                                      int P, int layer, int window, int chunk, void* stream) {
+    DecodeLaunch r{q, pool, static_cast<const int*>(table), static_cast<const int*>(kv_lens),
+                   out, static_cast<float*>(ws), nullptr, 3, B, Hkv, N, page, P, layer, window,
+                   chunk, static_cast<cudaStream_t>(stream)};
+    return entry(r, dtype, Hq, D, L);
+}
+
+// The bf16 form's other forms, timed against it by time_decode_forms.py:
+// with ``counters`` ([B, Hkv] int32, zero before the launch and zero again
+// after it), the splits merged by the lane's last split to finish; else a
+// ring of ``stages`` stages (3 or 5).
+extern "C" int paged_decode_attention_form(const void* q, const void* pool, const void* table,
+                                           const void* kv_lens, void* out, void* ws,
+                                           void* counters, int stages, int dtype, int B, int Hq,
+                                           int Hkv, int D, int L, int N, int page, int P,
+                                           int layer, int window, int chunk, void* stream) {
+    if (dtype != DTYPE_BF16 || (stages != 3 && stages != 5)) return (int)cudaErrorInvalidValue;
+    DecodeLaunch r{q, pool, static_cast<const int*>(table), static_cast<const int*>(kv_lens),
+                   out, static_cast<float*>(ws), static_cast<int*>(counters), stages, B, Hkv, N,
+                   page, P, layer, window, chunk, static_cast<cudaStream_t>(stream)};
+    return entry(r, dtype, Hq, D, L);
 }

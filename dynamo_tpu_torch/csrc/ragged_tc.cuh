@@ -78,12 +78,6 @@ constexpr size_t ragged_tc_smem_bytes() {
     return sizeof(__nv_bfloat16) * (size_t)(64 + 2 * RT_STAGES * TC_BN) * D;
 }
 
-// element offset of 16-byte chunk ``c`` (of D / 8) of row ``r`` in a
-// [D / 64][64][64] tile of 128-byte-swizzled boxes
-__device__ __forceinline__ int box_at(int r, int c) {
-    return (c >> 3) * 64 * 64 + r * 64 + (((c & 7) ^ (r & 7)) << 3);
-}
-
 // 16 int8 values dequantized by ``scale`` to bf16 (float(q) * scale, one
 // rounding to bf16): the low and high 8 as two 16-byte chunks.  The int8 to
 // f32 conversion is exact: 0x4B0000xx is 2^23 + xx, with the bytes biased
@@ -375,72 +369,8 @@ ragged_tc_kernel(const __nv_bfloat16* __restrict__ q,   // [Np, Hq, D] (rectangl
             p_fragments(s, pa);
             pv16(sV + stage * AREA, k0, pa[0]);
         });
-        // merge the four warps' (m, l, O) of rows g and g + 8 into warp 0
         __syncthreads();  // the ring is drained: its stages hold the partials
-        float* part = reinterpret_cast<float*>(sK);  // [4 warps][16 rows][D]
-        float* ml = part + 4 * 16 * D;               // [4 warps][16 rows][m, l]
-        const int g = lane >> 2;
-        float l0 = sm.l0, l1 = sm.l1;
-        l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-        l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-        l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-        l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-        float* pw = part + warp * 16 * D;
-#pragma unroll
-        for (int i = 0; i < D / 8; ++i) {
-            *reinterpret_cast<float2*>(pw + g * D + 8 * i + 2 * tq) =
-                make_float2(o[i][0], o[i][1]);
-            *reinterpret_cast<float2*>(pw + (g + 8) * D + 8 * i + 2 * tq) =
-                make_float2(o[i][2], o[i][3]);
-        }
-        if (tq == 0) {
-            ml[(warp * 16 + g) * 2] = sm.m0;
-            ml[(warp * 16 + g) * 2 + 1] = l0;
-            ml[(warp * 16 + g + 8) * 2] = sm.m1;
-            ml[(warp * 16 + g + 8) * 2 + 1] = l1;
-        }
-        __syncthreads();
-        if (warp == 0) {
-            float f0[4], f1[4];
-            float m0 = -INFINITY, m1 = -INFINITY;
-#pragma unroll
-            for (int w = 0; w < 4; ++w) {
-                m0 = fmaxf(m0, ml[(w * 16 + g) * 2]);
-                m1 = fmaxf(m1, ml[(w * 16 + g + 8) * 2]);
-            }
-            const float mu0 = m0 == -INFINITY ? 0.f : m0;
-            const float mu1 = m1 == -INFINITY ? 0.f : m1;
-            float L0 = 0.f, L1 = 0.f;
-#pragma unroll
-            for (int w = 0; w < 4; ++w) {
-                f0[w] = exp2f(ml[(w * 16 + g) * 2] - mu0);
-                f1[w] = exp2f(ml[(w * 16 + g + 8) * 2] - mu1);
-                L0 += ml[(w * 16 + g) * 2 + 1] * f0[w];
-                L1 += ml[(w * 16 + g + 8) * 2 + 1] * f1[w];
-            }
-#pragma unroll
-            for (int i = 0; i < D / 8; ++i) {
-                float x0 = 0.f, x1 = 0.f, y0 = 0.f, y1 = 0.f;
-#pragma unroll
-                for (int w = 0; w < 4; ++w) {
-                    const float2 a = *reinterpret_cast<const float2*>(
-                        part + (w * 16 + g) * D + 8 * i + 2 * tq);
-                    const float2 b = *reinterpret_cast<const float2*>(
-                        part + (w * 16 + g + 8) * D + 8 * i + 2 * tq);
-                    x0 += a.x * f0[w];
-                    x1 += a.y * f0[w];
-                    y0 += b.x * f1[w];
-                    y1 += b.y * f1[w];
-                }
-                o[i][0] = x0;
-                o[i][1] = x1;
-                o[i][2] = y0;
-                o[i][3] = y1;
-            }
-            // store_rows sums l over the quad
-            sm.l0 = tq == 0 ? L0 : 0.f;
-            sm.l1 = tq == 0 ? L1 : 0.f;
-        }
+        merge_warps<D>(o, sm, reinterpret_cast<float*>(sK));
     } else {
         const int wq_lo = qrow0 + wr / NREP;
         const int wq_hi = qrow0 + (wr + 15) / NREP;

@@ -1,12 +1,13 @@
 // Primitives of the port's bf16 tensor-core attention kernels (sm_90a):
-// flash_tc_kernel (flash_prefill_tc.cuh) and ragged_tc_kernel
-// (ragged_tc.cuh).  Both keep a 64-row tile of query vectors against
-// 64-key tiles in shared memory, in boxes of [64 rows][64 elements] laid out
-// in the 128-byte swizzle that TMA writes and wgmma descriptors read
-// (16-byte chunk c of box row r at chunk c ^ (r & 7)), and both run the
+// flash_tc_kernel (flash_prefill_tc.cuh), ragged_tc_kernel (ragged_tc.cuh)
+// and paged_decode_tc_kernel (decode_tc.cuh).  They keep query vectors
+// against 64-key tiles in shared memory, in boxes of [64 rows][64 elements]
+// laid out in the 128-byte swizzle that TMA writes and wgmma descriptors
+// read (16-byte chunk c of box row r at chunk c ^ (r & 7)), and run the
 // same online softmax in the m16n8 accumulator layout.  Here: the swizzle,
-// the key walk, the softmax and P's fragments, the output store, the
-// mbarrier / TMA / cp.async copies, and the wgmma and mma.sync products.
+// the key walk, the softmax and P's fragments, the merge of warps that
+// split a key tile, the output store, the mbarrier / TMA / cp.async copies,
+// and the wgmma and mma.sync products.
 #pragma once
 
 #include <cuda.h>
@@ -33,6 +34,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 template <int D>
 __device__ __forceinline__ int swz(int r, int c) {
     return r * D + ((c ^ (r & 7)) << 3);
+}
+
+// element offset of 16-byte chunk ``c`` (of D / 8) of row ``r`` in a
+// [D / 64][64][64] tile of 128-byte-swizzled boxes
+__device__ __forceinline__ int box_at(int r, int c) {
+    return (c >> 3) * 64 * 64 + r * 64 + (((c & 7) ^ (r & 7)) << 3);
 }
 
 // Writes zeros over ``rows`` rows of ``elems`` contiguous elements, row i
@@ -156,6 +163,84 @@ __device__ __forceinline__ void p_fragments(const float (&s)[NT][4], uint32_t (&
         pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
         pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
     }
+}
+
+// Merges the (m, l, O) of four warps that split every key tile of the same
+// 16 query vectors, each under its own RowSoftmax ``sm`` with its O in
+// ``o`` (m16n8 layout: rows g and g + 8), through ``scratch``: free shared
+// memory of 4 * 16 * (D + 2) floats, which the caller has synced.  Warp 0
+// ends with the merged O in ``o``, the merged maxima in ``sm.m0`` and
+// ``sm.m1``, and the merged row sums on the quad's first thread (zero on the
+// others: store_rows sums l over the quad).
+template <int D>
+__device__ __forceinline__ void merge_warps(float (&o)[D / 8][4], RowSoftmax& sm,
+                                            float* scratch) {
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int tq = lane & 3;
+    float* part = scratch;          // [4 warps][16 rows][D]
+    float* ml = part + 4 * 16 * D;  // [4 warps][16 rows][m, l]
+    float l0 = sm.l0, l1 = sm.l1;
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    float* pw = part + warp * 16 * D;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+        *reinterpret_cast<float2*>(pw + g * D + 8 * i + 2 * tq) = make_float2(o[i][0], o[i][1]);
+        *reinterpret_cast<float2*>(pw + (g + 8) * D + 8 * i + 2 * tq) =
+            make_float2(o[i][2], o[i][3]);
+    }
+    if (tq == 0) {
+        ml[(warp * 16 + g) * 2] = sm.m0;
+        ml[(warp * 16 + g) * 2 + 1] = l0;
+        ml[(warp * 16 + g + 8) * 2] = sm.m1;
+        ml[(warp * 16 + g + 8) * 2 + 1] = l1;
+    }
+    __syncthreads();
+    if (warp != 0) return;
+    float f0[4], f1[4];
+    float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+        m0 = fmaxf(m0, ml[(w * 16 + g) * 2]);
+        m1 = fmaxf(m1, ml[(w * 16 + g + 8) * 2]);
+    }
+    const float mu0 = m0 == -INFINITY ? 0.f : m0;
+    const float mu1 = m1 == -INFINITY ? 0.f : m1;
+    float L0 = 0.f, L1 = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+        f0[w] = exp2f(ml[(w * 16 + g) * 2] - mu0);
+        f1[w] = exp2f(ml[(w * 16 + g + 8) * 2] - mu1);
+        L0 += ml[(w * 16 + g) * 2 + 1] * f0[w];
+        L1 += ml[(w * 16 + g + 8) * 2 + 1] * f1[w];
+    }
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+        float x0 = 0.f, x1 = 0.f, y0 = 0.f, y1 = 0.f;
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+            const float2 a =
+                *reinterpret_cast<const float2*>(part + (w * 16 + g) * D + 8 * i + 2 * tq);
+            const float2 b =
+                *reinterpret_cast<const float2*>(part + (w * 16 + g + 8) * D + 8 * i + 2 * tq);
+            x0 += a.x * f0[w];
+            x1 += a.y * f0[w];
+            y0 += b.x * f1[w];
+            y1 += b.y * f1[w];
+        }
+        o[i][0] = x0;
+        o[i][1] = x1;
+        o[i][2] = y0;
+        o[i][3] = y1;
+    }
+    sm.m0 = m0;
+    sm.m1 = m1;
+    sm.l0 = tq == 0 ? L0 : 0.f;
+    sm.l1 = tq == 0 ? L1 : 0.f;
 }
 
 // Normalises a warp's 16 output rows (this thread's share in the m16n8

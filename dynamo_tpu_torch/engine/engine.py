@@ -35,7 +35,8 @@ fields are ignored: output is the contract, speculation an optimization),
 async double-buffering, offload/swap, disaggregation and tensor/data
 parallelism.  The KV pool is dense in the model's dtype or, with
 ``EngineConfig(kv_dtype="int8")``, int8 with per-row scales; a dense pool
-of another dtype is refused at construction.
+of another dtype is refused at construction, and so is, on the card, a
+head geometry its kernels do not take (the CPU serves any).
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.build import check_geometry
 from ..protocols.common import (
     FinishReason,
     ForwardPassMetrics,
@@ -86,6 +88,16 @@ GROW_CHUNK_PAGES = 4
 DEVICE_STOP_WIDTH = 8
 
 
+def check_model_geometry(model_cfg: ModelConfig, device: torch.device) -> None:
+    """Refuse a model whose head geometry the device's kernels do not take
+    (``check_geometry``, the wrappers' own rule): at construction, not at
+    the first dispatch.  The CPU serves any geometry."""
+    check_geometry(
+        device, torch_dtype(model_cfg.dtype), model_cfg.num_heads,
+        model_cfg.num_kv_heads, model_cfg.head_dim,
+    )
+
+
 def _unsupported(req: PreprocessedRequest) -> Optional[str]:
     """Why the PyTorch engine cannot serve ``req`` yet (None = it can)."""
     if req.mm_embeds:
@@ -106,6 +118,7 @@ class TorchEngine:
         device: Optional[Union[str, torch.device]] = None,
     ) -> None:
         self.device = resolve_device(device)
+        check_model_geometry(model_cfg, self.device)
         self.model_cfg = model_cfg
         self.cfg = cfg or EngineConfig()
         self.params = params
@@ -169,6 +182,7 @@ class TorchEngine:
     ) -> "TorchEngine":
         """An engine over random weights made on ``device`` from ``seed``."""
         device = resolve_device(device)
+        check_model_geometry(model_cfg, device)
         params = init_params(model_cfg, seed, device, torch_dtype(model_cfg.dtype))
         return cls(model_cfg, params, cfg, device=device)
 

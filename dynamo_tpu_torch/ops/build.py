@@ -22,7 +22,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -176,8 +176,15 @@ def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def check_geometry(dtype: torch.dtype, Hq: int, Hkv: int, D: int) -> None:
-    """Refuse a dtype or head geometry no kernel instantiation takes."""
+def check_geometry(
+    device: Union[str, torch.device], dtype: torch.dtype, Hq: int, Hkv: int, D: int
+) -> None:
+    """Refuse, on a device other than the CPU, a dtype or head geometry no
+    kernel instantiation takes.  The one rule of every wrapper before its
+    launch and of ``TorchEngine`` at construction; on the CPU the plain
+    versions serve any geometry."""
+    if torch.device(device).type == "cpu":
+        return
     if dtype not in DTYPE_CODES:
         raise ValueError(f"unsupported dtype {dtype}")
     if D not in SUPPORTED_HEAD_DIMS or Hq % Hkv or Hq // Hkv not in SUPPORTED_GROUPS:

@@ -96,7 +96,7 @@ def flash_prefill_attention_plain(
 def _check_prefill(q, k, v, lens_by_name) -> None:
     B, T, Hq, D = q.shape
     Hkv = k.shape[2]
-    check_geometry(q.dtype, Hq, Hkv, D)
+    check_geometry(q.device, q.dtype, Hq, Hkv, D)
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_cuda_operand(name, t, q.device, q.dtype, 4)
     if k.shape != v.shape or k.shape[0] != B or k.shape[1] < T or k.shape[3] != D:

@@ -2,8 +2,18 @@
 
 Replaces the TPU Pallas kernel ``paged_decode_attention_v2``
 (``dynamo_tpu/ops/paged_attention.py:124``).  The kernel is hand-written
-CUDA C++ for ``sm_90a`` in ``csrc/paged_decode_attention.cu``; its source
-comment says what bounds it on the card (bytes) and how the design answers.
+CUDA C++ for ``sm_90a`` in ``csrc/paged_decode_attention.cu`` (bf16 in
+``csrc/decode_tc.cuh``).  It is bound by bytes: every live K/V row is read
+once for the GQA group's few query vectors.  The bf16 form spreads a
+lane's positions over CTAs of :data:`SPLIT_POSITIONS` positions each (grid:
+split, KV head, lane), so a batch of a few long lanes still fills the
+card; a second kernel merges the splits' softmax states from an f32
+workspace this wrapper allocates on the tensors' stream.  The number of
+splits follows from the page table's width (:func:`decode_split`), never
+from ``kv_lens``, which stay on the card: the wrapper makes no host sync.
+The bf16 form rounds the softmax weights P to bf16 before their product
+with V, as the Pallas kernel does (``probs.astype(v.dtype)``); the plain
+version keeps P in f32.  The f32 form runs on the CUDA cores.
 
 ``paged_decode_attention`` launches the kernel for CUDA tensors and runs
 :func:`paged_decode_attention_plain` for CPU tensors -- on the tensors'
@@ -13,6 +23,7 @@ device alone, with no switch and no fallback.
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 
@@ -28,8 +39,24 @@ from .build import (
 
 KERNEL = CudaKernel(
     "paged_decode_attention",
-    [P, P, P, P, P] + [I] * 11 + [P],
+    [P] * 6 + [I] * 12 + [P],
 )
+# positions a split of the bf16 kernel covers (four 64-key tiles), and the
+# most splits a lane takes: a wider table grows the split instead
+SPLIT_POSITIONS = 256
+MAX_SPLITS = 32
+
+
+def decode_split(width: int, page: int) -> Tuple[int, int]:
+    """``(positions per split, splits)`` of the bf16 kernel for a page
+    table ``width`` pages wide: splits of :data:`SPLIT_POSITIONS`, at most
+    :data:`MAX_SPLITS` of them (then each covers a multiple of 64), which
+    together reach every position the table can hold."""
+    reach = width * page
+    chunk = SPLIT_POSITIONS
+    if reach > chunk * MAX_SPLITS:
+        chunk = -(-reach // (MAX_SPLITS * 64)) * 64
+    return chunk, -(-reach // chunk)
 
 
 def paged_decode_attention_plain(
@@ -83,18 +110,23 @@ def paged_decode_attention(
         raise ValueError(f"no kernel for device {q.device}")
     B, Hq, D = q.shape
     L, _, N, page, Hkv, _ = kv_pages.shape
-    check_geometry(q.dtype, Hq, Hkv, D)
+    check_geometry(q.device, q.dtype, Hq, Hkv, D)
     check_cuda_operand("q", q, q.device, q.dtype, 3)
     check_cuda_operand("kv_pages", kv_pages, q.device, q.dtype, 6)
     check_cuda_operand("page_table", page_table, q.device, torch.int32, 2)
     check_cuda_operand("kv_lens", kv_lens, q.device, torch.int32, 1)
     if page_table.shape[0] != B or kv_lens.shape[0] != B or kv_pages.shape[-1] != D:
         raise ValueError("operand shapes disagree")
+    Pw = page_table.shape[1]
     out = torch.empty_like(q)
+    chunk, splits = decode_split(Pw, page)
+    ws = None
+    if q.dtype == torch.bfloat16:
+        ws = torch.empty(B * Hq * splits * (D + 2), dtype=torch.float32, device=q.device)
     KERNEL.launch(
         q.data_ptr(), kv_pages.data_ptr(), page_table.data_ptr(),
-        kv_lens.data_ptr(), out.data_ptr(),
-        DTYPE_CODES[q.dtype], B, Hq, Hkv, D, L, N, page, page_table.shape[1],
-        int(layer), int(window), stream_ptr(q),
+        kv_lens.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
+        DTYPE_CODES[q.dtype], B, Hq, Hkv, D, L, N, page, Pw,
+        int(layer), int(window), chunk, stream_ptr(q),
     )
     return out

@@ -212,7 +212,7 @@ def packed_ragged_attention(
     Np, Hq, D = q.shape
     L, _, N, page, Hkv, _ = kv_pages.shape
     B, Pw = page_table.shape
-    check_geometry(q.dtype, Hq, Hkv, D)
+    check_geometry(q.device, q.dtype, Hq, Hkv, D)
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_cuda_operand(name, t, q.device, q.dtype, 3)
     pool = _cuda_pool(q, kv_pages, kv_scales)
@@ -285,7 +285,7 @@ def ragged_paged_attention(
     B, S, Hq, D = q.shape
     L, _, N, page, Hkv, _ = kv_pages.shape
     Pw = page_table.shape[1]
-    check_geometry(q.dtype, Hq, Hkv, D)
+    check_geometry(q.device, q.dtype, Hq, Hkv, D)
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_cuda_operand(name, t, q.device, q.dtype, 4)
     pool = _cuda_pool(q, kv_pages, kv_scales)

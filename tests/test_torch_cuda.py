@@ -81,6 +81,56 @@ def test_paged_decode_kernel_matches_plain(card, D, n_rep, dtype, window):
     assert not got[3].any(), "an idle lane gives zeros"
 
 
+def _decode_case(card, dtype, D, n_rep, kv_lens, width, seed):
+    """Page-16 operands for paged decode: each lane's pages distinct pool
+    pages of a ``width``-page table (page 0 stays trash)."""
+    page, B = 16, len(kv_lens)
+    n_pages = min(B * width, 4096) + 1
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed)
+    rs = np.random.default_rng(seed)
+    pool = torch.randn((L, 2, n_pages, page, HKV, D), generator=gen, device=card).to(dtype)
+    table = np.stack([rs.choice(n_pages - 1, width, replace=width > n_pages - 1) + 1
+                      for _ in range(B)])
+    q = torch.randn((B, HKV * n_rep, D), generator=gen, device=card).to(dtype)
+    lens = torch.tensor(kv_lens, dtype=torch.int32, device=card)
+    return q, pool, torch.from_numpy(table.astype(np.int32)).to(card), lens
+
+
+@pytest.mark.parametrize("window", [0, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,n_rep", GEOMETRY)
+def test_paged_decode_kernel_across_splits(card, D, n_rep, dtype, window):
+    # a 128-page table of page 16: the bf16 kernel's 8 splits of 256
+    # positions; lanes ending on a split boundary, one past it and one short
+    # of it, a one-token lane and an idle lane; the window's floor falls
+    # inside splits, so it straddles their boundaries
+    kv_lens = [2048, 1791, 512, 257, 256, 255, 1, 0]
+    q, pool, table, lens = _decode_case(card, dtype, D, n_rep, kv_lens, 128, 2)
+    assert pa.decode_split(128, 16) == (256, 8)
+    before = pa.KERNEL.launches
+    got = pa.paged_decode_attention(q, pool, table, lens, 1, window)
+    torch.cuda.synchronize()
+    assert pa.KERNEL.launches == before + 1
+    want = pa.paged_decode_attention_plain(q, pool, table, lens, 1, window)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=0)
+    assert not got[7].any(), "an idle lane gives zeros"
+
+
+@pytest.mark.parametrize("window", [0, 3000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_kernel_on_a_wide_table(card, dtype, window):
+    # 1024 pages of 16: past MAX_SPLITS splits of 256, so each split grows
+    # to 512 positions
+    kv_lens = [16384, 9001, 513, 0]
+    q, pool, table, lens = _decode_case(card, dtype, 128, 4, kv_lens, 1024, 3)
+    assert pa.decode_split(1024, 16) == (512, 32)
+    got = pa.paged_decode_attention(q, pool, table, lens, 0, window)
+    want = pa.paged_decode_attention_plain(q, pool, table, lens, 0, window)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=0)
+    assert not got[3].any(), "an idle lane gives zeros"
+
+
 @pytest.mark.parametrize("window", [0, 7])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D,n_rep", GEOMETRY)

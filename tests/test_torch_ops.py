@@ -42,7 +42,12 @@ from dynamo_tpu_torch.ops.flash_prefill import (
     flash_prefill_attention,
     flash_prefix_prefill_attention,
 )
-from dynamo_tpu_torch.ops.paged_attention import paged_decode_attention
+from dynamo_tpu_torch.ops.paged_attention import (
+    MAX_SPLITS,
+    SPLIT_POSITIONS,
+    decode_split,
+    paged_decode_attention,
+)
 from dynamo_tpu_torch.ops.ragged_attention import (
     packed_ragged_attention,
     ragged_paged_attention,
@@ -227,6 +232,22 @@ def test_wrappers_refuse_bad_int8_scales_and_unknown_devices():
             meta, t["pool"].to("meta"), t["table"][:2].to("meta"),
             torch.ones(2, dtype=torch.int32, device="meta"),
         )
+
+
+@pytest.mark.parametrize("page", [4, 8, 16])
+def test_decode_split_covers_the_table_in_few_splits(page):
+    """The bf16 decode kernel's splits for every table width the engine
+    uses (powers of two from 8 pages) and a few others: each covers a
+    multiple of 64 positions, together they reach every position of the
+    table and no split lies wholly past it, at most MAX_SPLITS of them, and
+    splits of SPLIT_POSITIONS wherever that many suffice."""
+    for width in [1, 3, 8, 16, 100, 128, 512, 1024, 4096, 8192, 65536]:
+        reach = width * page
+        chunk, splits = decode_split(width, page)
+        assert chunk % 64 == 0 and 1 <= splits <= MAX_SPLITS
+        assert (splits - 1) * chunk < reach <= splits * chunk
+        if reach <= SPLIT_POSITIONS * MAX_SPLITS:
+            assert chunk == SPLIT_POSITIONS
 
 
 def _rows_below(lens, T: int) -> np.ndarray:
