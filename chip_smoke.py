@@ -33,7 +33,9 @@ Every phase is fatal on failure:
    never calls), beside the least time the card could take (bytes at 3.35
    TB/s or bf16 operations at 989 TFLOP/s, whichever is larger); each row
    adds its rate (``tflops``, operations over kernel time) and
-   ``bound_share`` (bound over kernel time).  And
+   ``bound_share`` (bound over kernel time), and paged decode, whose
+   back-to-back calls the host paces, its ``device_ms`` under
+   ``torch.profiler``.  And
    ``quantize_kv_rows`` on the card gives the CPU's int8 bytes and f32
    scales bit for bit on a ``[4096, 8, 128]`` bf16 input.
 3. reference: a small f32 model served on the card (kernels) and on the
@@ -163,6 +165,29 @@ def cuda_ms(fn: Callable[[int], object], iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn: Callable[[int], object], iters: int = 16) -> float:
+    """Mean device time of ``fn(i)`` under ``torch.profiler``: the self time
+    of every kernel it launches, over ``iters`` calls after a warm-up.
+    Unlike ``cuda_ms`` it leaves out the host's time between launches,
+    which sets the pace of back-to-back calls of a short kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    total = sum(
+        e.self_device_time_total
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA
+    )
+    return total / iters / 1e3
 
 
 def check_tensor_cores(build, checks) -> None:
@@ -329,13 +354,17 @@ def check_decode(pa, rng, gen) -> Dict[str, object]:
             err = max(err, agree(what, out, ref, p_rounding(pool[3, 1])))
         operands[case] = (q, pool, table, lens, kv_lens, width)
     q, pool, table, lens, kv_lens, width = operands[" short-table"]
-    short_ms = cuda_ms(lambda i: pa.paged_decode_attention(q, pool, table, lens, i % LAYERS), 64)
-    print(f"kernels: paged_decode_attention short-table ms={short_ms:.5f}")
+    short = lambda i: pa.paged_decode_attention(q, pool, table, lens, i % LAYERS)  # noqa: E731
+    print(
+        f"kernels: paged_decode_attention short-table ms={cuda_ms(short, 64):.5f} "
+        f"device_ms={device_ms(short):.5f}"
+    )
     del operands[" short-table"], pool
     # timing at the main path's shape (no window: Llama-3 has none);
     # rotating the layer keeps each launch's K/V cold in L2, as in a step
     q, pool, table, lens, kv_lens, width = operands.pop("")
     ms = cuda_ms(lambda i: pa.paged_decode_attention(q, pool, table, lens, i % LAYERS), 64)
+    dev_ms = device_ms(lambda i: pa.paged_decode_attention(q, pool, table, lens, i % LAYERS))
     plain_ms = cuda_ms(
         lambda i: pa.paged_decode_attention_plain(q, pool, table, lens, i % LAYERS), 8
     )
@@ -374,7 +403,7 @@ def check_decode(pa, rng, gen) -> Dict[str, object]:
         replaces="dynamo_tpu/ops/paged_attention.py:124",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=library_ms,
-        tflops=flops / ms / 1e9, bound_share=bound_ms / ms,
+        tflops=flops / ms / 1e9, bound_share=bound_ms / ms, device_ms=dev_ms,
     )
 
 
@@ -1219,7 +1248,9 @@ def main() -> None:
             f"kernels: {r['name']} ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} "
             f"library_ms={r['library_ms']:.5f} bound_ms={r['bound_ms']:.5f} "
             f"({r['bound_by']}) tflops={r['tflops']:.3f} "
-            f"bound_share={r['bound_share']:.4f} on {card}"
+            f"bound_share={r['bound_share']:.4f}"
+            + (f" device_ms={r['device_ms']:.5f}" if "device_ms" in r else "")
+            + f" on {card}"
         )
     gc.collect()
     torch.cuda.empty_cache()

@@ -14,11 +14,13 @@
 //
 // - Split-K over positions across CTAs.  The grid is (split, KV head,
 //   lane); split s owns positions [s * chunk, (s + 1) * chunk), chunk a
-//   multiple of 64 that the wrapper picks from the table width (never from
-//   kv_lens, which stay on the card).  A split past the lane's hi or below
-//   its lo exits at once.  At B = 8 and a 2048-position table that is 512
-//   CTAs for 132 SMs, where one CTA per (lane, KV head) gave 64, each
-//   walking up to 1 MB alone.
+//   multiple of 64.  The wrapper picks the splits from what the host knows
+//   (table width, B, Hkv, SM count; never kv_lens, which stay on the card):
+//   as many as fill the card's two resident CTAs a SM were every lane as
+//   long as the table.  At B = 8, 8 KV heads and a 2048-position table on
+//   an H100 that is 4 splits of 512, 256 CTAs, where one CTA per (lane, KV
+//   head) gave 64, each walking up to 1 MB alone.  A split past the lane's
+//   hi or below its lo exits at once.
 // - The body follows the decode lanes of ragged_tc_kernel (ragged_tc.cuh):
 //   64-key K/V tiles gathered through the page table by 16-byte cp.async
 //   into a ring of three 128-byte-swizzled stages, tiles t + 1 and t + 2
@@ -36,16 +38,21 @@
 //   launched for a table within one split) rescales and sums the lane's
 //   live splits, which it finds from kv_lens as the split kernel does.
 //   Its maximum starts at the finite NEG, so no -inf - -inf appears.
+//   (The lane's last split merging behind a counter, in place of the second
+//   kernel, and a 5-stage ring at one CTA a SM both ran slower on an H100;
+//   PERF.md has the times.)
 #pragma once
 
 #include "tc_common.cuh"
 
 namespace dyn {
 
-// Q (16 rows) plus the K/V ring of STAGES stages
-template <int D, int STAGES>
+constexpr int DT_STAGES = 3;  // K/V ring
+
+// Q (16 rows) plus the K/V ring
+template <int D>
 constexpr size_t decode_tc_smem_bytes() {
-    return sizeof(__nv_bfloat16) * (size_t)(16 + 2 * STAGES * TC_BN) * D;
+    return sizeof(__nv_bfloat16) * (size_t)(16 + 2 * DT_STAGES * TC_BN) * D;
 }
 
 // A lane's attended positions [lo, hi) and its live splits [s_lo, s_hi].
@@ -61,25 +68,9 @@ struct DecodeSpan {
     __device__ int live() const { return s_hi - s_lo + 1; }
 };
 
-// One element of a (lane, head)'s output merged over its live splits: ``o``
-// at the element of split 0 (splits D floats apart), ``ml`` at split 0's
-// (m, l).
-__device__ __forceinline__ float merge_splits(const float* o, const float* ml,
-                                              const DecodeSpan& span, int D) {
-    float M = NEG;
-    for (int s = span.s_lo; s <= span.s_hi; ++s) M = fmaxf(M, __ldcg(ml + 2 * s));
-    float L = 0.f, O = 0.f;
-    for (int s = span.s_lo; s <= span.s_hi; ++s) {
-        const float f = exp2f(__ldcg(ml + 2 * s) - M);
-        L += __ldcg(ml + 2 * s + 1) * f;
-        O += __ldcg(o + (size_t)s * D) * f;
-    }
-    return L > 0.f ? O / L : 0.f;
-}
-
 // Launch with grid (splits, Hkv, B), 128 threads and decode_tc_smem_bytes<D>()
 // of dynamic shared memory.
-template <int D, int NREP, bool FUSED, int STAGES>
+template <int D, int NREP>
 __global__ void __launch_bounds__(128)
 paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,     // [B, Hq, D]
                        const __nv_bfloat16* __restrict__ pool,  // [L, 2, N, page, Hkv, D]
@@ -87,7 +78,6 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,     // [B, Hq, D]
                        const int* __restrict__ kv_lens,         // [B]
                        float* __restrict__ ws_o,                // [B, Hq, splits, D]
                        float* __restrict__ ws_ml,               // [B, Hq, splits, 2]
-                       int* __restrict__ counters,              // [B, Hkv] (FUSED)
                        __nv_bfloat16* __restrict__ out,         // [B, Hq, D]
                        int Hkv, int N, int page, int P, int layer, int window, int chunk,
                        float scale_log2) {
@@ -125,7 +115,7 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,     // [B, Hq, D]
     extern __shared__ __align__(16) unsigned char smem_raw[];
     bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [HALVES][16][64]
     bf16* sK = sQ + HALVES * 16 * 64;             // [STAGES][HALVES][64][64]
-    bf16* sV = sK + STAGES * AREA;
+    bf16* sV = sK + DT_STAGES * AREA;
 
     const int tid = threadIdx.x;
     const int warp = tid >> 5;
@@ -189,16 +179,15 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,     // [B, Hq, D]
     const int qpos = kv_len - 1;
     const int k0 = 16 * warp;  // the warp's keys in every tile
 
-#pragma unroll
-    for (int t = 0; t < STAGES - 1; ++t) {
-        issue(t, t);
-        cp_async_commit();  // Q rides with tile 0
-    }
+    issue(0, 0);
+    cp_async_commit();  // Q rides with tile 0
+    issue(1, 1);
+    cp_async_commit();
     for (int t = 0; t < n_tiles; ++t) {
-        const int stage = t % STAGES;
-        cp_async_wait<STAGES - 2>();
+        const int stage = t % DT_STAGES;
+        cp_async_wait<1>();
         __syncthreads();  // tile t landed; every warp is done with tile t - 1
-        issue(t + STAGES - 1, (t + STAGES - 1) % STAGES);
+        issue(t + 2, (t + 2) % DT_STAGES);
         cp_async_commit();
         if (t == 0) {
 #pragma unroll
@@ -248,39 +237,22 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,     // [B, Hq, D]
     cp_async_wait<0>();
     __syncthreads();  // the ring is drained: its stages hold the partials
     merge_warps<D>(o, sm, reinterpret_cast<float*>(sK));
+    if (warp != 0) return;
     if (span.live() == 1) {
         // the lane's only live split: its output, normalised
-        if (warp == 0) store_rows<D, NREP>(o, sm, sQ, 0, 1, 1, out + head0 * D, (size_t)Hq * D);
+        store_rows<D, NREP>(o, sm, sQ, 0, 1, 1, out + head0 * D, (size_t)Hq * D);
         return;
     }
     const int r = lane >> 2;  // query head r of the group: row r of the tile
-    if (warp == 0 && r < NREP) {
-        float* wo = ws_o + ((head0 + r) * splits + split) * D;
+    if (r >= NREP) return;
+    float* wo = ws_o + ((head0 + r) * splits + split) * D;
 #pragma unroll
-        for (int i = 0; i < D / 8; ++i)
-            *reinterpret_cast<float2*>(wo + 8 * i + 2 * tq) = make_float2(o[i][0], o[i][1]);
-        if (tq == 0) {
-            float* wml = ws_ml + ((head0 + r) * splits + split) * 2;
-            wml[0] = sm.m0;
-            wml[1] = sm.l0;
-        }
-    }
-    if constexpr (FUSED) {
-        // the lane's last split to finish merges them all and resets the
-        // counter for the next launch
-        __shared__ int last;
-        __threadfence();
-        __syncthreads();
-        if (tid == 0) last = atomicAdd(counters + (size_t)b * Hkv + g, 1) == span.live() - 1;
-        __syncthreads();
-        if (!last) return;
-        __threadfence();
-        for (int i = tid; i < NREP * D; i += 128) {
-            const size_t head = head0 + i / D;
-            out[head * D + i % D] = __float2bfloat16(merge_splits(
-                ws_o + head * splits * D + i % D, ws_ml + head * splits * 2, span, D));
-        }
-        if (tid == 0) counters[(size_t)b * Hkv + g] = 0;
+    for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<float2*>(wo + 8 * i + 2 * tq) = make_float2(o[i][0], o[i][1]);
+    if (tq == 0) {
+        float* wml = ws_ml + ((head0 + r) * splits + split) * 2;
+        wml[0] = sm.m0;
+        wml[1] = sm.l0;
     }
 }
 
@@ -298,8 +270,17 @@ paged_decode_merge_kernel(const float* __restrict__ ws_o, const float* __restric
     const size_t head = (size_t)b * gridDim.x + h;
     const DecodeSpan span(kv_lens[b], reach, window, chunk);
     if (span.live() <= 1) return;
-    out[head * D + d] = __float2bfloat16(
-        merge_splits(ws_o + head * splits * D + d, ws_ml + head * splits * 2, span, D));
+    const float* ml = ws_ml + head * splits * 2;
+    const float* o = ws_o + head * splits * D + d;
+    float M = NEG;
+    for (int s = span.s_lo; s <= span.s_hi; ++s) M = fmaxf(M, ml[2 * s]);
+    float L = 0.f, O = 0.f;
+    for (int s = span.s_lo; s <= span.s_hi; ++s) {
+        const float f = exp2f(ml[2 * s] - M);
+        L += ml[2 * s + 1] * f;
+        O += o[(size_t)s * D] * f;
+    }
+    out[head * D + d] = __float2bfloat16(O / L);
 }
 
 }  // namespace dyn

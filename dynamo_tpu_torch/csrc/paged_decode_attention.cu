@@ -160,25 +160,25 @@ paged_decode_kernel(const T* __restrict__ q,          // [B, Hq, D]
 // The bf16 launch: the split kernel, then the merge of the splits (a lane
 // within one split gets its output from the split kernel alone, so a table
 // of one split needs no merge).
-template <int D, int NREP, bool FUSED, int STAGES>
+template <int D, int NREP>
 cudaError_t launch_tc(const void* q, const void* pool, const int* table, const int* kv_lens,
-                      void* out, float* ws, int* counters, int B, int Hkv, int N, int page,
-                      int P, int layer, int window, int chunk, cudaStream_t stream) {
+                      void* out, float* ws, int B, int Hkv, int N, int page, int P, int layer,
+                      int window, int chunk, cudaStream_t stream) {
     using bf16 = __nv_bfloat16;
     static bool smem_ok = false;
-    auto kern = paged_decode_tc_kernel<D, NREP, FUSED, STAGES>;
-    cudaError_t e = allow_smem(kern, decode_tc_smem_bytes<D, STAGES>(), smem_ok);
+    auto kern = paged_decode_tc_kernel<D, NREP>;
+    cudaError_t e = allow_smem(kern, decode_tc_smem_bytes<D>(), smem_ok);
     if (e != cudaSuccess) return e;
     const int splits = (P * page + chunk - 1) / chunk;
     const int Hq = Hkv * NREP;
     float* ws_o = ws;
     float* ws_ml = ws + (size_t)B * Hq * splits * D;
-    kern<<<dim3(splits, Hkv, B), 128, decode_tc_smem_bytes<D, STAGES>(), stream>>>(
+    kern<<<dim3(splits, Hkv, B), 128, decode_tc_smem_bytes<D>(), stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(pool), table, kv_lens, ws_o, ws_ml,
-        counters, static_cast<bf16*>(out), Hkv, N, page, P, layer, window, chunk,
+        static_cast<bf16*>(out), Hkv, N, page, P, layer, window, chunk,
         1.4426950408889634f / sqrtf((float)D));
     e = cudaGetLastError();
-    if (e != cudaSuccess || FUSED || splits == 1) return e;
+    if (e != cudaSuccess || splits == 1) return e;
     paged_decode_merge_kernel<D><<<dim3(Hq, B), D, 0, stream>>>(
         ws_o, ws_ml, kv_lens, static_cast<bf16*>(out), P * page, window, chunk, splits);
     return cudaGetLastError();
@@ -195,63 +195,28 @@ cudaError_t launch_f32(const void* q, const void* pool, const int* table, const 
     return cudaGetLastError();
 }
 
-struct DecodeLaunch {
-    const void* q;
-    const void* pool;
-    const int* table;
-    const int* kv_lens;
-    void* out;
-    float* ws;
-    int* counters;
-    int stages;
-    int B, Hkv, N, page, P, layer, window, chunk;
-    cudaStream_t stream;
-
-    template <int D, int NREP>
-    cudaError_t run(int dtype) {
-        if (dtype == DTYPE_F32) {
-            return launch_f32<D, NREP>(q, pool, table, kv_lens, out, B, Hkv, N, page, P, layer,
-                                       window, stream);
-        }
-        if (counters != nullptr) {
-            return launch_tc<D, NREP, true, 3>(q, pool, table, kv_lens, out, ws, counters, B,
-                                               Hkv, N, page, P, layer, window, chunk, stream);
-        }
-        if (stages == 5) {
-            return launch_tc<D, NREP, false, 5>(q, pool, table, kv_lens, out, ws, nullptr, B,
-                                                Hkv, N, page, P, layer, window, chunk, stream);
-        }
-        return launch_tc<D, NREP, false, 3>(q, pool, table, kv_lens, out, ws, nullptr, B, Hkv,
-                                            N, page, P, layer, window, chunk, stream);
+template <int D, int NREP>
+cudaError_t launch(int dtype, const void* q, const void* pool, const int* table,
+                   const int* kv_lens, void* out, float* ws, int B, int Hkv, int N, int page,
+                   int P, int layer, int window, int chunk, cudaStream_t s) {
+    if (dtype == DTYPE_F32) {
+        return launch_f32<D, NREP>(q, pool, table, kv_lens, out, B, Hkv, N, page, P, layer,
+                                   window, s);
     }
-};
-
-// The GQA groups of the port's configs: 2 (ModelConfig.tiny), 4
-// (Llama-3-8B); head dims 64 and 128.  Another geometry is refused.
-template <int D>
-cudaError_t by_rep(int n_rep, int dtype, DecodeLaunch& r) {
-    switch (n_rep) {
-        case 2: return r.run<D, 2>(dtype);
-        case 4: return r.run<D, 4>(dtype);
-        default: return cudaErrorInvalidValue;
-    }
+    return launch_tc<D, NREP>(q, pool, table, kv_lens, out, ws, B, Hkv, N, page, P, layer,
+                              window, chunk, s);
 }
 
-int entry(DecodeLaunch& r, int dtype, int Hq, int D, int L) {
-    if (r.B <= 0) return 0;
-    if (r.Hkv <= 0 || Hq % r.Hkv || r.N <= 0 || r.page <= 0 || r.P <= 0 || L <= 0) {
-        return (int)cudaErrorInvalidValue;
-    }
-    if (dtype != DTYPE_F32 && dtype != DTYPE_BF16) return (int)cudaErrorInvalidValue;
-    // the bf16 form's splits: positions per split a positive multiple of 64
-    if (dtype == DTYPE_BF16 && (r.ws == nullptr || r.chunk <= 0 || r.chunk % TC_BN)) {
-        return (int)cudaErrorInvalidValue;
-    }
-    r.layer = clampi(r.layer, 0, L - 1);
-    switch (D) {
-        case 64: return (int)by_rep<64>(Hq / r.Hkv, dtype, r);
-        case 128: return (int)by_rep<128>(Hq / r.Hkv, dtype, r);
-        default: return (int)cudaErrorInvalidValue;
+// The GQA groups of the port's configs: 2 (ModelConfig.tiny), 4
+// (Llama-3-8B); another group is refused.
+template <int D>
+cudaError_t by_rep(int n_rep, int dtype, const void* q, const void* pool, const int* table,
+                   const int* kv_lens, void* out, float* ws, int B, int Hkv, int N, int page,
+                   int P, int layer, int window, int chunk, cudaStream_t s) {
+    switch (n_rep) {
+        case 2: return launch<D, 2>(dtype, q, pool, table, kv_lens, out, ws, B, Hkv, N, page, P, layer, window, chunk, s);
+        case 4: return launch<D, 4>(dtype, q, pool, table, kv_lens, out, ws, B, Hkv, N, page, P, layer, window, chunk, s);
+        default: return cudaErrorInvalidValue;
     }
 }
 
@@ -260,29 +225,29 @@ int entry(DecodeLaunch& r, int dtype, int Hq, int D, int L) {
 // Plain C entry (bound with ctypes).  Returns cudaGetLastError() after the
 // launches, or cudaErrorInvalidValue for a shape the kernel does not take.
 // ``ws`` is the bf16 form's f32 workspace of B * Hq * splits * (D + 2)
-// floats, splits = ceil(P * page / chunk); the f32 form reads neither.
+// floats, splits = ceil(P * page / chunk), chunk a positive multiple of 64
+// positions; the f32 form reads neither.
 extern "C" int paged_decode_attention(const void* q, const void* pool, const void* table,
                                       const void* kv_lens, void* out, void* ws, int dtype,
                                       int B, int Hq, int Hkv, int D, int L, int N, int page,
                                       int P, int layer, int window, int chunk, void* stream) {
-    DecodeLaunch r{q, pool, static_cast<const int*>(table), static_cast<const int*>(kv_lens),
-                   out, static_cast<float*>(ws), nullptr, 3, B, Hkv, N, page, P, layer, window,
-                   chunk, static_cast<cudaStream_t>(stream)};
-    return entry(r, dtype, Hq, D, L);
-}
-
-// The bf16 form's other forms, timed against it by time_decode_forms.py:
-// with ``counters`` ([B, Hkv] int32, zero before the launch and zero again
-// after it), the splits merged by the lane's last split to finish; else a
-// ring of ``stages`` stages (3 or 5).
-extern "C" int paged_decode_attention_form(const void* q, const void* pool, const void* table,
-                                           const void* kv_lens, void* out, void* ws,
-                                           void* counters, int stages, int dtype, int B, int Hq,
-                                           int Hkv, int D, int L, int N, int page, int P,
-                                           int layer, int window, int chunk, void* stream) {
-    if (dtype != DTYPE_BF16 || (stages != 3 && stages != 5)) return (int)cudaErrorInvalidValue;
-    DecodeLaunch r{q, pool, static_cast<const int*>(table), static_cast<const int*>(kv_lens),
-                   out, static_cast<float*>(ws), static_cast<int*>(counters), stages, B, Hkv, N,
-                   page, P, layer, window, chunk, static_cast<cudaStream_t>(stream)};
-    return entry(r, dtype, Hq, D, L);
+    if (B <= 0) return 0;
+    if (Hkv <= 0 || Hq % Hkv || N <= 0 || page <= 0 || P <= 0 || L <= 0) {
+        return (int)cudaErrorInvalidValue;
+    }
+    if (dtype != DTYPE_F32 &&
+        (dtype != DTYPE_BF16 || ws == nullptr || chunk <= 0 || chunk % TC_BN)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    layer = clampi(layer, 0, L - 1);
+    const int n_rep = Hq / Hkv;
+    const int* tab = static_cast<const int*>(table);
+    const int* lens = static_cast<const int*>(kv_lens);
+    float* w = static_cast<float*>(ws);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (D) {
+        case 64: return (int)by_rep<64>(n_rep, dtype, q, pool, tab, lens, out, w, B, Hkv, N, page, P, layer, window, chunk, s);
+        case 128: return (int)by_rep<128>(n_rep, dtype, q, pool, tab, lens, out, w, B, Hkv, N, page, P, layer, window, chunk, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }

@@ -5,12 +5,13 @@ Replaces the TPU Pallas kernel ``paged_decode_attention_v2``
 CUDA C++ for ``sm_90a`` in ``csrc/paged_decode_attention.cu`` (bf16 in
 ``csrc/decode_tc.cuh``).  It is bound by bytes: every live K/V row is read
 once for the GQA group's few query vectors.  The bf16 form spreads a
-lane's positions over CTAs of :data:`SPLIT_POSITIONS` positions each (grid:
-split, KV head, lane), so a batch of a few long lanes still fills the
-card; a second kernel merges the splits' softmax states from an f32
-workspace this wrapper allocates on the tensors' stream.  The number of
-splits follows from the page table's width (:func:`decode_split`), never
-from ``kv_lens``, which stay on the card: the wrapper makes no host sync.
+lane's positions over CTAs (grid: split, KV head, lane), so a batch of a
+few long lanes still fills the card; a second kernel merges the splits'
+softmax states from an f32 workspace this wrapper allocates on the
+tensors' stream.  The splits follow from what the host knows -- the page
+table's width, the batch, the KV heads and the card's SM count
+(:func:`decode_split`) -- never from ``kv_lens``, which stay on the card:
+the wrapper makes no host sync.
 The bf16 form rounds the softmax weights P to bf16 before their product
 with V, as the Pallas kernel does (``probs.astype(v.dtype)``); the plain
 version keeps P in f32.  The f32 form runs on the CUDA cores.
@@ -22,6 +23,7 @@ device alone, with no switch and no fallback.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
@@ -41,22 +43,32 @@ KERNEL = CudaKernel(
     "paged_decode_attention",
     [P] * 6 + [I] * 12 + [P],
 )
-# positions a split of the bf16 kernel covers (four 64-key tiles), and the
-# most splits a lane takes: a wider table grows the split instead
-SPLIT_POSITIONS = 256
+# the bf16 kernel's CTAs an SM holds at once (100 KB of shared memory
+# each), the fewest positions a split covers (two 64-key tiles) and the
+# most splits a lane takes
+CTAS_PER_SM = 2
+MIN_SPLIT_POSITIONS = 128
 MAX_SPLITS = 32
 
 
-def decode_split(width: int, page: int) -> Tuple[int, int]:
-    """``(positions per split, splits)`` of the bf16 kernel for a page
-    table ``width`` pages wide: splits of :data:`SPLIT_POSITIONS`, at most
-    :data:`MAX_SPLITS` of them (then each covers a multiple of 64), which
-    together reach every position the table can hold."""
+def decode_split(width: int, page: int, lane_heads: int, slots: int) -> Tuple[int, int]:
+    """``(positions per split, splits)`` of the bf16 kernel for a page table
+    ``width`` pages wide, ``lane_heads`` = B * Hkv CTAs a split and a card
+    that holds ``slots`` CTAs at once.  As many splits as fill those slots
+    were every lane as long as the table, at most :data:`MAX_SPLITS`; each
+    covers a multiple of 64 positions, at least :data:`MIN_SPLIT_POSITIONS`,
+    and together they reach every position of the table.  (On an H100 at
+    Llama-3-8B's 8 KV heads and 8 lanes: 4 splits; at 2 lanes, 16.)"""
     reach = width * page
-    chunk = SPLIT_POSITIONS
-    if reach > chunk * MAX_SPLITS:
-        chunk = -(-reach // (MAX_SPLITS * 64)) * 64
+    want = max(1, min(MAX_SPLITS, slots // lane_heads))
+    chunk = max(MIN_SPLIT_POSITIONS, -(-reach // (want * 64)) * 64)
     return chunk, -(-reach // chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def resident_ctas(device: torch.device) -> int:
+    """The bf16 kernel's CTAs the card ``device`` holds at once."""
+    return CTAS_PER_SM * torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def paged_decode_attention_plain(
@@ -119,7 +131,7 @@ def paged_decode_attention(
         raise ValueError("operand shapes disagree")
     Pw = page_table.shape[1]
     out = torch.empty_like(q)
-    chunk, splits = decode_split(Pw, page)
+    chunk, splits = decode_split(Pw, page, B * Hkv, resident_ctas(q.device))
     ws = None
     if q.dtype == torch.bfloat16:
         ws = torch.empty(B * Hq * splits * (D + 2), dtype=torch.float32, device=q.device)

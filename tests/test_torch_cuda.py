@@ -3,9 +3,11 @@ card: paged decode, packed and rectangle ragged (the dense pool's entries
 and the int8 pool's), full and prefix-suffix flash prefill.  Every
 instantiation the wrappers can launch (f32 and bf16, head dims 64 and 128,
 GQA groups 2 and 4: those of the port's configs), with and without a
-sliding window, at small shapes; the flash kernels also at lengths around
-their 64-row tiles and at the serve shape of kernel 2 in ``chip_smoke.py``,
-the ragged kernels (both layouts, both pools) at their tile and page edges.
+sliding window, at small shapes; paged decode also over a 2048-position
+table across the bf16 kernel's splits and on a table wide enough to grow
+them; the flash kernels also at lengths around their 64-row tiles and at
+the serve shape of kernel 2 in ``chip_smoke.py``, the ragged kernels (both
+layouts, both pools) at their tile and page edges.
 The dense entries of the ragged and flash kernels also give, bit for bit,
 the outputs recorded in ``DENSE_DIGESTS``.
 
@@ -18,8 +20,8 @@ none); run them there without the JAX-loading conftest:
 Tolerances: in f32 the kernel and the plain version differ by the order of
 their sums and by the kernel's fast exponential (``__expf``, a few ulp),
 5e-5 on outputs of order one; in bf16 each side rounds its output once,
-2e-2 (two bf16 ulps of values of order one).  The bf16 flash and ragged
-kernels also round P to bf16 for its product with V (as the Pallas kernels
+2e-2 (two bf16 ulps of values of order one).  The bf16 decode, flash and
+ragged kernels also round P to bf16 for its product with V (as the Pallas kernels
 do; the plain versions keep P in f32): a relative error of at most 2^-9 on
 each term's weight, some 2e-3 on an output built from a few keys of |v| up
 to ~4, inside the same 2e-2.
@@ -64,27 +66,10 @@ def _setup(card, dtype, D, B, seed):
     return gen, pool, torch.from_numpy(table.astype(np.int32)).to(card)
 
 
-@pytest.mark.parametrize("window", [0, 7])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D,n_rep", GEOMETRY)
-def test_paged_decode_kernel_matches_plain(card, D, n_rep, dtype, window):
-    kv_lens = torch.tensor([P * PAGE, 23, 1, 0, 40], dtype=torch.int32, device=card)
-    B = kv_lens.shape[0]
-    gen, pool, table = _setup(card, dtype, D, B, 1)
-    q = torch.randn((B, HKV * n_rep, D), generator=gen, device=card).to(dtype)
-    before = pa.KERNEL.launches
-    got = pa.paged_decode_attention(q, pool, table, kv_lens, 1, window)
-    torch.cuda.synchronize()
-    assert pa.KERNEL.launches == before + 1
-    want = pa.paged_decode_attention_plain(q, pool, table, kv_lens, 1, window)
-    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=0)
-    assert not got[3].any(), "an idle lane gives zeros"
-
-
-def _decode_case(card, dtype, D, n_rep, kv_lens, width, seed):
-    """Page-16 operands for paged decode: each lane's pages distinct pool
-    pages of a ``width``-page table (page 0 stays trash)."""
-    page, B = 16, len(kv_lens)
+def _decode_case(card, dtype, D, n_rep, kv_lens, page, width, seed):
+    """Paged decode operands: each lane's pages distinct pool pages of a
+    ``width``-page table of ``page``-row pages (page 0 stays trash)."""
+    B = len(kv_lens)
     n_pages = min(B * width, 4096) + 1
     gen = torch.Generator(device=card)
     gen.manual_seed(seed)
@@ -97,34 +82,46 @@ def _decode_case(card, dtype, D, n_rep, kv_lens, width, seed):
     return q, pool, torch.from_numpy(table.astype(np.int32)).to(card), lens
 
 
-@pytest.mark.parametrize("window", [0, 300])
+# (kv_lens, page, table width, window): the small table, within one split
+# of the bf16 kernel; and a 128-page table of page 16, which that kernel
+# splits at multiples of 128 positions (16 splits on an H100), with lanes
+# ending on a split boundary, one past it and one short of it, a one-token
+# lane and an idle lane, and a window whose floor straddles the boundaries
+DECODE_CASES = {
+    "small": ([P * PAGE, 23, 1, 0, 40], PAGE, P, 7),
+    "splits": ([2048, 1791, 512, 257, 256, 255, 1, 0], 16, 128, 300),
+}
+
+
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+@pytest.mark.parametrize("windowed", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D,n_rep", GEOMETRY)
-def test_paged_decode_kernel_across_splits(card, D, n_rep, dtype, window):
-    # a 128-page table of page 16: the bf16 kernel's 8 splits of 256
-    # positions; lanes ending on a split boundary, one past it and one short
-    # of it, a one-token lane and an idle lane; the window's floor falls
-    # inside splits, so it straddles their boundaries
-    kv_lens = [2048, 1791, 512, 257, 256, 255, 1, 0]
-    q, pool, table, lens = _decode_case(card, dtype, D, n_rep, kv_lens, 128, 2)
-    assert pa.decode_split(128, 16) == (256, 8)
+def test_paged_decode_kernel_matches_plain(card, D, n_rep, dtype, windowed, case):
+    kv_lens, page, width, window = DECODE_CASES[case]
+    window = window if windowed else 0
+    q, pool, table, lens = _decode_case(card, dtype, D, n_rep, kv_lens, page, width, 1)
+    if case == "splits":
+        chunk, splits = pa.decode_split(width, page, 8 * HKV, pa.resident_ctas(card))
+        assert chunk == 128 and splits > 8
     before = pa.KERNEL.launches
     got = pa.paged_decode_attention(q, pool, table, lens, 1, window)
     torch.cuda.synchronize()
     assert pa.KERNEL.launches == before + 1
     want = pa.paged_decode_attention_plain(q, pool, table, lens, 1, window)
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=0)
-    assert not got[7].any(), "an idle lane gives zeros"
+    assert not got[kv_lens.index(0)].any(), "an idle lane gives zeros"
 
 
 @pytest.mark.parametrize("window", [0, 3000])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_decode_kernel_on_a_wide_table(card, dtype, window):
-    # 1024 pages of 16: past MAX_SPLITS splits of 256, so each split grows
-    # to 512 positions
+    # 1024 pages of 16 at 4 lanes: MAX_SPLITS splits, each grown to 512
+    # positions on an H100
     kv_lens = [16384, 9001, 513, 0]
-    q, pool, table, lens = _decode_case(card, dtype, 128, 4, kv_lens, 1024, 3)
-    assert pa.decode_split(1024, 16) == (512, 32)
+    q, pool, table, lens = _decode_case(card, dtype, 128, 4, kv_lens, 16, 1024, 3)
+    chunk, splits = pa.decode_split(1024, 16, 4 * HKV, pa.resident_ctas(card))
+    assert chunk > 128 and splits == pa.MAX_SPLITS
     got = pa.paged_decode_attention(q, pool, table, lens, 0, window)
     want = pa.paged_decode_attention_plain(q, pool, table, lens, 0, window)
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=0)

@@ -44,7 +44,7 @@ from dynamo_tpu_torch.ops.flash_prefill import (
 )
 from dynamo_tpu_torch.ops.paged_attention import (
     MAX_SPLITS,
-    SPLIT_POSITIONS,
+    MIN_SPLIT_POSITIONS,
     decode_split,
     paged_decode_attention,
 )
@@ -235,19 +235,29 @@ def test_wrappers_refuse_bad_int8_scales_and_unknown_devices():
 
 
 @pytest.mark.parametrize("page", [4, 8, 16])
-def test_decode_split_covers_the_table_in_few_splits(page):
-    """The bf16 decode kernel's splits for every table width the engine
-    uses (powers of two from 8 pages) and a few others: each covers a
-    multiple of 64 positions, together they reach every position of the
-    table and no split lies wholly past it, at most MAX_SPLITS of them, and
-    splits of SPLIT_POSITIONS wherever that many suffice."""
+@pytest.mark.parametrize("lane_heads", [1, 8, 16, 64, 264, 1024])
+def test_decode_split_fills_the_card_in_few_splits(page, lane_heads):
+    """The bf16 decode kernel's splits, for every table width the engine
+    uses (powers of two from 8 pages) and a few others, on a card of 264
+    resident CTAs (an H100): each covers a multiple of 64 positions, no
+    fewer than MIN_SPLIT_POSITIONS, together they reach every position of
+    the table and no split lies wholly past it; there are at most
+    MAX_SPLITS, and no more than fill the card when every lane is as long
+    as the table -- exactly that many where the table splits evenly into
+    them."""
+    slots = 264
+    want = max(1, min(MAX_SPLITS, slots // lane_heads))
     for width in [1, 3, 8, 16, 100, 128, 512, 1024, 4096, 8192, 65536]:
         reach = width * page
-        chunk, splits = decode_split(width, page)
-        assert chunk % 64 == 0 and 1 <= splits <= MAX_SPLITS
+        chunk, splits = decode_split(width, page, lane_heads, slots)
+        assert chunk % 64 == 0 and chunk >= MIN_SPLIT_POSITIONS
         assert (splits - 1) * chunk < reach <= splits * chunk
-        if reach <= SPLIT_POSITIONS * MAX_SPLITS:
-            assert chunk == SPLIT_POSITIONS
+        assert 1 <= splits <= want
+        if reach % (want * 64) == 0 and reach >= want * MIN_SPLIT_POSITIONS:
+            assert splits == want
+    # Llama-3-8B's 8 KV heads at 8 lanes, and at 2, over a 2048-position table
+    assert decode_split(128, 16, 64, slots) == (512, 4)
+    assert decode_split(128, 16, 16, slots) == (128, 16)
 
 
 def _rows_below(lens, T: int) -> np.ndarray:
