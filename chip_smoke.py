@@ -44,7 +44,9 @@ Every phase is fatal on failure:
    chunked prefill) and ``packed_ragged=False``, with a
    ``frequency_penalty`` lane and a ``repetition_penalty`` lane in the
    batch; on the card the unpenalized lanes agree across the three.  The
-   same three with ``kv_dtype="int8"``: card streams equal the CPU's.
+   same three with ``kv_dtype="int8"``: card streams equal the CPU's.  The
+   card runs the pipelined loop, and each config must capture and replay
+   a decode graph (the first batch's lanes take 24 tokens for that).
 4. serve: ``TorchEngine.random_init(ModelConfig.llama3_8b(),
    EngineConfig(num_pages=1024))`` -- full width, 32 layers, bf16, random
    weights from a seed, default engine settings (mixed batching, packed
@@ -52,10 +54,13 @@ Every phase is fatal on failure:
    1024-token prefix, then 8 concurrent requests (prompts of 16 to 1500
    tokens, two sharing that prefix so they hit the prefix cache, greedy
    plus two seeded temperature lanes, max_tokens 64) through
-   ``generate()``.  Every stream must finish with 64 tokens, both kernels'
-   launch counts must be > 0 for this run, and a K > 1 dispatch must have
-   run.  A second engine built the same way serves the same requests and
-   must give identical streams.
+   ``generate()`` (cold: each decode graph is captured as its shape first
+   comes), then the same 8 requests once more on the same engine (warm:
+   the graphs replay).  Every stream must finish with 64 tokens, both
+   kernels' launch counts must be > 0 for this run, a K > 1 dispatch must
+   have run and a CUDA graph must have replayed.  Run 1, a second engine
+   built the same way with ``async_dispatch=False`` (the serial loop),
+   serves the same requests and must give identical streams.
 5. serve-classic: the same model, random weights made once and shared by
    two engines: run A, ``EngineConfig(num_pages=1024,
    mixed_batching=False)``, serves the serve phase's primer and batch with
@@ -64,8 +69,10 @@ Every phase is fatal on failure:
    the prefix hits, decode blocks of 16 with penalty histograms); run B,
    ``EngineConfig(num_pages=1024, packed_ragged=False)``, serves the same
    requests without penalties (rectangle unified dispatches, decode
-   blocks).  Every stream must finish with 64 tokens; kernels 1, 2 and 3
-   must launch in run A, kernels 1 and 4 in run B.
+   blocks).  Run A's twin with ``async_dispatch=False`` must give run A's
+   streams.  Each serves cold then warm, as the serve phase.  Every stream
+   must finish with 64 tokens; kernels 1, 2 and 3 must launch in run A,
+   kernels 1 and 4 in run B, and graphs must replay in A and B.
 
 6. serve-int8: the same model, random weights made once and shared by
    three engines with ``EngineConfig(num_pages=1024, kv_dtype="int8")``:
@@ -75,13 +82,19 @@ Every phase is fatal on failure:
    int8 entry of packed ragged must launch in Q, flash prefill and
    prefix-suffix prefill in QA, the int8 entry of rectangle ragged in QB;
    paged decode and the dense ragged entries launch in none of them (an
-   int8 pool's decode steps take the gathered composition, counted).
+   int8 pool's decode steps take the gathered composition, counted);
+   graphs must replay in Q.
+
+In every served run each kernel's launch count (graph replays included)
+must equal what the run's dispatches imply (``expected_launches``), and
+the run prints its loop mode, graph captures and replays and the dispatch
+spans read from CUDA events, for the whole run and its warm batch.
 
 ``--profile OUT.txt`` adds a last phase: the serve phase's run,
-serve-classic runs A and B and serve-int8 run Q once more under
-``torch.profiler``, each with
-the device's idle share and its kernel time by kind (see
-``profile_phase``); the full tables go to ``OUT.txt``.
+serve-classic runs A and B and serve-int8 run Q once more, their warm
+batch under ``torch.profiler``, each with the device's idle share and its
+kernel time by kind (see ``profile_phase``); the full tables go to
+``OUT.txt``.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the kernels' numbers as JSON.  With no CUDA device, or
@@ -731,10 +744,13 @@ def check_quantize_rule() -> None:
 # ---------------------------------------------------------------------------
 
 
-async def serve(engine, batches: List[List[dict]]) -> List[dict]:
+async def serve(
+    engine, batches: List[List[dict]], between: Callable[[int], None] = None
+) -> List[dict]:
     """Serve each batch of requests concurrently, one batch after the
-    other; returns per request its tokens, finish reason, frame times and
-    time to first token."""
+    other (``between(i)`` runs before batch ``i`` > 0 starts); returns per
+    request its tokens, finish reason, frame times and time to first
+    token."""
     from dynamo_tpu_torch.protocols.common import PreprocessedRequest
     from dynamo_tpu_torch.runtime.engine import Context
 
@@ -759,12 +775,41 @@ async def serve(engine, batches: List[List[dict]]) -> List[dict]:
 
     results: List[dict] = []
     try:
-        for batch in batches:
+        for i, batch in enumerate(batches):
+            if i and between is not None:
+                between(i)
             t0 = time.perf_counter()
             results += await asyncio.gather(*[one(r, t0) for r in batch])
     finally:
         await engine.stop()
     return results
+
+
+def serve_cold_warm(engine, primer: List[dict], reqs: List[dict], hook=None):
+    """One served run: the primer and then the batch (cold: each graph is
+    captured, after its eager warm-up, as its shape first comes), then the
+    same batch once more on the same engine (warm: the graphs replay).
+    ``hook()`` runs as the warm batch starts.  Returns the cold results
+    (primer first) and wall time -- until the warm batch starts --, the
+    warm results and their wall time (to their last frame), and the
+    engine's dispatch spans and graph captures as the warm batch
+    started."""
+    marks: Dict[str, object] = {}
+
+    def between(i: int) -> None:
+        if i == 2:
+            marks["spans"] = engine.dispatch_spans()
+            marks["captures"] = engine.graph_captures
+            marks["replays"] = engine.graph_replays
+            if hook is not None:
+                hook()
+            marks["t"] = time.perf_counter()
+
+    t0 = time.perf_counter()
+    res = asyncio.run(serve(engine, [primer, reqs, reqs], between))
+    cold, warm = res[: 1 + len(reqs)], res[1 + len(reqs):]
+    wall_warm = max(r["frames"][-1][0] for r in warm) - marks["t"]
+    return cold, marks["t"] - t0, warm, wall_warm, marks
 
 
 def request(tokens: List[int], max_tokens: int, **sampling) -> dict:
@@ -806,14 +851,15 @@ def reference_phase() -> None:
     params = init_params(cfg, 3, torch.device("cpu"), torch.float32)
     rng = np.random.default_rng(3)
     shared = rng.integers(1, cfg.vocab_size, 40).tolist()
-    # the first batch runs each config's own path; in the second, the
-    # penalized lanes turn every tick classic
+    # the first batch runs each config's own path, long enough that the
+    # card replays its decode graphs; in the second, the penalized lanes
+    # turn every tick classic
     batches = [
         [
-            request(rng.integers(1, cfg.vocab_size, 70), 12),
-            request(shared + [5, 6], 12),
-            request(shared + [9], 12),
-            request(rng.integers(1, cfg.vocab_size, 3), 12),
+            request(rng.integers(1, cfg.vocab_size, 70), 24),
+            request(shared + [5, 6], 24),
+            request(shared + [9], 24),
+            request(rng.integers(1, cfg.vocab_size, 3), 24),
         ],
         [
             request(rng.integers(1, cfg.vocab_size, 50), 12, frequency_penalty=0.7),
@@ -827,7 +873,14 @@ def reference_phase() -> None:
             for k, v in params.items()
         }
         eng = TorchEngine(cfg, p, EngineConfig(**ecfg, **kw), device=dev)
-        return asyncio.run(serve(eng, reqs))
+        out = asyncio.run(serve(eng, reqs))
+        if dev == "cuda":
+            # the card runs the pipelined loop with its decode graphs
+            print(f"reference: {kw} async_dispatch={eng.cfg.async_dispatch} "
+                  f"graph_captures={eng.graph_captures} graph_replays={eng.graph_replays}")
+            if not eng.cfg.async_dispatch or not sum(eng.graph_replays.values()):
+                fail(f"reference {kw}: no pipelined loop or no graph replay on the card")
+        return out
 
     unpenalized = {}
     for name, kw in REFERENCE_CONFIGS.items():
@@ -836,7 +889,8 @@ def reference_phase() -> None:
         if streams["cuda"] != streams["cpu"]:
             report_margin(name, streams, lambda dev, reqs: run(kw, dev, reqs), batches)
             fail(f"small-model greedy streams differ under {name}: cpu {streams['cpu']}")
-        if not all(len(t) == 12 for t in streams["cuda"]):
+        want = [r["stop_conditions"]["max_tokens"] for batch in batches for r in batch]
+        if [len(t) for t in streams["cuda"]] != want:
             fail(f"small-model streams under {name} end early")
         unpenalized[name] = streams["cuda"][:4] + streams["cuda"][6:]
     for pool in ("dense", "int8"):
@@ -896,28 +950,32 @@ def serve_phase(kernels, card: str) -> Dict[str, object]:
     cfg = ModelConfig.llama3_8b()
     primer, batch = serve_requests(cfg.vocab_size)
     runs = []
+    # run 0: the default, pipelined loop; run 1: the serial loop
     for run in range(2):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        engine = TorchEngine.random_init(cfg, EngineConfig(num_pages=1024), seed=0)
+        engine = TorchEngine.random_init(
+            cfg, EngineConfig(num_pages=1024, async_dispatch=run == 0), seed=0
+        )
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
-        if run == 0:
-            for k in kernels:
-                k.launches = 0
-        t0 = time.perf_counter()
-        res = asyncio.run(serve(engine, [primer, batch]))
-        wall = time.perf_counter() - t0
-        launches = {k.name: k.launches for k in kernels}
+        reset_launches()
+        res, wall, warm, wall_w, marks = serve_cold_warm(engine, primer, batch)
+        counted = read_launches()
+        launches = {k.name: counted[k.name] for k in kernels}
         by_k = dict(engine.dispatches_by_k)
         hits = engine.metrics().gpu_prefix_cache_hit_rate
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        check_launch_invariants(f"serve: run {run}", engine, counted)
+        loop, loop_w = loop_line(engine, wall + wall_w), loop_line(engine, wall_w, marks)
+        replays = engine.graph_replays
         del engine
         gc.collect()
         torch.cuda.empty_cache()
         out = res[1:]
-        check_streams(f"serve run {run}", res, cfg.vocab_size)
-        st = served_stats(res, wall)
+        check_streams(f"serve run {run}", out, cfg.vocab_size)
+        check_streams(f"serve run {run} warm", warm, cfg.vocab_size)
+        st, st_w = served_stats(res, wall), served_stats(warm, wall_w, primed=False)
         print(
             f"serve: run {run} init_s={init_s:.3f} wall_s={wall:.3f} "
             f"dispatches_by_k={by_k} prefix_hit_rate={hits:.4f} "
@@ -927,8 +985,16 @@ def serve_phase(kernels, card: str) -> Dict[str, object]:
         print(
             "serve: run %d ttft_ms=%s" % (run, [round(r["ttft"] * 1e3, 3) for r in out])
         )
+        print(
+            f"serve: run {run} warm wall_s={wall_w:.3f} tok_s={st_w['tok_s']:.3f} "
+            f"decode_phase_tok_s={st_w['dec']:.3f} ttft_ms="
+            f"{[round(r['ttft'] * 1e3, 3) for r in warm]} on {card}"
+        )
+        print(f"serve: run {run} {loop}")
+        print(f"serve: run {run} warm {loop_w}")
         runs.append(dict(
-            streams=[r["tokens"] for r in out], launches=launches, by_k=by_k, wall=wall
+            streams=[r["tokens"] for r in out + warm], launches=launches, by_k=by_k,
+            wall=wall, wall_warm=wall_w, replays=replays,
         ))
     first = runs[0]
     print(f"serve: launches on the main path {first['launches']}")
@@ -937,16 +1003,19 @@ def serve_phase(kernels, card: str) -> Dict[str, object]:
             fail(f"{name} never launched on the main path")
     if not any(k > 1 and n > 0 for k, n in first["by_k"].items()):
         fail("no multistep (K > 1) dispatch ran")
+    if not sum(first["replays"].values()):
+        fail("no CUDA graph replayed in the serve phase")
     if runs[1]["streams"] != first["streams"]:
-        fail("the second run's streams differ from the first's")
+        fail("the serial loop's streams (run 1) differ from the pipelined loop's (run 0)")
     return first
 
 
-def served_stats(res: List[dict], wall: float) -> Dict[str, float]:
-    """End to end: every generated token (primer and batch) over the run's
-    wall time, prefills included; decode phase only: tokens streamed once
-    every request of the batch had its first one, over that window."""
-    out = res[1:]
+def served_stats(res: List[dict], wall: float, primed: bool = True) -> Dict[str, float]:
+    """End to end: every generated token (primer, when ``primed``, and
+    batch) over the run's wall time, prefills included; decode phase only:
+    tokens streamed once every request of the batch had its first one,
+    over that window."""
+    out = res[1:] if primed else res
     t_all = max(r["frames"][0][0] for r in out)
     t_end = max(r["frames"][-1][0] for r in out)
     n_dec = sum(n for r in out for t, n in r["frames"] if t > t_all)
@@ -956,8 +1025,97 @@ def served_stats(res: List[dict], wall: float) -> Dict[str, float]:
     )
 
 
-def check_streams(what: str, res: List[dict], vocab: int) -> None:
-    for i, r in enumerate(res[1:]):
+def reset_launches() -> None:
+    """Every kernel's launch count and the gathered decode composition's
+    call count to 0."""
+    from dynamo_tpu_torch.engine.graphs import launch_counts, set_launch_counts
+
+    set_launch_counts([0] * len(launch_counts()))
+
+
+def read_launches() -> Dict[str, int]:
+    from dynamo_tpu_torch.engine import attention as att
+    from dynamo_tpu_torch.ops import build
+
+    out = {k.name: k.launches for k in build.KERNELS}
+    out["gathered_decode"] = att.gathered_decode_calls
+    return out
+
+
+def expected_launches(engine) -> Dict[str, int]:
+    """The launches a served run must count, from its dispatches (graph
+    replays included): per layer, packed ragged (the pool's entry) once per
+    packed unified dispatch, rectangle ragged once per rectangle unified
+    dispatch, flash prefill once per full-prompt prefill group,
+    prefix-suffix prefill once per suffix prefill (chunks included), and
+    one decode step -- paged decode over a dense pool, the gathered
+    composition over an int8 pool -- per fused step past the first of
+    each packed dispatch and per step of each decode block."""
+    layers = engine.model_cfg.num_layers
+    d = engine.dispatches
+    unified = d.get("unified", 0)
+    steps = sum((k - 1) * n for k, n in engine.dispatches_by_k.items())
+    steps += engine.cfg.decode_block_size * d.get("decode_block", 0)
+    q = engine.kv.quantized
+    packed = engine.cfg.packed_ragged
+    return {
+        "packed_ragged_attention": layers * unified if packed and not q else 0,
+        "packed_ragged_attention_int8": layers * unified if packed and q else 0,
+        "ragged_paged_attention": layers * unified if not packed and not q else 0,
+        "ragged_paged_attention_int8": layers * unified if not packed and q else 0,
+        "flash_prefill_attention": layers * engine.prefill_dispatches["full"],
+        "flash_prefix_prefill_attention": layers * engine.prefill_dispatches["suffix"],
+        "paged_decode_attention": 0 if q else layers * steps,
+        "gathered_decode": layers * steps if q else 0,
+    }
+
+
+def check_launch_invariants(what: str, engine, launches: Dict[str, int]) -> None:
+    want = expected_launches(engine)
+    print(f"{what} launch invariants: counted {launches} expected {want}")
+    if launches != want:
+        fail(f"{what}: launches {launches} differ from the dispatches' {want}")
+
+
+def loop_line(engine, wall: float, since=None) -> str:
+    """The pipelined loop's numbers of a served run: loop mode, graph
+    captures (and the host ms they took, eager warm-ups included) and
+    replays, and the dispatch spans on CUDA events (device ms from each
+    dispatch's first launch to its last, gap ms from one dispatch's end to
+    the next one's start, their share of the wall; by kind, replays apart
+    as ``<kind>/graph``).  With ``since`` (``serve_cold_warm``'s marks),
+    what the warm batch alone added."""
+    spans = engine.dispatch_spans()
+    captures = engine.graph_captures
+    replays = engine.graph_replays
+    head = f"graph_capture_ms={engine.graphs.capture_ms:.3f} "
+    if since is not None:
+        before = since["spans"]
+        spans = {
+            k: {f: v[f] - before.get(k, {}).get(f, 0) for f in v}
+            for k, v in spans.items()
+        }
+        spans = {k: v for k, v in spans.items() if v["n"]}
+        captures -= since["captures"]
+        replays = {k: n - since["replays"].get(k, 0) for k, n in replays.items()}
+        head = ""
+    dev = sum(v["device_ms"] for v in spans.values())
+    gap = sum(v["gap_ms"] for v in spans.values())
+    by_kind = {
+        k: {"n": int(v["n"]), "device_ms": round(v["device_ms"], 3), "gap_ms": round(v["gap_ms"], 3)}
+        for k, v in spans.items()
+    }
+    return (
+        f"async_dispatch={engine.cfg.async_dispatch} graph_captures={captures} {head}"
+        f"graph_replays={replays} span_device_ms={dev:.3f} span_gap_ms={gap:.3f} "
+        f"span_share={dev / (wall * 1e3):.4f} gap_share={gap / (wall * 1e3):.4f} "
+        f"spans_by_kind={by_kind}"
+    )
+
+
+def check_streams(what: str, out: List[dict], vocab: int) -> None:
+    """Every request of a batch finished with its 64 tokens, in range."""
+    for i, r in enumerate(out):
         if len(r["tokens"]) != 64 or r["finish"] != "length":
             fail(f"{what} request {i}: {len(r['tokens'])} tokens, finish {r['finish']}")
         if not all(0 <= t < vocab for t in r["tokens"]):
@@ -990,27 +1148,35 @@ def serve_classic_phase(
         "A": (dict(mixed_batching=False), penalized_requests(batch),
               ("paged_decode_attention", "flash_prefill_attention",
                "flash_prefix_prefill_attention")),
+        # run A's serial-loop twin: its streams must equal run A's
+        "A-serial": (dict(mixed_batching=False, async_dispatch=False),
+                     penalized_requests(batch), ()),
         "B": (dict(packed_ragged=False), batch,
               ("paged_decode_attention", "ragged_paged_attention")),
     }
     launches: Dict[str, Dict[str, int]] = {}
     walls: Dict[str, float] = {}
+    streams: Dict[str, List[List[int]]] = {}
     for run, (kw, reqs, needed) in runs.items():
         torch.cuda.reset_peak_memory_stats()
         engine = TorchEngine(cfg, params, EngineConfig(num_pages=1024, **kw))
-        for k in kernels:
-            k.launches = 0
-        t0 = time.perf_counter()
-        res = asyncio.run(serve(engine, [primer, reqs]))
-        walls[run] = wall = time.perf_counter() - t0
-        launches[run] = {k.name: k.launches for k in kernels}
+        reset_launches()
+        res, wall, warm, wall_w, marks = serve_cold_warm(engine, primer, reqs)
+        walls[run] = wall_w
+        counted = read_launches()
+        launches[run] = {k.name: counted[k.name] for k in kernels}
         kinds = dict(engine.dispatches)
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        check_launch_invariants(f"serve-classic: run {run}", engine, counted)
+        loop, loop_w = loop_line(engine, wall + wall_w), loop_line(engine, wall_w, marks)
+        replays = engine.graph_replays
         del engine
         gc.collect()
         torch.cuda.empty_cache()
-        check_streams(f"serve-classic run {run}", res, cfg.vocab_size)
-        st = served_stats(res, wall)
+        check_streams(f"serve-classic run {run}", res[1:], cfg.vocab_size)
+        check_streams(f"serve-classic run {run} warm", warm, cfg.vocab_size)
+        streams[run] = [r["tokens"] for r in res + warm]
+        st, st_w = served_stats(res, wall), served_stats(warm, wall_w, primed=False)
         print(
             f"serve-classic: run {run} {kw} wall_s={wall:.3f} "
             f"dispatches_by_kind={kinds} tok_s={st['tok_s']:.3f} "
@@ -1020,10 +1186,21 @@ def serve_classic_phase(
             "serve-classic: run %s ttft_ms=%s"
             % (run, [round(r["ttft"] * 1e3, 3) for r in res[1:]])
         )
+        print(
+            f"serve-classic: run {run} warm wall_s={wall_w:.3f} tok_s={st_w['tok_s']:.3f} "
+            f"decode_phase_tok_s={st_w['dec']:.3f} ttft_ms="
+            f"{[round(r['ttft'] * 1e3, 3) for r in warm]} on {card}"
+        )
+        print(f"serve-classic: run {run} {loop}")
+        print(f"serve-classic: run {run} warm {loop_w}")
         print(f"serve-classic: run {run} launches {launches[run]}")
         for name in needed:
             if launches[run][name] <= 0:
                 fail(f"{name} never launched in serve-classic run {run}")
+        if run != "A-serial" and not sum(replays.values()):
+            fail(f"no CUDA graph replayed in serve-classic run {run}")
+    if streams["A-serial"] != streams["A"]:
+        fail("serve-classic: the serial loop's streams differ from run A's")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1060,21 +1237,23 @@ def serve_int8_phase(
         pool_bytes, pool_nbytes = engine.kv.pool_bytes, engine.kv.pages.nbytes
         if pool_bytes != pool_nbytes:
             fail(f"serve-int8 run {run}: pool_bytes {pool_bytes} != the tensors' {pool_nbytes}")
-        for k in kernels:
-            k.launches = 0
-        att.gathered_decode_calls = 0
-        t0 = time.perf_counter()
-        res = asyncio.run(serve(engine, [primer, reqs]))
-        walls[run] = wall = time.perf_counter() - t0
-        launches[run] = {k.name: k.launches for k in kernels}
+        reset_launches()
+        res, wall, warm, wall_w, marks = serve_cold_warm(engine, primer, reqs)
+        walls[run] = wall_w
+        counted = read_launches()
+        launches[run] = {k.name: counted[k.name] for k in kernels}
         gathered = att.gathered_decode_calls
         kinds, by_k = dict(engine.dispatches), dict(engine.dispatches_by_k)
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        check_launch_invariants(f"serve-int8: run {run}", engine, counted)
+        loop, loop_w = loop_line(engine, wall + wall_w), loop_line(engine, wall_w, marks)
+        replays = engine.graph_replays
         del engine
         gc.collect()
         torch.cuda.empty_cache()
-        check_streams(f"serve-int8 run {run}", res, cfg.vocab_size)
-        st = served_stats(res, wall)
+        check_streams(f"serve-int8 run {run}", res[1:], cfg.vocab_size)
+        check_streams(f"serve-int8 run {run} warm", warm, cfg.vocab_size)
+        st, st_w = served_stats(res, wall), served_stats(warm, wall_w, primed=False)
         print(
             f"serve-int8: run {run} {kw} wall_s={wall:.3f} dispatches_by_kind={kinds} "
             f"dispatches_by_k={by_k} tok_s={st['tok_s']:.3f} "
@@ -1085,7 +1264,16 @@ def serve_int8_phase(
             "serve-int8: run %s ttft_ms=%s"
             % (run, [round(r["ttft"] * 1e3, 3) for r in res[1:]])
         )
+        print(
+            f"serve-int8: run {run} warm wall_s={wall_w:.3f} tok_s={st_w['tok_s']:.3f} "
+            f"decode_phase_tok_s={st_w['dec']:.3f} ttft_ms="
+            f"{[round(r['ttft'] * 1e3, 3) for r in warm]} on {card}"
+        )
+        print(f"serve-int8: run {run} {loop}")
+        print(f"serve-int8: run {run} warm {loop_w}")
         print(f"serve-int8: run {run} launches {launches[run]}")
+        if run == "Q" and not sum(replays.values()):
+            fail("no CUDA graph replayed in serve-int8 run Q")
         for name in needed:
             if launches[run][name] <= 0:
                 fail(f"{name} never launched in serve-int8 run {run}")
@@ -1103,17 +1291,17 @@ def serve_int8_phase(
 
 
 def profile_phase(out_path: str, plain_walls: Dict[str, float]) -> None:
-    """``--profile OUT.txt``: each served cell once more under
-    ``torch.profiler`` -- the serve phase's run, serve-classic runs A and B
-    and serve-int8 run Q, the same configs and requests on one set of
-    random weights; prints
-    per cell the device's busy and idle share of the run's wall time and
-    its kernel time by kind and by name, and writes the full tables to
-    ``out_path``.  The profiler slows the host, so the idle share it shows
-    is an upper bound; ``idle_share_est`` sets the profiled busy time
-    against ``plain_walls[cell]``, the wall time of the cell's unprofiled
-    run in this call (an estimate that assumes the profiler leaves device
-    times as they are)."""
+    """``--profile OUT.txt``: each served cell once more -- the serve
+    phase's run, serve-classic runs A and B and serve-int8 run Q, the same
+    configs and requests on one set of random weights -- with its warm
+    batch under ``torch.profiler``; prints per cell the device's busy and
+    idle share of the warm batch's wall time and its kernel time by kind
+    and by name, and writes the full tables to ``out_path``.  The profiler
+    slows the host, so the idle share it shows is an upper bound;
+    ``idle_share_est`` sets the profiled busy time against
+    ``plain_walls[cell]``, the wall time of the cell's unprofiled warm
+    batch in this call (an estimate that assumes the profiler leaves
+    device times as they are)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1141,12 +1329,16 @@ def profile_phase(out_path: str, plain_walls: Dict[str, float]) -> None:
     tables = []
     for cell, (kw, reqs) in cells.items():
         engine = TorchEngine(cfg, params, EngineConfig(num_pages=1024, **kw))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            asyncio.run(serve(engine, [primer, reqs]))
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+        def start() -> None:
             torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+            prof.start()
+
+        *_, wall_w, _ = serve_cold_warm(engine, primer, reqs, hook=start)
+        torch.cuda.synchronize()
+        prof.stop()
+        wall_ms = wall_w * 1e3
         del engine
         kernels = sorted(
             (
@@ -1261,7 +1453,8 @@ def main() -> None:
     quant, quant_walls = serve_int8_phase(kernels, card)
     if profile_out is not None:
         profile_phase(
-            profile_out, {"serve": served["wall"], **classic_walls, "Q": quant_walls["Q"]}
+            profile_out,
+            {"serve": served["wall_warm"], **classic_walls, "Q": quant_walls["Q"]},
         )
     # each kernel's launches from the phase that runs it
     launches = {

@@ -117,3 +117,9 @@ class EngineConfig:
     # the quantized one (per-row f32 scales; about half the pool's bytes
     # under a bf16 model); another dtype is refused at engine construction
     kv_dtype: Optional[str] = None
+    # host tick pipelining: the tick loop keeps up to two dispatch
+    # generations uncommitted -- the next tick plans and enqueues while the
+    # previous one runs on the device, and a generation commits once its
+    # results have landed (or the pipeline is full).  Token streams equal
+    # the serial loop's; False is that serial loop (one generation deep)
+    async_dispatch: bool = True

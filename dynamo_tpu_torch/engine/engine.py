@@ -2,9 +2,10 @@
 
 ``generate(Context[PreprocessedRequest]) -> AsyncIterator[Annotated[
 LLMEngineOutput-dict]]`` -- the serving interface of the JAX package's
-``JaxEngine``, driven by the same scheduler rules and the same dispatches.
-Every tick plans admissions and grows page tables (preempting by recompute
-when the pool runs dry), then takes one of two shapes:
+``JaxEngine``, driven by the same scheduler rules, the same dispatches and
+the same pipelined tick loop.  Every tick plans admissions and grows page
+tables (preempting by recompute when the pool runs dry), then takes one of
+two shapes:
 
 * **mixed** (the default): prefill chunks and decode rows share ONE unified
   step, on one flat packed token axis or, with ``packed_ragged=False``,
@@ -17,35 +18,52 @@ when the pool runs dry), then takes one of two shapes:
   lane, new prompts prefill in groups of one (suffix bucket, prefix-page
   bucket) with the batch padded to a power of two, each sampling its first
   token, then one decode block of ``decode_block_size`` steps runs, with
-  the penalty histograms rebuilt from the host mirrors.  Mixed prefills
-  still pending when a penalized lane arrives drain to the classic chunk
-  path (mixed chunk ends are page-aligned for exactly this).
+  device-carried penalty histograms.  Mixed prefills still pending when a
+  penalized lane arrives drain to the classic chunk path (mixed chunk ends
+  are page-aligned for exactly this).
 
-The host commits every dispatch's sampled tokens right away, replaying the
-stop rules (``Scheduler.commit_block`` / ``commit_prefill_token``), and
-streams them.  The tick loop is serial: each dispatch commits before the
-next is planned, so the device-side decode state (and a penalty histogram)
-is rebuilt from the scheduler's mirrors at every dispatch and nothing is
-carried between dispatches but the KV pool.  Device work runs on one
-executor thread; the event loop keeps serving I/O meanwhile.
+The loop is the JAX engine's pipelined one.  The decode state (last token,
+cache length, limit, active flag, stop tokens, page table, sampling
+settings and penalty histograms) lives on the device in persistent tensors
+with one spare row for pad scatters; it is rebuilt only when none exists,
+and otherwise brought current with row scatters for dirty lanes and a
+page-table and limit swap on growth.  A prefill's first token goes into it
+on the device before the host has seen it (a pending inject, re-applied
+over any later row scatter of its lane).  Each dispatch enqueues its work
+and a non-blocking copy of its sampled rows into a pinned host buffer of
+its own, then records a CUDA event; the host commits a dispatch
+generation (replaying the stop rules, ``Scheduler.commit_block`` /
+``commit_prefill_token``) once its event has completed or when the
+pipeline is full: two generations deep with ``async_dispatch`` (the
+default), one without.  Streams then go out through a bounded fanout
+worker.  Token streams are the same in both modes.  On the card the
+decode-only dispatches replay CUDA graphs (``graphs.py``), and each
+dispatch's device span and the gap before it are timed on CUDA events
+(``dispatch_spans``).  Device work runs on one executor thread; the event
+loop keeps serving I/O meanwhile.
 
 Not served yet (later slices): multimodal prompts and prompt logprobs
 (such a request gets an error frame), speculative decoding (its request
 fields are ignored: output is the contract, speculation an optimization),
-async double-buffering, offload/swap, disaggregation and tensor/data
-parallelism.  The KV pool is dense in the model's dtype or, with
-``EngineConfig(kv_dtype="int8")``, int8 with per-row scales; a dense pool
-of another dtype is refused at construction, and so is, on the card, a
-head geometry its kernels do not take (the CPU serves any).
+offload/swap and external-KV deliveries, disaggregation, tensor/data
+parallelism, the tick profiler and engine metrics, the
+``DYN_ASYNC_DISPATCH`` and ``DYN_PACKED_SHAPE_BUDGET`` overrides, and CUDA
+graphs for dispatches that carry prefill chunks.  The KV pool is dense in
+the model's dtype or, with ``EngineConfig(kv_dtype="int8")``, int8 with
+per-row scales; a dense pool of another dtype is refused at construction,
+and so is, on the card, a head geometry its kernels do not take (the CPU
+serves any).
 """
 
 from __future__ import annotations
 
 import asyncio
+import collections
 import concurrent.futures
 import itertools
 import logging
-from typing import Any, AsyncIterator, Dict, List, Optional, Sequence, Tuple, Union
+from dataclasses import dataclass, field
+from typing import Any, AsyncIterator, Deque, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -60,23 +78,31 @@ from ..protocols.common import (
 )
 from ..runtime.engine import Annotated, Context, ResponseStream
 from .bucketing import (
-    packed_axis_len,
+    PackedShapeBudget,
     pick_bucket,
     pick_page_bucket,
     pow2_bucket,
     prefill_buckets,
 )
 from .config import EngineConfig, ModelConfig
+from .graphs import StepCall, StepGraphs
 from .kv_cache import PagedKVCache, pool_is_quantized, torch_dtype
 from .model import Params, init_params
 from .sampling import PROMPT_FLAG, SamplingParams, unpack_sampled_logprobs
 from .scheduler import MixedChunk, Scheduler, SchedulerConfig, SeqState, StepEvent
 from .step import (
-    decode_block,
-    packed_unified_multistep,
+    LANE_ROWS,
+    bump_counts,
+    decode_step,
+    inject_token,
+    inject_tokens,
+    packed_unified_step,
     prefill_and_sample,
     prefill_suffix_and_sample,
+    seed_count_rows,
     unified_step,
+    update_lanes,
+    zero_count_rows,
 )
 
 logger = logging.getLogger("dynamo.torch_engine")
@@ -86,6 +112,11 @@ logger = logging.getLogger("dynamo.torch_engine")
 GROW_CHUNK_PAGES = 4
 # width of the device-checked stop-token set per lane
 DEVICE_STOP_WIDTH = 8
+# bound of the stream fanout queue (async mode): a slow consumer
+# backpressures the tick loop here
+FANOUT_DEPTH = 64
+# budget of the packed step's (Np, s_max) shapes, the JAX engine's default
+PACKED_SHAPE_BUDGET = 16
 
 
 def check_model_geometry(model_cfg: ModelConfig, device: torch.device) -> None:
@@ -105,6 +136,85 @@ def _unsupported(req: PreprocessedRequest) -> Optional[str]:
     if req.prompt_logprobs is not None:
         return "the PyTorch engine does not serve prompt logprobs yet"
     return None
+
+
+# -- dispatched-but-uncommitted work ----------------------------------------
+
+
+@dataclass
+class Result:
+    """A dispatch's sampled rows on their way to the host: the pinned host
+    buffer its non-blocking copy lands in and the event recorded after that
+    copy (on the card), or the computed CPU tensor itself (no event)."""
+
+    host: torch.Tensor
+    event: Optional["torch.cuda.Event"] = None
+
+    def numpy(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+def _handles_ready(res: Result) -> bool:
+    """Non-blocking readiness probe of a dispatched result: True once its
+    host copy has landed, so the commit reads it without waiting.  THE
+    readiness primitive of the pipelined loop; a CPU result is ready once
+    it is computed."""
+    return res.event is None or res.event.query()
+
+
+@dataclass
+class InflightPrefill:
+    """A lane's dispatched-but-uncommitted first token: it lives on the
+    device (already injected into the decode state, ``tok`` a device view
+    for the re-apply path); the host commits it with its generation.
+    ``sampled`` is set when the prefill is a generation entry of its own;
+    inside a group or a unified dispatch the parent's rows carry it."""
+
+    tok: torch.Tensor  # [1] device view of the sampled token
+    seq: SeqState
+    slot: int
+    life: int
+    sampled: Optional[Result] = None
+
+
+@dataclass
+class InflightPrefillGroup:
+    """A batched prefill dispatch awaiting commit: the whole group's
+    packed first-token rows ``[Bp, 2 + 2N]`` in one result."""
+
+    sampled: Result
+    entries: List[InflightPrefill]
+
+
+@dataclass
+class InflightBlock:
+    """A dispatched-but-uncommitted decode block: packed ``[B, K, 2 + 2N]``
+    rows and the slot mapping (and slot lives) at dispatch."""
+
+    sampled: Result
+    slots: List[Optional[SeqState]]
+    lives: List[int]
+
+
+@dataclass
+class InflightUnified:
+    """A dispatched-but-uncommitted unified step: packed ``[B, K, 2 + 2N]``
+    rows of its decode lanes and final prefill chunks (K fused decode
+    steps; 1 with chunks or on the rectangle), the slot mapping at
+    dispatch, and an :class:`InflightPrefill` per lane whose prompt
+    completed (its first token already folded into the device state by
+    the step; the record backs the pending-inject re-apply path)."""
+
+    sampled: Result
+    slots: List[Optional[SeqState]]
+    lives: List[int]
+    finals: List[InflightPrefill] = field(default_factory=list)
+    n_steps: int = 1
+
+
+Inflight = Union[InflightPrefill, InflightPrefillGroup, InflightBlock, InflightUnified]
 
 
 class TorchEngine:
@@ -150,6 +260,12 @@ class TorchEngine:
         self._mixed_budget = max(int(c.mixed_token_budget), 1)
         self._ms_max = max(int(c.multistep_max_k), 1)
         self._ms_ramp = 1
+        # whether the previous tick's dispatches sampled a first token
+        self._firsts_last_tick = False
+        # dispatch generations the loop may carry uncommitted
+        self._pipe_depth = 2 if c.async_dispatch else 1
+        self._packed_shapes = PackedShapeBudget(PACKED_SHAPE_BUDGET)
+        self.graphs = StepGraphs(self.device)
         # lanes whose classic chunked prefill is under way (one chunk per tick)
         self._chunking: List[SeqState] = []
         # unseeded lanes key their noise on a per-request nonce
@@ -160,10 +276,13 @@ class TorchEngine:
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._wake: Optional[asyncio.Event] = None
         self._task: Optional[asyncio.Task] = None
+        self._fanout_q: Optional[asyncio.Queue] = None
+        self._fanout_task: Optional[asyncio.Task] = None
         self._ex = concurrent.futures.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="torch-engine"
         )
         self._running = False
+        self._stopped = False
         self._prefix_hits = 0
         self._prefix_lookups = 0
         self._tokens_generated = 0
@@ -171,6 +290,17 @@ class TorchEngine:
         # unified dispatches by fused decode steps K
         self.dispatches: Dict[str, int] = {}
         self.dispatches_by_k: Dict[int, int] = {}
+        # classic prefill dispatches by route: full prompts (flash prefill)
+        # and suffixes over a resident prefix, chunks included
+        # (prefix-suffix flash prefill)
+        self.prefill_dispatches: Dict[str, int] = {"full": 0, "suffix": 0}
+        self._init_device_state()
+        # dispatch spans on CUDA events (card only): (kind, start, end)
+        # awaiting their end event, None marking an idle loop (no gap is
+        # counted across it); per kind: spans, device ms, gap ms before them
+        self._spans: Deque[Optional[Tuple[str, Any, Any]]] = collections.deque()
+        self._last_end: Optional[Any] = None
+        self.span_stats: Dict[str, Dict[str, float]] = {}
 
     @classmethod
     def random_init(
@@ -194,6 +324,11 @@ class TorchEngine:
         self._running = True
         self._loop = asyncio.get_running_loop()
         self._wake = asyncio.Event()
+        if self._pipe_depth > 1:
+            self._fanout_q = asyncio.Queue(maxsize=FANOUT_DEPTH)
+            self._fanout_task = asyncio.create_task(
+                self._fanout_worker(), name="torch-engine-fanout"
+            )
         self._task = asyncio.create_task(self._run(), name="torch-engine-loop")
 
     async def stop(self) -> None:
@@ -207,7 +342,25 @@ class TorchEngine:
             except asyncio.CancelledError:
                 pass
             self._task = None
-        self._ex.shutdown(wait=True)
+        # drain the fanout lane after the tick loop stops producing: every
+        # committed event batch reaches its stream, then the worker exits
+        if self._fanout_task is not None:
+            assert self._fanout_q is not None
+            await self._fanout_q.put(None)
+            try:
+                await asyncio.wait_for(self._fanout_task, timeout=5.0)
+            except (asyncio.TimeoutError, asyncio.CancelledError):
+                self._fanout_task.cancel()
+            while not self._fanout_q.empty():
+                item = self._fanout_q.get_nowait()
+                if item is not None:
+                    self._deliver(item)
+            self._fanout_task = None
+            self._fanout_q = None
+        if not self._stopped:
+            self._stopped = True
+            self._ex.submit(self._drain_spans, True).result()
+            self._ex.shutdown(wait=True)
 
     # -- AsyncEngine --------------------------------------------------------
 
@@ -286,43 +439,137 @@ class TorchEngine:
     def tokens_generated(self) -> int:
         return self._tokens_generated
 
+    @property
+    def graph_captures(self) -> int:
+        """CUDA graphs captured (the JAX compile sentry's count)."""
+        return self.graphs.captures
+
+    @property
+    def graph_replays(self) -> Dict[str, int]:
+        """CUDA graph replays by dispatch kind."""
+        return dict(self.graphs.replays)
+
+    def dispatch_spans(self) -> Dict[str, Dict[str, float]]:
+        """Per dispatch kind, from CUDA events (card only): ``n`` spans
+        read, ``device_ms`` from each dispatch's first launch to its last,
+        and ``gap_ms`` from the previous dispatch's end to its start (idle
+        loops excluded).  A kind ending in ``/graph`` holds the dispatches
+        that replayed a CUDA graph: their spans are device time alone,
+        while an eager dispatch's span also holds the device's waits for
+        the host's launches.  Spans whose end has not completed are not
+        read yet; ``stop()`` reads them all."""
+        return {k: dict(v) for k, v in self.span_stats.items()}
+
     # -- the tick loop ------------------------------------------------------
 
+    async def _on_executor(self, fn, *args):
+        return await asyncio.get_running_loop().run_in_executor(
+            self._ex, self._inference, fn, *args
+        )
+
+    @staticmethod
+    def _inference(fn, *args):
+        with torch.inference_mode():
+            return fn(*args)
+
+    def _entries_ready(self, entries: List[Inflight]) -> bool:
+        """Non-blocking probe: have this generation's results landed?"""
+        for e in entries:
+            if isinstance(e, InflightPrefill) and e.sampled is None:
+                continue
+            if not _handles_ready(e.sampled):
+                return False
+        return True
+
+    async def _emit_events(self, events: List[StepEvent]) -> None:
+        """Hand a commit's events to the streams: the bounded fanout queue
+        in async mode (a full queue backpressures the tick), directly in
+        serial mode."""
+        if not events:
+            return
+        if self._fanout_q is not None:
+            await self._fanout_q.put(events)
+        else:
+            self._deliver(events)
+
+    async def _fanout_worker(self) -> None:
+        """Async-mode stream fanout: one FIFO consumer does the per-request
+        queue puts off the tick coroutine.  Exits on the ``None`` sentinel
+        ``stop()`` enqueues after the tick loop halts; everything enqueued
+        before it still delivers."""
+        assert self._fanout_q is not None
+        while True:
+            item = await self._fanout_q.get()
+            if item is None:
+                return
+            try:
+                self._deliver(item)
+            except Exception:  # fanout must never kill the worker
+                logger.exception("stream fanout failed")
+
+    async def _commit_ready(self, inflight: Deque[List[Inflight]], allowed: int) -> None:
+        """Commit the oldest generations while the pipeline holds more than
+        ``allowed`` or (async mode) the oldest has landed."""
+        while inflight and (
+            len(inflight) > allowed
+            or (self._pipe_depth > 1 and self._entries_ready(inflight[0]))
+        ):
+            events = await self._on_executor(self._commit_all, inflight.popleft())
+            await self._emit_events(events)
+
     async def _run(self) -> None:
-        loop = asyncio.get_running_loop()
+        """The tick loop, pipelined over the device queue (the JAX engine's
+        ``_run``).  Up to ``_pipe_depth`` dispatch generations stay
+        uncommitted: ready generations commit before the plan, a tick's
+        dispatches enqueue while the previous generation may still run,
+        and the oldest commits when the pipeline is past its depth (the
+        one blocking point), when it has landed, or when nothing new was
+        dispatched.  The plan reads a view up to one generation behind the
+        device; the commit's slot snapshots and lives and the stop-rule
+        replay reconcile it, and batch-membership changes reach the device
+        as row scatters ordered after the work already queued."""
         sched = self.sched
-
-        async def dispatch(fn, *args) -> bool:
-            """Run one dispatch-and-commit on the executor thread and stream
-            its events; False when it found nothing to dispatch."""
-            events = await loop.run_in_executor(self._ex, fn, *args)
-            if events:
-                self._emit(events)
-            return events is not None
-
+        inflight: Deque[List[Inflight]] = collections.deque()
         while self._running:
             try:
                 self._process_cancellations()
                 if (
                     not sched.has_runnable_work
-                    and not sched.mix_pending
+                    and not inflight
                     and not self._chunking
+                    and not sched.mix_pending
                 ):
+                    if self.device.type == "cuda":
+                        self._spans.append(None)  # idle: no gap across the wait
                     self._wake.clear()
                     await self._wake.wait()
                     continue
+                # async mode: generations whose results already landed
+                # commit before the plan (none is over the depth here), so
+                # freed slots and pages and committed stops reach this
+                # tick's plan
+                await self._commit_ready(inflight, self._pipe_depth)
+                sched.decode_inflight_tokens = (
+                    self._pipe_depth * min(self._ms_ramp, self._ms_max)
+                    if self._multistep
+                    else 0
+                )
                 plan = sched.plan()
                 if sched.num_active > 0:
-                    # room for this tick's writes: a fused multistep block
-                    # or a classic decode block per lane
+                    # every uncommitted generation may hold a full block's
+                    # writes per lane, plus this tick's block
+                    ms_block = self._ms_max if self._multistep else 1
                     sched.ensure_decode_capacity(
-                        lookahead=self._lookahead(),
+                        lookahead=(self._pipe_depth + 1)
+                        * max(self.cfg.decode_block_size, ms_block)
+                        + 1,
                         chunk_pages=GROW_CHUNK_PAGES,
                     )
+                self._revive_paused_lanes()
+                fresh: List[Inflight] = []
                 mixed_ok = self._mixed_tick_ok()
                 if not mixed_ok and sched.mix_pending:
                     self._drain_mixed_to_classic()
-                dispatched = False
                 # classic chunked prefills advance one chunk per lane, so
                 # decode blocks interleave instead of stalling behind one
                 # long prompt
@@ -330,10 +577,23 @@ class TorchEngine:
                 for seq in self._chunking:
                     if not self._holds_slot(seq) or not seq.prefilling:
                         continue  # cancelled / preempted mid-prefill
-                    dispatched |= await dispatch(self._dispatch_chunk, seq)
-                    if self._holds_slot(seq) and seq.prefilling:
+                    pf = await self._on_executor(self._dispatch_chunk, seq)
+                    if pf is not None:
+                        fresh.append(pf)  # final chunk sampled
+                    else:
                         still.append(seq)
                 self._chunking = still
+                # park every chunk-bound lane before any dispatch: the
+                # first device-state sync of an admission burst may be a
+                # full rebuild, and a lane not yet marked prefilling would
+                # be rebuilt active over a half-written cache
+                for seq, prompt_len in plan.prefills:
+                    if (
+                        self._chunk_tokens is not None
+                        and prompt_len - seq.cached_prompt_tokens > self._chunk_tokens
+                    ):
+                        seq.prefilling = True
+                        seq.prefilled_tokens = seq.cached_prompt_tokens
                 # new admissions: the mixed plane packs them; the classic
                 # path batches full prompts by (suffix bucket, prefix-page
                 # bucket) and starts long ones chunk by chunk
@@ -349,10 +609,10 @@ class TorchEngine:
                         self._chunk_tokens is not None
                         and prompt_len - cached > self._chunk_tokens
                     ):
-                        seq.prefilling = True
-                        seq.prefilled_tokens = cached
-                        dispatched |= await dispatch(self._dispatch_chunk, seq)
-                        if self._holds_slot(seq) and seq.prefilling:
+                        pf = await self._on_executor(self._do_prefill, seq)
+                        if pf is not None:
+                            fresh.append(pf)
+                        elif seq.prefilling:
                             self._chunking.append(seq)
                         continue
                     key = (
@@ -365,25 +625,41 @@ class TorchEngine:
                     )
                     groups.setdefault(key, []).append((seq, prompt_len))
                 for items in groups.values():
-                    dispatched |= await dispatch(self._do_prefill_group, items)
+                    fresh.extend(await self._on_executor(self._do_prefill_group, items))
                 chunks = (
                     sched.form_mixed_chunks(self._mixed_budget, self._chunk_tokens)
                     if mixed_ok
                     else []
                 )
-                k = self._multistep_plan_k(chunks) if self._multistep and mixed_ok else 0
-                unified = False
+                k = (
+                    self._multistep_plan_k(chunks, self._mints_first(fresh))
+                    if self._multistep and mixed_ok
+                    else 0
+                )
+                pending = [e for gen in inflight for e in gen]
+                ub = None
                 if chunks:
-                    unified = await dispatch(self._dispatch_unified, chunks, 1)
-                elif k > 0 and sched.num_decode_runnable > 0 and self._has_steppable_lane():
-                    unified = await dispatch(self._dispatch_unified, [], k)
-                if (
-                    not unified
+                    ub = await self._on_executor(self._dispatch_unified, chunks, 1)
+                elif (
+                    k > 0
                     and sched.num_decode_runnable > 0
-                    and self._has_steppable_lane()
+                    and self._has_steppable_lane(pending)
                 ):
-                    dispatched |= await dispatch(self._dispatch_block)
-                if not (dispatched or unified):
+                    ub = await self._on_executor(self._dispatch_unified, [], k)
+                if ub is not None:
+                    fresh.append(ub)
+                elif sched.num_decode_runnable > 0 and self._has_steppable_lane(pending):
+                    blk = await self._on_executor(self._dispatch_block)
+                    if blk is not None:
+                        fresh.append(blk)
+                self._firsts_last_tick = self._mints_first(fresh)
+                if fresh:
+                    inflight.append(fresh)
+                # the oldest generation commits when the pipeline is past
+                # its depth, when it has landed (async mode), or -- nothing
+                # dispatched -- to drain toward idle
+                await self._commit_ready(inflight, self._pipe_depth if fresh else 0)
+                if not fresh and not inflight:
                     self._handle_stalled_admission()
                     await asyncio.sleep(0.001)
                 await asyncio.sleep(0)
@@ -391,9 +667,14 @@ class TorchEngine:
                 raise
             except Exception as e:  # the engine must never die silently
                 logger.exception("engine tick failed")
-                sched.mix_pending = []
+                inflight.clear()
+                self._pending_injects.clear()
                 self._chunking = []
+                sched.mix_pending = []
                 self._fail_all(f"engine error: {e}")
+                self._firsts_last_tick = False
+                self._dev_valid = False  # full rebuild once work resumes
+                sched.dirty_slots.clear()
                 await asyncio.sleep(0.01)
 
     def _holds_slot(self, seq: SeqState) -> bool:
@@ -403,26 +684,34 @@ class TorchEngine:
             and self.sched.slots[seq.slot] is seq
         )
 
-    def _lookahead(self) -> int:
-        """Positions each lane's pages must absorb this tick: K + 1 for a
-        fused multistep block, ``decode_block_size + 1`` when a classic
-        decode block may run (writes past a lane's pages would land on the
-        trash page and stall it)."""
-        if self._multistep and self._mixed_tick_ok():
-            return self._ms_max + 1
-        ms = self._ms_max if self._multistep else 1
-        return max(self.cfg.decode_block_size, ms) + 1
+    @staticmethod
+    def _mints_first(entries: List[Inflight]) -> bool:
+        """Whether any of these dispatches sampled a lane's first token."""
+        return any(
+            isinstance(e, (InflightPrefill, InflightPrefillGroup))
+            or (isinstance(e, InflightUnified) and e.finals)
+            for e in entries
+        )
 
-    def _multistep_plan_k(self, chunks: List[MixedChunk]) -> int:
+    def _multistep_plan_k(self, chunks: List[MixedChunk], firsts: bool = False) -> int:
         """Decode steps to fuse into this tick's dispatch: pressure (prefill
-        chunks, queued, chunking or mid-prefill requests) collapses K to 1,
-        each pressure-free tick doubles it toward ``multistep_max_k``."""
+        chunks, queued, chunking or mid-prefill requests, first tokens
+        sampled by this tick's or the previous tick's dispatches)
+        collapses K to 1, each pressure-free tick doubles it toward
+        ``multistep_max_k``.  The first-token rule is the JAX engine's
+        pending-inject pressure as its serial loop sees it (a first token
+        stays pending until the generation after its own has been
+        dispatched), read from the dispatches and not from the commits:
+        so the pipelined loop fuses the same steps as the serial one,
+        whenever its generations land."""
         sched = self.sched
         pressure = (
             bool(chunks)
             or bool(sched.waiting)
             or bool(sched.mix_pending)
             or bool(self._chunking)
+            or firsts
+            or self._firsts_last_tick
             or any(s is not None and s.prefilling for s in sched.slots)
         )
         if pressure:
@@ -431,6 +720,44 @@ class TorchEngine:
         k = min(self._ms_ramp, self._ms_max)
         self._ms_ramp = min(self._ms_ramp * 2, self._ms_max)
         return k
+
+    def _has_steppable_lane(self, pending: List[Inflight]) -> bool:
+        """Whether any decode lane can still absorb a token once the
+        in-flight work lands: skips dispatches that could only launch dead
+        rows (e.g. after every lane's budget went in flight)."""
+        inflight = 0
+        for e in pending:
+            if isinstance(e, InflightBlock):
+                inflight += self.cfg.decode_block_size
+            elif isinstance(e, InflightUnified):
+                inflight += e.n_steps
+        sched = self.sched
+        limits = self._compute_limits()
+        return any(
+            s is not None
+            and s.finish is None
+            and not s.prefilling
+            and int(limits[b]) > int(sched.seq_lens[b]) + inflight
+            for b, s in enumerate(sched.slots)
+        )
+
+    def _revive_paused_lanes(self) -> None:
+        """A lane that hit its device-side limit deactivated itself; once
+        growth raised what its limit would be, mark it dirty so the next
+        dispatch's row scatter folds the raised limit and ``active`` back
+        in (growth-only refreshes never touch ``active``)."""
+        if not self._dev_valid:
+            return
+        sched = self.sched
+        limits = self._compute_limits()
+        for b, seq in enumerate(sched.slots):
+            if seq is None or seq.finish is not None:
+                continue
+            if (
+                int(sched.seq_lens[b]) >= int(self._limit_host[b])
+                and limits[b] > self._limit_host[b]
+            ):
+                sched.dirty_slots.add(b)
 
     # -- penalties: the classic tick takes over -----------------------------
 
@@ -481,10 +808,9 @@ class TorchEngine:
         return out + ptoks, [1] * len(out) + [PROMPT_FLAG] * len(ptoks)
 
     def _counts_host(self) -> np.ndarray:
-        """Penalty histograms [B, V] rebuilt from the scheduler's mirrors
-        (penalized lanes only; other rows stay zero and are never read).
-        The serial loop commits every token before the next dispatch, so
-        the rebuild is exact."""
+        """Penalty histograms [B, V] rebuilt from the committed history
+        (penalized lanes only; other rows stay zero and are never read):
+        the device histogram's starting point when penalties arm."""
         counts = np.zeros(
             (self.cfg.max_batch_size, self.model_cfg.vocab_size), np.int32
         )
@@ -496,11 +822,135 @@ class TorchEngine:
                 np.add.at(counts[b], np.asarray(toks, np.int64), np.asarray(amounts))
         return counts
 
-    # -- dispatch helpers ---------------------------------------------------
+    # -- host arrays on the device ------------------------------------------
+
+    def _stage(self, a: np.ndarray) -> torch.Tensor:
+        """A host array as a tensor this call owns: on the card in pinned
+        memory, the source of a non-blocking copy (the copy reads it when
+        the stream gets there, so it must never be a scheduler mirror the
+        host mutates later); on the CPU a plain copy."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return t.pin_memory() if self.device.type == "cuda" else t.clone()
+
+    def _put(self, a: np.ndarray) -> torch.Tensor:
+        t = self._stage(a)
+        if self.device.type == "cuda":
+            return t.to(self.device, non_blocking=True)
+        return t
+
+    def _upload(self, dst: torch.Tensor, a: np.ndarray) -> None:
+        dst.copy_(self._stage(a), non_blocking=True)
+
+    def _span_start(self) -> Optional[Any]:
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def _span_end(self, kind: str, start: Optional[Any]) -> Optional[Any]:
+        if start is None:
+            return None
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        self._spans.append((kind, start, end))
+        return end
+
+    def _download(self, out: torch.Tensor, kind: str, start: Optional[Any]) -> Result:
+        """Enqueue the non-blocking copy of a dispatch's sampled rows into a
+        pinned host buffer of its own and close the dispatch's span (its
+        end event marks the copy landed)."""
+        if self.device.type != "cuda":
+            return Result(out)
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        return Result(host, self._span_end(kind, start))
+
+    def _graph_marks(self) -> Tuple[int, int]:
+        return self.graphs.captures, sum(self.graphs.replays.values())
+
+    def _span_kind(self, kind: str, marks: Tuple[int, int]) -> str:
+        """``kind``, or ``kind/graph`` when the dispatch ran as graph
+        replays alone (no capture; a dispatch with chunks replays none)."""
+        captures, replays = self._graph_marks()
+        if captures == marks[0] and replays > marks[1]:
+            return f"{kind}/graph"
+        return kind
+
+    def _drain_spans(self, wait: bool = False) -> None:
+        """Read the spans whose end event has completed (all of them after
+        a synchronize when ``wait``), in dispatch order."""
+        if wait and self.device.type == "cuda" and self._spans:
+            torch.cuda.synchronize(self.device)
+        while self._spans:
+            span = self._spans[0]
+            if span is None:
+                self._spans.popleft()
+                self._last_end = None
+                continue
+            kind, start, end = span
+            if not end.query():
+                return
+            self._spans.popleft()
+            st = self.span_stats.setdefault(
+                kind, {"n": 0, "device_ms": 0.0, "gap_ms": 0.0}
+            )
+            st["n"] += 1
+            st["device_ms"] += start.elapsed_time(end)
+            if self._last_end is not None:
+                st["gap_ms"] += self._last_end.elapsed_time(start)
+            self._last_end = end
+
+    # -- device-resident decode state ---------------------------------------
+
+    def _init_device_state(self) -> None:
+        """The persistent decode-state tensors, one spare row (index B) for
+        pad scatters; the steps take their ``[:B]`` views.  Their
+        addresses never change, so captured graphs read them in place."""
+        B = self.cfg.max_batch_size
+        dev = self.device
+        i64, f32 = torch.int64, torch.float32
+        st = {
+            "tokens": torch.zeros((B + 1,), dtype=i64, device=dev),
+            "seq_lens": torch.zeros((B + 1,), dtype=i64, device=dev),
+            "limit_lens": torch.zeros((B + 1,), dtype=i64, device=dev),
+            "active": torch.zeros((B + 1,), dtype=torch.bool, device=dev),
+            "stop_ids": torch.full((B + 1, DEVICE_STOP_WIDTH), -1, dtype=i64, device=dev),
+            "page_table": torch.zeros(
+                (B + 1, self.sched.max_pages), dtype=torch.int32, device=dev
+            ),
+            "temperature": torch.zeros((B + 1,), dtype=f32, device=dev),
+            "top_p": torch.ones((B + 1,), dtype=f32, device=dev),
+            "top_k": torch.zeros((B + 1,), dtype=i64, device=dev),
+            "key": torch.zeros((B + 1,), dtype=i64, device=dev),
+            "seeded": torch.zeros((B + 1,), dtype=torch.bool, device=dev),
+            "freq": torch.zeros((B + 1,), dtype=f32, device=dev),
+            "pres": torch.zeros((B + 1,), dtype=f32, device=dev),
+            "rep": torch.ones((B + 1,), dtype=f32, device=dev),
+        }
+        self._st = st
+        self._v = {k: t[:B] for k, t in st.items()}
+        v = self._v
+        self._samp = SamplingParams(
+            temperature=v["temperature"], top_p=v["top_p"], top_k=v["top_k"],
+            key=v["key"], seeded=v["seeded"], freq=v["freq"], pres=v["pres"],
+            rep=v["rep"],
+        )
+        # penalty histograms [B + 1, V]; maintained only while ``_counts_live``
+        self._counts = torch.zeros(
+            (B + 1, self.model_cfg.vocab_size), dtype=torch.int32, device=dev
+        )
+        self._counts_live = False
+        self._dev_valid = False
+        self._dev_growth = -1
+        self._limit_host = np.zeros((B,), np.int64)
+        # slot -> the lane's first token still only on the device
+        self._pending_injects: Dict[int, InflightPrefill] = {}
 
     def _compute_limits(self) -> np.ndarray:
         """Per-lane cache-length caps: the token budget, ``max_seq_len - 1``
-        and the lane's allocated pages."""
+        and the lane's allocated pages.  ``seq_lens + remaining_budget`` is
+        invariant under commits, so this holds while work is in flight."""
         sched = self.sched
         limit = np.zeros((self.cfg.max_batch_size,), np.int64)
         for b, seq in enumerate(sched.slots):
@@ -513,36 +963,10 @@ class TorchEngine:
             )
         return limit
 
-    def _has_steppable_lane(self) -> bool:
-        sched = self.sched
-        limits = self._compute_limits()
-        return any(
-            s is not None
-            and s.finish is None
-            and not s.prefilling
-            and int(limits[b]) > int(sched.seq_lens[b])
-            for b, s in enumerate(sched.slots)
-        )
-
-    def _decode_state(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """(limits, active, stop_ids) of the decode lanes from the host
-        mirrors: a lane decodes when slotted, fully prefilled, unfinished
-        and with write headroom."""
-        sched = self.sched
-        B = self.cfg.max_batch_size
-        limits = self._compute_limits()
-        active = np.zeros((B,), bool)
-        stop_ids = np.full((B, DEVICE_STOP_WIDTH), -1, np.int64)
-        for b, s in enumerate(sched.slots):
-            if s is None:
-                continue
-            active[b] = (
-                not s.prefilling
-                and s.finish is None
-                and int(limits[b]) > int(sched.seq_lens[b])
-            )
-            stop_ids[b] = self._lane_stop_row(s)
-        return limits, active, stop_ids
+    def _lane_active(self, seq: Optional[SeqState], limit: int, seq_len: int) -> bool:
+        """A lane decodes when slotted, fully prefilled and with write
+        headroom."""
+        return seq is not None and limit > seq_len and not seq.prefilling
 
     def _lane_stop_row(self, seq: Optional[SeqState]) -> np.ndarray:
         """Device-swallowable stop tokens for one lane: only when the host
@@ -556,6 +980,182 @@ class TorchEngine:
                 row[j] = t
         return row
 
+    def _sampling_rows(self, seqs: Sequence[Optional[SeqState]]) -> Dict[str, np.ndarray]:
+        """Per-lane sampling settings of ``seqs`` (None = an idle lane), by
+        ``update_lanes`` row name."""
+        n = len(seqs)
+        rows = {
+            "temp": np.zeros((n,), np.float32),
+            "top_p": np.ones((n,), np.float32),
+            "top_k": np.zeros((n,), np.int64),
+            "key": np.zeros((n,), np.int64),
+            "seeded": np.zeros((n,), bool),
+            "freq": np.zeros((n,), np.float32),
+            "pres": np.zeros((n,), np.float32),
+            "rep": np.ones((n,), np.float32),
+        }
+        for b, s in enumerate(seqs):
+            if s is None:
+                continue
+            so = s.sampling
+            if so.temperature is not None:
+                rows["temp"][b] = so.temperature
+            elif so.top_p is not None or so.top_k is not None:
+                # unset temperature with explicit top_p/top_k means sample
+                rows["temp"][b] = 1.0
+            rows["top_p"][b] = so.top_p if so.top_p is not None else 1.0
+            rows["top_k"][b] = so.top_k or 0
+            if so.seed is not None:
+                rows["seeded"][b] = True
+                rows["key"][b] = (int(so.seed) % 0xFFFFFFFF) + 1
+            else:
+                rows["key"][b] = self._nonce_of.get(s.request_id, 0)
+            rows["freq"][b] = so.frequency_penalty or 0.0
+            rows["pres"][b] = so.presence_penalty or 0.0
+            rows["rep"][b] = so.repetition_penalty or 1.0
+        return rows
+
+    def _sampling_params(self, seqs: Sequence[Optional[SeqState]]) -> SamplingParams:
+        """Per-lane sampling tensors of a prefill dispatch's lanes."""
+        r = {k: self._put(a) for k, a in self._sampling_rows(seqs).items()}
+        return SamplingParams(
+            temperature=r["temp"], top_p=r["top_p"], top_k=r["top_k"], key=r["key"],
+            seeded=r["seeded"], freq=r["freq"], pres=r["pres"], rep=r["rep"],
+        )
+
+    def _sync_device_state(self) -> None:
+        """Bring the device-resident decode state current (executor thread):
+        a full rebuild only when none exists; otherwise row scatters for
+        dirty lanes and a page-table and limit swap for growth -- neither
+        drains the pipeline."""
+        sched = self.sched
+        if not self._dev_valid:
+            self._push_device_state()
+            return
+        if sched.dirty_slots:
+            self._apply_dirty_rows()
+        if self._dev_growth != sched.growth_version:
+            # growth-only refresh: keep tokens/seq_lens/active on the
+            # device; paused lanes revive through _revive_paused_lanes
+            limit = self._compute_limits()
+            self._upload(self._v["page_table"], sched.page_table)
+            self._upload(self._v["limit_lens"], limit)
+            self._dev_growth = sched.growth_version
+            self._limit_host = limit
+
+    def _push_device_state(self) -> None:
+        """Rebuild the device-resident decode state from the mirrors."""
+        sched = self.sched
+        B = self.cfg.max_batch_size
+        limit = self._compute_limits()
+        active = np.zeros((B,), bool)
+        stop_ids = np.full((B, DEVICE_STOP_WIDTH), -1, np.int64)
+        for b, seq in enumerate(sched.slots):
+            active[b] = self._lane_active(seq, int(limit[b]), int(sched.seq_lens[b]))
+            stop_ids[b] = self._lane_stop_row(seq)
+        v = self._v
+        self._upload(v["tokens"], sched.tokens.astype(np.int64))
+        self._upload(v["seq_lens"], sched.seq_lens.astype(np.int64))
+        self._upload(v["limit_lens"], limit)
+        self._upload(v["active"], active)
+        self._upload(v["stop_ids"], stop_ids)
+        self._upload(v["page_table"], sched.page_table)
+        rows = self._sampling_rows(list(sched.slots))
+        for name, row in LANE_ROWS[6:]:
+            self._upload(v[name], rows[row])
+        # mirrors hold a placeholder for lanes whose first token is still
+        # device-only: re-apply those injections
+        for slot, pf in list(self._pending_injects.items()):
+            if sched.slots[slot] is pf.seq and pf.seq.finish is None:
+                inject_token(self._st["tokens"], slot, pf.tok)
+            else:
+                del self._pending_injects[slot]
+        self._counts_live = False
+        self._dev_valid = True
+        self._dev_growth = sched.growth_version
+        self._limit_host = limit
+        sched.dirty_slots.clear()
+
+    def _apply_dirty_rows(self) -> None:
+        """Fold the dirty lanes' mirrors into the device-resident state with
+        one row scatter per tensor (executor thread), ordered after any
+        dispatch already queued: those run against the old rows, and their
+        stale lanes' output is dropped at commit.  Correct because a dirty
+        lane never carries uncommitted decode progress: admission, release,
+        revival and a final classic chunk act on lanes that are parked,
+        fresh or committed through."""
+        sched = self.sched
+        B = self.cfg.max_batch_size
+        limits = self._compute_limits()
+        dirty = sorted(sched.dirty_slots)
+        # always B rows, pads carrying slot B (the spare row)
+        slots = np.full((B,), B, np.int64)
+        rows: Dict[str, np.ndarray] = {
+            "token": np.zeros((B,), np.int64),
+            "seq_len": np.zeros((B,), np.int64),
+            "limit": np.zeros((B,), np.int64),
+            "active": np.zeros((B,), bool),
+            "stop": np.full((B, DEVICE_STOP_WIDTH), -1, np.int64),
+            "pages": np.zeros((B, sched.max_pages), np.int32),
+        }
+        lanes: List[Optional[SeqState]] = [None] * B
+        for i, b in enumerate(dirty):
+            seq = sched.slots[b]
+            slots[i] = b
+            rows["token"][i] = sched.tokens[b]
+            rows["seq_len"][i] = sched.seq_lens[b]
+            rows["limit"][i] = limits[b]
+            rows["active"][i] = self._lane_active(
+                seq, int(limits[b]), int(sched.seq_lens[b])
+            )
+            rows["stop"][i] = self._lane_stop_row(seq)
+            rows["pages"][i] = sched.page_table[b]
+            lanes[i] = seq
+            self._limit_host[b] = limits[b]
+        rows.update(self._sampling_rows(lanes))
+        st = self._st
+        slots_t = self._put(slots)
+        update_lanes(
+            *(st[name] for name, _ in LANE_ROWS), slots_t,
+            {k: self._put(a) for k, a in rows.items()},
+        )
+        # penalty histograms: zero the flushed lanes, then re-seed each
+        # penalized lane's row from its committed history
+        if self._counts_live and dirty:
+            zero_count_rows(self._counts, slots_t)
+            for b in dirty:
+                seq = sched.slots[b]
+                if seq is None or not self._seq_penalized(seq):
+                    continue
+                toks, amts = self._penalty_history(seq)
+                if not toks:
+                    continue
+                pad = pow2_bucket(len(toks))
+                buf = np.zeros((pad,), np.int64)
+                amounts = np.zeros((pad,), np.int32)
+                buf[: len(toks)] = toks
+                amounts[: len(toks)] = amts
+                seed_count_rows(self._counts, b, self._put(buf), self._put(amounts))
+        # pending injects hold the real first token for lanes whose mirror
+        # still has the placeholder: re-apply them over the row scatter
+        injects: List[Tuple[int, torch.Tensor]] = []
+        for b in dirty:
+            pf = self._pending_injects.get(b)
+            if pf is not None:
+                if sched.slots[b] is pf.seq and pf.seq.finish is None:
+                    injects.append((b, pf.tok))
+                else:
+                    del self._pending_injects[b]
+        if injects:
+            idx = self._put(np.asarray([b for b, _ in injects], np.int64))
+            toks_t = torch.cat([t.reshape(1) for _, t in injects])
+            inject_tokens(st["tokens"], idx, toks_t)
+            if self._counts_live:
+                # re-applied first tokens are output: they count once more
+                # (the row was just zeroed and re-seeded)
+                bump_counts(self._counts, idx, toks_t)
+        sched.dirty_slots.clear()
+
     def _live_page_bucket(self) -> int:
         """Power-of-two page-table width covering the longest slotted
         lane's allocation (floor 8), the JAX engine's rule."""
@@ -566,42 +1166,16 @@ class TorchEngine:
             sched.max_pages,
         )
 
-    def _sampling_params(self, seqs: Sequence[Optional[SeqState]]) -> SamplingParams:
-        """Per-lane sampling settings of ``seqs`` (None = an idle lane)."""
-        n = len(seqs)
-        temp = np.zeros((n,), np.float32)
-        top_p = np.ones((n,), np.float32)
-        top_k = np.zeros((n,), np.int64)
-        key = np.zeros((n,), np.int64)
-        seeded = np.zeros((n,), bool)
-        freq = np.zeros((n,), np.float32)
-        pres = np.zeros((n,), np.float32)
-        rep = np.ones((n,), np.float32)
-        for b, s in enumerate(seqs):
-            if s is None:
-                continue
-            so = s.sampling
-            if so.temperature is not None:
-                temp[b] = so.temperature
-            elif so.top_p is not None or so.top_k is not None:
-                # unset temperature with explicit top_p/top_k means sample
-                temp[b] = 1.0
-            top_p[b] = so.top_p if so.top_p is not None else 1.0
-            top_k[b] = so.top_k or 0
-            if so.seed is not None:
-                seeded[b] = True
-                key[b] = (int(so.seed) % 0xFFFFFFFF) + 1
-            else:
-                key[b] = self._nonce_of.get(s.request_id, 0)
-            freq[b] = so.frequency_penalty or 0.0
-            pres[b] = so.presence_penalty or 0.0
-            rep[b] = so.repetition_penalty or 1.0
-        put = self._put
-        return SamplingParams(
-            temperature=put(temp), top_p=put(top_p), top_k=put(top_k),
-            key=put(key), seeded=put(seeded), freq=put(freq), pres=put(pres),
-            rep=put(rep),
-        )
+    def _page_table(self, Pb: int) -> torch.Tensor:
+        """The persistent page table's ``[:B, :Pb]`` slice, contiguous for
+        the kernels (a copy inside the dispatch, captured with it)."""
+        return self._v["page_table"][:, :Pb].contiguous()
+
+    def _commit_state(self, tokens, seq_lens, active) -> None:
+        v = self._v
+        v["tokens"].copy_(tokens)
+        v["seq_lens"].copy_(seq_lens)
+        v["active"].copy_(active)
 
     @staticmethod
     def _needs_filters(so) -> bool:
@@ -613,9 +1187,6 @@ class TorchEngine:
     def _lp_top(seqs: Sequence[Optional[SeqState]]) -> int:
         """Top-logprob width of a dispatch: 8 when any lane asked for them."""
         return 8 if any(s is not None and s.sampling.logprobs for s in seqs) else 0
-
-    def _put(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
 
     def _count(self, kind: str) -> None:
         self.dispatches[kind] = self.dispatches.get(kind, 0) + 1
@@ -631,16 +1202,21 @@ class TorchEngine:
 
     def _dispatch_unified(
         self, chunks: List[MixedChunk], num_steps: int
-    ) -> Optional[List[StepEvent]]:
-        """Assemble one unified mixed dispatch from the host mirrors (packed
-        axis, or the [B, S] rectangle), run it and commit its sampled block;
-        None when there was nothing to dispatch."""
+    ) -> Optional[InflightUnified]:
+        """Enqueue one unified mixed dispatch (packed axis, or the [B, S]
+        rectangle): decode lanes contribute one row each, read from the
+        device-resident state, and each chunk its prompt rows; a final
+        chunk samples its lane's first token and folds it into the decode
+        state on the device.  Host chunk bookkeeping advances at dispatch.
+        With ``num_steps > 1`` (a pure-decode packed tick) K decode steps
+        fuse into the dispatch.  None when there was nothing to dispatch."""
         sched = self.sched
         B = self.cfg.max_batch_size
         p_start = np.zeros((B,), np.int64)
         p_lens = np.zeros((B,), np.int64)
         p_sample = np.zeros((B,), bool)
         chunk_by_slot: Dict[int, MixedChunk] = {}
+        final_chunks: List[MixedChunk] = []
         for ch in chunks:
             b = ch.seq.slot
             chunk_by_slot[b] = ch
@@ -648,72 +1224,94 @@ class TorchEngine:
             p_lens[b] = ch.length
             p_sample[b] = ch.final
             self._note_prefix_stats(ch.seq)
-        limits, active, stop_ids = self._decode_state()
-        # host bookkeeping advances at dispatch: a final chunk hands its
-        # lane to decode
-        for ch in chunks:
             ch.seq.prefilled_tokens = ch.start + ch.length
             if ch.final:
                 ch.seq.prefilling = False
-        dec_cap = active & (p_lens == 0)
+                final_chunks.append(ch)
+        dec_cap = np.array(
+            [
+                s is not None and p_lens[b] == 0 and s.finish is None and not s.prefilling
+                for b, s in enumerate(sched.slots)
+            ],
+            bool,
+        )
+        if num_steps > 1 and not dec_cap.any():
+            return None
         q_host = np.where(dec_cap, 1, p_lens).astype(np.int64)
         total = int(q_host.sum())
         if total == 0:
             return None
+        start = self._span_start()
+        marks = self._graph_marks()
+        self._sync_device_state()
         slots = list(sched.slots)
         use_filters = any(s is not None and self._needs_filters(s.sampling) for s in slots)
         top_n = self._lp_top(slots)
-        put = self._put
-        state = (
-            put(sched.tokens.astype(np.int64)), put(sched.seq_lens.astype(np.int64)),
-            put(limits), put(active), put(stop_ids),
-            put(np.ascontiguousarray(sched.page_table[:, : self._live_page_bucket()])),
-        )
-        lanes = (put(p_start), put(p_lens), put(p_sample), put(p_sample.copy()))
-        with torch.inference_mode():
-            if self._packed:
-                packed = self._run_packed(
-                    state, lanes, chunk_by_slot, q_host, dec_cap, total, slots,
-                    num_steps, top_n, use_filters,
-                )
-            else:
-                S = pow2_bucket(max((ch.length for ch in chunks), default=1))
-                p_tokens = np.zeros((B, S), np.int64)
-                for ch in chunks:
-                    p_tokens[ch.seq.slot, : ch.length] = ch.seq.prompt[
-                        ch.start : ch.start + ch.length
-                    ]
-                packed, *_ = unified_step(
-                    self.params, self.model_cfg, self.kv.pages, *state,
-                    put(p_tokens), *lanes, self._sampling_params(slots), top_n,
-                    use_filters,
-                )
-                packed = packed[:, None]
-            mat = packed.cpu().numpy()
+        Pb = self._live_page_bucket()
+        if self._packed:
+            packed = self._run_packed(
+                chunk_by_slot, p_start, p_lens, p_sample, dec_cap, q_host, total,
+                Pb, num_steps, top_n, use_filters,
+            )
+        else:
+            S = pow2_bucket(max((ch.length for ch in chunks), default=1))
+            p_tokens = np.zeros((B, S), np.int64)
+            for ch in chunks:
+                p_tokens[ch.seq.slot, : ch.length] = ch.seq.prompt[
+                    ch.start : ch.start + ch.length
+                ]
+            v = self._v
+            put = self._put
+            packed, tokens, seq_lens, active = unified_step(
+                self.params, self.model_cfg, self.kv.pages, v["tokens"],
+                v["seq_lens"], v["limit_lens"], v["active"], v["stop_ids"],
+                self._page_table(Pb), put(p_tokens), put(p_start), put(p_lens),
+                put(p_sample), put(p_sample), self._samp, top_n, use_filters,
+            )
+            self._commit_state(tokens, seq_lens, active)
+            packed = packed[:, None]
+        finals: List[InflightPrefill] = []
+        for ch in final_chunks:
+            b = ch.seq.slot
+            pf = InflightPrefill(tok=packed[b : b + 1, 0, 0], seq=ch.seq, slot=b, life=ch.seq.life)
+            self._pending_injects[b] = pf
+            finals.append(pf)
+        res = self._download(packed, self._span_kind("unified", marks), start)
         self._count("unified")
         self.dispatches_by_k[num_steps] = self.dispatches_by_k.get(num_steps, 0) + 1
-        return self._commit_block(mat, slots)
+        return InflightUnified(
+            res, slots, [s.life if s is not None else -1 for s in slots], finals,
+            num_steps,
+        )
 
     def _run_packed(
-        self, state, lanes, chunk_by_slot, q_host, dec_cap, total, slots,
-        num_steps, top_n, use_filters,
+        self, chunk_by_slot, p_start, p_lens, p_sample, dec_cap, q_host, total,
+        Pb, num_steps, top_n, use_filters,
     ) -> torch.Tensor:
         """The packed layout: segments in slot order on one flat axis,
-        padded to a power of two that holds every live lane's ``s_max``
-        window.  Returns ``packed [B, num_steps, 2 + 2*top_n]``."""
+        ``(Np, s_max)`` resolved through the shape budget; the packed step,
+        then the multistep tail's ``num_steps - 1`` decode steps.  On the
+        card a dispatch without chunks replays the packed step's graph.
+        Returns ``packed [B, num_steps, 2 + 2*top_n]``."""
         B = self.cfg.max_batch_size
-        s_max = pow2_bucket(int(q_host.max()))
         seg_off = np.zeros((B,), np.int64)
         off = off_last = 0
         for b in range(B):
             if q_host[b]:
                 seg_off[b] = off_last = off
                 off += int(q_host[b])
-        Np = packed_axis_len(s_max, off_last, total)
+        evicted = self._packed_shapes.evictions
+        Np, s_max, _ = self._packed_shapes.fit(
+            pow2_bucket(int(q_host.max())), off_last, total
+        )
+        if self._packed_shapes.evictions != evicted:
+            live = set(self._packed_shapes.pairs)
+            self.graphs.release(lambda k: k[0] != "packed" or (k[1], k[2], 0) in live)
+        # the layout as ONE int64 array: one host-to-device copy
         t_tokens = np.zeros((Np,), np.int64)
         t_lane = np.full((Np,), B, np.int64)
         t_rel = np.zeros((Np,), np.int64)
-        t_dec = np.zeros((Np,), bool)
+        t_dec = np.zeros((Np,), np.int64)
         for b in range(B):
             ql = int(q_host[b])
             if ql == 0:
@@ -725,52 +1323,129 @@ class TorchEngine:
             if ch is not None:
                 t_tokens[o : o + ql] = ch.seq.prompt[ch.start : ch.start + ql]
             else:
-                t_dec[o] = True
-        put = self._put
-        packed, *_ = packed_unified_multistep(
-            self.params, self.model_cfg, self.kv.pages, *state,
-            put(t_tokens), put(t_lane), put(t_rel), put(t_dec), *lanes,
-            put(dec_cap), put(seg_off), self._sampling_params(slots),
-            s_max, num_steps, top_n, use_filters,
-        )
+                t_dec[o] = 1
+        layout = np.concatenate(
+            [t_tokens, t_lane, t_rel, t_dec, p_start, p_lens, p_sample, p_sample,
+             dec_cap, seg_off]
+        ).astype(np.int64)
+        call = self._packed_call(Np, s_max, Pb, top_n, use_filters)
+        inputs = (self._stage(layout),)
+        if chunk_by_slot:
+            row0 = call(tuple(t.to(self.device, non_blocking=True) for t in inputs))
+        else:
+            key = ("packed", Np, s_max, Pb, top_n, use_filters)
+            row0 = self.graphs.run("packed", key, inputs, call)
+        return self._decode_steps(row0, num_steps, Pb, top_n, use_filters, False)
+
+    def _packed_call(
+        self, Np: int, s_max: int, Pb: int, top_n: int, use_filters: bool
+    ) -> StepCall:
+        """The packed unified step over the persistent decode state: takes
+        the layout (one int64 tensor: the packed axis' tokens, lanes, rows
+        and decode flags, then the per-lane chunk and segment arrays),
+        updates the state in place and returns its rows ``[B, 2 +
+        2*top_n]``."""
+        B = self.cfg.max_batch_size
+        v = self._v
+
+        def call(inputs: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+            parts = torch.split(inputs[0], [Np] * 4 + [B] * 6)
+            tt, tl, tr, td, ps, pl, psm, pa, dc, so = parts
+            row, tokens, seq_lens, active = packed_unified_step(
+                self.params, self.model_cfg, self.kv.pages, v["tokens"],
+                v["seq_lens"], v["limit_lens"], v["active"], v["stop_ids"],
+                self._page_table(Pb), tt, tl, tr, td != 0, ps, pl, psm != 0,
+                pa != 0, dc != 0, so, self._samp, s_max, top_n, use_filters,
+            )
+            self._commit_state(tokens, seq_lens, active)
+            return row
+
+        return call
+
+    def _decode_steps(
+        self, row0: Optional[torch.Tensor], K: int, Pb: int, top_n: int,
+        use_filters: bool, use_penalties: bool,
+    ) -> torch.Tensor:
+        """``packed [B, K, 2 + 2*top_n]``: ``row0`` (the packed step's rows,
+        when given) and then one decode step per remaining row -- the
+        multistep tail, or all K steps of a decode block -- each replaying
+        the decode-step graph on the card.  A row is copied out before the
+        next replay overwrites the graph's output."""
+        B = self.cfg.max_batch_size
+        packed = torch.empty((B, K, 2 + 2 * top_n), dtype=torch.int32, device=self.device)
+        first = 0
+        if row0 is not None:
+            packed[:, 0].copy_(row0)
+            first = 1
+        if K > first:
+            call = self._step_call(Pb, top_n, use_filters, use_penalties)
+            key = ("step", Pb, top_n, use_filters, use_penalties)
+            for k in range(first, K):
+                packed[:, k].copy_(self.graphs.run("step", key, (), call))
         return packed
 
-    def _dispatch_block(self) -> Optional[List[StepEvent]]:
-        """One classic decode block of ``decode_block_size`` steps over the
-        decode lanes, with penalty histograms when a lane asked for
-        penalties; commits its sampled block."""
+    def _step_call(
+        self, Pb: int, top_n: int, use_filters: bool, use_penalties: bool
+    ) -> StepCall:
+        """One decode step over the persistent decode state (and
+        histograms, with penalties): takes no inputs, updates the state in
+        place and returns its rows ``[B, 2 + 2*top_n]``."""
+        v = self._v
+        counts = self._counts[: self.cfg.max_batch_size]
+
+        def call(_inputs: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+            row, tokens, seq_lens, active, new_counts = decode_step(
+                self.params, self.model_cfg, self.kv.pages, v["tokens"],
+                v["seq_lens"], v["limit_lens"], v["active"], v["stop_ids"],
+                self._page_table(Pb), self._samp, top_n, use_filters,
+                counts if use_penalties else None,
+            )
+            self._commit_state(tokens, seq_lens, active)
+            if use_penalties:
+                counts.copy_(new_counts)
+            return row
+
+        return call
+
+    def _dispatch_block(self) -> Optional[InflightBlock]:
+        """Enqueue one classic decode block of ``decode_block_size`` steps
+        over the device-resident decode lanes, with the device-carried
+        penalty histograms when a lane asked for penalties."""
         sched = self.sched
         if sched.num_active == 0:
-            return None
-        limits, active, stop_ids = self._decode_state()
+            return None  # everything was preempted
+        start = self._span_start()
+        marks = self._graph_marks()
+        self._sync_device_state()
+        K = self.cfg.decode_block_size
+        B = self.cfg.max_batch_size
         slots = list(sched.slots)
+        Pb = self._live_page_bucket()
         use_filters = any(s is not None and self._needs_filters(s.sampling) for s in slots)
         use_penalties = any(s is not None and self._seq_penalized(s) for s in slots)
-        put = self._put
-        with torch.inference_mode():
-            packed, *_ = decode_block(
-                self.params, self.model_cfg, self.kv.pages,
-                put(sched.tokens.astype(np.int64)),
-                put(sched.seq_lens.astype(np.int64)),
-                put(limits), put(active), put(stop_ids),
-                put(np.ascontiguousarray(sched.page_table[:, : self._live_page_bucket()])),
-                self._sampling_params(slots), self.cfg.decode_block_size,
-                use_filters, self._lp_top(slots),
-                put(self._counts_host()) if use_penalties else None,
-                use_penalties,
-            )
-            mat = packed.cpu().numpy()
+        if use_penalties and not self._counts_live:
+            self._upload(self._counts[:B], self._counts_host())
+            # pending first tokens are device-only (not in the committed
+            # history yet): fold them in so device and host views agree
+            pend = [
+                (slot, pf.tok)
+                for slot, pf in self._pending_injects.items()
+                if sched.slots[slot] is pf.seq
+            ]
+            if pend:
+                bump_counts(
+                    self._counts,
+                    self._put(np.asarray([p[0] for p in pend], np.int64)),
+                    torch.cat([p[1].reshape(1) for p in pend]),
+                )
+            self._counts_live = True
+        elif not use_penalties:
+            self._counts_live = False
+        top_n = self._lp_top(slots)
+        packed = self._decode_steps(None, K, Pb, top_n, use_filters, use_penalties)
+        res = self._download(packed, self._span_kind("decode_block", marks), start)
         self._count("decode_block")
-        return self._commit_block(mat, slots)
-
-    def _commit_block(
-        self, mat: np.ndarray, slots: List[Optional[SeqState]]
-    ) -> List[StepEvent]:
-        N = (mat.shape[-1] - 2) // 2
-        toks, lps, tids, tlps = unpack_sampled_logprobs(mat, N)
-        return self.sched.commit_block(
-            toks, slots, lps, tids if N else None, tlps if N else None
-        )
+        return InflightBlock(res, slots, [s.life if s is not None else -1 for s in slots])
 
     # -- classic prefill dispatches (executor thread) -----------------------
 
@@ -795,12 +1470,12 @@ class TorchEngine:
             table[i, :k] = seq.pages[:k]
             lanes[i] = seq
         put = self._put
-        with torch.inference_mode():
-            return prefill_and_sample(
-                self.params, self.model_cfg, self.kv.pages, put(tokens),
-                put(lens), put(table), self._sampling_params(lanes),
-                self._lp_top(lanes), any(self._seq_penalized(s) for s in seqs),
-            )
+        self.prefill_dispatches["full"] += 1
+        return prefill_and_sample(
+            self.params, self.model_cfg, self.kv.pages, put(tokens),
+            put(lens), put(table), self._sampling_params(lanes),
+            self._lp_top(lanes), any(self._seq_penalized(s) for s in seqs),
+        )
 
     def _dispatch_suffix_prefill_batch(
         self, entries: List[Tuple[SeqState, int, int]], Bp: int
@@ -831,41 +1506,50 @@ class TorchEngine:
             suffix_table[i, :k] = seq.pages[npp : npp + k]
             lanes[i] = seq
         put = self._put
-        with torch.inference_mode():
-            return prefill_suffix_and_sample(
-                self.params, self.model_cfg, self.kv.pages, put(tokens),
-                put(offsets), put(suffix_lens), put(prefix_table),
-                put(suffix_table), self._sampling_params(lanes),
-                self._lp_top(lanes),
-                any(self._seq_penalized(s) for s, _, _ in entries),
-            )
+        self.prefill_dispatches["suffix"] += 1
+        return prefill_suffix_and_sample(
+            self.params, self.model_cfg, self.kv.pages, put(tokens),
+            put(offsets), put(suffix_lens), put(prefix_table),
+            put(suffix_table), self._sampling_params(lanes),
+            self._lp_top(lanes),
+            any(self._seq_penalized(s) for s, _, _ in entries),
+        )
 
-    def _commit_prefill(
+    def _inject_first_tokens(
         self, packed: torch.Tensor, seqs: List[SeqState]
-    ) -> List[StepEvent]:
-        """Commit each lane's first token (row i of ``packed``)."""
-        mat = packed.cpu().numpy()
-        N = (mat.shape[-1] - 2) // 2
-        events: List[StepEvent] = []
+    ) -> List[InflightPrefill]:
+        """Bring the decode state current (admission marked the lanes
+        dirty), then write each lane's sampled first token (row i of
+        ``packed``) into its lane on the device: one scatter, pad rows to
+        the spare row.  Returns the lanes' pending-inject records."""
+        self._sync_device_state()
+        B = self.cfg.max_batch_size
+        Bp = packed.shape[0]
+        slots = np.full((Bp,), B, np.int64)
         for i, seq in enumerate(seqs):
-            if not self._holds_slot(seq) or seq.num_generated > 0:
-                continue
-            tok, lp, tids, tlps = unpack_sampled_logprobs(mat[i], N)
-            top = [[int(t), float(l)] for t, l in zip(tids, tlps)] if N else None
-            events.append(
-                self.sched.commit_prefill_token(seq, int(tok), float(lp), top)
-            )
-        return events
+            slots[i] = seq.slot
+        idx = self._put(slots)
+        inject_tokens(self._st["tokens"], idx, packed[:, 0])
+        if self._counts_live:
+            bump_counts(self._counts, idx, packed[:, 0])
+        entries = []
+        for i, seq in enumerate(seqs):
+            pf = InflightPrefill(tok=packed[i : i + 1, 0], seq=seq, slot=seq.slot, life=seq.life)
+            self._pending_injects[seq.slot] = pf
+            entries.append(pf)
+        return entries
 
     def _do_prefill_group(
         self, items: List[Tuple[SeqState, int]]
-    ) -> List[StepEvent]:
+    ) -> List[InflightPrefillGroup]:
         """One prefill dispatch for a group of same-shape admissions (one
         suffix bucket, one prefix-page bucket), the batch padded to a power
-        of two; commits every lane's first token."""
+        of two; every lane's first token goes into the decode state on the
+        device, the host commits them with the generation."""
         seqs = [seq for seq, _ in items]
         for seq in seqs:
             self._note_prefix_stats(seq)
+        start = self._span_start()
         Bp = pow2_bucket(len(seqs))
         if not any(seq.cached_prompt_tokens for seq in seqs):
             packed = self._dispatch_full_prefill_batch(seqs, Bp)
@@ -873,34 +1557,112 @@ class TorchEngine:
             packed = self._dispatch_suffix_prefill_batch(
                 [(seq, pl, seq.cached_prompt_tokens) for seq, pl in items], Bp
             )
+        entries = self._inject_first_tokens(packed, seqs)
         self._count("prefill")
-        return self._commit_prefill(packed, seqs)
+        return [InflightPrefillGroup(self._download(packed, "prefill", start), entries)]
 
-    def _dispatch_chunk(self, seq: SeqState) -> List[StepEvent]:
+    def _do_prefill(self, seq: SeqState) -> Optional[InflightPrefill]:
+        """A classic chunk-bound admission (already parked ``prefilling``):
+        the admission row must land with the lane inactive, then the first
+        chunk dispatches."""
+        self._note_prefix_stats(seq)
+        self._sync_device_state()
+        return self._dispatch_chunk(seq)
+
+    def _finish_prefill(self, seq: SeqState, start: int) -> InflightPrefill:
+        """The rest of a prompt from ``start`` (0: the whole prompt) in one
+        dispatch that samples the first token, injected on the device."""
+        t0 = self._span_start()
+        if start > 0:
+            packed = self._dispatch_suffix_prefill_batch([(seq, len(seq.prompt), start)], 1)
+        else:
+            packed = self._dispatch_full_prefill_batch([seq], 1)
+        (pf,) = self._inject_first_tokens(packed, [seq])
+        pf.sampled = self._download(packed, "prefill", t0)
+        self._count("prefill")
+        return pf
+
+    def _dispatch_chunk(self, seq: SeqState) -> Optional[InflightPrefill]:
         """Advance one page-aligned chunk of a classic chunked prefill.  An
-        intermediate chunk writes KV and samples nothing; the last one (or,
-        with chunking off, the rest of a prompt drained from the mixed
-        plane) samples the first token and hands the lane to decode."""
+        intermediate chunk writes KV and samples nothing (None); the last
+        one (or, with chunking off, the rest of a prompt drained from the
+        mixed plane) samples the first token and re-activates the lane
+        (a dirty row ordered after the dispatch)."""
         self._note_prefix_stats(seq)
         prompt_len = len(seq.prompt)
         start = seq.prefilled_tokens
         chunk = self._chunk_tokens
         if chunk is None or prompt_len - start <= chunk:
             seq.prefilling = False
-            if start > 0:
-                packed = self._dispatch_suffix_prefill_batch(
-                    [(seq, prompt_len, start)], 1
-                )
-            else:
-                packed = self._dispatch_full_prefill_batch([seq], 1)
-            self._count("prefill")
-            return self._commit_prefill(packed, [seq])
+            pf = self._finish_prefill(seq, start)
+            self.sched.dirty_slots.add(seq.slot)
+            return pf
+        t0 = self._span_start()
         self._dispatch_suffix_prefill_batch([(seq, start + chunk, start)], 1)
+        self._span_end("chunk", t0)
         seq.prefilled_tokens = start + chunk
         self._count("chunk")
-        return []
+        return None
+
+    # -- commits (executor thread) ------------------------------------------
+
+    def _commit_all(self, entries: List[Inflight]) -> List[StepEvent]:
+        """Read and commit one dispatch generation in dispatch order: every
+        result of the generation in one pass, then the stop-rule replay."""
+        mats = [
+            None if isinstance(e, InflightPrefill) and e.sampled is None else e.sampled.numpy()
+            for e in entries
+        ]
+        self._drain_spans()
+        sched = self.sched
+        events: List[StepEvent] = []
+
+        def commit_prefill(pf: InflightPrefill, row: np.ndarray) -> None:
+            seq = pf.seq
+            if self._pending_injects.get(pf.slot) is pf:
+                del self._pending_injects[pf.slot]
+            if (
+                seq.finish is not None
+                or seq.slot != pf.slot
+                or sched.slots[pf.slot] is not seq
+                or seq.life != pf.life
+                or seq.num_generated > 0
+            ):
+                return  # preempted/cancelled before the commit landed
+            N = (row.shape[-1] - 2) // 2
+            tok, lp, tids, tlps = unpack_sampled_logprobs(row, N)
+            top = [[int(t), float(l)] for t, l in zip(tids, tlps)] if N else None
+            events.append(sched.commit_prefill_token(seq, int(tok), float(lp), top))
+
+        for e, mat in zip(entries, mats):
+            if isinstance(e, InflightPrefillGroup):
+                for i, pf in enumerate(e.entries):
+                    commit_prefill(pf, mat[i])
+            elif isinstance(e, InflightPrefill):
+                commit_prefill(e, mat[0])
+            else:
+                if isinstance(e, InflightUnified):
+                    for pf in e.finals:
+                        if self._pending_injects.get(pf.slot) is pf:
+                            del self._pending_injects[pf.slot]
+                N = (mat.shape[-1] - 2) // 2
+                toks, lps, tids, tlps = unpack_sampled_logprobs(mat, N)
+                events.extend(
+                    sched.commit_block(
+                        toks, e.slots, lps, tids if N else None, tlps if N else None,
+                        lives=e.lives,
+                    )
+                )
+        return events
 
     # -- events -------------------------------------------------------------
+
+    def _deliver(self, item) -> None:
+        """One fanout item: a commit's events, or an error frame."""
+        if isinstance(item, tuple):
+            self._put_error(item[1], item[2])
+        else:
+            self._emit(item)
 
     def _emit(self, events: List[StepEvent]) -> None:
         for ev in events:
@@ -927,7 +1689,21 @@ class TorchEngine:
         if seq.finish is None:
             seq.finish = FinishReason.ERROR
         self._nonce_of.pop(seq.request_id, None)
-        queue = self._queues.get(seq.request_id)
+        if self._queues.get(seq.request_id) is None:
+            return
+        # async mode: the error rides the fanout queue, so it cannot
+        # overtake committed token events still waiting there
+        q = self._fanout_q
+        if q is not None and self._running:
+            try:
+                q.put_nowait(("error", seq.request_id, message))
+                return
+            except asyncio.QueueFull:
+                pass
+        self._put_error(seq.request_id, message)
+
+    def _put_error(self, request_id: str, message: str) -> None:
+        queue = self._queues.get(request_id)
         if queue is not None:
             queue.put_nowait(Annotated.from_error(message))
             queue.put_nowait(None)

@@ -12,7 +12,10 @@ lane).
 
 The scheduler is sans-IO: it owns numpy mirrors of the device-side batch
 arrays (tokens / seq_lens / page_table) and pure-Python bookkeeping; the
-engine drives it and runs the device steps.
+engine drives it and runs the device steps.  Two versions and a dirty-lane
+set tell the engine what of its device-resident decode state is stale:
+``layout_version`` (slot membership), ``growth_version`` (pages appended to
+live lanes) and ``dirty_slots`` (lanes whose mirrors changed).
 """
 
 from __future__ import annotations
@@ -85,6 +88,11 @@ class SeqState:
     # and a live spec state once armed -- inert here: nothing arms it
     speculation: Optional[Any] = None
     spec: Optional[Any] = None
+    # slot lives: bumped whenever the lane leaves its slot (finish, cancel,
+    # preemption), so a dispatch made in an earlier life never commits into
+    # a later one, even when a preempted request is re-admitted into the
+    # same slot before that dispatch committed
+    life: int = 0
 
     @property
     def seq_len(self) -> int:
@@ -152,6 +160,11 @@ class Scheduler:
         self.pool = pool
         self.block_size = cfg.page_size
         self.preempt_recompute = 0
+        # tokens a decode lane may grow by before the scheduler can react
+        # again: the engine sets this to its multistep K times its pipeline
+        # depth each tick, and ``predicted_pages`` charges every decode lane
+        # at least that much uncommitted in-flight growth
+        self.decode_inflight_tokens = 0
         B = cfg.max_batch_size
         self.max_pages = cfg.max_seq_len // cfg.page_size
         self.waiting: Deque[SeqState] = collections.deque()
@@ -164,6 +177,16 @@ class Scheduler:
         self.tokens = np.zeros((B,), np.int32)
         self.seq_lens = np.zeros((B,), np.int32)
         self.page_table = np.zeros((B, self.max_pages), np.int32)
+        # layout_version: slot membership changed (admission / release /
+        # preemption).  growth_version: pages were appended to live lanes --
+        # the engine refreshes the device page table and limits, keeping the
+        # decode pipeline running.  dirty_slots: lanes whose mirrors changed
+        # (admission/release); the engine folds them into the device-resident
+        # decode state with per-row scatters instead of a full rebuild, so
+        # the decode pipeline never drains for batch-membership changes.
+        self.layout_version = 0
+        self.growth_version = 0
+        self.dirty_slots: set = set()
 
     # -- queue/observability -------------------------------------------------
 
@@ -227,6 +250,19 @@ class Scheduler:
         )
         by_len = self.cfg.max_seq_len - seq.seq_len
         return max(0, min(by_max, by_len))
+
+    def predicted_pages(self, seq: SeqState) -> int:
+        """Predicted peak KV pages of a request: its length plus its
+        remaining token budget, and never less than a decode-phase lane's
+        uncommitted in-flight growth (``decode_inflight_tokens``, capped by
+        what it may still emit) or the pages it already holds."""
+        remaining = self.remaining_budget(seq)
+        head = remaining
+        if seq.slot >= 0 and not seq.prefilling:
+            head = max(head, min(self.decode_inflight_tokens, remaining))
+        n = min(seq.seq_len + head, self.cfg.max_seq_len)
+        pages = -(-n // self.cfg.page_size)
+        return max(min(pages, self.max_pages), len(seq.pages))
 
     def min_total_pages(self, seq: SeqState) -> int:
         """Smallest page count that lets the sequence make forward progress:
@@ -325,6 +361,7 @@ class Scheduler:
             remaining = len(seq.prompt) - seq.prefilled_tokens
             if remaining <= 0:  # defensive; final chunk clears prefilling
                 seq.prefilling = False
+                self.dirty_slots.add(seq.slot)
                 continue
             take = min(remaining, left) if left > 0 else 0
             if chunk_cap is not None:
@@ -400,6 +437,8 @@ class Scheduler:
         self.page_table[b, : len(seq.pages)] = seq.pages
         self.seq_lens[b] = len(seq.prompt)
         self.tokens[b] = seq.prompt[-1] if seq.prompt else 0
+        self.layout_version += 1
+        self.dirty_slots.add(b)
 
     # -- decode bookkeeping --------------------------------------------------
 
@@ -454,6 +493,7 @@ class Scheduler:
                 seq.pages.append(page)
                 seq.owned_pages.append(page)
                 self.page_table[seq.slot, len(seq.pages) - 1] = page
+                self.growth_version += 1
         return preempted
 
     def _pick_preemption_victim(self) -> Optional[SeqState]:
@@ -485,12 +525,15 @@ class Scheduler:
     def _release_slot(self, seq: SeqState) -> None:
         seq.prefilling = False
         seq.prefilled_tokens = 0
+        seq.life += 1
         if seq.slot >= 0:
             b = seq.slot
             self.slots[b] = None
             self.page_table[b, :] = 0
             self.seq_lens[b] = 0
             self.tokens[b] = 0
+            self.layout_version += 1
+            self.dirty_slots.add(b)
         # registered blocks outlive the sequence (refcount drops; the block
         # turns inactive-reusable at zero); only exclusively-owned pages and
         # never-registered completions return to the free list
@@ -575,6 +618,7 @@ class Scheduler:
         lps: Optional[np.ndarray] = None,  # [B, K] chosen-token logprobs
         top_ids: Optional[np.ndarray] = None,  # [B, K, N]
         top_lps: Optional[np.ndarray] = None,  # [B, K, N]
+        lives: Optional[List[int]] = None,
     ) -> List[StepEvent]:
         """Apply a device-decoded block of raw sampled tokens [B, K].
 
@@ -588,7 +632,9 @@ class Scheduler:
         ``slot_snapshot`` is the slot list captured when the block was
         dispatched -- with pipelined blocks a slot may have been released (or
         even re-assigned) since, and those lanes' tokens must not be
-        attributed to the new occupant.
+        attributed to the new occupant.  ``lives`` (each lane's
+        ``SeqState.life`` at dispatch) also drops the column of a request
+        preempted and re-admitted into the same slot since.
         """
         events: List[StepEvent] = []
         B, K = sampled.shape
@@ -599,6 +645,8 @@ class Scheduler:
             seq = slots_at_entry[b]
             if seq is None or seq.finish is not None or seq.slot != b:
                 continue
+            if lives is not None and lives[b] != seq.life:
+                continue  # dispatched in an earlier life of the request
             if seq.prefilling:
                 # a parked lane's column is placeholder garbage by
                 # construction (the lane is device-inactive, rows are -1);

@@ -16,6 +16,14 @@ the pool is a tensor or the int8 pool's ``QuantKV`` pair;
 the sampled rows come back packed (``sampling.pack_sampled_logprobs``) for
 one host transfer per dispatch.
 
+The device-state helpers at the end (``inject_token(s)``,
+``update_lanes``, ``zero_count_rows``, ``bump_counts``,
+``seed_count_rows``) are the counterparts of the JAX functions of the same
+names: they update the engine's persistent decode-state tensors in place.
+Those tensors carry one spare row at index B; a pad row of a scatter (the
+JAX functions' ``mode="drop"`` rows) carries slot B and lands there, and
+no step ever reads it.
+
 Multi-step rule (the multistep tail and the decode block): every step
 runs, because branching on ``active.any()`` between steps would cost a host
 sync per step.  A step whose lanes are all inactive is the JAX package's
@@ -29,7 +37,7 @@ as K single-step dispatches, for greedy and seeded lanes alike.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -207,7 +215,7 @@ def packed_unified_multistep(
     )
     rows = [packed0]
     for _ in range(num_steps - 1):
-        row, tokens, seq_lens, active, _ = _decode_step(
+        row, tokens, seq_lens, active, _ = decode_step(
             params, cfg, kv_pages, tokens, seq_lens, limit_lens, active,
             stop_ids, page_table, sampling, top_n, use_filters,
         )
@@ -215,7 +223,7 @@ def packed_unified_multistep(
     return torch.stack(rows, dim=1), tokens, seq_lens, active
 
 
-def _decode_step(
+def decode_step(
     params: Params,
     cfg: ModelConfig,
     kv_pages: KVPool,
@@ -252,12 +260,7 @@ def _decode_step(
     out = torch.where(active, sampled, -1)
     row = torch.where(live, pack_sampled_logprobs(out, lp, top_ids, top_lps), -1)
     if counts is not None:
-        B = tokens.shape[0]
-        counts = counts.index_put(
-            (torch.arange(B, device=counts.device), sampled),
-            emit.to(counts.dtype),
-            accumulate=True,
-        )
+        counts = counts.scatter_add(1, sampled[:, None], emit.to(counts.dtype)[:, None])
     return (
         row,
         torch.where(emit, sampled, tokens),
@@ -293,7 +296,7 @@ def decode_block(
         counts = None
     rows = []
     for _ in range(num_steps):
-        row, tokens, seq_lens, active, counts = _decode_step(
+        row, tokens, seq_lens, active, counts = decode_step(
             params, cfg, kv_pages, tokens, seq_lens, limit_lens, active,
             stop_ids, page_table, sampling, top_n, use_filters, counts,
         )
@@ -482,3 +485,96 @@ def prefill_suffix_and_sample(
         else None
     )
     return sample_step_packed(logits, sampling, top_n, offset + suffix_lens, pen)
+
+
+# ---------------------------------------------------------------------------
+# device-resident decode state: in-place row updates
+# ---------------------------------------------------------------------------
+
+
+def inject_token(tokens: torch.Tensor, slot: int, token: torch.Tensor) -> None:
+    """Write a freshly prefilled lane's first token (``token [1]``, a device
+    value) into the decode token vector at ``slot``."""
+    tokens[slot : slot + 1].copy_(token)
+
+
+def inject_tokens(
+    tokens: torch.Tensor,  # [B + 1]
+    slots: torch.Tensor,  # [G] lane indices; B = pad (the spare row)
+    toks: torch.Tensor,  # [G]
+) -> None:
+    """Batched :func:`inject_token`: one scatter for a whole prefill
+    group; pad rows land in the spare row."""
+    tokens.index_put_((slots.long(),), toks.to(tokens.dtype))
+
+
+# the state tensors ``update_lanes`` writes, in its argument order, and the
+# ``rows`` key each one takes
+LANE_ROWS = (
+    ("tokens", "token"), ("seq_lens", "seq_len"), ("limit_lens", "limit"),
+    ("active", "active"), ("stop_ids", "stop"), ("page_table", "pages"),
+    ("temperature", "temp"), ("top_p", "top_p"), ("top_k", "top_k"),
+    ("key", "key"), ("seeded", "seeded"), ("freq", "freq"), ("pres", "pres"),
+    ("rep", "rep"),
+)
+
+
+def update_lanes(
+    tokens: torch.Tensor,  # [B + 1]
+    seq_lens: torch.Tensor,  # [B + 1]
+    limit_lens: torch.Tensor,  # [B + 1]
+    active: torch.Tensor,  # [B + 1] bool
+    stop_ids: torch.Tensor,  # [B + 1, E]
+    page_table: torch.Tensor,  # [B + 1, P]
+    temperature: torch.Tensor,  # [B + 1]
+    top_p: torch.Tensor,  # [B + 1]
+    top_k: torch.Tensor,  # [B + 1]
+    key: torch.Tensor,  # [B + 1]
+    seeded: torch.Tensor,  # [B + 1] bool
+    freq: torch.Tensor,  # [B + 1]
+    pres: torch.Tensor,  # [B + 1]
+    rep: torch.Tensor,  # [B + 1]
+    slots: torch.Tensor,  # [G] lane indices; B = pad (the spare row)
+    rows: Dict[str, torch.Tensor],  # per-lane values: token [G], stop [G, E], ...
+) -> None:
+    """Fold G lanes' host-side state into the device-resident decode state
+    in place: how batch membership changes (admission, completion,
+    revival) reach the device without draining the decode pipeline.  The
+    scatters run after any dispatch already queued, so those run against
+    the old rows; every later dispatch sees the new ones."""
+    state = (
+        tokens, seq_lens, limit_lens, active, stop_ids, page_table,
+        temperature, top_p, top_k, key, seeded, freq, pres, rep,
+    )
+    idx = (slots.long(),)
+    for t, (_, row) in zip(state, LANE_ROWS):
+        t.index_put_(idx, rows[row].to(t.dtype))
+
+
+def zero_count_rows(counts: torch.Tensor, slots: torch.Tensor) -> None:
+    """Zero the penalty histograms of re-assigned lanes (pads: spare row)."""
+    counts.index_fill_(0, slots.long(), 0)
+
+
+def bump_counts(
+    counts: torch.Tensor,  # [B + 1, V]
+    slots: torch.Tensor,  # [G] lane indices; B = pad (the spare row)
+    toks: torch.Tensor,  # [G] token ids (device values fine)
+) -> None:
+    """Count injected first tokens into the penalty histograms: prefill
+    samples never pass through the decode step's own increment."""
+    one = torch.ones((), dtype=counts.dtype, device=counts.device)
+    counts.index_put_(
+        (slots.long(), toks.long()), one.expand(slots.shape[0]), accumulate=True
+    )
+
+
+def seed_count_rows(
+    counts: torch.Tensor,  # [B + 1, V]
+    slot: int,
+    toks: torch.Tensor,  # [T] history tokens (padded: token 0, amount 0)
+    amounts: torch.Tensor,  # [T] per-token increment: 1 output, PROMPT_FLAG prompt
+) -> None:
+    """Rebuild one lane's packed histogram from its prompt and committed
+    output history (dirty flushes zero the row first)."""
+    counts[slot].index_add_(0, toks.long(), amounts.to(counts.dtype))

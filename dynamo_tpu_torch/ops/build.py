@@ -53,6 +53,9 @@ def nvcc_path() -> str:
 # one build at a time in this process: entries sharing a source share its
 # library and its temporary output path
 _BUILD_LOCK = threading.Lock()
+# every kernel entry defined, in definition order: CUDA graphs read and
+# advance their launch counts (a replay calls no wrapper)
+KERNELS: List["CudaKernel"] = []
 
 
 class CudaKernel:
@@ -68,6 +71,7 @@ class CudaKernel:
         self.argtypes = list(argtypes)
         self.launches = 0
         self._fn = None
+        KERNELS.append(self)
 
     @property
     def source(self) -> Path:

@@ -603,3 +603,226 @@ def test_dense_entries_give_the_recorded_outputs_bit_for_bit(card):
     got = dense_digests(fp, ra, card)
     print(got)
     assert got == DENSE_DIGESTS
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs of the engine's decode dispatches
+# ---------------------------------------------------------------------------
+
+GB = 4  # engine lanes of the graph tests
+
+
+def _graph_engine(card, dtype, kv_dtype=None, max_batch_size=GB):
+    """A small engine on the card with a random pool and a random,
+    all-active decode state (greedy and seeded sampled lanes, one with a
+    penalty so the decode block's histogram moves)."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.kv_cache import QuantKV
+    from dynamo_tpu_torch.engine.model import init_params
+
+    cfg = ModelConfig.tiny(
+        head_dim=64, num_heads=4, num_kv_heads=2,
+        dtype="bfloat16" if dtype == torch.bfloat16 else "float32",
+    )
+    ecfg = EngineConfig(
+        max_batch_size=max_batch_size, max_seq_len=256, page_size=16, num_pages=64,
+        kv_dtype=kv_dtype,
+    )
+    eng = TorchEngine(cfg, init_params(cfg, 5, card, dtype), ecfg, device=card)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(11)
+    pool = eng.kv.pages
+    if isinstance(pool, QuantKV):
+        pool.q.copy_(torch.randint(-127, 128, pool.q.shape, generator=gen, device=card))
+        pool.s.copy_(torch.rand(pool.s.shape, generator=gen, device=card) * 0.02 + 1e-3)
+    else:
+        pool.copy_(torch.randn(pool.shape, generator=gen, device=card).to(pool.dtype))
+    rs = np.random.default_rng(7)
+    B = max_batch_size
+    v = eng._v
+    v["tokens"].copy_(torch.from_numpy(rs.integers(1, cfg.vocab_size, B)))
+    lens = rs.integers(20, 90, B)
+    v["seq_lens"].copy_(torch.from_numpy(lens))
+    v["limit_lens"].copy_(torch.from_numpy(lens + 40))
+    v["active"].fill_(True)
+    table = np.stack([rs.permutation(63)[:8] + 1 for _ in range(B)]).astype(np.int32)
+    v["page_table"][:, :8].copy_(torch.from_numpy(table))
+    v["temperature"].copy_(torch.tensor([0.0, 0.9, 0.0, 1.1] * (B // 4)))
+    v["key"].copy_(torch.arange(1, B + 1))
+    v["seeded"].copy_(torch.tensor([False, True] * (B // 2)))
+    v["freq"].copy_(torch.tensor([0.5, 0.0, 0.0, 0.0] * (B // 4)))
+    v["rep"].copy_(torch.tensor([1.0, 1.0, 1.3, 1.0] * (B // 4)))
+    eng._counts[:B].copy_(
+        torch.randint(0, 3, (B, cfg.vocab_size), generator=gen, device=card, dtype=torch.int32)
+    )
+    torch.cuda.synchronize()
+    return eng
+
+
+def _snapshot(eng):
+    from dynamo_tpu_torch.engine.kv_cache import QuantKV
+
+    pool = eng.kv.pages
+    pool_t = (pool.q, pool.s) if isinstance(pool, QuantKV) else (pool,)
+    return [t.clone() for t in (*eng._st.values(), eng._counts, *pool_t)], pool_t
+
+
+def _restore(eng, snap):
+    saved, pool_t = snap
+    for dst, src in zip((*eng._st.values(), eng._counts, *pool_t), saved):
+        dst.copy_(src)
+    torch.cuda.synchronize()
+
+
+def _state_now(eng):
+    return _snapshot(eng)[0]
+
+
+def _decode_layout(B, n):
+    """Pure-decode packed layout of lanes 0..n-1 (one row each)."""
+    Np = 1 << max(n - 1, 0).bit_length()
+    t_lane = np.full((Np,), B, np.int64)
+    t_lane[:n] = np.arange(n)
+    t_dec = np.zeros((Np,), np.int64)
+    t_dec[:n] = 1
+    dec_cap = np.zeros((B,), np.int64)
+    dec_cap[:n] = 1
+    seg_off = np.zeros((B,), np.int64)
+    seg_off[:n] = np.arange(n)
+    z = np.zeros((B,), np.int64)
+    layout = np.concatenate(
+        [np.zeros((Np,), np.int64), t_lane, np.zeros((Np,), np.int64), t_dec,
+         z, z, z, z, dec_cap, seg_off]
+    )
+    return Np, torch.from_numpy(layout).pin_memory()
+
+
+def _replay_equals_eager(eng, dispatch):
+    """A dispatch's first run (its graphs captured after their eager
+    warm-ups) and a second run from the same starting state (replays
+    alone) give the same output, state and pool bit for bit.  Returns the
+    starting state, the output and the launch counts of one dispatch."""
+    from dynamo_tpu_torch.engine.graphs import launch_counts
+
+    snap = _snapshot(eng)
+    before = launch_counts()
+    first = dispatch().clone()
+    torch.cuda.synchronize()
+    launches = [a - b for a, b in zip(launch_counts(), before)]
+    after_first = _state_now(eng)
+    captures = eng.graph_captures
+    assert captures > 0
+    _restore(eng, snap)
+    replays = sum(eng.graph_replays.values())
+    again = dispatch().clone()
+    torch.cuda.synchronize()
+    assert eng.graph_captures == captures and sum(eng.graph_replays.values()) > replays
+    assert torch.equal(again, first)
+    for got, want in zip(_state_now(eng), after_first):
+        assert torch.equal(got, want)
+    assert any(launches)
+    return snap, first, launches
+
+
+def _packed_dispatch(eng, K, n=GB, Pb=8):
+    """A decode-only packed dispatch of K steps over lanes 0..n-1: the
+    packed step's graph, then K - 1 decode-step replays."""
+    Np, layout = _decode_layout(eng.cfg.max_batch_size, n)
+    key = ("packed", Np, 1, Pb, 0, False)
+
+    def dispatch():
+        row0 = eng.graphs.run("packed", key, (layout,), eng._packed_call(Np, 1, Pb, 0, False))
+        return eng._decode_steps(row0, K, Pb, 0, False, False)
+
+    return dispatch
+
+
+@pytest.mark.parametrize("K", [1, 2, 8])
+@pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["dense", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_graph_replay_equals_eager(card, dtype, kv_dtype, K):
+    from dynamo_tpu_torch.engine.graphs import launch_counts
+
+    eng = _graph_engine(card, dtype, kv_dtype)
+    dispatch = _packed_dispatch(eng, K)
+    snap, first, launches = _replay_equals_eager(eng, dispatch)
+    assert first.shape == (GB, K, 2) and (first[:, :, 0] >= 0).all()
+    assert eng.graph_captures == (1 if K == 1 else 2)
+    # the launch counts after N replayed dispatches: N times one dispatch's
+    base = launch_counts()
+    for _ in range(3):
+        _restore(eng, snap)
+        dispatch()
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(launch_counts(), base)] == [3 * n for n in launches]
+
+
+@pytest.mark.parametrize("use_penalties", [False, True])
+def test_decode_block_graph_replay_equals_eager(card, use_penalties):
+    eng = _graph_engine(card, torch.bfloat16)
+    _, first, _ = _replay_equals_eager(
+        eng, lambda: eng._decode_steps(None, 4, 8, 0, True, use_penalties)
+    )
+    assert first.shape == (GB, 4, 2) and eng.graph_captures == 1
+
+
+def test_evicted_packed_key_recaptures_the_same_bits(card):
+    """A shape the budget evicts releases its graph; the next dispatch of
+    that shape captures it again and gives the same bits."""
+    from types import SimpleNamespace
+
+    from dynamo_tpu_torch.engine.bucketing import PackedShapeBudget
+
+    eng = _graph_engine(card, torch.bfloat16)
+    eng._packed_shapes = PackedShapeBudget(1)
+    B = GB
+    z = np.zeros((B,), np.int64)
+
+    def packed_keys():
+        return [k[1:3] for k in eng.graphs.keys() if k[0] == "packed"]
+
+    def decode(n):
+        dec_cap = np.arange(B) < n
+        out = eng._run_packed(
+            {}, z, z, np.zeros((B,), bool), dec_cap, dec_cap.astype(np.int64), n, 8, 2,
+            0, False,
+        )
+        torch.cuda.synchronize()
+        return out.clone()
+
+    snap = _snapshot(eng)
+    first = decode(B)
+    assert packed_keys() == [(B, 1)] and eng.graph_captures == 2  # packed, step
+    # an 8-token chunk on lane 0 alone: shape (8, 8), which (4, 1) does
+    # not dominate, so it evicts (4, 1) and its graph
+    p_lens = z.copy()
+    p_lens[0] = 8
+    chunk = SimpleNamespace(seq=SimpleNamespace(prompt=list(range(1, 9))), start=0, length=8)
+    eng._run_packed(
+        {0: chunk}, z, p_lens, np.zeros((B,), bool), np.zeros((B,), bool), p_lens, 8, 8,
+        1, 0, False,
+    )
+    assert packed_keys() == [] and eng._packed_shapes.evictions == 1
+    _restore(eng, snap)
+    again = decode(B)
+    assert eng._packed_shapes.evictions == 2 and eng.graph_captures == 3
+    assert torch.equal(again, first)
+
+
+def test_graph_capture_and_release_keep_memory_flat(card):
+    import gc
+
+    eng = _graph_engine(card, torch.bfloat16)
+    dispatch = _packed_dispatch(eng, 8)
+    snap = _snapshot(eng)
+    seen = []
+    for _ in range(4):
+        _restore(eng, snap)
+        dispatch()
+        torch.cuda.synchronize()
+        eng.graphs.release(lambda k: False)
+        gc.collect()
+        seen.append(torch.cuda.memory_allocated())
+    assert eng.graph_captures == 8
+    assert len(set(seen[1:])) == 1, seen
