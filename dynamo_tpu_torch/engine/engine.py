@@ -458,7 +458,8 @@ class TorchEngine:
         while an eager dispatch's span also holds the device's waits for
         the host's launches.  Spans whose end has not completed are not
         read yet; ``stop()`` reads them all."""
-        return {k: dict(v) for k, v in self.span_stats.items()}
+        # one C-level copy of the items: the executor thread may add a kind
+        return {k: dict(v) for k, v in list(self.span_stats.items())}
 
     # -- the tick loop ------------------------------------------------------
 
