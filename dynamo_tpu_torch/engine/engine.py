@@ -35,12 +35,13 @@ its own, then records a CUDA event; the host commits a dispatch
 generation (replaying the stop rules, ``Scheduler.commit_block`` /
 ``commit_prefill_token``) once its event has completed or when the
 pipeline is full: two generations deep with ``async_dispatch`` (the
-default), one without.  Streams then go out through a bounded fanout
-worker.  Token streams are the same in both modes.  On the card the
-decode-only dispatches replay CUDA graphs (``graphs.py``), and each
-dispatch's device span and the gap before it are timed on CUDA events
-(``dispatch_spans``).  Device work runs on one executor thread; the event
-loop keeps serving I/O meanwhile.
+default), one without.  A classic prefill dispatch commits as soon as
+it lands, within its tick, so its first tokens stream then and not with
+the tick's decode block.  Streams go out through a bounded fanout worker.  Token streams are the
+same in both modes.  On the card the decode-only dispatches replay CUDA
+graphs (``graphs.py``), and each dispatch's device span and the gap
+before it are timed on CUDA events (``dispatch_spans``).  Device work
+runs on one executor thread; the event loop keeps serving I/O meanwhile.
 
 Not served yet (later slices): multimodal prompts and prompt logprobs
 (such a request gets an error frame), speculative decoding (its request
@@ -63,7 +64,9 @@ import concurrent.futures
 import itertools
 import logging
 from dataclasses import dataclass, field
-from typing import Any, AsyncIterator, Deque, Dict, List, Optional, Sequence, Tuple, Union
+from typing import (
+    Any, AsyncIterator, Deque, Dict, Hashable, List, Optional, Sequence, Tuple, Union,
+)
 
 import numpy as np
 import torch
@@ -85,18 +88,20 @@ from .bucketing import (
     prefill_buckets,
 )
 from .config import EngineConfig, ModelConfig
-from .graphs import StepCall, StepGraphs
+from .graphs import StepGraphs
 from .kv_cache import PagedKVCache, pool_is_quantized, torch_dtype
 from .model import Params, init_params
 from .sampling import PROMPT_FLAG, SamplingParams, unpack_sampled_logprobs
 from .scheduler import MixedChunk, Scheduler, SchedulerConfig, SeqState, StepEvent
 from .step import (
     LANE_ROWS,
+    StepFn,
+    StepRunner,
     bump_counts,
-    decode_step,
+    decode_block,
     inject_token,
     inject_tokens,
-    packed_unified_step,
+    packed_unified_multistep,
     prefill_and_sample,
     prefill_suffix_and_sample,
     seed_count_rows,
@@ -168,9 +173,9 @@ def _handles_ready(res: Result) -> bool:
 class InflightPrefill:
     """A lane's dispatched-but-uncommitted first token: it lives on the
     device (already injected into the decode state, ``tok`` a device view
-    for the re-apply path); the host commits it with its generation.
-    ``sampled`` is set when the prefill is a generation entry of its own;
-    inside a group or a unified dispatch the parent's rows carry it."""
+    for the re-apply path) until the host commits it.  ``sampled`` is set
+    when the prefill is a dispatch of its own; inside a group or a unified
+    dispatch the parent's rows carry it."""
 
     tok: torch.Tensor  # [1] device view of the sampled token
     seq: SeqState
@@ -475,12 +480,7 @@ class TorchEngine:
 
     def _entries_ready(self, entries: List[Inflight]) -> bool:
         """Non-blocking probe: have this generation's results landed?"""
-        for e in entries:
-            if isinstance(e, InflightPrefill) and e.sampled is None:
-                continue
-            if not _handles_ready(e.sampled):
-                return False
-        return True
+        return all(_handles_ready(e.sampled) for e in entries)
 
     async def _emit_events(self, events: List[StepEvent]) -> None:
         """Hand a commit's events to the streams: the bounded fanout queue
@@ -518,6 +518,15 @@ class TorchEngine:
             events = await self._on_executor(self._commit_all, inflight.popleft())
             await self._emit_events(events)
 
+    async def _commit_prefill(self, entries: List[Inflight]) -> None:
+        """Commit a classic prefill dispatch as soon as it has landed, so
+        its first tokens stream then and not with the tick's decode
+        dispatch.  The tick waits for it here, in both loops at the same
+        point, so both plan on the same commits; the device meanwhile runs
+        whatever was queued before it."""
+        events = await self._on_executor(self._commit_all, entries)
+        await self._emit_events(events)
+
     async def _run(self) -> None:
         """The tick loop, pipelined over the device queue (the JAX engine's
         ``_run``).  Up to ``_pipe_depth`` dispatch generations stay
@@ -550,11 +559,6 @@ class TorchEngine:
                 # freed slots and pages and committed stops reach this
                 # tick's plan
                 await self._commit_ready(inflight, self._pipe_depth)
-                sched.decode_inflight_tokens = (
-                    self._pipe_depth * min(self._ms_ramp, self._ms_max)
-                    if self._multistep
-                    else 0
-                )
                 plan = sched.plan()
                 if sched.num_active > 0:
                     # every uncommitted generation may hold a full block's
@@ -568,6 +572,7 @@ class TorchEngine:
                     )
                 self._revive_paused_lanes()
                 fresh: List[Inflight] = []
+                minted = False  # a classic prefill sampled first tokens
                 mixed_ok = self._mixed_tick_ok()
                 if not mixed_ok and sched.mix_pending:
                     self._drain_mixed_to_classic()
@@ -579,8 +584,9 @@ class TorchEngine:
                     if not self._holds_slot(seq) or not seq.prefilling:
                         continue  # cancelled / preempted mid-prefill
                     pf = await self._on_executor(self._dispatch_chunk, seq)
-                    if pf is not None:
-                        fresh.append(pf)  # final chunk sampled
+                    if pf is not None:  # final chunk sampled
+                        minted = True
+                        await self._commit_prefill([pf])
                     else:
                         still.append(seq)
                 self._chunking = still
@@ -612,7 +618,8 @@ class TorchEngine:
                     ):
                         pf = await self._on_executor(self._do_prefill, seq)
                         if pf is not None:
-                            fresh.append(pf)
+                            minted = True
+                            await self._commit_prefill([pf])
                         elif seq.prefilling:
                             self._chunking.append(seq)
                         continue
@@ -626,14 +633,17 @@ class TorchEngine:
                     )
                     groups.setdefault(key, []).append((seq, prompt_len))
                 for items in groups.values():
-                    fresh.extend(await self._on_executor(self._do_prefill_group, items))
+                    minted = True
+                    await self._commit_prefill(
+                        await self._on_executor(self._do_prefill_group, items)
+                    )
                 chunks = (
                     sched.form_mixed_chunks(self._mixed_budget, self._chunk_tokens)
                     if mixed_ok
                     else []
                 )
                 k = (
-                    self._multistep_plan_k(chunks, self._mints_first(fresh))
+                    self._multistep_plan_k(chunks, minted)
                     if self._multistep and mixed_ok
                     else 0
                 )
@@ -653,14 +663,15 @@ class TorchEngine:
                     blk = await self._on_executor(self._dispatch_block)
                     if blk is not None:
                         fresh.append(blk)
-                self._firsts_last_tick = self._mints_first(fresh)
+                self._firsts_last_tick = minted or bool(ub is not None and ub.finals)
                 if fresh:
                     inflight.append(fresh)
                 # the oldest generation commits when the pipeline is past
                 # its depth, when it has landed (async mode), or -- nothing
                 # dispatched -- to drain toward idle
-                await self._commit_ready(inflight, self._pipe_depth if fresh else 0)
-                if not fresh and not inflight:
+                dispatched = bool(fresh) or minted
+                await self._commit_ready(inflight, self._pipe_depth if dispatched else 0)
+                if not dispatched and not inflight:
                     self._handle_stalled_admission()
                     await asyncio.sleep(0.001)
                 await asyncio.sleep(0)
@@ -683,15 +694,6 @@ class TorchEngine:
             seq.finish is None
             and seq.slot >= 0
             and self.sched.slots[seq.slot] is seq
-        )
-
-    @staticmethod
-    def _mints_first(entries: List[Inflight]) -> bool:
-        """Whether any of these dispatches sampled a lane's first token."""
-        return any(
-            isinstance(e, (InflightPrefill, InflightPrefillGroup))
-            or (isinstance(e, InflightUnified) and e.finals)
-            for e in entries
         )
 
     def _multistep_plan_k(self, chunks: List[MixedChunk], firsts: bool = False) -> int:
@@ -825,12 +827,12 @@ class TorchEngine:
 
     # -- host arrays on the device ------------------------------------------
 
-    def _stage(self, a: np.ndarray) -> torch.Tensor:
+    def _stage(self, a: Union[np.ndarray, torch.Tensor]) -> torch.Tensor:
         """A host array as a tensor this call owns: on the card in pinned
         memory, the source of a non-blocking copy (the copy reads it when
         the stream gets there, so it must never be a scheduler mirror the
         host mutates later); on the CPU a plain copy."""
-        t = torch.from_numpy(np.ascontiguousarray(a))
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
         return t.pin_memory() if self.device.type == "cuda" else t.clone()
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
@@ -1167,11 +1169,6 @@ class TorchEngine:
             sched.max_pages,
         )
 
-    def _page_table(self, Pb: int) -> torch.Tensor:
-        """The persistent page table's ``[:B, :Pb]`` slice, contiguous for
-        the kernels (a copy inside the dispatch, captured with it)."""
-        return self._v["page_table"][:, :Pb].contiguous()
-
     def _commit_state(self, tokens, seq_lens, active) -> None:
         v = self._v
         v["tokens"].copy_(tokens)
@@ -1266,8 +1263,9 @@ class TorchEngine:
             packed, tokens, seq_lens, active = unified_step(
                 self.params, self.model_cfg, self.kv.pages, v["tokens"],
                 v["seq_lens"], v["limit_lens"], v["active"], v["stop_ids"],
-                self._page_table(Pb), put(p_tokens), put(p_start), put(p_lens),
-                put(p_sample), put(p_sample), self._samp, top_n, use_filters,
+                v["page_table"][:, :Pb].contiguous(), put(p_tokens), put(p_start),
+                put(p_lens), put(p_sample), put(p_sample), self._samp, top_n,
+                use_filters,
             )
             self._commit_state(tokens, seq_lens, active)
             packed = packed[:, None]
@@ -1308,7 +1306,9 @@ class TorchEngine:
         if self._packed_shapes.evictions != evicted:
             live = set(self._packed_shapes.pairs)
             self.graphs.release(lambda k: k[0] != "packed" or (k[1], k[2], 0) in live)
-        # the layout as ONE int64 array: one host-to-device copy
+        # the packed axis' tokens, lanes, rows and decode flags (the step
+        # takes them with the per-lane arrays as one int64 tensor: one
+        # host-to-device copy)
         t_tokens = np.zeros((Np,), np.int64)
         t_lane = np.full((Np,), B, np.int64)
         t_rel = np.zeros((Np,), np.int64)
@@ -1325,88 +1325,52 @@ class TorchEngine:
                 t_tokens[o : o + ql] = ch.seq.prompt[ch.start : ch.start + ql]
             else:
                 t_dec[o] = 1
-        layout = np.concatenate(
-            [t_tokens, t_lane, t_rel, t_dec, p_start, p_lens, p_sample, p_sample,
-             dec_cap, seg_off]
-        ).astype(np.int64)
-        call = self._packed_call(Np, s_max, Pb, top_n, use_filters)
-        inputs = (self._stage(layout),)
-        if chunk_by_slot:
-            row0 = call(tuple(t.to(self.device, non_blocking=True) for t in inputs))
-        else:
-            key = ("packed", Np, s_max, Pb, top_n, use_filters)
-            row0 = self.graphs.run("packed", key, inputs, call)
-        return self._decode_steps(row0, num_steps, Pb, top_n, use_filters, False)
-
-    def _packed_call(
-        self, Np: int, s_max: int, Pb: int, top_n: int, use_filters: bool
-    ) -> StepCall:
-        """The packed unified step over the persistent decode state: takes
-        the layout (one int64 tensor: the packed axis' tokens, lanes, rows
-        and decode flags, then the per-lane chunk and segment arrays),
-        updates the state in place and returns its rows ``[B, 2 +
-        2*top_n]``."""
-        B = self.cfg.max_batch_size
         v = self._v
-
-        def call(inputs: Tuple[torch.Tensor, ...]) -> torch.Tensor:
-            parts = torch.split(inputs[0], [Np] * 4 + [B] * 6)
-            tt, tl, tr, td, ps, pl, psm, pa, dc, so = parts
-            row, tokens, seq_lens, active = packed_unified_step(
-                self.params, self.model_cfg, self.kv.pages, v["tokens"],
-                v["seq_lens"], v["limit_lens"], v["active"], v["stop_ids"],
-                self._page_table(Pb), tt, tl, tr, td != 0, ps, pl, psm != 0,
-                pa != 0, dc != 0, so, self._samp, s_max, top_n, use_filters,
-            )
-            self._commit_state(tokens, seq_lens, active)
-            return row
-
-        return call
-
-    def _decode_steps(
-        self, row0: Optional[torch.Tensor], K: int, Pb: int, top_n: int,
-        use_filters: bool, use_penalties: bool,
-    ) -> torch.Tensor:
-        """``packed [B, K, 2 + 2*top_n]``: ``row0`` (the packed step's rows,
-        when given) and then one decode step per remaining row -- the
-        multistep tail, or all K steps of a decode block -- each replaying
-        the decode-step graph on the card.  A row is copied out before the
-        next replay overwrites the graph's output."""
-        B = self.cfg.max_batch_size
-        packed = torch.empty((B, K, 2 + 2 * top_n), dtype=torch.int32, device=self.device)
-        first = 0
-        if row0 is not None:
-            packed[:, 0].copy_(row0)
-            first = 1
-        if K > first:
-            call = self._step_call(Pb, top_n, use_filters, use_penalties)
-            key = ("step", Pb, top_n, use_filters, use_penalties)
-            for k in range(first, K):
-                packed[:, k].copy_(self.graphs.run("step", key, (), call))
+        t = torch.from_numpy
+        keys = {
+            "packed": ("packed", Np, s_max, Pb, top_n, use_filters),
+            "step": ("step", Pb, top_n, use_filters, False),
+        }
+        packed, *_ = packed_unified_multistep(
+            self.params, self.model_cfg, self.kv.pages, v["tokens"], v["seq_lens"],
+            v["limit_lens"], v["active"], v["stop_ids"], v["page_table"][:, :Pb],
+            t(t_tokens), t(t_lane), t(t_rel), t(t_dec), t(p_start), t(p_lens),
+            t(p_sample), t(p_sample), t(dec_cap), t(seg_off), self._samp, s_max,
+            num_steps, top_n, use_filters,
+            self._step_runner(keys, eager=bool(chunk_by_slot)),
+        )
         return packed
 
-    def _step_call(
-        self, Pb: int, top_n: int, use_filters: bool, use_penalties: bool
-    ) -> StepCall:
-        """One decode step over the persistent decode state (and
-        histograms, with penalties): takes no inputs, updates the state in
-        place and returns its rows ``[B, 2 + 2*top_n]``."""
+    def _run_block(
+        self, K: int, Pb: int, top_n: int, use_filters: bool, use_penalties: bool
+    ) -> torch.Tensor:
+        """A classic decode block of K steps over the persistent decode
+        state (and histograms, with penalties), each step a replay of the
+        decode-step graph on the card.  Returns ``packed [B, K, 2 +
+        2*top_n]``."""
         v = self._v
-        counts = self._counts[: self.cfg.max_batch_size]
+        key = ("step", Pb, top_n, use_filters, use_penalties)
+        return decode_block(
+            self.params, self.model_cfg, self.kv.pages, v["tokens"], v["seq_lens"],
+            v["limit_lens"], v["active"], v["stop_ids"], v["page_table"][:, :Pb],
+            self._samp, K, use_filters, top_n, self._counts[: self.cfg.max_batch_size],
+            use_penalties, self._step_runner({"step": key}),
+        )[0]
 
-        def call(_inputs: Tuple[torch.Tensor, ...]) -> torch.Tensor:
-            row, tokens, seq_lens, active, new_counts = decode_step(
-                self.params, self.model_cfg, self.kv.pages, v["tokens"],
-                v["seq_lens"], v["limit_lens"], v["active"], v["stop_ids"],
-                self._page_table(Pb), self._samp, top_n, use_filters,
-                counts if use_penalties else None,
-            )
-            self._commit_state(tokens, seq_lens, active)
-            if use_penalties:
-                counts.copy_(new_counts)
-            return row
+    def _step_runner(self, keys: Dict[str, Hashable], eager: bool = False) -> StepRunner:
+        """How the steps of a multi-step dispatch run: their host inputs
+        staged, then the graph of the kind's key replayed on the card
+        (captured at its first use; on the CPU the step runs eagerly) --
+        or, with ``eager`` (a dispatch that carries chunks), the step
+        itself on its inputs copied to the device."""
 
-        return call
+        def run(kind: str, fn: StepFn, inputs: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+            staged = tuple(self._stage(x) for x in inputs)
+            if eager:
+                return fn(tuple(x.to(self.device, non_blocking=True) for x in staged))
+            return self.graphs.run(kind, keys[kind], staged, fn)
+
+        return run
 
     def _dispatch_block(self) -> Optional[InflightBlock]:
         """Enqueue one classic decode block of ``decode_block_size`` steps
@@ -1443,7 +1407,7 @@ class TorchEngine:
         elif not use_penalties:
             self._counts_live = False
         top_n = self._lp_top(slots)
-        packed = self._decode_steps(None, K, Pb, top_n, use_filters, use_penalties)
+        packed = self._run_block(K, Pb, top_n, use_filters, use_penalties)
         res = self._download(packed, self._span_kind("decode_block", marks), start)
         self._count("decode_block")
         return InflightBlock(res, slots, [s.life if s is not None else -1 for s in slots])
@@ -1546,7 +1510,7 @@ class TorchEngine:
         """One prefill dispatch for a group of same-shape admissions (one
         suffix bucket, one prefix-page bucket), the batch padded to a power
         of two; every lane's first token goes into the decode state on the
-        device, the host commits them with the generation."""
+        device, and the tick commits them once the dispatch has landed."""
         seqs = [seq for seq, _ in items]
         for seq in seqs:
             self._note_prefix_stats(seq)
@@ -1608,12 +1572,10 @@ class TorchEngine:
     # -- commits (executor thread) ------------------------------------------
 
     def _commit_all(self, entries: List[Inflight]) -> List[StepEvent]:
-        """Read and commit one dispatch generation in dispatch order: every
-        result of the generation in one pass, then the stop-rule replay."""
-        mats = [
-            None if isinstance(e, InflightPrefill) and e.sampled is None else e.sampled.numpy()
-            for e in entries
-        ]
+        """Read and commit one dispatch generation (or one classic prefill
+        dispatch) in dispatch order: every result in one pass, then the
+        stop-rule replay."""
+        mats = [e.sampled.numpy() for e in entries]
         self._drain_spans()
         sched = self.sched
         events: List[StepEvent] = []

@@ -54,10 +54,7 @@ import torch
 
 from ..ops import build
 from . import attention as att
-
-# the dispatch's own call: takes the device inputs, updates the persistent
-# state in place and returns the packed sampled rows
-StepCall = Callable[[Tuple[torch.Tensor, ...]], torch.Tensor]
+from .step import StepFn
 
 
 def launch_counts() -> List[int]:
@@ -98,7 +95,7 @@ class StepGraphs:
         return list(self._graphs)
 
     def run(
-        self, kind: str, key: Hashable, inputs: Sequence[torch.Tensor], call: StepCall
+        self, kind: str, key: Hashable, inputs: Sequence[torch.Tensor], call: StepFn
     ) -> torch.Tensor:
         """Run one step: ``inputs`` are host tensors (pinned on the
         card).  On the CPU ``call`` runs on them eagerly; on the card the
@@ -116,7 +113,7 @@ class StepGraphs:
         return g.output
 
     def _capture(
-        self, key: Hashable, inputs: Sequence[torch.Tensor], call: StepCall
+        self, key: Hashable, inputs: Sequence[torch.Tensor], call: StepFn
     ) -> torch.Tensor:
         t0 = time.perf_counter()
         if self._side is None:

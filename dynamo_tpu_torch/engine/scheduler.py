@@ -12,10 +12,10 @@ lane).
 
 The scheduler is sans-IO: it owns numpy mirrors of the device-side batch
 arrays (tokens / seq_lens / page_table) and pure-Python bookkeeping; the
-engine drives it and runs the device steps.  Two versions and a dirty-lane
+engine drives it and runs the device steps.  A version and a dirty-lane
 set tell the engine what of its device-resident decode state is stale:
-``layout_version`` (slot membership), ``growth_version`` (pages appended to
-live lanes) and ``dirty_slots`` (lanes whose mirrors changed).
+``growth_version`` (pages appended to live lanes) and ``dirty_slots``
+(lanes whose mirrors changed).
 """
 
 from __future__ import annotations
@@ -160,11 +160,6 @@ class Scheduler:
         self.pool = pool
         self.block_size = cfg.page_size
         self.preempt_recompute = 0
-        # tokens a decode lane may grow by before the scheduler can react
-        # again: the engine sets this to its multistep K times its pipeline
-        # depth each tick, and ``predicted_pages`` charges every decode lane
-        # at least that much uncommitted in-flight growth
-        self.decode_inflight_tokens = 0
         B = cfg.max_batch_size
         self.max_pages = cfg.max_seq_len // cfg.page_size
         self.waiting: Deque[SeqState] = collections.deque()
@@ -177,14 +172,12 @@ class Scheduler:
         self.tokens = np.zeros((B,), np.int32)
         self.seq_lens = np.zeros((B,), np.int32)
         self.page_table = np.zeros((B, self.max_pages), np.int32)
-        # layout_version: slot membership changed (admission / release /
-        # preemption).  growth_version: pages were appended to live lanes --
-        # the engine refreshes the device page table and limits, keeping the
-        # decode pipeline running.  dirty_slots: lanes whose mirrors changed
+        # growth_version: pages were appended to live lanes -- the engine
+        # refreshes the device page table and limits, keeping the decode
+        # pipeline running.  dirty_slots: lanes whose mirrors changed
         # (admission/release); the engine folds them into the device-resident
         # decode state with per-row scatters instead of a full rebuild, so
         # the decode pipeline never drains for batch-membership changes.
-        self.layout_version = 0
         self.growth_version = 0
         self.dirty_slots: set = set()
 
@@ -250,19 +243,6 @@ class Scheduler:
         )
         by_len = self.cfg.max_seq_len - seq.seq_len
         return max(0, min(by_max, by_len))
-
-    def predicted_pages(self, seq: SeqState) -> int:
-        """Predicted peak KV pages of a request: its length plus its
-        remaining token budget, and never less than a decode-phase lane's
-        uncommitted in-flight growth (``decode_inflight_tokens``, capped by
-        what it may still emit) or the pages it already holds."""
-        remaining = self.remaining_budget(seq)
-        head = remaining
-        if seq.slot >= 0 and not seq.prefilling:
-            head = max(head, min(self.decode_inflight_tokens, remaining))
-        n = min(seq.seq_len + head, self.cfg.max_seq_len)
-        pages = -(-n // self.cfg.page_size)
-        return max(min(pages, self.max_pages), len(seq.pages))
 
     def min_total_pages(self, seq: SeqState) -> int:
         """Smallest page count that lets the sequence make forward progress:
@@ -437,7 +417,6 @@ class Scheduler:
         self.page_table[b, : len(seq.pages)] = seq.pages
         self.seq_lens[b] = len(seq.prompt)
         self.tokens[b] = seq.prompt[-1] if seq.prompt else 0
-        self.layout_version += 1
         self.dirty_slots.add(b)
 
     # -- decode bookkeeping --------------------------------------------------
@@ -532,7 +511,6 @@ class Scheduler:
             self.page_table[b, :] = 0
             self.seq_lens[b] = 0
             self.tokens[b] = 0
-            self.layout_version += 1
             self.dirty_slots.add(b)
         # registered blocks outlive the sequence (refcount drops; the block
         # turns inactive-reusable at zero); only exclusively-owned pages and

@@ -24,6 +24,12 @@ Those tensors carry one spare row at index B; a pad row of a scatter (the
 JAX functions' ``mode="drop"`` rows) carries slot B and lands there, and
 no step ever reads it.
 
+Multi-step dispatches (the packed step's multistep tail and the decode
+block) keep their decode state in the tensors they are given, updated in
+place step by step, and run each step through a ``StepRunner``: eagerly
+by default; the engine passes one that replays the step's CUDA graph on
+the card (``graphs.py``), so the composition here is the one that serves.
+
 Multi-step rule (the multistep tail and the decode block): every step
 runs, because branching on ``active.any()`` between steps would cost a host
 sync per step.  A step whose lanes are all inactive is the JAX package's
@@ -37,7 +43,7 @@ as K single-step dispatches, for greedy and seeded lanes alike.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -53,6 +59,43 @@ from .sampling import (
     sample_tokens,
     token_logprobs,
 )
+
+# one step's function: takes its device inputs, updates the decode state in
+# place and returns its sampled rows ``[B, 2 + 2*top_n]``
+StepFn = Callable[[Tuple[torch.Tensor, ...]], torch.Tensor]
+# runs one step of a multi-step dispatch: ``run(kind, fn, inputs)`` returns
+# ``fn``'s rows on ``inputs`` (host or device tensors); ``kind`` is
+# ``"packed"`` (the packed step, ``inputs`` = its layout) or ``"step"`` (a
+# decode step, no inputs)
+StepRunner = Callable[[str, StepFn, Tuple[torch.Tensor, ...]], torch.Tensor]
+
+
+def run_eager(kind: str, fn: StepFn, inputs: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+    """The default :data:`StepRunner`: the step itself, on its inputs."""
+    return fn(inputs)
+
+
+def _write_state(dst: Sequence[torch.Tensor], src: Sequence[torch.Tensor]) -> None:
+    for d, v in zip(dst, src):
+        d.copy_(v)
+
+
+def _run_steps(
+    num_steps: int,
+    first: Callable[[], torch.Tensor],
+    step: Callable[[], torch.Tensor],
+) -> torch.Tensor:
+    """The K-step composition: ``first()``'s rows, then ``step()``'s for
+    the remaining rows, as ``packed [B, num_steps, W]``.  Each row is copied
+    out before the next step runs (a graph's static output is overwritten
+    by its next replay)."""
+    packed = None
+    for k in range(num_steps):
+        row = first() if k == 0 else step()
+        if packed is None:
+            packed = row.new_empty((row.shape[0], num_steps, row.shape[1]))
+        packed[:, k].copy_(row)
+    return packed
 
 
 def mixed_sample_epilogue(
@@ -181,12 +224,12 @@ def packed_unified_multistep(
     params: Params,
     cfg: ModelConfig,
     kv_pages: KVPool,
-    tokens: torch.Tensor,
+    tokens: torch.Tensor,  # [B] updated in place, as are seq_lens and active
     seq_lens: torch.Tensor,
     limit_lens: torch.Tensor,
     active: torch.Tensor,
     stop_ids: torch.Tensor,
-    page_table: torch.Tensor,
+    page_table: torch.Tensor,  # [B, P]; may be a column slice of a wider table
     t_tokens: torch.Tensor,
     t_lane: torch.Tensor,
     t_rel: torch.Tensor,
@@ -202,25 +245,44 @@ def packed_unified_multistep(
     num_steps: int,
     top_n: int = 0,
     use_filters: bool = True,
+    run: StepRunner = run_eager,
 ) -> Tuple[torch.Tensor, ...]:
     """``num_steps`` decode iterations in one dispatch: step 0 is the full
-    :func:`packed_unified_step`, steps 1..K-1 run :func:`decode_once` on
+    :func:`packed_unified_step`, steps 1..K-1 run :func:`decode_step_` on
     the state step 0 left (see the module docstring for the dead-step
-    rule).  Returns ``packed [B, num_steps, 2 + 2*top_n]`` (``-1`` tokens
-    mark steps a lane was already inactive for) and the final state."""
-    packed0, tokens, seq_lens, active = packed_unified_step(
-        params, cfg, kv_pages, tokens, seq_lens, limit_lens, active, stop_ids,
-        page_table, t_tokens, t_lane, t_rel, t_dec, p_start, p_lens, p_sample,
-        p_activate, dec_cap, seg_off, sampling, s_max, top_n, use_filters,
+    rule).  The layout (``t_*``, ``p_*``, ``dec_cap``, ``seg_off``, host or
+    device tensors) enters step 0 as one int64 tensor.  Returns ``packed
+    [B, num_steps, 2 + 2*top_n]`` (``-1`` tokens mark steps a lane was
+    already inactive for) and the final state."""
+    B = tokens.shape[0]
+    Np = t_tokens.shape[0]
+    layout = torch.cat(
+        [x.long() for x in (t_tokens, t_lane, t_rel, t_dec, p_start, p_lens,
+                            p_sample, p_activate, dec_cap, seg_off)]
     )
-    rows = [packed0]
-    for _ in range(num_steps - 1):
-        row, tokens, seq_lens, active, _ = decode_step(
-            params, cfg, kv_pages, tokens, seq_lens, limit_lens, active,
-            stop_ids, page_table, sampling, top_n, use_filters,
+
+    def packed_fn(inputs: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+        tt, tl, tr, td, ps, pl, psm, pa, dc, so = torch.split(inputs[0], [Np] * 4 + [B] * 6)
+        row, *new = packed_unified_step(
+            params, cfg, kv_pages, tokens, seq_lens, limit_lens, active, stop_ids,
+            page_table.contiguous(), tt, tl, tr, td != 0, ps, pl, psm != 0,
+            pa != 0, dc != 0, so, sampling, s_max, top_n, use_filters,
         )
-        rows.append(row)
-    return torch.stack(rows, dim=1), tokens, seq_lens, active
+        _write_state((tokens, seq_lens, active), new)
+        return row
+
+    def step_fn(_inputs: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+        return decode_step_(
+            params, cfg, kv_pages, tokens, seq_lens, limit_lens, active, stop_ids,
+            page_table, sampling, top_n, use_filters,
+        )
+
+    packed = _run_steps(
+        num_steps,
+        lambda: run("packed", packed_fn, (layout,)),
+        lambda: run("step", step_fn, ()),
+    )
+    return packed, tokens, seq_lens, active
 
 
 def decode_step(
@@ -270,14 +332,41 @@ def decode_step(
     )
 
 
+def decode_step_(
+    params: Params,
+    cfg: ModelConfig,
+    kv_pages: KVPool,
+    tokens: torch.Tensor,  # [B] updated in place, as are seq_lens and active
+    seq_lens: torch.Tensor,
+    limit_lens: torch.Tensor,
+    active: torch.Tensor,
+    stop_ids: torch.Tensor,
+    page_table: torch.Tensor,  # [B, P]; may be a column slice of a wider table
+    sampling: SamplingParams,
+    top_n: int,
+    use_filters: bool,
+    counts: Optional[torch.Tensor] = None,  # updated in place when given
+) -> torch.Tensor:
+    """:func:`decode_step` on state tensors it updates in place: one step
+    of a multi-step dispatch, the call a step's CUDA graph captures.
+    Returns the step's rows ``[B, 2 + 2*top_n]``."""
+    row, *new = decode_step(
+        params, cfg, kv_pages, tokens, seq_lens, limit_lens, active, stop_ids,
+        page_table.contiguous(), sampling, top_n, use_filters, counts,
+    )
+    state = (tokens, seq_lens, active) if counts is None else (tokens, seq_lens, active, counts)
+    _write_state(state, new)
+    return row
+
+
 def decode_block(
     params: Params,
     cfg: ModelConfig,
     kv_pages: KVPool,  # updated in place
-    tokens: torch.Tensor,  # [B] last committed token per lane
-    seq_lens: torch.Tensor,  # [B] cache length (position of the incoming token)
+    tokens: torch.Tensor,  # [B] last committed token per lane (updated in place)
+    seq_lens: torch.Tensor,  # [B] cache length (updated in place)
     limit_lens: torch.Tensor,  # [B] cache length at which a lane must stop
-    active: torch.Tensor,  # [B] bool
+    active: torch.Tensor,  # [B] bool (updated in place)
     stop_ids: torch.Tensor,  # [B, E] device-checked stop tokens (-1 = pad)
     page_table: torch.Tensor,  # [B, P] (pre-grown for num_steps of growth)
     sampling: SamplingParams,
@@ -286,22 +375,26 @@ def decode_block(
     top_n: int = 0,
     counts: Optional[torch.Tensor] = None,  # [B, V] int32 packed histogram
     use_penalties: bool = False,
+    run: StepRunner = run_eager,
 ) -> Tuple[torch.Tensor, ...]:
     """``num_steps`` decode+sample iterations in one dispatch (the classic
-    decode block).  Lanes self-deactivate on a ``stop_ids`` token or at
-    ``limit_lens``; the host replays the stop rules at commit.  Returns
-    ``(packed [B, num_steps, 2 + 2*top_n], tokens, seq_lens, active,
-    counts)``; ``-1`` tokens mark steps a lane was already inactive for."""
+    decode block), each one :func:`decode_step_` through ``run``.  Lanes
+    self-deactivate on a ``stop_ids`` token or at ``limit_lens``; the host
+    replays the stop rules at commit.  Returns ``(packed [B, num_steps, 2 +
+    2*top_n], tokens, seq_lens, active, counts)``, the state tensors being
+    the ones given; ``-1`` tokens mark steps a lane was already inactive
+    for."""
     if not use_penalties:
         counts = None
-    rows = []
-    for _ in range(num_steps):
-        row, tokens, seq_lens, active, counts = decode_step(
-            params, cfg, kv_pages, tokens, seq_lens, limit_lens, active,
-            stop_ids, page_table, sampling, top_n, use_filters, counts,
+
+    def step_fn(_inputs: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+        return decode_step_(
+            params, cfg, kv_pages, tokens, seq_lens, limit_lens, active, stop_ids,
+            page_table, sampling, top_n, use_filters, counts,
         )
-        rows.append(row)
-    return torch.stack(rows, dim=1), tokens, seq_lens, active, counts
+
+    step = lambda: run("step", step_fn, ())  # noqa: E731
+    return _run_steps(num_steps, step, step), tokens, seq_lens, active, counts
 
 
 def unified_step(

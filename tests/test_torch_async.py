@@ -264,6 +264,37 @@ def test_fanout_worker_drains_on_stop(weights):
     asyncio.run(asyncio.wait_for(body(), WAIT_S))
 
 
+@pytest.mark.parametrize("async_dispatch", [True, False], ids=["async", "serial"])
+def test_first_tokens_stream_before_the_decode_block(weights, async_dispatch):
+    """Classic ticks dispatch a prefill group and then a decode block that
+    already steps the new lanes.  The group's first tokens commit and
+    stream once the group has landed, in a fanout batch of their own,
+    never in the batch of that block's tokens."""
+    batches = []
+
+    async def body():
+        engine = torch_engine(
+            weights[2], async_dispatch=async_dispatch, mixed_batching=False,
+            decode_block_size=4,
+        )
+        emit = engine._emit_events
+
+        async def spy(events):
+            batches.append([(ev.seq.request_id, len(ev.tokens)) for ev in events])
+            await emit(events)
+
+        engine._emit_events = spy
+        return await serve(engine, [request(range(1 + i, 7 + i), 8) for i in range(3)])
+
+    streams = asyncio.run(asyncio.wait_for(body(), WAIT_S))
+    assert all(len(t) == 8 for t, _ in streams)
+    for rid in ("r0", "r1", "r2"):
+        first = next(b for b in batches if any(r == rid for r, _ in b))
+        assert [n for r, n in first if r == rid] == [1], batches
+        later = [n for b in batches if b is not first for r, n in b if r == rid]
+        assert later and later[0] == 4, batches
+
+
 def test_async_greedy_streams_match_jax(weights):
     """The port's pipelined loop against the JAX engine's (both at their
     default ``async_dispatch=True``) on the same weights: greedy streams
@@ -475,9 +506,8 @@ def test_count_row_helpers_match_jax():
 
 
 def test_scheduler_versions_and_dirty_lanes():
-    """Admission and release bump ``layout_version`` and dirty the lane;
-    growth bumps ``growth_version``; release ends the request's slot life;
-    ``predicted_pages`` charges a decode lane its in-flight growth."""
+    """Admission and release dirty the lane; growth bumps
+    ``growth_version``; release ends the request's slot life."""
     sched = Scheduler(
         SchedulerConfig(max_batch_size=2, max_seq_len=64, page_size=4), PagePool(32)
     )
@@ -486,13 +516,10 @@ def test_scheduler_versions_and_dirty_lanes():
     )
     sched.enqueue(seq)
     plan = sched.plan()
-    assert plan.prefills and sched.layout_version == 1 and sched.dirty_slots == {0}
+    assert plan.prefills and sched.dirty_slots == {0}
     sched.dirty_slots.clear()
     sched.ensure_decode_capacity(lookahead=9)
     assert sched.growth_version > 0 and len(seq.pages) > 2
-    assert sched.predicted_pages(seq) == -(-(5 + 20) // 4)
-    sched.decode_inflight_tokens = 40  # capped by what the lane may emit
-    assert sched.predicted_pages(seq) == -(-(5 + 20) // 4)
     life = seq.life
     sched.cancel(seq)
-    assert sched.layout_version == 2 and sched.dirty_slots == {0} and seq.life == life + 1
+    assert sched.dirty_slots == {0} and seq.life == life + 1

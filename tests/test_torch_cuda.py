@@ -679,25 +679,6 @@ def _state_now(eng):
     return _snapshot(eng)[0]
 
 
-def _decode_layout(B, n):
-    """Pure-decode packed layout of lanes 0..n-1 (one row each)."""
-    Np = 1 << max(n - 1, 0).bit_length()
-    t_lane = np.full((Np,), B, np.int64)
-    t_lane[:n] = np.arange(n)
-    t_dec = np.zeros((Np,), np.int64)
-    t_dec[:n] = 1
-    dec_cap = np.zeros((B,), np.int64)
-    dec_cap[:n] = 1
-    seg_off = np.zeros((B,), np.int64)
-    seg_off[:n] = np.arange(n)
-    z = np.zeros((B,), np.int64)
-    layout = np.concatenate(
-        [np.zeros((Np,), np.int64), t_lane, np.zeros((Np,), np.int64), t_dec,
-         z, z, z, z, dec_cap, seg_off]
-    )
-    return Np, torch.from_numpy(layout).pin_memory()
-
-
 def _replay_equals_eager(eng, dispatch):
     """A dispatch's first run (its graphs captured after their eager
     warm-ups) and a second run from the same starting state (replays
@@ -728,12 +709,15 @@ def _replay_equals_eager(eng, dispatch):
 def _packed_dispatch(eng, K, n=GB, Pb=8):
     """A decode-only packed dispatch of K steps over lanes 0..n-1: the
     packed step's graph, then K - 1 decode-step replays."""
-    Np, layout = _decode_layout(eng.cfg.max_batch_size, n)
-    key = ("packed", Np, 1, Pb, 0, False)
+    B = eng.cfg.max_batch_size
+    z = np.zeros((B,), np.int64)
+    dec_cap = np.arange(B) < n
 
     def dispatch():
-        row0 = eng.graphs.run("packed", key, (layout,), eng._packed_call(Np, 1, Pb, 0, False))
-        return eng._decode_steps(row0, K, Pb, 0, False, False)
+        return eng._run_packed(
+            {}, z, z, np.zeros((B,), bool), dec_cap, dec_cap.astype(np.int64), n, Pb,
+            K, 0, False,
+        )
 
     return dispatch
 
@@ -762,7 +746,7 @@ def test_packed_graph_replay_equals_eager(card, dtype, kv_dtype, K):
 def test_decode_block_graph_replay_equals_eager(card, use_penalties):
     eng = _graph_engine(card, torch.bfloat16)
     _, first, _ = _replay_equals_eager(
-        eng, lambda: eng._decode_steps(None, 4, 8, 0, True, use_penalties)
+        eng, lambda: eng._run_block(4, 8, 0, True, use_penalties)
     )
     assert first.shape == (GB, 4, 2) and eng.graph_captures == 1
 
