@@ -85,6 +85,32 @@ Every phase is fatal on failure:
    int8 pool's decode steps take the gathered composition, counted);
    graphs must replay in Q.
 
+7. serve-http: the OpenAI front end (``HttpService`` over
+   ``link(OpenAIPreprocessor, Backend, TorchEngine)``, driven by the
+   port's ``bench_serving`` client with token-id prompts).  (a) The
+   reference phase's f32 model and batches, with a byte-level tokenizer of
+   its 256 ids written here, served through ``/v1/completions`` on the card
+   and on the CPU, once as SSE and once aggregated: the texts must be equal
+   card to CPU, and equal to the tokenizer's incremental decode of the
+   reference phase's direct streams.  (b) Llama-3-8B at full width and
+   depth, bf16, random weights of seed 0, ``EngineConfig(num_pages=1024)``
+   and a byte-level tokenizer of 128256 ids (Llama 3's specials at 128000
+   to 128255) written here: the serve phase's primer and batch of 8 with
+   ``ignore_eos``, cold then warm.  Every request must end ``length`` with
+   exact usage and no error frame, the launch invariants hold, and
+   ``/metrics`` must parse with its request counter equal to the requests
+   sent; client-side TTFT p50/p99, ``tok_s``, the decode-phase rate and how
+   many greedy texts equal the serve phase's decoded direct streams are
+   printed (bf16 logits may move with the dispatch around a row, so this
+   is reported, not held).  (c) A checkpoint directory at Llama-3-8B width
+   with 2 layers (``config.json``, a ``model.safetensors`` of about 3 GB
+   written by this script's own writer, the tokenizer files) is served by
+   ``python -m dynamo_tpu_torch run in=http out=torch --model-path DIR`` in
+   a subprocess: a few greedy requests (completions and one chat), then
+   SIGINT, which must end it with exit code 0.  Its texts must equal an
+   in-process engine's, built from the same numpy arrays through
+   ``params_from_numpy``.  The directory is deleted after the run.
+
 In every served run each kernel's launch count (graph replays included)
 must equal what the run's dispatches imply (``expected_launches``), and
 the run prints its loop mode, graph captures and replays and the dispatch
@@ -832,7 +858,7 @@ REFERENCE_CONFIGS.update(
 )
 
 
-def reference_phase() -> None:
+def reference_phase() -> Dict[str, object]:
     """A small f32 model: greedy streams on the card (kernels) equal the
     CPU's (plain versions) from the same weights, under each of the
     reference configs, with one frequency-penalty lane and one
@@ -893,12 +919,16 @@ def reference_phase() -> None:
         if [len(t) for t in streams["cuda"]] != want:
             fail(f"small-model streams under {name} end early")
         unpenalized[name] = streams["cuda"][:4] + streams["cuda"][6:]
+        if name == "default":
+            default_streams = streams["cuda"]
     for pool in ("dense", "int8"):
         group = {n: v for n, v in unpenalized.items() if n.endswith("-int8") == (pool == "int8")}
         agree_all = len({json.dumps(v) for v in group.values()}) == 1
         print(f"reference: unpenalized lanes agree across the {pool} configs: {agree_all}")
         if pool == "dense" and not agree_all:
             fail(f"the unpenalized lanes differ across configs: {group}")
+    return dict(cfg=cfg, ecfg=ecfg, params=params, batches=batches,
+                streams=default_streams)
 
 
 def report_margin(name: str, streams, run, batches) -> None:
@@ -1290,6 +1320,501 @@ def serve_int8_phase(
     return launches, walls
 
 
+# ---------------------------------------------------------------------------
+# serving through the HTTP front end
+# ---------------------------------------------------------------------------
+
+LLAMA3_SPLIT = (
+    r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}{1,3}"
+    r"| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+"
+)
+CHAT_TEMPLATE = (
+    "{% for message in messages %}"
+    "<|start_header_id|>{{ message['role'] }}<|end_header_id|>\n\n"
+    "{{ message['content'] }}<|eot_id|>{% endfor %}"
+    "{% if add_generation_prompt %}<|start_header_id|>assistant"
+    "<|end_header_id|>\n\n{% endif %}"
+)
+
+
+def write_tokenizer(path: str, ordinary: int, specials: int) -> None:
+    """A byte-level BPE ``tokenizer.json`` (Llama 3's pre-tokenizer: its
+    split pattern, then ByteLevel) with ``ordinary`` ids -- the 256 byte
+    characters, then tokens merged from them, two bytes and then three --
+    and ``specials`` special tokens above them (Llama 3's names at 128000
+    to 128255), and a ``tokenizer_config.json`` with a chat template."""
+    from dynamo_tpu_torch.llm.tokenizer import _byte_maps
+
+    chars = [_byte_maps()[0][b] for b in range(256)]
+    vocab = {c: i for i, c in enumerate(chars)}
+    merges: List[List[str]] = []
+    pairs = ((a, b) for a in chars for b in chars)
+    while len(vocab) < min(ordinary, 256 + 256 * 256):
+        a, b = next(pairs)
+        merges.append([a, b])
+        vocab[a + b] = len(vocab)
+    two = [t for t in vocab if len(t) == 2]
+    triples = ((ab, c) for ab in two for c in chars)
+    while len(vocab) < ordinary:
+        ab, c = next(triples)
+        merges.append([ab, c])
+        vocab[ab + c] = len(vocab)
+    names = {0: "<|begin_of_text|>", 1: "<|end_of_text|>", 6: "<|start_header_id|>",
+             7: "<|end_header_id|>", 9: "<|eot_id|>"}
+    added = [
+        {"id": ordinary + i, "content": names.get(i, f"<|reserved_special_token_{i}|>"),
+         "single_word": False, "lstrip": False, "rstrip": False,
+         "normalized": False, "special": True}
+        for i in range(specials)
+    ]
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": added,
+        "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_SPLIT},
+             "behavior": "Isolated", "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+             "use_regex": False},
+        ]},
+        "post_processor": {"type": "ByteLevel", "add_prefix_space": True,
+                           "trim_offsets": False, "use_regex": True},
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True,
+                    "trim_offsets": True, "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": False, "byte_fallback": False, "ignore_merges": True,
+                  "vocab": vocab, "merges": merges},
+    }
+    with open(os.path.join(path, "tokenizer.json"), "w") as f:
+        json.dump(spec, f)
+    cfg = {"chat_template": CHAT_TEMPLATE}
+    if specials:
+        cfg.update(bos_token="<|begin_of_text|>", eos_token="<|eot_id|>")
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump(cfg, f)
+
+
+def stream_text(tokenizer, tokens: List[int]) -> str:
+    """What the HTTP path's detokenizer makes of an engine stream: the
+    tokenizer's incremental decode (``DecodeStream``) deltas, joined."""
+    ds = tokenizer.decode_stream()
+    return "".join(d for d in (ds.step(t) for t in tokens) if d)
+
+
+def bench_items(reqs: List[dict]) -> List[dict]:
+    """The serving client's workload items for engine request dicts."""
+    return [
+        dict(token_ids=r["token_ids"], max_tokens=r["stop_conditions"]["max_tokens"],
+             at=0.0, **r["sampling_options"])
+        for r in reqs
+    ]
+
+
+async def http_call(port: int, method: str, path: str, body=None) -> Tuple[int, bytes]:
+    """One HTTP/1.1 request with ``Connection: close`` to 127.0.0.1:port
+    (a Content-Length body back)."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        data = b"" if body is None else json.dumps(body).encode()
+        writer.write(
+            f"{method} {path} HTTP/1.1\r\nHost: x\r\nConnection: close\r\n"
+            f"Content-Type: application/json\r\nContent-Length: {len(data)}\r\n\r\n".encode()
+            + data
+        )
+        await writer.drain()
+        raw = await reader.read()
+    finally:
+        writer.close()
+    head, _, payload = raw.partition(b"\r\n\r\n")
+    return int(head.split()[1]), payload
+
+
+class Tap:
+    """The engine as a pipeline's last stage, stamping each output item's
+    token count as it leaves the engine (the served decode-phase rate)."""
+
+    def __init__(self, engine) -> None:
+        self.engine = engine
+        self.frames: Dict[str, List[Tuple[float, int]]] = {}
+
+    async def generate(self, request):
+        stream = await self.engine.generate(request)
+        frames = self.frames.setdefault(request.id, [])
+
+        async def gen():
+            async for item in stream:
+                n = len((item.data or {}).get("token_ids") or [])
+                if n:
+                    frames.append((time.perf_counter(), n))
+                yield item
+
+        return gen()
+
+
+def decode_phase_rate(frames: List[List[Tuple[float, int]]]) -> float:
+    """Tokens the engine streamed once every request had its first one,
+    over that window."""
+    t_all = max(f[0][0] for f in frames)
+    t_end = max(f[-1][0] for f in frames)
+    n = sum(k for f in frames for t, k in f if t > t_all)
+    return n / (t_end - t_all) if t_end > t_all else float("nan")
+
+
+async def http_serve(engine, tokenizer, batches: List[List[dict]], stream: bool,
+                     tap: "Tap" = None) -> Tuple[list, bytes]:
+    """Serve each batch of engine requests through the port's HttpService
+    over ``link(OpenAIPreprocessor, Backend, engine)`` with its serving
+    client (``/v1/completions``, token-id prompts, ``ignore_eos``), one
+    batch after the other; returns each batch's report and the
+    ``/metrics`` body.  The engine is stopped at the end."""
+    from dynamo_tpu_torch.bench_serving import run_bench
+    from dynamo_tpu_torch.http.service import HttpService, ModelManager
+    from dynamo_tpu_torch.llm.backend import Backend
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.runtime.pipeline import link
+
+    pipe = link(OpenAIPreprocessor("m", tokenizer), Backend(tokenizer), tap or engine)
+    manager = ModelManager()
+    manager.add_completion_model("m", pipe)
+    manager.add_chat_model("m", pipe)
+    service = HttpService(manager, port=0)
+    await service.start()
+    host, port = service.address
+    reports = []
+    try:
+        for batch in batches:
+            reports.append(await run_bench(
+                host, port, "m", bench_items(batch), concurrency=len(batch), stream=stream
+            ))
+        status, metrics = await http_call(port, "GET", "/metrics")
+        if status != 200:
+            fail(f"GET /metrics answered {status}")
+    finally:
+        await service.stop()
+        await engine.stop()
+    return reports, metrics
+
+
+def check_http_results(what: str, reports, batches) -> None:
+    """Every request completed with its max_tokens (finish ``length``), its
+    usage exact and no error frame."""
+    for report, batch in zip(reports, batches):
+        for i, (r, req) in enumerate(zip(report.results, batch)):
+            want = req["stop_conditions"]["max_tokens"]
+            usage = r.usage or {}
+            if not r.ok:
+                fail(f"{what} request {i}: {r.error}")
+            if (r.finish_reason != "length" or usage.get("completion_tokens") != want
+                    or usage.get("prompt_tokens") != len(req["token_ids"])):
+                fail(f"{what} request {i}: finish {r.finish_reason} usage {usage}, "
+                     f"want {want} tokens after {len(req['token_ids'])}")
+
+
+def metrics_requests(body: bytes) -> Dict[str, float]:
+    """``/metrics``' request counter by status, parsed line by line."""
+    out: Dict[str, float] = {}
+    for line in body.decode().splitlines():
+        if line.startswith("#") or not line.strip():
+            continue
+        m = re.fullmatch(r'([a-zA-Z_:][\w:]*)(\{[^}]*\})? (\S+)', line)
+        if m is None:
+            fail(f"/metrics line does not parse: {line!r}")
+        float(m.group(3))
+        if m.group(1) == "dynamo_http_service_requests_total":
+            status = re.search(r'status="([^"]*)"', m.group(2)).group(1)
+            out[status] = out.get(status, 0.0) + float(m.group(3))
+    return out
+
+
+def serve_http_phase(ref: Dict[str, object], served: Dict[str, object], card: str) -> Dict[str, int]:
+    """(a) the reference model through HTTP, card against CPU; (b)
+    Llama-3-8B through HTTP, cold then warm; (c) the CLI's HTTP server as a
+    subprocess on a checkpoint directory written here.  Returns (b)'s
+    kernel launches."""
+    import shutil
+    import tempfile
+
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.llm.tokenizer import Tokenizer
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-http-")
+    try:
+        # (a) the reference phase's f32 model and batches, 256 byte tokens
+        cfg, params, batches = ref["cfg"], ref["params"], ref["batches"]
+        tok_dir = os.path.join(tmp, "bytes")
+        os.makedirs(tok_dir)
+        write_tokenizer(tok_dir, cfg.vocab_size, 0)
+        tok = Tokenizer.from_model_dir(tok_dir)
+        flat = [r for b in batches for r in b]
+        want = [stream_text(tok, t) for t in ref["streams"]]
+        texts = {}
+        for stream in (True, False):
+            for dev in ("cuda", "cpu"):
+                p = {k: ({n: w.to(dev) for n, w in v.items()} if isinstance(v, dict)
+                         else v.to(dev)) for k, v in params.items()}
+                eng = TorchEngine(cfg, p, EngineConfig(**ref["ecfg"]), device=dev)
+                reset_launches()
+                reports, _ = asyncio.run(http_serve(eng, tok, batches, stream))
+                if dev == "cuda":
+                    check_launch_invariants(f"serve-http (a) stream={stream}", eng, read_launches())
+                check_http_results(f"serve-http (a) {dev} stream={stream}", reports, batches)
+                texts[dev, stream] = [r.text for rep in reports for r in rep.results]
+            if texts["cuda", stream] != texts["cpu", stream]:
+                fail(f"serve-http (a) stream={stream}: card texts {texts['cuda', stream]} "
+                     f"differ from the CPU's {texts['cpu', stream]}")
+            if texts["cuda", stream] != want:
+                fail(f"serve-http (a) stream={stream}: texts {texts['cuda', stream]} differ "
+                     f"from the decoded direct streams {want}")
+        print(f"serve-http: (a) {len(flat)} requests x SSE and aggregated: card texts == "
+              f"CPU texts == decoded direct streams")
+
+        # (b) Llama-3-8B at full width and depth, bf16, through HTTP
+        t0 = time.perf_counter()
+        big = os.path.join(tmp, "llama3")
+        os.makedirs(big)
+        write_tokenizer(big, 128000, 256)
+        tok8 = Tokenizer.from_model_dir(big)
+        print(f"serve-http: (b) tokenizer of {tok8.vocab_size} ids written and read "
+              f"in {time.perf_counter() - t0:.3f} s")
+        cfg8 = ModelConfig.llama3_8b()
+        primer, batch = serve_requests(cfg8.vocab_size)
+        eng8 = TorchEngine.random_init(cfg8, EngineConfig(num_pages=1024), seed=0)
+        tap = Tap(eng8)
+        reset_launches()
+        runs = [primer, batch, batch]
+        reports, metrics = asyncio.run(http_serve(eng8, tok8, runs, True, tap))
+        counted = read_launches()
+        check_launch_invariants("serve-http (b)", eng8, counted)
+        check_http_results("serve-http (b)", reports, runs)
+        for name in ("packed_ragged_attention", "paged_decode_attention"):
+            if counted[name] <= 0:
+                fail(f"{name} never launched in serve-http (b)")
+        by_status = metrics_requests(metrics)
+        sent = sum(len(b) for b in runs)
+        if by_status != {"success": float(sent)}:
+            fail(f"serve-http (b): /metrics counts {by_status}, {sent} requests sent")
+        ids = list(tap.frames)
+        order = [ids[:1], ids[1:1 + len(batch)], ids[1 + len(batch):]]
+        greedy = [i for i, r in enumerate(batch) if not r["sampling_options"]]
+        same = 0
+        for label, rep, rids, streams in (
+            ("cold", reports[1], order[1], served["streams"][:len(batch)]),
+            ("warm", reports[2], order[2], served["streams"][len(batch):]),
+        ):
+            s = rep.summary()
+            dec = decode_phase_rate([tap.frames[r] for r in rids])
+            print(f"serve-http: (b) {label} ttft_p50_ms={s['ttft_ms']['p50']} "
+                  f"ttft_p99_ms={s['ttft_ms']['p99']} tok_s={s['output_tok_s']} "
+                  f"decode_phase_tok_s={dec:.3f} wall_s={s['wall_s']} on {card}")
+            print(f"serve-http: (b) {label} client ttft_ms="
+                  f"{[round(r.ttft_s * 1e3, 3) for r in rep.results]}")
+            same += sum(rep.results[i].text == stream_text(tok8, streams[i]) for i in greedy)
+        print(f"serve-http: (b) launches {counted} dispatches={dict(eng8.dispatches)}")
+        print(f"serve-http: (b) greedy texts equal to the serve phase's decoded direct "
+              f"streams: {same} of {2 * len(greedy)}")
+        del eng8, tap
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) the CLI over a checkpoint directory, against an in-process engine
+        cli_texts, direct_texts = cli_phase(tmp, card)
+        if cli_texts != direct_texts:
+            fail(f"serve-http (c): the CLI's texts {cli_texts} differ from the in-process "
+                 f"engine's {direct_texts}")
+        print(f"serve-http: (c) {len(cli_texts)} requests: CLI texts == in-process texts")
+        return {k: counted[k] for k in ("packed_ragged_attention", "paged_decode_attention")}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def write_safetensors(path: str, tensors: Dict[str, Tuple[Tuple[int, ...], Callable]]) -> None:
+    """A ``.safetensors`` file of BF16 tensors: the 8-byte little-endian
+    header length, the JSON header (padded to 8 bytes), the raw tensors.
+    ``tensors`` maps a name to its shape and a function giving its f32
+    values (bf16 values), called only as the tensor is written."""
+    import struct
+
+    header, off = {}, 0
+    for name, (shape, _) in tensors.items():
+        n = int(np.prod(shape)) * 2
+        header[name] = {"dtype": "BF16", "shape": list(shape), "data_offsets": [off, off + n]}
+        off += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for name, (shape, make) in tensors.items():
+            a = bf16_bits(make())
+            if a.shape != tuple(shape):
+                fail(f"writer: {name} has shape {a.shape}, not {shape}")
+            a.tofile(f)
+
+
+def bf16_bits(a: np.ndarray) -> np.ndarray:
+    """bf16 bits, row-major, of an f32 array (or a transposed view of one)
+    whose values are bf16 values (torch's cast is exact there, and
+    multithreaded)."""
+    t = torch.from_numpy(a).to(torch.bfloat16).contiguous()
+    return t.view(torch.int16).numpy().view(np.uint16)
+
+
+def cli_phase(tmp: str, card: str) -> Tuple[List[str], List[str]]:
+    """Write a checkpoint at Llama-3-8B width with 2 layers, serve it with
+    ``python -m dynamo_tpu_torch run in=http out=torch`` in a subprocess
+    (SIGINT must end it with exit code 0) and with an in-process engine
+    built from the same numpy arrays through ``params_from_numpy``, the
+    same greedy requests one at a time; returns both sets of texts."""
+    import signal
+    import socket
+
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.model import init_params
+    from dynamo_tpu_torch.engine.weights import params_from_numpy
+    from dynamo_tpu_torch.llm.tokenizer import Tokenizer
+
+    path = os.path.join(tmp, "ckpt")
+    os.makedirs(path)
+    hf = {"model_type": "llama", "vocab_size": 128256, "hidden_size": 4096,
+          "intermediate_size": 14336, "num_hidden_layers": 2, "num_attention_heads": 32,
+          "num_key_value_heads": 8, "rope_theta": 500000.0,
+          "max_position_embeddings": 8192, "rms_norm_eps": 1e-5}
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf, f)
+    write_tokenizer(path, 128000, 256)
+    cfg = ModelConfig.from_pretrained(path)
+    t0 = time.perf_counter()
+    p = init_params(cfg, 5, torch.device("cuda"), torch.bfloat16)
+    arrays = {k: ({n: w.float().cpu().numpy() for n, w in v.items()}
+                  if isinstance(v, dict) else v.float().cpu().numpy())
+              for k, v in p.items()}
+    del p
+    lay = arrays["layers"]
+    H, V, I = cfg.hidden_size, cfg.vocab_size, cfg.intermediate_size
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    # HF name -> ([out, in] shape, the leaf and its transpose flag)
+    tensors = {
+        "model.embed_tokens.weight": ((V, H), lambda: arrays["embed"]),
+        "model.norm.weight": ((H,), lambda: arrays["final_norm"]),
+        "lm_head.weight": ((V, H), lambda: arrays["lm_head"].T),
+    }
+    linears = {"wq": ("self_attn.q_proj", (q, H)), "wk": ("self_attn.k_proj", (kv, H)),
+               "wv": ("self_attn.v_proj", (kv, H)), "wo": ("self_attn.o_proj", (H, q)),
+               "w_gate": ("mlp.gate_proj", (I, H)), "w_up": ("mlp.up_proj", (I, H)),
+               "w_down": ("mlp.down_proj", (H, I))}
+    for i in range(cfg.num_layers):
+        pre = f"model.layers.{i}."
+        for key, (name, shape) in linears.items():
+            tensors[pre + name + ".weight"] = (shape, lambda k=key, i=i: lay[k][i].T)
+        tensors[pre + "input_layernorm.weight"] = ((H,), lambda i=i: lay["input_norm"][i])
+        tensors[pre + "post_attention_layernorm.weight"] = (
+            (H,), lambda i=i: lay["post_norm"][i])
+    t1 = time.perf_counter()
+    write_safetensors(os.path.join(path, "model.safetensors"), tensors)
+    size = os.path.getsize(os.path.join(path, "model.safetensors"))
+    print(f"serve-http: (c) weights made in {t1 - t0:.3f} s, model.safetensors "
+          f"{size / 2**30:.3f} GiB written in {time.perf_counter() - t1:.3f} s")
+
+    tok = Tokenizer.from_model_dir(path)
+    rng = np.random.default_rng(5)
+    reqs = [request(rng.integers(1, 128000, n), 16) for n in (5, 40, 300)]
+    chat = {"model": "ckpt", "max_tokens": 16,
+            "messages": [{"role": "user", "content": "Hello from the port! Ça va?"}]}
+
+    async def ask(port: int) -> List[str]:
+        from dynamo_tpu_torch.bench_serving import run_bench
+
+        out = []
+        for req in reqs:
+            rep = await run_bench("127.0.0.1", port, "ckpt", bench_items([req]),
+                                  concurrency=1, stream=False)
+            check_http_results("serve-http (c)", [rep], [[req]])
+            out.append(rep.results[0].text)
+        status, body = await http_call(port, "POST", "/v1/chat/completions", chat)
+        if status != 200:
+            fail(f"serve-http (c): chat answered {status}: {body[:300]!r}")
+        doc = json.loads(body)
+        out.append(doc["choices"][0]["message"]["content"])
+        return out
+
+    # the CLI in a subprocess
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    log_path = os.path.join(tmp, "cli.log")
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "dynamo_tpu_torch", "run", "in=http", "out=torch",
+             "--model-path", path, "--port", str(port)],
+            cwd=ROOT, stdout=log_file, stderr=subprocess.STDOUT, text=True,
+        )
+
+    def cli_log() -> str:
+        with open(log_path) as f:
+            return f.read()
+
+    try:
+        while True:
+            if proc.poll() is not None:
+                fail(f"the CLI exited with {proc.returncode}: {cli_log()[-3000:]}")
+            if time.perf_counter() - t0 > 300:
+                fail("the CLI did not answer /health within 300 s")
+            try:
+                status, _ = asyncio.run(http_call(port, "GET", "/health"))
+                if status == 200:
+                    break
+            except OSError:
+                pass
+            time.sleep(0.25)
+        up = time.perf_counter() - t0
+        cli_texts = asyncio.run(ask(port))
+        proc.send_signal(signal.SIGINT)
+        proc.wait(timeout=120)
+        log = cli_log()
+        print(f"serve-http: (c) CLI healthy after {up:.3f} s, exit code {proc.returncode}; "
+              f"its output: {log.strip().splitlines()[:3]}")
+        if proc.returncode != 0:
+            fail(f"the CLI exited with {proc.returncode} on SIGINT: {log[-3000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    # the same requests in process, from the same arrays
+    from dynamo_tpu_torch.http.service import HttpService, ModelManager
+    from dynamo_tpu_torch.llm.backend import Backend
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.runtime.pipeline import link
+
+    engine = TorchEngine(cfg, params_from_numpy(arrays, cfg, device="cuda"), EngineConfig())
+    del arrays
+
+    async def in_process() -> List[str]:
+        pipe = link(OpenAIPreprocessor("ckpt", tok), Backend(tok), engine)
+        manager = ModelManager()
+        manager.add_completion_model("ckpt", pipe)
+        manager.add_chat_model("ckpt", pipe)
+        service = HttpService(manager, port=0)
+        await service.start()
+        try:
+            return await ask(service.address[1])
+        finally:
+            await service.stop()
+            await engine.stop()
+
+    reset_launches()
+    direct_texts = asyncio.run(in_process())
+    check_launch_invariants("serve-http (c) in process", engine, read_launches())
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cli_texts, direct_texts
+
+
 def profile_phase(out_path: str, plain_walls: Dict[str, float]) -> None:
     """``--profile OUT.txt``: each served cell once more -- the serve
     phase's run, serve-classic runs A and B and serve-int8 run Q, the same
@@ -1447,10 +1972,12 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    reference_phase()
+    ref = reference_phase()
     served = serve_phase(main_kernels, card)
     classic, classic_walls = serve_classic_phase(kernels, card)
     quant, quant_walls = serve_int8_phase(kernels, card)
+    http_launches = serve_http_phase(ref, served, card)
+    print(f"serve-http: launches on the HTTP path {http_launches}")
     if profile_out is not None:
         profile_phase(
             profile_out,

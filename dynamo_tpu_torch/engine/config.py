@@ -10,8 +10,10 @@ caches prefixes, hashes one token block per KV page, and computes in
 
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 
 @dataclass(frozen=True)
@@ -85,6 +87,113 @@ class ModelConfig:
         )
         base.update(overrides)
         return cls(**base)
+
+    SUPPORTED_MODEL_TYPES = (
+        "llama", "mistral", "qwen2", "mixtral", "gemma", "phi3", "qwen3",
+    )
+
+    @classmethod
+    def from_hf_config(cls, cfg: Dict[str, Any]) -> "ModelConfig":
+        """Build from a HuggingFace ``config.json`` dict (llama/mistral/qwen2/
+        mixtral/gemma/phi3/qwen3 architectures).
+
+        Unknown model types raise instead of loading silently: e.g. gemma2
+        carries extra pre/post_feedforward_layernorm tensors the assembler
+        would skip, producing garbage output with no error."""
+        mt = cfg.get("model_type")
+        if mt is not None and mt not in cls.SUPPORTED_MODEL_TYPES:
+            raise ValueError(
+                f"unsupported model_type {mt!r}; supported: "
+                f"{', '.join(cls.SUPPORTED_MODEL_TYPES)}"
+            )
+        # RoPE scaling: llama3 frequency-dependent scaling is implemented;
+        # anything else (yarn, longrope, linear, dynamic) must fail loudly
+        # for EVERY model type -- loading a scaled checkpoint with plain
+        # RoPE produces garbage at long context with no error
+        rope_scaling: Optional[tuple] = None
+        rs = cfg.get("rope_scaling") or None
+        if rs is not None:
+            rs_type = rs.get("rope_type") or rs.get("type")
+            if rs_type == "llama3":
+                rope_scaling = (
+                    "llama3",
+                    float(rs["factor"]),
+                    float(rs["low_freq_factor"]),
+                    float(rs["high_freq_factor"]),
+                    int(rs["original_max_position_embeddings"]),
+                )
+            elif rs_type not in (None, "default"):
+                raise ValueError(
+                    f"rope_scaling type {rs_type!r} is not supported"
+                    " (implemented: llama3)"
+                )
+        # sliding-window attention: mistral/phi3 enable by presence; the
+        # qwen families gate it behind use_sliding_window, whose HF default
+        # is False -- a missing key must DISABLE for them or this engine
+        # would window checkpoints HF attends fully
+        window = cfg.get("sliding_window") or None
+        if mt in ("qwen2", "qwen3") and not cfg.get("use_sliding_window", False):
+            window = None
+        elif window is not None and cfg.get("use_sliding_window") is False:
+            window = None
+        if window is not None:
+            # HF qwen2 windows only layers >= max_window_layers; this engine
+            # windows uniformly.  mwl >= num_layers means NO layer windows
+            # (disable); 0 < mwl < num_layers is a genuine per-layer mix --
+            # fail loudly, not silently-different logits
+            mwl = cfg.get("max_window_layers")
+            if mwl is not None:
+                if mwl >= cfg["num_hidden_layers"]:
+                    window = None
+                elif mwl > 0:
+                    raise ValueError(
+                        f"per-layer sliding window (max_window_layers={mwl} <"
+                        f" num_hidden_layers={cfg['num_hidden_layers']}) is"
+                        " not supported"
+                    )
+        hidden = cfg["hidden_size"]
+        heads = cfg["num_attention_heads"]
+        return cls(
+            vocab_size=cfg["vocab_size"],
+            hidden_size=hidden,
+            intermediate_size=cfg["intermediate_size"],
+            num_layers=cfg["num_hidden_layers"],
+            num_heads=heads,
+            num_kv_heads=cfg.get("num_key_value_heads", heads),
+            head_dim=cfg.get("head_dim", hidden // heads),
+            rope_theta=float(cfg.get("rope_theta", 10000.0)),
+            rms_norm_eps=float(cfg.get("rms_norm_eps", 1e-5)),
+            max_position=cfg.get("max_position_embeddings", 4096),
+            tie_word_embeddings=cfg.get("tie_word_embeddings", False),
+            attention_bias=bool(
+                cfg.get("attention_bias", False)
+                or cfg.get("model_type") == "qwen2"
+            ),
+            num_experts=cfg.get("num_local_experts", 0),
+            num_experts_per_tok=cfg.get("num_experts_per_tok", 2),
+            rms_norm_offset=cfg.get("model_type") == "gemma",
+            hidden_act=(
+                "gelu_tanh"
+                if cfg.get("hidden_act", cfg.get("hidden_activation"))
+                in ("gelu_pytorch_tanh", "gelu_tanh")
+                or cfg.get("model_type") == "gemma"
+                else "silu"
+            ),
+            scale_embeddings=cfg.get("model_type") == "gemma",
+            qk_norm=cfg.get("model_type") == "qwen3",
+            rope_scaling=rope_scaling,
+            sliding_window=window,
+        )
+
+    @classmethod
+    def from_pretrained(cls, model_path: str) -> "ModelConfig":
+        """The config of a checkpoint directory's ``config.json`` (a GGUF
+        checkpoint's metadata config is not read by the port yet)."""
+        cfg_json = os.path.join(model_path, "config.json")
+        if not os.path.exists(cfg_json):
+            raise FileNotFoundError(f"{model_path}: no config.json")
+        with open(cfg_json) as f:
+            return cls.from_hf_config(json.load(f))
 
 
 @dataclass

@@ -47,13 +47,19 @@ Not served yet (later slices): multimodal prompts and prompt logprobs
 (such a request gets an error frame), speculative decoding (its request
 fields are ignored: output is the contract, speculation an optimization),
 offload/swap and external-KV deliveries, disaggregation, tensor/data
-parallelism, the tick profiler and engine metrics, the
-``DYN_ASYNC_DISPATCH`` and ``DYN_PACKED_SHAPE_BUDGET`` overrides, and CUDA
-graphs for dispatches that carry prefill chunks.  The KV pool is dense in
-the model's dtype or, with ``EngineConfig(kv_dtype="int8")``, int8 with
-per-row scales; a dense pool of another dtype is refused at construction,
-and so is, on the card, a head geometry its kernels do not take (the CPU
-serves any).
+parallelism, the tick profiler and engine metrics, and CUDA graphs for
+dispatches that carry prefill chunks.
+
+The serving-environment overrides the JAX engine reads at construction
+are read here too, with its parse, for the features the port has:
+``DYN_KV_DTYPE``, ``DYN_MIXED_TOKEN_BUDGET``, ``DYN_PACKED_RAGGED``,
+``DYN_PACKED_SHAPE_BUDGET`` and ``DYN_ASYNC_DISPATCH``.  A set variable wins
+over the config; a malformed one logs a warning and keeps the config.
+
+The KV pool is dense in the model's dtype or, with
+``EngineConfig(kv_dtype="int8")``, int8 with per-row scales; a dense pool of
+another dtype is refused at construction, and so is, on the card, a head
+geometry its kernels do not take (the CPU serves any).
 """
 
 from __future__ import annotations
@@ -63,6 +69,7 @@ import collections
 import concurrent.futures
 import itertools
 import logging
+import os
 from dataclasses import dataclass, field
 from typing import (
     Any, AsyncIterator, Deque, Dict, Hashable, List, Optional, Sequence, Tuple, Union,
@@ -89,7 +96,7 @@ from .bucketing import (
 )
 from .config import EngineConfig, ModelConfig
 from .graphs import StepGraphs
-from .kv_cache import PagedKVCache, pool_is_quantized, torch_dtype
+from .kv_cache import PagedKVCache, parse_kv_dtype, pool_is_quantized, torch_dtype
 from .model import Params, init_params
 from .sampling import PROMPT_FLAG, SamplingParams, unpack_sampled_logprobs
 from .scheduler import MixedChunk, Scheduler, SchedulerConfig, SeqState, StepEvent
@@ -122,6 +129,23 @@ DEVICE_STOP_WIDTH = 8
 FANOUT_DEPTH = 64
 # budget of the packed step's (Np, s_max) shapes, the JAX engine's default
 PACKED_SHAPE_BUDGET = 16
+
+
+def _env_override(name: str, value: Any, parse) -> Any:
+    """``value``, or the parse of a set environment variable ``name``; a
+    malformed value warns and keeps ``value``."""
+    raw = os.environ.get(name)
+    if raw is None or not raw.strip():
+        return value
+    try:
+        return parse(raw)
+    except ValueError:
+        logger.warning("ignoring malformed %s=%r", name, raw)
+        return value
+
+
+def _env_flag(raw: str) -> bool:
+    return raw.strip().lower() not in ("0", "off", "false", "no")
 
 
 def check_model_geometry(model_cfg: ModelConfig, device: torch.device) -> None:
@@ -239,9 +263,12 @@ class TorchEngine:
         self.params = params
         self.dtype = torch_dtype(model_cfg.dtype)
         c = self.cfg
+        self.kv_dtype = _env_override(
+            "DYN_KV_DTYPE", parse_kv_dtype(c.kv_dtype), parse_kv_dtype
+        )
         self.kv = PagedKVCache(
             model_cfg, c.num_pages, c.page_size, self.dtype, self.device,
-            quantized=pool_is_quantized(c.kv_dtype, model_cfg.dtype),
+            quantized=pool_is_quantized(self.kv_dtype, model_cfg.dtype),
         )
         self.sched = Scheduler(
             SchedulerConfig(
@@ -259,17 +286,22 @@ class TorchEngine:
             ps = c.page_size
             self._chunk_tokens = max(ps, -(-c.prefill_chunk_tokens // ps) * ps)
         self._mixed = bool(c.mixed_batching)
-        self._packed = bool(c.packed_ragged)
+        self._packed = _env_override("DYN_PACKED_RAGGED", bool(c.packed_ragged), _env_flag)
         # multistep decode rides the packed mixed plane only
         self._multistep = self._mixed and self._packed
-        self._mixed_budget = max(int(c.mixed_token_budget), 1)
+        self._mixed_budget = max(
+            int(_env_override("DYN_MIXED_TOKEN_BUDGET", c.mixed_token_budget, int)), 1
+        )
         self._ms_max = max(int(c.multistep_max_k), 1)
         self._ms_ramp = 1
         # whether the previous tick's dispatches sampled a first token
         self._firsts_last_tick = False
         # dispatch generations the loop may carry uncommitted
-        self._pipe_depth = 2 if c.async_dispatch else 1
-        self._packed_shapes = PackedShapeBudget(PACKED_SHAPE_BUDGET)
+        async_dispatch = _env_override("DYN_ASYNC_DISPATCH", bool(c.async_dispatch), _env_flag)
+        self._pipe_depth = 2 if async_dispatch else 1
+        self._packed_shapes = PackedShapeBudget(
+            _env_override("DYN_PACKED_SHAPE_BUDGET", PACKED_SHAPE_BUDGET, int)
+        )
         self.graphs = StepGraphs(self.device)
         # lanes whose classic chunked prefill is under way (one chunk per tick)
         self._chunking: List[SeqState] = []
@@ -319,6 +351,24 @@ class TorchEngine:
         device = resolve_device(device)
         check_model_geometry(model_cfg, device)
         params = init_params(model_cfg, seed, device, torch_dtype(model_cfg.dtype))
+        return cls(model_cfg, params, cfg, device=device)
+
+    @classmethod
+    def from_pretrained(
+        cls,
+        model_path: str,
+        cfg: Optional[EngineConfig] = None,
+        device: Optional[Union[str, torch.device]] = None,
+    ) -> "TorchEngine":
+        """An engine over a HuggingFace checkpoint directory: its
+        ``config.json`` and ``*.safetensors`` files, loaded leaf by leaf
+        onto ``device``."""
+        from .weights import load_safetensors_params
+
+        device = resolve_device(device)
+        model_cfg = ModelConfig.from_pretrained(model_path)
+        check_model_geometry(model_cfg, device)
+        params = load_safetensors_params(model_path, model_cfg, device)
         return cls(model_cfg, params, cfg, device=device)
 
     # -- lifecycle ----------------------------------------------------------

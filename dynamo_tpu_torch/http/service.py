@@ -1,0 +1,453 @@
+"""OpenAI-compatible HTTP service: routes + per-model engine registry.
+
+Reference parity: lib/llm/src/http/service/service_v2.rs:51-133 (HttpService
++ state), openai.rs:123,277 (completions / chat completions handlers with
+SSE streaming), discovery/model_manager.rs (ModelManager: engines keyed by
+model name, added/removed dynamically by the discovery watcher).
+
+An entry's engine is an AsyncEngine taking Context[ChatCompletionRequest]
+(or CompletionRequest) and yielding Annotated[openai-chunk-dict] -- here
+``link(OpenAIPreprocessor, Backend, TorchEngine)``.
+
+The JAX package's service trimmed to what the PyTorch engine serves: chat,
+completions, models, health, live and metrics, with the admission bound,
+per-request deadlines, request templates, SSE and aggregated bodies.
+``/v1/embeddings`` answers with an OpenAI-shaped error (the PyTorch engine
+does not embed yet); the trace, profile, flight-recorder and fleet routes
+are not served.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import os
+from typing import AsyncIterator, Dict, Optional
+
+from ..protocols.openai import (
+    ChatCompletionRequest,
+    CompletionRequest,
+    OpenAIError,
+    SSE_DONE,
+    aggregate_chat,
+    aggregate_completion,
+    sse_encode,
+    sse_error,
+)
+from ..runtime import metrics as rtmetrics
+from ..runtime.engine import (
+    DEADLINE_EXCEEDED_MSG,
+    Annotated,
+    AsyncEngine,
+    Context,
+    DeadlineExceededError,
+    as_response_stream,
+)
+from .metrics import ServiceMetrics
+from .server import HttpServer, Request, Response
+
+logger = logging.getLogger("dynamo.http.service")
+
+
+def _bears_token(data: dict) -> bool:
+    """True when an OpenAI chunk carries generated text (TTFT/ITL must not
+    count the synthetic role-priming chat chunk)."""
+    for c in data.get("choices") or []:
+        if (c.get("delta") or {}).get("content"):
+            return True
+        if c.get("text"):
+            return True
+    return False
+
+
+def sse_annotation(name: str, comment) -> bytes:
+    """Named SSE event for Annotated annotation envelopes."""
+    import json as _json
+
+    payload = _json.dumps({"comment": comment or []}, separators=(",", ":"))
+    return f"event: {name}\ndata: {payload}\n\n".encode()
+
+
+class ModelNotFound(OpenAIError):
+    def __init__(self, model: str) -> None:
+        super().__init__(f"model '{model}' not found", code=404)
+
+
+class AdmissionControl:
+    """Frontend load shedding: bound concurrently-admitted requests.
+
+    Past ``max_inflight`` (0 = unbounded; env ``DYN_HTTP_MAX_INFLIGHT``)
+    new requests are rejected with 503 + ``Retry-After`` (env
+    ``DYN_HTTP_RETRY_AFTER_S``) *before* any parsing or engine work --
+    overload sheds at the cheapest possible point instead of growing an
+    unbounded queue whose every entry will miss its SLO anyway."""
+
+    def __init__(
+        self,
+        max_inflight: Optional[int] = None,
+        retry_after_s: Optional[float] = None,
+    ) -> None:
+        if max_inflight is None:
+            max_inflight = int(os.environ.get("DYN_HTTP_MAX_INFLIGHT", "0"))
+        if retry_after_s is None:
+            retry_after_s = float(os.environ.get("DYN_HTTP_RETRY_AFTER_S", "1"))
+        self.max_inflight = max_inflight
+        self.retry_after_s = retry_after_s
+        self.inflight = 0
+
+    def try_acquire(self) -> bool:
+        if 0 < self.max_inflight <= self.inflight:
+            return False
+        self.inflight += 1
+        return True
+
+    def release(self) -> None:
+        self.inflight = max(0, self.inflight - 1)
+
+
+class ModelManager:
+    """Engines per model name, per endpoint type (chat / completion)."""
+
+    def __init__(self) -> None:
+        self._chat: Dict[str, AsyncEngine] = {}
+        self._completion: Dict[str, AsyncEngine] = {}
+
+    def add_chat_model(self, name: str, engine: AsyncEngine) -> None:
+        self._chat[name] = engine
+
+    def add_completion_model(self, name: str, engine: AsyncEngine) -> None:
+        self._completion[name] = engine
+
+    def remove_model(self, name: str) -> None:
+        self._chat.pop(name, None)
+        self._completion.pop(name, None)
+
+    def chat_engine(self, name: str) -> AsyncEngine:
+        try:
+            return self._chat[name]
+        except KeyError:
+            raise ModelNotFound(name) from None
+
+    def completion_engine(self, name: str) -> AsyncEngine:
+        try:
+            return self._completion[name]
+        except KeyError:
+            raise ModelNotFound(name) from None
+
+    def list_models(self) -> list:
+        names = sorted(set(self._chat) | set(self._completion))
+        return [
+            {"id": n, "object": "model", "owned_by": "dynamo-tpu"} for n in names
+        ]
+
+    @property
+    def is_empty(self) -> bool:
+        return not self._chat and not self._completion
+
+
+class HttpService:
+    """The OpenAI frontend: /v1/chat/completions, /v1/completions,
+    /v1/models, /health, /live, /metrics (and /v1/embeddings' error)."""
+
+    def __init__(
+        self,
+        manager: Optional[ModelManager] = None,
+        host: str = "127.0.0.1",
+        port: int = 0,
+        metrics_prefix: str = "dynamo",
+        template=None,  # Optional[RequestTemplate]: body defaults
+        max_inflight: Optional[int] = None,  # admission bound (None = env)
+        default_deadline_s: Optional[float] = None,  # None = env / no deadline
+    ) -> None:
+        self.manager = manager or ModelManager()
+        self.template = template
+        self.admission = AdmissionControl(max_inflight)
+        if default_deadline_s is None:
+            env_dl = float(os.environ.get("DYN_DEADLINE_S", "0"))
+            default_deadline_s = env_dl if env_dl > 0 else None
+        self.default_deadline_s = default_deadline_s
+        self.metrics = ServiceMetrics(prefix=metrics_prefix)
+        self.server = HttpServer(host, port)
+        self.server.route("POST", "/v1/chat/completions", self._chat)
+        self.server.route("POST", "/v1/completions", self._completions)
+        self.server.route("POST", "/v1/embeddings", self._embeddings)
+        self.server.route("GET", "/v1/models", self._models)
+        self.server.route("GET", "/health", self._health)
+        self.server.route("GET", "/live", self._health)
+        self.server.route("GET", "/metrics", self._metrics)
+
+    @property
+    def address(self) -> tuple:
+        return self.server.address
+
+    @property
+    def url(self) -> str:
+        host, port = self.server.address
+        return f"http://{host}:{port}"
+
+    async def start(self) -> None:
+        await self.server.start()
+        logger.info("http service listening on %s", self.url)
+
+    async def stop(self) -> None:
+        await self.server.stop()
+
+    # -- handlers ------------------------------------------------------------
+
+    async def _health(self, req: Request) -> Response:
+        return Response.json(
+            {"status": "healthy", "models": [m["id"] for m in self.manager.list_models()]}
+        )
+
+    async def _models(self, req: Request) -> Response:
+        return Response.json({"object": "list", "data": self.manager.list_models()})
+
+    async def _metrics(self, req: Request) -> Response:
+        # one scrape surface: the service's private HTTP-layer families plus
+        # the process-wide runtime registry (disjoint family names)
+        body, content_type = self.metrics.render()
+        runtime_body, _ = rtmetrics.render_default()
+        return Response(200, {"Content-Type": content_type}, body + runtime_body)
+
+    def _shed(self, endpoint: str) -> Response:
+        """Admission-control rejection: 503 + Retry-After, counted."""
+        self.metrics.sheds.labels(endpoint).inc()
+        resp = Response.json(
+            {
+                "error": {
+                    "message": "server overloaded, retry later",
+                    "type": "overloaded_error",
+                }
+            },
+            503,
+        )
+        resp.headers["Retry-After"] = (
+            f"{self.admission.retry_after_s:g}"
+        )
+        return resp
+
+    @staticmethod
+    def _deadline_body() -> dict:
+        return {
+            "error": {
+                "message": DEADLINE_EXCEEDED_MSG,
+                "type": "timeout_error",
+            }
+        }
+
+    def _request_deadline(self, req: Request) -> Optional[float]:
+        """Per-request deadline budget in seconds: the
+        ``X-Request-Deadline-S`` header, else the service default
+        (``DYN_DEADLINE_S``), else None (no deadline)."""
+        raw = req.headers.get("x-request-deadline-s")
+        if raw:
+            try:
+                return float(raw)
+            except ValueError:
+                logger.warning("ignoring bad X-Request-Deadline-S %r", raw)
+        return self.default_deadline_s
+
+    def _count_rejected(self, body: Optional[dict], endpoint: str) -> None:
+        """Count a rejected request, labelling with the model name only when
+        it is actually served: client-supplied junk names must not mint
+        unbounded label series."""
+        raw = body.get("model") if body else None
+        known = {m["id"] for m in self.manager.list_models()}
+        self.metrics.requests_total.labels(
+            raw if raw in known else "unknown", endpoint, "rejected"
+        ).inc()
+
+    async def _chat(self, req: Request) -> Response:
+        return await self._serve(req, chat=True)
+
+    async def _completions(self, req: Request) -> Response:
+        return await self._serve(req, chat=False)
+
+    async def _embeddings(self, req: Request) -> Response:
+        """/v1/embeddings: not served by the PyTorch engine yet."""
+        self._count_rejected(None, "embeddings")
+        return Response.json(
+            {
+                "error": {
+                    "message": "the PyTorch engine does not serve embeddings yet",
+                    "type": "not_implemented_error",
+                    "code": 501,
+                }
+            },
+            501,
+        )
+
+    async def _serve(self, req: Request, chat: bool) -> Response:
+        endpoint = "chat_completions" if chat else "completions"
+        # shed BEFORE parsing: overload rejection must stay O(1)
+        if not self.admission.try_acquire():
+            return self._shed(endpoint)
+        try:
+            body = req.json()
+            if not isinstance(body, dict):
+                raise OpenAIError("request body must be a JSON object")
+            if self.template is not None:
+                body = self.template.apply(body)
+            parsed = (
+                ChatCompletionRequest.from_dict(body)
+                if chat
+                else CompletionRequest.from_dict(body)
+            )
+            engine = (
+                self.manager.chat_engine(parsed.model)
+                if chat
+                else self.manager.completion_engine(parsed.model)
+            )
+        except OpenAIError as e:
+            self.admission.release()
+            self._count_rejected(body if isinstance(body, dict) else None, endpoint)
+            return Response.json(e.to_body(), e.code)
+        except BaseException:
+            self.admission.release()
+            raise
+
+        request = Context.new(parsed)
+        guard = self.metrics.guard(parsed.model, endpoint, request.id)
+        # Deadline budget: armed here at the edge, it rides the codec
+        # headers hop by hop; the local watchdog kills the request context
+        # at expiry so even an engine that never checks terminates.
+        deadline_s = self._request_deadline(req)
+        watchdog = None
+        if deadline_s is not None:
+            request.ctx.set_deadline(deadline_s)
+            watchdog = asyncio.get_running_loop().call_later(
+                max(deadline_s, 0.0), request.ctx.kill
+            )
+
+        def on_finish() -> None:
+            self.admission.release()
+            if watchdog is not None:
+                watchdog.cancel()
+
+        guard.on_finish = on_finish
+        try:
+            stream = await as_response_stream(engine, request)
+        except DeadlineExceededError:
+            guard.mark_error()
+            guard.finish()
+            return Response.json(self._deadline_body(), 504)
+        except Exception as e:
+            logger.exception("engine dispatch failed")
+            guard.mark_error()
+            guard.finish()
+            return Response.json(
+                {"error": {"message": f"engine error: {e}", "type": "server_error"}},
+                503,
+            )
+
+        if parsed.stream:
+            started = [False]
+            resp = Response.sse(self._sse_body(stream, request, guard, started))
+
+            def on_close() -> None:
+                # the server calls this once the connection is done with the
+                # response; a body generator that was never started (the
+                # client vanished before the first header byte) never runs
+                # its cleanup, so this is the only path that can kill the
+                # engine-side request and release the inflight gauge
+                if not started[0]:
+                    request.ctx.kill()
+                    guard.mark_error()
+                    guard.finish()
+
+            resp.on_close = on_close
+        else:
+            resp = await self._aggregate_body(stream, request, guard, chat)
+        resp.headers.setdefault("X-Request-Id", request.id)
+        return resp
+
+    async def _sse_body(
+        self, stream, request: Context, guard, started=None
+    ) -> AsyncIterator[bytes]:
+        if started is not None:
+            started[0] = True
+        try:
+            with guard:
+                async for item in stream:
+                    if not isinstance(item, Annotated):
+                        item = Annotated.from_data(item)
+                    if item.is_error():
+                        guard.mark_error()
+                        yield sse_error(item.error_message() or "engine error")
+                        return
+                    if item.data is not None:
+                        if _bears_token(item.data):
+                            guard.token()
+                        yield sse_encode(item.data)
+                    elif item.event is not None:
+                        # annotation envelope (formatted_prompt / token_ids
+                        # ...): surface as a named SSE event
+                        yield sse_annotation(item.event, item.comment)
+                if request.ctx.deadline_expired():
+                    # the watchdog killed the request: the stream ended
+                    # because the budget ran out, not because it finished
+                    guard.mark_error()
+                    yield sse_error(DEADLINE_EXCEEDED_MSG)
+                    return
+                guard.mark_ok()
+                yield SSE_DONE
+        except (asyncio.CancelledError, GeneratorExit):
+            # client went away mid-stream (handler cancelled, or the writer
+            # failed and the generator was aclosed): kill the engine-side
+            # request instead of decoding for a dead connection
+            request.ctx.kill()
+            raise
+        except Exception as e:
+            # the guard's __exit__ already finished it with status=error
+            logger.exception("stream failed")
+            yield sse_error(str(e))
+
+    async def _aggregate_body(
+        self, stream, request: Context, guard, chat: bool
+    ) -> Response:
+        chunks = []
+
+        def timeout_response() -> Response:
+            guard.mark_error()
+            return Response.json(self._deadline_body(), 504)
+
+        try:
+            with guard:
+                async for item in stream:
+                    if not isinstance(item, Annotated):
+                        item = Annotated.from_data(item)
+                    if item.is_error():
+                        msg = item.error_message() or ""
+                        if msg.startswith(DEADLINE_EXCEEDED_MSG):
+                            return timeout_response()
+                        guard.mark_error()
+                        return Response.json(
+                            {
+                                "error": {
+                                    "message": item.error_message(),
+                                    "type": "server_error",
+                                }
+                            },
+                            500,
+                        )
+                    if item.data is not None:
+                        if _bears_token(item.data):
+                            guard.token()
+                        chunks.append(item.data)
+                if request.ctx.deadline_expired():
+                    # watchdog-killed: the stream ended on budget expiry
+                    return timeout_response()
+                guard.mark_ok()
+                agg = (
+                    aggregate_chat(chunks) if chat
+                    else aggregate_completion(chunks)
+                )
+                return Response.json(agg)
+        except DeadlineExceededError:
+            return timeout_response()
+        except Exception as e:
+            # the guard's __exit__ already finished it with status=error
+            logger.exception("aggregation failed")
+            return Response.json(
+                {"error": {"message": str(e), "type": "server_error"}}, 500
+            )

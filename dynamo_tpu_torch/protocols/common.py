@@ -21,6 +21,14 @@ class FinishReason(str, Enum):
     CANCELLED = "cancelled"
     ERROR = "error"
 
+    def to_openai(self) -> str:
+        # OpenAI surface only knows stop/length/content_filter.
+        if self in (FinishReason.EOS, FinishReason.STOP, FinishReason.CANCELLED):
+            return "stop"
+        if self is FinishReason.LENGTH:
+            return "length"
+        return "stop"
+
 
 @dataclass
 class StopConditions:

@@ -21,11 +21,14 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import json
+import time
 import uuid
 from dataclasses import dataclass, field
 from typing import (
     Any,
     AsyncIterator,
+    Callable,
     Dict,
     Generic,
     Optional,
@@ -37,6 +40,18 @@ from typing import (
 T = TypeVar("T")
 U = TypeVar("U")
 
+# The canonical deadline-expiry message: error frames carry it, and the
+# HTTP front end classifies error frames bearing it as 504.
+DEADLINE_EXCEEDED_MSG = "deadline exceeded"
+
+
+class DeadlineExceededError(RuntimeError):
+    """A request's deadline budget expired before it completed (HTTP 504
+    at the front end)."""
+
+    def __init__(self, message: str = DEADLINE_EXCEEDED_MSG) -> None:
+        super().__init__(message)
+
 
 class AsyncEngineContext:
     """Per-request control surface: id, stop/kill signals, completion.
@@ -46,13 +61,14 @@ class AsyncEngineContext:
     further items).  Reference: engine.rs:47-85.
     """
 
-    __slots__ = ("_id", "_stopped", "_killed", "_complete")
+    __slots__ = ("_id", "_stopped", "_killed", "_complete", "_deadline")
 
     def __init__(self, request_id: Optional[str] = None) -> None:
         self._id = request_id or uuid.uuid4().hex
         self._stopped = asyncio.Event()
         self._killed = asyncio.Event()
         self._complete = asyncio.Event()
+        self._deadline: Optional[float] = None  # absolute time.monotonic()
 
     @property
     def id(self) -> str:
@@ -80,6 +96,23 @@ class AsyncEngineContext:
     async def killed(self) -> None:
         await self._killed.wait()
 
+    # -- deadline budget ---------------------------------------------------
+
+    def set_deadline(self, remaining_s: float) -> None:
+        """Arm the deadline budget: ``remaining_s`` seconds from now on this
+        host's monotonic clock."""
+        self._deadline = time.monotonic() + remaining_s
+
+    def deadline_remaining(self) -> Optional[float]:
+        """Seconds left in the budget (may be negative), or None when no
+        deadline is armed."""
+        if self._deadline is None:
+            return None
+        return self._deadline - time.monotonic()
+
+    def deadline_expired(self) -> bool:
+        return self._deadline is not None and time.monotonic() >= self._deadline
+
 
 @dataclass
 class Context(Generic[T]):
@@ -101,6 +134,13 @@ class Context(Generic[T]):
     @classmethod
     def new(cls, data: T, request_id: Optional[str] = None) -> "Context[T]":
         return cls(data=data, ctx=AsyncEngineContext(request_id))
+
+    def map(self, fn: Callable[[T], U]) -> "Context[U]":
+        """Transform the payload while preserving id/context/metadata."""
+        return Context(data=fn(self.data), ctx=self.ctx, metadata=self.metadata)
+
+    def replace(self, data: U) -> "Context[U]":
+        return Context(data=data, ctx=self.ctx, metadata=self.metadata)
 
 
 class ResponseStream(Generic[U]):
@@ -195,6 +235,22 @@ class AsyncEngine(Protocol[T, U]):
         ...
 
 
+def ensure_response_stream(
+    ctx: AsyncEngineContext, out: AsyncIterator[U]
+) -> ResponseStream[U]:
+    """Normalize an engine's output into a ResponseStream (idempotent)."""
+    if isinstance(out, ResponseStream):
+        return out
+    return ResponseStream(ctx, out)
+
+
+async def as_response_stream(
+    engine: AsyncEngine[T, U], request: Context[T]
+) -> ResponseStream[U]:
+    """Invoke an engine and normalize its output into a ResponseStream."""
+    return ensure_response_stream(request.ctx, await engine.generate(request))
+
+
 @dataclass
 class Annotated(Generic[U]):
     """SSE-style envelope: payload plus optional event/comment annotations.
@@ -245,3 +301,7 @@ class Annotated(Generic[U]):
             comment=d.get("comment"),
             id=d.get("id"),
         )
+
+    @classmethod
+    def from_annotation(cls, name: str, value: Any) -> "Annotated[Any]":
+        return cls(event=name, comment=[json.dumps(value)])

@@ -1,0 +1,271 @@
+"""Metrics registry: labelled counters, gauges and histograms rendered in
+the Prometheus text exposition format, with no package behind them.
+
+The subset of the JAX package's ``runtime/metrics.py`` that the HTTP
+service's metrics (``http/metrics.py``) use, written out in plain Python
+because the card's machine has no ``prometheus_client``.  ``render()``
+gives the text that ``prometheus_client.generate_latest`` gives for the
+same families: the same family names, ``_total`` on counters,
+``_bucket``/``_count``/``_sum`` on histograms, a ``_created`` gauge per
+counter and histogram child, labels sorted by name, the same number
+formatting, bucket bounds and content type.
+
+``counter``/``gauge``/``histogram`` are get-or-create: asking twice for the
+same family name returns the same object.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+CONTENT_TYPE_LATEST = "text/plain; version=1.0.0; charset=utf-8"
+
+DEFAULT_BUCKETS = (
+    0.005, 0.01, 0.025, 0.05, 0.075, 0.1, 0.25, 0.5, 0.75, 1.0, 2.5, 5.0,
+    7.5, 10.0, float("inf"),
+)
+
+
+def _go_float(d: float) -> str:
+    """A sample value or bucket bound as Go (and ``prometheus_client``)
+    print it."""
+    d = float(d)
+    if d == math.inf:
+        return "+Inf"
+    if d == -math.inf:
+        return "-Inf"
+    if math.isnan(d):
+        return "NaN"
+    s = repr(d)
+    dot = s.find(".")
+    if d > 0 and dot > 6:
+        mantissa = f"{s[0]}.{s[1:dot]}{s[dot + 1:]}".rstrip("0.")
+        return f"{mantissa}e+0{dot - 1}"
+    return s
+
+
+def _escape_label(v: str) -> str:
+    return v.replace("\\", r"\\").replace("\n", r"\n").replace('"', r"\"")
+
+
+def _escape_help(v: str) -> str:
+    return v.replace("\\", r"\\").replace("\n", r"\n")
+
+
+def _sample(name: str, labels: Dict[str, str], value: float) -> str:
+    if labels:
+        body = ",".join(
+            f'{k}="{_escape_label(v)}"' for k, v in sorted(labels.items())
+        )
+        return f"{name}{{{body}}} {_go_float(value)}\n"
+    return f"{name} {_go_float(value)}\n"
+
+
+class _Child:
+    """One labelled series of a family."""
+
+    def __init__(self, family: "_Family") -> None:
+        self._family = family
+        self._lock = family._lock
+        self.created = time.time()
+        self.value = 0.0
+        if family.kind == "histogram":
+            self.buckets = [0.0] * len(family.bounds)
+            self.sum = 0.0
+
+    def inc(self, amount: float = 1.0) -> None:
+        if self._family.kind == "counter" and amount < 0:
+            raise ValueError("counters can only be incremented by non-negative amounts")
+        with self._lock:
+            self.value += amount
+
+    def dec(self, amount: float = 1.0) -> None:
+        if self._family.kind != "gauge":
+            raise AttributeError("only a gauge can be decremented")
+        with self._lock:
+            self.value -= amount
+
+    def set(self, value: float) -> None:
+        if self._family.kind != "gauge":
+            raise AttributeError("only a gauge can be set")
+        with self._lock:
+            self.value = float(value)
+
+    def observe(self, amount: float) -> None:
+        if self._family.kind != "histogram":
+            raise AttributeError("only a histogram observes")
+        with self._lock:
+            self.sum += amount
+            for i, bound in enumerate(self._family.bounds):
+                if amount <= bound:
+                    self.buckets[i] += 1
+                    break
+
+
+class _Family:
+    """A metric family: its name, help text, label names and children.
+
+    A family without label names has one child from the start and takes
+    ``inc``/``set``/``observe`` directly; one with label names makes its
+    children on ``labels(...)``."""
+
+    def __init__(
+        self,
+        kind: str,
+        name: str,
+        documentation: str,
+        labelnames: Sequence[str],
+        buckets: Optional[Sequence[float]] = None,
+    ) -> None:
+        self.kind = kind
+        self.name = name
+        self.documentation = documentation
+        self.labelnames = tuple(labelnames)
+        self._lock = threading.Lock()
+        if kind == "histogram":
+            bounds = [float(b) for b in (buckets or DEFAULT_BUCKETS)]
+            if bounds != sorted(bounds):
+                raise ValueError("histogram buckets must be in increasing order")
+            if bounds[-1] != math.inf:
+                bounds.append(math.inf)
+            self.bounds = tuple(bounds)
+        self._children: Dict[Tuple[str, ...], _Child] = {}
+        if not self.labelnames:
+            self._children[()] = _Child(self)
+
+    def labels(self, *values: Any) -> _Child:
+        if len(values) != len(self.labelnames):
+            raise ValueError(f"{self.name}: expected labels {self.labelnames}")
+        key = tuple(str(v) for v in values)
+        with self._lock:
+            child = self._children.get(key)
+            if child is None:
+                child = self._children[key] = _Child(self)
+            return child
+
+    def _only(self) -> _Child:
+        if self.labelnames:
+            raise ValueError(f"{self.name} has labels {self.labelnames}")
+        return self._children[()]
+
+    def inc(self, amount: float = 1.0) -> None:
+        self._only().inc(amount)
+
+    def dec(self, amount: float = 1.0) -> None:
+        self._only().dec(amount)
+
+    def set(self, value: float) -> None:
+        self._only().set(value)
+
+    def observe(self, amount: float) -> None:
+        self._only().observe(amount)
+
+    def render(self, extra: Dict[str, str]) -> str:
+        with self._lock:
+            children = [
+                (dict(zip(self.labelnames, key)), child)
+                for key, child in self._children.items()
+            ]
+        help_text = _escape_help(self.documentation)
+        name = self.name + "_total" if self.kind == "counter" else self.name
+        out: List[str] = [
+            f"# HELP {name} {help_text}\n",
+            f"# TYPE {name} {self.kind}\n",
+        ]
+        created: List[str] = []
+        for own, child in children:
+            labels = {**extra, **own}
+            if self.kind == "histogram":
+                acc = 0.0
+                for bound, n in zip(self.bounds, child.buckets):
+                    acc += n
+                    out.append(_sample(
+                        self.name + "_bucket", {**labels, "le": _go_float(bound)}, acc
+                    ))
+                out.append(_sample(self.name + "_count", labels, acc))
+                out.append(_sample(self.name + "_sum", labels, child.sum))
+            else:
+                out.append(_sample(name, labels, child.value))
+            if self.kind != "gauge":
+                created.append(_sample(self.name + "_created", labels, child.created))
+        if created:
+            out.append(f"# HELP {self.name}_created {help_text}\n")
+            out.append(f"# TYPE {self.name}_created gauge\n")
+            out.extend(created)
+        return "".join(out)
+
+
+class MetricsRegistry:
+    """Get-or-create registry of metric families."""
+
+    def __init__(self) -> None:
+        self._families: Dict[str, _Family] = {}
+        self._lock = threading.Lock()
+        # identity labels stamped onto every rendered sample (worker_id,
+        # role); explicit per-sample labels win on collision
+        self.default_labels: Dict[str, str] = {}
+
+    def set_default_labels(self, **labels: Any) -> None:
+        """Replace the render-time identity label set (None values drop
+        the key)."""
+        with self._lock:
+            self.default_labels = {
+                k: str(v) for k, v in labels.items() if v is not None
+            }
+
+    def _get_or_create(self, kind: str, name: str, documentation: str,
+                       labelnames: Sequence[str], buckets=None) -> _Family:
+        with self._lock:
+            fam = self._families.get(name)
+            if fam is None:
+                fam = _Family(kind, name, documentation, labelnames, buckets)
+                self._families[name] = fam
+            elif fam.kind != kind:
+                raise ValueError(f"{name} is already a {fam.kind}")
+            return fam
+
+    def counter(
+        self, name: str, documentation: str, labelnames: Sequence[str] = ()
+    ) -> _Family:
+        return self._get_or_create("counter", name, documentation, labelnames)
+
+    def gauge(
+        self, name: str, documentation: str, labelnames: Sequence[str] = ()
+    ) -> _Family:
+        return self._get_or_create("gauge", name, documentation, labelnames)
+
+    def histogram(
+        self,
+        name: str,
+        documentation: str,
+        labelnames: Sequence[str] = (),
+        buckets: Optional[Sequence[float]] = None,
+    ) -> _Family:
+        return self._get_or_create(
+            "histogram", name, documentation, labelnames, buckets
+        )
+
+    def render(self) -> Tuple[bytes, str]:
+        with self._lock:
+            families = list(self._families.values())
+            extra = dict(self.default_labels)
+        text = "".join(f.render(extra) for f in families)
+        return text.encode(), CONTENT_TYPE_LATEST
+
+
+_default = MetricsRegistry()
+
+
+def default_registry() -> MetricsRegistry:
+    return _default
+
+
+def render_default() -> Tuple[bytes, str]:
+    return _default.render()
+
+
+def worker_identity() -> Dict[str, str]:
+    return dict(default_registry().default_labels)

@@ -810,3 +810,69 @@ def test_graph_capture_and_release_keep_memory_flat(card):
         seen.append(torch.cuda.memory_allocated())
     assert eng.graph_captures == 8
     assert len(set(seen[1:])) == 1, seen
+
+
+def _write_checkpoint(path, cfg, params, st_dtype: str) -> None:
+    """A ``config.json`` and a ``model.safetensors`` (written here: the
+    card's machine has no ``safetensors`` package) of ``params`` under
+    HuggingFace names, in ``st_dtype`` (``F32`` or ``BF16``)."""
+    import json
+    import struct
+
+    names = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
+             "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+             "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+             "w_down": "mlp.down_proj"}
+    sd = {"model.embed_tokens.weight": params["embed"],
+          "model.norm.weight": params["final_norm"],
+          "lm_head.weight": params["lm_head"].T}
+    for i in range(cfg.num_layers):
+        for key, name in names.items():
+            sd[f"model.layers.{i}.{name}.weight"] = params["layers"][key][i].T
+        sd[f"model.layers.{i}.input_layernorm.weight"] = params["layers"]["input_norm"][i]
+        sd[f"model.layers.{i}.post_attention_layernorm.weight"] = params["layers"]["post_norm"][i]
+    as_type = torch.float32 if st_dtype == "F32" else torch.bfloat16
+    blobs = {n: t.to(as_type).contiguous().cpu().view(torch.uint8).numpy().tobytes()
+             for n, t in sd.items()}
+    header, off = {}, 0
+    for n, t in sd.items():
+        header[n] = {"dtype": st_dtype, "shape": list(t.shape),
+                     "data_offsets": [off, off + len(blobs[n])]}
+        off += len(blobs[n])
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path / "model.safetensors", "wb") as f:
+        f.write(struct.pack("<Q", len(head)) + head + b"".join(blobs.values()))
+    (path / "config.json").write_text(json.dumps({
+        "model_type": "llama", "vocab_size": cfg.vocab_size,
+        "hidden_size": cfg.hidden_size, "intermediate_size": cfg.intermediate_size,
+        "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+        "num_key_value_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+    }))
+
+
+@pytest.mark.parametrize("st_dtype", ["F32", "BF16"])
+def test_from_pretrained_on_the_card_loads_the_cpu_params(card, tmp_path, st_dtype):
+    """``TorchEngine.from_pretrained`` maps the checkpoint and copies each
+    leaf to the card as it is, transposing and casting there: the card's
+    parameters are the CPU load's, bit for bit."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.model import init_params
+
+    cfg = ModelConfig.tiny(head_dim=64, num_heads=4, num_kv_heads=2)
+    _write_checkpoint(tmp_path, cfg, init_params(cfg, 1, torch.device("cpu"), torch.float32),
+                      st_dtype)
+    ecfg = EngineConfig(num_pages=16, max_seq_len=64)
+    on_card = TorchEngine.from_pretrained(str(tmp_path), ecfg, device=card)
+    on_cpu = TorchEngine.from_pretrained(str(tmp_path), ecfg, device="cpu")
+    assert on_card.model_cfg.dtype == "bfloat16"
+
+    def flat(p):
+        return {**{k: v for k, v in p.items() if k != "layers"}, **p["layers"]}
+
+    card_p, cpu_p = flat(on_card.params), flat(on_cpu.params)
+    assert card_p.keys() == cpu_p.keys()
+    for k, t in card_p.items():
+        assert t.device.type == "cuda" and t.dtype == torch.bfloat16
+        assert torch.equal(t.cpu(), cpu_p[k]), k

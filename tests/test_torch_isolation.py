@@ -1,23 +1,37 @@
 """The port stands alone: every module of ``dynamo_tpu_torch`` imports under
 a hook that refuses JAX, the JAX package and the libraries the port must not
 need at import (the card's machine has none of them but triton, which the
-port may only import inside a launch)."""
+port may only import inside a launch).  Under the same hook,
+``python -m dynamo_tpu_torch run in=http`` serves a chat completion from a
+safetensors checkpoint directory and exits 0 on SIGINT."""
 
 from __future__ import annotations
 
+import json
 import os
+import shutil
+import signal
 import subprocess
 import sys
 import textwrap
+import urllib.request
+
+import torch
+from safetensors.torch import save_file
 
 import dynamo_tpu_torch
+from dynamo_tpu_torch.engine.config import ModelConfig
+from dynamo_tpu_torch.engine.model import init_params
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(dynamo_tpu_torch.__file__)))
 
 REFUSED = (
     "jax", "jaxlib", "dynamo_tpu", "safetensors", "tokenizers",
-    "transformers", "prometheus_client", "triton",
+    "transformers", "prometheus_client", "triton", "regex",
+    "huggingface_hub", "aiohttp",
 )
 
-SCRIPT = textwrap.dedent(
+HOOK = textwrap.dedent(
     """
     import importlib, importlib.abc, pkgutil, sys
 
@@ -31,6 +45,11 @@ SCRIPT = textwrap.dedent(
             return None
 
     sys.meta_path.insert(0, Refuse())
+    """
+)
+
+SCRIPT = HOOK + textwrap.dedent(
+    """
     import dynamo_tpu_torch
 
     names = [dynamo_tpu_torch.__name__]
@@ -47,13 +66,89 @@ SCRIPT = textwrap.dedent(
 )
 
 
+SERVE = HOOK + textwrap.dedent(
+    """
+    import runpy
+    sys.argv = ["dynamo_tpu_torch"] + sys.argv[2:]
+    try:
+        runpy.run_module("dynamo_tpu_torch", run_name="__main__")
+    except SystemExit as e:
+        code = e.code
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
+    print("leaked", leaked, flush=True)
+    sys.exit(code)
+    """
+)
+
+
 def test_port_imports_nothing_refused():
-    root = os.path.dirname(os.path.dirname(os.path.abspath(dynamo_tpu_torch.__file__)))
     out = subprocess.run(
         [sys.executable, "-c", SCRIPT, ",".join(REFUSED)],
-        cwd=root, capture_output=True, text=True, timeout=120,
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    # the package, its subpackages and every module beneath them (26 with
-    # ops/flash_prefill.py)
-    assert int(out.stdout.strip().splitlines()[-1]) >= 26
+    # the package, its subpackages and every module beneath them: 26 with
+    # ops/flash_prefill.py, 42 with the front end (protocols/openai,
+    # runtime/pipeline and metrics, llm/*, http/*, bench_serving, cli,
+    # __main__)
+    assert int(out.stdout.strip().splitlines()[-1]) >= 42
+
+
+def _checkpoint(model_dir: str, path: str) -> str:
+    """A checkpoint directory: model_dir's tokenizer and config, and random
+    weights under HuggingFace names written by ``safetensors``."""
+    os.makedirs(path)
+    for f in ("tokenizer.json", "tokenizer_config.json", "config.json"):
+        shutil.copy(os.path.join(model_dir, f), path)
+    cfg = ModelConfig.from_pretrained(path)
+    p = init_params(cfg, 0, torch.device("cpu"))
+    names = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
+             "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+             "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+             "w_down": "mlp.down_proj"}
+    sd = {
+        "model.embed_tokens.weight": p["embed"],
+        "model.norm.weight": p["final_norm"],
+        "lm_head.weight": p["lm_head"].T.contiguous(),
+    }
+    for i in range(cfg.num_layers):
+        for key, name in names.items():
+            sd[f"model.layers.{i}.{name}.weight"] = p["layers"][key][i].T.contiguous()
+        sd[f"model.layers.{i}.input_layernorm.weight"] = p["layers"]["input_norm"][i]
+        sd[f"model.layers.{i}.post_attention_layernorm.weight"] = p["layers"]["post_norm"][i]
+    save_file({k: v.contiguous() for k, v in sd.items()},
+              os.path.join(path, "model.safetensors"))
+    return path
+
+
+def test_http_server_imports_nothing_refused(model_dir, tmp_path):
+    ckpt = _checkpoint(model_dir, str(tmp_path / "ckpt"))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", SERVE, ",".join(REFUSED), "run", "in=http",
+         "out=torch", "--model-path", ckpt, "--model-name", "m", "--port", "0",
+         "--device", "cpu", "--max-seq-len", "256", "--num-pages", "64"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "DYN_LOG": "warning"},
+    )
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("serving m at http://"), (line, proc.stderr.read())
+        url = line.split()[3]
+        req = urllib.request.Request(
+            url + "/v1/chat/completions",
+            data=json.dumps({"model": "m", "max_tokens": 5, "ignore_eos": True, "messages": [
+                {"role": "user", "content": "hello"}]}).encode(),
+            headers={"Content-Type": "application/json"},
+        )
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            body = json.loads(resp.read())
+        assert body["usage"]["completion_tokens"] == 5
+        assert body["choices"][0]["finish_reason"] == "length"
+        proc.send_signal(signal.SIGINT)
+        out, err = proc.communicate(timeout=60)
+        assert proc.returncode == 0, err
+        assert "leaked []" in out
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
