@@ -111,6 +111,34 @@ Every phase is fatal on failure:
    in-process engine's, built from the same numpy arrays through
    ``params_from_numpy``.  The directory is deleted after the run.
 
+8. serve-a3: the engine's other callers of flash prefill (kernel 2).
+   (a) The reference phase's f32 model on the card and on the CPU: echo
+   requests' prompt-logprob entries (the same ids, logprobs within 1e-4),
+   ``TorchEngine.embed`` vectors (within 1e-5) and the greedy streams of
+   soft-prompt requests (identical) agree, and on the card the model's own
+   embedding rows fed as ``mm_embeds`` give the token prompt's greedy
+   stream exactly.  (b) Llama-3-8B at full width and depth, bf16, serve's
+   weights and ``EngineConfig(num_pages=1024)``, behind the HTTP service
+   with an embedding model: the primer, the batch cold, the batch warm
+   alone, then the batch again with 4 echo completions (``logprobs: 5``,
+   8 tokens, 2 of them on the cached 1024-token prefix) posted beside it;
+   one ``/v1/embeddings`` call with the batch's 8 token-id prompts (unit
+   vectors, exact ``prompt_tokens``), then one call for each prompt alone:
+   each batched vector must be within ``EMBED_TOL`` of its own (and cosine
+   at least 1 - 1e-4), and every other prompt's at least 10 x as far as
+   its own and over 2 x ``EMBED_TOL`` away, so pooling over pad rows or a
+   neighbour's rows fails, and 2
+   ``generate()`` requests of 576 soft-prompt rows (llava-1.5's 24 x 24
+   patches) over the same 64 placeholder-led text tokens, one after the
+   other, which must hit no cached prefix.  Every echo body has one
+   logprob entry per prompt and completion token, the first null, every
+   logprob <= 0 and each top list sorted.  (c) Kernel 2 launches exactly
+   once per layer per scoring, embedding and soft-prompt prefill dispatch
+   and nothing else launches it; ``/metrics`` counts the scoring and
+   embedding dispatches the engine counted.  It prints each kind's
+   dispatch spans from CUDA events and the plain streams' decode-phase
+   rate alone and beside the echoes.
+
 In every served run each kernel's launch count (graph replays included)
 must equal what the run's dispatches imply (``expected_launches``), and
 the run prints its loop mode, graph captures and replays and the dispatch
@@ -173,6 +201,12 @@ BF16_RTOL = 2.0**-7
 # bound above, in row 1 of the prompt, where the kernel's output equals an
 # f32 emulation of the Pallas arithmetic).
 BF16_P_ROUNDING = 2.0**-9
+# bf16 embeddings (serve-a3): a unit vector of 4096 elements, each some
+# 1/64 in magnitude, pooled in f32 from bf16 rows.  The same prompt in
+# another batch and bucket moves an element by rounding steps of the
+# trunk's GEMMs, some 1e-4; pooling over a pad row or a neighbour's row
+# moves it by about its own size.
+EMBED_TOL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -775,8 +809,8 @@ async def serve(
 ) -> List[dict]:
     """Serve each batch of requests concurrently, one batch after the
     other (``between(i)`` runs before batch ``i`` > 0 starts); returns per
-    request its tokens, finish reason, frame times and time to first
-    token."""
+    request its tokens, finish reason, frame times, time to first token,
+    top logprobs and the frames' prompt logprobs."""
     from dynamo_tpu_torch.protocols.common import PreprocessedRequest
     from dynamo_tpu_torch.runtime.engine import Context
 
@@ -784,6 +818,7 @@ async def serve(
         stream = await engine.generate(Context.new(PreprocessedRequest.from_dict(req)))
         tokens: List[int] = []
         top: List[list] = []
+        plp: List[list] = []
         frames: List[Tuple[float, int]] = []
         finish = None
         async for item in stream:
@@ -795,9 +830,12 @@ async def serve(
                 frames.append((time.perf_counter(), len(got)))
                 tokens += got
             top += data.get("top_logprobs") or []
+            if data.get("prompt_logprobs") is not None:
+                plp.append(data["prompt_logprobs"])
             finish = data.get("finish_reason") or finish
         ttft = frames[0][0] - t0 if frames else float("nan")
-        return dict(tokens=tokens, finish=finish, frames=frames, ttft=ttft, top=top)
+        return dict(tokens=tokens, finish=finish, frames=frames, ttft=ttft, top=top,
+                    plp=plp)
 
     results: List[dict] = []
     try:
@@ -894,11 +932,7 @@ def reference_phase() -> Dict[str, object]:
         ],
     ]
     def run(kw, dev, reqs) -> List[dict]:
-        p = {
-            k: ({n: w.to(dev) for n, w in v.items()} if isinstance(v, dict) else v.to(dev))
-            for k, v in params.items()
-        }
-        eng = TorchEngine(cfg, p, EngineConfig(**ecfg, **kw), device=dev)
+        eng = TorchEngine(cfg, params_on(params, dev), EngineConfig(**ecfg, **kw), device=dev)
         out = asyncio.run(serve(eng, reqs))
         if dev == "cuda":
             # the card runs the pipelined loop with its decode graphs
@@ -929,6 +963,15 @@ def reference_phase() -> Dict[str, object]:
             fail(f"the unpenalized lanes differ across configs: {group}")
     return dict(cfg=cfg, ecfg=ecfg, params=params, batches=batches,
                 streams=default_streams)
+
+
+def params_on(params, dev) -> Dict[str, object]:
+    """The model's parameters (a dict of tensors and of a dict of stacked
+    layer tensors) on ``dev``."""
+    return {
+        k: ({n: w.to(dev) for n, w in v.items()} if isinstance(v, dict) else v.to(dev))
+        for k, v in params.items()
+    }
 
 
 def report_margin(name: str, streams, run, batches) -> None:
@@ -1076,7 +1119,8 @@ def expected_launches(engine) -> Dict[str, int]:
     """The launches a served run must count, from its dispatches (graph
     replays included): per layer, packed ragged (the pool's entry) once per
     packed unified dispatch, rectangle ragged once per rectangle unified
-    dispatch, flash prefill once per full-prompt prefill group,
+    dispatch, flash prefill once per full-prompt prefill group (soft-prompt
+    groups included), prompt-scoring dispatch and embedding dispatch,
     prefix-suffix prefill once per suffix prefill (chunks included), and
     one decode step -- paged decode over a dense pool, the gathered
     composition over an int8 pool -- per fused step past the first of
@@ -1093,7 +1137,9 @@ def expected_launches(engine) -> Dict[str, int]:
         "packed_ragged_attention_int8": layers * unified if packed and q else 0,
         "ragged_paged_attention": layers * unified if not packed and not q else 0,
         "ragged_paged_attention_int8": layers * unified if not packed and q else 0,
-        "flash_prefill_attention": layers * engine.prefill_dispatches["full"],
+        "flash_prefill_attention": layers * (
+            engine.prefill_dispatches["full"] + d.get("prompt_score", 0) + d.get("embed", 0)
+        ),
         "flash_prefix_prefill_attention": layers * engine.prefill_dispatches["suffix"],
         "paged_decode_attention": 0 if q else layers * steps,
         "gathered_decode": layers * steps if q else 0,
@@ -1437,8 +1483,12 @@ class Tap:
     def __init__(self, engine) -> None:
         self.engine = engine
         self.frames: Dict[str, List[Tuple[float, int]]] = {}
+        # requests that asked for prompt logprobs (echo)
+        self.echoes: set = set()
 
     async def generate(self, request):
+        if (request.data or {}).get("prompt_logprobs") is not None:
+            self.echoes.add(request.id)
         stream = await self.engine.generate(request)
         frames = self.frames.setdefault(request.id, [])
 
@@ -1552,9 +1602,8 @@ def serve_http_phase(ref: Dict[str, object], served: Dict[str, object], card: st
         texts = {}
         for stream in (True, False):
             for dev in ("cuda", "cpu"):
-                p = {k: ({n: w.to(dev) for n, w in v.items()} if isinstance(v, dict)
-                         else v.to(dev)) for k, v in params.items()}
-                eng = TorchEngine(cfg, p, EngineConfig(**ref["ecfg"]), device=dev)
+                eng = TorchEngine(cfg, params_on(params, dev), EngineConfig(**ref["ecfg"]),
+                                  device=dev)
                 reset_launches()
                 reports, _ = asyncio.run(http_serve(eng, tok, batches, stream))
                 if dev == "cuda":
@@ -1627,6 +1676,363 @@ def serve_http_phase(ref: Dict[str, object], served: Dict[str, object], card: st
         return {k: counted[k] for k in ("packed_ragged_attention", "paged_decode_attention")}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -- serve-a3: the full flash prefill's other callers ----------------------------
+
+
+def a3_reference(ref: Dict[str, object]) -> None:
+    """serve-a3 (a): the reference phase's f32 model on the card and on the
+    CPU: echo requests' prompt-logprob entries (the same ids, logprobs
+    within 1e-4), embeddings (within 1e-5) and soft-prompt greedy streams
+    (identical) agree, and on the card the model's own embedding rows fed
+    as a soft prompt give the token prompt's greedy stream exactly."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
+
+    cfg, params, ecfg = ref["cfg"], ref["params"], ref["ecfg"]
+    rng = np.random.default_rng(21)
+    V, H = cfg.vocab_size, cfg.hidden_size
+
+    def toks(n):
+        return rng.integers(1, V, n)
+
+    prompt = toks(12).tolist()
+    own_rows = params["embed"][prompt[:8]].numpy()
+    batch = [
+        dict(request(toks(70), 8), prompt_logprobs=3),  # past a mixed budget
+        dict(request(toks(9), 8), prompt_logprobs=0),
+        request(prompt, 10),
+        dict(request([0] * 8 + prompt[8:], 10), mm_embeds=own_rows.tolist()),
+        dict(request([0] * 40 + toks(5).tolist(), 10),
+             mm_embeds=(0.05 * rng.standard_normal((40, H))).tolist()),
+    ]
+    inputs = [toks(n).tolist() for n in (3, 100, 17, 64, 1)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        # a private registry: the HTTP service's /metrics of (b) reads the
+        # default one
+        eng = TorchEngine(cfg, params_on(params, dev), EngineConfig(**ecfg), device=dev,
+                          metrics_registry=MetricsRegistry())
+        reset_launches()
+        vecs = np.asarray(asyncio.run(eng.embed(inputs)))
+        res = asyncio.run(serve(eng, [batch]))
+        out[dev] = (vecs, res)
+        if dev == "cuda":
+            check_launch_invariants("serve-a3 (a)", eng, read_launches())
+    (cv, cres), (hv, hres) = out["cuda"], out["cpu"]
+    err = float(np.abs(cv - hv).max())
+    if err > 1e-5 or not np.allclose(np.linalg.norm(cv, axis=1), 1.0, atol=1e-5):
+        fail(f"serve-a3 (a): card embeddings differ from the CPU's by {err}")
+    lp_err = 0.0
+    for i, (c, h) in enumerate(zip(cres, hres)):
+        if c["tokens"] != h["tokens"] or len(c["tokens"]) != batch[i]["stop_conditions"]["max_tokens"]:
+            fail(f"serve-a3 (a) request {i}: card stream {c['tokens']} differs from the "
+                 f"CPU's {h['tokens']}")
+        if "prompt_logprobs" not in batch[i]:
+            continue
+        if len(c["plp"]) != 1 or len(h["plp"]) != 1:
+            fail(f"serve-a3 (a) request {i}: {len(c['plp'])} frames carry prompt logprobs")
+        (ce,), (he,) = c["plp"], h["plp"]
+        if [e[0] for e in ce] != batch[i]["token_ids"] or [e[0] for e in he] != [e[0] for e in ce]:
+            fail(f"serve-a3 (a) request {i}: prompt logprob ids differ")
+        for a, b in zip(ce[1:], he[1:]):
+            lp_err = max(lp_err, abs(a[1] - b[1]))
+            if a[2] is not None and [t for t, _ in a[2]] != [t for t, _ in b[2]]:
+                fail(f"serve-a3 (a) request {i}: top prompt logprob ids differ")
+    if lp_err > 1e-4:
+        fail(f"serve-a3 (a): card prompt logprobs differ from the CPU's by {lp_err}")
+    if cres[3]["tokens"] != cres[2]["tokens"]:
+        fail(f"serve-a3 (a): the model's own embedding rows as a soft prompt gave "
+             f"{cres[3]['tokens']}, the token prompt {cres[2]['tokens']}")
+    print(f"serve-a3: (a) card == CPU: embeddings max_abs_err={err:.3e}, prompt logprobs "
+          f"max_abs_err={lp_err:.3e}, {len(batch)} greedy streams (2 soft prompts) equal; "
+          f"own embedding rows == token prompt")
+
+
+async def a3_serve(engine, tokenizer, primer, batch, echoes, embeds, soft) -> Dict[str, object]:
+    """serve-a3 (b) on one event loop: the port's HttpService over
+    ``link(OpenAIPreprocessor, Backend, engine)`` and an EmbeddingEngine
+    over ``engine.embed``.  The primer, the batch twice (cold, then warm
+    alone: the baseline), the batch once more with the ``echoes`` posted
+    beside it, one ``/v1/embeddings`` call of ``embeds`` and one for each
+    of its inputs alone, then the ``soft`` requests through ``generate()``
+    one after the other.  The engine is stopped at the end."""
+    from dynamo_tpu_torch.bench_serving import run_bench
+    from dynamo_tpu_torch.http.service import HttpService, ModelManager
+    from dynamo_tpu_torch.llm.backend import Backend
+    from dynamo_tpu_torch.llm.embedding import EmbeddingEngine
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.runtime.pipeline import link
+
+    tap = Tap(engine)
+    pipe = link(OpenAIPreprocessor("m", tokenizer), Backend(tokenizer), tap)
+    manager = ModelManager()
+    manager.add_completion_model("m", pipe)
+    manager.add_embedding_model(
+        "m", EmbeddingEngine(engine.embed, tokenizer, engine.cfg.max_seq_len)
+    )
+    service = HttpService(manager, port=0)
+    await service.start()
+    host, port = service.address
+    out: Dict[str, object] = {"tap": tap, "marks": []}
+
+    async def mark(label: str) -> None:
+        # read every span enqueued so far (the device is idle here), so
+        # each step's dispatches show apart
+        await engine._on_executor(engine._drain_spans, True)
+        out["marks"].append((label, engine.dispatch_spans()))
+
+    try:
+        runs = []
+        for reqs in (primer, batch, batch):
+            runs.append(await run_bench(host, port, "m", bench_items(reqs),
+                                        concurrency=len(reqs), stream=True))
+        seen = set(tap.frames)
+        bench = asyncio.ensure_future(run_bench(
+            host, port, "m", bench_items(batch), concurrency=len(batch), stream=True
+        ))
+        answers = await asyncio.gather(*[
+            http_call(port, "POST", "/v1/completions", body) for body in echoes
+        ])
+        runs.append(await bench)
+        out["runs"] = runs
+        out["baseline_ids"] = list(tap.frames)[len(primer) + len(batch):][: len(batch)]
+        out["with_echo_ids"] = [r for r in tap.frames if r not in seen and r not in tap.echoes]
+        out["echoes"] = answers
+        await mark("batch")
+        out["embeds"] = await http_call(port, "POST", "/v1/embeddings",
+                                        {"model": "m", "input": embeds})
+        await mark(f"embed of {len(embeds)} inputs")
+        out["embed_solo"] = []
+        for e in embeds:
+            out["embed_solo"].append(await http_call(port, "POST", "/v1/embeddings",
+                                                     {"model": "m", "input": e}))
+            await mark(f"embed of the {len(e)}-token input alone")
+        hits = engine._prefix_hits
+        out["soft"] = []
+        for i, r in enumerate(soft):
+            out["soft"].append(await serve_one(engine, r))
+            await mark(f"soft prompt {i}")
+        out["soft_hits"] = engine._prefix_hits - hits
+        status, metrics = await http_call(port, "GET", "/metrics")
+        if status != 200:
+            fail(f"GET /metrics answered {status}")
+        out["metrics"] = metrics
+    finally:
+        await service.stop()
+        await engine.stop()
+    return out
+
+
+async def serve_one(engine, req: dict) -> List[int]:
+    """One request through ``generate()``: its tokens."""
+    from dynamo_tpu_torch.protocols.common import PreprocessedRequest
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    stream = await engine.generate(Context.new(PreprocessedRequest.from_dict(req)))
+    tokens: List[int] = []
+    async for item in stream:
+        if item.is_error():
+            fail(f"serve-a3: a soft-prompt request failed: {item.error_message()}")
+        tokens += (item.data or {}).get("token_ids") or []
+    return tokens
+
+
+def check_echo_body(i: int, status: int, raw: bytes, prompt_len: int, max_tokens: int) -> None:
+    """One echo completion: 200, its usage, one logprob entry per prompt
+    token (the first without a logprob) and per completion token, every
+    logprob <= 0, each top list sorted."""
+    if status != 200:
+        fail(f"serve-a3 (b) echo {i}: status {status} {raw[:300]!r}")
+    body = json.loads(raw)
+    usage = body["usage"]
+    if usage["prompt_tokens"] != prompt_len or usage["completion_tokens"] != max_tokens:
+        fail(f"serve-a3 (b) echo {i}: usage {usage}")
+    lp = body["choices"][0]["logprobs"]
+    n = prompt_len + max_tokens
+    if len(lp["token_logprobs"]) != n or len(lp["top_logprobs"]) != n:
+        fail(f"serve-a3 (b) echo {i}: {len(lp['token_logprobs'])} entries, want {n}")
+    if lp["token_logprobs"][0] is not None or lp["top_logprobs"][0] is not None:
+        fail(f"serve-a3 (b) echo {i}: entry 0 carries a logprob")
+    if not all(x is not None and x <= 0 for x in lp["token_logprobs"][1:]):
+        fail(f"serve-a3 (b) echo {i}: a logprob is missing or positive")
+    for top in lp["top_logprobs"][1:]:
+        vals = list(top.values())
+        if not vals or vals != sorted(vals, reverse=True) or vals[0] > 0:
+            fail(f"serve-a3 (b) echo {i}: a top list is empty or unsorted: {top}")
+
+
+def dispatch_counter(body: bytes) -> Dict[str, float]:
+    """``/metrics``' engine dispatch counter by kind."""
+    out: Dict[str, float] = {}
+    for line in body.decode().splitlines():
+        m = re.fullmatch(r'dynamo_engine_dispatches_total\{kind="(\w+)"\} (\S+)', line)
+        if m:
+            out[m.group(1)] = float(m.group(2))
+    return out
+
+
+def serve_a3_phase(ref: Dict[str, object], card: str) -> Dict[str, object]:
+    """serve-a3: (a) ``a3_reference``; (b) Llama-3-8B at full width and
+    depth, bf16, serve's weights and config, behind the HTTP service
+    (``a3_serve``): the serve batch's 8 token-id prompts embedded in one
+    call (unit vectors; each within ``EMBED_TOL`` of the same prompt
+    embedded alone and far from every other prompt's; exact
+    ``prompt_tokens``), 4 echo completions (``logprobs: 5``, 8 tokens; 2 on
+    the cached 1024-token prefix) beside the streaming batch, 2 requests of
+    576 soft-prompt rows (llava-1.5's 24 x 24 patches) and 64 text tokens
+    over the same placeholder ids; (c) kernel 2 launches exactly once per
+    layer per scoring, embedding and soft-prompt prefill dispatch, nothing
+    else launches it, every other launch invariant holds, and ``/metrics``
+    counts the scoring and embedding dispatches.  Returns (b)'s launches
+    and spans."""
+    import shutil
+    import tempfile
+
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.llm.tokenizer import Tokenizer
+
+    t_phase = time.perf_counter()
+    a3_reference(ref)
+    cfg = ModelConfig.llama3_8b()
+    primer, batch = serve_requests(cfg.vocab_size)
+    rng = np.random.default_rng(8)
+    prefix = primer[0]["token_ids"][:1024]
+    echo_prompts = [
+        prefix + rng.integers(1, cfg.vocab_size, 24).tolist(),
+        prefix + rng.integers(1, cfg.vocab_size, 300).tolist(),
+        rng.integers(1, cfg.vocab_size, 120).tolist(),
+        rng.integers(1, cfg.vocab_size, 700).tolist(),
+    ]
+    echoes = [
+        {"model": "m", "prompt": p, "echo": True, "logprobs": 5, "max_tokens": 8,
+         "ignore_eos": True}
+        for p in echo_prompts
+    ]
+    embeds = [r["token_ids"] for r in batch]
+    text = rng.integers(1, cfg.vocab_size, 64).tolist()
+    soft = [
+        dict(request([0] * 576 + text, 32),
+             mm_embeds=(0.02 * rng.standard_normal((576, cfg.hidden_size))).astype(
+                 np.float32).tolist())
+        for _ in range(2)
+    ]
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-a3-")
+    try:
+        write_tokenizer(tmp, 128000, 256)
+        tok = Tokenizer.from_model_dir(tmp)
+        engine = TorchEngine.random_init(cfg, EngineConfig(num_pages=1024), seed=0)
+        reset_launches()
+        t0 = time.perf_counter()
+        res = asyncio.run(a3_serve(engine, tok, primer, batch, echoes, embeds, soft))
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counted = read_launches()
+    d = dict(engine.dispatches)
+    check_launch_invariants("serve-a3 (b)", engine, counted)
+    layers = cfg.num_layers
+
+    # (b) the plain streams, the echoes, the embeddings, the soft prompts
+    runs = [primer, batch, batch, batch]
+    check_http_results("serve-a3 (b)", res["runs"], runs)
+    for i, ((status, raw), p) in enumerate(zip(res["echoes"], echo_prompts)):
+        check_echo_body(i, status, raw, len(p), 8)
+    status, raw = res["embeds"]
+    if status != 200:
+        fail(f"serve-a3 (b) /v1/embeddings: status {status} {raw[:300]!r}")
+    body = json.loads(raw)
+    vecs = np.asarray([e["embedding"] for e in body["data"]], np.float64)
+    norms = np.linalg.norm(vecs, axis=1)
+    if vecs.shape != (len(embeds), cfg.hidden_size) or np.abs(norms - 1.0).max() > 1e-4:
+        fail(f"serve-a3 (b): embeddings of shape {vecs.shape}, norms {norms}")
+    if body["usage"]["prompt_tokens"] != sum(len(e) for e in embeds):
+        fail(f"serve-a3 (b): embeddings usage {body['usage']}")
+    solo = []
+    for i, (status, raw) in enumerate(res["embed_solo"]):
+        if status != 200:
+            fail(f"serve-a3 (b) /v1/embeddings of input {i} alone: status {status} {raw[:300]!r}")
+        solo.append(json.loads(raw)["data"][0]["embedding"])
+    solo = np.asarray(solo, np.float64)
+    # dist[i, j]: batched vector i against input j embedded alone
+    dist = np.abs(vecs[:, None, :] - solo[None, :, :]).max(axis=2)
+    solo_err = float(np.diag(dist).max())
+    cos_min = float(((vecs * solo).sum(axis=1)
+                     / (norms * np.linalg.norm(solo, axis=1))).min())
+    # each batched vector's nearest other input: at least 10 x as far as its
+    # own, and over 2 x EMBED_TOL, so no other input's vector passes for it
+    others = dist + np.diag(np.full(len(embeds), np.inf))
+    near = others.argmin(axis=1)
+    margin = float((others.min(axis=1) / np.maximum(np.diag(dist), 1e-30)).min())
+    apart = float(others.min())
+    i_near = int(others.min(axis=1).argmin())
+    if (solo_err > EMBED_TOL or cos_min < 1.0 - 1e-4 or margin < 10.0
+            or apart <= 2 * EMBED_TOL):
+        fail(f"serve-a3 (b): batched embeddings against each input alone: own max_abs_err "
+             f"{np.diag(dist)}, least cosine {cos_min}, nearest other input "
+             f"{others.min(axis=1)} (inputs {near}), least ratio {margin}")
+    for i, toks in enumerate(res["soft"]):
+        if len(toks) != 32 or not all(0 <= t < cfg.vocab_size for t in toks):
+            fail(f"serve-a3 (b) soft prompt {i}: {len(toks)} tokens")
+    if res["soft_hits"] != 0:
+        fail(f"serve-a3 (b): soft prompts hit {res['soft_hits']} cached prefix tokens")
+
+    # (c) kernel 2's launches: the scoring, embedding and soft-prompt
+    # prefill dispatches, nothing else
+    flash = counted["flash_prefill_attention"]
+    want = layers * (d.get("prompt_score", 0) + d.get("embed", 0) + d.get("prefill", 0))
+    if (flash != want or d.get("prompt_score") != len(echoes) or d.get("embed") != 1 + len(embeds)
+            or d.get("prefill") != len(soft)
+            or engine.prefill_dispatches != {"full": len(soft), "suffix": 0}):
+        fail(f"serve-a3 (c): flash prefill launched {flash}, want {want}; dispatches {d}, "
+             f"prefill routes {engine.prefill_dispatches}")
+    for name in ("packed_ragged_attention", "paged_decode_attention"):
+        if counted[name] <= 0:
+            fail(f"{name} never launched in serve-a3 (b)")
+    exported = dispatch_counter(res["metrics"])
+    for kind in ("prompt_score", "embed"):
+        if exported.get(kind) != d[kind]:
+            fail(f"serve-a3 (c): /metrics counts {exported.get(kind)} {kind} dispatches, "
+                 f"the engine {d[kind]}")
+    print(f"serve-a3: (b) {len(echoes)} echo bodies, {len(embeds)} embeddings (norms within "
+          f"{np.abs(norms - 1.0).max():.2e} of 1; against each input alone max_abs_err={solo_err:.3e} "
+          f"least cosine={cos_min:.9f}, nearest other input {apart:.3e} ({len(embeds[i_near])} "
+          f"against {len(embeds[near[i_near]])} tokens), least ratio {margin:.3e}), "
+          f"{len(soft)} soft prompts of 576 rows, {len(batch)} plain streams of 64 tokens: ok")
+    print(f"serve-a3: (c) flash prefill launches {flash} == {layers} x (prompt_score "
+          f"{d['prompt_score']} + embed {d['embed']} + prefill {d['prefill']}); /metrics "
+          f"dispatches {exported}; launches {counted}")
+
+    # what the echoes cost the plain streams, and each dispatch's span
+    tap = res["tap"]
+    base = decode_phase_rate([tap.frames[r] for r in res["baseline_ids"]])
+    beside = decode_phase_rate([tap.frames[r] for r in res["with_echo_ids"]])
+    print(f"serve-a3: decode_phase_tok_s alone={base:.3f} with_echoes={beside:.3f} "
+          f"drop={1.0 - beside / base:.4f} wall_s={wall:.3f} on {card}")
+    spans = engine.dispatch_spans()
+    for kind in ("prompt_score", "embed", "prefill"):
+        st = spans.get(kind)
+        if not st or not st["n"]:
+            fail(f"serve-a3: no {kind} span was read")
+        print(f"serve-a3: span {kind} n={int(st['n'])} device_ms={st['device_ms']:.3f} "
+              f"mean_ms={st['device_ms'] / st['n']:.3f} gap_ms={st['gap_ms']:.3f} on {card}")
+    # each embedding call's and each soft prompt's own spans
+    marks = res["marks"]
+    for (_, before), (label, after) in zip(marks, marks[1:]):
+        for kind in ("embed", "prefill"):
+            n = after.get(kind, {}).get("n", 0) - before.get(kind, {}).get("n", 0)
+            if n:
+                ms = after[kind]["device_ms"] - before.get(kind, {}).get("device_ms", 0.0)
+                print(f"serve-a3: span {label}: {kind} n={int(n)} device_ms={ms:.3f} "
+                      f"on {card}")
+    print(f"serve-a3: phase {time.perf_counter() - t_phase:.3f} s")
+    del engine, res, tap
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=flash, dispatches=d, spans=spans)
 
 
 def write_safetensors(path: str, tensors: Dict[str, Tuple[Tuple[int, ...], Callable]]) -> None:
@@ -1978,6 +2384,8 @@ def main() -> None:
     quant, quant_walls = serve_int8_phase(kernels, card)
     http_launches = serve_http_phase(ref, served, card)
     print(f"serve-http: launches on the HTTP path {http_launches}")
+    a3 = serve_a3_phase(ref, card)
+    print(f"serve-a3: flash prefill launches {a3['launches']}")
     if profile_out is not None:
         profile_phase(
             profile_out,

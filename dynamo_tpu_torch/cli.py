@@ -242,7 +242,8 @@ def _model_name(args) -> str:
 
 
 def _pipeline(args):
-    """(engine, name, the linked preprocessor -> backend -> engine)."""
+    """(engine, name, tokenizer, the linked preprocessor -> backend ->
+    engine)."""
     from .llm.backend import Backend
     from .llm.preprocessor import OpenAIPreprocessor
     from .runtime.pipeline import link
@@ -250,7 +251,7 @@ def _pipeline(args):
     engine = _make_engine(args)
     tokenizer = _tokenizer_for(args)
     name = _model_name(args)
-    return engine, name, link(
+    return engine, name, tokenizer, link(
         OpenAIPreprocessor(name, tokenizer), Backend(tokenizer), engine
     )
 
@@ -269,10 +270,20 @@ async def run_http_local(args) -> None:
     """in=http out=torch: single-process aggregated serving."""
     from .http.service import HttpService, ModelManager
 
-    engine, name, pipeline = _pipeline(args)
+    from .llm.embedding import EmbeddingEngine
+
+    engine, name, tokenizer, pipeline = _pipeline(args)
     manager = ModelManager()
     manager.add_chat_model(name, pipeline)
     manager.add_completion_model(name, pipeline)
+    # /v1/embeddings: the engine's trunk embeds, inputs tokenized here
+    manager.add_embedding_model(
+        name,
+        EmbeddingEngine(
+            engine.embed, tokenizer=tokenizer,
+            max_input_tokens=engine.cfg.max_seq_len,
+        ),
+    )
     service = HttpService(
         manager, host=args.host, port=args.port, template=_load_template(args)
     )
@@ -315,7 +326,7 @@ async def _ask(pipeline, name: str, text: str, max_tokens: int, on_delta) -> Opt
 async def run_text(args) -> None:
     """in=text out=torch: one prompt (``--prompt``), or a REPL on stdin,
     through the full preprocessor -> engine -> detokenizer pipeline."""
-    engine, name, pipeline = _pipeline(args)
+    engine, name, _, pipeline = _pipeline(args)
 
     def show(delta: str) -> None:
         print(delta, end="", flush=True)
@@ -354,7 +365,7 @@ async def run_batch(args) -> None:
     """
     if not args.input_file:
         raise SystemExit("in=batch requires --input-file prompts.jsonl")
-    engine, name, pipeline = _pipeline(args)
+    engine, name, _, pipeline = _pipeline(args)
 
     def read_prompts() -> list:
         with open(args.input_file, encoding="utf-8") as fh:

@@ -43,12 +43,23 @@ graphs (``graphs.py``), and each dispatch's device span and the gap
 before it are timed on CUDA events (``dispatch_spans``).  Device work
 runs on one executor thread; the event loop keeps serving I/O meanwhile.
 
-Not served yet (later slices): multimodal prompts and prompt logprobs
-(such a request gets an error frame), speculative decoding (its request
-fields are ignored: output is the contract, speculation an optimization),
+The engine's other callers of the full flash prefill run eagerly beside
+that loop, never inside a CUDA graph: an echo+logprobs request
+(``prompt_logprobs``) has its prompt scored by a dispatch of its own when
+its prefill dispatches (no KV writes; the rows travel in a second result
+with its own pinned buffer and event, and commit with the first token); a
+request with ``mm_embeds`` (a soft prompt) opts out of prefix caching and
+takes a classic full prefill, never chunked and never packed into a mixed
+tick; and :meth:`TorchEngine.embed` pools embeddings on the executor
+thread, serialized with the tick loop.  ``EngineMetrics`` (queue depth,
+occupancy, KV pages, prefix hits, dispatches by kind, step latency, mixed
+batch fill, multistep K, packed shapes) is fed at the JAX engine's sites.
+
+Not served yet (later slices): speculative decoding (its request fields
+are ignored: output is the contract, speculation an optimization),
 offload/swap and external-KV deliveries, disaggregation, tensor/data
-parallelism, the tick profiler and engine metrics, and CUDA graphs for
-dispatches that carry prefill chunks.
+parallelism, the tick profiler, and CUDA graphs for dispatches that carry
+prefill chunks.
 
 The serving-environment overrides the JAX engine reads at construction
 are read here too, with its parse, for the features the port has:
@@ -70,6 +81,7 @@ import concurrent.futures
 import itertools
 import logging
 import os
+import time
 from dataclasses import dataclass, field
 from typing import (
     Any, AsyncIterator, Deque, Dict, Hashable, List, Optional, Sequence, Tuple, Union,
@@ -87,6 +99,7 @@ from ..protocols.common import (
     PreprocessedRequest,
 )
 from ..runtime.engine import Annotated, Context, ResponseStream
+from ..runtime.metrics import EngineMetrics
 from .bucketing import (
     PackedShapeBudget,
     pick_bucket,
@@ -106,11 +119,13 @@ from .step import (
     StepRunner,
     bump_counts,
     decode_block,
+    embed_step,
     inject_token,
     inject_tokens,
     packed_unified_multistep,
-    prefill_and_sample,
+    prefill_mm_and_sample,
     prefill_suffix_and_sample,
+    score_prompt_step,
     seed_count_rows,
     unified_step,
     update_lanes,
@@ -158,15 +173,6 @@ def check_model_geometry(model_cfg: ModelConfig, device: torch.device) -> None:
     )
 
 
-def _unsupported(req: PreprocessedRequest) -> Optional[str]:
-    """Why the PyTorch engine cannot serve ``req`` yet (None = it can)."""
-    if req.mm_embeds:
-        return "the PyTorch engine does not serve multimodal prompts yet"
-    if req.prompt_logprobs is not None:
-        return "the PyTorch engine does not serve prompt logprobs yet"
-    return None
-
-
 # -- dispatched-but-uncommitted work ----------------------------------------
 
 
@@ -199,13 +205,17 @@ class InflightPrefill:
     device (already injected into the decode state, ``tok`` a device view
     for the re-apply path) until the host commits it.  ``sampled`` is set
     when the prefill is a dispatch of its own; inside a group or a unified
-    dispatch the parent's rows carry it."""
+    dispatch the parent's rows carry it.  ``prompt_lp``: an echo+logprobs
+    lane's prompt-scoring rows ``[1, T, 2 + 2N]``, a result of their own
+    that the commit also waits for."""
 
     tok: torch.Tensor  # [1] device view of the sampled token
     seq: SeqState
     slot: int
     life: int
     sampled: Optional[Result] = None
+    prompt_lp: Optional[Result] = None
+    dispatched_at: float = field(default_factory=time.perf_counter)
 
 
 @dataclass
@@ -215,6 +225,7 @@ class InflightPrefillGroup:
 
     sampled: Result
     entries: List[InflightPrefill]
+    dispatched_at: float = field(default_factory=time.perf_counter)
 
 
 @dataclass
@@ -225,6 +236,7 @@ class InflightBlock:
     sampled: Result
     slots: List[Optional[SeqState]]
     lives: List[int]
+    dispatched_at: float = field(default_factory=time.perf_counter)
 
 
 @dataclass
@@ -241,9 +253,21 @@ class InflightUnified:
     lives: List[int]
     finals: List[InflightPrefill] = field(default_factory=list)
     n_steps: int = 1
+    dispatched_at: float = field(default_factory=time.perf_counter)
 
 
 Inflight = Union[InflightPrefill, InflightPrefillGroup, InflightBlock, InflightUnified]
+
+
+def _prefills_of(e: Inflight) -> List[InflightPrefill]:
+    """The first-token records an in-flight dispatch carries."""
+    if isinstance(e, InflightPrefillGroup):
+        return e.entries
+    if isinstance(e, InflightUnified):
+        return e.finals
+    if isinstance(e, InflightPrefill):
+        return [e]
+    return []
 
 
 class TorchEngine:
@@ -255,6 +279,7 @@ class TorchEngine:
         params: Params,
         cfg: Optional[EngineConfig] = None,
         device: Optional[Union[str, torch.device]] = None,
+        metrics_registry=None,  # runtime.metrics.MetricsRegistry | None
     ) -> None:
         self.device = resolve_device(device)
         check_model_geometry(model_cfg, self.device)
@@ -278,6 +303,11 @@ class TorchEngine:
             ),
             self.kv.allocator,
         )
+        # registry-backed observability: the scheduler refreshes the queue
+        # and occupancy gauges at admission, the engine observes dispatches
+        # and, at commit, step latency and KV residency
+        self.obs = EngineMetrics(metrics_registry, max_slots=c.max_batch_size)
+        self.sched.metrics = self.obs
         self.buckets = prefill_buckets(c.page_size, c.max_seq_len)
         # classic chunks restart at page-aligned offsets: the chunk size
         # rounds up to a whole page
@@ -309,6 +339,9 @@ class TorchEngine:
         self._nonces = itertools.count(1)
         self._nonce_of: Dict[str, int] = {}
         self._queues: Dict[str, asyncio.Queue] = {}
+        # live requests' contexts: a request killed before anything read its
+        # stream (a consumer that gave up first) is still cancelled
+        self._ctxs: Dict[str, Any] = {}
         self._cancelled: set = set()
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._wake: Optional[asyncio.Event] = None
@@ -323,13 +356,13 @@ class TorchEngine:
         self._prefix_hits = 0
         self._prefix_lookups = 0
         self._tokens_generated = 0
-        # dispatch counts by kind (prefill, chunk, decode_block, unified) and
-        # unified dispatches by fused decode steps K
+        # dispatch counts by kind (prefill, chunk, decode_block, unified,
+        # prompt_score, embed) and unified dispatches by fused decode steps K
         self.dispatches: Dict[str, int] = {}
         self.dispatches_by_k: Dict[int, int] = {}
-        # classic prefill dispatches by route: full prompts (flash prefill)
-        # and suffixes over a resident prefix, chunks included
-        # (prefix-suffix flash prefill)
+        # classic prefill dispatches by route: full prompts (flash prefill;
+        # soft-prompt prefills included) and suffixes over a resident
+        # prefix, chunks included (prefix-suffix flash prefill)
         self.prefill_dispatches: Dict[str, int] = {"full": 0, "suffix": 0}
         self._init_device_state()
         # dispatch spans on CUDA events (card only): (kind, start, end)
@@ -426,13 +459,18 @@ class TorchEngine:
         data = request.data
         req = PreprocessedRequest.from_dict(data) if isinstance(data, dict) else data
         ctx = request.ctx
-        message = _unsupported(req)
-        if message is None:
+        message = None
+        try:
             seq = SeqState.from_request(request.id, req, self.sched.block_size)
-            try:
-                self.sched.enqueue(seq)
-            except ValueError as e:
-                message = str(e)
+            mm = seq.mm_embeds
+            if mm is not None and (mm.ndim != 2 or mm.shape[1] != self.model_cfg.hidden_size):
+                raise ValueError(
+                    f"mm_embeds must be rows of the model's hidden size "
+                    f"{self.model_cfg.hidden_size}, got shape {list(mm.shape)}"
+                )
+            self.sched.enqueue(seq)
+        except ValueError as e:
+            message = str(e)
         if message is not None:
 
             async def err_stream() -> AsyncIterator[Annotated]:
@@ -442,6 +480,7 @@ class TorchEngine:
         self._nonce_of[request.id] = next(self._nonces) & 0xFFFFFFFF
         queue: asyncio.Queue = asyncio.Queue()
         self._queues[request.id] = queue
+        self._ctxs[request.id] = ctx
         self._wake.set()
 
         async def stream() -> AsyncIterator[Annotated]:
@@ -468,6 +507,7 @@ class TorchEngine:
                     yield item
             finally:
                 self._queues.pop(request.id, None)
+                self._ctxs.pop(request.id, None)
                 if ctx.is_killed():
                     self._cancelled.add(request.id)
                     if self._wake is not None:
@@ -529,8 +569,16 @@ class TorchEngine:
             return fn(*args)
 
     def _entries_ready(self, entries: List[Inflight]) -> bool:
-        """Non-blocking probe: have this generation's results landed?"""
-        return all(_handles_ready(e.sampled) for e in entries)
+        """Non-blocking probe: have this generation's results landed, the
+        prompt-scoring rows of its echo lanes included?"""
+        return all(
+            _handles_ready(e.sampled)
+            and all(
+                pf.prompt_lp is None or _handles_ready(pf.prompt_lp)
+                for pf in _prefills_of(e)
+            )
+            for e in entries
+        )
 
     async def _emit_events(self, events: List[StepEvent]) -> None:
         """Hand a commit's events to the streams: the bounded fanout queue
@@ -614,12 +662,14 @@ class TorchEngine:
                     # every uncommitted generation may hold a full block's
                     # writes per lane, plus this tick's block
                     ms_block = self._ms_max if self._multistep else 1
-                    sched.ensure_decode_capacity(
+                    preempted = sched.ensure_decode_capacity(
                         lookahead=(self._pipe_depth + 1)
                         * max(self.cfg.decode_block_size, ms_block)
                         + 1,
                         chunk_pages=GROW_CHUNK_PAGES,
                     )
+                    if preempted:
+                        self.obs.preemptions.inc(len(preempted))
                 self._revive_paused_lanes()
                 fresh: List[Inflight] = []
                 minted = False  # a classic prefill sampled first tokens
@@ -643,28 +693,34 @@ class TorchEngine:
                 # park every chunk-bound lane before any dispatch: the
                 # first device-state sync of an admission burst may be a
                 # full rebuild, and a lane not yet marked prefilling would
-                # be rebuilt active over a half-written cache
+                # be rebuilt active over a half-written cache.  A soft
+                # prompt prefills in one dispatch: its injection indexes
+                # positions from 0
                 for seq, prompt_len in plan.prefills:
                     if (
                         self._chunk_tokens is not None
                         and prompt_len - seq.cached_prompt_tokens > self._chunk_tokens
+                        and seq.mm_embeds is None
                     ):
                         seq.prefilling = True
                         seq.prefilled_tokens = seq.cached_prompt_tokens
-                # new admissions: the mixed plane packs them; the classic
-                # path batches full prompts by (suffix bucket, prefix-page
-                # bucket) and starts long ones chunk by chunk
+                # new admissions: the mixed plane packs text prompts; the
+                # classic path (soft prompts too, in any tick: the unified
+                # step has no injection) batches full prompts by (suffix
+                # bucket, prefix-page bucket) and starts long text prompts
+                # chunk by chunk
                 groups: Dict[Tuple[int, int], List[Tuple[SeqState, int]]] = {}
                 for seq, prompt_len in plan.prefills:
                     if not self._holds_slot(seq):
                         continue  # preempted by this tick's capacity pass
-                    if mixed_ok:
+                    if mixed_ok and seq.mm_embeds is None:
                         sched.queue_mixed_prefill(seq, seq.cached_prompt_tokens)
                         continue
                     cached = seq.cached_prompt_tokens
                     if (
                         self._chunk_tokens is not None
                         and prompt_len - cached > self._chunk_tokens
+                        and seq.mm_embeds is None
                     ):
                         pf = await self._on_executor(self._do_prefill, seq)
                         if pf is not None:
@@ -1238,6 +1294,7 @@ class TorchEngine:
 
     def _count(self, kind: str) -> None:
         self.dispatches[kind] = self.dispatches.get(kind, 0) + 1
+        self.obs.observe_dispatch(kind)
 
     def _note_prefix_stats(self, seq: SeqState) -> None:
         """Prefix-cache stats, token-weighted, once per request."""
@@ -1245,6 +1302,9 @@ class TorchEngine:
             seq.stats_counted = True
             self._prefix_lookups += len(seq.prompt)
             self._prefix_hits += seq.cached_prompt_tokens
+            self.obs.prefix_lookups.inc(len(seq.prompt))
+            if seq.cached_prompt_tokens:
+                self.obs.prefix_hits.inc(seq.cached_prompt_tokens)
 
     # -- unified and decode-block dispatches (executor thread) ---------------
 
@@ -1303,6 +1363,8 @@ class TorchEngine:
             )
         else:
             S = pow2_bucket(max((ch.length for ch in chunks), default=1))
+            # fresh-token rows: used, dispatched, and the rectangle's own
+            self.obs.observe_mixed_tokens(total, B * S, B * S)
             p_tokens = np.zeros((B, S), np.int64)
             for ch in chunks:
                 p_tokens[ch.seq.slot, : ch.length] = ch.seq.prompt[
@@ -1328,6 +1390,10 @@ class TorchEngine:
         res = self._download(packed, self._span_kind("unified", marks), start)
         self._count("unified")
         self.dispatches_by_k[num_steps] = self.dispatches_by_k.get(num_steps, 0) + 1
+        self.obs.observe_mixed(int(dec_cap.sum()), int(p_lens.sum()))
+        self.obs.observe_multistep_k(num_steps)
+        for pf in finals:
+            self._score_prompt(pf)
         return InflightUnified(
             res, slots, [s.life if s is not None else -1 for s in slots], finals,
             num_steps,
@@ -1356,6 +1422,15 @@ class TorchEngine:
         if self._packed_shapes.evictions != evicted:
             live = set(self._packed_shapes.pairs)
             self.graphs.release(lambda k: k[0] != "packed" or (k[1], k[2], 0) in live)
+        self.obs.observe_executable_shapes(len(self._packed_shapes))
+        # fresh-token rows: `used` real ones (each fused step adds a row per
+        # decode lane), `dispatched` what the steps ran, `rectangle` what
+        # the [B, S] layout would have run
+        n_decode = int(dec_cap.sum())
+        self.obs.observe_mixed_tokens(
+            total + n_decode * (num_steps - 1), Np + B * (num_steps - 1),
+            B * pow2_bucket(int(p_lens.max())),
+        )
         # the packed axis' tokens, lanes, rows and decode flags (the step
         # takes them with the per-lane arrays as one int64 tensor: one
         # host-to-device copy)
@@ -1460,6 +1535,7 @@ class TorchEngine:
         packed = self._run_block(K, Pb, top_n, use_filters, use_penalties)
         res = self._download(packed, self._span_kind("decode_block", marks), start)
         self._count("decode_block")
+        self.obs.observe_multistep_k(1)
         return InflightBlock(res, slots, [s.life if s is not None else -1 for s in slots])
 
     # -- classic prefill dispatches (executor thread) -----------------------
@@ -1469,7 +1545,9 @@ class TorchEngine:
     ) -> torch.Tensor:
         """Full-prompt prefills plus first-token samples for up to ``Bp``
         lanes; rows past ``len(seqs)`` are pad lanes (length 0, trash page).
-        Returns the packed samples ``[Bp, 2 + 2*top_n]``."""
+        A group with a soft-prompt lane injects each lane's rows over its
+        leading positions (text lanes take none), the row count padded to a
+        power of two.  Returns the packed samples ``[Bp, 2 + 2*top_n]``."""
         bucket = pick_bucket(self.buckets, max(len(s.prompt) for s in seqs))
         n_pages = bucket // self.cfg.page_size
         tokens = np.zeros((Bp, bucket), np.int64)
@@ -1486,10 +1564,21 @@ class TorchEngine:
             lanes[i] = seq
         put = self._put
         self.prefill_dispatches["full"] += 1
-        return prefill_and_sample(
-            self.params, self.model_cfg, self.kv.pages, put(tokens),
-            put(lens), put(table), self._sampling_params(lanes),
-            self._lp_top(lanes), any(self._seq_penalized(s) for s in seqs),
+        top_n = self._lp_top(lanes)
+        penalized = any(self._seq_penalized(s) for s in seqs)
+        mm = mm_len = None
+        if any(s.mm_embeds is not None for s in seqs):
+            mm_lens = [0 if s.mm_embeds is None else len(s.mm_embeds) for s in seqs]
+            M = pow2_bucket(max(mm_lens))
+            rows = np.zeros((Bp, M, self.model_cfg.hidden_size), np.float32)
+            for i, s in enumerate(seqs):
+                if s.mm_embeds is not None:
+                    rows[i, : mm_lens[i]] = s.mm_embeds
+            mm = put(rows)
+            mm_len = put(np.asarray(mm_lens + [0] * (Bp - len(seqs)), np.int64))
+        return prefill_mm_and_sample(
+            self.params, self.model_cfg, self.kv.pages, put(tokens), put(lens),
+            put(table), mm, mm_len, self._sampling_params(lanes), top_n, penalized,
         )
 
     def _dispatch_suffix_prefill_batch(
@@ -1573,8 +1662,11 @@ class TorchEngine:
                 [(seq, pl, seq.cached_prompt_tokens) for seq, pl in items], Bp
             )
         entries = self._inject_first_tokens(packed, seqs)
+        res = self._download(packed, "prefill", start)
         self._count("prefill")
-        return [InflightPrefillGroup(self._download(packed, "prefill", start), entries)]
+        for pf in entries:
+            self._score_prompt(pf)
+        return [InflightPrefillGroup(res, entries)]
 
     def _do_prefill(self, seq: SeqState) -> Optional[InflightPrefill]:
         """A classic chunk-bound admission (already parked ``prefilling``):
@@ -1595,6 +1687,7 @@ class TorchEngine:
         (pf,) = self._inject_first_tokens(packed, [seq])
         pf.sampled = self._download(packed, "prefill", t0)
         self._count("prefill")
+        self._score_prompt(pf)
         return pf
 
     def _dispatch_chunk(self, seq: SeqState) -> Optional[InflightPrefill]:
@@ -1619,6 +1712,92 @@ class TorchEngine:
         self._count("chunk")
         return None
 
+    # -- prompt scoring and embeddings (executor thread) -----------------------
+
+    def _score_prompt(self, pf: InflightPrefill) -> None:
+        """Echo+logprobs: dispatch the prompt-scoring forward (no KV
+        writes) right after the lane's prefill dispatch, once per request
+        (a recompute-resumed lane's folded prompt holds its output); its
+        rows commit with the first token."""
+        seq = pf.seq
+        if seq.prompt_logprobs is None or seq.prompt_lp_sent or seq.prior_generated:
+            return
+        prompt = seq.prompt
+        toks = np.zeros((1, pick_bucket(self.buckets, len(prompt))), np.int64)
+        toks[0, : len(prompt)] = prompt
+        t0 = self._span_start()
+        out = score_prompt_step(
+            self.params, self.model_cfg, self.kv.pages, self._put(toks),
+            self._put(np.asarray([len(prompt)], np.int64)),
+            8 if seq.prompt_logprobs else 0,
+        )
+        self._count("prompt_score")
+        pf.prompt_lp = self._download(out, "prompt_score", t0)
+
+    @staticmethod
+    def _prompt_lp_entries(seq: SeqState, packed: np.ndarray) -> List[Any]:
+        """Packed scoring rows ``[T, 2 + 2N]`` -> per-prompt-position
+        entries ``[token_id, logprob|None, top|None]`` (position 0 carries
+        None: nothing precedes it, the OpenAI prompt-logprobs shape)."""
+        N = (packed.shape[-1] - 2) // 2
+        _, lps, tids, tlps = unpack_sampled_logprobs(packed, N)
+        prompt = seq.prompt
+        out: List[Any] = [[int(prompt[0]), None, None]]
+        for j in range(1, len(prompt)):
+            top = (
+                [[int(i), float(lp)] for i, lp in zip(tids[j - 1], tlps[j - 1])]
+                if N
+                else None
+            )
+            out.append([int(prompt[j]), float(lps[j - 1]), top])
+        return out
+
+    async def embed(self, token_batches: List[List[int]]) -> List[List[float]]:
+        """Pooled embeddings for pre-tokenized inputs (/v1/embeddings): the
+        final hidden rows mean-pooled over each input and L2-normalised.
+        Inputs sorted by length go in groups of ``max_batch_size``, one
+        bucket-padded dispatch each, the batch padded to a power of two.
+        Runs on the engine's executor, serialized with the tick loop: the
+        forward reads no KV page and writes none, so in-flight decode state
+        is untouched, but a large call delays every stream by its
+        duration."""
+        if not token_batches:
+            return []
+        for t in token_batches:
+            if not t:
+                raise ValueError("embedding input must be non-empty")
+            if len(t) > self.cfg.max_seq_len:
+                raise ValueError(
+                    f"embedding input of {len(t)} tokens exceeds max_seq_len"
+                    f" {self.cfg.max_seq_len}"
+                )
+        return await self._on_executor(self._embed_sync, token_batches)
+
+    def _embed_sync(self, token_batches: List[List[int]]) -> List[List[float]]:
+        out: List[Optional[List[float]]] = [None] * len(token_batches)
+        order = sorted(range(len(token_batches)), key=lambda i: len(token_batches[i]))
+        B = self.cfg.max_batch_size
+        for lo in range(0, len(order), B):
+            group = order[lo : lo + B]
+            bucket = pick_bucket(self.buckets, max(len(token_batches[i]) for i in group))
+            # pad lanes have length 0 and come out as zero rows
+            Bp = min(pow2_bucket(len(group)), B)
+            toks = np.zeros((Bp, bucket), np.int64)
+            lens = np.zeros((Bp,), np.int64)
+            for row, i in enumerate(group):
+                t = token_batches[i]
+                toks[row, : len(t)] = t
+                lens[row] = len(t)
+            t0 = self._span_start()
+            vecs = embed_step(
+                self.params, self.model_cfg, self.kv.pages, self._put(toks), self._put(lens)
+            )
+            self._count("embed")
+            vecs = self._download(vecs, "embed", t0).numpy()
+            for row, i in enumerate(group):
+                out[i] = vecs[row].tolist()
+        return out  # type: ignore[return-value]
+
     # -- commits (executor thread) ------------------------------------------
 
     def _commit_all(self, entries: List[Inflight]) -> List[StepEvent]:
@@ -1626,9 +1805,23 @@ class TorchEngine:
         dispatch) in dispatch order: every result in one pass, then the
         stop-rule replay."""
         mats = [e.sampled.numpy() for e in entries]
+        # echo lanes' prompt-scoring rows: each result waits on its own event
+        lp_mats = {
+            id(pf): pf.prompt_lp.numpy()
+            for e in entries
+            for pf in _prefills_of(e)
+            if pf.prompt_lp is not None
+        }
+        now = time.perf_counter()
         self._drain_spans()
         sched = self.sched
         events: List[StepEvent] = []
+
+        def attach_prompt_lps(ev: StepEvent, pf: InflightPrefill) -> None:
+            plp = lp_mats.get(id(pf))
+            if plp is not None and not pf.seq.prompt_lp_sent:
+                ev.prompt_logprobs = self._prompt_lp_entries(pf.seq, plp[0])
+                pf.seq.prompt_lp_sent = True
 
         def commit_prefill(pf: InflightPrefill, row: np.ndarray) -> None:
             seq = pf.seq
@@ -1645,27 +1838,43 @@ class TorchEngine:
             N = (row.shape[-1] - 2) // 2
             tok, lp, tids, tlps = unpack_sampled_logprobs(row, N)
             top = [[int(t), float(l)] for t, l in zip(tids, tlps)] if N else None
-            events.append(sched.commit_prefill_token(seq, int(tok), float(lp), top))
+            ev = sched.commit_prefill_token(seq, int(tok), float(lp), top)
+            attach_prompt_lps(ev, pf)
+            events.append(ev)
 
         for e, mat in zip(entries, mats):
             if isinstance(e, InflightPrefillGroup):
                 for i, pf in enumerate(e.entries):
                     commit_prefill(pf, mat[i])
+                self.obs.observe_step("prefill", now - e.dispatched_at)
             elif isinstance(e, InflightPrefill):
                 commit_prefill(e, mat[0])
+                self.obs.observe_step("prefill", now - e.dispatched_at)
             else:
+                finals = {}
                 if isinstance(e, InflightUnified):
                     for pf in e.finals:
+                        finals[pf.slot] = pf
                         if self._pending_injects.get(pf.slot) is pf:
                             del self._pending_injects[pf.slot]
                 N = (mat.shape[-1] - 2) // 2
                 toks, lps, tids, tlps = unpack_sampled_logprobs(mat, N)
-                events.extend(
-                    sched.commit_block(
-                        toks, e.slots, lps, tids if N else None, tlps if N else None,
-                        lives=e.lives,
-                    )
+                block_events = sched.commit_block(
+                    toks, e.slots, lps, tids if N else None, tlps if N else None,
+                    lives=e.lives,
                 )
+                # a final chunk's first token commits in the block replay;
+                # its prompt logprobs ride that event (events fire only for
+                # lanes still resident, so the slot is the dispatch's)
+                for ev in block_events:
+                    pf = finals.get(ev.seq.slot)
+                    if pf is not None and pf.seq is ev.seq:
+                        attach_prompt_lps(ev, pf)
+                events.extend(block_events)
+                kind = "unified" if isinstance(e, InflightUnified) else "decode_block"
+                self.obs.observe_step(kind, now - e.dispatched_at)
+        alloc = self.kv.allocator
+        self.obs.observe_kv(alloc.used_pages, alloc.num_pages - 1)
         return events
 
     # -- events -------------------------------------------------------------
@@ -1681,6 +1890,8 @@ class TorchEngine:
         for ev in events:
             queue = self._queues.get(ev.seq.request_id)
             self._tokens_generated += len(ev.tokens)
+            if ev.tokens:
+                self.obs.tokens.inc(len(ev.tokens))
             if queue is None:
                 continue
             if ev.tokens:
@@ -1690,18 +1901,25 @@ class TorchEngine:
                     out.logprobs = list(ev.logprobs)
                     if want > 0 and ev.top_logprobs is not None:
                         out.top_logprobs = [t[:want] for t in ev.top_logprobs]
+                if ev.prompt_logprobs is not None:
+                    out.prompt_logprobs = ev.prompt_logprobs
                 queue.put_nowait(Annotated.from_data(out.to_dict()))
             if ev.finished is not None:
                 self._nonce_of.pop(ev.seq.request_id, None)
-                queue.put_nowait(
-                    Annotated.from_data(LLMEngineOutput.finished(ev.finished).to_dict())
-                )
+                self._ctxs.pop(ev.seq.request_id, None)
+                out = LLMEngineOutput.finished(ev.finished)
+                if not ev.tokens and ev.prompt_logprobs is not None:
+                    # the first token finished the request outright (a
+                    # swallowed stop): the prompt logprobs still ship
+                    out.prompt_logprobs = ev.prompt_logprobs
+                queue.put_nowait(Annotated.from_data(out.to_dict()))
                 queue.put_nowait(None)
 
     def _fail_seq(self, seq: SeqState, message: str) -> None:
         if seq.finish is None:
             seq.finish = FinishReason.ERROR
         self._nonce_of.pop(seq.request_id, None)
+        self._ctxs.pop(seq.request_id, None)
         if self._queues.get(seq.request_id) is None:
             return
         # async mode: the error rides the fanout queue, so it cannot
@@ -1729,6 +1947,9 @@ class TorchEngine:
             self.sched.cancel(seq)
 
     def _process_cancellations(self) -> None:
+        # a killed context whose stream was never read never reaches the
+        # stream's own cancel paths: the kill is read here
+        self._cancelled.update(rid for rid, ctx in self._ctxs.items() if ctx.is_killed())
         if not self._cancelled:
             return
         by_id = {s.request_id: s for s in self.sched.slots if s is not None}
@@ -1736,6 +1957,7 @@ class TorchEngine:
         for rid in list(self._cancelled):
             self._cancelled.discard(rid)
             self._nonce_of.pop(rid, None)
+            self._ctxs.pop(rid, None)
             seq = by_id.get(rid)
             if seq is not None:
                 self.sched.cancel(seq)

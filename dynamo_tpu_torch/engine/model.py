@@ -226,12 +226,30 @@ def transformer(
     positions: torch.Tensor,  # [T]
     kv_pages: KVPool,
     attn_fn: AttnFn,
+    mm: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Run the trunk over a flat token axis; returns hidden [T, H] after
-    the final norm.  ``kv_pages`` is written in place."""
+    the final norm.  ``kv_pages`` is written in place.
+
+    ``mm = (mm_embeds [B, M, H], mm_len [B])`` injects a llava-style soft
+    prompt into a flat axis of B lanes of equal width (row ``b * W + t``
+    is lane b's position t, the prefill layout): lane b's first
+    ``min(mm_len[b], M, W)`` positions take rows of ``mm_embeds``, cast to
+    the model's dtype, instead of the token-embedding lookup.  The rows
+    land after Gemma's embedding scale, so they are not scaled."""
     x = params["embed"][tokens]
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype, device=x.device)
+    if mm is not None:
+        mm_embeds, mm_len = mm
+        B, M = mm_embeds.shape[:2]
+        W = x.shape[0] // B
+        k = min(M, W)
+        # x is this call's own gather: the leading rows of each lane are
+        # overwritten in place, with no host sync on the mask
+        head = x.view(B, W, -1)[:, :k]
+        take = torch.arange(k, device=x.device)[None, :] < mm_len.clamp(max=k)[:, None]
+        head.copy_(torch.where(take[:, :, None], mm_embeds[:, :k].to(x.dtype), head))
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
     layers = params["layers"]
     for i in range(cfg.num_layers):

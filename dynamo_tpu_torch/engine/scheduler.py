@@ -4,9 +4,10 @@ A copy of the JAX package's scheduler (``engine/scheduler.py``) restricted
 to what the PyTorch engine serves: FIFO slot admission with prefix-cache
 reuse, mixed-batch chunk formation, page growth with recompute preemption,
 and the host replay of the stop rules at commit (decode blocks and the
-classic path's first token).  Not carried over: the
-KV-budget admission planner, data-parallel slot balancing, the offload /
-swap / disaggregation hooks and multimodal prompts.  Speculation fields
+classic path's first token), with the multimodal soft prompt and the
+prompt-logprob request fields.  Not carried over: the
+KV-budget admission planner, data-parallel slot balancing and the offload /
+swap / disaggregation hooks.  Speculation fields
 stay inert (``spec_live`` is always False here: the engine never arms a
 lane).
 
@@ -15,7 +16,9 @@ arrays (tokens / seq_lens / page_table) and pure-Python bookkeeping; the
 engine drives it and runs the device steps.  A version and a dirty-lane
 set tell the engine what of its device-resident decode state is stale:
 ``growth_version`` (pages appended to live lanes) and ``dirty_slots``
-(lanes whose mirrors changed).
+(lanes whose mirrors changed).  ``metrics`` is the engine's observability
+hook (``runtime.metrics.EngineMetrics``): the scheduler only sets its
+queue and occupancy gauges at each admission pass.
 """
 
 from __future__ import annotations
@@ -64,6 +67,9 @@ class SeqState:
     # page_table view: shared (reused) pages first, then owned pages
     pages: List[int] = field(default_factory=list)
     blocks: Optional[TokenBlockSequence] = None  # router-visible block identity
+    # llava-style soft prompt: [T_img, hidden] f32 rows injected over the
+    # first T_img prompt positions at prefill (None = text-only)
+    mm_embeds: Optional[Any] = None
     num_generated: int = 0
     # tokens generated before the last preemption (already streamed to the
     # client); stop-condition accounting uses prior_generated + num_generated
@@ -88,6 +94,9 @@ class SeqState:
     # and a live spec state once armed -- inert here: nothing arms it
     speculation: Optional[Any] = None
     spec: Optional[Any] = None
+    # echo+logprobs: top-N prompt logprobs to compute at first prefill
+    prompt_logprobs: Optional[int] = None
+    prompt_lp_sent: bool = False
     # slot lives: bumped whenever the lane leaves its slot (finish, cancel,
     # preemption), so a dispatch made in an earlier life never commits into
     # a later one, even when a preempted request is re-admitted into the
@@ -100,14 +109,26 @@ class SeqState:
 
     @classmethod
     def from_request(cls, request_id: str, req: PreprocessedRequest, block_size: int) -> "SeqState":
+        mm = None
+        if req.mm_embeds:
+            mm = np.asarray(req.mm_embeds, np.float32)
         return cls(
             request_id=request_id,
             prompt=list(req.token_ids),
             stop=req.stop_conditions,
             sampling=req.sampling_options,
             eos_ids=list(req.eos_token_ids),
-            blocks=TokenBlockSequence(req.token_ids, block_size=block_size),
+            # multimodal prompts opt out of prefix caching: the block hash
+            # chain is computed over token ids, and the placeholder ids for
+            # embedding positions would alias across different images
+            blocks=(
+                None
+                if mm is not None
+                else TokenBlockSequence(req.token_ids, block_size=block_size)
+            ),
+            mm_embeds=mm,
             speculation=req.speculation,
+            prompt_logprobs=req.prompt_logprobs,
         )
 
 
@@ -150,6 +171,9 @@ class StepEvent:
     # [[token_id, logprob], ...] (None when the dispatch ran without tops)
     logprobs: List[float] = field(default_factory=list)
     top_logprobs: Optional[List[List[List[float]]]] = None
+    # echo+logprobs: per-prompt-position [token_id, logprob|None, top|None]
+    # entries, attached by the engine to the request's first event
+    prompt_logprobs: Optional[List[Any]] = None
 
 
 class Scheduler:
@@ -160,6 +184,9 @@ class Scheduler:
         self.pool = pool
         self.block_size = cfg.page_size
         self.preempt_recompute = 0
+        # observability hook (runtime.metrics.EngineMetrics): the scheduler
+        # stays sans-IO -- it only pokes gauges the engine wired in
+        self.metrics: Optional[Any] = None
         B = cfg.max_batch_size
         self.max_pages = cfg.max_seq_len // cfg.page_size
         self.waiting: Deque[SeqState] = collections.deque()
@@ -265,6 +292,8 @@ class Scheduler:
             if not self._try_admit(self.waiting[0], plan, slot):
                 break
             self.waiting.popleft()
+        if self.metrics is not None:
+            self.metrics.observe_sched(len(self.waiting), self.num_active)
         return plan
 
     def _try_admit(self, seq: SeqState, plan: TickPlan, slot: int) -> bool:

@@ -2,13 +2,16 @@
 (the default path), the rectangle unified step (``packed_ragged=False``),
 and the classic separate dispatches: full and prefix-suffix prefill with
 first-token sampling, and the fixed-width decode block with penalty
-histograms.
+histograms; and the engine's other callers of the full flash prefill:
+prompt scoring (echo+logprobs), the multimodal soft-prompt prefill and the
+pooled embedding forward.
 
 The counterparts of the JAX package's ``step.py`` functions
 ``_packed_unified_step`` (without folded speculative verify),
 ``_unified_step``, ``_mixed_sample_epilogue``, ``_decode_once``,
 ``_packed_unified_multistep``, ``_decode_block``, ``prefill_step``,
-``prefill_and_sample``, ``prefill_suffix_and_sample``,
+``prefill_and_sample``, ``prefill_mm_and_sample``,
+``prefill_suffix_and_sample``, ``score_prompt_step``, ``embed_step``,
 ``sample_step_packed`` and ``_prompt_penalized_logits``.  They run eagerly;
 the KV pool is updated in place.  Decode state (last token, cache length,
 active flag, penalty histogram) enters and leaves each call as tensors;
@@ -495,16 +498,19 @@ def _last_row_logits(params, cfg, hidden, lens, B, T) -> torch.Tensor:
     return lm_logits(params, cfg, hidden[last])
 
 
-def prefill_step(
+def _prefill_hidden(
     params: Params,
     cfg: ModelConfig,
-    kv_pages: KVPool,  # updated in place
+    kv_pages: KVPool,  # updated in place unless page_table is None
     tokens: torch.Tensor,  # [B, T] bucket-padded prompts (T a page multiple)
     seq_lens: torch.Tensor,  # [B] true prompt lengths (0 = pad lane)
-    page_table: torch.Tensor,  # [B, T // page] the lanes' pages
+    page_table: Optional[torch.Tensor],  # [B, T // page]; None: no KV writes
+    mm: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # soft prompt
 ) -> torch.Tensor:
-    """Run full prompts from position 0, write their KV pages, return the
-    last prompt row's logits ``[B, V]``."""
+    """The trunk over full prompts from position 0 through the full flash
+    prefill (``mm``: with the soft prompt injected, see
+    ``model.transformer``), writing their KV pages unless ``page_table`` is
+    None; returns the hidden rows ``[B * T, H]``."""
     B, T = tokens.shape
     positions = torch.arange(T, device=tokens.device).repeat(B)
     window = cfg.sliding_window or 0
@@ -512,10 +518,26 @@ def prefill_step(
     def attn_fn(q, k, v, kv, layer):
         q4, k4, v4 = (x.view(B, T, *x.shape[1:]) for x in (q, k, v))
         out = att.prefill_attention_dispatch(q4, k4, v4, seq_lens, window)
-        att.write_prefill_kv(kv, k4, v4, page_table, layer)
+        if page_table is not None:
+            att.write_prefill_kv(kv, k4, v4, page_table, layer)
         return out.view(q.shape)
 
-    hidden = transformer(params, cfg, tokens.reshape(-1), positions, kv_pages, attn_fn)
+    return transformer(params, cfg, tokens.reshape(-1), positions, kv_pages, attn_fn, mm)
+
+
+def prefill_step(
+    params: Params,
+    cfg: ModelConfig,
+    kv_pages: KVPool,  # updated in place
+    tokens: torch.Tensor,  # [B, T] bucket-padded prompts (T a page multiple)
+    seq_lens: torch.Tensor,  # [B] true prompt lengths (0 = pad lane)
+    page_table: torch.Tensor,  # [B, T // page] the lanes' pages
+    mm: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Run full prompts from position 0, write their KV pages, return the
+    last prompt row's logits ``[B, V]``."""
+    B, T = tokens.shape
+    hidden = _prefill_hidden(params, cfg, kv_pages, tokens, seq_lens, page_table, mm)
     return _last_row_logits(params, cfg, hidden, seq_lens, B, T)
 
 
@@ -531,13 +553,92 @@ def prefill_and_sample(
     use_penalties: bool = False,
 ) -> torch.Tensor:
     """Prefill plus first-token sampling: ``packed [B, 2 + 2*top_n]``."""
-    logits = prefill_step(params, cfg, kv_pages, tokens, seq_lens, page_table)
+    return prefill_mm_and_sample(
+        params, cfg, kv_pages, tokens, seq_lens, page_table, None, None,
+        sampling, top_n, use_penalties,
+    )
+
+
+def prefill_mm_and_sample(
+    params: Params,
+    cfg: ModelConfig,
+    kv_pages: KVPool,  # updated in place
+    tokens: torch.Tensor,  # [B, T]; positions < mm_len[b] are placeholders
+    seq_lens: torch.Tensor,  # [B]
+    page_table: torch.Tensor,  # [B, T // page]
+    mm_embeds: Optional[torch.Tensor],  # [B, M, H] f32 soft-prompt rows
+    mm_len: Optional[torch.Tensor],  # [B] rows valid per lane (0: text-only)
+    sampling: SamplingParams,
+    top_n: int = 0,
+    use_penalties: bool = False,
+) -> torch.Tensor:
+    """Multimodal prefill: llava-style soft-prompt injection over the first
+    ``mm_len`` positions, then the causal prefill and first-token sample
+    of :func:`prefill_and_sample` (which is this with no soft prompt).
+    Returns ``packed [B, 2 + 2*top_n]``."""
+    mm = None if mm_embeds is None else (mm_embeds, mm_len)
+    logits = prefill_step(params, cfg, kv_pages, tokens, seq_lens, page_table, mm)
     pen = (
         prompt_penalized_logits(logits, tokens, seq_lens, sampling)
         if use_penalties
         else None
     )
     return sample_step_packed(logits, sampling, top_n, seq_lens, pen)
+
+
+# the longest span of positions whose logits one scoring chunk projects:
+# [B, 512, V] f32 is 263 MB at B = 1 over a 128256-id vocabulary
+SCORE_CHUNK = 512
+
+
+def score_prompt_step(
+    params: Params,
+    cfg: ModelConfig,
+    kv_pages: KVPool,  # read only: the trunk's signature, never written
+    tokens: torch.Tensor,  # [B, T] bucket-padded prompts
+    seq_lens: torch.Tensor,  # [B] true prompt lengths (0 = pad lane)
+    top_n: int = 0,
+) -> torch.Tensor:
+    """Per-position next-token logprobs over a prompt (echo+logprobs): the
+    trunk runs causally with no KV writes, and entry j reports the logprob
+    of prompt token j + 1 (the last entry is meaningless; the host drops
+    it) through the decode sites' ``token_logprobs`` and
+    ``pack_sampled_logprobs``.  The logits are projected in chunks of at
+    most :data:`SCORE_CHUNK` positions, never ``[B, T, V]`` at once.
+    Returns ``packed [B, T, 2 + 2*top_n]`` int32."""
+    B, T = tokens.shape
+    hidden = _prefill_hidden(params, cfg, kv_pages, tokens, seq_lens, None)
+    hidden = hidden.view(B, T, -1)
+    targets = torch.roll(tokens, -1, dims=1)  # targets[j] = tokens[j + 1]
+    parts = []
+    for lo in range(0, T, SCORE_CHUNK):
+        logits = lm_logits(params, cfg, hidden[:, lo : lo + SCORE_CHUNK])
+        span = logits.shape[1]
+        tgt = targets[:, lo : lo + span].reshape(B * span)
+        lp, top_ids, top_lps = token_logprobs(logits.reshape(B * span, -1), tgt, top_n)
+        parts.append(pack_sampled_logprobs(tgt, lp, top_ids, top_lps).view(B, span, -1))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def embed_step(
+    params: Params,
+    cfg: ModelConfig,
+    kv_pages: KVPool,  # read only: the trunk's signature, never written
+    tokens: torch.Tensor,  # [B, T] bucket-padded inputs
+    seq_lens: torch.Tensor,  # [B] true input lengths (0 = pad lane)
+) -> torch.Tensor:
+    """Pooled embeddings (/v1/embeddings): the trunk with no KV writes, the
+    f32 mean of its final hidden rows over each lane's valid positions,
+    L2-normalised with a floor of 1e-9.  Returns ``[B, H]`` f32 unit
+    vectors, zero rows for pad lanes."""
+    B, T = tokens.shape
+    hidden = _prefill_hidden(params, cfg, kv_pages, tokens, seq_lens, None)
+    valid = torch.arange(T, device=tokens.device)[None, :] < seq_lens[:, None]
+    hidden = hidden.view(B, T, -1).float() * valid[:, :, None]
+    denom = seq_lens[:, None].float().clamp(min=1.0)
+    pooled = hidden.sum(dim=1) / denom
+    norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
+    return pooled / norm.clamp(min=1e-9)
 
 
 def prefill_suffix_and_sample(

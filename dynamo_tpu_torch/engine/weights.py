@@ -7,6 +7,9 @@ stacked layout, as tensors on ``device`` in ``dtype``.  bfloat16 arrays
 (numpy's ``ml_dtypes`` extension type) cross byte-exactly through a 16-bit
 integer view.
 
+``vision_params_from_numpy`` does the same for the vision encoder's
+parameters (``vision.py``).
+
 ``load_safetensors_params`` reads a HuggingFace checkpoint's
 ``*.safetensors`` files with the port's own reader (the card's machine has
 no ``safetensors`` package): an 8-byte little-endian header length, a JSON
@@ -78,6 +81,25 @@ def params_from_numpy(
     }
     if not cfg.tie_word_embeddings:
         out["lm_head"] = take(params["lm_head"], (H, V), "lm_head")
+    return out
+
+
+def vision_params_from_numpy(
+    params: Mapping[str, Any],
+    device: Optional[Union[str, torch.device]] = None,
+) -> Dict[str, Any]:
+    """The vision encoder's parameters (``vision.py``) from the JAX
+    package's ``init_vision_params`` pytree, converted leaf by leaf to
+    numpy: the same dict and list of per-layer dicts, f32 tensors on
+    ``device``."""
+    device = resolve_device(device)
+    out: Dict[str, Any] = {
+        k: _tensor(v, device, torch.float32) for k, v in params.items() if k != "layers"
+    }
+    out["layers"] = [
+        {k: _tensor(v, device, torch.float32) for k, v in lp.items()}
+        for lp in params["layers"]
+    ]
     return out
 
 

@@ -10,10 +10,9 @@ An entry's engine is an AsyncEngine taking Context[ChatCompletionRequest]
 ``link(OpenAIPreprocessor, Backend, TorchEngine)``.
 
 The JAX package's service trimmed to what the PyTorch engine serves: chat,
-completions, models, health, live and metrics, with the admission bound,
-per-request deadlines, request templates, SSE and aggregated bodies.
-``/v1/embeddings`` answers with an OpenAI-shaped error (the PyTorch engine
-does not embed yet); the trace, profile, flight-recorder and fleet routes
+completions, embeddings, models, health, live and metrics, with the
+admission bound, per-request deadlines, request templates, SSE and
+aggregated bodies.  The trace, profile, flight-recorder and fleet routes
 are not served.
 """
 
@@ -27,10 +26,12 @@ from typing import AsyncIterator, Dict, Optional
 from ..protocols.openai import (
     ChatCompletionRequest,
     CompletionRequest,
+    EmbeddingRequest,
     OpenAIError,
     SSE_DONE,
     aggregate_chat,
     aggregate_completion,
+    embedding_response,
     sse_encode,
     sse_error,
 )
@@ -106,11 +107,13 @@ class AdmissionControl:
 
 
 class ModelManager:
-    """Engines per model name, per endpoint type (chat / completion)."""
+    """Engines per model name, per endpoint type (chat / completion /
+    embedding)."""
 
     def __init__(self) -> None:
         self._chat: Dict[str, AsyncEngine] = {}
         self._completion: Dict[str, AsyncEngine] = {}
+        self._embedding: Dict[str, AsyncEngine] = {}
 
     def add_chat_model(self, name: str, engine: AsyncEngine) -> None:
         self._chat[name] = engine
@@ -118,9 +121,13 @@ class ModelManager:
     def add_completion_model(self, name: str, engine: AsyncEngine) -> None:
         self._completion[name] = engine
 
+    def add_embedding_model(self, name: str, engine: AsyncEngine) -> None:
+        self._embedding[name] = engine
+
     def remove_model(self, name: str) -> None:
         self._chat.pop(name, None)
         self._completion.pop(name, None)
+        self._embedding.pop(name, None)
 
     def chat_engine(self, name: str) -> AsyncEngine:
         try:
@@ -134,20 +141,26 @@ class ModelManager:
         except KeyError:
             raise ModelNotFound(name) from None
 
+    def embedding_engine(self, name: str) -> AsyncEngine:
+        try:
+            return self._embedding[name]
+        except KeyError:
+            raise ModelNotFound(name) from None
+
     def list_models(self) -> list:
-        names = sorted(set(self._chat) | set(self._completion))
+        names = sorted(set(self._chat) | set(self._completion) | set(self._embedding))
         return [
             {"id": n, "object": "model", "owned_by": "dynamo-tpu"} for n in names
         ]
 
     @property
     def is_empty(self) -> bool:
-        return not self._chat and not self._completion
+        return not self._chat and not self._completion and not self._embedding
 
 
 class HttpService:
     """The OpenAI frontend: /v1/chat/completions, /v1/completions,
-    /v1/models, /health, /live, /metrics (and /v1/embeddings' error)."""
+    /v1/embeddings, /v1/models, /health, /live, /metrics."""
 
     def __init__(
         self,
@@ -264,18 +277,58 @@ class HttpService:
         return await self._serve(req, chat=False)
 
     async def _embeddings(self, req: Request) -> Response:
-        """/v1/embeddings: not served by the PyTorch engine yet."""
-        self._count_rejected(None, "embeddings")
-        return Response.json(
-            {
-                "error": {
-                    "message": "the PyTorch engine does not serve embeddings yet",
-                    "type": "not_implemented_error",
-                    "code": 501,
-                }
-            },
-            501,
-        )
+        """/v1/embeddings: one aggregated response, no streaming."""
+        endpoint = "embeddings"
+        if not self.admission.try_acquire():
+            return self._shed(endpoint)
+        try:
+            body = req.json()
+            if not isinstance(body, dict):
+                raise OpenAIError("request body must be a JSON object")
+            if self.template is not None and self.template.model is not None:
+                body.setdefault("model", self.template.model)
+            parsed = EmbeddingRequest.from_dict(body)
+            engine = self.manager.embedding_engine(parsed.model)
+        except OpenAIError as e:
+            self.admission.release()
+            self._count_rejected(body if isinstance(body, dict) else None, endpoint)
+            return Response.json(e.to_body(), e.code)
+        except BaseException:
+            self.admission.release()
+            raise
+
+        request = Context.new(parsed)
+        guard = self.metrics.guard(parsed.model, endpoint, request.id)
+        guard.on_finish = self.admission.release
+        try:
+            with guard:
+                stream = await as_response_stream(engine, request)
+                vectors, prompt_tokens = None, 0
+                async for item in stream:
+                    if not isinstance(item, Annotated):
+                        item = Annotated.from_data(item)
+                    if item.is_error():
+                        raise RuntimeError(item.error_message() or "engine error")
+                    data = item.data or {}
+                    if "embeddings" in data:
+                        vectors = data["embeddings"]
+                        prompt_tokens = int(data.get("prompt_tokens", 0))
+                if vectors is None:
+                    raise RuntimeError("embedding engine returned no vectors")
+                guard.mark_ok()
+                resp = Response.json(
+                    embedding_response(parsed.model, vectors, prompt_tokens)
+                )
+                resp.headers.setdefault("X-Request-Id", request.id)
+                return resp
+        except OpenAIError as e:
+            # the guard's __exit__ already finished it with status=error
+            return Response.json(e.to_body(), e.code)
+        except Exception as e:
+            logger.exception("embedding request failed")
+            return Response.json(
+                {"error": {"message": str(e), "type": "server_error"}}, 500
+            )
 
     async def _serve(self, req: Request, chat: bool) -> Response:
         endpoint = "chat_completions" if chat else "completions"

@@ -2,8 +2,9 @@
 the Prometheus text exposition format, with no package behind them.
 
 The subset of the JAX package's ``runtime/metrics.py`` that the HTTP
-service's metrics (``http/metrics.py``) use, written out in plain Python
-because the card's machine has no ``prometheus_client``.  ``render()``
+service's metrics (``http/metrics.py``) and the engine's
+(:class:`EngineMetrics`) use, written out in plain Python because the
+card's machine has no ``prometheus_client``.  ``render()``
 gives the text that ``prometheus_client.generate_latest`` gives for the
 same families: the same family names, ``_total`` on counters,
 ``_bucket``/``_count``/``_sum`` on histograms, a ``_created`` gauge per
@@ -22,6 +23,13 @@ import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 CONTENT_TYPE_LATEST = "text/plain; version=1.0.0; charset=utf-8"
+
+# Engine dispatch->commit latency: sub-ms decode steps up to seconds for a
+# long prefill.
+STEP_LATENCY_BUCKETS = (
+    0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+    1.0, 2.5, 5.0,
+)
 
 DEFAULT_BUCKETS = (
     0.005, 0.01, 0.025, 0.05, 0.075, 0.1, 0.25, 0.5, 0.75, 1.0, 2.5, 5.0,
@@ -121,6 +129,10 @@ class _Family:
         buckets: Optional[Sequence[float]] = None,
     ) -> None:
         self.kind = kind
+        # a counter named ``x_total`` is the family ``x``, as in
+        # ``prometheus_client``
+        if kind == "counter" and name.endswith("_total"):
+            name = name[: -len("_total")]
         self.name = name
         self.documentation = documentation
         self.labelnames = tuple(labelnames)
@@ -269,3 +281,133 @@ def render_default() -> Tuple[bytes, str]:
 
 def worker_identity() -> Dict[str, str]:
     return dict(default_registry().default_labels)
+
+
+class EngineMetrics:
+    """Registry-backed engine and scheduler series: the JAX package's
+    ``EngineMetrics`` (same family names, labels and buckets), which
+    Dynamo's planner and KV router read.  The engine updates it at its
+    synchronization points -- the admission pass, each dispatch and each
+    commit -- never per token."""
+
+    def __init__(
+        self,
+        registry: Optional[MetricsRegistry] = None,
+        max_slots: int = 0,
+    ) -> None:
+        reg = registry or default_registry()
+        self.registry = reg
+        self.step_latency = reg.histogram(
+            "dynamo_engine_step_latency_seconds",
+            "Engine device-dispatch to host-commit latency",
+            ["kind"],
+            buckets=STEP_LATENCY_BUCKETS,
+        )
+        self.occupancy = reg.gauge(
+            "dynamo_engine_batch_occupancy",
+            "Decode lanes currently holding a slot",
+        )
+        self.slots = reg.gauge(
+            "dynamo_engine_batch_slots",
+            "Configured decode batch lanes (max_batch_size)",
+        )
+        self.queue_depth = reg.gauge(
+            "dynamo_engine_prefill_queue_depth",
+            "Requests waiting for admission into the decode batch",
+        )
+        self.kv_used = reg.gauge(
+            "dynamo_engine_kv_pages_used", "KV cache pages in use"
+        )
+        self.kv_total = reg.gauge(
+            "dynamo_engine_kv_pages_total", "KV cache pages available"
+        )
+        self.kv_util = reg.gauge(
+            "dynamo_engine_kv_utilization",
+            "KV cache page utilization (used/total, 0..1)",
+        )
+        self.prefix_hits = reg.counter(
+            "dynamo_engine_prefix_hit_tokens",
+            "Prompt tokens whose KV was reused from the prefix cache",
+        )
+        self.prefix_lookups = reg.counter(
+            "dynamo_engine_prefix_lookup_tokens",
+            "Prompt tokens checked against the prefix cache",
+        )
+        self.tokens = reg.counter(
+            "dynamo_engine_tokens_generated",
+            "Output tokens committed by the engine",
+        )
+        self.preemptions = reg.counter(
+            "dynamo_engine_preemptions",
+            "Sequences preempted for KV-page capacity",
+        )
+        # every device dispatch the tick loop (and an embedding call) pays,
+        # by kind: prefill, chunk, decode_block, unified, prompt_score, embed
+        self.dispatches = reg.counter(
+            "dynamo_engine_dispatches_total",
+            "Device dispatches issued by the engine tick loop",
+            ["kind"],
+        )
+        # how full each unified dispatch ran: decode lanes beside packed
+        # prefill tokens
+        self.mixed_decode_lanes = reg.histogram(
+            "dynamo_engine_mixed_batch_decode_lanes",
+            "Decode lanes per unified mixed-batch dispatch",
+            buckets=(0, 1, 2, 4, 8, 16, 32, 64, 128),
+        )
+        self.mixed_prefill_tokens = reg.histogram(
+            "dynamo_engine_mixed_batch_prefill_tokens",
+            "Prefill tokens packed into a unified mixed-batch dispatch",
+            buckets=(0, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096),
+        )
+        # fresh-token rows per unified dispatch: `used` real rows,
+        # `dispatched` the rows the step ran, `rectangle` the rows the
+        # [B, S] layout would have run
+        self.mixed_tokens = reg.counter(
+            "dynamo_engine_mixed_tokens",
+            "Fresh-token rows per unified mixed dispatch by accounting kind",
+            ["kind"],
+        )
+        # active (Np, s_max) shape pairs of the packed step
+        # (``bucketing.PackedShapeBudget``)
+        self.executable_shapes = reg.gauge(
+            "dynamo_engine_executable_shapes",
+            "Active packed-dispatch (Np, s_max) executable shape pairs",
+        )
+        # decode steps fused into the last packed dispatch (1 = single step)
+        self.multistep_k = reg.gauge(
+            "dynamo_engine_multistep_k",
+            "Decode steps fused into the last packed unified dispatch",
+        )
+        if max_slots:
+            self.slots.set(max_slots)
+
+    def observe_sched(self, waiting: int, active: int) -> None:
+        self.queue_depth.set(waiting)
+        self.occupancy.set(active)
+
+    def observe_step(self, kind: str, seconds: float) -> None:
+        self.step_latency.labels(kind).observe(max(seconds, 0.0))
+
+    def observe_dispatch(self, kind: str) -> None:
+        self.dispatches.labels(kind).inc()
+
+    def observe_mixed(self, decode_lanes: int, prefill_tokens: int) -> None:
+        self.mixed_decode_lanes.observe(decode_lanes)
+        self.mixed_prefill_tokens.observe(prefill_tokens)
+
+    def observe_mixed_tokens(self, used: int, dispatched: int, rectangle: int) -> None:
+        self.mixed_tokens.labels("used").inc(used)
+        self.mixed_tokens.labels("dispatched").inc(dispatched)
+        self.mixed_tokens.labels("rectangle").inc(rectangle)
+
+    def observe_kv(self, used: int, total: int) -> None:
+        self.kv_used.set(used)
+        self.kv_total.set(total)
+        self.kv_util.set(used / total if total else 0.0)
+
+    def observe_executable_shapes(self, n: int) -> None:
+        self.executable_shapes.set(n)
+
+    def observe_multistep_k(self, k: int) -> None:
+        self.multistep_k.set(k)

@@ -876,3 +876,112 @@ def test_from_pretrained_on_the_card_loads_the_cpu_params(card, tmp_path, st_dty
     for k, t in card_p.items():
         assert t.device.type == "cuda" and t.dtype == torch.bfloat16
         assert torch.equal(t.cpu(), cpu_p[k]), k
+
+
+# -- the full flash prefill's other callers: scoring, embedding, soft prompts ----
+
+
+def _prefill_callers_model(card):
+    """A small f32 model of a geometry the kernels take, its parameters on
+    the card and on the CPU, and token rows from a seed: lanes of 40, 17
+    and 1 positions and a pad lane in a 64-position bucket."""
+    from dynamo_tpu_torch.engine.config import ModelConfig
+    from dynamo_tpu_torch.engine.model import init_params
+
+    cfg = ModelConfig.tiny(head_dim=64, num_heads=4, num_kv_heads=2)
+    cpu = init_params(cfg, 2, torch.device("cpu"), torch.float32)
+    on_card = {
+        k: ({n: w.to(card) for n, w in v.items()} if isinstance(v, dict) else v.to(card))
+        for k, v in cpu.items()
+    }
+    rs = np.random.default_rng(9)
+    tokens = torch.from_numpy(rs.integers(1, cfg.vocab_size, (4, 64)))
+    lens = torch.tensor([40, 17, 1, 0])
+    pool = torch.zeros((cfg.num_layers, 2, 16, 16, cfg.num_kv_heads, cfg.head_dim))
+    return cfg, {"cuda": on_card, "cpu": cpu}, tokens, lens, pool
+
+
+def _on_both(card, fn):
+    """``fn(device)`` on the card and on the CPU; the flash prefill kernel
+    must have launched once per layer on the card."""
+    from dynamo_tpu_torch.ops import flash_prefill as fp
+
+    before = fp.KERNEL.launches
+    with torch.inference_mode():
+        got = fn(card)
+        torch.cuda.synchronize()
+        launched = fp.KERNEL.launches - before
+        want = fn(torch.device("cpu"))
+    return got.cpu(), want, launched
+
+
+@pytest.mark.parametrize("top_n", [0, 8])
+def test_score_prompt_step_on_the_card_is_the_cpu_run(card, top_n):
+    from dynamo_tpu_torch.engine.step import score_prompt_step
+
+    cfg, params, tokens, lens, pool = _prefill_callers_model(card)
+    got, want, launched = _on_both(card, lambda dev: score_prompt_step(
+        params[dev.type], cfg, pool.to(dev), tokens.to(dev), lens.to(dev), top_n,
+    ))
+    assert launched == cfg.num_layers
+    for b, n in enumerate(lens.tolist()):
+        g, w = got[b, : max(n - 1, 0)].numpy(), want[b, : max(n - 1, 0)].numpy()
+        np.testing.assert_array_equal(g[:, 0], w[:, 0])
+        np.testing.assert_allclose(g[:, 1].view(np.float32), w[:, 1].view(np.float32),
+                                   atol=1e-4, rtol=0)
+        np.testing.assert_array_equal(g[:, 2 : 2 + top_n], w[:, 2 : 2 + top_n])
+
+
+def test_embed_step_on_the_card_is_the_cpu_run(card):
+    from dynamo_tpu_torch.engine.step import embed_step
+
+    cfg, params, tokens, lens, pool = _prefill_callers_model(card)
+    got, want, launched = _on_both(card, lambda dev: embed_step(
+        params[dev.type], cfg, pool.to(dev), tokens.to(dev), lens.to(dev),
+    ))
+    assert launched == cfg.num_layers
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    assert not got[3].any()
+
+
+@pytest.mark.parametrize("use_penalties", [False, True])
+def test_prefill_mm_and_sample_on_the_card_is_the_cpu_run(card, use_penalties):
+    """Soft prompts of 24 and 5 rows (M = 32), a text lane, a pad lane:
+    the same first tokens and logprobs, and the same pool rows written."""
+    from dynamo_tpu_torch.engine.sampling import SamplingParams
+    from dynamo_tpu_torch.engine.step import prefill_mm_and_sample
+
+    cfg, params, tokens, lens, pool = _prefill_callers_model(card)
+    gen = torch.Generator().manual_seed(4)
+    mm = 0.05 * torch.randn((4, 32, cfg.hidden_size), generator=gen)
+    mm_len = torch.tensor([24, 5, 0, 0])
+    table = torch.arange(1, 17, dtype=torch.int32).reshape(4, 4)
+    table[3] = 0
+    pools = {}
+
+    def run(dev):
+        B = 4
+        sampling = SamplingParams(
+            temperature=torch.zeros(B, device=dev), top_p=torch.ones(B, device=dev),
+            top_k=torch.zeros(B, dtype=torch.long, device=dev),
+            key=torch.zeros(B, dtype=torch.long, device=dev),
+            seeded=torch.zeros(B, dtype=torch.bool, device=dev),
+            freq=torch.zeros(B, device=dev), pres=torch.zeros(B, device=dev),
+            rep=torch.full((B,), 1.3, device=dev),
+        )
+        pools[dev.type] = pool.to(dev)
+        return prefill_mm_and_sample(
+            params[dev.type], cfg, pools[dev.type], tokens.to(dev), lens.to(dev),
+            table.to(dev), mm.to(dev), mm_len.to(dev), sampling, 2, use_penalties,
+        )
+
+    got, want, launched = _on_both(card, run)
+    assert launched == cfg.num_layers
+    live = lens > 0
+    assert torch.equal(got[live][:, 0], want[live][:, 0])
+    assert torch.equal(got[live][:, 2:4], want[live][:, 2:4])
+    torch.testing.assert_close(got[live][:, 1].view(torch.float32),
+                               want[live][:, 1].view(torch.float32), atol=1e-4, rtol=0)
+    written = table[:3].flatten().long()
+    torch.testing.assert_close(pools["cuda"].cpu()[:, :, written],
+                               pools["cpu"][:, :, written], atol=5e-5, rtol=0)

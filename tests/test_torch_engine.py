@@ -320,6 +320,35 @@ def test_cancel_frees_every_page(weights):
     asyncio.run(asyncio.wait_for(body(), WAIT_S))
 
 
+def test_killed_before_its_stream_is_read_frees_its_lane(weights):
+    """A consumer that gives up before reading the stream at all (an HTTP
+    deadline that expires while the pipeline is being set up) kills the
+    context of a request the engine already holds: its lane is freed long
+    before its 4000 tokens, and the next request is served."""
+    _, _, np_params = weights
+
+    async def body():
+        engine = torch_engine(np_params, max_batch_size=1, max_seq_len=4096, num_pages=1100)
+        try:
+            stream = await engine.generate(
+                Context.new(PreprocessedRequest.from_dict(request([1, 2, 3], 4000)))
+            )
+            await asyncio.sleep(0.05)
+            stream.ctx.kill()
+            for _ in range(500):
+                if engine.sched.num_active == 0 and not engine.sched.waiting:
+                    break
+                await asyncio.sleep(0.01)
+            assert engine.sched.num_active == 0 and engine.kv.allocator.used_pages == 0
+            assert engine.tokens_generated < 2000
+            got, finish = await collect(engine, request([9, 8, 7], 5))
+            assert len(got) == 5 and finish == "length"
+        finally:
+            await engine.stop()
+
+    asyncio.run(asyncio.wait_for(body(), WAIT_S))
+
+
 @pytest.mark.parametrize("config", list(CONFIGS))
 def test_classic_rectangle_and_penalized_streams_match_jax(served, config):
     got = served[config]

@@ -8,13 +8,17 @@ the port's copies over ``TorchEngine(device="cpu")``.  The same requests
 (chat aggregated and SSE, completions with a text and a token prompt, a
 stop string, ``max_tokens``) must give identical greedy bodies, ids and
 timestamps aside, under the default config and under the classic path
-with penalized lanes.  SSE bodies are compared as what a client reads from
+with penalized lanes; an echo completion with ``logprobs`` and
+``/v1/embeddings`` (text and token inputs) give the same bodies with
+logprobs within 1e-4 and vectors within 1e-5, and the embeddings route
+refuses an unknown model, an empty input and an over-long one with the JAX
+service's status and message.  SSE bodies are compared as what a client reads from
 them (role chunk, text, finish reason, usage, ``[DONE]``): where the chunks
 split depends on when each engine commits.
 
 Within the port: 404, 400, the 503 shed, ``/v1/models``, ``/health``,
 ``/metrics`` (family names and types equal the JAX service's), a 504 on an
-expired deadline, the ``/v1/embeddings`` error, a client that closes
+expired deadline, a served ``/v1/embeddings`` call, a client that closes
 mid-stream frees its lane, and the serving-environment overrides read at
 engine construction.  Every wait is bounded.
 """
@@ -36,6 +40,7 @@ from dynamo_tpu.engine.model import init_params as jax_init_params
 from dynamo_tpu.http.service import HttpService as JaxHttpService
 from dynamo_tpu.http.service import ModelManager as JaxModelManager
 from dynamo_tpu.llm.backend import Backend as JaxBackend
+from dynamo_tpu.llm.embedding import EmbeddingEngine as JaxEmbeddingEngine
 from dynamo_tpu.llm.preprocessor import OpenAIPreprocessor as JaxPreprocessor
 from dynamo_tpu.llm.tokenizer import Tokenizer as JaxTokenizer
 from dynamo_tpu.runtime.pipeline import link as jax_link
@@ -44,6 +49,7 @@ from dynamo_tpu_torch.engine.engine import TorchEngine
 from dynamo_tpu_torch.engine.weights import params_from_numpy
 from dynamo_tpu_torch.http.service import HttpService, ModelManager
 from dynamo_tpu_torch.llm.backend import Backend
+from dynamo_tpu_torch.llm.embedding import EmbeddingEngine
 from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
 from dynamo_tpu_torch.llm.tokenizer import Tokenizer
 from dynamo_tpu_torch.runtime.pipeline import link
@@ -157,6 +163,9 @@ def jax_service(stack, engine_kw, **service_kw):
     manager = JaxModelManager()
     manager.add_chat_model(NAME, pipe)
     manager.add_completion_model(NAME, pipe)
+    manager.add_embedding_model(
+        NAME, JaxEmbeddingEngine(engine.embed, tok, engine.cfg.max_seq_len)
+    )
     return engine, JaxHttpService(manager, **service_kw)
 
 
@@ -172,6 +181,7 @@ def torch_service(stack, engine_kw, **service_kw):
     manager = ModelManager()
     manager.add_chat_model(NAME, pipe)
     manager.add_completion_model(NAME, pipe)
+    manager.add_embedding_model(NAME, EmbeddingEngine(engine.embed, tok, engine.cfg.max_seq_len))
     return engine, HttpService(manager, **service_kw)
 
 
@@ -194,7 +204,37 @@ def requests_for(tok: Tokenizer):
          {"prompt": "the lazy dog", "max_tokens": 12, "stop": STOP}),
         ("stop_sse", "/v1/completions",
          {"prompt": "the lazy dog", "max_tokens": 12, "stream": True, "stop": STOP}),
+        ("echo", "/v1/completions",
+         {"prompt": "the quick brown fox", "max_tokens": 4, "echo": True, "logprobs": 2}),
+        ("embed", "/v1/embeddings", {"input": ["the lazy dog", "paged attention x"]}),
+        ("embed_tokens", "/v1/embeddings", {"input": ids}),
     ]
+
+
+# /v1/embeddings bodies both services refuse: (name, body)
+EMBED_ERRORS = [
+    ("unknown_model", {"model": "nope", "input": "x"}),
+    ("empty_input", {"model": NAME, "input": []}),
+    ("too_long", {"model": NAME, "input": [[7] * 200]}),
+]
+# equality tolerance of the float fields: echo logprobs, embedding vectors
+CLOSE = {"echo": 1e-4, "embed": 1e-5, "embed_tokens": 1e-5}
+
+
+def assert_close(got, ref, tol, path="body"):
+    """``got == ref`` with floats within ``tol``."""
+    if isinstance(ref, float):
+        assert isinstance(got, float) and abs(got - ref) <= tol, (path, got, ref)
+    elif isinstance(ref, dict):
+        assert sorted(got) == sorted(ref), path
+        for k in ref:
+            assert_close(got[k], ref[k], tol, f"{path}.{k}")
+    elif isinstance(ref, list):
+        assert len(got) == len(ref), path
+        for i, (g, r) in enumerate(zip(got, ref)):
+            assert_close(g, r, tol, f"{path}[{i}]")
+    else:
+        assert got == ref, (path, got, ref)
 
 
 STOP = object()
@@ -223,6 +263,11 @@ async def serve_all(service, engine, reqs):
                 out[name] = read_sse(raw)
             else:
                 out[name] = strip_ids(json.loads(raw))
+        for name, body in EMBED_ERRORS:
+            status, _, raw = await asyncio.wait_for(
+                http(port, "POST", "/v1/embeddings", body), WAIT_S
+            )
+            out[name] = (status, json.loads(raw))
         for path in ("/v1/models", "/health"):
             status, _, raw = await asyncio.wait_for(http(port, "GET", path), WAIT_S)
             assert status == 200
@@ -257,6 +302,25 @@ def test_bodies_equal_jax(served):
     for name in ("chat", "chat_sse", "text", "text_sse", "tokens", "max_tokens",
                  "stop", "stop_sse"):
         assert torch_out[name] == jax_out[name], name
+    for name, tol in CLOSE.items():
+        assert_close(torch_out[name], jax_out[name], tol, name)
+    for name, _ in EMBED_ERRORS:
+        assert torch_out[name] == jax_out[name], name
+    assert [s for s, _ in (torch_out[n] for n, _ in EMBED_ERRORS)] == [404, 400, 400]
+    # the echo body: the prompt's text and one entry per prompt token, the
+    # first without a logprob, then the completion's own entries
+    echo = torch_out["echo"]["choices"][0]
+    assert echo["text"].startswith("the quick brown fox")
+    lp = echo["logprobs"]
+    n_prompt = torch_out["echo"]["usage"]["prompt_tokens"]
+    assert len(lp["tokens"]) == n_prompt + 4 and lp["token_logprobs"][0] is None
+    assert all(x <= 0 for x in lp["token_logprobs"][1:])
+    for name, n_inputs in (("embed", 2), ("embed_tokens", 1)):
+        data = torch_out[name]["data"]
+        assert [d["index"] for d in data] == list(range(n_inputs))
+        for d in data:
+            assert abs(np.linalg.norm(d["embedding"]) - 1.0) < 1e-5
+    assert torch_out["embed_tokens"]["usage"]["prompt_tokens"] == 5
     # each case did what it asks for
     assert torch_out["chat_sse"]["roles"] == ["assistant"]
     assert torch_out["max_tokens"]["choices"][0]["finish_reason"] == "length"
@@ -293,16 +357,18 @@ def test_models_health_metrics_equal_jax(served):
     assert types(ttext) == types(jtext)
     assert counts(ttext) == counts(jtext)
     assert 'dynamo_http_service_requests_total{endpoint="completions",model="tiny",' \
-           'status="success"} 6.0' in ttext
+           'status="success"} 7.0' in ttext
+    assert 'dynamo_http_service_requests_total{endpoint="embeddings",model="tiny",' \
+           'status="success"} 2.0' in ttext
 
 
 # -- the port's service alone -------------------------------------------------
 
 
 def test_errors_shed_disconnect_deadline(stack):
-    """404, 400, the 503 shed, a 504 deadline, /v1/embeddings' error, and a
-    client that closes mid-stream: its lane is freed well before its
-    max_tokens, and the next request is served."""
+    """404, 400, the 503 shed, a 504 deadline, a served /v1/embeddings
+    call, and a client that closes mid-stream: its lane is freed well
+    before its max_tokens, and the next request is served."""
     engine, service = torch_service(
         stack, dict(max_batch_size=1, max_seq_len=4096, num_pages=1100),
         max_inflight=1,
@@ -322,8 +388,12 @@ def test_errors_shed_disconnect_deadline(stack):
             assert status == 400 and json.loads(raw)["error"]["type"] == "invalid_request_error"
             status, _, raw = await http(port, "POST", "/v1/embeddings",
                                         {"model": NAME, "input": "x"})
-            assert status == 501
-            assert "embeddings" in json.loads(raw)["error"]["message"]
+            assert status == 200
+            body = json.loads(raw)
+            (vec,) = [d["embedding"] for d in body["data"]]
+            assert len(vec) == stack[1].hidden_size
+            assert abs(np.linalg.norm(vec) - 1.0) < 1e-5
+            assert body["usage"]["prompt_tokens"] == len(engine_tok(stack).encode("x"))
             status, _, raw = await http(
                 port, "POST", "/v1/completions",
                 {"model": NAME, "prompt": "the lazy dog", "max_tokens": 4000},
@@ -363,6 +433,10 @@ def test_errors_shed_disconnect_deadline(stack):
     asyncio.run(asyncio.wait_for(body(), WAIT_S))
 
 
+def engine_tok(stack) -> Tokenizer:
+    return Tokenizer.from_model_dir(stack[0])
+
+
 def test_request_template_fills_defaults(stack):
     """``RequestTemplate`` supplies the model and token budget a client
     left out; the client's own fields win."""
@@ -391,8 +465,9 @@ def test_request_template_fills_defaults(stack):
 
 def test_registry_renders_as_prometheus_client():
     """The port's registry renders the text the JAX package's registry
-    (``prometheus_client``) renders for the same families and values, the
-    ``_created`` timestamps aside."""
+    (``prometheus_client``) renders for the same families and values (a
+    counter named ``x_total`` included), the ``_created`` timestamps
+    aside."""
     from dynamo_tpu.runtime.metrics import MetricsRegistry as JaxRegistry
     from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
 
@@ -402,6 +477,8 @@ def test_registry_renders_as_prometheus_client():
         c.labels("m\"1", "ok").inc()
         c.labels("m2", "error").inc(2.5)
         reg.counter("x_plain", "plain").inc(1e7)
+        # a counter named with its _total suffix is the family without it
+        reg.counter("x_dispatches_total", "By kind", ["kind"]).labels("embed").inc(2)
         g = reg.gauge("x_inflight", "In flight", ["model"])
         g.labels("m").inc()
         g.labels("m").dec(3)

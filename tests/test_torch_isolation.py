@@ -3,7 +3,8 @@ a hook that refuses JAX, the JAX package and the libraries the port must not
 need at import (the card's machine has none of them but triton, which the
 port may only import inside a launch).  Under the same hook,
 ``python -m dynamo_tpu_torch run in=http`` serves a chat completion from a
-safetensors checkpoint directory and exits 0 on SIGINT."""
+safetensors checkpoint directory, answers ``/v1/embeddings`` and exits 0
+on SIGINT."""
 
 from __future__ import annotations
 
@@ -90,8 +91,8 @@ def test_port_imports_nothing_refused():
     # the package, its subpackages and every module beneath them: 26 with
     # ops/flash_prefill.py, 42 with the front end (protocols/openai,
     # runtime/pipeline and metrics, llm/*, http/*, bench_serving, cli,
-    # __main__)
-    assert int(out.stdout.strip().splitlines()[-1]) >= 42
+    # __main__), 44 with vision.py and llm/embedding.py
+    assert int(out.stdout.strip().splitlines()[-1]) >= 44
 
 
 def _checkpoint(model_dir: str, path: str) -> str:
@@ -144,6 +145,15 @@ def test_http_server_imports_nothing_refused(model_dir, tmp_path):
             body = json.loads(resp.read())
         assert body["usage"]["completion_tokens"] == 5
         assert body["choices"][0]["finish_reason"] == "length"
+        req = urllib.request.Request(
+            url + "/v1/embeddings",
+            data=json.dumps({"model": "m", "input": ["hello", "world!"]}).encode(),
+            headers={"Content-Type": "application/json"},
+        )
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            body = json.loads(resp.read())
+        assert [d["index"] for d in body["data"]] == [0, 1]
+        assert all(abs(sum(x * x for x in d["embedding"]) - 1.0) < 1e-4 for d in body["data"])
         proc.send_signal(signal.SIGINT)
         out, err = proc.communicate(timeout=60)
         assert proc.returncode == 0, err
