@@ -27,7 +27,11 @@ Every phase is fatal on failure:
    prefix-suffix flash prefill of a 476-token suffix over a 1024-token
    prefix; the int8 entries of packed and rectangle ragged at the shapes of
    their dense checks, over the int8 pool the port's ``quantize_kv_rows``
-   makes of the dense check's pool.  CUDA-event times of the kernel, the
+   makes of the dense check's pool; and the speculative verify shapes:
+   prefix-suffix flash prefill of 8 lanes of S = 5 and S = 9 columns over
+   their whole gathered 2048-position tables at prefixes of 33 to 2000
+   tokens off the page (the standalone verify), packed ragged with 8
+   verify segments of 5 rows beside 8 decode rows (the folded verify).  CUDA-event times of the kernel, the
    plain version and one ``scaled_dot_product_attention`` call over the
    gathered (dequantized) K/V with the same mask (a yardstick the port
    never calls), beside the least time the card could take (bytes at 3.35
@@ -138,6 +142,27 @@ Every phase is fatal on failure:
    embedding dispatches the engine counted.  It prints each kind's
    dispatch spans from CUDA events and the plain streams' decode-phase
    rate alone and beside the echoes.
+
+9. serve-a45: speculative decoding and weight-only int8.  (a) The
+   reference phase's f32 model on the card and on the CPU: speculation
+   with the n-gram drafter (folded and ``fold_spec_verify=False``), with
+   the ``random`` model drafter, and ``quantize="int8"`` give the card the
+   CPU's streams, the speculating runs the plain ones; a model drafter
+   over the target's own weights accepts every column on the card.  (b)
+   Llama-3-8B at full width and depth, bf16, serve's weights and
+   ``EngineConfig(num_pages=1024)``: the primer and the batch, cold then
+   warm, every lane speculating with the n-gram drafter (4 drafts), then
+   with an oracle that proposes serve's plain streams, then the oracle
+   with ``fold_spec_verify=False``.  Every stream must end with its 64
+   tokens and the launch invariants hold (kernel 3 also once per layer per
+   standalone verify dispatch); the folded runs pay no standalone verify
+   dispatch, the fold-off run some.  Printed: acceptance, accepted tokens
+   per verify, the rates beside serve's plain warm ones, and how many
+   greedy streams equal serve's (bf16 rows may move with the dispatch
+   around them, so this is reported, not held).  (c) ``quantize="int8"``
+   from the same weights serves the primer and the batch, cold then warm:
+   64 tokens each and the launch invariants held; weight bytes against
+   bf16, peak GiB and the rates printed.
 
 In every served run each kernel's launch count (graph replays included)
 must equal what the run's dispatches imply (``expected_launches``), and
@@ -697,6 +722,152 @@ def check_flash_prefix(fp, gen) -> Dict[str, object]:
     )
 
 
+def check_flash_prefix_verify(fp, gen) -> Dict[str, object]:
+    # the standalone speculative verify (serve-a45's fold-off run): 8 lanes,
+    # S = 1 + pow2(draft) columns (5 for 4 drafts, 9 for 8) over each lane's
+    # whole gathered page table (Kp = 2048, the page bucket of the longest
+    # lane), at prefixes of 33 to 2000 tokens off the page and the key tile
+    offs = [33, 150, 477, 801, 1029, 1500, 1777, 2000]
+    B, Kp = len(offs), 2048
+    offset = torch.tensor(offs, dtype=torch.int32, device="cuda")
+    row = {}
+    for S, lens_l in ((5, [5, 5, 3, 5, 1, 5, 4, 5]), (9, [9, 9, 5, 9, 2, 9, 7, 9])):
+        lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+
+        def rand(rows, h, dtype=torch.bfloat16, g=gen):
+            return torch.randn((B, rows, h, D), generator=g, device="cuda").to(dtype)
+
+        def check(q, kc, vc) -> float:
+            err = 0.0
+            for window in (0, 512):
+                out = fp.flash_prefix_prefill_attention(q, kc, vc, offset, lens, window)
+                ref = fp.flash_prefix_prefill_attention_plain(q, kc, vc, offset, lens, window)
+                what = f"flash_prefix_prefill_attention verify S={S} Kp={Kp} window={window}"
+                err = max(err, agree(what, out, ref, p_rounding(vc)))
+            return err
+
+        q, kc, vc = rand(S, HQ), rand(Kp + S, HKV), rand(Kp + S, HKV)
+        err = check(q, kc, vc)
+        ms = cuda_ms(lambda i: fp.flash_prefix_prefill_attention(q, kc, vc, offset, lens), 32)
+        plain_ms = cuda_ms(
+            lambda i: fp.flash_prefix_prefill_attention_plain(q, kc, vc, offset, lens), 4
+        )
+        # yardstick: one SDPA call over the lanes padded to [B, Hq, S, K]
+        K = max(offs) + S
+        qp = torch.zeros((B, HQ, S, D), dtype=torch.bfloat16, device="cuda")
+        kp = torch.zeros((B, HQ, K, D), dtype=torch.bfloat16, device="cuda")
+        vp = torch.zeros_like(kp)
+        mask = torch.zeros((B, 1, S, K), dtype=torch.bool, device="cuda")
+        r = torch.arange(S, device="cuda")[:, None]
+        c = torch.arange(K, device="cuda")[None, :]
+        for b, (off, n) in enumerate(zip(offs, lens_l)):
+            keys = torch.cat([kc[b, :off], kc[b, Kp : Kp + n]]).repeat_interleave(HQ // HKV, 1)
+            vals = torch.cat([vc[b, :off], vc[b, Kp : Kp + n]]).repeat_interleave(HQ // HKV, 1)
+            qp[b, :, :n] = q[b, :n].transpose(0, 1)
+            kp[b, :, : off + n] = keys.transpose(0, 1)
+            vp[b, :, : off + n] = vals.transpose(0, 1)
+            mask[b, 0] = (c <= off + r) & (r < n)
+        mask[:, :, :, 0] |= ~mask.any(-1)
+        library_ms = cuda_ms(lambda i: sdpa_padded(qp, kp, vp, mask), 32)
+        del qp, kp, vp
+        rows = sum(lens_l)
+        bytes_moved = (
+            rows * HQ * D * 2  # the valid q rows read
+            + sum(2 * (o + n) * HKV * D * 2 for o, n in zip(offs, lens_l))  # prefix, suffix K/V
+            + B * S * HQ * D * 2  # the whole output written
+            + 2 * B * 4
+        )
+        flops = 4.0 * HQ * D * sum(n * o + n * (n + 1) / 2 for o, n in zip(offs, lens_l))
+        bound_ms, bound_by = bound(bytes_moved, flops)
+        g32 = f32_generator()
+        check(rand(S, HQ, torch.float32, g32), rand(Kp + S, HKV, torch.float32, g32),
+              rand(Kp + S, HKV, torch.float32, g32))
+        print(
+            f"kernels: flash_prefix_prefill_attention verify S={S} ms={ms:.5f} "
+            f"plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} bound_ms={bound_ms:.5f} "
+            f"({bound_by})"
+        )
+        if S == 5:  # the row: four drafts, the serve-a45 shape
+            row = dict(
+                name="flash_prefix_prefill_attention/verify", route="cuda",
+                source="dynamo_tpu_torch/csrc/flash_prefill.cu",
+                replaces="dynamo_tpu/ops/flash_prefill.py:311",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms,
+                tflops=flops / ms / 1e9, bound_share=bound_ms / ms,
+            )
+        del q, kc, vc
+    return row
+
+
+def check_ragged_verify(ra, bucketing, rng, gen) -> Dict[str, object]:
+    # folded speculative verify: 8 verify segments of 5 rows (last committed
+    # token + 4 drafts) beside 8 decode rows, over prefixes of 33 to 2000
+    # tokens, packed by the engine's rule (s_max = pow2(5) = 8)
+    bases = [33, 150, 477, 801, 1029, 1500, 1777, 2000, 2047, 1790, 1499, 1202, 640, 256, 32, 1024]
+    q_lens = [5] * 8 + [1] * 8
+    B = len(bases)
+    width = 2048 // PAGE
+    need = [-(-(b + n) // PAGE) for b, n in zip(bases, q_lens)]
+    n_pages = sum(need) + 1
+    s_max = bucketing.pow2_bucket(max(q_lens))
+    seg_off = np.cumsum([0] + q_lens[:-1])
+    Np = bucketing.packed_axis_len(s_max, int(seg_off[-1]), sum(q_lens))
+    pool = make_pool(n_pages, gen)
+    table = lane_tables(need, width, n_pages, rng)
+    i32 = dict(dtype=torch.int32, device="cuda")
+    base_t = torch.tensor(bases, **i32)
+    off_t = torch.tensor(seg_off.tolist(), **i32)
+    ql_t = torch.tensor(q_lens, **i32)
+
+    def check(q, k, v, pool) -> float:
+        err = 0.0
+        for window in (0, 512):
+            args = (q, k, v, pool, table, base_t, off_t, ql_t)
+            out = ra.packed_ragged_attention(*args, s_max, 3, window)
+            ref = ra.packed_ragged_attention_plain(*args, 3, window)
+            what = f"packed_ragged_attention verify segments window={window} Np={Np}"
+            err = max(err, agree(what, out, ref, ragged_p_rounding(pool, None, v)))
+        return err
+
+    def rand(h, dtype=torch.bfloat16, g=gen):
+        return torch.randn((Np, h, D), generator=g, device="cuda").to(dtype)
+
+    q, k, v = rand(HQ), rand(HKV), rand(HKV)
+    err = check(q, k, v, pool)
+    args = (q, k, v, pool, table, base_t, off_t, ql_t)
+    ms = cuda_ms(lambda i: ra.packed_ragged_attention(*args, s_max, i % LAYERS), 32)
+    plain_ms = cuda_ms(lambda i: ra.packed_ragged_attention_plain(*args, i % LAYERS), 4)
+    segs = [slice(o, o + n) for o, n in zip(seg_off.tolist(), q_lens)]
+    padded = sdpa_lanes(pool, table, bases, [(q[s], k[s], v[s]) for s in segs], s_max)
+    library_ms = cuda_ms(lambda i: sdpa_padded(*padded), 32)
+    del padded
+    rows = sum(q_lens)
+    keys_seen = sum(bs * n + n * (n + 1) // 2 for bs, n in zip(bases, q_lens))
+    bytes_moved = (
+        rows * HQ * D * 2 + 2 * rows * HKV * D * 2  # q, fresh K and V rows read
+        + Np * HQ * D * 2  # the whole output written
+        + table.numel() * 4 + 3 * B * 4
+        + sum(bases) * 2 * HKV * D * 2  # each resident K and V row once
+    )
+    flops = 4.0 * keys_seen * HQ * D
+    bound_ms, bound_by = bound(bytes_moved, flops)
+    del pool
+    g32 = f32_generator()
+    pool = make_pool(n_pages, g32, torch.float32, 4)
+    check(rand(HQ, torch.float32, g32), rand(HKV, torch.float32, g32),
+          rand(HKV, torch.float32, g32), pool)
+    del pool
+    return dict(
+        name="packed_ragged_attention/verify", route="cuda",
+        source="dynamo_tpu_torch/csrc/packed_ragged_attention.cu",
+        replaces="dynamo_tpu/ops/ragged_attention.py:527",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=library_ms,
+        tflops=flops / ms / 1e9, bound_share=bound_ms / ms,
+    )
+
+
 def check_rect(ra, rng, gen) -> Tuple[Dict[str, object], Dict[str, object]]:
     # the rectangle at the packed check's geometry: 7 decode lanes and one
     # 505-row chunk over a 1024-token resident prefix, S = pow2(505) = 512;
@@ -810,7 +981,8 @@ async def serve(
     """Serve each batch of requests concurrently, one batch after the
     other (``between(i)`` runs before batch ``i`` > 0 starts); returns per
     request its tokens, finish reason, frame times, time to first token,
-    top logprobs and the frames' prompt logprobs."""
+    top logprobs, the frames' prompt logprobs and the finish item's
+    speculation stats."""
     from dynamo_tpu_torch.protocols.common import PreprocessedRequest
     from dynamo_tpu_torch.runtime.engine import Context
 
@@ -820,7 +992,7 @@ async def serve(
         top: List[list] = []
         plp: List[list] = []
         frames: List[Tuple[float, int]] = []
-        finish = None
+        finish = spec = None
         async for item in stream:
             if item.is_error():
                 raise RuntimeError(item.error_message())
@@ -833,9 +1005,10 @@ async def serve(
             if data.get("prompt_logprobs") is not None:
                 plp.append(data["prompt_logprobs"])
             finish = data.get("finish_reason") or finish
+            spec = data.get("spec") or spec
         ttft = frames[0][0] - t0 if frames else float("nan")
         return dict(tokens=tokens, finish=finish, frames=frames, ttft=ttft, top=top,
-                    plp=plp)
+                    plp=plp, spec=spec)
 
     results: List[dict] = []
     try:
@@ -1067,7 +1240,8 @@ def serve_phase(kernels, card: str) -> Dict[str, object]:
         print(f"serve: run {run} warm {loop_w}")
         runs.append(dict(
             streams=[r["tokens"] for r in out + warm], launches=launches, by_k=by_k,
-            wall=wall, wall_warm=wall_w, replays=replays,
+            wall=wall, wall_warm=wall_w, replays=replays, tok_s_warm=st_w["tok_s"],
+            dec_warm=st_w["dec"],
         ))
     first = runs[0]
     print(f"serve: launches on the main path {first['launches']}")
@@ -1119,9 +1293,10 @@ def expected_launches(engine) -> Dict[str, int]:
     """The launches a served run must count, from its dispatches (graph
     replays included): per layer, packed ragged (the pool's entry) once per
     packed unified dispatch, rectangle ragged once per rectangle unified
-    dispatch, flash prefill once per full-prompt prefill group (soft-prompt
-    groups included), prompt-scoring dispatch and embedding dispatch,
-    prefix-suffix prefill once per suffix prefill (chunks included), and
+    dispatch (folded verify columns ride it), flash prefill once per
+    full-prompt prefill group (soft-prompt groups included), prompt-scoring
+    dispatch and embedding dispatch, prefix-suffix prefill once per suffix
+    prefill (chunks included) and per standalone verify dispatch, and
     one decode step -- paged decode over a dense pool, the gathered
     composition over an int8 pool -- per fused step past the first of
     each packed dispatch and per step of each decode block."""
@@ -1140,7 +1315,9 @@ def expected_launches(engine) -> Dict[str, int]:
         "flash_prefill_attention": layers * (
             engine.prefill_dispatches["full"] + d.get("prompt_score", 0) + d.get("embed", 0)
         ),
-        "flash_prefix_prefill_attention": layers * engine.prefill_dispatches["suffix"],
+        "flash_prefix_prefill_attention": layers * (
+            engine.prefill_dispatches["suffix"] + d.get("verify", 0)
+        ),
         "paged_decode_attention": 0 if q else layers * steps,
         "gathered_decode": layers * steps if q else 0,
     }
@@ -2035,6 +2212,221 @@ def serve_a3_phase(ref: Dict[str, object], card: str) -> Dict[str, object]:
     return dict(launches=flash, dispatches=d, spans=spans)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: speculative decoding and weight-only int8
+# ---------------------------------------------------------------------------
+
+
+class StreamOracle:
+    """A drafter that proposes known streams: for a history that starts
+    with one of its prompts, the next tokens of that prompt's stream."""
+
+    def __init__(self, pairs) -> None:
+        self.pairs = [(list(p), list(p) + list(t)) for p, t in pairs]
+
+    def propose(self, history, n):
+        for prompt, full in self.pairs:
+            if len(history) >= len(prompt) and history[: len(prompt)] == prompt:
+                return full[len(history) : len(history) + n]
+        return []
+
+
+def speculating(reqs: List[dict], drafter: str, n: int = 4) -> List[dict]:
+    """``reqs`` with speculation armed (the engine leaves penalized lanes
+    plain)."""
+    spec = {"enabled": True, "num_draft_tokens": n, "drafter": drafter}
+    return [dict(r, speculation=spec) for r in reqs]
+
+
+def spec_line(engine) -> str:
+    """A served run's speculation numbers."""
+    drafted, accepted, verifies = engine.spec_drafted, engine.spec_accepted, engine.spec_verify_steps
+    standalone = engine.dispatches.get("verify", 0)
+    return (
+        f"spec_drafted={drafted} spec_accepted={accepted} verify_steps={verifies} "
+        f"accept_rate={accepted / max(drafted, 1):.4f} "
+        f"accepted_per_verify={accepted / max(verifies, 1):.4f} "
+        f"standalone_verifies={standalone} folded_verifies={verifies - standalone} "
+        f"auto_disabled={engine.spec_auto_disabled} enabled_frac={engine.spec_enabled_frac:.4f}"
+    )
+
+
+def first_divergence(streams: List[List[int]], plain: List[List[int]]) -> str:
+    """How many streams equal the plain ones, and where the first that
+    does not leaves its plain stream."""
+    same = sum(a == b for a, b in zip(streams, plain))
+    at = next(
+        (
+            (i, next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b))))
+            for i, (a, b) in enumerate(zip(streams, plain))
+            if a != b
+        ),
+        None,
+    )
+    first = "none" if at is None else f"request {at[0]} token {at[1]}"
+    return f"{same} of {len(plain)} equal the plain streams, first divergence: {first}"
+
+
+def a45_reference(ref: Dict[str, object]) -> None:
+    """The small f32 model, card and CPU from the same weights: speculation
+    with the n-gram drafter, folded and with ``fold_spec_verify=False``,
+    with the ``random`` model drafter, and ``quantize="int8"`` each give
+    the card the CPU's streams; the speculating runs give the plain
+    streams (``ref``'s).  A model drafter over the target's own weights
+    accepts every column on the card.  (The ``random`` preset is
+    ``ModelConfig.tiny()``, whose head size the kernels do not take, so it
+    cannot be the target here: the self-drafter stands in for the perfect
+    drafter.)"""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.spec.model_drafter import ModelDrafter
+
+    cfg, ecfg, params, batches = ref["cfg"], ref["ecfg"], ref["params"], ref["batches"]
+    spec = lambda drafter: [speculating(b, drafter) for b in batches]  # noqa: E731
+    runs = {
+        "ngram": ({}, spec("ngram")),
+        "ngram fold-off": (dict(fold_spec_verify=False), spec("ngram")),
+        "model-random": (dict(draft_model="random"), spec("model")),
+        "int8-weights": (dict(quantize="int8"), batches),
+    }
+    for name, (kw, reqs) in runs.items():
+        streams = {}
+        for dev in ("cuda", "cpu"):
+            eng = TorchEngine(cfg, params_on(params, dev), EngineConfig(**ecfg, **kw), device=dev)
+            t0 = time.perf_counter()
+            streams[dev] = [r["tokens"] for r in asyncio.run(serve(eng, reqs))]
+            if dev == "cuda":
+                print(f"serve-a45: reference {name} card {streams['cuda']} {spec_line(eng)}")
+                print(f"serve-a45: reference {name} {loop_line(eng, time.perf_counter() - t0)}")
+        if streams["cuda"] != streams["cpu"]:
+            fail(f"serve-a45 reference {name}: card {streams['cuda']} != cpu {streams['cpu']}")
+        if kw.get("quantize") is None and streams["cuda"] != ref["streams"]:
+            fail(f"serve-a45 reference {name}: speculation changed the streams")
+    eng = TorchEngine(cfg, params_on(params, "cuda"), EngineConfig(**ecfg), device="cuda")
+    # its window holds every history of the batch, so it sees what the
+    # target sees
+    eng.model_drafter = ModelDrafter(params_on(params, "cuda"), cfg, "cuda", window=256)
+    t0 = time.perf_counter()
+    out = asyncio.run(serve(eng, spec("model")))
+    stats = [r["spec"] for r in out if r["spec"] is not None]
+    print(f"serve-a45: reference self-drafter {spec_line(eng)} per request {stats}")
+    # the drafter's forwards run on a stream of their own: the loop's gaps
+    print(f"serve-a45: reference self-drafter {loop_line(eng, time.perf_counter() - t0)}")
+    if [r["tokens"] for r in out] != ref["streams"]:
+        fail("serve-a45 reference: the self-drafter changed the streams")
+    if not stats or any(s["accepted_tokens"] != s["drafted_tokens"] for s in stats):
+        fail(f"serve-a45 reference: the self-drafter did not accept every column: {stats}")
+
+
+def serve_a45_phase(ref: Dict[str, object], served: Dict[str, object], card: str):
+    """(a) ``a45_reference``.  (b) Llama-3-8B at full width and depth,
+    bf16, serve's weights and ``EngineConfig(num_pages=1024)``: the primer
+    and the batch, cold then warm, with every lane speculating -- the
+    n-gram drafter (4 drafts), then an oracle proposing serve's plain
+    streams, folded and with ``fold_spec_verify=False``.  (c) The same
+    weights with ``quantize="int8"`` serving the batch.  Returns the
+    launches of the folded and the fold-off oracle runs."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.model import init_params
+    from dynamo_tpu_torch.engine.quant import weight_bytes
+    from dynamo_tpu_torch.spec import register_drafter
+
+    a45_reference(ref)
+    cfg = ModelConfig.llama3_8b()
+    primer, batch = serve_requests(cfg.vocab_size)
+    params = init_params(cfg, 0, torch.device("cuda"), torch.bfloat16)
+    plain = served["streams"]  # the batch cold, then warm
+    pairs = [(r["token_ids"], t) for r, t in zip(batch, plain[: len(batch)])]
+    register_drafter("smoke-oracle", lambda: StreamOracle(pairs))
+    runs = {
+        "ngram": ({}, "ngram"),
+        "oracle": ({}, "smoke-oracle"),
+        "oracle fold-off": (dict(fold_spec_verify=False), "smoke-oracle"),
+    }
+    # the oracle runs ask for top-2 logprobs: where a stream leaves serve's,
+    # they show the margin between the two best tokens there
+    with_top2 = [
+        dict(r, sampling_options=dict(r["sampling_options"], logprobs=2)) for r in batch
+    ]
+    launches: Dict[str, Dict[str, int]] = {}
+    for run, (kw, drafter) in runs.items():
+        torch.cuda.reset_peak_memory_stats()
+        engine = TorchEngine(cfg, params, EngineConfig(num_pages=1024, **kw))
+        reset_launches()
+        res, wall, warm, wall_w, marks = serve_cold_warm(
+            engine, speculating(primer, drafter),
+            speculating(with_top2 if drafter == "smoke-oracle" else batch, drafter),
+        )
+        launches[run] = read_launches()
+        check_launch_invariants(f"serve-a45: run {run}", engine, launches[run])
+        folded = engine._fold_spec
+        verifies = engine.dispatches.get("verify", 0)
+        line = spec_line(engine)
+        loop, loop_w = loop_line(engine, wall + wall_w), loop_line(engine, wall_w, marks)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        check_streams(f"serve-a45 run {run}", res[1:], cfg.vocab_size)
+        check_streams(f"serve-a45 run {run} warm", warm, cfg.vocab_size)
+        if folded and verifies:
+            fail(f"serve-a45 run {run}: {verifies} standalone verify dispatches while folded")
+        if not folded and not verifies:
+            fail(f"serve-a45 run {run}: no standalone verify dispatch with folding off")
+        st, st_w = served_stats(res, wall), served_stats(warm, wall_w, primed=False)
+        print(f"serve-a45: run {run} {kw} {line}")
+        print(
+            f"serve-a45: run {run} wall_s={wall:.3f} tok_s={st['tok_s']:.3f} "
+            f"decode_phase_tok_s={st['dec']:.3f} warm wall_s={wall_w:.3f} "
+            f"tok_s={st_w['tok_s']:.3f} decode_phase_tok_s={st_w['dec']:.3f} (serve's "
+            f"plain warm: tok_s={served['tok_s_warm']:.3f} decode_phase_tok_s="
+            f"{served['dec_warm']:.3f}) peak_mem_gib={peak_gib:.3f} on {card}"
+        )
+        greedy = [i for i, r in enumerate(batch) if not r["sampling_options"].get("temperature")]
+        streams = [r["tokens"] for r in res[1:] + warm]
+        pick = lambda s: [s[i] for i in greedy] + [s[len(batch) + i] for i in greedy]  # noqa: E731
+        print(f"serve-a45: run {run} greedy streams: {first_divergence(pick(streams), pick(plain))}")
+        for i in greedy:
+            got, want, top = res[1 + i]["tokens"], plain[i], res[1 + i]["top"]
+            j = next((j for j, (x, y) in enumerate(zip(got, want)) if x != y), None)
+            if j is not None and top:
+                print(f"serve-a45: run {run} request {i} token {j}: serve's {want[j]}, "
+                      f"here {got[j]}, this run's top-2 logprobs there {top[j]}")
+        print(f"serve-a45: run {run} {loop}")
+        print(f"serve-a45: run {run} warm {loop_w}")
+    # (c) weight-only int8 from the same weights
+    bf16_bytes = weight_bytes(params)
+    engine = TorchEngine(cfg, params, EngineConfig(num_pages=1024, quantize="int8"))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    int8_bytes = weight_bytes(engine.params)
+    reset_launches()
+    res, wall, warm, wall_w, marks = serve_cold_warm(engine, primer, batch)
+    counted = read_launches()
+    check_launch_invariants("serve-a45: run int8-weights", engine, counted)
+    loop_w = loop_line(engine, wall_w, marks)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_streams("serve-a45 run int8-weights", res[1:], cfg.vocab_size)
+    check_streams("serve-a45 run int8-weights warm", warm, cfg.vocab_size)
+    st, st_w = served_stats(res, wall), served_stats(warm, wall_w, primed=False)
+    print(
+        f"serve-a45: run int8-weights weight_bytes={int8_bytes} bf16_weight_bytes={bf16_bytes} "
+        f"ratio={int8_bytes / bf16_bytes:.4f} wall_s={wall:.3f} tok_s={st['tok_s']:.3f} "
+        f"decode_phase_tok_s={st['dec']:.3f} warm tok_s={st_w['tok_s']:.3f} "
+        f"decode_phase_tok_s={st_w['dec']:.3f} peak_mem_gib={peak_gib:.3f} on {card}"
+    )
+    print(f"serve-a45: run int8-weights warm {loop_w}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def write_safetensors(path: str, tensors: Dict[str, Tuple[Tuple[int, ...], Callable]]) -> None:
     """A ``.safetensors`` file of BF16 tensors: the 8-byte little-endian
     header length, the JSON header (padded to 8 bytes), the raw tensors.
@@ -2365,6 +2757,7 @@ def main() -> None:
     rect, rect8 = check_rect(ra, rng, gen)
     packed, packed8 = check_ragged(ra, bucketing, rng, gen)
     rows += [rect, packed, rect8, packed8]
+    rows += [check_flash_prefix_verify(fp, gen), check_ragged_verify(ra, bucketing, rng, gen)]
     check_quantize_rule()
     for r in rows:
         print(
@@ -2386,6 +2779,7 @@ def main() -> None:
     print(f"serve-http: launches on the HTTP path {http_launches}")
     a3 = serve_a3_phase(ref, card)
     print(f"serve-a3: flash prefill launches {a3['launches']}")
+    a45 = serve_a45_phase(ref, served, card)
     if profile_out is not None:
         profile_phase(
             profile_out,
@@ -2400,6 +2794,11 @@ def main() -> None:
         "ragged_paged_attention": classic["B"]["ragged_paged_attention"],
         "packed_ragged_attention_int8": quant["Q"]["packed_ragged_attention_int8"],
         "ragged_paged_attention_int8": quant["QB"]["ragged_paged_attention_int8"],
+        # the verify shapes' callers: the standalone verify dispatches of
+        # the fold-off run, the folded verify segments' packed dispatches
+        "flash_prefix_prefill_attention/verify":
+            a45["oracle fold-off"]["flash_prefix_prefill_attention"],
+        "packed_ragged_attention/verify": a45["oracle"]["packed_ragged_attention"],
     }
     for r in rows:
         r["launches"] = launches[r["name"]]

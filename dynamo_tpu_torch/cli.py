@@ -16,9 +16,9 @@ engine runs on the card; ``--device cpu`` runs it on the CPU.  ``bench``
 drives a running front end with the serving benchmark client.
 
 Flags of the JAX CLI whose features the port does not have yet (the
-parallel degrees, offload, swap preemption, the remote KV tier, weight
-quantization, draft models, disaggregation, the hub) are refused with an
-error that names them, never ignored.
+parallel degrees, offload, swap preemption, the remote KV tier,
+disaggregation, the hub) are refused with an error that names them, never
+ignored.
 """
 
 from __future__ import annotations
@@ -48,8 +48,6 @@ _REFUSED = {
     "--disk-offload-dir": lambda a: a.disk_offload_dir is not None,
     "--swap-preemption": lambda a: a.swap_preemption,
     "--kv-remote": lambda a: a.kv_remote is not None,
-    "--quantize": lambda a: a.quantize is not None,
-    "--draft-model": lambda a: a.draft_model is not None,
     "--disagg": lambda a: a.disagg is not None,
     "--hub": lambda a: a.hub is not None,
 }
@@ -95,6 +93,23 @@ def _add_engine_flags(p) -> None:
     p.add_argument("--multistep-max-k", type=int, default=8, metavar="K",
                    help="ceiling for the adaptive multi-step decode "
                         "controller (default 8)")
+    p.add_argument("--no-fold-spec-verify", dest="fold_spec_verify",
+                   action="store_false", default=True,
+                   help="standalone speculative verify dispatches instead of "
+                        "verify columns folded into the packed unified "
+                        "dispatch (env DYN_SPEC_FOLD overrides)")
+    p.add_argument("--no-spec-auto-disable", dest="spec_auto_disable",
+                   action="store_false", default=True,
+                   help="keep low-acceptance lanes drafting instead of "
+                        "reverting them to plain decode (env "
+                        "DYN_SPEC_AUTO_DISABLE overrides)")
+    p.add_argument("--draft-model", default=None, metavar="PATH",
+                   help="model drafter: a checkpoint dir (or 'random[:seed]', "
+                        "the tiny test preset) loaded as a second model; "
+                        "requests select it with speculation drafter 'model' "
+                        "(env DYN_DRAFT_MODEL overrides)")
+    p.add_argument("--quantize", choices=["int8"], default=None,
+                   help="weight-only quantization of the matmul weights")
     # refused: their features are not ported yet
     for flag in ("--tp", "--dp", "--sp", "--pp", "--ep"):
         p.add_argument(flag, type=int, default=1, help="not served by the port yet")
@@ -106,9 +121,6 @@ def _add_engine_flags(p) -> None:
     p.add_argument("--swap-preemption", action="store_true",
                    help="not served by the port yet (it preempts by recompute)")
     p.add_argument("--kv-remote", default=None, help="not served by the port yet")
-    p.add_argument("--quantize", choices=["int8"], default=None,
-                   help="not served by the port yet")
-    p.add_argument("--draft-model", default=None, help="not served by the port yet")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -222,6 +234,10 @@ def _make_engine(args):
         kv_dtype=args.kv_dtype,
         async_dispatch=args.async_dispatch,
         multistep_max_k=args.multistep_max_k if args.multistep_decode else 1,
+        fold_spec_verify=args.fold_spec_verify,
+        spec_auto_disable=args.spec_auto_disable,
+        draft_model=args.draft_model,
+        quantize=args.quantize,
     )
     if args.mixed_token_budget is not None:
         cfg.mixed_token_budget = args.mixed_token_budget

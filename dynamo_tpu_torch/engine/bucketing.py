@@ -63,10 +63,11 @@ class PackedShapeBudget:
     """Bound the packed unified step's ``(Np, s_max, s_spec)`` shape set.
 
     A copy of the JAX package's class (``engine/bucketing.py``), where each
-    triple is one compiled executable; in this package a triple keys the
-    CUDA graphs of the packed decode dispatch.  ``s_spec`` (the folded
-    verify column count) is always 0 here: this package folds no
-    speculative verify.  A dispatch whose natural triple is already minted
+    triple is one compiled executable; in this package a spec-free triple
+    keys the CUDA graphs of the packed decode dispatch.  ``s_spec`` is the
+    folded verify column count of a dispatch that carries speculating
+    lanes' verify columns (0 without); such a dispatch runs eagerly
+    (``graphs.py``).  A dispatch whose natural triple is already minted
     (or was merged before) reuses it; a new triple mints freely under
     ``budget``; past the budget, the dispatch is merged up into the
     smallest already-minted triple that dominates it (``s_max' >= s_max``,

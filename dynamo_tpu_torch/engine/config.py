@@ -232,3 +232,25 @@ class EngineConfig:
     # results have landed (or the pipeline is full).  Token streams equal
     # the serial loop's; False is that serial loop (one generation deep)
     async_dispatch: bool = True
+    # folded speculative verify: speculating lanes' verify columns ride the
+    # packed unified dispatch as more flat-axis segments, so a speculating
+    # mixed tick is one dispatch; False (and classic ticks, and the
+    # rectangle layout) runs the standalone verify dispatch after the
+    # commit.  Token-identical either way.  Consulted only with mixed
+    # batching and the packed layout on
+    fold_spec_verify: bool = True
+    # acceptance-aware auto-disable: a speculating lane whose acceptance
+    # rate sits below ``spec_min_accept`` once it has drafted
+    # ``spec_disable_after`` tokens stops drafting and decodes plainly (no
+    # output change)
+    spec_auto_disable: bool = True
+    spec_min_accept: float = 0.35
+    spec_disable_after: int = 64
+    # model drafter: a checkpoint directory or ``random[:seed]``
+    # (spec/model_drafter.py), loaded at construction and served to
+    # requests that ask for drafter kind "model".  None = host drafters only
+    draft_model: Optional[str] = None
+    # weight-only quantization: "int8" stores the matmul weights as int8
+    # with per-output-channel scales, dequantized at the point of use
+    # (engine/quant.py).  None = the weights as given
+    quantize: Optional[str] = None

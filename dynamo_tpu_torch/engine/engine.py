@@ -55,16 +55,34 @@ thread, serialized with the tick loop.  ``EngineMetrics`` (queue depth,
 occupancy, KV pages, prefix hits, dispatches by kind, step latency, mixed
 batch fill, multistep K, packed shapes) is fed at the JAX engine's sites.
 
-Not served yet (later slices): speculative decoding (its request fields
-are ignored: output is the contract, speculation an optimization),
-offload/swap and external-KV deliveries, disaggregation, tensor/data
-parallelism, the tick profiler, and CUDA graphs for dispatches that carry
-prefill chunks.
+Speculative decoding (a request's ``speculation`` knobs) is the JAX
+engine's: a lane armed at ``generate()`` (not a penalized or soft-prompt
+lane; an unknown drafter fails the request) is device-inactive and
+advances through verify columns from the host mirrors -- its last
+committed token and its drafter's proposal, scored in one forward.  On
+packed mixed ticks the columns fold into the unified dispatch as more
+segments (``fold_spec_verify``, kernel 5 on the card); on classic ticks,
+the rectangle layout and with folding off, a standalone
+``verify_and_sample`` dispatch (kernel 3) goes out after the commit.  The
+accept walk commits the verified draft prefix and the next target sample
+through the stop-rule replay; a lane preempted or cancelled mid-verify
+discards its column.  The next proposal is precomputed at commit, and a
+lane whose acceptance stays low auto-disables (``spec_auto_disable``) and
+decodes plainly.  A speculating lane collapses multistep K to 1.  Its
+stats ride the finish item; ``SpecMetrics`` feeds ``dynamo_spec_*``.
+``EngineConfig(draft_model=...)`` loads a model drafter at construction,
+``quantize="int8"`` quantizes the weights before any pool is allocated
+(``quant.py``).
+
+Not served yet (later slices): offload/swap and external-KV deliveries,
+disaggregation, tensor/data parallelism, the tick profiler, and CUDA
+graphs for dispatches that carry prefill chunks or verify columns.
 
 The serving-environment overrides the JAX engine reads at construction
 are read here too, with its parse, for the features the port has:
 ``DYN_KV_DTYPE``, ``DYN_MIXED_TOKEN_BUDGET``, ``DYN_PACKED_RAGGED``,
-``DYN_PACKED_SHAPE_BUDGET`` and ``DYN_ASYNC_DISPATCH``.  A set variable wins
+``DYN_PACKED_SHAPE_BUDGET``, ``DYN_ASYNC_DISPATCH``, ``DYN_SPEC_FOLD``,
+``DYN_SPEC_AUTO_DISABLE`` and ``DYN_DRAFT_MODEL``.  A set variable wins
 over the config; a malformed one logs a warning and keeps the config.
 
 The KV pool is dense in the model's dtype or, with
@@ -99,7 +117,8 @@ from ..protocols.common import (
     PreprocessedRequest,
 )
 from ..runtime.engine import Annotated, Context, ResponseStream
-from ..runtime.metrics import EngineMetrics
+from ..runtime.metrics import EngineMetrics, SpecMetrics
+from ..spec.drafter import MAX_DRAFT_TOKENS, SpecState, longest_accepted, make_drafter, spec_live
 from .bucketing import (
     PackedShapeBudget,
     pick_bucket,
@@ -111,6 +130,7 @@ from .config import EngineConfig, ModelConfig
 from .graphs import StepGraphs
 from .kv_cache import PagedKVCache, parse_kv_dtype, pool_is_quantized, torch_dtype
 from .model import Params, init_params
+from .quant import quantize_params
 from .sampling import PROMPT_FLAG, SamplingParams, unpack_sampled_logprobs
 from .scheduler import MixedChunk, Scheduler, SchedulerConfig, SeqState, StepEvent
 from .step import (
@@ -129,6 +149,7 @@ from .step import (
     seed_count_rows,
     unified_step,
     update_lanes,
+    verify_and_sample,
     zero_count_rows,
 )
 
@@ -161,6 +182,12 @@ def _env_override(name: str, value: Any, parse) -> Any:
 
 def _env_flag(raw: str) -> bool:
     return raw.strip().lower() not in ("0", "off", "false", "no")
+
+
+def _parse_draft_model(raw: str) -> Optional[str]:
+    """``DYN_DRAFT_MODEL``: a draft model spec, or 0/off/none for none."""
+    raw = raw.strip()
+    return None if raw.lower() in ("0", "off", "none") else raw
 
 
 def check_model_geometry(model_cfg: ModelConfig, device: torch.device) -> None:
@@ -239,6 +266,12 @@ class InflightBlock:
     dispatched_at: float = field(default_factory=time.perf_counter)
 
 
+# one speculating lane of a verify dispatch: (seq, slot, draft, life at
+# dispatch); a lane preempted, cancelled or re-admitted since discards its
+# whole column at commit
+SpecLane = Tuple[SeqState, int, List[int], int]
+
+
 @dataclass
 class InflightUnified:
     """A dispatched-but-uncommitted unified step: packed ``[B, K, 2 + 2N]``
@@ -246,17 +279,35 @@ class InflightUnified:
     steps; 1 with chunks or on the rectangle), the slot mapping at
     dispatch, and an :class:`InflightPrefill` per lane whose prompt
     completed (its first token already folded into the device state by
-    the step; the record backs the pending-inject re-apply path)."""
+    the step; the record backs the pending-inject re-apply path).  With
+    folded verify, ``spec_sampled`` holds the speculating lanes' column
+    samples ``[B, s_spec, 2 + 2N]`` (landed with ``sampled``) and
+    ``spec_lanes`` what the accept walk commits them against."""
 
     sampled: Result
     slots: List[Optional[SeqState]]
     lives: List[int]
     finals: List[InflightPrefill] = field(default_factory=list)
     n_steps: int = 1
+    spec_sampled: Optional[Result] = None
+    spec_lanes: List[SpecLane] = field(default_factory=list)
     dispatched_at: float = field(default_factory=time.perf_counter)
 
 
-Inflight = Union[InflightPrefill, InflightPrefillGroup, InflightBlock, InflightUnified]
+@dataclass
+class InflightVerify:
+    """A dispatched-but-uncommitted standalone verify: one forward scored
+    every speculating lane's columns (``[B, S, 2 + 2N]``); the host accept
+    walk runs at commit."""
+
+    sampled: Result
+    lanes: List[SpecLane]
+    dispatched_at: float = field(default_factory=time.perf_counter)
+
+
+Inflight = Union[
+    InflightPrefill, InflightPrefillGroup, InflightBlock, InflightUnified, InflightVerify
+]
 
 
 def _prefills_of(e: Inflight) -> List[InflightPrefill]:
@@ -288,6 +339,12 @@ class TorchEngine:
         self.params = params
         self.dtype = torch_dtype(model_cfg.dtype)
         c = self.cfg
+        if c.quantize is not None:
+            # before any pool is allocated: the int8 weights and the
+            # one-slice f32 transient of the rounding come first
+            if c.quantize != "int8":
+                raise ValueError(f"unsupported quantize={c.quantize!r} (int8 only)")
+            self.params = quantize_params(params, self.dtype)
         self.kv_dtype = _env_override(
             "DYN_KV_DTYPE", parse_kv_dtype(c.kv_dtype), parse_kv_dtype
         )
@@ -308,6 +365,28 @@ class TorchEngine:
         # and, at commit, step latency and KV residency
         self.obs = EngineMetrics(metrics_registry, max_slots=c.max_batch_size)
         self.sched.metrics = self.obs
+        # speculative decoding: per-request drafters propose draft tokens
+        # from the token history, a verify dispatch scores them in one
+        # forward.  Engine-lifetime counters beside the dynamo_spec_* family
+        self.spec_metrics = SpecMetrics(metrics_registry)
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_verify_steps = 0
+        self.spec_armed_requests = 0
+        self.spec_auto_disabled = 0
+        self._spec_auto_disable = _env_override(
+            "DYN_SPEC_AUTO_DISABLE", bool(c.spec_auto_disable), _env_flag
+        )
+        self._spec_min_accept = float(c.spec_min_accept)
+        self._spec_disable_after = max(int(c.spec_disable_after), 1)
+        # (seq, message) of lanes whose drafter failed on the executor
+        # thread; the loop fails their requests before its next plan
+        self._spec_failures: List[Tuple[SeqState, str]] = []
+        # the model drafter, bound to this engine under kind "model"
+        self.model_drafter: Optional[Any] = None
+        draft_spec = _env_override("DYN_DRAFT_MODEL", c.draft_model, _parse_draft_model)
+        if draft_spec:
+            self._init_model_drafter(draft_spec)
         self.buckets = prefill_buckets(c.page_size, c.max_seq_len)
         # classic chunks restart at page-aligned offsets: the chunk size
         # rounds up to a whole page
@@ -319,6 +398,12 @@ class TorchEngine:
         self._packed = _env_override("DYN_PACKED_RAGGED", bool(c.packed_ragged), _env_flag)
         # multistep decode rides the packed mixed plane only
         self._multistep = self._mixed and self._packed
+        # folded verify needs the packed mixed plane too
+        self._fold_spec = (
+            _env_override("DYN_SPEC_FOLD", bool(c.fold_spec_verify), _env_flag)
+            and self._mixed
+            and self._packed
+        )
         self._mixed_budget = max(
             int(_env_override("DYN_MIXED_TOKEN_BUDGET", c.mixed_token_budget, int)), 1
         )
@@ -468,6 +553,7 @@ class TorchEngine:
                     f"mm_embeds must be rows of the model's hidden size "
                     f"{self.model_cfg.hidden_size}, got shape {list(mm.shape)}"
                 )
+            self._arm_speculation(seq)  # an unknown drafter: an error stream
             self.sched.enqueue(seq)
         except ValueError as e:
             message = str(e)
@@ -570,9 +656,15 @@ class TorchEngine:
 
     def _entries_ready(self, entries: List[Inflight]) -> bool:
         """Non-blocking probe: have this generation's results landed, the
-        prompt-scoring rows of its echo lanes included?"""
+        prompt-scoring rows of its echo lanes and its folded verify columns
+        included?"""
         return all(
             _handles_ready(e.sampled)
+            and (
+                not isinstance(e, InflightUnified)
+                or e.spec_sampled is None
+                or _handles_ready(e.spec_sampled)
+            )
             and all(
                 pf.prompt_lp is None or _handles_ready(pf.prompt_lp)
                 for pf in _prefills_of(e)
@@ -641,6 +733,7 @@ class TorchEngine:
         while self._running:
             try:
                 self._process_cancellations()
+                self._fail_drafter_lanes()
                 if (
                     not sched.has_runnable_work
                     and not inflight
@@ -662,11 +755,18 @@ class TorchEngine:
                     # every uncommitted generation may hold a full block's
                     # writes per lane, plus this tick's block
                     ms_block = self._ms_max if self._multistep else 1
+                    lookahead = (
+                        (self._pipe_depth + 1) * max(self.cfg.decode_block_size, ms_block) + 1
+                    )
+                    # with speculating lanes slotted the floor also covers
+                    # a verify dispatch's whole draft span (spec-free
+                    # serving keeps its watermark)
+                    if any(s is not None and spec_live(s.spec) for s in sched.slots):
+                        lookahead = max(
+                            lookahead, (self._pipe_depth + 1) * (MAX_DRAFT_TOKENS + 1) + 1
+                        )
                     preempted = sched.ensure_decode_capacity(
-                        lookahead=(self._pipe_depth + 1)
-                        * max(self.cfg.decode_block_size, ms_block)
-                        + 1,
-                        chunk_pages=GROW_CHUNK_PAGES,
+                        lookahead=lookahead, chunk_pages=GROW_CHUNK_PAGES
                     )
                     if preempted:
                         self.obs.preemptions.inc(len(preempted))
@@ -743,20 +843,29 @@ class TorchEngine:
                     await self._commit_prefill(
                         await self._on_executor(self._do_prefill_group, items)
                     )
+                # folded verify: on packed mixed ticks the speculating
+                # lanes' verify columns ride the unified dispatch; the
+                # reserve keeps its token budget honest about them
+                fold_active = self._fold_spec and mixed_ok
+                spec_reserve = self._spec_fold_reserve() if fold_active else 0
                 chunks = (
-                    sched.form_mixed_chunks(self._mixed_budget, self._chunk_tokens)
+                    sched.form_mixed_chunks(
+                        self._mixed_budget, self._chunk_tokens, spec_reserve
+                    )
                     if mixed_ok
                     else []
                 )
                 k = (
-                    self._multistep_plan_k(chunks, minted)
+                    self._multistep_plan_k(chunks, minted, spec_reserve)
                     if self._multistep and mixed_ok
                     else 0
                 )
                 pending = [e for gen in inflight for e in gen]
                 ub = None
-                if chunks:
-                    ub = await self._on_executor(self._dispatch_unified, chunks, 1)
+                if chunks or spec_reserve:
+                    ub = await self._on_executor(
+                        self._dispatch_unified, chunks, 1, fold_active
+                    )
                 elif (
                     k > 0
                     and sched.num_decode_runnable > 0
@@ -777,6 +886,19 @@ class TorchEngine:
                 # dispatched -- to drain toward idle
                 dispatched = bool(fresh) or minted
                 await self._commit_ready(inflight, self._pipe_depth if dispatched else 0)
+                # the standalone verify goes out after the commit phase: a
+                # lane's next draft extends its committed history.  It
+                # serves classic ticks, the rectangle layout and
+                # fold_spec_verify=False
+                if not fold_active and any(
+                    s is not None and spec_live(s.spec) for s in sched.slots
+                ):
+                    vb = await self._on_executor(self._dispatch_verify)
+                    if vb is not None:
+                        if inflight:
+                            inflight[-1].append(vb)
+                        else:
+                            inflight.append([vb])
                 if not dispatched and not inflight:
                     self._handle_stalled_admission()
                     await asyncio.sleep(0.001)
@@ -786,6 +908,7 @@ class TorchEngine:
             except Exception as e:  # the engine must never die silently
                 logger.exception("engine tick failed")
                 inflight.clear()
+                self._spec_failures.clear()
                 self._pending_injects.clear()
                 self._chunking = []
                 sched.mix_pending = []
@@ -802,17 +925,19 @@ class TorchEngine:
             and self.sched.slots[seq.slot] is seq
         )
 
-    def _multistep_plan_k(self, chunks: List[MixedChunk], firsts: bool = False) -> int:
+    def _multistep_plan_k(
+        self, chunks: List[MixedChunk], firsts: bool = False, spec_reserve: int = 0
+    ) -> int:
         """Decode steps to fuse into this tick's dispatch: pressure (prefill
-        chunks, queued, chunking or mid-prefill requests, first tokens
-        sampled by this tick's or the previous tick's dispatches)
-        collapses K to 1, each pressure-free tick doubles it toward
-        ``multistep_max_k``.  The first-token rule is the JAX engine's
-        pending-inject pressure as its serial loop sees it (a first token
-        stays pending until the generation after its own has been
-        dispatched), read from the dispatches and not from the commits:
-        so the pipelined loop fuses the same steps as the serial one,
-        whenever its generations land."""
+        chunks, verify segments, speculating lanes, queued, chunking or
+        mid-prefill requests, first tokens sampled by this tick's or the
+        previous tick's dispatches) collapses K to 1, each pressure-free
+        tick doubles it toward ``multistep_max_k``.  The first-token rule
+        is the JAX engine's pending-inject pressure as its serial loop sees
+        it (a first token stays pending until the generation after its own
+        has been dispatched), read from the dispatches and not from the
+        commits: so the pipelined loop fuses the same steps as the serial
+        one, whenever its generations land."""
         sched = self.sched
         pressure = (
             bool(chunks)
@@ -821,7 +946,10 @@ class TorchEngine:
             or bool(self._chunking)
             or firsts
             or self._firsts_last_tick
-            or any(s is not None and s.prefilling for s in sched.slots)
+            or bool(spec_reserve)
+            or any(
+                s is not None and (s.prefilling or spec_live(s.spec)) for s in sched.slots
+            )
         )
         if pressure:
             self._ms_ramp = 1
@@ -846,6 +974,7 @@ class TorchEngine:
             s is not None
             and s.finish is None
             and not s.prefilling
+            and not spec_live(s.spec)
             and int(limits[b]) > int(sched.seq_lens[b]) + inflight
             for b, s in enumerate(sched.slots)
         )
@@ -965,14 +1094,22 @@ class TorchEngine:
         self._spans.append((kind, start, end))
         return end
 
+    def _host_copy(self, out: torch.Tensor) -> torch.Tensor:
+        """Enqueue the non-blocking copy of device rows into a pinned host
+        buffer of their own (on the CPU: the rows themselves)."""
+        if self.device.type != "cuda":
+            return out
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        return host
+
     def _download(self, out: torch.Tensor, kind: str, start: Optional[Any]) -> Result:
         """Enqueue the non-blocking copy of a dispatch's sampled rows into a
         pinned host buffer of its own and close the dispatch's span (its
         end event marks the copy landed)."""
         if self.device.type != "cuda":
             return Result(out)
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host.copy_(out, non_blocking=True)
+        host = self._host_copy(out)
         return Result(host, self._span_end(kind, start))
 
     def _graph_marks(self) -> Tuple[int, int]:
@@ -1074,8 +1211,15 @@ class TorchEngine:
 
     def _lane_active(self, seq: Optional[SeqState], limit: int, seq_len: int) -> bool:
         """A lane decodes when slotted, fully prefilled and with write
-        headroom."""
-        return seq is not None and limit > seq_len and not seq.prefilling
+        headroom, and not speculating: a lane with live speculation
+        advances through its verify columns (an auto-disabled one decodes
+        again)."""
+        return (
+            seq is not None
+            and limit > seq_len
+            and not seq.prefilling
+            and not spec_live(seq.spec)
+        )
 
     def _lane_stop_row(self, seq: Optional[SeqState]) -> np.ndarray:
         """Device-swallowable stop tokens for one lane: only when the host
@@ -1309,7 +1453,7 @@ class TorchEngine:
     # -- unified and decode-block dispatches (executor thread) ---------------
 
     def _dispatch_unified(
-        self, chunks: List[MixedChunk], num_steps: int
+        self, chunks: List[MixedChunk], num_steps: int, fold_spec: bool = False
     ) -> Optional[InflightUnified]:
         """Enqueue one unified mixed dispatch (packed axis, or the [B, S]
         rectangle): decode lanes contribute one row each, read from the
@@ -1317,12 +1461,22 @@ class TorchEngine:
         chunk samples its lane's first token and folds it into the decode
         state on the device.  Host chunk bookkeeping advances at dispatch.
         With ``num_steps > 1`` (a pure-decode packed tick) K decode steps
-        fuse into the dispatch.  None when there was nothing to dispatch."""
+        fuse into the dispatch.  With ``fold_spec`` (packed layout) the
+        verify-eligible speculating lanes contribute their verify segments
+        -- last committed token plus drafts -- to the same dispatch, their
+        column samples coming back beside the rows.  None when there was
+        nothing to dispatch."""
         sched = self.sched
         B = self.cfg.max_batch_size
+        spec_lanes = self._gather_spec_lanes() if fold_spec else []
+        if fold_spec and not chunks and not spec_lanes:
+            # the verify-eligible lanes the loop saw are gone (cancelled,
+            # preempted, failed): the decode lanes take a block instead
+            return None
         p_start = np.zeros((B,), np.int64)
         p_lens = np.zeros((B,), np.int64)
         p_sample = np.zeros((B,), bool)
+        p_act = np.zeros((B,), bool)
         chunk_by_slot: Dict[int, MixedChunk] = {}
         final_chunks: List[MixedChunk] = []
         for ch in chunks:
@@ -1331,21 +1485,37 @@ class TorchEngine:
             p_start[b] = ch.start
             p_lens[b] = ch.length
             p_sample[b] = ch.final
+            # a speculating lane samples its first token here but stays
+            # device-inactive: it advances through verify columns
+            p_act[b] = ch.final and not spec_live(ch.seq.spec)
             self._note_prefix_stats(ch.seq)
             ch.seq.prefilled_tokens = ch.start + ch.length
             if ch.final:
                 ch.seq.prefilling = False
                 final_chunks.append(ch)
+        # verify segments at the committed cache length (host mirrors are
+        # authoritative, as in the standalone verify); the lane's verify
+        # is in flight from here until its commit
+        v_host = np.zeros((B,), np.int64)
+        for seq, b, draft, _ in spec_lanes:
+            p_start[b] = sched.seq_lens[b]
+            v_host[b] = 1 + len(draft)
+            seq.spec.inflight = True
         dec_cap = np.array(
             [
-                s is not None and p_lens[b] == 0 and s.finish is None and not s.prefilling
+                s is not None
+                and p_lens[b] == 0
+                and v_host[b] == 0
+                and s.finish is None
+                and not s.prefilling
+                and not spec_live(s.spec)
                 for b, s in enumerate(sched.slots)
             ],
             bool,
         )
         if num_steps > 1 and not dec_cap.any():
             return None
-        q_host = np.where(dec_cap, 1, p_lens).astype(np.int64)
+        q_host = np.where(dec_cap, 1, np.where(v_host > 0, v_host, p_lens)).astype(np.int64)
         total = int(q_host.sum())
         if total == 0:
             return None
@@ -1356,10 +1526,12 @@ class TorchEngine:
         use_filters = any(s is not None and self._needs_filters(s.sampling) for s in slots)
         top_n = self._lp_top(slots)
         Pb = self._live_page_bucket()
+        spec_packed = None
         if self._packed:
-            packed = self._run_packed(
-                chunk_by_slot, p_start, p_lens, p_sample, dec_cap, q_host, total,
-                Pb, num_steps, top_n, use_filters,
+            packed, spec_packed = self._run_packed(
+                chunk_by_slot, p_start, p_lens, p_sample, dec_cap, q_host, total, Pb,
+                num_steps, top_n, use_filters, p_act=p_act, v_host=v_host,
+                spec_lanes=spec_lanes,
             )
         else:
             S = pow2_bucket(max((ch.length for ch in chunks), default=1))
@@ -1376,7 +1548,7 @@ class TorchEngine:
                 self.params, self.model_cfg, self.kv.pages, v["tokens"],
                 v["seq_lens"], v["limit_lens"], v["active"], v["stop_ids"],
                 v["page_table"][:, :Pb].contiguous(), put(p_tokens), put(p_start),
-                put(p_lens), put(p_sample), put(p_sample), self._samp, top_n,
+                put(p_lens), put(p_sample), put(p_act), self._samp, top_n,
                 use_filters,
             )
             self._commit_state(tokens, seq_lens, active)
@@ -1387,6 +1559,8 @@ class TorchEngine:
             pf = InflightPrefill(tok=packed[b : b + 1, 0, 0], seq=ch.seq, slot=b, life=ch.seq.life)
             self._pending_injects[b] = pf
             finals.append(pf)
+        # the verify columns' copy goes first: the rows' end event marks both
+        spec_host = self._host_copy(spec_packed) if spec_lanes else None
         res = self._download(packed, self._span_kind("unified", marks), start)
         self._count("unified")
         self.dispatches_by_k[num_steps] = self.dispatches_by_k.get(num_steps, 0) + 1
@@ -1397,27 +1571,39 @@ class TorchEngine:
         return InflightUnified(
             res, slots, [s.life if s is not None else -1 for s in slots], finals,
             num_steps,
+            spec_sampled=None if spec_host is None else Result(spec_host, res.event),
+            spec_lanes=spec_lanes,
         )
 
     def _run_packed(
         self, chunk_by_slot, p_start, p_lens, p_sample, dec_cap, q_host, total,
-        Pb, num_steps, top_n, use_filters,
-    ) -> torch.Tensor:
+        Pb, num_steps, top_n, use_filters, p_act=None, v_host=None, spec_lanes=(),
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The packed layout: segments in slot order on one flat axis,
-        ``(Np, s_max)`` resolved through the shape budget; the packed step,
-        then the multistep tail's ``num_steps - 1`` decode steps.  On the
-        card a dispatch without chunks replays the packed step's graph.
-        Returns ``packed [B, num_steps, 2 + 2*top_n]``."""
+        ``(Np, s_max, s_spec)`` resolved through the shape budget; the
+        packed step, then the multistep tail's ``num_steps - 1`` decode
+        steps.  A final chunk's lane joins decode where ``p_act`` says
+        (default: every final chunk's); ``v_host`` and ``spec_lanes`` are
+        the verify segments.  On the card a dispatch without chunks or
+        verify segments replays the packed step's graph; one with either
+        runs eagerly.  Returns ``packed [B, num_steps, 2 + 2*top_n]`` and,
+        with verify segments, their column samples ``[B, s_spec, 2 +
+        2*top_n]`` (else None)."""
         B = self.cfg.max_batch_size
+        if p_act is None:
+            p_act = p_sample
         seg_off = np.zeros((B,), np.int64)
         off = off_last = 0
         for b in range(B):
             if q_host[b]:
                 seg_off[b] = off_last = off
                 off += int(q_host[b])
+        # verify columns pad to the draft pow2 rule: 1 + {0, 1, 2, 4, 8}
+        max_d = max((len(d) for _, _, d, _ in spec_lanes), default=0)
+        s_spec = (1 + (pow2_bucket(max_d) if max_d else 0)) if spec_lanes else 0
         evicted = self._packed_shapes.evictions
-        Np, s_max, _ = self._packed_shapes.fit(
-            pow2_bucket(int(q_host.max())), off_last, total
+        Np, s_max, s_spec = self._packed_shapes.fit(
+            pow2_bucket(int(q_host.max())), off_last, total, s_spec
         )
         if self._packed_shapes.evictions != evicted:
             live = set(self._packed_shapes.pairs)
@@ -1438,6 +1624,7 @@ class TorchEngine:
         t_lane = np.full((Np,), B, np.int64)
         t_rel = np.zeros((Np,), np.int64)
         t_dec = np.zeros((Np,), np.int64)
+        drafts = {b: draft for _, b, draft, _ in spec_lanes}
         for b in range(B):
             ql = int(q_host[b])
             if ql == 0:
@@ -1448,6 +1635,10 @@ class TorchEngine:
             ch = chunk_by_slot.get(b)
             if ch is not None:
                 t_tokens[o : o + ql] = ch.seq.prompt[ch.start : ch.start + ql]
+            elif b in drafts:
+                # a verify segment: the committed token, then the drafts
+                t_tokens[o] = self.sched.tokens[b]
+                t_tokens[o + 1 : o + ql] = drafts[b]
             else:
                 t_dec[o] = 1
         v = self._v
@@ -1456,15 +1647,16 @@ class TorchEngine:
             "packed": ("packed", Np, s_max, Pb, top_n, use_filters),
             "step": ("step", Pb, top_n, use_filters, False),
         }
-        packed, *_ = packed_unified_multistep(
+        packed, *_, spec_packed = packed_unified_multistep(
             self.params, self.model_cfg, self.kv.pages, v["tokens"], v["seq_lens"],
             v["limit_lens"], v["active"], v["stop_ids"], v["page_table"][:, :Pb],
             t(t_tokens), t(t_lane), t(t_rel), t(t_dec), t(p_start), t(p_lens),
-            t(p_sample), t(p_sample), t(dec_cap), t(seg_off), self._samp, s_max,
+            t(p_sample), t(p_act), t(dec_cap), t(seg_off), self._samp, s_max,
             num_steps, top_n, use_filters,
-            self._step_runner(keys, eager=bool(chunk_by_slot)),
+            self._step_runner(keys, eager=bool(chunk_by_slot) or bool(spec_lanes)),
+            t(v_host) if s_spec else None, s_spec,
         )
-        return packed
+        return packed, (spec_packed if s_spec else None)
 
     def _run_block(
         self, K: int, Pb: int, top_n: int, use_filters: bool, use_penalties: bool
@@ -1537,6 +1729,272 @@ class TorchEngine:
         self._count("decode_block")
         self.obs.observe_multistep_k(1)
         return InflightBlock(res, slots, [s.life if s is not None else -1 for s in slots])
+
+    # -- speculative decoding: drafts on the host, verify in one forward ------
+
+    def _arm_speculation(self, seq: SeqState) -> None:
+        """Attach a live SpecState to a request that asked for speculation.
+        A lane needs a host token history (``seq.blocks``: a soft-prompt
+        lane has none) and no sampling penalty (a multi-token verify cannot
+        replay the sequential penalty histograms); other requests keep
+        plain decode silently.  An unknown drafter kind raises ValueError,
+        which fails the request."""
+        opts = seq.speculation
+        if opts is None or not opts.enabled or opts.num_draft_tokens < 1:
+            return
+        if seq.blocks is None or self._seq_penalized(seq):
+            return
+        # the model drafter binds to this engine, not to the process-wide
+        # registry; "model" on an engine without one falls through to
+        # make_drafter, which raises unless something registered the kind
+        if opts.drafter == "model" and self.model_drafter is not None:
+            drafter = self.model_drafter
+        else:
+            drafter = make_drafter(opts.drafter)
+        seq.spec = SpecState(
+            drafter=drafter,
+            num_draft_tokens=min(int(opts.num_draft_tokens), MAX_DRAFT_TOKENS),
+            kind=opts.drafter,
+        )
+        self.spec_metrics.requests.inc()
+        self.spec_armed_requests += 1
+        self.spec_metrics.enabled_frac.set(self.spec_enabled_frac)
+
+    def _init_model_drafter(self, spec: str) -> None:
+        """Load the draft model (a second weight load, on this engine's
+        device) and bind it to this engine under drafter kind ``"model"``.
+        Its vocabulary must be the target's."""
+        from ..spec.model_drafter import ModelDrafter, load_draft_model
+
+        dcfg, dparams = load_draft_model(spec, self.device)
+        if dcfg.vocab_size != self.model_cfg.vocab_size:
+            raise ValueError(
+                f"draft_model {spec!r} vocab {dcfg.vocab_size} != target vocab "
+                f"{self.model_cfg.vocab_size}: drafts and targets must share one "
+                "token space"
+            )
+        self.model_drafter = ModelDrafter(dparams, dcfg, self.device)
+        logger.info(
+            "model drafter armed: %s (%d layers, hidden %d)",
+            spec, dcfg.num_layers, dcfg.hidden_size,
+        )
+
+    @property
+    def spec_enabled_frac(self) -> float:
+        """Fraction of spec-armed requests still drafting (1 - auto-disabled
+        / armed)."""
+        if not self.spec_armed_requests:
+            return 1.0
+        return 1.0 - self.spec_auto_disabled / self.spec_armed_requests
+
+    def _verify_eligible(self, b: int, seq: Optional[SeqState]) -> bool:
+        """A lane whose verify may dispatch now: speculating, committed
+        through (no verify in flight, no device-only first token, not
+        parked mid-prefill) and with at least one generated token."""
+        return (
+            seq is not None
+            and seq.finish is None
+            and spec_live(seq.spec)
+            and not seq.spec.inflight
+            and not seq.prefilling
+            and b not in self._pending_injects
+            and seq.num_generated + seq.prior_generated >= 1
+        )
+
+    def _spec_fold_reserve(self) -> int:
+        """Fresh-token rows the speculating lanes would add to this tick's
+        unified dispatch (one committed-token column plus the draft budget
+        each), 0 when no lane is verify-eligible now.  The loop thread's
+        twin of :meth:`_gather_spec_lanes`'s gates, the write-headroom gate
+        included: a paused lane must not steer a tick into a unified
+        dispatch with nothing to pack."""
+        total = 0
+        limits: Optional[np.ndarray] = None
+        for b, s in enumerate(self.sched.slots):
+            if not self._verify_eligible(b, s):
+                continue
+            if limits is None:
+                limits = self._compute_limits()
+            if int(limits[b]) - int(self.sched.seq_lens[b]) < 1:
+                continue
+            total += 1 + s.spec.num_draft_tokens
+        return total
+
+    def _propose(self, seq: SeqState, history: List[int], n: int) -> Optional[List[int]]:
+        """The lane's drafter's proposal, at most ``n`` tokens.  A drafter
+        that raises fails its request: the lane is cancelled here and its
+        error goes out from the loop (``_fail_drafter_lanes``); None."""
+        st = seq.spec
+        try:
+            return list(st.drafter.propose(history, n))[:n]
+        except Exception as e:  # a drafter's failure is its request's
+            logger.exception("drafter %r failed for %s", st.kind, seq.request_id)
+            self._spec_failures.append((seq, f"drafter {st.kind!r} failed: {e}"))
+            self.sched.cancel(seq)
+            return None
+
+    def _fail_drafter_lanes(self) -> None:
+        """Send the error of each request whose drafter failed (loop
+        thread; its committed tokens went out before)."""
+        failed, self._spec_failures = self._spec_failures, []
+        for seq, message in failed:
+            self._fail_seq(seq, message)
+
+    def _gather_spec_lanes(self) -> List[SpecLane]:
+        """The verify-eligible speculating lanes with their drafts
+        (executor thread): the one eligibility and drafting body of the
+        folded and the standalone verify.  A lane's proposal comes from the
+        precompute stamped at its last commit when that still extends its
+        history, else from its drafter now; the draft is clamped to the
+        lane's write headroom, so it never outruns its pages or budget."""
+        sched = self.sched
+        limits = self._compute_limits()
+        lanes: List[SpecLane] = []
+        t0 = time.perf_counter()
+        for b, seq in enumerate(sched.slots):
+            if not self._verify_eligible(b, seq):
+                continue
+            st = seq.spec
+            headroom = int(limits[b]) - int(sched.seq_lens[b])
+            if headroom < 1:
+                continue  # no writable position: growth or preemption next
+            n = min(st.num_draft_tokens, headroom - 1, MAX_DRAFT_TOKENS)
+            draft: List[int] = []
+            if n > 0:
+                history = seq.blocks.tokens
+                got = st.take_pending_draft(len(history), n)
+                if got is None:
+                    got = self._propose(seq, history, n)
+                    if got is None:
+                        continue  # the drafter failed: the request fails
+                draft = got
+            lanes.append((seq, b, draft, seq.life))
+        if lanes:
+            self.spec_metrics.draft_latency.observe(max(time.perf_counter() - t0, 0.0))
+        return lanes
+
+    def _dispatch_verify(self) -> Optional[InflightVerify]:
+        """Enqueue one standalone verify over the speculating lanes (classic
+        ticks, the rectangle layout, ``fold_spec_verify=False``): each
+        lane's last committed token and drafts as columns of one
+        ``verify_and_sample`` (kernel 3 on the card), the draft axis padded
+        to a power of two.  A lane with no proposal rides with no draft
+        column: its verify is a plain decode step."""
+        lanes = self._gather_spec_lanes()
+        if not lanes:
+            return None
+        sched = self.sched
+        B = self.cfg.max_batch_size
+        max_d = max(len(d) for _, _, d, _ in lanes)
+        S = 1 + (pow2_bucket(max_d) if max_d else 0)
+        tokens = np.zeros((B, S), np.int64)
+        base = np.zeros((B,), np.int64)
+        n_tok = np.zeros((B,), np.int64)
+        seqs: List[Optional[SeqState]] = [None] * B
+        for seq, b, draft, _ in lanes:
+            tokens[b, 0] = sched.tokens[b]
+            tokens[b, 1 : 1 + len(draft)] = draft
+            base[b] = sched.seq_lens[b]
+            n_tok[b] = 1 + len(draft)
+            seqs[b] = seq
+            seq.spec.inflight = True
+        start = self._span_start()
+        put = self._put
+        packed = verify_and_sample(
+            self.params, self.model_cfg, self.kv.pages, put(tokens), put(base),
+            put(n_tok), put(sched.page_table[:, : self._live_page_bucket()]),
+            self._sampling_params(seqs), self._lp_top(seqs),
+            any(s is not None and self._needs_filters(s.sampling) for s in seqs),
+        )
+        res = self._download(packed, "verify", start)
+        self._count("verify")
+        return InflightVerify(res, lanes)
+
+    def _commit_spec_columns(
+        self, lanes: List[SpecLane], arr: np.ndarray, dispatched_at: float, now: float
+    ) -> List[StepEvent]:
+        """The host accept walk over one verify's columns ``[B, S, 2 + 2N]``,
+        folded or standalone: a lane commits the target samples of its
+        verified draft prefix and the sample at the first mismatch, through
+        the stop-rule replay; the rest of its column is dropped.  A lane
+        preempted, cancelled or re-admitted since the dispatch discards its
+        whole column."""
+        events: List[StepEvent] = []
+        sched = self.sched
+        N = (arr.shape[-1] - 2) // 2
+        toks, lps, tids, tlps = unpack_sampled_logprobs(arr, N)
+        for seq, slot, draft, life in lanes:
+            st = seq.spec
+            st.inflight = False
+            if (
+                seq.finish is not None
+                or seq.slot != slot
+                or sched.slots[slot] is not seq
+                or seq.life != life
+                or seq.prefilling
+            ):
+                continue
+            col = toks[slot]
+            m = longest_accepted(draft, col)
+            column = np.full((col.shape[0],), -1, np.int64)
+            column[: m + 1] = col[: m + 1]
+            ev = sched._commit_lane_column(
+                seq, column, lps[slot], tids[slot] if N else None,
+                tlps[slot] if N else None,
+            )
+            # accepted counts verified drafts that committed: the replay may
+            # finish the lane mid-column
+            accepted = min(m, len(ev.tokens))
+            st.drafted += len(draft)
+            st.accepted += accepted
+            st.verify_steps += 1
+            self.spec_drafted += len(draft)
+            self.spec_accepted += accepted
+            if draft:
+                self.spec_metrics.drafted.labels(st.kind).inc(len(draft))
+                if accepted:
+                    self.spec_metrics.accepted.labels(st.kind).inc(accepted)
+            if ev.finished is not None:
+                seq.finish = ev.finished
+                sched._release_slot(seq)
+            else:
+                self._spec_post_commit(seq, st)
+            if ev.tokens or ev.finished is not None:
+                events.append(ev)
+        self.spec_verify_steps += 1
+        self.spec_metrics.verify_steps.inc()
+        if self.spec_drafted:
+            self.spec_metrics.accept_rate.set(self.spec_accepted / self.spec_drafted)
+        self.spec_metrics.verify_latency.observe(max(now - dispatched_at, 0.0))
+        return events
+
+    def _spec_post_commit(self, seq: SeqState, st: SpecState) -> None:
+        """After a lane's columns commit: acceptance-aware auto-disable,
+        then the next proposal, precomputed now and stamped with the
+        history length.  An auto-disabled lane decodes plainly from its
+        next row scatter on (no output change: committed tokens were always
+        the target's).  The precompute runs while the pipeline's other
+        generations are in flight, so a model drafter's forward does not
+        sit between two dispatches."""
+        if (
+            self._spec_auto_disable
+            and st.enabled
+            and st.drafted >= self._spec_disable_after
+            and st.accept_rate < self._spec_min_accept
+        ):
+            st.enabled = False
+            st.auto_disabled = True
+            st.pending_draft = None
+            self.spec_auto_disabled += 1
+            self.spec_metrics.auto_disabled.inc()
+            self.spec_metrics.enabled_frac.set(self.spec_enabled_frac)
+            self.sched.dirty_slots.add(seq.slot)
+            return
+        if not st.enabled:
+            return
+        history = seq.blocks.tokens
+        got = self._propose(seq, history, st.num_draft_tokens)
+        st.pending_draft = None if got is None else (len(history), got)
 
     # -- classic prefill dispatches (executor thread) -----------------------
 
@@ -1805,6 +2263,11 @@ class TorchEngine:
         dispatch) in dispatch order: every result in one pass, then the
         stop-rule replay."""
         mats = [e.sampled.numpy() for e in entries]
+        spec_mats = {
+            id(e): e.spec_sampled.numpy()
+            for e in entries
+            if isinstance(e, InflightUnified) and e.spec_sampled is not None
+        }
         # echo lanes' prompt-scoring rows: each result waits on its own event
         lp_mats = {
             id(pf): pf.prompt_lp.numpy()
@@ -1850,6 +2313,9 @@ class TorchEngine:
             elif isinstance(e, InflightPrefill):
                 commit_prefill(e, mat[0])
                 self.obs.observe_step("prefill", now - e.dispatched_at)
+            elif isinstance(e, InflightVerify):
+                events.extend(self._commit_spec_columns(e.lanes, mat, e.dispatched_at, now))
+                self.obs.observe_step("verify", now - e.dispatched_at)
             else:
                 finals = {}
                 if isinstance(e, InflightUnified):
@@ -1871,6 +2337,14 @@ class TorchEngine:
                     if pf is not None and pf.seq is ev.seq:
                         attach_prompt_lps(ev, pf)
                 events.extend(block_events)
+                sp = spec_mats.get(id(e))
+                if sp is not None:
+                    # the folded verify columns commit after the dispatch's
+                    # other rows (their lanes are disjoint)
+                    events.extend(
+                        self._commit_spec_columns(e.spec_lanes, sp, e.dispatched_at, now)
+                    )
+                    self.spec_metrics.folded_steps.inc()
                 kind = "unified" if isinstance(e, InflightUnified) else "decode_block"
                 self.obs.observe_step(kind, now - e.dispatched_at)
         alloc = self.kv.allocator
@@ -1912,6 +2386,16 @@ class TorchEngine:
                     # the first token finished the request outright (a
                     # swallowed stop): the prompt logprobs still ship
                     out.prompt_logprobs = ev.prompt_logprobs
+                st = ev.seq.spec
+                if st is not None:
+                    # the request's acceptance, for the usage extension
+                    out.spec = {
+                        "drafted_tokens": st.drafted,
+                        "accepted_tokens": st.accepted,
+                        "acceptance_rate": round(st.accept_rate, 6),
+                        "drafter": st.kind,
+                        "auto_disabled": st.auto_disabled,
+                    }
                 queue.put_nowait(Annotated.from_data(out.to_dict()))
                 queue.put_nowait(None)
 

@@ -11,8 +11,11 @@ one step, not a whole dispatch: a dispatch of K steps replays K graphs, a
 few microseconds of host time each, while capturing a whole 16-step block
 took seconds on the card (its eager warm-up and the instantiation of a
 graph sixteen times larger), and K and the block size leave the keys.
-Dispatches that carry prefill chunks, and the prefill dispatches, stay
-eager.
+Dispatches that carry prefill chunks or speculating lanes' verify columns
+(a folded verify dispatch: its columns are a second output, and its
+``(Np, s_max, s_spec)`` triple varies with the drafts), the standalone
+verify dispatch and the prefill dispatches stay eager; their launches
+count as any eager launch does.
 
 Keys.  A key holds everything that shapes the captured work: the kind;
 for the packed step its axis ``Np`` and window ``s_max`` (resolved through

@@ -11,6 +11,10 @@ pool's ``QuantKV`` pair) is updated IN PLACE by the attention callback
 pool rides the ``lax.scan`` carry and XLA aliases it; here the one tensor
 is simply mutated, so no step ever copies the cache.
 
+Each matmul weight is taken through ``quant.mat`` where it is used, as the
+JAX trunk does: a weight-only int8 leaf (``quant.QuantizedTensor``) is
+dequantized there, a plain tensor passes as it is.
+
 Activations run on a flat token axis (``[T, H]``): every dispatch of the
 port's main path (packed unified step, decode step) is token-flat, so the
 JAX package's ``[B, T, H]`` batch axis has nothing to carry here.
@@ -26,6 +30,7 @@ import torch.nn.functional as F
 
 from .config import ModelConfig
 from .kv_cache import KVPool, torch_dtype
+from .quant import mat
 
 Params = Dict[str, Any]
 
@@ -175,8 +180,8 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 def _dense_mlp(lp: Params, x: torch.Tensor, hidden_act: str) -> torch.Tensor:
-    gate = _activate(x @ lp["w_gate"], hidden_act)
-    return (gate * (x @ lp["w_up"])) @ lp["w_down"]
+    gate = _activate(x @ mat(lp["w_gate"]), hidden_act)
+    return (gate * (x @ mat(lp["w_up"]))) @ mat(lp["w_down"])
 
 
 # ---------------------------------------------------------------------------
@@ -198,9 +203,9 @@ def transformer_layer(
     T = x.shape[0]
     D = cfg.head_dim
     h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps, cfg.rms_norm_offset)
-    q = h @ lp["wq"]
-    k = h @ lp["wk"]
-    v = h @ lp["wv"]
+    q = h @ mat(lp["wq"])
+    k = h @ mat(lp["wk"])
+    v = h @ mat(lp["wv"])
     if "bq" in lp:
         q = q + lp["bq"]
         k = k + lp["bk"]
@@ -214,7 +219,7 @@ def transformer_layer(
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     attn = attn_fn(q, k, v, kv_pages, layer)
-    x = x + attn.reshape(T, cfg.num_heads * D) @ lp["wo"]
+    x = x + attn.reshape(T, cfg.num_heads * D) @ mat(lp["wo"])
     h2 = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps, cfg.rms_norm_offset)
     return x + _dense_mlp(lp, h2, cfg.hidden_act)
 
@@ -259,5 +264,5 @@ def transformer(
 
 
 def lm_logits(params: Params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
-    w = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
+    w = params["embed"].T if cfg.tie_word_embeddings else mat(params["lm_head"])
     return (hidden @ w).float()

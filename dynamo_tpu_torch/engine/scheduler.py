@@ -5,11 +5,11 @@ to what the PyTorch engine serves: FIFO slot admission with prefix-cache
 reuse, mixed-batch chunk formation, page growth with recompute preemption,
 and the host replay of the stop rules at commit (decode blocks and the
 classic path's first token), with the multimodal soft prompt and the
-prompt-logprob request fields.  Not carried over: the
-KV-budget admission planner, data-parallel slot balancing and the offload /
-swap / disaggregation hooks.  Speculation fields
-stay inert (``spec_live`` is always False here: the engine never arms a
-lane).
+prompt-logprob request fields, and speculation: a lane the engine arms
+(``SeqState.spec``) is left out of the decode-runnable count and its
+verify segments are reserved out of the mixed token budget.  Not carried
+over: the KV-budget admission planner, data-parallel slot balancing and
+the offload / swap / disaggregation hooks.
 
 The scheduler is sans-IO: it owns numpy mirrors of the device-side batch
 arrays (tokens / seq_lens / page_table) and pure-Python bookkeeping; the
@@ -37,13 +37,8 @@ from ..protocols.common import (
     SamplingOptions,
     StopConditions,
 )
+from ..spec.drafter import spec_live
 from ..tokens.sequence import TokenBlock, TokenBlockSequence
-
-
-def spec_live(spec: Optional[Any]) -> bool:
-    """Whether a lane's speculation is active: armed and not auto-disabled
-    (the JAX package's ``spec.drafter.spec_live``)."""
-    return spec is not None and spec.enabled
 
 
 @dataclass
@@ -91,7 +86,9 @@ class SeqState:
     prefilled_tokens: int = 0
     prefilling: bool = False
     # speculative decoding: the request's knobs (SpeculationOptions | None)
-    # and a live spec state once armed -- inert here: nothing arms it
+    # and, once the engine arms the lane, its live spec.SpecState.  A lane
+    # with live speculation is device-inactive for the decode steps: it
+    # advances through its verify columns
     speculation: Optional[Any] = None
     spec: Optional[Any] = None
     # echo+logprobs: top-N prompt logprobs to compute at first prefill
@@ -334,13 +331,14 @@ class Scheduler:
             self.mix_pending.append(seq)
 
     def form_mixed_chunks(
-        self, budget: int, chunk_cap: Optional[int] = None
+        self, budget: int, chunk_cap: Optional[int] = None, reserve_tokens: int = 0
     ) -> List[MixedChunk]:
         """Pack pending prefill work into this tick's unified dispatch.
 
         ``budget`` is the dispatch's total fresh-token budget: every
-        decode-runnable lane costs one token, the remainder goes to
-        prefill chunks in arrival order.  At least one prompt token always
+        decode-runnable lane costs one token, ``reserve_tokens`` rows are
+        withheld for the tick's folded verify segments (the engine's spec
+        reserve), the remainder goes to prefill chunks in arrival order.  At least one prompt token always
         packs when prefill work is pending, so a decode batch as wide as
         the budget can never starve admission.  ``chunk_cap`` bounds one
         lane's chunk (the ``prefill_chunk_tokens`` knob).
@@ -353,7 +351,7 @@ class Scheduler:
         overshoot beats starvation).
         """
         ps = self.cfg.page_size
-        left = max(budget - self.num_decode_runnable, 1)
+        left = max(budget - self.num_decode_runnable - reserve_tokens, 1)
         chunks: List[MixedChunk] = []
         still: List[SeqState] = []
         seen: set = set()

@@ -1,16 +1,17 @@
 """Engine steps: the packed unified step and its multi-step decode tail
-(the default path), the rectangle unified step (``packed_ragged=False``),
-and the classic separate dispatches: full and prefix-suffix prefill with
-first-token sampling, and the fixed-width decode block with penalty
-histograms; and the engine's other callers of the full flash prefill:
-prompt scoring (echo+logprobs), the multimodal soft-prompt prefill and the
-pooled embedding forward.
+(the default path; speculating lanes' verify columns fold into it), the
+rectangle unified step (``packed_ragged=False``), and the classic separate
+dispatches: full and prefix-suffix prefill with first-token sampling, the
+fixed-width decode block with penalty histograms and the standalone
+speculative verify; and the engine's other callers of the full flash
+prefill: prompt scoring (echo+logprobs), the multimodal soft-prompt
+prefill and the pooled embedding forward.
 
 The counterparts of the JAX package's ``step.py`` functions
-``_packed_unified_step`` (without folded speculative verify),
-``_unified_step``, ``_mixed_sample_epilogue``, ``_decode_once``,
-``_packed_unified_multistep``, ``_decode_block``, ``prefill_step``,
-``prefill_and_sample``, ``prefill_mm_and_sample``,
+``_packed_unified_step``, ``_spec_columns_epilogue``, ``_unified_step``,
+``_mixed_sample_epilogue``, ``_decode_once``,
+``_packed_unified_multistep``, ``_decode_block``, ``_verify_and_sample``,
+``prefill_step``, ``prefill_and_sample``, ``prefill_mm_and_sample``,
 ``prefill_suffix_and_sample``, ``score_prompt_step``, ``embed_step``,
 ``sample_step_packed`` and ``_prompt_penalized_logits``.  They run eagerly;
 the KV pool is updated in place.  Decode state (last token, cache length,
@@ -46,7 +47,8 @@ as K single-step dispatches, for greedy and seeded lanes alike.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence, Tuple
+import dataclasses
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -163,19 +165,40 @@ def packed_unified_step(
     s_max: int,  # widest lane segment (off + s_max <= Np for live lanes)
     top_n: int = 0,
     use_filters: bool = True,
+    v_lens: Optional[torch.Tensor] = None,  # [B] verify columns (0 = none)
+    s_spec: int = 0,  # verify column width; 0 = a spec-free dispatch
 ) -> Tuple[torch.Tensor, ...]:
     """ONE mixed prefill+decode dispatch over a flat packed token axis.
 
     Decode lanes contribute one row whose token is the device-side last
     token; prefill lanes contribute their chunk's rows.  Attention (resident
     prefix ``< base`` plus causal fresh rows) and the token-granular KV
-    scatter serve every segment alike.  Returns ``(packed [B, 2 + 2*top_n],
-    tokens, seq_lens, active)``."""
+    scatter serve every segment alike.
+
+    Folded speculative verify: a speculating lane (``v_lens > 0``)
+    contributes ``1 + draft`` rows -- its last committed token, then the
+    host-proposed drafts, in ``t_tokens`` -- at ``base = p_start`` (the
+    committed cache length: the host mirrors are authoritative for it, as
+    in :func:`verify_and_sample`).  Its rows take the same attention and
+    KV writes as every other segment, and their per-column target samples
+    come from :func:`spec_columns_epilogue`; the single-row epilogue
+    passes the lane by (device-inactive, no chunk).  With ``s_spec == 0``
+    the step is exactly the spec-free one.
+
+    Returns ``(packed [B, 2 + 2*top_n], tokens, seq_lens, active,
+    spec_packed [B, s_spec, 2 + 2*top_n])``."""
     B = tokens.shape[0]
     Np = t_tokens.shape[0]
     is_pf = p_lens > 0
-    q_lens = torch.where(is_pf, p_lens, (dec_cap & active).long())
-    base = torch.where(is_pf, p_start, seq_lens)
+    if s_spec > 0:
+        is_sp = v_lens > 0
+        q_lens = torch.where(
+            is_pf, p_lens, torch.where(is_sp, v_lens, (dec_cap & active).long())
+        )
+        base = torch.where(is_pf | is_sp, p_start, seq_lens)
+    else:
+        q_lens = torch.where(is_pf, p_lens, (dec_cap & active).long())
+        base = torch.where(is_pf, p_start, seq_lens)
     lane_c = t_lane.clamp(0, B - 1)
     tok_flat = torch.where(t_dec, tokens[lane_c], t_tokens)
     pos = base[lane_c] + t_rel
@@ -191,13 +214,69 @@ def packed_unified_step(
         return out
 
     hidden = transformer(params, cfg, tok_flat, positions, kv_pages, attn_fn)
+    if s_spec > 0:
+        spec_packed = spec_columns_epilogue(
+            params, cfg, hidden, base, seg_off, v_lens, sampling, s_spec, top_n,
+            use_filters,
+        )
+    else:
+        spec_packed = torch.zeros(
+            (B, 0, 2 + 2 * top_n), dtype=torch.int32, device=hidden.device
+        )
     last = (seg_off + q_lens - 1).clamp(0, Np - 1)
     logits = lm_logits(params, cfg, hidden[last])  # [B, V]
     return mixed_sample_epilogue(
         logits, base, q_lens, is_pf, p_start, p_lens, p_sample, p_activate,
         tokens, seq_lens, limit_lens, active, stop_ids, sampling, top_n,
         use_filters,
+    ) + (spec_packed,)
+
+
+def _tile_sampling(sampling: SamplingParams, n: int) -> SamplingParams:
+    """Each lane's sampling settings repeated for its ``n`` columns."""
+    return dataclasses.replace(
+        sampling,
+        **{
+            f.name: getattr(sampling, f.name).repeat_interleave(n, 0)
+            for f in dataclasses.fields(sampling)
+            if getattr(sampling, f.name) is not None
+        },
     )
+
+
+def spec_columns_epilogue(
+    params: Params,
+    cfg: ModelConfig,
+    hidden: torch.Tensor,  # [Np, H] packed trunk output
+    base: torch.Tensor,  # [B] committed cache length per lane
+    seg_off: torch.Tensor,  # [B] lane's segment offset into the packed axis
+    v_lens: torch.Tensor,  # [B] verify columns per lane (0 = not speculating)
+    sampling: SamplingParams,
+    s_spec: int,  # column width (1 + pow2(draft), budget-merged)
+    top_n: int,
+    use_filters: bool,
+) -> torch.Tensor:
+    """Folded-verify sampling: the per-column half of
+    :func:`verify_and_sample` over the packed layout.  Column ``j`` of a
+    speculating lane is packed row ``seg_off + j`` (its KV landed at ``base
+    + j``) and samples the token for position ``base + j + 1``, the decode
+    step's position keying, so greedy and seeded lanes give the tokens of
+    plain decode.  All ``B x s_spec`` columns sample in one call; columns
+    past ``v_lens`` (and non-speculating lanes) report token ``-1``.
+    Returns ``packed [B, s_spec, 2 + 2*top_n]``."""
+    B = base.shape[0]
+    Np = hidden.shape[0]
+    cols = torch.arange(s_spec, device=hidden.device)
+    idx = (seg_off[:, None] + cols[None, :]).clamp(0, Np - 1)
+    logits = lm_logits(params, cfg, hidden[idx.reshape(-1)])  # [B * S, V]
+    positions = (base[:, None] + 1 + cols[None, :]).reshape(-1)
+    sampled = sample_tokens(
+        logits, _tile_sampling(sampling, s_spec), positions, use_filters
+    )
+    lp, top_ids, top_lps = token_logprobs(logits, sampled, top_n)
+    valid = (cols[None, :] < v_lens[:, None]).reshape(-1)
+    out = torch.where(valid, sampled, -1)
+    return pack_sampled_logprobs(out, lp, top_ids, top_lps).view(B, s_spec, -1)
 
 
 def decode_once(
@@ -249,29 +328,38 @@ def packed_unified_multistep(
     top_n: int = 0,
     use_filters: bool = True,
     run: StepRunner = run_eager,
+    v_lens: Optional[torch.Tensor] = None,
+    s_spec: int = 0,
 ) -> Tuple[torch.Tensor, ...]:
     """``num_steps`` decode iterations in one dispatch: step 0 is the full
     :func:`packed_unified_step`, steps 1..K-1 run :func:`decode_step_` on
     the state step 0 left (see the module docstring for the dead-step
-    rule).  The layout (``t_*``, ``p_*``, ``dec_cap``, ``seg_off``, host or
-    device tensors) enters step 0 as one int64 tensor.  Returns ``packed
-    [B, num_steps, 2 + 2*top_n]`` (``-1`` tokens mark steps a lane was
-    already inactive for) and the final state."""
+    rule).  The layout (``t_*``, ``p_*``, ``dec_cap``, ``seg_off`` and,
+    with verify columns, ``v_lens``; host or device tensors) enters step 0
+    as one int64 tensor.  A dispatch with verify columns (``s_spec > 0``)
+    must run its packed step eagerly: the columns come out of that run.
+    Returns ``packed [B, num_steps, 2 + 2*top_n]`` (``-1`` tokens mark
+    steps a lane was already inactive for), the final state and the
+    verify columns ``[B, s_spec, 2 + 2*top_n]``."""
     B = tokens.shape[0]
     Np = t_tokens.shape[0]
-    layout = torch.cat(
-        [x.long() for x in (t_tokens, t_lane, t_rel, t_dec, p_start, p_lens,
-                            p_sample, p_activate, dec_cap, seg_off)]
-    )
+    parts = [t_tokens, t_lane, t_rel, t_dec, p_start, p_lens, p_sample, p_activate,
+             dec_cap, seg_off] + ([v_lens] if s_spec else [])
+    layout = torch.cat([x.long() for x in parts])
+    spec_cols: List[torch.Tensor] = []
 
     def packed_fn(inputs: Tuple[torch.Tensor, ...]) -> torch.Tensor:
-        tt, tl, tr, td, ps, pl, psm, pa, dc, so = torch.split(inputs[0], [Np] * 4 + [B] * 6)
-        row, *new = packed_unified_step(
+        tt, tl, tr, td, ps, pl, psm, pa, dc, so, *vl = torch.split(
+            inputs[0], [Np] * 4 + [B] * (len(parts) - 4)
+        )
+        row, *new, spec = packed_unified_step(
             params, cfg, kv_pages, tokens, seq_lens, limit_lens, active, stop_ids,
             page_table.contiguous(), tt, tl, tr, td != 0, ps, pl, psm != 0,
             pa != 0, dc != 0, so, sampling, s_max, top_n, use_filters,
+            vl[0] if vl else None, s_spec,
         )
         _write_state((tokens, seq_lens, active), new)
+        spec_cols.append(spec)
         return row
 
     def step_fn(_inputs: Tuple[torch.Tensor, ...]) -> torch.Tensor:
@@ -285,7 +373,14 @@ def packed_unified_multistep(
         lambda: run("packed", packed_fn, (layout,)),
         lambda: run("step", step_fn, ()),
     )
-    return packed, tokens, seq_lens, active
+    if s_spec and len(spec_cols) != 1:
+        raise RuntimeError("a dispatch with verify columns must run its packed step eagerly")
+    spec_packed = (
+        spec_cols[0]
+        if s_spec
+        else torch.zeros((B, 0, packed.shape[-1]), dtype=packed.dtype, device=packed.device)
+    )
+    return packed, tokens, seq_lens, active, spec_packed
 
 
 def decode_step(
@@ -679,6 +774,58 @@ def prefill_suffix_and_sample(
         else None
     )
     return sample_step_packed(logits, sampling, top_n, offset + suffix_lens, pen)
+
+
+def verify_and_sample(
+    params: Params,
+    cfg: ModelConfig,
+    kv_pages: KVPool,  # updated in place
+    tokens: torch.Tensor,  # [B, S] last committed token | draft columns (padded)
+    base: torch.Tensor,  # [B] cache length; column j sits at position base + j
+    n_tokens: torch.Tensor,  # [B] valid columns (1 + draft len; 0 = inactive)
+    page_table: torch.Tensor,  # [B, P] the lanes' pages (bucketed)
+    sampling: SamplingParams,
+    top_n: int = 0,
+    use_filters: bool = True,
+) -> torch.Tensor:
+    """Batched multi-token verify (the standalone form): score every
+    speculating lane's draft columns in ONE forward pass and sample the
+    target token at every column.
+
+    Column 0 carries the lane's last committed token, column j > 0 draft
+    token j; its KV lands at position ``base + j`` and its logits sample
+    the token for position ``base + j + 1``, the decode step's position
+    keying, so greedy and seeded lanes give the tokens of plain decode.
+    The host accept walk keeps the longest prefix where draft j equals
+    the sample of column j - 1, plus the sample at the first mismatch; the
+    rest of the column is overwritten by later writes.
+
+    Attention is the prefix-suffix flash prefill (kernel 3 on the card):
+    the lane's pages (positions ``< base``, token-granular, no page
+    alignment needed) are the prefix, the S columns attend causally among
+    themselves.  Returns ``packed [B, S, 2 + 2*top_n]``."""
+    B, S = tokens.shape
+    cols = torch.arange(S, device=base.device)
+    positions = base[:, None] + cols[None, :]
+    window = cfg.sliding_window or 0
+
+    def attn_fn(q, k, v, kv, layer):
+        q4, k4, v4 = (x.view(B, S, *x.shape[1:]) for x in (q, k, v))
+        out = att.prefill_prefix_attention_dispatch(
+            q4, k4, v4, kv, layer, page_table, base, n_tokens, window
+        )
+        att.write_spec_kv(kv, k4, v4, page_table, base, n_tokens, layer)
+        return out.view(q.shape)
+
+    hidden = transformer(
+        params, cfg, tokens.reshape(-1), positions.reshape(-1), kv_pages, attn_fn
+    )
+    logits = lm_logits(params, cfg, hidden)  # [B * S, V]
+    sampled = sample_tokens(
+        logits, _tile_sampling(sampling, S), (positions + 1).reshape(-1), use_filters
+    )
+    lp, top_ids, top_lps = token_logprobs(logits, sampled, top_n)
+    return pack_sampled_logprobs(sampled, lp, top_ids, top_lps).view(B, S, -1)
 
 
 # ---------------------------------------------------------------------------

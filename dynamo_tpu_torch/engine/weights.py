@@ -3,7 +3,10 @@
 ``params_from_numpy`` takes the JAX package's parameter dict (``init_params``
 or the safetensors loader there, converted leaf by leaf to numpy) and
 returns the port's parameters: the same nested dict, the same ``[in, out]``
-stacked layout, as tensors on ``device`` in ``dtype``.  bfloat16 arrays
+stacked layout, as tensors on ``device`` in ``dtype``.  A matmul weight of
+the JAX package's weight-only int8 tree (``quantize_params``) arrives as a
+``(q, s)`` pair of numpy arrays and becomes a ``quant.QuantizedTensor``:
+int8 data as it is, scales in ``dtype``.  bfloat16 arrays
 (numpy's ``ml_dtypes`` extension type) cross byte-exactly through a 16-bit
 integer view.
 
@@ -38,6 +41,7 @@ from ..device import resolve_device
 from .config import ModelConfig
 from .kv_cache import torch_dtype
 from .model import Params, check_supported, layer_shapes
+from .quant import QUANT_KEYS, QuantizedTensor
 
 
 def _tensor(arr: Any, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
@@ -62,25 +66,43 @@ def params_from_numpy(
     dtype = dtype or torch_dtype(cfg.dtype)
     H, V, L = cfg.hidden_size, cfg.vocab_size, cfg.num_layers
 
-    def take(arr: Any, shape, name: str) -> torch.Tensor:
+    def check(arr: Any, shape, name: str) -> None:
         got = tuple(np.shape(arr))
         if got != tuple(shape):
             raise ValueError(f"param {name}: shape {got}, expected {tuple(shape)}")
+
+    def take(arr: Any, shape, name: str) -> torch.Tensor:
+        check(arr, shape, name)
         return _tensor(arr, device, dtype)
 
+    def take_weight(arr: Any, shape, name: str) -> Any:
+        """A matmul weight, or its JAX quantized form as a ``(q, s)``
+        pair: int8 data of the weight's shape, scales ``[..., 1, out]``."""
+        if not isinstance(arr, (tuple, list)):
+            return take(arr, shape, name)
+        q, scales = arr
+        check(q, shape, name)
+        if np.asarray(q).dtype != np.int8:
+            raise ValueError(f"param {name}: quantized data must be int8")
+        return QuantizedTensor(
+            _tensor(q, device, torch.int8),
+            take(scales, tuple(shape[:-2]) + (1, shape[-1]), f"{name} scales"),
+        )
+
     src_layers = params["layers"]
-    layers: Dict[str, torch.Tensor] = {}
+    layers: Dict[str, Any] = {}
     for name, shape in layer_shapes(cfg).items():
         if name not in src_layers:
             raise ValueError(f"param layers.{name} is missing")
-        layers[name] = take(src_layers[name], (L,) + shape, f"layers.{name}")
+        grab = take_weight if name in QUANT_KEYS else take
+        layers[name] = grab(src_layers[name], (L,) + shape, f"layers.{name}")
     out: Params = {
         "embed": take(params["embed"], (V, H), "embed"),
         "layers": layers,
         "final_norm": take(params["final_norm"], (H,), "final_norm"),
     }
     if not cfg.tie_word_embeddings:
-        out["lm_head"] = take(params["lm_head"], (H, V), "lm_head")
+        out["lm_head"] = take_weight(params["lm_head"], (H, V), "lm_head")
     return out
 
 

@@ -3,7 +3,7 @@ the Prometheus text exposition format, with no package behind them.
 
 The subset of the JAX package's ``runtime/metrics.py`` that the HTTP
 service's metrics (``http/metrics.py``) and the engine's
-(:class:`EngineMetrics`) use, written out in plain Python because the
+(:class:`EngineMetrics`, :class:`SpecMetrics`) use, written out in plain Python because the
 card's machine has no ``prometheus_client``.  ``render()``
 gives the text that ``prometheus_client.generate_latest`` gives for the
 same families: the same family names, ``_total`` on counters,
@@ -411,3 +411,63 @@ class EngineMetrics:
 
     def observe_multistep_k(self, k: int) -> None:
         self.multistep_k.set(k)
+
+
+class SpecMetrics:
+    """Registry-backed speculative-decoding series (``dynamo_spec_*``): the
+    JAX package's ``SpecMetrics``, same family names, labels and buckets.
+    The engine feeds it at the JAX engine's sites.
+
+    Updated only at the engine's commit points (per verify dispatch, never
+    per token).  ``accept_rate`` is the engine-lifetime running ratio;
+    per-request rates ride the finish item (``usage.speculation``)."""
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None) -> None:
+        reg = registry or default_registry()
+        self.registry = reg
+        self.drafted = reg.counter(
+            "dynamo_spec_drafted_tokens",
+            "Draft tokens proposed and dispatched for verification",
+            ["drafter"],
+        )
+        self.accepted = reg.counter(
+            "dynamo_spec_accepted_tokens",
+            "Draft tokens accepted by the verify step",
+            ["drafter"],
+        )
+        self.verify_steps = reg.counter(
+            "dynamo_spec_verify_steps",
+            "Batched multi-token verify passes (standalone or folded)",
+        )
+        self.folded_steps = reg.counter(
+            "dynamo_spec_folded_verify_steps",
+            "Verify column groups folded into packed unified dispatches "
+            "(no standalone verify dispatch was paid for these)",
+        )
+        self.auto_disabled = reg.counter(
+            "dynamo_spec_auto_disabled_requests",
+            "Requests whose speculation auto-disabled on low acceptance",
+        )
+        self.enabled_frac = reg.gauge(
+            "dynamo_spec_enabled_frac",
+            "Fraction of spec-armed requests still drafting "
+            "(1 - auto_disabled/armed)",
+        )
+        self.requests = reg.counter(
+            "dynamo_spec_requests",
+            "Requests that ran with speculation armed",
+        )
+        self.accept_rate = reg.gauge(
+            "dynamo_spec_accept_rate",
+            "Engine-lifetime draft acceptance rate (accepted/drafted)",
+        )
+        self.draft_latency = reg.histogram(
+            "dynamo_spec_draft_seconds",
+            "Host-side drafting time per verify dispatch (all lanes)",
+            buckets=STEP_LATENCY_BUCKETS,
+        )
+        self.verify_latency = reg.histogram(
+            "dynamo_spec_verify_seconds",
+            "Verify dispatch->commit latency",
+            buckets=STEP_LATENCY_BUCKETS,
+        )

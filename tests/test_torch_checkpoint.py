@@ -299,7 +299,7 @@ def test_cli_batch_prints_jax_text(checkpoint, expected, tmp_path):
     "extra, name",
     [
         (["--tp", "2"], "--tp"),
-        (["--quantize", "int8"], "--quantize"),
+        (["--kv-remote", "on"], "--kv-remote"),
         (["--host-offload-blocks", "8"], "--host-offload-blocks"),
         (["--swap-preemption"], "--swap-preemption"),
         (["--disagg", "decode"], "--disagg"),

@@ -7,7 +7,10 @@ sliding window, at small shapes; paged decode also over a 2048-position
 table across the bf16 kernel's splits and on a table wide enough to grow
 them; the flash kernels also at lengths around their 64-row tiles and at
 the serve shape of kernel 2 in ``chip_smoke.py``, the ragged kernels (both
-layouts, both pools) at their tile and page edges.
+layouts, both pools) at their tile and page edges; prefix-suffix prefill
+and packed ragged also at the speculative verify's shapes (S = 5 and 9
+columns at offsets off the page; verify segments of 2 to 9 rows beside
+decode rows).
 The dense entries of the ragged and flash kernels also give, bit for bit,
 the outputs recorded in ``DENSE_DIGESTS``.
 
@@ -160,6 +163,36 @@ def test_packed_ragged_kernel_matches_plain(card, D, n_rep, dtype, window):
 @pytest.mark.parametrize("window", [0, 7])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D,n_rep", GEOMETRY)
+def test_packed_ragged_kernel_with_verify_segments(card, D, n_rep, dtype, window):
+    # folded speculative verify: segments of 2 to 9 rows (a lane's last
+    # committed token and its drafts) beside decode rows, packed by the
+    # engine's rule, s_max = pow2(9)
+    base = [37, 12, 3, 50, 21, 0]
+    q_lens = [5, 1, 9, 1, 2, 0]
+    B = len(base)
+    offs, off = [], 0
+    for n in q_lens:
+        offs.append(off if n else 0)
+        off += n
+    s_max = 16
+    Np = 32  # >= every live lane's off + s_max
+    gen, pool, table = _setup(card, dtype, D, B, 9)
+
+    def rand(h):
+        return torch.randn((Np, h, D), generator=gen, device=card).to(dtype)
+
+    q, k, v = rand(HKV * n_rep), rand(HKV), rand(HKV)
+    lanes = [torch.tensor(x, dtype=torch.int32, device=card) for x in (base, offs, q_lens)]
+    got = ra.packed_ragged_attention(q, k, v, pool, table, *lanes, s_max, 1, window)
+    torch.cuda.synchronize()
+    want = ra.packed_ragged_attention_plain(q, k, v, pool, table, *lanes, 1, window)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=0)
+    assert not got[off:].any(), "pad rows give zeros"
+
+
+@pytest.mark.parametrize("window", [0, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,n_rep", GEOMETRY)
 def test_rectangle_ragged_kernel_matches_plain(card, D, n_rep, dtype, window):
     # a decode lane, a chunk from position 0 spanning several query tiles,
     # a prefix-hit chunk, an idle lane with a resident prefix; S = 64
@@ -255,6 +288,10 @@ PREFIX_CASES = {
     # Kp = 100, no multiple of the 64-key tile: offsets below, at and past
     # it, suffixes around the 64-row tiles, an idle lane
     "tile-edges": ([70, 100, 0, 130, 30], [65, 63, 130, 64, 0], 130, 100),
+    # the standalone speculative verify: S = 1 + pow2(draft) columns over a
+    # lane's whole page table, offsets off the page and the key tile
+    "verify-s5": ([7, 20, 33, 0], [1, 3, 5, 0], 5, 48),
+    "verify-s9": ([45, 3, 29, 61], [9, 2, 6, 9], 9, 64),
 }
 
 
@@ -717,7 +754,7 @@ def _packed_dispatch(eng, K, n=GB, Pb=8):
         return eng._run_packed(
             {}, z, z, np.zeros((B,), bool), dec_cap, dec_cap.astype(np.int64), n, Pb,
             K, 0, False,
-        )
+        )[0]
 
     return dispatch
 
@@ -768,7 +805,7 @@ def test_evicted_packed_key_recaptures_the_same_bits(card):
 
     def decode(n):
         dec_cap = np.arange(B) < n
-        out = eng._run_packed(
+        out, _ = eng._run_packed(
             {}, z, z, np.zeros((B,), bool), dec_cap, dec_cap.astype(np.int64), n, 8, 2,
             0, False,
         )

@@ -91,8 +91,43 @@ def test_port_imports_nothing_refused():
     # the package, its subpackages and every module beneath them: 26 with
     # ops/flash_prefill.py, 42 with the front end (protocols/openai,
     # runtime/pipeline and metrics, llm/*, http/*, bench_serving, cli,
-    # __main__), 44 with vision.py and llm/embedding.py
-    assert int(out.stdout.strip().splitlines()[-1]) >= 44
+    # __main__), 44 with vision.py and llm/embedding.py, 48 with spec/
+    # (its package, drafter.py, model_drafter.py) and engine/quant.py
+    assert int(out.stdout.strip().splitlines()[-1]) >= 48
+
+
+# the speculative decoding package, the model drafter and weight-only int8:
+# copies and rewrites of JAX modules, the drafter's of one that imports the
+# JAX package's analysis tooling
+SPEC_AND_QUANT = (
+    "dynamo_tpu_torch.spec", "dynamo_tpu_torch.spec.drafter",
+    "dynamo_tpu_torch.spec.model_drafter", "dynamo_tpu_torch.engine.quant",
+)
+
+ONLY = HOOK + textwrap.dedent(
+    """
+    for name in sys.argv[2].split(","):
+        importlib.import_module(name)
+    try:
+        importlib.import_module("dynamo_tpu.analysis.hotpath")
+    except ImportError:
+        pass
+    else:
+        raise AssertionError("the hook let dynamo_tpu.analysis through")
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
+    assert not leaked, leaked
+    print("ok")
+    """
+)
+
+
+def test_spec_and_quant_import_nothing_refused():
+    out = subprocess.run(
+        [sys.executable, "-c", ONLY, ",".join(REFUSED), ",".join(SPEC_AND_QUANT)],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
 
 
 def _checkpoint(model_dir: str, path: str) -> str:

@@ -181,7 +181,7 @@ def test_packed_unified_step_matches_jax(weights, top_n):
     )
     targs = _torch_args(a)
     with torch.inference_mode():
-        tp, ttok, tseq, tact = packed_unified_step(
+        tp, ttok, tseq, tact, _ = packed_unified_step(
             tparams, cfg, *targs, a["s_max"], top_n, True
         )
     _check((jp, jtok, jseq, jact, jpool), (tp, ttok, tseq, tact, targs[0]), top_n)
@@ -209,7 +209,7 @@ def test_packed_unified_multistep_matches_jax(weights, lanes):
     )
     targs = _torch_args(a)
     with torch.inference_mode():
-        tp, ttok, tseq, tact = packed_unified_multistep(
+        tp, ttok, tseq, tact, _ = packed_unified_multistep(
             tparams, cfg, *targs, a["s_max"], K, top_n, True
         )
     assert tp.shape == (len(lanes), K, 2 + 2 * top_n)
