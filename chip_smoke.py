@@ -164,6 +164,38 @@ Every phase is fatal on failure:
    64 tokens each and the launch invariants held; weight bytes against
    bf16, peak GiB and the rates printed.
 
+10. serve-kvbm: the KV block manager's lower tiers.  (a) The reference
+   phase's f32 model on the card and on the CPU with the offload plane
+   armed -- host only, host+disk (a ring of 1 block), and both over the
+   int8 pool -- serves two prefixes, churn that evicts them and the two
+   again: the same streams, blocks offloaded, host-only onboarded on the
+   card; then two growing lanes over 8 pages in the serial loop: swap,
+   recompute and a roomy pool give the same streams, card and CPU, the
+   swapped lane resuming under graph replay.  (b) Llama-3-8B at full
+   width, bf16, random weights of seed 0, ``EngineConfig(num_pages=512,
+   host_offload_blocks=128, disk_offload_blocks=1024,
+   disk_offload_dir=<temporary directory>)``: round 1 (8 requests over 4
+   1024-token prefixes, two each, suffixes of 16 to 256 tokens, 32 new
+   tokens, two seeded temperature lanes), round 2 (4 other prefixes, whose
+   admissions evict round 1's blocks into the host ring and spill it to
+   disk), round 3 (round 1's requests again, last first, arriving as round
+   2's first token streams, so they queue and the engine prefetches their
+   chains).  Printed per round: wall, tok/s, TTFT from arrival and from
+   admission, distinct prefix blocks reused from G1 and onboarded from G2
+   and G3; offload and onboard bytes and GB/s from ``dynamo_kv_*``; ring
+   bytes; peak GiB.  Round 3 must onboard from both tiers, and every round-1
+   prefix block it onboarded or kept resident must equal, bit for bit, a
+   copy of round 1's pages taken before round 2.  (c) 8 lanes of
+   256-token prompts and 256 new tokens over ``num_pages=160`` with
+   ``host_offload_blocks=512``: swap (the device fast path), swap over
+   host blobs only, ``swap_preemption=False`` and a roomy
+   ``num_pages=1024``; preemptions by kind, swap-out and swap-in bytes and
+   GB/s by path, wall and decode-phase tok/s, and the greedy agreement
+   with the roomy run (the first divergence's top-2 logprobs).  (d) One
+   1024-token prefix evicted and onboarded over an int8 pool at full
+   width: data and scales bit-exact.  No offload copy failure and no swap
+   or onboard fallback may be counted.
+
 In every served run each kernel's launch count (graph replays included)
 must equal what the run's dispatches imply (``expected_launches``), and
 the run prints its loop mode, graph captures and replays and the dispatch
@@ -191,6 +223,7 @@ import re
 import subprocess
 import sys
 import time
+import zlib
 from typing import Callable, Dict, List, Tuple
 
 import numpy as np
@@ -2427,6 +2460,558 @@ def serve_a45_phase(ref: Dict[str, object], served: Dict[str, object], card: str
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: serve-kvbm, the KV block manager's lower tiers
+# ---------------------------------------------------------------------------
+
+
+def kv_series(engine) -> Dict[str, float]:
+    """The engine's ``dynamo_kv_*`` samples, read from its registry's
+    rendering: ``name{labels}`` -> value."""
+    body, _ = engine.obs.registry.render()
+    out = {}
+    for line in body.decode().splitlines():
+        if line.startswith("dynamo_kv_") and "_created" not in line:
+            key, _, value = line.rpartition(" ")
+            out[key] = float(value)
+    return out
+
+
+def kv_rate(after: Dict[str, float], before: Dict[str, float], family: str, tier: str) -> str:
+    """Bytes, seconds and GB/s of one ``dynamo_kv_<family>`` tier between
+    two readings."""
+    b = after.get(f'dynamo_kv_{family}_bytes_total{{tier="{tier}"}}', 0.0) - before.get(
+        f'dynamo_kv_{family}_bytes_total{{tier="{tier}"}}', 0.0)
+    s = after.get(f'dynamo_kv_{family}_seconds_sum{{tier="{tier}"}}', 0.0) - before.get(
+        f'dynamo_kv_{family}_seconds_sum{{tier="{tier}"}}', 0.0)
+    return f"{family}[{tier}] bytes={int(b)} s={s:.6f} gb_s={b / s / 1e9 if s > 0 else 0.0:.3f}"
+
+
+def check_no_fallback(what: str, engine) -> None:
+    """No offload copy failed and no swap or onboard fell back."""
+    oe = engine.offload_engine
+    bad = dict(copy_fails=oe.copy_fails, swap_fallbacks=oe.swap_fallbacks,
+               onboard_fallbacks=oe.onboard_fallbacks)
+    if any(bad.values()):
+        fail(f"{what}: offload fallbacks counted {bad}")
+
+
+def prefix_pages(engine, hashes) -> Dict[int, Tuple[torch.Tensor, ...]]:
+    """Host copies of the pool pages registered under ``hashes``."""
+    from dynamo_tpu_torch.engine.kv_cache import QuantKV
+
+    pool, kv = engine.sched.pool, engine.kv.pages
+    out = {}
+    for h in hashes:
+        blk = pool._registered.get(h)
+        if blk is None:
+            continue
+        ids = torch.tensor(blk.pages, device=kv.q.device if isinstance(kv, QuantKV) else kv.device)
+        parts = (kv.q, kv.s) if isinstance(kv, QuantKV) else (kv,)
+        out[h] = tuple(t[:, :, ids].cpu() for t in parts)
+    return out
+
+
+KVBM_REFERENCE = {
+    "host": dict(host_offload_blocks=16),
+    "host+disk": dict(host_offload_blocks=1, disk_offload_blocks=64),
+}
+KVBM_REFERENCE.update(
+    {f"{name}-int8": dict(kw, kv_dtype="int8") for name, kw in list(KVBM_REFERENCE.items())}
+)
+
+
+def kvbm_reference(ref: Dict[str, object]) -> None:
+    """(a) The small f32 model on the card and on the CPU from the same
+    weights, the offload plane armed: two prefixes, churn that evicts
+    them, the two prefixes again -- the same streams, under host-only and
+    host+disk (a ring of 1 block) and their int8-pool twins, with blocks
+    offloaded and, host-only, onboarded on the card.  Then swap pressure:
+    swap == recompute == a roomy pool on both."""
+    import tempfile
+
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+
+    cfg, params = ref["cfg"], ref["params"]
+    V = cfg.vocab_size
+    rng = np.random.default_rng(5)
+    prefixes = [rng.integers(1, V, 48).tolist() for _ in range(2)]
+    again = [request(prefixes[0] + [5], 12), request(prefixes[1] + [6, 7], 12)]
+    churn = [[request(rng.integers(1, V, 70), 12) for _ in range(2)] for _ in range(2)]
+    batches = [again] + churn + [again]
+    ecfg = dict(num_pages=20, max_seq_len=256, mixed_token_budget=32, max_batch_size=2)
+    for name, kw in KVBM_REFERENCE.items():
+        streams, stats = {}, {}
+        for dev in ("cuda", "cpu"):
+            with tempfile.TemporaryDirectory() as tmp:
+                ekw = dict(ecfg, **kw)
+                if "disk_offload_blocks" in kw:
+                    ekw["disk_offload_dir"] = tmp
+                eng = TorchEngine(cfg, params_on(params, dev), EngineConfig(**ekw), device=dev)
+                streams[dev] = [r["tokens"] for r in asyncio.run(serve(eng, batches))]
+                oe = eng.offload_engine
+                stats[dev] = dict(offloaded=oe.offload_bytes, tier_hits=dict(oe.tier_hits),
+                                  disk_promotes=oe.disk_promotes)
+                check_no_fallback(f"serve-kvbm reference {name} {dev}", eng)
+        print(f"serve-kvbm: reference {name} card {streams['cuda']} card {stats['cuda']} "
+              f"cpu {stats['cpu']}")
+        if streams["cuda"] != streams["cpu"]:
+            fail(f"serve-kvbm reference {name}: card {streams['cuda']} != cpu {streams['cpu']}")
+        if streams["cuda"][-2:] != streams["cuda"][:2]:
+            fail(f"serve-kvbm reference {name}: the onboarded prefixes changed the streams")
+        if not stats["cuda"]["offloaded"]:
+            fail(f"serve-kvbm reference {name}: nothing was offloaded on the card")
+        if "disk_offload_blocks" not in kw and not stats["cuda"]["tier_hits"]["host"]:
+            fail(f"serve-kvbm reference {name}: nothing was onboarded on the card")
+    # swap pressure: two growing lanes a tight pool cannot hold together,
+    # in the serial loop (the pipelined one may preempt a lane whose first
+    # token is still device-only, which recomputes)
+    pair = [request(rng.integers(1, V, 20), 60) for _ in range(2)]
+    for kv_dtype in (None, "int8"):
+        runs = {}
+        for run, (pages, swap) in {"roomy": (64, True), "swap": (9, True),
+                                   "recompute": (9, False)}.items():
+            for dev in ("cuda", "cpu"):
+                eng = TorchEngine(cfg, params_on(params, dev), EngineConfig(
+                    **dict(ecfg, num_pages=pages), host_offload_blocks=32, swap_preemption=swap,
+                    kv_dtype=kv_dtype, async_dispatch=False), device=dev)
+                out = [r["tokens"] for r in asyncio.run(serve(eng, [pair]))]
+                runs[(run, dev)] = out
+                check_no_fallback(f"serve-kvbm reference swap {run} {dev}", eng)
+                if dev == "cuda":
+                    print(f"serve-kvbm: reference swap {run} kv_dtype={kv_dtype} "
+                          f"preempt_swap={eng.sched.preempt_swap} "
+                          f"preempt_recompute={eng.sched.preempt_recompute} "
+                          f"swap_ins={eng.offload_engine.swap_ins} "
+                          f"graph_replays={eng.graph_replays}")
+                    if run == "swap" and not (eng.sched.preempt_swap
+                                              and sum(eng.graph_replays.values())):
+                        fail("serve-kvbm reference: no preemption swapped, or no graph "
+                             "replayed, on the card")
+                    if run == "recompute" and not eng.sched.preempt_recompute:
+                        fail("serve-kvbm reference: no preemption recomputed on the card")
+        want = runs[("roomy", "cpu")]
+        if any(v != want for v in runs.values()):
+            fail(f"serve-kvbm reference swap kv_dtype={kv_dtype}: streams differ: {runs}")
+    print("serve-kvbm: reference card == cpu under every offload config; swap == recompute == roomy")
+
+
+def kvbm_round_requests(prefixes, rng, vocab: int) -> List[dict]:
+    """8 requests over 4 prefixes, two each, suffixes of 16 to 256 tokens,
+    32 new tokens; greedy but for two seeded temperature lanes."""
+    suffix = [16, 256, 40, 200, 64, 128, 96, 180]
+    out = []
+    for i, n in enumerate(suffix):
+        kw = {}
+        if i == 3:
+            kw = dict(temperature=0.8, seed=7)
+        elif i == 6:
+            kw = dict(temperature=1.0, seed=11)
+        out.append(request(np.concatenate([prefixes[i // 2], rng.integers(1, vocab, n)]), 32, **kw))
+    return out
+
+
+def kvbm_tiers(params, card: str) -> None:
+    """(b) Llama-3-8B, bf16, ``EngineConfig(num_pages=512,
+    host_offload_blocks=128, disk_offload_blocks=1024)``: round 1 (8
+    requests over 4 1024-token prefixes, two each), round 2 (4 other
+    prefixes: its admissions evict round 1's blocks into the host ring,
+    whose overflow spills to disk), round 3 (round 1's requests again, last
+    first, arriving as round 2's first token streams, so they queue for
+    slots and the engine prefetches their offloaded chains meanwhile).  Per
+    round: wall, tok/s, TTFT from arrival and from admission, and the
+    distinct prefix blocks reused from G1 and onboarded from G2 and G3 (a
+    block's tier as round 3 arrives); offload and onboard bytes and GB/s
+    from ``dynamo_kv_*``.  Round 3 must onboard from both tiers, and every
+    round-1 prefix block round 3 onboarded or kept resident must hold, bit
+    for bit, the bytes copied before round 2."""
+    import tempfile
+
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.protocols.common import PreprocessedRequest
+    from dynamo_tpu_torch.runtime.engine import Context
+    from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
+    from dynamo_tpu_torch.tokens.sequence import TokenBlockSequence
+
+    cfg = ModelConfig.llama3_8b()
+    V = cfg.vocab_size
+    rng = np.random.default_rng(11)
+    prefixes = {r: [rng.integers(1, V, 1024) for _ in range(4)] for r in (1, 2)}
+    reqs = {r: kvbm_round_requests(prefixes[r], rng, V) for r in (1, 2)}
+    # round 3 sends round 1's requests last first: the chains round 2
+    # evicted last are still in the ring and are walked (pinned) first,
+    # before the promotions of the chains on disk churn the ring
+    reqs[3] = reqs[1][::-1]
+    block_hashes = {
+        r: {h for q in reqs[r] for h in TokenBlockSequence(q["token_ids"], 16).sequence_hashes()}
+        for r in (1, 2)
+    }
+    prefix_hashes = [
+        h for p in prefixes[1] for h in TokenBlockSequence(p.tolist(), 16).sequence_hashes()
+    ]
+    with tempfile.TemporaryDirectory() as tmp:
+        engine = TorchEngine(cfg, params, EngineConfig(
+            num_pages=512, host_offload_blocks=128, disk_offload_blocks=1024,
+            disk_offload_dir=tmp), metrics_registry=MetricsRegistry())
+        oe = engine.offload_engine
+        pool = engine.sched.pool
+        # observe the prefix match: blocks matched in G1, blocks a tier
+        # lookup served
+        matched, served = set(), set()
+        looked: List[Tuple[float, int, bool]] = []
+        # checksums of round 1's blocks the tiers handed back (an admission
+        # that did not fit the pool hands them back and may miss them at
+        # its retry), the blocks scattered into a lane's pages, and those
+        # evicted once round 3 arrived (their pages may since hold a
+        # recompute)
+        blobs: Dict[int, int] = {}
+        onboarded_all: set = set()
+        evicted_late: set = set()
+        match, lookup, on_evict = pool.match, engine.sched.offload_lookup, pool.on_evict
+        apply_onboards = engine._apply_onboards
+
+        def recording_match(hashes):
+            out = match(hashes)
+            matched.update(b.sequence_hash for b in out)
+            return out
+
+        def recording_lookup(h):
+            hit = lookup(h)
+            if hit is not None:
+                served.add(h)
+                if h in block_hashes[1]:
+                    blobs[h] = zlib.crc32(hit[0])
+            looked.append((time.perf_counter(), h, hit is not None))
+            return hit
+
+        def recording_apply(seq):
+            onboarded_all.update(h for h, *_ in seq.pending_onboard)
+            apply_onboards(seq)
+
+        def recording_evict(blk):
+            if "classes" in state:
+                evicted_late.add(blk.sequence_hash)
+            on_evict(blk)
+
+        pool.match = recording_match
+        pool.on_evict = recording_evict
+        engine._apply_onboards = recording_apply
+        engine.sched.offload_lookup = recording_lookup
+        admitted: Dict[str, float] = {}
+        first: Dict[int, Dict[str, float]] = {1: {}, 2: {}, 3: {}}
+        state: Dict[str, object] = {}
+
+        async def one(rnd: int, i: int, t0: float) -> dict:
+            rid = f"kvbm-{rnd}-{i}"
+            ctx = Context.new(PreprocessedRequest.from_dict(reqs[rnd][i]), rid)
+            stream = await engine.generate(ctx)
+            tokens, frames = [], []
+            async for item in stream:
+                if item.is_error():
+                    raise RuntimeError(item.error_message())
+                got = (item.data or {}).get("token_ids") or []
+                if got:
+                    if not frames:
+                        mono = time.monotonic()
+                        seq = next((s for s in engine.sched.slots
+                                    if s is not None and s.request_id == rid), None)
+                        admitted[rid] = mono - seq.admitted_s if seq is not None else float("nan")
+                        first[rnd][rid] = time.perf_counter()
+                    frames.append((time.perf_counter(), len(got)))
+                    tokens += got
+            return dict(tokens=tokens, frames=frames, ttft=frames[0][0] - t0,
+                        ttft_admit=admitted[rid])
+
+        async def drain() -> None:
+            # the offload thread's backlog, waited for off the engine's loop
+            await asyncio.get_running_loop().run_in_executor(None, oe.drain)
+
+        async def drive() -> Dict[int, List[dict]]:
+            out = {}
+            try:
+                state["kv0"] = kv_series(engine)
+                t0 = time.perf_counter()
+                out[1] = await asyncio.gather(*[one(1, i, t0) for i in range(8)])
+                state["t1"] = (t0, time.perf_counter())
+                await drain()
+                state["copy"] = prefix_pages(engine, prefix_hashes)
+                state["kv1"] = kv_series(engine)
+                state["g1"] = (set(matched), set(served))
+                t2 = time.perf_counter()
+                round2 = [asyncio.ensure_future(one(2, i, t2)) for i in range(8)]
+                # round 3 arrives as round 2's first token streams: round
+                # 2's admissions have evicted round 1's blocks, and round 2's
+                # lanes hold every slot for a while yet
+                while not first[2]:
+                    await asyncio.sleep(0.002)
+                state["backlog"] = oe._ex._work_queue.qsize()
+                await drain()
+                # where round 1's blocks are as round 3 arrives
+                state["classes"] = {
+                    h: "G1" if pool.is_registered(h) else "G2" if h in engine.offload._slots
+                    else "G3" if h in oe.disk else "none"
+                    for h in block_hashes[1]
+                }
+                state["g2"] = (set(matched), set(onboarded_all))
+                t3 = time.perf_counter()
+                round3 = [asyncio.ensure_future(one(3, i, t3)) for i in range(8)]
+                out[2] = await asyncio.gather(*round2)
+                state["t2"] = (t2, time.perf_counter())
+                out[3] = await asyncio.gather(*round3)
+                state["t3"] = (t3, time.perf_counter())
+                await drain()
+                state["kv3"] = kv_series(engine)
+            finally:
+                await engine.stop()
+            return out
+
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        out = asyncio.run(drive())
+        check_launch_invariants("serve-kvbm: tiers", engine, read_launches())
+        check_no_fallback("serve-kvbm: tiers", engine)
+        classes = state["classes"]
+        census = {t: sum(1 for h in prefix_hashes if classes[h] == t)
+                  for t in ("G1", "G2", "G3", "none")}
+        print(f"serve-kvbm: round 1's prefix blocks as round 3 arrives: {census}")
+        m2, s2 = state["g2"]
+        for i, p in enumerate(prefixes[1]):
+            hs = TokenBlockSequence(p.tolist(), 16).sequence_hashes()
+            at = "".join(classes[h][1] if classes[h] != "none" else "-" for h in hs)
+            got = "".join("o" if h in onboarded_all - s2 else "m" if h in matched - m2 else "."
+                          for h in hs)
+            print(f"serve-kvbm: prefix {i} blocks by tier at round 3's arrival {at}; "
+                  f"round 3 onboarded (o) / matched in G1 (m) {got}")
+        # round 3's reuse: the G1 matches and tier hits on round 1's blocks
+        # after round 3 arrived
+        reuse = {
+            1: (block_hashes[1] & state["g1"][0], set()),
+            2: (block_hashes[2] & matched, set()),
+            3: (block_hashes[1] & (matched - m2), block_hashes[1] & (onboarded_all - s2)),
+        }
+        for rnd in (1, 2, 3):
+            res = out[rnd]
+            t0 = state[f"t{rnd}"][0]
+            wall = max(x["frames"][-1][0] for x in res) - t0
+            g1, onb = reuse[rnd]
+            g2 = sum(1 for h in onb if classes[h] != "G3")
+            g3 = sum(1 for h in onb if classes[h] == "G3")
+            ttft = [x["ttft"] * 1e3 for x in res]
+            ttft_a = [x["ttft_admit"] * 1e3 for x in res]
+            print(
+                f"serve-kvbm: round {rnd} wall_s={wall:.3f} "
+                f"tok_s={sum(len(x['tokens']) for x in res) / wall:.3f} "
+                f"ttft_ms={min(ttft):.3f} to {max(ttft):.3f} "
+                f"ttft_from_admission_ms={min(ttft_a):.3f} to {max(ttft_a):.3f} "
+                f"distinct prompt blocks reused: G1 {len(g1)} G2 {g2} G3 {g3} "
+                f"(tokens {16 * len(g1)}, {16 * g2}, {16 * g3}) on {card}"
+            )
+            state[f"by_tier{rnd}"] = (g2, g3)
+        for name, a, b in (("round 1", "kv1", "kv0"), ("rounds 2 and 3", "kv3", "kv1")):
+            print(f"serve-kvbm: {name} {kv_rate(state[a], state[b], 'offload', 'host')} "
+                  f"{kv_rate(state[a], state[b], 'onboard', 'prefix')} on {card}")
+        mine = [(t - state["t3"][0], hit) for t, h, hit in looked
+                if h in block_hashes[1] and t >= state["t3"][0]]
+        print(
+            f"serve-kvbm: round 3 tier lookups {len(mine)}, served {sum(hit for _, hit in mine)}, "
+            f"first at {min((t for t, _ in mine), default=float('nan')):.3f} s after arrival; "
+            f"offload backlog at arrival {state['backlog']} tasks; "
+            f"prefetch overlap ratios {oe.prefetch_overlap_n} "
+            f"mean {oe.prefetch_overlap_sum / max(oe.prefetch_overlap_n, 1):.4f}; "
+            f"offload seconds {oe.offload_seconds:.3f} for {oe.offload_bytes} bytes"
+        )
+        print(
+            f"serve-kvbm: tiers disk_promotes={oe.disk_promotes} "
+            f"prefetch_issued={oe.prefetch_issued} prefetch_hits={oe.prefetch_hits} "
+            f"ring_bytes={engine.offload.ring_nbytes} g2_blocks={len(engine.offload)} "
+            f"g3_blocks={len(oe.disk)} preempt_swap={engine.sched.preempt_swap} "
+            f"preempt_recompute={engine.sched.preempt_recompute} "
+            f"peak_mem_gib={torch.cuda.max_memory_allocated() / 2**30:.3f} on {card}"
+        )
+        r1 = [x["ttft_admit"] * 1e3 for x in out[1]]
+        r3 = [x["ttft_admit"] * 1e3 for x in out[3][::-1]]
+        print(f"serve-kvbm: ttft from admission, round 3 against round 1 (ms): "
+              f"{[round(t, 3) for t in r3]} against {[round(t, 3) for t in r1]}; "
+              f"means {sum(r3) / len(r3):.3f} against {sum(r1) / len(r1):.3f}")
+        g2, g3 = state["by_tier3"]
+        if not g2 or not g3:
+            fail(f"serve-kvbm: round 3 onboarded G2 {g2} and G3 {g3} blocks: not from both")
+        # byte-exact: the blobs the tiers handed back, and the pages
+        # registered under round 1's prefix hashes that round 3 onboarded
+        # (or kept resident) and nothing evicted since, equal round 1's
+        # pages copied before round 2
+        from dynamo_tpu_torch.engine.kv_cache import host_view
+
+        now, copy = prefix_pages(engine, prefix_hashes), state["copy"]
+        onboarded = reuse[3][1]
+        bad_blobs = [h for h, crc in blobs.items()
+                     if h in copy and crc != zlib.crc32(host_view(copy[h][0]))]
+        checked = [h for h in now if h in copy and h not in evicted_late
+                   and (h in onboarded or classes[h] == "G1")]
+        bad = [h for h in checked if any(not torch.equal(a, b) for a, b in zip(now[h], copy[h]))]
+        print(f"serve-kvbm: byte-exact: {len(bad_blobs)} of {len(blobs)} tier blobs of round 1's "
+              f"prefix blocks differ from round 1's pages; {len(bad)} of {len(checked)} pages "
+              f"registered under them after round 3 ({len(onboarded & set(checked))} onboarded) "
+              f"differ")
+        if bad or bad_blobs or not (onboarded & set(checked)):
+            fail("serve-kvbm: onboarded prefix blocks differ from round 1's bytes")
+        for rnd, res in out.items():
+            for j, r in enumerate(res):
+                if len(r["tokens"]) != 32:
+                    fail(f"serve-kvbm: round {rnd} request {j} gave {len(r['tokens'])} tokens")
+        greedy = [j for j, r in enumerate(reqs[1]) if not r["sampling_options"].get("temperature")]
+        same = sum(out[3][7 - j]["tokens"] == out[1][j]["tokens"] for j in greedy)
+        print(f"serve-kvbm: round 3 greedy streams equal to round 1's: {same} of {len(greedy)}")
+        del engine, state, copy, now
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def kvbm_swap(params, card: str) -> None:
+    """(c) Llama-3-8B, bf16: 8 lanes of 256-token prompts and 256 new
+    tokens over ``num_pages=160`` with ``host_offload_blocks=512``: swap
+    (device fast path), swap over host blobs only, ``swap_preemption=
+    False``, and a roomy ``num_pages=1024``."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
+
+    cfg = ModelConfig.llama3_8b()
+    rng = np.random.default_rng(13)
+    reqs = [request(rng.integers(1, cfg.vocab_size, 256), 256, logprobs=2) for _ in range(8)]
+    runs = {
+        "swap": (dict(num_pages=160, host_offload_blocks=512), None),
+        "swap host-blob": (dict(num_pages=160, host_offload_blocks=512), 0),
+        "recompute": (dict(num_pages=160, host_offload_blocks=512, swap_preemption=False), None),
+        "roomy": (dict(num_pages=1024), None),
+    }
+    streams = {}
+    for run, (kw, dev_blocks) in runs.items():
+        engine = TorchEngine(cfg, params, EngineConfig(**kw), metrics_registry=MetricsRegistry())
+        oe = engine.offload_engine
+        if dev_blocks is not None:
+            oe.swap_device_blocks = dev_blocks
+        reset_launches()
+        before = kv_series(engine)
+        t0 = time.perf_counter()
+        res = asyncio.run(serve(engine, [reqs]))
+        wall = max(r["frames"][-1][0] for r in res) - t0
+        counted = read_launches()
+        check_launch_invariants(f"serve-kvbm: swap run {run}", engine, counted)
+        st = served_stats(res, wall, primed=False)
+        line = (f"serve-kvbm: swap run {run} preempt_swap={engine.sched.preempt_swap} "
+                f"preempt_recompute={engine.sched.preempt_recompute} wall_s={wall:.3f} "
+                f"tok_s={st['tok_s']:.3f} "
+                f"decode_phase_tok_s={st['dec']:.3f}")
+        if oe is not None:
+            check_no_fallback(f"serve-kvbm: swap run {run}", engine)
+            kv = kv_series(engine)
+            paths = {p: f"bytes={int(b)} s={s:.6f} gb_s={b / s / 1e9 if s > 0 else 0.0:.3f}"
+                     for p, (b, s) in engine.swap_in_paths.items()}
+            line += (f" swap_outs={oe.swap_outs} swap_ins={oe.swap_ins} "
+                     f"{kv_rate(kv, before, 'offload', 'swap')} "
+                     f"{kv_rate(kv, before, 'onboard', 'swap')} swap_in_by_path={paths}")
+            if run.startswith("swap") and not engine.sched.preempt_swap:
+                fail(f"serve-kvbm: swap run {run} swapped no preemption")
+            if run == "swap host-blob" and "host" not in engine.swap_in_paths:
+                fail("serve-kvbm: the host-blob run restored nothing from a host blob")
+            if run == "recompute" and not engine.sched.preempt_recompute:
+                fail("serve-kvbm: the recompute run preempted nothing")
+        print(line + f" on {card}")
+        for j, r in enumerate(res):
+            if len(r["tokens"]) != 256:
+                fail(f"serve-kvbm: swap run {run} request {j} gave {len(r['tokens'])} tokens")
+        streams[run] = res
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    # greedy agreement among the runs; in bf16 a row may move with the
+    # dispatch around it (identity is held in f32 by the reference)
+    for run, other in (("swap", "recompute"), ("swap", "roomy"), ("recompute", "roomy"),
+                       ("swap host-blob", "swap")):
+        got = [r["tokens"] for r in streams[run]]
+        want = [r["tokens"] for r in streams[other]]
+        line = first_divergence(got, want).replace("the plain streams", f"{other}'s")
+        for i, (a, b) in enumerate(zip(got, want)):
+            j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+            if j is not None:
+                top = streams[run][i]["top"]
+                line += (f"; there {other}'s {b[j]}, {run}'s {a[j]}, {run}'s top-2 logprobs "
+                         f"{top[j] if j < len(top) else None}")
+                break
+        print(f"serve-kvbm: swap run {run} greedy streams against {other}: {line}")
+
+
+def kvbm_int8(params, card: str) -> None:
+    """(d) One 1024-token prefix over an int8 pool at Llama-3-8B width,
+    evicted to the host ring and onboarded back: data and scales
+    bit-exact."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
+    from dynamo_tpu_torch.tokens.sequence import TokenBlockSequence
+
+    cfg = ModelConfig.llama3_8b()
+    rng = np.random.default_rng(17)
+    prefix = rng.integers(1, cfg.vocab_size, 1024)
+    a = request(np.concatenate([prefix, rng.integers(1, cfg.vocab_size, 16)]), 4)
+    churn = request(rng.integers(1, cfg.vocab_size, 1500), 4)
+    hashes = TokenBlockSequence(prefix.tolist(), block_size=16).sequence_hashes()
+    engine = TorchEngine(cfg, params, EngineConfig(
+        num_pages=96, kv_dtype="int8", host_offload_blocks=128),
+        metrics_registry=MetricsRegistry())
+    oe = engine.offload_engine
+    state = {}
+
+    def between(i: int) -> None:
+        if i == 1:
+            state["copy"] = prefix_pages(engine, hashes)
+        elif i == 2:
+            oe.drain()
+            state["evicted"] = sum(not engine.sched.pool.is_registered(h) for h in hashes)
+            state["kv"] = kv_series(engine)
+
+    reset_launches()
+    res = asyncio.run(serve(engine, [[a], [churn], [a]], between))
+    check_launch_invariants("serve-kvbm: int8", engine, read_launches())
+    check_no_fallback("serve-kvbm: int8", engine)
+    kv = kv_series(engine)
+    now, copy = prefix_pages(engine, hashes), state["copy"]
+    same = sum(all(torch.equal(x, y) for x, y in zip(now[h], copy[h])) for h in hashes if h in now)
+    print(f"serve-kvbm: int8 prefix blocks evicted={state['evicted']} of {len(hashes)} "
+          f"onboarded_blocks={int(oe.onboard_detail.get('prefix', [0])[0] // engine.kv.bytes_per_page)} "
+          f"bit-exact (data and scales) {same} of {len(copy)} "
+          f"{kv_rate(kv, state['kv'], 'onboard', 'prefix')} "
+          f"streams first {res[0]['tokens']} again {res[2]['tokens']} on {card}")
+    if state["evicted"] != len(hashes) or not oe.tier_hits["host"]:
+        fail("serve-kvbm: int8 prefix not evicted and onboarded")
+    if len(copy) != len(hashes) or same != len(hashes):
+        fail(f"serve-kvbm: int8 round trip: {len(hashes) - same} blocks not bit-exact")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_kvbm_phase(ref: Dict[str, object], card: str) -> None:
+    """serve-kvbm: (a) ``kvbm_reference``, then at Llama-3-8B width from
+    random bf16 weights of seed 0: (b) ``kvbm_tiers``, (c) ``kvbm_swap``,
+    (d) ``kvbm_int8``."""
+    from dynamo_tpu_torch.engine.config import ModelConfig
+    from dynamo_tpu_torch.engine.model import init_params
+
+    kvbm_reference(ref)
+    cfg = ModelConfig.llama3_8b()
+    params = init_params(cfg, 0, torch.device("cuda"), torch.bfloat16)
+    kvbm_tiers(params, card)
+    kvbm_swap(params, card)
+    kvbm_int8(params, card)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def write_safetensors(path: str, tensors: Dict[str, Tuple[Tuple[int, ...], Callable]]) -> None:
     """A ``.safetensors`` file of BF16 tensors: the 8-byte little-endian
     header length, the JSON header (padded to 8 bytes), the raw tensors.
@@ -2780,6 +3365,7 @@ def main() -> None:
     a3 = serve_a3_phase(ref, card)
     print(f"serve-a3: flash prefill launches {a3['launches']}")
     a45 = serve_a45_phase(ref, served, card)
+    serve_kvbm_phase(ref, card)
     if profile_out is not None:
         profile_phase(
             profile_out,

@@ -16,9 +16,8 @@ engine runs on the card; ``--device cpu`` runs it on the CPU.  ``bench``
 drives a running front end with the serving benchmark client.
 
 Flags of the JAX CLI whose features the port does not have yet (the
-parallel degrees, offload, swap preemption, the remote KV tier,
-disaggregation, the hub) are refused with an error that names them, never
-ignored.
+parallel degrees, the remote KV tier, disaggregation, the hub) are
+refused with an error that names them, never ignored.
 """
 
 from __future__ import annotations
@@ -43,10 +42,6 @@ _REFUSED = {
     "--sp": lambda a: a.sp != 1,
     "--pp": lambda a: a.pp != 1,
     "--ep": lambda a: a.ep != 1,
-    "--host-offload-blocks": lambda a: a.host_offload_blocks,
-    "--disk-offload-blocks": lambda a: a.disk_offload_blocks,
-    "--disk-offload-dir": lambda a: a.disk_offload_dir is not None,
-    "--swap-preemption": lambda a: a.swap_preemption,
     "--kv-remote": lambda a: a.kv_remote is not None,
     "--disagg": lambda a: a.disagg is not None,
     "--hub": lambda a: a.hub is not None,
@@ -110,16 +105,26 @@ def _add_engine_flags(p) -> None:
                         "(env DYN_DRAFT_MODEL overrides)")
     p.add_argument("--quantize", choices=["int8"], default=None,
                    help="weight-only quantization of the matmul weights")
+    p.add_argument("--kv-prefetch-window", type=int, default=None,
+                   help="queue-side prefetch window: offloaded prefix "
+                        "chains of the first N queued requests stage "
+                        "toward host RAM while they wait; 0 disables "
+                        "(env DYN_KV_PREFETCH overrides)")
+    p.add_argument("--host-offload-blocks", type=int, default=0,
+                   help="G2 host-RAM KV offload capacity (blocks); 0 = off "
+                        "(env DYN_KV_OFFLOAD arms/overrides the whole plane)")
+    p.add_argument("--disk-offload-blocks", type=int, default=0,
+                   help="G3 disk KV offload capacity (blocks); 0 = off")
+    p.add_argument("--disk-offload-dir",
+                   help="directory for G3 disk offload files")
+    p.add_argument("--no-swap-preemption", dest="swap_preemption",
+                   action="store_false", default=True,
+                   help="disable swap-based preemption (offload the "
+                        "victim's KV and restore it on resume); preempted "
+                        "sequences always recompute instead")
     # refused: their features are not ported yet
     for flag in ("--tp", "--dp", "--sp", "--pp", "--ep"):
         p.add_argument(flag, type=int, default=1, help="not served by the port yet")
-    p.add_argument("--host-offload-blocks", type=int, default=0,
-                   help="not served by the port yet")
-    p.add_argument("--disk-offload-blocks", type=int, default=0,
-                   help="not served by the port yet")
-    p.add_argument("--disk-offload-dir", help="not served by the port yet")
-    p.add_argument("--swap-preemption", action="store_true",
-                   help="not served by the port yet (it preempts by recompute)")
     p.add_argument("--kv-remote", default=None, help="not served by the port yet")
 
 
@@ -238,9 +243,15 @@ def _make_engine(args):
         spec_auto_disable=args.spec_auto_disable,
         draft_model=args.draft_model,
         quantize=args.quantize,
+        host_offload_blocks=args.host_offload_blocks,
+        disk_offload_blocks=args.disk_offload_blocks,
+        disk_offload_dir=args.disk_offload_dir,
+        swap_preemption=args.swap_preemption,
     )
     if args.mixed_token_budget is not None:
         cfg.mixed_token_budget = args.mixed_token_budget
+    if args.kv_prefetch_window is not None:
+        cfg.kv_prefetch_window = args.kv_prefetch_window
     logger.info("loading %s onto %s ...", args.model_path, device)
     return TorchEngine.from_pretrained(args.model_path, cfg, device=device)
 

@@ -250,6 +250,25 @@ class EngineConfig:
     # (spec/model_drafter.py), loaded at construction and served to
     # requests that ask for drafter kind "model".  None = host drafters only
     draft_model: Optional[str] = None
+    # queue-side prefetch window: the offloaded prefix chains of the first
+    # N queued requests promote toward host RAM (with ring pins) while they
+    # wait, so onboarding overlaps queue wait instead of TTFT.  0 disables;
+    # DYN_KV_PREFETCH overrides
+    kv_prefetch_window: int = 32
+    # KV offload tiers: evicted G1 blocks demote to host RAM (G2, this many
+    # blocks, in pinned memory on the card) and overflow to disk (G3, under
+    # ``disk_offload_dir``); admission onboards offloaded prefixes back
+    # into fresh pages.  0 disables.  DYN_KV_OFFLOAD (offload.
+    # env_offload_spec grammar) arms/overrides the whole plane; with both
+    # unset no offload thread ever starts
+    host_offload_blocks: int = 0
+    disk_offload_blocks: int = 0
+    disk_offload_dir: Optional[str] = None
+    # swap-based preemption: a capacity-preempted lane's KV is offloaded
+    # and restored through the chunked scatter path instead of re-prefilled.
+    # Effective only with the offload plane armed; recompute remains the
+    # fallback when the swap budget runs out
+    swap_preemption: bool = True
     # weight-only quantization: "int8" stores the matmul weights as int8
     # with per-output-channel scales, dequantized at the point of use
     # (engine/quant.py).  None = the weights as given

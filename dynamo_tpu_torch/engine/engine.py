@@ -74,16 +74,41 @@ stats ride the finish item; ``SpecMetrics`` feeds ``dynamo_spec_*``.
 ``quantize="int8"`` quantizes the weights before any pool is allocated
 (``quant.py``).
 
-Not served yet (later slices): offload/swap and external-KV deliveries,
-disaggregation, tensor/data parallelism, the tick profiler, and CUDA
+The KV offload plane is the JAX engine's (``offload.KVOffloadEngine``,
+armed by ``host_offload_blocks``/``disk_offload_blocks`` or
+``DYN_KV_OFFLOAD``; otherwise no offload thread starts).  A block the
+page pool evicts is gathered on the device by the pool's ``on_evict``
+hook, on the loop thread while it plans -- the same stream as the
+dispatches, so before any dispatch that reuses its pages -- and copied
+without blocking into pinned host memory behind a CUDA event; the offload
+thread waits for that event and stores the block in the host ring (G2),
+whose overflow demotes to disk (G3).  At admission the prefix match runs
+on from the pool into the host ring; the hits' pages are allocated then
+and filled, at the lane's first prefill dispatch, by one page-bucketed,
+layer-chunked scatter of all its hits, then registered.  The first
+``kv_prefetch_window`` queued requests have their offloaded chains
+promoted and pinned in the ring while they wait.  A capacity-preempted
+lane swaps its committed KV out (``swap_preemption``, on whenever the
+plane is armed) and parks ``awaiting_kv``: re-admitted into fresh pages,
+it stays device-inactive until the swap-in scatters its snapshot back --
+the retained device copy, or the host blob once that copy was dropped --
+and a dirty row hands it to the decode state, so swap and recompute give
+the same tokens.  The pool's ``stored``/``removed`` events and the
+plane's ``holdings`` deltas go to ``kv_event_sink``/``kv_holdings_sink``,
+hopping to the engine's loop from other threads.  ``OffloadMetrics``
+feeds ``dynamo_kv_*``.
+
+Not served yet (later slices): disaggregation and external-KV deliveries,
+the G4 remote tier, tensor/data parallelism, the tick profiler, and CUDA
 graphs for dispatches that carry prefill chunks or verify columns.
 
 The serving-environment overrides the JAX engine reads at construction
 are read here too, with its parse, for the features the port has:
 ``DYN_KV_DTYPE``, ``DYN_MIXED_TOKEN_BUDGET``, ``DYN_PACKED_RAGGED``,
 ``DYN_PACKED_SHAPE_BUDGET``, ``DYN_ASYNC_DISPATCH``, ``DYN_SPEC_FOLD``,
-``DYN_SPEC_AUTO_DISABLE`` and ``DYN_DRAFT_MODEL``.  A set variable wins
-over the config; a malformed one logs a warning and keeps the config.
+``DYN_SPEC_AUTO_DISABLE``, ``DYN_DRAFT_MODEL``, ``DYN_KV_OFFLOAD`` and
+``DYN_KV_PREFETCH``.  A set variable wins over the config; a malformed one
+logs a warning and keeps the config.
 
 The KV pool is dense in the model's dtype or, with
 ``EngineConfig(kv_dtype="int8")``, int8 with per-row scales; a dense pool of
@@ -99,6 +124,7 @@ import concurrent.futures
 import itertools
 import logging
 import os
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import (
@@ -109,6 +135,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from .. import offload as kvoffload
 from ..ops.build import check_geometry
 from ..protocols.common import (
     FinishReason,
@@ -128,7 +155,19 @@ from .bucketing import (
 )
 from .config import EngineConfig, ModelConfig
 from .graphs import StepGraphs
-from .kv_cache import PagedKVCache, parse_kv_dtype, pool_is_quantized, torch_dtype
+from .kv_cache import (
+    PagedKVCache,
+    PageSnapshot,
+    QuantKV,
+    coerce_kv_blob,
+    dtype_name,
+    layer_chunk_spans,
+    pad_page_axis,
+    parse_kv_dtype,
+    pool_is_quantized,
+    tensor_view,
+    torch_dtype,
+)
 from .model import Params, init_params
 from .quant import quantize_params
 from .sampling import PROMPT_FLAG, SamplingParams, unpack_sampled_logprobs
@@ -140,11 +179,13 @@ from .step import (
     bump_counts,
     decode_block,
     embed_step,
+    gather_block_pages,
     inject_token,
     inject_tokens,
     packed_unified_multistep,
     prefill_mm_and_sample,
     prefill_suffix_and_sample,
+    scatter_layer_pages,
     score_prompt_step,
     seed_count_rows,
     unified_step,
@@ -165,6 +206,9 @@ DEVICE_STOP_WIDTH = 8
 FANOUT_DEPTH = 64
 # budget of the packed step's (Np, s_max) shapes, the JAX engine's default
 PACKED_SHAPE_BUDGET = 16
+# layer groups of an onboard or swap-in scatter (the JAX engine's
+# DEFAULT_EXPORT_CHUNKS)
+ONBOARD_CHUNKS = 8
 
 
 def _env_override(name: str, value: Any, parse) -> Any:
@@ -182,6 +226,18 @@ def _env_override(name: str, value: Any, parse) -> Any:
 
 def _env_flag(raw: str) -> bool:
     return raw.strip().lower() not in ("0", "off", "false", "no")
+
+
+def _parse_prefetch_window(raw: str) -> int:
+    """``DYN_KV_PREFETCH``: off/false/no, or a window of queued requests."""
+    v = raw.strip().lower()
+    return 0 if v in ("off", "false", "no") else int(v)
+
+
+def _parse_offload_spec(raw: str) -> Optional[Dict[str, Any]]:
+    """``DYN_KV_OFFLOAD`` by ``offload.env_offload_spec``'s grammar (None:
+    0/off, the config stands)."""
+    return kvoffload.env_offload_spec({"DYN_KV_OFFLOAD": raw})
 
 
 def _parse_draft_model(raw: str) -> Optional[str]:
@@ -365,6 +421,13 @@ class TorchEngine:
         # and, at commit, step latency and KV residency
         self.obs = EngineMetrics(metrics_registry, max_slots=c.max_batch_size)
         self.sched.metrics = self.obs
+        # KV events for a router: the pool's stored/removed (registration
+        # at commit on the executor thread, eviction on the loop thread) and
+        # the offload plane's holdings deltas; None = not wired
+        self.kv_event_sink: Optional[Any] = None
+        self.kv_holdings_sink: Optional[Any] = None
+        self.kv.allocator.event_sink = self._emit_kv_event
+        self._init_offload(metrics_registry)
         # speculative decoding: per-request drafters propose draft tokens
         # from the token history, a verify dispatch scores them in one
         # forward.  Engine-lifetime counters beside the dynamo_spec_* family
@@ -457,6 +520,57 @@ class TorchEngine:
         self._last_end: Optional[Any] = None
         self.span_stats: Dict[str, Dict[str, float]] = {}
 
+    def _init_offload(self, registry) -> None:
+        """The G2/G3 offload plane (``offload.KVOffloadEngine``), armed by
+        config or by ``DYN_KV_OFFLOAD`` (env wins outright: an explicit
+        host=0 / disk=0 disarms a config-armed tier; only the disk dir
+        falls back to config); a no-op -- no thread -- otherwise.  Swap
+        preemption rides on it, on unless ``swap_preemption`` (or the
+        spec's ``swap``) turns it off."""
+        c = self.cfg
+        self.offload: Optional[Any] = None
+        self.offload_engine: Optional[kvoffload.KVOffloadEngine] = None
+        self._swapped: Dict[str, SeqState] = {}
+        host_blocks, disk_blocks = c.host_offload_blocks, c.disk_offload_blocks
+        disk_dir, swap_on = c.disk_offload_dir, c.swap_preemption
+        spec = _env_override("DYN_KV_OFFLOAD", None, _parse_offload_spec)
+        if spec is not None:
+            host_blocks, disk_blocks = spec["host"], spec["disk"]
+            disk_dir = spec["dir"] or disk_dir
+            swap_on = spec["swap"] and c.swap_preemption
+        if host_blocks > 0 or disk_blocks > 0:
+            if disk_blocks > 0 and not disk_dir:
+                raise ValueError("disk_offload_blocks > 0 requires disk_offload_dir")
+            oe = kvoffload.KVOffloadEngine(
+                host_blocks, disk_blocks, disk_dir, swap_enabled=swap_on,
+                registry=registry, pinned=self.device.type == "cuda",
+            )
+            self.offload_engine = oe
+            self.offload = oe.host
+            oe.holdings_cb = self._emit_kv_holdings
+            self.kv.allocator.on_evict = self._on_pool_evict
+            self.sched.offload_lookup = self._offload_lookup
+            if swap_on:
+                self.sched.swap_out = self._swap_out
+        self._kv_dtype_name = dtype_name(self.kv.dtype)
+        # queue-side prefetch: the offloaded chains of the first N waiting
+        # requests are promoted while they wait (_drive_prefetch)
+        self._prefetch_window = max(
+            int(_env_override("DYN_KV_PREFETCH", c.kv_prefetch_window, _parse_prefetch_window)),
+            0,
+        )
+        self._prefetch_issued: set = set()
+        # admission settles on the executor thread while cancels clear on
+        # the loop: each request's pins release on exactly one path
+        self._prefetch_lock = threading.Lock()
+        # onboard and swap-in scatters in flight on the card: (tier, path,
+        # bytes, start event, end event, host blobs kept alive until the
+        # copies read them); timed once the end event completes
+        self._onboards: Deque[Tuple[str, str, int, Any, Any, Any]] = collections.deque()
+        # swap-in bytes and seconds by restore path: the retained device
+        # snapshot ("device") or the host blob ("host")
+        self.swap_in_paths: Dict[str, List[float]] = {}
+
     @classmethod
     def random_init(
         cls,
@@ -497,6 +611,9 @@ class TorchEngine:
         self._running = True
         self._loop = asyncio.get_running_loop()
         self._wake = asyncio.Event()
+        if self.offload_engine is not None:
+            # a ready swap blob or a finished promote wakes a sleeping loop
+            self.offload_engine.wake_cb = self._wake_from_thread
         if self._pipe_depth > 1:
             self._fanout_q = asyncio.Queue(maxsize=FANOUT_DEPTH)
             self._fanout_task = asyncio.create_task(
@@ -533,7 +650,10 @@ class TorchEngine:
         if not self._stopped:
             self._stopped = True
             self._ex.submit(self._drain_spans, True).result()
+            self._ex.submit(self._settle_onboards, True).result()
             self._ex.shutdown(wait=True)
+            if self.offload_engine is not None:
+                self.offload_engine.close()
 
     # -- AsyncEngine --------------------------------------------------------
 
@@ -734,6 +854,10 @@ class TorchEngine:
             try:
                 self._process_cancellations()
                 self._fail_drafter_lanes()
+                for seq, rec in self._process_swaps():
+                    # swap-in: scatter the parked KV back into the lane's
+                    # pages and clear the barrier; no token is emitted
+                    await self._on_executor(self._apply_swap_in, seq, rec)
                 if (
                     not sched.has_runnable_work
                     and not inflight
@@ -743,8 +867,17 @@ class TorchEngine:
                     if self.device.type == "cuda":
                         self._spans.append(None)  # idle: no gap across the wait
                     self._wake.clear()
-                    await self._wake.wait()
+                    if self._swapped:
+                        # parked lanes only: a ready swap blob wakes the
+                        # loop, the bound re-checks regardless
+                        try:
+                            await asyncio.wait_for(self._wake.wait(), 1.0)
+                        except asyncio.TimeoutError:
+                            pass
+                    else:
+                        await self._wake.wait()
                     continue
+                self._drive_prefetch()
                 # async mode: generations whose results already landed
                 # commit before the plan (none is over the depth here), so
                 # freed slots and pages and committed stops reach this
@@ -770,6 +903,10 @@ class TorchEngine:
                     )
                     if preempted:
                         self.obs.preemptions.inc(len(preempted))
+                        if self.offload_engine is not None:
+                            for s in preempted:
+                                kind = "swap" if s.request_id in self._swapped else "recompute"
+                                self.offload_engine.metrics.preemptions.labels(kind).inc()
                 self._revive_paused_lanes()
                 fresh: List[Inflight] = []
                 minted = False  # a classic prefill sampled first tokens
@@ -948,7 +1085,8 @@ class TorchEngine:
             or self._firsts_last_tick
             or bool(spec_reserve)
             or any(
-                s is not None and (s.prefilling or spec_live(s.spec)) for s in sched.slots
+                s is not None and (s.prefilling or s.awaiting_kv or spec_live(s.spec))
+                for s in sched.slots
             )
         )
         if pressure:
@@ -973,6 +1111,7 @@ class TorchEngine:
         return any(
             s is not None
             and s.finish is None
+            and not s.awaiting_kv
             and not s.prefilling
             and not spec_live(s.spec)
             and int(limits[b]) > int(sched.seq_lens[b]) + inflight
@@ -1210,13 +1349,14 @@ class TorchEngine:
         return limit
 
     def _lane_active(self, seq: Optional[SeqState], limit: int, seq_len: int) -> bool:
-        """A lane decodes when slotted, fully prefilled and with write
-        headroom, and not speculating: a lane with live speculation
-        advances through its verify columns (an auto-disabled one decodes
-        again)."""
+        """A lane decodes when slotted, fully prefilled, not parked for a
+        swap-in, with write headroom, and not speculating: a lane with live
+        speculation advances through its verify columns (an auto-disabled
+        one decodes again)."""
         return (
             seq is not None
             and limit > seq_len
+            and not seq.awaiting_kv
             and not seq.prefilling
             and not spec_live(seq.spec)
         )
@@ -1488,6 +1628,7 @@ class TorchEngine:
             # a speculating lane samples its first token here but stays
             # device-inactive: it advances through verify columns
             p_act[b] = ch.final and not spec_live(ch.seq.spec)
+            self._prepare_prefill(ch.seq)
             self._note_prefix_stats(ch.seq)
             ch.seq.prefilled_tokens = ch.start + ch.length
             if ch.final:
@@ -1507,6 +1648,7 @@ class TorchEngine:
                 and p_lens[b] == 0
                 and v_host[b] == 0
                 and s.finish is None
+                and not s.awaiting_kv
                 and not s.prefilling
                 and not spec_live(s.spec)
                 for b, s in enumerate(sched.slots)
@@ -1796,6 +1938,7 @@ class TorchEngine:
             and seq.finish is None
             and spec_live(seq.spec)
             and not seq.spec.inflight
+            and not seq.awaiting_kv
             and not seq.prefilling
             and b not in self._pending_injects
             and seq.num_generated + seq.prior_generated >= 1
@@ -1931,6 +2074,7 @@ class TorchEngine:
                 or seq.slot != slot
                 or sched.slots[slot] is not seq
                 or seq.life != life
+                or seq.awaiting_kv
                 or seq.prefilling
             ):
                 continue
@@ -2110,6 +2254,7 @@ class TorchEngine:
         device, and the tick commits them once the dispatch has landed."""
         seqs = [seq for seq, _ in items]
         for seq in seqs:
+            self._prepare_prefill(seq)
             self._note_prefix_stats(seq)
         start = self._span_start()
         Bp = pow2_bucket(len(seqs))
@@ -2130,6 +2275,7 @@ class TorchEngine:
         """A classic chunk-bound admission (already parked ``prefilling``):
         the admission row must land with the lane inactive, then the first
         chunk dispatches."""
+        self._prepare_prefill(seq)
         self._note_prefix_stats(seq)
         self._sync_device_state()
         return self._dispatch_chunk(seq)
@@ -2154,6 +2300,7 @@ class TorchEngine:
         one (or, with chunking off, the rest of a prompt drained from the
         mixed plane) samples the first token and re-activates the lane
         (a dirty row ordered after the dispatch)."""
+        self._prepare_prefill(seq)
         self._note_prefix_stats(seq)
         prompt_len = len(seq.prompt)
         start = seq.prefilled_tokens
@@ -2262,6 +2409,7 @@ class TorchEngine:
         """Read and commit one dispatch generation (or one classic prefill
         dispatch) in dispatch order: every result in one pass, then the
         stop-rule replay."""
+        self._settle_onboards()
         mats = [e.sampled.numpy() for e in entries]
         spec_mats = {
             id(e): e.spec_sampled.numpy()
@@ -2351,6 +2499,401 @@ class TorchEngine:
         self.obs.observe_kv(alloc.used_pages, alloc.num_pages - 1)
         return events
 
+    # -- KV offload: G1 -> G2 -> G3, onboarding, prefetch, swap ---------------
+
+    def _on_pool_evict(self, blk) -> None:
+        """PagePool eviction hook (loop thread, inside the pool's
+        allocation, before the pages return to the free list): enqueue a
+        device gather of the block's pages and its copy into pinned host
+        memory on the current stream -- the dispatches' stream, so the
+        gather precedes any dispatch that reuses the pages -- and hand the
+        snapshot to the offload thread, which waits for its event.  A
+        failed snapshot is a later cache miss, counted."""
+        oe = self.offload_engine
+        try:
+            snap = PageSnapshot(
+                gather_block_pages(self.kv.pages, self._put(np.asarray(blk.pages, np.int64)))
+            )
+        except Exception:
+            logger.exception("offload snapshot failed for block %x", blk.sequence_hash)
+            oe.note_copy_fail()
+            return
+        meta = kvoffload.BlockMeta(
+            block_hash=blk.block_hash,
+            parent_sequence_hash=blk.parent_sequence_hash,
+            position=blk.position,
+            kv_dtype=self._kv_dtype_name,
+        )
+        oe.submit_evict(blk.sequence_hash, snap, meta)
+
+    def _drive_prefetch(self) -> None:
+        """Issue tracked prefetch walks for the queue's admission window
+        (loop thread, once per tick): each request's offloaded prefix chain
+        is promoted disk -> host and pinned in the ring, so by the time it
+        reaches a slot the prefix match's tier lookup is a RAM hit.  Only
+        the first ``_prefetch_window`` waiting requests are walked -- queue
+        position is the prefetch priority."""
+        oe = self.offload_engine
+        if oe is None or self._prefetch_window == 0 or not self.sched.waiting:
+            return
+        pool = self.sched.pool
+        for i, seq in enumerate(self.sched.waiting):
+            if i >= self._prefetch_window:
+                break
+            rid = seq.request_id
+            if seq.blocks is None or seq.awaiting_kv:
+                # swap-parked (and soft-prompt) lanes never consume onboards
+                continue
+            # marked even when nothing is offloaded: a block evicted after
+            # this scan is handled by the admission-time tier lookup
+            with self._prefetch_lock:
+                if rid in self._prefetch_issued:
+                    continue
+                self._prefetch_issued.add(rid)
+            max_blocks = max(0, (len(seq.prompt) - 1) // self.sched.block_size)
+            hashes = [
+                h for h in seq.blocks.sequence_hashes()[:max_blocks]
+                if not pool.is_registered(h)
+            ]
+            if hashes:
+                oe.prefetch(hashes, request_id=rid)
+
+    def _note_prefetch_admission(self, seq: SeqState) -> None:
+        """Admission reached the request: settle its tracked prefetch
+        (staged blocks its onboards consume are hits; the ring pins
+        release).  Runs before ``_apply_onboards`` drains the pending
+        list."""
+        oe = self.offload_engine
+        if oe is None:
+            return
+        with self._prefetch_lock:
+            issued = seq.request_id in self._prefetch_issued
+            self._prefetch_issued.discard(seq.request_id)
+        if not issued:
+            return
+        consumed = [h for h, _p, _b, _m in seq.pending_onboard]
+        seq.prefetch_hits = oe.finish_prefetch(seq.request_id, consumed)
+
+    def _cancel_prefetch(self, rid: str) -> None:
+        """A request left without admitting (cancel, error, finish): free
+        its host-staged prefetch state."""
+        with self._prefetch_lock:
+            issued = rid in self._prefetch_issued
+            self._prefetch_issued.discard(rid)
+        if issued and self.offload_engine is not None:
+            self.offload_engine.cancel_prefetch(rid)
+
+    def _offload_lookup(self, seq_hash: int):
+        """The scheduler's tier lookup (the prefix match's G1 -> G2 -> G3
+        continuation): RAM hits return at once; a disk-only hit starts an
+        async promote and misses this admission (the queue-side prefetch
+        makes that case rare)."""
+        hit = self.offload_engine.lookup(seq_hash)
+        if hit is None:
+            return None
+        blob, meta, _tier = hit
+        return blob, meta
+
+    def _prepare_prefill(self, seq: SeqState) -> None:
+        """Before a lane's first prefill dispatch reads its prefix: settle
+        its prefetch and scatter its pending onboards."""
+        self._note_prefetch_admission(seq)
+        if seq.pending_onboard:
+            self._apply_onboards(seq)
+
+    def _coerce_blob(self, blob):
+        """A tier blob in this pool's dtype domain (``coerce_kv_blob``):
+        same-domain blobs pass through byte for byte."""
+        return coerce_kv_blob(blob, self.kv.quantized, dtype_name(self.dtype))
+
+    def _blob_on_device(self, blobs: List[Any]) -> Any:
+        """Host blobs stacked on the pages axis, on the device: each blob
+        one non-blocking copy (from pinned memory on the card) into its
+        block of a device tensor, the blocks then laid out as the pool's
+        ``[L, 2, n, page, Hkv, D]``."""
+
+        def stack(parts: List[np.ndarray]) -> torch.Tensor:
+            first = tensor_view(parts[0])
+            out = torch.empty((len(parts),) + tuple(first.shape), dtype=first.dtype, device=self.device)
+            for i, a in enumerate(parts):
+                out[i].copy_(first if i == 0 else tensor_view(a), non_blocking=True)
+            # [n, L, 2, ppb, ...] -> [L, 2, n * ppb, ...]
+            out = out.movedim(0, 2)
+            return out.reshape(out.shape[:2] + (-1,) + tuple(out.shape[4:]))
+
+        if isinstance(blobs[0], QuantKV):
+            return QuantKV(q=stack([b.q for b in blobs]), s=stack([b.s for b in blobs]))
+        return stack(blobs)
+
+    def _scatter_pages(self, page_ids: Sequence[int], blob: Any) -> None:
+        """One page-bucketed, layer-chunked scatter of ``blob`` (device, on
+        the pages axis) into ``page_ids``: the ids pad to their page bucket
+        with trash page 0, the blob with zero pages."""
+        bucket = pick_page_bucket(len(page_ids), self.sched.max_pages)
+        ids = np.zeros((bucket,), np.int64)
+        ids[: len(page_ids)] = page_ids
+        ids_t = self._put(ids)
+        padded = pad_page_axis(blob, bucket)
+        L = self.model_cfg.num_layers
+        for lo, hi in layer_chunk_spans(L, None, ONBOARD_CHUNKS):
+            chunk = (
+                QuantKV(q=padded.q[lo:hi], s=padded.s[lo:hi])
+                if isinstance(padded, QuantKV)
+                else padded[lo:hi]
+            )
+            scatter_layer_pages(self.kv.pages, slice(lo, hi), ids_t, chunk)
+
+    def _onboard_start(self) -> Any:
+        if self.device.type != "cuda":
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def _onboard_done(self, tier: str, path: str, nbytes: int, start: Any, keep: Any) -> None:
+        """Account one onboard or swap-in scatter: on the card once its
+        end event completes (``keep``, the host blobs its copies read,
+        lives until then), on the CPU now."""
+        if self.device.type != "cuda":
+            self._record_onboard(tier, path, nbytes, time.perf_counter() - start)
+            return
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        self._onboards.append((tier, path, nbytes, start, end, keep))
+
+    def _settle_onboards(self, wait: bool = False) -> None:
+        """Record the onboards whose scatter has landed (all of them with
+        ``wait``), in order, with their device time."""
+        while self._onboards:
+            tier, path, nbytes, start, end, _keep = self._onboards[0]
+            if wait:
+                end.synchronize()
+            elif not end.query():
+                return
+            self._onboards.popleft()
+            self._record_onboard(tier, path, nbytes, start.elapsed_time(end) / 1e3)
+
+    def _record_onboard(self, tier: str, path: str, nbytes: int, seconds: float) -> None:
+        self.offload_engine.record_onboard(tier, nbytes, seconds)
+        if tier == "swap":
+            d = self.swap_in_paths.setdefault(path, [0.0, 0.0])
+            d[0] += nbytes
+            d[1] += seconds
+
+    def _apply_onboards(self, seq: SeqState) -> None:
+        """Scatter the lane's offload-tier hits into their pages and
+        register them (executor thread, before the prefill dispatch that
+        reads them): all of the admission's hits in one page-bucketed,
+        layer-chunked scatter, enqueued before that dispatch on its
+        stream."""
+        pending, seq.pending_onboard = seq.pending_onboard, []
+        ids = [p for _h, pages, _b, _m in pending for p in pages]
+        blobs = [self._coerce_blob(b) for _h, _p, b, _m in pending]
+        start = self._onboard_start()
+        self._scatter_pages(ids, self._blob_on_device(blobs))
+        self._onboard_done("prefix", "host", sum(b.nbytes for b in blobs), start, blobs)
+        pool = self.sched.pool
+        for seq_hash, pages, _blob, meta in pending:
+            if pool.register(
+                seq_hash,
+                pages,
+                block_hash=meta.block_hash,
+                parent_sequence_hash=meta.parent_sequence_hash,
+                position=meta.position,
+            ):
+                seq.held_blocks.append(seq_hash)
+                for p in pages:
+                    seq.owned_pages.remove(p)
+            # register False: a twin onboarded it meanwhile; keep ownership
+
+    def _swap_out(self, seq: SeqState) -> bool:
+        """The scheduler's ``swap_out`` hook (loop thread, victim still
+        slotted): snapshot the lane's committed KV -- ``cache_len`` from
+        the host mirror; in-flight generations write only past it -- and
+        park the sequence.  Declines (recompute) whenever the lane's state
+        is not fully host-visible: mid-prefill, parked, nothing committed
+        this life, a first token still device-only -- or the budget is
+        exhausted."""
+        if self.offload_engine is None:
+            return False
+        if seq.awaiting_kv or seq.prefilling or seq.finish is not None:
+            return False
+        if seq.num_generated < 1 or seq.slot < 0 or seq.blocks is None:
+            return False
+        if seq.slot in self._pending_injects:
+            return False  # a device-only sampled token would be lost
+        cache_len = int(self.sched.seq_lens[seq.slot])
+        n_pages = -(-cache_len // self.cfg.page_size)
+        if cache_len <= 0 or n_pages > len(seq.pages):
+            return False
+        try:
+            ids = self._put(np.asarray(seq.pages[:n_pages], np.int64))
+            snap = PageSnapshot(gather_block_pages(self.kv.pages, ids))
+        except Exception:
+            logger.exception("swap snapshot failed for %s", seq.request_id)
+            return False
+        n_blocks = -(-n_pages // self.sched.pool.pages_per_block)
+        if not self.offload_engine.swap_out(seq.request_id, snap, cache_len, n_blocks):
+            return False
+        self._swapped[seq.request_id] = seq
+        return True
+
+    def _process_swaps(self) -> List[Tuple[SeqState, Any]]:
+        """Loop side of swap-in: the (seq, record) pairs whose restore is
+        due (lane admitted, a device copy or host blob ready).  A record
+        with no restorable copy falls back to recompute."""
+        if not self._swapped:
+            return []
+        out: List[Tuple[SeqState, Any]] = []
+        for rid, seq in list(self._swapped.items()):
+            if seq.finish is not None or not seq.awaiting_kv:
+                self._swapped.pop(rid, None)
+                self.offload_engine.drop_swap(rid)
+                continue
+            rec = self.offload_engine.poll_swap(rid)
+            if rec is None or (rec.state == kvoffload.SWAP_FAILED and rec.dev is None):
+                self._swap_recompute(seq, "copy_fail")
+                continue
+            if (rec.dev is None and rec.state != kvoffload.SWAP_READY) or seq.slot < 0:
+                continue  # blob still materializing / lane not admitted
+            self._swapped.pop(rid, None)
+            out.append((seq, rec))
+        return out
+
+    def _swap_recompute(self, seq: SeqState, cause: str) -> None:
+        """Swap restore impossible: unpark the sequence onto the recompute
+        path (slot and pages release; the folded prompt re-prefills),
+        counted as a fallback."""
+        rid = seq.request_id
+        self._swapped.pop(rid, None)
+        oe = self.offload_engine
+        oe.drop_swap(rid)
+        oe.swap_fallbacks += 1
+        oe.metrics.swap_fallbacks.labels(cause).inc()
+        seq.awaiting_kv = False
+        if seq.slot >= 0:
+            self.sched._release_slot(seq)
+            seq.slot = -1
+            self.sched.waiting.appendleft(seq)
+
+    def _apply_swap_in(self, seq: SeqState, rec) -> None:
+        """Executor thread: scatter a parked lane's KV back into its pages
+        and clear its barrier.  The snapshot covers ``cache_len =
+        len(prompt) - 1`` committed positions of the folded prompt;
+        admission wrote ``tokens[b] = prompt[-1]``, so with ``seq_lens``
+        rewound to ``cache_len`` the lane's next decode step recomputes
+        position P-1's KV and samples what a re-prefill would: swap and
+        recompute give the same tokens.  The retained device snapshot
+        restores device to device; a host blob (its device copy dropped for
+        budget) crosses the link.  The dirty row carries the lane's token,
+        length and page-table row into the device state, which the next
+        dispatch (or graph replay) reads."""
+        rid = seq.request_id
+        sched = self.sched
+        try:
+            dev = rec.dev  # read once: the offload thread may drop it
+            blob = dev if dev is not None else rec.blob
+            if blob is None:
+                self._swapped[rid] = seq  # retry next tick
+                return
+            cache_len = rec.cache_len
+            n_pages = -(-cache_len // self.cfg.page_size)
+            data = blob.q if isinstance(blob, QuantKV) else blob
+            if (
+                seq.slot < 0
+                or sched.slots[seq.slot] is not seq
+                or n_pages > len(seq.pages)
+                or int(data.shape[2]) != n_pages
+            ):
+                self._swapped[rid] = seq  # re-examine next tick
+                return
+            start = self._onboard_start()
+            if dev is not None:
+                keep, path = None, "device"
+            else:
+                keep, path = self._coerce_blob(blob), "host"
+                blob = self._blob_on_device([keep])
+            self._scatter_pages(seq.pages[:n_pages], blob)
+            self._onboard_done("swap", path, int(blob.nbytes), start, keep)
+        except Exception:
+            logger.exception("swap-in restore failed for %s; recomputing", rid)
+            self._swap_recompute(seq, "copy_fail")
+            return
+        self.offload_engine.drop_swap(rid)
+        sched.seq_lens[seq.slot] = cache_len
+        sched.tokens[seq.slot] = seq.prompt[-1]
+        seq.awaiting_kv = False
+        sched.dirty_slots.add(seq.slot)
+
+    # -- KV events ------------------------------------------------------------
+
+    def _to_loop(self, sink, event: Dict[str, Any]) -> None:
+        """Call ``sink(event)`` on the engine's loop: sinks are not
+        thread-safe, so emissions from the executor and offload threads
+        hop there."""
+        loop = self._loop
+        if loop is None:
+            sink(event)
+            return
+        try:
+            on_loop = asyncio.get_running_loop() is loop
+        except RuntimeError:
+            on_loop = False
+        if on_loop:
+            sink(event)
+        else:
+            try:
+                loop.call_soon_threadsafe(sink, event)
+            except RuntimeError:
+                pass  # loop already closed during shutdown
+
+    def _emit_kv_event(self, event: Dict[str, Any]) -> None:
+        """PagePool ``event_sink`` -> ``kv_event_sink``: registration fires
+        in commits on the executor thread, eviction on the loop thread."""
+        sink = self.kv_event_sink
+        if sink is not None:
+            self._to_loop(sink, event)
+
+    def _emit_kv_holdings(self, delta) -> None:
+        """Offload-plane ``holdings_cb`` -> ``kv_holdings_sink``: tuple rows
+        ``(hash, tier|None, nbytes)`` become wire rows ``{"sequence_hash",
+        "tier", "nbytes"}``; deltas fire on the offload thread."""
+        sink = self.kv_holdings_sink
+        if sink is None:
+            return
+        event = {
+            "type": "holdings",
+            "delta": [
+                {"sequence_hash": int(h), "tier": tier, "nbytes": int(n)}
+                for h, tier, n in delta
+            ],
+        }
+        self._to_loop(sink, event)
+
+    def _wake_from_thread(self) -> None:
+        loop, wake = self._loop, self._wake
+        if loop is None or wake is None:
+            return
+        try:
+            loop.call_soon_threadsafe(wake.set)
+        except RuntimeError:
+            pass  # loop already closed during shutdown
+
+    def status(self) -> Dict[str, int]:
+        """Queue, batch and KV occupancy (the JAX engine's flight-recorder
+        state): reads only."""
+        alloc = self.kv.allocator
+        return {
+            "waiting": len(self.sched.waiting),
+            "active": self.sched.num_active,
+            "slots": self.cfg.max_batch_size,
+            "kv_pages_used": alloc.used_pages,
+            "kv_pages_total": alloc.num_pages - 1,
+            "chunking": len(self._chunking),
+            "swapped": len(self._swapped),
+            "tokens_generated": self._tokens_generated,
+        }
+
     # -- events -------------------------------------------------------------
 
     def _deliver(self, item) -> None:
@@ -2381,6 +2924,9 @@ class TorchEngine:
             if ev.finished is not None:
                 self._nonce_of.pop(ev.seq.request_id, None)
                 self._ctxs.pop(ev.seq.request_id, None)
+                # backstop: prefetch state still tracked at finish releases
+                # its pins here
+                self._cancel_prefetch(ev.seq.request_id)
                 out = LLMEngineOutput.finished(ev.finished)
                 if not ev.tokens and ev.prompt_logprobs is not None:
                     # the first token finished the request outright (a
@@ -2404,6 +2950,9 @@ class TorchEngine:
             seq.finish = FinishReason.ERROR
         self._nonce_of.pop(seq.request_id, None)
         self._ctxs.pop(seq.request_id, None)
+        self._cancel_prefetch(seq.request_id)
+        if self._swapped.pop(seq.request_id, None) is not None:
+            self.offload_engine.drop_swap(seq.request_id)
         if self._queues.get(seq.request_id) is None:
             return
         # async mode: the error rides the fanout queue, so it cannot
@@ -2442,6 +2991,9 @@ class TorchEngine:
             self._cancelled.discard(rid)
             self._nonce_of.pop(rid, None)
             self._ctxs.pop(rid, None)
+            self._cancel_prefetch(rid)
+            if self._swapped.pop(rid, None) is not None:
+                self.offload_engine.drop_swap(rid)
             seq = by_id.get(rid)
             if seq is not None:
                 self.sched.cancel(seq)

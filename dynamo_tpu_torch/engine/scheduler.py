@@ -7,9 +7,14 @@ and the host replay of the stop rules at commit (decode blocks and the
 classic path's first token), with the multimodal soft prompt and the
 prompt-logprob request fields, and speculation: a lane the engine arms
 (``SeqState.spec``) is left out of the decode-runnable count and its
-verify segments are reserved out of the mixed token budget.  Not carried
-over: the KV-budget admission planner, data-parallel slot balancing and
-the offload / swap / disaggregation hooks.
+verify segments are reserved out of the mixed token budget; and the
+offload plane's hooks: the prefix match continues from the page pool into
+the offload tiers (``offload_lookup``; hits become ``pending_onboard``
+scatters the engine applies at the prefill dispatch), and a preempted
+lane may swap its KV out instead of recomputing it (``swap_out``), parked
+``awaiting_kv`` -- slotted with its pages but device-inactive -- until the
+engine restores it.  Not carried over: the KV-budget admission planner,
+data-parallel slot balancing and the disaggregation hooks.
 
 The scheduler is sans-IO: it owns numpy mirrors of the device-side batch
 arrays (tokens / seq_lens / page_table) and pure-Python bookkeeping; the
@@ -24,6 +29,7 @@ queue and occupancy gauges at each admission pass.
 from __future__ import annotations
 
 import collections
+import logging
 import time
 from dataclasses import dataclass, field
 from typing import Any, Deque, List, Optional, Tuple
@@ -79,8 +85,14 @@ class SeqState:
     # completed blocks whose final token's KV is not yet written (it lands
     # with the next decode step); registered once the cache catches up
     pending_register: List[TokenBlock] = field(default_factory=list)
+    # offload-tier hits awaiting their device scatter: (seq_hash, pages,
+    # blob, meta) -- the engine scatters + registers them at prefill time
+    pending_onboard: List[Any] = field(default_factory=list)
     # prefix-cache stats are counted once per request (first admission)
     stats_counted: bool = False
+    # a swapped-out lane: re-admitted with fresh pages, it holds its slot
+    # device-inactive until the engine's swap-in restores its KV
+    awaiting_kv: bool = False
     # chunked prefill: prompt tokens whose KV has been dispatched so far;
     # the lane stays decode-inactive while prefilling is True
     prefilled_tokens: int = 0
@@ -94,6 +106,13 @@ class SeqState:
     # echo+logprobs: top-N prompt logprobs to compute at first prefill
     prompt_logprobs: Optional[int] = None
     prompt_lp_sent: bool = False
+    # queue-side prefetch accounting: offloaded prefix blocks found
+    # host-staged at admission because the prefetch walk promoted them
+    # during queue wait
+    prefetch_hits: int = 0
+    # admission stamp (time.monotonic()): closes the request's queue wait;
+    # re-admissions after preemption re-stamp
+    admitted_s: float = 0.0
     # slot lives: bumped whenever the lane leaves its slot (finish, cancel,
     # preemption), so a dispatch made in an earlier life never commits into
     # a later one, even when a preempted request is re-admitted into the
@@ -180,6 +199,16 @@ class Scheduler:
         # block is one KV page
         self.pool = pool
         self.block_size = cfg.page_size
+        # tiered prefix lookup hook: fn(seq_hash) -> (blob, meta) | None,
+        # wired by the engine when offload tiers are configured
+        self.offload_lookup: Optional[Any] = None
+        # swap-based preemption hook: fn(seq) -> bool, wired by the engine
+        # when the offload plane is armed.  Called with the victim still
+        # slotted (pages intact) so the engine can enqueue the device
+        # snapshot before the slot release frees them; True parks the
+        # sequence for a KV restore instead of a re-prefill.
+        self.swap_out: Optional[Any] = None
+        self.preempt_swap = 0
         self.preempt_recompute = 0
         # observability hook (runtime.metrics.EngineMetrics): the scheduler
         # stays sans-IO -- it only pokes gauges the engine wired in
@@ -217,10 +246,13 @@ class Scheduler:
 
     @property
     def num_runnable(self) -> int:
-        """Slotted lanes the device can actually step (mid-chunked-prefill
-        lanes hold a slot + pages but must not spin decode steps)."""
+        """Slotted lanes the device can actually step (parked awaiting_kv /
+        mid-chunked-prefill lanes hold a slot + pages but must not spin
+        decode steps)."""
         return sum(
-            1 for s in self.slots if s is not None and not s.prefilling
+            1
+            for s in self.slots
+            if s is not None and not s.awaiting_kv and not s.prefilling
         )
 
     @property
@@ -236,13 +268,15 @@ class Scheduler:
             1
             for s in self.slots
             if s is not None
+            and not s.awaiting_kv
             and not s.prefilling
             and not spec_live(s.spec)
         )
 
     @property
     def has_runnable_work(self) -> bool:
-        """Work the tick loop can make progress on *right now*."""
+        """Work the tick loop can make progress on *right now*; a batch of
+        only parked lanes sleeps until a swap-in (or timeout) wakes it."""
         return self.num_runnable > 0 or len(self.waiting) > 0
 
     def enqueue(self, seq: SeqState) -> None:
@@ -296,7 +330,11 @@ class Scheduler:
     def _try_admit(self, seq: SeqState, plan: TickPlan, slot: int) -> bool:
         """Admit one request into ``slot`` if the physical page floor
         allows; returns False (state untouched) otherwise."""
-        cached_pages = self._match_prefix(seq)
+        # a swapped lane's KV returns through the swap-in scatter into
+        # fresh pages: it takes no reused prefix
+        cached_pages = [] if seq.awaiting_kv else self._match_prefix(seq)
+        if seq.awaiting_kv:
+            seq.cached_prompt_tokens = 0
         n_pages = -(-len(seq.prompt) // self.cfg.page_size)
         # admission needs room for the prompt *and* the first decode
         # write, with one page of headroom per active seq for growth;
@@ -306,13 +344,20 @@ class Scheduler:
             self._unmatch_prefix(seq)
             return False
         fresh = self.pool.alloc(n_pages - len(cached_pages))
-        seq.owned_pages = fresh
+        # onboard pages were allocated inside _match_prefix and stay
+        # plain-owned until the engine registers them post-scatter
+        onboard = [p for _h, pgs, _b, _m in seq.pending_onboard for p in pgs]
+        seq.owned_pages = onboard + fresh
         seq.pages = cached_pages + fresh
         seq.slot = slot
+        seq.admitted_s = time.monotonic()
         self.slots[slot] = seq
         self._write_slot_arrays(seq)
         self._queue_prompt_registrations(seq)
-        plan.prefills.append((seq, len(seq.prompt)))
+        if not seq.awaiting_kv:
+            plan.prefills.append((seq, len(seq.prompt)))
+        # awaiting_kv lanes hold their pages and stay device-inactive until
+        # the engine's swap-in restores their KV
         return True
 
     # -- mixed-batch formation (unified ragged dispatch) ---------------------
@@ -400,7 +445,13 @@ class Scheduler:
     def _match_prefix(self, seq: SeqState) -> List[int]:
         """Acquire the longest resident prefix of the prompt's blocks; returns
         the reused pages (front of the page table).  Reuse is capped below the
-        full prompt so prefill always has at least one token to process."""
+        full prompt so prefill always has at least one token to process.
+
+        After the G1 match ends, the chain continues into the offload
+        tiers: a G2 hit allocates fresh pages now and defers the device
+        scatter + registration to the engine (``seq.pending_onboard``) --
+        those pages stay plain-owned until the scatter is enqueued, so no
+        other request can match a block whose contents haven't landed."""
         seq.cached_prompt_tokens = 0
         if seq.blocks is None:
             return []
@@ -414,13 +465,31 @@ class Scheduler:
                 break
             seq.held_blocks.append(blk.sequence_hash)
             pages.extend(blk.pages)
-        seq.cached_prompt_tokens = len(seq.held_blocks) * self.block_size
+        n_matched = len(seq.held_blocks)
+        if self.offload_lookup is not None:
+            for h in hashes[n_matched:]:
+                if self.pool.is_registered(h):
+                    break  # re-resident meanwhile; stop the offload chain
+                hit = self.offload_lookup(h)
+                if hit is None:
+                    break
+                blob, meta = hit
+                try:
+                    got_pages = self.pool.alloc(self.pool.pages_per_block)
+                except OutOfPages:
+                    break
+                seq.pending_onboard.append((h, got_pages, blob, meta))
+                pages.extend(got_pages)
+        seq.cached_prompt_tokens = (n_matched + len(seq.pending_onboard)) * self.block_size
         return pages
 
     def _unmatch_prefix(self, seq: SeqState) -> None:
         for h in seq.held_blocks:
             self.pool.release(h)
         seq.held_blocks = []
+        for _h, pages, _blob, _meta in seq.pending_onboard:
+            self.pool.free(pages)
+        seq.pending_onboard = []
         seq.cached_prompt_tokens = 0
 
     def _queue_prompt_registrations(self, seq: SeqState) -> None:
@@ -511,15 +580,32 @@ class Scheduler:
         return max(active, key=lambda s: s.arrival_s)
 
     def _preempt(self, seq: SeqState) -> None:
-        """Recompute preemption: release the lane and fold its generated
-        tokens into the prompt, so the re-prefill reproduces the full
-        sequence deterministically."""
+        """Preempt a lane: swap its KV out (the engine's ``swap_out`` hook,
+        called while its pages are still allocated, so the device snapshot
+        is enqueued before any reuse) and park it, or -- whenever the hook
+        declines -- recompute: release the lane and fold its generated
+        tokens into the prompt, so the resume reproduces the full sequence
+        deterministically either way."""
+        swapped = False
+        if self.swap_out is not None and seq.finish is None:
+            try:
+                swapped = bool(self.swap_out(seq))
+            except Exception:
+                logging.getLogger("dynamo.offload").exception(
+                    "swap-out hook failed for %s; recomputing", seq.request_id
+                )
         self._release_slot(seq)
         seq.prompt = seq.prompt + self._generated_tokens(seq)
         seq.prior_generated += seq.num_generated
         seq.num_generated = 0
         seq.slot = -1
-        self.preempt_recompute += 1
+        if swapped:
+            # parked: holds pages at admission, stays device-inactive
+            # until the engine's swap-in clears the barrier
+            seq.awaiting_kv = True
+            self.preempt_swap += 1
+        else:
+            self.preempt_recompute += 1
         self.waiting.appendleft(seq)
 
     def _generated_tokens(self, seq: SeqState) -> List[int]:
@@ -547,6 +633,7 @@ class Scheduler:
             self.pool.release(h)
         seq.held_blocks = []
         seq.pending_register = []
+        seq.pending_onboard = []  # pages were owned; freed above
         seq.pages = []
         seq.owned_pages = []
 
@@ -652,7 +739,7 @@ class Scheduler:
                 continue
             if lives is not None and lives[b] != seq.life:
                 continue  # dispatched in an earlier life of the request
-            if seq.prefilling:
+            if seq.prefilling or seq.awaiting_kv:
                 # a parked lane's column is placeholder garbage by
                 # construction (the lane is device-inactive, rows are -1);
                 # a lane re-parked since the dispatch (preempt + re-admit
@@ -732,7 +819,13 @@ class Scheduler:
             if blk.position >= len(seq.pages):
                 break  # table shorter than the block (defensive)
             page = seq.pages[blk.position]
-            if self.pool.register(blk.sequence_hash, [page]):
+            if self.pool.register(
+                blk.sequence_hash,
+                [page],
+                block_hash=blk.block_hash,
+                parent_sequence_hash=blk.parent_sequence_hash,
+                position=blk.position,
+            ):
                 # ownership moves to the registry; this seq keeps a ref
                 seq.held_blocks.append(blk.sequence_hash)
                 seq.owned_pages.remove(page)

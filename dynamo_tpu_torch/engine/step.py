@@ -24,6 +24,11 @@ The device-state helpers at the end (``inject_token(s)``,
 ``update_lanes``, ``zero_count_rows``, ``bump_counts``,
 ``seed_count_rows``) are the counterparts of the JAX functions of the same
 names: they update the engine's persistent decode-state tensors in place.
+The page copy steps (``gather_block_pages``, ``scatter_block_pages``,
+``gather_layer_pages``, ``scatter_layer_pages``; XLA gathers and donated
+scatters in the JAX package) serve the offload tiers and swap records: the
+gathers return new tensors, the scatters write the pool in place, pad ids
+landing on trash page 0, so the pool keeps its address.
 Those tensors carry one spare row at index B; a pad row of a scatter (the
 JAX functions' ``mode="drop"`` rows) carries slot B and lands there, and
 no step ever reads it.
@@ -54,7 +59,7 @@ import torch
 
 from . import attention as att
 from .config import ModelConfig
-from .kv_cache import KVPool
+from .kv_cache import KVPool, QuantKV
 from .model import Params, lm_logits, transformer
 from .sampling import (
     PROMPT_FLAG,
@@ -919,3 +924,63 @@ def seed_count_rows(
     """Rebuild one lane's packed histogram from its prompt and committed
     output history (dirty flushes zero the row first)."""
     counts[slot].index_add_(0, toks.long(), amounts.to(counts.dtype))
+
+
+# -- page copies: offload tiers and swap records -------------------------------
+
+
+def gather_block_pages(kv_pages: KVPool, ids: torch.Tensor) -> KVPool:
+    """A copy of pages ``ids`` of every layer, ``[L, 2, n, page, Hkv, D]``
+    (an int8 pool's data and scales together): the eviction and swap-out
+    snapshot.  Enqueued on the current stream before any dispatch that
+    reuses the pages, so it reads their contents before the reuse."""
+    ids = ids.long()
+    if isinstance(kv_pages, QuantKV):
+        return QuantKV(q=kv_pages.q[:, :, ids], s=kv_pages.s[:, :, ids])
+    return kv_pages[:, :, ids]
+
+
+def scatter_block_pages(kv_pages: KVPool, ids: torch.Tensor, blob: KVPool) -> None:
+    """Write a block's contents back into pages ``ids`` in place (G2/G3 ->
+    G1 onboarding); an int8 pool restores data and scales byte for byte."""
+    ids = ids.long()
+    if isinstance(kv_pages, QuantKV):
+        kv_pages.q[:, :, ids] = blob.q.to(torch.int8)
+        kv_pages.s[:, :, ids] = blob.s.to(kv_pages.s.dtype)
+        return
+    kv_pages[:, :, ids] = blob.to(kv_pages.dtype)
+
+
+def _layer_page_index(layer_ids: torch.Tensor, page_ids: torch.Tensor):
+    """Three broadcast indices that keep a chunk in ``[Lg, 2, P, ...]``."""
+    ki = torch.arange(2, device=page_ids.device)
+    return layer_ids.long()[:, None, None], ki[None, :, None], page_ids.long()[None, None, :]
+
+
+def gather_layer_pages(
+    kv_pages: KVPool, layer_ids: torch.Tensor, page_ids: torch.Tensor
+) -> KVPool:
+    """One layer-group chunk of pages ``page_ids``: ``[Lg, 2, P, page,
+    Hkv, D]``, a new tensor (the int8 pool's pair)."""
+    idx = _layer_page_index(layer_ids, page_ids)
+    if isinstance(kv_pages, QuantKV):
+        return QuantKV(q=kv_pages.q[idx], s=kv_pages.s[idx])
+    return kv_pages[idx]
+
+
+def scatter_layer_pages(
+    kv_pages: KVPool, layer_ids, page_ids: torch.Tensor, blob: KVPool
+) -> None:
+    """Write one layer-group chunk into pages ``page_ids`` in place (pad
+    ids target trash page 0); an int8 pool restores the (data, scales)
+    pair byte for byte.  ``layer_ids`` is a tensor of layer indices, or a
+    ``slice`` of them: then each pool tensor's layer range takes the chunk
+    with one ``index_copy_`` over the pages axis."""
+    if isinstance(kv_pages, QuantKV):
+        scatter_layer_pages(kv_pages.q, layer_ids, page_ids, blob.q)
+        scatter_layer_pages(kv_pages.s, layer_ids, page_ids, blob.s)
+        return
+    if isinstance(layer_ids, slice):
+        kv_pages[layer_ids].index_copy_(2, page_ids.long(), blob.to(kv_pages.dtype))
+        return
+    kv_pages.index_put_(_layer_page_index(layer_ids, page_ids), blob.to(kv_pages.dtype))

@@ -3,7 +3,7 @@ the Prometheus text exposition format, with no package behind them.
 
 The subset of the JAX package's ``runtime/metrics.py`` that the HTTP
 service's metrics (``http/metrics.py``) and the engine's
-(:class:`EngineMetrics`, :class:`SpecMetrics`) use, written out in plain Python because the
+(:class:`EngineMetrics`, :class:`SpecMetrics`, :class:`OffloadMetrics`) use, written out in plain Python because the
 card's machine has no ``prometheus_client``.  ``render()``
 gives the text that ``prometheus_client.generate_latest`` gives for the
 same families: the same family names, ``_total`` on counters,
@@ -30,6 +30,13 @@ STEP_LATENCY_BUCKETS = (
     0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
     1.0, 2.5, 5.0,
 )
+
+# KV transfer legs (multi-MB device<->host moves)
+TRANSFER_LATENCY_BUCKETS = (
+    0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+)
+# unit-interval ratios (prefetch overlap)
+RATIO_BUCKETS = (0.1, 0.25, 0.5, 0.75, 0.9, 0.95, 0.99, 1.0)
 
 DEFAULT_BUCKETS = (
     0.005, 0.01, 0.025, 0.05, 0.075, 0.1, 0.25, 0.5, 0.75, 1.0, 2.5, 5.0,
@@ -471,3 +478,109 @@ class SpecMetrics:
             "Verify dispatch->commit latency",
             buckets=STEP_LATENCY_BUCKETS,
         )
+
+
+class OffloadMetrics:
+    """Registry-backed KV offload plane series (``dynamo_kv_*``: G2 host,
+    G3 disk, swap records): the JAX package's ``OffloadMetrics``, same
+    family names, labels and buckets.  Transfer volume and latency per
+    tier, occupancy, tiered prefix hits, preemption kinds and the failure
+    counters; updated from the offload thread or the engine's existing
+    commit points -- never per token."""
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None) -> None:
+        reg = registry or default_registry()
+        self.registry = reg
+        self.offload_bytes = reg.counter(
+            "dynamo_kv_offload_bytes",
+            "KV bytes demoted out of HBM (eviction snapshots, swap-outs)",
+            ["tier"],  # host | swap
+        )
+        self.offload_latency = reg.histogram(
+            "dynamo_kv_offload_seconds",
+            "Device->host materialize + tier store latency per blob",
+            ["tier"],
+            buckets=TRANSFER_LATENCY_BUCKETS,
+        )
+        self.onboard_bytes = reg.counter(
+            "dynamo_kv_onboard_bytes",
+            "KV bytes restored into HBM pages (prefix onboards, swap-ins)",
+            ["tier"],  # prefix | swap
+        )
+        self.onboard_latency = reg.histogram(
+            "dynamo_kv_onboard_seconds",
+            "Host->device scatter latency per onboarded blob",
+            ["tier"],
+            buckets=TRANSFER_LATENCY_BUCKETS,
+        )
+        self.tier_blocks = reg.gauge(
+            "dynamo_kv_tier_blocks",
+            "Blocks resident per offload tier (swap = budget blocks in use)",
+            ["tier"],  # host | disk | swap
+        )
+        self.tier_hits = reg.counter(
+            "dynamo_kv_tier_prefix_hits",
+            "Prefix-block lookups served from an offload tier",
+            ["tier"],  # host | disk
+        )
+        self.tier_promotes = reg.counter(
+            "dynamo_kv_tier_promotes",
+            "Blocks promoted up a tier ahead of use (disk->host ring via "
+            "prefetch or lookup-triggered promote); deliberately not a "
+            "hit -- warmth counts only lookups actually served",
+            ["tier"],  # disk
+        )
+        self.preemptions = reg.counter(
+            "dynamo_kv_preemptions",
+            "Capacity preemptions by recovery kind",
+            ["kind"],  # swap | recompute
+        )
+        self.swap_events = reg.counter(
+            "dynamo_kv_swap_events",
+            "Swap-plane transitions (out = parked, in = restored)",
+            ["event"],  # out | in
+        )
+        self.swap_fallbacks = reg.counter(
+            "dynamo_kv_swap_fallbacks",
+            "Swap attempts that fell back to recompute, by cause",
+            ["cause"],  # budget | copy_fail | truncate
+        )
+        self.onboard_fallbacks = reg.counter(
+            "dynamo_kv_onboard_fallbacks",
+            "Prefix onboards abandoned (the admission recomputed the "
+            "prefix in place), by cause",
+            ["cause"],  # truncate
+        )
+        self.copy_fails = reg.counter(
+            "dynamo_kv_offload_copy_failures",
+            "Offload materializations dropped (I/O errors or injected "
+            "offload.copy_fail faults)",
+        )
+        self.prefetch_issued = reg.counter(
+            "dynamo_kv_prefetch_issued_blocks",
+            "Prefix blocks requested by tracked queue-side prefetch walks",
+        )
+        self.prefetch_hits = reg.counter(
+            "dynamo_kv_prefetch_hits",
+            "Prefetch-staged blocks found host-resident and consumed at "
+            "admission (the onboard scatter never waited on a disk read)",
+        )
+        self.prefetch_wasted = reg.counter(
+            "dynamo_kv_prefetch_wasted_bytes",
+            "Bytes prefetch-staged but never consumed (request cancelled "
+            "before admission, or the admission matched elsewhere)",
+        )
+        self.prefetch_overlap = reg.histogram(
+            "dynamo_kv_prefetch_overlap_ratio",
+            "Fraction of each tracked prefetch walk that overlapped queue "
+            "wait instead of the TTFT critical path (1.0 = fully hidden)",
+            buckets=RATIO_BUCKETS,
+        )
+
+    def record_offload(self, tier: str, nbytes: int, seconds: float) -> None:
+        self.offload_bytes.labels(tier).inc(nbytes)
+        self.offload_latency.labels(tier).observe(max(seconds, 0.0))
+
+    def record_onboard(self, tier: str, nbytes: int, seconds: float) -> None:
+        self.onboard_bytes.labels(tier).inc(nbytes)
+        self.onboard_latency.labels(tier).observe(max(seconds, 0.0))

@@ -300,8 +300,6 @@ def test_cli_batch_prints_jax_text(checkpoint, expected, tmp_path):
     [
         (["--tp", "2"], "--tp"),
         (["--kv-remote", "on"], "--kv-remote"),
-        (["--host-offload-blocks", "8"], "--host-offload-blocks"),
-        (["--swap-preemption"], "--swap-preemption"),
         (["--disagg", "decode"], "--disagg"),
         (["--hub", "h:1"], "--hub"),
     ],
@@ -310,6 +308,39 @@ def test_cli_refuses_unported_flag(checkpoint, extra, name):
     out = run_cli("run", "in=http", "out=torch", "--model-path", checkpoint[0],
                   "--device", "cpu", *extra, timeout=60)
     assert out.returncode != 0 and name in out.stderr
+
+
+@pytest.mark.parametrize(
+    "extra",
+    [
+        ["--host-offload-blocks", "8", "--no-swap-preemption"],
+        ["--host-offload-blocks", "1", "--disk-offload-blocks", "8",
+         "--disk-offload-dir", "{tmp}", "--kv-prefetch-window", "4"],
+    ],
+)
+def test_cli_serves_offload_flags(checkpoint, expected, tmp_path, extra):
+    """The offload flags the JAX CLI takes (``--no-swap-preemption`` with
+    its ``dest`` and default) are served: ``run in=text`` with the plane
+    armed answers the JAX engine's text."""
+    out = run_cli("run", "in=text", "out=torch", "--model-path", checkpoint[0],
+                  "--device", "cpu", "--max-tokens", str(MAX_TOKENS),
+                  "--prompt", PROMPTS[1],
+                  *[x.format(tmp=tmp_path / "g3") for x in extra])
+    assert out.returncode == 0, out.stderr
+    assert out.stdout == expected[1] + "\n"
+
+
+def test_cli_parses_swap_preemption_like_jax():
+    from dynamo_tpu.cli import build_parser as jax_parser
+    from dynamo_tpu_torch.cli import build_parser
+
+    for argv in ([], ["--no-swap-preemption"]):
+        base = ["run", "in=text", "out=torch", *argv]
+        got = build_parser().parse_args(base)
+        want = jax_parser().parse_args(["run", "in=text", "out=jax", *argv])
+        assert got.swap_preemption is want.swap_preemption is (not argv)
+    for flag in ("--host-offload-blocks", "--disk-offload-blocks", "--kv-prefetch-window"):
+        assert build_parser().parse_args(["run", "in=text", "out=torch", flag, "3"])
 
 
 @pytest.mark.parametrize("io", [("in=dyn", "out=torch"), ("in=http", "out=jax"),

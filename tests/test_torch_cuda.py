@@ -10,7 +10,10 @@ the serve shape of kernel 2 in ``chip_smoke.py``, the ragged kernels (both
 layouts, both pools) at their tile and page edges; prefix-suffix prefill
 and packed ragged also at the speculative verify's shapes (S = 5 and 9
 columns at offsets off the page; verify segments of 2 to 9 rows beside
-decode rows).
+decode rows).  The offload plane's page copies on the card give the CPU's
+bytes; an eviction snapshot keeps the bytes that the very next replayed
+dispatch overwrites; a swapped lane resumes under graph replay with the
+streams of a roomy pool.
 The dense entries of the ragged and flash kernels also give, bit for bit,
 the outputs recorded in ``DENSE_DIGESTS``.
 
@@ -649,10 +652,11 @@ def test_dense_entries_give_the_recorded_outputs_bit_for_bit(card):
 GB = 4  # engine lanes of the graph tests
 
 
-def _graph_engine(card, dtype, kv_dtype=None, max_batch_size=GB):
+def _graph_engine(card, dtype, kv_dtype=None, max_batch_size=GB, **engine_kw):
     """A small engine on the card with a random pool and a random,
     all-active decode state (greedy and seeded sampled lanes, one with a
-    penalty so the decode block's histogram moves)."""
+    penalty so the decode block's histogram moves); ``engine_kw`` goes to
+    its ``EngineConfig``."""
     from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.engine.kv_cache import QuantKV
@@ -664,7 +668,7 @@ def _graph_engine(card, dtype, kv_dtype=None, max_batch_size=GB):
     )
     ecfg = EngineConfig(
         max_batch_size=max_batch_size, max_seq_len=256, page_size=16, num_pages=64,
-        kv_dtype=kv_dtype,
+        kv_dtype=kv_dtype, **engine_kw,
     )
     eng = TorchEngine(cfg, init_params(cfg, 5, card, dtype), ecfg, device=card)
     gen = torch.Generator(device=card)
@@ -1022,3 +1026,143 @@ def test_prefill_mm_and_sample_on_the_card_is_the_cpu_run(card, use_penalties):
     written = table[:3].flatten().long()
     torch.testing.assert_close(pools["cuda"].cpu()[:, :, written],
                                pools["cpu"][:, :, written], atol=5e-5, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the offload plane: page copies, eviction snapshots, swap-in
+# ---------------------------------------------------------------------------
+
+
+def _pools(card, kv_dtype, seed=3):
+    """The same random pool on the card and on the CPU (bf16, or the int8
+    pair)."""
+    from dynamo_tpu_torch.engine.kv_cache import QuantKV
+
+    gen = torch.Generator().manual_seed(seed)
+    dense = torch.randn((L, 2, 12, 16, HKV, 64), generator=gen).to(torch.bfloat16)
+    if kv_dtype == "int8":
+        q, sc = quantize_kv_rows(dense)
+        cpu = QuantKV(q=q, s=sc)
+        return QuantKV(q=q.to(card), s=sc.to(card)), cpu
+    return dense.to(card), dense.clone()
+
+
+def _host_bytes(x) -> list:
+    from dynamo_tpu_torch.engine.kv_cache import QuantKV, host_view
+
+    parts = (x.q, x.s) if isinstance(x, QuantKV) else (x,)
+    return [host_view(t.cpu()).tobytes() for t in parts]
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["bf16", "int8"])
+def test_page_copies_on_the_card_are_the_cpu_bytes(card, kv_dtype):
+    from dynamo_tpu_torch.engine import step
+    from dynamo_tpu_torch.engine.kv_cache import PageSnapshot, QuantKV
+
+    dev_pool, cpu_pool = _pools(card, kv_dtype)
+    ids = torch.tensor([5, 1, 9])
+    got = {}
+    for name, pool, d in (("card", dev_pool, card), ("cpu", cpu_pool, torch.device("cpu"))):
+        blk = step.gather_block_pages(pool, ids.to(d))
+        snap = PageSnapshot(blk)
+        host = snap.materialize()
+        host_parts = (host.q, host.s) if isinstance(host, QuantKV) else (host,)
+        chunk = step.gather_layer_pages(pool, torch.tensor([1], device=d), ids.to(d))
+        step.scatter_layer_pages(pool, slice(0, 2),
+                                 torch.tensor([3, 7, 0, 0], device=d),
+                                 QuantKV(q=torch.cat([blk.q[:, :, :2]] * 2, 2),
+                                         s=torch.cat([blk.s[:, :, :2]] * 2, 2))
+                                 if isinstance(blk, QuantKV) else torch.cat([blk[:, :, :2]] * 2, 2))
+        step.scatter_block_pages(pool, torch.tensor([10, 11], device=d),
+                                 QuantKV(q=blk.q[:, :, 1:], s=blk.s[:, :, 1:])
+                                 if isinstance(blk, QuantKV) else blk[:, :, 1:])
+        real = torch.arange(1, 12, device=d)
+        got[name] = (
+            _host_bytes(blk), [a.tobytes() for a in host_parts], _host_bytes(chunk),
+            _host_bytes(QuantKV(q=pool.q[:, :, real], s=pool.s[:, :, real])
+                        if isinstance(pool, QuantKV) else pool[:, :, real]),
+        )
+    assert got["card"] == got["cpu"]
+    assert got["card"][0] == got["card"][1], "the snapshot's host copy is its gather"
+
+
+def test_eviction_snapshot_keeps_the_bytes_the_next_replay_overwrites(card):
+    """A block evicted while the next dispatch -- a graph replay -- writes
+    its page: the snapshot gathered and copied before that replay holds
+    the page's old bytes (stream order), and the replay did write it."""
+    from dynamo_tpu_torch.block_manager import RegisteredBlock
+    from dynamo_tpu_torch.engine.kv_cache import host_view
+
+    eng = _graph_engine(card, torch.bfloat16, host_offload_blocks=8)
+    dispatch = _packed_dispatch(eng, 1)
+    snap = _snapshot(eng)
+    dispatch()  # eager warm-up and capture
+    _restore(eng, snap)
+    replays = sum(eng.graph_replays.values())
+    v = eng._v
+    pos = int(v["seq_lens"][0])
+    page = int(v["page_table"][0, pos // 16])
+    pool = eng.kv.pages
+    before = pool[:, :, page : page + 1].clone()
+    eng._on_pool_evict(RegisteredBlock(sequence_hash=77, pages=(page,), refs=0, position=3))
+    dispatch()  # replays the packed step: lane 0 writes position `pos` of `page`
+    torch.cuda.synchronize()
+    assert sum(eng.graph_replays.values()) == replays + 1
+    eng.offload_engine.drain()
+    blob, meta = eng.offload.get_ram(77)
+    assert meta.position == 3 and meta.kv_dtype == "bfloat16"
+    assert blob.tobytes() == host_view(before.cpu()).tobytes()
+    assert not torch.equal(pool[:, :, page : page + 1], before), "the replay wrote the page"
+    assert eng.offload_engine.copy_fails == 0
+    eng.offload_engine.close()
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["dense", "int8"])
+def test_swap_in_under_graph_replay(card, kv_dtype):
+    """Two growing lanes over a pool too small for both: the younger swaps
+    out and back, its decode resumes through replayed graphs, and the
+    streams equal a roomy pool's and the CPU's."""
+    import asyncio
+
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.model import init_params
+    from dynamo_tpu_torch.protocols.common import PreprocessedRequest
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    cfg = ModelConfig.tiny(head_dim=64, num_heads=4, num_kv_heads=2, num_layers=2)
+    params = init_params(cfg, 3, torch.device("cpu"), torch.float32)
+    rs = np.random.default_rng(5)
+    prompts = [rs.integers(1, cfg.vocab_size, 20).tolist() for _ in range(2)]
+
+    async def serve(eng):
+        async def one(p):
+            req = {"token_ids": p, "stop_conditions": {"max_tokens": 60},
+                   "sampling_options": {"temperature": 0.0}, "eos_token_ids": []}
+            stream = await eng.generate(Context.new(PreprocessedRequest.from_dict(req)))
+            out = []
+            async for item in stream:
+                assert not item.is_error(), item.error_message()
+                out += (item.data or {}).get("token_ids") or []
+            return out
+
+        try:
+            return await asyncio.wait_for(asyncio.gather(*[one(p) for p in prompts]), 120)
+        finally:
+            await eng.stop()
+
+    def run(dev, pages):
+        on = {k: ({n: w.to(dev) for n, w in v.items()} if isinstance(v, dict) else v.to(dev))
+              for k, v in params.items()}
+        eng = TorchEngine(cfg, on, EngineConfig(
+            max_batch_size=2, max_seq_len=256, mixed_token_budget=32, num_pages=pages,
+            host_offload_blocks=32, kv_dtype=kv_dtype, async_dispatch=False), device=dev)
+        return asyncio.run(serve(eng)), eng
+
+    roomy, _ = run(card, 64)
+    swapped, eng = run(card, 9)
+    cpu, _ = run(torch.device("cpu"), 9)
+    assert eng.sched.preempt_swap >= 1 and eng.offload_engine.swap_ins >= 1
+    assert sum(eng.graph_replays.values()) > 0
+    assert eng.offload_engine.swap_fallbacks == eng.offload_engine.copy_fails == 0
+    assert swapped == roomy == cpu

@@ -494,6 +494,41 @@ def test_registry_renders_as_prometheus_client():
     assert texts[1] == texts[0]
 
 
+def test_offload_metrics_render_as_jax():
+    """``dynamo_kv_*``: the port's ``OffloadMetrics`` renders the JAX
+    package's families -- names, labels, help and buckets -- for the same
+    observations, through the port's registry."""
+    from dynamo_tpu.runtime.metrics import MetricsRegistry as JaxRegistry
+    from dynamo_tpu.runtime.metrics import OffloadMetrics as JaxOffloadMetrics
+    from dynamo_tpu_torch.runtime.metrics import MetricsRegistry, OffloadMetrics
+
+    texts = []
+    for reg, cls in ((JaxRegistry(), JaxOffloadMetrics), (MetricsRegistry(), OffloadMetrics)):
+        m = cls(reg)
+        m.record_offload("host", 2097152, 0.004)
+        m.record_offload("swap", 4194304, 0.02)
+        m.record_onboard("prefix", 134217728, 0.011)
+        m.record_onboard("swap", 4194304, 0.0005)
+        m.tier_blocks.labels("host").set(128)
+        m.tier_blocks.labels("disk").set(40)
+        m.tier_hits.labels("host").inc(64)
+        m.tier_promotes.labels("disk").inc(3)
+        m.preemptions.labels("swap").inc()
+        m.preemptions.labels("recompute").inc(2)
+        m.swap_events.labels("out").inc()
+        m.swap_fallbacks.labels("budget").inc()
+        m.onboard_fallbacks.labels("truncate").inc(0)
+        m.copy_fails.inc(0)
+        m.prefetch_issued.inc(7)
+        m.prefetch_hits.inc(5)
+        m.prefetch_wasted.inc(4096)
+        m.prefetch_overlap.observe(0.93)
+        body, _ = reg.render()
+        texts.append(re.sub(r"(_created\{?[^ ]*) \S+", r"\1 T", body.decode()))
+    assert texts[1] == texts[0]
+    assert "dynamo_kv_offload_copy_failures_total 0.0" in texts[1]
+
+
 async def wait_idle(engine, timeout=10.0):
     """Until no lane holds a slot and nothing waits (bounded)."""
     loop = asyncio.get_running_loop()
