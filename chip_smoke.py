@@ -196,6 +196,33 @@ Every phase is fatal on failure:
    width: data and scales bit-exact.  No offload copy failure and no swap
    or onboard fallback may be counted.
 
+11. serve-dyn: the distributed runtime.  (a) The reference phase's f32
+   model as one worker on the card behind a loopback ``HubServer`` and the
+   front end of ``run in=http out=dyn --router-mode kv`` (``ModelWatcher``
+   over ``HttpService``, the KV router's pipeline): the greedy
+   ``/v1/completions`` texts equal the reference phase's direct streams
+   decoded, and ``/v1/embeddings`` through the distributed leg (the
+   worker's ``{ep}_embed`` endpoint) is within ``EMBED_TOL`` of the
+   engine's in-process ``embed``.  (b) Two Llama-3-8B workers (full width
+   and depth, bf16, random weights of seed 0, ``EngineConfig(num_pages=
+   1024)``), each on its own ``DistributedRuntime`` in this process, set
+   up by the CLI's ``serve_worker``: 4 distinct 1024-token prefixes, 4
+   requests each with suffixes of 16 to 256 tokens, 32 new tokens, greedy;
+   round 1 sends one request per prefix, round 2 the other 12 once the
+   router's index holds round 1's 4 x 64 prefix blocks.  Under ``kv``
+   every round-2 request must go to the worker that served its prefix,
+   with at least 64 overlap blocks (the router's hit-rate events), that
+   worker's engine must count at least 1024 cached prompt tokens for each,
+   every request must end ``length`` with exact usage, and the launch
+   counts must equal the sum of both engines' dispatches.  The same
+   traffic on fresh workers under ``round_robin``; requests per worker,
+   round-2 prefix-hit blocks, client TTFT p50/p99, ``tok_s`` and peak GiB
+   printed for both.  (c) ``python -m dynamo_tpu_torch hub``, ``run in=dyn
+   out=torch`` over a 2-layer Llama-3-8B-width checkpoint and ``run
+   in=http out=dyn --router-mode kv`` as three processes: their texts
+   equal an in-process engine's from the same arrays, ``llmctl list``
+   names the model with one instance, SIGINT ends each with exit code 0.
+
 In every served run each kernel's launch count (graph replays included)
 must equal what the run's dispatches imply (``expected_launches``), and
 the run prints its loop mode, graph captures and replays and the dispatch
@@ -3044,29 +3071,28 @@ def bf16_bits(a: np.ndarray) -> np.ndarray:
     return t.view(torch.int16).numpy().view(np.uint16)
 
 
-def cli_phase(tmp: str, card: str) -> Tuple[List[str], List[str]]:
-    """Write a checkpoint at Llama-3-8B width with 2 layers, serve it with
-    ``python -m dynamo_tpu_torch run in=http out=torch`` in a subprocess
-    (SIGINT must end it with exit code 0) and with an in-process engine
-    built from the same numpy arrays through ``params_from_numpy``, the
-    same greedy requests one at a time; returns both sets of texts."""
-    import signal
-    import socket
+# the checkpoint phases' config.json: Llama-3-8B's widths, 2 layers
+CKPT_CONFIG = {"model_type": "llama", "vocab_size": 128256, "hidden_size": 4096,
+               "intermediate_size": 14336, "num_hidden_layers": 2,
+               "num_attention_heads": 32, "num_key_value_heads": 8,
+               "rope_theta": 500000.0, "max_position_embeddings": 8192,
+               "rms_norm_eps": 1e-5}
 
-    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
-    from dynamo_tpu_torch.engine.engine import TorchEngine
+
+def write_cli_checkpoint(tmp: str, what: str):
+    """A checkpoint directory at Llama-3-8B width with 2 layers
+    (``config.json``, ``model.safetensors`` from this script's writer, a
+    byte-level tokenizer of 128256 ids), random bf16 weights of seed 5;
+    returns its path, config, the weights as numpy arrays and the
+    tokenizer."""
+    from dynamo_tpu_torch.engine.config import ModelConfig
     from dynamo_tpu_torch.engine.model import init_params
-    from dynamo_tpu_torch.engine.weights import params_from_numpy
     from dynamo_tpu_torch.llm.tokenizer import Tokenizer
 
     path = os.path.join(tmp, "ckpt")
     os.makedirs(path)
-    hf = {"model_type": "llama", "vocab_size": 128256, "hidden_size": 4096,
-          "intermediate_size": 14336, "num_hidden_layers": 2, "num_attention_heads": 32,
-          "num_key_value_heads": 8, "rope_theta": 500000.0,
-          "max_position_embeddings": 8192, "rms_norm_eps": 1e-5}
     with open(os.path.join(path, "config.json"), "w") as f:
-        json.dump(hf, f)
+        json.dump(CKPT_CONFIG, f)
     write_tokenizer(path, 128000, 256)
     cfg = ModelConfig.from_pretrained(path)
     t0 = time.perf_counter()
@@ -3098,85 +3124,56 @@ def cli_phase(tmp: str, card: str) -> Tuple[List[str], List[str]]:
     t1 = time.perf_counter()
     write_safetensors(os.path.join(path, "model.safetensors"), tensors)
     size = os.path.getsize(os.path.join(path, "model.safetensors"))
-    print(f"serve-http: (c) weights made in {t1 - t0:.3f} s, model.safetensors "
+    print(f"{what} weights made in {t1 - t0:.3f} s, model.safetensors "
           f"{size / 2**30:.3f} GiB written in {time.perf_counter() - t1:.3f} s")
+    return path, cfg, arrays, Tokenizer.from_model_dir(path)
 
-    tok = Tokenizer.from_model_dir(path)
+
+def cli_requests() -> Tuple[List[dict], dict]:
+    """The checkpoint phases' greedy requests: three token-id completions
+    and one chat."""
     rng = np.random.default_rng(5)
     reqs = [request(rng.integers(1, 128000, n), 16) for n in (5, 40, 300)]
     chat = {"model": "ckpt", "max_tokens": 16,
             "messages": [{"role": "user", "content": "Hello from the port! Ça va?"}]}
+    return reqs, chat
 
-    async def ask(port: int) -> List[str]:
-        from dynamo_tpu_torch.bench_serving import run_bench
 
-        out = []
-        for req in reqs:
-            rep = await run_bench("127.0.0.1", port, "ckpt", bench_items([req]),
-                                  concurrency=1, stream=False)
-            check_http_results("serve-http (c)", [rep], [[req]])
-            out.append(rep.results[0].text)
-        status, body = await http_call(port, "POST", "/v1/chat/completions", chat)
-        if status != 200:
-            fail(f"serve-http (c): chat answered {status}: {body[:300]!r}")
-        doc = json.loads(body)
-        out.append(doc["choices"][0]["message"]["content"])
-        return out
+async def ask_texts(port: int, what: str) -> List[str]:
+    """``cli_requests()`` one at a time against the front end on ``port``;
+    returns the texts."""
+    from dynamo_tpu_torch.bench_serving import run_bench
 
-    # the CLI in a subprocess
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    t0 = time.perf_counter()
-    log_path = os.path.join(tmp, "cli.log")
-    with open(log_path, "w") as log_file:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "dynamo_tpu_torch", "run", "in=http", "out=torch",
-             "--model-path", path, "--port", str(port)],
-            cwd=ROOT, stdout=log_file, stderr=subprocess.STDOUT, text=True,
-        )
+    reqs, chat = cli_requests()
+    out = []
+    for req in reqs:
+        rep = await run_bench("127.0.0.1", port, "ckpt", bench_items([req]),
+                              concurrency=1, stream=False)
+        check_http_results(what, [rep], [[req]])
+        out.append(rep.results[0].text)
+    status, body = await http_call(port, "POST", "/v1/chat/completions", chat)
+    if status != 200:
+        fail(f"{what}: chat answered {status}: {body[:300]!r}")
+    doc = json.loads(body)
+    out.append(doc["choices"][0]["message"]["content"])
+    return out
 
-    def cli_log() -> str:
-        with open(log_path) as f:
-            return f.read()
 
-    try:
-        while True:
-            if proc.poll() is not None:
-                fail(f"the CLI exited with {proc.returncode}: {cli_log()[-3000:]}")
-            if time.perf_counter() - t0 > 300:
-                fail("the CLI did not answer /health within 300 s")
-            try:
-                status, _ = asyncio.run(http_call(port, "GET", "/health"))
-                if status == 200:
-                    break
-            except OSError:
-                pass
-            time.sleep(0.25)
-        up = time.perf_counter() - t0
-        cli_texts = asyncio.run(ask(port))
-        proc.send_signal(signal.SIGINT)
-        proc.wait(timeout=120)
-        log = cli_log()
-        print(f"serve-http: (c) CLI healthy after {up:.3f} s, exit code {proc.returncode}; "
-              f"its output: {log.strip().splitlines()[:3]}")
-        if proc.returncode != 0:
-            fail(f"the CLI exited with {proc.returncode} on SIGINT: {log[-3000:]}")
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-
-    # the same requests in process, from the same arrays
+def in_process_texts(cfg, arrays, tok, what: str) -> List[str]:
+    """``cli_requests()`` through an in-process engine built from the
+    checkpoint's numpy arrays (``params_from_numpy``) behind the HTTP
+    service, launch invariants held."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.weights import params_from_numpy
     from dynamo_tpu_torch.http.service import HttpService, ModelManager
     from dynamo_tpu_torch.llm.backend import Backend
     from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
     from dynamo_tpu_torch.runtime.pipeline import link
 
     engine = TorchEngine(cfg, params_from_numpy(arrays, cfg, device="cuda"), EngineConfig())
-    del arrays
 
-    async def in_process() -> List[str]:
+    async def serve_in_process() -> List[str]:
         pipe = link(OpenAIPreprocessor("ckpt", tok), Backend(tok), engine)
         manager = ModelManager()
         manager.add_completion_model("ckpt", pipe)
@@ -3184,18 +3181,484 @@ def cli_phase(tmp: str, card: str) -> Tuple[List[str], List[str]]:
         service = HttpService(manager, port=0)
         await service.start()
         try:
-            return await ask(service.address[1])
+            return await ask_texts(service.address[1], what)
         finally:
             await service.stop()
             await engine.stop()
 
     reset_launches()
-    direct_texts = asyncio.run(in_process())
-    check_launch_invariants("serve-http (c) in process", engine, read_launches())
+    texts = asyncio.run(serve_in_process())
+    check_launch_invariants(f"{what} in process", engine, read_launches())
     del engine
     gc.collect()
     torch.cuda.empty_cache()
+    return texts
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class Proc:
+    """A ``python -m dynamo_tpu_torch`` subprocess with its output in a log
+    file."""
+
+    def __init__(self, tmp: str, name: str, *args: str) -> None:
+        self.name = name
+        self.log_path = os.path.join(tmp, f"{name}.log")
+        with open(self.log_path, "w") as log_file:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "dynamo_tpu_torch", *args],
+                cwd=ROOT, stdout=log_file, stderr=subprocess.STDOUT, text=True,
+            )
+
+    def log(self) -> str:
+        with open(self.log_path) as f:
+            return f.read()
+
+    def check_alive(self) -> None:
+        if self.proc.poll() is not None:
+            fail(f"{self.name} exited with {self.proc.returncode}: {self.log()[-3000:]}")
+
+    def interrupt(self, what: str) -> None:
+        """SIGINT, which must end it with exit code 0 within 120 s."""
+        import signal
+
+        self.proc.send_signal(signal.SIGINT)
+        self.proc.wait(timeout=120)
+        if self.proc.returncode != 0:
+            fail(f"{what}: {self.name} exited with {self.proc.returncode} on SIGINT: "
+                 f"{self.log()[-3000:]}")
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def wait_http(port: int, path: str, ready: Callable[[bytes], bool], procs: List["Proc"],
+              what: str, limit_s: float = 300.0) -> float:
+    """Poll ``GET path`` on ``port`` until ``ready(body)``; fails when a
+    process exits first or after ``limit_s``.  Returns the seconds taken."""
+    t0 = time.perf_counter()
+    while True:
+        for p in procs:
+            p.check_alive()
+        if time.perf_counter() - t0 > limit_s:
+            fail(f"{what}: {path} not ready within {limit_s:.0f} s")
+        try:
+            status, body = asyncio.run(http_call(port, "GET", path))
+            if status == 200 and ready(body):
+                return time.perf_counter() - t0
+        except OSError:
+            pass
+        time.sleep(0.25)
+
+
+def cli_phase(tmp: str, card: str) -> Tuple[List[str], List[str]]:
+    """Write a checkpoint at Llama-3-8B width with 2 layers, serve it with
+    ``python -m dynamo_tpu_torch run in=http out=torch`` in a subprocess
+    (SIGINT must end it with exit code 0) and with an in-process engine
+    built from the same numpy arrays through ``params_from_numpy``, the
+    same greedy requests one at a time; returns both sets of texts."""
+    path, cfg, arrays, tok = write_cli_checkpoint(tmp, "serve-http: (c)")
+    port = free_port()
+    cli = Proc(tmp, "cli", "run", "in=http", "out=torch", "--model-path", path,
+               "--port", str(port))
+    try:
+        up = wait_http(port, "/health", lambda body: True, [cli], "serve-http (c)")
+        cli_texts = asyncio.run(ask_texts(port, "serve-http (c)"))
+        cli.interrupt("serve-http (c)")
+        print(f"serve-http: (c) CLI healthy after {up:.3f} s, exit code {cli.proc.returncode}; "
+              f"its output: {cli.log().strip().splitlines()[:3]}")
+    finally:
+        cli.kill()
+    direct_texts = in_process_texts(cfg, arrays, tok, "serve-http (c)")
     return cli_texts, direct_texts
+
+
+# -- serve-dyn: the distributed runtime ------------------------------------------
+
+
+class DynCluster:
+    """A loopback ``HubServer``, one worker per engine -- each on its own
+    ``DistributedRuntime``, set up as ``run in=dyn out=torch`` sets it up
+    (``cli.serve_worker``: the generate and embed endpoints, the KV event
+    and load-metrics publishers, the model's registration) -- and the front
+    end of ``run in=http out=dyn`` (``ModelWatcher`` over ``HttpService``)
+    with ``--router-mode``'s pipeline: the KV router's factory for ``kv``,
+    else ``PushRouter`` in that mode.  The front end's runtime also
+    subscribes to the router's hit-rate events."""
+
+    async def start(self, engines, model_dir: str, router_mode: str):
+        from dynamo_tpu_torch.cli import kv_engine_factory, serve_worker
+        from dynamo_tpu_torch.http.service import HttpService, ModelManager
+        from dynamo_tpu_torch.llm.discovery import ModelWatcher
+        from dynamo_tpu_torch.runtime.component import DistributedRuntime, RouterMode
+        from dynamo_tpu_torch.runtime.transports.hub import HubServer
+
+        self.engines = engines
+        self.hub = HubServer(host="127.0.0.1")
+        host, port = await self.hub.start()
+        addr = f"{host}:{port}"
+        self.workers, self.pubs = [], []
+        for engine in engines:
+            rt = await DistributedRuntime.detached(addr)
+            _, pub = await serve_worker(rt, engine, "dyn://dynamo.backend.generate",
+                                        model_dir, "m")
+            self.workers.append(rt)
+            self.pubs.append(pub)
+        self.front = await DistributedRuntime.detached(addr)
+        self.manager = ModelManager()
+        self.factory = None
+        if router_mode == "kv":
+            self.factory = kv_engine_factory(self.front)
+            self.watcher = ModelWatcher(self.front, self.manager, engine_factory=self.factory)
+        else:
+            self.watcher = ModelWatcher(self.front, self.manager,
+                                        router_mode=RouterMode(router_mode))
+        await self.watcher.start()
+        self.hit_rate = await self.front.namespace("dynamo").subscribe("kv-hit-rate")
+        self.service = HttpService(self.manager, port=0)
+        await self.service.start()
+        self.port = self.service.address[1]
+        t0 = time.perf_counter()
+        while not self.manager.list_models() or (
+            self.factory is not None
+            and len(self.factory.choosers["m"].scheduler.workers.endpoints) < len(engines)
+        ):
+            if time.perf_counter() - t0 > 60:
+                fail("serve-dyn: the model or its workers' load metrics never reached "
+                     "the front end")
+            await asyncio.sleep(0.05)
+        return self
+
+    def requests_per_worker(self) -> List[int]:
+        """Requests each worker's generate endpoint took."""
+        return [rt.endpoint_stats["dynamo/backend/generate"].requests for rt in self.workers]
+
+    async def hit_rate_events(self, n: int) -> List[dict]:
+        return [json.loads((await asyncio.wait_for(self.hit_rate.next(), 30))[1])
+                for _ in range(n)]
+
+    async def stop(self) -> None:
+        await self.hit_rate.close()
+        await self.service.stop()
+        await self.watcher.stop()
+        await self.front.shutdown()
+        for pub, engine, rt in zip(self.pubs, self.engines, self.workers):
+            await pub.close()
+            await engine.stop()
+            await rt.shutdown()
+        await self.hub.stop()
+
+
+def dyn_reference(ref: Dict[str, object], tmp: str) -> None:
+    """serve-dyn (a): the reference phase's f32 model as one worker on the
+    card behind the KV-routed front end: its greedy ``/v1/completions``
+    texts equal the reference phase's direct streams decoded (the CPU's),
+    and ``/v1/embeddings`` through the distributed leg equals the worker
+    engine's in-process ``embed`` within ``EMBED_TOL``."""
+    from dynamo_tpu_torch.bench_serving import run_bench
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.llm.tokenizer import Tokenizer
+
+    cfg, params, batches = ref["cfg"], ref["params"], ref["batches"]
+    tok_dir = os.path.join(tmp, "bytes")
+    os.makedirs(tok_dir)
+    write_tokenizer(tok_dir, cfg.vocab_size, 0)
+    tok = Tokenizer.from_model_dir(tok_dir)
+    want = [stream_text(tok, t) for t in ref["streams"]]
+    eng = TorchEngine(cfg, params_on(params, "cuda"), EngineConfig(**ref["ecfg"]), device="cuda")
+    embed_inputs = [r["token_ids"] for r in batches[0]]
+
+    async def body():
+        cluster = await DynCluster().start([eng], tok_dir, "kv")
+        try:
+            texts = []
+            for batch in batches:
+                rep = await run_bench("127.0.0.1", cluster.port, "m", bench_items(batch),
+                                      concurrency=len(batch), stream=True)
+                check_http_results("serve-dyn (a)", [rep], [batch])
+                texts += [r.text for r in rep.results]
+            status, raw = await http_call(cluster.port, "POST", "/v1/embeddings",
+                                          {"model": "m", "input": embed_inputs})
+            if status != 200:
+                fail(f"serve-dyn (a): /v1/embeddings answered {status}: {raw[:300]!r}")
+            served_vecs = [d["embedding"] for d in json.loads(raw)["data"]]
+            direct = await eng.embed(embed_inputs)
+            return texts, served_vecs, direct
+        finally:
+            await cluster.stop()
+
+    reset_launches()
+    texts, served_vecs, direct = asyncio.run(body())
+    check_launch_invariants("serve-dyn (a)", eng, read_launches())
+    if texts != want:
+        fail(f"serve-dyn (a): texts {texts} differ from the decoded direct streams {want}")
+    err = float(np.abs(np.array(served_vecs) - np.array(direct)).max())
+    if not err <= EMBED_TOL:
+        fail(f"serve-dyn (a): distributed embeddings differ from embed() by {err}")
+    print(f"serve-dyn: (a) {len(texts)} requests through hub, KV router and worker on the "
+          f"card: texts == decoded direct CPU streams; {len(direct)} embeddings through "
+          f"the distributed leg within {err:.3e} of embed()")
+
+
+def dyn_requests(vocab: int) -> List[Tuple[int, dict]]:
+    """(prefix index, request): 4 distinct 1024-token prefixes (64 blocks of
+    16), 4 requests each with suffixes of 16 to 256 tokens -- each request a
+    distinct length in blocks, which names it in the router's hit-rate
+    events --, 32 new tokens, greedy."""
+    rng = np.random.default_rng(12)
+    prefixes = [rng.integers(1, vocab, 1024) for _ in range(4)]
+    lengths = rng.permutation(np.arange(1, 17) * 16)
+    # round 1 takes prefixes 0 to 3 in order; round 2's order is shuffled,
+    # so that round robin does not happen to follow round 1's placement
+    order = list(range(4)) + (4 + rng.permutation(12)).tolist()
+    out = []
+    for k, n in zip(order, lengths):
+        p = k % 4
+        out.append((p, request(np.concatenate([prefixes[p], rng.integers(1, vocab, n)]), 32)))
+    return out
+
+
+def dyn_full_width(mode: str, tok_dir: str, card: str) -> Dict[str, object]:
+    """serve-dyn (b) under one router mode: two fresh Llama-3-8B workers,
+    round 1 (one request per prefix), then -- once, under ``kv``, the
+    router's index holds round 1's 4 x 64 prefix blocks -- round 2 (the
+    other 12).  Returns the routing, hit and launch numbers."""
+    from dynamo_tpu_torch.bench_serving import run_bench
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.tokens.hashing import hash_blocks
+
+    cfg = ModelConfig.llama3_8b()
+    torch.cuda.reset_peak_memory_stats()
+    engines = [TorchEngine.random_init(cfg, EngineConfig(num_pages=1024), seed=0)
+               for _ in range(2)]
+    block = engines[0].cfg.page_size
+    traffic = dyn_requests(cfg.vocab_size)
+    rounds = [traffic[:4], traffic[4:]]
+    out: Dict[str, object] = {}
+
+    async def body():
+        cluster = await DynCluster().start(engines, tok_dir, mode)
+        try:
+            reports, events = [], []
+            t0 = time.perf_counter()
+            for i, rnd in enumerate(rounds):
+                if i == 1 and mode == "kv":
+                    # round 2 goes once the index holds every prefix block
+                    index = cluster.factory.choosers["m"].indexer
+                    hashes = [hash_blocks(r["token_ids"][:1024], block)[1] for _, r in rnd]
+                    t1 = time.perf_counter()
+                    while min(max(index.find_matches(h).scores.values(), default=0)
+                              for h in hashes) < 1024 // block:
+                        if time.perf_counter() - t1 > 30:
+                            fail("serve-dyn (b): round 1's prefix blocks never reached "
+                                 "the router's index")
+                        await asyncio.sleep(0.02)
+                    out["index_wait_s"] = time.perf_counter() - t1
+                hits_before = [e._prefix_hits for e in engines]
+                per_worker_before = cluster.requests_per_worker()
+                graphs_before = [(e.graph_captures, e.graphs.capture_ms) for e in engines]
+                batch = [r for _, r in rnd]
+                reports.append(await run_bench("127.0.0.1", cluster.port, "m",
+                                               bench_items(batch), concurrency=len(batch),
+                                               stream=True))
+                out[f"hits_{i}"] = [e._prefix_hits - h for e, h in zip(engines, hits_before)]
+                out[f"routed_{i}"] = [a - b for a, b in zip(cluster.requests_per_worker(),
+                                                            per_worker_before)]
+                # graphs captured during the round (new decode shapes), and
+                # the host ms the captures took with their eager warm-ups
+                out[f"captures_{i}"] = [
+                    (e.graph_captures - n, round(e.graphs.capture_ms - ms, 3))
+                    for e, (n, ms) in zip(engines, graphs_before)
+                ]
+                if mode == "kv":
+                    events.append(await cluster.hit_rate_events(len(rnd)))
+            out["wall_s"] = time.perf_counter() - t0
+            out["leases"] = [rt.primary_lease for rt in cluster.workers]
+            return reports, events
+        finally:
+            await cluster.stop()
+
+    reset_launches()
+    reports, events = asyncio.run(body())
+    out["launches"] = check_launches_over(f"serve-dyn (b) {mode}", engines, read_launches())
+    for i, (rep, rnd) in enumerate(zip(reports, rounds)):
+        check_http_results(f"serve-dyn (b) {mode} round {i + 1}", [rep], [[r for _, r in rnd]])
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["reports"] = reports
+    out["events"] = events
+    out["rounds"] = rounds
+    out["block"] = block
+    out["dispatches"] = [dict(e.dispatches) for e in engines]
+    out["loops"] = [loop_line(e, out["wall_s"]) for e in engines]
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_launches_over(what: str, engines, counted: Dict[str, int]) -> Dict[str, int]:
+    """The launch invariants of engines that served in one process: the
+    process-wide counts equal the sum of what each engine's dispatches
+    imply, and kernels 5 and 1 launched."""
+    want = {k: sum(expected_launches(e)[k] for e in engines) for k in counted}
+    print(f"{what} launch invariants over {len(engines)} engines: counted {counted} "
+          f"expected {want}")
+    if counted != want:
+        fail(f"{what}: launches {counted} differ from the dispatches' {want}")
+    for name in ("packed_ragged_attention", "paged_decode_attention"):
+        if counted[name] <= 0:
+            fail(f"{what}: {name} never launched")
+    return counted
+
+
+def dyn_check_kv(res: Dict[str, object]) -> int:
+    """Under ``kv`` every round-2 request went to the worker that served its
+    prefix in round 1, with at least 64 overlap blocks routed, and that
+    worker's engine counted at least 1024 cached prompt tokens for each.
+    Returns the round-2 prefix-hit blocks."""
+    block, rounds, events = res["block"], res["rounds"], res["events"]
+    leases = res["leases"]
+
+    def by_isl(evs, rnd) -> List[Tuple[int, dict]]:
+        """(prefix, the request's hit-rate event): a request's length in
+        blocks names its event."""
+        out = []
+        for p, r in rnd:
+            isl = -(-len(r["token_ids"]) // block)
+            match = [e for e in evs if e["isl_blocks"] == isl]
+            if len(match) != 1:
+                fail(f"serve-dyn (b) kv: {len(match)} hit-rate events of {isl} blocks")
+            out.append((p, match[0]))
+        return out
+
+    holder = {p: ev["worker_id"] for p, ev in by_isl(events[0], rounds[0])}
+    if sorted(holder) != [0, 1, 2, 3]:
+        fail(f"serve-dyn (b) kv: round 1 holders {holder}")
+    routed = [0, 0]
+    for p, ev in by_isl(events[1], rounds[1]):
+        if ev["worker_id"] != holder[p] or ev["overlap_blocks"] < 1024 // block:
+            fail(f"serve-dyn (b) kv: a round-2 request of prefix {p} went to "
+                 f"{ev['worker_id']:x} with {ev['overlap_blocks']} overlap blocks; its "
+                 f"prefix's holder is {holder[p]:x}")
+        routed[leases.index(ev["worker_id"])] += 1
+    if routed != res["routed_1"]:
+        fail(f"serve-dyn (b) kv: the router's round-2 picks {routed} differ from what the "
+             f"workers took {res['routed_1']}")
+    for w, (n, hits) in enumerate(zip(routed, res["hits_1"])):
+        if hits < 1024 * n:
+            fail(f"serve-dyn (b) kv: worker {w} counted {hits} cached prompt tokens for "
+                 f"{n} round-2 requests, under 1024 each")
+    return sum(res["hits_1"]) // block
+
+
+def dyn_line(mode: str, res: Dict[str, object], card: str) -> str:
+    """One router mode's numbers: requests per worker, round 2's prefix-hit
+    blocks, client TTFT p50/p99 by round (round 1 on cold engines: their
+    graphs are captured as it runs), ``tok_s`` and peak GiB."""
+    ttft = []
+    toks = 0
+    for rep in res["reports"]:
+        lat = [r.ttft_s * 1e3 for r in rep.results]
+        ttft.append(f"{np.percentile(lat, 50):.3f}/{np.percentile(lat, 99):.3f}")
+        toks += sum(r.usage["completion_tokens"] for r in rep.results)
+    per_worker = [a + b for a, b in zip(res["routed_0"], res["routed_1"])]
+    return (f"serve-dyn: (b) {mode} requests_per_worker={per_worker} "
+            f"round2_per_worker={res['routed_1']} round2_prefix_hit_blocks="
+            f"{sum(res['hits_1']) // res['block']} ttft_p50/p99_ms round1={ttft[0]} "
+            f"round2={ttft[1]} tok_s={toks / res['wall_s']:.3f} wall_s={res['wall_s']:.3f} "
+            f"peak_gib={res['peak_gib']:.3f} on {card}")
+
+
+def dyn_cli(tmp: str, card: str) -> None:
+    """serve-dyn (c): ``hub``, ``run in=dyn out=torch`` and ``run in=http
+    out=dyn --router-mode kv`` as three processes over a 2-layer
+    Llama-3-8B-width checkpoint: their texts equal an in-process engine's
+    from the same arrays, ``llmctl list`` names the model with one instance,
+    and SIGINT ends each process with exit code 0."""
+    path, cfg, arrays, tok = write_cli_checkpoint(tmp, "serve-dyn: (c)")
+    hub_port, http_port = free_port(), free_port()
+    hub_addr = f"127.0.0.1:{hub_port}"
+    procs = []
+    try:
+        procs.append(Proc(tmp, "hub", "hub", "--host", "127.0.0.1", "--port", str(hub_port)))
+        procs.append(Proc(tmp, "worker", "run", "in=dyn", "out=torch", "--model-path", path,
+                          "--hub", hub_addr))
+        procs.append(Proc(tmp, "frontend", "run", "in=http", "out=dyn", "--hub", hub_addr,
+                          "--router-mode", "kv", "--port", str(http_port)))
+        up = wait_http(http_port, "/v1/models", lambda b: bool(json.loads(b)["data"]), procs,
+                       "serve-dyn (c)")
+        texts = asyncio.run(ask_texts(http_port, "serve-dyn (c)"))
+        ctl = subprocess.run(
+            [sys.executable, "-m", "dynamo_tpu_torch", "llmctl", "--hub", hub_addr, "list"],
+            cwd=ROOT, capture_output=True, text=True, timeout=120,
+        )
+        if ctl.returncode != 0 or not ctl.stdout.startswith(
+            "ckpt  instances=1  endpoint=dyn://dynamo.backend.generate"
+        ):
+            fail(f"serve-dyn (c): llmctl list answered {ctl.returncode}: {ctl.stdout!r} "
+                 f"{ctl.stderr[-2000:]!r}")
+        for p in reversed(procs):
+            p.interrupt("serve-dyn (c)")
+        print(f"serve-dyn: (c) hub, worker and front end served after {up:.3f} s; "
+              f"llmctl: {ctl.stdout.strip()!r}; exit codes "
+              f"{[p.proc.returncode for p in procs]} on SIGINT")
+    finally:
+        for p in procs:
+            p.kill()
+    direct = in_process_texts(cfg, arrays, tok, "serve-dyn (c)")
+    if texts != direct:
+        fail(f"serve-dyn (c): the processes' texts {texts} differ from the in-process "
+             f"engine's {direct}")
+    print(f"serve-dyn: (c) {len(texts)} requests: hub + worker + front end texts == "
+          f"in-process texts")
+
+
+def serve_dyn_phase(ref: Dict[str, object], card: str) -> None:
+    """The distributed runtime: (a) card against CPU, (b) two full-width
+    workers behind the KV router and then round robin, (c) the CLI's three
+    processes.  The temporary directory is deleted afterwards."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-dyn-")
+    try:
+        t0 = time.perf_counter()
+        dyn_reference(ref, tmp)
+        tok_dir = os.path.join(tmp, "llama3")
+        os.makedirs(tok_dir)
+        write_tokenizer(tok_dir, 128000, 256)
+        kv = dyn_full_width("kv", tok_dir, card)
+        hit_blocks = dyn_check_kv(kv)
+        print(f"serve-dyn: (b) kv: every round-2 request went to its prefix's holder with "
+              f">= 64 overlap blocks; the router's index held round 1's prefixes after "
+              f"{kv['index_wait_s']:.3f} s; round-2 cached prompt tokens per worker "
+              f"{kv['hits_1']} ({hit_blocks} blocks)")
+        print(dyn_line("kv", kv, card))
+        rr = dyn_full_width("round_robin", tok_dir, card)
+        check = [r for _, r in rr["rounds"][1]]
+        print(dyn_line("round_robin", rr, card))
+        print(f"serve-dyn: (b) round-2 prefix-hit blocks kv {hit_blocks} round_robin "
+              f"{sum(rr['hits_1']) // rr['block']} of {len(check) * 64} possible")
+        print(f"serve-dyn: (b) dispatches kv {kv['dispatches']} round_robin {rr['dispatches']}")
+        for mode, res in (("kv", kv), ("round_robin", rr)):
+            print(f"serve-dyn: (b) {mode} graph captures (count, host ms) per worker: "
+                  f"round 1 {res['captures_0']} round 2 {res['captures_1']}")
+            for w, line in enumerate(res["loops"]):
+                print(f"serve-dyn: (b) {mode} worker {w} {line}")
+        dyn_cli(tmp, card)
+        print(f"serve-dyn: phase {time.perf_counter() - t0:.3f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def profile_phase(out_path: str, plain_walls: Dict[str, float]) -> None:
@@ -3366,6 +3829,7 @@ def main() -> None:
     print(f"serve-a3: flash prefill launches {a3['launches']}")
     a45 = serve_a45_phase(ref, served, card)
     serve_kvbm_phase(ref, card)
+    serve_dyn_phase(ref, card)
     if profile_out is not None:
         profile_phase(
             profile_out,

@@ -1,23 +1,37 @@
 """dynamo-tpu-torch run: the PyTorch port's launch entry point.
 
-The JAX package's ``run`` for single-process serving on the card::
+The JAX package's ``run``, single-process and distributed::
 
     python -m dynamo_tpu_torch run in=http out=torch --model-path DIR
     python -m dynamo_tpu_torch run in=text out=torch --model-path DIR --prompt "hi"
     python -m dynamo_tpu_torch run in=batch out=torch --model-path DIR --input-file p.jsonl
+    python -m dynamo_tpu_torch hub --port 6650
+    python -m dynamo_tpu_torch run in=dyn out=torch --model-path DIR --hub H:P
+    python -m dynamo_tpu_torch run in=http out=dyn --hub H:P --router-mode kv
+    python -m dynamo_tpu_torch llmctl --hub H:P list
     python -m dynamo_tpu_torch bench --port 8080 --model NAME
 
-``in=http`` serves ``link(OpenAIPreprocessor, Backend, TorchEngine)`` behind
-the OpenAI ``HttpService``; ``in=text`` runs one prompt (or a stdin REPL)
-through the same pipeline, ``in=batch`` a JSONL file of prompts.  ``DIR``
-is a local HuggingFace checkpoint directory: ``config.json``,
-``*.safetensors``, ``tokenizer.json`` and ``tokenizer_config.json``.  The
-engine runs on the card; ``--device cpu`` runs it on the CPU.  ``bench``
-drives a running front end with the serving benchmark client.
+``in=http out=torch`` serves ``link(OpenAIPreprocessor, Backend,
+TorchEngine)`` behind the OpenAI ``HttpService``; ``in=text`` runs one
+prompt (or a stdin REPL) through the same pipeline, ``in=batch`` a JSONL
+file of prompts.  ``DIR`` is a local HuggingFace checkpoint directory:
+``config.json``, ``*.safetensors``, ``tokenizer.json`` and
+``tokenizer_config.json``.  The engine runs on the card; ``--device cpu``
+runs it on the CPU.  ``bench`` drives a running front end with the serving
+benchmark client.
+
+``hub`` runs the control plane.  ``in=dyn out=torch`` serves the engine as
+a worker on the hub: its generate endpoint, a ``{ep}_embed`` endpoint, the
+KV event and load-metrics publishers and the model's registration.
+``in=http out=dyn`` is the discovery-driven front end: a pipeline per
+registered model, routed round robin, at random, or by KV overlap
+(``--router-mode kv``).  ``--hub auto`` runs a hub in the process.
+``llmctl`` lists and removes registered models.
 
 Flags of the JAX CLI whose features the port does not have yet (the
-parallel degrees, the remote KV tier, disaggregation, the hub) are
-refused with an error that names them, never ignored.
+parallel degrees, the remote KV tier, disaggregation, the offload plane
+on a worker, which needs prefix onboarding) are refused with an error that
+names them, never ignored.
 """
 
 from __future__ import annotations
@@ -30,7 +44,7 @@ import logging
 import os
 import signal
 import sys
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 logger = logging.getLogger("dynamo.torch.run")
 
@@ -44,7 +58,6 @@ _REFUSED = {
     "--ep": lambda a: a.ep != 1,
     "--kv-remote": lambda a: a.kv_remote is not None,
     "--disagg": lambda a: a.disagg is not None,
-    "--hub": lambda a: a.hub is not None,
 }
 
 
@@ -128,17 +141,32 @@ def _add_engine_flags(p) -> None:
     p.add_argument("--kv-remote", default=None, help="not served by the port yet")
 
 
+def _positive_int(v: str) -> int:
+    n = int(v)
+    if n < 1:
+        raise argparse.ArgumentTypeError(f"must be >= 1, got {n}")
+    return n
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="dynamo-tpu-torch",
-        description="dynamo-tpu's PyTorch/CUDA port: OpenAI serving on one card",
+        description="dynamo-tpu's PyTorch/CUDA port: OpenAI serving on the card",
     )
     sub = p.add_subparsers(dest="cmd", required=True)
     run = sub.add_parser("run", help="serve, or run prompts through, the engine")
     run.add_argument("io", nargs=2, metavar=("in=...", "out=..."),
-                     help="in=http|text|batch out=torch")
+                     help="in=http|text|batch|dyn out=torch|dyn")
+    run.add_argument("--hub", help="hub address host:port, or 'auto'")
+    run.add_argument("--endpoint", default="dyn://dynamo.backend.generate",
+                     help="worker endpoint id (dyn://ns.comp.ep)")
     run.add_argument("--host", default="127.0.0.1")
     run.add_argument("--port", type=int, default=8080)
+    run.add_argument("--router-mode", default="round_robin",
+                     choices=["round_robin", "random", "kv"])
+    run.add_argument("--router-index-shards", type=_positive_int, default=1,
+                     help="KV router index shards (>1 = worker-sharded "
+                          "index for large fleets)")
     _add_engine_flags(run)
     run.add_argument("--request-template",
                      help="JSON file with request defaults "
@@ -149,9 +177,24 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--output-file", help="in=batch: JSONL results path "
                                            "(default stdout)")
     run.add_argument("--max-tokens", type=int, default=128)
-    run.add_argument("--hub", help="not served by the port yet")
     run.add_argument("--disagg", choices=["decode", "prefill"],
                      help="not served by the port yet")
+
+    # standalone hub (the control plane process)
+    hub = sub.add_parser("hub", help="run a standalone hub server")
+    hub.add_argument("--host", default="0.0.0.0")
+    hub.add_argument("--port", type=int, default=6650)
+    hub.add_argument("--data-dir", default=None,
+                     help="persist state (WAL + snapshot) here; a restart "
+                          "restores KV/leases/queues/objects")
+
+    # llmctl: cluster model administration
+    ctl = sub.add_parser("llmctl", help="list/remove models on a hub")
+    ctl.add_argument("--hub", required=True, help="hub address host:port")
+    ctlsub = ctl.add_subparsers(dest="llmcmd", required=True)
+    ctlsub.add_parser("list", help="list registered models + instances")
+    rm = ctlsub.add_parser("remove", help="deregister a model by name")
+    rm.add_argument("name")
 
     bn = sub.add_parser("bench",
                         help="drive a frontend with a workload; report "
@@ -185,7 +228,7 @@ def _parse_io(io) -> Tuple[str, str]:
     except ValueError:
         kv = {}
     if "in" not in kv or "out" not in kv:
-        raise SystemExit("usage: run in=<http|text|batch> out=torch")
+        raise SystemExit("usage: run in=<http|text|batch|dyn> out=<torch|dyn>")
     return kv["in"], kv["out"]
 
 
@@ -196,11 +239,41 @@ def _check_served(args) -> None:
         raise SystemExit(
             f"not served by the PyTorch port yet: {', '.join(refused)}"
         )
-    if args.inp not in ("http", "text", "batch"):
+    if args.inp not in ("http", "text", "batch", "dyn"):
         raise SystemExit(f"not served by the PyTorch port yet: in={args.inp}")
+    if args.out == "dyn":
+        if args.inp != "http":
+            raise SystemExit(f"out=dyn serves only in=http, not in={args.inp}")
+        if not args.hub:
+            raise SystemExit("in=http out=dyn requires --hub")
+        return
     if args.out != "torch":
         raise SystemExit(
             f"not served by the PyTorch port: out={args.out} (use out=torch)"
+        )
+    if args.inp != "dyn":
+        if args.hub is not None:
+            raise SystemExit(
+                f"--hub serves in=dyn and out=dyn only, not in={args.inp} "
+                f"out={args.out}"
+            )
+        return
+    if not args.hub:
+        raise SystemExit("in=dyn requires --hub")
+    from .offload import env_offload_spec
+
+    try:
+        env_armed = env_offload_spec() is not None
+    except ValueError:
+        env_armed = True  # malformed: the engine would refuse it anyway
+    if args.host_offload_blocks or args.disk_offload_blocks or env_armed:
+        # a JAX worker wires cross-worker prefix onboarding whenever its
+        # offload plane is armed; serving the plane without it would leave
+        # the router's donor hints and peer holdings unread
+        raise SystemExit(
+            "not served by the PyTorch port yet: in=dyn with the KV offload "
+            "plane (--host-offload-blocks, --disk-offload-blocks, "
+            "DYN_KV_OFFLOAD) needs prefix onboarding, which is not ported"
         )
 
 
@@ -283,14 +356,51 @@ def _pipeline(args):
     )
 
 
-async def _wait_for_signal() -> None:
-    """Park until SIGINT or SIGTERM."""
-    stop = asyncio.Event()
+async def _wait_forever(
+    stop: Optional[asyncio.Event] = None, drain_runtime=None
+) -> None:
+    """Park until a signal (or ``stop``).  With ``drain_runtime`` set,
+    SIGTERM triggers a graceful drain first -- deregister from discovery,
+    finish in-flight requests (``DYN_DRAIN_TIMEOUT_S``, default 30) --
+    before stopping.  SIGINT stays immediate."""
+    stop = stop or asyncio.Event()
     loop = asyncio.get_running_loop()
-    for sig in (signal.SIGINT, signal.SIGTERM):
-        with contextlib.suppress(NotImplementedError):
-            loop.add_signal_handler(sig, stop.set)
+    drain_tasks: set = set()
+
+    async def _drain_then_stop() -> None:
+        try:
+            await drain_runtime.drain(
+                float(os.environ.get("DYN_DRAIN_TIMEOUT_S", "30"))
+            )
+        finally:
+            stop.set()
+
+    def _on_term() -> None:
+        if drain_runtime is None or drain_runtime.draining:
+            stop.set()
+            return
+        task = asyncio.ensure_future(_drain_then_stop())
+        drain_tasks.add(task)
+        task.add_done_callback(drain_tasks.discard)
+
+    with contextlib.suppress(NotImplementedError):
+        loop.add_signal_handler(signal.SIGINT, stop.set)
+    with contextlib.suppress(NotImplementedError):
+        loop.add_signal_handler(signal.SIGTERM, _on_term)
     await stop.wait()
+
+
+async def _resolve_hub(args):
+    """Returns (hub_address, owned_hub_server|None); runs one in this
+    process for ``--hub auto``."""
+    if args.hub == "auto":
+        from .runtime.transports.hub import HubServer
+
+        server = HubServer()
+        host, port = await server.start()
+        logger.info("spawned in-process hub at %s:%d", host, port)
+        return f"{host}:{port}", server
+    return args.hub, None
 
 
 async def run_http_local(args) -> None:
@@ -317,10 +427,207 @@ async def run_http_local(args) -> None:
     await service.start()
     print(f"serving {name} at {service.url}  (POST /v1/chat/completions)", flush=True)
     try:
-        await _wait_for_signal()
+        await _wait_forever()
     finally:
         await service.stop()
         await engine.stop()
+
+
+def kv_engine_factory(runtime, index_shards: int = 1):
+    """The ``ModelWatcher`` engine factory of ``--router-mode kv``: per
+    model, a ``KvRouter`` over the worker component's KV events and load
+    metrics, and ``link(OpenAIPreprocessor, Backend, KvPushRouter)``.  The
+    chooser stops with its model.  No fleet observatory, so no quarantine
+    and no transfer predictor; no remote tier spec.  ``factory.choosers``
+    maps each model's name to its ``KvRouter``."""
+    from .llm.backend import Backend
+    from .llm.kv_router.router import KvPushRouter, KvRouter
+    from .llm.preprocessor import OpenAIPreprocessor
+    from .runtime.pipeline import link
+
+    async def factory(entry, card, client, router):
+        ns = runtime.namespace(entry.namespace)
+        chooser = KvRouter(
+            ns, ns.component(entry.component), block_size=card.kv_block_size,
+            index_shards=index_shards,
+        )
+        await chooser.start()
+        factory.choosers[entry.name] = chooser
+        tokenizer = card.tokenizer()
+        engine = link(
+            OpenAIPreprocessor(entry.name, tokenizer),
+            Backend(tokenizer),
+            KvPushRouter(router, chooser),
+        )
+        return engine, chooser.stop
+
+    factory.choosers = {}
+    return factory
+
+
+async def run_http_frontend(args) -> None:
+    """in=http out=dyn: the discovery-driven front end over the hub."""
+    from .http.service import HttpService, ModelManager
+    from .llm.discovery import ModelWatcher
+    from .runtime.component import DistributedRuntime, RouterMode
+
+    addr, owned_hub = await _resolve_hub(args)
+    runtime = await DistributedRuntime.detached(addr)
+    manager = ModelManager()
+    if args.router_mode == "kv":
+        watcher = ModelWatcher(
+            runtime, manager,
+            engine_factory=kv_engine_factory(runtime, args.router_index_shards),
+        )
+    else:
+        watcher = ModelWatcher(
+            runtime, manager, router_mode=RouterMode(args.router_mode)
+        )
+    service = None
+    try:
+        await watcher.start()
+        service = HttpService(
+            manager, host=args.host, port=args.port, template=_load_template(args)
+        )
+        await service.start()
+        print(f"frontend at {service.url} (hub {addr}); models appear on discovery",
+              flush=True)
+        stop = asyncio.Event()
+        # hub loss must end the front end (fail loud), not freeze its view
+        if hasattr(runtime.hub, "on_connection_lost"):
+            runtime.hub.on_connection_lost = stop.set
+        await _wait_forever(stop)
+    finally:
+        if service is not None:
+            await service.stop()
+        await watcher.stop()
+        await runtime.shutdown()
+        if owned_hub:
+            await owned_hub.stop()
+
+
+async def serve_worker(runtime, engine, endpoint: str, model_path: str,
+                       model_name: Optional[str] = None):
+    """What ``run in=dyn`` serves on a connected runtime: the engine on
+    ``endpoint`` (``dyn://ns.comp.ep``), its embeddings on ``{ep}_embed``,
+    the KV event and load-metrics publishers, and the model's registration
+    with the engine's pages as the router's blocks.  Returns the model card
+    and the KV event publisher (close it before stopping the engine)."""
+    from .llm.embedding import EmbeddingEngine
+    from .llm.kv_router.publisher import KvEventPublisher, WorkerMetricsPublisher
+    from .llm.model_card import register_llm
+    from .protocols.endpoint import parse_endpoint_id
+
+    ns_name, comp_name, ep_name = parse_endpoint_id(endpoint)
+    ns = runtime.namespace(ns_name)
+    comp = ns.component(comp_name)
+    ep = comp.endpoint(ep_name)
+    await ep.serve(engine)
+    # pooled-embedding leg: a sibling endpoint the front end's watcher
+    # finds through the model entry's embed_endpoint field
+    embed_ep_name = f"{ep_name}_embed"
+    await comp.endpoint(embed_ep_name).serve(
+        EmbeddingEngine(engine.embed, max_input_tokens=engine.cfg.max_seq_len)
+    )
+    pub = KvEventPublisher(ns, worker_id=runtime.primary_lease)
+    pub.hook(engine)
+    await WorkerMetricsPublisher(engine.metrics).attach(comp)
+    # the router hashes prompts in the card's blocks: the engine's blocks
+    # are its pages
+    card = await register_llm(
+        runtime, ep, model_path,
+        model_name=model_name,
+        kv_block_size=engine.cfg.page_size,
+        embed_endpoint=embed_ep_name,
+    )
+    return card, pub
+
+
+async def run_worker(args) -> None:
+    """in=dyn out=torch: the engine as a worker on the hub."""
+    from .runtime import metrics as rtm
+    from .runtime.component import DistributedRuntime
+
+    # build the engine BEFORE connecting: weight loading blocks the event
+    # loop long enough to starve lease keepalives and get this worker evicted
+    engine = _make_engine(args)
+    owned_hub = runtime = pub = None
+    try:
+        addr, owned_hub = await _resolve_hub(args)
+        runtime = await DistributedRuntime.detached(addr)
+        card, pub = await serve_worker(
+            runtime, engine, args.endpoint, args.model_path, args.model_name
+        )
+        rtm.set_worker_identity(worker_id=runtime.primary_lease, role="worker")
+        stop = asyncio.Event()
+        # hub loss orphans this worker's registrations: exit so a supervisor
+        # restarts it into a live cluster (fail loud)
+        if hasattr(runtime.hub, "on_connection_lost"):
+            runtime.hub.on_connection_lost = stop.set
+        print(f"worker serving model {card.name} on {args.endpoint} (hub {addr})",
+              flush=True)
+        await _wait_forever(stop, drain_runtime=runtime)
+    finally:
+        if pub is not None:
+            await pub.close()
+        await engine.stop()
+        if runtime is not None:
+            await runtime.shutdown()
+        if owned_hub:
+            await owned_hub.stop()
+
+
+async def run_hub(args) -> None:
+    """hub: the standalone control plane, until SIGINT or SIGTERM."""
+    from .runtime.transports.hub import HubServer
+
+    server = HubServer(host=args.host, port=args.port, data_dir=args.data_dir)
+    host, port = await server.start()
+    print(f"hub at {host}:{port}", flush=True)
+    try:
+        await _wait_forever()
+    finally:
+        await server.stop()
+
+
+async def run_llmctl(args) -> int:
+    """Model administration against a live hub: list or remove models."""
+    from .llm.model_card import MDC_OBJ_PREFIX, MODEL_ROOT, ModelEntry, slugify
+    from .runtime.transports.client import HubClient
+
+    host, _, port = args.hub.rpartition(":")
+    try:
+        hub = await HubClient(host or "127.0.0.1", int(port)).connect()
+    except OSError as e:
+        raise SystemExit(f"cannot reach hub at {args.hub}: {e}")
+    try:
+        entries = await hub.kv_get_prefix(f"{MODEL_ROOT}/")
+        if args.llmcmd == "list":
+            by_slug: Dict[str, list] = {}
+            for key, blob in entries:
+                slug = key.split("/")[1]
+                by_slug.setdefault(slug, []).append(ModelEntry.from_json(blob))
+            if not by_slug:
+                print("no models registered")
+                return 0
+            for slug, insts in sorted(by_slug.items()):
+                e = insts[0]
+                print(
+                    f"{e.name}  instances={len(insts)}  "
+                    f"endpoint=dyn://{e.namespace}.{e.component}.{e.endpoint}  "
+                    f"type={e.model_type}"
+                )
+            return 0
+        slug = slugify(args.name)
+        n = await hub.kv_delete_prefix(f"{MODEL_ROOT}/{slug}/")
+        # the card object is keyed by slug as well; best-effort cleanup
+        with contextlib.suppress(Exception):
+            await hub.obj_del(f"{MDC_OBJ_PREFIX}/{slug}")
+        print(f"removed {n} instance entr{'y' if n == 1 else 'ies'} for "
+              f"{args.name!r}")
+        return 0 if n else 1
+    finally:
+        await hub.close()
 
 
 async def _ask(pipeline, name: str, text: str, max_tokens: int, on_delta) -> Optional[str]:
@@ -467,9 +774,18 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.cmd == "bench":
         return asyncio.run(run_bench(args))
+    if args.cmd == "llmctl":
+        return asyncio.run(run_llmctl(args))
+    if args.cmd == "hub":
+        asyncio.run(run_hub(args))
+        return 0
     args.inp, args.out = _parse_io(args.io)
     _check_served(args)
-    runner = {"http": run_http_local, "text": run_text, "batch": run_batch}[args.inp]
+    if args.out == "dyn":
+        runner = run_http_frontend
+    else:
+        runner = {"http": run_http_local, "text": run_text, "batch": run_batch,
+                  "dyn": run_worker}[args.inp]
     try:
         asyncio.run(runner(args))
     except KeyboardInterrupt:

@@ -274,6 +274,16 @@ class Result:
         return self.host.numpy()
 
 
+# One executor call of one engine at a time in the process.  A CUDA graph
+# capture must overlap neither another thread's device-wide calls (the
+# device synchronize ``torch.cuda.graph`` begins with) nor its launches
+# (the capture's launch-count delta would take them in, and every count is
+# process-wide), so engines that share a process -- workers of one
+# cluster, as ``chip_smoke.py``'s serve-dyn runs them -- take turns at
+# dispatching, committing and capturing.  One engine never waits on it.
+DEVICE_TURN = threading.Lock()
+
+
 def _handles_ready(res: Result) -> bool:
     """Non-blocking readiness probe of a dispatched result: True once its
     host copy has landed, so the commit reads it without waiting.  THE
@@ -771,7 +781,7 @@ class TorchEngine:
 
     @staticmethod
     def _inference(fn, *args):
-        with torch.inference_mode():
+        with DEVICE_TURN, torch.inference_mode():
             return fn(*args)
 
     def _entries_ready(self, entries: List[Inflight]) -> bool:

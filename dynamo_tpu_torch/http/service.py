@@ -12,8 +12,9 @@ An entry's engine is an AsyncEngine taking Context[ChatCompletionRequest]
 The JAX package's service trimmed to what the PyTorch engine serves: chat,
 completions, embeddings, models, health, live and metrics, with the
 admission bound, per-request deadlines, request templates, SSE and
-aggregated bodies.  The trace, profile, flight-recorder and fleet routes
-are not served.
+aggregated bodies.  The trace, profile and flight-recorder routes are not
+served; the fleet routes answer 503, as the JAX service's do without an
+observatory.
 """
 
 from __future__ import annotations
@@ -188,6 +189,10 @@ class HttpService:
         self.server.route("GET", "/health", self._health)
         self.server.route("GET", "/live", self._health)
         self.server.route("GET", "/metrics", self._metrics)
+        # the fleet observatory's surface: the port has no observatory, so
+        # both routes answer as the JAX service does without one
+        self.server.route("GET", "/fleet", self._fleet)
+        self.server.route("GET", "/fleet/metrics", self._fleet)
 
     @property
     def address(self) -> tuple:
@@ -206,6 +211,12 @@ class HttpService:
         await self.server.stop()
 
     # -- handlers ------------------------------------------------------------
+
+    async def _fleet(self, req: Request) -> Response:
+        """GET /fleet and /fleet/metrics: 503, no fleet observatory."""
+        return Response.json(
+            {"error": {"message": "no fleet observatory attached"}}, 503
+        )
 
     async def _health(self, req: Request) -> Response:
         return Response.json(

@@ -4,9 +4,11 @@ A copy of the JAX package's ``llm/embedding.py``: the first-party trunk
 doubles as the embedder (``TorchEngine.embed``: mean-pooled, L2-normalised
 final hidden rows).  ``EmbeddingEngine`` accepts an ``EmbeddingRequest``
 (texts are tokenized here) and yields one item ``{"embeddings": [[...]],
-"prompt_tokens": N}``.  Not carried over: ``router_embedder`` and the
-worker side's ``{"token_batches": ...}`` wire form, the distributed leg,
-which wait for the distributed runtime.
+"prompt_tokens": N}``.  The distributed leg: a worker serves the engine on
+its ``{ep}_embed`` endpoint, where requests arrive in the wire form
+``{"token_batches": [[ids], ...]}``, and the front end reaches it through
+``router_embedder``.  Not carried over: ``fake_embedder``, the model-free
+engines' leg.
 """
 
 from __future__ import annotations
@@ -65,11 +67,29 @@ class EmbeddingEngine(AsyncEngine):
         try:
             if isinstance(data, EmbeddingRequest):
                 batches = self._tokenize(data)
+            elif isinstance(data, dict) and "token_batches" in data:
+                batches = data["token_batches"]
+                if not (
+                    isinstance(batches, list)
+                    and batches
+                    and all(isinstance(b, list) and b for b in batches)
+                ):
+                    raise OpenAIError(
+                        "'token_batches' must be non-empty token lists"
+                    )
+                if self.max_input_tokens is not None:
+                    for i, b in enumerate(batches):
+                        if len(b) > self.max_input_tokens:
+                            raise OpenAIError(
+                                f"input {i} has {len(b)} tokens, over the"
+                                f" {self.max_input_tokens}-token limit"
+                            )
             else:
                 raise OpenAIError("expected an embedding request")
         except OpenAIError as e:
-            # stable wire marker: a distributed leg maps prologue errors
-            # carrying it back to a client-facing 400
+            # stable wire marker: the distributed leg (router_embedder) maps
+            # prologue errors carrying it back to a client-facing 400; other
+            # prologue failures (engine crash) stay 500s
             raise OpenAIError(f"{INVALID_MARK}{e}") from e
 
         ctx = request.ctx
@@ -85,3 +105,40 @@ class EmbeddingEngine(AsyncEngine):
                 )
 
         return ResponseStream(ctx, gen())
+
+
+def router_embedder(router) -> Embedder:
+    """An ``embed_fn`` that forwards token batches to a remote worker's
+    embedding endpoint through a PushRouter (the distributed leg)."""
+
+    async def embed(batches: List[List[int]]) -> List[List[float]]:
+        from ..runtime.transports.request_plane import RemoteError
+
+        try:
+            stream = await router.generate(
+                Context.new({"token_batches": batches})
+            )
+        except RemoteError as e:
+            # the worker's EmbeddingEngine marks validation failures
+            # (INVALID_MARK) before they cross the wire as flat RemoteError
+            # messages; map those back to OpenAIError so the frontend
+            # answers 400 with the worker's real reason, and leave genuine
+            # worker faults as 500s
+            msg = str(e)
+            if INVALID_MARK in msg:
+                raise OpenAIError(
+                    msg.split(INVALID_MARK, 1)[1] or "invalid request"
+                ) from e
+            raise
+        async for item in stream:
+            if item.is_error():
+                msg = item.error_message() or "embedding worker error"
+                if INVALID_MARK in msg:
+                    raise OpenAIError(msg.split(INVALID_MARK, 1)[1]) from None
+                raise RuntimeError(msg)
+            data = item.data or {}
+            if "embeddings" in data:
+                return data["embeddings"]
+        raise RuntimeError("embedding worker returned no vectors")
+
+    return embed

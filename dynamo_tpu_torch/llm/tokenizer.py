@@ -562,6 +562,21 @@ class Tokenizer:
     def from_str(cls, tokenizer_json: str) -> "Tokenizer":
         return cls(_Core(json.loads(tokenizer_json)))
 
+    @classmethod
+    def from_blobs(cls, tokenizer_json, config: Optional[dict] = None) -> "Tokenizer":
+        """Build from in-memory artifacts (model-card transport: the card
+        carries tokenizer.json and tokenizer_config.json through the hub's
+        object store, no filesystem involved)."""
+        if isinstance(tokenizer_json, bytes):
+            tokenizer_json = tokenizer_json.decode()
+        cfg = config or {}
+        return cls(
+            _Core(json.loads(tokenizer_json)),
+            chat_template=cfg.get("chat_template"),
+            eos_token=_token_str(cfg.get("eos_token")),
+            bos_token=_token_str(cfg.get("bos_token")),
+        )
+
     # -- special tokens ------------------------------------------------------
 
     @property

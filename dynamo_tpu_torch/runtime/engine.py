@@ -21,13 +21,13 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
-import json
 import time
 import uuid
 from dataclasses import dataclass, field
 from typing import (
     Any,
     AsyncIterator,
+    Awaitable,
     Callable,
     Dict,
     Generic,
@@ -40,14 +40,17 @@ from typing import (
 T = TypeVar("T")
 U = TypeVar("U")
 
+
 # The canonical deadline-expiry message: error frames carry it, and the
-# HTTP front end classifies error frames bearing it as 504.
+# HTTP frontend classifies error frames bearing it as 504.  One constant,
+# shared by every producer and the classifier, so they cannot drift.
 DEADLINE_EXCEEDED_MSG = "deadline exceeded"
 
 
 class DeadlineExceededError(RuntimeError):
-    """A request's deadline budget expired before it completed (HTTP 504
-    at the front end)."""
+    """A request's deadline budget expired before it completed.  Maps to
+    HTTP 504 at the frontend; transports answer it with a fast error frame
+    instead of computing for a caller that stopped waiting."""
 
     def __init__(self, message: str = DEADLINE_EXCEEDED_MSG) -> None:
         super().__init__(message)
@@ -59,15 +62,24 @@ class AsyncEngineContext:
     ``stop_generating`` asks the producer to finish gracefully (emit what it
     has, then end the stream).  ``kill`` demands immediate termination (no
     further items).  Reference: engine.rs:47-85.
+
+    An optional *deadline budget* (seconds remaining) rides along: it is
+    re-anchored on the local monotonic clock at every hop (the wire carries
+    relative seconds, ``codec.encode_deadline_context``), checked before
+    work is admitted, and enforced mid-stream by transport watchdogs that
+    ``kill`` the context at expiry.
     """
 
-    __slots__ = ("_id", "_stopped", "_killed", "_complete", "_deadline")
+    __slots__ = (
+        "_id", "_stopped", "_killed", "_complete", "_children", "_deadline",
+    )
 
     def __init__(self, request_id: Optional[str] = None) -> None:
         self._id = request_id or uuid.uuid4().hex
         self._stopped = asyncio.Event()
         self._killed = asyncio.Event()
         self._complete = asyncio.Event()
+        self._children: list["AsyncEngineContext"] = []
         self._deadline: Optional[float] = None  # absolute time.monotonic()
 
     @property
@@ -80,12 +92,19 @@ class AsyncEngineContext:
     def is_killed(self) -> bool:
         return self._killed.is_set()
 
+    def is_complete(self) -> bool:
+        return self._complete.is_set()
+
     def stop_generating(self) -> None:
         self._stopped.set()
+        for child in self._children:
+            child.stop_generating()
 
     def kill(self) -> None:
         self._killed.set()
         self._stopped.set()
+        for child in self._children:
+            child.kill()
 
     def set_complete(self) -> None:
         self._complete.set()
@@ -96,16 +115,25 @@ class AsyncEngineContext:
     async def killed(self) -> None:
         await self._killed.wait()
 
+    def link_child(self, child: "AsyncEngineContext") -> None:
+        """Propagate stop/kill to a downstream context (cross-process hops
+        re-create the context; linking keeps the cancellation chain intact)."""
+        self._children.append(child)
+        if self.is_killed():
+            child.kill()
+        elif self.is_stopped():
+            child.stop_generating()
+
     # -- deadline budget ---------------------------------------------------
 
     def set_deadline(self, remaining_s: float) -> None:
-        """Arm the deadline budget: ``remaining_s`` seconds from now on this
-        host's monotonic clock."""
+        """Arm (or re-anchor, on a hop) the deadline budget: ``remaining_s``
+        seconds from now on this host's monotonic clock."""
         self._deadline = time.monotonic() + remaining_s
 
     def deadline_remaining(self) -> Optional[float]:
         """Seconds left in the budget (may be negative), or None when no
-        deadline is armed."""
+        deadline is armed -- the value the next hop's header carries."""
         if self._deadline is None:
             return None
         return self._deadline - time.monotonic()
@@ -131,16 +159,16 @@ class Context(Generic[T]):
     def id(self) -> str:
         return self.ctx.id
 
-    @classmethod
-    def new(cls, data: T, request_id: Optional[str] = None) -> "Context[T]":
-        return cls(data=data, ctx=AsyncEngineContext(request_id))
-
     def map(self, fn: Callable[[T], U]) -> "Context[U]":
         """Transform the payload while preserving id/context/metadata."""
         return Context(data=fn(self.data), ctx=self.ctx, metadata=self.metadata)
 
     def replace(self, data: U) -> "Context[U]":
         return Context(data=data, ctx=self.ctx, metadata=self.metadata)
+
+    @classmethod
+    def new(cls, data: T, request_id: Optional[str] = None) -> "Context[T]":
+        return cls(data=data, ctx=AsyncEngineContext(request_id))
 
 
 class ResponseStream(Generic[U]):
@@ -235,6 +263,18 @@ class AsyncEngine(Protocol[T, U]):
         ...
 
 
+class EngineFn(Generic[T, U]):
+    """Adapt a plain ``async def fn(request) -> async iterator`` into an engine."""
+
+    def __init__(
+        self, fn: Callable[[Context[T]], Awaitable[AsyncIterator[U]]]
+    ) -> None:
+        self._fn = fn
+
+    async def generate(self, request: Context[T]) -> AsyncIterator[U]:
+        return await self._fn(request)
+
+
 def ensure_response_stream(
     ctx: AsyncEngineContext, out: AsyncIterator[U]
 ) -> ResponseStream[U]:
@@ -273,6 +313,12 @@ class Annotated(Generic[U]):
     def from_error(cls, message: str) -> "Annotated[U]":
         return cls(event="error", comment=[message])
 
+    @classmethod
+    def from_annotation(cls, name: str, value: Any) -> "Annotated[Any]":
+        import json
+
+        return cls(event=name, comment=[json.dumps(value)])
+
     def is_error(self) -> bool:
         return self.event == "error"
 
@@ -301,7 +347,3 @@ class Annotated(Generic[U]):
             comment=d.get("comment"),
             id=d.get("id"),
         )
-
-    @classmethod
-    def from_annotation(cls, name: str, value: Any) -> "Annotated[Any]":
-        return cls(event=name, comment=[json.dumps(value)])

@@ -165,6 +165,14 @@ class _Family:
                 child = self._children[key] = _Child(self)
             return child
 
+    def remove(self, *values: Any) -> None:
+        """Drop one labelled series (a dead worker's); ``KeyError`` when it
+        was never made, as in ``prometheus_client``."""
+        if len(values) != len(self.labelnames):
+            raise ValueError(f"{self.name}: expected labels {self.labelnames}")
+        with self._lock:
+            del self._children[tuple(str(v) for v in values)]
+
     def _only(self) -> _Child:
         if self.labelnames:
             raise ValueError(f"{self.name} has labels {self.labelnames}")
@@ -284,6 +292,20 @@ def default_registry() -> MetricsRegistry:
 
 def render_default() -> Tuple[bytes, str]:
     return _default.render()
+
+
+def set_worker_identity(
+    worker_id: Optional[Any] = None, role: Optional[str] = None
+) -> None:
+    """Stamp this process's worker identity (``worker_id``, ``role``) onto
+    every sample the default registry renders; workers set it once at
+    startup."""
+    labels: Dict[str, Any] = {}
+    if worker_id is not None:
+        labels["worker_id"] = str(worker_id)
+    if role:
+        labels["role"] = str(role)
+    default_registry().set_default_labels(**labels)
 
 
 def worker_identity() -> Dict[str, str]:

@@ -396,3 +396,147 @@ def test_cli_http_serves_the_bench_client(checkpoint):
         if server.poll() is None:
             server.kill()
             server.communicate()
+
+
+# -- the distributed command line -------------------------------------------------
+
+
+def test_cli_parses_dyn_flags_like_jax():
+    """The runtime flags and subcommands the port now serves parse to the
+    JAX CLI's defaults and values."""
+    from dynamo_tpu.cli import build_parser as jax_parser
+    from dynamo_tpu_torch.cli import build_parser
+
+    keys = ("hub", "endpoint", "router_mode", "router_index_shards", "host", "port")
+    for argv in ([], ["--hub", "auto", "--endpoint", "dyn://a.b.c", "--router-mode", "kv",
+                      "--router-index-shards", "3"]):
+        got = build_parser().parse_args(["run", "in=http", "out=dyn", *argv])
+        want = jax_parser().parse_args(["run", "in=http", "out=dyn", *argv])
+        assert {k: getattr(got, k) for k in keys} == {k: getattr(want, k) for k in keys}
+    for argv in (["hub"], ["hub", "--port", "0", "--data-dir", "/d"],
+                 ["llmctl", "--hub", "h:1", "list"], ["llmctl", "--hub", "h:1", "remove", "m"]):
+        assert vars(build_parser().parse_args(argv)) == vars(jax_parser().parse_args(argv))
+    for bad in (["--router-mode", "least_loaded"], ["--router-index-shards", "0"]):
+        with pytest.raises(SystemExit):
+            build_parser().parse_args(["run", "in=http", "out=dyn", *bad])
+
+
+def refusal(argv) -> str:
+    """The message ``run`` exits with, in process: the refusals come from
+    the parsed flags, before any engine is built."""
+    from dynamo_tpu_torch.cli import _check_served, _parse_io, build_parser
+
+    args = build_parser().parse_args(["run", *argv])
+    args.inp, args.out = _parse_io(args.io)
+    with pytest.raises(SystemExit) as exc:
+        _check_served(args)
+    return str(exc.value)
+
+
+@pytest.mark.parametrize(
+    "extra, env",
+    [
+        (["--host-offload-blocks", "8"], {}),
+        (["--disk-offload-blocks", "8", "--disk-offload-dir", "/tmp"], {}),
+        ([], {"DYN_KV_OFFLOAD": "host=16"}),
+    ],
+)
+def test_cli_refuses_offload_on_a_worker(monkeypatch, extra, env):
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    msg = refusal(["in=dyn", "out=torch", "--model-path", "m", "--hub", "127.0.0.1:1", *extra])
+    assert "prefix onboarding" in msg
+
+
+@pytest.mark.parametrize(
+    "argv, name",
+    [
+        (["in=dyn", "out=torch", "--hub", "127.0.0.1:1", "--disagg", "prefill"], "--disagg"),
+        (["in=dyn", "out=torch", "--hub", "127.0.0.1:1", "--kv-remote", "on"], "--kv-remote"),
+        (["in=dyn", "out=mocker", "--hub", "127.0.0.1:1"], "out=mocker"),
+        (["in=dyn", "out=echo", "--hub", "127.0.0.1:1"], "out=echo"),
+        (["in=http", "out=echo"], "out=echo"),
+        (["in=text", "out=dyn", "--hub", "127.0.0.1:1"], "out=dyn"),
+        (["in=http", "out=dyn"], "in=http out=dyn requires --hub"),
+    ],
+)
+def test_cli_refuses_unported_dyn(argv, name):
+    assert name in refusal([*argv, "--model-path", "m", "--device", "cpu"])
+
+
+def test_cli_worker_needs_card_or_cpu(checkpoint):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device resolves")
+    out = run_cli("run", "in=dyn", "out=torch", "--model-path", checkpoint[0],
+                  "--hub", "127.0.0.1:1", timeout=60)
+    assert out.returncode != 0 and "--device cpu" in out.stderr
+
+
+def _post(url: str, body: dict) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def test_cli_serves_hub_worker_and_kv_frontend(checkpoint, expected):
+    """``hub``, ``run in=dyn out=torch --device cpu`` and ``run in=http
+    out=dyn --router-mode kv`` as three processes: the front end's chat
+    texts are the JAX pipeline's, ``llmctl list`` names the model with one
+    instance, and SIGINT ends each process with exit code 0."""
+    import signal
+    import time
+    import urllib.request
+
+    path = checkpoint[0]
+    env = {**os.environ, "DYN_LOG": "warning"}
+    procs = []
+
+    def start(*args):
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "dynamo_tpu_torch", *args], cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        ))
+        return procs[-1]
+
+    try:
+        hub = start("hub", "--host", "127.0.0.1", "--port", "0")
+        line = hub.stdout.readline()
+        assert line.startswith("hub at 127.0.0.1:"), line
+        addr = line.split()[2]
+        worker = start("run", "in=dyn", "out=torch", "--model-path", path, "--model-name", "m",
+                       "--device", "cpu", "--hub", addr)
+        line = worker.stdout.readline()
+        assert line.startswith("worker serving model m on dyn://dynamo.backend.generate"), (
+            line, worker.stderr.read() if worker.poll() is not None else "")
+        front = start("run", "in=http", "out=dyn", "--hub", addr, "--router-mode", "kv",
+                      "--port", "0")
+        line = front.stdout.readline()
+        assert line.startswith("frontend at http://"), line
+        url = line.split()[2]
+        deadline = time.monotonic() + 60
+        while True:
+            with urllib.request.urlopen(url + "/v1/models", timeout=10) as resp:
+                if json.loads(resp.read())["data"]:
+                    break
+            assert time.monotonic() < deadline, "model never discovered"
+            time.sleep(0.1)
+        for prompt, want in zip(PROMPTS, expected):
+            body = _post(url + "/v1/chat/completions", {
+                "model": "m", "max_tokens": MAX_TOKENS,
+                "messages": [{"role": "user", "content": prompt}]})
+            assert body["choices"][0]["message"]["content"] == want
+        out = run_cli("llmctl", "--hub", addr, "list", timeout=60)
+        assert out.returncode == 0, out.stderr
+        assert out.stdout.startswith("m  instances=1  endpoint=dyn://dynamo.backend.generate")
+        for p in (front, worker, hub):
+            p.send_signal(signal.SIGINT)
+            p.communicate(timeout=60)
+            assert p.returncode == 0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()

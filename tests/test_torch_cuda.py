@@ -1166,3 +1166,62 @@ def test_swap_in_under_graph_replay(card, kv_dtype):
     assert sum(eng.graph_replays.values()) > 0
     assert eng.offload_engine.swap_fallbacks == eng.offload_engine.copy_fails == 0
     assert swapped == roomy == cpu
+
+
+# ---------------------------------------------------------------------------
+# Two engines in one process (the workers of serve-dyn)
+# ---------------------------------------------------------------------------
+
+
+def test_two_engines_capture_and_serve_side_by_side(card):
+    """Two engines in one process, each dispatching and capturing its decode
+    graphs on its own executor thread while the other serves, give the
+    greedy streams each gives alone, and the process-wide launch counts
+    equal the sum of what their dispatches imply (kernel 5 once per layer
+    per packed dispatch, kernel 1 once per layer per fused step past the
+    first)."""
+    import asyncio
+
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.model import init_params
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    cfg = ModelConfig.tiny(head_dim=64, num_heads=4, num_kv_heads=2)
+    params = init_params(cfg, 4, card, torch.float32)
+    rs = np.random.default_rng(4)
+    reqs = [[{"token_ids": rs.integers(1, cfg.vocab_size, n).tolist(),
+              "stop_conditions": {"max_tokens": 24}, "sampling_options": {},
+              "eos_token_ids": []} for n in (5, 40, 90)] for _ in range(2)]
+
+    def engine():
+        return TorchEngine(cfg, params, EngineConfig(max_seq_len=256, num_pages=64),
+                           device=card)
+
+    async def serve(eng, batch):
+        async def one(r):
+            toks = []
+            async for item in await eng.generate(Context.new(dict(r))):
+                toks += (item.data or {}).get("token_ids") or []
+            return toks
+
+        try:
+            return await asyncio.gather(*[one(r) for r in batch])
+        finally:
+            await eng.stop()
+
+    alone = [asyncio.run(serve(engine(), b)) for b in reqs]
+    pair = [engine(), engine()]
+    before = (pa.KERNEL.launches, ra.KERNEL.launches)
+
+    async def both():
+        return await asyncio.gather(*[serve(e, b) for e, b in zip(pair, reqs)])
+
+    together = asyncio.run(both())
+    assert together == alone
+    assert all(sum(e.graph_replays.values()) > 0 for e in pair)
+    decode = packed = 0
+    for e in pair:
+        decode += cfg.num_layers * sum((k - 1) * n for k, n in e.dispatches_by_k.items())
+        packed += cfg.num_layers * e.dispatches.get("unified", 0)
+    assert (pa.KERNEL.launches - before[0], ra.KERNEL.launches - before[1]) == (decode, packed)

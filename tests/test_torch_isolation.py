@@ -4,7 +4,8 @@ need at import (the card's machine has none of them but triton, which the
 port may only import inside a launch).  Under the same hook,
 ``python -m dynamo_tpu_torch run in=http`` serves a chat completion from a
 safetensors checkpoint directory, answers ``/v1/embeddings`` and exits 0
-on SIGINT."""
+on SIGINT; so do ``hub``, ``run in=dyn out=torch`` and ``run in=http
+out=dyn``, serving the same through the distributed runtime."""
 
 from __future__ import annotations
 
@@ -92,8 +93,11 @@ def test_port_imports_nothing_refused():
     # ops/flash_prefill.py, 42 with the front end (protocols/openai,
     # runtime/pipeline and metrics, llm/*, http/*, bench_serving, cli,
     # __main__), 44 with vision.py and llm/embedding.py, 48 with spec/
-    # (its package, drafter.py, model_drafter.py) and engine/quant.py
-    assert int(out.stdout.strip().splitlines()[-1]) >= 48
+    # (its package, drafter.py, model_drafter.py) and engine/quant.py, 69
+    # with the distributed runtime (runtime/transports/, component, config,
+    # faults, thread_sentry, tracing, utils, protocols/endpoint,
+    # llm/model_card, llm/discovery, llm/kv_router/)
+    assert int(out.stdout.strip().splitlines()[-1]) >= 69
 
 
 # the speculative decoding package, the model drafter and weight-only int8:
@@ -124,6 +128,32 @@ ONLY = HOOK + textwrap.dedent(
 def test_spec_and_quant_import_nothing_refused():
     out = subprocess.run(
         [sys.executable, "-c", ONLY, ",".join(REFUSED), ",".join(SPEC_AND_QUANT)],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+# the distributed runtime and the KV router: copies of JAX modules that
+# import no JAX, but whose JAX originals reach the JAX package's profiling,
+# fleet and prefix-onboarding modules
+RUNTIME = (
+    "dynamo_tpu_torch.runtime.transports", "dynamo_tpu_torch.runtime.transports.codec",
+    "dynamo_tpu_torch.runtime.transports.hub",
+    "dynamo_tpu_torch.runtime.transports.request_plane",
+    "dynamo_tpu_torch.runtime.transports.client", "dynamo_tpu_torch.runtime.component",
+    "dynamo_tpu_torch.runtime.config", "dynamo_tpu_torch.runtime.faults",
+    "dynamo_tpu_torch.runtime.thread_sentry", "dynamo_tpu_torch.runtime.tracing",
+    "dynamo_tpu_torch.runtime.utils", "dynamo_tpu_torch.protocols.endpoint",
+    "dynamo_tpu_torch.llm.model_card", "dynamo_tpu_torch.llm.discovery",
+    "dynamo_tpu_torch.llm.kv_router", "dynamo_tpu_torch.llm.kv_router.router",
+    "dynamo_tpu_torch.cli",
+)
+
+
+def test_runtime_imports_nothing_refused():
+    out = subprocess.run(
+        [sys.executable, "-c", ONLY, ",".join(REFUSED), ",".join(RUNTIME)],
         cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
@@ -197,3 +227,64 @@ def test_http_server_imports_nothing_refused(model_dir, tmp_path):
         if proc.poll() is None:
             proc.kill()
             proc.communicate()
+
+
+def test_distributed_serving_imports_nothing_refused(model_dir, tmp_path):
+    """``hub``, ``run in=dyn out=torch`` and ``run in=http out=dyn
+    --router-mode kv``, each under the hook: a chat completion and an
+    embedding through hub, KV router and worker, then SIGINT; no process
+    loaded a refused package."""
+    import time
+
+    ckpt = _checkpoint(model_dir, str(tmp_path / "ckpt"))
+    procs = []
+
+    def start(*args):
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", SERVE, ",".join(REFUSED), *args],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env={**os.environ, "DYN_LOG": "warning"},
+        ))
+        return procs[-1]
+
+    def post(url, body):
+        req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return json.loads(resp.read())
+
+    try:
+        hub = start("hub", "--host", "127.0.0.1", "--port", "0")
+        line = hub.stdout.readline()
+        assert line.startswith("hub at 127.0.0.1:"), line
+        addr = line.split()[2]
+        worker = start("run", "in=dyn", "out=torch", "--model-path", ckpt, "--model-name", "m",
+                       "--device", "cpu", "--max-seq-len", "256", "--num-pages", "64",
+                       "--hub", addr)
+        assert worker.stdout.readline().startswith("worker serving model m")
+        front = start("run", "in=http", "out=dyn", "--hub", addr, "--router-mode", "kv",
+                      "--port", "0")
+        url = front.stdout.readline().split()[2]
+        deadline = time.monotonic() + 60
+        while True:
+            with urllib.request.urlopen(url + "/v1/models", timeout=10) as resp:
+                if json.loads(resp.read())["data"]:
+                    break
+            assert time.monotonic() < deadline, "model never discovered"
+            time.sleep(0.1)
+        body = post(url + "/v1/chat/completions", {
+            "model": "m", "max_tokens": 5, "ignore_eos": True,
+            "messages": [{"role": "user", "content": "hello"}]})
+        assert body["usage"]["completion_tokens"] == 5
+        body = post(url + "/v1/embeddings", {"model": "m", "input": ["hello"]})
+        assert abs(sum(x * x for x in body["data"][0]["embedding"]) - 1.0) < 1e-4
+        for p in (front, worker, hub):
+            p.send_signal(signal.SIGINT)
+            out, err = p.communicate(timeout=60)
+            assert p.returncode == 0, err
+            assert "leaked []" in out
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
