@@ -31,7 +31,12 @@ Every phase is fatal on failure:
    prefix-suffix flash prefill of 8 lanes of S = 5 and S = 9 columns over
    their whole gathered 2048-position tables at prefixes of 33 to 2000
    tokens off the page (the standalone verify), packed ragged with 8
-   verify segments of 5 rows beside 8 decode rows (the folded verify).  CUDA-event times of the kernel, the
+   verify segments of 5 rows beside 8 decode rows (the folded verify);
+   and serve-disagg's shapes: full flash prefill of its export batch (the
+   8 long prompts of 1024 to 2000 tokens, B = 8, T = 2048), paged decode
+   over the decode worker's 16 lanes, and packed ragged over its 16 decode
+   rows and over a 16-lane tick of its short prompts' local prefill.
+   CUDA-event times of the kernel, the
    plain version and one ``scaled_dot_product_attention`` call over the
    gathered (dequantized) K/V with the same mask (a yardstick the port
    never calls), beside the least time the card could take (bytes at 3.35
@@ -222,6 +227,46 @@ Every phase is fatal on failure:
    in=http out=dyn --router-mode kv`` as three processes: their texts
    equal an in-process engine's from the same arrays, ``llmctl list``
    names the model with one instance, SIGINT ends each with exit code 0.
+
+12. serve-disagg: disaggregated prefill/decode (``llm/disagg.py``).  (a)
+   A 3-layer f32 model, a decode worker and a prefill worker on the card
+   behind a loopback hub, ``max_local_prefill_length`` 32: three short
+   prompts prefill locally, three long ones ship; the greedy streams equal
+   the CPU's aggregated engine (``mixed_batching=False``) exactly over the
+   same-process device handoff, the chunked wire (2 layers a chunk, which
+   does not divide 3, then 1), the monolithic wire, and an int8 decode
+   pool fed by the dense prefiller (wire and device), and every remote
+   lane's pages in the decode pool equal its export (or its quantization)
+   bit for bit, and each run's launches equal both engines' dispatches.
+   (b) Two Llama-3-8B engines (full width and depth, bf16,
+   random weights of seed 0 each, ``EngineConfig(num_pages=1024,
+   max_batch_size=16)``: 16 lanes, so the long requests are admitted while
+   the short ones decode), a decode and a prefill worker in this process
+   set up as the CLI sets them up: 8 short requests (16 to 256 prompt
+   tokens, 128 new) start, and once all stream, 8 long ones (1024 to 2000
+   tokens, 64 new) arrive and ship; greedy, top-2 logprobs.  Run over the
+   device handoff, the chunked wire and the monolithic wire, each on fresh
+   engines, and once on one aggregated engine (``mixed_batching=False``,
+   the export's dispatch site) as the twin.  Every request must end with
+   its tokens, 8 prompts go remote and 8 stay local, each remote lane's
+   first token is the prefill worker's sample, its pages in the decode
+   pool equal its export (blake2b of both), and the launches equal both
+   engines' dispatches (kernel 2 once per layer per export dispatch).
+   Printed: the longs' TTFT p50/p99, the shorts' largest inter-token gap
+   while the longs arrive (the twin's beside them), bytes per delivery and
+   GB/s by path, ``transfer_stats()`` (export-before-first-byte), the
+   export dispatch spans, peak GiB, the greedy agreement with the twin
+   (at each first divergence the top-2 logprob gap), and a sampling
+   profile of the process's threads over the traffic (``ThreadSampler``:
+   the event loop's busy share and the places that took the most
+   time).  (c) ``hub``, ``run
+   in=dyn out=torch --disagg decode --max-local-prefill-length 32``,
+   ``--disagg prefill`` and ``run in=http out=dyn`` as four processes over
+   serve-dyn (c)'s checkpoint: their texts equal the in-process engine's,
+   the prefill worker's log names the 40- and 300-token prompts (each
+   delivery's bytes and milliseconds between processes printed),
+   ``disagg-conf --max-local-prefill-length 100000`` turns the next long
+   prompt local, SIGINT ends each with exit code 0.
 
 In every served run each kernel's launch count (graph replays included)
 must equal what the run's dispatches imply (``expected_launches``), and
@@ -1008,6 +1053,228 @@ def check_rect(ra, rng, gen) -> Tuple[Dict[str, object], Dict[str, object]]:
     check(*f32_in, *int8_pool(pool), "ragged_paged_attention_int8")
     del pool
     return dense, quant
+
+
+def disagg_lengths() -> Tuple[List[int], List[int]]:
+    """serve-disagg (b)'s prompt lengths: the 8 short and the 8 long ones."""
+    shorts, longs = disagg_requests(128256)
+    return [len(r["token_ids"]) for r in shorts], [len(r["token_ids"]) for r in longs]
+
+
+def check_export_flash(fp, bucketing, gen) -> Dict[str, object]:
+    # serve-disagg's export dispatch: the 8 long prompts (1024 to 2000
+    # tokens) in one full-prompt group, B = 8 at their bucket
+    _, longs = disagg_lengths()
+    B, n_max = len(longs), max(longs)
+    T = bucketing.pick_bucket(bucketing.prefill_buckets(PAGE, 2048), n_max)
+    lens = torch.tensor(longs, dtype=torch.int32, device="cuda")
+
+    def rand(h, dtype=torch.bfloat16, g=gen):
+        return torch.randn((B, T, h, D), generator=g, device="cuda").to(dtype)
+
+    def check(q, k, v) -> float:
+        err = 0.0
+        for window in (0, 512):
+            out = fp.flash_prefill_attention(q, k, v, lens, window)
+            ref = fp.flash_prefill_attention_plain(q, k, v, lens, window)
+            what = f"flash_prefill_attention export B={B} T={T} window={window}"
+            err = max(err, agree(what, out, ref, p_rounding(v)))
+        return err
+
+    q, k, v = rand(HQ), rand(HKV), rand(HKV)
+    err = check(q, k, v)
+    ms = cuda_ms(lambda i: fp.flash_prefill_attention(q, k, v, lens), 16)
+    plain_ms = cuda_ms(lambda i: fp.flash_prefill_attention_plain(q, k, v, lens), 4)
+    # yardstick: one SDPA call over the batch padded to [B, Hq, n_max, D]
+    rep = HQ // HKV
+    qs = q[:, :n_max].transpose(1, 2).contiguous()
+    ks = k[:, :n_max].repeat_interleave(rep, 2).transpose(1, 2).contiguous()
+    vs = v[:, :n_max].repeat_interleave(rep, 2).transpose(1, 2).contiguous()
+    r = torch.arange(n_max, device="cuda")[:, None]
+    c = torch.arange(n_max, device="cuda")[None, :]
+    mask = (c <= r)[None] & (r[None] < lens[:, None, None].long())
+    mask = mask[:, None]
+    mask[:, :, :, 0] |= ~mask.any(-1)  # no fully masked row (pad rows)
+    library_ms = cuda_ms(lambda i: sdpa_padded(qs, ks, vs, mask), 16)
+    del qs, ks, vs
+    rows = sum(longs)
+    bytes_moved = (
+        rows * HQ * D * 2 + 2 * rows * HKV * D * 2  # the valid q, k, v rows read
+        + B * T * HQ * D * 2  # the whole output written
+        + B * 4
+    )
+    flops = 4.0 * HQ * D * sum(n * (n + 1) / 2 for n in longs)
+    bound_ms, bound_by = bound(bytes_moved, flops)
+    del q, k, v
+    g32 = f32_generator()
+    check(*[rand(h, torch.float32, g32) for h in (HQ, HKV, HKV)])
+    return dict(
+        name="flash_prefill_attention/export", route="cuda",
+        source="dynamo_tpu_torch/csrc/flash_prefill.cu",
+        replaces="dynamo_tpu/ops/flash_prefill.py:125",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=library_ms,
+        tflops=flops / ms / 1e9, bound_share=bound_ms / ms,
+    )
+
+
+def disagg_decode_lanes() -> Tuple[List[int], List[int]]:
+    """The decode worker's 16 lanes while the delivered long lanes decode:
+    each lane's committed cache length (a short one 64 tokens into its
+    128, a long one 32 into its 64) and its KV length with the new row."""
+    shorts, longs = disagg_lengths()
+    bases = [n + 64 for n in shorts] + [n + 32 for n in longs]
+    return bases, [b + 1 for b in bases]
+
+
+def check_disagg_decode(pa, rng, gen) -> Dict[str, object]:
+    # kernel 1 at the decode worker's 16 lanes over the 128-page table (the
+    # page bucket of its longest lane)
+    _, kv_lens = disagg_decode_lanes()
+    B, width = len(kv_lens), 2048 // PAGE
+    n_pages = B * width + 1
+    table = lane_tables([-(-n // PAGE) for n in kv_lens], width, n_pages, rng)
+    lens = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
+    pool = make_pool(n_pages, gen)
+    q = torch.randn((B, HQ, D), generator=gen, device="cuda").to(torch.bfloat16)
+    err = 0.0
+    for window in (0, 512):
+        out = pa.paged_decode_attention(q, pool, table, lens, 3, window)
+        ref = pa.paged_decode_attention_plain(q, pool, table, lens, 3, window)
+        what = f"paged_decode_attention disagg B={B} window={window}"
+        err = max(err, agree(what, out, ref, p_rounding(pool[3, 1])))
+    ms = cuda_ms(lambda i: pa.paged_decode_attention(q, pool, table, lens, i % LAYERS), 64)
+    dev_ms = device_ms(lambda i: pa.paged_decode_attention(q, pool, table, lens, i % LAYERS))
+    plain_ms = cuda_ms(
+        lambda i: pa.paged_decode_attention_plain(q, pool, table, lens, i % LAYERS), 8
+    )
+    T = width * PAGE
+    k = pool[0, 0][table.long()].reshape(B, T, HKV, D).repeat_interleave(HQ // HKV, 2)
+    v = pool[0, 1][table.long()].reshape(B, T, HKV, D).repeat_interleave(HQ // HKV, 2)
+    k, v = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    mask = (torch.arange(T, device="cuda")[None, :] < lens[:, None].long())[:, None, None, :]
+    qs = q[:, :, None, :]
+    library_ms = cuda_ms(lambda i: sdpa_padded(qs, k, v, mask), 64)
+    live = sum(kv_lens)
+    bytes_moved = (
+        2 * B * HQ * D * 2  # q in, out
+        + live * HKV * D * 2 * 2  # each live K and V row once
+        + table.numel() * 4 + B * 4
+    )
+    flops = 4.0 * live * HQ * D
+    bound_ms, bound_by = bound(bytes_moved, flops)
+    del pool, k, v
+    g32 = f32_generator()
+    pool = make_pool(n_pages, g32, torch.float32, 4)
+    q = torch.randn((B, HQ, D), generator=g32, device="cuda")
+    agree(f"paged_decode_attention disagg B={B} window=0",
+          pa.paged_decode_attention(q, pool, table, lens, 3),
+          pa.paged_decode_attention_plain(q, pool, table, lens, 3))
+    del pool
+    return dict(
+        name="paged_decode_attention/disagg", route="cuda",
+        source="dynamo_tpu_torch/csrc/paged_decode_attention.cu",
+        replaces="dynamo_tpu/ops/paged_attention.py:124",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=library_ms,
+        tflops=flops / ms / 1e9, bound_share=bound_ms / ms, device_ms=dev_ms,
+    )
+
+
+def short_prefill_tick(shorts: List[int], lanes: int, budget: int = 512) -> Tuple[
+        List[int], List[int]]:
+    """The decode worker's second packed tick over its short prompts, by
+    the mixed budget: the first tick packed whole prompts up to ``budget``
+    tokens and a chunk of the next one; in the second, those whole ones
+    decode a row each, the chunked one goes on, the rest follow (whole,
+    then a chunk) in what is left.  Lanes past the shorts are idle.
+    Returns each lane's base and fresh rows."""
+    left, done = budget, []
+    for n in shorts:  # tick 1
+        take = min(n, left)
+        done.append(take)
+        left -= take
+    bases, q_lens = [], []
+    left = budget - sum(1 for n, t in zip(shorts, done) if t == n)
+    for n, t in zip(shorts, done):  # tick 2
+        if t == n:
+            bases.append(n)
+            q_lens.append(1)
+            continue
+        take = min(n - t, max(left, 0))
+        bases.append(t)
+        q_lens.append(take)
+        left -= take
+    pad = lanes - len(shorts)
+    return bases + [0] * pad, q_lens + [0] * pad
+
+
+def check_disagg_packed(ra, bucketing, rng, gen) -> Dict[str, object]:
+    # kernel 5 at the decode worker's 16 lanes: its decode rows (the row),
+    # then a tick of its short prompts' local prefill (checked only)
+    dec_bases, _ = disagg_decode_lanes()
+    shorts, _ = disagg_lengths()
+    B, width = len(dec_bases), 2048 // PAGE
+    n_pages = B * width + 1
+    i32 = dict(dtype=torch.int32, device="cuda")
+    err = 0.0
+    for case, (bases, q_lens) in (
+        ("decode rows", (dec_bases, [1] * B)),
+        ("short prefill", short_prefill_tick(shorts, B)),
+    ):
+        live = [b for b, n in enumerate(q_lens) if n > 0]
+        s_max = bucketing.pow2_bucket(max(q_lens))
+        seg_off = np.cumsum([0] + q_lens[:-1])
+        Np = bucketing.packed_axis_len(s_max, int(seg_off[live[-1]]), sum(q_lens))
+        need = [-(-(b + n) // PAGE) for b, n in zip(bases, q_lens)]
+        table = lane_tables(need, width, n_pages, rng)
+        args = [torch.tensor(x, **i32) for x in (bases, seg_off.tolist(), q_lens)]
+
+        def check(pool, q, k, v) -> float:
+            e = 0.0
+            for window in (0, 512):
+                lane = (q, k, v, pool, table, *args)
+                out = ra.packed_ragged_attention(*lane, s_max, 3, window)
+                ref = ra.packed_ragged_attention_plain(*lane, 3, window)
+                what = f"packed_ragged_attention disagg {case} B={B} window={window} Np={Np}"
+                e = max(e, agree(what, out, ref, ragged_p_rounding(pool, None, v)))
+            return e
+
+        pool = make_pool(n_pages, gen)
+        q, k, v = (torch.randn((Np, h, D), generator=gen, device="cuda").to(torch.bfloat16)
+                   for h in (HQ, HKV, HKV))
+        err = max(err, check(pool, q, k, v))
+        if case == "decode rows":
+            lane = (q, k, v, pool, table, *args)
+            ms = cuda_ms(lambda i: ra.packed_ragged_attention(*lane, s_max, i % LAYERS), 64)
+            plain_ms = cuda_ms(lambda i: ra.packed_ragged_attention_plain(*lane, i % LAYERS), 4)
+            segs = [slice(o, o + n) for o, n in zip(seg_off.tolist(), q_lens)]
+            padded = sdpa_lanes(pool, table, bases, [(q[s], k[s], v[s]) for s in segs], s_max)
+            library_ms = cuda_ms(lambda i: sdpa_padded(*padded), 64)
+            del padded
+            keys_seen = sum(bs * n + n * (n + 1) // 2 for bs, n in zip(bases, q_lens))
+            bytes_moved = (
+                B * HQ * D * 2 + 2 * B * HKV * D * 2  # q, fresh K and V rows read
+                + Np * HQ * D * 2  # the whole output written
+                + table.numel() * 4 + 3 * B * 4
+                + sum(bases) * 2 * HKV * D * 2  # each resident K and V row once
+            )
+            flops = 4.0 * keys_seen * HQ * D
+            bound_ms, bound_by = bound(bytes_moved, flops)
+        del pool
+        g32 = f32_generator()
+        pool = make_pool(n_pages, g32, torch.float32, 4)
+        check(pool, *(torch.randn((Np, h, D), generator=g32, device="cuda")
+                      for h in (HQ, HKV, HKV)))
+        del pool
+    return dict(
+        name="packed_ragged_attention/disagg", route="cuda",
+        source="dynamo_tpu_torch/csrc/packed_ragged_attention.cu",
+        replaces="dynamo_tpu/ops/ragged_attention.py:527",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=library_ms,
+        tflops=flops / ms / 1e9, bound_share=bound_ms / ms,
+    )
 
 
 def check_quantize_rule() -> None:
@@ -3506,16 +3773,18 @@ def dyn_full_width(mode: str, tok_dir: str, card: str) -> Dict[str, object]:
     return out
 
 
-def check_launches_over(what: str, engines, counted: Dict[str, int]) -> Dict[str, int]:
+def check_launches_over(what: str, engines, counted: Dict[str, int],
+                        required=("packed_ragged_attention", "paged_decode_attention"),
+                        ) -> Dict[str, int]:
     """The launch invariants of engines that served in one process: the
     process-wide counts equal the sum of what each engine's dispatches
-    imply, and kernels 5 and 1 launched."""
+    imply, and the ``required`` kernels (5 and 1) launched."""
     want = {k: sum(expected_launches(e)[k] for e in engines) for k in counted}
     print(f"{what} launch invariants over {len(engines)} engines: counted {counted} "
           f"expected {want}")
     if counted != want:
         fail(f"{what}: launches {counted} differ from the dispatches' {want}")
-    for name in ("packed_ragged_attention", "paged_decode_attention"):
+    for name in required:
         if counted[name] <= 0:
             fail(f"{what}: {name} never launched")
     return counted
@@ -3579,13 +3848,14 @@ def dyn_line(mode: str, res: Dict[str, object], card: str) -> str:
             f"peak_gib={res['peak_gib']:.3f} on {card}")
 
 
-def dyn_cli(tmp: str, card: str) -> None:
+def dyn_cli(tmp: str, card: str, ckpt) -> List[str]:
     """serve-dyn (c): ``hub``, ``run in=dyn out=torch`` and ``run in=http
-    out=dyn --router-mode kv`` as three processes over a 2-layer
-    Llama-3-8B-width checkpoint: their texts equal an in-process engine's
-    from the same arrays, ``llmctl list`` names the model with one instance,
-    and SIGINT ends each process with exit code 0."""
-    path, cfg, arrays, tok = write_cli_checkpoint(tmp, "serve-dyn: (c)")
+    out=dyn --router-mode kv`` as three processes over ``ckpt``, a 2-layer
+    Llama-3-8B-width checkpoint (``write_cli_checkpoint``'s): their texts
+    equal an in-process engine's from the same arrays, ``llmctl list``
+    names the model with one instance, and SIGINT ends each process with
+    exit code 0.  Returns the in-process texts."""
+    path, cfg, arrays, tok = ckpt
     hub_port, http_port = free_port(), free_port()
     hub_addr = f"127.0.0.1:{hub_port}"
     procs = []
@@ -3621,12 +3891,14 @@ def dyn_cli(tmp: str, card: str) -> None:
              f"engine's {direct}")
     print(f"serve-dyn: (c) {len(texts)} requests: hub + worker + front end texts == "
           f"in-process texts")
+    return direct
 
 
-def serve_dyn_phase(ref: Dict[str, object], card: str) -> None:
+def serve_dyn_phase(ref: Dict[str, object], card: str, ckpt) -> List[str]:
     """The distributed runtime: (a) card against CPU, (b) two full-width
     workers behind the KV router and then round robin, (c) the CLI's three
-    processes.  The temporary directory is deleted afterwards."""
+    processes over ``ckpt``.  The temporary directory is deleted
+    afterwards.  Returns (c)'s in-process texts."""
     import shutil
     import tempfile
 
@@ -3655,8 +3927,703 @@ def serve_dyn_phase(ref: Dict[str, object], card: str) -> None:
                   f"round 1 {res['captures_0']} round 2 {res['captures_1']}")
             for w, line in enumerate(res["loops"]):
                 print(f"serve-dyn: (b) {mode} worker {w} {line}")
-        dyn_cli(tmp, card)
+        direct = dyn_cli(tmp, card, ckpt)
         print(f"serve-dyn: phase {time.perf_counter() - t0:.3f} s")
+        return direct
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -- serve-disagg: disaggregated prefill/decode ----------------------------------
+
+
+def blob_digest(blob) -> str:
+    """A digest of a KV blob's bytes in any form (host or device; a bf16
+    tensor by its bits; an int8 pair data then scales)."""
+    import hashlib
+
+    from dynamo_tpu_torch.engine.kv_cache import QuantKV
+
+    h = hashlib.blake2b(digest_size=16)
+    for part in ((blob.q, blob.s) if isinstance(blob, QuantKV) else (blob,)):
+        if isinstance(part, torch.Tensor):
+            t = part.detach().cpu().contiguous()
+            if t.dtype == torch.bfloat16:
+                t = t.view(torch.int16)
+            part = t.numpy()
+        h.update(np.ascontiguousarray(part).tobytes())
+    return h.hexdigest()
+
+
+LEASE_TTL_S = 30.0
+
+
+class DisaggPair:
+    """A loopback ``HubServer`` with a decode worker and a prefill worker in
+    this process, each on its own ``DistributedRuntime`` and set up as
+    ``run in=dyn out=torch --disagg decode|prefill`` sets it up (the CLI's
+    ``serve_disagg_decode``; a ``PrefillWorker`` on the namespace's
+    queue).  Spies keep, per request, what the prefill worker exported
+    (its blob, or chunked stream, and first-token row), what the decode
+    engine's pool holds for the lane once the KV is in (a device copy of
+    its prompt pages, taken at the commit on the dispatch stream), and the
+    device time of each import scatter (CUDA events around it)."""
+
+    async def start(self, decode, prefill, model_dir: str, max_local: int, **worker_kw):
+        from dynamo_tpu_torch.cli import serve_disagg_decode
+        from dynamo_tpu_torch.llm.disagg import DisaggConfig, PrefillWorker
+        from dynamo_tpu_torch.runtime.component import DistributedRuntime
+        from dynamo_tpu_torch.runtime.transports.hub import HubServer
+
+        self.decode, self.prefill = decode, prefill
+        self.hub = HubServer(host="127.0.0.1")
+        host, port = await self.hub.start()
+        addr = f"{host}:{port}"
+        # one event loop carries both workers' bulk KV transfer here, where
+        # a deployment gives each worker a process of its own: leases of
+        # LEASE_TTL_S (the CLI's default is 5 s) outlast a loop kept busy
+        self.drt = await DistributedRuntime.detached(addr, lease_ttl=LEASE_TTL_S)
+        self.disagg, _, self.pub = await serve_disagg_decode(
+            self.drt, decode, "dyn://dynamo.backend.generate", model_dir, "m",
+            cfg=DisaggConfig(max_local_prefill_length=max_local),
+        )
+        self.prt = await DistributedRuntime.detached(addr, lease_ttl=LEASE_TTL_S)
+        self.worker = PrefillWorker(prefill, self.prt.namespace("dynamo"), **worker_kw)
+        self.exported: Dict[str, Tuple[object, List[int]]] = {}
+        self.landed: Dict[str, torch.Tensor] = {}
+        self.scatters: List[Tuple[object, object]] = []
+        self._spy()
+        await self.worker.start()
+        return self
+
+    def _spy(self) -> None:
+        from dynamo_tpu_torch.engine.step import gather_block_pages
+
+        deliver, commit = self.worker._deliver, self.decode._apply_external_commit
+        chunks, blob = self.decode._apply_external_chunks, self.decode._apply_external_kv
+        dec, dev = self.decode, self.decode.device
+
+        async def spy_deliver(msg, result, export_ms=0.0):
+            if not isinstance(result, Exception):
+                rows = result.row if not isinstance(result, tuple) else result[1]
+                self.exported[msg["request_id"]] = (
+                    result[0] if isinstance(result, tuple) else result,
+                    [int(x) for x in np.asarray(rows).reshape(-1)],
+                )
+            return await deliver(msg, result, export_ms)
+
+        def spy_commit(seq, *args):
+            ids = torch.as_tensor(dec._lane_prompt_pages(seq), device=dev)
+            self.landed[seq.request_id] = gather_block_pages(dec.kv.pages, ids)
+            return commit(seq, *args)
+
+        def timed(fn):
+            def run(*args):
+                start = torch.cuda.Event(enable_timing=True) if dev.type == "cuda" else None
+                if start is not None:
+                    start.record()
+                out = fn(*args)
+                if start is not None:
+                    end = torch.cuda.Event(enable_timing=True)
+                    end.record()
+                    self.scatters.append((start, end))
+                return out
+
+            return run
+
+        self.worker._deliver = spy_deliver
+        dec._apply_external_commit = spy_commit
+        dec._apply_external_chunks = timed(chunks)
+        dec._apply_external_kv = timed(blob)
+
+    def scatter_ms(self) -> float:
+        for _, end in self.scatters:
+            end.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.scatters)
+
+    async def exported_digests(self) -> Dict[str, str]:
+        """Each request's exported blob digest (a chunked stream assembled
+        from the host copies it kept)."""
+        from dynamo_tpu_torch.engine.engine import KVExportStream
+
+        out = {}
+        for rid, (blob, _row) in self.exported.items():
+            if isinstance(blob, KVExportStream):
+                blob = await blob.assemble()
+            out[rid] = blob_digest(blob)
+        return out
+
+    async def stop(self) -> None:
+        await self.worker.stop()
+        await self.disagg.stop_config_watch()
+        await self.pub.close()
+        for engine in (self.decode, self.prefill):
+            await engine.stop()
+        await self.drt.shutdown()
+        await self.prt.shutdown()
+        await self.hub.stop()
+
+
+async def disagg_traffic(generate, shorts: List[dict], longs: List[dict]) -> Dict[str, object]:
+    """``shorts`` start together; once every one of them streams, ``longs``
+    arrive together.  Per request: its id, tokens, frame times, top
+    logprobs, finish reason and submit time; and the longs' submit time."""
+    from dynamo_tpu_torch.protocols.common import PreprocessedRequest
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    frames: Dict[str, List[Tuple[float, int]]] = {}
+
+    async def one(key: str, req: dict) -> dict:
+        ctx = Context.new(PreprocessedRequest.from_dict(req))
+        t0 = time.perf_counter()
+        frames[key] = []
+        tokens: List[int] = []
+        top: List[list] = []
+        finish = None
+        async for item in await generate(ctx):
+            if item.is_error():
+                raise RuntimeError(f"{key}: {item.error_message()}")
+            data = item.data or {}
+            got = data.get("token_ids") or []
+            if got:
+                frames[key].append((time.perf_counter(), len(got)))
+                tokens += got
+            top += data.get("top_logprobs") or []
+            finish = data.get("finish_reason") or finish
+        return dict(rid=ctx.id, tokens=tokens, frames=frames[key], top=top, finish=finish, t0=t0)
+
+    tasks = [asyncio.ensure_future(one(f"s{i}", r)) for i, r in enumerate(shorts)]
+    t1 = time.perf_counter()
+    while not all(frames.get(f"s{i}") for i in range(len(shorts))):
+        if time.perf_counter() - t1 > 300:
+            fail("serve-disagg: the short requests never all streamed")
+        await asyncio.sleep(0.005)
+    t_long = time.perf_counter()
+    tasks += [asyncio.ensure_future(one(f"l{i}", r)) for i, r in enumerate(longs)]
+    res = await asyncio.gather(*tasks)
+    return dict(short=res[: len(shorts)], long=res[len(shorts):], t_long=t_long)
+
+
+def itl_gap_ms(run: Dict[str, object]) -> float:
+    """The short lanes' largest gap between frames from the longs' arrival
+    until the last long request's first token."""
+    t_end = max(r["frames"][0][0] for r in run["long"])
+    gaps = [
+        b[0] - a[0]
+        for r in run["short"]
+        for a, b in zip(r["frames"], r["frames"][1:])
+        if b[0] > run["t_long"] and a[0] < t_end
+    ]
+    return max(gaps, default=0.0) * 1e3
+
+
+def disagg_requests(vocab: int) -> Tuple[List[dict], List[dict]]:
+    """8 short prompts (16 to 256 tokens, 128 new tokens) and 8 long ones
+    (1024 to 2000 tokens, 64 new), greedy with top-2 logprobs."""
+    rng = np.random.default_rng(13)
+    shorts = [request(rng.integers(1, vocab, n), 128, logprobs=2)
+              for n in rng.integers(16, 257, 8)]
+    longs = [request(rng.integers(1, vocab, n), 64, logprobs=2)
+             for n in rng.integers(1024, 2001, 8)]
+    return shorts, longs
+
+
+def check_disagg_run(what: str, pair: DisaggPair, run, n_remote: int, path: str,
+                     chunks: int = 0) -> None:
+    """Placement, paths and the first tokens of a disaggregated run: the
+    decode worker shipped ``n_remote`` prompts and prefilled the rest
+    itself, every delivery took ``path`` (with ``chunks`` chunks each on
+    the chunked wire), and each remote lane's first token is the one the
+    prefill worker sampled."""
+    reqs = run["short"] + run["long"]
+    d, w = pair.disagg, pair.worker
+    if (d.remote_prefills, d.local_prefills) != (n_remote, len(reqs) - n_remote):
+        fail(f"{what}: {d.remote_prefills} remote and {d.local_prefills} local prefills, "
+             f"not {n_remote} and {len(reqs) - n_remote}")
+    rows = list(w.delivery_stats)
+    if len(rows) != n_remote or any(r["path"] != path for r in rows):
+        fail(f"{what}: deliveries {[r['path'] for r in rows]}, not {n_remote} by {path}")
+    if any(r.get("chunks", 0) != chunks for r in rows):
+        fail(f"{what}: chunks per delivery {[r.get('chunks') for r in rows]}, not {chunks}")
+    by_rid = {r["rid"]: r for r in reqs}
+    if set(pair.exported) - set(by_rid) or len(pair.exported) != n_remote:
+        fail(f"{what}: {len(pair.exported)} exports for {n_remote} remote requests")
+    for rid, (_blob, row) in pair.exported.items():
+        if by_rid[rid]["tokens"][0] != row[0]:
+            fail(f"{what}: request {rid}'s first token {by_rid[rid]['tokens'][0]} is not the "
+                 f"prefill worker's sample {row[0]}")
+
+
+async def check_landed(what: str, pair: DisaggPair, quantize: bool = False) -> int:
+    """Every remote lane's prompt pages in the decode pool equal, bit for
+    bit, the blob the prefill worker exported (its int8 quantization by
+    the shared rule when the decode pool is int8 and the prefiller dense).
+    Returns the bytes compared."""
+    from dynamo_tpu_torch.engine.engine import KVExportStream
+    from dynamo_tpu_torch.engine.kv_cache import host_view, quantize_kv_blob
+
+    nbytes = 0
+    if set(pair.landed) != set(pair.exported):
+        fail(f"{what}: pages landed for {len(pair.landed)} of {len(pair.exported)} exports")
+    for rid, (blob, _row) in pair.exported.items():
+        if isinstance(blob, KVExportStream):
+            blob = await blob.assemble()
+        if quantize:
+            if isinstance(blob, torch.Tensor):
+                blob = host_view(blob.cpu())
+            blob = quantize_kv_blob(blob)
+        want, got = blob_digest(blob), blob_digest(pair.landed[rid])
+        if want != got:
+            fail(f"{what}: request {rid}'s pages in the decode pool differ from its export "
+                 f"(blake2b {got} against {want})")
+        nbytes += pair.landed[rid].nbytes
+    return nbytes
+
+
+# the small model's disaggregated configs: PrefillWorker options, and the
+# decode pool's dtype (the prefiller's pool is dense).  An int8 decode
+# worker runs classic ticks, as its reference does: int8 rounding may move
+# a token between the mixed and the classic paths
+DISAGG_SMALL = {
+    "device handoff": (dict(), None),
+    "chunked wire, 2 layers a chunk": (dict(allow_local=False, layers_per_chunk=2), None),
+    "chunked wire, 1 layer a chunk": (dict(allow_local=False, layers_per_chunk=1), None),
+    "monolithic wire": (dict(allow_local=False, chunked=False), None),
+    "int8 decode pool, chunked wire": (dict(allow_local=False, layers_per_chunk=2), "int8"),
+    "int8 decode pool, device handoff": (dict(), "int8"),
+}
+
+
+def disagg_small(tmp: str) -> None:
+    """serve-disagg (a): a 3-layer f32 model, a decode and a prefill worker
+    on the card, ``max_local_prefill_length`` 32 under three of six
+    prompts; under each of ``DISAGG_SMALL`` the greedy streams equal the
+    CPU's aggregated engine (``mixed_batching=False``: the export's
+    full-prompt dispatch; int8 pool when the decode pool is) exactly, and
+    every remote lane's pages equal its export (its quantization into an
+    int8 pool) bit for bit."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.model import init_params
+
+    cfg = ModelConfig.tiny(head_dim=64, num_heads=4, num_kv_heads=2, num_layers=3)
+    ecfg = dict(num_pages=64, max_seq_len=256)
+    params = init_params(cfg, 7, torch.device("cpu"), torch.float32)
+    rng = np.random.default_rng(7)
+    shorts = [request(rng.integers(1, cfg.vocab_size, n), 16) for n in (5, 12, 30)]
+    longs = [request(rng.integers(1, cfg.vocab_size, n), 16) for n in (60, 97, 150)]
+    tok_dir = os.path.join(tmp, "small")
+    os.makedirs(tok_dir)
+    write_tokenizer(tok_dir, cfg.vocab_size, 0)
+    want = {}
+    for pool in (None, "int8"):
+        eng = TorchEngine(cfg, params, EngineConfig(**ecfg, mixed_batching=False, kv_dtype=pool),
+                          device="cpu")
+        want[pool] = [r["tokens"] for r in asyncio.run(serve(eng, [shorts + longs]))]
+    card_params = params_on(params, "cuda")
+    for name, (kw, pool) in DISAGG_SMALL.items():
+        decode = TorchEngine(cfg, card_params, EngineConfig(
+            **ecfg, kv_dtype=pool, mixed_batching=pool is None), device="cuda")
+        prefill = TorchEngine(cfg, card_params, EngineConfig(**ecfg), device="cuda")
+
+        async def body():
+            pair = await DisaggPair().start(decode, prefill, tok_dir, 32, **kw)
+            try:
+                run = await disagg_traffic(pair.disagg.generate, shorts, longs)
+                path = "device" if kw.get("allow_local", True) else "wire"
+                chunks = -(-cfg.num_layers // kw["layers_per_chunk"]) if "layers_per_chunk" in kw else 0
+                check_disagg_run(f"serve-disagg (a) {name}", pair, run, len(longs), path, chunks)
+            finally:
+                await pair.stop()
+            nbytes = await check_landed(f"serve-disagg (a) {name}", pair, quantize=pool == "int8")
+            return run, nbytes
+
+        reset_launches()
+        run, nbytes = asyncio.run(body())
+        counted = check_small_launches(f"serve-disagg (a) {name}", decode, prefill,
+                                       read_launches())
+        got = [r["tokens"] for r in run["short"] + run["long"]]
+        if got != want[pool]:
+            fail(f"serve-disagg (a) {name}: card streams {got} differ from the CPU's aggregated "
+                 f"{want[pool]}")
+        print(f"serve-disagg: (a) {name}: {len(got)} streams == the CPU's aggregated engine's; "
+              f"{len(longs)} remote lanes' pages == their exports ({nbytes} bytes); "
+              f"launches {counted}")
+
+
+def check_small_launches(what: str, decode, prefill, counted: Dict[str, int]) -> Dict[str, int]:
+    """serve-disagg (a)'s launch invariants over both engines, and the
+    kernels of the decode worker's path launched: kernels 5 and 1 on a
+    mixed dense pool, the gathered decode on a classic int8 one (its local
+    prompts by kernel 2), and kernel 2 for the exports."""
+    counted = check_launches_over(what, [decode, prefill], counted, required=())
+    if decode.kv.quantized:
+        need = ["gathered_decode"]
+    else:
+        need = ["packed_ragged_attention", "paged_decode_attention"]
+    if prefill.dispatches.get("export", 0) < 1:
+        fail(f"{what}: the prefill worker ran no export dispatch")
+    for name in need + ["flash_prefill_attention"]:
+        if counted[name] <= 0:
+            fail(f"{what}: {name} never launched")
+    return {k: n for k, n in counted.items() if n}
+
+
+class ThreadSampler:
+    """A sampling profile of this process's Python threads: every
+    ``interval`` seconds a thread of its own reads each thread's stack
+    (``sys._current_frames``) and charges the time since the last sample to
+    where the thread stands -- idle (the event loop in ``select``/``poll``,
+    a pool worker or a waiter blocked on its queue or lock), or busy in the
+    innermost frame of this repository's code (else the innermost frame).
+    A thread that holds the GIL in one long C call delays the sample that
+    follows; ``max_gap_ms`` is the longest such delay."""
+
+    IDLE = {"select", "poll", "_worker", "wait", "get", "_wait_for_tstate_lock", "sleep"}
+
+    def __init__(self, interval: float = 0.01) -> None:
+        import threading
+
+        self.interval = interval
+        self.main = threading.get_ident()
+        self.busy: Dict[Tuple[str, str], float] = {}
+        self.idle = {"loop": 0.0, "other": 0.0}
+        self.max_gap = 0.0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _where(self, frame) -> str:
+        leaf = frame
+        while frame is not None:
+            path = frame.f_code.co_filename
+            if os.sep + "dynamo_tpu_torch" + os.sep in path:
+                return f"{os.path.basename(path)}:{frame.f_code.co_name}"
+            frame = frame.f_back
+        return f"{os.path.basename(leaf.f_code.co_filename)}:{leaf.f_code.co_name}"
+
+    def _run(self) -> None:
+        import threading
+
+        own = threading.get_ident()
+        last = time.perf_counter()
+        while not self._stop.wait(self.interval):
+            now = time.perf_counter()
+            dt, last = now - last, now
+            self.max_gap = max(self.max_gap, dt)
+            for ident, frame in sys._current_frames().items():
+                if ident == own:
+                    continue
+                role = "loop" if ident == self.main else "other"
+                if frame.f_code.co_name in self.IDLE:
+                    self.idle[role] += dt
+                    continue
+                key = (role, self._where(frame))
+                self.busy[key] = self.busy.get(key, 0.0) + dt
+
+    def __enter__(self) -> "ThreadSampler":
+        self.t0 = time.perf_counter()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join()
+        self.wall = time.perf_counter() - self.t0
+
+    def line(self, top: int = 8) -> str:
+        """The event loop's busy share of the wall, and the places that
+        took the most thread time (``loop`` or ``other`` thread), each as
+        a share of the wall."""
+        loop_busy = sum(t for (role, _), t in self.busy.items() if role == "loop")
+        ranked = sorted(self.busy.items(), key=lambda kv: -kv[1])[:top]
+        where = ", ".join(f"{role} {w} {t / self.wall:.4f}" for (role, w), t in ranked)
+        return (f"event loop busy {loop_busy / self.wall:.4f} idle "
+                f"{self.idle['loop'] / self.wall:.4f} of {self.wall:.3f} s; max sample gap "
+                f"{self.max_gap * 1e3:.3f} ms; most time: {where}")
+
+
+def disagg_full_width(mode: str, worker_kw: dict, tok_dir: str, shorts, longs) -> Dict[str, object]:
+    """serve-disagg (b) on one transfer path: fresh Llama-3-8B decode and
+    prefill engines (random weights of seed 0 each), the traffic of
+    ``disagg_traffic``; placement, first tokens, landed pages and the
+    launch invariants over both engines held.  Returns the run and its
+    numbers."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+
+    cfg = ModelConfig.llama3_8b()
+    torch.cuda.reset_peak_memory_stats()
+    decode, prefill = (
+        TorchEngine.random_init(cfg, EngineConfig(num_pages=1024, max_batch_size=16), seed=0)
+        for _ in range(2)
+    )
+    what = f"serve-disagg (b) {mode}"
+    path = "device" if worker_kw.get("allow_local", True) else "wire"
+    chunks = 0
+    if path == "wire" and worker_kw.get("chunked", True):
+        chunks = len(layer_spans(cfg.num_layers, worker_kw.get("layers_per_chunk")))
+
+    async def body():
+        pair = await DisaggPair().start(decode, prefill, tok_dir, 512, **worker_kw)
+        try:
+            t0 = time.perf_counter()
+            with ThreadSampler() as sampler:
+                run = await disagg_traffic(pair.disagg.generate, shorts, longs)
+            run["wall"] = time.perf_counter() - t0
+            run["threads"] = sampler.line()
+            check_disagg_run(what, pair, run, len(longs), path, chunks)
+            run["scatter_ms"] = pair.scatter_ms()
+            run["stats"] = pair.worker.transfer_stats()
+            run["rows"] = list(pair.worker.delivery_stats)
+        finally:
+            await pair.stop()
+        # after the stop: hashing GBs must not stall the runtimes' leases
+        run["landed_bytes"] = await check_landed(what, pair)
+        return run
+
+    reset_launches()
+    run = asyncio.run(body())
+    counted = check_launches_over(what, [decode, prefill], read_launches())
+    exports = prefill.dispatches.get("export", 0)
+    full = decode.prefill_dispatches["full"] + prefill.prefill_dispatches["full"]
+    if exports < 1 or full != exports or (
+        counted["flash_prefill_attention"] != cfg.num_layers * exports
+    ):
+        fail(f"{what}: flash prefill launched {counted['flash_prefill_attention']} times over "
+             f"{exports} export dispatches and {full} full-prompt dispatches")
+    run.update(
+        launches=counted, exports=exports, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        export_spans=prefill.dispatch_spans().get("export"),
+        dispatches=[dict(decode.dispatches), dict(prefill.dispatches)],
+        loops=[loop_line(e, run["wall"]) for e in (decode, prefill)],
+    )
+    for kind, n in (("short", 128), ("long", 64)):
+        for r in run[kind]:
+            if r["finish"] != "length" or len(r["tokens"]) != n:
+                fail(f"{what}: request {r['rid']} ended {r['finish']} after "
+                     f"{len(r['tokens'])} of {n} tokens")
+    del decode, prefill
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def layer_spans(num_layers: int, per_chunk) -> List[Tuple[int, int]]:
+    from dynamo_tpu_torch.engine.kv_cache import layer_chunk_spans
+
+    return layer_chunk_spans(num_layers, per_chunk, 8)
+
+
+def disagg_twin(shorts, longs) -> Dict[str, object]:
+    """The same traffic on one aggregated engine with ``mixed_batching=
+    False`` (full-prompt prefill dispatches, the export's site)."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+
+    cfg = ModelConfig.llama3_8b()
+    engine = TorchEngine.random_init(
+        cfg, EngineConfig(num_pages=1024, max_batch_size=16, mixed_batching=False), seed=0)
+
+    async def body():
+        try:
+            t0 = time.perf_counter()
+            run = await disagg_traffic(engine.generate, shorts, longs)
+            run["wall"] = time.perf_counter() - t0
+            return run
+        finally:
+            await engine.stop()
+
+    reset_launches()
+    run = asyncio.run(body())
+    check_launch_invariants("serve-disagg (b) twin", engine, read_launches())
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def twin_agreement(run, twin) -> str:
+    """How many lanes equal the twin's, and at each first divergence the
+    top-2 logprob gap on both sides."""
+    lanes = run["short"] + run["long"]
+    ref = twin["short"] + twin["long"]
+    same, notes = 0, []
+    for i, (a, b) in enumerate(zip(lanes, ref)):
+        if a["tokens"] == b["tokens"]:
+            same += 1
+            continue
+        j = next(j for j, (x, y) in enumerate(zip(a["tokens"], b["tokens"])) if x != y)
+
+        def gap(r):
+            t = r["top"][j] if j < len(r["top"]) else None
+            return round(t[0][1] - t[1][1], 5) if t and len(t) > 1 else None
+
+        notes.append(f"lane {i} token {j} gap {gap(a)} (twin {gap(b)})")
+    return f"{same} of {len(ref)} lanes equal the twin's; first divergences: {notes or 'none'}"
+
+
+def ttft_ms(reqs) -> Tuple[float, float]:
+    lat = [(r["frames"][0][0] - r["t0"]) * 1e3 for r in reqs]
+    return float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+
+
+def disagg_line(mode: str, run, twin, card: str) -> str:
+    """One transfer path's numbers."""
+    rows = run["rows"]
+    nbytes = sum(r["bytes"] for r in rows)
+    scatter = (f"{nbytes / run['scatter_ms'] / 1e6:.3f}" if run["scatter_ms"] > 0
+               else "not measured")
+    if mode == "device handoff":
+        rate = f"GB/s={scatter} (the decode side's scatters, device time)"
+    else:
+        rate = (f"GB/s={nbytes / sum(r['deliver_ms'] for r in rows) / 1e6:.3f} (upload to ack) "
+                f"decode-side scatter GB/s={scatter}")
+    p50, p99 = ttft_ms(run["long"])
+    tp50, tp99 = ttft_ms(twin["long"])
+    return (f"serve-disagg: (b) {mode} long TTFT ms p50/p99 {p50:.3f}/{p99:.3f} (twin "
+            f"{tp50:.3f}/{tp99:.3f}) short max ITL gap ms while the longs arrive "
+            f"{itl_gap_ms(run):.3f} (twin {itl_gap_ms(twin):.3f}) bytes/delivery="
+            f"{nbytes // len(rows)} {rate} wall_s={run['wall']:.3f} (twin {twin['wall']:.3f}) "
+            f"export dispatches={run['exports']} spans={run['export_spans']} "
+            f"peak_gib={run['peak_gib']:.3f} on {card}")
+
+
+def disagg_cli(tmp: str, card: str, ckpt, direct: List[str]) -> None:
+    """serve-disagg (c): ``hub``, ``run in=dyn out=torch --disagg decode``
+    (``--max-local-prefill-length 32``), ``--disagg prefill`` and ``run
+    in=http out=dyn`` as four processes over serve-dyn's 2-layer
+    checkpoint: their texts equal the in-process engine's, the prompts
+    over 32 tokens (of 40 and 300) are the ones the prefill worker's log
+    names, ``disagg-conf --max-local-prefill-length 100000`` turns the next
+    one local, and SIGINT ends each process with exit code 0."""
+    path = ckpt[0]
+    hub_port, http_port = free_port(), free_port()
+    hub_addr = f"127.0.0.1:{hub_port}"
+    procs = []
+
+    def shipped(p) -> List[int]:
+        return [int(n) for n in re.findall(r"prefilled (\d+) tokens for", p.log())]
+
+    def deliveries(p) -> List[Tuple[int, str, int, float]]:
+        return [(int(n), path, int(b), float(ms)) for n, path, b, ms in re.findall(
+            r"prefilled (\d+) tokens for .*?: (\w+) (\d+) bytes in ([\d.]+) ms", p.log())]
+
+    try:
+        procs.append(Proc(tmp, "disagg-hub", "hub", "--host", "127.0.0.1", "--port", str(hub_port)))
+        procs.append(Proc(tmp, "disagg-decode", "run", "in=dyn", "out=torch", "--model-path",
+                          path, "--hub", hub_addr, "--disagg", "decode",
+                          "--max-local-prefill-length", "32"))
+        procs.append(Proc(tmp, "disagg-prefill", "run", "in=dyn", "out=torch", "--model-path",
+                          path, "--hub", hub_addr, "--disagg", "prefill"))
+        procs.append(Proc(tmp, "disagg-frontend", "run", "in=http", "out=dyn", "--hub", hub_addr,
+                          "--port", str(http_port)))
+        prefill = procs[2]
+        up = wait_http(http_port, "/v1/models", lambda b: bool(json.loads(b)["data"]), procs,
+                       "serve-disagg (c)")
+        while "prefill worker consuming" not in prefill.log():
+            prefill.check_alive()
+            time.sleep(0.25)
+        texts = asyncio.run(ask_texts(http_port, "serve-disagg (c)"))
+        lengths = shipped(prefill)
+        rates = [f"{n} tokens {path} {b} bytes {ms:.3f} ms {b / ms / 1e6:.4f} GB/s"
+                 for n, path, b, ms in deliveries(prefill)]
+        if len(rates) != len(lengths):
+            fail(f"serve-disagg (c): {len(rates)} delivery records for {len(lengths)} prefills")
+        print(f"serve-disagg: (c) deliveries between processes: {rates}")
+        if not {40, 300} <= set(lengths) or min(lengths) <= 32:
+            fail(f"serve-disagg (c): the prefill worker prefilled prompts of {lengths} tokens, "
+                 f"not the 40- and 300-token ones and those over 32 only")
+        conf = subprocess.run(
+            [sys.executable, "-m", "dynamo_tpu_torch", "disagg-conf", "--hub", hub_addr,
+             "--max-local-prefill-length", "100000"],
+            cwd=ROOT, capture_output=True, text=True, timeout=120,
+        )
+        if conf.returncode != 0:
+            fail(f"serve-disagg (c): disagg-conf answered {conf.returncode}: {conf.stderr[-2000:]}")
+        long_req = cli_requests()[0][2]
+        for _ in range(20):
+            before = len(shipped(prefill))
+            again = asyncio.run(ask_one(http_port, long_req))
+            if again != direct[2]:
+                fail(f"serve-disagg (c): the 300-token prompt's text {again!r} differs from "
+                     f"{direct[2]!r}")
+            if len(shipped(prefill)) == before:
+                break
+            time.sleep(0.2)
+        else:
+            fail("serve-disagg (c): disagg-conf never turned the 300-token prompt local")
+        for p in reversed(procs):
+            p.interrupt("serve-disagg (c)")
+        print(f"serve-disagg: (c) hub, decode and prefill workers and front end served after "
+              f"{up:.3f} s; prefilled remotely: prompts of {lengths} tokens; after disagg-conf: "
+              f"local; exit codes {[p.proc.returncode for p in procs]} on SIGINT")
+    finally:
+        for p in procs:
+            p.kill()
+    if texts != direct:
+        fail(f"serve-disagg (c): the processes' texts {texts} differ from the in-process "
+             f"engine's {direct}")
+    print(f"serve-disagg: (c) {len(texts)} requests: texts == in-process texts")
+
+
+async def ask_one(port: int, req: dict) -> str:
+    from dynamo_tpu_torch.bench_serving import run_bench
+
+    rep = await run_bench("127.0.0.1", port, "ckpt", bench_items([req]), concurrency=1,
+                          stream=False)
+    check_http_results("serve-disagg (c)", [rep], [[req]])
+    return rep.results[0].text
+
+
+# serve-disagg (b)'s transfer paths: PrefillWorker options
+DISAGG_PATHS = {
+    "device handoff": dict(),
+    "chunked wire": dict(allow_local=False),
+    "monolithic wire": dict(allow_local=False, chunked=False),
+}
+
+
+def serve_disagg_phase(card: str, ckpt, direct: List[str]) -> Dict[str, int]:
+    """Disaggregated prefill/decode: (a) card against CPU, (b) full width on
+    three transfer paths beside an aggregated twin, (c) the CLI's four
+    processes.  Returns the kernels' launches over (b)'s three runs."""
+    import shutil
+    import tempfile
+
+    from dynamo_tpu_torch.engine.config import ModelConfig
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-disagg-")
+    try:
+        t0 = time.perf_counter()
+        disagg_small(tmp)
+        tok_dir = os.path.join(tmp, "llama3")
+        os.makedirs(tok_dir)
+        write_tokenizer(tok_dir, 128000, 256)
+        shorts, longs = disagg_requests(ModelConfig.llama3_8b().vocab_size)
+        runs = {mode: disagg_full_width(mode, kw, tok_dir, shorts, longs)
+                for mode, kw in DISAGG_PATHS.items()}
+        twin = disagg_twin(shorts, longs)
+        launches: Dict[str, int] = {}
+        for mode, run in runs.items():
+            print(disagg_line(mode, run, twin, card))
+            print(f"serve-disagg: (b) {mode} greedy agreement: {twin_agreement(run, twin)}")
+            print(f"serve-disagg: (b) {mode} transfer_stats {run['stats']}")
+            print(f"serve-disagg: (b) {mode} {run['landed_bytes']} bytes of remote lanes' pages "
+                  f"== their exports; launches {run['launches']}; dispatches (decode, prefill) "
+                  f"{run['dispatches']}")
+            for w, line in zip(("decode", "prefill"), run["loops"]):
+                print(f"serve-disagg: (b) {mode} {w} worker {line}")
+            print(f"serve-disagg: (b) {mode} threads: {run['threads']}")
+            print(f"serve-disagg: (b) {mode} deliveries (bytes, deliver_ms): "
+                  f"{[(r['bytes'], round(r['deliver_ms'], 3)) for r in run['rows']]}")
+            for k, n in run["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+        streams = [[r["tokens"] for r in run["short"] + run["long"]] for run in runs.values()]
+        print(f"serve-disagg: (b) the three paths' streams agree: "
+              f"{all(s == streams[0] for s in streams)}")
+        disagg_cli(tmp, card, ckpt, direct)
+        print(f"serve-disagg: phase {time.perf_counter() - t0:.3f} s")
+        return launches
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3806,6 +4773,9 @@ def main() -> None:
     packed, packed8 = check_ragged(ra, bucketing, rng, gen)
     rows += [rect, packed, rect8, packed8]
     rows += [check_flash_prefix_verify(fp, gen), check_ragged_verify(ra, bucketing, rng, gen)]
+    # serve-disagg's shapes: the export batch, the decode worker's 16 lanes
+    rows += [check_export_flash(fp, bucketing, gen), check_disagg_decode(pa, rng, gen),
+             check_disagg_packed(ra, bucketing, rng, gen)]
     check_quantize_rule()
     for r in rows:
         print(
@@ -3829,7 +4799,18 @@ def main() -> None:
     print(f"serve-a3: flash prefill launches {a3['launches']}")
     a45 = serve_a45_phase(ref, served, card)
     serve_kvbm_phase(ref, card)
-    serve_dyn_phase(ref, card)
+    # serve-dyn's (c) and serve-disagg's (c) serve one checkpoint
+    import shutil
+    import tempfile
+
+    ckpt_tmp = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    try:
+        ckpt = write_cli_checkpoint(ckpt_tmp, "serve-dyn and serve-disagg: (c)")
+        direct = serve_dyn_phase(ref, card, ckpt)
+        disagg = serve_disagg_phase(card, ckpt, direct)
+        del ckpt
+    finally:
+        shutil.rmtree(ckpt_tmp, ignore_errors=True)
     if profile_out is not None:
         profile_phase(
             profile_out,
@@ -3849,6 +4830,11 @@ def main() -> None:
         "flash_prefix_prefill_attention/verify":
             a45["oracle fold-off"]["flash_prefix_prefill_attention"],
         "packed_ragged_attention/verify": a45["oracle"]["packed_ragged_attention"],
+        # serve-disagg's runs: kernel 2 on the prefill worker, 1 and 5 on
+        # the decode worker
+        "flash_prefill_attention/export": disagg["flash_prefill_attention"],
+        "paged_decode_attention/disagg": disagg["paged_decode_attention"],
+        "packed_ragged_attention/disagg": disagg["packed_ragged_attention"],
     }
     for r in rows:
         r["launches"] = launches[r["name"]]

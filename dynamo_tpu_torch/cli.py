@@ -8,6 +8,9 @@ The JAX package's ``run``, single-process and distributed::
     python -m dynamo_tpu_torch hub --port 6650
     python -m dynamo_tpu_torch run in=dyn out=torch --model-path DIR --hub H:P
     python -m dynamo_tpu_torch run in=http out=dyn --hub H:P --router-mode kv
+    python -m dynamo_tpu_torch run in=dyn out=torch --model-path DIR --hub H:P --disagg decode
+    python -m dynamo_tpu_torch run in=dyn out=torch --model-path DIR --hub H:P --disagg prefill
+    python -m dynamo_tpu_torch disagg-conf --hub H:P --max-local-prefill-length N
     python -m dynamo_tpu_torch llmctl --hub H:P list
     python -m dynamo_tpu_torch bench --port 8080 --model NAME
 
@@ -28,10 +31,21 @@ registered model, routed round robin, at random, or by KV overlap
 (``--router-mode kv``).  ``--hub auto`` runs a hub in the process.
 ``llmctl`` lists and removes registered models.
 
+``--disagg`` splits a worker's two phases over two processes
+(``llm/disagg.py``): ``decode`` serves the model like a plain worker but
+ships prompts longer than ``--max-local-prefill-length`` (after the
+router's prefix credit) to the namespace's prefill queue on the hub, its
+``kv_deliver`` endpoint taking their KV back; ``prefill`` is a queue
+consumer only -- no generate endpoint, no model registration, no embed
+leg -- that prefills the queued prompts in batches and streams their KV to
+the decode worker that shipped them (``--kv-chunk-layers`` layers per
+chunk, or one monolithic upload with ``--no-chunked-kv``).  ``disagg-conf``
+rewrites the decode workers' policy live.
+
 Flags of the JAX CLI whose features the port does not have yet (the
-parallel degrees, the remote KV tier, disaggregation, the offload plane
-on a worker, which needs prefix onboarding) are refused with an error that
-names them, never ignored.
+parallel degrees, the remote KV tier, the offload plane on a worker, which
+needs prefix onboarding) are refused with an error that names them, never
+ignored; so is ``--disagg`` outside ``in=dyn``, which the JAX CLI ignores.
 """
 
 from __future__ import annotations
@@ -57,7 +71,6 @@ _REFUSED = {
     "--pp": lambda a: a.pp != 1,
     "--ep": lambda a: a.ep != 1,
     "--kv-remote": lambda a: a.kv_remote is not None,
-    "--disagg": lambda a: a.disagg is not None,
 }
 
 
@@ -72,6 +85,8 @@ def _add_engine_flags(p) -> None:
     p.add_argument("--max-seq-len", type=int, default=2048)
     p.add_argument("--page-size", type=int, default=16)
     p.add_argument("--num-pages", type=int, default=512)
+    p.add_argument("--block-size", type=int, default=None,
+                   help="router-visible KV block size (default: page size)")
     p.add_argument("--decode-block-size", type=int, default=16)
     p.add_argument("--kv-dtype", default=None, metavar="DTYPE",
                    help="paged KV pool dtype: 'int8' = quantized per-row "
@@ -177,8 +192,21 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--output-file", help="in=batch: JSONL results path "
                                            "(default stdout)")
     run.add_argument("--max-tokens", type=int, default=128)
+    # disaggregated prefill/decode (in=dyn workers only)
     run.add_argument("--disagg", choices=["decode", "prefill"],
-                     help="not served by the port yet")
+                     help="serve as a disaggregated decode or prefill worker")
+    run.add_argument("--max-local-prefill-length", type=int, default=512)
+    run.add_argument("--max-prefill-queue-depth", type=int, default=16)
+    run.add_argument(
+        "--kv-chunk-layers", type=int, default=None,
+        help="layers per chunk for the streamed KV export (prefill "
+             "workers; default splits the stack into ~8 groups)",
+    )
+    run.add_argument(
+        "--no-chunked-kv", action="store_true",
+        help="legacy monolithic KV export/upload (disables the pipelined "
+             "chunked transfer path)",
+    )
 
     # standalone hub (the control plane process)
     hub = sub.add_parser("hub", help="run a standalone hub server")
@@ -187,6 +215,16 @@ def build_parser() -> argparse.ArgumentParser:
     hub.add_argument("--data-dir", default=None,
                      help="persist state (WAL + snapshot) here; a restart "
                           "restores KV/leases/queues/objects")
+
+    # disagg-conf: live-reload the disagg routing policy (reference
+    # disagg_router.rs:38-90 etcd watch); decode workers pick it up without
+    # restarts
+    dc = sub.add_parser("disagg-conf",
+                        help="update the live disagg routing policy")
+    dc.add_argument("--hub", required=True, help="hub address host:port")
+    dc.add_argument("--namespace", default="dynamo")
+    dc.add_argument("--max-local-prefill-length", type=int, default=None)
+    dc.add_argument("--max-prefill-queue-depth", type=int, default=None)
 
     # llmctl: cluster model administration
     ctl = sub.add_parser("llmctl", help="list/remove models on a hub")
@@ -241,6 +279,13 @@ def _check_served(args) -> None:
         )
     if args.inp not in ("http", "text", "batch", "dyn"):
         raise SystemExit(f"not served by the PyTorch port yet: in={args.inp}")
+    if args.disagg is not None and (args.inp, args.out) != ("dyn", "torch"):
+        # the JAX CLI ignores it there; the port refuses rather than serve
+        # an aggregated process the operator did not ask for
+        raise SystemExit(
+            f"--disagg serves in=dyn out=torch workers only, not in={args.inp} "
+            f"out={args.out}"
+        )
     if args.out == "dyn":
         if args.inp != "http":
             raise SystemExit(f"out=dyn serves only in=http, not in={args.inp}")
@@ -270,11 +315,14 @@ def _check_served(args) -> None:
         # a JAX worker wires cross-worker prefix onboarding whenever its
         # offload plane is armed; serving the plane without it would leave
         # the router's donor hints and peer holdings unread
+        role = f" --disagg {args.disagg}" if args.disagg else ""
         raise SystemExit(
-            "not served by the PyTorch port yet: in=dyn with the KV offload "
-            "plane (--host-offload-blocks, --disk-offload-blocks, "
+            f"not served by the PyTorch port yet: in=dyn{role} with the KV "
+            "offload plane (--host-offload-blocks, --disk-offload-blocks, "
             "DYN_KV_OFFLOAD) needs prefix onboarding, which is not ported"
         )
+    if args.kv_chunk_layers is not None and args.kv_chunk_layers <= 0:
+        raise SystemExit(f"--kv-chunk-layers must be positive, got {args.kv_chunk_layers}")
 
 
 def _load_template(args):
@@ -507,12 +555,15 @@ async def run_http_frontend(args) -> None:
 
 
 async def serve_worker(runtime, engine, endpoint: str, model_path: str,
-                       model_name: Optional[str] = None):
-    """What ``run in=dyn`` serves on a connected runtime: the engine on
-    ``endpoint`` (``dyn://ns.comp.ep``), its embeddings on ``{ep}_embed``,
-    the KV event and load-metrics publishers, and the model's registration
-    with the engine's pages as the router's blocks.  Returns the model card
-    and the KV event publisher (close it before stopping the engine)."""
+                       model_name: Optional[str] = None, served=None,
+                       block_size: Optional[int] = None):
+    """What ``run in=dyn`` serves on a connected runtime: ``served`` (the
+    engine, or a ``--disagg decode`` worker's ``DisaggDecodeEngine``) on
+    ``endpoint`` (``dyn://ns.comp.ep``), the engine's embeddings on
+    ``{ep}_embed``, the KV event and load-metrics publishers, and the
+    model's registration with ``block_size`` (default: the engine's pages)
+    as the router's blocks.  Returns the model card and the KV event
+    publisher (close it before stopping the engine)."""
     from .llm.embedding import EmbeddingEngine
     from .llm.kv_router.publisher import KvEventPublisher, WorkerMetricsPublisher
     from .llm.model_card import register_llm
@@ -522,7 +573,7 @@ async def serve_worker(runtime, engine, endpoint: str, model_path: str,
     ns = runtime.namespace(ns_name)
     comp = ns.component(comp_name)
     ep = comp.endpoint(ep_name)
-    await ep.serve(engine)
+    await ep.serve(served or engine)
     # pooled-embedding leg: a sibling endpoint the front end's watcher
     # finds through the model entry's embed_endpoint field
     embed_ep_name = f"{ep_name}_embed"
@@ -537,37 +588,96 @@ async def serve_worker(runtime, engine, endpoint: str, model_path: str,
     card = await register_llm(
         runtime, ep, model_path,
         model_name=model_name,
-        kv_block_size=engine.cfg.page_size,
+        kv_block_size=block_size or engine.cfg.page_size,
         embed_endpoint=embed_ep_name,
     )
     return card, pub
 
 
+async def serve_disagg_decode(runtime, engine, endpoint: str, model_path: str,
+                              model_name: Optional[str] = None, cfg=None,
+                              block_size: Optional[int] = None):
+    """What ``run in=dyn --disagg decode`` serves: a ``DisaggDecodeEngine``
+    over ``engine`` (instance id: the runtime's primary lease, which
+    ``serve`` registers under) with its ``kv_deliver`` endpoint served
+    first -- a shipped request's write-back must never race a missing
+    endpoint --, the live policy watch started, then :func:`serve_worker`
+    with the decode engine on the generate endpoint.  Returns the decode
+    engine, the model card and the KV event publisher."""
+    from .llm.disagg import KV_DELIVER_ENDPOINT, DisaggDecodeEngine
+    from .protocols.endpoint import parse_endpoint_id
+
+    ns_name, comp_name, _ = parse_endpoint_id(endpoint)
+    ns = runtime.namespace(ns_name)
+    block_size = block_size or engine.cfg.page_size
+    disagg = DisaggDecodeEngine(
+        engine, ns, comp_name, instance_id=runtime.primary_lease, cfg=cfg,
+        block_size=block_size,
+    )
+    await ns.component(comp_name).endpoint(KV_DELIVER_ENDPOINT).serve_raw(
+        disagg.kv_deliver_handler()
+    )
+    await disagg.start_config_watch()
+    card, pub = await serve_worker(runtime, engine, endpoint, model_path, model_name,
+                                   served=disagg, block_size=block_size)
+    return disagg, card, pub
+
+
 async def run_worker(args) -> None:
-    """in=dyn out=torch: the engine as a worker on the hub."""
+    """in=dyn out=torch: the engine as a worker on the hub -- aggregated,
+    or one role of disaggregated serving (``--disagg decode|prefill``)."""
+    from .llm.disagg import DisaggConfig, PrefillWorker
+    from .protocols.endpoint import parse_endpoint_id
     from .runtime import metrics as rtm
     from .runtime.component import DistributedRuntime
 
     # build the engine BEFORE connecting: weight loading blocks the event
     # loop long enough to starve lease keepalives and get this worker evicted
     engine = _make_engine(args)
-    owned_hub = runtime = pub = None
+    owned_hub = runtime = pub = disagg = prefill = None
     try:
         addr, owned_hub = await _resolve_hub(args)
         runtime = await DistributedRuntime.detached(addr)
-        card, pub = await serve_worker(
-            runtime, engine, args.endpoint, args.model_path, args.model_name
-        )
-        rtm.set_worker_identity(worker_id=runtime.primary_lease, role="worker")
+        if args.disagg == "prefill":
+            # a queue consumer only: no generate endpoint, no embed leg, no
+            # model registration, and no load metrics a KV router would
+            # take it for a decode candidate by
+            prefill = PrefillWorker(
+                engine, runtime.namespace(parse_endpoint_id(args.endpoint)[0]),
+                chunked=not args.no_chunked_kv, layers_per_chunk=args.kv_chunk_layers,
+            )
+            await prefill.start()
+            banner = f"prefill worker consuming {prefill.queue.name} (hub {addr})"
+        elif args.disagg == "decode":
+            disagg, card, pub = await serve_disagg_decode(
+                runtime, engine, args.endpoint, args.model_path, args.model_name,
+                cfg=DisaggConfig(
+                    max_local_prefill_length=args.max_local_prefill_length,
+                    max_prefill_queue_depth=args.max_prefill_queue_depth,
+                ),
+                block_size=args.block_size,
+            )
+            banner = (f"decode worker serving model {card.name} on {args.endpoint} "
+                      f"(hub {addr})")
+        else:
+            card, pub = await serve_worker(
+                runtime, engine, args.endpoint, args.model_path, args.model_name,
+                block_size=args.block_size,
+            )
+            banner = f"worker serving model {card.name} on {args.endpoint} (hub {addr})"
+        rtm.set_worker_identity(worker_id=runtime.primary_lease, role=args.disagg or "worker")
         stop = asyncio.Event()
         # hub loss orphans this worker's registrations: exit so a supervisor
         # restarts it into a live cluster (fail loud)
         if hasattr(runtime.hub, "on_connection_lost"):
             runtime.hub.on_connection_lost = stop.set
-        print(f"worker serving model {card.name} on {args.endpoint} (hub {addr})",
-              flush=True)
+        print(banner, flush=True)
         await _wait_forever(stop, drain_runtime=runtime)
     finally:
+        if prefill is not None:
+            await prefill.stop()
+        if disagg is not None:
+            await disagg.stop_config_watch()
         if pub is not None:
             await pub.close()
         await engine.stop()
@@ -575,6 +685,41 @@ async def run_worker(args) -> None:
             await runtime.shutdown()
         if owned_hub:
             await owned_hub.stop()
+
+
+async def run_disagg_conf(args) -> int:
+    """Write the live disagg routing policy to the hub; every decode worker
+    watching the key reloads it (``llm/disagg.py`` start_config_watch)."""
+    from .llm.disagg import disagg_conf_key
+    from .runtime.component import DistributedRuntime
+
+    conf = {}
+    if args.max_local_prefill_length is not None:
+        conf["max_local_prefill_length"] = args.max_local_prefill_length
+    if args.max_prefill_queue_depth is not None:
+        conf["max_prefill_queue_depth"] = args.max_prefill_queue_depth
+    if not conf:
+        print("nothing to update (pass --max-local-prefill-length and/or "
+              "--max-prefill-queue-depth)")
+        return 2
+    rt = await DistributedRuntime.detached(args.hub)
+    try:
+        # read-modify-write: a partial update must not drop fields an
+        # earlier update set -- workers that join later apply the snapshot
+        key = disagg_conf_key(args.namespace)
+        merged: dict = {}
+        for k, value in await rt.hub.kv_get_prefix(key):
+            try:
+                merged.update(json.loads(value))
+            except ValueError:
+                # malformed old value: overwrite it, but say so
+                logger.warning("discarding malformed disagg conf at %s", k)
+        merged.update(conf)
+        await rt.hub.kv_put(key, json.dumps(merged).encode())
+        print(f"disagg conf updated for namespace {args.namespace}: {merged}")
+    finally:
+        await rt.shutdown()
+    return 0
 
 
 async def run_hub(args) -> None:
@@ -776,6 +921,8 @@ def main(argv=None) -> int:
         return asyncio.run(run_bench(args))
     if args.cmd == "llmctl":
         return asyncio.run(run_llmctl(args))
+    if args.cmd == "disagg-conf":
+        return asyncio.run(run_disagg_conf(args))
     if args.cmd == "hub":
         asyncio.run(run_hub(args))
         return 0

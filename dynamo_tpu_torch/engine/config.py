@@ -273,3 +273,6 @@ class EngineConfig:
     # with per-output-channel scales, dequantized at the point of use
     # (engine/quant.py).  None = the weights as given
     quantize: Optional[str] = None
+    # disaggregation: a lane parked for a remote prefill's KV fails after
+    # this long (lost queue item / crashed prefill worker backstop)
+    external_kv_timeout_s: float = 60.0

@@ -98,9 +98,33 @@ plane's ``holdings`` deltas go to ``kv_event_sink``/``kv_holdings_sink``,
 hopping to the engine's loop from other threads.  ``OffloadMetrics``
 feeds ``dynamo_kv_*``.
 
-Not served yet (later slices): disaggregation and external-KV deliveries,
-the G4 remote tier, tensor/data parallelism, the tick profiler, and CUDA
-graphs for dispatches that carry prefill chunks or verify columns.
+Disaggregation is the JAX engine's (``llm/disagg.py`` drives it).  A
+prefill worker's engine exports prompts: ``prefill_export_batch`` runs one
+full-prompt prefill dispatch per group of similar lengths into scratch
+pages (``_dispatch_full_prefill_batch``, the classic path's site, so the
+single, batched and aggregated exports agree), gathers the group's pages
+on the dispatch stream -- before any later dispatch reuses them -- and
+frees the scratch; the copy stays on the device for a decode engine in the
+same process, or goes without blocking into pinned host memory behind a
+CUDA event, per layer group for a chunked export
+(``prefill_export_batch_stream``, :class:`KVExportStream`); the waits for
+those copies run off the executor.  A decode worker's engine admits a
+remote request parked ``awaiting_kv`` (``generate_external``) into fresh
+pages; ``deliver_external`` (or the chunked ``begin``/``deliver``/
+``commit``) queues the KV, and the tick loop scatters it into the lane's
+pages in place on the dispatch stream (``_scatter_pages``, the swap-in's
+scatter), commits the remotely sampled first token and hands the lane to
+the device state by a dirty row, so graphs captured earlier replay it.  A
+parked lane fails alone on a prefill error, a misshaped blob or its
+``external_kv_timeout_s`` (a delivery that lands before its slot clears
+the deadline).  ``KVExportStream`` has no ``from_blob``: the JAX export
+stream's per-request fallback wraps a materialized blob with it, and the
+port's fallback exports the one request through the same stream instead.
+
+Not served yet (later slices): cross-worker prefix export
+(``export_blocks``) and the G4 remote tier, tensor/data parallelism, the
+tick profiler, and CUDA graphs for dispatches that carry prefill chunks or
+verify columns.
 
 The serving-environment overrides the JAX engine reads at construction
 are read here too, with its parse, for the features the port has:
@@ -159,14 +183,21 @@ from .kv_cache import (
     PagedKVCache,
     PageSnapshot,
     QuantKV,
+    blob_index,
+    blob_shape,
+    blob_to_host,
     coerce_kv_blob,
     dtype_name,
+    kv_blob_concat,
     layer_chunk_spans,
     pad_page_axis,
     parse_kv_dtype,
     pool_is_quantized,
+    quant_blob_nbytes,
+    quantize_kv_rows,
     tensor_view,
     torch_dtype,
+    wire_dtype,
 )
 from .model import Params, init_params
 from .quant import quantize_params
@@ -180,6 +211,7 @@ from .step import (
     decode_block,
     embed_step,
     gather_block_pages,
+    gather_layer_pages,
     inject_token,
     inject_tokens,
     packed_unified_multistep,
@@ -206,8 +238,8 @@ DEVICE_STOP_WIDTH = 8
 FANOUT_DEPTH = 64
 # budget of the packed step's (Np, s_max) shapes, the JAX engine's default
 PACKED_SHAPE_BUDGET = 16
-# layer groups of an onboard or swap-in scatter (the JAX engine's
-# DEFAULT_EXPORT_CHUNKS)
+# layer groups of an onboard, swap-in or delivery scatter, and of a chunked
+# KV export whose caller pins none (the JAX engine's DEFAULT_EXPORT_CHUNKS)
 ONBOARD_CHUNKS = 8
 
 
@@ -387,6 +419,149 @@ def _prefills_of(e: Inflight) -> List[InflightPrefill]:
     return []
 
 
+# -- disaggregation: KV export and import -----------------------------------
+
+
+class _GroupSpanExport:
+    """Shared device->host materializer for one export group's layer-group
+    slices: every request of the group views the same span copies, so each
+    span pays ONE transfer however many uploads read it.  Each span was
+    gathered on the dispatch stream -- before any later dispatch can reuse
+    the scratch pages -- and its non-blocking copy into pinned host memory
+    enqueued behind a CUDA event (``kv_cache.PageSnapshot``, which keeps
+    the gathered copy alive until then); ``host_span`` waits for that event
+    off the event loop, so span i+1 copies while span i is on the wire."""
+
+    def __init__(self, snaps: List[PageSnapshot]) -> None:
+        self._snaps: List[Optional[PageSnapshot]] = list(snaps)
+        self._host: List[Any] = [None] * len(snaps)
+        self._tasks: List[Optional[asyncio.Future]] = [None] * len(snaps)
+
+    def _materialize(self, idx: int) -> Any:
+        arr = self._snaps[idx].materialize()
+        # per-span slots are disjoint: host_span starts ONE task per index
+        self._host[idx] = arr
+        self._snaps[idx] = None  # the copy landed: release the device copy
+        return arr
+
+    async def host_span(self, idx: int) -> Any:
+        got = self._host[idx]
+        if got is not None:
+            return got
+        task = self._tasks[idx]
+        if task is None:
+            task = self._tasks[idx] = asyncio.ensure_future(
+                asyncio.to_thread(self._materialize, idx)
+            )
+        return await task
+
+
+@dataclass
+class KVExportStream:
+    """One remote prefill's KV export as a stream of layer-group chunks.
+
+    The prefill dispatch, the per-span gathers and their host copies are
+    already enqueued when this is handed out; :meth:`chunks` yields each
+    group as it lands on the host, so the consumer (``PrefillWorker``) puts
+    the first bytes on the wire after one span's copy instead of the whole
+    blob's.  ``first_ready_at``/``last_ready_at`` record the pipeline's
+    export-before-first-byte and total-materialize times.  ``dtype`` is the
+    wire name (``bfloat16`` chunks are ``uint16`` bits on the host)."""
+
+    shape: Tuple[int, ...]  # [L, 2, n_pages, page, Hkv, D]
+    dtype: str
+    row: np.ndarray  # packed [2 + 2N] (token | logprob | tops)
+    spans: List[Tuple[int, int]]  # per-chunk [layer_lo, layer_hi)
+    started_at: float = 0.0
+    first_ready_at: Optional[float] = None
+    last_ready_at: Optional[float] = None
+    _group: Optional[_GroupSpanExport] = None
+    _page_off: int = 0
+
+    @property
+    def quantized(self) -> bool:
+        return self.dtype == "int8"
+
+    @property
+    def nbytes(self) -> int:
+        """Wire bytes of the full blob.  Quantized exports count the f32
+        row scales packed after each layer's int8 data (the
+        kv_cache.pack_quant_blob_bytes layout), so byte framing on both
+        ends derives identical extents from (shape, dtype)."""
+        if self.quantized:
+            return quant_blob_nbytes(self.shape)
+        return int(np.prod(self.shape)) * wire_dtype(self.dtype).itemsize
+
+    @property
+    def chunk_bounds(self) -> List[Tuple[int, int]]:
+        """Byte range of each chunk in the C-order blob (layer slabs are
+        contiguous, so chunk i covers its layers' bytes exactly)."""
+        bpl = self.nbytes // self.shape[0]
+        return [(lo * bpl, hi * bpl) for lo, hi in self.spans]
+
+    async def chunks(self):
+        """Yield ``(idx, layer_lo, layer_hi, array)`` in span order as each
+        group materializes; the array is a view, C-contiguity not
+        guaranteed."""
+        k = self.shape[2]
+        for idx, (lo, hi) in enumerate(self.spans):
+            span = await self._group.host_span(idx)
+            part = blob_index(
+                span, (slice(None), slice(None), slice(self._page_off, self._page_off + k))
+            )
+            now = time.perf_counter()
+            if self.first_ready_at is None:
+                self.first_ready_at = now
+            self.last_ready_at = now
+            yield idx, lo, hi, part
+
+    async def assemble(self) -> Any:
+        """Materialize the full blob (tests, the same-process handoff)."""
+        parts = [part async for _, _, _, part in self.chunks()]
+        if len(parts) == 1:
+            p = blob_to_host(parts[0])
+            if isinstance(p, QuantKV):
+                return QuantKV(q=np.ascontiguousarray(p.q), s=np.ascontiguousarray(p.s))
+            return np.ascontiguousarray(p)
+        return kv_blob_concat(parts, axis=0)
+
+
+@dataclass
+class _PendingExport:
+    """A request's export on its way to the host: its group's packed rows
+    ``[Bp, 2 + 2N]`` and gathered pages (the device copy, its
+    ``PageSnapshot`` bound for pinned host memory, or a chunked export's
+    ``_GroupSpanExport``), and its row and page range in them."""
+
+    rows: Result
+    pages: Any
+    row: int
+    off: int
+    n: int
+
+
+@dataclass
+class _ChunkedDelivery:
+    """Decode-side staging record for an in-flight chunked KV delivery:
+    layer-group parts queue here until the tick loop scatters them (the
+    lane may not even hold a slot yet); ``done`` + all layers applied is
+    the completion barrier before the first decode step.  ``applied``
+    keeps the scattered parts (views of the landing buffer) and ``life``
+    the lane's life they went into: a lane preempted and re-admitted into
+    fresh pages before its barrier cleared takes them again."""
+
+    shape: Tuple[int, ...]
+    dtype: str
+    parts: List[Tuple[int, int, Any]] = field(default_factory=list)
+    applied: List[Tuple[int, int, Any]] = field(default_factory=list)
+    life: int = -1
+    applied_layers: int = 0
+    validated: bool = False
+    done: bool = False
+    first: int = 0
+    lp_row: Optional[np.ndarray] = None
+
+
 class TorchEngine:
     """Continuous-batching PyTorch engine over a paged KV cache."""
 
@@ -501,6 +676,17 @@ class TorchEngine:
         # stream (a consumer that gave up first) is still cancelled
         self._ctxs: Dict[str, Any] = {}
         self._cancelled: set = set()
+        # disaggregation: request_id -> seq parked for a remote prefill's
+        # KV; deliveries (monolithic blobs, staged chunked parts, errors)
+        # are applied by the tick loop at a controlled point
+        self._external: Dict[str, SeqState] = {}
+        self._deliveries: Dict[str, Tuple[Any, int, Optional[np.ndarray]]] = {}
+        self._chunked: Dict[str, _ChunkedDelivery] = {}
+        self._external_deadline: Dict[str, float] = {}
+        self._external_errors: Dict[str, str] = {}
+        # parked sequences whose request id was served again: released by
+        # the tick loop without a word to the id's (new) stream
+        self._abandoned: List[SeqState] = []
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._wake: Optional[asyncio.Event] = None
         self._task: Optional[asyncio.Task] = None
@@ -667,7 +853,9 @@ class TorchEngine:
 
     # -- AsyncEngine --------------------------------------------------------
 
-    async def generate(self, request: Context[Any]) -> AsyncIterator[Annotated]:
+    async def generate(
+        self, request: Context[Any], _external: bool = False
+    ) -> AsyncIterator[Annotated]:
         """Token-level generate; yields Annotated[LLMEngineOutput-dict]."""
         if not self._running:
             await self.start()
@@ -684,6 +872,8 @@ class TorchEngine:
                     f"{self.model_cfg.hidden_size}, got shape {list(mm.shape)}"
                 )
             self._arm_speculation(seq)  # an unknown drafter: an error stream
+            # disaggregated: the prompt KV arrives via deliver_external
+            seq.awaiting_kv = _external
             self.sched.enqueue(seq)
         except ValueError as e:
             message = str(e)
@@ -693,6 +883,19 @@ class TorchEngine:
                 yield Annotated.from_error(message)
 
             return ResponseStream(ctx, err_stream())
+        stale = self._forget_external(request.id)
+        if stale is not None:
+            # a parked request served again under its id (the disagg
+            # fallback to a local prefill after a failed enqueue): its lane
+            # is released silently at the next tick, and its pending
+            # failure must not reach the new stream
+            self._external_errors.pop(request.id, None)
+            self._abandoned.append(stale)
+        if _external:
+            self._external[request.id] = seq
+            self._external_deadline[request.id] = (
+                time.monotonic() + self.cfg.external_kv_timeout_s
+            )
         self._nonce_of[request.id] = next(self._nonces) & 0xFFFFFFFF
         queue: asyncio.Queue = asyncio.Queue()
         self._queues[request.id] = queue
@@ -864,6 +1067,18 @@ class TorchEngine:
             try:
                 self._process_cancellations()
                 self._fail_drafter_lanes()
+                for work in self._process_deliveries():
+                    # remote prefill KV: scatter it into the parked lane's
+                    # pages (a chunked delivery part by part), then commit
+                    # the remotely sampled first token and wake the lane
+                    if work[0] == "blob":
+                        ev = await self._on_executor(self._apply_external_kv, *work[1:])
+                        await self._emit_events([ev])
+                    elif work[0] == "chunks":
+                        await self._on_executor(self._apply_external_chunks, *work[1:])
+                    else:  # "commit": the chunked barrier cleared
+                        ev = await self._on_executor(self._apply_external_commit, *work[1:])
+                        await self._emit_events([ev])
                 for seq, rec in self._process_swaps():
                     # swap-in: scatter the parked KV back into the lane's
                     # pages and clear the barrier; no token is emitted
@@ -877,9 +1092,10 @@ class TorchEngine:
                     if self.device.type == "cuda":
                         self._spans.append(None)  # idle: no gap across the wait
                     self._wake.clear()
-                    if self._swapped:
-                        # parked lanes only: a ready swap blob wakes the
-                        # loop, the bound re-checks regardless
+                    if self._swapped or self._external:
+                        # parked lanes only: a ready swap blob or a delivery
+                        # wakes the loop, the bound re-checks regardless (a
+                        # remote prefill's deadline fires)
                         try:
                             await asyncio.wait_for(self._wake.wait(), 1.0)
                         except asyncio.TimeoutError:
@@ -2509,6 +2725,519 @@ class TorchEngine:
         self.obs.observe_kv(alloc.used_pages, alloc.num_pages - 1)
         return events
 
+    # -- disaggregation: KV import (decode side) -----------------------------
+
+    async def generate_external(self, request: Context[Any]) -> AsyncIterator[Annotated]:
+        """Admit a request whose prompt KV a remote prefill worker delivers;
+        the lane holds pages but decodes only after deliver_external."""
+        return await self.generate(request, _external=True)
+
+    def awaiting_external(self, request_id: str) -> bool:
+        """True while the request is admitted (or queued) and still expects a
+        remote prefill delivery."""
+        return request_id in self._external
+
+    def deliver_external(
+        self,
+        request_id: str,
+        kv_blob: Any,
+        first_token: int,
+        lp_row: Optional[np.ndarray] = None,
+    ) -> bool:
+        """Hand over a remote prefill's KV (``[L, 2, n_pages, page, Hkv, D]``:
+        a host blob, ``uint16`` for bf16 bits, or a device tensor of a
+        same-process handoff; a :class:`QuantKV` pair for int8) plus its
+        sampled first token (and, optionally, the packed logprob row the
+        prefill worker sampled it from -- without it a logprobs request's
+        first token would ship without its logprob).  Returns False when
+        the request is no longer waiting (cancelled/failed).  Applied by
+        the tick loop at its next iteration -- scheduler state is never
+        touched from here."""
+        if request_id not in self._external:
+            return False
+        arr = np.asarray(first_token).reshape(-1)
+        if arr.size > 1 and lp_row is None:
+            # caller handed the packed row itself as first_token (the
+            # prefill_export return): use it for the logprob too
+            lp_row = arr.astype(np.int32)
+        self._deliveries[request_id] = (kv_blob, int(arr[0]), lp_row)
+        # the KV is in hand: the remote-prefill deadline's job is done.  A
+        # delivery that arrives while the request still waits for a slot
+        # must not be discarded by the timeout scan (the remaining wait is
+        # for decode capacity, not for the prefill worker)
+        self._external_deadline.pop(request_id, None)
+        if self._wake is not None:
+            self._wake.set()
+        return True
+
+    def begin_external_chunked(self, request_id: str, shape: Tuple[int, ...], dtype: str) -> bool:
+        """Open a chunked KV delivery for a parked external request: the
+        sender streams layer-group chunks via :meth:`deliver_external_chunk`
+        and closes with :meth:`commit_external_chunked`.  The pipelined
+        counterpart of :meth:`deliver_external` -- pages scatter as chunks
+        arrive instead of after the whole blob lands.  The completion
+        barrier is layer coverage against ``shape[0]``, so chunk
+        granularity is entirely the sender's choice."""
+        if request_id not in self._external:
+            return False
+        self._chunked[request_id] = _ChunkedDelivery(
+            shape=tuple(int(s) for s in shape), dtype=str(dtype)
+        )
+        return True
+
+    def deliver_external_chunk(
+        self, request_id: str, layer_lo: int, layer_hi: int, arr: Any
+    ) -> bool:
+        """Stage one layer-group chunk ``[layer_hi-layer_lo, 2, n_pages,
+        page, Hkv, D]``; the tick loop scatters it into the lane's pages at
+        its next iteration (or as soon as the lane gets a slot)."""
+        rec = self._chunked.get(request_id)
+        if rec is None or request_id not in self._external:
+            return False
+        rec.parts.append((int(layer_lo), int(layer_hi), arr))
+        if self._wake is not None:
+            self._wake.set()
+        return True
+
+    def commit_external_chunked(
+        self, request_id: str, first_token: int, lp_row: Optional[np.ndarray] = None
+    ) -> bool:
+        """Close a chunked delivery: all chunks are in (or staged); commit
+        the remotely-sampled first token once every layer has scattered --
+        the completion barrier before the lane's first decode step."""
+        rec = self._chunked.get(request_id)
+        if rec is None or request_id not in self._external:
+            return False
+        arr = np.asarray(first_token).reshape(-1)
+        if arr.size > 1 and lp_row is None:
+            lp_row = arr.astype(np.int32)
+        rec.first = int(arr[0])
+        rec.lp_row = lp_row
+        rec.done = True
+        # the KV is in hand; any remaining wait is for decode capacity, not
+        # the prefill worker (mirrors deliver_external)
+        self._external_deadline.pop(request_id, None)
+        if self._wake is not None:
+            self._wake.set()
+        return True
+
+    def fail_external(self, request_id: str, message: str) -> bool:
+        """Remote prefill reported failure: fail the parked request instead of
+        letting it ride out the delivery timeout."""
+        if request_id not in self._external:
+            return False
+        self._external_errors[request_id] = message
+        if self._wake is not None:
+            self._wake.set()
+        return True
+
+    def _expected_blob_shape(self, seq: SeqState) -> Tuple[int, ...]:
+        kp = blob_shape(self.kv.pages)  # [L, 2, num_pages, page, Hkv, D]
+        n_pages = -(-len(seq.prompt) // self.cfg.page_size)
+        return (kp[0], kp[1], n_pages) + tuple(kp[3:])
+
+    def _forget_external(self, rid: str) -> Optional[SeqState]:
+        """Drop every disaggregation record of ``rid``; returns its parked
+        sequence, if any."""
+        self._deliveries.pop(rid, None)
+        self._chunked.pop(rid, None)
+        self._external_deadline.pop(rid, None)
+        return self._external.pop(rid, None)
+
+    def _drop_external(self, rid: str, message: str) -> None:
+        """Fail one parked external request without touching the rest of the
+        batch (the _fail_all hammer is for engine-wide faults only)."""
+        seq = self._forget_external(rid)
+        if seq is None or seq.finish is not None:
+            return
+        self._fail_seq(seq, message)
+        self.sched.cancel(seq)
+
+    def _process_deliveries(self) -> List[Tuple[Any, ...]]:
+        """Tick-loop side: returns work items whose device dispatch is due --
+        ``("blob", seq, blob, first, lp_row)`` for a monolithic delivery,
+        ``("chunks", seq, parts)`` for staged layer-group scatters, and
+        ``("commit", seq, first, lp_row)`` once a chunked delivery's barrier
+        clears.  Drops deliveries for dead requests; fails parked lanes
+        whose prefill errored, mis-shaped, or timed out."""
+        for rid, msg in list(self._external_errors.items()):
+            self._external_errors.pop(rid)
+            self._drop_external(rid, f"remote prefill failed: {msg}")
+        abandoned, self._abandoned = self._abandoned, []
+        for seq in abandoned:
+            if seq.finish is None:
+                self.sched.cancel(seq)
+        out: List[Tuple[Any, ...]] = []
+        for rid in list(self._deliveries):
+            blob, first, lp_row = self._deliveries.pop(rid)
+            seq = self._external.pop(rid, None)
+            if seq is None or seq.finish is not None:
+                continue
+            if seq.slot < 0:
+                # not yet admitted: re-queue the delivery until plan() gives
+                # the seq a slot and pages (or it dies)
+                self._external[rid] = seq
+                self._deliveries[rid] = (blob, first, lp_row)
+                continue
+            expect = self._expected_blob_shape(seq)
+            if blob_shape(blob) != expect or expect[2] > len(seq.pages):
+                # a mis-configured prefill worker (page_size/model mismatch)
+                # must not take down the whole decode batch
+                self._external_deadline.pop(rid, None)
+                self._fail_seq(
+                    seq,
+                    f"remote prefill KV shape {blob_shape(blob)} does not "
+                    f"match decode geometry {expect}",
+                )
+                self.sched.cancel(seq)
+                continue
+            self._external_deadline.pop(rid, None)
+            out.append(("blob", seq, blob, first, lp_row))
+        out.extend(self._process_chunked_deliveries())
+        if self._external_deadline:
+            now = time.monotonic()
+            for rid, deadline in list(self._external_deadline.items()):
+                if now >= deadline:
+                    self._drop_external(
+                        rid,
+                        "timed out waiting for remote prefill KV "
+                        f"({self.cfg.external_kv_timeout_s:.0f}s)",
+                    )
+        return out
+
+    def _fail_chunked(self, rid: str, seq: SeqState, message: str) -> None:
+        self._forget_external(rid)
+        self._fail_seq(seq, message)
+        self.sched.cancel(seq)
+
+    def _process_chunked_deliveries(self) -> List[Tuple[Any, ...]]:
+        """Chunked-delivery bookkeeping for :meth:`_process_deliveries`:
+        release staged layer-group parts of admitted lanes for scatter, and
+        emit the first-token commit once a delivery's barrier (``done`` +
+        every layer applied or in this tick's scatter list) clears."""
+        out: List[Tuple[Any, ...]] = []
+        for rid in list(self._chunked):
+            rec = self._chunked[rid]
+            seq = self._external.get(rid)
+            if seq is None or seq.finish is not None:
+                del self._chunked[rid]
+                continue
+            if seq.slot < 0:
+                continue  # not admitted yet: parts stay staged
+            if not rec.validated:
+                expect = self._expected_blob_shape(seq)
+                if rec.shape != expect or expect[2] > len(seq.pages):
+                    self._fail_chunked(
+                        rid, seq,
+                        f"remote prefill KV shape {rec.shape} does not "
+                        f"match decode geometry {expect}",
+                    )
+                    continue
+                rec.validated = True
+            if rec.applied and rec.life != seq.life:
+                # preempted and re-admitted into fresh pages since its parts
+                # scattered: they go in again
+                rec.parts = rec.applied + rec.parts
+                rec.applied = []
+                rec.applied_layers = 0
+            L = rec.shape[0]
+            bad = next(
+                (
+                    (lo, hi, arr)
+                    for lo, hi, arr in rec.parts
+                    if not (0 <= lo < hi <= L)
+                    or blob_shape(arr) != (hi - lo,) + rec.shape[1:]
+                ),
+                None,
+            )
+            if bad is not None:
+                lo, hi, arr = bad
+                self._fail_chunked(
+                    rid, seq,
+                    f"remote prefill KV chunk layers [{lo},{hi}) shape "
+                    f"{blob_shape(arr)} does not match decode geometry {rec.shape}",
+                )
+                continue
+            if rec.parts:
+                parts, rec.parts = rec.parts, []
+                rec.applied_layers += sum(hi - lo for lo, hi, _ in parts)
+                rec.applied += parts
+                rec.life = seq.life
+                out.append(("chunks", seq, parts))
+            if rec.done and not rec.parts:
+                self._forget_external(rid)
+                if rec.applied_layers != L:
+                    self._fail_seq(
+                        seq,
+                        f"incomplete chunked KV delivery: "
+                        f"{rec.applied_layers} of {L} layers",
+                    )
+                    self.sched.cancel(seq)
+                    continue
+                out.append(("commit", seq, rec.first, rec.lp_row))
+        return out
+
+    def _delivered_on_device(self, blob: Any) -> Any:
+        """A delivered blob (or chunk) on the device in this pool's dtype
+        domain: a host blob through ``coerce_kv_blob`` (the JAX engine's
+        rule, byte for byte within a domain) and one copy; a device blob
+        of a same-process handoff as it is, or quantized / dequantized on
+        the device by the same per-row rule."""
+        data = blob.q if isinstance(blob, QuantKV) else blob
+        if not isinstance(data, torch.Tensor):
+            return self._blob_on_device([self._coerce_blob(blob)])
+        if self.kv.quantized and not isinstance(blob, QuantKV):
+            q, s = quantize_kv_rows(blob)
+            return QuantKV(q=q, s=s)
+        if not self.kv.quantized and isinstance(blob, QuantKV):
+            return (blob.q.float() * blob.s[..., None, None]).to(self.dtype)
+        return blob
+
+    def _lane_prompt_pages(self, seq: SeqState) -> List[int]:
+        return seq.pages[: -(-len(seq.prompt) // self.cfg.page_size)]
+
+    def _apply_external_chunks(self, seq: SeqState, parts: List[Tuple[int, int, Any]]) -> None:
+        """Executor thread: scatter staged layer-group chunks into the
+        lane's pages in place, on the dispatch stream (the incremental half
+        of a chunked delivery; the first-token commit waits for the
+        barrier)."""
+        pages = self._lane_prompt_pages(seq)
+        for lo, _hi, arr in parts:
+            self._scatter_pages(pages, self._delivered_on_device(arr), first_layer=lo)
+
+    def _apply_external_kv(
+        self, seq: SeqState, blob: Any, first_token: int, lp_row: Optional[np.ndarray] = None
+    ) -> StepEvent:
+        """Executor thread: scatter the delivered KV into the lane's pages
+        (in place, on the dispatch stream: before the lane's first decode
+        dispatch, and graph addresses never move), then commit the
+        remotely-sampled first token."""
+        self._scatter_pages(self._lane_prompt_pages(seq), self._delivered_on_device(blob))
+        return self._apply_external_commit(seq, first_token, lp_row)
+
+    def _apply_external_commit(
+        self, seq: SeqState, first_token: int, lp_row: Optional[np.ndarray] = None
+    ) -> StepEvent:
+        """Executor thread: the KV is fully in the lane's pages (monolithic
+        scatter or chunked barrier cleared); commit the remotely-sampled
+        first token and wake the lane: a dirty row hands its token, length
+        and page-table row to the device state, which the next dispatch (or
+        graph replay) reads."""
+        seq.awaiting_kv = False
+        lp, top = None, None
+        if lp_row is not None and len(lp_row) >= 2:
+            N = (len(lp_row) - 2) // 2
+            _tok, lp_v, tids, tlps = unpack_sampled_logprobs(np.asarray(lp_row, np.int32), N)
+            lp = float(lp_v)
+            if N:
+                top = [[int(i), float(l)] for i, l in zip(tids, tlps)]
+        ev = self.sched.commit_prefill_token(seq, first_token, lp, top)
+        # membership changed (parked -> live): fold the lane into the
+        # device state at the next dispatch
+        if seq.slot >= 0:
+            self.sched.dirty_slots.add(seq.slot)
+        return ev
+
+    # -- disaggregation: KV export (prefill side) -----------------------------
+
+    async def prefill_export(self, req: PreprocessedRequest) -> Tuple[Any, np.ndarray]:
+        """Prefill-worker side: prefill one prompt into scratch pages and
+        return (host kv_blob ``[L, 2, n_pages, page, Hkv, D]``, packed
+        first-token row); the scratch frees.  The batched export with one
+        item, so the single and batched exports cannot diverge."""
+        (res,) = await self.prefill_export_batch([req])
+        if isinstance(res, Exception):
+            raise res
+        return res
+
+    async def prefill_export_batch(
+        self, reqs: List[PreprocessedRequest], device: bool = False
+    ) -> List[Any]:
+        """Batched :meth:`prefill_export`: one padded full-prompt dispatch
+        (``_dispatch_full_prefill_batch``, the aggregated path's site, so
+        disagg == aggregated output) per group of up to ``max_batch_size``
+        similar lengths, and one gather of the group's pages.  Returns one
+        entry per request, either ``(kv_blob, packed_row)`` or the
+        per-request ``Exception`` -- one bad prompt must not fail its
+        batch-mates.
+
+        ``device=True`` keeps the blobs on the device (views of the group's
+        gathered copy) for a same-process decode engine, the port's
+        device-to-device handoff: only the packed rows come to the host.
+        Otherwise each group's pages copy into pinned host memory without
+        blocking; the waits for those copies and for the rows run in a
+        thread of their own, off the engine's executor, so the other
+        engine's dispatches and this one's ticks go on meanwhile."""
+        if not self._running:
+            await self.start()
+        pending = await self._on_executor(self._prefill_export_batch, reqs, device)
+        return await asyncio.to_thread(self._finish_exports, pending)
+
+    @staticmethod
+    def _finish_exports(pending: List[Any]) -> List[Any]:
+        """Wait for each export's rows and pages and slice out its blob and
+        row (a group's rows and host copy are read once)."""
+        hosts: Dict[int, Any] = {}
+        rows: Dict[int, np.ndarray] = {}
+        out: List[Any] = []
+        for p in pending:
+            if isinstance(p, Exception):
+                out.append(p)
+                continue
+            if id(p.rows) not in rows:
+                rows[id(p.rows)] = p.rows.numpy()
+            pages = p.pages
+            if isinstance(pages, PageSnapshot):
+                if id(pages) not in hosts:
+                    hosts[id(pages)] = pages.materialize()
+                pages = hosts[id(pages)]
+            blob = blob_index(pages, (slice(None), slice(None), slice(p.off, p.off + p.n)))
+            out.append((blob, rows[id(p.rows)][p.row]))
+        return out
+
+    def _export_groups(self, reqs: List[PreprocessedRequest], export_one) -> List[Any]:
+        """Executor thread: the valid requests sorted by length (one long
+        prompt must not pad a whole group's bucket) in groups of
+        ``max_batch_size``, each exported by ``export_one(group, results)``;
+        a group that fails (page pressure) retries its requests one by one,
+        so per-item errors land on their own request."""
+        results: List[Any] = [None] * len(reqs)
+        valid: List[int] = []
+        for i, req in enumerate(reqs):
+            if not req.token_ids:
+                results[i] = ValueError("empty prompt")
+            else:
+                valid.append(i)
+        valid.sort(key=lambda i: len(reqs[i].token_ids))
+        B = self.cfg.max_batch_size
+        for start in range(0, len(valid), B):
+            group = valid[start : start + B]
+            try:
+                export_one(group, results)
+            except Exception:  # page pressure / bucket overflow
+                logger.warning(
+                    "grouped prefill export failed; retrying %d request(s) "
+                    "individually", len(group), exc_info=True,
+                )
+                for i in group:
+                    try:
+                        export_one([i], results)
+                    except Exception as exc:
+                        results[i] = exc
+        return results
+
+    def _export_dispatch(
+        self, reqs: List[PreprocessedRequest], group: List[int]
+    ) -> Tuple[List[List[int]], Result, torch.Tensor]:
+        """Executor thread: scratch pages for the group's prompts and one
+        padded full-prompt prefill into them; returns the pages, the packed
+        rows on their way to the host (their copy enqueued first, so
+        waiting for them never waits for the gathers behind it) and the
+        scratch page ids on the device.  The caller gathers the pages on
+        this stream and then frees them: a later dispatch that reuses them
+        runs after the gather."""
+        ps = self.cfg.page_size
+        allocated: List[List[int]] = []
+        try:
+            for i in group:
+                allocated.append(self.kv.allocator.alloc(-(-len(reqs[i].token_ids) // ps)))
+        except Exception:
+            for pages in allocated:
+                self.kv.allocator.free(pages)
+            raise
+        try:
+            seqs = []
+            for i, pages in zip(group, allocated):
+                seq = SeqState.from_request("export", reqs[i], self.sched.block_size)
+                seq.pages = pages
+                seqs.append(seq)
+            start = self._span_start()
+            packed = self._dispatch_full_prefill_batch(
+                seqs, min(pow2_bucket(len(seqs)), self.cfg.max_batch_size)
+            )
+            rows = self._download(packed, "export", start)
+            self._count("export")
+            ids = self._put(np.concatenate([np.asarray(p, np.int64) for p in allocated]))
+        except Exception:
+            for pages in allocated:
+                self.kv.allocator.free(pages)
+            raise
+        return allocated, rows, ids
+
+    def _prefill_export_batch(self, reqs: List[PreprocessedRequest], device: bool) -> List[Any]:
+        def export_one(group: List[int], results: List[Any]) -> None:
+            allocated, rows, ids = self._export_dispatch(reqs, group)
+            try:
+                dev = gather_block_pages(self.kv.pages, ids)
+                pages = dev if device else PageSnapshot(dev)
+            finally:
+                for p in allocated:
+                    self.kv.allocator.free(p)
+            off = 0
+            for row, (i, p) in enumerate(zip(group, allocated)):
+                results[i] = _PendingExport(rows, pages, row, off, len(p))
+                off += len(p)
+
+        return self._export_groups(reqs, export_one)
+
+    async def prefill_export_batch_stream(
+        self, reqs: List[PreprocessedRequest], layers_per_chunk: Optional[int] = None
+    ) -> List[Any]:
+        """Chunked, layer-pipelined :meth:`prefill_export_batch`: the batch
+        prefill dispatches once, then each layer group is gathered on the
+        dispatch stream and copied without blocking into pinned host memory
+        behind an event, and a :class:`KVExportStream` is handed back
+        BEFORE any blob materializes (only the packed rows are waited for).
+        The consumer streams chunk 0 onto the wire while chunks 1..N-1 are
+        still copying -- export-before-first-byte drops from the whole
+        blob's copy to one group's.
+
+        ``layers_per_chunk`` pins the chunk granularity; None splits the
+        stack into ~``ONBOARD_CHUNKS`` groups.  Returns one entry per
+        request: a :class:`KVExportStream` or the per-request
+        ``Exception``.  The same dispatch site as the aggregated path."""
+        if not self._running:
+            await self.start()
+        spans = layer_chunk_spans(self.model_cfg.num_layers, layers_per_chunk, ONBOARD_CHUNKS)
+        pending = await self._on_executor(self._prefill_export_batch_stream, reqs, spans)
+
+        def wait_rows() -> List[Any]:
+            return [p if isinstance(p, Exception) else p.rows.numpy()[p.row] for p in pending]
+
+        shape = blob_shape(self.kv.pages)
+        out: List[Any] = []
+        for p, row in zip(pending, await asyncio.to_thread(wait_rows)):
+            if isinstance(p, Exception):
+                out.append(p)
+                continue
+            out.append(KVExportStream(
+                shape=shape[:2] + (p.n,) + shape[3:], dtype=dtype_name(self.kv.dtype),
+                row=row, spans=spans, _group=p.pages, _page_off=p.off,
+            ))
+        return out
+
+    def _prefill_export_batch_stream(
+        self, reqs: List[PreprocessedRequest], spans: List[Tuple[int, int]]
+    ) -> List[Any]:
+        def export_one(group: List[int], results: List[Any]) -> None:
+            allocated, rows, ids = self._export_dispatch(reqs, group)
+            try:
+                shared = _GroupSpanExport([
+                    PageSnapshot(gather_layer_pages(
+                        self.kv.pages, self._put(np.arange(lo, hi, dtype=np.int64)), ids
+                    ))
+                    for lo, hi in spans
+                ])
+            finally:
+                for p in allocated:
+                    self.kv.allocator.free(p)
+            off = 0
+            for row, (i, p) in enumerate(zip(group, allocated)):
+                results[i] = _PendingExport(rows, shared, row, off, len(p))
+                off += len(p)
+
+        return self._export_groups(reqs, export_one)
+
     # -- KV offload: G1 -> G2 -> G3, onboarding, prefetch, swap ---------------
 
     def _on_pool_evict(self, blk) -> None:
@@ -2635,23 +3364,21 @@ class TorchEngine:
             return QuantKV(q=stack([b.q for b in blobs]), s=stack([b.s for b in blobs]))
         return stack(blobs)
 
-    def _scatter_pages(self, page_ids: Sequence[int], blob: Any) -> None:
+    def _scatter_pages(self, page_ids: Sequence[int], blob: Any, first_layer: int = 0) -> None:
         """One page-bucketed, layer-chunked scatter of ``blob`` (device, on
-        the pages axis) into ``page_ids``: the ids pad to their page bucket
-        with trash page 0, the blob with zero pages."""
+        the pages axis; layers ``first_layer`` on) into ``page_ids``: the
+        ids pad to their page bucket with trash page 0, the blob with zero
+        pages."""
         bucket = pick_page_bucket(len(page_ids), self.sched.max_pages)
         ids = np.zeros((bucket,), np.int64)
         ids[: len(page_ids)] = page_ids
         ids_t = self._put(ids)
         padded = pad_page_axis(blob, bucket)
-        L = self.model_cfg.num_layers
-        for lo, hi in layer_chunk_spans(L, None, ONBOARD_CHUNKS):
-            chunk = (
-                QuantKV(q=padded.q[lo:hi], s=padded.s[lo:hi])
-                if isinstance(padded, QuantKV)
-                else padded[lo:hi]
+        for lo, hi in layer_chunk_spans(blob_shape(blob)[0], None, ONBOARD_CHUNKS):
+            scatter_layer_pages(
+                self.kv.pages, slice(first_layer + lo, first_layer + hi), ids_t,
+                blob_index(padded, slice(lo, hi)),
             )
-            scatter_layer_pages(self.kv.pages, slice(lo, hi), ids_t, chunk)
 
     def _onboard_start(self) -> Any:
         if self.device.type != "cuda":
@@ -2901,6 +3628,7 @@ class TorchEngine:
             "kv_pages_total": alloc.num_pages - 1,
             "chunking": len(self._chunking),
             "swapped": len(self._swapped),
+            "external_parked": len(self._external),
             "tokens_generated": self._tokens_generated,
         }
 
@@ -2958,6 +3686,8 @@ class TorchEngine:
     def _fail_seq(self, seq: SeqState, message: str) -> None:
         if seq.finish is None:
             seq.finish = FinishReason.ERROR
+        # a failed external request must not resurrect via a late delivery
+        self._forget_external(seq.request_id)
         self._nonce_of.pop(seq.request_id, None)
         self._ctxs.pop(seq.request_id, None)
         self._cancel_prefetch(seq.request_id)
@@ -2999,6 +3729,7 @@ class TorchEngine:
         by_id.update({s.request_id: s for s in self.sched.waiting})
         for rid in list(self._cancelled):
             self._cancelled.discard(rid)
+            self._forget_external(rid)
             self._nonce_of.pop(rid, None)
             self._ctxs.pop(rid, None)
             self._cancel_prefetch(rid)

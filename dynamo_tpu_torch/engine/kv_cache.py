@@ -220,6 +220,41 @@ def tensor_view(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+def wire_dtype(name: str) -> np.dtype:
+    """The host form of a blob dtype named on the wire (a disaggregated
+    delivery's ``dtype``, the JAX package's ``str(blob.dtype)``): bf16 as
+    its ``uint16`` bits, int8 the quantized pair's data."""
+    if name == "bfloat16":
+        return np.dtype(np.uint16)
+    if name not in ("float32", "float16", "int8"):
+        raise ValueError(f"unsupported KV blob dtype {name!r}")
+    return np.dtype(name)
+
+
+def blob_dtype_name(blob: Any) -> str:
+    """The wire name of a blob's dtype (host or device): ``uint16`` host
+    bits are bf16, a :class:`QuantKV` is int8."""
+    if isinstance(blob, QuantKV):
+        return "int8"
+    if isinstance(blob, torch.Tensor):
+        return dtype_name(blob.dtype)
+    return "bfloat16" if blob.dtype == np.uint16 else str(blob.dtype)
+
+
+def blob_shape(blob: Any) -> Tuple[int, ...]:
+    """``[L, 2, n, page, Hkv, D]`` of either blob form."""
+    return tuple(int(s) for s in (blob.q if isinstance(blob, QuantKV) else blob).shape)
+
+
+def blob_index(blob: Any, index) -> Any:
+    """``blob[index]`` over its leading (layer, k|v, page) axes, a
+    :class:`QuantKV`'s data and scales together (views where the form
+    gives views)."""
+    if isinstance(blob, QuantKV):
+        return QuantKV(q=blob.q[index], s=blob.s[index])
+    return blob[index]
+
+
 def host_float32(blob: np.ndarray) -> np.ndarray:
     """A dense host blob's values in f32 (bf16 bits widened exactly)."""
     if blob.dtype == np.uint16:

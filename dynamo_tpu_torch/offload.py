@@ -3,9 +3,9 @@ page pool, coordinated by :class:`KVOffloadEngine`.
 
 A trimmed copy of the JAX package's ``offload.py`` (which loads no JAX):
 ``BlockMeta``, ``DiskTier``, ``HostTier``, ``PrefetchState``,
-``SwapRecord``, ``env_offload_spec`` and ``KVOffloadEngine``.  Left out:
-the G4 remote tier and its frames, the disaggregation staging buffer,
-fault injection and the thread-confinement asserts.
+``SwapRecord``, ``env_offload_spec``, ``KVOffloadEngine`` and the
+disaggregation landing zone ``KVStagingBuffer``.  Left out: the G4 remote
+tier and its frames, fault injection and the thread-confinement asserts.
 
 Reference parity: lib/llm/src/block_manager offload (offload.rs:76-80 --
 eviction cascades G1 -> G2 -> G3, lookups promote back up).  An evicted
@@ -47,7 +47,13 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .engine.kv_cache import QuantKV, blob_to_host
+from .engine.kv_cache import (
+    QuantKV,
+    blob_to_host,
+    quant_blob_nbytes,
+    unpack_quant_blob_bytes,
+    wire_dtype,
+)
 
 logger = logging.getLogger("dynamo.offload")
 
@@ -121,6 +127,71 @@ class BlockMeta:
             dict(shards) if shards else None,
             str(kv_dtype) if kv_dtype else None,
         )
+
+
+class KVStagingBuffer:
+    """Host-RAM landing zone for an incoming chunked KV transfer.
+
+    The decode side of disaggregation (and the prefix-onboard importer)
+    assembles wire chunks here before the device scatter; this class owns
+    the geometry arithmetic -- the preallocated ndarray, its flat byte
+    view, and each chunk's [start, end) byte range -- so sender and
+    receiver derive identical bounds from the same metadata.  Layer spans
+    map to byte ranges because layer slabs are contiguous in the C-order
+    blob ``[L, 2, pages, page, Hkv, D]``.
+
+    ``dtype`` is the wire name (``kv_cache.wire_dtype``): a bf16 blob lands
+    in a ``uint16`` array of its bits, an int8 one in the flat byte buffer
+    of the quantized wire layout."""
+
+    def __init__(self, shape, dtype, bounds, quant: bool = False) -> None:
+        shape = tuple(int(s) for s in shape)
+        self.quant = quant
+        self.shape = shape
+        if quant:
+            # quantized wire layout (kv_cache.pack_quant_blob_bytes): each
+            # layer slab is its int8 data followed by its f32 row scales,
+            # so the landing zone is a flat byte buffer and layer_slice
+            # unpacks the (data, scales) pair per span
+            self.array = np.empty((quant_blob_nbytes(shape),), np.uint8)
+        else:
+            self.array = np.empty(shape, wire_dtype(str(dtype)))
+        self.flat = self.array.view(np.uint8).reshape(-1)
+        self.bounds = [(int(s), int(e)) for s, e in bounds]
+        if self.bounds and self.bounds[-1][1] != self.flat.size:
+            raise ValueError(
+                f"chunk bounds end at {self.bounds[-1][1]}, blob holds "
+                f"{self.flat.size} bytes"
+            )
+
+    @classmethod
+    def for_layer_spans(cls, shape, dtype, spans) -> "KVStagingBuffer":
+        """One chunk per layer-group span [lo, hi) over axis 0.  An int8
+        ``dtype`` selects the quantized wire layout (data + row scales per
+        layer slab)."""
+        shape = tuple(int(s) for s in shape)
+        quant = str(dtype) == "int8"
+        if quant:
+            total = quant_blob_nbytes(shape)
+        else:
+            total = int(np.prod(shape)) * wire_dtype(str(dtype)).itemsize
+        bpl = total // max(shape[0], 1)
+        return cls(shape, dtype, [(lo * bpl, hi * bpl) for lo, hi in spans], quant=quant)
+
+    @property
+    def memoryview(self) -> memoryview:
+        return memoryview(self.flat)
+
+    def layer_slice(self, lo: int, hi: int) -> Any:
+        """View of layers [lo, hi) -- stable once their bytes landed.  For
+        the quantized layout this unpacks the span's (data, scales) pair;
+        like the dense path it ALIASES the staging buffer (zero-copy), so
+        it is valid only while the buffer's bytes stay untouched."""
+        if self.quant:
+            bpl = quant_blob_nbytes(self.shape) // max(self.shape[0], 1)
+            span_shape = (hi - lo,) + self.shape[1:]
+            return unpack_quant_blob_bytes(self.flat[lo * bpl : hi * bpl], span_shape)
+        return self.array[lo:hi]
 
 
 class DiskTier:

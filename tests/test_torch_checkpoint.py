@@ -13,6 +13,10 @@ package.
   prints the JAX pipeline's greedy text for the same checkpoint, a refused
   flag exits non-zero naming it, and with no card and no ``--device`` the
   command refuses to run.
+* The distributed command line: ``hub``, ``run in=dyn`` (aggregated, and
+  the ``--disagg decode|prefill`` roles with ``disagg-conf``), ``run
+  in=http out=dyn`` and ``llmctl`` as processes give the JAX pipeline's
+  texts; its flags parse like the JAX CLI's.
 """
 
 from __future__ import annotations
@@ -451,7 +455,10 @@ def test_cli_refuses_offload_on_a_worker(monkeypatch, extra, env):
 @pytest.mark.parametrize(
     "argv, name",
     [
-        (["in=dyn", "out=torch", "--hub", "127.0.0.1:1", "--disagg", "prefill"], "--disagg"),
+        # --disagg is served; with the offload plane it still needs prefix
+        # onboarding, and the refusal names the role
+        (["in=dyn", "out=torch", "--hub", "127.0.0.1:1", "--disagg", "prefill",
+          "--host-offload-blocks", "8"], "--disagg"),
         (["in=dyn", "out=torch", "--hub", "127.0.0.1:1", "--kv-remote", "on"], "--kv-remote"),
         (["in=dyn", "out=mocker", "--hub", "127.0.0.1:1"], "out=mocker"),
         (["in=dyn", "out=echo", "--hub", "127.0.0.1:1"], "out=echo"),
@@ -462,6 +469,41 @@ def test_cli_refuses_offload_on_a_worker(monkeypatch, extra, env):
 )
 def test_cli_refuses_unported_dyn(argv, name):
     assert name in refusal([*argv, "--model-path", "m", "--device", "cpu"])
+
+
+@pytest.mark.parametrize(
+    "argv",
+    [
+        ["in=http", "out=torch", "--disagg", "decode"],
+        ["in=text", "out=torch", "--disagg", "prefill"],
+        ["in=http", "out=dyn", "--hub", "127.0.0.1:1", "--disagg", "decode"],
+    ],
+)
+def test_cli_refuses_disagg_outside_a_worker(argv):
+    """The JAX CLI ignores ``--disagg`` outside ``in=dyn``; the port
+    refuses it there, naming it."""
+    assert "--disagg serves in=dyn out=torch workers only" in refusal(
+        [*argv, "--model-path", "m", "--device", "cpu"])
+
+
+def test_cli_parses_disagg_flags_like_jax():
+    """``--disagg`` and its flags, and ``disagg-conf``, parse to the JAX
+    CLI's defaults and values."""
+    from dynamo_tpu.cli import build_parser as jax_parser
+    from dynamo_tpu_torch.cli import build_parser
+
+    keys = ("disagg", "max_local_prefill_length", "max_prefill_queue_depth",
+            "kv_chunk_layers", "no_chunked_kv", "block_size")
+    for argv in ([], ["--disagg", "decode", "--max-local-prefill-length", "4",
+                      "--max-prefill-queue-depth", "2", "--block-size", "4"],
+                 ["--disagg", "prefill", "--kv-chunk-layers", "3", "--no-chunked-kv"]):
+        got = build_parser().parse_args(["run", "in=dyn", "out=torch", *argv])
+        want = jax_parser().parse_args(["run", "in=dyn", "out=jax", *argv])
+        assert {k: getattr(got, k) for k in keys} == {k: getattr(want, k) for k in keys}
+    for argv in (["disagg-conf", "--hub", "h:1"],
+                 ["disagg-conf", "--hub", "h:1", "--namespace", "ns",
+                  "--max-local-prefill-length", "7", "--max-prefill-queue-depth", "1"]):
+        assert vars(build_parser().parse_args(argv)) == vars(jax_parser().parse_args(argv))
 
 
 def test_cli_worker_needs_card_or_cpu(checkpoint):
@@ -532,6 +574,99 @@ def test_cli_serves_hub_worker_and_kv_frontend(checkpoint, expected):
         assert out.returncode == 0, out.stderr
         assert out.stdout.startswith("m  instances=1  endpoint=dyn://dynamo.backend.generate")
         for p in (front, worker, hub):
+            p.send_signal(signal.SIGINT)
+            p.communicate(timeout=60)
+            assert p.returncode == 0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+
+
+def test_cli_serves_disaggregated_decode_and_prefill_workers(checkpoint, expected, tmp_path):
+    """``hub``, ``run in=dyn out=torch --disagg decode`` and ``--disagg
+    prefill`` (both ``--device cpu``) and ``run in=http out=dyn`` as four
+    processes: prompts longer than ``--max-local-prefill-length`` ship to
+    the prefill worker (its log names each delivery) and the front end's
+    chat texts are the JAX pipeline's; only the decode worker registers the
+    model; ``disagg-conf`` turns the next long prompt local; SIGINT ends
+    each process with exit code 0."""
+    import signal
+    import time
+    import urllib.request
+
+    path = checkpoint[0]
+    procs = []
+
+    def start(*args, log=None):
+        env = {**os.environ, "DYN_LOG": "info" if log else "warning"}
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "dynamo_tpu_torch", *args], cwd=ROOT, text=True, env=env,
+            stdout=subprocess.PIPE, stderr=open(log, "w") if log else subprocess.PIPE,
+        ))
+        return procs[-1]
+
+    prefill_log = tmp_path / "prefill.log"
+
+    def deliveries() -> int:
+        return prefill_log.read_text().count("prefilled ")
+
+    try:
+        hub = start("hub", "--host", "127.0.0.1", "--port", "0")
+        line = hub.stdout.readline()
+        assert line.startswith("hub at 127.0.0.1:"), line
+        addr = line.split()[2]
+        engine = ["--model-path", path, "--model-name", "m", "--device", "cpu", "--hub", addr,
+                  "--page-size", "4"]
+        decode = start("run", "in=dyn", "out=torch", *engine, "--disagg", "decode",
+                       "--max-local-prefill-length", "4", "--block-size", "4")
+        line = decode.stdout.readline()
+        assert line.startswith("decode worker serving model m on dyn://dynamo.backend.generate"), (
+            line, decode.stderr.read() if decode.poll() is not None else "")
+        prefill = start("run", "in=dyn", "out=torch", *engine, "--disagg", "prefill",
+                        "--kv-chunk-layers", "1", log=prefill_log)
+        line = prefill.stdout.readline()
+        assert line.startswith("prefill worker consuming dynamo_prefill_queue"), (
+            line, prefill_log.read_text())
+        front = start("run", "in=http", "out=dyn", "--hub", addr, "--port", "0")
+        line = front.stdout.readline()
+        assert line.startswith("frontend at http://"), line
+        url = line.split()[2]
+        deadline = time.monotonic() + 60
+        while True:
+            with urllib.request.urlopen(url + "/v1/models", timeout=10) as resp:
+                if json.loads(resp.read())["data"]:
+                    break
+            assert time.monotonic() < deadline, "model never discovered"
+            time.sleep(0.1)
+
+        def chat(prompt: str) -> str:
+            body = _post(url + "/v1/chat/completions", {
+                "model": "m", "max_tokens": MAX_TOKENS,
+                "messages": [{"role": "user", "content": prompt}]})
+            return body["choices"][0]["message"]["content"]
+
+        for i, (prompt, want) in enumerate(zip(PROMPTS, expected)):
+            assert chat(prompt) == want
+            assert deliveries() == i + 1, prefill_log.read_text()
+        out = run_cli("llmctl", "--hub", addr, "list", timeout=60)
+        assert out.returncode == 0, out.stderr
+        assert out.stdout.startswith("m  instances=1  endpoint=dyn://dynamo.backend.generate")
+        out = run_cli("disagg-conf", "--hub", addr, "--max-local-prefill-length", "100000",
+                      timeout=60)
+        assert out.returncode == 0 and "100000" in out.stdout, out.stderr
+        # the decode worker's watch reloads the policy within milliseconds;
+        # a prompt sent before that still ships, so ask until one stays
+        for _ in range(20):
+            shipped = deliveries()
+            assert chat(PROMPTS[0]) == expected[0]
+            if deliveries() == shipped:
+                break
+            time.sleep(0.2)
+        else:
+            raise AssertionError("disagg-conf never turned the prompts local")
+        for p in (front, prefill, decode, hub):
             p.send_signal(signal.SIGINT)
             p.communicate(timeout=60)
             assert p.returncode == 0

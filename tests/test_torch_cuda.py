@@ -13,7 +13,8 @@ columns at offsets off the page; verify segments of 2 to 9 rows beside
 decode rows).  The offload plane's page copies on the card give the CPU's
 bytes; an eviction snapshot keeps the bytes that the very next replayed
 dispatch overwrites; a swapped lane resumes under graph replay with the
-streams of a roomy pool.
+streams of a roomy pool.  A disaggregated delivery lands as the same pool
+pages through the same-process device handoff as through the wire.
 The dense entries of the ragged and flash kernels also give, bit for bit,
 the outputs recorded in ``DENSE_DIGESTS``.
 
@@ -1225,3 +1226,104 @@ def test_two_engines_capture_and_serve_side_by_side(card):
         decode += cfg.num_layers * sum((k - 1) * n for k, n in e.dispatches_by_k.items())
         packed += cfg.num_layers * e.dispatches.get("unified", 0)
     assert (pa.KERNEL.launches - before[0], ra.KERNEL.launches - before[1]) == (decode, packed)
+
+
+# ---------------------------------------------------------------------------
+# Disaggregated delivery: the same-process device handoff against the wire
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_device_handoff_and_wire_delivery_give_the_same_pages(card, kv_dtype):
+    """A prompt exported on one engine and delivered into another's pool
+    lands as the same pool pages whether it is handed over as a device
+    tensor (the same-process path) or as the wire's bytes (a bf16 blob's
+    ``uint16`` bits through the decode worker's raw handler); a dense
+    pool holds the exported bytes, an int8 one their quantization by the
+    pool's row rule either way.  Both requests then decode the same
+    stream."""
+    import asyncio
+    import json
+
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.kv_cache import QuantKV, quantize_kv_blob
+    from dynamo_tpu_torch.engine.model import init_params
+    from dynamo_tpu_torch.engine.step import gather_block_pages
+    from dynamo_tpu_torch.llm.disagg import DisaggDecodeEngine
+    from dynamo_tpu_torch.protocols.common import PreprocessedRequest
+    from dynamo_tpu_torch.runtime.component import DistributedRuntime
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    cfg = ModelConfig.tiny(head_dim=64, num_heads=4, num_kv_heads=2, dtype="bfloat16")
+    params = init_params(cfg, 6, card, torch.bfloat16)
+    prompt = np.random.default_rng(6).integers(1, cfg.vocab_size, 150).tolist()
+
+    def req():
+        return PreprocessedRequest.from_dict({
+            "token_ids": prompt, "stop_conditions": {"max_tokens": 12},
+            "sampling_options": {}, "eos_token_ids": []})
+
+    def host(blob):
+        if isinstance(blob, QuantKV):
+            return blob.q.cpu().numpy().tobytes() + blob.s.cpu().numpy().tobytes()
+        return blob.cpu().view(torch.int16).numpy().tobytes()
+
+    async def body():
+        prefill = TorchEngine(cfg, params, EngineConfig(max_seq_len=256, num_pages=64),
+                              device=card)
+        decode = TorchEngine(cfg, params, EngineConfig(max_seq_len=256, num_pages=64,
+                                                       kv_dtype=kv_dtype), device=card)
+        landed = []
+        commit = decode._apply_external_commit
+
+        def spy(seq, *args):
+            ids = torch.as_tensor(decode._lane_prompt_pages(seq), device=card)
+            landed.append(host(gather_block_pages(decode.kv.pages, ids)))
+            return commit(seq, *args)
+
+        decode._apply_external_commit = spy
+        rt = await DistributedRuntime.static()
+        disagg = DisaggDecodeEngine(decode, rt.namespace("cuda"), "decode", instance_id=0)
+        try:
+            ((dev, row),) = await prefill.prefill_export_batch([req()], device=True)
+            blob, row_h = await prefill.prefill_export(req())
+            assert isinstance(dev, torch.Tensor) and dev.device.type == card.type
+            assert blob.dtype == np.uint16 and host(dev) == blob.tobytes()
+            assert np.array_equal(row, row_h)
+            ctx = Context.new(req())
+            s_dev = await decode.generate_external(ctx)
+            assert decode.deliver_external(ctx.id, dev, row)
+            ctx_w = Context.new(req())
+            s_wire = await decode.generate_external(ctx_w)
+            raw = blob.tobytes()
+            meta = {"request_id": ctx_w.id, "dtype": "bfloat16", "shape": list(blob.shape),
+                    "first_token": int(row[0]), "lp_row": [int(x) for x in row]}
+
+            async def frames():
+                yield raw[: len(raw) // 2]
+                yield raw[len(raw) // 2:]
+
+            acks = [a async for a in disagg._kv_deliver({"meta": meta}, frames(), None)]
+            assert [json.loads(a)["ok"] for a in acks] == [True]
+            streams = []
+            for s in (s_dev, s_wire):
+                toks = []
+                async for item in s:
+                    assert not item.is_error(), item.error_message()
+                    toks += (item.data or {}).get("token_ids") or []
+                streams.append(toks)
+            return blob, landed, streams
+        finally:
+            await decode.stop()
+            await prefill.stop()
+            await rt.shutdown()
+
+    blob, landed, streams = asyncio.run(body())
+    assert len(landed) == 2 and landed[0] == landed[1]
+    if kv_dtype is None:
+        assert landed[0] == blob.tobytes()
+    else:
+        q = quantize_kv_blob(blob)
+        assert landed[0] == q.q.tobytes() + q.s.tobytes()
+    assert streams[0] == streams[1] and len(streams[0]) == 12

@@ -96,8 +96,8 @@ def test_port_imports_nothing_refused():
     # (its package, drafter.py, model_drafter.py) and engine/quant.py, 69
     # with the distributed runtime (runtime/transports/, component, config,
     # faults, thread_sentry, tracing, utils, protocols/endpoint,
-    # llm/model_card, llm/discovery, llm/kv_router/)
-    assert int(out.stdout.strip().splitlines()[-1]) >= 69
+    # llm/model_card, llm/discovery, llm/kv_router/), 70 with llm/disagg
+    assert int(out.stdout.strip().splitlines()[-1]) >= 70
 
 
 # the speculative decoding package, the model drafter and weight-only int8:
@@ -134,9 +134,10 @@ def test_spec_and_quant_import_nothing_refused():
     assert out.stdout.strip().splitlines()[-1] == "ok"
 
 
-# the distributed runtime and the KV router: copies of JAX modules that
-# import no JAX, but whose JAX originals reach the JAX package's profiling,
-# fleet and prefix-onboarding modules
+# the distributed runtime, the KV router and disaggregation: copies of JAX
+# modules that import no JAX (disagg's original: only to name dtypes), but
+# whose JAX originals reach the JAX package's profiling, telemetry, fleet
+# and prefix-onboarding modules
 RUNTIME = (
     "dynamo_tpu_torch.runtime.transports", "dynamo_tpu_torch.runtime.transports.codec",
     "dynamo_tpu_torch.runtime.transports.hub",
@@ -147,7 +148,7 @@ RUNTIME = (
     "dynamo_tpu_torch.runtime.utils", "dynamo_tpu_torch.protocols.endpoint",
     "dynamo_tpu_torch.llm.model_card", "dynamo_tpu_torch.llm.discovery",
     "dynamo_tpu_torch.llm.kv_router", "dynamo_tpu_torch.llm.kv_router.router",
-    "dynamo_tpu_torch.cli",
+    "dynamo_tpu_torch.llm.disagg", "dynamo_tpu_torch.cli",
 )
 
 
