@@ -268,6 +268,45 @@ Every phase is fatal on failure:
    ``disagg-conf --max-local-prefill-length 100000`` turns the next long
    prompt local, SIGINT ends each with exit code 0.
 
+13. serve-onboard: cross-worker prefix onboarding and the G4 remote tier
+   (``llm/prefix_onboard.py``, ``offload.RemoteTier``).  (a) The reference
+   phase's f32 model, a donor and an importer on the card (each
+   ``host_offload_blocks=8``) behind a loopback hub: the importer onboards
+   a 2-block prefix from the donor's ``kv_export``, then a fresh importer
+   from an ``InMemoryBlobStore``; their greedy streams equal a plain CPU
+   engine's, 2 blocks onboarded, no fetch failed.  (b) Llama-3-8B at full
+   width and depth, bf16, random weights of seed 0, two workers at a time
+   in this process set up by the CLI's ``serve_worker`` behind the
+   KV-routed front end.  Peer leg: worker A (``EngineConfig(num_pages=
+   1024, host_offload_blocks=512)``) serves 4 1024-token prefixes (64 new
+   tokens); cold worker B (the same config) is sent 4 requests on them (a
+   suffix of 16 to 256 tokens, 64 new, greedy, top-2 logprobs) straight to
+   its endpoint with A as their donor (64 blocks), then a routed round
+   whose router decisions are printed.  G4 leg: worker A' (``num_pages=
+   160``, the ring, ``kv_remote="on"``) serves 4 other prefixes and two
+   1900-token churn prompts, so every prefix block is evicted to its host
+   ring and mirrored into the hub's blob store; cold worker B' (1024
+   pages, the ring, G4) joins, A' leaves, and B' gets requests on those
+   prefixes through the front end's router, which must stamp the G4 store
+   as donor (4 ``kv_remote`` decisions).  Each leg: the importer onboards
+   all 256 blocks, its pages equal the donor's (blake2b per block: A's
+   pages, A''s mirrored host blobs), its engine counts 1024 cached prompt
+   tokens per request, no fetch, G4 fetch or offload copy failed, the
+   launches over both engines are exact (kernels 5 and 1 launched), and
+   every request ends with its 64 tokens.  Printed: the greedy agreement
+   with a recompute twin (a cold worker, no donor hint, the same path) and
+   the top-2 gap at each first divergence (reported, not held: the twin
+   computes the prefix's KV in other batches, and bf16 rows move with the
+   dispatch around them); blocks and bytes onboarded, each request's
+   fetch GB/s, the G4 puts' and fetches' GB/s (``dynamo_kv_g4_*``), TTFT
+   from arrival p50/p99 beside the twin's, wall, peak GiB and the
+   threads' profile.  (c)
+   ``hub``, two ``run in=dyn out=torch --host-offload-blocks 256
+   --kv-remote on`` workers and ``run in=http out=dyn --router-mode kv`` as
+   four processes over serve-dyn (c)'s checkpoint: both ``kv_export``
+   endpoints discovered, texts equal the in-process engine's, SIGINT ends
+   each with exit code 0.
+
 In every served run each kernel's launch count (graph replays included)
 must equal what the run's dispatches imply (``expected_launches``), and
 the run prints its loop mode, graph captures and replays and the dispatch
@@ -340,6 +379,11 @@ EMBED_TOL = 1e-3
 
 
 def fail(msg: str) -> None:
+    # the processes a CLI phase started and has not ended: their logs'
+    # ends say why a request to them failed
+    for p in list(Proc.running):
+        print(f"chip_smoke: {p.name} (exit code {p.proc.poll()}), its log's end: "
+              f"{p.log()[-4000:]}", file=sys.stderr, flush=True)
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
@@ -3472,7 +3516,10 @@ def free_port() -> int:
 
 class Proc:
     """A ``python -m dynamo_tpu_torch`` subprocess with its output in a log
-    file."""
+    file.  ``running`` holds those not yet ended, whose logs ``fail``
+    prints."""
+
+    running: List["Proc"] = []
 
     def __init__(self, tmp: str, name: str, *args: str) -> None:
         self.name = name
@@ -3482,6 +3529,7 @@ class Proc:
                 [sys.executable, "-m", "dynamo_tpu_torch", *args],
                 cwd=ROOT, stdout=log_file, stderr=subprocess.STDOUT, text=True,
             )
+        Proc.running.append(self)
 
     def log(self) -> str:
         with open(self.log_path) as f:
@@ -3497,6 +3545,7 @@ class Proc:
 
         self.proc.send_signal(signal.SIGINT)
         self.proc.wait(timeout=120)
+        Proc.running.remove(self)
         if self.proc.returncode != 0:
             fail(f"{what}: {self.name} exited with {self.proc.returncode} on SIGINT: "
                  f"{self.log()[-3000:]}")
@@ -3505,6 +3554,8 @@ class Proc:
         if self.proc.poll() is None:
             self.proc.kill()
             self.proc.wait()
+        if self in Proc.running:
+            Proc.running.remove(self)
 
 
 def wait_http(port: int, path: str, ready: Callable[[bytes], bool], procs: List["Proc"],
@@ -3561,24 +3612,25 @@ class DynCluster:
     else ``PushRouter`` in that mode.  The front end's runtime also
     subscribes to the router's hit-rate events."""
 
-    async def start(self, engines, model_dir: str, router_mode: str):
-        from dynamo_tpu_torch.cli import kv_engine_factory, serve_worker
+    async def start(self, engines, model_dir: str, router_mode: str, lease_ttl=None):
+        from dynamo_tpu_torch.cli import kv_engine_factory
         from dynamo_tpu_torch.http.service import HttpService, ModelManager
         from dynamo_tpu_torch.llm.discovery import ModelWatcher
         from dynamo_tpu_torch.runtime.component import DistributedRuntime, RouterMode
         from dynamo_tpu_torch.runtime.transports.hub import HubServer
 
-        self.engines = engines
+        self.engines = []
         self.hub = HubServer(host="127.0.0.1")
         host, port = await self.hub.start()
-        addr = f"{host}:{port}"
+        self.addr = f"{host}:{port}"
+        self.model_dir = model_dir
+        # serve-onboard's workers move bulk KV on this one loop: leases of
+        # LEASE_TTL_S outlast a loop kept busy (as serve-disagg's do)
+        self.lease_ttl = lease_ttl
         self.workers, self.pubs = [], []
         for engine in engines:
-            rt = await DistributedRuntime.detached(addr)
-            _, pub = await serve_worker(rt, engine, "dyn://dynamo.backend.generate",
-                                        model_dir, "m")
-            self.workers.append(rt)
-            self.pubs.append(pub)
+            await self.add(engine)
+        addr = self.addr
         self.front = await DistributedRuntime.detached(addr)
         self.manager = ModelManager()
         self.factory = None
@@ -3604,6 +3656,29 @@ class DynCluster:
             await asyncio.sleep(0.05)
         return self
 
+    async def add(self, engine) -> None:
+        """One more worker, set up as ``run in=dyn out=torch`` sets it up
+        (``cli.serve_worker``); ``pubs`` holds its ``ServedWorker``."""
+        from dynamo_tpu_torch.cli import serve_worker
+        from dynamo_tpu_torch.runtime.component import DistributedRuntime
+
+        kw = {} if self.lease_ttl is None else {"lease_ttl": self.lease_ttl}
+        rt = await DistributedRuntime.detached(self.addr, **kw)
+        _, pub = await serve_worker(rt, engine, "dyn://dynamo.backend.generate",
+                                    self.model_dir, "m")
+        self.engines.append(engine)
+        self.workers.append(rt)
+        self.pubs.append(pub)
+
+    async def leave(self, i: int) -> None:
+        """Worker ``i`` leaves as a worker process stopping does: its
+        publishers close, its engine stops, its runtime shuts down (its
+        leases revoked)."""
+        await self.pubs[i].close()
+        await self.engines[i].stop()
+        await self.workers[i].shutdown()
+        self.pubs[i] = self.engines[i] = self.workers[i] = None
+
     def requests_per_worker(self) -> List[int]:
         """Requests each worker's generate endpoint took."""
         return [rt.endpoint_stats["dynamo/backend/generate"].requests for rt in self.workers]
@@ -3618,6 +3693,8 @@ class DynCluster:
         await self.watcher.stop()
         await self.front.shutdown()
         for pub, engine, rt in zip(self.pubs, self.engines, self.workers):
+            if rt is None:
+                continue  # left already
             await pub.close()
             await engine.stop()
             await rt.shutdown()
@@ -4628,6 +4705,565 @@ def serve_disagg_phase(card: str, ckpt, direct: List[str]) -> Dict[str, int]:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -- serve-onboard: cross-worker prefix onboarding and the G4 tier ---------------
+
+
+async def stream_traffic(send, reqs: List[dict], donor=None) -> List[dict]:
+    """``reqs`` at once through ``send`` (a context -> response stream
+    call: a worker's served endpoint, or the front end's router), each with
+    ``donor`` as its ``DONOR_META_KEY`` metadata.  Per request: tokens,
+    finish reason, top logprobs, submit time and frame times."""
+    from dynamo_tpu_torch.llm.prefix_onboard import DONOR_META_KEY
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    async def one(req: dict) -> dict:
+        ctx = Context.new(dict(req))
+        if donor is not None:
+            ctx.metadata[DONOR_META_KEY] = dict(donor)
+        t0 = time.perf_counter()
+        stream = await send(ctx)
+        tokens: List[int] = []
+        top: List[list] = []
+        frames: List[Tuple[float, int]] = []
+        finish = None
+        async for item in stream:
+            if item.is_error():
+                raise RuntimeError(item.error_message())
+            data = item.data or {}
+            got = data.get("token_ids") or []
+            if got:
+                frames.append((time.perf_counter(), len(got)))
+                tokens += got
+            top += data.get("top_logprobs") or []
+            finish = data.get("finish_reason") or finish
+        return dict(tokens=tokens, finish=finish, top=top, t0=t0, frames=frames)
+
+    return list(await asyncio.wait_for(asyncio.gather(*[one(r) for r in reqs]), 600))
+
+
+async def generate_router(cluster, n: int):
+    """A ``PushRouter`` on the front end's runtime over the workers'
+    generate endpoint, once it knows ``n`` instances."""
+    from dynamo_tpu_torch.runtime.component import PushRouter
+
+    client = await cluster.front.namespace("dynamo").component("backend").endpoint(
+        "generate").client()
+    t0 = time.perf_counter()
+    while len(client.instances) < n:
+        if time.perf_counter() - t0 > 60:
+            fail(f"serve-onboard: {len(client.instances)} of {n} generate instances discovered")
+        await asyncio.sleep(0.05)
+    return PushRouter(client)
+
+
+def decision_counts() -> Dict[str, float]:
+    """The KV router's ``dynamo_kv_router_decisions`` by cause."""
+    from dynamo_tpu_torch.runtime import metrics as rtm
+
+    out = {}
+    for line in rtm.default_registry().render()[0].decode().splitlines():
+        m = re.match(r'dynamo_kv_router_decisions_total\{cause="(\w+)"\} (\S+)', line)
+        if m:
+            out[m.group(1)] = float(m.group(2))
+    return out
+
+
+def bf16_step(x: float) -> float:
+    """One bf16 step (8 significant bits) at ``x``'s magnitude."""
+    import math
+
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 2.0**-126))) - 7)
+
+
+def onboard_agreement(what: str, run: List[dict], twin: List[dict]) -> str:
+    """Lanes equal to the recompute twin's, and at each first divergence
+    the top-2 logprob gap on both sides, also in bf16 steps at the logits'
+    magnitude (the largest of a random-weight model's 128256 logits is
+    near 4.85, whose step is 1/32).  Reported, not held: the twin computes
+    the prefix's KV in other batches than the donor did, and bf16 rows
+    move with the dispatch around them (serve-a45, serve-disagg)."""
+    same, notes = 0, []
+    for i, (a, b) in enumerate(zip(run, twin)):
+        if a["tokens"] == b["tokens"]:
+            same += 1
+            continue
+        j = next((j for j, (x, y) in enumerate(zip(a["tokens"], b["tokens"])) if x != y),
+                 min(len(a["tokens"]), len(b["tokens"])))
+        gaps = []
+        for r in (a, b):
+            t = r["top"][j] if j < len(r["top"]) else None
+            if not t or len(t) < 2:
+                fail(f"{what}: lane {i} has no top-2 logprobs at its first divergence {j}")
+            gap = t[0][1] - t[1][1]
+            gaps.append(f"{round(gap, 5)} ({gap / bf16_step(4.85):.1f} steps)")
+        notes.append(f"lane {i} token {j} gap {gaps[0]} (twin {gaps[1]})")
+    return f"{same} of {len(twin)} lanes equal the twin's; first divergences: {notes or 'none'}"
+
+
+def check_no_fetch_failure(what: str, engines) -> None:
+    """No onboard fetch failed, no G4 fetch failed and no offload copy
+    failed or fell back, on any engine (a fallback to recompute is the
+    reference's semantics, and here it fails the leg)."""
+    for e, pub in engines:
+        oe = e.offload_engine
+        bad = dict(failed_fetches=pub.onboard.failed_fetches if pub.onboard else 0,
+                   copy_fails=oe.copy_fails, onboard_fallbacks=oe.onboard_fallbacks,
+                   swap_fallbacks=oe.swap_fallbacks,
+                   g4_fetch_fails=sum((oe.remote.fetch_fails if oe.remote else {}).values()))
+        if any(bad.values()):
+            fail(f"{what}: fallbacks counted {bad}")
+
+
+def onboard_small(ref: Dict[str, object], tmp: str) -> None:
+    """serve-onboard (a): the reference phase's f32 model, a donor and an
+    importer on the card, each with ``host_offload_blocks=8``, behind a
+    loopback hub: the importer onboards a 2-block prefix from the donor
+    through ``kv_export``, then a fresh importer the same blocks from an
+    ``InMemoryBlobStore``; their greedy streams equal a plain CPU
+    engine's, each onboards the 2 blocks asked for and fails no fetch."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.llm.prefix_onboard import PrefixOnboardEngine
+    from dynamo_tpu_torch.offload import BlockMeta, InMemoryBlobStore, RemoteTier
+    from dynamo_tpu_torch.tokens.hashing import hash_blocks
+
+    cfg, params = ref["cfg"], ref["params"]
+    ecfg = dict(ref["ecfg"], host_offload_blocks=8)
+    shared = ref["batches"][0][1]["token_ids"][:40]
+    donor_req, req = request(shared + [5, 6], 16), request(shared + [9], 16)
+    _, hashes = hash_blocks(req["token_ids"], 16)
+    cpu = TorchEngine(cfg, params, EngineConfig(**ref["ecfg"]), device="cpu")
+    want = asyncio.run(serve(cpu, [[req]]))[0]["tokens"]
+    tok_dir = os.path.join(tmp, "small")
+    os.makedirs(tok_dir)
+    write_tokenizer(tok_dir, cfg.vocab_size, 0)
+    card_params = params_on(params, "cuda")
+    donor, importer, remote = (
+        TorchEngine(cfg, card_params, EngineConfig(**ecfg), device="cuda") for _ in range(3))
+    store = InMemoryBlobStore()
+
+    async def body():
+        cluster = await DynCluster().start([donor, importer], tok_dir, "kv")
+        try:
+            router = await generate_router(cluster, 2)
+            lease = cluster.workers[0].primary_lease
+            await stream_traffic(lambda c: router.direct(c, lease), [donor_req])
+            got = await stream_traffic(
+                lambda c: router.direct(c, cluster.workers[1].primary_lease), [req],
+                donor={"instance": lease, "blocks": 2})
+            exported = await donor.export_blocks(hashes[:2])
+            onboard = cluster.pubs[1].onboard
+            peer = (got[0]["tokens"], onboard.onboarded_blocks, onboard.failed_fetches)
+            check_no_fetch_failure("serve-onboard (a) peer",
+                                   [(donor, cluster.pubs[0]), (importer, cluster.pubs[1])])
+        finally:
+            await cluster.stop()
+        # the same blocks from the G4 store: frames the donor exported
+        tier = RemoteTier(store)
+        for h, blob, meta in exported:
+            tier.submit_put(h, blob, BlockMeta.from_dict(meta)).result()
+        tier.close()
+        remote.offload_engine.attach_remote(store)
+        ob = PrefixOnboardEngine(remote, None, "backend", engine=remote)
+        try:
+            got2 = await stream_traffic(ob.generate, [req],
+                                        donor={"instance": -1, "blocks": 2, "source": "remote"})
+        finally:
+            await remote.stop()
+        return peer, (got2[0]["tokens"], ob.onboarded_blocks, ob.failed_fetches)
+
+    for name, (tokens, onboarded, failed) in zip(("kv_export", "InMemoryBlobStore"),
+                                                 asyncio.run(body())):
+        if tokens != want or onboarded != 2 or failed:
+            fail(f"serve-onboard (a) {name}: stream {tokens} (the CPU's {want}), "
+                 f"{onboarded} blocks onboarded of 2, {failed} failed fetches")
+        print(f"serve-onboard: (a) {name}: 2 blocks onboarded, no failed fetch, "
+              f"card stream == the CPU's plain engine's")
+
+
+ONBOARD_ENGINE = dict(num_pages=1024, host_offload_blocks=512)
+
+
+def onboard_requests(vocab: int, seed: int) -> Tuple[List[dict], List[dict], List[dict]]:
+    """4 distinct 1024-token prefixes (64 blocks of 16): the donor's
+    requests (a prefix each, 64 new tokens), the importer's (a prefix and
+    a suffix of 16 to 256 tokens, 64 new, greedy, top-2 logprobs) and a
+    routed round's (other suffixes)."""
+    rng = np.random.default_rng(seed)
+    prefixes = [rng.integers(1, vocab, 1024) for _ in range(4)]
+    donor = [request(p, 64) for p in prefixes]
+    own = [request(np.concatenate([p, rng.integers(1, vocab, n)]), 64, logprobs=2)
+           for p, n in zip(prefixes, rng.integers(16, 257, 4))]
+    routed = [request(np.concatenate([p, rng.integers(1, vocab, n)]), 16)
+              for p, n in zip(prefixes, rng.integers(16, 257, 4))]
+    return donor, own, routed
+
+
+def prefix_hashes(reqs: List[dict]) -> List[int]:
+    """The 64 prefix blocks' sequence hashes of each request, chained."""
+    from dynamo_tpu_torch.tokens.hashing import hash_blocks
+
+    return [h for r in reqs for h in hash_blocks(r["token_ids"][:1024], 16)[1]]
+
+
+def page_digest(parts) -> str:
+    """``blob_digest`` of ``prefix_pages``' copy of one block (a dense
+    pool's tensor; an int8 pool's data and scales)."""
+    from dynamo_tpu_torch.engine.kv_cache import QuantKV
+
+    return blob_digest(parts[0] if len(parts) == 1 else QuantKV(*parts))
+
+
+def fetch_line(onboard) -> str:
+    """Blocks, bytes and GB/s of each fetch the importer logged (the
+    ``kv_export`` stream's or the G4 fetches' wall, per request)."""
+    rows = list(onboard.fetch_log)
+    rates = [f"{b / s / 1e9:.4f}" for _src, _n, b, s in rows]
+    return (f"blocks {sum(n for _s, n, _b, _t in rows)} bytes {sum(b for _s, _n, b, _t in rows)} "
+            f"per request GB/s {rates} (walls s {[round(t, 3) for *_x, t in rows]})")
+
+
+def onboard_twin(tok_dir: str, reqs: List[dict], routed: bool) -> List[dict]:
+    """The recompute twin: a cold worker with no donor hint serves
+    ``reqs`` the way its leg's importer got them (straight to its endpoint,
+    or through the front end's router)."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+
+    engine = TorchEngine.random_init(ModelConfig.llama3_8b(), EngineConfig(**ONBOARD_ENGINE),
+                                     seed=0)
+
+    async def body():
+        cluster = await DynCluster().start([engine], tok_dir, "kv", lease_ttl=LEASE_TTL_S)
+        try:
+            if routed:
+                return await stream_traffic(cluster.factory.push_routers["m"].generate, reqs)
+            router = await generate_router(cluster, 1)
+            lease = cluster.workers[0].primary_lease
+            return await stream_traffic(lambda c: router.direct(c, lease), reqs)
+        finally:
+            await cluster.stop()
+
+    reset_launches()
+    run = asyncio.run(body())
+    check_launch_invariants("serve-onboard (b) twin", engine, read_launches())
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def onboard_peer(tok_dir: str) -> Dict[str, object]:
+    """serve-onboard (b)'s peer leg: worker A serves 4 prefixes; cold
+    worker B is sent 4 requests on them straight to its endpoint with A as
+    their donor (64 blocks), then one round goes through the front end's
+    router.  B's onboarded pages must equal A's, block by block."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+
+    cfg = ModelConfig.llama3_8b()
+    donor_reqs, reqs, routed = onboard_requests(cfg.vocab_size, 14)
+    hashes = prefix_hashes(reqs)
+    torch.cuda.reset_peak_memory_stats()
+    a, b = (TorchEngine.random_init(cfg, EngineConfig(**ONBOARD_ENGINE), seed=0)
+            for _ in range(2))
+    what = "serve-onboard (b) peer"
+    out: Dict[str, object] = {}
+
+    async def body():
+        cluster = await DynCluster().start([a, b], tok_dir, "kv", lease_ttl=LEASE_TTL_S)
+        try:
+            router = await generate_router(cluster, 2)
+            la, lb = (rt.primary_lease for rt in cluster.workers)
+            await stream_traffic(lambda c: router.direct(c, la), donor_reqs)
+            hits = b._prefix_hits
+            t0 = time.perf_counter()
+            with ThreadSampler() as sampler:
+                out["run"] = await stream_traffic(lambda c: router.direct(c, lb), reqs,
+                                                  donor={"instance": la, "blocks": 64})
+            out["wall"] = time.perf_counter() - t0
+            out["threads"] = sampler.line()
+            out["hits"] = b._prefix_hits - hits
+            onboard = cluster.pubs[1].onboard
+            out["onboarded"], out["fetch"] = onboard.onboarded_blocks, fetch_line(onboard)
+            check_no_fetch_failure(what, list(zip(cluster.engines, cluster.pubs)))
+            before = decision_counts()
+            await stream_traffic(cluster.factory.push_routers["m"].generate, routed)
+            after = decision_counts()
+            out["decisions"] = {k: after[k] - before.get(k, 0.0) for k in after
+                                if after[k] != before.get(k, 0.0)}
+            out["pages"] = [prefix_pages(e, hashes) for e in (a, b)]
+        finally:
+            await cluster.stop()
+
+    reset_launches()
+    asyncio.run(body())
+    out["launches"] = check_launches_over(what, [a, b], read_launches())
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    donor_pages, pages = out.pop("pages")
+    if len(pages) != len(hashes) or len(donor_pages) != len(hashes):
+        fail(f"{what}: {len(pages)} and {len(donor_pages)} of {len(hashes)} prefix blocks "
+             f"resident on the importer and the donor")
+    differ = [h for h in hashes if page_digest(pages[h]) != page_digest(donor_pages[h])]
+    if differ or out["onboarded"] != len(hashes) or out["hits"] < 1024 * len(reqs):
+        fail(f"{what}: {len(differ)} blocks differ from the donor's, {out['onboarded']} "
+             f"onboarded of {len(hashes)}, {out['hits']} cached prompt tokens")
+    out["nbytes"] = sum(t.numel() * t.element_size() for h in hashes for t in pages[h])
+    out["reqs"] = reqs
+    return out
+
+
+def onboard_g4(tok_dir: str) -> Dict[str, object]:
+    """serve-onboard (b)'s G4 leg: worker A' (160 pages) serves 4 prefixes
+    and churn, its evicted blocks mirrored into the hub's blob store; A'
+    drains; cold worker B' joins (so the model stays registered and its
+    router keeps its index) and A' leaves; B' then gets requests on those
+    prefixes through the front end's router, which stamps the G4 store as
+    their donor, and fetches them over ``HubBlobClient``.  B''s onboarded
+    pages must equal A''s host blobs (the mirrored ones), block by block."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.llm.kv_router.indexer import REMOTE_SOURCE_ID
+
+    cfg = ModelConfig.llama3_8b()
+    donor_reqs, reqs, _ = onboard_requests(cfg.vocab_size, 15)
+    rng = np.random.default_rng(16)
+    churn = [request(rng.integers(1, cfg.vocab_size, 1900), 16) for _ in range(2)]
+    hashes = prefix_hashes(reqs)
+    what = "serve-onboard (b) G4"
+    torch.cuda.reset_peak_memory_stats()
+    a = TorchEngine.random_init(cfg, EngineConfig(num_pages=160, host_offload_blocks=512,
+                                                  kv_remote="on"), seed=0)
+    b = None
+    out: Dict[str, object] = {}
+
+    async def wait_for(cond, msg: str, limit: float = 60.0) -> None:
+        t0 = time.perf_counter()
+        while not cond():
+            if time.perf_counter() - t0 > limit:
+                fail(f"{what}: {msg}")
+            await asyncio.sleep(0.05)
+
+    async def body():
+        nonlocal b
+        cluster = await DynCluster().start([a], tok_dir, "kv", lease_ttl=LEASE_TTL_S)
+        try:
+            router = await generate_router(cluster, 1)
+            lease = cluster.workers[0].primary_lease
+            series = kv_series(a)
+            t0 = time.perf_counter()
+            await stream_traffic(lambda c: router.direct(c, lease), donor_reqs)
+            for r in churn:
+                await stream_traffic(lambda c: router.direct(c, lease), [r])
+            await asyncio.to_thread(a.offload_engine.drain)
+            out["publish_wall"] = time.perf_counter() - t0
+            remote = a.offload_engine.remote
+            if any(a.sched.pool.is_registered(h) for h in hashes) or not all(
+                    remote.contains(h) for h in hashes):
+                fail(f"{what}: the prefixes are not all out of A' and in the G4 store")
+            ring = {h: a.offload_engine.host.get_ram(h) for h in hashes}
+            if any(v is None for v in ring.values()):
+                fail(f"{what}: A''s host ring lost prefix blocks")
+            out["mirrored"] = await asyncio.to_thread(
+                lambda: {h: blob_digest(blob) for h, (blob, _m) in ring.items()})
+            out["store"] = (remote.puts, remote.store_bytes, remote.store_seconds)
+            out["store_series"] = (series, kv_series(a))
+            chooser = cluster.factory.choosers["m"]
+
+            def advertised() -> bool:
+                src = [chooser.indexer.holdings.prefix_sources(hashes[i:i + 64])
+                       for i in range(0, len(hashes), 64)]
+                return all(s.get(REMOTE_SOURCE_ID, {}).get("blocks", 0) >= 64 for s in src)
+
+            await wait_for(advertised, "the router's index never held the G4 adverts")
+            b = TorchEngine.random_init(cfg, EngineConfig(**ONBOARD_ENGINE, kv_remote="on"),
+                                        seed=0)
+            await cluster.add(b)
+            await wait_for(lambda: cluster.workers[1].primary_lease
+                           in chooser.scheduler.workers.endpoints,
+                           "the router never saw the cold worker")
+            gone = cluster.workers[0].primary_lease
+            await cluster.leave(0)
+            await wait_for(lambda: gone not in chooser.scheduler.workers.endpoints,
+                           "the router kept the departed worker")
+            if cluster.factory.choosers["m"] is not chooser or not advertised():
+                fail(f"{what}: the router dropped the G4 adverts with their publisher")
+            series = kv_series(b)
+            before = decision_counts()
+            hits = b._prefix_hits
+            t0 = time.perf_counter()
+            with ThreadSampler() as sampler:
+                out["run"] = await stream_traffic(cluster.factory.push_routers["m"].generate,
+                                                  reqs)
+            out["wall"] = time.perf_counter() - t0
+            out["threads"] = sampler.line()
+            after = decision_counts()
+            out["decisions"] = {k: after[k] - before.get(k, 0.0) for k in after
+                                if after[k] != before.get(k, 0.0)}
+            out["hits"] = b._prefix_hits - hits
+            onboard = cluster.pubs[1].onboard
+            out["onboarded"], out["fetch"] = onboard.onboarded_blocks, fetch_line(onboard)
+            out["fetch_series"] = (series, kv_series(b))
+            check_no_fetch_failure(what, [(b, cluster.pubs[1])])
+            out["pages"] = prefix_pages(b, hashes)
+        finally:
+            await cluster.stop()
+
+    cap = os.environ.get("DYN_HUB_BLOB_CAP")
+    # the hub's store holds every mirrored block (about 0.8 GB) with room
+    os.environ["DYN_HUB_BLOB_CAP"] = str(4 << 30)
+    reset_launches()
+    try:
+        asyncio.run(body())
+    finally:
+        if cap is None:
+            os.environ.pop("DYN_HUB_BLOB_CAP", None)
+        else:
+            os.environ["DYN_HUB_BLOB_CAP"] = cap
+    out["launches"] = check_launches_over(what, [a, b], read_launches())
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    pages = out.pop("pages")
+    differ = [h for h in hashes if h not in pages or page_digest(pages[h]) != out["mirrored"][h]]
+    if out["decisions"].get("kv_remote", 0) != len(reqs):
+        fail(f"{what}: the router's decisions {out['decisions']}, not {len(reqs)} kv_remote")
+    if differ or out["onboarded"] != len(hashes) or out["hits"] < 1024 * len(reqs):
+        fail(f"{what}: {len(differ)} blocks differ from the mirrored ones, "
+             f"{out['onboarded']} onboarded of {len(hashes)}, {out['hits']} cached prompt tokens")
+    out["nbytes"] = sum(t.numel() * t.element_size() for h in hashes for t in pages[h])
+    out["reqs"] = reqs
+    return out
+
+
+def g4_rate(pair, op: str) -> str:
+    """Bytes, seconds and GB/s of ``dynamo_kv_g4_*`` for one direction
+    between two readings."""
+    before, after = pair
+    b = after.get(f'dynamo_kv_g4_bytes_total{{op="{op}"}}', 0.0) - before.get(
+        f'dynamo_kv_g4_bytes_total{{op="{op}"}}', 0.0)
+    s = after.get(f'dynamo_kv_g4_seconds_sum{{op="{op}"}}', 0.0) - before.get(
+        f'dynamo_kv_g4_seconds_sum{{op="{op}"}}', 0.0)
+    return f"g4[{op}] bytes={int(b)} s={s:.6f} gb_s={b / s / 1e9 if s > 0 else 0.0:.4f}"
+
+
+def onboard_line(leg: str, res, twin, card: str) -> str:
+    p50, p99 = ttft_ms(res["run"])
+    tp50, tp99 = ttft_ms(twin)
+    return (f"serve-onboard: (b) {leg} onboarded blocks {res['onboarded']} bytes "
+            f"{res['nbytes']}; fetch {res['fetch']}; TTFT from arrival ms p50/p99 "
+            f"{p50:.3f}/{p99:.3f} (recompute twin {tp50:.3f}/{tp99:.3f}); wall_s "
+            f"{res['wall']:.3f}; peak_gib {res['peak_gib']:.3f}; router decisions "
+            f"{res['decisions']} on {card}")
+
+
+def onboard_cli(tmp: str, card: str, ckpt, direct: List[str]) -> None:
+    """serve-onboard (c): ``hub``, two ``run in=dyn out=torch
+    --host-offload-blocks 256 --kv-remote on`` workers and ``run in=http
+    out=dyn --router-mode kv`` as four processes over the phases'
+    checkpoint: both workers' ``kv_export`` endpoints are discovered, the
+    texts equal the in-process engine's, and SIGINT ends each process with
+    exit code 0."""
+    from dynamo_tpu_torch.runtime.component import DistributedRuntime
+
+    path = ckpt[0]
+    hub_port, http_port = free_port(), free_port()
+    hub_addr = f"127.0.0.1:{hub_port}"
+    procs = []
+    worker = ("run", "in=dyn", "out=torch", "--model-path", path, "--hub", hub_addr,
+              "--host-offload-blocks", "256", "--kv-remote", "on")
+    try:
+        procs.append(Proc(tmp, "onboard-hub", "hub", "--host", "127.0.0.1", "--port",
+                          str(hub_port)))
+        procs.append(Proc(tmp, "onboard-worker-0", *worker))
+        procs.append(Proc(tmp, "onboard-worker-1", *worker))
+        procs.append(Proc(tmp, "onboard-frontend", "run", "in=http", "out=dyn", "--hub",
+                          hub_addr, "--router-mode", "kv", "--port", str(http_port)))
+        up = wait_http(http_port, "/v1/models", lambda b: bool(json.loads(b)["data"]), procs,
+                       "serve-onboard (c)")
+
+        async def exports() -> int:
+            rt = await DistributedRuntime.detached(hub_addr)
+            try:
+                client = await rt.namespace("dynamo").component("backend").endpoint(
+                    "kv_export").client()
+                t0 = time.perf_counter()
+                while len(client.instances) < 2 and time.perf_counter() - t0 < 120:
+                    for p in procs:
+                        p.check_alive()
+                    await asyncio.sleep(0.25)
+                return len(client.instances)
+            finally:
+                await rt.shutdown()
+
+        found = asyncio.run(exports())
+        if found != 2:
+            fail(f"serve-onboard (c): {found} kv_export endpoints discovered, not 2")
+        texts = asyncio.run(ask_texts(http_port, "serve-onboard (c)"))
+        for p in reversed(procs):
+            p.interrupt("serve-onboard (c)")
+        print(f"serve-onboard: (c) hub, two workers with the offload plane and G4 and the front "
+              f"end served after {up:.3f} s; kv_export endpoints discovered {found}; exit codes "
+              f"{[p.proc.returncode for p in procs]} on SIGINT")
+    finally:
+        for p in procs:
+            p.kill()
+    if texts != direct:
+        fail(f"serve-onboard (c): the processes' texts {texts} differ from the in-process "
+             f"engine's {direct}")
+    print(f"serve-onboard: (c) {len(texts)} requests: texts == in-process texts")
+
+
+def serve_onboard_phase(ref: Dict[str, object], card: str, ckpt,
+                        direct: List[str]) -> Dict[str, int]:
+    """Cross-worker prefix onboarding and the G4 tier: (a) card against
+    CPU, (b) the peer and G4 legs at full width beside their recompute
+    twins, (c) the CLI's four processes.  Returns the kernels' launches
+    over (b)'s two legs."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-onboard-")
+    try:
+        t0 = time.perf_counter()
+        onboard_small(ref, tmp)
+        tok_dir = os.path.join(tmp, "llama3")
+        os.makedirs(tok_dir)
+        write_tokenizer(tok_dir, 128000, 256)
+        launches: Dict[str, int] = {}
+        for leg, run in (("peer", onboard_peer), ("G4", onboard_g4)):
+            res = run(tok_dir)
+            twin = onboard_twin(tok_dir, res["reqs"], routed=leg == "G4")
+            for r in res["run"] + twin:
+                if r["finish"] != "length" or len(r["tokens"]) != 64:
+                    fail(f"serve-onboard (b) {leg}: a request ended {r['finish']} after "
+                         f"{len(r['tokens'])} of 64 tokens")
+            print(onboard_line(leg, res, twin, card))
+            agreement = onboard_agreement(f"serve-onboard (b) {leg}", res["run"], twin)
+            print(f"serve-onboard: (b) {leg} {len(res['reqs']) * 64} onboarded blocks == the "
+                  f"donor's, blake2b each; cached prompt tokens {res['hits']}; greedy agreement: "
+                  f"{agreement}")
+            if leg == "G4":
+                puts, nbytes, secs = res["store"]
+                print(f"serve-onboard: (b) G4 mirrored {puts} blocks, {nbytes} bytes in "
+                      f"{secs:.3f} s of puts; {g4_rate(res['store_series'], 'store')} "
+                      f"{g4_rate(res['fetch_series'], 'fetch')}; publish wall "
+                      f"{res['publish_wall']:.3f} s on {card}")
+            print(f"serve-onboard: (b) {leg} threads: {res['threads']}")
+            print(f"serve-onboard: (b) {leg} launches {res['launches']}")
+            for k, n in res["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+        onboard_cli(tmp, card, ckpt, direct)
+        print(f"serve-onboard: phase {time.perf_counter() - t0:.3f} s")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def profile_phase(out_path: str, plain_walls: Dict[str, float]) -> None:
     """``--profile OUT.txt``: each served cell once more -- the serve
     phase's run, serve-classic runs A and B and serve-int8 run Q, the same
@@ -4799,15 +5435,17 @@ def main() -> None:
     print(f"serve-a3: flash prefill launches {a3['launches']}")
     a45 = serve_a45_phase(ref, served, card)
     serve_kvbm_phase(ref, card)
-    # serve-dyn's (c) and serve-disagg's (c) serve one checkpoint
+    # serve-dyn's, serve-disagg's and serve-onboard's (c) serve one checkpoint
     import shutil
     import tempfile
 
     ckpt_tmp = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
     try:
-        ckpt = write_cli_checkpoint(ckpt_tmp, "serve-dyn and serve-disagg: (c)")
+        ckpt = write_cli_checkpoint(ckpt_tmp, "serve-dyn, serve-disagg and serve-onboard: (c)")
         direct = serve_dyn_phase(ref, card, ckpt)
         disagg = serve_disagg_phase(card, ckpt, direct)
+        onboard = serve_onboard_phase(ref, card, ckpt, direct)
+        print(f"serve-onboard: launches over (b)'s two legs {onboard}")
         del ckpt
     finally:
         shutil.rmtree(ckpt_tmp, ignore_errors=True)

@@ -42,9 +42,18 @@ the decode worker that shipped them (``--kv-chunk-layers`` layers per
 chunk, or one monolithic upload with ``--no-chunked-kv``).  ``disagg-conf``
 rewrites the decode workers' policy live.
 
+A worker with the KV offload plane armed (``--host-offload-blocks``,
+``--disk-offload-blocks``, ``DYN_KV_OFFLOAD``) serves cross-worker prefix
+onboarding (``llm/prefix_onboard.py``): a ``kv_export`` endpoint for its
+peers, and an importer in front of its engine that fetches a donor's
+blocks -- a peer's, or the G4 store's -- before admission.  It publishes
+its tier holdings to the router, and with ``--kv-remote`` (or
+``DYN_KV_REMOTE``) it attaches the G4 tier over the hub's blob verbs.
+The KV-routed front end reads ``DYN_KV_REMOTE`` for its
+fetch-vs-recompute priors.
+
 Flags of the JAX CLI whose features the port does not have yet (the
-parallel degrees, the remote KV tier, the offload plane on a worker, which
-needs prefix onboarding) are refused with an error that names them, never
+parallel degrees) are refused with an error that names them, never
 ignored; so is ``--disagg`` outside ``in=dyn``, which the JAX CLI ignores.
 """
 
@@ -70,7 +79,6 @@ _REFUSED = {
     "--sp": lambda a: a.sp != 1,
     "--pp": lambda a: a.pp != 1,
     "--ep": lambda a: a.ep != 1,
-    "--kv-remote": lambda a: a.kv_remote is not None,
 }
 
 
@@ -145,6 +153,12 @@ def _add_engine_flags(p) -> None:
                    help="G3 disk KV offload capacity (blocks); 0 = off")
     p.add_argument("--disk-offload-dir",
                    help="directory for G3 disk offload files")
+    p.add_argument("--kv-remote", default=None, metavar="SPEC",
+                   help="G4 fleet KV store tier: 'on', or "
+                        "'mirror=1,fetch=1,prefill_tok_s=4000,gbps=1.0,"
+                        "namespace=dynamo' (offload.parse_kv_remote_spec); "
+                        "requires the offload plane armed and a hub; env "
+                        "DYN_KV_REMOTE wins")
     p.add_argument("--no-swap-preemption", dest="swap_preemption",
                    action="store_false", default=True,
                    help="disable swap-based preemption (offload the "
@@ -153,7 +167,6 @@ def _add_engine_flags(p) -> None:
     # refused: their features are not ported yet
     for flag in ("--tp", "--dp", "--sp", "--pp", "--ep"):
         p.add_argument(flag, type=int, default=1, help="not served by the port yet")
-    p.add_argument("--kv-remote", default=None, help="not served by the port yet")
 
 
 def _positive_int(v: str) -> int:
@@ -286,6 +299,14 @@ def _check_served(args) -> None:
             f"--disagg serves in=dyn out=torch workers only, not in={args.inp} "
             f"out={args.out}"
         )
+    if args.kv_remote is not None and (args.inp, args.out) != ("dyn", "torch"):
+        # the G4 store is the hub's: the JAX CLI parses the spec anywhere
+        # and attaches it on workers only; the port refuses rather than
+        # ignore it
+        raise SystemExit(
+            f"--kv-remote serves in=dyn out=torch workers only, not in={args.inp} "
+            f"out={args.out}"
+        )
     if args.out == "dyn":
         if args.inp != "http":
             raise SystemExit(f"out=dyn serves only in=http, not in={args.inp}")
@@ -305,22 +326,6 @@ def _check_served(args) -> None:
         return
     if not args.hub:
         raise SystemExit("in=dyn requires --hub")
-    from .offload import env_offload_spec
-
-    try:
-        env_armed = env_offload_spec() is not None
-    except ValueError:
-        env_armed = True  # malformed: the engine would refuse it anyway
-    if args.host_offload_blocks or args.disk_offload_blocks or env_armed:
-        # a JAX worker wires cross-worker prefix onboarding whenever its
-        # offload plane is armed; serving the plane without it would leave
-        # the router's donor hints and peer holdings unread
-        role = f" --disagg {args.disagg}" if args.disagg else ""
-        raise SystemExit(
-            f"not served by the PyTorch port yet: in=dyn{role} with the KV "
-            "offload plane (--host-offload-blocks, --disk-offload-blocks, "
-            "DYN_KV_OFFLOAD) needs prefix onboarding, which is not ported"
-        )
     if args.kv_chunk_layers is not None and args.kv_chunk_layers <= 0:
         raise SystemExit(f"--kv-chunk-layers must be positive, got {args.kv_chunk_layers}")
 
@@ -368,6 +373,7 @@ def _make_engine(args):
         disk_offload_blocks=args.disk_offload_blocks,
         disk_offload_dir=args.disk_offload_dir,
         swap_preemption=args.swap_preemption,
+        kv_remote=args.kv_remote,
     )
     if args.mixed_token_budget is not None:
         cfg.mixed_token_budget = args.mixed_token_budget
@@ -481,13 +487,16 @@ async def run_http_local(args) -> None:
         await engine.stop()
 
 
-def kv_engine_factory(runtime, index_shards: int = 1):
+def kv_engine_factory(runtime, index_shards: int = 1, remote_spec=None):
     """The ``ModelWatcher`` engine factory of ``--router-mode kv``: per
-    model, a ``KvRouter`` over the worker component's KV events and load
-    metrics, and ``link(OpenAIPreprocessor, Backend, KvPushRouter)``.  The
-    chooser stops with its model.  No fleet observatory, so no quarantine
-    and no transfer predictor; no remote tier spec.  ``factory.choosers``
-    maps each model's name to its ``KvRouter``."""
+    model, a ``KvRouter`` over the worker component's KV events, holdings
+    and load metrics, and ``link(OpenAIPreprocessor, Backend,
+    KvPushRouter)``.  The chooser stops with its model.  No fleet
+    observatory, so no quarantine and no transfer predictor: the
+    fetch-vs-recompute gate prices a donor with ``remote_spec``'s priors
+    (``offload.parse_kv_remote_spec``; its defaults when None).
+    ``factory.choosers`` maps each model's name to its ``KvRouter``,
+    ``factory.push_routers`` to its ``KvPushRouter``."""
     from .llm.backend import Backend
     from .llm.kv_router.router import KvPushRouter, KvRouter
     from .llm.preprocessor import OpenAIPreprocessor
@@ -501,15 +510,14 @@ def kv_engine_factory(runtime, index_shards: int = 1):
         )
         await chooser.start()
         factory.choosers[entry.name] = chooser
+        push = KvPushRouter(router, chooser, remote_spec=remote_spec)
+        factory.push_routers[entry.name] = push
         tokenizer = card.tokenizer()
-        engine = link(
-            OpenAIPreprocessor(entry.name, tokenizer),
-            Backend(tokenizer),
-            KvPushRouter(router, chooser),
-        )
+        engine = link(OpenAIPreprocessor(entry.name, tokenizer), Backend(tokenizer), push)
         return engine, chooser.stop
 
     factory.choosers = {}
+    factory.push_routers = {}
     return factory
 
 
@@ -519,13 +527,25 @@ async def run_http_frontend(args) -> None:
     from .llm.discovery import ModelWatcher
     from .runtime.component import DistributedRuntime, RouterMode
 
+    remote_spec = None
+    if args.router_mode == "kv":
+        # the gate's priors; parsed before the hub connection, whose lease
+        # the offload module's import would outlast on the event loop
+        from .offload import env_remote_spec
+
+        try:
+            remote_spec = env_remote_spec()
+        except ValueError:
+            logger.warning("ignoring malformed DYN_KV_REMOTE")
     addr, owned_hub = await _resolve_hub(args)
     runtime = await DistributedRuntime.detached(addr)
     manager = ModelManager()
     if args.router_mode == "kv":
         watcher = ModelWatcher(
             runtime, manager,
-            engine_factory=kv_engine_factory(runtime, args.router_index_shards),
+            engine_factory=kv_engine_factory(
+                runtime, args.router_index_shards, remote_spec=remote_spec
+            ),
         )
     else:
         watcher = ModelWatcher(
@@ -554,6 +574,48 @@ async def run_http_frontend(args) -> None:
             await owned_hub.stop()
 
 
+class ServedWorker:
+    """The publishers and wrappers :func:`serve_worker` set up around an
+    engine: the KV event publisher (``events``), the tier holdings
+    publisher (``holdings``, with the offload plane armed) and the prefix
+    importer in front of the engine (``onboard``, likewise).  ``close()``
+    them before stopping the engine."""
+
+    def __init__(self, events=None, holdings=None, onboard=None) -> None:
+        self.events = events
+        self.holdings = holdings
+        self.onboard = onboard
+
+    async def close(self) -> None:
+        if self.onboard is not None:
+            await self.onboard.close()
+        if self.holdings is not None:
+            await self.holdings.close()
+        if self.events is not None:
+            await self.events.close()
+
+
+def wire_offload_plane(runtime, engine, ns):
+    """A worker's offload plane on the hub, every role's: with a parsed
+    ``kv_remote`` spec the G4 tier attaches over the hub's blob verbs, and
+    the plane's tier holdings (peer host and disk copies, G4 adverts) are
+    published for the router's cluster-global prefix index.  Returns the
+    holdings publisher, or None when the plane is not armed."""
+    if engine.offload_engine is None:
+        return None
+    from .llm.kv_router.publisher import KvHoldingsPublisher
+    from .runtime.transports.client import HubBlobClient
+
+    if engine.kv_remote_spec is not None:
+        engine.attach_remote_kv(
+            HubBlobClient(runtime.hub, asyncio.get_running_loop()),
+            worker_id=runtime.primary_lease,
+        )
+    holdings = KvHoldingsPublisher(ns, worker_id=runtime.primary_lease)
+    holdings.hook(engine)
+    return holdings
+
+
 async def serve_worker(runtime, engine, endpoint: str, model_path: str,
                        model_name: Optional[str] = None, served=None,
                        block_size: Optional[int] = None):
@@ -562,8 +624,12 @@ async def serve_worker(runtime, engine, endpoint: str, model_path: str,
     ``endpoint`` (``dyn://ns.comp.ep``), the engine's embeddings on
     ``{ep}_embed``, the KV event and load-metrics publishers, and the
     model's registration with ``block_size`` (default: the engine's pages)
-    as the router's blocks.  Returns the model card and the KV event
-    publisher (close it before stopping the engine)."""
+    as the router's blocks.  With the offload plane armed, as the JAX
+    package's worker does: ``kv_export`` is served for peers, ``served``
+    goes behind a ``PrefixOnboardEngine`` that imports donors' blocks, and
+    :func:`wire_offload_plane` publishes the holdings and attaches the G4
+    tier.  Returns the model card and a :class:`ServedWorker` (close it
+    before stopping the engine)."""
     from .llm.embedding import EmbeddingEngine
     from .llm.kv_router.publisher import KvEventPublisher, WorkerMetricsPublisher
     from .llm.model_card import register_llm
@@ -573,15 +639,27 @@ async def serve_worker(runtime, engine, endpoint: str, model_path: str,
     ns = runtime.namespace(ns_name)
     comp = ns.component(comp_name)
     ep = comp.endpoint(ep_name)
-    await ep.serve(served or engine)
+    worker = ServedWorker()
+    served = served or engine
+    if engine.offload is not None:
+        from .llm.prefix_onboard import (
+            KV_EXPORT_ENDPOINT,
+            PrefixOnboardEngine,
+            kv_export_handler,
+        )
+
+        await comp.endpoint(KV_EXPORT_ENDPOINT).serve_raw(kv_export_handler(engine))
+        served = worker.onboard = PrefixOnboardEngine(served, ns, comp_name, engine=engine)
+    await ep.serve(served)
     # pooled-embedding leg: a sibling endpoint the front end's watcher
     # finds through the model entry's embed_endpoint field
     embed_ep_name = f"{ep_name}_embed"
     await comp.endpoint(embed_ep_name).serve(
         EmbeddingEngine(engine.embed, max_input_tokens=engine.cfg.max_seq_len)
     )
-    pub = KvEventPublisher(ns, worker_id=runtime.primary_lease)
-    pub.hook(engine)
+    worker.events = KvEventPublisher(ns, worker_id=runtime.primary_lease)
+    worker.events.hook(engine)
+    worker.holdings = wire_offload_plane(runtime, engine, ns)
     await WorkerMetricsPublisher(engine.metrics).attach(comp)
     # the router hashes prompts in the card's blocks: the engine's blocks
     # are its pages
@@ -591,7 +669,7 @@ async def serve_worker(runtime, engine, endpoint: str, model_path: str,
         kv_block_size=block_size or engine.cfg.page_size,
         embed_endpoint=embed_ep_name,
     )
-    return card, pub
+    return card, worker
 
 
 async def serve_disagg_decode(runtime, engine, endpoint: str, model_path: str,
@@ -602,8 +680,9 @@ async def serve_disagg_decode(runtime, engine, endpoint: str, model_path: str,
     ``serve`` registers under) with its ``kv_deliver`` endpoint served
     first -- a shipped request's write-back must never race a missing
     endpoint --, the live policy watch started, then :func:`serve_worker`
-    with the decode engine on the generate endpoint.  Returns the decode
-    engine, the model card and the KV event publisher."""
+    with the decode engine on the generate endpoint (behind the prefix
+    importer when the offload plane is armed).  Returns the decode engine,
+    the model card and the :class:`ServedWorker`."""
     from .llm.disagg import KV_DELIVER_ENDPOINT, DisaggDecodeEngine
     from .protocols.endpoint import parse_endpoint_id
 
@@ -618,9 +697,9 @@ async def serve_disagg_decode(runtime, engine, endpoint: str, model_path: str,
         disagg.kv_deliver_handler()
     )
     await disagg.start_config_watch()
-    card, pub = await serve_worker(runtime, engine, endpoint, model_path, model_name,
-                                   served=disagg, block_size=block_size)
-    return disagg, card, pub
+    card, worker = await serve_worker(runtime, engine, endpoint, model_path, model_name,
+                                      served=disagg, block_size=block_size)
+    return disagg, card, worker
 
 
 async def run_worker(args) -> None:
@@ -641,9 +720,12 @@ async def run_worker(args) -> None:
         if args.disagg == "prefill":
             # a queue consumer only: no generate endpoint, no embed leg, no
             # model registration, and no load metrics a KV router would
-            # take it for a decode candidate by
+            # take it for a decode candidate by; its offload plane still
+            # publishes holdings and mirrors into the G4 store
+            ns = runtime.namespace(parse_endpoint_id(args.endpoint)[0])
+            pub = ServedWorker(holdings=wire_offload_plane(runtime, engine, ns))
             prefill = PrefillWorker(
-                engine, runtime.namespace(parse_endpoint_id(args.endpoint)[0]),
+                engine, ns,
                 chunked=not args.no_chunked_kv, layers_per_chunk=args.kv_chunk_layers,
             )
             await prefill.start()

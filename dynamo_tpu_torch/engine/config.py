@@ -264,6 +264,14 @@ class EngineConfig:
     host_offload_blocks: int = 0
     disk_offload_blocks: int = 0
     disk_offload_dir: Optional[str] = None
+    # G4 remote tier (the fleet-shared KV store): a spec by offload.
+    # parse_kv_remote_spec's grammar -- "on", or
+    # "mirror=1,fetch=1,prefill_tok_s=4000,gbps=1.0,namespace=prod".  The
+    # parsed spec is held on the engine (``kv_remote_spec``); the store
+    # attaches at serve wiring through ``attach_remote_kv`` (config alone
+    # cannot name a live hub connection).  Needs the offload plane armed.
+    # DYN_KV_REMOTE wins; a malformed value warns and keeps config
+    kv_remote: Optional[str] = None
     # swap-based preemption: a capacity-preempted lane's KV is offloaded
     # and restored through the chunked scatter path instead of re-prefilled.
     # Effective only with the offload plane armed; recompute remains the

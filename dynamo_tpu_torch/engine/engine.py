@@ -121,8 +121,18 @@ the deadline).  ``KVExportStream`` has no ``from_blob``: the JAX export
 stream's per-request fallback wraps a materialized blob with it, and the
 port's fallback exports the one request through the same stream instead.
 
-Not served yet (later slices): cross-worker prefix export
-(``export_blocks``) and the G4 remote tier, tensor/data parallelism, the
+Cross-worker prefix onboarding is the JAX engine's (``llm/
+prefix_onboard.py`` drives it).  The donor's ``export_blocks`` takes the
+longest resident prefix of a hash chain: its G1 blocks are matched and
+referenced on the loop, gathered in one gather on the dispatch stream and
+copied into pinned host memory behind a CUDA event, then released; the
+offload tiers fill the tail.  The importer stages the blocks in its host
+ring, and the admission's tier lookup onboards them as it would its own
+evicted blocks.  ``kv_remote`` (or ``DYN_KV_REMOTE``) arms the G4 tier's
+spec; ``attach_remote_kv`` attaches the store: host-ring stores mirror
+into it, and the tiered reads fall through to it.
+
+Not served yet (later slices): tensor/data parallelism, the
 tick profiler, and CUDA graphs for dispatches that carry prefill chunks or
 verify columns.
 
@@ -130,9 +140,9 @@ The serving-environment overrides the JAX engine reads at construction
 are read here too, with its parse, for the features the port has:
 ``DYN_KV_DTYPE``, ``DYN_MIXED_TOKEN_BUDGET``, ``DYN_PACKED_RAGGED``,
 ``DYN_PACKED_SHAPE_BUDGET``, ``DYN_ASYNC_DISPATCH``, ``DYN_SPEC_FOLD``,
-``DYN_SPEC_AUTO_DISABLE``, ``DYN_DRAFT_MODEL``, ``DYN_KV_OFFLOAD`` and
-``DYN_KV_PREFETCH``.  A set variable wins over the config; a malformed one
-logs a warning and keeps the config.
+``DYN_SPEC_AUTO_DISABLE``, ``DYN_DRAFT_MODEL``, ``DYN_KV_OFFLOAD``,
+``DYN_KV_REMOTE`` and ``DYN_KV_PREFETCH``.  A set variable wins over
+the config; a malformed one logs a warning and keeps the config.
 
 The KV pool is dense in the model's dtype or, with
 ``EngineConfig(kv_dtype="int8")``, int8 with per-row scales; a dense pool of
@@ -749,6 +759,20 @@ class TorchEngine:
             if swap_on:
                 self.sched.swap_out = self._swap_out
         self._kv_dtype_name = dtype_name(self.kv.dtype)
+        # the G4 remote tier's spec: parsed now, attached at serve wiring
+        # (attach_remote_kv) once a hub blob client exists.  DYN_KV_REMOTE
+        # wins over config, an explicit "off" included; a malformed value
+        # (config or env) warns and is not used
+        self.kv_remote_spec: Optional[Dict[str, Any]] = None
+        try:
+            self.kv_remote_spec = kvoffload.parse_kv_remote_spec(c.kv_remote or "")
+        except ValueError:
+            logger.warning("ignoring malformed kv_remote config %r", c.kv_remote)
+        if "DYN_KV_REMOTE" in os.environ:
+            try:
+                self.kv_remote_spec = kvoffload.env_remote_spec()
+            except ValueError:
+                logger.warning("ignoring malformed DYN_KV_REMOTE=%r", os.environ["DYN_KV_REMOTE"])
         # queue-side prefetch: the offloaded chains of the first N waiting
         # requests are promoted while they wait (_drive_prefetch)
         self._prefetch_window = max(
@@ -3237,6 +3261,94 @@ class TorchEngine:
                 off += len(p)
 
         return self._export_groups(reqs, export_one)
+
+    # -- cross-worker prefix onboarding: the donor side ----------------------
+
+    async def export_blocks(
+        self, seq_hashes: List[int]
+    ) -> List[Tuple[int, Any, Dict[str, Any]]]:
+        """Export the longest resident prefix of ``seq_hashes`` as ``(hash,
+        blob, meta)`` triples -- the donor side of cross-worker prefix
+        onboarding (reference block_manager.rs:119-146 blockset export and
+        import).  The G1 blocks come first, in one gather of all their
+        pages; the offload tiers fill the tail; the chain stops at the first
+        miss, because an importer can only use a contiguous prefix.  Blobs
+        are host blobs (bf16 as ``uint16`` bits), metas carry the JAX
+        package's ``kv_dtype`` names.
+
+        The pool belongs to the loop thread: the match and the references
+        are taken here, and the gather is enqueued on the dispatch stream
+        (as the eviction hook's is), so it lands after the generations
+        already in flight and before any dispatch that reuses the pages;
+        the blocks are released once it is enqueued.  The wait for the
+        gather's host copy and the tier reads -- which wait on the offload
+        and kv-remote threads -- run off the loop."""
+        if not self._running:
+            await self.start()
+        pool = self.kv.allocator
+        acquired = []
+        snap = None
+        try:
+            for blk in pool.match(seq_hashes):
+                if pool.acquire(blk.sequence_hash) is None:
+                    break
+                acquired.append(blk)
+            if acquired:
+                ids = np.concatenate([np.asarray(b.pages, np.int64) for b in acquired])
+                snap = PageSnapshot(gather_block_pages(self.kv.pages, self._put(ids)))
+        finally:
+            for blk in acquired:
+                pool.release(blk.sequence_hash)
+        heads = [
+            (
+                blk.sequence_hash,
+                len(blk.pages),
+                {
+                    "block_hash": blk.block_hash,
+                    "parent_sequence_hash": blk.parent_sequence_hash,
+                    "position": blk.position,
+                    "kv_dtype": self._kv_dtype_name,
+                },
+            )
+            for blk in acquired
+        ]
+        return await asyncio.to_thread(self._finish_block_export, seq_hashes, heads, snap)
+
+    def _finish_block_export(self, seq_hashes, heads, snap) -> List[Tuple[int, Any, Dict[str, Any]]]:
+        """Worker thread: slice the G1 head out of its host copy, then
+        continue the chain through the offload tiers (G2, G3, G4)."""
+        out: List[Tuple[int, Any, Dict[str, Any]]] = []
+        if snap is not None:
+            blob_all = snap.materialize()
+            off = 0
+            for seq_hash, k, meta in heads:
+                out.append(
+                    (seq_hash, blob_index(blob_all, (slice(None), slice(None), slice(off, off + k))), meta)
+                )
+                off += k
+        oe = self.offload_engine
+        if oe is not None:
+            for h in seq_hashes[len(out) :]:
+                hit = oe.get_blocking(h)
+                if hit is None:
+                    break
+                blob, meta = hit
+                out.append((h, blob, meta.to_dict()))
+        return out
+
+    def attach_remote_kv(self, store, *, worker_id: int = 0, namespace: str = "dynamo") -> None:
+        """Arm the G4 remote tier on the offload plane over ``store``, any
+        blob store with sync put/get (``offload.InMemoryBlobStore``,
+        ``runtime.transports.client.HubBlobClient``).  A no-op unless the
+        offload plane and a parsed ``kv_remote`` spec are both armed."""
+        if self.offload_engine is None or self.kv_remote_spec is None:
+            return
+        self.offload_engine.attach_remote(
+            store,
+            worker_id=worker_id,
+            namespace=str(self.kv_remote_spec.get("namespace", namespace)),
+            mirror=bool(self.kv_remote_spec.get("mirror", True)),
+        )
 
     # -- KV offload: G1 -> G2 -> G3, onboarding, prefetch, swap ---------------
 

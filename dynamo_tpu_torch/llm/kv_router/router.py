@@ -41,9 +41,6 @@ logger = logging.getLogger("dynamo.kv_router")
 
 KV_EVENT_SUBJECT = "kv_events"  # rides {ns}.events.kv_events
 KV_HIT_RATE_SUBJECT = "kv-hit-rate"  # reference kv_router.rs:44
-# request metadata naming the prefix donor, {"instance", "blocks",
-# "source"}: the key the JAX package's llm/prefix_onboard.py reads
-DONOR_META_KEY = "prefix_donor"
 
 
 class KvRouter:
@@ -389,7 +386,9 @@ class KvPushRouter:
         if donor is not None:
             # a donor holds a longer prefix and fetching won the gate:
             # tell the chosen worker where to import it from
-            # (a worker's prefix onboarder consumes this)
+            # (llm/prefix_onboard.py consumes this)
+            from ..prefix_onboard import DONOR_META_KEY
+
             request.metadata[DONOR_META_KEY] = {
                 "instance": donor["instance"],
                 "blocks": donor["blocks"],

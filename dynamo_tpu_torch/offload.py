@@ -1,11 +1,16 @@
-"""Multi-tier KV offload plane: G2 (host RAM) and G3 (disk) behind the G1
-page pool, coordinated by :class:`KVOffloadEngine`.
+"""Multi-tier KV offload plane: G2 (host RAM), G3 (disk) and G4 (the
+fleet-shared remote store) behind the G1 page pool, coordinated by
+:class:`KVOffloadEngine`.
 
-A trimmed copy of the JAX package's ``offload.py`` (which loads no JAX):
+A copy of the JAX package's ``offload.py`` (which loads no JAX):
 ``BlockMeta``, ``DiskTier``, ``HostTier``, ``PrefetchState``,
-``SwapRecord``, ``env_offload_spec``, ``KVOffloadEngine`` and the
-disaggregation landing zone ``KVStagingBuffer``.  Left out: the G4 remote
-tier and its frames, fault injection and the thread-confinement asserts.
+``SwapRecord``, ``env_offload_spec``, ``KVOffloadEngine``, the
+disaggregation and prefix-onboarding landing zone ``KVStagingBuffer``, and
+the G4 tier: its self-describing blob frames (``pack_kv_blob_frame``,
+``unpack_kv_blob_frame``), ``InMemoryBlobStore``, ``RemoteTier`` and the
+``--kv-remote`` grammar (``parse_kv_remote_spec``, ``env_remote_spec``).
+Left out: the offload thread's fault sites, and the transfer log the
+remote tier feeds in the JAX package (the port has no telemetry plane).
 
 Reference parity: lib/llm/src/block_manager offload (offload.rs:76-80 --
 eviction cascades G1 -> G2 -> G3, lookups promote back up).  An evicted
@@ -15,7 +20,8 @@ without blocking into pinned host memory with a CUDA event recorded after
 the copy (``kv_cache.PageSnapshot``); :func:`to_host`, on the offload
 engine's dedicated thread, waits for that event and nothing else, and
 every tier put and get runs there too -- never the event loop, never the
-engine's executor thread.
+engine's executor thread.  G4 store round trips run on a thread of their
+own (``kv-remote``).
 
 A block is stored as ``(blob, meta)``: blob is the raw page content
 ``[L, 2, pages_per_block, page, Hkv, D]`` (numpy; an int8 pool's
@@ -24,7 +30,9 @@ router-facing identity (block_hash, parent_sequence_hash, position) so an
 onboarded block re-registers and re-publishes exactly as it first did.
 G3 files are the JAX package's ``.npz`` files: a bf16 blob is written as
 its two bytes per value (``|V2``, what numpy writes for ml_dtypes'
-bfloat16) and read back through the ``uint16`` view.
+bfloat16) and read back through the ``uint16`` view.  G4 frames name a
+bf16 blob ``"bfloat16"``, as the JAX package's do, and read it back as
+``uint16`` bits.
 
 Beyond block offload, the engine parks whole preempted sequences here:
 swap-based preemption snapshots the victim lane's KV into a request-keyed
@@ -37,8 +45,10 @@ unconfigured, no engine is built and no offload thread ever starts.
 from __future__ import annotations
 
 import collections
+import json
 import logging
 import os
+import struct
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -49,13 +59,20 @@ import numpy as np
 
 from .engine.kv_cache import (
     QuantKV,
+    blob_dtype_name,
     blob_to_host,
+    pack_quant_blob_bytes,
     quant_blob_nbytes,
     unpack_quant_blob_bytes,
     wire_dtype,
 )
 
 logger = logging.getLogger("dynamo.offload")
+
+# Pseudo worker id of the hub-backed G4 store in every per-link table (the
+# JAX package's transfer log and link model, the global holdings index):
+# store<->worker edges are priced like any worker<->worker link.
+G4_STORE_ID = -4
 
 
 def to_host(arr: Any) -> Any:
@@ -177,6 +194,33 @@ class KVStagingBuffer:
             total = int(np.prod(shape)) * wire_dtype(str(dtype)).itemsize
         bpl = total // max(shape[0], 1)
         return cls(shape, dtype, [(lo * bpl, hi * bpl) for lo, hi in spans], quant=quant)
+
+    @classmethod
+    def for_byte_chunks(cls, shape, dtype, chunk_bytes: int) -> "KVStagingBuffer":
+        """Fixed-size byte chunks (the block-blob transfer framing of the
+        ``kv_export`` stream).  An int8 ``dtype`` selects the quantized wire
+        layout."""
+        shape = tuple(int(s) for s in shape)
+        quant = str(dtype) == "int8"
+        if quant:
+            total = quant_blob_nbytes(shape)
+        else:
+            total = int(np.prod(shape)) * wire_dtype(str(dtype)).itemsize
+        if total == 0:
+            return cls(shape, dtype, [(0, 0)], quant=quant)
+        bounds = [(off, min(off + chunk_bytes, total)) for off in range(0, total, chunk_bytes)]
+        return cls(shape, dtype, bounds, quant=quant)
+
+    def payload(self) -> Any:
+        """The assembled blob in its engine-facing form: the array for dense
+        blobs (``uint16`` bits for bf16), the unpacked (data, scales) pair
+        for quantized wire bytes.  Valid for whole-blob staging
+        (``for_byte_chunks``) only -- the layer-span layout packs (data |
+        scales) per span, which :meth:`layer_slice` unpacks.  Zero-copy:
+        the blob ALIASES the staging buffer."""
+        if self.quant:
+            return unpack_quant_blob_bytes(self.flat, self.shape)
+        return self.array
 
     @property
     def memoryview(self) -> memoryview:
@@ -591,6 +635,362 @@ class HostTier:
         return out
 
 
+# ---------------------------------------------------------------------------
+# the G4 remote tier: fleet-shared blob store behind the hub
+# ---------------------------------------------------------------------------
+
+
+def pack_kv_blob_frame(blob: Any, meta: BlockMeta) -> bytes:
+    """Self-describing G4 wire frame for one block blob, the JAX package's
+    frame byte for byte.
+
+    ``u32-LE header length | JSON header | payload``: quantized blobs
+    (``QuantKV``) pack through the shared ``pack_quant_blob_bytes`` rule,
+    dense blobs ship C-order raw.  The header names the dtype as the JAX
+    package does: a ``uint16`` blob of bf16 bits is ``"bfloat16"``.  Runs
+    only on the kv-remote thread."""
+    if isinstance(blob, QuantKV):
+        payload = pack_quant_blob_bytes(blob)
+        kind, dtype = "quant", "int8"
+        shape = tuple(int(s) for s in blob.q.shape)
+    else:
+        arr = np.ascontiguousarray(blob)
+        payload = arr.tobytes()
+        kind, dtype = "dense", blob_dtype_name(arr)
+        shape = tuple(int(s) for s in arr.shape)
+    hdr = json.dumps(
+        {
+            "v": 1,
+            "kind": kind,
+            "dtype": dtype,
+            "shape": list(shape),
+            "meta": meta.to_dict(),
+            "payload_nbytes": len(payload),
+        }
+    ).encode("utf-8")
+    return struct.pack("<I", len(hdr)) + hdr + payload
+
+
+def unpack_kv_blob_frame(buf: Any) -> Tuple[Any, BlockMeta]:
+    """Inverse of :func:`pack_kv_blob_frame`; raises ``ValueError`` on any
+    framing violation (truncation, garbage header, an unknown dtype, a
+    payload/shape size mismatch) so a corrupt store entry surfaces as a
+    fetch miss -- the request recomputes -- never as a malformed scatter.
+    A ``"bfloat16"`` payload comes back as its ``uint16`` bits.
+
+    The returned blob ALIASES ``buf`` (zero-copy unpack); the host-tier put
+    that follows copies into the ring."""
+    view = memoryview(buf)
+    if len(view) < 4:
+        raise ValueError("G4 frame shorter than its header-length word")
+    (hlen,) = struct.unpack_from("<I", view, 0)
+    if hlen <= 0 or 4 + hlen > len(view):
+        raise ValueError(f"G4 frame header length {hlen} exceeds frame")
+    try:
+        hdr = json.loads(bytes(view[4 : 4 + hlen]).decode("utf-8"))
+    except (UnicodeDecodeError, ValueError) as e:
+        raise ValueError("G4 frame header is not valid JSON") from e
+    if not isinstance(hdr, dict) or "shape" not in hdr:
+        raise ValueError("G4 frame header missing blob geometry")
+    try:
+        shape = tuple(int(s) for s in hdr["shape"])
+    except (TypeError, ValueError) as e:
+        raise ValueError("G4 frame header has a malformed shape") from e
+    payload = view[4 + hlen :]
+    quant = hdr.get("kind") == "quant"
+    if quant:
+        expect = quant_blob_nbytes(shape)
+    else:
+        dtype = wire_dtype(str(hdr.get("dtype")))  # ValueError when unknown
+        expect = int(np.prod(shape)) * dtype.itemsize
+    if len(payload) != expect or expect != int(hdr.get("payload_nbytes", -1)):
+        raise ValueError(
+            f"G4 frame payload holds {len(payload)} bytes, geometry expects {expect}"
+        )
+    meta = BlockMeta.from_dict(hdr.get("meta") or {})
+    if quant:
+        return unpack_quant_blob_bytes(payload, shape), meta
+    return np.frombuffer(payload, dtype).reshape(shape), meta
+
+
+class InMemoryBlobStore:
+    """Process-local G4 store (tests, single-process runs): the hub blob
+    verbs' semantics -- byte-capacity LRU over named blobs -- behind the
+    same sync ``put``/``get``/``delete`` protocol :class:`RemoteTier`
+    speaks, without a hub in the loop.  Thread-safe: every worker's
+    kv-remote thread may hit the shared instance concurrently."""
+
+    def __init__(self, cap_bytes: int = 1 << 30) -> None:
+        self.cap_bytes = int(cap_bytes)
+        self._blobs: "collections.OrderedDict[str, bytes]" = collections.OrderedDict()
+        self._total = 0
+        self._lock = threading.Lock()
+
+    def put(self, name: str, data: bytes) -> None:
+        data = bytes(data)
+        with self._lock:
+            old = self._blobs.pop(name, None)
+            if old is not None:
+                self._total -= len(old)
+            self._blobs[name] = data
+            self._total += len(data)
+            while self._total > self.cap_bytes and len(self._blobs) > 1:
+                _, dropped = self._blobs.popitem(last=False)
+                self._total -= len(dropped)
+
+    def get(self, name: str) -> Optional[bytes]:
+        with self._lock:
+            data = self._blobs.get(name)
+            if data is not None:
+                self._blobs.move_to_end(name)
+            return data
+
+    def delete(self, name: str) -> bool:
+        with self._lock:
+            old = self._blobs.pop(name, None)
+            if old is not None:
+                self._total -= len(old)
+            return old is not None
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            return {"blobs": len(self._blobs), "bytes": self._total}
+
+
+class RemoteTier:
+    """G4: block blobs in a fleet-shared object store (the hub's blob verbs
+    through ``HubBlobClient``, or any sync ``put``/``get`` duck type).
+
+    All store I/O runs on ONE private thread (``kv-remote``) -- the same
+    isolation contract as the kv-offload thread, so a slow or wedged store
+    round trip never stalls an eviction cascade, a tick or the event loop.
+    ``submit_put``/``fetch`` enqueue and return futures; ``fetch_blocking``
+    is for worker threads that may wait (the offload engine's tiered
+    ``get_blocking``).  The fault sites ``remote.fetch_fail`` and
+    ``remote.blob_corrupt`` (``runtime/faults.py``) turn a fetch into a
+    miss, as a lost or corrupt store entry would."""
+
+    def __init__(
+        self,
+        store: Any,
+        *,
+        worker_id: int = 0,
+        namespace: str = "dynamo",
+        registry: Any = None,
+    ) -> None:
+        self.store = store
+        self.worker_id = int(worker_id)
+        self.namespace = namespace
+        self._ex = ThreadPoolExecutor(max_workers=1, thread_name_prefix="kv-remote")
+        self._lock = threading.Lock()
+        # hash -> frame nbytes known to be in the store (own puts + adverts
+        # merged back from the cluster-global holdings index)
+        self._known: Dict[int, int] = {}
+        from .runtime.metrics import RemoteKVMetrics
+
+        self.metrics = RemoteKVMetrics(registry)
+        # holdings sink (KVOffloadEngine._on_holdings): a successful put
+        # advertises (hash, "remote", nbytes) to the global index
+        self.holdings_cb: Optional[Any] = None
+        # plain mirrors for tests and the chip smoke
+        self.puts = 0
+        self.fetches = 0
+        self.store_bytes = 0
+        self.store_seconds = 0.0
+        self.fetch_bytes = 0
+        self.fetch_seconds = 0.0
+        self.fetch_fails: Dict[str, int] = {}
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def close(self) -> None:
+        self._ex.shutdown(wait=True)
+
+    def drain(self) -> None:
+        self._ex.submit(lambda: None).result()
+
+    def _name(self, seq_hash: int) -> str:
+        return f"kv/{self.namespace}/{seq_hash & (2**64 - 1):016x}"
+
+    # -- residency index ---------------------------------------------------
+
+    def contains(self, seq_hash: int) -> bool:
+        with self._lock:
+            return seq_hash in self._known
+
+    def note_remote(self, seq_hash: int, nbytes: int) -> None:
+        """Merge a G4 advert from the cluster-global index (another worker
+        published this block) into the local residency view."""
+        with self._lock:
+            self._known[seq_hash] = int(nbytes)
+
+    def known_blocks(self) -> int:
+        with self._lock:
+            return len(self._known)
+
+    # -- async surface -----------------------------------------------------
+
+    def submit_put(self, seq_hash: int, blob: Any, meta: BlockMeta):
+        """Queue a store upload; returns the future (True on success)."""
+        return self._ex.submit(self._put, seq_hash, blob, meta)
+
+    def fetch(self, seq_hash: int):
+        """Queue a store fetch; the future resolves to ``(blob, meta)`` or
+        None (missing, failed or corrupt -- the caller recomputes)."""
+        return self._ex.submit(self._get, seq_hash)
+
+    def fetch_blocking(self, seq_hash: int) -> Optional[Tuple[Any, BlockMeta]]:
+        """Worker-thread fetch (never the event loop): waits on the
+        kv-remote thread's result."""
+        return self.fetch(seq_hash).result()
+
+    # -- kv-remote thread side ---------------------------------------------
+
+    def _put(self, seq_hash: int, blob: Any, meta: BlockMeta) -> bool:
+        from .runtime import thread_sentry
+
+        thread_sentry.assert_role("kv-remote", what="RemoteTier._put")
+        try:
+            frame = pack_kv_blob_frame(blob, meta)
+            t0 = time.perf_counter()
+            self.store.put(self._name(seq_hash), frame)
+            dt = time.perf_counter() - t0
+        except Exception:
+            logger.debug("G4 store put failed for %x", seq_hash, exc_info=True)
+            return False
+        with self._lock:
+            self._known[seq_hash] = len(frame)
+            self.puts += 1
+            self.store_bytes += len(frame)
+            self.store_seconds += dt
+            known = len(self._known)
+        self.metrics.record_store(len(frame), dt)
+        self.metrics.blocks.set(known)
+        cb = self.holdings_cb
+        if cb is not None:
+            try:
+                cb([(seq_hash, "remote", len(frame))])
+            except Exception:
+                logger.debug("G4 holdings callback failed", exc_info=True)
+        return True
+
+    def _get(self, seq_hash: int) -> Optional[Tuple[Any, BlockMeta]]:
+        from .runtime import faults, thread_sentry
+
+        thread_sentry.assert_role("kv-remote", what="RemoteTier._get")
+        if faults.injector.enabled and faults.injector.should_fire(
+            "remote.fetch_fail", f"g4/{seq_hash:x}"
+        ):
+            self._count_fail("fetch_fail")
+            return None
+        t0 = time.perf_counter()
+        try:
+            frame = self.store.get(self._name(seq_hash))
+        except Exception:
+            logger.debug("G4 store get failed for %x", seq_hash, exc_info=True)
+            self._count_fail("fetch_fail")
+            return None
+        if frame is None:
+            # the store dropped it from under the index: forget it
+            with self._lock:
+                self._known.pop(seq_hash, None)
+            self._count_fail("missing")
+            return None
+        dt = time.perf_counter() - t0
+        if faults.injector.enabled and faults.injector.should_fire(
+            "remote.blob_corrupt", f"g4/{seq_hash:x}"
+        ):
+            # truncate mid-payload: the frame validator must catch it
+            frame = bytes(frame)[: max(len(frame) // 2, 4)]
+        try:
+            blob, meta = unpack_kv_blob_frame(frame)
+        except ValueError:
+            logger.warning("G4 blob for %x failed frame validation; treating as miss", seq_hash)
+            self._count_fail("blob_corrupt")
+            return None
+        with self._lock:
+            self.fetches += 1
+            self.fetch_bytes += len(frame)
+            self.fetch_seconds += dt
+        self.metrics.record_fetch(len(frame), dt)
+        return blob, meta
+
+    def _count_fail(self, cause: str) -> None:
+        with self._lock:
+            self.fetch_fails[cause] = self.fetch_fails.get(cause, 0) + 1
+        self.metrics.fetch_failures.labels(cause).inc()
+
+    def stats(self) -> Dict[str, Any]:
+        with self._lock:
+            out: Dict[str, Any] = {
+                "g4_known_blocks": len(self._known),
+                "g4_puts": self.puts,
+                "g4_fetches": self.fetches,
+                "g4_store_bytes": self.store_bytes,
+                "g4_fetch_bytes": self.fetch_bytes,
+                "g4_fetch_fails": dict(self.fetch_fails),
+            }
+            seconds = self.store_seconds + self.fetch_seconds
+            if seconds > 0:
+                out["kv_g4_gbps"] = round(
+                    (self.store_bytes + self.fetch_bytes) / seconds / 1e9, 3
+                )
+        return out
+
+
+def parse_kv_remote_spec(spec: str) -> Optional[Dict[str, Any]]:
+    """Parse a ``--kv-remote`` / ``DYN_KV_REMOTE`` value into G4 settings,
+    or None when empty/off (no remote tier, no kv-remote thread).
+
+    Grammar: ``1``/``on`` arms the tier with defaults, or a comma-separated
+    ``k=v`` list::
+
+        DYN_KV_REMOTE=mirror=1,fetch=1,prefill_tok_s=4000,gbps=1.0,namespace=prod
+
+    ``mirror`` re-publishes host-tier eviction stores into the fleet store;
+    ``fetch`` lets the router gate choose G4 as a prefix source;
+    ``prefill_tok_s`` is the per-worker prefill-rate estimate and ``gbps``
+    the link bandwidth prior, both feeding the router's fetch-vs-recompute
+    gate."""
+    spec = (spec or "").strip()
+    if not spec or spec.lower() in ("0", "off", "false", "no"):
+        return None
+    out: Dict[str, Any] = {
+        "mirror": True,
+        "fetch": True,
+        "prefill_tok_s": 4000.0,
+        "gbps": 1.0,
+        "namespace": "dynamo",
+    }
+    if spec.lower() in ("1", "on", "true", "yes"):
+        return out
+    for clause in filter(None, (c.strip() for c in spec.split(","))):
+        k, sep, v = clause.partition("=")
+        k = k.strip().lower()
+        if not sep:
+            raise ValueError(f"malformed DYN_KV_REMOTE clause {clause!r}")
+        try:
+            if k in ("mirror", "fetch"):
+                out[k] = v.strip().lower() not in ("0", "off", "false", "no")
+            elif k in ("prefill_tok_s", "gbps"):
+                out[k] = float(v)
+                if out[k] <= 0:
+                    raise ValueError(f"{k} must be positive")
+            elif k == "namespace":
+                out[k] = v.strip()
+            else:
+                raise ValueError(f"unknown DYN_KV_REMOTE key {k!r}")
+        except ValueError as e:
+            raise ValueError(f"bad DYN_KV_REMOTE value {clause!r}") from e
+    return out
+
+
+def env_remote_spec(environ: Optional[Dict[str, str]] = None) -> Optional[Dict[str, Any]]:
+    """``DYN_KV_REMOTE`` from the environment, parsed; None when unset."""
+    env = environ if environ is not None else os.environ
+    return parse_kv_remote_spec(env.get("DYN_KV_REMOTE", ""))
+
+
 SWAP_PENDING = "pending"
 SWAP_READY = "ready"
 SWAP_FAILED = "failed"
@@ -724,6 +1124,12 @@ class KVOffloadEngine:
         from .runtime.metrics import OffloadMetrics
 
         self.metrics = OffloadMetrics(registry)
+        self._registry = registry
+        # the G4 remote tier (attach_remote): host-tier eviction stores
+        # mirror into the fleet store, and the tiered get_blocking chain
+        # extends host -> disk -> remote
+        self.remote: Optional[RemoteTier] = None
+        self._remote_mirror = True
         # holdings sink (engine._emit_kv_holdings): receives every tier
         # residency delta [(hash, tier|None, nbytes)]
         self.holdings_cb: Optional[Any] = None
@@ -761,11 +1167,36 @@ class KVOffloadEngine:
 
     def close(self) -> None:
         self._ex.shutdown(wait=True)
+        if self.remote is not None:
+            self.remote.close()
 
     def drain(self) -> None:
         """Barrier: returns once every queued offload/prefetch/swap task
-        has run (tests and shutdown; never called on a hot path)."""
+        -- and every G4 upload and fetch queued behind them -- has run
+        (tests, shutdown and the onboarding barrier; never a hot path)."""
         self._ex.submit(lambda: None).result()
+        if self.remote is not None:
+            self.remote.drain()
+
+    def attach_remote(
+        self,
+        store: Any,
+        *,
+        worker_id: int = 0,
+        namespace: str = "dynamo",
+        mirror: bool = True,
+    ) -> RemoteTier:
+        """Arm the G4 tier over ``store`` (the hub's blob verbs or any sync
+        put/get duck type).  ``mirror=True`` re-publishes every host-tier
+        eviction store into the fleet store so peers (and cold restarts)
+        can fetch instead of recompute."""
+        remote = RemoteTier(
+            store, worker_id=worker_id, namespace=namespace, registry=self._registry
+        )
+        remote.holdings_cb = self._on_holdings
+        self._remote_mirror = bool(mirror)
+        self.remote = remote
+        return remote
 
     def _on_holdings(self, delta: List[Tuple[int, Optional[str], int]]) -> None:
         cb = self.holdings_cb
@@ -802,10 +1233,29 @@ class KVOffloadEngine:
                 self.offload_bytes += blob.nbytes
                 self.offload_seconds += dt
             self.metrics.record_offload("host", blob.nbytes, dt)
+            remote = self.remote
+            if remote is not None and self._remote_mirror and not remote.contains(seq_hash):
+                # fleet publication rides the kv-remote thread; the host
+                # blob is already materialized, so this enqueue is free
+                remote.submit_put(seq_hash, blob, meta)
             self._observe_occupancy()
         except Exception:
             logger.exception("offload store failed for %x", seq_hash)
             self.note_copy_fail()
+
+    def submit_put(self, seq_hash: int, blob: Any, meta: BlockMeta) -> None:
+        """Store an externally sourced block (a prefix-onboard donor's or
+        the G4 store's) without touching the calling thread: the put --
+        and any disk demotion it cascades into -- runs on the offload
+        thread."""
+        self._ex.submit(self._store_put, seq_hash, blob, meta)
+
+    def _store_put(self, seq_hash: int, blob: Any, meta: BlockMeta) -> None:
+        try:
+            self.host.put(seq_hash, blob, meta)
+            self._observe_occupancy()
+        except Exception:
+            logger.debug("tier put failed for %x", seq_hash, exc_info=True)
 
     def note_copy_fail(self) -> None:
         """Count a lost offload copy (a snapshot that could not be taken):
@@ -982,6 +1432,21 @@ class KVOffloadEngine:
     def contains(self, seq_hash: int) -> bool:
         return self.host.contains(seq_hash)
 
+    def get_blocking(self, seq_hash: int) -> Optional[Tuple[Any, BlockMeta]]:
+        """Tiered get from a worker thread (the block export's donor side):
+        routes the possibly-disk read through the offload thread and waits
+        for it, falling through to the G4 store when the local tiers miss
+        (the fetch waits on the kv-remote thread -- a different executor, so
+        no deadlock).  A G4 hit is put into the host ring so the next
+        lookup is a RAM hit.  Never call on the event loop."""
+        hit = self._ex.submit(self.host.get, seq_hash).result()
+        if hit is None and self.remote is not None and self.remote.contains(seq_hash):
+            fetched = self.remote.fetch_blocking(seq_hash)
+            if fetched is not None:
+                self.submit_put(seq_hash, fetched[0], fetched[1])
+                hit = fetched
+        return hit
+
     # -- swap records (preempted-sequence KV) --------------------------------
 
     def swap_out(
@@ -1123,4 +1588,6 @@ class KVOffloadEngine:
             )
         if self.onboard_seconds > 0:
             out["onboard_gbps"] = round(self.onboard_bytes / self.onboard_seconds / 1e9, 3)
+        if self.remote is not None:
+            out.update(self.remote.stats())
         return out

@@ -3,7 +3,8 @@ the Prometheus text exposition format, with no package behind them.
 
 The subset of the JAX package's ``runtime/metrics.py`` that the HTTP
 service's metrics (``http/metrics.py``) and the engine's
-(:class:`EngineMetrics`, :class:`SpecMetrics`, :class:`OffloadMetrics`) use, written out in plain Python because the
+(:class:`EngineMetrics`, :class:`SpecMetrics`, :class:`OffloadMetrics`,
+:class:`RemoteKVMetrics`) use, written out in plain Python because the
 card's machine has no ``prometheus_client``.  ``render()``
 gives the text that ``prometheus_client.generate_latest`` gives for the
 same families: the same family names, ``_total`` on counters,
@@ -606,3 +607,44 @@ class OffloadMetrics:
     def record_onboard(self, tier: str, nbytes: int, seconds: float) -> None:
         self.onboard_bytes.labels(tier).inc(nbytes)
         self.onboard_latency.labels(tier).observe(max(seconds, 0.0))
+
+
+class RemoteKVMetrics:
+    """Registry-backed G4 remote-tier series (``dynamo_kv_g4_*``): the JAX
+    package's ``RemoteKVMetrics``, same family names, labels and buckets.
+    The fleet-shared store's transfer volume and latency per direction,
+    the blocks this worker knows to be resident there, and the fetch
+    failure causes.  Updated only from the kv-remote thread."""
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None) -> None:
+        reg = registry or default_registry()
+        self.registry = reg
+        self.bytes = reg.counter(
+            "dynamo_kv_g4_bytes",
+            "KV frame bytes moved against the G4 fleet store, by direction",
+            ["op"],  # store | fetch
+        )
+        self.latency = reg.histogram(
+            "dynamo_kv_g4_seconds",
+            "G4 store round-trip latency per blob frame, by direction",
+            ["op"],
+            buckets=TRANSFER_LATENCY_BUCKETS,
+        )
+        self.blocks = reg.gauge(
+            "dynamo_kv_g4_blocks",
+            "Blocks this worker knows to be resident in the G4 store "
+            "(own publications + merged fleet adverts)",
+        )
+        self.fetch_failures = reg.counter(
+            "dynamo_kv_g4_fetch_failures",
+            "G4 fetches that fell back to recompute, by cause",
+            ["cause"],  # fetch_fail | missing | blob_corrupt
+        )
+
+    def record_store(self, nbytes: int, seconds: float) -> None:
+        self.bytes.labels("store").inc(nbytes)
+        self.latency.labels("store").observe(max(seconds, 0.0))
+
+    def record_fetch(self, nbytes: int, seconds: float) -> None:
+        self.bytes.labels("fetch").inc(nbytes)
+        self.latency.labels("fetch").observe(max(seconds, 0.0))

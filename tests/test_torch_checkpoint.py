@@ -22,6 +22,7 @@ package.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import json
 import os
@@ -437,29 +438,112 @@ def refusal(argv) -> str:
     return str(exc.value)
 
 
-@pytest.mark.parametrize(
-    "extra, env",
-    [
-        (["--host-offload-blocks", "8"], {}),
-        (["--disk-offload-blocks", "8", "--disk-offload-dir", "/tmp"], {}),
-        ([], {"DYN_KV_OFFLOAD": "host=16"}),
-    ],
-)
-def test_cli_refuses_offload_on_a_worker(monkeypatch, extra, env):
+# the argv the port refused while it had no prefix onboarding, and the
+# decode role with the whole plane: each is served now
+OFFLOAD_WORKERS = {
+    "host": (["--host-offload-blocks", "8"], {}),
+    "disk": (["--disk-offload-blocks", "8", "--disk-offload-dir", "{tmp}"], {}),
+    "env": ([], {"DYN_KV_OFFLOAD": "host=16"}),
+    "prefill": (["--disagg", "prefill", "--host-offload-blocks", "8"], {}),
+    "kv-remote": (["--kv-remote", "on"], {}),
+    "decode-g4": (["--disagg", "decode", "--host-offload-blocks", "8", "--kv-remote",
+                   "namespace=t,mirror=0"], {}),
+}
+
+
+@pytest.mark.parametrize("case", list(OFFLOAD_WORKERS))
+def test_cli_serves_offload_on_a_worker(checkpoint, monkeypatch, tmp_path, case):
+    """``run in=dyn out=torch`` with the offload plane or ``--kv-remote``,
+    in process against a hub: the flags parse, ``EngineConfig`` carries
+    ``kv_remote``, and the worker serves -- ``kv_export`` beside the
+    generate endpoint whenever the plane is armed (not on the prefill
+    role, which has no generate endpoint), with the G4 tier attached over
+    the hub's blob verbs when a spec was given."""
+    from dynamo_tpu_torch import cli
+    from dynamo_tpu_torch.offload import parse_kv_remote_spec
+    from dynamo_tpu_torch.runtime.component import DistributedRuntime
+    from dynamo_tpu_torch.runtime.transports.client import HubBlobClient
+    from dynamo_tpu_torch.runtime.transports.hub import HubServer
+
+    extra, env = OFFLOAD_WORKERS[case]
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    msg = refusal(["in=dyn", "out=torch", "--model-path", "m", "--hub", "127.0.0.1:1", *extra])
-    assert "prefix onboarding" in msg
+    engines = []
+    make = cli._make_engine
+    monkeypatch.setattr(cli, "_make_engine", lambda a: engines.append(make(a)) or engines[-1])
+
+    async def body():
+        hub = HubServer()
+        host, port = await hub.start()
+        addr = f"{host}:{port}"
+        args = cli.build_parser().parse_args(
+            ["run", "in=dyn", "out=torch", "--model-path", checkpoint[0], "--device", "cpu",
+             "--hub", addr, "--page-size", "4", *[x.format(tmp=tmp_path) for x in extra]])
+        args.inp, args.out = cli._parse_io(args.io)
+        cli._check_served(args)  # refuses nothing
+        task = asyncio.ensure_future(cli.run_worker(args))
+        rt = await DistributedRuntime.detached(addr)
+        try:
+            ns = rt.namespace("dynamo")
+            exports = await ns.component("backend").endpoint("kv_export").client()
+            # the holdings publisher hooks last, after the G4 attach
+            while not engines or (
+                engines[0].offload_engine is not None and engines[0].kv_holdings_sink is None
+            ):
+                await asyncio.sleep(0.05)
+                assert not task.done(), task.exception()
+            if args.disagg != "prefill":
+                generate = await ns.component("backend").endpoint("generate").client()
+                await asyncio.wait_for(generate.wait_for_instances(), 60)
+                if engines[0].offload_engine is not None:
+                    await asyncio.wait_for(exports.wait_for_instances(), 60)
+            engine = engines[0]
+            return (args, engine.cfg.kv_remote, engine.kv_remote_spec,
+                    engine.offload_engine, len(exports.instances))
+        finally:
+            task.cancel()
+            with contextlib.suppress(asyncio.CancelledError):
+                await task
+            await rt.shutdown()
+            await hub.stop()
+
+    args, kv_remote, spec, oe, instances = asyncio.run(body())
+    assert kv_remote == args.kv_remote
+    assert spec == (parse_kv_remote_spec(args.kv_remote) if args.kv_remote else None)
+    if case == "kv-remote":  # no plane: a spec, no tier, no kv_export
+        assert oe is None and spec is not None and instances == 0
+        return
+    assert oe is not None
+    assert instances == (0 if args.disagg == "prefill" else 1)
+    if spec is not None:
+        assert isinstance(oe.remote.store, HubBlobClient)
+        assert oe.remote.namespace == "t" and oe._remote_mirror is False
+    else:
+        assert oe.remote is None
+
+
+def test_cli_refuses_kv_remote_outside_a_worker():
+    """The G4 store is the hub's: ``--kv-remote`` off a worker is refused,
+    naming it (the JAX CLI parses it there and never attaches it)."""
+    for argv in (["in=http", "out=torch"], ["in=text", "out=torch"],
+                 ["in=http", "out=dyn", "--hub", "127.0.0.1:1"]):
+        assert "--kv-remote serves in=dyn out=torch workers only" in refusal(
+            [*argv, "--kv-remote", "on", "--model-path", "m", "--device", "cpu"])
+
+
+def test_cli_parses_kv_remote_like_jax():
+    from dynamo_tpu.cli import build_parser as jax_parser
+    from dynamo_tpu_torch.cli import build_parser
+
+    for argv in ([], ["--kv-remote", "on"], ["--kv-remote", "gbps=2,namespace=x"]):
+        got = build_parser().parse_args(["run", "in=dyn", "out=torch", *argv])
+        want = jax_parser().parse_args(["run", "in=dyn", "out=jax", *argv])
+        assert got.kv_remote == want.kv_remote
 
 
 @pytest.mark.parametrize(
     "argv, name",
     [
-        # --disagg is served; with the offload plane it still needs prefix
-        # onboarding, and the refusal names the role
-        (["in=dyn", "out=torch", "--hub", "127.0.0.1:1", "--disagg", "prefill",
-          "--host-offload-blocks", "8"], "--disagg"),
-        (["in=dyn", "out=torch", "--hub", "127.0.0.1:1", "--kv-remote", "on"], "--kv-remote"),
         (["in=dyn", "out=mocker", "--hub", "127.0.0.1:1"], "out=mocker"),
         (["in=dyn", "out=echo", "--hub", "127.0.0.1:1"], "out=echo"),
         (["in=http", "out=echo"], "out=echo"),

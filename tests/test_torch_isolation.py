@@ -96,8 +96,9 @@ def test_port_imports_nothing_refused():
     # (its package, drafter.py, model_drafter.py) and engine/quant.py, 69
     # with the distributed runtime (runtime/transports/, component, config,
     # faults, thread_sentry, tracing, utils, protocols/endpoint,
-    # llm/model_card, llm/discovery, llm/kv_router/), 70 with llm/disagg
-    assert int(out.stdout.strip().splitlines()[-1]) >= 70
+    # llm/model_card, llm/discovery, llm/kv_router/), 70 with llm/disagg,
+    # 71 with llm/prefix_onboard
+    assert int(out.stdout.strip().splitlines()[-1]) >= 71
 
 
 # the speculative decoding package, the model drafter and weight-only int8:
@@ -134,10 +135,11 @@ def test_spec_and_quant_import_nothing_refused():
     assert out.stdout.strip().splitlines()[-1] == "ok"
 
 
-# the distributed runtime, the KV router and disaggregation: copies of JAX
-# modules that import no JAX (disagg's original: only to name dtypes), but
-# whose JAX originals reach the JAX package's profiling, telemetry, fleet
-# and prefix-onboarding modules
+# the distributed runtime, the KV router, disaggregation, prefix onboarding
+# and the offload plane with its G4 tier: copies of JAX modules that import
+# no JAX (disagg's original: only to name dtypes; prefix_onboard's imports
+# jax.numpy), but whose JAX originals reach the JAX package's profiling,
+# telemetry, fleet and prefix-onboarding modules
 RUNTIME = (
     "dynamo_tpu_torch.runtime.transports", "dynamo_tpu_torch.runtime.transports.codec",
     "dynamo_tpu_torch.runtime.transports.hub",
@@ -148,7 +150,8 @@ RUNTIME = (
     "dynamo_tpu_torch.runtime.utils", "dynamo_tpu_torch.protocols.endpoint",
     "dynamo_tpu_torch.llm.model_card", "dynamo_tpu_torch.llm.discovery",
     "dynamo_tpu_torch.llm.kv_router", "dynamo_tpu_torch.llm.kv_router.router",
-    "dynamo_tpu_torch.llm.disagg", "dynamo_tpu_torch.cli",
+    "dynamo_tpu_torch.llm.disagg", "dynamo_tpu_torch.llm.prefix_onboard",
+    "dynamo_tpu_torch.offload", "dynamo_tpu_torch.cli",
 )
 
 
