@@ -120,7 +120,35 @@ Every phase is fatal on failure:
    in-process engine's, built from the same numpy arrays through
    ``params_from_numpy``.  The directory is deleted after the run.
 
-8. serve-a3: the engine's other callers of flash prefill (kernel 2).
+8. serve-prof: the observability plane (``runtime/profiling.py``,
+   ``slo.py``, ``compile_sentry.py``), right after serve-http.  (a) The
+   reference phase's f32 model on the card and on the CPU under
+   ``DYN_MULTISTEP`` = 0, 4 and adaptive, and adaptive with the tick
+   profiler armed, the compile sentry armed: the streams equal the CPU's
+   and the reference phase's, K is 1 or 4 under 4, and on the card the
+   sentry's graph events equal ``graph_captures``.  (b) Llama-3-8B at
+   full width and depth, bf16, serve's weights and traffic through the
+   in-process HTTP service under ``DYN_SLO`` targets: the primer, the
+   batch cold and warm, warm with the tick profiler armed by ``POST
+   /profile/ticks`` (every tick's phases sum to its wall within 10%, its
+   dispatches by kind equal the engine's counters; the phase shares, host
+   occupancy, dispatch gap p50/p95 and dispatches printed from ``GET
+   /profile/ticks``), warm unprofiled again (the three ``tok_s`` printed),
+   then a warm batch beside ``POST /profile/device {"duration_s": 1.0}``,
+   whose trace must hold kernels 5 and 1 by name (the device's busy
+   share, the host threads whose ops it holds, whether its clock aligns
+   with the tick records' and, aligned, the five longest device-idle gaps
+   with the tick phase under way at each, printed); ``GET /trace/{id}``
+   must hold a mixed ``engine.prefill_dispatch``; a request with a 1 ms
+   deadline must get a 504 whose ``flightrec`` snapshot holds tick
+   records, the engine's state and the ``deadline`` violation, and
+   ``/metrics`` the ``dynamo_slo_attainment`` series; the launch
+   invariants hold.  (c) Inside serve-http's CLI phase, ``python -m
+   dynamo_tpu_torch profile --watch 3 --device 1 --json OUT`` against its
+   ``run in=http out=torch`` process under traffic: exit code 0, the
+   device trace captured, ``engine.tick`` rows in the Chrome trace.
+
+9. serve-a3: the engine's other callers of flash prefill (kernel 2).
    (a) The reference phase's f32 model on the card and on the CPU: echo
    requests' prompt-logprob entries (the same ids, logprobs within 1e-4),
    ``TorchEngine.embed`` vectors (within 1e-5) and the greedy streams of
@@ -148,7 +176,7 @@ Every phase is fatal on failure:
    dispatch spans from CUDA events and the plain streams' decode-phase
    rate alone and beside the echoes.
 
-9. serve-a45: speculative decoding and weight-only int8.  (a) The
+10. serve-a45: speculative decoding and weight-only int8.  (a) The
    reference phase's f32 model on the card and on the CPU: speculation
    with the n-gram drafter (folded and ``fold_spec_verify=False``), with
    the ``random`` model drafter, and ``quantize="int8"`` give the card the
@@ -169,7 +197,7 @@ Every phase is fatal on failure:
    64 tokens each and the launch invariants held; weight bytes against
    bf16, peak GiB and the rates printed.
 
-10. serve-kvbm: the KV block manager's lower tiers.  (a) The reference
+11. serve-kvbm: the KV block manager's lower tiers.  (a) The reference
    phase's f32 model on the card and on the CPU with the offload plane
    armed -- host only, host+disk (a ring of 1 block), and both over the
    int8 pool -- serves two prefixes, churn that evicts them and the two
@@ -201,7 +229,7 @@ Every phase is fatal on failure:
    width: data and scales bit-exact.  No offload copy failure and no swap
    or onboard fallback may be counted.
 
-11. serve-dyn: the distributed runtime.  (a) The reference phase's f32
+12. serve-dyn: the distributed runtime.  (a) The reference phase's f32
    model as one worker on the card behind a loopback ``HubServer`` and the
    front end of ``run in=http out=dyn --router-mode kv`` (``ModelWatcher``
    over ``HttpService``, the KV router's pipeline): the greedy
@@ -228,7 +256,7 @@ Every phase is fatal on failure:
    equal an in-process engine's from the same arrays, ``llmctl list``
    names the model with one instance, SIGINT ends each with exit code 0.
 
-12. serve-disagg: disaggregated prefill/decode (``llm/disagg.py``).  (a)
+13. serve-disagg: disaggregated prefill/decode (``llm/disagg.py``).  (a)
    A 3-layer f32 model, a decode worker and a prefill worker on the card
    behind a loopback hub, ``max_local_prefill_length`` 32: three short
    prompts prefill locally, three long ones ship; the greedy streams equal
@@ -268,7 +296,7 @@ Every phase is fatal on failure:
    ``disagg-conf --max-local-prefill-length 100000`` turns the next long
    prompt local, SIGINT ends each with exit code 0.
 
-13. serve-onboard: cross-worker prefix onboarding and the G4 remote tier
+14. serve-onboard: cross-worker prefix onboarding and the G4 remote tier
    (``llm/prefix_onboard.py``, ``offload.RemoteTier``).  (a) The reference
    phase's f32 model, a donor and an importer on the card (each
    ``host_offload_blocks=8``) behind a loopback hub: the importer onboards
@@ -2005,14 +2033,16 @@ def bench_items(reqs: List[dict]) -> List[dict]:
     ]
 
 
-async def http_call(port: int, method: str, path: str, body=None) -> Tuple[int, bytes]:
+async def http_call(port: int, method: str, path: str, body=None,
+                    headers=None) -> Tuple[int, bytes]:
     """One HTTP/1.1 request with ``Connection: close`` to 127.0.0.1:port
     (a Content-Length body back)."""
     reader, writer = await asyncio.open_connection("127.0.0.1", port)
     try:
         data = b"" if body is None else json.dumps(body).encode()
+        extra = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items())
         writer.write(
-            f"{method} {path} HTTP/1.1\r\nHost: x\r\nConnection: close\r\n"
+            f"{method} {path} HTTP/1.1\r\nHost: x\r\nConnection: close\r\n{extra}"
             f"Content-Type: application/json\r\nContent-Length: {len(data)}\r\n\r\n".encode()
             + data
         )
@@ -2224,6 +2254,398 @@ def serve_http_phase(ref: Dict[str, object], served: Dict[str, object], card: st
         return {k: counted[k] for k in ("packed_ragged_attention", "paged_decode_attention")}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -- serve-prof: the observability plane ----------------------------------------
+
+# serve-prof (a)'s runs: DYN_MULTISTEP, and whether the tick profiler is armed
+PROF_MODES = {
+    "DYN_MULTISTEP=0": ("0", False),
+    "DYN_MULTISTEP=4": ("4", False),
+    "adaptive": ("adaptive", False),
+    "adaptive, profiled": ("adaptive", True),
+}
+# serve-prof (b)'s SLO targets, in the DYN_SLO grammar
+PROF_SLO = "ttft=2s,itl=200ms,e2e=60s"
+
+
+def check_ticks(what: str, recs, counted: Dict[str, int]) -> Dict[str, int]:
+    """Every tick's phases sum to its wall within 10%, and the ticks'
+    dispatches by kind equal ``counted`` (the engine's own counters over
+    the window, tick kinds only); returns the ticks' dispatches."""
+    from dynamo_tpu_torch.engine.engine import TICK_KINDS
+
+    if not recs:
+        fail(f"{what}: no tick records")
+    by_kind: Dict[str, int] = {}
+    for r in recs:
+        total = sum(r.phases.values())
+        if abs(total - r.wall_s) > 0.1 * r.wall_s:
+            fail(f"{what}: tick {r.idx}'s phases sum to {total:.6f} s, its wall "
+                 f"{r.wall_s:.6f} s: {r.to_dict()}")
+        for k, n in r.dispatches.items():
+            by_kind[k] = by_kind.get(k, 0) + n
+    want = {k: n for k, n in counted.items() if k in TICK_KINDS and n}
+    if by_kind != want:
+        fail(f"{what}: the ticks' dispatches {by_kind} differ from the engine's {want}")
+    return by_kind
+
+
+def prof_reference(ref: Dict[str, object]) -> None:
+    """(a) The reference phase's f32 model on the card and on the CPU under
+    each of ``PROF_MODES``, the compile sentry armed: streams card == CPU
+    == the reference phase's; pinned to 4, only K 1 and 4; on the card the
+    sentry's graph events equal ``graph_captures`` and raise nothing;
+    profiled, the ticks hold the phase and dispatch invariants."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.runtime import compile_sentry, profiling
+
+    cfg, params, batches = ref["cfg"], ref["params"], ref["batches"]
+    prof = profiling.profiler
+    env = os.environ.get("DYN_MULTISTEP")
+    armed = compile_sentry.arm(True)
+    try:
+        for label, (value, profiled) in PROF_MODES.items():
+            os.environ["DYN_MULTISTEP"] = value
+            streams = {}
+            for dev in ("cuda", "cpu"):
+                compile_sentry.reset()
+                prof.clear()
+                if profiled:
+                    prof.enable()
+                eng = TorchEngine(cfg, params_on(params, dev), EngineConfig(**ref["ecfg"]),
+                                  device=dev)
+                try:
+                    streams[dev] = [r["tokens"] for r in asyncio.run(serve(eng, batches))]
+                finally:
+                    prof.disable()
+                if dev != "cuda":
+                    continue
+                events = {k: n for k, n in compile_sentry.counts().items()
+                          if k != compile_sentry.KERNEL_BUILD}
+                line = (f"serve-prof: (a) {label}: dispatches_by_k="
+                        f"{dict(sorted(eng.dispatches_by_k.items()))} graph_captures="
+                        f"{eng.graph_captures} sentry={events}")
+                if sum(events.values()) != eng.graph_captures or not eng.graph_captures:
+                    fail(f"serve-prof (a) {label}: sentry events {events}, "
+                         f"graph_captures {eng.graph_captures}")
+                if value == "4" and set(eng.dispatches_by_k) != {1, 4}:
+                    fail(f"serve-prof (a) {label}: K {eng.dispatches_by_k}, want 1 and 4")
+                if value == "0" and set(eng.dispatches_by_k) - {1}:
+                    fail(f"serve-prof (a) {label}: K {eng.dispatches_by_k} with multistep off")
+                if profiled:
+                    recs = prof.records()
+                    check_ticks(f"serve-prof (a) {label}", recs, eng.dispatches)
+                    line += f" ticks={len(recs)}"
+                print(line)
+            if streams["cuda"] != streams["cpu"]:
+                fail(f"serve-prof (a) {label}: card streams {streams['cuda']} differ from "
+                     f"the CPU's {streams['cpu']}")
+            if streams["cuda"] != ref["streams"]:
+                fail(f"serve-prof (a) {label}: streams differ from the reference phase's")
+        print(f"serve-prof: (a) {len(PROF_MODES)} runs: card streams == CPU streams == the "
+              f"reference phase's; sentry events == graph captures, none over budget")
+    finally:
+        compile_sentry.arm(armed)
+        compile_sentry.reset()
+        prof.disable()
+        prof.clear()
+        if env is None:
+            os.environ.pop("DYN_MULTISTEP", None)
+        else:
+            os.environ["DYN_MULTISTEP"] = env
+
+
+def bench_tok_s(report) -> float:
+    """A batch's generated tokens over its client wall, unrounded."""
+    return sum(r.output_tokens for r in report.results if r.ok) / report.wall_s
+
+
+def merged_busy(intervals: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
+    """Sorted, overlapping intervals merged into disjoint busy spans."""
+    out: List[Tuple[float, float]] = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], b))
+        else:
+            out.append((a, b))
+    return out
+
+
+def device_trace_report(path: str, t_req: float, duration_s: float, recs, card: str) -> None:
+    """Read a ``torch.profiler`` trace of the server: it must hold kernel
+    5's and kernel 1's launches by name.  Prints the device's busy share
+    of the window (the union of kernel spans over first kernel start to
+    last kernel end), the host threads whose ops it recorded, whether its
+    clock aligns with the tick records' and, aligned, the five longest
+    device-idle gaps with the tick phase under way at each."""
+    from dynamo_tpu_torch.runtime import tracing
+
+    with open(path) as fh:
+        doc = json.load(fh)
+    base_us = doc.get("baseTimeNanoseconds", 0) / 1e3
+    events = doc.get("traceEvents") or []
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = [e["name"] for e in kernels]
+    n5 = sum("ragged" in n for n in names)
+    n1 = sum("paged_decode" in n for n in names)
+    print(f"serve-prof: (b) device trace: {len(kernels)} kernels, packed ragged "
+          f"(kernel 5) {n5}, paged decode (kernel 1) {n1}")
+    if not n5 or not n1:
+        fail(f"serve-prof (b): the device trace lacks kernel 5 ({n5}) or kernel 1 ({n1}): "
+             f"{sorted(set(names))[:20]}")
+    spans = [((e["ts"] + base_us) * 1e-6, (e["ts"] + e.get("dur", 0.0) + base_us) * 1e-6)
+             for e in kernels]
+    busy = merged_busy(spans)
+    t0, t1 = busy[0][0], busy[-1][1]
+    busy_s = sum(b - a for a, b in busy)
+    cpu_tids: Dict[object, int] = {}
+    for e in events:
+        if e.get("cat") == "cpu_op":
+            cpu_tids[e.get("tid")] = cpu_tids.get(e.get("tid"), 0) + 1
+    print(f"serve-prof: (b) device busy share {busy_s / (t1 - t0):.4f} of the kernels' "
+          f"window {t1 - t0:.6f} s ({busy_s / duration_s:.4f} of the {duration_s} s capture); "
+          f"host ops recorded on {len(cpu_tids)} thread(s) {sorted(cpu_tids.values())} "
+          f"on {card}")
+    # the kernels' clock: wall seconds (baseTimeNanoseconds + ts); the
+    # ticks': monotonic + the tracing module's wall offset
+    aligned = t_req - 0.5 <= t0 and t1 <= t_req + duration_s + 30.0
+    ticks = [(r.start_s + tracing._MONO_TO_WALL, r) for r in recs]
+    overlap = [r for s, r in ticks if s <= t1 and s + r.wall_s >= t0]
+    print(f"serve-prof: (b) clocks: kernels from {t0 - t_req:+.6f} s to {t1 - t_req:+.6f} s "
+          f"of the capture request; {len(overlap)} tick records overlap them; aligned: "
+          f"{aligned and bool(overlap)}")
+    if not (aligned and overlap):
+        return
+    gaps = sorted(((b[0] - a[1], a[1], b[0]) for a, b in zip(busy, busy[1:])), reverse=True)
+    for length, a, b in gaps[:5]:
+        mid = (a + b) / 2
+        under = "no tick (the loop between ticks or idle)"
+        for s, r in ticks:
+            phase = r.phase_at(mid - s)
+            if phase is not None:
+                under = f"tick {r.idx} phase {phase} ({sorted(r.dispatches.items())})"
+                break
+        print(f"serve-prof: (b) device idle {length * 1e3:.3f} ms at {a - t0:.6f} s: {under}")
+
+
+async def prof_http(engine, tok, primer, batch, tap, tmp: str, card: str) -> Dict[str, object]:
+    """(b) through the HTTP service: see ``serve_prof_phase``."""
+    from dynamo_tpu_torch.bench_serving import run_bench
+    from dynamo_tpu_torch.http.service import HttpService, ModelManager
+    from dynamo_tpu_torch.llm.backend import Backend
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.runtime import profiling, tracing
+    from dynamo_tpu_torch.runtime.pipeline import link
+
+    pipe = link(OpenAIPreprocessor("m", tok), Backend(tok), tap)
+    manager = ModelManager()
+    manager.add_completion_model("m", pipe)
+    service = HttpService(manager, port=0)
+    await service.start()
+    host, port = service.address
+    prof = profiling.profiler
+    out: Dict[str, object] = {}
+
+    async def run(what: str, reqs: List[dict]):
+        rep = await run_bench(host, port, "m", bench_items(reqs), concurrency=len(reqs))
+        check_http_results(f"serve-prof (b) {what}", [rep], [reqs])
+        return rep
+
+    async def call(method: str, path: str, body=None, headers=None):
+        status, raw = await http_call(port, method, path, body, headers)
+        if status not in (200, 504):
+            fail(f"serve-prof (b): {method} {path} answered {status}: {raw[:300]!r}")
+        return status, json.loads(raw)
+
+    try:
+        await run("primer", primer)
+        out["cold"] = await run("cold", batch)
+        out["warm"] = await run("warm", batch)
+        # the profiled warm batch, between two unprofiled ones
+        before = dict(engine.dispatches)
+        await call("POST", "/profile/ticks", {"enabled": True, "clear": True})
+        out["profiled"] = await run("profiled", batch)
+        _, out["ticks"] = await call("GET", "/profile/ticks")
+        out["records"] = prof.records()
+        await call("POST", "/profile/ticks", {"enabled": False})
+        out["window"] = {k: n - before.get(k, 0) for k, n in engine.dispatches.items()}
+        out["warm2"] = await run("warm again", batch)
+        # a device trace over more warm batches, ticks and spans recorded
+        tracing.collector.clear()
+        tracing.collector.enable()
+        prof.clear()
+        prof.enable()
+        log_dir = os.path.join(tmp, "device-trace")
+        t_req = time.time()
+        capture = asyncio.ensure_future(
+            call("POST", "/profile/device", {"duration_s": 1.0, "log_dir": log_dir})
+        )
+        # one warm batch during the capture (the card runs it slower:
+        # CUPTI records every kernel)
+        t_batch = time.perf_counter()
+        await run("traced", batch)
+        t_batch = time.perf_counter() - t_batch
+        status, dev = await capture
+        prof.disable()
+        if status != 200 or not dev.get("ok"):
+            fail(f"serve-prof (b): POST /profile/device answered {status}: {dev}")
+        out["device"] = (dev, t_req, t_batch, time.time() - t_req, prof.records())
+        # one request's spans: the mixed prefill dispatch must be there
+        rid = list(tap.frames)[-1]
+        status, trace = await call("GET", f"/trace/{rid}")
+        tracing.collector.disable()
+        names = [(s["name"], (s.get("attrs") or {}).get("mixed")) for s in trace["spans"]]
+        if ("engine.prefill_dispatch", True) not in names:
+            fail(f"serve-prof (b): GET /trace/{rid} has no mixed engine.prefill_dispatch: {names}")
+        out["trace"] = names
+        # a deadline of 1 ms: a 504 whose flight-recorder snapshot holds
+        # the tick ring, the engine's state and the deadline violation
+        status, body = await call(
+            "POST", "/v1/completions",
+            {"model": "m", "prompt": batch[0]["token_ids"], "max_tokens": 64},
+            {"X-Request-Deadline-S": "0.001"},
+        )
+        fid = (body.get("error") or {}).get("flightrec")
+        if status != 504 or not fid:
+            fail(f"serve-prof (b): the 1 ms deadline answered {status}: {body}")
+        _, snap = await call("GET", f"/debug/flightrec/{fid}")
+        causes = [(v["kind"], v["cause"]) for v in snap["slo_violations"]]
+        if not snap["ticks"] or "engine" not in snap["state"] or ("e2e", "deadline") not in causes:
+            fail(f"serve-prof (b): snapshot {fid}: {len(snap['ticks'])} ticks, state "
+                 f"{list(snap['state'])}, violations {causes}")
+        out["snapshot"] = (fid, snap)
+        status, raw = await http_call(port, "GET", "/metrics")
+        kinds = sorted(set(re.findall(r'dynamo_slo_attainment\{[^}]*kind="(\w+)"', raw.decode())))
+        if status != 200 or not kinds:
+            fail(f"serve-prof (b): /metrics has no dynamo_slo_attainment series")
+        out["slo_kinds"] = kinds
+    finally:
+        prof.disable()
+        tracing.collector.disable()
+        await service.stop()
+        await engine.stop()
+    return out
+
+
+def serve_prof_phase(ref: Dict[str, object], card: str) -> None:
+    """(a) ``prof_reference``; (b) Llama-3-8B at full width and depth,
+    bf16, serve's weights and traffic through the in-process HTTP service,
+    under ``PROF_SLO``: the primer, the batch cold, warm, then warm with
+    the tick profiler armed by ``POST /profile/ticks`` (its phase shares,
+    host occupancy, dispatch gaps and dispatches by kind printed from
+    ``GET /profile/ticks``; every tick's phases sum to its wall within
+    10%, its dispatches equal the engine's counters over the window), warm
+    unprofiled again, then warm batches while ``POST /profile/device``
+    takes a 1 s device trace (kernels 5 and 1 in it by name; the busy
+    share and, where the clocks align, the longest idle gaps with the tick
+    phase under way), ``GET /trace/{id}`` (a mixed
+    ``engine.prefill_dispatch``), and a request with a 1 ms deadline (a
+    504 and its flight-recorder snapshot); the launch invariants over the
+    whole run.  (c) rides serve-http's CLI process (``prof_cli``)."""
+    import shutil
+    import tempfile
+
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.llm.tokenizer import Tokenizer
+    from dynamo_tpu_torch.runtime import profiling, slo
+
+    t0 = time.perf_counter()
+    prof_reference(ref)
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-prof-")
+    try:
+        big = os.path.join(tmp, "llama3")
+        os.makedirs(big)
+        write_tokenizer(big, 128000, 256)
+        tok8 = Tokenizer.from_model_dir(big)
+        cfg8 = ModelConfig.llama3_8b()
+        primer, batch = serve_requests(cfg8.vocab_size)
+        eng8 = TorchEngine.random_init(cfg8, EngineConfig(num_pages=1024), seed=0)
+        tap = Tap(eng8)
+        slo.tracker.configure(PROF_SLO)
+        reset_launches()
+        try:
+            res = asyncio.run(prof_http(eng8, tok8, primer, batch, tap, tmp, card))
+        finally:
+            slo.tracker.disable()
+            # the ring's records must not steer later engines' multistep K
+            profiling.profiler.clear()
+        counted = read_launches()
+        check_launch_invariants("serve-prof (b)", eng8, counted)
+        summ = res["ticks"]["summary"]
+        window = check_ticks("serve-prof (b) profiled warm batch", res["records"], res["window"])
+        wall = summ["wall_s"]
+        shares = {k: round(v / wall, 4) for k, v in summ["phase_totals_s"].items()}
+        print(f"serve-prof: (b) profiled warm batch: {summ['ticks']} ticks, wall {wall} s, "
+              f"phase shares {shares}, host occupancy {summ['host_occupancy']}, dispatch gap "
+              f"p50 {summ['gap_p50_ms']} ms p95 {summ['gap_p95_ms']} ms, dispatches {window} "
+              f"on {card}")
+        tok_s = {k: bench_tok_s(res[k]) for k in ("cold", "warm", "profiled", "warm2")}
+        print(f"serve-prof: (b) tok_s cold {tok_s['cold']:.3f}, warm unprofiled "
+              f"{tok_s['warm']:.3f}, warm profiled {tok_s['profiled']:.3f}, warm unprofiled "
+              f"again {tok_s['warm2']:.3f} on {card}")
+        dev, t_req, t_batch, t_capture, recs = res["device"]
+        print(f"serve-prof: (b) POST /profile/device: {dev} answered in {t_capture:.3f} s; "
+              f"the warm batch beside it took {t_batch:.3f} s on {card}")
+        device_trace_report(
+            os.path.join(dev["log_dir"], profiling.DEVICE_TRACE_FILE), t_req,
+            dev["duration_s"], recs, card,
+        )
+        fid, snap = res["snapshot"]
+        causes: Dict[str, int] = {}
+        for v in snap["slo_violations"]:
+            key = f"{v['kind']}/{v['cause']}"
+            causes[key] = causes.get(key, 0) + 1
+        print(f"serve-prof: (b) GET /trace: spans {sorted(set(n for n, _ in res['trace']))}; "
+              f"the 1 ms deadline: 504 with flightrec {fid}: {len(snap['ticks'])} ticks, "
+              f"engine state {snap['state']['engine']}, recent violations {causes}; /metrics "
+              f"dynamo_slo_attainment kinds {res['slo_kinds']}")
+        print(f"serve-prof: (b) launches {counted} dispatches={dict(eng8.dispatches)}")
+        del eng8, tap, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"serve-prof: {time.perf_counter() - t0:.3f} s")
+
+
+def prof_cli(tmp: str, port: int, card: str) -> None:
+    """serve-prof (c): ``python -m dynamo_tpu_torch profile URL --watch 3
+    --device 1 --json OUT`` against serve-http's ``run in=http out=torch``
+    process, with ``cli_requests()`` traffic until it exits: exit code 0,
+    the device trace captured, ``engine.tick`` rows in its Chrome trace."""
+    out = os.path.join(tmp, "cli-profile.json")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dynamo_tpu_torch", "profile", f"http://127.0.0.1:{port}",
+         "--watch", "3", "--device", "1", "--json", out],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    try:
+        async def traffic() -> int:
+            rounds = 0
+            while proc.poll() is None:
+                await ask_texts(port, "serve-prof (c)")
+                rounds += 1
+            return rounds
+
+        rounds = asyncio.run(traffic())
+        text, _ = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0 or "device trace captured to" not in text:
+        fail(f"serve-prof (c): profile exited {proc.returncode}: {text[-3000:]}")
+    with open(out) as fh:
+        events = json.load(fh)["traceEvents"]
+    rows = {e["args"]["name"] for e in events if e.get("ph") == "M"}
+    ticks = sum(e["name"] == "tick" for e in events)
+    if "engine.tick" not in rows or not ticks:
+        fail(f"serve-prof (c): the profile's Chrome trace has no engine.tick rows: {rows}")
+    print(f"serve-prof: (c) profile --watch 3 --device 1 over {rounds} rounds of traffic: "
+          f"exit 0, {ticks} tick rows; its output: {text.strip().splitlines()} on {card}")
 
 
 # -- serve-a3: the full flash prefill's other callers ----------------------------
@@ -3590,6 +4012,7 @@ def cli_phase(tmp: str, card: str) -> Tuple[List[str], List[str]]:
     try:
         up = wait_http(port, "/health", lambda body: True, [cli], "serve-http (c)")
         cli_texts = asyncio.run(ask_texts(port, "serve-http (c)"))
+        prof_cli(tmp, port, card)
         cli.interrupt("serve-http (c)")
         print(f"serve-http: (c) CLI healthy after {up:.3f} s, exit code {cli.proc.returncode}; "
               f"its output: {cli.log().strip().splitlines()[:3]}")
@@ -5431,6 +5854,7 @@ def main() -> None:
     quant, quant_walls = serve_int8_phase(kernels, card)
     http_launches = serve_http_phase(ref, served, card)
     print(f"serve-http: launches on the HTTP path {http_launches}")
+    serve_prof_phase(ref, card)
     a3 = serve_a3_phase(ref, card)
     print(f"serve-a3: flash prefill launches {a3['launches']}")
     a45 = serve_a45_phase(ref, served, card)

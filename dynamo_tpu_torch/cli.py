@@ -13,6 +13,8 @@ The JAX package's ``run``, single-process and distributed::
     python -m dynamo_tpu_torch disagg-conf --hub H:P --max-local-prefill-length N
     python -m dynamo_tpu_torch llmctl --hub H:P list
     python -m dynamo_tpu_torch bench --port 8080 --model NAME
+    python -m dynamo_tpu_torch profile http://H:P --watch 5 --device 1 --json t.json
+    python -m dynamo_tpu_torch trace --hub H:P REQUEST_ID
 
 ``in=http out=torch`` serves ``link(OpenAIPreprocessor, Backend,
 TorchEngine)`` behind the OpenAI ``HttpService``; ``in=text`` runs one
@@ -21,7 +23,11 @@ file of prompts.  ``DIR`` is a local HuggingFace checkpoint directory:
 ``config.json``, ``*.safetensors``, ``tokenizer.json`` and
 ``tokenizer_config.json``.  The engine runs on the card; ``--device cpu``
 runs it on the CPU.  ``bench`` drives a running front end with the serving
-benchmark client.
+benchmark client.  ``profile`` reads a running front end's tick profiler
+(``GET /profile/ticks``; ``--watch S`` arms it and samples S seconds of
+traffic, ``--device S`` takes a device trace on the server) and prints
+where the ticks' wall time went; ``trace`` assembles one request's spans
+from every component on a hub.
 
 ``hub`` runs the control plane.  ``in=dyn out=torch`` serves the engine as
 a worker on the hub: its generate endpoint, a ``{ep}_embed`` endpoint, the
@@ -246,6 +252,37 @@ def build_parser() -> argparse.ArgumentParser:
     ctlsub.add_parser("list", help="list registered models + instances")
     rm = ctlsub.add_parser("remove", help="deregister a model by name")
     rm.add_argument("name")
+
+    # profile: the tick profiler's read side against a live front end
+    pf = sub.add_parser("profile",
+                        help="tick-phase profile of a live serving front end")
+    pf.add_argument("url", help="front end base url, e.g. http://127.0.0.1:8080")
+    pf.add_argument("--enable", action="store_true",
+                    help="arm tick profiling on the server first "
+                         "(POST /profile/ticks)")
+    pf.add_argument("--disable", action="store_true",
+                    help="disarm tick profiling on the server and exit")
+    pf.add_argument("--watch", type=float, default=None, metavar="SECONDS",
+                    help="arm profiling, wait this long under live traffic, "
+                         "then report (implies --enable)")
+    pf.add_argument("--json", dest="json_out",
+                    help="write the merged Chrome-trace JSON (tick phases "
+                         "and request spans) here")
+    pf.add_argument("--device", type=float, default=None, metavar="SECONDS",
+                    help="also take a bounded device trace on the server "
+                         "(POST /profile/device)")
+
+    # trace: one request's cross-component span timeline from the hub
+    # (every served component answers a _trace scrape endpoint)
+    tr = sub.add_parser("trace", help="assemble a request's cross-component trace")
+    tr.add_argument("--hub", required=True, help="hub address host:port")
+    tr.add_argument("--namespace", default="dynamo")
+    tr.add_argument("request_id", help="the request id (X-Request-Id header)")
+    tr.add_argument("--json", dest="json_out",
+                    help="write Chrome-trace JSON here (chrome://tracing, "
+                         "ui.perfetto.dev)")
+    tr.add_argument("--timeout", type=float, default=2.0,
+                    help="per-component scrape timeout seconds")
 
     bn = sub.add_parser("bench",
                         help="drive a frontend with a workload; report "
@@ -993,6 +1030,173 @@ async def run_bench(args) -> int:
     return 0 if summary["num_errors"] == 0 else 1
 
 
+async def run_profile(args) -> int:
+    """profile: read a live front end's tick profile (``GET
+    /profile/ticks``) and print where the ticks' wall time went: the host
+    phases, the host occupancy and the dispatch gap.  ``--watch S`` arms
+    profiling and samples S seconds of live traffic first; ``--device S``
+    also takes a bounded device trace on the server."""
+    import urllib.error
+    import urllib.request
+
+    base = args.url.rstrip("/")
+    if "://" not in base:
+        base = "http://" + base
+
+    def _call(path: str, payload=None):
+        data = None if payload is None else json.dumps(payload).encode()
+        req = urllib.request.Request(
+            base + path,
+            data=data,
+            headers={"Content-Type": "application/json"} if data else {},
+        )
+        try:
+            with urllib.request.urlopen(req, timeout=35.0) as resp:
+                return json.loads(resp.read().decode())
+        except urllib.error.HTTPError as e:
+            # a structured non-2xx body (/profile/device's 503 {ok:false})
+            # is an answer, not a connectivity failure
+            body = e.read().decode(errors="replace")
+            try:
+                return json.loads(body)
+            except ValueError:
+                raise OSError(f"HTTP {e.code}: {body[:200]}") from e
+
+    async def call(path: str, payload=None):
+        return await asyncio.to_thread(_call, path, payload)
+
+    try:
+        if args.disable:
+            out = await call("/profile/ticks", {"enabled": False})
+            print(f"tick profiling disabled (server enabled={out['enabled']})")
+            return 0
+        if args.enable or args.watch is not None:
+            await call("/profile/ticks", {"enabled": True, "clear": True})
+        if args.watch is not None:
+            print(f"profiling armed; sampling {args.watch:g}s of traffic...")
+            await asyncio.sleep(max(args.watch, 0.0))
+        if args.device is not None:
+            dev = await call("/profile/device", {"duration_s": args.device})
+            if dev.get("ok"):
+                print(f"device trace captured to {dev['log_dir']}")
+            else:
+                print(f"device trace unavailable: {dev.get('error')}")
+        data = await call("/profile/ticks")
+    except OSError as e:
+        print(f"cannot reach {base}: {e}")
+        return 1
+    summ = data.get("summary") or {}
+    if not summ.get("ticks"):
+        print(
+            "no tick records yet (is the profiler enabled -- "
+            "DYN_TICK_PROFILE=1, --enable, or --watch -- and is the "
+            "engine serving traffic?)"
+        )
+        return 1
+    wall = summ.get("wall_s") or 0.0
+    print(
+        f"{summ['ticks']} ticks, {summ['dispatches']} dispatches, "
+        f"wall {wall:.3f}s, host occupancy {summ.get('host_occupancy')}"
+    )
+    print(f"{'phase':<12} {'total_s':>10} {'% wall':>8}")
+    totals = summ.get("phase_totals_s") or {}
+    for name, tot in sorted(totals.items(), key=lambda kv: -kv[1]):
+        frac = 100.0 * tot / wall if wall else 0.0
+        print(f"{name:<12} {tot:>10.4f} {frac:>7.1f}%")
+    print(
+        f"dispatch gap p50={summ.get('gap_p50_ms')}ms "
+        f"p95={summ.get('gap_p95_ms')}ms"
+    )
+    if args.json_out:
+        payload = json.dumps(data.get("chrome_trace") or {}, indent=2)
+        await asyncio.to_thread(_write_text, args.json_out, payload)
+        print(f"chrome trace written to {args.json_out}")
+    return 0
+
+
+async def run_trace(args) -> int:
+    """trace: assemble one request's span timeline from every component
+    on the hub.  Discovery reads the hub's ``instances/`` keyspace; each
+    component's ``_trace`` endpoint returns its process's spans for the
+    request id, and the merged set prints as one offset-ordered timeline
+    (and, with ``--json``, a Chrome trace)."""
+    from .runtime import tracing
+    from .runtime.component import INSTANCE_ROOT_PATH, DistributedRuntime, Instance
+
+    rt = await DistributedRuntime.detached(args.hub)
+    try:
+        prefix = f"{INSTANCE_ROOT_PATH}/{args.namespace}/"
+        components = set()
+        for key, value in await rt.hub.kv_get_prefix(prefix):
+            try:
+                components.add(Instance.from_json(value).component)
+            except Exception:
+                logger.warning("skipping malformed instance record at %s", key)
+        if not components:
+            print(f"no components registered under namespace {args.namespace}")
+            return 1
+        ns = rt.namespace(args.namespace)
+        # scraped together: one wedged component costs one timeout in all
+        comps = sorted(components)
+        results = await asyncio.gather(
+            *(
+                ns.component(comp).scrape_trace(args.request_id, timeout_s=args.timeout)
+                for comp in comps
+            ),
+            return_exceptions=True,
+        )
+        spans = []
+        for comp, res in zip(comps, results):
+            if isinstance(res, Exception):
+                logger.warning("trace scrape failed for %s: %s", comp, res)
+            else:
+                spans.extend(res)
+        # co-located components share one process collector: the same span
+        # comes back from every component scrape in that process
+        seen, deduped = set(), []
+        for sp in spans:
+            key = sp.get("span_id")
+            if key:
+                if key in seen:
+                    continue
+                seen.add(key)
+            deduped.append(sp)
+        spans = deduped
+        if not spans:
+            print(
+                f"no spans for request {args.request_id} "
+                f"(is DYN_TRACE=1 set on the serving processes?)"
+            )
+            return 1
+        spans.sort(key=lambda sp: sp.get("start_s", 0.0))
+        t0 = spans[0].get("start_s", 0.0)
+        trace_ids = {sp.get("trace_id") for sp in spans if sp.get("trace_id")}
+        print(
+            f"request {args.request_id}: {len(spans)} spans across "
+            f"{len({sp.get('component') or 'process' for sp in spans})} "
+            f"components (trace {', '.join(sorted(trace_ids)) or 'n/a'})"
+        )
+        print(f"{'offset_ms':>10}  {'dur_ms':>9}  {'component':<24} name")
+        for sp in spans:
+            off = (sp.get("start_s", 0.0) - t0) * 1e3
+            print(
+                f"{off:10.3f}  {sp.get('duration_ms', 0.0):9.3f}  "
+                f"{(sp.get('component') or '-'):<24} {sp.get('name', '')}"
+            )
+        if args.json_out:
+            payload = json.dumps(tracing.chrome_trace(spans), indent=2)
+            await asyncio.to_thread(_write_text, args.json_out, payload)
+            print(f"chrome trace written to {args.json_out}")
+        return 0
+    finally:
+        await rt.shutdown()
+
+
+def _write_text(path: str, payload: str) -> None:
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(payload)
+
+
 def main(argv=None) -> int:
     logging.basicConfig(
         level=getattr(logging, os.environ.get("DYN_LOG", "info").upper(), logging.INFO),
@@ -1001,6 +1205,10 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.cmd == "bench":
         return asyncio.run(run_bench(args))
+    if args.cmd == "profile":
+        return asyncio.run(run_profile(args))
+    if args.cmd == "trace":
+        return asyncio.run(run_trace(args))
     if args.cmd == "llmctl":
         return asyncio.run(run_llmctl(args))
     if args.cmd == "disagg-conf":

@@ -59,6 +59,10 @@ def packed_axis_len(s_max: int, off_last: int, total: int) -> int:
     return pow2_bucket(max(total, off_last + s_max, 1))
 
 
+# budget of the packed step's (Np, s_max) shapes, the JAX engine's default
+PACKED_SHAPE_BUDGET = 16
+
+
 class PackedShapeBudget:
     """Bound the packed unified step's ``(Np, s_max, s_spec)`` shape set.
 

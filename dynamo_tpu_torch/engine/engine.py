@@ -132,14 +132,28 @@ evicted blocks.  ``kv_remote`` (or ``DYN_KV_REMOTE``) arms the G4 tier's
 spec; ``attach_remote_kv`` attaches the store: host-ring stores mirror
 into it, and the tiered reads fall through to it.
 
-Not served yet (later slices): tensor/data parallelism, the
-tick profiler, and CUDA graphs for dispatches that carry prefill chunks or
-verify columns.
+The observability plane is the JAX engine's: with the process-wide tick
+profiler (``runtime/profiling.py``) enabled, each working iteration of the
+tick loop is one tick record whose phases (``onboard``, ``plan``,
+``assemble``, ``dispatch``, ``device_wait``, ``commit``, ``fanout``) sum to
+its wall, with its dispatches by kind and the host-observed dispatch gaps;
+the marks run on the loop and, inside an executor hop the loop awaits, on
+the executor thread, never both at once, and add no device
+synchronisation (``device_wait`` is the commit's existing wait on a
+dispatch's CUDA event).  ``DYN_MULTISTEP`` pins the multistep controller
+(0 off, N fixed K = N) and, adaptive, K jumps to its ceiling when the
+profiler reads a host-bound loop.  The first token hands the SLO plane its
+queue-versus-service split, ``engine.prefill_dispatch`` and ``engine.spec``
+spans record with tracing on, and ``status()`` is the flight recorder's
+``engine`` provider while the engine runs.
+
+Not served yet (later slices): tensor/data parallelism, and CUDA graphs
+for dispatches that carry prefill chunks or verify columns.
 
 The serving-environment overrides the JAX engine reads at construction
 are read here too, with its parse, for the features the port has:
 ``DYN_KV_DTYPE``, ``DYN_MIXED_TOKEN_BUDGET``, ``DYN_PACKED_RAGGED``,
-``DYN_PACKED_SHAPE_BUDGET``, ``DYN_ASYNC_DISPATCH``, ``DYN_SPEC_FOLD``,
+``DYN_PACKED_SHAPE_BUDGET``, ``DYN_ASYNC_DISPATCH``, ``DYN_MULTISTEP``, ``DYN_SPEC_FOLD``,
 ``DYN_SPEC_AUTO_DISABLE``, ``DYN_DRAFT_MODEL``, ``DYN_KV_OFFLOAD``,
 ``DYN_KV_REMOTE`` and ``DYN_KV_PREFETCH``.  A set variable wins over
 the config; a malformed one logs a warning and keeps the config.
@@ -168,7 +182,7 @@ from typing import (
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import DEVICE_TURN, resolve_device
 from .. import offload as kvoffload
 from ..ops.build import check_geometry
 from ..protocols.common import (
@@ -177,10 +191,12 @@ from ..protocols.common import (
     LLMEngineOutput,
     PreprocessedRequest,
 )
+from ..runtime import profiling, slo, tracing
 from ..runtime.engine import Annotated, Context, ResponseStream
 from ..runtime.metrics import EngineMetrics, SpecMetrics
 from ..spec.drafter import MAX_DRAFT_TOKENS, SpecState, longest_accepted, make_drafter, spec_live
 from .bucketing import (
+    PACKED_SHAPE_BUDGET,
     PackedShapeBudget,
     pick_bucket,
     pick_page_bucket,
@@ -246,8 +262,9 @@ DEVICE_STOP_WIDTH = 8
 # bound of the stream fanout queue (async mode): a slow consumer
 # backpressures the tick loop here
 FANOUT_DEPTH = 64
-# budget of the packed step's (Np, s_max) shapes, the JAX engine's default
-PACKED_SHAPE_BUDGET = 16
+# the dispatch kinds a tick record counts: the tick loop's own, as the JAX
+# engine notes them (prompt scoring, embeddings and exports are not ticks')
+TICK_KINDS = frozenset({"prefill", "chunk", "decode_block", "unified", "verify"})
 # layer groups of an onboard, swap-in or delivery scatter, and of a chunked
 # KV export whose caller pins none (the JAX engine's DEFAULT_EXPORT_CHUNKS)
 ONBOARD_CHUNKS = 8
@@ -315,15 +332,6 @@ class Result:
             self.event.synchronize()
         return self.host.numpy()
 
-
-# One executor call of one engine at a time in the process.  A CUDA graph
-# capture must overlap neither another thread's device-wide calls (the
-# device synchronize ``torch.cuda.graph`` begins with) nor its launches
-# (the capture's launch-count delta would take them in, and every count is
-# process-wide), so engines that share a process -- workers of one
-# cluster, as ``chip_smoke.py``'s serve-dyn runs them -- take turns at
-# dispatching, committing and capturing.  One engine never waits on it.
-DEVICE_TURN = threading.Lock()
 
 
 def _handles_ready(res: Result) -> bool:
@@ -667,6 +675,26 @@ class TorchEngine:
         )
         self._ms_max = max(int(c.multistep_max_k), 1)
         self._ms_ramp = 1
+        # DYN_MULTISTEP, the JAX engine's grammar: 0/off disables (single-
+        # step dispatches), 1/on/adaptive is the controller, an integer
+        # N > 1 fixes K = N (the ablation pin) and raises the ceiling to N.
+        # A malformed value warns and keeps the config
+        self._ms_fixed: Optional[int] = None
+        env_ms = os.environ.get("DYN_MULTISTEP")
+        if env_ms is not None and env_ms.strip():
+            v = env_ms.strip().lower()
+            if v in ("0", "off", "false", "no"):
+                self._multistep = False
+            elif v in ("1", "on", "true", "adaptive"):
+                self._multistep = self._mixed and self._packed
+            else:
+                try:
+                    k = int(v)
+                    self._multistep = k > 1 and self._mixed and self._packed
+                    self._ms_fixed = max(k, 1)
+                    self._ms_max = max(self._ms_max, k)
+                except ValueError:
+                    logger.warning("ignoring malformed DYN_MULTISTEP=%r", v)
         # whether the previous tick's dispatches sampled a first token
         self._firsts_last_tick = False
         # dispatch generations the loop may carry uncommitted
@@ -725,6 +753,13 @@ class TorchEngine:
         self._spans: Deque[Optional[Tuple[str, Any, Any]]] = collections.deque()
         self._last_end: Optional[Any] = None
         self.span_stats: Dict[str, Dict[str, float]] = {}
+        # the tick profiler: the process-wide instance, armed by
+        # DYN_TICK_PROFILE or profiler.enable(); ``_tick`` is the record
+        # of the iteration under way, None (one attribute check per
+        # site) when disabled
+        self.profiler = profiling.profiler
+        self._tick: Optional[Any] = None
+        self._hop_tick: Optional[Any] = None
 
     def _init_offload(self, registry) -> None:
         """The G2/G3 offload plane (``offload.KVOffloadEngine``), armed by
@@ -834,6 +869,9 @@ class TorchEngine:
         if self.offload_engine is not None:
             # a ready swap blob or a finished promote wakes a sleeping loop
             self.offload_engine.wake_cb = self._wake_from_thread
+        self._flightrec_key = profiling.flight_recorder.add_provider(
+            "engine", self.status
+        )
         if self._pipe_depth > 1:
             self._fanout_q = asyncio.Queue(maxsize=FANOUT_DEPTH)
             self._fanout_task = asyncio.create_task(
@@ -867,6 +905,9 @@ class TorchEngine:
                     self._deliver(item)
             self._fanout_task = None
             self._fanout_q = None
+        profiling.flight_recorder.remove_provider(
+            getattr(self, "_flightrec_key", "engine"), self.status
+        )
         if not self._stopped:
             self._stopped = True
             self._ex.submit(self._drain_spans, True).result()
@@ -979,7 +1020,8 @@ class TorchEngine:
 
     @property
     def graph_captures(self) -> int:
-        """CUDA graphs captured (the JAX compile sentry's count)."""
+        """CUDA graphs captured: each is one ``runtime/compile_sentry``
+        event of its kind, so for one engine this is the sentry's total."""
         return self.graphs.captures
 
     @property
@@ -1010,6 +1052,22 @@ class TorchEngine:
     def _inference(fn, *args):
         with DEVICE_TURN, torch.inference_mode():
             return fn(*args)
+
+    async def _tick_hop(self, fn, *args):
+        """An executor hop of the tick loop: its executor-side marks and
+        dispatch notes go to the tick under way (``_hop_tick``, set and read
+        on the executor thread only, so a hop of another coroutine -- an
+        export, an embedding -- never touches the tick)."""
+        return await asyncio.get_running_loop().run_in_executor(
+            self._ex, self._ticked, self._tick, fn, *args
+        )
+
+    def _ticked(self, tick, fn, *args):
+        self._hop_tick = tick
+        try:
+            return self._inference(fn, *args)
+        finally:
+            self._hop_tick = None
 
     def _entries_ready(self, entries: List[Inflight]) -> bool:
         """Non-blocking probe: have this generation's results landed, the
@@ -1050,10 +1108,14 @@ class TorchEngine:
             item = await self._fanout_q.get()
             if item is None:
                 return
+            t0 = time.perf_counter()
             try:
                 self._deliver(item)
             except Exception:  # fanout must never kill the worker
                 logger.exception("stream fanout failed")
+            if self.profiler.enabled:
+                # off-tick: the phase histogram only, as detok
+                self.profiler.observe_phase("fanout", time.perf_counter() - t0)
 
     async def _commit_ready(self, inflight: Deque[List[Inflight]], allowed: int) -> None:
         """Commit the oldest generations while the pipeline holds more than
@@ -1062,8 +1124,15 @@ class TorchEngine:
             len(inflight) > allowed
             or (self._pipe_depth > 1 and self._entries_ready(inflight[0]))
         ):
-            events = await self._on_executor(self._commit_all, inflight.popleft())
+            entries = inflight.popleft()
+            # pipeline_busy (async mode): another generation is still
+            # queued on the device behind this one
+            events = await self._tick_hop(
+                self._commit_all, entries, self._pipe_depth > 1 and bool(inflight)
+            )
             await self._emit_events(events)
+            if self._tick is not None:
+                self._tick.mark("fanout")
 
     async def _commit_prefill(self, entries: List[Inflight]) -> None:
         """Commit a classic prefill dispatch as soon as it has landed, so
@@ -1071,8 +1140,10 @@ class TorchEngine:
         dispatch.  The tick waits for it here, in both loops at the same
         point, so both plan on the same commits; the device meanwhile runs
         whatever was queued before it."""
-        events = await self._on_executor(self._commit_all, entries)
+        events = await self._tick_hop(self._commit_all, entries)
         await self._emit_events(events)
+        if self._tick is not None:
+            self._tick.mark("fanout")
 
     async def _run(self) -> None:
         """The tick loop, pipelined over the device queue (the JAX engine's
@@ -1087,8 +1158,12 @@ class TorchEngine:
         as row scatters ordered after the work already queued."""
         sched = self.sched
         inflight: Deque[List[Inflight]] = collections.deque()
+        prof = self.profiler
         while self._running:
             try:
+                # one tick record per working iteration while the profiler
+                # is enabled
+                self._tick = prof.begin_tick() if prof.enabled else None
                 self._process_cancellations()
                 self._fail_drafter_lanes()
                 for work in self._process_deliveries():
@@ -1096,23 +1171,28 @@ class TorchEngine:
                     # pages (a chunked delivery part by part), then commit
                     # the remotely sampled first token and wake the lane
                     if work[0] == "blob":
-                        ev = await self._on_executor(self._apply_external_kv, *work[1:])
+                        ev = await self._tick_hop(self._apply_external_kv, *work[1:])
                         await self._emit_events([ev])
                     elif work[0] == "chunks":
-                        await self._on_executor(self._apply_external_chunks, *work[1:])
+                        await self._tick_hop(self._apply_external_chunks, *work[1:])
                     else:  # "commit": the chunked barrier cleared
-                        ev = await self._on_executor(self._apply_external_commit, *work[1:])
+                        ev = await self._tick_hop(self._apply_external_commit, *work[1:])
                         await self._emit_events([ev])
                 for seq, rec in self._process_swaps():
                     # swap-in: scatter the parked KV back into the lane's
                     # pages and clear the barrier; no token is emitted
-                    await self._on_executor(self._apply_swap_in, seq, rec)
+                    await self._tick_hop(self._apply_swap_in, seq, rec)
+                if self._tick is not None:
+                    self._tick.mark("onboard")
                 if (
                     not sched.has_runnable_work
                     and not inflight
                     and not self._chunking
                     and not sched.mix_pending
                 ):
+                    if self._tick is not None:
+                        self._tick.discard()
+                        self._tick = None
                     if self.device.type == "cuda":
                         self._spans.append(None)  # idle: no gap across the wait
                     self._wake.clear()
@@ -1128,6 +1208,8 @@ class TorchEngine:
                         await self._wake.wait()
                     continue
                 self._drive_prefetch()
+                if self._tick is not None:
+                    self._tick.mark("onboard")
                 # async mode: generations whose results already landed
                 # commit before the plan (none is over the depth here), so
                 # freed slots and pages and committed stops reach this
@@ -1163,6 +1245,8 @@ class TorchEngine:
                 mixed_ok = self._mixed_tick_ok()
                 if not mixed_ok and sched.mix_pending:
                     self._drain_mixed_to_classic()
+                if self._tick is not None:
+                    self._tick.mark("plan")
                 # classic chunked prefills advance one chunk per lane, so
                 # decode blocks interleave instead of stalling behind one
                 # long prompt
@@ -1170,13 +1254,15 @@ class TorchEngine:
                 for seq in self._chunking:
                     if not self._holds_slot(seq) or not seq.prefilling:
                         continue  # cancelled / preempted mid-prefill
-                    pf = await self._on_executor(self._dispatch_chunk, seq)
+                    pf = await self._tick_hop(self._dispatch_chunk, seq)
                     if pf is not None:  # final chunk sampled
                         minted = True
                         await self._commit_prefill([pf])
                     else:
                         still.append(seq)
                 self._chunking = still
+                if self._tick is not None:
+                    self._tick.mark("dispatch")
                 # park every chunk-bound lane before any dispatch: the
                 # first device-state sync of an admission burst may be a
                 # full rebuild, and a lane not yet marked prefilling would
@@ -1209,7 +1295,7 @@ class TorchEngine:
                         and prompt_len - cached > self._chunk_tokens
                         and seq.mm_embeds is None
                     ):
-                        pf = await self._on_executor(self._do_prefill, seq)
+                        pf = await self._tick_hop(self._do_prefill, seq)
                         if pf is not None:
                             minted = True
                             await self._commit_prefill([pf])
@@ -1228,8 +1314,10 @@ class TorchEngine:
                 for items in groups.values():
                     minted = True
                     await self._commit_prefill(
-                        await self._on_executor(self._do_prefill_group, items)
+                        await self._tick_hop(self._do_prefill_group, items)
                     )
+                if self._tick is not None:
+                    self._tick.mark("dispatch")
                 # folded verify: on packed mixed ticks the speculating
                 # lanes' verify columns ride the unified dispatch; the
                 # reserve keeps its token budget honest about them
@@ -1242,6 +1330,8 @@ class TorchEngine:
                     if mixed_ok
                     else []
                 )
+                if self._tick is not None:
+                    self._tick.mark("assemble")
                 k = (
                     self._multistep_plan_k(chunks, minted, spec_reserve)
                     if self._multistep and mixed_ok
@@ -1250,7 +1340,7 @@ class TorchEngine:
                 pending = [e for gen in inflight for e in gen]
                 ub = None
                 if chunks or spec_reserve:
-                    ub = await self._on_executor(
+                    ub = await self._tick_hop(
                         self._dispatch_unified, chunks, 1, fold_active
                     )
                 elif (
@@ -1258,11 +1348,11 @@ class TorchEngine:
                     and sched.num_decode_runnable > 0
                     and self._has_steppable_lane(pending)
                 ):
-                    ub = await self._on_executor(self._dispatch_unified, [], k)
+                    ub = await self._tick_hop(self._dispatch_unified, [], k)
                 if ub is not None:
                     fresh.append(ub)
                 elif sched.num_decode_runnable > 0 and self._has_steppable_lane(pending):
-                    blk = await self._on_executor(self._dispatch_block)
+                    blk = await self._tick_hop(self._dispatch_block)
                     if blk is not None:
                         fresh.append(blk)
                 self._firsts_last_tick = minted or bool(ub is not None and ub.finals)
@@ -1280,12 +1370,17 @@ class TorchEngine:
                 if not fold_active and any(
                     s is not None and spec_live(s.spec) for s in sched.slots
                 ):
-                    vb = await self._on_executor(self._dispatch_verify)
+                    vb = await self._tick_hop(self._dispatch_verify)
                     if vb is not None:
                         if inflight:
                             inflight[-1].append(vb)
                         else:
                             inflight.append([vb])
+                    if self._tick is not None:
+                        self._tick.mark("dispatch")
+                if self._tick is not None:
+                    prof.finish_tick(self._tick)
+                    self._tick = None
                 if not dispatched and not inflight:
                     self._handle_stalled_admission()
                     await asyncio.sleep(0.001)
@@ -1294,6 +1389,7 @@ class TorchEngine:
                 raise
             except Exception as e:  # the engine must never die silently
                 logger.exception("engine tick failed")
+                self._tick = None
                 inflight.clear()
                 self._spec_failures.clear()
                 self._pending_injects.clear()
@@ -1342,6 +1438,12 @@ class TorchEngine:
         if pressure:
             self._ms_ramp = 1
             return 1
+        if self._ms_fixed is not None:
+            return self._ms_fixed
+        # a host-bound loop is the regime K amortizes: jump to the ceiling
+        occ = self.profiler.recent_host_occupancy()
+        if occ is not None and occ >= 0.5:
+            self._ms_ramp = self._ms_max
         k = min(self._ms_ramp, self._ms_max)
         self._ms_ramp = min(self._ms_ramp * 2, self._ms_max)
         return k
@@ -1829,6 +1931,10 @@ class TorchEngine:
     def _count(self, kind: str) -> None:
         self.dispatches[kind] = self.dispatches.get(kind, 0) + 1
         self.obs.observe_dispatch(kind)
+        tick = self._hop_tick
+        if tick is not None and kind in TICK_KINDS:
+            tick.note_dispatch(kind)
+            tick.mark("dispatch")
 
     def _note_prefix_stats(self, seq: SeqState) -> None:
         """Prefix-cache stats, token-weighted, once per request."""
@@ -1936,6 +2042,8 @@ class TorchEngine:
                 ]
             v = self._v
             put = self._put
+            if self._hop_tick is not None:
+                self._hop_tick.mark("assemble")
             packed, tokens, seq_lens, active = unified_step(
                 self.params, self.model_cfg, self.kv.pages, v["tokens"],
                 v["seq_lens"], v["limit_lens"], v["active"], v["stop_ids"],
@@ -1960,6 +2068,8 @@ class TorchEngine:
         self.obs.observe_multistep_k(num_steps)
         for pf in finals:
             self._score_prompt(pf)
+            if tracing.collector.enabled:
+                self._prefill_span(pf.seq, mixed=True)
         return InflightUnified(
             res, slots, [s.life if s is not None else -1 for s in slots], finals,
             num_steps,
@@ -2039,6 +2149,8 @@ class TorchEngine:
             "packed": ("packed", Np, s_max, Pb, top_n, use_filters),
             "step": ("step", Pb, top_n, use_filters, False),
         }
+        if self._hop_tick is not None:
+            self._hop_tick.mark("assemble")
         packed, *_, spec_packed = packed_unified_multistep(
             self.params, self.model_cfg, self.kv.pages, v["tokens"], v["seq_lens"],
             v["limit_lens"], v["active"], v["stop_ids"], v["page_table"][:, :Pb],
@@ -2116,6 +2228,8 @@ class TorchEngine:
         elif not use_penalties:
             self._counts_live = False
         top_n = self._lp_top(slots)
+        if self._hop_tick is not None:
+            self._hop_tick.mark("assemble")
         packed = self._run_block(K, Pb, top_n, use_filters, use_penalties)
         res = self._download(packed, self._span_kind("decode_block", marks), start)
         self._count("decode_block")
@@ -2293,6 +2407,8 @@ class TorchEngine:
             seq.spec.inflight = True
         start = self._span_start()
         put = self._put
+        if self._hop_tick is not None:
+            self._hop_tick.mark("assemble")
         packed = verify_and_sample(
             self.params, self.model_cfg, self.kv.pages, put(tokens), put(base),
             put(n_tok), put(sched.page_table[:, : self._live_page_bucket()]),
@@ -2428,6 +2544,8 @@ class TorchEngine:
                     rows[i, : mm_lens[i]] = s.mm_embeds
             mm = put(rows)
             mm_len = put(np.asarray(mm_lens + [0] * (Bp - len(seqs)), np.int64))
+        if self._hop_tick is not None:
+            self._hop_tick.mark("assemble")
         return prefill_mm_and_sample(
             self.params, self.model_cfg, self.kv.pages, put(tokens), put(lens),
             put(table), mm, mm_len, self._sampling_params(lanes), top_n, penalized,
@@ -2463,6 +2581,8 @@ class TorchEngine:
             lanes[i] = seq
         put = self._put
         self.prefill_dispatches["suffix"] += 1
+        if self._hop_tick is not None:
+            self._hop_tick.mark("assemble")
         return prefill_suffix_and_sample(
             self.params, self.model_cfg, self.kv.pages, put(tokens),
             put(offsets), put(suffix_lens), put(prefix_table),
@@ -2519,6 +2639,9 @@ class TorchEngine:
         self._count("prefill")
         for pf in entries:
             self._score_prompt(pf)
+        if tracing.collector.enabled:
+            for seq in seqs:
+                self._prefill_span(seq, group=len(seqs))
         return [InflightPrefillGroup(res, entries)]
 
     def _do_prefill(self, seq: SeqState) -> Optional[InflightPrefill]:
@@ -2542,7 +2665,19 @@ class TorchEngine:
         pf.sampled = self._download(packed, "prefill", t0)
         self._count("prefill")
         self._score_prompt(pf)
+        if tracing.collector.enabled:
+            self._prefill_span(seq)
         return pf
+
+    @staticmethod
+    def _prefill_span(seq: SeqState, **attrs: Any) -> None:
+        """The ``engine.prefill_dispatch`` span of a lane whose prompt
+        finished prefilling in this dispatch (tracing on)."""
+        with tracing.span("engine.prefill_dispatch", seq.request_id) as sp:
+            sp.set(
+                prompt_len=len(seq.prompt), cached=seq.cached_prompt_tokens,
+                kv_prefetch_hits=seq.prefetch_hits, **attrs,
+            )
 
     def _dispatch_chunk(self, seq: SeqState) -> Optional[InflightPrefill]:
         """Advance one page-aligned chunk of a classic chunked prefill.  An
@@ -2655,10 +2790,18 @@ class TorchEngine:
 
     # -- commits (executor thread) ------------------------------------------
 
-    def _commit_all(self, entries: List[Inflight]) -> List[StepEvent]:
+    def _commit_all(
+        self, entries: List[Inflight], pipeline_busy: bool = False
+    ) -> List[StepEvent]:
         """Read and commit one dispatch generation (or one classic prefill
         dispatch) in dispatch order: every result in one pass, then the
-        stop-rule replay."""
+        stop-rule replay.  ``pipeline_busy``: another generation is still
+        queued on the device behind this one, so the results landing here
+        leave the device no idle gap."""
+        tick = self._hop_tick
+        if tick is not None:
+            # close the loop->executor hop, so device_wait below is the wait
+            tick.mark("dispatch")
         self._settle_onboards()
         mats = [e.sampled.numpy() for e in entries]
         spec_mats = {
@@ -2673,6 +2816,13 @@ class TorchEngine:
             for pf in _prefills_of(e)
             if pf.prompt_lp is not None
         }
+        if tick is not None:
+            # the time the reads above waited on the dispatches' events
+            tick.mark("device_wait")
+            if pipeline_busy:
+                tick.note_zero_gap()
+            else:
+                self.profiler.note_results_ready()
         now = time.perf_counter()
         self._drain_spans()
         sched = self.sched
@@ -2727,6 +2877,11 @@ class TorchEngine:
                     toks, e.slots, lps, tids if N else None, tlps if N else None,
                     lives=e.lives,
                 )
+                if tick is not None and isinstance(e, InflightUnified):
+                    # the K - 1 step boundaries inside a fused dispatch
+                    # left the device no host-visible idle
+                    for _ in range(e.n_steps - 1):
+                        tick.note_zero_gap()
                 # a final chunk's first token commits in the block replay;
                 # its prompt logprobs ride that event (events fire only for
                 # lanes still resident, so the slot is the dispatch's)
@@ -2747,6 +2902,8 @@ class TorchEngine:
                 self.obs.observe_step(kind, now - e.dispatched_at)
         alloc = self.kv.allocator
         self.obs.observe_kv(alloc.used_pages, alloc.num_pages - 1)
+        if tick is not None:
+            tick.mark("commit")
         return events
 
     # -- disaggregation: KV import (decode side) -----------------------------
@@ -3759,6 +3916,19 @@ class TorchEngine:
             self._tokens_generated += len(ev.tokens)
             if ev.tokens:
                 self.obs.tokens.inc(len(ev.tokens))
+                if not ev.seq.slo_noted:
+                    # the first token: the SLO plane's queue-wait (arrival
+                    # -> admission) and service (admission -> first commit)
+                    # split of this request, what a TTFT miss is classed by
+                    ev.seq.slo_noted = True
+                    if slo.tracker.enabled:
+                        now_m = time.monotonic()
+                        adm = ev.seq.admitted_s or now_m
+                        slo.tracker.note_first_token(
+                            ev.seq.request_id,
+                            queue_s=adm - ev.seq.arrival_s,
+                            service_s=now_m - adm,
+                        )
             if queue is None:
                 continue
             if ev.tokens:
@@ -3792,6 +3962,14 @@ class TorchEngine:
                         "drafter": st.kind,
                         "auto_disabled": st.auto_disabled,
                     }
+                    if tracing.collector.enabled:
+                        with tracing.span("engine.spec", ev.seq.request_id) as sp:
+                            sp.set(
+                                spec_accept_rate=round(st.accept_rate, 6),
+                                spec_drafted=st.drafted,
+                                spec_accepted=st.accepted,
+                                spec_verify_steps=st.verify_steps,
+                            )
                 queue.put_nowait(Annotated.from_data(out.to_dict()))
                 queue.put_nowait(None)
 

@@ -43,6 +43,11 @@ calls no wrapper.  So each kernel's launch delta is recorded during
 capture (and taken back: capture launches nothing) and added at every
 replay; the counts keep meaning kernel launches that ran.
 
+Compile events.  Each capture is one event of ``runtime/compile_sentry``
+under its kind's entry (``packed``, ``step``), counted against the kind's
+budget in ``GRAPH_BUDGET`` -- the JAX engine's per-jit ``COMPILE_BUDGET``
+-- and, armed (``DYN_COMPILE_SENTRY=1``), an overrun raises at the capture.
+
 On the CPU there are no graphs: the same call runs eagerly.  On the card
 a capture or replay error raises; nothing falls back to eager.
 """
@@ -56,8 +61,28 @@ from typing import Callable, Dict, Hashable, List, Sequence, Tuple
 import torch
 
 from ..ops import build
+from ..runtime import compile_sentry
 from . import attention as att
+from .bucketing import PACKED_SHAPE_BUDGET
 from .step import StepFn
+
+# The budgets derive from the key space the engine mints graphs in
+# (``engine.py``'s keys).  A sampling variant is the pair (top_n, use_filters):
+# top_n is 0 or 8 (``_lp_top``), so 4 variants.  Pb, the live page-table
+# width, is a power of two from the floor of 8 pages up to max_pages: at
+# most 10 widths up to 4096 pages a lane.  A packed key's (Np, s_max) is a
+# pair ``PackedShapeBudget`` mints, at most PACKED_SHAPE_BUDGET of them live,
+# and only decode-only dispatches capture, whose s_max is 1 and whose Np is
+# a power-of-two bucket of the lane count: at most 9 pairs up to 256 lanes.
+# The decode step's key adds use_penalties instead of a pair.
+_SAMPLING_VARIANTS = 2 * 2
+_PAGE_TABLE_WIDTHS = 10
+_DECODE_PAIRS = min(PACKED_SHAPE_BUDGET, 9)
+GRAPH_BUDGET = {
+    "packed": _DECODE_PAIRS * _PAGE_TABLE_WIDTHS * _SAMPLING_VARIANTS,
+    "step": _PAGE_TABLE_WIDTHS * _SAMPLING_VARIANTS * 2,
+}
+compile_sentry.register_budgets(GRAPH_BUDGET)
 
 
 def launch_counts() -> List[int]:
@@ -107,7 +132,7 @@ class StepGraphs:
             return call(tuple(inputs))
         g = self._graphs.get(key)
         if g is None:
-            return self._capture(key, inputs, call)
+            return self._capture(kind, key, inputs, call)
         for dst, src in zip(g.inputs, inputs):
             dst.copy_(src, non_blocking=True)
         g.graph.replay()
@@ -116,7 +141,7 @@ class StepGraphs:
         return g.output
 
     def _capture(
-        self, key: Hashable, inputs: Sequence[torch.Tensor], call: StepFn
+        self, kind: str, key: Hashable, inputs: Sequence[torch.Tensor], call: StepFn
     ) -> torch.Tensor:
         t0 = time.perf_counter()
         if self._side is None:
@@ -142,6 +167,7 @@ class StepGraphs:
         self._graphs[key] = _Graph(graph, static, output, delta)
         self.captures += 1
         self.capture_ms += (time.perf_counter() - t0) * 1e3
+        compile_sentry.note_compilation(kind)
         return out
 
     def release(self, keep: Callable[[Hashable], bool]) -> None:

@@ -110,9 +110,12 @@ class SeqState:
     # host-staged at admission because the prefetch walk promoted them
     # during queue wait
     prefetch_hits: int = 0
-    # admission stamp (time.monotonic()): closes the request's queue wait;
-    # re-admissions after preemption re-stamp
+    # admission stamp (time.monotonic()): closes the request's queue wait
+    # (the SLO plane's queue/service split reads it); re-admissions after
+    # preemption re-stamp
     admitted_s: float = 0.0
+    # once-only latch of the first-token queue/service note to the SLO plane
+    slo_noted: bool = False
     # slot lives: bumped whenever the lane leaves its slot (finish, cancel,
     # preemption), so a dispatch made in an earlier life never commits into
     # a later one, even when a preempted request is re-admitted into the

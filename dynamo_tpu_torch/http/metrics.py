@@ -16,6 +16,7 @@ import logging
 import time
 from typing import Optional
 
+from ..runtime import slo
 from ..runtime.metrics import MetricsRegistry
 
 _DURATION_BUCKETS = (
@@ -99,6 +100,11 @@ class InflightGuard:
     longer leak the inflight gauge.  ``finish`` is idempotent: belt-and-
     suspenders call sites cannot double-decrement.
 
+    With the SLO plane armed (``DYN_SLO``), the same stamps feed the
+    attainment tracker: TTFT at the first token, ITL per subsequent
+    token, E2E at finish -- one recording site instead of parallel
+    plumbing (``request_id`` links a TTFT miss to the engine's
+    queue-vs-service decomposition).
     """
 
     def __init__(
@@ -135,8 +141,12 @@ class InflightGuard:
         now = time.monotonic()
         if self._last_token is None:
             self.m.ttft.labels(self.model).observe(now - self.start)
+            if slo.tracker.enabled:
+                slo.tracker.record_ttft(self.request_id, now - self.start)
         else:
             self.m.itl.labels(self.model).observe(now - self._last_token)
+            if slo.tracker.enabled:
+                slo.tracker.record_itl(now - self._last_token)
         self._last_token = now
 
     def mark_ok(self) -> None:
@@ -155,6 +165,10 @@ class InflightGuard:
         self.m.requests_total.labels(
             self.model, self.endpoint, self._status or "error"
         ).inc()
+        if slo.tracker.enabled and self._status == "success":
+            # errored/deadline requests record their violation at the
+            # classifying site (cause=deadline/shed), not as a plain miss
+            slo.tracker.record_e2e(self.request_id, elapsed)
         if self.on_finish is not None:
             try:
                 self.on_finish()

@@ -9,12 +9,14 @@ An entry's engine is an AsyncEngine taking Context[ChatCompletionRequest]
 (or CompletionRequest) and yielding Annotated[openai-chunk-dict] -- here
 ``link(OpenAIPreprocessor, Backend, TorchEngine)``.
 
-The JAX package's service trimmed to what the PyTorch engine serves: chat,
-completions, embeddings, models, health, live and metrics, with the
-admission bound, per-request deadlines, request templates, SSE and
-aggregated bodies.  The trace, profile and flight-recorder routes are not
-served; the fleet routes answer 503, as the JAX service's do without an
-observatory.
+The JAX package's service for the PyTorch engine: chat, completions,
+embeddings, models, health, live and metrics, with the admission bound,
+per-request deadlines, request templates, SSE and aggregated bodies; the
+request trace (``/trace/{id}``), the tick profiler (``/profile/ticks``),
+the device trace (``/profile/device``) and the flight recorder
+(``/debug/flightrec``).  A deadline's 504 body and SSE error frame carry
+the flight-recorder snapshot taken at the expiry.  The fleet routes
+answer 503, as the JAX service's do without an observatory.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from ..protocols.openai import (
     sse_error,
 )
 from ..runtime import metrics as rtmetrics
+from ..runtime import profiling, slo, tracing
 from ..runtime.engine import (
     DEADLINE_EXCEEDED_MSG,
     Annotated,
@@ -161,7 +164,8 @@ class ModelManager:
 
 class HttpService:
     """The OpenAI frontend: /v1/chat/completions, /v1/completions,
-    /v1/embeddings, /v1/models, /health, /live, /metrics."""
+    /v1/embeddings, /v1/models, /health, /live, /metrics, and the
+    observability routes."""
 
     def __init__(
         self,
@@ -189,6 +193,15 @@ class HttpService:
         self.server.route("GET", "/health", self._health)
         self.server.route("GET", "/live", self._health)
         self.server.route("GET", "/metrics", self._metrics)
+        self.server.route_prefix("GET", "/trace/", self._trace)
+        # the performance-observability plane (runtime/profiling.py): the
+        # tick ring and its live switch, a bounded device trace, and the
+        # flight recorder's snapshots
+        self.server.route("GET", "/profile/ticks", self._profile_ticks)
+        self.server.route("POST", "/profile/ticks", self._profile_ticks_post)
+        self.server.route("POST", "/profile/device", self._profile_device)
+        self.server.route("GET", "/debug/flightrec", self._flightrec_list)
+        self.server.route_prefix("GET", "/debug/flightrec/", self._flightrec_get)
         # the fleet observatory's surface: the port has no observatory, so
         # both routes answer as the JAX service does without one
         self.server.route("GET", "/fleet", self._fleet)
@@ -228,14 +241,107 @@ class HttpService:
 
     async def _metrics(self, req: Request) -> Response:
         # one scrape surface: the service's private HTTP-layer families plus
-        # the process-wide runtime registry (disjoint family names)
+        # the process-wide runtime registry (disjoint family names); stale
+        # SLO windows age out of the attainment gauges first
+        slo.tracker.refresh_gauges()
         body, content_type = self.metrics.render()
         runtime_body, _ = rtmetrics.render_default()
         return Response(200, {"Content-Type": content_type}, body + runtime_body)
 
+    async def _trace(self, req: Request) -> Response:
+        """GET /trace/{request_id}: this process's spans for one request,
+        plus the Chrome-trace export (the cross-process timeline is the
+        ``trace`` CLI's job)."""
+        rid = req.path[len("/trace/"):].strip("/")
+        if not rid:
+            return Response.json(
+                {"error": {"message": "usage: /trace/{request_id}"}}, 400
+            )
+        spans = [s.to_dict() for s in tracing.collector.get(rid)]
+        if not spans:
+            return Response.json(
+                {"error": {"message": f"no spans for request {rid!r}"}}, 404
+            )
+        return Response.json(
+            {
+                "request_id": rid,
+                "spans": spans,
+                "chrome_trace": tracing.chrome_trace(spans),
+            }
+        )
+
+    async def _profile_ticks(self, req: Request) -> Response:
+        """GET /profile/ticks: the tick profiler's ring, its summary and a
+        Chrome-trace export merged with this process's request spans."""
+        prof = profiling.profiler
+        spans = tracing.collector.dump() if tracing.collector.enabled else []
+        return Response.json(
+            {
+                "enabled": prof.enabled,
+                "summary": prof.summary(),
+                "ticks": [r.to_dict() for r in prof.records()],
+                "chrome_trace": prof.chrome_trace(spans),
+            }
+        )
+
+    async def _profile_ticks_post(self, req: Request) -> Response:
+        """POST /profile/ticks {"enabled": true|false, "clear": bool}:
+        arm or disarm tick profiling on a live server."""
+        body = req.json() or {}
+        if not isinstance(body, dict):
+            return Response.json(
+                {"error": {"message": "body must be a JSON object"}}, 400
+            )
+        prof = profiling.profiler
+        if body.get("clear"):
+            prof.clear()
+        if "enabled" in body:
+            if body["enabled"]:
+                prof.enable()
+            else:
+                prof.disable()
+        return Response.json({"enabled": prof.enabled})
+
+    async def _profile_device(self, req: Request) -> Response:
+        """POST /profile/device {"duration_s": 1.0, "log_dir": "..."}: a
+        bounded ``torch.profiler`` capture; ``ok=false`` and the reason,
+        with 503, when it cannot be taken."""
+        body = req.json() or {}
+        if not isinstance(body, dict):
+            return Response.json(
+                {"error": {"message": "body must be a JSON object"}}, 400
+            )
+        try:
+            duration = float(body.get("duration_s", 1.0))
+        except (TypeError, ValueError):
+            return Response.json(
+                {"error": {"message": "duration_s must be a number"}}, 400
+            )
+        result = await profiling.capture_device_trace(
+            duration, body.get("log_dir")
+        )
+        return Response.json(result, 200 if result.get("ok") else 503)
+
+    async def _flightrec_list(self, req: Request) -> Response:
+        return Response.json(
+            {"snapshots": profiling.flight_recorder.list()}
+        )
+
+    async def _flightrec_get(self, req: Request) -> Response:
+        snap_id = req.path[len("/debug/flightrec/"):].strip("/")
+        snap = profiling.flight_recorder.get(snap_id)
+        if snap is None:
+            return Response.json(
+                {"error": {"message": f"no flight-recorder snapshot {snap_id!r}"}},
+                404,
+            )
+        return Response.json(snap)
+
     def _shed(self, endpoint: str) -> Response:
         """Admission-control rejection: 503 + Retry-After, counted."""
         self.metrics.sheds.labels(endpoint).inc()
+        if slo.tracker.enabled:
+            slo.tracker.record_shed()
         resp = Response.json(
             {
                 "error": {
@@ -250,12 +356,28 @@ class HttpService:
         )
         return resp
 
+    def _deadline_expired(self, request: Context, rsp=None) -> str:
+        """One deadline-expiry bookkeeping site for every 504 path: SLO
+        violation with cause=deadline, a flight-recorder snapshot, and the
+        snapshot id stamped onto the request span.  Returns the id the
+        error frame/body carries."""
+        # the violation first: the dump must carry its own trigger
+        if slo.tracker.enabled:
+            slo.tracker.record_deadline(request.id)
+        fid = profiling.flight_recorder.snapshot(
+            "deadline_expired", request_id=request.id
+        )
+        if rsp is not None:
+            rsp.set(deadline_expired=True, flightrec_id=fid)
+        return fid
+
     @staticmethod
-    def _deadline_body() -> dict:
+    def _deadline_body(fid: str) -> dict:
         return {
             "error": {
                 "message": DEADLINE_EXCEEDED_MSG,
                 "type": "timeout_error",
+                "flightrec": fid,
             }
         }
 
@@ -312,7 +434,10 @@ class HttpService:
         guard = self.metrics.guard(parsed.model, endpoint, request.id)
         guard.on_finish = self.admission.release
         try:
-            with guard:
+            with guard, tracing.span(
+                "http.request", request.id, component="http",
+                bind=True, endpoint=endpoint, model=parsed.model,
+            ):
                 stream = await as_response_stream(engine, request)
                 vectors, prompt_tokens = None, 0
                 async for item in stream:
@@ -389,16 +514,27 @@ class HttpService:
                 watchdog.cancel()
 
         guard.on_finish = on_finish
+        # the root span of the request's trace, bound to the request id so
+        # the engine's spans link under it; it closes when the response
+        # body completes, covering the whole stream
+        rsp = tracing.span(
+            "http.request", request.id, component="http", bind=True,
+            endpoint=endpoint, model=parsed.model,
+        )
+        rsp.__enter__()
         try:
             stream = await as_response_stream(engine, request)
-        except DeadlineExceededError:
+        except DeadlineExceededError as e:
             guard.mark_error()
             guard.finish()
-            return Response.json(self._deadline_body(), 504)
+            fid = self._deadline_expired(request, rsp)
+            rsp.__exit__(type(e), e, e.__traceback__)
+            return Response.json(self._deadline_body(fid), 504)
         except Exception as e:
             logger.exception("engine dispatch failed")
             guard.mark_error()
             guard.finish()
+            rsp.__exit__(type(e), e, e.__traceback__)
             return Response.json(
                 {"error": {"message": f"engine error: {e}", "type": "server_error"}},
                 503,
@@ -406,7 +542,7 @@ class HttpService:
 
         if parsed.stream:
             started = [False]
-            resp = Response.sse(self._sse_body(stream, request, guard, started))
+            resp = Response.sse(self._sse_body(stream, request, guard, rsp, started))
 
             def on_close() -> None:
                 # the server calls this once the connection is done with the
@@ -418,15 +554,17 @@ class HttpService:
                     request.ctx.kill()
                     guard.mark_error()
                     guard.finish()
+                    rsp.set(abandoned=True)
+                    rsp.__exit__(None, None, None)
 
             resp.on_close = on_close
         else:
-            resp = await self._aggregate_body(stream, request, guard, chat)
+            resp = await self._aggregate_body(stream, request, guard, chat, rsp)
         resp.headers.setdefault("X-Request-Id", request.id)
         return resp
 
     async def _sse_body(
-        self, stream, request: Context, guard, started=None
+        self, stream, request: Context, guard, rsp=None, started=None
     ) -> AsyncIterator[bytes]:
         if started is not None:
             started[0] = True
@@ -437,6 +575,8 @@ class HttpService:
                         item = Annotated.from_data(item)
                     if item.is_error():
                         guard.mark_error()
+                        if rsp is not None:
+                            rsp.set(error=True)
                         yield sse_error(item.error_message() or "engine error")
                         return
                     if item.data is not None:
@@ -451,7 +591,8 @@ class HttpService:
                     # the watchdog killed the request: the stream ended
                     # because the budget ran out, not because it finished
                     guard.mark_error()
-                    yield sse_error(DEADLINE_EXCEEDED_MSG)
+                    fid = self._deadline_expired(request, rsp)
+                    yield sse_error(f"{DEADLINE_EXCEEDED_MSG} [flightrec:{fid}]")
                     return
                 guard.mark_ok()
                 yield SSE_DONE
@@ -460,20 +601,28 @@ class HttpService:
             # failed and the generator was aclosed): kill the engine-side
             # request instead of decoding for a dead connection
             request.ctx.kill()
+            if rsp is not None:
+                rsp.set(abandoned=True)
             raise
         except Exception as e:
             # the guard's __exit__ already finished it with status=error
             logger.exception("stream failed")
+            if rsp is not None:
+                rsp.set(error=True)
             yield sse_error(str(e))
+        finally:
+            if rsp is not None:
+                rsp.__exit__(None, None, None)
 
     async def _aggregate_body(
-        self, stream, request: Context, guard, chat: bool
+        self, stream, request: Context, guard, chat: bool, rsp=None
     ) -> Response:
         chunks = []
 
         def timeout_response() -> Response:
             guard.mark_error()
-            return Response.json(self._deadline_body(), 504)
+            fid = self._deadline_expired(request, rsp)
+            return Response.json(self._deadline_body(fid), 504)
 
         try:
             with guard:
@@ -485,6 +634,8 @@ class HttpService:
                         if msg.startswith(DEADLINE_EXCEEDED_MSG):
                             return timeout_response()
                         guard.mark_error()
+                        if rsp is not None:
+                            rsp.set(error=True)
                         return Response.json(
                             {
                                 "error": {
@@ -512,6 +663,11 @@ class HttpService:
         except Exception as e:
             # the guard's __exit__ already finished it with status=error
             logger.exception("aggregation failed")
+            if rsp is not None:
+                rsp.set(error=True)
             return Response.json(
                 {"error": {"message": str(e), "type": "server_error"}}, 500
             )
+        finally:
+            if rsp is not None:
+                rsp.__exit__(None, None, None)

@@ -10,9 +10,11 @@ with STOP, jailed text dropped) or diverges (jail flushes downstream).
 
 from __future__ import annotations
 
+import time
 from typing import Any, AsyncIterator, Dict, List
 
 from ..protocols.common import FinishReason, PreprocessedRequest
+from ..runtime import profiling
 from ..runtime.engine import Annotated, AsyncEngine, Context, as_response_stream
 from ..runtime.pipeline import Operator
 from .tokenizer import Tokenizer
@@ -88,6 +90,11 @@ class Backend(Operator):
                     continue
                 data: Dict[str, Any] = dict(item.data)
                 token_ids = data.get("token_ids") or []
+                # tick-phase profiling: detok runs on frontend tasks, not
+                # the engine loop, so it feeds the phase histogram
+                # directly (one attribute check when disabled)
+                prof = profiling.profiler
+                t_detok = time.perf_counter() if prof.enabled else None
                 pieces = [decoder.step(t) for t in token_ids]
                 # push per piece so a stop string completing mid-chunk cuts
                 # the chunk at the completing token: tokens decoded after the
@@ -103,6 +110,11 @@ class Backend(Operator):
                             break
                 else:
                     text = "".join(p for p in pieces if p)
+                if t_detok is not None:
+                    # keyed on the start stamp, not a re-read of enabled: a
+                    # live enable between the two would otherwise record
+                    # perf_counter's absolute value as a duration
+                    prof.observe_phase("detok", time.perf_counter() - t_detok)
                 if hit:
                     # stop string completed: emit the releasable prefix, end
                     # the request, and tell the engine to stop decoding

@@ -13,11 +13,11 @@ copied for ``TorchEngine`` workers and wire-compatible with the JAX
 package's both ways: the same queue items, hub keys, raw endpoint, frame
 layout and blob bytes.  A delivery names its dtype as JAX does
 (``bfloat16``, ``float32``, ``int8``); a bf16 blob's bytes are its values'
-two bytes, held here as ``uint16`` (``kv_cache.wire_dtype``).  Left out:
-the ``CircuitBreaker``'s flight-recorder snapshot when it opens (the port
-has no ``runtime/profiling.py``) and ``PrefillWorker._record_delivery``'s
-``telemetry.note_transfer`` (no ``runtime/telemetry.py``); the
-``dynamo_disagg_*`` series and ``transfer_stats`` carry the same numbers.
+two bytes, held here as ``uint16`` (``kv_cache.wire_dtype``).  The
+``CircuitBreaker`` takes a flight-recorder snapshot when it opens.  Left
+out: ``PrefillWorker._record_delivery``'s ``telemetry.note_transfer`` (no
+``runtime/telemetry.py``); the ``dynamo_disagg_*`` series and
+``transfer_stats`` carry the same numbers.
 
 Transfer plane: the reference's NIXL one-sided RDMA write
 (block_manager/storage/nixl.rs:173, block/transfer.rs) becomes a
@@ -226,10 +226,20 @@ class CircuitBreaker:
         logger.warning(
             "remote-prefill circuit breaker: %s -> %s", self.state, state
         )
+        prev = self.state
         self.state = state
         if self.obs is not None:
             self.obs.breaker_state.set(self._STATE_CODE[state])
             self.obs.breaker_events.labels(state).inc()
+        if state == self.OPEN:
+            # breaker-open is a fleet-health edge: snapshot the flight
+            # recorder so the postmortem has the tick ring and queue state
+            # from the moment the remote path went dark
+            from ..runtime import profiling
+
+            profiling.flight_recorder.snapshot(
+                "breaker_open", previous_state=prev
+            )
 
     def allow(self) -> bool:
         """May a request take the remote path right now?"""

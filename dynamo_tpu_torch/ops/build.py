@@ -26,6 +26,8 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from ..runtime import compile_sentry
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 # dtype codes of the C entries (csrc/common.cuh DTYPE_*)
@@ -111,6 +113,8 @@ class CudaKernel:
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
+        # each build is a compile event of its own entry, with no budget
+        compile_sentry.note_compilation(compile_sentry.KERNEL_BUILD)
         return proc, tmp
 
     def finish_build(self, proc: subprocess.Popen, tmp: Path) -> None:

@@ -6,8 +6,8 @@ registration under ``instances/{ns}/{comp}/{ep}:{lease_hex}``), endpoint.rs
 lease), client.rs (prefix watch -> live instance list).  The keyspace and subject
 naming are the reference's, so operational tooling translates 1:1, but
 both planes ride the first-party hub / data plane instead of etcd + NATS.
-The JAX package's component model, less the flight-recorder snapshot its
-failover takes when a worker is lost (the port has no flight recorder).
+The JAX package's component model; its failover takes a flight-recorder
+snapshot when a worker is lost.
 
 Serving an endpoint:
 
@@ -816,6 +816,22 @@ class PushRouter:
             ["stage"],
         ).labels(stage).inc()
 
+    @staticmethod
+    def _flightrec_worker_lost(
+        stage: str, instance_id: int, request_id: str
+    ) -> None:
+        """Worker-loss failover edge: snapshot the flight recorder so the
+        postmortem has the tick ring and queue state from the moment of
+        loss."""
+        from . import profiling
+
+        profiling.flight_recorder.snapshot(
+            "worker_lost",
+            stage=stage,
+            instance_id=f"{instance_id:x}",
+            request_id=request_id,
+        )
+
     async def _failover_gen(
         self, request: Context[Any]
     ) -> AsyncIterator[Annotated]:
@@ -850,6 +866,9 @@ class PushRouter:
                 excluded.add(inst.instance_id)
                 last_exc = e
                 self._count_redispatch("dispatch")
+                self._flightrec_worker_lost(
+                    "dispatch", inst.instance_id, request.id
+                )
                 logger.warning(
                     "dispatch to %x failed (%s); redispatching",
                     inst.instance_id, e,
@@ -868,6 +887,9 @@ class PushRouter:
                 if delivered:
                     # output already reached the caller: a redispatch could
                     # duplicate it -- fail fast with an error frame instead
+                    self._flightrec_worker_lost(
+                        "mid_stream", inst.instance_id, request.id
+                    )
                     yield Annotated.from_error(
                         f"worker {inst.instance_id:x} lost mid-stream: {e}"
                     )
@@ -875,6 +897,9 @@ class PushRouter:
                 excluded.add(inst.instance_id)
                 last_exc = e
                 self._count_redispatch("before_first_token")
+                self._flightrec_worker_lost(
+                    "before_first_token", inst.instance_id, request.id
+                )
                 logger.warning(
                     "worker %x lost before first token (%s); redispatching",
                     inst.instance_id, e,

@@ -20,9 +20,8 @@ every frame; this module adds the span layer on top of it:
 Enable with ``DYN_TRACE=1`` (or ``collector.enable()``); a disabled span
 costs one attribute check and adds **nothing** to wire frames.  Spans log
 at DEBUG as they close; ``get(request_id)`` / ``dump()`` / ``export()``
-feed tests and the per-component ``_trace`` scrape endpoint (the JAX
-package's ``GET /trace/{request_id}`` route and ``trace`` CLI read them
-there; the port serves neither yet).
+feed tests, the ``GET /trace/{request_id}`` route, the per-component
+``_trace`` scrape endpoint, and the ``trace`` CLI.
 """
 
 from __future__ import annotations

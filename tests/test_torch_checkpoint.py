@@ -507,7 +507,15 @@ def test_cli_serves_offload_on_a_worker(checkpoint, monkeypatch, tmp_path, case)
             await rt.shutdown()
             await hub.stop()
 
-    args, kv_remote, spec, oe, instances = asyncio.run(body())
+    from dynamo_tpu_torch.runtime import metrics as rtm
+
+    identity = rtm.worker_identity()
+    try:
+        args, kv_remote, spec, oe, instances = asyncio.run(body())
+    finally:
+        # the worker stamped its identity on the process registry: later
+        # tests in this process read its series without those labels
+        rtm.default_registry().set_default_labels(**identity)
     assert kv_remote == args.kv_remote
     assert spec == (parse_kv_remote_spec(args.kv_remote) if args.kv_remote else None)
     if case == "kv-remote":  # no plane: a spec, no tier, no kv_export

@@ -793,6 +793,68 @@ def test_decode_block_graph_replay_equals_eager(card, use_penalties):
     assert first.shape == (GB, 4, 2) and eng.graph_captures == 1
 
 
+def test_graph_captures_are_compile_sentry_events(card):
+    """Each capture is one compile-sentry event under its graph's kind: a
+    packed dispatch of K = 8 captures the packed step and the decode step,
+    a filtered decode block another decode step; armed, nothing raises,
+    and the sentry's graph events equal the engine's ``graph_captures``."""
+    from dynamo_tpu_torch.runtime import compile_sentry
+
+    eng = _graph_engine(card, torch.bfloat16)
+    compile_sentry.reset()
+    prev = compile_sentry.arm(True)
+    try:
+        _packed_dispatch(eng, 8)()
+        eng._run_block(4, 8, 0, True, False)
+        torch.cuda.synchronize()
+        counts = compile_sentry.counts()
+        counts.pop(compile_sentry.KERNEL_BUILD, None)  # a first launch builds
+        assert counts == {"packed": 1, "step": 2}
+        assert sum(counts.values()) == eng.graph_captures == 3
+    finally:
+        compile_sentry.arm(prev)
+        compile_sentry.reset()
+
+
+def test_device_trace_holds_the_replayed_kernels(card, tmp_path):
+    """A ``torch.profiler`` capture taken on this thread (the one Kineto
+    registered on) while another thread replays packed dispatches (K = 2:
+    the packed step's graph, then a decode step's) records the kernels by
+    name -- packed ragged and paged decode -- and answers ``ok``."""
+    import asyncio
+    import json
+    import threading
+
+    from dynamo_tpu_torch.runtime import profiling
+
+    eng = _graph_engine(card, torch.bfloat16)
+    dispatch = _packed_dispatch(eng, 2)
+    dispatch()  # captures: the window holds replays
+    torch.cuda.synchronize()
+    stop = threading.Event()
+
+    def replay():
+        while not stop.is_set():
+            dispatch()
+            torch.cuda.synchronize()
+
+    t = threading.Thread(target=replay)
+    t.start()
+    try:
+        result = asyncio.run(profiling.capture_device_trace(1.0, str(tmp_path)))
+    finally:
+        stop.set()
+        t.join()
+    assert result["ok"], result
+    with open(tmp_path / profiling.DEVICE_TRACE_FILE) as fh:
+        events = json.load(fh)["traceEvents"]
+    names = {e["name"] for e in events if e.get("cat") == "kernel"}
+    assert profiling.count_kernels(str(tmp_path / profiling.DEVICE_TRACE_FILE)) == len(
+        [e for e in events if e.get("cat") == "kernel"])
+    assert any("ragged" in n for n in names), names
+    assert any("paged_decode" in n for n in names), names
+
+
 def test_evicted_packed_key_recaptures_the_same_bits(card):
     """A shape the budget evicts releases its graph; the next dispatch of
     that shape captures it again and gives the same bits."""

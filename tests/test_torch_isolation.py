@@ -97,8 +97,9 @@ def test_port_imports_nothing_refused():
     # with the distributed runtime (runtime/transports/, component, config,
     # faults, thread_sentry, tracing, utils, protocols/endpoint,
     # llm/model_card, llm/discovery, llm/kv_router/), 70 with llm/disagg,
-    # 71 with llm/prefix_onboard
-    assert int(out.stdout.strip().splitlines()[-1]) >= 71
+    # 71 with llm/prefix_onboard, 75 with the observability plane
+    # (runtime/profiling, slo, compile_sentry, recorder)
+    assert int(out.stdout.strip().splitlines()[-1]) >= 75
 
 
 # the speculative decoding package, the model drafter and weight-only int8:
@@ -158,6 +159,27 @@ RUNTIME = (
 def test_runtime_imports_nothing_refused():
     out = subprocess.run(
         [sys.executable, "-c", ONLY, ",".join(REFUSED), ",".join(RUNTIME)],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+# the observability plane: copies and rewrites of JAX modules (the JAX
+# profiler's device trace imports jax.profiler, its compile sentry
+# jax.monitoring), and the modules that wire them in
+OBSERVABILITY = (
+    "dynamo_tpu_torch.runtime.profiling", "dynamo_tpu_torch.runtime.slo",
+    "dynamo_tpu_torch.runtime.compile_sentry", "dynamo_tpu_torch.runtime.recorder",
+    "dynamo_tpu_torch.http.service", "dynamo_tpu_torch.http.metrics",
+    "dynamo_tpu_torch.llm.backend", "dynamo_tpu_torch.engine.graphs",
+    "dynamo_tpu_torch.engine.engine", "dynamo_tpu_torch.ops.build",
+)
+
+
+def test_observability_imports_nothing_refused():
+    out = subprocess.run(
+        [sys.executable, "-c", ONLY, ",".join(REFUSED), ",".join(OBSERVABILITY)],
         cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
