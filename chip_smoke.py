@@ -355,6 +355,7 @@ result.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import gc
 import json
 import os
@@ -3754,10 +3755,292 @@ def kvbm_int8(params, card: str) -> None:
     torch.cuda.empty_cache()
 
 
-def serve_kvbm_phase(ref: Dict[str, object], card: str) -> None:
+# ---------------------------------------------------------------------------
+# phase 10b: serve-chaos, the engine's chaos sites at full width
+# ---------------------------------------------------------------------------
+
+
+def free_pages_back(what: str, engine) -> None:
+    """Every page of a stopped engine's pool is free again (the free list
+    and the evictable prefix cache), as before its first request."""
+    pool = engine.sched.pool
+    if pool.free_pages != pool.num_pages - 1:
+        fail(f"{what}: {pool.num_pages - 1 - pool.free_pages} pages still held")
+
+
+def fallback_series(engine) -> Dict[str, float]:
+    """The chaos fallbacks' ``dynamo_kv_*`` samples of an engine."""
+    return {k: v for k, v in kv_series(engine).items()
+            if k.startswith(("dynamo_kv_offload_copy_failures", "dynamo_kv_swap_fallbacks",
+                             "dynamo_kv_onboard_fallbacks"))}
+
+
+def add_launches(total: Dict[str, int], counted: Dict[str, int]) -> None:
+    for k, n in counted.items():
+        total[k] = total.get(k, 0) + n
+
+
+def chaos_tiers(params, card: str, launches: Dict[str, int]) -> None:
+    """(a) Llama-3-8B, bf16, ``EngineConfig(num_pages=320,
+    host_offload_blocks=640)`` (a ring that holds every block the rounds
+    evict): round 1 (4 requests on 4 1024-token
+    prefixes, 16 new tokens), round 2 (4 other prefixes: their admissions
+    evict round 1's blocks into the host ring), round 3 (round 1 again:
+    its prefixes onboard from G2).  Unarmed, then with every eviction's
+    copy failing (``offload.copy_fail=1:match=evict/``: nothing lands in
+    G2, round 3's G2 hits fall to 0, ``copy_fails`` == the firings), then
+    with ``onboard.truncate=1`` armed for round 3 (every admission with
+    tier hits recomputes its prefix in place: the firings == those
+    admissions == ``onboard_fallbacks{truncate}``).  Every request
+    finishes, the launch invariants hold, and every page is free after."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.runtime import faults
+    from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
+
+    cfg = ModelConfig.llama3_8b()
+    V = cfg.vocab_size
+    rng = np.random.default_rng(21)
+    rounds = [[request(np.concatenate([rng.integers(1, V, 1024), rng.integers(1, V, 16)]), 16)
+               for _ in range(4)] for _ in range(2)]
+    rounds.append(rounds[0])
+    legs = {
+        "unarmed": (None, None),
+        "evict copy-fail": ("seed=1;offload.copy_fail=1:match=evict/", 0),
+        "prefix truncate": ("seed=1;onboard.truncate=1", 2),
+    }
+    inj = faults.injector
+    base = None
+    for leg, (spec, arm_at) in legs.items():
+        engine = TorchEngine(cfg, params, EngineConfig(num_pages=320, host_offload_blocks=640),
+                             metrics_registry=MetricsRegistry())
+        oe = engine.offload_engine
+        onboards = []
+        apply_onboards = engine._apply_onboards
+
+        def counting_apply(seq, apply_onboards=apply_onboards, onboards=onboards):
+            onboards.append(len(seq.pending_onboard))
+            apply_onboards(seq)
+
+        engine._apply_onboards = counting_apply
+        state = {}
+
+        def between(i: int, engine=engine, oe=oe, spec=spec, arm_at=arm_at, state=state) -> None:
+            oe.drain()
+            if i == 2:
+                state["hits"] = oe.tier_hits["host"]
+                state["ring"] = len(engine.offload)
+                onboards.clear()
+            if spec is not None and i == arm_at:
+                inj.configure(spec)
+
+        if spec is not None and arm_at == 0:
+            inj.configure(spec)
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            res = asyncio.run(serve(engine, rounds, between))
+            fired = {s: inj.fire_count(s) for s in ("offload.copy_fail", "onboard.truncate")}
+        finally:
+            inj.disable()
+        wall = time.perf_counter() - t0
+        counted = read_launches()
+        check_launch_invariants(f"serve-chaos: (a) {leg}", engine, counted)
+        add_launches(launches, counted)
+        for j, r in enumerate(res):
+            if r["finish"] != "length" or len(r["tokens"]) != 16:
+                fail(f"serve-chaos: (a) {leg} request {j}: {len(r['tokens'])} tokens, "
+                     f"finish {r['finish']}")
+        free_pages_back(f"serve-chaos: (a) {leg}", engine)
+        hits3 = oe.tier_hits["host"] - state["hits"]
+        series = fallback_series(engine)
+        round3 = [r["tokens"] for r in res[8:]]
+        line = (f"serve-chaos: (a) {leg} fired={fired} copy_fails={oe.copy_fails} "
+                f"onboard_fallbacks={oe.onboard_fallbacks} ring_blocks_after_round2="
+                f"{state['ring']} round3_g2_hits={hits3} admissions_with_tier_hits="
+                f"{len(onboards)} ({sum(onboards)} blocks) series={series} wall_s={wall:.3f}")
+        if leg == "unarmed":
+            check_no_fallback("serve-chaos: (a) unarmed", engine)
+            if not hits3 or not onboards:
+                fail("serve-chaos: (a) unarmed: round 3 onboarded nothing from G2")
+            base = dict(hits=hits3, streams=round3)
+        elif leg == "evict copy-fail":
+            n = fired["offload.copy_fail"]
+            if not n or oe.copy_fails != n or state["ring"] or hits3 or onboards:
+                fail(f"serve-chaos: (a) {leg}: {line}")
+            if series.get("dynamo_kv_offload_copy_failures_total") != n:
+                fail(f"serve-chaos: (a) {leg}: copy failure series {series}, {n} firings")
+            line += f"; round 3's G2 hits fell from {base['hits']} to {hits3}"
+        else:
+            n = fired["onboard.truncate"]
+            if not n or n != len(onboards) or oe.onboard_fallbacks != n or series.get(
+                    'dynamo_kv_onboard_fallbacks_total{cause="truncate"}') != n:
+                fail(f"serve-chaos: (a) {leg}: {line}")
+            if oe.onboard_detail.get("prefix", [0])[0]:
+                fail(f"serve-chaos: (a) {leg}: a truncated onboard scattered its blocks")
+        same = sum(a == b for a, b in zip(round3, base["streams"]))
+        print(f"{line}; round 3 greedy streams equal to unarmed's: {same} of 4 on {card}")
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def chaos_swap(params, card: str, launches: Dict[str, int]) -> None:
+    """(b) Llama-3-8B, bf16: 8 lanes of 256-token prompts and 128 new
+    tokens over ``num_pages=160`` with ``host_offload_blocks=512`` (the
+    swap pressure of serve-kvbm (c), shorter), the serial loop: every swap snapshot's copy
+    failing (``offload.copy_fail=1:match=swap/``: no preemption swaps,
+    ``swap_fallbacks{copy_fail}`` == ``copy_fails`` == the firings), then
+    every swap restore truncated (``onboard.truncate=1:match=swap/``: no
+    swap-in, ``swap_fallbacks{truncate}`` == the firings == the swapped
+    victims).  Every victim is recomputed: every request finishes with its
+    128 tokens, and every page is free after."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.runtime import faults
+    from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
+
+    cfg = ModelConfig.llama3_8b()
+    rng = np.random.default_rng(13)
+    reqs = [request(rng.integers(1, cfg.vocab_size, 256), 128) for _ in range(8)]
+    inj = faults.injector
+    for leg, spec, site, cause in (
+        ("swap copy-fail", "seed=3;offload.copy_fail=1:match=swap/", "offload.copy_fail",
+         "copy_fail"),
+        ("swap-restore truncate", "seed=3;onboard.truncate=1:match=swap/", "onboard.truncate",
+         "truncate"),
+    ):
+        # the serial loop: a preemption then always finds its victim's
+        # state host-visible, so each one is offered to swap_out
+        engine = TorchEngine(cfg, params, EngineConfig(num_pages=160, host_offload_blocks=512,
+                                                       async_dispatch=False),
+                             metrics_registry=MetricsRegistry())
+        oe = engine.offload_engine
+        free0 = engine.sched.pool.free_pages
+        inj.configure(spec)
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            res = asyncio.run(serve(engine, [reqs]))
+            fired = inj.fire_count(site)
+        finally:
+            inj.disable()
+        wall = time.perf_counter() - t0
+        counted = read_launches()
+        check_launch_invariants(f"serve-chaos: (b) {leg}", engine, counted)
+        add_launches(launches, counted)
+        for j, r in enumerate(res):
+            if r["finish"] != "length" or len(r["tokens"]) != 128:
+                fail(f"serve-chaos: (b) {leg} request {j}: {len(r['tokens'])} tokens")
+        series = fallback_series(engine)
+        by_cause = series.get(f'dynamo_kv_swap_fallbacks_total{{cause="{cause}"}}', 0.0)
+        sched = engine.sched
+        line = (f"serve-chaos: (b) {leg} fired={fired} preempt_swap={sched.preempt_swap} "
+                f"preempt_recompute={sched.preempt_recompute} swap_ins={oe.swap_ins} "
+                f"swap_fallbacks={oe.swap_fallbacks} copy_fails={oe.copy_fails} "
+                f"series={series} free_pages {free0} -> {sched.pool.free_pages} "
+                f"wall_s={wall:.3f} on {card}")
+        if cause == "copy_fail":
+            ok = (fired and sched.preempt_swap == 0 and sched.preempt_recompute >= fired
+                  and oe.copy_fails == oe.swap_fallbacks == by_cause == fired)
+        else:
+            ok = (fired and oe.swap_ins == 0 and sched.preempt_swap == fired
+                  and oe.swap_fallbacks == by_cause == fired and not oe.copy_fails)
+        if not ok or oe._swap_used:
+            fail(f"{line}: the fallbacks do not add up")
+        free_pages_back(f"serve-chaos: (b) {leg}", engine)
+        print(line)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def chaos_spec(params, served: Dict[str, object], card: str,
+               launches: Dict[str, int]) -> None:
+    """(c) ``spec.draft_corrupt=1`` on serve-a45's oracle runs (serve's
+    primer and batch, every lane drafting serve's plain streams, 4 drafts),
+    folded (kernel 5) and with ``fold_spec_verify=False`` (kernel 3): every
+    draft corrupted, so nothing is accepted, and every request finishes
+    with its 64 tokens.  Against serve's spec-off streams of the same batch:
+    the greedy streams that stay equal, and at each first divergence the
+    top-2 logprobs (bf16 near-ties part streams run at other shapes;
+    identity is held in f32 on the CPU)."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.runtime import faults
+    from dynamo_tpu_torch.spec import register_drafter
+
+    cfg = ModelConfig.llama3_8b()
+    primer, batch = serve_requests(cfg.vocab_size)
+    plain = served["streams"][: len(batch)]
+    pairs = [(r["token_ids"], t) for r, t in zip(batch, plain)]
+    register_drafter("chaos-oracle", lambda: StreamOracle(pairs))
+    with_top2 = [dict(r, sampling_options=dict(r["sampling_options"], logprobs=2))
+                 for r in batch]
+    greedy = [i for i, r in enumerate(batch) if not r["sampling_options"].get("temperature")]
+    inj = faults.injector
+    for leg, kw in (("folded", {}), ("fold-off", dict(fold_spec_verify=False))):
+        engine = TorchEngine(cfg, params, EngineConfig(num_pages=1024, **kw))
+        inj.configure("seed=7;spec.draft_corrupt=1")
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            res = asyncio.run(serve(engine, [speculating(primer, "chaos-oracle"),
+                                             speculating(with_top2, "chaos-oracle")]))
+            fired = inj.fire_count("spec.draft_corrupt")
+        finally:
+            inj.disable()
+        wall = time.perf_counter() - t0
+        counted = read_launches()
+        check_launch_invariants(f"serve-chaos: (c) {leg}", engine, counted)
+        add_launches(launches, counted)
+        check_streams(f"serve-chaos (c) {leg}", res[1:], cfg.vocab_size)
+        line = spec_line(engine)
+        drafted, accepted = engine.spec_drafted, engine.spec_accepted
+        standalone = engine.dispatches.get("verify", 0)
+        folded = engine._fold_spec
+        free_pages_back(f"serve-chaos: (c) {leg}", engine)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not fired or not drafted or accepted:
+            fail(f"serve-chaos: (c) {leg}: fired={fired} {line}")
+        if folded == bool(standalone):
+            fail(f"serve-chaos: (c) {leg}: {standalone} standalone verifies, folded={folded}")
+        got = [res[1 + i]["tokens"] for i in greedy]
+        print(f"serve-chaos: (c) {leg} fired={fired} {line} wall_s={wall:.3f} on {card}")
+        print(f"serve-chaos: (c) {leg} greedy streams against serve's spec-off: "
+              f"{first_divergence(got, [plain[i] for i in greedy])}")
+        for i in greedy:
+            a, b, top = res[1 + i]["tokens"], plain[i], res[1 + i]["top"]
+            j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+            if j is not None:
+                gap = None
+                if j < len(top) and len(top[j]) >= 2:
+                    gap = abs(top[j][0][1] - top[j][1][1])
+                print(f"serve-chaos: (c) {leg} request {i} parts at token {j}: spec-off's "
+                      f"{b[j]}, here {a[j]}; top-2 logprobs there {top[j] if j < len(top) else None}"
+                      f" (gap {gap})")
+
+
+def serve_chaos_phase(params, served: Dict[str, object], card: str) -> None:
+    """serve-chaos: the three engine chaos sites armed through
+    ``runtime.faults.injector`` at Llama-3-8B width: (a) ``chaos_tiers``,
+    (b) ``chaos_swap``, (c) ``chaos_spec``, each leg's launch invariants
+    held.  A failed check fails the run."""
+    t0 = time.perf_counter()
+    launches: Dict[str, int] = {}
+    chaos_tiers(params, card, launches)
+    chaos_swap(params, card, launches)
+    chaos_spec(params, served, card, launches)
+    print(f"serve-chaos: launches over its seven legs {launches}")
+    print(f"serve-chaos: phase {time.perf_counter() - t0:.3f} s")
+
+
+def serve_kvbm_phase(ref: Dict[str, object], served: Dict[str, object], card: str) -> None:
     """serve-kvbm: (a) ``kvbm_reference``, then at Llama-3-8B width from
     random bf16 weights of seed 0: (b) ``kvbm_tiers``, (c) ``kvbm_swap``,
-    (d) ``kvbm_int8``."""
+    (d) ``kvbm_int8``; then serve-chaos on the same weights."""
     from dynamo_tpu_torch.engine.config import ModelConfig
     from dynamo_tpu_torch.engine.model import init_params
 
@@ -3767,6 +4050,7 @@ def serve_kvbm_phase(ref: Dict[str, object], card: str) -> None:
     kvbm_tiers(params, card)
     kvbm_swap(params, card)
     kvbm_int8(params, card)
+    serve_chaos_phase(params, served, card)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3943,13 +4227,14 @@ class Proc:
 
     running: List["Proc"] = []
 
-    def __init__(self, tmp: str, name: str, *args: str) -> None:
+    def __init__(self, tmp: str, name: str, *args: str, env=None) -> None:
         self.name = name
         self.log_path = os.path.join(tmp, f"{name}.log")
         with open(self.log_path, "w") as log_file:
             self.proc = subprocess.Popen(
                 [sys.executable, "-m", "dynamo_tpu_torch", *args],
                 cwd=ROOT, stdout=log_file, stderr=subprocess.STDOUT, text=True,
+                env=None if env is None else {**os.environ, **env},
             )
         Proc.running.append(self)
 
@@ -4842,6 +5127,38 @@ class ThreadSampler:
                 f"{self.max_gap * 1e3:.3f} ms; most time: {where}")
 
 
+def drain_links() -> None:
+    """Empty this process's transfer log (the telemetry plane's)."""
+    from dynamo_tpu_torch.runtime import telemetry
+
+    telemetry.transfers.drain()
+
+
+def snapshot_links(worker_id: int, role: str) -> List[dict]:
+    """The transfer samples this process's next telemetry snapshot carries
+    (the process-wide log drains into it), read back through the wire
+    codec."""
+    from dynamo_tpu_torch.runtime import telemetry
+
+    snap = telemetry.snapshot_from_registry(worker_id=worker_id, role=role, refresh_slo=False)
+    return telemetry.TelemetrySnapshot.decode(snap.encode()).transfers
+
+
+def check_links(what: str, samples: List[dict], src: int, dst: int, count: int,
+                nbytes: int, wall: float) -> str:
+    """The snapshot's samples of the link ``src -> dst``: ``count`` of them,
+    ``nbytes`` in all (the bytes the phase moved), none slower than the
+    phase's wall, and no sample of another link."""
+    mine = [t for t in samples if (t["src"], t["dst"]) == (src, dst)]
+    total = sum(t["bytes"] for t in mine)
+    slowest = max((t["seconds"] for t in mine), default=0.0)
+    line = (f"telemetry link samples {src}->{dst} {len(mine)} (moves {count}) "
+            f"bytes {total} (moved {nbytes}) slowest_s {slowest:.6f} <= wall_s {wall:.3f}")
+    if len(mine) != count or total != nbytes or slowest > wall or len(mine) != len(samples):
+        fail(f"{what}: {line}; the snapshot's samples {samples[:8]}")
+    return line
+
+
 def disagg_full_width(mode: str, worker_kw: dict, tok_dir: str, shorts, longs) -> Dict[str, object]:
     """serve-disagg (b) on one transfer path: fresh Llama-3-8B decode and
     prefill engines (random weights of seed 0 each), the traffic of
@@ -4866,6 +5183,7 @@ def disagg_full_width(mode: str, worker_kw: dict, tok_dir: str, shorts, longs) -
     async def body():
         pair = await DisaggPair().start(decode, prefill, tok_dir, 512, **worker_kw)
         try:
+            drain_links()
             t0 = time.perf_counter()
             with ThreadSampler() as sampler:
                 run = await disagg_traffic(pair.disagg.generate, shorts, longs)
@@ -4875,6 +5193,13 @@ def disagg_full_width(mode: str, worker_kw: dict, tok_dir: str, shorts, longs) -
             run["scatter_ms"] = pair.scatter_ms()
             run["stats"] = pair.worker.transfer_stats()
             run["rows"] = list(pair.worker.delivery_stats)
+            # the wire deliveries' link samples, in the prefill worker's
+            # next telemetry snapshot (a device handoff records none)
+            wire = [r for r in run["rows"] if r["path"] == "wire"]
+            run["links"] = check_links(
+                what, snapshot_links(pair.prt.primary_lease, "prefill"),
+                pair.prt.primary_lease, pair.drt.primary_lease, len(wire),
+                sum(r["bytes"] for r in wire), run["wall"])
         finally:
             await pair.stop()
         # after the stop: hashing GBs must not stall the runtimes' leases
@@ -5114,6 +5439,7 @@ def serve_disagg_phase(card: str, ckpt, direct: List[str]) -> Dict[str, int]:
             for w, line in zip(("decode", "prefill"), run["loops"]):
                 print(f"serve-disagg: (b) {mode} {w} worker {line}")
             print(f"serve-disagg: (b) {mode} threads: {run['threads']}")
+            print(f"serve-disagg: (b) {mode} {run['links']}")
             print(f"serve-disagg: (b) {mode} deliveries (bytes, deliver_ms): "
                   f"{[(r['bytes'], round(r['deliver_ms'], 3)) for r in run['rows']]}")
             for k, n in run["launches"].items():
@@ -5450,6 +5776,7 @@ def onboard_g4(tok_dir: str) -> Dict[str, object]:
     from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.llm.kv_router.indexer import REMOTE_SOURCE_ID
+    from dynamo_tpu_torch.offload import G4_STORE_ID
 
     cfg = ModelConfig.llama3_8b()
     donor_reqs, reqs, _ = onboard_requests(cfg.vocab_size, 15)
@@ -5477,6 +5804,7 @@ def onboard_g4(tok_dir: str) -> Dict[str, object]:
             router = await generate_router(cluster, 1)
             lease = cluster.workers[0].primary_lease
             series = kv_series(a)
+            drain_links()
             t0 = time.perf_counter()
             await stream_traffic(lambda c: router.direct(c, lease), donor_reqs)
             for r in churn:
@@ -5484,6 +5812,10 @@ def onboard_g4(tok_dir: str) -> Dict[str, object]:
             await asyncio.to_thread(a.offload_engine.drain)
             out["publish_wall"] = time.perf_counter() - t0
             remote = a.offload_engine.remote
+            # A''s puts into the store, in its next telemetry snapshot
+            out["put_links"] = check_links(
+                f"{what} puts", snapshot_links(lease, "worker"), lease, G4_STORE_ID,
+                remote.puts, remote.store_bytes, out["publish_wall"])
             if any(a.sched.pool.is_registered(h) for h in hashes) or not all(
                     remote.contains(h) for h in hashes):
                 fail(f"{what}: the prefixes are not all out of A' and in the G4 store")
@@ -5517,6 +5849,7 @@ def onboard_g4(tok_dir: str) -> Dict[str, object]:
             series = kv_series(b)
             before = decision_counts()
             hits = b._prefix_hits
+            drain_links()
             t0 = time.perf_counter()
             with ThreadSampler() as sampler:
                 out["run"] = await stream_traffic(cluster.factory.push_routers["m"].generate,
@@ -5527,6 +5860,10 @@ def onboard_g4(tok_dir: str) -> Dict[str, object]:
             out["decisions"] = {k: after[k] - before.get(k, 0.0) for k in after
                                 if after[k] != before.get(k, 0.0)}
             out["hits"] = b._prefix_hits - hits
+            b_lease, b_remote = cluster.workers[1].primary_lease, b.offload_engine.remote
+            out["fetch_links"] = check_links(
+                f"{what} fetches", snapshot_links(b_lease, "worker"), G4_STORE_ID, b_lease,
+                b_remote.fetches, b_remote.fetch_bytes, out["wall"])
             onboard = cluster.pubs[1].onboard
             out["onboarded"], out["fetch"] = onboard.onboarded_blocks, fetch_line(onboard)
             out["fetch_series"] = (series, kv_series(b))
@@ -5676,6 +6013,8 @@ def serve_onboard_phase(ref: Dict[str, object], card: str, ckpt,
                       f"{secs:.3f} s of puts; {g4_rate(res['store_series'], 'store')} "
                       f"{g4_rate(res['fetch_series'], 'fetch')}; publish wall "
                       f"{res['publish_wall']:.3f} s on {card}")
+                print(f"serve-onboard: (b) G4 puts {res['put_links']}")
+                print(f"serve-onboard: (b) G4 fetches {res['fetch_links']}")
             print(f"serve-onboard: (b) {leg} threads: {res['threads']}")
             print(f"serve-onboard: (b) {leg} launches {res['launches']}")
             for k, n in res["launches"].items():
@@ -5685,6 +6024,246 @@ def serve_onboard_phase(ref: Dict[str, object], card: str, ckpt,
         return launches
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -- serve-mocker: the model-free engine in a fleet -------------------------------
+
+
+MOCKER_SLOW_S = 0.05  # worker.slow's armed delay on one mocker process
+KILL_FRAME = "mocker crashed (injected worker.kill)"
+
+
+async def wait_log(proc: "Proc", text: str, what: str, limit_s: float = 300.0) -> None:
+    """Until ``proc``'s log holds ``text``; fails when it exits first."""
+    t0 = time.perf_counter()
+    while text not in proc.log():
+        proc.check_alive()
+        if time.perf_counter() - t0 > limit_s:
+            fail(f"{what}: {proc.name} never printed {text!r}: {proc.log()[-2000:]}")
+        await asyncio.sleep(0.1)
+
+
+async def fleet_ask(port: int, reqs: List[dict], what: str, stream: bool = False):
+    """``reqs`` at once through the front end on ``port``; every one must
+    finish with its max_tokens."""
+    from dynamo_tpu_torch.bench_serving import run_bench
+
+    rep = await run_bench("127.0.0.1", port, "ckpt", bench_items(reqs),
+                          concurrency=len(reqs), stream=stream)
+    check_http_results(what, [rep], [reqs])
+    return rep
+
+
+async def mocker_fleet(addr: str, port: int, path: str, procs: List["Proc"],
+                       card: str) -> None:
+    """serve-mocker's checks, against the running processes (see
+    :func:`serve_mocker_phase`)."""
+    from dynamo_tpu_torch.cli import serve_worker
+    from dynamo_tpu_torch.llm.tokenizer import Tokenizer
+    from dynamo_tpu_torch.mocker import MockerConfig, MockerEngine
+    from dynamo_tpu_torch.protocols.common import ForwardPassMetrics
+    from dynamo_tpu_torch.runtime.component import DistributedRuntime, PushRouter
+    from dynamo_tpu_torch.runtime.engine import Context
+    from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
+    from dynamo_tpu_torch.runtime.telemetry import TELEMETRY_TOPIC, TelemetrySnapshot
+
+    what = "serve-mocker"
+    await wait_log(procs[0], "hub at", what)
+    rt = await DistributedRuntime.detached(addr)
+    ns = rt.namespace("dynamo")
+    telemetry_sub = await ns.subscribe(TELEMETRY_TOPIC)
+    hit_sub = await ns.subscribe("kv-hit-rate")
+    # the fourth mocker, in this process: crash() plays worker.kill on it
+    crash_rt = await DistributedRuntime.detached(addr)
+    vocab = Tokenizer.from_model_dir(path).vocab_size
+    crash_engine = MockerEngine(MockerConfig(block_size=16, vocab_size=vocab,
+                                             decode_s_per_step=0.0005),
+                                registry=MetricsRegistry())
+    _, crash_pub = await serve_worker(crash_rt, crash_engine, "dyn://dynamo.backend.generate",
+                                      path, None, block_size=16)
+    crash_lease = crash_rt.primary_lease
+    try:
+        t0 = time.perf_counter()
+        client = await ns.component("backend").endpoint("generate").client()
+        loads = await ns.component("backend").endpoint("load_metrics").client()
+        while len(client.instances) < 4 or len(loads.instances) < 4:
+            for p in procs:
+                p.check_alive()
+            if time.perf_counter() - t0 > 300:
+                fail(f"{what}: {len(client.instances)} of 4 workers registered")
+            await asyncio.sleep(0.1)
+        while True:
+            procs[-1].check_alive()
+            with contextlib.suppress(OSError):
+                status, body = await http_call(port, "GET", "/v1/models")
+                if status == 200 and json.loads(body)["data"]:
+                    break
+            await asyncio.sleep(0.1)
+        up = time.perf_counter() - t0
+        # which worker is which: a mocker offers 64 lanes, the torch worker 8
+        slots = {}
+        for iid in client.instance_ids():
+            stream = await PushRouter(loads).direct(Context.new({}), iid)
+            async for item in stream:
+                if item.data is not None:
+                    slots[iid] = ForwardPassMetrics.from_dict(item.data).request_total_slots
+        torch_ids = [i for i, n in slots.items() if n == 8]
+        mocker_ids = [i for i, n in slots.items() if n == 64 and i != crash_lease]
+        if len(torch_ids) != 1 or len(mocker_ids) != 2 or crash_lease not in slots:
+            fail(f"{what}: workers by lanes {slots}")
+        await asyncio.sleep(1.0)  # the router's scrape and index catch up
+
+        async def hit_event() -> dict:
+            return json.loads((await asyncio.wait_for(hit_sub.next(), 30))[1])
+
+        # (b) a prefix-sharing batch: each repeat goes to its prefix's holder
+        rng = np.random.default_rng(31)
+        prefixes = [rng.integers(1, 128000, 256) for _ in range(4)]
+        holders, served_by = [], {}
+        for p in prefixes:
+            await fleet_ask(port, [request(np.concatenate([p, rng.integers(1, 128000, 8)]), 16)],
+                            f"{what} (b) round 1")
+            ev = await hit_event()
+            holders.append(ev["worker_id"])
+        await asyncio.sleep(1.0)  # every holder's stored events indexed
+        overlaps = []
+        for p, holder in zip(prefixes, holders):
+            for _ in range(2):
+                await fleet_ask(port, [request(np.concatenate([p, rng.integers(1, 128000, 8)]),
+                                               16)], f"{what} (b) round 2")
+                ev = await hit_event()
+                overlaps.append(ev["overlap_blocks"])
+                served_by[ev["worker_id"]] = served_by.get(ev["worker_id"], 0) + 1
+                if ev["worker_id"] != holder or ev["overlap_blocks"] < 16:
+                    fail(f"{what} (b): a repeat went to {ev['worker_id']} with "
+                         f"{ev['overlap_blocks']} overlap blocks, its prefix's holder is {holder}")
+        kinds = {i: ("torch" if i in torch_ids else "crash mocker" if i == crash_lease
+                     else "mocker") for i in slots}
+        print(f"serve-mocker: (b) 12 requests answered; round 1's holders "
+              f"{[kinds[h] for h in holders]}; every repeat went to its holder with "
+              f"overlap blocks {overlaps}; workers up after {up:.3f} s on {card}")
+        # (c) each process worker's telemetry snapshot, one taken after (b)
+        routed = time.time()
+        snaps: Dict[int, object] = {}
+        t1 = time.perf_counter()
+        while set(snaps) != set(torch_ids + mocker_ids):
+            if time.perf_counter() - t1 > 30:
+                fail(f"{what} (c): snapshots of {sorted(snaps)} only, workers "
+                     f"{torch_ids + mocker_ids}")
+            _, payload = await asyncio.wait_for(telemetry_sub.next(), 30)
+            blob = payload if isinstance(payload, bytes) else json.dumps(payload).encode()
+            snap = TelemetrySnapshot.decode(blob)
+            if snap.role != "worker" or snap.worker_id not in slots:
+                fail(f"{what} (c): a snapshot names worker {snap.worker_id} role {snap.role}")
+            if snap.ts >= routed:
+                snaps[snap.worker_id] = snap
+        # every token (b) streamed from a process worker is in its counters
+        streamed = 16 * sum(1 for h in holders if h != crash_lease) * 3
+        if sum(s.tokens_generated for s in snaps.values()) != streamed:
+            fail(f"{what} (c): the snapshots count "
+                 f"{sum(s.tokens_generated for s in snaps.values())} tokens, (b) streamed "
+                 f"{streamed} from the process workers")
+        print("serve-mocker: (c) telemetry snapshots decoded: " + ", ".join(
+            f"{kinds[i]} {i:x} role={s.role} seq={s.seq} tokens_generated={s.tokens_generated} "
+            f"kv_pages_total={s.kv_pages_total}" for i, s in snaps.items()))
+        # (d) worker.slow: the same request straight to each mocker process
+        per_token = {}
+        for iid in mocker_ids:
+            req = request(rng.integers(1, 128000, 64), 32)
+            t2 = time.perf_counter()
+            out = await stream_traffic(lambda c, iid=iid: PushRouter(client).direct(c, iid), [req])
+            per_token[iid] = (time.perf_counter() - t2) / 32 * 1e3
+            if len(out[0]["tokens"]) != 32:
+                fail(f"{what} (d): {len(out[0]['tokens'])} of 32 tokens")
+        slow, fast = max(per_token.values()), min(per_token.values())
+        print(f"serve-mocker: (d) worker.slow armed at {MOCKER_SLOW_S * 1e3:.1f} ms a tick on one "
+              f"mocker: ms per token slow {slow:.3f} fast {fast:.3f} (the pipelined tick keeps "
+              f"two generations in flight: half the delay a token)")
+        # the armed mocker's tokens come slower by about half its delay,
+        # over what the unarmed one's round trips through the host cost
+        if slow - fast < 0.4 * MOCKER_SLOW_S * 1e3:
+            fail(f"{what} (d): the armed mocker is not slowed by its delay: {per_token}")
+        # (e) crash() on the in-process mocker, holding prefix Q, mid-stream
+        q = rng.integers(1, 128000, 256)
+        await stream_traffic(lambda c: PushRouter(client).direct(c, crash_lease),
+                             [request(np.concatenate([q, [7]]), 1)])
+        await asyncio.sleep(1.0)
+        reqs = ([request(np.concatenate([q, rng.integers(1, 128000, 8)]), 512) for _ in range(3)]
+                + [request(rng.integers(1, 128000, 40), 16) for _ in range(3)])
+        from dynamo_tpu_torch.bench_serving import run_bench
+
+        bench = asyncio.ensure_future(run_bench("127.0.0.1", port, "ckpt", bench_items(reqs),
+                                                concurrency=len(reqs), stream=True))
+        t3 = time.perf_counter()
+        while not crash_engine.running or not all(
+                s.num_generated > 1 for s in crash_engine.running.values()):
+            if time.perf_counter() - t3 > 60 or bench.done():
+                fail(f"{what} (e): the crash mocker never streamed its lanes")
+            await asyncio.sleep(0.005)
+        await asyncio.sleep(0.05)
+        held = len(crash_engine.running) + len(crash_engine._waiting_list)
+        await crash_engine.crash()
+        rep = await asyncio.wait_for(bench, 300)
+        failed = [r for r in rep.results if not r.ok]
+        served = [(r.finish_reason, r.output_tokens) for r in rep.results if r.ok]
+        want = {(("length", 512) if i < 3 else ("length", 16)) for i in range(6)}
+        bad = [r.error for r in failed if KILL_FRAME not in r.error]
+        if len(failed) != held or bad or any(s not in want for s in served):
+            fail(f"{what} (e): {held} lanes on the crashed mocker, {len(failed)} errors "
+                 f"{[r.error for r in failed]}, served {served}")
+        print(f"serve-mocker: (e) crash() with {held} lanes in flight: {len(failed)} requests "
+              f"got the error frame {KILL_FRAME!r}, the front end served the other "
+              f"{len(served)} to their full length {served}")
+    finally:
+        await crash_pub.close()
+        await crash_engine.stop()
+        await crash_rt.shutdown()
+        await telemetry_sub.close()
+        await hit_sub.close()
+        await rt.shutdown()
+
+
+def serve_mocker_phase(card: str, ckpt) -> None:
+    """serve-mocker, on the card's host: ``hub``, two ``run in=dyn
+    out=mocker`` workers (the second with ``DYN_FAULTS`` arming
+    ``worker.slow``), one ``run in=dyn out=torch`` worker over ``ckpt`` (a
+    2-layer Llama-3-8B-width checkpoint) and ``run in=http out=dyn
+    --router-mode kv`` as five processes, and a fourth mocker worker in this
+    process (``cli.serve_worker``).  (b) a prefix-sharing batch: every
+    request answers, every repeat goes to its prefix's holder; (c) each
+    process worker's telemetry snapshot decodes and names its worker id and
+    role; (d) the armed mocker's tokens come slower by its delay; (e)
+    ``crash()`` on the in-process mocker mid-stream: its lanes get the
+    kill frame, the front end serves the rest.  SIGINT ends each process
+    with exit code 0."""
+    import shutil
+    import tempfile
+
+    path = ckpt[0]
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-mocker-")
+    hub_port, http_port = free_port(), free_port()
+    addr = f"127.0.0.1:{hub_port}"
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        procs.append(Proc(tmp, "hub", "hub", "--host", "127.0.0.1", "--port", str(hub_port)))
+        for name, env in (("mocker", None),
+                          ("mocker-slow", {"DYN_FAULTS": f"seed=5;worker.slow=1:delay={MOCKER_SLOW_S}"})):
+            procs.append(Proc(tmp, name, "run", "in=dyn", "out=mocker", "--model-path", path,
+                              "--hub", addr, env=env))
+        procs.append(Proc(tmp, "torch-worker", "run", "in=dyn", "out=torch", "--model-path",
+                          path, "--hub", addr))
+        procs.append(Proc(tmp, "frontend", "run", "in=http", "out=dyn", "--hub", addr,
+                          "--router-mode", "kv", "--port", str(http_port)))
+        asyncio.run(mocker_fleet(addr, http_port, path, procs, card))
+        for p in reversed(procs):
+            p.interrupt("serve-mocker")
+        print(f"serve-mocker: exit codes {[p.proc.returncode for p in procs]} on SIGINT")
+    finally:
+        for p in procs:
+            p.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"serve-mocker: phase {time.perf_counter() - t0:.3f} s")
 
 
 def profile_phase(out_path: str, plain_walls: Dict[str, float]) -> None:
@@ -5858,8 +6437,9 @@ def main() -> None:
     a3 = serve_a3_phase(ref, card)
     print(f"serve-a3: flash prefill launches {a3['launches']}")
     a45 = serve_a45_phase(ref, served, card)
-    serve_kvbm_phase(ref, card)
-    # serve-dyn's, serve-disagg's and serve-onboard's (c) serve one checkpoint
+    serve_kvbm_phase(ref, served, card)
+    # serve-dyn's, serve-disagg's and serve-onboard's (c), and serve-mocker's
+    # torch worker, serve one checkpoint
     import shutil
     import tempfile
 
@@ -5870,6 +6450,7 @@ def main() -> None:
         disagg = serve_disagg_phase(card, ckpt, direct)
         onboard = serve_onboard_phase(ref, card, ckpt, direct)
         print(f"serve-onboard: launches over (b)'s two legs {onboard}")
+        serve_mocker_phase(card, ckpt)
         del ckpt
     finally:
         shutil.rmtree(ckpt_tmp, ignore_errors=True)

@@ -5,8 +5,11 @@ The JAX package's ``run``, single-process and distributed::
     python -m dynamo_tpu_torch run in=http out=torch --model-path DIR
     python -m dynamo_tpu_torch run in=text out=torch --model-path DIR --prompt "hi"
     python -m dynamo_tpu_torch run in=batch out=torch --model-path DIR --input-file p.jsonl
+    python -m dynamo_tpu_torch run in=http out=mocker --model-path DIR
+    python -m dynamo_tpu_torch run in=http out=echo --model-path DIR --echo-delay-ms 5
     python -m dynamo_tpu_torch hub --port 6650
     python -m dynamo_tpu_torch run in=dyn out=torch --model-path DIR --hub H:P
+    python -m dynamo_tpu_torch run in=dyn out=mocker --model-path DIR --hub H:P
     python -m dynamo_tpu_torch run in=http out=dyn --hub H:P --router-mode kv
     python -m dynamo_tpu_torch run in=dyn out=torch --model-path DIR --hub H:P --disagg decode
     python -m dynamo_tpu_torch run in=dyn out=torch --model-path DIR --hub H:P --disagg prefill
@@ -22,16 +25,23 @@ prompt (or a stdin REPL) through the same pipeline, ``in=batch`` a JSONL
 file of prompts.  ``DIR`` is a local HuggingFace checkpoint directory:
 ``config.json``, ``*.safetensors``, ``tokenizer.json`` and
 ``tokenizer_config.json``.  The engine runs on the card; ``--device cpu``
-runs it on the CPU.  ``bench`` drives a running front end with the serving
+runs it on the CPU.  ``out=mocker`` and ``out=echo`` serve the model-free
+engines (``mocker/``, ``llm/echo.py``) on no device: the mocker's
+deterministic tokens (its vocabulary ``--model-path``'s tokenizer's, else
+32000) and the echo engine's prompt ids back (``--echo-delay-ms`` per
+token); ``/v1/embeddings`` answers with ``fake_embedder``'s vectors for an
+engine that embeds nothing.  ``bench`` drives a running front end with the serving
 benchmark client.  ``profile`` reads a running front end's tick profiler
 (``GET /profile/ticks``; ``--watch S`` arms it and samples S seconds of
 traffic, ``--device S`` takes a device trace on the server) and prints
 where the ticks' wall time went; ``trace`` assembles one request's spans
 from every component on a hub.
 
-``hub`` runs the control plane.  ``in=dyn out=torch`` serves the engine as
-a worker on the hub: its generate endpoint, a ``{ep}_embed`` endpoint, the
-KV event and load-metrics publishers and the model's registration.
+``hub`` runs the control plane.  ``in=dyn out=torch|mocker`` serves the
+engine as a worker on the hub: its generate endpoint, a ``{ep}_embed``
+endpoint, the KV event, load-metrics and telemetry publishers and the
+model's registration (an echo worker has no embed leg, KV events or load
+metrics; a worker without ``--model-path`` registers no model card).
 ``in=http out=dyn`` is the discovery-driven front end: a pipeline per
 registered model, routed round robin, at random, or by KV overlap
 (``--router-mode kv``).  ``--hub auto`` runs a hub in the process.
@@ -77,6 +87,9 @@ from typing import Dict, Optional, Tuple
 
 logger = logging.getLogger("dynamo.torch.run")
 
+# the local engines of ``out=``
+ENGINES = ("torch", "mocker", "echo")
+
 # flags the port refuses while their features are not ported: name ->
 # whether the parsed value asks for the feature
 _REFUSED = {
@@ -91,6 +104,8 @@ _REFUSED = {
 def _add_engine_flags(p) -> None:
     """The engine flags of the JAX CLI whose features the port has, with
     the JAX defaults, plus the refused ones."""
+    p.add_argument("--echo-delay-ms", type=float, default=0.0,
+                   help="out=echo: per-token delay")
     p.add_argument("--model-path", help="HF model dir (weights + tokenizer)")
     p.add_argument("--model-name", help="served model name (default: dir name)")
     p.add_argument("--device", default=None,
@@ -190,7 +205,7 @@ def build_parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="cmd", required=True)
     run = sub.add_parser("run", help="serve, or run prompts through, the engine")
     run.add_argument("io", nargs=2, metavar=("in=...", "out=..."),
-                     help="in=http|text|batch|dyn out=torch|dyn")
+                     help="in=http|text|batch|dyn out=torch|mocker|echo|dyn")
     run.add_argument("--hub", help="hub address host:port, or 'auto'")
     run.add_argument("--endpoint", default="dyn://dynamo.backend.generate",
                      help="worker endpoint id (dyn://ns.comp.ep)")
@@ -316,7 +331,9 @@ def _parse_io(io) -> Tuple[str, str]:
     except ValueError:
         kv = {}
     if "in" not in kv or "out" not in kv:
-        raise SystemExit("usage: run in=<http|text|batch|dyn> out=<torch|dyn>")
+        raise SystemExit(
+            "usage: run in=<http|text|batch|dyn> out=<torch|mocker|echo|dyn>"
+        )
     return kv["in"], kv["out"]
 
 
@@ -350,9 +367,10 @@ def _check_served(args) -> None:
         if not args.hub:
             raise SystemExit("in=http out=dyn requires --hub")
         return
-    if args.out != "torch":
+    if args.out not in ENGINES:
         raise SystemExit(
-            f"not served by the PyTorch port: out={args.out} (use out=torch)"
+            f"not served by the PyTorch port: out={args.out} "
+            f"(use out={'|'.join(ENGINES)})"
         )
     if args.inp != "dyn":
         if args.hub is not None:
@@ -377,8 +395,23 @@ def _load_template(args):
 
 
 def _make_engine(args):
-    """The TorchEngine over ``--model-path``'s checkpoint, on the card
-    unless ``--device`` names another device."""
+    """The local engine of ``out=``: the echo engine; the mocker, its
+    vocabulary ``--model-path``'s tokenizer's (else 32000), as the JAX CLI
+    builds them; or the TorchEngine over ``--model-path``'s checkpoint, on
+    the card unless ``--device`` names another device."""
+    if args.out == "echo":
+        from .llm.echo import EchoEngineCore
+
+        return EchoEngineCore(delay_ms=args.echo_delay_ms)
+    if args.out == "mocker":
+        from .mocker import MockerConfig, MockerEngine
+
+        vocab = 32000
+        if args.model_path:
+            # emit ids the model's tokenizer can detokenize
+            vocab = _tokenizer_for(args).vocab_size
+        block = args.block_size or args.page_size
+        return MockerEngine(MockerConfig(block_size=block, vocab_size=vocab))
     from .device import resolve_device
     from .engine import EngineConfig, TorchEngine
     from .llm.local_model import resolve_model_path
@@ -421,15 +454,21 @@ def _make_engine(args):
 
 
 def _tokenizer_for(args):
+    from .llm.local_model import resolve_model_path
     from .llm.tokenizer import Tokenizer
 
+    if not args.model_path:
+        raise SystemExit("this mode needs --model-path for the tokenizer")
+    args.model_path = resolve_model_path(args.model_path)
     return Tokenizer.from_model_dir(args.model_path)
 
 
 def _model_name(args) -> str:
     if args.model_name:
         return args.model_name
-    return os.path.basename(os.path.normpath(args.model_path))
+    if args.model_path:
+        return os.path.basename(os.path.normpath(args.model_path))
+    return "mocker"
 
 
 def _pipeline(args):
@@ -498,18 +537,20 @@ async def run_http_local(args) -> None:
     """in=http out=torch: single-process aggregated serving."""
     from .http.service import HttpService, ModelManager
 
-    from .llm.embedding import EmbeddingEngine
+    from .llm.embedding import EmbeddingEngine, fake_embedder
 
     engine, name, tokenizer, pipeline = _pipeline(args)
     manager = ModelManager()
     manager.add_chat_model(name, pipeline)
     manager.add_completion_model(name, pipeline)
-    # /v1/embeddings: the engine's trunk embeds, inputs tokenized here
+    # /v1/embeddings, inputs tokenized here: the engine's trunk embeds; an
+    # engine with no embed (echo) answers with the deterministic fake
     manager.add_embedding_model(
         name,
         EmbeddingEngine(
-            engine.embed, tokenizer=tokenizer,
-            max_input_tokens=engine.cfg.max_seq_len,
+            engine.embed if hasattr(engine, "embed") else fake_embedder(),
+            tokenizer=tokenizer,
+            max_input_tokens=_max_input_tokens(engine),
         ),
     )
     service = HttpService(
@@ -522,6 +563,11 @@ async def run_http_local(args) -> None:
     finally:
         await service.stop()
         await engine.stop()
+
+
+def _max_input_tokens(engine) -> Optional[int]:
+    """The engine's ``max_seq_len`` (the mocker and echo engines have none)."""
+    return getattr(getattr(engine, "cfg", None), "max_seq_len", None)
 
 
 def kv_engine_factory(runtime, index_shards: int = 1, remote_spec=None):
@@ -660,8 +706,11 @@ async def serve_worker(runtime, engine, endpoint: str, model_path: str,
     engine, or a ``--disagg decode`` worker's ``DisaggDecodeEngine``) on
     ``endpoint`` (``dyn://ns.comp.ep``), the engine's embeddings on
     ``{ep}_embed``, the KV event and load-metrics publishers, and the
-    model's registration with ``block_size`` (default: the engine's pages)
-    as the router's blocks.  With the offload plane armed, as the JAX
+    model's registration with ``block_size`` (default: the engine's pages,
+    the mocker's blocks) as the router's blocks.  An engine serves only
+    the legs it has: the echo engine embeds nothing and publishes neither
+    KV events nor load metrics, and without ``model_path`` no model card
+    is registered (the card comes back None).  With the offload plane armed, as the JAX
     package's worker does: ``kv_export`` is served for peers, ``served``
     goes behind a ``PrefixOnboardEngine`` that imports donors' blocks, and
     :func:`wire_offload_plane` publishes the holdings and attaches the G4
@@ -678,7 +727,7 @@ async def serve_worker(runtime, engine, endpoint: str, model_path: str,
     ep = comp.endpoint(ep_name)
     worker = ServedWorker()
     served = served or engine
-    if engine.offload is not None:
+    if getattr(engine, "offload", None) is not None:
         from .llm.prefix_onboard import (
             KV_EXPORT_ENDPOINT,
             PrefixOnboardEngine,
@@ -688,22 +737,29 @@ async def serve_worker(runtime, engine, endpoint: str, model_path: str,
         await comp.endpoint(KV_EXPORT_ENDPOINT).serve_raw(kv_export_handler(engine))
         served = worker.onboard = PrefixOnboardEngine(served, ns, comp_name, engine=engine)
     await ep.serve(served)
-    # pooled-embedding leg: a sibling endpoint the front end's watcher
-    # finds through the model entry's embed_endpoint field
-    embed_ep_name = f"{ep_name}_embed"
-    await comp.endpoint(embed_ep_name).serve(
-        EmbeddingEngine(engine.embed, max_input_tokens=engine.cfg.max_seq_len)
-    )
-    worker.events = KvEventPublisher(ns, worker_id=runtime.primary_lease)
-    worker.events.hook(engine)
-    worker.holdings = wire_offload_plane(runtime, engine, ns)
-    await WorkerMetricsPublisher(engine.metrics).attach(comp)
+    embed_ep_name = ""
+    if hasattr(engine, "embed"):
+        # pooled-embedding leg: a sibling endpoint the front end's watcher
+        # finds through the model entry's embed_endpoint field
+        embed_ep_name = f"{ep_name}_embed"
+        await comp.endpoint(embed_ep_name).serve(
+            EmbeddingEngine(engine.embed, max_input_tokens=_max_input_tokens(engine))
+        )
+    if hasattr(engine, "metrics"):
+        worker.events = KvEventPublisher(ns, worker_id=runtime.primary_lease)
+        worker.events.hook(engine)
+        await WorkerMetricsPublisher(engine.metrics).attach(comp)
+    if hasattr(engine, "offload_engine"):
+        worker.holdings = wire_offload_plane(runtime, engine, ns)
+    if not model_path:
+        return None, worker
     # the router hashes prompts in the card's blocks: the engine's blocks
-    # are its pages
+    # are its pages (the mocker's, its blocks)
+    cfg = getattr(engine, "cfg", None)
     card = await register_llm(
         runtime, ep, model_path,
         model_name=model_name,
-        kv_block_size=block_size or engine.cfg.page_size,
+        kv_block_size=block_size or getattr(cfg, "page_size", None) or cfg.block_size,
         embed_endpoint=embed_ep_name,
     )
     return card, worker
@@ -740,17 +796,21 @@ async def serve_disagg_decode(runtime, engine, endpoint: str, model_path: str,
 
 
 async def run_worker(args) -> None:
-    """in=dyn out=torch: the engine as a worker on the hub -- aggregated,
-    or one role of disaggregated serving (``--disagg decode|prefill``)."""
+    """in=dyn out=torch|mocker|echo: the engine as a worker on the hub --
+    aggregated, or one role of disaggregated serving (``--disagg
+    decode|prefill``, torch only).  The worker stamps its identity on its
+    metrics and publishes telemetry snapshots for the fleet's observatory,
+    as the JAX worker does."""
     from .llm.disagg import DisaggConfig, PrefillWorker
     from .protocols.endpoint import parse_endpoint_id
     from .runtime import metrics as rtm
     from .runtime.component import DistributedRuntime
+    from .runtime.telemetry import TelemetryPublisher
 
     # build the engine BEFORE connecting: weight loading blocks the event
     # loop long enough to starve lease keepalives and get this worker evicted
     engine = _make_engine(args)
-    owned_hub = runtime = pub = disagg = prefill = None
+    owned_hub = runtime = pub = disagg = prefill = telemetry = None
     try:
         addr, owned_hub = await _resolve_hub(args)
         runtime = await DistributedRuntime.detached(addr)
@@ -781,10 +841,23 @@ async def run_worker(args) -> None:
         else:
             card, pub = await serve_worker(
                 runtime, engine, args.endpoint, args.model_path, args.model_name,
-                block_size=args.block_size,
+                block_size=args.block_size or args.page_size,
             )
-            banner = f"worker serving model {card.name} on {args.endpoint} (hub {addr})"
-        rtm.set_worker_identity(worker_id=runtime.primary_lease, role=args.disagg or "worker")
+            if card is None:
+                banner = f"worker serving on {args.endpoint} (hub {addr}; no model card)"
+            else:
+                banner = f"worker serving model {card.name} on {args.endpoint} (hub {addr})"
+        role = args.disagg or "worker"
+        rtm.set_worker_identity(worker_id=runtime.primary_lease, role=role)
+        ns = runtime.namespace(parse_endpoint_id(args.endpoint)[0])
+        telemetry = TelemetryPublisher(
+            ns, worker_id=runtime.primary_lease, role=role,
+            # the mocker's synthetic link observations ride its own log;
+            # every other engine's, the process-wide one the disagg and G4
+            # paths feed
+            transfer_log=getattr(engine, "transfer_log", None),
+        )
+        telemetry.start()
         stop = asyncio.Event()
         # hub loss orphans this worker's registrations: exit so a supervisor
         # restarts it into a live cluster (fail loud)
@@ -793,6 +866,8 @@ async def run_worker(args) -> None:
         print(banner, flush=True)
         await _wait_forever(stop, drain_runtime=runtime)
     finally:
+        if telemetry is not None:
+            await telemetry.stop(final=False)
         if prefill is not None:
             await prefill.stop()
         if disagg is not None:

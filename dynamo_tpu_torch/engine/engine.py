@@ -191,7 +191,7 @@ from ..protocols.common import (
     LLMEngineOutput,
     PreprocessedRequest,
 )
-from ..runtime import profiling, slo, tracing
+from ..runtime import faults, profiling, slo, tracing
 from ..runtime.engine import Annotated, Context, ResponseStream
 from ..runtime.metrics import EngineMetrics, SpecMetrics
 from ..spec.drafter import MAX_DRAFT_TOKENS, SpecState, longest_accepted, make_drafter, spec_live
@@ -1977,6 +1977,16 @@ class TorchEngine:
         final_chunks: List[MixedChunk] = []
         for ch in chunks:
             b = ch.seq.slot
+            onboarding = bool(ch.seq.pending_onboard)
+            self._prepare_prefill(ch.seq)
+            if onboarding and ch.seq.cached_prompt_tokens < ch.start:
+                # onboard truncated: the would-have-been-onboarded span is
+                # recomputed, so the chunk widens back to the surviving
+                # cached prefix (the classic paths read the start after
+                # _prepare_prefill and get this for free)
+                end = ch.start + ch.length
+                ch.start = ch.seq.cached_prompt_tokens
+                ch.length = end - ch.start
             chunk_by_slot[b] = ch
             p_start[b] = ch.start
             p_lens[b] = ch.length
@@ -1984,7 +1994,6 @@ class TorchEngine:
             # a speculating lane samples its first token here but stays
             # device-inactive: it advances through verify columns
             p_act[b] = ch.final and not spec_live(ch.seq.spec)
-            self._prepare_prefill(ch.seq)
             self._note_prefix_stats(ch.seq)
             ch.seq.prefilled_tokens = ch.start + ch.length
             if ch.final:
@@ -2353,7 +2362,9 @@ class TorchEngine:
         folded and the standalone verify.  A lane's proposal comes from the
         precompute stamped at its last commit when that still extends its
         history, else from its drafter now; the draft is clamped to the
-        lane's write headroom, so it never outruns its pages or budget."""
+        lane's write headroom, so it never outruns its pages or budget.
+        The ``spec.draft_corrupt`` chaos site corrupts the settled draft,
+        precomputed or proposed here, before any verify column reads it."""
         sched = self.sched
         limits = self._compute_limits()
         lanes: List[SpecLane] = []
@@ -2375,6 +2386,16 @@ class TorchEngine:
                     if got is None:
                         continue  # the drafter failed: the request fails
                 draft = got
+                if (
+                    draft
+                    and faults.injector.enabled
+                    and faults.injector.should_fire("spec.draft_corrupt", seq.request_id)
+                ):
+                    # every proposed token shifted off its value: the accept
+                    # walk rejects the whole column (a bad draft costs only
+                    # compute, never output)
+                    V = self.model_cfg.vocab_size
+                    draft = [(t + 1) % V for t in draft]
             lanes.append((seq, b, draft, seq.life))
         if lanes:
             self.spec_metrics.draft_latency.observe(max(time.perf_counter() - t0, 0.0))
@@ -3691,7 +3712,13 @@ class TorchEngine:
         register them (executor thread, before the prefill dispatch that
         reads them): all of the admission's hits in one page-bucketed,
         layer-chunked scatter, enqueued before that dispatch on its
-        stream."""
+        stream.  The ``onboard.truncate`` chaos site abandons them
+        instead."""
+        if faults.injector.enabled and faults.injector.should_fire(
+            "onboard.truncate", seq.request_id
+        ):
+            self._abandon_onboards(seq)
+            return
         pending, seq.pending_onboard = seq.pending_onboard, []
         ids = [p for _h, pages, _b, _m in pending for p in pages]
         blobs = [self._coerce_blob(b) for _h, _p, b, _m in pending]
@@ -3711,6 +3738,24 @@ class TorchEngine:
                 for p in pages:
                     seq.owned_pages.remove(p)
             # register False: a twin onboarded it meanwhile; keep ownership
+
+    def _abandon_onboards(self, seq: SeqState) -> None:
+        """Onboard aborted (chaos): recompute the would-have-been-onboarded
+        prefix.  Its pages already sit at their page-table positions, so
+        they stay plain-owned and the longer suffix prefill writes the
+        prompt's KV into them -- no page moves, none leaks, nothing
+        registers until the prefill's KV is committed."""
+        sched = self.sched
+        seq.pending_onboard = []
+        seq.cached_prompt_tokens = len(seq.held_blocks) * sched.block_size
+        if seq.prefilling:
+            # a chunk-bound lane restarts its chunks at the surviving prefix
+            seq.prefilled_tokens = min(seq.prefilled_tokens, seq.cached_prompt_tokens)
+        sched._queue_prompt_registrations(seq)
+        oe = self.offload_engine
+        if oe is not None:
+            oe.onboard_fallbacks += 1
+            oe.metrics.onboard_fallbacks.labels("truncate").inc()
 
     def _swap_out(self, seq: SeqState) -> bool:
         """The scheduler's ``swap_out`` hook (loop thread, victim still
@@ -3762,6 +3807,11 @@ class TorchEngine:
                 continue
             if (rec.dev is None and rec.state != kvoffload.SWAP_READY) or seq.slot < 0:
                 continue  # blob still materializing / lane not admitted
+            if faults.injector.enabled and faults.injector.should_fire(
+                "onboard.truncate", f"swap/{rid}"
+            ):
+                self._swap_recompute(seq, "truncate")
+                continue
             self._swapped.pop(rid, None)
             out.append((seq, rec))
         return out

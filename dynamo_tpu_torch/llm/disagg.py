@@ -14,10 +14,10 @@ package's both ways: the same queue items, hub keys, raw endpoint, frame
 layout and blob bytes.  A delivery names its dtype as JAX does
 (``bfloat16``, ``float32``, ``int8``); a bf16 blob's bytes are its values'
 two bytes, held here as ``uint16`` (``kv_cache.wire_dtype``).  The
-``CircuitBreaker`` takes a flight-recorder snapshot when it opens.  Left
-out: ``PrefillWorker._record_delivery``'s ``telemetry.note_transfer`` (no
-``runtime/telemetry.py``); the ``dynamo_disagg_*`` series and
-``transfer_stats`` carry the same numbers.
+``CircuitBreaker`` takes a flight-recorder snapshot when it opens.  A
+wire delivery is noted in the telemetry plane's transfer log
+(``PrefillWorker._record_delivery``), so the worker's next snapshot carries
+the link sample.
 
 Transfer plane: the reference's NIXL one-sided RDMA write
 (block_manager/storage/nixl.rs:173, block/transfer.rs) becomes a
@@ -815,6 +815,17 @@ class PrefillWorker:
         self.obs.export_latency.observe(row["export_ms"] / 1e3)
         if "overlap_ratio" in row:
             self.obs.overlap_ratio.observe(row["overlap_ratio"])
+        # fleet plane: dst-attributed wire transfers feed the observatory's
+        # per-(src, dst) link model via the next telemetry snapshot
+        if path == "wire" and "dst" in row:
+            from ..runtime import telemetry
+
+            telemetry.note_transfer(
+                src=self.namespace.runtime.primary_lease,
+                dst=row["dst"],
+                nbytes=row["bytes"],
+                seconds=row["deliver_ms"] / 1e3,
+            )
 
     def transfer_stats(self) -> Dict[str, Any]:
         """Percentile summary of the recorded deliveries (bench/metrics

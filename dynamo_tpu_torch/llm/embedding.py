@@ -7,12 +7,14 @@ final hidden rows).  ``EmbeddingEngine`` accepts an ``EmbeddingRequest``
 "prompt_tokens": N}``.  The distributed leg: a worker serves the engine on
 its ``{ep}_embed`` endpoint, where requests arrive in the wire form
 ``{"token_batches": [[ids], ...]}``, and the front end reaches it through
-``router_embedder``.  Not carried over: ``fake_embedder``, the model-free
-engines' leg.
+``router_embedder``.  ``fake_embedder`` is the model-free engines' leg
+(the mocker and echo engines have no trunk).
 """
 
 from __future__ import annotations
 
+import hashlib
+import math
 from typing import Any, AsyncIterator, Awaitable, Callable, List, Optional
 
 from ..protocols.openai import INVALID_MARK, EmbeddingRequest, OpenAIError
@@ -140,5 +142,29 @@ def router_embedder(router) -> Embedder:
             if "embeddings" in data:
                 return data["embeddings"]
         raise RuntimeError("embedding worker returned no vectors")
+
+    return embed
+
+
+def fake_embedder(dim: int = 32) -> Embedder:
+    """Deterministic, content-dependent unit vectors with no model -- the
+    echo/mocker leg for wiring tests (same role the echo engines play for
+    the generate path)."""
+
+    async def embed(batches: List[List[int]]) -> List[List[float]]:
+        out: List[List[float]] = []
+        for toks in batches:
+            h = hashlib.sha256(
+                b",".join(str(t).encode() for t in toks)
+            ).digest()
+            vals = []
+            seed = h
+            while len(vals) < dim:
+                seed = hashlib.sha256(seed).digest()
+                vals.extend(b / 255.0 - 0.5 for b in seed)
+            v = vals[:dim]
+            norm = math.sqrt(sum(x * x for x in v)) or 1.0
+            out.append([x / norm for x in v])
+        return out
 
     return embed

@@ -9,8 +9,9 @@ disaggregation and prefix-onboarding landing zone ``KVStagingBuffer``, and
 the G4 tier: its self-describing blob frames (``pack_kv_blob_frame``,
 ``unpack_kv_blob_frame``), ``InMemoryBlobStore``, ``RemoteTier`` and the
 ``--kv-remote`` grammar (``parse_kv_remote_spec``, ``env_remote_spec``).
-Left out: the offload thread's fault sites, and the transfer log the
-remote tier feeds in the JAX package (the port has no telemetry plane).
+The ``offload.copy_fail`` chaos site fires where the JAX package fires it,
+with the same keys (``evict/{seq_hash:x}``, ``swap/{request_id}``), and the
+remote tier feeds the telemetry plane's transfer log (``note_transfer``).
 
 Reference parity: lib/llm/src/block_manager offload (offload.rs:76-80 --
 eviction cascades G1 -> G2 -> G3, lookups promote back up).  An evicted
@@ -866,6 +867,9 @@ class RemoteTier:
             known = len(self._known)
         self.metrics.record_store(len(frame), dt)
         self.metrics.blocks.set(known)
+        from .runtime.telemetry import note_transfer
+
+        note_transfer(self.worker_id, G4_STORE_ID, len(frame), dt)
         cb = self.holdings_cb
         if cb is not None:
             try:
@@ -913,6 +917,9 @@ class RemoteTier:
             self.fetch_bytes += len(frame)
             self.fetch_seconds += dt
         self.metrics.record_fetch(len(frame), dt)
+        from .runtime.telemetry import note_transfer
+
+        note_transfer(G4_STORE_ID, self.worker_id, len(frame), dt)
         return blob, meta
 
     def _count_fail(self, cause: str) -> None:
@@ -1224,7 +1231,14 @@ class KVOffloadEngine:
         self._ex.submit(self._store_evict, seq_hash, snap, meta)
 
     def _store_evict(self, seq_hash: int, snap: Any, meta: BlockMeta) -> None:
+        from .runtime import faults
+
         try:
+            if faults.injector.enabled and faults.injector.should_fire(
+                "offload.copy_fail", f"evict/{seq_hash:x}"
+            ):
+                self.note_copy_fail()
+                return  # lost offload = a cache miss later, never an error
             t0 = time.perf_counter()
             blob = to_host(snap)
             self.host.put(seq_hash, blob, meta)
@@ -1458,9 +1472,22 @@ class KVOffloadEngine:
         ``swap_device_blocks``) so a short park restores without crossing
         the host link; the host materialize is queued as the spill.
         Returns False (the caller falls back to recompute) when swap is
-        disabled or the budget is exhausted -- tiers-full is a fallback,
-        never an error."""
+        disabled, the budget is exhausted, or the ``offload.copy_fail``
+        chaos site fires -- tiers-full is a fallback, never an error."""
+        from .runtime import faults
+
         if not self.swap_enabled:
+            return False
+        if faults.injector.enabled and faults.injector.should_fire(
+            "offload.copy_fail", f"swap/{request_id}"
+        ):
+            # runs on the engine executor while the offload thread may be
+            # bumping the same counters: lock-guard the increments
+            with self._lock:
+                self.copy_fails += 1
+                self.swap_fallbacks += 1
+            self.metrics.copy_fails.inc()
+            self.metrics.swap_fallbacks.labels("copy_fail").inc()
             return False
         keep_dev = self.swap_device_blocks > 0
         with self._lock:

@@ -276,6 +276,35 @@ class MetricsRegistry:
             "histogram", name, documentation, labelnames, buckets
         )
 
+    def sample(
+        self, name: str, labels: Optional[Dict[str, str]] = None
+    ) -> Optional[float]:
+        """Current value of one series, or None if it does not exist yet:
+        a counter's or gauge's value, a histogram's sum.  The series'
+        own labels must equal ``labels`` exactly (the identity labels
+        stamped at render time take no part), as in the JAX package."""
+        want = {k: str(v) for k, v in (labels or {}).items()}
+        with self._lock:
+            fam = self._families.get(name)
+        if fam is None or set(want) != set(fam.labelnames):
+            return None
+        with fam._lock:
+            child = fam._children.get(tuple(want[n] for n in fam.labelnames))
+            if child is None:
+                return None
+            return float(child.sum if fam.kind == "histogram" else child.value)
+
+    def histogram_totals(self, name: str) -> Tuple[float, float]:
+        """(count, sum) across every label set of one histogram family."""
+        with self._lock:
+            fam = self._families.get(name)
+        if fam is None or fam.kind != "histogram":
+            return 0.0, 0.0
+        with fam._lock:
+            children = list(fam._children.values())
+            return (float(sum(sum(c.buckets) for c in children)),
+                    float(sum(c.sum for c in children)))
+
     def render(self) -> Tuple[bytes, str]:
         with self._lock:
             families = list(self._families.values())

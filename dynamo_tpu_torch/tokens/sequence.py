@@ -1,7 +1,7 @@
 """TokenBlockSequence: incremental block-aligned view of a token stream.
 
 Reference parity: lib/llm/src/tokens.rs (TokenBlockSequence with append /
-extend and incremental block completion).  The engine appends generated
+extend / truncate / unwind and incremental block completion).  The engine appends generated
 tokens one at a time; each time a block completes, its block/sequence
 hashes are computed and the completion is surfaced so block-manager
 registrations can happen.
@@ -27,7 +27,7 @@ class TokenBlock:
 
 
 class TokenBlockSequence:
-    """Append-only sequence of tokens, chunked into blocks.
+    """Append-only (with unwind) sequence of tokens, chunked into blocks.
 
     Complete blocks are hashed and frozen; the tail (< block_size tokens)
     stays mutable.  ``append`` returns the newly-completed block, if any.
@@ -106,3 +106,17 @@ class TokenBlockSequence:
         self.blocks.append(blk)
         self._tail.clear()
         return blk
+
+    def truncate(self, n_tokens: int) -> None:
+        """Drop tokens from the end until ``len(self) == n_tokens``."""
+        if n_tokens < 0 or n_tokens > len(self._tokens):
+            raise ValueError(f"cannot truncate to {n_tokens}")
+        self._tokens = self._tokens[:n_tokens]
+        n_complete = n_tokens // self.block_size
+        self.blocks = self.blocks[:n_complete]
+        self._tail = self._tokens[n_complete * self.block_size :]
+
+    def unwind(self, n_tokens: int) -> None:
+        """Remove the last ``n_tokens`` tokens (the mocker's rollback of a
+        token whose block found no room)."""
+        self.truncate(len(self._tokens) - n_tokens)

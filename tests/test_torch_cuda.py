@@ -1231,6 +1231,101 @@ def test_swap_in_under_graph_replay(card, kv_dtype):
     assert swapped == roomy == cpu
 
 
+CHAOS = {
+    "swap-copy-fail": ("seed=3;offload.copy_fail=1:match=swap/", {}),
+    "swap-truncate": ("seed=3;onboard.truncate=1:match=swap/", {}),
+    "draft-corrupt-folded": ("seed=7;spec.draft_corrupt=1", {}),
+    "draft-corrupt-fold-off": ("seed=7;spec.draft_corrupt=1", {"fold_spec_verify": False}),
+}
+
+
+@pytest.mark.parametrize("case", list(CHAOS))
+def test_chaos_sites_on_the_card_are_the_cpu_runs(card, case):
+    """The engine chaos sites armed on the card (swap copy failure, swap
+    restore truncation, corrupted drafts folded and standalone) give the
+    CPU's streams, firings and fallbacks, and the unfaulted streams."""
+    import asyncio
+
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.model import init_params
+    from dynamo_tpu_torch.protocols.common import PreprocessedRequest
+    from dynamo_tpu_torch.runtime import faults
+    from dynamo_tpu_torch.runtime.engine import Context
+    from dynamo_tpu_torch.spec import register_drafter
+
+    spec_str, extra = CHAOS[case]
+    drafting = case.startswith("draft")
+    cfg = ModelConfig.tiny(head_dim=64, num_heads=4, num_kv_heads=2, num_layers=2)
+    params = init_params(cfg, 3, torch.device("cpu"), torch.float32)
+    rs = np.random.default_rng(5)
+    prompts = [rs.integers(1, cfg.vocab_size, 20).tolist() for _ in range(2)]
+
+    async def serve(eng, draft):
+        async def one(p):
+            req = {"token_ids": p, "stop_conditions": {"max_tokens": 60},
+                   "sampling_options": {"temperature": 0.0}, "eos_token_ids": []}
+            if draft:
+                req["speculation"] = {"enabled": True, "num_draft_tokens": 4,
+                                      "drafter": "card-chaos-oracle"}
+            stream = await eng.generate(Context.new(PreprocessedRequest.from_dict(req)))
+            out = []
+            async for item in stream:
+                assert not item.is_error(), item.error_message()
+                out += (item.data or {}).get("token_ids") or []
+            return out
+
+        try:
+            return await asyncio.wait_for(asyncio.gather(*[one(p) for p in prompts]), 120)
+        finally:
+            await eng.stop()
+
+    def run(dev, armed, draft=False):
+        on = {k: ({n: w.to(dev) for n, w in v.items()} if isinstance(v, dict) else v.to(dev))
+              for k, v in params.items()}
+        kw = dict(max_batch_size=2, max_seq_len=256, mixed_token_budget=32,
+                  num_pages=64 if drafting else 9, async_dispatch=False, **extra)
+        if not drafting:
+            kw["host_offload_blocks"] = 32
+        eng = TorchEngine(cfg, on, EngineConfig(**kw), device=dev)
+        if armed:
+            faults.injector.configure(spec_str)
+        try:
+            out = asyncio.run(serve(eng, draft))
+            fired = {s: faults.injector.fire_count(s) for s in
+                     ("offload.copy_fail", "onboard.truncate", "spec.draft_corrupt")}
+        finally:
+            faults.injector.disable()
+        oe = eng.offload_engine
+        counts = (eng.spec_accepted, eng.sched.preempt_swap, eng.sched.preempt_recompute,
+                  None if oe is None else (oe.copy_fails, oe.swap_fallbacks, oe.swap_ins))
+        return out, fired, counts
+
+    plain = run(card, False)[0]
+    if drafting:
+        register_drafter("card-chaos-oracle", lambda: _Oracle(prompts, plain))
+    got = run(card, True, drafting)
+    want = run(torch.device("cpu"), True, drafting)
+    assert got == want
+    assert got[0] == plain
+    assert sum(got[1].values()) > 0
+    if drafting:
+        assert got[2][0] == 0  # every corrupted draft rejected
+
+
+class _Oracle:
+    """Drafts each prompt's known plain continuation."""
+
+    def __init__(self, prompts, streams):
+        self.full = [list(p) + list(t) for p, t in zip(prompts, streams)]
+
+    def propose(self, history, n):
+        for full in self.full:
+            if full[: len(history)] == list(history):
+                return full[len(history): len(history) + n]
+        return []
+
+
 # ---------------------------------------------------------------------------
 # Two engines in one process (the workers of serve-dyn)
 # ---------------------------------------------------------------------------

@@ -98,8 +98,10 @@ def test_port_imports_nothing_refused():
     # faults, thread_sentry, tracing, utils, protocols/endpoint,
     # llm/model_card, llm/discovery, llm/kv_router/), 70 with llm/disagg,
     # 71 with llm/prefix_onboard, 75 with the observability plane
-    # (runtime/profiling, slo, compile_sentry, recorder)
-    assert int(out.stdout.strip().splitlines()[-1]) >= 75
+    # (runtime/profiling, slo, compile_sentry, recorder), 80 with
+    # runtime/telemetry, the model-free engines (mocker/ and its engine
+    # and kv_manager, llm/echo)
+    assert int(out.stdout.strip().splitlines()[-1]) >= 80
 
 
 # the speculative decoding package, the model drafter and weight-only int8:
@@ -180,6 +182,24 @@ OBSERVABILITY = (
 def test_observability_imports_nothing_refused():
     out = subprocess.run(
         [sys.executable, "-c", ONLY, ",".join(REFUSED), ",".join(OBSERVABILITY)],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+# worker telemetry and the model-free engines: copies of JAX modules that
+# import no JAX, whose JAX originals reach the JAX package's runtime
+MODEL_FREE = (
+    "dynamo_tpu_torch.runtime.telemetry", "dynamo_tpu_torch.mocker",
+    "dynamo_tpu_torch.mocker.engine", "dynamo_tpu_torch.mocker.kv_manager",
+    "dynamo_tpu_torch.llm.echo", "dynamo_tpu_torch.llm.embedding",
+)
+
+
+def test_telemetry_and_model_free_engines_import_nothing_refused():
+    out = subprocess.run(
+        [sys.executable, "-c", ONLY, ",".join(REFUSED), ",".join(MODEL_FREE)],
         cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr

@@ -271,7 +271,11 @@ def test_kv_router_routes_to_the_prefix_holder(run, params, index_shards):
             assert len(await drain(await kv.generate(Context.new(req(prefix))))) == 4
             first, overlap0 = captured[0]
             assert overlap0 == 0
-            await wait_for(lambda: chooser.indexer.num_blocks >= 6, "stored events never indexed")
+            # the condition the routing assertion reads: the index matches
+            # the whole prefix on its holder
+            await wait_for(
+                lambda: chooser.indexer.find_matches_for_tokens(prefix).scores.get(first) == 6,
+                "stored events never indexed")
             hits = {w[0].primary_lease: w[1] for w in workers}
             before = hits[first]._prefix_hits
             for k in range(3):
@@ -291,6 +295,10 @@ def test_kv_router_routes_to_the_prefix_holder(run, params, index_shards):
             await dead[1].stop()
             await dead[0].shutdown()
             await wait_for(lambda: first not in client.instance_ids(), "dead instance listed")
+            # the scrape drops a worker its own load_metrics client no longer
+            # lists: that client's watch pumps apart from the generate one's
+            await wait_for(lambda: first not in chooser.aggregator._client.instance_ids(),
+                           "dead instance listed to the scraper")
             await chooser.aggregator.scrape_once()
             assert first not in chooser.indexer.find_matches_for_tokens(prefix).scores
             assert first not in chooser.scheduler.workers.endpoints
