@@ -328,12 +328,28 @@ Every phase is fatal on failure:
    dispatch around them); blocks and bytes onboarded, each request's
    fetch GB/s, the G4 puts' and fetches' GB/s (``dynamo_kv_g4_*``), TTFT
    from arrival p50/p99 beside the twin's, wall, peak GiB and the
-   threads' profile.  (c)
+   threads' profile.  The front end carries the fleet observatory
+   (``fleet/observatory.py``) the CLI's front end carries, fed by A''s and
+   B''s telemetry snapshots over the hub: both G4 links have as many
+   samples as the tier's puts and fetches, the routed round's gate priced
+   each fetch by the 1 GB/s prior (no G4 -> B' sample yet), and a gate
+   round then routes a fifth mirrored prefix to B', whose gate prices the
+   fetch by the fitted link (``predict_transfer_ms``, exactly); the fitted
+   GB/s beside the measured, and both rounds' decisions, are printed, and
+   which way the gate round decides is measured, not held.  (c)
    ``hub``, two ``run in=dyn out=torch --host-offload-blocks 256
    --kv-remote on`` workers and ``run in=http out=dyn --router-mode kv`` as
    four processes over serve-dyn (c)'s checkpoint: both ``kv_export``
    endpoints discovered, texts equal the in-process engine's, SIGINT ends
    each with exit code 0.
+
+15. serve-mocker: the model-free engine in a fleet (see
+   ``serve_mocker_phase``), and the front end's fleet observatory: ``GET
+   /fleet`` lists the four workers, its stragglers are the straggler rule's
+   over the step means of the same snapshots, the ``worker.slow`` mocker
+   among them and quarantined, a batch on its prefix placed elsewhere;
+   ``GET /fleet/metrics`` holds the fleet families; ``fleet --once --json``
+   and ``metrics`` run as processes and name the same workers.
 
 In every served run each kernel's launch count (graph replays included)
 must equal what the run's dispatches imply (``expected_launches``), and
@@ -4317,14 +4333,19 @@ class DynCluster:
     and load-metrics publishers, the model's registration) -- and the front
     end of ``run in=http out=dyn`` (``ModelWatcher`` over ``HttpService``)
     with ``--router-mode``'s pipeline: the KV router's factory for ``kv``,
-    else ``PushRouter`` in that mode.  The front end's runtime also
-    subscribes to the router's hit-rate events."""
+    else ``PushRouter`` in that mode, and the front end's fleet observatory
+    (``observatory``: the router's quarantine and link prices, ``/fleet``),
+    fed by the telemetry snapshots :meth:`publish_telemetry` sends over the
+    hub.  The front end's runtime also subscribes to the router's hit-rate
+    events."""
 
     async def start(self, engines, model_dir: str, router_mode: str, lease_ttl=None):
         from dynamo_tpu_torch.cli import kv_engine_factory
+        from dynamo_tpu_torch.fleet import FleetObservatory
         from dynamo_tpu_torch.http.service import HttpService, ModelManager
         from dynamo_tpu_torch.llm.discovery import ModelWatcher
         from dynamo_tpu_torch.runtime.component import DistributedRuntime, RouterMode
+        from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
         from dynamo_tpu_torch.runtime.transports.hub import HubServer
 
         self.engines = []
@@ -4335,22 +4356,24 @@ class DynCluster:
         # serve-onboard's workers move bulk KV on this one loop: leases of
         # LEASE_TTL_S outlast a loop kept busy (as serve-disagg's do)
         self.lease_ttl = lease_ttl
-        self.workers, self.pubs = [], []
+        self.workers, self.pubs, self.telemetry = [], [], {}
         for engine in engines:
             await self.add(engine)
         addr = self.addr
         self.front = await DistributedRuntime.detached(addr)
         self.manager = ModelManager()
         self.factory = None
+        self.observatory = FleetObservatory(MetricsRegistry())
         if router_mode == "kv":
-            self.factory = kv_engine_factory(self.front)
+            self.factory = kv_engine_factory(self.front, observatory=self.observatory)
             self.watcher = ModelWatcher(self.front, self.manager, engine_factory=self.factory)
         else:
             self.watcher = ModelWatcher(self.front, self.manager,
                                         router_mode=RouterMode(router_mode))
         await self.watcher.start()
+        await self.observatory.start(self.front.namespace("dynamo"))
         self.hit_rate = await self.front.namespace("dynamo").subscribe("kv-hit-rate")
-        self.service = HttpService(self.manager, port=0)
+        self.service = HttpService(self.manager, port=0, observatory=self.observatory)
         await self.service.start()
         self.port = self.service.address[1]
         t0 = time.perf_counter()
@@ -4387,6 +4410,28 @@ class DynCluster:
         await self.workers[i].shutdown()
         self.pubs[i] = self.engines[i] = self.workers[i] = None
 
+    async def publish_telemetry(self, i: int, role: str = "worker"):
+        """Worker ``i``'s next telemetry snapshot (``run in=dyn``'s
+        publisher: the process-wide transfer log drains into it) over the
+        hub, once the front end's observatory has ingested it; returns the
+        snapshot as the wire decodes it."""
+        from dynamo_tpu_torch.runtime.telemetry import TelemetryPublisher, TelemetrySnapshot
+
+        rt = self.workers[i]
+        pub = self.telemetry.get(i)
+        if pub is None:
+            pub = self.telemetry[i] = TelemetryPublisher(
+                rt.namespace("dynamo"), worker_id=rt.primary_lease, role=role)
+        count = self.observatory.metrics.registry.sample
+        seen = count("dynamo_fleet_snapshots") or 0.0
+        snap = await pub.publish_once()
+        t0 = time.perf_counter()
+        while (count("dynamo_fleet_snapshots") or 0.0) <= seen:
+            if time.perf_counter() - t0 > 30:
+                fail(f"the front end's observatory never ingested worker {i}'s snapshot")
+            await asyncio.sleep(0.01)
+        return TelemetrySnapshot.decode(snap.encode())
+
     def requests_per_worker(self) -> List[int]:
         """Requests each worker's generate endpoint took."""
         return [rt.endpoint_stats["dynamo/backend/generate"].requests for rt in self.workers]
@@ -4398,6 +4443,7 @@ class DynCluster:
     async def stop(self) -> None:
         await self.hit_rate.close()
         await self.service.stop()
+        await self.observatory.stop()
         await self.watcher.stop()
         await self.front.shutdown()
         for pub, engine, rt in zip(self.pubs, self.engines, self.workers):
@@ -5772,7 +5818,15 @@ def onboard_g4(tok_dir: str) -> Dict[str, object]:
     router keeps its index) and A' leaves; B' then gets requests on those
     prefixes through the front end's router, which stamps the G4 store as
     their donor, and fetches them over ``HubBlobClient``.  B''s onboarded
-    pages must equal A''s host blobs (the mirrored ones), block by block."""
+    pages must equal A''s host blobs (the mirrored ones), block by block.
+
+    The front end's observatory reads A''s and B''s telemetry snapshots
+    (over the hub): after the fetches both G4 links have samples, as many
+    as the tier's puts and fetches.  The routed round's gate priced each
+    fetch by the prior (the G4 -> B' link had no samples yet); a gate
+    round then routes a fifth mirrored prefix to B', and its gate prices
+    the fetch by the fitted link (``predict_transfer_ms`` exactly), which
+    way it decides being what the run measures."""
     from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.llm.kv_router.indexer import REMOTE_SOURCE_ID
@@ -5783,6 +5837,11 @@ def onboard_g4(tok_dir: str) -> Dict[str, object]:
     rng = np.random.default_rng(16)
     churn = [request(rng.integers(1, cfg.vocab_size, 1900), 16) for _ in range(2)]
     hashes = prefix_hashes(reqs)
+    # the gate round's prefix: mirrored with the others, never on B'
+    grng = np.random.default_rng(17)
+    fifth = grng.integers(1, cfg.vocab_size, 1024)
+    gate_req = request(np.concatenate([fifth, grng.integers(1, cfg.vocab_size, 64)]), 16)
+    gate_hashes = prefix_hashes([gate_req])
     what = "serve-onboard (b) G4"
     torch.cuda.reset_peak_memory_stats()
     a = TorchEngine.random_init(cfg, EngineConfig(num_pages=160, host_offload_blocks=512,
@@ -5806,20 +5865,22 @@ def onboard_g4(tok_dir: str) -> Dict[str, object]:
             series = kv_series(a)
             drain_links()
             t0 = time.perf_counter()
-            await stream_traffic(lambda c: router.direct(c, lease), donor_reqs)
+            await stream_traffic(lambda c: router.direct(c, lease),
+                                 donor_reqs + [request(fifth, 64)])
             for r in churn:
                 await stream_traffic(lambda c: router.direct(c, lease), [r])
             await asyncio.to_thread(a.offload_engine.drain)
             out["publish_wall"] = time.perf_counter() - t0
             remote = a.offload_engine.remote
-            # A''s puts into the store, in its next telemetry snapshot
+            # A''s puts into the store, in its next telemetry snapshot,
+            # which the front end's observatory reads off the hub
             out["put_links"] = check_links(
-                f"{what} puts", snapshot_links(lease, "worker"), lease, G4_STORE_ID,
-                remote.puts, remote.store_bytes, out["publish_wall"])
-            if any(a.sched.pool.is_registered(h) for h in hashes) or not all(
-                    remote.contains(h) for h in hashes):
+                f"{what} puts", (await cluster.publish_telemetry(0)).transfers, lease,
+                G4_STORE_ID, remote.puts, remote.store_bytes, out["publish_wall"])
+            if any(a.sched.pool.is_registered(h) for h in hashes + gate_hashes) or not all(
+                    remote.contains(h) for h in hashes + gate_hashes):
                 fail(f"{what}: the prefixes are not all out of A' and in the G4 store")
-            ring = {h: a.offload_engine.host.get_ram(h) for h in hashes}
+            ring = {h: a.offload_engine.host.get_ram(h) for h in hashes + gate_hashes}
             if any(v is None for v in ring.values()):
                 fail(f"{what}: A''s host ring lost prefix blocks")
             out["mirrored"] = await asyncio.to_thread(
@@ -5829,8 +5890,9 @@ def onboard_g4(tok_dir: str) -> Dict[str, object]:
             chooser = cluster.factory.choosers["m"]
 
             def advertised() -> bool:
-                src = [chooser.indexer.holdings.prefix_sources(hashes[i:i + 64])
-                       for i in range(0, len(hashes), 64)]
+                every = hashes + gate_hashes
+                src = [chooser.indexer.holdings.prefix_sources(every[i:i + 64])
+                       for i in range(0, len(every), 64)]
                 return all(s.get(REMOTE_SOURCE_ID, {}).get("blocks", 0) >= 64 for s in src)
 
             await wait_for(advertised, "the router's index never held the G4 adverts")
@@ -5849,26 +5911,68 @@ def onboard_g4(tok_dir: str) -> Dict[str, object]:
             series = kv_series(b)
             before = decision_counts()
             hits = b._prefix_hits
+            b_lease, b_remote = cluster.workers[1].primary_lease, b.offload_engine.remote
+            obs, push = cluster.observatory, cluster.factory.push_routers["m"]
+            if obs.predict_transfer_ms(1 << 20, G4_STORE_ID, b_lease) is not None:
+                fail(f"{what}: the observatory priced the G4 -> B' link before any fetch")
+            logged = len(push.decisions_log)
             drain_links()
             t0 = time.perf_counter()
             with ThreadSampler() as sampler:
-                out["run"] = await stream_traffic(cluster.factory.push_routers["m"].generate,
-                                                  reqs)
+                out["run"] = await stream_traffic(push.generate, reqs)
             out["wall"] = time.perf_counter() - t0
             out["threads"] = sampler.line()
             after = decision_counts()
             out["decisions"] = {k: after[k] - before.get(k, 0.0) for k in after
                                 if after[k] != before.get(k, 0.0)}
             out["hits"] = b._prefix_hits - hits
-            b_lease, b_remote = cluster.workers[1].primary_lease, b.offload_engine.remote
+            # no sample of the G4 -> B' link yet: each fetch priced by the prior
+            rows = push.decisions_log[logged:]
+            prior = [r["ship_bytes"] / (push._gbps * 1e9) * 1e3 for r in rows]
+            if len(rows) != len(reqs) or [r["pred_fetch_ms"] for r in rows] != prior:
+                fail(f"{what}: the routed round's gate rows {rows}, not the prior's {prior}")
+            out["routed_gate"] = rows
             out["fetch_links"] = check_links(
-                f"{what} fetches", snapshot_links(b_lease, "worker"), G4_STORE_ID, b_lease,
-                b_remote.fetches, b_remote.fetch_bytes, out["wall"])
+                f"{what} fetches", (await cluster.publish_telemetry(1)).transfers,
+                G4_STORE_ID, b_lease, b_remote.fetches, b_remote.fetch_bytes, out["wall"])
+            # both G4 links fitted from the snapshots, a sample a move
+            links = {(r["src"], r["dst"]): r for r in obs.link_table()}
+            put_link, fetch_link = links.get((lease, G4_STORE_ID)), links.get((G4_STORE_ID, b_lease))
+            if (put_link is None or fetch_link is None or put_link["samples"] != remote.puts
+                    or fetch_link["samples"] != b_remote.fetches
+                    or not fetch_link["bandwidth_bytes_per_s"]):
+                fail(f"{what}: the observatory's links {obs.link_table()}, puts {remote.puts}, "
+                     f"fetches {b_remote.fetches}")
+            out["links"] = (put_link, fetch_link)
             onboard = cluster.pubs[1].onboard
             out["onboarded"], out["fetch"] = onboard.onboarded_blocks, fetch_line(onboard)
             out["fetch_series"] = (series, kv_series(b))
             check_no_fetch_failure(what, [(b, cluster.pubs[1])])
             out["pages"] = prefix_pages(b, hashes)
+            # the gate round: the fifth prefix, priced by the fitted link
+            before = decision_counts()
+            logged, onboarded = len(push.decisions_log), onboard.onboarded_blocks
+            out["gate_run"] = await stream_traffic(push.generate, [gate_req])
+            after = decision_counts()
+            out["gate_decisions"] = {k: after[k] - before.get(k, 0.0) for k in after
+                                     if after[k] != before.get(k, 0.0)}
+            rows = push.decisions_log[logged:]
+            if len(rows) != 1 or rows[0]["donor"] != G4_STORE_ID:
+                fail(f"{what}: the gate round's gate rows {rows}, not one G4 donor")
+            row = rows[0]
+            fitted = obs.predict_transfer_ms(row["ship_bytes"], G4_STORE_ID, b_lease)
+            if row["pred_fetch_ms"] != fitted or fitted == row["ship_bytes"] / (
+                    push._gbps * 1e9) * 1e3:
+                fail(f"{what}: the gate priced the fetch at {row['pred_fetch_ms']} ms, the "
+                     f"fitted link at {fitted} ms")
+            out["gate_row"] = row
+            fetched = onboard.onboarded_blocks - onboarded
+            if (row["decision"] == "fetch") != (fetched == len(gate_hashes)) or fetched not in (
+                    0, len(gate_hashes)):
+                fail(f"{what}: the gate decided {row['decision']}, B' onboarded {fetched} blocks")
+            if fetched:
+                check_no_fetch_failure(what, [(b, cluster.pubs[1])])
+                out["pages"].update(prefix_pages(b, gate_hashes))
         finally:
             await cluster.stop()
 
@@ -5889,7 +5993,11 @@ def onboard_g4(tok_dir: str) -> Dict[str, object]:
     gc.collect()
     torch.cuda.empty_cache()
     pages = out.pop("pages")
-    differ = [h for h in hashes if h not in pages or page_digest(pages[h]) != out["mirrored"][h]]
+    checked = hashes + (gate_hashes if out["gate_row"]["decision"] == "fetch" else [])
+    differ = [h for h in checked if h not in pages or page_digest(pages[h]) != out["mirrored"][h]]
+    if [(r["finish"], len(r["tokens"])) for r in out["gate_run"]] != [("length", 16)]:
+        fail(f"{what}: the gate round's request ended "
+             f"{[(r['finish'], len(r['tokens'])) for r in out['gate_run']]}")
     if out["decisions"].get("kv_remote", 0) != len(reqs):
         fail(f"{what}: the router's decisions {out['decisions']}, not {len(reqs)} kv_remote")
     if differ or out["onboarded"] != len(hashes) or out["hits"] < 1024 * len(reqs):
@@ -6015,6 +6123,24 @@ def serve_onboard_phase(ref: Dict[str, object], card: str, ckpt,
                       f"{res['publish_wall']:.3f} s on {card}")
                 print(f"serve-onboard: (b) G4 puts {res['put_links']}")
                 print(f"serve-onboard: (b) G4 fetches {res['fetch_links']}")
+                fits = "; ".join(
+                    f"{name} {ln['samples']} samples fitted "
+                    f"{ln['bandwidth_bytes_per_s'] / 1e9:.4f} GB/s + {ln['setup_ms']:.3f} ms setup"
+                    for name, ln in zip(("A'->G4", "G4->B'"), res["links"]))
+                print(f"serve-onboard: (b) G4 observatory links: {fits}; measured "
+                      f"{g4_rate(res['store_series'], 'store')} "
+                      f"{g4_rate(res['fetch_series'], 'fetch')} on {card}")
+                rows = res["routed_gate"]
+                print(f"serve-onboard: (b) G4 routed round's gate on the prior: decisions "
+                      f"{res['decisions']}; pred_fetch_ms "
+                      f"{[round(r['pred_fetch_ms'], 3) for r in rows]} vs pred_prefill_ms "
+                      f"{[round(r['pred_prefill_ms'], 3) for r in rows]}")
+                row = res["gate_row"]
+                print(f"serve-onboard: (b) G4 gate round on the fitted link: {row['decision']}; "
+                      f"pred_fetch_ms {row['pred_fetch_ms']:.3f} (the fit, "
+                      f"{row['ship_bytes']} bytes) vs pred_prefill_ms "
+                      f"{row['pred_prefill_ms']:.3f}; router decisions "
+                      f"{res['gate_decisions']} on {card}")
             print(f"serve-onboard: (b) {leg} threads: {res['threads']}")
             print(f"serve-onboard: (b) {leg} launches {res['launches']}")
             for k, n in res["launches"].items():
@@ -6029,7 +6155,10 @@ def serve_onboard_phase(ref: Dict[str, object], card: str, ckpt,
 # -- serve-mocker: the model-free engine in a fleet -------------------------------
 
 
-MOCKER_SLOW_S = 0.05  # worker.slow's armed delay on one mocker process
+# worker.slow's armed delay on one mocker process: its step mean (about
+# half the delay, the tick being pipelined) must stand out of a fleet whose
+# torch worker steps in milliseconds for the straggler rule to flag it
+MOCKER_SLOW_S = 0.15
 KILL_FRAME = "mocker crashed (injected worker.kill)"
 
 
@@ -6059,13 +6188,16 @@ async def mocker_fleet(addr: str, port: int, path: str, procs: List["Proc"],
     """serve-mocker's checks, against the running processes (see
     :func:`serve_mocker_phase`)."""
     from dynamo_tpu_torch.cli import serve_worker
+    from dynamo_tpu_torch.fleet import FleetObservatory
     from dynamo_tpu_torch.llm.tokenizer import Tokenizer
     from dynamo_tpu_torch.mocker import MockerConfig, MockerEngine
     from dynamo_tpu_torch.protocols.common import ForwardPassMetrics
     from dynamo_tpu_torch.runtime.component import DistributedRuntime, PushRouter
     from dynamo_tpu_torch.runtime.engine import Context
     from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
-    from dynamo_tpu_torch.runtime.telemetry import TELEMETRY_TOPIC, TelemetrySnapshot
+    from dynamo_tpu_torch.runtime.telemetry import (
+        TELEMETRY_TOPIC, TelemetryPublisher, TelemetrySnapshot,
+    )
 
     what = "serve-mocker"
     await wait_log(procs[0], "hub at", what)
@@ -6073,7 +6205,12 @@ async def mocker_fleet(addr: str, port: int, path: str, procs: List["Proc"],
     ns = rt.namespace("dynamo")
     telemetry_sub = await ns.subscribe(TELEMETRY_TOPIC)
     hit_sub = await ns.subscribe("kv-hit-rate")
-    # the fourth mocker, in this process: crash() plays worker.kill on it
+    # an observatory of this process's own over the same snapshots as the
+    # front end's: the step series the straggler rule is applied to
+    local = FleetObservatory(MetricsRegistry())
+    await local.start(ns)
+    # the fourth mocker, in this process: crash() plays worker.kill on it;
+    # it publishes telemetry as ``run in=dyn`` does
     crash_rt = await DistributedRuntime.detached(addr)
     vocab = Tokenizer.from_model_dir(path).vocab_size
     crash_engine = MockerEngine(MockerConfig(block_size=16, vocab_size=vocab,
@@ -6082,6 +6219,10 @@ async def mocker_fleet(addr: str, port: int, path: str, procs: List["Proc"],
     _, crash_pub = await serve_worker(crash_rt, crash_engine, "dyn://dynamo.backend.generate",
                                       path, None, block_size=16)
     crash_lease = crash_rt.primary_lease
+    crash_telemetry = TelemetryPublisher(
+        crash_rt.namespace("dynamo"), worker_id=crash_lease, role="worker",
+        registry=crash_engine.registry, transfer_log=crash_engine.transfer_log)
+    crash_telemetry.start()
     try:
         t0 = time.perf_counter()
         client = await ns.component("backend").endpoint("generate").client()
@@ -6116,32 +6257,53 @@ async def mocker_fleet(addr: str, port: int, path: str, procs: List["Proc"],
         async def hit_event() -> dict:
             return json.loads((await asyncio.wait_for(hit_sub.next(), 30))[1])
 
-        # (b) a prefix-sharing batch: each repeat goes to its prefix's holder
+        # (b) a prefix-sharing batch: each repeat goes to its prefix's
+        # holder, unless the front end's observatory has quarantined the
+        # holder as a straggler (the armed mocker is one once it has
+        # stepped), when it goes to another worker
+        async def quarantined() -> set:
+            status, body = await http_call(port, "GET", "/fleet")
+            if status != 200:
+                fail(f"{what} (b): GET /fleet -> {status}")
+            return set(json.loads(body)["quarantined"])
+
         rng = np.random.default_rng(31)
         prefixes = [rng.integers(1, 128000, 256) for _ in range(4)]
-        holders, served_by = [], {}
+        holders, served_by, placed = [], {}, []
         for p in prefixes:
             await fleet_ask(port, [request(np.concatenate([p, rng.integers(1, 128000, 8)]), 16)],
                             f"{what} (b) round 1")
             ev = await hit_event()
             holders.append(ev["worker_id"])
+            placed.append(ev["worker_id"])
         await asyncio.sleep(1.0)  # every holder's stored events indexed
-        overlaps = []
+        overlaps, away, unsettled = [], 0, 0
         for p, holder in zip(prefixes, holders):
             for _ in range(2):
+                before = await quarantined()
                 await fleet_ask(port, [request(np.concatenate([p, rng.integers(1, 128000, 8)]),
                                                16)], f"{what} (b) round 2")
                 ev = await hit_event()
+                after = await quarantined()
+                placed.append(ev["worker_id"])
                 overlaps.append(ev["overlap_blocks"])
                 served_by[ev["worker_id"]] = served_by.get(ev["worker_id"], 0) + 1
-                if ev["worker_id"] != holder or ev["overlap_blocks"] < 16:
+                if (holder in before) != (holder in after):
+                    unsettled += 1  # the holder's quarantine changed meanwhile
+                elif holder in before:
+                    away += 1
+                    if ev["worker_id"] == holder:
+                        fail(f"{what} (b): a repeat went to its quarantined holder {holder}")
+                elif ev["worker_id"] != holder or ev["overlap_blocks"] < 16:
                     fail(f"{what} (b): a repeat went to {ev['worker_id']} with "
                          f"{ev['overlap_blocks']} overlap blocks, its prefix's holder is {holder}")
         kinds = {i: ("torch" if i in torch_ids else "crash mocker" if i == crash_lease
                      else "mocker") for i in slots}
         print(f"serve-mocker: (b) 12 requests answered; round 1's holders "
               f"{[kinds[h] for h in holders]}; every repeat went to its holder with "
-              f"overlap blocks {overlaps}; workers up after {up:.3f} s on {card}")
+              f"overlap blocks {overlaps}, {away} of them away from a quarantined holder "
+              f"({unsettled} while its quarantine changed); workers up after {up:.3f} s on "
+              f"{card}")
         # (c) each process worker's telemetry snapshot, one taken after (b)
         routed = time.time()
         snaps: Dict[int, object] = {}
@@ -6155,10 +6317,10 @@ async def mocker_fleet(addr: str, port: int, path: str, procs: List["Proc"],
             snap = TelemetrySnapshot.decode(blob)
             if snap.role != "worker" or snap.worker_id not in slots:
                 fail(f"{what} (c): a snapshot names worker {snap.worker_id} role {snap.role}")
-            if snap.ts >= routed:
+            if snap.ts >= routed and snap.worker_id != crash_lease:
                 snaps[snap.worker_id] = snap
         # every token (b) streamed from a process worker is in its counters
-        streamed = 16 * sum(1 for h in holders if h != crash_lease) * 3
+        streamed = 16 * sum(1 for w in placed if w != crash_lease)
         if sum(s.tokens_generated for s in snaps.values()) != streamed:
             fail(f"{what} (c): the snapshots count "
                  f"{sum(s.tokens_generated for s in snaps.values())} tokens, (b) streamed "
@@ -6167,9 +6329,10 @@ async def mocker_fleet(addr: str, port: int, path: str, procs: List["Proc"],
             f"{kinds[i]} {i:x} role={s.role} seq={s.seq} tokens_generated={s.tokens_generated} "
             f"kv_pages_total={s.kv_pages_total}" for i, s in snaps.items()))
         # (d) worker.slow: the same request straight to each mocker process
-        per_token = {}
+        per_token, prompts = {}, {}
         for iid in mocker_ids:
             req = request(rng.integers(1, 128000, 64), 32)
+            prompts[iid] = req["token_ids"]
             t2 = time.perf_counter()
             out = await stream_traffic(lambda c, iid=iid: PushRouter(client).direct(c, iid), [req])
             per_token[iid] = (time.perf_counter() - t2) / 32 * 1e3
@@ -6183,6 +6346,9 @@ async def mocker_fleet(addr: str, port: int, path: str, procs: List["Proc"],
         # over what the unarmed one's round trips through the host cost
         if slow - fast < 0.4 * MOCKER_SLOW_S * 1e3:
             fail(f"{what} (d): the armed mocker is not slowed by its delay: {per_token}")
+        await mocker_observatory(port, addr, local, client, slots, kinds,
+                                 max(per_token, key=per_token.get), prompts, rng, hit_event,
+                                 card)
         # (e) crash() on the in-process mocker, holding prefix Q, mid-stream
         q = rng.integers(1, 128000, 256)
         await stream_traffic(lambda c: PushRouter(client).direct(c, crash_lease),
@@ -6215,12 +6381,149 @@ async def mocker_fleet(addr: str, port: int, path: str, procs: List["Proc"],
               f"got the error frame {KILL_FRAME!r}, the front end served the other "
               f"{len(served)} to their full length {served}")
     finally:
+        await crash_telemetry.stop(final=False)
         await crash_pub.close()
         await crash_engine.stop()
         await crash_rt.shutdown()
+        await local.stop()
         await telemetry_sub.close()
         await hit_sub.close()
         await rt.shutdown()
+
+
+def straggler_rule(means: Dict[int, float], obs) -> set:
+    """The workers the fleet observatory's straggler rule flags for these
+    step means: at least ``straggler_min_workers`` of them, above
+    ``straggler_min_ratio`` x the median and ``straggler_z`` robust
+    deviations (MAD-scaled, floored at 2% of the median) above it."""
+    import statistics
+
+    if len(means) < obs.straggler_min_workers:
+        return set()
+    median = statistics.median(means.values())
+    mad = statistics.median(abs(v - median) for v in means.values())
+    sigma = max(mad / 0.6745, 0.02 * median, 1e-9)
+    return {w for w, m in means.items()
+            if median > 0 and m > obs.straggler_min_ratio * median
+            and (m - median) / sigma > obs.straggler_z}
+
+
+async def mocker_observatory(port: int, addr: str, local, client, slots: Dict[int, int],
+                             kinds: Dict[int, str], slow_id: int, prompts: Dict[int, list],
+                             rng, hit_event, card: str) -> None:
+    """serve-mocker (f): the front end's fleet observatory.  ``GET /fleet``
+    lists the four workers; its stragglers are the rule's over the step
+    means of the same snapshots (``local``, this process's observatory),
+    the slowed mocker among them and quarantined; a batch on the slowed
+    mocker's prefix goes elsewhere; ``GET /fleet/metrics`` holds the
+    fleet families; ``fleet --once --json`` and ``metrics`` name the same
+    workers."""
+    from dynamo_tpu_torch.runtime.component import PushRouter
+
+    what = "serve-mocker (f)"
+    t0 = time.perf_counter()
+    # every worker steps (the process mockers did in (d)); then two
+    # telemetry intervals of no traffic: both observatories hold every step
+    for iid in [i for i in slots if kinds[i] != "mocker"]:
+        await stream_traffic(lambda c, iid=iid: PushRouter(client).direct(c, iid),
+                             [request(rng.integers(1, 128000, 64), 16)])
+    await asyncio.sleep(2.5)
+    status, body = await http_call(port, "GET", "/fleet")
+    doc = json.loads(body)
+    rows = {w["worker_id"]: w for w in doc.get("workers", [])}
+    if status != 200 or {i: w["role"] for i, w in rows.items()} != {i: "worker" for i in slots}:
+        fail(f"{what}: GET /fleet -> {status}, workers {sorted(rows)} of {sorted(slots)}: "
+             f"{body[:500]!r}")
+    means = {}
+    for wid in slots:
+        steps = [v for _, v in (local.worker_series(wid) or {}).get("step_ms", [])]
+        last = rows[wid]["step_ms"]
+        if not steps or last != round(steps[-1], 3):
+            fail(f"{what}: worker {wid:x}'s steps {steps[-3:]} here, {last} on /fleet")
+        window = steps[-local.straggler_window:]
+        means[wid] = sum(window) / len(window)
+    flagged = straggler_rule(means, local)
+    print("serve-mocker: (f) step means ms " + ", ".join(
+        f"{kinds[w]} {w:x} {m:.3f}" for w, m in means.items())
+        + f"; /fleet stragglers {[kinds[w] for w in doc['stragglers']]} quarantined "
+        f"{[kinds[w] for w in doc['quarantined']]} on {card}")
+    if flagged != set(local.stragglers) or flagged != set(doc["stragglers"]):
+        fail(f"{what}: the rule flags {sorted(flagged)}, this process's observatory "
+             f"{local.stragglers}, the front end's {doc['stragglers']} (means {means})")
+    if slow_id not in flagged or slow_id not in doc["quarantined"]:
+        fail(f"{what}: the slowed mocker {slow_id:x} flagged {sorted(flagged)}, quarantined "
+             f"{doc['quarantined']} (means {means})")
+    if any(kinds[w] == "torch" for w in flagged):
+        print("serve-mocker: (f) the torch worker is flagged too")
+    # while quarantined, a batch on its prefix goes elsewhere
+    batch = [request(np.concatenate([prompts[slow_id], rng.integers(1, 128000, 8)]), 8)
+             for _ in range(4)]
+    await fleet_ask(port, batch, f"{what} quarantine batch")
+    placed = [(await hit_event())["worker_id"] for _ in batch]
+    if slow_id in placed:
+        fail(f"{what}: the quarantined mocker took {placed.count(slow_id)} of the batch")
+    status, body = await http_call(port, "GET", "/fleet/metrics")
+    text = body.decode()
+    families = set(re.findall(r"^# TYPE (\S+) ", text, re.M))
+    values = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, _, val = line.rpartition(" ")
+            values[key] = float(val)
+    need = {f"dynamo_fleet_{f}" for f in ("workers", "tokens_per_s", "kv_pressure",
+                                            "queue_depth", "slo_attainment", "stragglers",
+                                            "quarantined")}
+    if (status != 200 or not need <= families
+            or values.get('dynamo_fleet_workers{role="worker"}') != 4.0
+            or values.get("dynamo_fleet_quarantined", 0.0) < 1.0):
+        fail(f"{what}: GET /fleet/metrics -> {status}: {text[:1500]}")
+    # the fleet subcommand, a process of its own
+    proc = await asyncio.create_subprocess_exec(
+        sys.executable, "-m", "dynamo_tpu_torch", "fleet", "--hub", addr, "--once", "--json",
+        "--interval", "2.5", cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        out, err = await asyncio.wait_for(proc.communicate(), 60)
+    finally:
+        if proc.returncode is None:
+            proc.kill()
+            await proc.wait()
+    listed = {w["worker_id"] for w in json.loads(out or b"{}").get("workers", [])}
+    if proc.returncode != 0 or listed != set(slots):
+        fail(f"{what}: fleet --once --json exited {proc.returncode}, workers {sorted(listed)}: "
+             f"{err.decode()[-2000:]}")
+    # the metrics component: its slots are the four workers'
+    import tempfile
+
+    mport, tmp = free_port(), tempfile.mkdtemp(prefix="chip-smoke-metrics-")
+    metrics = Proc(tmp, "metrics", "metrics", "--hub", addr, "--host", "127.0.0.1",
+                   "--port", str(mport))
+    try:
+        want = sum(slots.values())
+        t1 = time.perf_counter()
+        while True:
+            metrics.check_alive()
+            with contextlib.suppress(OSError):
+                status, body = await http_call(mport, "GET", "/metrics")
+                got = re.search(rb'llm_requests_total_slots\{component="backend"\} (\S+)', body)
+                if status == 200 and got and float(got.group(1)) == want:
+                    break
+            if time.perf_counter() - t1 > 60:
+                fail(f"{what}: the metrics component never counted {want} slots: "
+                     f"{metrics.log()[-2000:]}")
+            await asyncio.sleep(0.2)
+        await asyncio.to_thread(metrics.interrupt, what)
+    finally:
+        metrics.kill()
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"serve-mocker: (f) GET /fleet lists {len(rows)} workers (roles "
+          f"{sorted({w['role'] for w in rows.values()})}); stragglers "
+          f"{[f'{w:x}' for w in sorted(flagged)]} == the rule's; the slowed mocker {slow_id:x} "
+          f"quarantined, the batch on its prefix went to {[kinds[w] for w in placed]}; "
+          f"/fleet/metrics holds the {len(need)} fleet families; fleet --once --json "
+          f"and metrics ({want} slots) name the same {len(listed)} workers, exit codes 0; "
+          f"{time.perf_counter() - t0:.3f} s")
 
 
 def serve_mocker_phase(card: str, ckpt) -> None:
@@ -6229,13 +6532,15 @@ def serve_mocker_phase(card: str, ckpt) -> None:
     ``worker.slow``), one ``run in=dyn out=torch`` worker over ``ckpt`` (a
     2-layer Llama-3-8B-width checkpoint) and ``run in=http out=dyn
     --router-mode kv`` as five processes, and a fourth mocker worker in this
-    process (``cli.serve_worker``).  (b) a prefix-sharing batch: every
-    request answers, every repeat goes to its prefix's holder; (c) each
-    process worker's telemetry snapshot decodes and names its worker id and
-    role; (d) the armed mocker's tokens come slower by its delay; (e)
-    ``crash()`` on the in-process mocker mid-stream: its lanes get the
-    kill frame, the front end serves the rest.  SIGINT ends each process
-    with exit code 0."""
+    process (``cli.serve_worker``, with its telemetry publisher).  (b) a
+    prefix-sharing batch: every request answers, every repeat goes to its
+    prefix's holder, or away from it while the front end's observatory
+    has it quarantined; (c) each process worker's telemetry snapshot
+    decodes and names its worker id and role; (d) the armed mocker's
+    tokens come slower by its delay; (f) the front end's fleet observatory
+    (:func:`mocker_observatory`); (e) ``crash()`` on the in-process mocker
+    mid-stream: its lanes get the kill frame, the front end serves the
+    rest.  SIGINT ends each process with exit code 0."""
     import shutil
     import tempfile
 
@@ -6358,6 +6663,7 @@ def profile_phase(out_path: str, plain_walls: Dict[str, float]) -> None:
 
 
 def main() -> None:
+    t_all = time.perf_counter()
     args = sys.argv[1:]
     profile_out = None
     if args:
@@ -6481,6 +6787,7 @@ def main() -> None:
     }
     for r in rows:
         r["launches"] = launches[r["name"]]
+    print(f"chip_smoke: whole run {time.perf_counter() - t_all:.3f} s on {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({
         "ok": True,

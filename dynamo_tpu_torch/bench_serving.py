@@ -355,6 +355,38 @@ async def _sse_request(
                 await writer.wait_closed()
 
 
+async def fetch_fleet(host: str, port: int) -> Dict[str, Any]:
+    """GET /fleet from the front end: the observatory's cluster summary,
+    attached to bench reports so a run's client-side numbers and the
+    fleet's server-side state land in one JSON document."""
+    writer = None
+    try:
+        reader, writer = await asyncio.open_connection(host, port)
+        writer.write(
+            b"GET /fleet HTTP/1.1\r\nHost: x\r\nConnection: close\r\n\r\n"
+        )
+        await writer.drain()
+        status_line = await reader.readline()
+        status = int(status_line.split()[1])
+        headers: Dict[str, str] = {}
+        while True:
+            raw = await reader.readline()
+            if not raw.strip():
+                break
+            k, _, v = raw.decode("latin1").partition(":")
+            headers[k.strip().lower()] = v.strip()
+        body = b"".join([ln async for ln in _body_lines(reader, headers)])
+        doc = json.loads(body)
+        if status != 200:
+            raise RuntimeError(f"GET /fleet -> HTTP {status}: {doc}")
+        return doc
+    finally:
+        if writer is not None:
+            writer.close()
+            with contextlib.suppress(Exception):
+                await writer.wait_closed()
+
+
 async def run_bench(
     host: str,
     port: int,

@@ -15,6 +15,8 @@ The JAX package's ``run``, single-process and distributed::
     python -m dynamo_tpu_torch run in=dyn out=torch --model-path DIR --hub H:P --disagg prefill
     python -m dynamo_tpu_torch disagg-conf --hub H:P --max-local-prefill-length N
     python -m dynamo_tpu_torch llmctl --hub H:P list
+    python -m dynamo_tpu_torch fleet --hub H:P --once --json
+    python -m dynamo_tpu_torch metrics --hub H:P --port 9091
     python -m dynamo_tpu_torch bench --port 8080 --model NAME
     python -m dynamo_tpu_torch profile http://H:P --watch 5 --device 1 --json t.json
     python -m dynamo_tpu_torch trace --hub H:P REQUEST_ID
@@ -45,7 +47,14 @@ metrics; a worker without ``--model-path`` registers no model card).
 ``in=http out=dyn`` is the discovery-driven front end: a pipeline per
 registered model, routed round robin, at random, or by KV overlap
 (``--router-mode kv``).  ``--hub auto`` runs a hub in the process.
-``llmctl`` lists and removes registered models.
+``llmctl`` lists and removes registered models.  The front end carries
+the fleet observatory (``fleet/``): it reads the workers' telemetry
+snapshots, serves them at ``GET /fleet`` and ``GET /fleet/metrics``,
+quarantines stragglers from the KV router's placements and prices the
+router's prefix fetches by its fitted links.  ``fleet`` prints the same
+summary from the hub as a table (``--json``: the summary itself);
+``metrics`` serves the cluster's load gauges (``llm_kv_blocks_active``
+...) on its own port.
 
 ``--disagg`` splits a worker's two phases over two processes
 (``llm/disagg.py``): ``decode`` serves the model like a plain worker but
@@ -250,6 +259,32 @@ def build_parser() -> argparse.ArgumentParser:
                      help="persist state (WAL + snapshot) here; a restart "
                           "restores KV/leases/queues/objects")
 
+    # standalone cluster metrics component (reference components/metrics)
+    mt = sub.add_parser("metrics",
+                        help="cluster Prometheus metrics on :9091")
+    mt.add_argument("--hub", required=True, help="hub address host:port")
+    mt.add_argument("--namespace", default="dynamo")
+    mt.add_argument("--component", default="backend",
+                    help="worker component to scrape")
+    mt.add_argument("--host", default="0.0.0.0")
+    mt.add_argument("--port", type=int, default=9091)
+
+    # fleet: the observatory's read side over the hub -- subscribe to the
+    # workers' telemetry topic, render a live cluster table
+    fl = sub.add_parser("fleet",
+                        help="live fleet table from worker telemetry")
+    fl.add_argument("--hub", required=True, help="hub address host:port")
+    fl.add_argument("--namespace", default="dynamo")
+    fl.add_argument("--interval", type=float, default=2.0,
+                    help="seconds between table refreshes")
+    fl.add_argument("--once", action="store_true",
+                    help="print one table after --interval and exit")
+    fl.add_argument("--json", dest="json_out", action="store_true",
+                    help="print the raw /fleet summary JSON instead")
+    fl.add_argument("--plan", action="store_true",
+                    help="show the planner's last adjustment and reason per "
+                         "pool (note_adjustment, or a snapshot's plan)")
+
     # disagg-conf: live-reload the disagg routing policy (reference
     # disagg_router.rs:38-90 etcd watch); decode workers pick it up without
     # restarts
@@ -322,6 +357,9 @@ def build_parser() -> argparse.ArgumentParser:
     bn.add_argument("--speedup-ratio", type=float, default=1.0,
                     help="trace replay time compression")
     bn.add_argument("--seed", type=int, default=0)
+    bn.add_argument("--fleet", action="store_true",
+                    help="also fetch GET /fleet from the front end and "
+                         "attach the cluster summary to the report")
     return p
 
 
@@ -570,13 +608,16 @@ def _max_input_tokens(engine) -> Optional[int]:
     return getattr(getattr(engine, "cfg", None), "max_seq_len", None)
 
 
-def kv_engine_factory(runtime, index_shards: int = 1, remote_spec=None):
+def kv_engine_factory(runtime, index_shards: int = 1, remote_spec=None,
+                      observatory=None):
     """The ``ModelWatcher`` engine factory of ``--router-mode kv``: per
     model, a ``KvRouter`` over the worker component's KV events, holdings
     and load metrics, and ``link(OpenAIPreprocessor, Backend,
-    KvPushRouter)``.  The chooser stops with its model.  No fleet
-    observatory, so no quarantine and no transfer predictor: the
-    fetch-vs-recompute gate prices a donor with ``remote_spec``'s priors
+    KvPushRouter)``.  The chooser stops with its model.  With a fleet
+    ``observatory`` the router places no new request on its quarantined
+    workers, and the fetch-vs-recompute gate prices a donor with the
+    observatory's fitted link (``predict_transfer_ms``); a link with no
+    samples yet, or no observatory, falls back to ``remote_spec``'s priors
     (``offload.parse_kv_remote_spec``; its defaults when None).
     ``factory.choosers`` maps each model's name to its ``KvRouter``,
     ``factory.push_routers`` to its ``KvPushRouter``."""
@@ -590,10 +631,19 @@ def kv_engine_factory(runtime, index_shards: int = 1, remote_spec=None):
         chooser = KvRouter(
             ns, ns.component(entry.component), block_size=card.kv_block_size,
             index_shards=index_shards,
+            quarantine=(
+                None if observatory is None else observatory.quarantine_source()
+            ),
         )
         await chooser.start()
         factory.choosers[entry.name] = chooser
-        push = KvPushRouter(router, chooser, remote_spec=remote_spec)
+        push = KvPushRouter(
+            router, chooser,
+            transfer_ms=(
+                None if observatory is None else observatory.predict_transfer_ms
+            ),
+            remote_spec=remote_spec,
+        )
         factory.push_routers[entry.name] = push
         tokenizer = card.tokenizer()
         engine = link(OpenAIPreprocessor(entry.name, tokenizer), Backend(tokenizer), push)
@@ -605,7 +655,11 @@ def kv_engine_factory(runtime, index_shards: int = 1, remote_spec=None):
 
 
 async def run_http_frontend(args) -> None:
-    """in=http out=dyn: the discovery-driven front end over the hub."""
+    """in=http out=dyn: the discovery-driven front end over the hub, with
+    the fleet observatory reading every worker's telemetry on namespace
+    ``dynamo`` (``GET /fleet``, ``GET /fleet/metrics``; the KV router's
+    quarantine and link prices)."""
+    from .fleet import FleetObservatory
     from .http.service import HttpService, ModelManager
     from .llm.discovery import ModelWatcher
     from .runtime.component import DistributedRuntime, RouterMode
@@ -620,6 +674,9 @@ async def run_http_frontend(args) -> None:
             remote_spec = env_remote_spec()
         except ValueError:
             logger.warning("ignoring malformed DYN_KV_REMOTE")
+    # built before the router factory: the KV router's quarantine filter
+    # and fetch-vs-recompute gate read its live straggler and link state
+    observatory = FleetObservatory()
     addr, owned_hub = await _resolve_hub(args)
     runtime = await DistributedRuntime.detached(addr)
     manager = ModelManager()
@@ -627,7 +684,8 @@ async def run_http_frontend(args) -> None:
         watcher = ModelWatcher(
             runtime, manager,
             engine_factory=kv_engine_factory(
-                runtime, args.router_index_shards, remote_spec=remote_spec
+                runtime, args.router_index_shards, remote_spec=remote_spec,
+                observatory=observatory,
             ),
         )
     else:
@@ -637,8 +695,10 @@ async def run_http_frontend(args) -> None:
     service = None
     try:
         await watcher.start()
+        await observatory.start(runtime.namespace("dynamo"))
         service = HttpService(
-            manager, host=args.host, port=args.port, template=_load_template(args)
+            manager, host=args.host, port=args.port, template=_load_template(args),
+            observatory=observatory,
         )
         await service.start()
         print(f"frontend at {service.url} (hub {addr}); models appear on discovery",
@@ -651,6 +711,7 @@ async def run_http_frontend(args) -> None:
     finally:
         if service is not None:
             await service.stop()
+        await observatory.stop()
         await watcher.stop()
         await runtime.shutdown()
         if owned_hub:
@@ -1101,8 +1162,150 @@ async def run_bench(args) -> int:
         args.host, args.port, args.model, workload, concurrency=args.concurrency,
     )
     summary = report.summary()
+    if args.fleet:
+        from .bench_serving import fetch_fleet
+
+        try:
+            summary["fleet"] = await fetch_fleet(args.host, args.port)
+        except Exception as e:
+            summary["fleet"] = {"error": repr(e)}
     print(json.dumps(summary, indent=2))
     return 0 if summary["num_errors"] == 0 else 1
+
+
+async def run_metrics(args) -> int:
+    """metrics: the standalone cluster Prometheus component (reference
+    components/metrics :9091) -- scrapes worker load_metrics through the
+    hub, subscribes to kv-hit-rate events, serves GET /metrics."""
+    from .llm.components import MetricsService
+    from .runtime.component import DistributedRuntime
+
+    runtime = await DistributedRuntime.detached(args.hub)
+    svc = MetricsService(runtime, args.namespace, args.component)
+    try:
+        await svc.start()
+        host, port = await svc.serve_http(args.host, args.port)
+        print(f"cluster metrics at http://{host}:{port}/metrics (hub {args.hub})",
+              flush=True)
+        stop = asyncio.Event()
+        if hasattr(runtime.hub, "on_connection_lost"):
+            runtime.hub.on_connection_lost = stop.set
+        await _wait_forever(stop)
+    finally:
+        await svc.stop()
+        await runtime.shutdown()
+    return 0
+
+
+def format_fleet_table(summary, show_plan: bool = False) -> str:
+    """One ``GET /fleet`` summary as the ``fleet`` subcommand's table."""
+    import time
+
+    lines = []
+    totals = summary.get("totals", {})
+    roles = totals.get("workers_by_role", {})
+    head = ", ".join(
+        f"{n} {role}" for role, n in sorted(roles.items())
+    ) or "no workers"
+    lines.append(
+        f"fleet: {head} | kv pressure "
+        f"{totals.get('kv_pressure', 0.0):.2f} | queue "
+        f"{totals.get('queue_depth', 0)}"
+    )
+    slo = totals.get("slo_attainment") or {}
+    if slo:
+        lines.append(
+            "slo:   "
+            + "  ".join(f"{k}={v:.3f}" for k, v in sorted(slo.items()))
+        )
+    cols = ("id", "role", "tok/s", "step ms", "kv", "queue", "slots", "flag")
+    rows = []
+    for w in summary.get("workers", []):
+        step = w.get("step_ms")
+        rows.append(
+            (
+                str(w["worker_id"]),
+                w.get("role", "?"),
+                f"{w.get('tokens_per_s', 0.0):.1f}",
+                "-" if step is None else f"{step:.2f}",
+                f"{w.get('kv_pages_used', 0)}/{w.get('kv_pages_total', 0)}",
+                str(w.get("queue_depth", 0)),
+                f"{w.get('batch_occupancy', 0)}/{w.get('batch_slots', 0)}",
+                "QUARANTINED" if w.get("quarantined")
+                else ("STRAGGLER" if w.get("straggler") else ""),
+            )
+        )
+    if rows:
+        widths = [
+            max(len(cols[i]), max(len(r[i]) for r in rows))
+            for i in range(len(cols))
+        ]
+        fmt = "  ".join(f"{{:<{w}}}" for w in widths)
+        lines.append(fmt.format(*cols))
+        for r in rows:
+            lines.append(fmt.format(*r))
+    if show_plan:
+        plan = summary.get("plan") or {}
+        if not plan:
+            lines.append("plan:  (no planner adjustments yet)")
+        for kind in sorted(plan):
+            rec = plan[kind]
+            ts = rec.get("ts")
+            age = f" ({max(time.time() - ts, 0.0):.0f}s ago)" if ts else ""
+            lines.append(
+                f"plan:  {kind}: {rec.get('action', '?')} from "
+                f"{rec.get('count_before', '?')} -- "
+                f"{rec.get('reason', '')}{age}"
+            )
+    for link in summary.get("links", []):
+        bw = link.get("bandwidth_bytes_per_s")
+        setup = link.get("setup_ms")
+        lines.append(
+            f"link {link['src']}->{link['dst']}: "
+            + ("fitting..." if bw is None
+               else f"{bw / 1e6:.1f} MB/s + {setup or 0.0:.2f} ms setup")
+            + f" ({link.get('samples', 0)} samples)"
+        )
+    return "\n".join(lines)
+
+
+async def run_fleet(args) -> int:
+    """fleet: subscribe to worker telemetry on the hub, print a live
+    cluster table (the CLI face of ``GET /fleet``)."""
+    from .fleet import FleetObservatory
+    from .runtime.component import DistributedRuntime
+    from .runtime.metrics import MetricsRegistry
+
+    # private registry: the CLI process has no scrape surface, and must
+    # not add fleet families to a colocated default registry
+    observatory = FleetObservatory(MetricsRegistry())
+    runtime = await DistributedRuntime.detached(args.hub)
+    stop = asyncio.Event()
+    # SIGINT ends the loop as it ends the serving commands (_wait_forever),
+    # even where the parent left it ignored
+    with contextlib.suppress(NotImplementedError):
+        asyncio.get_running_loop().add_signal_handler(signal.SIGINT, stop.set)
+    if hasattr(runtime.hub, "on_connection_lost"):
+        runtime.hub.on_connection_lost = stop.set
+    try:
+        await observatory.start(runtime.namespace(args.namespace))
+        while not stop.is_set():
+            with contextlib.suppress(asyncio.TimeoutError):
+                await asyncio.wait_for(stop.wait(), args.interval)
+            if stop.is_set():
+                break
+            summary = observatory.summary()
+            if args.json_out:
+                print(json.dumps(summary, indent=2), flush=True)
+            else:
+                print(format_fleet_table(summary, show_plan=args.plan), flush=True)
+                print(flush=True)
+            if args.once:
+                break
+    finally:
+        await observatory.stop()
+        await runtime.shutdown()
+    return 0
 
 
 async def run_profile(args) -> int:
@@ -1291,6 +1494,12 @@ def main(argv=None) -> int:
     if args.cmd == "hub":
         asyncio.run(run_hub(args))
         return 0
+    if args.cmd in ("metrics", "fleet"):
+        runner = run_metrics if args.cmd == "metrics" else run_fleet
+        try:
+            return asyncio.run(runner(args))
+        except KeyboardInterrupt:
+            return 0
     args.inp, args.out = _parse_io(args.io)
     _check_served(args)
     if args.out == "dyn":

@@ -15,8 +15,10 @@ per-request deadlines, request templates, SSE and aggregated bodies; the
 request trace (``/trace/{id}``), the tick profiler (``/profile/ticks``),
 the device trace (``/profile/device``) and the flight recorder
 (``/debug/flightrec``).  A deadline's 504 body and SSE error frame carry
-the flight-recorder snapshot taken at the expiry.  The fleet routes
-answer 503, as the JAX service's do without an observatory.
+the flight-recorder snapshot taken at the expiry.  With a fleet
+observatory attached, ``/fleet`` serves its cluster summary and
+``/fleet/metrics`` the ``dynamo_fleet_*`` families; both answer 503
+without one.
 """
 
 from __future__ import annotations
@@ -176,8 +178,10 @@ class HttpService:
         template=None,  # Optional[RequestTemplate]: body defaults
         max_inflight: Optional[int] = None,  # admission bound (None = env)
         default_deadline_s: Optional[float] = None,  # None = env / no deadline
+        observatory=None,  # Optional[FleetObservatory]: /fleet surface
     ) -> None:
         self.manager = manager or ModelManager()
+        self.observatory = observatory
         self.template = template
         self.admission = AdmissionControl(max_inflight)
         if default_deadline_s is None:
@@ -202,10 +206,10 @@ class HttpService:
         self.server.route("POST", "/profile/device", self._profile_device)
         self.server.route("GET", "/debug/flightrec", self._flightrec_list)
         self.server.route_prefix("GET", "/debug/flightrec/", self._flightrec_get)
-        # the fleet observatory's surface: the port has no observatory, so
-        # both routes answer as the JAX service does without one
+        # fleet observatory surface (fleet/observatory.py): cluster summary
+        # and the dynamo_fleet_* exposition, 503 until an observatory is wired
         self.server.route("GET", "/fleet", self._fleet)
-        self.server.route("GET", "/fleet/metrics", self._fleet)
+        self.server.route("GET", "/fleet/metrics", self._fleet_metrics)
 
     @property
     def address(self) -> tuple:
@@ -226,10 +230,23 @@ class HttpService:
     # -- handlers ------------------------------------------------------------
 
     async def _fleet(self, req: Request) -> Response:
-        """GET /fleet and /fleet/metrics: 503, no fleet observatory."""
-        return Response.json(
-            {"error": {"message": "no fleet observatory attached"}}, 503
-        )
+        """GET /fleet: the observatory's cluster summary -- per-worker
+        rows, role-aggregated totals, the learned link table, stragglers."""
+        if self.observatory is None:
+            return Response.json(
+                {"error": {"message": "no fleet observatory attached"}}, 503
+            )
+        return Response.json(self.observatory.summary())
+
+    async def _fleet_metrics(self, req: Request) -> Response:
+        """GET /fleet/metrics: only the ``dynamo_fleet_*`` families, for
+        scrapers that want cluster rollups without per-process series."""
+        if self.observatory is None:
+            return Response.json(
+                {"error": {"message": "no fleet observatory attached"}}, 503
+            )
+        body, content_type = self.observatory.render()
+        return Response(200, {"Content-Type": content_type}, body)
 
     async def _health(self, req: Request) -> Response:
         return Response.json(

@@ -340,8 +340,25 @@ class _BPE:
 # -- added tokens ------------------------------------------------------------
 
 
+# Other_Alphabetic code points outside the marks (the circled and squared
+# Latin letters, category So): Alphabetic is L*, Nl and Other_Alphabetic
+_OTHER_ALPHABETIC_SO = (
+    (0x24B6, 0x24E9), (0x1F130, 0x1F149), (0x1F150, 0x1F169), (0x1F170, 0x1F189),
+)
+_JOIN_CONTROL = "\u200c\u200d"
+
+
 def _is_word_char(c: str) -> bool:
-    return c.isalnum() or c == "_"
+    """The Rust core's ``\\w``, which decides ``single_word`` boundaries:
+    Unicode's word class (Alphabetic, every mark, Nd, Pc, Join_Control),
+    not Python's ``isalnum`` (which takes No and leaves marks out)."""
+    cat = unicodedata.category(c)
+    if cat[0] in "LM" or cat in ("Nd", "Nl", "Pc") or c in _JOIN_CONTROL:
+        return True
+    if cat == "So":
+        cp = ord(c)
+        return any(lo <= cp <= hi for lo, hi in _OTHER_ALPHABETIC_SO)
+    return False
 
 
 class _AddedToken:

@@ -312,6 +312,18 @@ class MetricsRegistry:
         text = "".join(f.render(extra) for f in families)
         return text.encode(), CONTENT_TYPE_LATEST
 
+    def render_prefix(self, prefix: str) -> Tuple[bytes, str]:
+        """Only the families whose name starts with ``prefix``, without
+        the identity labels: what ``prometheus_client`` renders for a view
+        of the JAX registry's collectors filtered by name (the fleet
+        observatory's ``GET /fleet/metrics``)."""
+        with self._lock:
+            families = [
+                f for f in self._families.values() if f.name.startswith(prefix)
+            ]
+        text = "".join(f.render({}) for f in families)
+        return text.encode(), CONTENT_TYPE_LATEST
+
 
 _default = MetricsRegistry()
 

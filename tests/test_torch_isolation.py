@@ -5,7 +5,11 @@ port may only import inside a launch).  Under the same hook,
 ``python -m dynamo_tpu_torch run in=http`` serves a chat completion from a
 safetensors checkpoint directory, answers ``/v1/embeddings`` and exits 0
 on SIGINT; so do ``hub``, ``run in=dyn out=torch`` and ``run in=http
-out=dyn``, serving the same through the distributed runtime."""
+out=dyn``, serving the same through the distributed runtime.  The fleet
+observatory's render, the front end's ``/fleet`` routes and the ``fleet``
+and ``metrics`` subcommands run under the hook too: ``prometheus_client``
+is on this machine, not on the card's, so a lazy import of it would pass
+everywhere else."""
 
 from __future__ import annotations
 
@@ -100,8 +104,9 @@ def test_port_imports_nothing_refused():
     # 71 with llm/prefix_onboard, 75 with the observability plane
     # (runtime/profiling, slo, compile_sentry, recorder), 80 with
     # runtime/telemetry, the model-free engines (mocker/ and its engine
-    # and kv_manager, llm/echo)
-    assert int(out.stdout.strip().splitlines()[-1]) >= 80
+    # and kv_manager, llm/echo), 83 with the fleet observatory (fleet/ and
+    # fleet/observatory) and llm/components
+    assert int(out.stdout.strip().splitlines()[-1]) >= 83
 
 
 # the speculative decoding package, the model drafter and weight-only int8:
@@ -204,6 +209,101 @@ def test_telemetry_and_model_free_engines_import_nothing_refused():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+# the fleet observatory and the cluster components, driven: a render, a
+# summary and the cluster metrics' render, each under the hook
+FLEET = HOOK + textwrap.dedent(
+    """
+    import time
+    from dynamo_tpu_torch.fleet import FleetObservatory
+    from dynamo_tpu_torch.llm import components
+    from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
+    from dynamo_tpu_torch.runtime.telemetry import TelemetrySnapshot
+
+    obs = FleetObservatory(MetricsRegistry())
+    now = time.time()
+    for seq in (1, 2):
+        obs.ingest(TelemetrySnapshot(
+            worker_id=3, role="decode", seq=seq, ts=now + seq, started_ts=now,
+            step_count=seq, step_seconds=0.01 * seq, transfers=[
+                {"src": 1, "dst": 3, "bytes": 4096 * seq, "seconds": 0.01 * seq}],
+        ).to_dict())
+    body, ctype = obs.render()
+    assert b"dynamo_fleet_workers" in body and ctype.startswith("text/plain")
+    assert obs.summary()["workers"][0]["worker_id"] == 3
+    assert obs.predict_transfer_ms(8192, 1, 3) is not None
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
+    assert not leaked, leaked
+    print("ok")
+    """
+)
+
+
+def test_fleet_observatory_renders_without_refused():
+    out = subprocess.run(
+        [sys.executable, "-c", FLEET, ",".join(REFUSED)],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_fleet_routes_and_subcommands_import_nothing_refused():
+    """A hub, a mocker worker and the KV-routed front end under the hook:
+    ``GET /fleet`` and ``GET /fleet/metrics`` answer, ``fleet --once`` and
+    ``metrics`` run, and no process loaded a refused package."""
+    import time
+
+    procs = []
+
+    def start(*args):
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", SERVE, ",".join(REFUSED), *args],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env={**os.environ, "DYN_LOG": "warning"},
+        ))
+        return procs[-1]
+
+    try:
+        hub = start("hub", "--host", "127.0.0.1", "--port", "0")
+        addr = hub.stdout.readline().split()[2]
+        worker = start("run", "in=dyn", "out=mocker", "--hub", addr)
+        assert worker.stdout.readline().startswith("worker serving on")
+        front = start("run", "in=http", "out=dyn", "--hub", addr, "--router-mode", "kv",
+                      "--port", "0")
+        url = front.stdout.readline().split()[2]
+        deadline = time.monotonic() + 60
+        while True:
+            with urllib.request.urlopen(url + "/fleet", timeout=10) as resp:
+                if json.loads(resp.read())["workers"]:
+                    break
+            assert time.monotonic() < deadline, "no worker on /fleet"
+            time.sleep(0.2)
+        with urllib.request.urlopen(url + "/fleet/metrics", timeout=10) as resp:
+            assert b'dynamo_fleet_workers{role="worker"} 1.0' in resp.read()
+        fleet = subprocess.run(
+            [sys.executable, "-c", SERVE, ",".join(REFUSED), "fleet", "--hub", addr,
+             "--once", "--interval", "1.5"],
+            cwd=ROOT, capture_output=True, text=True, timeout=60,
+            env={**os.environ, "DYN_LOG": "warning"},
+        )
+        assert fleet.returncode == 0, fleet.stderr
+        assert "fleet: 1 worker" in fleet.stdout and "leaked []" in fleet.stdout
+        metrics = start("metrics", "--hub", addr, "--host", "127.0.0.1", "--port", "0")
+        murl = metrics.stdout.readline().split()[3]
+        with urllib.request.urlopen(murl, timeout=10) as resp:
+            assert b"llm_kv_blocks_total" in resp.read()
+        for p in (metrics, front, worker, hub):
+            p.send_signal(signal.SIGINT)
+            out, err = p.communicate(timeout=60)
+            assert p.returncode == 0, err
+            assert "leaked []" in out
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
 
 
 def _checkpoint(model_dir: str, path: str) -> str:

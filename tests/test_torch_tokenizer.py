@@ -20,7 +20,7 @@ import json
 import os
 
 import pytest
-from hypothesis import HealthCheck, given, settings
+from hypothesis import HealthCheck, example, given, settings
 from hypothesis import strategies as st
 from tokenizers import Regex
 from tokenizers import Tokenizer as HFTokenizer
@@ -213,10 +213,34 @@ def test_random_text_matches_hf(pairs, which):
     @settings(max_examples=150, deadline=None,
               suppress_health_check=[HealthCheck.too_slow])
     @given(st.lists(ALPHABET, max_size=40).map("".join))
+    @example("\u3099fox")
     def check(text):
         _check(hf, mine, text)
 
     check()
+
+
+# ``single_word`` boundaries next to characters where Unicode's word class
+# (the Rust core's ``\w``) and Python's ``isalnum`` differ: marks (Mn), the
+# zero-width joiner, a connector (Pc), and digits of category No, before and
+# after the token; the Rust core's ids on the ``flags`` file
+BOUNDARY_CASES = [
+    ("\u3099fox", [83, 0, 0, 0, 58, 179]),
+    ("\u0301fox", [83, 0, 0, 58, 179]),
+    ("\u200dfox", [83, 0, 0, 0, 58, 179]),
+    ("\u203ffox", [83, 0, 0, 0, 58, 179]),
+    ("\u00b2fox", [83, 0, 0, 284]),
+    ("\u00bcfox", [83, 0, 0, 284]),
+    ("fox\u00b2", [284, 83, 0, 0]),
+]
+
+
+@pytest.mark.parametrize("text,ids", BOUNDARY_CASES)
+def test_single_word_boundaries_match_hf(pairs, text, ids):
+    _name, hf, mine = next(p for p in pairs if p[0] == "flags")
+    assert hf.encode(text, add_special_tokens=False).ids == ids
+    assert mine.encode(text, add_special_tokens=False) == ids
+    _check(hf, mine, text)
 
 
 @pytest.mark.parametrize("which", FILES)
