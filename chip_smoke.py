@@ -351,6 +351,24 @@ Every phase is fatal on failure:
    ``GET /fleet/metrics`` holds the fleet families; ``fleet --once --json``
    and ``metrics`` run as processes and name the same workers.
 
+16. serve-planner: the planner (``planner/``).  (a) and (b) run inside
+   serve-kvbm after serve-chaos, on its weights (Llama-3-8B at full width
+   and depth, bf16, seed 0).  (a) ``SlaProfiler`` over
+   ``TorchEngine(EngineConfig(num_pages=1024))``: TTFT of cold prompts of
+   128, 512 and 2048 tokens, ITL and tok/s of 1, 4 and 8 streams of 64
+   tokens; every number finite and positive, ``recommend`` equal to its
+   rule worked out from the table, the launch invariants held; the table
+   printed.  (b) A ``LocalConnector`` decode pool of ``TorchEngine``
+   workers on the shared weights (256 pages each), each publishing
+   telemetry into a ``FleetObservatory``, scaled by a ``Planner`` over
+   ``fleet_metrics_source`` (see ``serve_planner_phase``): up from 1 to
+   2 when worker 1's KV load passes 0.8 under 8 streams, the selector
+   placing 8 more on worker 2, down to 1 once both are idle, the
+   observatory's victim drained before it stops and its pool's memory
+   returned.  (c) ``profile-sla --out torch`` over serve-dyn (c)'s
+   checkpoint and ``--out mocker``, as subprocesses: exit code 0 and
+   the recommendation the rule gives for the printed table.
+
 In every served run each kernel's launch count (graph replays included)
 must equal what the run's dispatches imply (``expected_launches``), and
 the run prints its loop mode, graph captures and replays and the dispatch
@@ -374,6 +392,7 @@ import asyncio
 import contextlib
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -4053,10 +4072,444 @@ def serve_chaos_phase(params, served: Dict[str, object], card: str) -> None:
     print(f"serve-chaos: phase {time.perf_counter() - t0:.3f} s")
 
 
-def serve_kvbm_phase(ref: Dict[str, object], served: Dict[str, object], card: str) -> None:
+# -- serve-planner: the planner over a decode pool of torch workers ---------------
+
+PLANNER_ISLS = [128, 512, 2048]
+PLANNER_BATCHES = [1, 4, 8]
+POOL_PAGES = 256
+
+
+def recommend_rule(prof, ttft_slo, itl_slo) -> Dict[str, object]:
+    """``SlaProfile.recommend``'s rule worked out from the table: the
+    largest ISL whose TTFT meets its SLO, the largest batch whose ITL
+    meets its SLO and that batch's rate (None where nothing meets it)."""
+    isl = max((i for i, v in prof.ttft_ms.items() if ttft_slo is None or v <= ttft_slo),
+              default=None)
+    batch = max((b for b, v in prof.itl_ms.items() if itl_slo is None or v <= itl_slo),
+                default=None)
+    return {"max_isl_within_ttft_slo": isl, "max_batch_within_itl_slo": batch,
+            "throughput_at_max_batch": None if batch is None else prof.tok_s[batch]}
+
+
+def planner_profile(params, card: str) -> Tuple[object, Dict[str, int]]:
+    """(a) ``SlaProfiler`` over ``TorchEngine(llama3_8b, params,
+    EngineConfig(num_pages=1024))``: TTFT of cold prompts of 128, 512 and
+    2048 tokens, ITL and tok/s of 1, 4 and 8 streams of 64 tokens.  Every
+    number finite and positive, ``recommend`` equal to the rule worked out
+    here for a pair that admits everything and one between the batch-4 and
+    batch-8 ITL, and the launch invariants held."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.planner.profile_sla import SlaProfiler
+    from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
+
+    cfg = ModelConfig.llama3_8b()
+    engine = TorchEngine(cfg, params, EngineConfig(num_pages=1024),
+                         metrics_registry=MetricsRegistry())
+
+    async def go():
+        try:
+            return await SlaProfiler(engine, vocab_size=cfg.vocab_size).profile(
+                isls=PLANNER_ISLS, batches=PLANNER_BATCHES, osl=64)
+        finally:
+            await engine.stop()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    prof = asyncio.run(go())
+    wall = time.perf_counter() - t0
+    counted = read_launches()
+    check_launch_invariants("serve-planner: (a)", engine, counted)
+    for name, table, keys in (("ttft_ms", prof.ttft_ms, PLANNER_ISLS),
+                              ("itl_ms", prof.itl_ms, PLANNER_BATCHES),
+                              ("tok_s", prof.tok_s, PLANNER_BATCHES)):
+        if sorted(table) != keys or not all(math.isfinite(v) and v > 0 for v in table.values()):
+            fail(f"serve-planner: (a) {name} {table}")
+    pairs = [(max(prof.ttft_ms.values()), max(prof.itl_ms.values())),
+             ((prof.ttft_ms[512] + prof.ttft_ms[2048]) / 2,
+              (prof.itl_ms[4] + prof.itl_ms[8]) / 2)]
+    for ttft_slo, itl_slo in pairs:
+        got, want = prof.recommend(ttft_slo, itl_slo), recommend_rule(prof, ttft_slo, itl_slo)
+        print(f"serve-planner: (a) recommend(ttft {ttft_slo:.3f} ms, itl {itl_slo:.3f} ms) "
+              f"= {got}")
+        if got != want:
+            fail(f"serve-planner: (a) recommend {got}, the rule gives {want}")
+    print(f"serve-planner: (a) Llama-3-8B TTFT ms by ISL {prof.to_dict()['ttft_ms']}, "
+          f"ITL ms by batch {prof.to_dict()['itl_ms']}, tok/s by batch "
+          f"{prof.to_dict()['tok_s']} (unrounded: {prof.ttft_ms} {prof.itl_ms} "
+          f"{prof.tok_s}); wall {wall:.3f} s; {loop_line(engine, wall)} on {card}")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return prof, counted
+
+
+class PoolWorker:
+    """serve-planner (b)'s worker handle, the in-process twin of a decode
+    worker process: a ``TorchEngine`` over the shared weights with a pool
+    of its own, its series on a private registry and a
+    ``TelemetryPublisher`` into the fleet observatory.  ``drain`` waits,
+    bounded, until the engine holds no active or waiting request; ``stop``
+    stops the publisher, then the engine, and lets the engine go, so its
+    pool's memory returns to the card."""
+
+    def __init__(self, worker_id: int, cfg, params, obs) -> None:
+        from dynamo_tpu_torch.engine.config import EngineConfig
+        from dynamo_tpu_torch.engine.engine import TorchEngine
+        from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
+        from dynamo_tpu_torch.runtime.telemetry import TelemetryPublisher
+
+        self.worker_id = worker_id
+        self.registry = MetricsRegistry()
+        self.engine = TorchEngine(cfg, params, EngineConfig(num_pages=POOL_PAGES),
+                                  metrics_registry=self.registry)
+        self.pool_bytes = self.engine.kv.pool_bytes
+        self.publisher = TelemetryPublisher(worker_id=worker_id, role="decode",
+                                            registry=self.registry, interval_s=0.1,
+                                            sink=obs.ingest)
+        # what the stopped engine leaves behind for the phase's checks
+        self.expected: Dict[str, int] = {}
+        self.pages_held = None
+        self.drained = None
+
+    async def start(self) -> None:
+        await self.engine.start()
+        await self.publisher.publish_once()
+        self.publisher.start()
+
+    def idle(self) -> bool:
+        sched = self.engine.sched
+        return sched.num_active == 0 and sched.num_waiting == 0
+
+    async def drain(self, timeout_s: float) -> bool:
+        deadline = time.monotonic() + timeout_s
+        while not self.idle():
+            if time.monotonic() > deadline:
+                self.drained = False
+                return False
+            await asyncio.sleep(0.01)
+        self.drained = True
+        return True
+
+    async def stop(self) -> None:
+        await self.publisher.stop()
+        engine = self.engine
+        await engine.stop()
+        self.expected = expected_launches(engine)
+        pool = engine.sched.pool
+        self.pages_held = pool.num_pages - 1 - pool.free_pages
+        self.engine = None
+        del engine, pool
+        gc.collect()
+
+
+async def pool_stream(worker: PoolWorker, req: dict, out: List[dict]) -> None:
+    """One request on a pool worker; appends its tokens, finish reason and
+    frame times (an error frame fails the run) and records its TTFT and
+    per-token ITL with the SLO tracker."""
+    from dynamo_tpu_torch.protocols.common import PreprocessedRequest
+    from dynamo_tpu_torch.runtime import slo
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    t0 = time.perf_counter()
+    ctx = Context.new(PreprocessedRequest.from_dict(req))
+    stream = await worker.engine.generate(ctx)
+    tokens: List[int] = []
+    frames: List[Tuple[float, int]] = []
+    finish = None
+    async for item in stream:
+        if item.is_error():
+            fail(f"serve-planner: (b) worker {worker.worker_id}: {item.error_message()}")
+        data = item.data or {}
+        got = data.get("token_ids") or []
+        if got:
+            now = time.perf_counter()
+            if frames:
+                for _ in got:
+                    slo.tracker.record_itl((now - frames[-1][0]) / len(got))
+            else:
+                slo.tracker.record_ttft(ctx.id, now - t0)
+            frames.append((now, len(got)))
+            tokens += got
+        finish = data.get("finish_reason") or finish
+    out.append(dict(worker=worker.worker_id, tokens=tokens, finish=finish, frames=frames))
+
+
+async def planner_pool(cfg, params, tmp: str) -> Dict[str, object]:
+    """(b)'s traffic and rounds: see :func:`serve_planner_phase`."""
+    from dynamo_tpu_torch.fleet import FleetObservatory
+    from dynamo_tpu_torch.llm.kv_router import DefaultWorkerSelector, OverlapScores
+    from dynamo_tpu_torch.llm.kv_router.scheduler import ProcessedEndpoints
+    from dynamo_tpu_torch.planner import LocalConnector, Planner, PlannerConfig
+    from dynamo_tpu_torch.planner.planner import fleet_metrics_source
+    from dynamo_tpu_torch.runtime import slo
+    from dynamo_tpu_torch.runtime.metrics import MetricsRegistry, default_registry
+
+    obs = FleetObservatory(MetricsRegistry())
+    workers: List[PoolWorker] = []
+    cold: Dict[int, float] = {}
+
+    async def make_worker() -> PoolWorker:
+        t0 = time.perf_counter()
+        w = PoolWorker(len(workers) + 1, cfg, params, obs)
+        await w.start()
+        cold[w.worker_id] = time.perf_counter() - t0
+        workers.append(w)
+        return w
+
+    named: List[PoolWorker] = []
+    pick = obs.victim_source()
+
+    def victim(kind: str, handles: List[PoolWorker]) -> PoolWorker:
+        named.append(pick(kind, handles))
+        return named[-1]
+
+    reg = default_registry()
+
+    def series(name: str, **labels) -> float:
+        return reg.sample(name, labels) or 0.0
+
+    base = {a: series("dynamo_planner_adjustments", kind="decode", action=a)
+            for a in ("up", "down")}
+    log = os.path.join(tmp, "adjustments.jsonl")
+    conn = LocalConnector({"decode": make_worker}, victim_source=victim, drain_timeout_s=5.0)
+    await conn.add_worker("decode")
+    planner = Planner(
+        conn, fleet_metrics_source(obs),
+        cfg=PlannerConfig(kv_load_scale_up=0.8, kv_load_scale_down=0.3,
+                          min_decode_workers=1, max_decode_workers=3,
+                          decode_grace_periods=1, adjustment_log_path=log),
+        quarantine_source=obs.quarantine_source(),
+        on_adjustment=lambda adj: obs.note_adjustment(
+            adj.kind, adj.action, adj.reason, adj.count_before),
+    )
+    sizes: List[Tuple[float, int]] = []
+    rounds: List[str] = []
+
+    def loads() -> Dict[int, float]:
+        return {w: round(m.gpu_cache_usage_perc, 4)
+                for w, m in sorted(obs.forward_pass_metrics().items())}
+
+    async def step() -> None:
+        line = (f"round {len(rounds) + 1}: loads {loads()} slo attainment ttft "
+                f"{slo.tracker.attainment('ttft')} itl {slo.tracker.attainment('itl')}")
+        await asyncio.wait_for(planner.step(), 120.0)
+        a = planner.adjustments[-1]
+        rounds.append(f"{line} -> {a.kind} {a.action} from {a.count_before} ({a.reason})")
+        print(f"serve-planner: (b) {rounds[-1]}", flush=True)
+        sizes.append((series("dynamo_planner_pool_size", kind="decode"),
+                      conn.worker_count("decode")))
+
+    async def wait_for(what: str, ready: Callable[[], bool], limit_s: float) -> float:
+        t0 = time.perf_counter()
+        while not ready():
+            if time.perf_counter() - t0 > limit_s:
+                fail(f"serve-planner: (b) {what} not within {limit_s:.0f} s: loads {loads()}")
+            await asyncio.sleep(0.02)
+        return time.perf_counter() - t0
+
+    V = cfg.vocab_size
+    rng = np.random.default_rng(19)
+    batches = [[request(rng.integers(1, V, 400), 256) for _ in range(8)] for _ in range(2)]
+    out: List[dict] = []
+    tasks: List[asyncio.Task] = []
+    t_all = time.perf_counter()
+    try:
+        first = workers[0]
+        tasks += [asyncio.create_task(pool_stream(first, r, out)) for r in batches[0]]
+        hot = await wait_for("worker 1's KV load >= 0.8", lambda: loads().get(1, 0.0) >= 0.8,
+                             300.0)
+        if out:
+            fail("serve-planner: (b) a stream ended before worker 1's load reached 0.8")
+        await step()
+        second = workers[1] if len(workers) > 1 else None
+        if second is None:
+            fail(f"serve-planner: (b) no scale-up at load {loads()}: {planner.adjustments}")
+        print(f"serve-planner: (b) worker 1 at KV load >= 0.8 after {hot:.3f} s; worker 2's "
+              f"cold start (construction, start, first snapshot) {cold[2]:.3f} s")
+        sel = DefaultWorkerSelector(quarantine=obs.quarantine_source())
+        endpoints = ProcessedEndpoints(endpoints=obs.forward_pass_metrics())
+        placed = [sel.select_worker(endpoints, OverlapScores(), len(r["token_ids"]), 16)[0]
+                  for r in batches[1]]
+        print(f"serve-planner: (b) the selector placed the second batch on workers {placed}")
+        if placed != [2] * 8:
+            fail(f"serve-planner: (b) the second batch went to {placed}, not the new worker")
+        tasks += [asyncio.create_task(pool_stream(second, r, out)) for r in batches[1]]
+        await asyncio.wait_for(asyncio.gather(*tasks), 600.0)
+        wall = time.perf_counter() - t_all
+        calm = await wait_for("both loads <= 0.3",
+                              lambda: len(loads()) == 2 and max(loads().values()) <= 0.3, 60.0)
+        print(f"serve-planner: (b) both loads <= 0.3 {calm:.3f} s after the last stream; "
+              f"worker 2's graph captures {second.engine.graph_captures} "
+              f"({second.engine.graphs.capture_ms:.3f} ms)")
+        alloc = torch.cuda.memory_allocated()
+        await step()  # the grace round
+        await step()  # the scale-down
+        freed = alloc - torch.cuda.memory_allocated()
+    finally:
+        for t in tasks:
+            t.cancel()
+        await asyncio.wait_for(planner.stop(), 60.0)
+    survivors = list(conn.workers["decode"])
+    for w in survivors:
+        await w.stop()
+    return dict(out=out, planner=planner, conn=conn, workers=workers, named=named,
+                survivors=survivors, sizes=sizes, log=log, base=base, freed=freed,
+                wall=wall, obs=obs, series=series)
+
+
+def serve_planner_phase(params, card: str) -> Dict[str, object]:
+    """serve-planner (a) and (b) at Llama-3-8B width on serve-kvbm's
+    weights: (a) :func:`planner_profile`; (b) a decode pool that the
+    planner scales: ``LocalConnector`` over :class:`PoolWorker`\\ s of
+    ``POOL_PAGES`` pages each, the observatory's victim source,
+    ``drain_timeout_s=5.0``; the planner reads the observatory
+    (``fleet_metrics_source``), scales on KV load (up at 0.8, down at 0.3,
+    1 to 3 workers, grace 1), excludes its quarantine and notes each
+    decision in its plan; its rounds are stepped here.  8 greedy streams
+    (400-token prompts, 256 new tokens) open on worker 1; once its snapshot
+    shows KV load >= 0.8 a round must scale up (1 -> 2); 8 more, placed
+    by ``DefaultWorkerSelector`` over the observatory's metrics, must land
+    on worker 2; once every stream ended with its 256 tokens and both
+    snapshots show load <= 0.3, a grace round, then a round that must
+    scale down (2 -> 1), the victim the observatory names drained before
+    it stops.  Held: no refused drain, the planner's counter and pool
+    gauge, the JSONL log, the observatory's plan, the launch invariants
+    over both engines, every page free on the survivor, and the card's
+    allocated memory down by at least the victim's pool.  The SLO
+    tracker's attainment (targets from (a)'s table) and each round's
+    loads are printed.  Returns the launches of (a) and (b) and their
+    seconds."""
+    import shutil
+    import tempfile
+
+    from dynamo_tpu_torch.engine.config import ModelConfig
+    from dynamo_tpu_torch.runtime import slo
+
+    t0 = time.perf_counter()
+    prof, launches = planner_profile(params, card)
+    t_a = time.perf_counter() - t0
+    cfg = ModelConfig.llama3_8b()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-planner-")
+    spec = f"ttft={prof.ttft_ms[512]:.3f}ms,itl={prof.itl_ms[8]:.3f}ms"
+    slo.tracker.configure(spec)
+    reset_launches()
+    try:
+        res = asyncio.run(planner_pool(cfg, params, tmp))
+        with open(res["log"]) as f:
+            logged = [json.loads(line) for line in f.read().splitlines()]
+    finally:
+        slo.tracker.disable()
+        shutil.rmtree(tmp, ignore_errors=True)
+    counted = read_launches()
+    planner, conn, workers = res["planner"], res["conn"], res["workers"]
+    for i, r in enumerate(res["out"]):
+        if len(r["tokens"]) != 256 or r["finish"] != "length":
+            fail(f"serve-planner: (b) stream {i} on worker {r['worker']}: "
+                 f"{len(r['tokens'])} tokens, finish {r['finish']}")
+    if len(res["out"]) != 16:
+        fail(f"serve-planner: (b) {len(res['out'])} streams ended, not 16")
+    made = [(a.kind, a.action, a.count_before) for a in planner.adjustments
+            if a.action != "hold"]
+    if made != [("decode", "up", 1), ("decode", "down", 2)]:
+        fail(f"serve-planner: (b) decisions {made}")
+    if conn.forced_kills:
+        fail(f"serve-planner: (b) {conn.forced_kills} drains refused")
+    for action in ("up", "down"):
+        n = res["series"]("dynamo_planner_adjustments", kind="decode", action=action)
+        if n - res["base"][action] != 1:
+            fail(f"serve-planner: (b) dynamo_planner_adjustments{{decode,{action}}} moved "
+                 f"by {n - res['base'][action]}")
+    if any(g != n for g, n in res["sizes"]):
+        fail(f"serve-planner: (b) pool gauge against the connector's count {res['sizes']}")
+    want_log = [{"kind": a.kind, "action": a.action, "reason": a.reason,
+                 "count_before": a.count_before, "no_op": False,
+                 **({"evidence": a.evidence} if a.evidence is not None else {})}
+                for a in planner.adjustments]
+    if [{k: v for k, v in rec.items() if k != "ts"} for rec in logged] != want_log:
+        fail(f"serve-planner: (b) the JSONL log {logged} is not the decisions {want_log}")
+    plan = res["obs"].summary()["plan"].get("decode", {})
+    last = [a for a in planner.adjustments if a.action != "hold"][-1]
+    if (plan.get("action"), plan.get("reason"), plan.get("count_before")) != (
+            last.action, last.reason, last.count_before):
+        fail(f"serve-planner: (b) the observatory's plan {plan}, the last decision {last}")
+    victim = res["named"][-1] if res["named"] else None
+    stopped = [w for w in workers if w not in res["survivors"]]
+    if stopped != [victim] or not victim.drained:
+        fail(f"serve-planner: (b) stopped {[w.worker_id for w in stopped]}, the observatory "
+             f"named {[w.worker_id for w in res['named']]}, drained {victim and victim.drained}")
+    want = {k: sum(w.expected[k] for w in workers) for k in counted}
+    print(f"serve-planner: (b) launch invariants over {len(workers)} engines: counted "
+          f"{counted} expected {want}")
+    if counted != want:
+        fail(f"serve-planner: (b) launches {counted} differ from the dispatches' {want}")
+    for name in ("packed_ragged_attention", "paged_decode_attention"):
+        if counted[name] <= 0:
+            fail(f"serve-planner: (b) {name} never launched")
+    for w in workers:
+        if w.pages_held:
+            fail(f"serve-planner: (b) worker {w.worker_id}: {w.pages_held} pages still held")
+    if res["freed"] < victim.pool_bytes:
+        fail(f"serve-planner: (b) stopping worker {victim.worker_id} freed {res['freed']} "
+             f"bytes, less than its pool's {victim.pool_bytes}")
+    tok = sum(len(r["tokens"]) for r in res["out"])
+    print(f"serve-planner: (b) decisions {made}, victim worker {victim.worker_id} (drained), "
+          f"forced_kills {conn.forced_kills}, {res['freed'] / 2**30:.3f} GiB freed (its pool "
+          f"{victim.pool_bytes / 2**30:.3f} GiB), pool gauge by round "
+          f"{[g for g, _ in res['sizes']]}, plan {plan}; 16 streams, {tok} tokens in "
+          f"{res['wall']:.3f} s ({tok / res['wall']:.3f} tok/s) on {card}")
+    add_launches(launches, counted)
+    seconds = time.perf_counter() - t0
+    print(f"serve-planner: (a) {t_a:.3f} s, (b) {seconds - t_a:.3f} s")
+    return {"launches": launches, "seconds": seconds}
+
+
+def planner_cli(ckpt, card: str) -> float:
+    """serve-planner (c): ``python -m dynamo_tpu_torch profile-sla --out
+    torch`` over ``ckpt`` (a 2-layer Llama-3-8B-width checkpoint), then
+    ``--out mocker``, each a subprocess with a time limit: exit code 0, one
+    JSON object with ``profile`` and ``recommendation``, the recommendation
+    the rule applied to the printed table.  Returns its seconds."""
+    from types import SimpleNamespace
+
+    t0 = time.perf_counter()
+    for out in ("torch", "mocker"):
+        t1 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "dynamo_tpu_torch", "profile-sla", "--out", out,
+             "--model-path", ckpt[0], "--isl", "128,512", "--batch", "1,4", "--osl", "32"],
+            cwd=ROOT, capture_output=True, text=True, timeout=300,
+            env={**os.environ, "DYN_LOG": "warning"},
+        )
+        if proc.returncode != 0:
+            fail(f"serve-planner: (c) profile-sla --out {out} exited {proc.returncode}: "
+                 f"{proc.stderr[-3000:]}")
+        try:
+            doc = json.loads(proc.stdout)
+        except ValueError:
+            fail(f"serve-planner: (c) profile-sla --out {out} printed {proc.stdout[-2000:]!r}")
+        if set(doc) != {"profile", "recommendation"}:
+            fail(f"serve-planner: (c) profile-sla --out {out} printed keys {sorted(doc)}")
+        table = SimpleNamespace(**{k: {int(n): v for n, v in doc["profile"][k].items()}
+                                   for k in ("ttft_ms", "itl_ms", "tok_s")})
+        want = recommend_rule(table, None, None)
+        got = doc["recommendation"]
+        if (sorted(table.ttft_ms) != [128, 512] or sorted(table.itl_ms) != [1, 4]
+                or {k: got[k] for k in ("max_isl_within_ttft_slo", "max_batch_within_itl_slo")}
+                != {k: want[k] for k in ("max_isl_within_ttft_slo", "max_batch_within_itl_slo")}
+                or abs(got["throughput_at_max_batch"] - want["throughput_at_max_batch"]) > 0.05):
+            fail(f"serve-planner: (c) --out {out}: {doc}, the rule gives {want}")
+        print(f"serve-planner: (c) profile-sla --out {out}: {json.dumps(doc)} in "
+              f"{time.perf_counter() - t1:.3f} s on {card}")
+    return time.perf_counter() - t0
+
+
+def serve_kvbm_phase(ref: Dict[str, object], served: Dict[str, object], card: str
+                     ) -> Dict[str, object]:
     """serve-kvbm: (a) ``kvbm_reference``, then at Llama-3-8B width from
     random bf16 weights of seed 0: (b) ``kvbm_tiers``, (c) ``kvbm_swap``,
-    (d) ``kvbm_int8``; then serve-chaos on the same weights."""
+    (d) ``kvbm_int8``; then serve-chaos and serve-planner (a) and (b) on
+    the same weights, whose launches and seconds it returns."""
     from dynamo_tpu_torch.engine.config import ModelConfig
     from dynamo_tpu_torch.engine.model import init_params
 
@@ -4067,9 +4520,11 @@ def serve_kvbm_phase(ref: Dict[str, object], served: Dict[str, object], card: st
     kvbm_swap(params, card)
     kvbm_int8(params, card)
     serve_chaos_phase(params, served, card)
+    planner = serve_planner_phase(params, card)
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    return planner
 
 
 def write_safetensors(path: str, tensors: Dict[str, Tuple[Tuple[int, ...], Callable]]) -> None:
@@ -6743,7 +7198,7 @@ def main() -> None:
     a3 = serve_a3_phase(ref, card)
     print(f"serve-a3: flash prefill launches {a3['launches']}")
     a45 = serve_a45_phase(ref, served, card)
-    serve_kvbm_phase(ref, served, card)
+    planner = serve_kvbm_phase(ref, served, card)
     # serve-dyn's, serve-disagg's and serve-onboard's (c), and serve-mocker's
     # torch worker, serve one checkpoint
     import shutil
@@ -6757,6 +7212,9 @@ def main() -> None:
         onboard = serve_onboard_phase(ref, card, ckpt, direct)
         print(f"serve-onboard: launches over (b)'s two legs {onboard}")
         serve_mocker_phase(card, ckpt)
+        planner_s = planner_cli(ckpt, card)
+        print(f"serve-planner: (c) {planner_s:.3f} s; phase {planner['seconds'] + planner_s:.3f} s; "
+              f"launches of (a) and (b) {planner['launches']}")
         del ckpt
     finally:
         shutil.rmtree(ckpt_tmp, ignore_errors=True)

@@ -19,6 +19,7 @@ The JAX package's ``run``, single-process and distributed::
     python -m dynamo_tpu_torch metrics --hub H:P --port 9091
     python -m dynamo_tpu_torch bench --port 8080 --model NAME
     python -m dynamo_tpu_torch profile http://H:P --watch 5 --device 1 --json t.json
+    python -m dynamo_tpu_torch profile-sla --out torch --model-path DIR --isl 128,512 --batch 1,4,8
     python -m dynamo_tpu_torch trace --hub H:P REQUEST_ID
 
 ``in=http out=torch`` serves ``link(OpenAIPreprocessor, Backend,
@@ -37,7 +38,12 @@ benchmark client.  ``profile`` reads a running front end's tick profiler
 (``GET /profile/ticks``; ``--watch S`` arms it and samples S seconds of
 traffic, ``--device S`` takes a device trace on the server) and prints
 where the ticks' wall time went; ``trace`` assembles one request's spans
-from every component on a hub.
+from every component on a hub.  ``profile-sla`` drives the engine of
+``--out`` (built as ``run`` builds it) through the planner's SLA profiler
+(``planner/profile_sla.py``): TTFT per ``--isl`` on cold prompts, ITL and
+tok/s per ``--batch`` of concurrent streams of ``--osl`` tokens, printed
+as one JSON object with the recommendation for ``--ttft-slo-ms`` and
+``--itl-slo-ms``.
 
 ``hub`` runs the control plane.  ``in=dyn out=torch|mocker`` serves the
 engine as a worker on the hub: its generate endpoint, a ``{ep}_embed``
@@ -334,6 +340,23 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--timeout", type=float, default=2.0,
                     help="per-component scrape timeout seconds")
 
+    # profile-sla: pre-deployment TTFT/ITL profiling (reference
+    # docs/architecture/planner.md profile_sla workflow)
+    ps = sub.add_parser("profile-sla",
+                        help="measure TTFT/ITL per config, recommend SLO point")
+    ps.add_argument("--out", default="torch", choices=list(ENGINES),
+                    help="engine to profile")
+    ps.add_argument("--isl", default="128,512",
+                    help="comma-separated prefill lengths to probe")
+    ps.add_argument("--batch", default="1,4,8",
+                    help="comma-separated decode batch sizes to probe")
+    ps.add_argument("--osl", type=int, default=64,
+                    help="decode tokens per probe stream (span several "
+                         "flushes of up to 8 tokens, or ITL is unmeasurable)")
+    ps.add_argument("--ttft-slo-ms", type=float, default=None)
+    ps.add_argument("--itl-slo-ms", type=float, default=None)
+    _add_engine_flags(ps)
+
     bn = sub.add_parser("bench",
                         help="drive a frontend with a workload; report "
                              "tok/s + TTFT percentiles")
@@ -375,13 +398,17 @@ def _parse_io(io) -> Tuple[str, str]:
     return kv["in"], kv["out"]
 
 
-def _check_served(args) -> None:
-    """Refuse what the port cannot serve yet, naming it."""
+def _check_refused(args) -> None:
     refused = [flag for flag, asks in _REFUSED.items() if asks(args)]
     if refused:
         raise SystemExit(
             f"not served by the PyTorch port yet: {', '.join(refused)}"
         )
+
+
+def _check_served(args) -> None:
+    """Refuse what the port cannot serve yet, naming it."""
+    _check_refused(args)
     if args.inp not in ("http", "text", "batch", "dyn"):
         raise SystemExit(f"not served by the PyTorch port yet: in={args.inp}")
     if args.disagg is not None and (args.inp, args.out) != ("dyn", "torch"):
@@ -1173,6 +1200,35 @@ async def run_bench(args) -> int:
     return 0 if summary["num_errors"] == 0 else 1
 
 
+async def run_profile_sla(args) -> int:
+    """profile-sla: drive the engine, print the TTFT/ITL table + the SLO
+    recommendation as one JSON object."""
+    from .planner.profile_sla import SlaProfiler
+
+    isls = [int(x) for x in args.isl.split(",") if x]
+    batches = [int(x) for x in args.batch.split(",") if x]
+    engine = _make_engine(args)  # built as `run` builds it (shared flags)
+    try:
+        vocab = _tokenizer_for(args).vocab_size if args.model_path else 30000
+        prof = await SlaProfiler(engine, vocab_size=vocab).profile(
+            isls=isls, batches=batches, osl=args.osl
+        )
+        print(
+            json.dumps(
+                {
+                    "profile": prof.to_dict(),
+                    "recommendation": prof.recommend(
+                        args.ttft_slo_ms, args.itl_slo_ms
+                    ),
+                },
+                indent=2,
+            )
+        )
+    finally:
+        await engine.stop()
+    return 0
+
+
 async def run_metrics(args) -> int:
     """metrics: the standalone cluster Prometheus component (reference
     components/metrics :9091) -- scrapes worker load_metrics through the
@@ -1491,6 +1547,9 @@ def main(argv=None) -> int:
         return asyncio.run(run_llmctl(args))
     if args.cmd == "disagg-conf":
         return asyncio.run(run_disagg_conf(args))
+    if args.cmd == "profile-sla":
+        _check_refused(args)
+        return asyncio.run(run_profile_sla(args))
     if args.cmd == "hub":
         asyncio.run(run_hub(args))
         return 0

@@ -380,6 +380,9 @@ class InflightBlock:
     slots: List[Optional[SeqState]]
     lives: List[int]
     dispatched_at: float = field(default_factory=time.perf_counter)
+    # the lanes' device limits and row-push counts the block ran under
+    limits: Optional[np.ndarray] = None
+    pushes: Optional[np.ndarray] = None
 
 
 # one speculating lane of a verify dispatch: (seq, slot, draft, life at
@@ -408,6 +411,9 @@ class InflightUnified:
     spec_sampled: Optional[Result] = None
     spec_lanes: List[SpecLane] = field(default_factory=list)
     dispatched_at: float = field(default_factory=time.perf_counter)
+    # the lanes' device limits and row-push counts the step ran under
+    limits: Optional[np.ndarray] = None
+    pushes: Optional[np.ndarray] = None
 
 
 @dataclass
@@ -1474,7 +1480,10 @@ class TorchEngine:
         """A lane that hit its device-side limit deactivated itself; once
         growth raised what its limit would be, mark it dirty so the next
         dispatch's row scatter folds the raised limit and ``active`` back
-        in (growth-only refreshes never touch ``active``)."""
+        in (growth-only refreshes never touch ``active``).  A growth-only
+        refresh may already have raised ``_limit_host`` past where the
+        lane stopped (the commits lag the device), so a lane that a commit
+        found at its limit (``_at_limit``) revives too."""
         if not self._dev_valid:
             return
         sched = self.sched
@@ -1485,8 +1494,26 @@ class TorchEngine:
             if (
                 int(sched.seq_lens[b]) >= int(self._limit_host[b])
                 and limits[b] > self._limit_host[b]
-            ):
+            ) or (self._at_limit[b] and limits[b] > int(sched.seq_lens[b])):
                 sched.dirty_slots.add(b)
+
+    def _note_limit_stops(self, e) -> None:
+        """After committing decode dispatch ``e``: a lane whose committed
+        length reached the limit it ran under in ``e`` stopped there on
+        the device, and stays stopped (whatever later growth-only refreshes
+        raise its limit to) until its row is pushed again -- unless it was
+        pushed since ``e``."""
+        sched = self.sched
+        for b, seq in enumerate(e.slots):
+            if (
+                seq is not None
+                and seq.finish is None
+                and seq.slot == b
+                and seq.life == e.lives[b]
+                and e.pushes[b] == self._row_pushes[b]
+                and int(sched.seq_lens[b]) >= int(e.limits[b])
+            ):
+                self._at_limit[b] = True
 
     # -- penalties: the classic tick takes over -----------------------------
 
@@ -1681,6 +1708,11 @@ class TorchEngine:
         self._dev_valid = False
         self._dev_growth = -1
         self._limit_host = np.zeros((B,), np.int64)
+        # per lane: how often its row was pushed (rebuilds and row
+        # scatters), and whether a committed dispatch since its last push
+        # left it at the limit it ran under (_note_limit_stops)
+        self._row_pushes = np.zeros((B,), np.int64)
+        self._at_limit = np.zeros((B,), bool)
         # slot -> the lane's first token still only on the device
         self._pending_injects: Dict[int, InflightPrefill] = {}
 
@@ -1819,6 +1851,8 @@ class TorchEngine:
         self._dev_valid = True
         self._dev_growth = sched.growth_version
         self._limit_host = limit
+        self._row_pushes += 1
+        self._at_limit[:] = False
         sched.dirty_slots.clear()
 
     def _apply_dirty_rows(self) -> None:
@@ -1857,6 +1891,8 @@ class TorchEngine:
             rows["pages"][i] = sched.page_table[b]
             lanes[i] = seq
             self._limit_host[b] = limits[b]
+            self._row_pushes[b] += 1
+            self._at_limit[b] = False
         rows.update(self._sampling_rows(lanes))
         st = self._st
         slots_t = self._put(slots)
@@ -2084,6 +2120,7 @@ class TorchEngine:
             num_steps,
             spec_sampled=None if spec_host is None else Result(spec_host, res.event),
             spec_lanes=spec_lanes,
+            limits=self._limit_host.copy(), pushes=self._row_pushes.copy(),
         )
 
     def _run_packed(
@@ -2243,7 +2280,10 @@ class TorchEngine:
         res = self._download(packed, self._span_kind("decode_block", marks), start)
         self._count("decode_block")
         self.obs.observe_multistep_k(1)
-        return InflightBlock(res, slots, [s.life if s is not None else -1 for s in slots])
+        return InflightBlock(
+            res, slots, [s.life if s is not None else -1 for s in slots],
+            limits=self._limit_host.copy(), pushes=self._row_pushes.copy(),
+        )
 
     # -- speculative decoding: drafts on the host, verify in one forward ------
 
@@ -2919,6 +2959,7 @@ class TorchEngine:
                         self._commit_spec_columns(e.spec_lanes, sp, e.dispatched_at, now)
                     )
                     self.spec_metrics.folded_steps.inc()
+                self._note_limit_stops(e)
                 kind = "unified" if isinstance(e, InflightUnified) else "decode_block"
                 self.obs.observe_step(kind, now - e.dispatched_at)
         alloc = self.kv.allocator

@@ -241,6 +241,27 @@ def test_stop_between_enqueue_and_commit(weights, monkeypatch):
     asyncio.run(asyncio.wait_for(body(), WAIT_S))
 
 
+@pytest.mark.parametrize("lanes,prompt,new,pages", [(8, 300, 160, 180), (6, 300, 200, 150)])
+def test_lanes_paused_at_their_pages_revive(weights, monkeypatch, lanes, prompt, new, pages):
+    """A pool too small for every lane's whole stream (page 16: lanes
+    pause at their pages, the youngest is preempted): with the probe
+    pinned, a lane stops at its limit on the device while a growth-only
+    refresh has already raised the host's view of that limit.  Each such
+    lane must still revive and finish, with the serial loop's streams
+    (before ``_at_limit``, the first case hung with one lane stopped for
+    good, the second gave other streams)."""
+    rng = np.random.default_rng(19)
+    reqs = [request(rng.integers(1, 256, prompt).tolist(), new) for _ in range(lanes)]
+    kw = dict(max_batch_size=8, max_seq_len=1024, page_size=16, num_pages=pages)
+    serial = asyncio.run(serve(torch_engine(weights[2], async_dispatch=False, **kw), reqs))
+    monkeypatch.setattr(engine_mod, "_handles_ready", lambda res: False)
+    engine = torch_engine(weights[2], **kw)
+    piped = asyncio.run(serve(engine, reqs))
+    assert [len(t) for t, _ in piped] == [new] * lanes
+    assert piped == serial
+    assert engine.obs.preemptions._only().value > 0
+
+
 def test_fanout_worker_drains_on_stop(weights):
     """Events committed before stop() reach their streams, and the worker
     task is torn down; the serial loop runs no worker."""

@@ -9,7 +9,8 @@ out=dyn``, serving the same through the distributed runtime.  The fleet
 observatory's render, the front end's ``/fleet`` routes and the ``fleet``
 and ``metrics`` subcommands run under the hook too: ``prometheus_client``
 is on this machine, not on the card's, so a lazy import of it would pass
-everywhere else."""
+everywhere else.  So do a planner round that mints the planner's families
+and writes its JSONL log, and ``profile-sla --out mocker``."""
 
 from __future__ import annotations
 
@@ -105,8 +106,9 @@ def test_port_imports_nothing_refused():
     # (runtime/profiling, slo, compile_sentry, recorder), 80 with
     # runtime/telemetry, the model-free engines (mocker/ and its engine
     # and kv_manager, llm/echo), 83 with the fleet observatory (fleet/ and
-    # fleet/observatory) and llm/components
-    assert int(out.stdout.strip().splitlines()[-1]) >= 83
+    # fleet/observatory) and llm/components, 87 with the planner (planner/
+    # and its connector, planner and profile_sla)
+    assert int(out.stdout.strip().splitlines()[-1]) >= 87
 
 
 # the speculative decoding package, the model drafter and weight-only int8:
@@ -247,6 +249,66 @@ def test_fleet_observatory_renders_without_refused():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+# the planner, driven: one round over a hot worker (a scale-up through a
+# LocalConnector, the dynamo_planner_* families minted, a JSONL log line
+# written on the planner-log thread), then stopped
+PLANNER = HOOK + textwrap.dedent(
+    """
+    import asyncio, json, os, tempfile
+    from dynamo_tpu_torch.planner import LocalConnector, Planner, PlannerConfig
+    from dynamo_tpu_torch.planner.profile_sla import SlaProfile
+    from dynamo_tpu_torch.protocols.common import ForwardPassMetrics
+    from dynamo_tpu_torch.runtime.metrics import default_registry
+
+    async def handle():
+        return object()
+
+    async def main(log):
+        conn = LocalConnector({"decode": handle})
+        await conn.add_worker("decode")
+        planner = Planner(
+            conn, lambda: {0: ForwardPassMetrics(kv_total_blocks=8, gpu_cache_usage_perc=0.9)},
+            cfg=PlannerConfig(adjustment_log_path=log))
+        try:
+            await asyncio.wait_for(planner.step(), 30)
+        finally:
+            await asyncio.wait_for(planner.stop(), 30)
+        return conn.worker_count("decode")
+
+    log = os.path.join(tempfile.mkdtemp(), "adjust.jsonl")
+    assert asyncio.run(main(log)) == 2
+    with open(log) as f:
+        assert json.loads(f.read())["action"] == "up"
+    reg = default_registry()
+    assert reg.sample("dynamo_planner_adjustments", {"kind": "decode", "action": "up"}) == 1.0
+    assert reg.sample("dynamo_planner_pool_size", {"kind": "decode"}) == 2.0
+    assert SlaProfile(itl_ms={1: 2.0}).recommend(None, 1.0)["max_batch_within_itl_slo"] is None
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
+    assert not leaked, leaked
+    print("ok")
+    """
+)
+
+
+def test_planner_round_and_profile_sla_import_nothing_refused():
+    out = subprocess.run(
+        [sys.executable, "-c", PLANNER, ",".join(REFUSED)],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+    prof = subprocess.run(
+        [sys.executable, "-c", SERVE, ",".join(REFUSED), "profile-sla", "--out", "mocker",
+         "--isl", "8,16", "--batch", "1,2", "--osl", "8"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "DYN_LOG": "warning"},
+    )
+    assert prof.returncode == 0, prof.stderr
+    body, leaked = prof.stdout.rsplit("leaked", 1)
+    assert leaked.strip() == "[]"
+    assert set(json.loads(body)) == {"profile", "recommendation"}
 
 
 def test_fleet_routes_and_subcommands_import_nothing_refused():

@@ -43,7 +43,8 @@ def test_the_port_mints_the_planes_it_serves():
                    "dynamo_kv_swap_fallbacks", "dynamo_kv_onboard_fallbacks",
                    "dynamo_kv_g4_bytes", "dynamo_spec_folded_verify_steps",
                    "dynamo_tick_phase_seconds", "dynamo_slo_attainment",
-                   "dynamo_compile_events", "dynamo_kv_router_decisions"):
+                   "dynamo_compile_events", "dynamo_kv_router_decisions",
+                   "dynamo_planner_adjustments"):
         assert family in PORT, family
     assert len(PORT) >= 70
 
