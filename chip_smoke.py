@@ -369,6 +369,34 @@ Every phase is fatal on failure:
    checkpoint and ``--out mocker``, as subprocesses: exit code 0 and
    the recommendation the rule gives for the printed table.
 
+17. serve-moe: the Mixtral family (``_moe_mlp``'s capacity dispatch, the
+   memory plan, Mixtral checkpoints, the SentencePiece-style tokenizer),
+   last.  (a) A small f32 MoE model (E = 4, K = 2, so nothing can drop;
+   D 64, group 2) served on the card and on the CPU from the same weights,
+   the reference phase's batches with top-2 logprobs, under the default,
+   classic and rectangle configs: identical greedy streams, logprobs
+   within ``MOE_LOGPROB_TOL``; one dispatch card against CPU.  (b)
+   Mixtral-8x7B's widths at 16 of its 32 layers, bf16, random weights of
+   seed 0 (the earlier phases' weights freed first): the bytes the card
+   allocated for them equal the memory plan's ``param_bytes``;
+   ``_moe_mlp`` against ``_moe_mlp_dense`` at N = 8 and 512 where nothing
+   drops, within ``MOE_BF16_RTOL``; serve's primer and batch
+   (``EngineConfig(num_pages=1024)``, 8 lanes, page 16, pipelined), cold
+   and warm, at the preset's cf = 2, with the warm batch's dropped share
+   of assignments counted by this script (``DropCounter``); then at cf = E
+   / K, where nothing can drop, the pipelined and the serial loop give the
+   same streams.  (c) The whole model, 32 layers, int8 weights made and
+   quantized one layer at a time (``TorchEngine.random_init`` under
+   ``quantize="int8"``): serve's batch with 32 new tokens, cold and warm;
+   its weights hold the plan's bytes, its peak stays under the card's
+   memory and the plan's params + KV + scratch + dequantization.  (d) A
+   Mixtral-layout checkpoint written here (small width, E = 8, K = 2, 2
+   layers, a SentencePiece-style ``tokenizer.json`` with byte fallback)
+   served by ``python -m dynamo_tpu_torch run in=http out=torch`` in a
+   subprocess gives an in-process engine's texts on the same directory.
+   Every run holds its launch invariants and prints wall, ``tok_s``,
+   decode-phase tok/s, TTFT and peak GiB.
+
 In every served run each kernel's launch count (graph replays included)
 must equal what the run's dispatches imply (``expected_launches``), and
 the run prints its loop mode, graph captures and replays and the dispatch
@@ -390,6 +418,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -4627,15 +4656,16 @@ def cli_requests() -> Tuple[List[dict], dict]:
     return reqs, chat
 
 
-async def ask_texts(port: int, what: str) -> List[str]:
-    """``cli_requests()`` one at a time against the front end on ``port``;
-    returns the texts."""
+async def ask_texts(port: int, what: str, requests=None) -> List[str]:
+    """``requests`` (token-id completions and a chat; ``cli_requests()``
+    by default) one at a time against the front end on ``port``; returns
+    the texts."""
     from dynamo_tpu_torch.bench_serving import run_bench
 
-    reqs, chat = cli_requests()
+    reqs, chat = requests or cli_requests()
     out = []
     for req in reqs:
-        rep = await run_bench("127.0.0.1", port, "ckpt", bench_items([req]),
+        rep = await run_bench("127.0.0.1", port, chat["model"], bench_items([req]),
                               concurrency=1, stream=False)
         check_http_results(what, [rep], [[req]])
         out.append(rep.results[0].text)
@@ -7026,6 +7056,531 @@ def serve_mocker_phase(card: str, ckpt) -> None:
     print(f"serve-mocker: phase {time.perf_counter() - t0:.3f} s")
 
 
+# -- serve-moe: the Mixtral family -------------------------------------------------
+
+# (a)'s small f32 MoE model: E = 4, K = 2 (K * cf >= E: nothing can drop)
+MOE_SMALL = dict(head_dim=64, num_heads=4, num_kv_heads=2, num_layers=2,
+                 num_experts=4, num_experts_per_tok=2)
+# f32 logprobs, card against CPU: the attention kernels' f32 sums in
+# another order than the plain versions' (F32_TOL on an output) and the
+# expert products' GEMMs, carried through two layers and a log-softmax
+MOE_LOGPROB_TOL = 1e-3
+# bf16 sparse against dense dispatch where nothing drops: both run each
+# expert's products as bf16 GEMMs with f32 sums, then combine; the dense
+# combine weighs all E experts' rounded outputs (E - K of them by 0) in a
+# bf16 einsum, the sparse one sums K weighted rows.  Each output is a sum
+# of K rounded products, so the two may differ by a few bf16 steps of the
+# larger term: |sparse - dense| <= MOE_BF16_RTOL * max|dense| (2^-6, four
+# steps of 2^-8 relative)
+MOE_BF16_RTOL = 2.0**-6
+# (b): Mixtral-8x7B at 16 of its 32 layers (bf16: the card holds about 47
+# GB of weights, the whole model is about 93 GB)
+MOE_LAYERS = 16
+# (d)'s checkpoint: small width, Mixtral's E and K, 2 layers
+MOE_CKPT_CONFIG = {"model_type": "mixtral", "hidden_size": 256, "intermediate_size": 512,
+                   "num_hidden_layers": 2, "num_attention_heads": 4,
+                   "num_key_value_heads": 2, "head_dim": 64, "num_local_experts": 8,
+                   "num_experts_per_tok": 2, "rope_theta": 1000000.0,
+                   "max_position_embeddings": 4096, "rms_norm_eps": 1e-5}
+MOE_CHAT_TEMPLATE = (
+    "{% for message in messages %}[INST] {{ message['content'] }} [/INST]{% endfor %}"
+)
+
+
+class DropCounter:
+    """Stands in for the trunk's ``_moe_mlp``: before each call of the
+    package's dispatch it routes the call's rows itself (its own router
+    product, stable top-k and slot rule) and adds, on the card, the
+    assignments and those past capacity to ``n``.  Its ops are captured
+    into the engine's decode graphs with the dispatch, so replays count
+    too; no host sync."""
+
+    def __init__(self, model_mod) -> None:
+        self.mod = model_mod
+        self.orig = model_mod._moe_mlp
+        # assignments, dropped; made at the first call (an eager prefill,
+        # before any graph is captured) on the rows' device
+        self.n = None
+
+    def __enter__(self) -> "DropCounter":
+        self.mod._moe_mlp = self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.mod._moe_mlp = self.orig
+
+    def __call__(self, lp, x, cfg):
+        E, K = cfg.num_experts, cfg.num_experts_per_tok
+        xf = x.reshape(-1, x.shape[-1])
+        n = xf.shape[0]
+        logits = (xf @ lp["router"]).float()
+        top = torch.sort(logits, dim=-1, descending=True, stable=True).indices[:, :K]
+        cap = min(max(1, math.ceil(n * K * cfg.moe_capacity_factor / E)), n * K)
+        onehot = F.one_hot(top.reshape(-1), E)
+        rank = (onehot.cumsum(0) * onehot).sum(1) - 1
+        if self.n is None:
+            self.n = torch.zeros(2, dtype=torch.int64, device=x.device)
+        self.n[0].add_(n * K)
+        self.n[1].add_((rank >= cap).sum())
+        return self.orig(lp, x, cfg)
+
+    def read(self) -> Tuple[int, int]:
+        if self.n is None:
+            return 0, 0
+        torch.cuda.synchronize()
+        a, d = self.n.tolist()
+        return a, d
+
+
+def top_err(a, b) -> float:
+    """The largest logprob difference between two top-logprob structures
+    of the same shape, or inf where their ids or shapes differ."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        if set(a) != set(b):
+            return math.inf
+        return max((top_err(a[k], b[k]) for k in a), default=0.0)
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return math.inf
+        return max((top_err(x, y) for x, y in zip(a, b)), default=0.0)
+    if isinstance(a, float) or isinstance(b, float):
+        return abs(float(a) - float(b))
+    return 0.0 if a == b else math.inf
+
+
+def moe_small(ref: Dict[str, object], card: str) -> None:
+    """(a) A small f32 MoE model served on the card (kernels) and on the
+    CPU (plain versions) from the same weights, the reference phase's
+    batches with top-2 logprobs, under the default, classic and rectangle
+    configs: equal greedy streams, logprobs within MOE_LOGPROB_TOL; and
+    the dispatch itself card against CPU on 40 rows."""
+    from dynamo_tpu_torch.engine import model as moe_model
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.model import init_params
+
+    cfg = ModelConfig.tiny(**MOE_SMALL)
+    params = init_params(cfg, 4, torch.device("cpu"), torch.float32)
+    lp = {n: w[0] for n, w in params["layers"].items()}
+    x = torch.randn(40, cfg.hidden_size, generator=torch.Generator().manual_seed(4))
+    cpu_out = moe_model._moe_mlp(lp, x, cfg)
+    card_out = moe_model._moe_mlp(params_on(lp, "cuda"), x.cuda(), cfg).cpu()
+    err = (card_out - cpu_out).abs().max().item()
+    if err > F32_TOL:
+        fail(f"serve-moe (a): _moe_mlp card against CPU {err:.3e} > {F32_TOL:.0e}")
+    batches = [[dict(r, sampling_options=dict(r["sampling_options"], logprobs=2)) for r in b]
+               for b in ref["batches"]]
+    want = [r["stop_conditions"]["max_tokens"] for b in batches for r in b]
+    for name in ("default", "classic", "rectangle"):
+        kw = REFERENCE_CONFIGS[name]
+        out = {}
+        for dev in ("cuda", "cpu"):
+            eng = TorchEngine(cfg, params_on(params, dev),
+                              EngineConfig(**ref["ecfg"], **kw), device=dev)
+            out[dev] = asyncio.run(serve(eng, batches))
+        streams = {dev: [r["tokens"] for r in res] for dev, res in out.items()}
+        if streams["cuda"] != streams["cpu"]:
+            fail(f"serve-moe (a) {name}: card streams {streams['cuda']} != cpu {streams['cpu']}")
+        if [len(t) for t in streams["cuda"]] != want:
+            fail(f"serve-moe (a) {name}: streams end early")
+        if any(len(r["top"]) != len(r["tokens"]) for r in out["cuda"] + out["cpu"]):
+            fail(f"serve-moe (a) {name}: a stream lacks its top-2 logprobs")
+        lp_err = max(top_err(a["top"], b["top"]) for a, b in zip(out["cuda"], out["cpu"]))
+        if not lp_err <= MOE_LOGPROB_TOL:
+            fail(f"serve-moe (a) {name}: top-2 logprobs card against CPU {lp_err:.3e}")
+        print(f"serve-moe: (a) {name} {sum(want)} greedy tokens card == CPU, top-2 logprob "
+              f"max err {lp_err:.3e} (tol {MOE_LOGPROB_TOL:.0e}); _moe_mlp card against "
+              f"CPU {err:.3e} on {card}")
+
+
+def assert_card_free(what: str, plan) -> int:
+    """Free the earlier phases' tensors; the card must have room for the
+    plan's params, KV, scratch and dequantization.  Returns the bytes
+    still allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    free, total = torch.cuda.mem_get_info()
+    need = plan.param_bytes + plan.kv_bytes + plan.scratch_bytes + plan.dequant_bytes
+    print(f"serve-moe: {what} before: {held / 2**30:.3f} GiB still allocated, "
+          f"{free / 2**30:.3f} of {total / 2**30:.3f} GiB free, the plan needs "
+          f"{need / 2**30:.3f}")
+    if free < need:
+        fail(f"serve-moe {what}: {held / 2**30:.3f} GiB still held, {free / 2**30:.3f} GiB "
+             f"free, {need / 2**30:.3f} GiB needed")
+    return held
+
+
+def moe_dense_check(params, cfg, card: str) -> None:
+    """``_moe_mlp`` against ``_moe_mlp_dense`` on layer 0 of the served
+    weights, at a decode N (8) and a prefill N (512), with cf = E / K so
+    that nothing drops."""
+    from dynamo_tpu_torch.engine import model as moe_model
+
+    dropless = dataclasses.replace(cfg, moe_capacity_factor=cfg.num_experts
+                                   / cfg.num_experts_per_tok)
+    lp = {n: w[0] for n, w in params["layers"].items()}
+    dev = lp["router"].device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    for n in (8, 512):
+        x = torch.randn(n, cfg.hidden_size, device=dev, generator=gen).to(lp["router"].dtype)
+        sparse = moe_model._moe_mlp(lp, x, dropless).float()
+        dense = moe_model._moe_mlp_dense(lp, x, dropless).float()
+        err = (sparse - dense).abs().max().item()
+        bound = MOE_BF16_RTOL * dense.abs().max().item()
+        print(f"serve-moe: (b) _moe_mlp against _moe_mlp_dense at N={n}: max err {err:.4e} "
+              f"(bound {bound:.4e}, max |dense| {dense.abs().max().item():.4e}) on {card}")
+        if not err <= bound:
+            fail(f"serve-moe (b): _moe_mlp differs from _moe_mlp_dense at N={n}: {err} > {bound}")
+
+
+def moe_run_line(what: str, engine, res, wall, warm, wall_w, peak_gib: float,
+                 drops: Tuple[int, int], card: str) -> None:
+    st, st_w = served_stats(res, wall), served_stats(warm, wall_w, primed=False)
+    share = drops[1] / drops[0] if drops[0] else float("nan")
+    print(f"serve-moe: {what} wall_s={wall:.3f} tok_s={st['tok_s']:.3f} "
+          f"decode_phase_tok_s={st['dec']:.3f} ttft_ms="
+          f"{[round(r['ttft'] * 1e3, 3) for r in res[1:]]} peak_mem_gib={peak_gib:.3f} (above "
+          f"the phase's start) "
+          f"dispatches_by_k={dict(engine.dispatches_by_k)} on {card}")
+    print(f"serve-moe: {what} warm wall_s={wall_w:.3f} tok_s={st_w['tok_s']:.3f} "
+          f"decode_phase_tok_s={st_w['dec']:.3f} ttft_ms="
+          f"{[round(r['ttft'] * 1e3, 3) for r in warm]} dropped {drops[1]} of {drops[0]} "
+          f"assignments (share {share:.6f}) on {card}")
+
+
+def moe_serve(engine, primer, batch, max_tokens: int, what: str, card: str, base: int):
+    """One served run, cold then warm, with the drop counter on: streams
+    checked, launch invariants held; returns the streams, the kernels'
+    launches, the warm batch's dropped assignments and the peak bytes
+    above ``base`` (what the card held before the phase made its
+    weights: tensors earlier phases left are not this run's)."""
+    from dynamo_tpu_torch.engine import model as moe_model
+
+    with DropCounter(moe_model) as counter:
+        at_warm = {}
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        res, wall, warm, wall_w, marks = serve_cold_warm(
+            engine, primer, batch, hook=lambda: at_warm.update(n=counter.read())
+        )
+        counted = read_launches()
+        end = counter.read()
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    check_launch_invariants(f"serve-moe: {what}", engine, counted)
+    for i, r in enumerate(res[1:] + warm):
+        if len(r["tokens"]) != max_tokens or r["finish"] != "length":
+            fail(f"serve-moe {what} request {i}: {len(r['tokens'])} tokens, finish {r['finish']}")
+    drops = (end[0] - at_warm["n"][0], end[1] - at_warm["n"][1])
+    moe_run_line(what, engine, res, wall, warm, wall_w, peak_gib, drops, card)
+    print(f"serve-moe: {what} {loop_line(engine, wall + wall_w)}")
+    return dict(streams=[r["tokens"] for r in res[1:] + warm], launches=counted,
+                drops=drops, peak_gib=peak_gib)
+
+
+def moe_width(card: str) -> Dict[str, int]:
+    """(b) Mixtral-8x7B's widths at 16 layers, bf16, random weights of
+    seed 0 made once: the memory plan's ``param_bytes`` against the bytes
+    the card allocated for them; sparse against dense dispatch; then
+    serve's primer and batch (pipelined, 8 lanes, page 16, 1024 pages),
+    cold and warm, at the preset's cf = 2 with the warm batch's dropped
+    share; and at cf = E / K, where no assignment can drop, the pipelined
+    loop against the serial one (at cf = 2 a row's output depends on the
+    rows it is dispatched with, and the two loops dispatch lanes that have
+    finished differently).  Returns the preset run's launches."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.memory_plan import plan_memory
+    from dynamo_tpu_torch.engine.model import init_params
+
+    cfg = ModelConfig.mixtral_8x7b(num_layers=MOE_LAYERS)
+    plan = plan_memory(cfg, num_pages=1024)
+    if not plan.fits:
+        fail(f"serve-moe (b): the plan does not fit: {plan}")
+    before = assert_card_free("(b)", plan)
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, torch.device("cuda"), torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = torch.cuda.memory_allocated() - before
+    print(f"serve-moe: (b) Mixtral-8x7B widths, {MOE_LAYERS} layers, bf16: weights "
+          f"{weights} bytes ({weights / 2**30:.3f} GiB) made in {init_s:.3f} s; plan "
+          f"param_bytes {plan.param_bytes}, kv {plan.kv_bytes}, scratch {plan.scratch_bytes} "
+          f"on {card}")
+    if weights != plan.param_bytes:
+        fail(f"serve-moe (b): the card holds {weights} weight bytes, the plan {plan.param_bytes}")
+    moe_dense_check(params, cfg, card)
+    primer, batch = serve_requests(cfg.vocab_size)
+    dropless = dataclasses.replace(cfg, moe_capacity_factor=cfg.num_experts
+                                   / cfg.num_experts_per_tok)
+    runs = []
+    for what, model_cfg, pipelined in (("(b) cf=2 pipelined", cfg, True),
+                                        ("(b) cf=4 pipelined", dropless, True),
+                                        ("(b) cf=4 serial", dropless, False)):
+        engine = TorchEngine(model_cfg, params, EngineConfig(num_pages=1024,
+                                                             async_dispatch=pipelined))
+        runs.append(moe_serve(engine, primer, batch, 64, what, card, before))
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    preset, runs = runs[0], runs[1:]
+    if runs[1]["streams"] != runs[0]["streams"]:
+        fail("serve-moe (b): at cf=4 the serial loop's streams differ from the pipelined loop's")
+    if runs[0]["drops"][1] or runs[1]["drops"][1]:
+        fail(f"serve-moe (b): cf=4 dropped assignments: {runs[0]['drops']}, {runs[1]['drops']}")
+    same = sum(a == b for a, b in zip(preset["streams"], runs[0]["streams"]))
+    print(f"serve-moe: (b) cf=4 pipelined == serial ({len(runs[0]['streams'])} streams); "
+          f"cf=2 streams equal to cf=4's: {same} of {len(runs[0]['streams'])} (reported: drops "
+          f"at cf=2 move rows)")
+    for name in ("packed_ragged_attention", "paged_decode_attention"):
+        if preset["launches"][name] <= 0:
+            fail(f"serve-moe (b): {name} never launched")
+    del params
+    return {k: preset["launches"][k] for k in ("packed_ragged_attention", "paged_decode_attention")}
+
+
+def moe_int8(card: str) -> Dict[str, int]:
+    """(c) The whole Mixtral-8x7B, 32 layers, int8 weights made and
+    quantized one layer at a time (``TorchEngine.random_init`` under
+    ``quantize="int8"``): 8 requests of 32 new tokens, cold then warm;
+    peak memory under the card's and within the plan's int8 figure (params,
+    KV, scratch and the dequantization transient)."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.memory_plan import plan_memory
+    from dynamo_tpu_torch.engine.quant import QuantizedTensor, weight_bytes
+
+    cfg = ModelConfig.mixtral_8x7b()
+    plan = plan_memory(cfg, quantize="int8", num_pages=1024)
+    base = assert_card_free("(c)", plan)
+    total = plan.hbm_bytes
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = TorchEngine.random_init(cfg, EngineConfig(num_pages=1024, quantize="int8"), seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - base
+    held = weight_bytes(engine.params)
+    if not isinstance(engine.params["layers"]["w_gate"], QuantizedTensor) or held != plan.param_bytes:
+        fail(f"serve-moe (c): int8 weights hold {held} bytes, the plan {plan.param_bytes}")
+    print(f"serve-moe: (c) Mixtral-8x7B, 32 layers, int8 weights {held / 2**30:.3f} GiB "
+          f"(plan {plan.param_bytes / 2**30:.3f}) made layer by layer in {init_s:.3f} s, "
+          f"init peak {init_peak / 2**30:.3f} GiB on {card}")
+    primer, batch = serve_requests(cfg.vocab_size)
+    batch = [dict(r, stop_conditions={"max_tokens": 32}) for r in batch]
+    run = moe_serve(engine, primer, batch, 32, "(c) int8 pipelined", card, base)
+    bound = plan.param_bytes + plan.kv_bytes + plan.scratch_bytes + plan.dequant_bytes
+    print(f"serve-moe: (c) peak {run['peak_gib']:.3f} GiB above the phase's start against the "
+          f"plan's params + kv + scratch + dequant {bound / 2**30:.3f} GiB and the card's "
+          f"{total / 2**30:.3f} GiB")
+    if run["peak_gib"] * 2**30 > min(bound, total - base):
+        fail(f"serve-moe (c): peak {run['peak_gib']:.3f} GiB over the plan's "
+             f"{bound / 2**30:.3f} GiB or the card's")
+    del engine
+    return {k: run["launches"][k] for k in ("packed_ragged_attention", "paged_decode_attention")}
+
+
+def write_sentencepiece_tokenizer(path: str) -> int:
+    """A SentencePiece-style ``tokenizer.json`` of the older published
+    form (Llama 2, Mistral, Mixtral): ``<unk>``, ``<s>``, ``</s>``, the
+    byte tokens ``<0x80>`` to ``<0xFF>`` (every non-ASCII character falls
+    back to them; ASCII is in the alphabet), ``▁``, printable ASCII, tab
+    and newline, then ``▁`` words of one to three lowercase letters merged
+    character by character (about 10900 ids, so that a random model's
+    stream holds few byte tokens: a run of them that is not UTF-8 is
+    refused by the incremental decode, as by the Rust core's);
+    normalizer ``Prepend("▁")`` + ``Replace(" ", "▁")``, BPE with
+    ``byte_fallback``, decoder ``Replace`` / ``ByteFallback`` / ``Fuse`` /
+    ``Strip``; and a ``tokenizer_config.json``.  Returns the vocabulary
+    size."""
+    import itertools
+    import string
+
+    vocab = {"<unk>": 0, "<s>": 1, "</s>": 2}
+    for b in range(128, 256):
+        vocab[f"<0x{b:02X}>"] = len(vocab)
+    for c in ["▁", "\t", "\n"] + [chr(c) for c in range(33, 127)]:
+        vocab[c] = len(vocab)
+    merges: List[List[str]] = []
+    letters = string.ascii_lowercase
+    words = itertools.chain(
+        letters, ("".join(p) for p in itertools.product(letters, repeat=2)),
+        itertools.islice(("".join(p) for p in itertools.product(letters, repeat=3)), 10000),
+    )
+    for w in ("▁" + w for w in words):
+        a, b = w[:-1], w[-1]
+        merges.append([a, b])
+        vocab[w] = len(vocab)
+    added = [{"id": i, "content": s, "single_word": False, "lstrip": False, "rstrip": False,
+              "normalized": False, "special": True} for i, s in enumerate(("<unk>", "<s>", "</s>"))]
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Prepend", "prepend": "▁"},
+            {"type": "Replace", "pattern": {"String": " "}, "content": "▁"}]},
+        "pre_tokenizer": None,
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
+                       {"Sequence": {"id": "A", "type_id": 0}}],
+            "pair": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
+                     {"Sequence": {"id": "A", "type_id": 0}},
+                     {"SpecialToken": {"id": "<s>", "type_id": 1}},
+                     {"Sequence": {"id": "B", "type_id": 1}}],
+            "special_tokens": {"<s>": {"id": "<s>", "ids": [1], "tokens": ["<s>"]}}},
+        "decoder": {"type": "Sequence", "decoders": [
+            {"type": "Replace", "pattern": {"String": "▁"}, "content": " "},
+            {"type": "ByteFallback"}, {"type": "Fuse"},
+            {"type": "Strip", "content": " ", "start": 1, "stop": 0}]},
+        "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": True, "byte_fallback": True, "ignore_merges": False,
+                  "vocab": vocab, "merges": merges},
+    }
+    with open(os.path.join(path, "tokenizer.json"), "w") as f:
+        json.dump(spec, f)
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"bos_token": "<s>", "eos_token": "</s>",
+                   "chat_template": MOE_CHAT_TEMPLATE}, f)
+    return len(vocab)
+
+
+def write_moe_checkpoint(tmp: str) -> str:
+    """(d)'s checkpoint: ``config.json`` (Mixtral layout at small width),
+    the SentencePiece-style tokenizer, and ``model.safetensors`` under
+    Mixtral's names (``block_sparse_moe.gate``, ``experts.{e}.w1/w3/w2``)
+    from random bf16 weights of seed 7."""
+    from dynamo_tpu_torch.engine.config import ModelConfig
+    from dynamo_tpu_torch.engine.model import init_params
+
+    path = os.path.join(tmp, "mixtral")
+    os.makedirs(path)
+    vocab = write_sentencepiece_tokenizer(path)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(dict(MOE_CKPT_CONFIG, vocab_size=vocab), f)
+    cfg = ModelConfig.from_pretrained(path)
+    p = init_params(cfg, 7, torch.device("cuda"), torch.bfloat16)
+    lay = {n: w.float().cpu().numpy() for n, w in p["layers"].items()}
+    H, V, I = cfg.hidden_size, cfg.vocab_size, cfg.intermediate_size
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    tensors = {
+        "model.embed_tokens.weight": ((V, H), lambda: p["embed"].float().cpu().numpy()),
+        "model.norm.weight": ((H,), lambda: p["final_norm"].float().cpu().numpy()),
+        "lm_head.weight": ((V, H), lambda: p["lm_head"].float().cpu().numpy().T),
+    }
+    attn = {"wq": ("self_attn.q_proj", (q, H)), "wk": ("self_attn.k_proj", (kv, H)),
+            "wv": ("self_attn.v_proj", (kv, H)), "wo": ("self_attn.o_proj", (H, q))}
+    for i in range(cfg.num_layers):
+        pre = f"model.layers.{i}."
+        for key, (name, shape) in attn.items():
+            tensors[pre + name + ".weight"] = (shape, lambda k=key, i=i: lay[k][i].T)
+        tensors[pre + "block_sparse_moe.gate.weight"] = (
+            (cfg.num_experts, H), lambda i=i: lay["router"][i].T)
+        for e in range(cfg.num_experts):
+            for key, w, shape in (("w_gate", "w1", (I, H)), ("w_up", "w3", (I, H)),
+                                  ("w_down", "w2", (H, I))):
+                tensors[pre + f"block_sparse_moe.experts.{e}.{w}.weight"] = (
+                    shape, lambda k=key, i=i, e=e: lay[k][i, e].T)
+        tensors[pre + "input_layernorm.weight"] = ((H,), lambda i=i: lay["input_norm"][i])
+        tensors[pre + "post_attention_layernorm.weight"] = (
+            (H,), lambda i=i: lay["post_norm"][i])
+    write_safetensors(os.path.join(path, "model.safetensors"), tensors)
+    del p
+    return path
+
+
+def moe_cli_requests(vocab: int) -> Tuple[List[dict], dict]:
+    """(d)'s greedy requests: three token-id completions and a chat whose
+    text falls back to bytes."""
+    rng = np.random.default_rng(9)
+    reqs = [request(rng.integers(3, vocab, n), 16) for n in (5, 40, 300)]
+    chat = {"model": "mixtral", "max_tokens": 16,
+            "messages": [{"role": "user", "content": "Hello from the port! Ça va? 😀 日本"}]}
+    return reqs, chat
+
+
+def moe_cli(tmp: str, card: str) -> None:
+    """(d) ``python -m dynamo_tpu_torch run in=http out=torch --model-path
+    DIR`` over a Mixtral-layout checkpoint with a SentencePiece-style
+    tokenizer, in a subprocess (SIGINT ends it with exit code 0), against
+    an in-process engine loaded from the same directory
+    (``TorchEngine.from_pretrained``) behind the HTTP service: the same
+    texts."""
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.http.service import HttpService, ModelManager
+    from dynamo_tpu_torch.llm.backend import Backend
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.llm.tokenizer import Tokenizer
+    from dynamo_tpu_torch.runtime.pipeline import link
+
+    path = write_moe_checkpoint(tmp)
+    tok = Tokenizer.from_model_dir(path)
+    vocab = tok.vocab_size
+    port = free_port()
+    cli = Proc(tmp, "moe-cli", "run", "in=http", "out=torch", "--model-path", path,
+               "--model-name", "mixtral", "--port", str(port))
+    try:
+        up = wait_http(port, "/health", lambda body: True, [cli], "serve-moe (d)")
+        cli_texts = asyncio.run(ask_texts(port, "serve-moe (d)", moe_cli_requests(vocab)))
+        cli.interrupt("serve-moe (d)")
+    finally:
+        cli.kill()
+    engine = TorchEngine.from_pretrained(path)
+    if not engine.model_cfg.is_moe or engine.model_cfg.num_experts != 8:
+        fail(f"serve-moe (d): the checkpoint loaded as {engine.model_cfg}")
+
+    async def in_process() -> List[str]:
+        pipe = link(OpenAIPreprocessor("mixtral", tok), Backend(tok), engine)
+        manager = ModelManager()
+        manager.add_completion_model("mixtral", pipe)
+        manager.add_chat_model("mixtral", pipe)
+        service = HttpService(manager, port=0)
+        await service.start()
+        try:
+            return await ask_texts(service.address[1], "serve-moe (d) in process",
+                                   moe_cli_requests(vocab))
+        finally:
+            await service.stop()
+            await engine.stop()
+
+    reset_launches()
+    direct = asyncio.run(in_process())
+    check_launch_invariants("serve-moe: (d) in process", engine, read_launches())
+    del engine
+    print(f"serve-moe: (d) CLI healthy after {up:.3f} s, exit code 0; texts "
+          f"{[t[:40] for t in cli_texts]} on {card}")
+    if cli_texts != direct:
+        fail(f"serve-moe (d): the CLI's texts {cli_texts} differ from the in-process "
+             f"engine's {direct}")
+    if not all(cli_texts):
+        fail(f"serve-moe (d): an empty text: {cli_texts}")
+
+
+def serve_moe_phase(ref: Dict[str, object], card: str) -> Dict[str, Dict[str, int]]:
+    """The Mixtral family: (a) card against CPU on a small f32 MoE model,
+    (b) Mixtral-8x7B's widths at 16 layers in bf16, (c) the whole model
+    in int8, (d) the CLI on a Mixtral-layout checkpoint.  Returns (b)'s
+    and (c)'s launches of kernels 5 and 1."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    moe_small(ref, card)
+    width = moe_width(card)
+    whole = moe_int8(card)
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-moe-")
+    try:
+        moe_cli(tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"serve-moe: phase {time.perf_counter() - t0:.3f} s; launches (b) {width}, "
+          f"(c) {whole} on {card}")
+    return {"b": width, "c": whole}
+
+
 def profile_phase(out_path: str, plain_walls: Dict[str, float]) -> None:
     """``--profile OUT.txt``: each served cell once more -- the serve
     phase's run, serve-classic runs A and B and serve-int8 run Q, the same
@@ -7218,6 +7773,7 @@ def main() -> None:
         del ckpt
     finally:
         shutil.rmtree(ckpt_tmp, ignore_errors=True)
+    serve_moe_phase(ref, card)
     if profile_out is not None:
         profile_phase(
             profile_out,

@@ -30,10 +30,11 @@ class ModelConfig:
     max_position: int = 4096
     tie_word_embeddings: bool = False
     attention_bias: bool = False  # Qwen2-style qkv bias
-    # MoE (Mixtral-style); num_experts == 0 means dense MLP.  The PyTorch
-    # engine serves dense models only (model.py raises on MoE).
+    # MoE (Mixtral-style); num_experts == 0 means dense MLP
     num_experts: int = 0
     num_experts_per_tok: int = 2
+    # per-expert buffer headroom over perfect balance (GShard capacity
+    # factor); assignments past capacity are dropped
     moe_capacity_factor: float = 2.0
     # Gemma-family switches: RMSNorm multiplies by (1 + w), the MLP uses
     # tanh-approximated GELU, and embeddings scale by sqrt(hidden)
@@ -84,6 +85,24 @@ class ModelConfig:
             head_dim=128,
             rope_theta=500000.0,
             max_position=8192,
+        )
+        base.update(overrides)
+        return cls(**base)
+
+    @classmethod
+    def mixtral_8x7b(cls, **overrides: Any) -> "ModelConfig":
+        base = dict(
+            vocab_size=32000,
+            hidden_size=4096,
+            intermediate_size=14336,
+            num_layers=32,
+            num_heads=32,
+            num_kv_heads=8,
+            head_dim=128,
+            rope_theta=1000000.0,
+            max_position=32768,
+            num_experts=8,
+            num_experts_per_tok=2,
         )
         base.update(overrides)
         return cls(**base)

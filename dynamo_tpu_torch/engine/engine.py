@@ -840,10 +840,15 @@ class TorchEngine:
         seed: int = 0,
         device: Optional[Union[str, torch.device]] = None,
     ) -> "TorchEngine":
-        """An engine over random weights made on ``device`` from ``seed``."""
+        """An engine over random weights made on ``device`` from ``seed``;
+        under ``cfg.quantize="int8"`` each layer is quantized as it is
+        made, so only the int8 model ever stands on the card."""
         device = resolve_device(device)
         check_model_geometry(model_cfg, device)
-        params = init_params(model_cfg, seed, device, torch_dtype(model_cfg.dtype))
+        params = init_params(
+            model_cfg, seed, device, torch_dtype(model_cfg.dtype),
+            quantize=cfg.quantize if cfg is not None else None,
+        )
         return cls(model_cfg, params, cfg, device=device)
 
     @classmethod
@@ -861,7 +866,9 @@ class TorchEngine:
         device = resolve_device(device)
         model_cfg = ModelConfig.from_pretrained(model_path)
         check_model_geometry(model_cfg, device)
-        params = load_safetensors_params(model_path, model_cfg, device)
+        params = load_safetensors_params(
+            model_path, model_cfg, device, quantize=cfg.quantize if cfg is not None else None
+        )
         return cls(model_cfg, params, cfg, device=device)
 
     # -- lifecycle ----------------------------------------------------------

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 
 from .config import ModelConfig
 from .kv_cache import KVPool, torch_dtype
-from .quant import mat
+from .quant import QUANT_KEYS, QuantizedTensor, mat, quantize_tensor
 
 Params = Dict[str, Any]
 
@@ -42,7 +42,9 @@ AttnFn = Callable[
 
 
 def layer_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
-    """Per-layer parameter shapes (without the leading layer axis)."""
+    """Per-layer parameter shapes (without the leading layer axis).  An
+    MoE layer holds a router ``[H, E]`` and expert stacks ``[E, H, I]``,
+    ``[E, I, H]`` in place of the dense MLP."""
     H, D, I = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size
     Hq, Hkv = cfg.num_heads, cfg.num_kv_heads
     shapes = {
@@ -52,10 +54,12 @@ def layer_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
         "wo": (Hq * D, H),
         "input_norm": (H,),
         "post_norm": (H,),
-        "w_gate": (H, I),
-        "w_up": (H, I),
-        "w_down": (I, H),
     }
+    if cfg.is_moe:
+        E = cfg.num_experts
+        shapes.update(router=(H, E), w_gate=(E, H, I), w_up=(E, H, I), w_down=(E, I, H))
+    else:
+        shapes.update(w_gate=(H, I), w_up=(H, I), w_down=(I, H))
     if cfg.attention_bias:
         shapes.update(bq=(Hq * D,), bk=(Hkv * D,), bv=(Hkv * D,))
     if cfg.qk_norm:
@@ -63,43 +67,61 @@ def layer_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     return shapes
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(
-            "the PyTorch engine serves dense models only (MoE is not ported)"
-        )
-
-
 def init_params(
     cfg: ModelConfig,
     seed: int,
     device: torch.device,
     dtype: Optional[torch.dtype] = None,
+    quantize: Optional[str] = None,
 ) -> Params:
     """Random parameters made on ``device`` from ``seed`` (normal, scaled
     by 1/sqrt(fan_in) like the JAX package's ``init_params``; norms are
     ones).  Filled one layer at a time in the target dtype, so a full-width
-    model never holds an f32 copy of itself."""
-    check_supported(cfg)
+    model never holds an f32 copy of itself.
+
+    ``quantize="int8"`` makes the weights that ``quant.quantize_params``
+    quantizes as ``quant.QuantizedTensor`` leaves, each layer quantized as
+    soon as it is drawn: the model never exists in ``dtype`` as a whole
+    (Mixtral-8x7B holds about 93 GB in bf16 and 47 GB in int8).  The
+    values are those of ``quantize_params(init_params(...))``."""
+    if quantize not in (None, "int8"):
+        raise ValueError(f"unsupported quantize={quantize!r} (int8 only)")
     dtype = dtype or torch_dtype(cfg.dtype)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     L = cfg.num_layers
 
-    def normal(shape, std):
+    def draw(shape, std) -> torch.Tensor:
+        t = torch.empty(shape, dtype=dtype, device=device)
+        return t.normal_(0.0, std, generator=gen)
+
+    def normal(shape, std, quantized: bool = False):
+        if quantized:
+            if len(shape) < 3:
+                return quantize_tensor(draw(shape, std), dtype)
+            q = torch.empty(shape, dtype=torch.int8, device=device)
+            s = torch.empty(shape[:-2] + (1, shape[-1]), dtype=dtype, device=device)
+            for i in range(shape[0]):
+                part = quantize_tensor(draw(shape[1:], std), dtype)
+                q[i].copy_(part.q)
+                s[i].copy_(part.s)
+            return QuantizedTensor(q, s)
         t = torch.empty(shape, dtype=dtype, device=device)
         # a stacked [L, ...] weight fills layer by layer
-        for part in t if len(shape) == 3 else [t]:
+        for part in t if len(shape) >= 3 else [t]:
             part.normal_(0.0, std, generator=gen)
         return t
 
+    quantized = quantize == "int8"
     layers: Params = {}
     for name, shape in layer_shapes(cfg).items():
         if len(shape) == 1:
             fill = 0.0 if name.startswith("b") else 1.0
             layers[name] = torch.full((L,) + shape, fill, dtype=dtype, device=device)
         else:
-            layers[name] = normal((L,) + shape, 1.0 / math.sqrt(shape[0]))
+            layers[name] = normal(
+                (L,) + shape, 1.0 / math.sqrt(shape[-2]), quantized and name in QUANT_KEYS
+            )
     params: Params = {
         "embed": normal((cfg.vocab_size, cfg.hidden_size), 0.02),
         "layers": layers,
@@ -107,7 +129,7 @@ def init_params(
     }
     if not cfg.tie_word_embeddings:
         params["lm_head"] = normal(
-            (cfg.hidden_size, cfg.vocab_size), 1.0 / math.sqrt(cfg.hidden_size)
+            (cfg.hidden_size, cfg.vocab_size), 1.0 / math.sqrt(cfg.hidden_size), quantized
         )
     return params
 
@@ -184,6 +206,91 @@ def _dense_mlp(lp: Params, x: torch.Tensor, hidden_act: str) -> torch.Tensor:
     return (gate * (x @ mat(lp["w_up"]))) @ mat(lp["w_down"])
 
 
+def _route(lp: Params, xf: torch.Tensor, K: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-``K`` experts of each row and their softmaxed weights.  The
+    router runs in the activation dtype and is then cast to f32, as the
+    JAX package's does.  ``jax.lax.top_k`` breaks ties by the lower index,
+    which a stable descending sort gives (a constant row ties on every
+    expert); ``torch.topk`` promises no order among equals."""
+    logits = (xf @ lp["router"]).float()  # [N, E]
+    topw, topi = torch.sort(logits, dim=-1, descending=True, stable=True)
+    topw, topi = topw[:, :K], topi[:, :K]
+    return torch.softmax(topw, dim=-1).to(xf.dtype), topi  # [N, K]
+
+
+def _moe_mlp_dense(lp: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Dense-dispatch MoE: every expert computes every row, weighted
+    combine.  O(E*N) work, kept only as the ground truth the sparse
+    dispatch is held against (the JAX package's ``_moe_mlp_dense``)."""
+    H = x.shape[-1]
+    xf = x.reshape(-1, H)  # [N, H]
+    topw, topi = _route(lp, xf, cfg.num_experts_per_tok)
+    one_hot = F.one_hot(topi, cfg.num_experts).to(x.dtype)  # [N, K, E]
+    combine = torch.einsum("nk,nke->ne", topw, one_hot)  # [N, E]
+    gate = F.silu(torch.einsum("nh,ehi->eni", xf, mat(lp["w_gate"])))
+    up = torch.einsum("nh,ehi->eni", xf, mat(lp["w_up"]))
+    down = torch.einsum("eni,eih->enh", gate * up, mat(lp["w_down"]))  # [E, N, H]
+    return torch.einsum("enh,ne->nh", down, combine).reshape(x.shape)
+
+
+def moe_capacity(n: int, cfg: ModelConfig) -> int:
+    """Rows per expert buffer for a dispatch of ``n`` flat rows (pad rows
+    included): perfect balance ``n*K/E`` times the capacity factor,
+    rounded up, at most ``n*K`` -- the JAX package's rule, to the bit."""
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    C = int(max(1, -(-n * K * cfg.moe_capacity_factor // E)))
+    return min(C, n * K)
+
+
+def _moe_mlp(lp: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Capacity-based sparse MoE dispatch (GShard/Switch), the JAX
+    package's ``_moe_mlp`` assignment for assignment.
+
+    Rows are routed top-k and packed into fixed ``[E, C, H]`` expert
+    buffers; each expert runs a batched product over its buffer, and the
+    combine weights each result by the router.  An assignment's slot is
+    its rank among the assignments to its expert in the flat ``[N*K]``
+    order (row-major over rows, then their K choices); one whose slot is
+    past ``C`` is dropped and adds nothing.  So drops depend on every row
+    of the dispatch, pad rows too.
+
+    JAX's out-of-range scatter (``mode="drop"``) has no torch form: the
+    buffer carries one trash row at ``E*C`` that dropped assignments
+    write, and the gather clamps as JAX's does.  The combine sums each
+    row's K contiguous assignments (``segment_sum`` over ``arange(N*K)
+    // K``) with a reshape, not an atomic ``index_add_``, so it is the same
+    sum in every run.  ``C`` is a Python int of the static row count and
+    nothing here reads the device, so the dispatch captures in a CUDA
+    graph.  The expert products are library batched matmuls, as the JAX
+    package's are XLA einsums."""
+    H = x.shape[-1]
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    xf = x.reshape(-1, H)  # [N, H]
+    N = xf.shape[0]
+    topw, topi = _route(lp, xf, K)
+    C = moe_capacity(N, cfg)
+
+    flat_expert = topi.reshape(-1)  # [N*K] expert of each assignment
+    flat_w = topw.reshape(-1)  # [N*K]
+    # slot of each assignment within its expert's buffer (stable order)
+    onehot = F.one_hot(flat_expert, E)  # [N*K, E]
+    slot = onehot.cumsum(0).gather(1, flat_expert[:, None])[:, 0] - 1
+    keep = slot < C
+    dispatch = torch.where(keep, flat_expert * C + slot, torch.full_like(slot, E * C))
+
+    buf = xf.new_zeros((E * C + 1, H))  # row E*C: the trash row
+    buf.index_copy_(0, dispatch, xf.repeat_interleave(K, dim=0))
+    buf = buf[: E * C].view(E, C, H)
+
+    gate = F.silu(torch.bmm(buf, mat(lp["w_gate"])))  # [E, C, I]
+    up = torch.bmm(buf, mat(lp["w_up"]))
+    down = torch.bmm(gate * up, mat(lp["w_down"])).view(E * C, H)  # [E*C, H]
+
+    per_assign = down[dispatch.clamp(max=E * C - 1)]  # [N*K, H]
+    per_assign = per_assign * (flat_w * keep.to(flat_w.dtype))[:, None]
+    return per_assign.view(N, K, H).sum(dim=1).reshape(x.shape)
+
+
 # ---------------------------------------------------------------------------
 # transformer trunk
 # ---------------------------------------------------------------------------
@@ -221,6 +328,8 @@ def transformer_layer(
     attn = attn_fn(q, k, v, kv_pages, layer)
     x = x + attn.reshape(T, cfg.num_heads * D) @ mat(lp["wo"])
     h2 = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps, cfg.rms_norm_offset)
+    if cfg.is_moe:
+        return x + _moe_mlp(lp, h2, cfg)
     return x + _dense_mlp(lp, h2, cfg.hidden_act)
 
 

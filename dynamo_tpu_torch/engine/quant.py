@@ -6,7 +6,10 @@ dequantization fuses into the matmul's operand read.  Per-output-channel
 symmetric int8, the scale applied at the point of use -- ``x @ (q * s)``.
 
 What quantizes: the per-layer matmul weights (attention projections and
-MLP weights) and an untied ``lm_head``.  What stays in the compute dtype:
+MLP weights, or an MoE layer's expert stacks ``[E, in, out]`` with one
+scale per expert and output channel, ``[L, E, 1, out]``) and an untied
+``lm_head``; an MoE router stays in the compute dtype, as in the JAX
+package.  What stays in the compute dtype:
 the embedding table (decode gathers B rows per step, not the whole
 matrix), norms and biases (tiny), and a tied lm_head (shared with the
 embedding).
@@ -38,7 +41,8 @@ QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 class QuantizedTensor:
     """int8 weight + broadcastable per-output-channel scale.  Indexing
     takes a leading slice of both (one layer of a stacked ``[L, ...]``
-    weight), as the trunk's layer loop does."""
+    weight, an ``[E, in, out]`` expert stack with its ``[E, 1, out]``
+    scales for an MoE layer), as the trunk's layer loop does."""
 
     q: torch.Tensor  # int8, the original weight's shape
     s: torch.Tensor  # compute dtype, shape [..., 1, out]

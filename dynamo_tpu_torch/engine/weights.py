@@ -20,7 +20,8 @@ header, and raw tensors by ``dtype``/``shape``/``data_offsets``, read as
 views of a copy-on-write memory map of the file.  ``assemble_params`` turns
 the HF names into the stacked pytree as the JAX package's loader does (the
 ``[out, in]`` -> ``[in, out]`` transpose, one ``[L, ...]`` leaf per
-weight, Phi-3's fused projections split), one layer at a time: each layer's
+weight, Phi-3's fused projections split, Mixtral's router and experts
+stacked ``[L, E, ...]``), one layer at a time: each layer's
 tensor goes from the mapped file to the device as it is, and is transposed
 and cast there into its slot of the leaf, so the host never holds a copy of
 the checkpoint.
@@ -40,8 +41,8 @@ import torch
 from ..device import resolve_device
 from .config import ModelConfig
 from .kv_cache import torch_dtype
-from .model import Params, check_supported, layer_shapes
-from .quant import QUANT_KEYS, QuantizedTensor
+from .model import Params, layer_shapes
+from .quant import QUANT_KEYS, QuantizedTensor, quantize_tensor
 
 
 def _tensor(arr: Any, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
@@ -61,7 +62,6 @@ def params_from_numpy(
     device: Optional[Union[str, torch.device]] = None,
     dtype: Optional[torch.dtype] = None,
 ) -> Params:
-    check_supported(cfg)
     device = resolve_device(device)
     dtype = dtype or torch_dtype(cfg.dtype)
     H, V, L = cfg.hidden_size, cfg.vocab_size, cfg.num_layers
@@ -191,8 +191,10 @@ def load_safetensors_params(
     cfg: ModelConfig,
     device: Optional[Union[str, torch.device]] = None,
     dtype: Optional[torch.dtype] = None,
+    quantize: Optional[str] = None,
 ) -> Params:
-    """Load all ``*.safetensors`` files under ``model_path``."""
+    """Load all ``*.safetensors`` files under ``model_path`` (``quantize``
+    as :func:`assemble_params` takes it)."""
     files = sorted(
         os.path.join(model_path, f)
         for f in os.listdir(model_path)
@@ -200,7 +202,7 @@ def load_safetensors_params(
     )
     if not files:
         raise FileNotFoundError(f"no .safetensors files under {model_path}")
-    return assemble_params(SafetensorsIndex(files), cfg, device, dtype)
+    return assemble_params(SafetensorsIndex(files), cfg, device, dtype, quantize)
 
 
 def assemble_params(
@@ -208,10 +210,18 @@ def assemble_params(
     cfg: ModelConfig,
     device: Optional[Union[str, torch.device]] = None,
     dtype: Optional[torch.dtype] = None,
+    quantize: Optional[str] = None,
 ) -> Params:
     """The stacked parameter dict on ``device`` from a flat HF name ->
-    CPU tensor mapping (a dict, or :class:`SafetensorsIndex`)."""
-    check_supported(cfg)
+    CPU tensor mapping (a dict, or :class:`SafetensorsIndex`).
+
+    ``quantize="int8"`` quantizes each layer's matmul weights as the layer
+    lands (``quant.quantize_tensor``'s values), so a model that fits the
+    card only in int8 (Mixtral-8x7B) never stands there in ``dtype``; the
+    weights that are not stacked per layer (Phi-3's fused projections,
+    ``lm_head``) are left to the engine's ``quantize_params``."""
+    if quantize not in (None, "int8"):
+        raise ValueError(f"unsupported quantize={quantize!r} (int8 only)")
     device = resolve_device(device)
     dtype = dtype or torch_dtype(cfg.dtype)
     L = cfg.num_layers
@@ -227,12 +237,25 @@ def assemble_params(
         if tuple(got) != tuple(shape):
             raise ValueError(f"param {key}: shape {tuple(got)}, expected {tuple(shape)}")
 
-    def stack(key: str, layer_fn: Callable[[int], torch.Tensor]) -> torch.Tensor:
-        out = torch.empty((L,) + want[key], dtype=dtype, device=device)
+    def stack(key: str, layer_fn: Callable[[int], torch.Tensor]) -> Any:
+        shape = (L,) + want[key]
+        quantized = quantize == "int8" and key in QUANT_KEYS
+        if quantized:
+            out = QuantizedTensor(
+                torch.empty(shape, dtype=torch.int8, device=device),
+                torch.empty(shape[:-2] + (1, shape[-1]), dtype=dtype, device=device),
+            )
+        else:
+            out = torch.empty(shape, dtype=dtype, device=device)
         for i in range(L):
             w = layer_fn(i)
             check(f"layers.{key}", w.shape, want[key])
-            out[i].copy_(w)
+            if quantized:
+                part = quantize_tensor(w.to(device=device, dtype=dtype), dtype)
+                out.q[i].copy_(part.q)
+                out.s[i].copy_(part.s)
+            else:
+                out[i].copy_(w)
         return out
 
     def linear(name: str) -> torch.Tensor:
@@ -287,7 +310,19 @@ def assemble_params(
     layers["post_norm"] = stack(
         "post_norm", lambda i: get(f"{pre}layers.{i}.post_attention_layernorm.weight")
     )
-    if f"{pre}layers.0.mlp.gate_up_proj.weight" in raw:
+    if cfg.is_moe:
+        moe = "block_sparse_moe"
+        layers["router"] = stack(
+            "router", lambda i: linear(f"{pre}layers.{i}.{moe}.gate.weight")
+        )
+        # Mixtral: w1 = gate, w3 = up, w2 = down, each layer's experts
+        # stacked [E, in, out]
+        for key, w in (("w_gate", "w1"), ("w_up", "w3"), ("w_down", "w2")):
+            layers[key] = stack(key, lambda i, w=w: torch.stack([
+                linear(f"{pre}layers.{i}.{moe}.experts.{e}.{w}.weight")
+                for e in range(cfg.num_experts)
+            ]))
+    elif f"{pre}layers.0.mlp.gate_up_proj.weight" in raw:
         # Phi-3: fused gate_up_proj rows are [gate | up]
         inter = cfg.intermediate_size
         split_fused("mlp.gate_up_proj.weight", [("w_gate", inter), ("w_up", inter)])

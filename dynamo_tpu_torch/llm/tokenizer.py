@@ -3,21 +3,30 @@ read from ``tokenizer.json`` in pure Python.
 
 The JAX package runs the Rust ``tokenizers`` core; the card's machine has
 neither that package nor ``regex``, so the port reads the same artifact
-itself.  It covers the byte-level BPE family (GPT-2, Llama 3, Qwen):
+itself.  It covers the byte-level BPE family (GPT-2, Llama 3, Qwen) and
+the SentencePiece-style BPE family (Llama 2, Mistral, Mixtral) in both of
+its published forms:
 
 * ``added_tokens``, cut out of the text before pre-tokenization (the
   non-normalized ones first, then the normalized ones), leftmost-longest,
   with their ``single_word``, ``lstrip`` and ``rstrip`` flags;
-* the normalizers none and ``NFC``;
+* the normalizers none, ``NFC``, ``Prepend``, ``Replace`` (string
+  patterns) and ``Sequence``, applied to each stretch of text between
+  non-normalized added tokens, as the Rust core does;
 * the pre-tokenizers ``ByteLevel`` (``add_prefix_space``, ``use_regex``),
   ``Split`` (a string or regex pattern, behaviours ``Isolated`` and
-  ``Removed``, ``invert``) and ``Sequence``;
+  ``Removed``, ``invert``), ``Metaspace`` (``replacement``,
+  ``prepend_scheme`` first/always/never, ``split``) and ``Sequence``;
 * the ``BPE`` model, with merges as ``"a b"`` strings or ``[a, b]`` pairs,
-  ``ignore_merges``, ``unk_token`` and ``fuse_unk``;
+  ``ignore_merges``, ``unk_token``, ``fuse_unk`` and ``byte_fallback``
+  (a character outside the vocabulary becomes its UTF-8 bytes as
+  ``<0xNN>`` tokens);
 * the post-processors ``TemplateProcessing``, ``ByteLevel`` and
   ``Sequence``;
-* the ``ByteLevel`` decoder, ``skip_special_tokens``, and the incremental
-  ``DecodeStream`` of ``tokenizers.decoders``.
+* the decoders ``ByteLevel``, ``Metaspace``, ``Replace``,
+  ``ByteFallback``, ``Fuse``, ``Strip`` and ``Sequence``,
+  ``skip_special_tokens``, and the incremental ``DecodeStream`` of
+  ``tokenizers.decoders``.
 
 Any other component raises :class:`TokenizerError` naming it, so a file
 this reader does not cover never tokenizes differently without saying so.
@@ -32,6 +41,7 @@ core's regex engine has it, not Python's ``str.isspace``).
 from __future__ import annotations
 
 import functools
+import heapq
 import json
 import os
 import re
@@ -206,11 +216,44 @@ def _split(text: str, regex: "re.Pattern[str]", behavior: str, invert: bool) -> 
     return [p for p, hit in pieces if p and not hit]
 
 
+_PREPEND_SCHEMES = ("first", "always", "never")
+
+
+def _metaspace(spec: Dict[str, Any], what: str) -> Tuple[str, str]:
+    """A ``Metaspace`` component's replacement character and prepend
+    scheme (the older files' ``add_prefix_space`` maps onto the scheme as
+    the Rust core reads it)."""
+    rep = spec.get("replacement", "\u2581")
+    if not isinstance(rep, str) or len(rep) != 1:
+        raise TokenizerError(f"unsupported Metaspace {what} replacement {rep!r}")
+    scheme = spec.get("prepend_scheme")
+    if scheme is None:
+        scheme = "always" if spec.get("add_prefix_space", True) else "never"
+    if scheme not in _PREPEND_SCHEMES:
+        raise TokenizerError(f"unsupported Metaspace {what} prepend_scheme {scheme!r}")
+    return rep, scheme
+
+
+def _split_merged_with_next(text: str, delim: str) -> List[str]:
+    """``text`` split before each ``delim`` (the delimiter opens the next
+    piece: the Rust core's ``MergedWithNext``)."""
+    out: List[str] = []
+    start = 0
+    for i, c in enumerate(text):
+        if c == delim and i > start:
+            out.append(text[start:i])
+            start = i
+    if start < len(text):
+        out.append(text[start:])
+    return out
+
+
 class _PreTokenizer:
     """The ``pre_tokenizer`` of ``tokenizer.json`` as a list of steps:
     ``apply`` takes one added-token-free stretch of text and gives its
     pieces, mapped to the byte-level alphabet where a ByteLevel step says
-    so."""
+    so.  ``at_start`` says whether the stretch begins the input text
+    (Metaspace's ``first`` scheme prepends only there)."""
 
     def __init__(self, spec: Optional[Dict[str, Any]]) -> None:
         self.steps: List[Dict[str, Any]] = []
@@ -228,6 +271,9 @@ class _PreTokenizer:
             if spec.get("use_regex", True):
                 # build the Unicode classes now, not on the first request
                 _compiled(GPT2_PATTERN)
+        elif kind == "Metaspace":
+            rep, scheme = _metaspace(spec, "pre_tokenizer")
+            self.steps.append(dict(spec, _rep=rep, _scheme=scheme))
         elif kind == "Split":
             behavior = spec.get("behavior")
             if behavior not in ("Isolated", "Removed"):
@@ -243,12 +289,14 @@ class _PreTokenizer:
         else:
             raise TokenizerError(f"unsupported pre_tokenizer {kind!r}")
 
-    def apply(self, text: str) -> List[str]:
-        pieces = [text]
+    def apply(self, text: str, at_start: bool = False) -> List[str]:
+        # (piece, whether it begins the input text)
+        pieces = [(text, at_start)]
         for step in self.steps:
-            nxt: List[str] = []
-            if step["type"] == "ByteLevel":
-                for p in pieces:
+            nxt: List[Tuple[str, bool]] = []
+            kind = step["type"]
+            for p, first in pieces:
+                if kind == "ByteLevel":
                     if step.get("add_prefix_space", True) and not p.startswith(" "):
                         p = " " + p
                     subs = (
@@ -256,12 +304,20 @@ class _PreTokenizer:
                         if step.get("use_regex", True)
                         else [p]
                     )
-                    nxt.extend(_to_byte_level(q) for q in subs)
-            else:
-                for p in pieces:
-                    nxt.extend(_split(p, step["_re"], step["behavior"], bool(step.get("invert"))))
+                    subs = [_to_byte_level(q) for q in subs]
+                elif kind == "Metaspace":
+                    rep, scheme = step["_rep"], step["_scheme"]
+                    p = p.replace(" ", rep)
+                    if not p.startswith(rep) and (
+                        scheme == "always" or (scheme == "first" and first)
+                    ):
+                        p = rep + p
+                    subs = _split_merged_with_next(p, rep) if step.get("split", True) else [p]
+                else:
+                    subs = _split(p, step["_re"], step["behavior"], bool(step.get("invert")))
+                nxt.extend((q, first and k == 0) for k, q in enumerate(subs))
             pieces = nxt
-        return pieces
+        return [p for p, _ in pieces]
 
 
 # -- BPE model ---------------------------------------------------------------
@@ -275,13 +331,20 @@ class _BPE:
         for key in ("dropout", "continuing_subword_prefix", "end_of_word_suffix"):
             if spec.get(key):
                 raise TokenizerError(f"unsupported BPE option {key}={spec[key]!r}")
-        if spec.get("byte_fallback"):
-            raise TokenizerError("unsupported BPE option byte_fallback")
+        byte_fallback = spec.get("byte_fallback", False)
+        if not isinstance(byte_fallback, bool):
+            raise TokenizerError(f"unsupported BPE option byte_fallback={byte_fallback!r}")
         self.vocab: Dict[str, int] = dict(spec.get("vocab") or {})
         self.id_to_token: Dict[int, str] = {i: t for t, i in self.vocab.items()}
         self.unk_token: Optional[str] = spec.get("unk_token")
         self.fuse_unk = bool(spec.get("fuse_unk", False))
         self.ignore_merges = bool(spec.get("ignore_merges", False))
+        # byte -> the id of its ``<0xNN>`` token, where the vocabulary has it
+        self.byte_ids: Optional[Dict[int, int]] = None
+        if byte_fallback:
+            self.byte_ids = {
+                b: self.vocab[f"<0x{b:02X}>"] for b in range(256) if f"<0x{b:02X}>" in self.vocab
+            }
         self.merges: Dict[Tuple[int, int], Tuple[int, int]] = {}
         for rank, m in enumerate(spec.get("merges") or []):
             a, b = m.split(" ", 1) if isinstance(m, str) else m
@@ -301,11 +364,18 @@ class _BPE:
             out = [self.vocab[word]]
         else:
             out = self._merge(word)
-        if len(self._cache) < 65536:
+        # the SentencePiece form's words are whole texts: cache short ones
+        if len(self._cache) < 65536 and len(word) <= 256:
             self._cache[word] = out
         return out
 
-    def _merge(self, word: str) -> List[int]:
+    def _symbols(self, word: str) -> List[int]:
+        """The word's characters as ids, before any merge: a character
+        outside the vocabulary becomes its ``<0xNN>`` byte tokens (byte
+        fallback, when every byte has one) or the unknown token, fused
+        with the unknown characters next to it under ``fuse_unk``.  A
+        pending unknown token waits past byte-fallback characters, as the
+        Rust core's does."""
         ids: List[int] = []
         unk: Optional[int] = None
         for ch in word:
@@ -315,7 +385,13 @@ class _BPE:
                     ids.append(unk)
                     unk = None
                 ids.append(tid)
-            elif self.unk_token is not None:
+                continue
+            if self.byte_ids is not None:
+                raw = ch.encode("utf-8")
+                if all(b in self.byte_ids for b in raw):
+                    ids.extend(self.byte_ids[b] for b in raw)
+                    continue
+            if self.unk_token is not None:
                 if self.unk_token not in self.vocab:
                     raise TokenizerError(f"unk_token {self.unk_token!r} is not in the vocabulary")
                 if unk is not None and not self.fuse_unk:
@@ -323,18 +399,49 @@ class _BPE:
                 unk = self.vocab[self.unk_token]
         if unk is not None:
             ids.append(unk)
-        merges = self.merges
-        while len(ids) > 1:
-            best: Optional[Tuple[int, int]] = None
-            at = -1
-            for i in range(len(ids) - 1):
-                m = merges.get((ids[i], ids[i + 1]))
-                if m is not None and (best is None or m[0] < best[0]):
-                    best, at = m, i
-            if best is None:
-                break
-            ids[at:at + 2] = [best[1]]
         return ids
+
+    def _merge(self, word: str) -> List[int]:
+        """Apply the merges lowest rank first, the leftmost among equal
+        ranks: the Rust core's priority queue over a linked list of
+        symbols, so a whole-text word of thousands of characters merges
+        in O(n log n)."""
+        ids = self._symbols(word)
+        n = len(ids)
+        if n < 2:
+            return ids
+        merges = self.merges
+        nxt = list(range(1, n + 1))
+        prv = list(range(-1, n - 1))
+        alive = [True] * n
+        heap: List[Tuple[int, int, int]] = []
+        for i in range(n - 1):
+            m = merges.get((ids[i], ids[i + 1]))
+            if m is not None:
+                heap.append((m[0], i, m[1]))
+        heapq.heapify(heap)
+        while heap:
+            rank, i, new = heapq.heappop(heap)
+            if not alive[i] or nxt[i] >= n:
+                continue
+            j = nxt[i]
+            m = merges.get((ids[i], ids[j]))
+            if m is None or m[1] != new:
+                continue  # an expired entry
+            ids[i] = new
+            alive[j] = False
+            nxt[i] = nxt[j]
+            if nxt[j] < n:
+                prv[nxt[j]] = i
+            if prv[i] >= 0:
+                m = merges.get((ids[prv[i]], new))
+                if m is not None:
+                    heapq.heappush(heap, (m[0], prv[i], m[1]))
+            if nxt[i] < n:
+                m = merges.get((new, ids[nxt[i]]))
+                if m is not None:
+                    heapq.heappush(heap, (m[0], i, m[1]))
+        return [t for t, a in zip(ids, alive) if a]
 
 
 # -- added tokens ------------------------------------------------------------
@@ -420,17 +527,10 @@ class _Core:
     """The parsed ``tokenizer.json``: encode and decode."""
 
     def __init__(self, spec: Dict[str, Any]) -> None:
-        norm = spec.get("normalizer")
-        if norm is not None and norm.get("type") != "NFC":
-            raise TokenizerError(f"unsupported normalizer {norm.get('type')!r}")
-        self.nfc = norm is not None
+        self.normalizers = _parse_normalizer(spec.get("normalizer"))
         self.pre = _PreTokenizer(spec.get("pre_tokenizer"))
         self.model = _BPE(spec.get("model") or {})
-        dec = spec.get("decoder")
-        if dec is None or dec.get("type") != "ByteLevel":
-            raise TokenizerError(
-                f"unsupported decoder {None if dec is None else dec.get('type')!r}"
-            )
+        self.decoders = _parse_decoder(spec.get("decoder"))
         self.template = self._parse_post(spec.get("post_processor"))
         added = [_AddedToken(d) for d in spec.get("added_tokens") or []]
         self.added_by_id = {t.id: t for t in added}
@@ -438,10 +538,15 @@ class _Core:
         self.special = {t.content for t in added if t.special}
         self.raw_matcher = _AddedMatcher([t for t in added if not t.normalized])
         self.norm_matcher = _AddedMatcher(
-            [_normalized_copy(t, self.nfc) for t in added if t.normalized]
+            [_normalized_copy(t, self.normalize) for t in added if t.normalized]
         )
         vocab = set(self.model.vocab) | set(self.added_by_content)
         self.vocab_size = len(vocab)
+
+    def normalize(self, text: str) -> str:
+        for step in self.normalizers:
+            text = step(text)
+        return text
 
     @staticmethod
     def _parse_post(spec: Optional[Dict[str, Any]]) -> Optional[List[Any]]:
@@ -478,17 +583,18 @@ class _Core:
 
     def encode(self, text: str, add_special_tokens: bool = True) -> List[int]:
         ids: List[int] = []
-        for piece, tid in self.raw_matcher.split(text):
+        for k, (piece, tid) in enumerate(self.raw_matcher.split(text)):
             if tid is not None:
                 ids.append(tid)
                 continue
-            if self.nfc:
-                piece = unicodedata.normalize("NFC", piece)
-            for sub, sid in self.norm_matcher.split(piece):
+            # Metaspace's "first" scheme: only a stretch at offset 0
+            at_start = k == 0
+            piece = self.normalize(piece)
+            for n, (sub, sid) in enumerate(self.norm_matcher.split(piece)):
                 if sid is not None:
                     ids.append(sid)
                 elif sub:
-                    for word in self.pre.apply(sub):
+                    for word in self.pre.apply(sub, at_start and n == 0):
                         ids.extend(self.model.tokenize(word))
         if add_special_tokens and self.template is not None:
             out: List[int] = []
@@ -510,24 +616,141 @@ class _Core:
         return self.model.vocab.get(token)
 
     def decode(self, ids: Sequence[int], skip_special_tokens: bool = True) -> str:
-        from_char = _byte_maps()[1]
-        buf = bytearray()
+        tokens: List[str] = []
         for tid in ids:
             tok = self.id_to_token(int(tid))
             if tok is None or (skip_special_tokens and tok in self.special):
                 continue
+            tokens.append(tok)
+        for step in self.decoders:
+            tokens = step(tokens)
+        return "".join(tokens)
+
+
+# -- normalizers and decoders ------------------------------------------------
+
+
+def _parse_normalizer(spec: Optional[Dict[str, Any]]) -> List[Any]:
+    """The ``normalizer`` as a list of str -> str steps."""
+    if spec is None:
+        return []
+    kind = spec.get("type")
+    if kind == "Sequence":
+        return [f for sub in spec.get("normalizers") or [] for f in _parse_normalizer(sub)]
+    if kind == "NFC":
+        return [functools.partial(unicodedata.normalize, "NFC")]
+    if kind == "Prepend":
+        prefix = spec["prepend"]
+        return [lambda t: prefix + t if t else t]
+    if kind == "Replace":
+        old, new = _replace_pattern(spec, "normalizer"), spec["content"]
+        return [lambda t: t.replace(old, new)]
+    raise TokenizerError(f"unsupported normalizer {kind!r}")
+
+
+def _replace_pattern(spec: Dict[str, Any], what: str) -> str:
+    pat = spec.get("pattern") or {}
+    if "String" not in pat:
+        raise TokenizerError(f"unsupported Replace {what} pattern {pat!r}")
+    return pat["String"]
+
+
+def _byte_fallback(tokens: List[str]) -> List[str]:
+    """Runs of ``<0xNN>`` tokens become the text of their bytes, or one
+    U+FFFD per byte where the run is not valid UTF-8 (the Rust core's
+    ``ByteFallback`` decoder)."""
+    out: List[str] = []
+    run = bytearray()
+
+    def flush() -> None:
+        if run:
             try:
-                buf.extend(from_char[c] for c in tok)
-            except KeyError:
-                buf.extend(tok.encode("utf-8"))
-        return buf.decode("utf-8", errors="replace")
+                out.append(run.decode("utf-8"))
+            except UnicodeDecodeError:
+                out.extend("\ufffd" for _ in run)
+            run.clear()
+
+    for tok in tokens:
+        byte = None
+        if len(tok.encode("utf-8")) == 6 and tok.startswith("<0x") and tok.endswith(">"):
+            digits = tok[3:5]
+            if all(c in "0123456789abcdefABCDEF" for c in digits):
+                byte = int(digits, 16)
+        if byte is None:
+            flush()
+            out.append(tok)
+        else:
+            run.append(byte)
+    flush()
+    return out
 
 
-def _normalized_copy(tok: _AddedToken, nfc: bool) -> _AddedToken:
-    if not nfc:
-        return tok
+def _byte_level_decode(tokens: List[str]) -> List[str]:
+    from_char = _byte_maps()[1]
+    buf = bytearray()
+    for tok in tokens:
+        try:
+            buf.extend(from_char[c] for c in tok)
+        except KeyError:
+            buf.extend(tok.encode("utf-8"))
+    return [buf.decode("utf-8", errors="replace")]
+
+
+def _strip(content: str, start: int, stop: int):
+    def step(tokens: List[str]) -> List[str]:
+        out = []
+        for tok in tokens:
+            lo, hi = 0, len(tok)
+            while lo < min(start, len(tok)) and tok[lo] == content:
+                lo += 1
+            while len(tok) - hi < stop and hi > lo and tok[hi - 1] == content:
+                hi -= 1
+            out.append(tok[lo:hi])
+        return out
+
+    return step
+
+
+def _metaspace_decode(rep: str, scheme: str):
+    def step(tokens: List[str]) -> List[str]:
+        # the first token loses every replacement character, the others
+        # turn them into spaces (unless nothing was ever prepended)
+        return [
+            tok.replace(rep, "" if i == 0 and scheme != "never" else " ")
+            for i, tok in enumerate(tokens)
+        ]
+
+    return step
+
+
+def _parse_decoder(spec: Optional[Dict[str, Any]]) -> List[Any]:
+    """The ``decoder`` as a list of token-list -> token-list steps."""
+    kind = None if spec is None else spec.get("type")
+    if kind == "Sequence":
+        return [f for sub in spec.get("decoders") or [] for f in _parse_decoder(sub)]
+    if kind == "ByteLevel":
+        return [_byte_level_decode]
+    if kind == "ByteFallback":
+        return [_byte_fallback]
+    if kind == "Fuse":
+        return [lambda tokens: ["".join(tokens)]]
+    if kind == "Replace":
+        old, new = _replace_pattern(spec, "decoder"), spec["content"]
+        return [lambda tokens: [t.replace(old, new) for t in tokens]]
+    if kind == "Strip":
+        content = spec.get("content", " ")
+        return [_strip(content, int(spec.get("start", 0)), int(spec.get("stop", 0)))]
+    if kind == "Metaspace":
+        return [_metaspace_decode(*_metaspace(spec, "decoder"))]
+    raise TokenizerError(f"unsupported decoder {kind!r}")
+
+
+def _normalized_copy(tok: _AddedToken, normalize) -> _AddedToken:
+    """A normalized added token as the normalized text carries it (the
+    Rust core matches the token's own content run through the
+    normalizer)."""
     d = {s: getattr(tok, s) for s in _AddedToken.__slots__}
-    d["content"] = unicodedata.normalize("NFC", tok.content)
+    d["content"] = normalize(tok.content)
     return _AddedToken(d)
 
 

@@ -49,6 +49,7 @@ from dynamo_tpu_torch.runtime.engine import Context
 
 ENGINE = dict(max_batch_size=4, max_seq_len=64, page_size=4, num_pages=64)
 WAIT_S = 60  # bound on any one served batch
+RUN_S = 180  # bound on any one asyncio.run: a hang fails its test, not the run
 
 
 @pytest.fixture(scope="module")
@@ -147,7 +148,7 @@ def served(weights):
                 if mode == "not-ready":
                     mp.setattr(engine_mod, "_handles_ready", lambda res: False)
                 try:
-                    streams = asyncio.run(serve(eng, make()))
+                    streams = asyncio.run(asyncio.wait_for(serve(eng, make()), RUN_S))
                 finally:
                     mp.undo()
                 runs[mode] = (streams, eng)
@@ -253,10 +254,12 @@ def test_lanes_paused_at_their_pages_revive(weights, monkeypatch, lanes, prompt,
     rng = np.random.default_rng(19)
     reqs = [request(rng.integers(1, 256, prompt).tolist(), new) for _ in range(lanes)]
     kw = dict(max_batch_size=8, max_seq_len=1024, page_size=16, num_pages=pages)
-    serial = asyncio.run(serve(torch_engine(weights[2], async_dispatch=False, **kw), reqs))
+    serial = asyncio.run(
+        asyncio.wait_for(serve(torch_engine(weights[2], async_dispatch=False, **kw), reqs), RUN_S)
+    )
     monkeypatch.setattr(engine_mod, "_handles_ready", lambda res: False)
     engine = torch_engine(weights[2], **kw)
-    piped = asyncio.run(serve(engine, reqs))
+    piped = asyncio.run(asyncio.wait_for(serve(engine, reqs), RUN_S))
     assert [len(t) for t, _ in piped] == [new] * lanes
     assert piped == serial
     assert engine.obs.preemptions._only().value > 0
@@ -340,15 +343,15 @@ def test_async_greedy_streams_match_jax(weights):
             return rec
 
         jeng._dispatch_unified = spy
-        return asyncio.run(serve(jeng, reqs)), by_k
+        return asyncio.run(asyncio.wait_for(serve(jeng, reqs), RUN_S)), by_k
 
     eng = torch_engine(np_params, **kw)
-    port = asyncio.run(serve(eng, reqs))
+    port = asyncio.run(asyncio.wait_for(serve(eng, reqs), RUN_S))
     ref, _ = jax_run()
     assert port == ref
     assert all(len(t) == 12 for t, _ in port)
     serial = torch_engine(np_params, async_dispatch=False, **kw)
-    assert asyncio.run(serve(serial, reqs)) == port
+    assert asyncio.run(asyncio.wait_for(serve(serial, reqs), RUN_S)) == port
     ref_serial, jax_by_k = jax_run(async_dispatch=False)
     assert ref_serial == ref
     assert eng.dispatches_by_k == serial.dispatches_by_k == jax_by_k

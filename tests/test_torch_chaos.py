@@ -51,6 +51,7 @@ from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
 from dynamo_tpu_torch.tokens.sequence import TokenBlockSequence
 
 WAIT_S = 60  # bound on any one served request or batch
+RUN_S = 180  # bound on any one asyncio.run: a hang fails its test, not the run
 PROMPT_A = [3, 1, 4, 1, 5, 9, 2, 6, 5, 3, 5, 8]  # 3 blocks of 4
 PROMPT_B = [7, 7, 7, 7, 8, 8, 8, 8, 6, 6, 6, 6]
 EXTEND = [11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22]  # past A's blocks
@@ -275,7 +276,9 @@ def served(weights):
     out = {}
     try:
         for pkg in ("jax", "torch"):
-            out[pkg] = {name: asyncio.run(run(pkg, weights)) for name, run in SCENARIOS.items()}
+            out[pkg] = {name: asyncio.run(
+                asyncio.wait_for(run(pkg, weights), RUN_S)
+            ) for name, run in SCENARIOS.items()}
     finally:
         for inj in INJECTORS.values():
             inj.disable()

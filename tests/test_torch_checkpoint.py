@@ -53,6 +53,8 @@ from dynamo_tpu_torch.engine.config import ModelConfig
 from dynamo_tpu_torch.engine.engine import TorchEngine
 from dynamo_tpu_torch.engine.weights import SafetensorsFile, params_from_numpy
 
+RUN_S = 180  # bound on any one asyncio.run: a hang fails its test, not the run
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROMPTS = ["hello world", "tell me a story about the quick brown fox"]
 MAX_TOKENS = 8
@@ -230,13 +232,13 @@ def test_from_pretrained_equals_jax_loader(checkpoint, model_dir, tmp_path, fuse
         jax.tree.map(np.asarray, jax_load(path, jcfg)), cfg, device="cpu"
     )
     _assert_params_equal(engine.params, want)
-    asyncio.run(engine.stop())
+    asyncio.run(asyncio.wait_for(engine.stop(), RUN_S))
 
 
 # -- the command line -----------------------------------------------------------
 
 
-def jax_texts(path: str) -> list:
+def jax_texts(path: str, prompts=PROMPTS) -> list:
     """The JAX pipeline's greedy chat text per prompt, with the CLI's
     engine defaults."""
     async def body():
@@ -246,7 +248,7 @@ def jax_texts(path: str) -> list:
         pipe = jax_link(JaxPreprocessor(name, tok), JaxBackend(tok), engine)
         out = []
         try:
-            for prompt in PROMPTS:
+            for prompt in prompts:
                 req = ChatCompletionRequest.from_dict({
                     "model": name, "stream": True, "max_tokens": MAX_TOKENS,
                     "messages": [{"role": "user", "content": prompt}],
@@ -399,7 +401,7 @@ def test_cli_http_serves_the_bench_client(checkpoint):
     finally:
         if server.poll() is None:
             server.kill()
-            server.communicate()
+            server.communicate(timeout=30)
 
 
 # -- the distributed command line -------------------------------------------------
@@ -510,7 +512,7 @@ def test_cli_serves_offload_on_a_worker(checkpoint, monkeypatch, tmp_path, case)
 
     identity = rtm.worker_identity()
     try:
-        args, kv_remote, spec, oe, instances = asyncio.run(body())
+        args, kv_remote, spec, oe, instances = asyncio.run(asyncio.wait_for(body(), RUN_S))
     finally:
         # the worker stamped its identity on the process registry: later
         # tests in this process read its series without those labels
@@ -673,7 +675,7 @@ def test_cli_serves_hub_worker_and_kv_frontend(checkpoint, expected):
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.communicate()
+                p.communicate(timeout=30)
 
 
 def test_cli_serves_disaggregated_decode_and_prefill_workers(checkpoint, expected, tmp_path):
@@ -766,4 +768,4 @@ def test_cli_serves_disaggregated_decode_and_prefill_workers(checkpoint, expecte
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.communicate()
+                p.communicate(timeout=30)

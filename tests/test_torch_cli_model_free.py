@@ -94,7 +94,7 @@ class Proc:
                 self.p.wait(timeout=30)
             except subprocess.TimeoutExpired:
                 self.p.kill()
-                self.p.wait()
+                self.p.wait(timeout=30)
         self.err.close()
 
 
@@ -186,7 +186,8 @@ def jax_cli(model_dir, tmp_path_factory):
     for t in threads:
         t.start()
     for t in threads:
-        t.join()
+        t.join(timeout=4 * WAIT_S)
+    assert not any(t.is_alive() for t in threads), "a CLI pair outlived its bound"
     assert not errors, errors
     return out
 

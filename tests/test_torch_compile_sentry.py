@@ -33,6 +33,8 @@ from dynamo_tpu_torch.runtime import compile_sentry, metrics, profiling
 
 from tests.test_torch_async import collect
 
+RUN_S = 180  # bound on any one asyncio.run: a hang fails its test, not the run
+
 PACKAGES = {"port": (compile_sentry, profiling), "jax": (jax_sentry, jax_profiling)}
 
 
@@ -62,7 +64,8 @@ def test_entry_labels_are_thread_local_and_nest(sentry):
     seen = []
     t = threading.Thread(target=lambda: seen.append(sentry.current_entry()))
     t.start()
-    t.join()
+    t.join(timeout=30)
+    assert not t.is_alive()
     assert sentry.current_entry() == "alpha" and seen == [None]
     sentry.set_entry(None)
     with sentry.entry("outer"):
@@ -195,7 +198,7 @@ def test_a_cpu_engine_captures_nothing():
             await eng.stop()
 
     try:
-        streams = asyncio.run(body())
+        streams = asyncio.run(asyncio.wait_for(body(), RUN_S))
         assert all(len(t) == 12 for t, _ in streams)
         assert compile_sentry.total() == eng.graph_captures == 0
     finally:

@@ -47,6 +47,8 @@ from dynamo_tpu_torch.ops import flash_prefill as fp
 from dynamo_tpu_torch.ops import paged_attention as pa
 from dynamo_tpu_torch.ops import ragged_attention as ra
 
+RUN_S = 600  # bound on any one asyncio.run (kernel builds included): a hang fails its test
+
 pytestmark = pytest.mark.cuda
 
 L, N, PAGE, P = 2, 48, 8, 8  # layers, pool pages, page size, table width
@@ -653,11 +655,11 @@ def test_dense_entries_give_the_recorded_outputs_bit_for_bit(card):
 GB = 4  # engine lanes of the graph tests
 
 
-def _graph_engine(card, dtype, kv_dtype=None, max_batch_size=GB, **engine_kw):
+def _graph_engine(card, dtype, kv_dtype=None, max_batch_size=GB, model_kw=None, **engine_kw):
     """A small engine on the card with a random pool and a random,
     all-active decode state (greedy and seeded sampled lanes, one with a
-    penalty so the decode block's histogram moves); ``engine_kw`` goes to
-    its ``EngineConfig``."""
+    penalty so the decode block's histogram moves); ``model_kw`` goes to
+    its ``ModelConfig``, ``engine_kw`` to its ``EngineConfig``."""
     from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.engine.kv_cache import QuantKV
@@ -665,7 +667,7 @@ def _graph_engine(card, dtype, kv_dtype=None, max_batch_size=GB, **engine_kw):
 
     cfg = ModelConfig.tiny(
         head_dim=64, num_heads=4, num_kv_heads=2,
-        dtype="bfloat16" if dtype == torch.bfloat16 else "float32",
+        dtype="bfloat16" if dtype == torch.bfloat16 else "float32", **(model_kw or {}),
     )
     ecfg = EngineConfig(
         max_batch_size=max_batch_size, max_seq_len=256, page_size=16, num_pages=64,
@@ -784,6 +786,51 @@ def test_packed_graph_replay_equals_eager(card, dtype, kv_dtype, K):
     assert [a - b for a, b in zip(launch_counts(), base)] == [3 * n for n in launches]
 
 
+@pytest.mark.parametrize("cf", [1.0, 2.0], ids=["binds", "mixtral"])
+def test_moe_packed_graph_replay_equals_eager(card, cf):
+    """An MoE engine's K = 8 decode dispatch (E = 8, K = 2): its graphs'
+    replays give the eager run's output, state and pool bit for bit, with
+    capacity binding or at Mixtral's factor."""
+    eng = _graph_engine(card, torch.bfloat16, model_kw=dict(
+        num_experts=8, num_experts_per_tok=2, moe_capacity_factor=cf))
+    _, first, _ = _replay_equals_eager(eng, _packed_dispatch(eng, 8))
+    assert first.shape == (GB, 8, 2) and eng.graph_captures == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_mlp_graph_replay_equals_eager(card, dtype):
+    """``_moe_mlp`` captured in a CUDA graph (no host sync: its capacity is
+    a Python int of the static row count) replays the eager result bit for
+    bit, on the captured rows and on new rows written into them."""
+    from dynamo_tpu_torch.engine import model
+    from dynamo_tpu_torch.engine.config import ModelConfig
+
+    cfg = ModelConfig.tiny(num_experts=8, num_experts_per_tok=2, moe_capacity_factor=1.0,
+                           dtype="bfloat16" if dtype == torch.bfloat16 else "float32")
+    params = model.init_params(cfg, 3, card, dtype)
+    lp = {k: w[0] for k, w in params["layers"].items()}
+    gen = torch.Generator(device=card)
+    gen.manual_seed(4)
+    x = torch.randn(24, cfg.hidden_size, generator=gen, device=card).to(dtype)
+    eager = model._moe_mlp(lp, x, cfg)
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):
+        model._moe_mlp(lp, x, cfg)
+    torch.cuda.current_stream(card).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = model._moe_mlp(lp, x, cfg)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    x.copy_(torch.randn(x.shape, generator=gen, device=card).to(dtype))
+    want = model._moe_mlp(lp, x, cfg)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
 @pytest.mark.parametrize("use_penalties", [False, True])
 def test_decode_block_graph_replay_equals_eager(card, use_penalties):
     eng = _graph_engine(card, torch.bfloat16)
@@ -841,10 +888,12 @@ def test_device_trace_holds_the_replayed_kernels(card, tmp_path):
     t = threading.Thread(target=replay)
     t.start()
     try:
-        result = asyncio.run(profiling.capture_device_trace(1.0, str(tmp_path)))
+        result = asyncio.run(
+            asyncio.wait_for(profiling.capture_device_trace(1.0, str(tmp_path)), RUN_S)
+        )
     finally:
         stop.set()
-        t.join()
+        t.join(timeout=60)
     assert result["ok"], result
     with open(tmp_path / profiling.DEVICE_TRACE_FILE) as fh:
         events = json.load(fh)["traceEvents"]
@@ -1220,7 +1269,7 @@ def test_swap_in_under_graph_replay(card, kv_dtype):
         eng = TorchEngine(cfg, on, EngineConfig(
             max_batch_size=2, max_seq_len=256, mixed_token_budget=32, num_pages=pages,
             host_offload_blocks=32, kv_dtype=kv_dtype, async_dispatch=False), device=dev)
-        return asyncio.run(serve(eng)), eng
+        return asyncio.run(asyncio.wait_for(serve(eng), RUN_S)), eng
 
     roomy, _ = run(card, 64)
     swapped, eng = run(card, 9)
@@ -1291,7 +1340,7 @@ def test_chaos_sites_on_the_card_are_the_cpu_runs(card, case):
         if armed:
             faults.injector.configure(spec_str)
         try:
-            out = asyncio.run(serve(eng, draft))
+            out = asyncio.run(asyncio.wait_for(serve(eng, draft), RUN_S))
             fired = {s: faults.injector.fire_count(s) for s in
                      ("offload.copy_fail", "onboard.truncate", "spec.draft_corrupt")}
         finally:
@@ -1368,14 +1417,14 @@ def test_two_engines_capture_and_serve_side_by_side(card):
         finally:
             await eng.stop()
 
-    alone = [asyncio.run(serve(engine(), b)) for b in reqs]
+    alone = [asyncio.run(asyncio.wait_for(serve(engine(), b), RUN_S)) for b in reqs]
     pair = [engine(), engine()]
     before = (pa.KERNEL.launches, ra.KERNEL.launches)
 
     async def both():
         return await asyncio.gather(*[serve(e, b) for e, b in zip(pair, reqs)])
 
-    together = asyncio.run(both())
+    together = asyncio.run(asyncio.wait_for(both(), RUN_S))
     assert together == alone
     assert all(sum(e.graph_replays.values()) > 0 for e in pair)
     decode = packed = 0
@@ -1476,7 +1525,7 @@ def test_device_handoff_and_wire_delivery_give_the_same_pages(card, kv_dtype):
             await prefill.stop()
             await rt.shutdown()
 
-    blob, landed, streams = asyncio.run(body())
+    blob, landed, streams = asyncio.run(asyncio.wait_for(body(), RUN_S))
     assert len(landed) == 2 and landed[0] == landed[1]
     if kv_dtype is None:
         assert landed[0] == blob.tobytes()

@@ -70,6 +70,7 @@ from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
 from dynamo_tpu_torch.runtime.transports.hub import HubServer
 
 WAIT_S = 30  # bound on any one stream, delivery or poll
+RUN_S = 180  # bound on any one asyncio.run: a hang fails its test, not the run
 ENGINE = dict(max_batch_size=4, max_seq_len=64, page_size=4, num_pages=64)
 LONG = [7, 3, 7, 3, 5, 5, 9, 1, 2, 8, 4, 6]
 SHORT = [1, 2, 3]
@@ -240,7 +241,7 @@ async def _jax_reference(weights) -> dict:
 
 @pytest.fixture(scope="module")
 def ref(weights):
-    return asyncio.run(_jax_reference(weights))
+    return asyncio.run(asyncio.wait_for(_jax_reference(weights), RUN_S))
 
 
 def expect(ref, name):
@@ -278,7 +279,7 @@ def test_prefill_export_import_roundtrip(weights, ref):
             await decode.stop()
             await prefiller.stop()
 
-    asyncio.run(body())
+    asyncio.run(asyncio.wait_for(body(), RUN_S))
 
 
 def test_export_blob_and_row_equal_jax(weights, ref):
@@ -293,7 +294,7 @@ def test_export_blob_and_row_equal_jax(weights, ref):
         finally:
             await engine.stop()
 
-    blob, row = asyncio.run(body())
+    blob, row = asyncio.run(asyncio.wait_for(body(), RUN_S))
     jblob, jrow = ref["export"]
     assert blob.shape == jblob.shape and blob.dtype == np.float32
     np.testing.assert_allclose(blob, jblob, rtol=1e-5, atol=1e-5)
@@ -312,7 +313,7 @@ def test_deliver_for_dead_request_is_refused(weights):
         finally:
             await engine.stop()
 
-    asyncio.run(body())
+    asyncio.run(asyncio.wait_for(body(), RUN_S))
 
 
 def test_fail_external_errors_parked_request_and_frees_pages(weights):
@@ -332,7 +333,7 @@ def test_fail_external_errors_parked_request_and_frees_pages(weights):
         finally:
             await engine.stop()
 
-    asyncio.run(body())
+    asyncio.run(asyncio.wait_for(body(), RUN_S))
 
 
 def test_external_kv_timeout_fails_parked_request(weights):
@@ -346,7 +347,7 @@ def test_external_kv_timeout_fails_parked_request(weights):
         finally:
             await engine.stop()
 
-    asyncio.run(body())
+    asyncio.run(asyncio.wait_for(body(), RUN_S))
 
 
 def test_misshaped_delivery_fails_only_that_request(weights, ref):
@@ -366,7 +367,7 @@ def test_misshaped_delivery_fails_only_that_request(weights, ref):
         finally:
             await engine.stop()
 
-    asyncio.run(body())
+    asyncio.run(asyncio.wait_for(body(), RUN_S))
 
 
 def test_oversized_remote_prompt_is_not_enqueued(weights):
@@ -379,7 +380,7 @@ def test_oversized_remote_prompt_is_not_enqueued(weights):
                 assert await disagg.queue.depth() == 0
                 assert disagg.remote_prefills == 0
 
-    asyncio.run(body())
+    asyncio.run(asyncio.wait_for(body(), RUN_S))
 
 
 @pytest.fixture
@@ -436,7 +437,7 @@ def test_disagg_end_to_end_matches_aggregated(weights, ref, traced):
                         await client.close()
                         await crt.shutdown()
 
-    asyncio.run(body())
+    asyncio.run(asyncio.wait_for(body(), RUN_S))
 
 
 def test_local_device_delivery_matches_aggregated(weights, ref):
@@ -459,7 +460,7 @@ def test_local_device_delivery_matches_aggregated(weights, ref):
                     assert pw.local_deliveries == 1 and uploads == []
                     assert pw.transfer_stats()["device"]["count"] == 1
 
-    asyncio.run(body())
+    asyncio.run(asyncio.wait_for(body(), RUN_S))
 
 
 def test_prefill_export_batch_matches_singles(weights):
@@ -485,7 +486,7 @@ def test_prefill_export_batch_matches_singles(weights):
         finally:
             await engine.stop()
 
-    asyncio.run(body())
+    asyncio.run(asyncio.wait_for(body(), RUN_S))
 
 
 def test_truncated_kv_delivery_fails_parked_lane(weights):
@@ -516,7 +517,7 @@ def test_truncated_kv_delivery_fails_parked_lane(weights):
                 await prefiller.stop()
                 await rt.shutdown()
 
-    asyncio.run(body())
+    asyncio.run(asyncio.wait_for(body(), RUN_S))
 
 
 def test_delivery_while_waiting_for_slot_outlives_timeout(weights):
@@ -542,7 +543,7 @@ def test_delivery_while_waiting_for_slot_outlives_timeout(weights):
             await decode.stop()
             await prefiller.stop()
 
-    asyncio.run(body())
+    asyncio.run(asyncio.wait_for(body(), RUN_S))
 
 
 def test_disagg_conf_live_reload(weights):
@@ -569,7 +570,7 @@ def test_disagg_conf_live_reload(weights):
                 await engine.stop()
                 await rt.shutdown()
 
-    asyncio.run(body())
+    asyncio.run(asyncio.wait_for(body(), RUN_S))
 
 
 async def poll(cond) -> None:
@@ -601,7 +602,7 @@ def test_prefill_export_stream_matches_monolithic(weights):
         finally:
             await engine.stop()
 
-    asyncio.run(body())
+    asyncio.run(asyncio.wait_for(body(), RUN_S))
 
 
 async def _wire_tokens(weights, prompt, max_tokens, chunked, decode_kw=(), prefill_kw=(),
@@ -621,8 +622,8 @@ async def _wire_tokens(weights, prompt, max_tokens, chunked, decode_kw=(), prefi
 
 
 def test_chunked_wire_delivery_is_bit_identical_to_monolithic(weights, ref):
-    got_c, stats_c = asyncio.run(_wire_tokens(weights, LONG, 6, True))
-    got_m, stats_m = asyncio.run(_wire_tokens(weights, LONG, 6, False))
+    got_c, stats_c = asyncio.run(asyncio.wait_for(_wire_tokens(weights, LONG, 6, True), RUN_S))
+    got_m, stats_m = asyncio.run(asyncio.wait_for(_wire_tokens(weights, LONG, 6, False), RUN_S))
     assert got_c == got_m == expect(ref, "long")
     assert stats_c and stats_c[0]["chunks"] == 2 and "overlap_ratio" in stats_c[0]
     assert stats_m and "chunks" not in stats_m[0]
@@ -633,10 +634,10 @@ def test_chunked_wire_delivery_is_bit_identical_to_monolithic(weights, ref):
 def test_int8_pool_wire_delivery_matches_aggregated(weights, ref, chunked):
     """An int8 pool's (data, scales) pair on the wire, both framings: the
     JAX aggregated int8 engine's stream."""
-    got, stats = asyncio.run(_wire_tokens(
+    got, stats = asyncio.run(asyncio.wait_for(_wire_tokens(
         weights, LONG, 6, chunked, decode_kw={"kv_dtype": "int8"},
         prefill_kw={"kv_dtype": "int8"},
-    ))
+    ), RUN_S))
     assert got == ref["int8"]
     assert stats and stats[0]["bytes"] == tkv.quant_blob_nbytes((2, 2, 3, 4, 2, 16))
 
@@ -656,9 +657,11 @@ def test_dense_prefiller_feeds_int8_decode_pool_like_jax(weights, ref, path):
                     return tokens
 
     if path == "wire":
-        got, _ = asyncio.run(_wire_tokens(weights, LONG, 6, True, decode_kw={"kv_dtype": "int8"}))
+        got, _ = asyncio.run(
+            asyncio.wait_for(_wire_tokens(weights, LONG, 6, True, decode_kw={"kv_dtype": "int8"}), RUN_S)
+        )
     else:
-        got = asyncio.run(device_run())
+        got = asyncio.run(asyncio.wait_for(device_run(), RUN_S))
     assert got == ref["mix"]
 
 
@@ -716,7 +719,7 @@ def test_out_of_order_chunk_arrival_decodes_identically(weights, ref):
         finally:
             await decode.stop()
 
-    asyncio.run(body())
+    asyncio.run(asyncio.wait_for(body(), RUN_S))
 
 
 def test_truncated_chunked_delivery_fails_parked_lane(weights):
@@ -731,7 +734,7 @@ def test_truncated_chunked_delivery_fails_parked_lane(weights):
         finally:
             await decode.stop()
 
-    asyncio.run(body())
+    asyncio.run(asyncio.wait_for(body(), RUN_S))
 
 
 def test_non_tiling_layer_spans_are_rejected(weights):
@@ -751,7 +754,7 @@ def test_non_tiling_layer_spans_are_rejected(weights):
         finally:
             await decode.stop()
 
-    asyncio.run(body())
+    asyncio.run(asyncio.wait_for(body(), RUN_S))
 
 
 def test_layer_chunk_spans_validates_granularity_like_jax():
@@ -769,14 +772,18 @@ def test_layer_chunk_spans_validates_granularity_like_jax():
 
 @pytest.mark.parametrize("chunked", [True, False])
 def test_jax_prefill_worker_feeds_port_decode_worker(weights, ref, chunked):
-    got, stats = asyncio.run(_wire_tokens(weights, LONG, 6, chunked, prefill_pkg="jax"))
+    got, stats = asyncio.run(
+        asyncio.wait_for(_wire_tokens(weights, LONG, 6, chunked, prefill_pkg="jax"), RUN_S)
+    )
     assert got == expect(ref, "long")
     assert stats and stats[0]["path"] == "wire"
 
 
 @pytest.mark.parametrize("chunked", [True, False])
 def test_port_prefill_worker_feeds_jax_decode_worker(weights, ref, chunked):
-    got, stats = asyncio.run(_wire_tokens(weights, LONG, 6, chunked, decode_pkg="jax"))
+    got, stats = asyncio.run(
+        asyncio.wait_for(_wire_tokens(weights, LONG, 6, chunked, decode_pkg="jax"), RUN_S)
+    )
     assert got == expect(ref, "long")
     assert stats and stats[0]["path"] == "wire"
 
@@ -835,7 +842,7 @@ def test_bf16_jax_export_lands_byte_for_byte(ref, chunked):
         return landed["pages"]
 
     assert str(blob.dtype) == "bfloat16"
-    got = asyncio.run(body())
+    got = asyncio.run(asyncio.wait_for(body(), RUN_S))
     assert got.tobytes() == np.ascontiguousarray(blob).tobytes()
 
 
@@ -864,7 +871,7 @@ def test_enqueue_fault_falls_back_local_and_opens_breaker(weights, ref):
         finally:
             faults.injector.disable()
 
-    asyncio.run(body())
+    asyncio.run(asyncio.wait_for(body(), RUN_S))
 
 
 def test_disagg_conf_cli_writes_the_key_jax_watches(monkeypatch, capsys):
@@ -896,7 +903,7 @@ def test_disagg_conf_cli_writes_the_key_jax_watches(monkeypatch, capsys):
                 await disagg.stop_config_watch()
                 await rt.shutdown()
 
-    asyncio.run(body())
+    asyncio.run(asyncio.wait_for(body(), RUN_S))
     assert "100000" in capsys.readouterr().out
 
 

@@ -34,6 +34,7 @@ from dynamo_tpu_torch.runtime.engine import Context
 
 ENGINE = dict(max_batch_size=4, max_seq_len=96, page_size=4, num_pages=64)
 WAIT_S = 60
+RUN_S = 180  # bound on any one asyncio.run: a hang fails its test, not the run
 # six inputs over two groups of max_batch_size: 4 lanes, then 2
 INPUTS = [[(5 * i + 7 * j) % 250 + 1 for j in range(n)] for i, n in enumerate([30, 3, 17, 1, 64, 9])]
 
@@ -97,7 +98,7 @@ def test_embed_groups_and_pads_as_jax(weights, monkeypatch):
     teng = torch_engine(np_params)
     ref = asyncio.run(asyncio.wait_for(jeng.embed(INPUTS), WAIT_S))
     got = asyncio.run(asyncio.wait_for(teng.embed(INPUTS), WAIT_S))
-    asyncio.run(teng.stop())
+    asyncio.run(asyncio.wait_for(teng.stop(), RUN_S))
     # sorted by length, groups of max_batch_size, pow2 batch, one bucket each
     assert tcalls == jcalls == [((4, 32), [1, 3, 9, 17]), ((2, 64), [30, 64])]
     assert teng.dispatches == {"embed": 2}
@@ -106,7 +107,7 @@ def test_embed_groups_and_pads_as_jax(weights, monkeypatch):
     # input order is kept: each vector equals its input embedded alone
     alone = torch_engine(np_params)
     solo = asyncio.run(asyncio.wait_for(alone.embed([INPUTS[2]]), WAIT_S))
-    asyncio.run(alone.stop())
+    asyncio.run(asyncio.wait_for(alone.stop(), RUN_S))
     np.testing.assert_allclose(solo[0], got[2], atol=1e-5, rtol=0)
 
 
@@ -156,7 +157,7 @@ def test_embed_between_ticks_leaves_streams_unchanged(weights, async_dispatch):
     assert eng.dispatches["embed"] == 3 and eng.dispatches["unified"]
     idle = torch_engine(np_params)
     want = asyncio.run(asyncio.wait_for(idle.embed(INPUTS[:2]), WAIT_S))
-    asyncio.run(idle.stop())
+    asyncio.run(asyncio.wait_for(idle.stop(), RUN_S))
     for v in vecs:
         np.testing.assert_allclose(v, want, atol=1e-5, rtol=0)
 
@@ -169,10 +170,10 @@ def test_embed_refuses_what_jax_refuses(weights):
         messages = []
         for eng in (jeng, teng):
             with pytest.raises(ValueError) as err:
-                asyncio.run(eng.embed(bad))
+                asyncio.run(asyncio.wait_for(eng.embed(bad), RUN_S))
             messages.append(str(err.value))
         assert messages[1] == messages[0]
-    assert asyncio.run(teng.embed([])) == []
-    assert asyncio.run(jeng.embed([])) == []
+    assert asyncio.run(asyncio.wait_for(teng.embed([]), RUN_S)) == []
+    assert asyncio.run(asyncio.wait_for(jeng.embed([]), RUN_S)) == []
     assert "embed" not in teng.dispatches
-    asyncio.run(teng.stop())
+    asyncio.run(asyncio.wait_for(teng.stop(), RUN_S))

@@ -51,6 +51,7 @@ ENGINE = dict(
 )
 SHARED = [(7 * i + 3) % 250 + 1 for i in range(12)]  # three whole pages
 WAIT_S = 60  # bound on any one served batch
+RUN_S = 180  # bound on any one asyncio.run: a hang fails its test, not the run
 # the configs held against the JAX engine, and whether their batch carries
 # the two penalized lanes
 CONFIGS = {
@@ -144,7 +145,9 @@ def penalized_lanes():
 @pytest.fixture(scope="module")
 def stop_token(weights):
     # the stop token is the fourth greedy token of its prompt
-    probe = asyncio.run(serve_mixed(torch_engine(weights[2]), mixed_batch(-5), WAIT_S))
+    probe = asyncio.run(
+        asyncio.wait_for(serve_mixed(torch_engine(weights[2]), mixed_batch(-5), WAIT_S), RUN_S)
+    )
     return probe[3][0][3]
 
 
@@ -156,9 +159,9 @@ def served(weights, stop_token):
     for name, (kw, with_penalties) in CONFIGS.items():
         reqs = mixed_batch(stop_token) + (penalized_lanes() if with_penalties else [])
         eng = torch_engine(np_params, **kw)
-        port = asyncio.run(serve_mixed(eng, reqs, WAIT_S))
+        port = asyncio.run(asyncio.wait_for(serve_mixed(eng, reqs, WAIT_S), RUN_S))
         jeng = JaxEngine(jcfg, jparams, JaxEngineConfig(**ENGINE, **kw))
-        ref = asyncio.run(serve_mixed(jeng, reqs, WAIT_S))
+        ref = asyncio.run(asyncio.wait_for(serve_mixed(jeng, reqs, WAIT_S), RUN_S))
         out[name] = dict(port=port, ref=ref, engine=eng)
     return out
 
@@ -168,13 +171,13 @@ def test_engine_greedy_streams_match_jax(weights, stop_token):
     reqs = mixed_batch(stop_token)
 
     eng = torch_engine(np_params)
-    port = asyncio.run(serve_mixed(eng, reqs))
+    port = asyncio.run(asyncio.wait_for(serve_mixed(eng, reqs), RUN_S))
     assert eng.metrics().gpu_prefix_cache_hit_rate > 0, "no prefix hit"
     assert eng.kv.allocator.used_pages == 0
     assert eng.tokens_generated == sum(len(t) for t, _ in port)
 
     jeng = JaxEngine(jcfg, jparams, JaxEngineConfig(**ENGINE))
-    ref = asyncio.run(serve_mixed(jeng, reqs))
+    ref = asyncio.run(asyncio.wait_for(serve_mixed(jeng, reqs), RUN_S))
 
     assert port == ref
     assert port[3][1] == "stop" and len(port[3][0]) < 12
@@ -218,9 +221,9 @@ def test_engine_logprobs_match_jax(weights):
     log-softmax over a 256-way vocabulary, summed in other orders)."""
     jcfg, jparams, np_params = weights
     req = request([3, 1, 4, 1, 5], 6, logprobs=2)
-    port = asyncio.run(logprob_frames(torch_engine(np_params), req))
+    port = asyncio.run(asyncio.wait_for(logprob_frames(torch_engine(np_params), req), RUN_S))
     ref = asyncio.run(
-        logprob_frames(JaxEngine(jcfg, jparams, JaxEngineConfig(**ENGINE)), req)
+        asyncio.wait_for(logprob_frames(JaxEngine(jcfg, jparams, JaxEngineConfig(**ENGINE)), req), RUN_S)
     )
     assert_logprobs_match(port, ref, 6)
 
@@ -232,11 +235,13 @@ def test_classic_logprobs_match_jax(weights):
     jcfg, jparams, np_params = weights
     kw = dict(mixed_batching=False, decode_block_size=4)
     req = request(list(range(1, 12)), 7, logprobs=2, repetition_penalty=1.4)
-    port = asyncio.run(logprob_frames(torch_engine(np_params, **kw), req, WAIT_S))
+    port = asyncio.run(
+        asyncio.wait_for(logprob_frames(torch_engine(np_params, **kw), req, WAIT_S), RUN_S)
+    )
     ref = asyncio.run(
-        logprob_frames(
+        asyncio.wait_for(logprob_frames(
             JaxEngine(jcfg, jparams, JaxEngineConfig(**ENGINE, **kw)), req, WAIT_S
-        )
+        ), RUN_S)
     )
     assert_logprobs_match(port, ref, 7)
 
@@ -259,14 +264,14 @@ def test_multistep_matches_single_step_and_seeded_lanes_are_isolated(weights):
             await engine.stop()
 
     k8 = torch_engine(np_params)
-    fused = asyncio.run(run(k8, reqs))
+    fused = asyncio.run(asyncio.wait_for(run(k8, reqs), RUN_S))
     assert any(k > 1 for k in k8.dispatches_by_k), k8.dispatches_by_k
     k1 = torch_engine(np_params, multistep_max_k=1)
-    single = asyncio.run(run(k1, reqs))
+    single = asyncio.run(asyncio.wait_for(run(k1, reqs), RUN_S))
     assert set(k1.dispatches_by_k) == {1}
     assert fused == single
     assert all(len(t) == 20 for t, _ in fused)
-    alone = asyncio.run(run(torch_engine(np_params), [reqs[1]]))
+    alone = asyncio.run(asyncio.wait_for(run(torch_engine(np_params), [reqs[1]]), RUN_S))
     assert alone[0] == fused[1]
 
 
@@ -284,9 +289,9 @@ def test_recompute_preemption_keeps_streams(weights):
         finally:
             await engine.stop()
 
-    roomy = asyncio.run(run(torch_engine(np_params)))
+    roomy = asyncio.run(asyncio.wait_for(run(torch_engine(np_params)), RUN_S))
     tight_eng = torch_engine(np_params, num_pages=17)
-    tight = asyncio.run(run(tight_eng))
+    tight = asyncio.run(asyncio.wait_for(run(tight_eng), RUN_S))
     assert tight == roomy
     assert tight_eng.sched.preempt_recompute > 0
 
@@ -384,7 +389,7 @@ def test_unpenalized_lanes_agree_across_configs(weights, served):
         finally:
             await engine.stop()
 
-    unpenalized = asyncio.run(run(torch_engine(weights[2])))
+    unpenalized = asyncio.run(asyncio.wait_for(run(torch_engine(weights[2])), RUN_S))
     for config in ("classic", "penalized"):
         got = served[config]["port"][5:]
         assert all(a != b for a, b in zip(got, unpenalized))
@@ -413,9 +418,11 @@ def test_penalized_arrival_mid_mixed_prefill_matches_jax(weights):
             await engine.stop()
 
     eng = torch_engine(np_params, **kw)
-    port = asyncio.run(body(eng))
+    port = asyncio.run(asyncio.wait_for(body(eng), RUN_S))
     assert eng.dispatches.get("unified") and eng.dispatches.get("prefill")
-    ref = asyncio.run(body(JaxEngine(jcfg, jparams, JaxEngineConfig(**{**ENGINE, **kw}))))
+    ref = asyncio.run(
+        asyncio.wait_for(body(JaxEngine(jcfg, jparams, JaxEngineConfig(**{**ENGINE, **kw}))), RUN_S)
+    )
     assert port == ref
     assert [len(t) for t, _ in port] == [6, 6]
 
@@ -440,10 +447,12 @@ def test_penalty_history_survives_recompute_preemption(weights):
             await engine.stop()
 
     tight_eng = torch_engine(np_params, num_pages=17)
-    tight = asyncio.run(run(tight_eng))
+    tight = asyncio.run(asyncio.wait_for(run(tight_eng), RUN_S))
     assert tight_eng.sched.preempt_recompute > 0
-    assert tight == asyncio.run(run(torch_engine(np_params)))
-    assert tight == asyncio.run(run(JaxEngine(jcfg, jparams, JaxEngineConfig(**ENGINE))))
+    assert tight == asyncio.run(asyncio.wait_for(run(torch_engine(np_params)), RUN_S))
+    assert tight == asyncio.run(
+        asyncio.wait_for(run(JaxEngine(jcfg, jparams, JaxEngineConfig(**ENGINE))), RUN_S)
+    )
     # the fold itself: two generated tokens absorbed into the prompt stay
     # output (count 1), the prompt proper carries the prompt flag
     seq = SeqState.from_request(

@@ -32,6 +32,8 @@ from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
 
 from tests.test_torch_score import ENGINE, WAIT_S, serve, workload
 
+RUN_S = 180  # bound on any one asyncio.run: a hang fails its test, not the run
+
 CONFIGS = {
     "mixed": {},
     "classic": dict(mixed_batching=False, prefill_chunk_tokens=8),
@@ -83,8 +85,8 @@ def served(request):
         out["embedded"] = (treg.render()[0].decode(), dict(engine.dispatches))
         out["tokens"] = engine.tokens_generated
 
-    asyncio.run(serve(teng, workload(), then))
-    asyncio.run(serve(jeng, workload()))
+    asyncio.run(asyncio.wait_for(serve(teng, workload(), then), RUN_S))
+    asyncio.run(asyncio.wait_for(serve(jeng, workload()), RUN_S))
     out["jax"] = jreg.render()[0].decode()
     return out
 

@@ -38,6 +38,7 @@ from tests.test_serving import http_request
 
 T0 = 1_790_000_000.0
 WAIT_S = 30.0
+RUN_S = 180  # bound on any one asyncio.run: a hang fails its test, not the run
 
 
 @pytest.fixture
@@ -306,7 +307,7 @@ def test_mocker_link_converges_within_20pct():
         finally:
             await asyncio.wait_for(engine.stop(), WAIT_S)
 
-    asyncio.run(drive())
+    asyncio.run(asyncio.wait_for(drive(), RUN_S))
     truth = (setup + 1_000_000 / bw) * 1000.0
     pred = pair.port.predict_transfer_ms(1_000_000, 1, 5)
     assert pred is not None and abs(pred - truth) / truth < 0.2
@@ -346,7 +347,7 @@ def test_straggler_in_slowed_mocker_fleet(flightrec):
             for eng in engines:
                 await asyncio.wait_for(eng.stop(), WAIT_S)
 
-    asyncio.run(drive())
+    asyncio.run(asyncio.wait_for(drive(), RUN_S))
     assert pair.port.stragglers == pair.jax.stragglers == [3]
     assert pair.port.quarantined == [3]
     assert [s for s in flightrec.list() if s["reason"] == "straggler_detected"]
@@ -386,7 +387,7 @@ def test_fleet_http_routes(clock):
         finally:
             await bare.stop()
 
-    asyncio.run(go())
+    asyncio.run(asyncio.wait_for(go(), RUN_S))
 
 
 def test_registry_render_prefix_matches_prometheus_client(clock):

@@ -58,6 +58,7 @@ NAME = "tiny"
 ENGINE = dict(max_batch_size=4, max_seq_len=128, page_size=4, num_pages=128,
               mixed_token_budget=16)
 WAIT_S = 60
+RUN_S = 180  # bound on any one asyncio.run: a hang fails its test, not the run
 CONFIGS = {
     "default": ({}, {}),
     "classic-penalized": (
@@ -573,11 +574,11 @@ def test_env_override_follows_jax_rule(stack, var, monkeypatch):
         jeng = JaxEngine(jcfg, jparams, JaxEngineConfig(**base))
         teng = TorchEngine(cfg, tparams, EngineConfig(**base), device="cpu")
         assert _resolved(teng)[var] == _resolved(jeng)[var], (var, value)
-        asyncio.run(teng.stop())
+        asyncio.run(asyncio.wait_for(teng.stop(), RUN_S))
     monkeypatch.delenv(var)
     teng = TorchEngine(cfg, tparams, EngineConfig(**base), device="cpu")
     assert _resolved(teng) == {
         "DYN_KV_DTYPE": False, "DYN_MIXED_TOKEN_BUDGET": 9, "DYN_PACKED_RAGGED": True,
         "DYN_PACKED_SHAPE_BUDGET": 16, "DYN_ASYNC_DISPATCH": 2,
     }
-    asyncio.run(teng.stop())
+    asyncio.run(asyncio.wait_for(teng.stop(), RUN_S))

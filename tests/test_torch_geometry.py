@@ -33,6 +33,8 @@ from dynamo_tpu_torch.ops.build import check_geometry
 from dynamo_tpu_torch.protocols.common import PreprocessedRequest
 from dynamo_tpu_torch.runtime.engine import Context
 
+RUN_S = 180  # bound on any one asyncio.run: a hang fails its test, not the run
+
 CUDA = torch.device("cuda")
 ENGINE = dict(max_batch_size=2, max_seq_len=64, page_size=4, num_pages=32)
 # (Hq, Hkv, D) the kernels refuse: ModelConfig()'s 32/32 heads (group 1),
@@ -117,7 +119,11 @@ def test_cpu_engine_serves_32_32_heads_as_the_jax_engine():
     params = params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
     rs = np.random.default_rng(2)
     reqs = [_request(rs.integers(1, 256, 9).tolist(), 6), _request([3, 1, 4, 1, 5], 6)]
-    port = asyncio.run(_serve(TorchEngine(cfg, params, EngineConfig(**ENGINE), device="cpu"), reqs))
-    ref = asyncio.run(_serve(JaxEngine(jcfg, jparams, JaxEngineConfig(**ENGINE)), reqs))
+    port = asyncio.run(
+        asyncio.wait_for(_serve(TorchEngine(cfg, params, EngineConfig(**ENGINE), device="cpu"), reqs), RUN_S)
+    )
+    ref = asyncio.run(
+        asyncio.wait_for(_serve(JaxEngine(jcfg, jparams, JaxEngineConfig(**ENGINE)), reqs), RUN_S)
+    )
     assert [len(t) for t in port] == [6, 6]
     assert port == ref

@@ -10,7 +10,10 @@ observatory's render, the front end's ``/fleet`` routes and the ``fleet``
 and ``metrics`` subcommands run under the hook too: ``prometheus_client``
 is on this machine, not on the card's, so a lazy import of it would pass
 everywhere else.  So do a planner round that mints the planner's families
-and writes its JSONL log, and ``profile-sla --out mocker``."""
+and writes its JSONL log, and ``profile-sla --out mocker``; and a
+Mixtral round: an MoE model made layer by layer in int8, one capacity
+dispatch, a memory plan, and a SentencePiece-style tokenizer's round
+trip through byte fallback."""
 
 from __future__ import annotations
 
@@ -107,8 +110,9 @@ def test_port_imports_nothing_refused():
     # runtime/telemetry, the model-free engines (mocker/ and its engine
     # and kv_manager, llm/echo), 83 with the fleet observatory (fleet/ and
     # fleet/observatory) and llm/components, 87 with the planner (planner/
-    # and its connector, planner and profile_sla)
-    assert int(out.stdout.strip().splitlines()[-1]) >= 87
+    # and its connector, planner and profile_sla), 88 with
+    # engine/memory_plan
+    assert int(out.stdout.strip().splitlines()[-1]) >= 88
 
 
 # the speculative decoding package, the model drafter and weight-only int8:
@@ -251,6 +255,68 @@ def test_fleet_observatory_renders_without_refused():
     assert out.stdout.strip().splitlines()[-1] == "ok"
 
 
+# the Mixtral family, driven: an MoE model (int8, made layer by layer),
+# one capacity dispatch and its dense ground truth, the memory plan, and a
+# SentencePiece-style tokenizer.json (written here by hand) round trip
+MIXTRAL = HOOK + textwrap.dedent(
+    """
+    import json
+    import torch
+    from dynamo_tpu_torch.engine import model
+    from dynamo_tpu_torch.engine.config import ModelConfig
+    from dynamo_tpu_torch.engine.memory_plan import plan_memory
+    from dynamo_tpu_torch.llm.tokenizer import Tokenizer
+
+    cfg = ModelConfig.tiny(num_experts=4, num_experts_per_tok=2)
+    params = model.init_params(cfg, 0, torch.device("cpu"), quantize="int8")
+    lp = {k: w[0] for k, w in params["layers"].items()}
+    x = torch.randn(9, cfg.hidden_size)
+    sparse, dense = model._moe_mlp(lp, x, cfg), model._moe_mlp_dense(lp, x, cfg)
+    assert (sparse - dense).abs().max().item() < 1e-5
+    plan = plan_memory(ModelConfig.mixtral_8x7b(), quantize="int8", hbm_bytes=80 * 2**30)
+    assert plan.fits and plan.dequant_bytes > 0
+    vocab = {"<unk>": 0, "<s>": 1, "</s>": 2}
+    for b in range(256):
+        vocab["<0x%02X>" % b] = len(vocab)
+    for c in ["\u2581"] + list("abcdefghijklmnopqrstuvwxyz"):
+        vocab[c] = len(vocab)
+    spec = {
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Prepend", "prepend": "\u2581"},
+            {"type": "Replace", "pattern": {"String": " "}, "content": "\u2581"}]},
+        "pre_tokenizer": None,
+        "decoder": {"type": "Sequence", "decoders": [
+            {"type": "Replace", "pattern": {"String": "\u2581"}, "content": " "},
+            {"type": "ByteFallback"}, {"type": "Fuse"},
+            {"type": "Strip", "content": " ", "start": 1, "stop": 0}]},
+        "model": {"type": "BPE", "unk_token": "<unk>", "byte_fallback": True,
+                  "fuse_unk": True, "vocab": vocab, "merges": [["\u2581", "a"]]},
+        "added_tokens": [],
+    }
+    vocab["\u2581a"] = len(vocab)
+    tok = Tokenizer.from_str(json.dumps(spec))
+    text = "a cafe \u00e9t\u00e9 \U0001F600"
+    ids = tok.encode(text)
+    assert ids[0] == vocab["\u2581a"] and vocab["<0xF0>"] in ids
+    assert tok.decode(ids) == text
+    stream = tok.decode_stream()
+    assert "".join(d for d in (stream.step(t) for t in ids) if d) == text
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
+    assert not leaked, leaked
+    print("ok")
+    """
+)
+
+
+def test_mixtral_round_imports_nothing_refused():
+    out = subprocess.run(
+        [sys.executable, "-c", MIXTRAL, ",".join(REFUSED)],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
 # the planner, driven: one round over a hot worker (a scale-up through a
 # LocalConnector, the dynamo_planner_* families minted, a JSONL log line
 # written on the planner-log thread), then stopped
@@ -365,7 +431,7 @@ def test_fleet_routes_and_subcommands_import_nothing_refused():
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.communicate()
+                p.communicate(timeout=30)
 
 
 def _checkpoint(model_dir: str, path: str) -> str:
@@ -434,7 +500,7 @@ def test_http_server_imports_nothing_refused(model_dir, tmp_path):
     finally:
         if proc.poll() is None:
             proc.kill()
-            proc.communicate()
+            proc.communicate(timeout=30)
 
 
 def test_distributed_serving_imports_nothing_refused(model_dir, tmp_path):
@@ -495,4 +561,4 @@ def test_distributed_serving_imports_nothing_refused(model_dir, tmp_path):
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.communicate()
+                p.communicate(timeout=30)

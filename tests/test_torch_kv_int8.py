@@ -67,6 +67,7 @@ HQ, HKV, D = 4, 2, 32  # GQA n_rep = 2
 LAYER = 1
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 WAIT_S = 60  # bound on any one served batch
+RUN_S = 180  # bound on any one asyncio.run: a hang fails its test, not the run
 LP_TOL, LP_TOL_PENALIZED = 1e-3, 2e-3  # see ENGINE below
 
 
@@ -511,16 +512,18 @@ def served(weights):
     for name, (kw, penalized) in CONFIGS.items():
         reqs = mixed_batch(penalized)
         eng = torch_engine(np_params, kv_dtype="int8", **kw)
-        port = asyncio.run(serve(eng, reqs))
+        port = asyncio.run(asyncio.wait_for(serve(eng, reqs), RUN_S))
         jeng = JaxEngine(
             jcfg, jparams,
             JaxEngineConfig(**ENGINE, kv_dtype="int8", async_dispatch=False, **kw),
         )
-        ref = asyncio.run(serve(jeng, reqs))
-        dense = asyncio.run(serve(torch_engine(np_params, **kw), reqs))
+        ref = asyncio.run(asyncio.wait_for(serve(jeng, reqs), RUN_S))
+        dense = asyncio.run(asyncio.wait_for(serve(torch_engine(np_params, **kw), reqs), RUN_S))
         out[name] = dict(port=port, ref=ref, dense=dense, engine=eng)
     fused = torch_engine(np_params, kv_dtype="int8", multistep_max_k=8)
-    out["default"].update(fused=asyncio.run(serve(fused, mixed_batch(False))), k=fused)
+    out["default"].update(fused=asyncio.run(
+        asyncio.wait_for(serve(fused, mixed_batch(False)), RUN_S)
+    ), k=fused)
     return out
 
 

@@ -42,6 +42,7 @@ import dynamo_tpu_torch.runtime.faults as faults
 import dynamo_tpu_torch.runtime.metrics as metrics
 
 WAIT_S = 30
+RUN_S = 180  # bound on any one asyncio.run: a hang fails its test, not the run
 PKGS = {
     "jax": SimpleNamespace(m=jax_mocker, c=jax_common, e=jax_engine, f=jax_faults,
                            metrics=jax_metrics, echo=jax_echo, emb=jax_embedding),
@@ -91,7 +92,7 @@ def fpm(engine) -> dict:
 
 def both(scenario):
     """``scenario(pkg)`` run on each package, each on a fresh event loop."""
-    return {name: asyncio.run(scenario(pkg)) for name, pkg in PKGS.items()}
+    return {name: asyncio.run(asyncio.wait_for(scenario(pkg), RUN_S)) for name, pkg in PKGS.items()}
 
 
 # -- the KV manager ---------------------------------------------------------------
@@ -336,7 +337,9 @@ def test_mocker_tick_modes_match_jax(async_dispatch, multistep_k):
 
 def test_mocker_streams_do_not_depend_on_the_tick_mode():
     """Token identity is K- and pipeline-invariant in both packages."""
-    runs = [asyncio.run(_mixed_workload(PKGS["torch"], a, k)) for a, k in ((False, 1), (True, 0))]
+    runs = [asyncio.run(
+        asyncio.wait_for(_mixed_workload(PKGS["torch"], a, k), RUN_S)
+    ) for a, k in ((False, 1), (True, 0))]
     assert [t for t, _, _ in runs[0]["streams"]] == [t for t, _, _ in runs[1]["streams"]]
 
 
@@ -362,7 +365,9 @@ def test_worker_slow_slows_only_the_matching_worker_like_jax():
         inj = pkg.f.injector
         inj.configure(spec)
         try:
-            (slow, a), (fast, b) = asyncio.run(timed(pkg, 3)), asyncio.run(timed(pkg, 1))
+            (slow, a), (fast, b) = asyncio.run(
+                asyncio.wait_for(timed(pkg, 3), RUN_S)
+            ), asyncio.run(asyncio.wait_for(timed(pkg, 1), RUN_S))
             return slow, fast, a, b, inj.fire_count("worker.slow")
         finally:
             inj.disable()
@@ -425,8 +430,8 @@ def test_echo_engine_matches_jax():
 @pytest.mark.parametrize("dim", [8, 32, 100])
 def test_fake_embedder_matches_jax(dim):
     batches = [[1, 2, 3], [], [7] * 40, [123456789]]
-    got = asyncio.run(embedding.fake_embedder(dim)(batches))
-    want = asyncio.run(jax_embedding.fake_embedder(dim)(batches))
+    got = asyncio.run(asyncio.wait_for(embedding.fake_embedder(dim)(batches), RUN_S))
+    want = asyncio.run(asyncio.wait_for(jax_embedding.fake_embedder(dim)(batches), RUN_S))
     assert got == want
     for v in got:
         assert len(v) == dim and abs(sum(x * x for x in v) - 1.0) < 1e-9

@@ -58,6 +58,7 @@ ENGINE = dict(
     mixed_token_budget=16,
 )
 WAIT_S = 60
+RUN_S = 180  # bound on any one asyncio.run: a hang fails its test, not the run
 CONFIGS = {
     "mixed": dict(prefill_chunk_tokens=8),
     "classic": dict(mixed_batching=False, prefill_chunk_tokens=8),
@@ -233,8 +234,10 @@ def test_mm_streams_match_jax(weights, config):
     kw = CONFIGS[config]
     reqs = mm_workload()
     eng = torch_engine(np_params, **kw)
-    port = asyncio.run(serve(eng, reqs))
-    ref = asyncio.run(serve(JaxEngine(jcfg, jparams, JaxEngineConfig(**ENGINE, **kw)), reqs))
+    port = asyncio.run(asyncio.wait_for(serve(eng, reqs), RUN_S))
+    ref = asyncio.run(
+        asyncio.wait_for(serve(JaxEngine(jcfg, jparams, JaxEngineConfig(**ENGINE, **kw)), reqs), RUN_S)
+    )
     assert port == ref
     assert [len(t) for t in port] == [10, 8, 9, 7]
     assert eng.dispatches["prefill"] >= 1
@@ -248,10 +251,10 @@ def test_own_embedding_rows_reproduce_the_token_prompt(weights):
     np_params = weights[2]
     prompt = [5, 9, 2, 6, 3, 1]
     eng = torch_engine(np_params)
-    expect = asyncio.run(serve(eng, [request(prompt, 6)]))[0]
+    expect = asyncio.run(asyncio.wait_for(serve(eng, [request(prompt, 6)]), RUN_S))[0]
     rows = np_params["embed"][prompt[:4]]
     eng = torch_engine(np_params)
-    got = asyncio.run(serve(eng, [request(prompt[4:], 6, mm=rows)]))[0]
+    got = asyncio.run(asyncio.wait_for(serve(eng, [request(prompt[4:], 6, mm=rows)]), RUN_S))[0]
     assert got == expect and len(got) == 6
 
 
@@ -271,10 +274,10 @@ def test_images_share_no_prefix(weights):
         finally:
             await eng.stop()
 
-    got = asyncio.run(both())
+    got = asyncio.run(asyncio.wait_for(both(), RUN_S))
     assert eng.metrics().gpu_prefix_cache_hit_rate == 0.0
     assert eng.kv.allocator.used_pages == 0
-    alone = asyncio.run(serve(torch_engine(np_params), [second]))[0]
+    alone = asyncio.run(asyncio.wait_for(serve(torch_engine(np_params), [second]), RUN_S))[0]
     assert got[1] == alone
     assert got[0] != got[1], "the soft prompt does not reach the trunk"
 
@@ -314,7 +317,9 @@ def test_mm_lane_is_never_chunked_nor_mixed(weights, config, monkeypatch):
 
     monkeypatch.setattr(Scheduler, "form_mixed_chunks", spy)
     eng = torch_engine(np_params, **CONFIGS[config])
-    got = asyncio.run(serve(eng, [request([1, 2], 6, mm=soft_prompts(38, 5))]))[0]
+    got = asyncio.run(
+        asyncio.wait_for(serve(eng, [request([1, 2], 6, mm=soft_prompts(38, 5))]), RUN_S)
+    )[0]
     assert len(got) == 6
     assert eng.dispatches["prefill"] == 1 and "chunk" not in eng.dispatches
     assert eng.prefill_dispatches == {"full": 1, "suffix": 0}

@@ -57,6 +57,7 @@ from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
 from dynamo_tpu_torch.tokens.sequence import TokenBlockSequence
 
 WAIT_S = 60  # bound on any one served request or batch
+RUN_S = 180  # bound on any one asyncio.run: a hang fails its test, not the run
 PACKAGES = {"jax": joff, "torch": toff}
 PROMPT_A = [3, 1, 4, 1, 5, 9, 2, 6, 5, 3, 5, 8]  # 3 blocks of 4
 PROMPT_B = [7, 7, 7, 7, 8, 8, 8, 8, 6, 6, 6, 6]
@@ -484,12 +485,12 @@ def served(weights, tmp_path_factory):
             "int8": dict(OFFLOAD, async_dispatch=False, kv_dtype="int8"),
         }.items():
             eng = make_engine(pkg, weights, **kw)
-            run[name] = asyncio.run(_roundtrip(eng, disk=False))
+            run[name] = asyncio.run(asyncio.wait_for(_roundtrip(eng, disk=False), RUN_S))
         g3 = str(tmp_path_factory.mktemp(f"g3-{pkg}"))
         eng = make_engine(pkg, weights, **OFFLOAD | dict(
             host_offload_blocks=1, disk_offload_blocks=16, disk_offload_dir=g3,
             async_dispatch=False))
-        run["disk"] = asyncio.run(_roundtrip(eng, disk=True))
+        run["disk"] = asyncio.run(asyncio.wait_for(_roundtrip(eng, disk=True), RUN_S))
         run["g3_dir"], run["g3_index"] = g3, list(eng.offload.parent._lru)
         for name, (swap, pages, extra) in {
             "roomy": (True, 41, {}),
@@ -503,7 +504,7 @@ def served(weights, tmp_path_factory):
             eng = make_engine(pkg, weights, **(_pressure_kw(swap, pages) | cfg_kw))
             for attr, v in extra.items():
                 setattr(eng.offload_engine, attr, v)
-            run[name] = asyncio.run(_pressure(eng))
+            run[name] = asyncio.run(asyncio.wait_for(_pressure(eng), RUN_S))
         out[pkg] = run
     return out
 
@@ -625,7 +626,7 @@ def test_g3_directory_crosses_engines(served, weights):
             finally:
                 await eng.stop()
 
-        got, hits = asyncio.run(body())
+        got, hits = asyncio.run(asyncio.wait_for(body(), RUN_S))
         assert got == src["disk"]["first"]
         assert hits > 0, f"{reader} onboarded nothing from {writer}'s G3"
 

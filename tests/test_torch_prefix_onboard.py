@@ -54,6 +54,7 @@ from dynamo_tpu_torch.runtime.transports.hub import HubServer
 from dynamo_tpu_torch.tokens.hashing import hash_blocks
 
 WAIT_S = 60  # bound on any one stream, export or onboard
+RUN_S = 180  # bound on any one asyncio.run: a hang fails its test, not the run
 ENGINE = dict(max_batch_size=2, max_seq_len=64, page_size=4, num_pages=17, async_dispatch=False)
 PROMPT = [7, 3, 7, 3, 5, 5, 9, 1, 2, 8, 4, 6]  # 3 blocks of 4; 2 onboard
 MAX_TOKENS = 6
@@ -184,7 +185,9 @@ async def _export(pkg, weights, root) -> dict:
 @pytest.fixture(scope="module")
 def exports(weights, tmp_path_factory):
     return {
-        pkg: asyncio.run(_export(pkg, weights, str(tmp_path_factory.mktemp(f"g3-{pkg}"))))
+        pkg: asyncio.run(
+            asyncio.wait_for(_export(pkg, weights, str(tmp_path_factory.mktemp(f"g3-{pkg}"))), RUN_S)
+        )
         for pkg in ("jax", "torch")
     }
 
@@ -275,7 +278,7 @@ async def _cross(weights) -> dict:
 
 @pytest.fixture(scope="module")
 def cross(weights):
-    return asyncio.run(_cross(weights))
+    return asyncio.run(asyncio.wait_for(_cross(weights), RUN_S))
 
 
 @pytest.mark.parametrize("donor, importer", PAIRS, ids=[f"{d}-to-{m}" for d, m in PAIRS])
@@ -307,8 +310,8 @@ def test_onboarding_donor_failure_recomputes(weights):
                 await engine.stop()
                 await rt.shutdown()
 
-    tokens, failed, onboarded = asyncio.run(body())
-    assert tokens == asyncio.run(_plain_port(weights))
+    tokens, failed, onboarded = asyncio.run(asyncio.wait_for(body(), RUN_S))
+    assert tokens == asyncio.run(asyncio.wait_for(_plain_port(weights), RUN_S))
     assert failed == 1 and onboarded == 0
 
 
@@ -364,7 +367,9 @@ def test_legacy_one_frame_donor_is_read(weights):
                 await drt.shutdown()
                 await irt.shutdown()
 
-    expect, tokens, onboarded, failed, donor_pages, pages = asyncio.run(body())
+    expect, tokens, onboarded, failed, donor_pages, pages = asyncio.run(
+        asyncio.wait_for(body(), RUN_S)
+    )
     assert tokens == expect
     assert onboarded == 2 and failed == 0
     assert pages == donor_pages

@@ -43,6 +43,7 @@ from tests.test_torch_async import collect
 
 ENGINE = dict(max_batch_size=4, max_seq_len=64, page_size=4, num_pages=64)
 WAIT_S = 60  # bound on any one served batch
+RUN_S = 180  # bound on any one asyncio.run: a hang fails its test, not the run
 # the serial loop's configs the tick-by-tick comparison serves
 TICK_CONFIGS = {
     "classic": dict(mixed_batching=False, prefill_chunk_tokens=8),
@@ -138,11 +139,13 @@ def ticked(weights):
     for name, kw in TICK_CONFIGS.items():
         kw = dict(kw, async_dispatch=False)
         with Armed(mp, occupancy=None):
-            jstreams = asyncio.run(serve(jax_engine(weights, **kw), workload()))
+            jstreams = asyncio.run(
+                asyncio.wait_for(serve(jax_engine(weights, **kw), workload()), RUN_S)
+            )
             jrecs = jax_profiling.profiler.records()
         with Armed(mp, occupancy=None):
             eng = torch_engine(weights, **kw)
-            tstreams = asyncio.run(serve(eng, workload()))
+            tstreams = asyncio.run(asyncio.wait_for(serve(eng, workload()), RUN_S))
             trecs = profiling.profiler.records()
         out[name] = dict(jax=(jstreams, jrecs), port=(tstreams, trecs, eng))
     return out
@@ -260,7 +263,7 @@ def grammar_case(engine_of, monkeypatch, value, **kw):
         ceiling = eng._multistep_max if isinstance(eng, JaxEngine) else eng._ms_max
         return eng._multistep, fixed, ceiling
     finally:
-        asyncio.run(eng.stop())
+        asyncio.run(asyncio.wait_for(eng.stop(), RUN_S))
 
 
 @pytest.mark.parametrize(
@@ -325,7 +328,7 @@ def test_multistep_k_sequences_equal_jax(weights, monkeypatch, value, occupancy)
         with Armed(pytest.MonkeyPatch(), occupancy=occupancy):
             eng = make(weights, async_dispatch=False)
             seq = by_k_spy(eng)
-            runs[pkg] = (asyncio.run(serve(eng, reqs)), seq)
+            runs[pkg] = (asyncio.run(asyncio.wait_for(serve(eng, reqs), RUN_S)), seq)
     assert runs["port"] == runs["jax"]
     streams, seq = runs["port"]
     assert all(len(t) == 24 for t, _ in streams)
@@ -444,7 +447,7 @@ def test_engine_provider_state_matches_jax(recorders, weights):
             finally:
                 await eng.stop()
 
-        states.append(asyncio.run(body()))
+        states.append(asyncio.run(asyncio.wait_for(body(), RUN_S)))
         assert "engine" not in fr.get(fr.snapshot("after_stop"))["state"]
     assert states[0] == states[1]
     assert states[0]["engine"]["tokens_generated"] == 2 * 10
@@ -468,7 +471,7 @@ def test_device_trace_on_the_cpu(tmp_path):
         second = await profiling.capture_device_trace(0.01, str(tmp_path / "b"))
         return await asyncio.wait_for(first, WAIT_S), second
 
-    first, second = asyncio.run(body())
+    first, second = asyncio.run(asyncio.wait_for(body(), RUN_S))
     assert first == {"ok": True, "log_dir": str(tmp_path / "a"), "duration_s": 0.3}
     assert second["ok"] is False and "already running" in second["error"]
     with open(tmp_path / "a" / profiling.DEVICE_TRACE_FILE) as fh:

@@ -54,6 +54,7 @@ from tests.test_torch_spec import collect, request, streams
 ENGINE = dict(max_batch_size=4, max_seq_len=96, page_size=4, num_pages=64,
               mixed_token_budget=16)
 WAIT_S = 60
+RUN_S = 180  # bound on any one asyncio.run: a hang fails its test, not the run
 
 
 def _bits(a) -> np.ndarray:
@@ -177,7 +178,7 @@ def serve(engine, reqs):
         finally:
             await engine.stop()
 
-    return asyncio.run(run())
+    return asyncio.run(asyncio.wait_for(run(), RUN_S))
 
 
 @pytest.mark.parametrize("kw", [{}, dict(mixed_batching=False, prefill_chunk_tokens=8)],

@@ -29,6 +29,7 @@ from dynamo_tpu_torch.runtime import recorder
 from dynamo_tpu_torch.runtime.engine import Annotated, Context, ResponseStream
 
 WAIT_S = 60
+RUN_S = 180  # bound on any one asyncio.run: a hang fails its test, not the run
 
 
 def req(tokens, max_tokens=6) -> dict:
@@ -100,7 +101,7 @@ def test_a_port_recording_replays_in_jax(tmp_path):
             await replay.generate(JaxContext.new(req([0])))
         return live, got
 
-    live, got = asyncio.run(body())
+    live, got = asyncio.run(asyncio.wait_for(body(), RUN_S))
     assert got == live
     assert sum(len((d.get("data") or {}).get("token_ids") or []) for d in live[0]) == 5
     assert live[2][0].get("event") == "error"
@@ -126,7 +127,7 @@ def test_a_jax_recording_replays_in_the_port(tmp_path):
         await drain(await timed.generate(Context.new(req([0]))))
         return live, got, time.monotonic() - t0
 
-    live, got, timed_s = asyncio.run(body())
+    live, got, timed_s = asyncio.run(asyncio.wait_for(body(), RUN_S))
     assert got == live
     assert [t for d in live[0] for t in (d.get("data") or {}).get("token_ids") or []] == [5, 6, 7]
     assert timed_s >= 0.05  # three recorded gaps of about 20 ms
@@ -151,7 +152,7 @@ def test_both_recorders_write_the_same_lines(tmp_path):
             await drain(await rec.generate(ctx_cls.new(req([1, 2]), "rid-7")))
             await asyncio.to_thread(rec.close)
 
-        asyncio.run(body())
+        asyncio.run(asyncio.wait_for(body(), RUN_S))
         entries.append([
             {k: v for k, v in e.items() if k not in ("ts", "dt")}
             for e in mod.load_recording(path)

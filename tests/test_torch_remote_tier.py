@@ -60,6 +60,7 @@ from dynamo_tpu_torch.runtime.transports.hub import HubServer
 from dynamo_tpu_torch.tokens.sequence import TokenBlockSequence
 
 WAIT_S = 60  # bound on any one served request, onboard or drain
+RUN_S = 180  # bound on any one asyncio.run: a hang fails its test, not the run
 OFFLOAD = dict(max_batch_size=2, max_seq_len=64, page_size=4, num_pages=17,
                host_offload_blocks=32)
 PROMPT = [3, 1, 4, 1, 5, 9, 2, 6, 5, 3, 5, 8]  # 3 blocks of 4
@@ -322,7 +323,7 @@ def jax_tokens(weights):
         finally:
             await engine.stop()
 
-    return asyncio.run(body())
+    return asyncio.run(asyncio.wait_for(body(), RUN_S))
 
 
 async def _published(weights):
@@ -359,7 +360,7 @@ def test_remote_fault_falls_back_to_recompute(weights, jax_tokens, injector, sit
         finally:
             await c.stop()
 
-    asyncio.run(body())
+    asyncio.run(asyncio.wait_for(body(), RUN_S))
 
 
 def test_remote_onboard_happy_path_reuses_prefix(weights, jax_tokens, injector):
@@ -381,7 +382,7 @@ def test_remote_onboard_happy_path_reuses_prefix(weights, jax_tokens, injector):
         finally:
             await c.stop()
 
-    asyncio.run(body())
+    asyncio.run(asyncio.wait_for(body(), RUN_S))
 
 
 # ---------------------------------------------------------------------------
@@ -436,7 +437,9 @@ def test_g4_crosses_packages_over_the_hub(weights, jax_tokens, publisher, import
                 await conn.close()
             await server.stop()
 
-    first, tokens, onboarded, failed, frames, pages, reused = asyncio.run(body())
+    first, tokens, onboarded, failed, frames, pages, reused = asyncio.run(
+        asyncio.wait_for(body(), RUN_S)
+    )
     assert first == tokens == jax_tokens
     assert onboarded == len(frames) and failed == 0
     for frame, page in zip(frames, pages):

@@ -53,6 +53,7 @@ ENGINE = dict(
 )
 SHARED = [(7 * i + 3) % 250 + 1 for i in range(12)]  # three whole pages
 WAIT_S = 60
+RUN_S = 180  # bound on any one asyncio.run: a hang fails its test, not the run
 CONFIGS = {
     "mixed": {},
     "classic": dict(mixed_batching=False, prefill_chunk_tokens=8),
@@ -230,15 +231,17 @@ def served(weights):
         for name, kw in CONFIGS.items():
             reqs = workload()
             eng = torch_engine(np_params, **kw)
-            port = asyncio.run(serve(eng, reqs))
+            port = asyncio.run(asyncio.wait_for(serve(eng, reqs), RUN_S))
             jeng = JaxEngine(jcfg, jparams, JaxEngineConfig(**ENGINE, **kw))
-            ref = asyncio.run(serve(jeng, reqs))
+            ref = asyncio.run(asyncio.wait_for(serve(jeng, reqs), RUN_S))
             out[name] = dict(port=port, ref=ref, engine=eng, reqs=reqs)
         reqs = workload()
         eng = torch_engine(np_params)
         mp.setattr(engine_mod, "_handles_ready", lambda res: False)
         out["not-ready"] = dict(
-            port=asyncio.run(serve(eng, reqs)), ref=out["mixed"]["ref"], engine=eng,
+            port=asyncio.run(
+                asyncio.wait_for(serve(eng, reqs), RUN_S)
+            ), ref=out["mixed"]["ref"], engine=eng,
             reqs=reqs,
         )
     finally:
@@ -281,10 +284,12 @@ def test_preempted_lane_sends_prompt_logprobs_once(weights):
             await engine.stop()
 
     tight = torch_engine(np_params, num_pages=17, async_dispatch=False)
-    got = asyncio.run(run(tight))
+    got = asyncio.run(asyncio.wait_for(run(tight), RUN_S))
     assert tight.sched.preempt_recompute > 0
     assert tight.dispatches["prompt_score"] == 2
-    ref = asyncio.run(run(JaxEngine(jcfg, jparams, JaxEngineConfig(**ENGINE))))
+    ref = asyncio.run(
+        asyncio.wait_for(run(JaxEngine(jcfg, jparams, JaxEngineConfig(**ENGINE))), RUN_S)
+    )
     for g, r, req in zip(got, ref, reqs):
         assert g["tokens"] == r["tokens"]
         assert len(g["plp"]) == 1
@@ -336,4 +341,4 @@ def test_pipeline_waits_for_the_scoring_rows(weights):
     ev.waited = False
     eng._commit_all([pf])  # the lane holds no slot: nothing commits
     assert ev.waited
-    asyncio.run(eng.stop())
+    asyncio.run(asyncio.wait_for(eng.stop(), RUN_S))

@@ -32,6 +32,7 @@ from dynamo_tpu_torch.runtime import slo
 from tests.test_torch_async import collect
 
 WAIT_S = 60
+RUN_S = 180  # bound on any one asyncio.run: a hang fails its test, not the run
 
 
 def slo_samples(registry) -> dict:
@@ -193,7 +194,7 @@ def test_engine_notes_the_first_token_split(trackers):
         finally:
             await eng.stop()
 
-    asyncio.run(body())
+    asyncio.run(asyncio.wait_for(body(), RUN_S))
     splits = [tracker.split(f"q{i}") for i in range(3)]
     assert all(s is not None and s[0] >= 0.0 and s[1] >= 0.0 for s in splits)
     assert len(tracker._splits) == 3

@@ -62,6 +62,7 @@ ENGINE = dict(
     mixed_token_budget=16,
 )
 WAIT_S = 60
+RUN_S = 180  # bound on any one asyncio.run: a hang fails its test, not the run
 CFG = dict(num_layers=2)
 PAGE, N, P = 8, 40, 8  # the step tests' page size, pool pages, table width
 
@@ -156,7 +157,7 @@ def serve(engine, reqs, timeout=WAIT_S):
         finally:
             await engine.stop()
 
-    return asyncio.run(run())
+    return asyncio.run(asyncio.wait_for(run(), RUN_S))
 
 
 # -- the drafter copy -----------------------------------------------------------
@@ -719,7 +720,7 @@ def test_usage_speculation_and_metrics_over_http(model_dir):
         got, metrics = await post(*torch_service(stack, {}), extra, scrape=True)
         return plain, ref, got, metrics
 
-    plain, ref, got, metrics = asyncio.run(all_three())
+    plain, ref, got, metrics = asyncio.run(asyncio.wait_for(all_three(), RUN_S))
     text = plain["choices"][0]["text"]
     assert got["choices"][0]["text"] == ref["choices"][0]["text"] == text
     assert "speculation" not in plain["usage"]

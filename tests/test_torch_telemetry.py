@@ -46,6 +46,7 @@ from dynamo_tpu_torch.runtime.engine import Context
 from dynamo_tpu_torch.runtime.transports.hub import HubServer
 
 WAIT_S = 30
+RUN_S = 180  # bound on any one asyncio.run: a hang fails its test, not the run
 
 
 def full_snapshot(mod):
@@ -159,7 +160,7 @@ def test_jax_observatory_fits_the_port_mockers_link_within_20pct():
         finally:
             await engine.stop()
 
-    asyncio.run(drive())
+    asyncio.run(asyncio.wait_for(drive(), RUN_S))
     for blob in wire:
         obs.ingest(jax_telemetry.TelemetrySnapshot.decode(blob.encode()))
     pred = obs.predict_transfer_ms(1_000_000, 1, 5)
@@ -242,7 +243,7 @@ def test_prefill_worker_records_its_wire_delivery():
                 await rt.shutdown()
             await hub.stop()
 
-    rows, snap, wall, src, dst = asyncio.run(body())
+    rows, snap, wall, src, dst = asyncio.run(asyncio.wait_for(body(), RUN_S))
     assert len(rows) == 1
     (t,) = snap.transfers
     assert (t["src"], t["dst"], t["bytes"]) == (src, dst, rows[0]["bytes"])
@@ -284,7 +285,7 @@ def test_mocker_worker_publishes_telemetry_on_the_hub(monkeypatch):
 
     identity = metrics.worker_identity()
     try:
-        lease, payload, stamped = asyncio.run(body())
+        lease, payload, stamped = asyncio.run(asyncio.wait_for(body(), RUN_S))
     finally:
         metrics.default_registry().set_default_labels(**identity)
     blob = payload if isinstance(payload, bytes) else json.dumps(payload).encode()

@@ -1,6 +1,6 @@
 """The port's pure-Python tokenizer against the Rust ``tokenizers`` core.
 
-Three ``tokenizer.json`` files: the ``model_dir`` fixture's (a trained
+Byte-level BPE: three ``tokenizer.json`` files, the ``model_dir`` fixture's (a trained
 byte-level BPE with ``<unk>``/``<s>``/``</s>`` specials), a Llama-3 shaped
 one built here (``Sequence[Split(pattern, Isolated),
 ByteLevel(use_regex=False)]``, ``ignore_merges``, merges written as
@@ -10,14 +10,29 @@ ByteLevel's prefix space, ``"a b"`` merges and added tokens with
 ``lstrip``/``rstrip``/``single_word``.  For every text of a fixed corpus and of a
 ``hypothesis`` strategy, encode ids, decode (with and without
 ``skip_special_tokens``) and the ``DecodeStream`` deltas, token by token,
-must be equal exactly.  An unsupported component raises
-``TokenizerError``.
+must be equal exactly.
+
+SentencePiece-style BPE (Llama 2, Mistral, Mixtral): a BPE made here,
+its vocabulary laid out as those models' is (``<unk>``, ``<s>``, ``</s>``,
+then the 256 ``<0xNN>`` byte tokens) with ``byte_fallback`` and
+``fuse_unk``, a ``<s>`` template, and a small alphabet so that other text
+falls back to bytes; written in the
+older form (normalizer ``Sequence[Prepend("▁"), Replace(" ", "▁")]``, no
+pre-tokenizer, decoder ``Sequence[Replace("▁", " "), ByteFallback, Fuse,
+Strip(" ", 1, 0)]``) and in the newer one (pre-tokenizer and decoder
+``Metaspace`` under each ``prepend_scheme``).  Encode, decode and the
+stream are held to the Rust core the same way, where a stream that the
+Rust core refuses (a byte run that rewrites its prefix) must be refused
+too.
+
+An unsupported component raises ``TokenizerError``.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import string
 
 import pytest
 from hypothesis import HealthCheck, example, given, settings
@@ -292,15 +307,188 @@ def test_translated_classes():
     assert not re.fullmatch(translate_pattern(r"\s"), "\x1c")
 
 
+# -- the SentencePiece-style family ------------------------------------------
+
+SP_FORMS = ["legacy", "first", "always", "never"]
+
+
+def sentencepiece_json(form: str) -> str:
+    """A SentencePiece-style ``tokenizer.json``: ``legacy`` is the older
+    form, the others the newer form under that ``prepend_scheme``.  Made
+    by hand, so every call gives the same file: the specials, the 256
+    byte tokens, ``▁`` and a small alphabet (letters, digits and a little
+    punctuation: anything else falls back to bytes), then each corpus
+    word merged character by character."""
+    specials = ("<unk>", "<s>", "</s>")
+    vocab = {s: i for i, s in enumerate(specials)}
+    for b in range(256):
+        vocab[f"<0x{b:02X}>"] = len(vocab)
+    alphabet = ["\u2581"] + sorted(set(string.ascii_letters + string.digits + ".,!?'"))
+    for c in alphabet:
+        vocab[c] = len(vocab)
+    merges = []
+    for text in CORPUS:
+        for word in text.split():
+            w = "\u2581" + word
+            if not set(w) <= set(alphabet):
+                continue
+            for k in range(1, len(w)):
+                a, b = w[:k], w[k]
+                if a + b not in vocab:
+                    merges.append([a, b])
+                    vocab[a + b] = len(vocab)
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": True, "byte_fallback": True, "ignore_merges": False,
+                  "vocab": vocab, "merges": merges},
+    }
+    spec["added_tokens"] = [
+        {"id": vocab[s], "content": s, "single_word": False, "lstrip": False,
+         "rstrip": False, "normalized": False, "special": True}
+        for s in specials
+    ]
+    bos = {"SpecialToken": {"id": "<s>", "type_id": 0}}
+    spec["post_processor"] = {
+        "type": "TemplateProcessing",
+        "single": [bos, {"Sequence": {"id": "A", "type_id": 0}}],
+        "pair": [bos, {"Sequence": {"id": "A", "type_id": 0}}, bos,
+                 {"Sequence": {"id": "B", "type_id": 1}}],
+        "special_tokens": {"<s>": {"id": "<s>", "ids": [1], "tokens": ["<s>"]}},
+    }
+    if form == "legacy":
+        spec["normalizer"] = {"type": "Sequence", "normalizers": [
+            {"type": "Prepend", "prepend": "\u2581"},
+            {"type": "Replace", "pattern": {"String": " "}, "content": "\u2581"},
+        ]}
+        spec["pre_tokenizer"] = None
+        spec["decoder"] = {"type": "Sequence", "decoders": [
+            {"type": "Replace", "pattern": {"String": "\u2581"}, "content": " "},
+            {"type": "ByteFallback"},
+            {"type": "Fuse"},
+            {"type": "Strip", "content": " ", "start": 1, "stop": 0},
+        ]}
+    else:
+        meta = {"type": "Metaspace", "replacement": "\u2581", "prepend_scheme": form,
+                "split": True}
+        spec["normalizer"] = None
+        spec["pre_tokenizer"] = meta
+        spec["decoder"] = meta
+    return json.dumps(spec)
+
+
+@pytest.fixture(scope="module")
+def sp_pairs():
+    """(HF tokenizer, port tokenizer) for each SentencePiece-style form."""
+    return {
+        form: (HFTokenizer.from_str(sentencepiece_json(form)),
+               Tokenizer.from_str(sentencepiece_json(form)))
+        for form in SP_FORMS
+    }
+
+
+def _stream_step(step):
+    """A stream step's delta, or the marker that it refused."""
+    try:
+        return step()
+    except Exception:
+        return "<refused>"
+
+
+def _check_sp(hf: HFTokenizer, mine: Tokenizer, text: str, ids=None) -> None:
+    """As ``_check``, for ids that may not form text (byte runs cut
+    short): where the Rust stream refuses a step, the port's refuses too,
+    and both streams end there."""
+    if ids is None:
+        for add in (True, False):
+            ids = hf.encode(text, add_special_tokens=add).ids
+            assert mine.encode(text, add_special_tokens=add) == ids, (text, add)
+    for skip in (True, False):
+        assert mine.decode(ids, skip_special_tokens=skip) == hf.decode(
+            ids, skip_special_tokens=skip
+        ), (text, ids, skip)
+        ref = HFDecodeStream(skip_special_tokens=skip)
+        got = mine.decode_stream(skip_special_tokens=skip)
+        for tid in ids:
+            want = _stream_step(lambda: ref.step(hf, tid))
+            assert _stream_step(lambda: got.step(tid)) == want, (text, ids, skip, tid)
+            if want == "<refused>":
+                break
+
+
+SP_CORPUS = CORPUS + [
+    "a<s>b </s> c",
+    "  two  spaces ",
+    "héllo wörld 😀",
+    "<unk>z and ß",
+    "\u2581already\u2581metaspaced",
+]
+
+
+@pytest.mark.parametrize("form", SP_FORMS)
+def test_sentencepiece_corpus_matches_hf(sp_pairs, form):
+    hf, mine = sp_pairs[form]
+    assert mine.vocab_size == hf.get_vocab_size()
+    for text in SP_CORPUS:
+        _check_sp(hf, mine, text)
+    # byte fallback fires: a character outside the alphabet is its bytes
+    assert mine.encode("😀", add_special_tokens=False)[-4:] == [
+        3 + b for b in "😀".encode("utf-8")
+    ]
+
+
+@pytest.mark.parametrize("form", SP_FORMS)
+def test_sentencepiece_random_text_matches_hf(sp_pairs, form):
+    hf, mine = sp_pairs[form]
+
+    @settings(max_examples=150, deadline=None,
+              suppress_health_check=[HealthCheck.too_slow])
+    @given(st.lists(ALPHABET, max_size=40).map("".join))
+    def check(text):
+        _check_sp(hf, mine, text)
+
+    check()
+
+
+@pytest.mark.parametrize("form", SP_FORMS)
+def test_sentencepiece_random_ids_decode_like_hf(sp_pairs, form):
+    """Any id sequence, byte tokens that form no character included."""
+    hf, mine = sp_pairs[form]
+    n = hf.get_vocab_size()
+
+    @settings(max_examples=150, deadline=None)
+    @given(st.lists(st.one_of(st.integers(0, n + 5), st.integers(3, 258)), max_size=30))
+    def check(ids):
+        _check_sp(hf, mine, "", ids)
+
+    check()
+
+
+def test_sentencepiece_long_text_merges_fast(sp_pairs):
+    """The older form hands the BPE model the whole text as one word: a
+    prompt of thousands of characters must still encode as the Rust core
+    does, and in well under a second."""
+    import time
+
+    hf, mine = sp_pairs["legacy"]
+    text = " ".join(CORPUS[:10]) * 12
+    t0 = time.perf_counter()
+    ids = mine.encode(text)
+    assert time.perf_counter() - t0 < 2.0
+    assert ids == hf.encode(text).ids
+
+
 @pytest.mark.parametrize(
     "edit, name",
     [
         (lambda s: s.__setitem__("normalizer", {"type": "NFKC"}), "NFKC"),
-        (lambda s: s.__setitem__("pre_tokenizer", {"type": "Metaspace", "replacement": "▁"}), "Metaspace"),
-        (lambda s: s["model"].__setitem__("byte_fallback", True), "byte_fallback"),
+        (lambda s: s.__setitem__("pre_tokenizer", {"type": "Metaspace", "replacement": "▁",
+                                                   "prepend_scheme": "sometimes"}), "Metaspace"),
+        (lambda s: s["model"].__setitem__("byte_fallback", "yes"), "byte_fallback"),
         (lambda s: s["model"].__setitem__("type", "WordPiece"), "WordPiece"),
         (lambda s: s["model"].__setitem__("type", "Unigram"), "Unigram"),
-        (lambda s: s.__setitem__("decoder", {"type": "Metaspace"}), "Metaspace"),
+        (lambda s: s.__setitem__("decoder", {"type": "Metaspace", "replacement": "▁▁"}), "Metaspace"),
         (lambda s: s.__setitem__("post_processor", {"type": "BertProcessing"}), "BertProcessing"),
     ],
 )
