@@ -428,7 +428,7 @@ import subprocess
 import sys
 import time
 import zlib
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -4533,12 +4533,279 @@ def planner_cli(ckpt, card: str) -> float:
     return time.perf_counter() - t0
 
 
+# -- serve-admit: KV-budget admission at router blocks of 4 pages ----------------
+
+# the engine of (b): 16-token pages, 64-token router blocks (4 pages a
+# block), 256 pages (512 MiB of Llama-3-8B KV), admission against
+# int(255 * 0.9) = 229 predicted pages with a 0.5 s fairness floor
+ADMIT_ENGINE = dict(page_size=16, block_size=64, num_pages=256,
+                    kv_admit_budget="util=0.9,floor_s=0.5,skips=4")
+# (a)'s small f32 model: the same shape of traffic on a pool tight enough
+# that admission blocks
+ADMIT_SMALL = dict(num_pages=24, mixed_token_budget=32, max_seq_len=256, page_size=16,
+                   block_size=64, kv_admit_budget="util=0.9,floor_s=0.5,skips=4")
+
+
+def admit_requests(vocab: int, short_len=(150, 251), short_new=256, long_len=1900,
+                   long_new=64, shared=128) -> Tuple[List[dict], int]:
+    """12 shorts (prompts of 150 to 250 tokens that open with one
+    ``shared``-token system prompt, 256 new tokens each) and one long
+    request (1900 prompt tokens, 64 new) queued after the first six shorts,
+    all greedy with top-2 logprobs.  Returns the requests and the long
+    one's index."""
+    rng = np.random.default_rng(21)
+    system = rng.integers(1, vocab, shared)
+    shorts = [request(np.concatenate([system, rng.integers(1, vocab, int(n) - shared)]),
+                      short_new, logprobs=2)
+              for n in rng.integers(*short_len, 12)]
+    long = request(rng.integers(1, vocab, long_len), long_new, logprobs=2)
+    return shorts[:6] + [long] + shorts[6:], 6
+
+
+async def admit_serve(engine, rounds: List[List[dict]]) -> List[dict]:
+    """Serve each round's requests, enqueued in list order, the rounds one
+    after the other; per request: tokens, finish reason, top logprobs,
+    TTFT, and its admission (the start of the planning pass that admitted
+    it, and its cached prompt tokens), read by wrapping the scheduler's
+    planner and admission on this engine."""
+    from dynamo_tpu_torch.protocols.common import PreprocessedRequest
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    sched = engine.sched
+    admitted: Dict[str, Tuple[float, int, float]] = {}
+    pass_t = [0.0]
+    plan, try_admit = sched.plan, sched._try_admit
+
+    def timed_plan():
+        pass_t[0] = time.monotonic()
+        return plan()
+
+    def record(seq, tick_plan, slot):
+        ok = try_admit(seq, tick_plan, slot)
+        if ok and seq.request_id not in admitted:
+            admitted[seq.request_id] = (pass_t[0], seq.cached_prompt_tokens, seq.arrival_s)
+        return ok
+
+    sched.plan, sched._try_admit = timed_plan, record
+
+    async def read(ctx, stream, t0) -> dict:
+        tokens, top, finish, first = [], [], None, None
+        async for item in stream:
+            if item.is_error():
+                raise RuntimeError(item.error_message())
+            data = item.data or {}
+            got = data.get("token_ids") or []
+            if got and first is None:
+                first = time.perf_counter()
+            tokens += got
+            top += data.get("top_logprobs") or []
+            finish = data.get("finish_reason") or finish
+        return dict(id=ctx.id, tokens=tokens, top=top, finish=finish,
+                    ttft=first - t0 if first else float("nan"), end=time.perf_counter())
+
+    out: List[dict] = []
+    try:
+        for reqs in rounds:
+            t0 = time.perf_counter()
+            started = []
+            for r in reqs:  # enqueued in order: generate() enqueues before it yields
+                ctx = Context.new(PreprocessedRequest.from_dict(r))
+                started.append((ctx, await engine.generate(ctx)))
+            res = await asyncio.gather(*[read(c, s, t0) for c, s in started])
+            wall = max(r["end"] for r in res) - t0
+            for r in res:
+                r["wall"] = wall
+                r["admit_t"], r["cached"], r["arrival"] = admitted.get(r["id"], (None,) * 3)
+            out.append(res)
+    finally:
+        await engine.stop()
+    return out
+
+
+def admit_order_check(what: str, res: List[dict], long_i: int, floor_s: float) -> None:
+    """The long request admits; no short queued behind it is admitted by a
+    planning pass that began after it aged past ``floor_s`` and before the
+    pass that admitted it."""
+    long = res[long_i]
+    if long["admit_t"] is None:
+        fail(f"{what}: the long request was never admitted")
+    arrival = long["arrival"]
+    aged = arrival + floor_s
+    jumped = [i for i, r in enumerate(res[long_i + 1:], long_i + 1)
+              if r["admit_t"] is not None and aged < r["admit_t"] < long["admit_t"]]
+    if jumped:
+        fail(f"{what}: shorts {jumped} admitted past the aged long request "
+             f"(aged at +{floor_s} s, admitted at +{long['admit_t'] - arrival:.3f} s)")
+
+
+def admit_small(ref: Dict[str, object], card: str) -> None:
+    """(a) The small f32 model, card against CPU, at router blocks of 4
+    pages: the admission batch with KV-budget admission on and off, in the
+    pipelined and the serial loop, gives the CPU's greedy streams (the CPU
+    serves it serially with admission off)."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+
+    cfg, params = ref["cfg"], ref["params"]
+    reqs, long_i = admit_requests(cfg.vocab_size, short_len=(70, 91), short_new=48,
+                                  long_len=160, long_new=16, shared=64)
+
+    def run(dev, budget, async_dispatch):
+        kw = dict(ADMIT_SMALL, kv_admit_budget=budget, async_dispatch=async_dispatch)
+        eng = TorchEngine(cfg, params_on(params, dev), EngineConfig(**kw), device=dev)
+        res = asyncio.run(admit_serve(eng, [reqs]))[0]
+        return [r["tokens"] for r in res], eng.sched.admit_blocked
+
+    want, _ = run("cpu", None, False)
+    if [len(t) for t in want] != [r["stop_conditions"]["max_tokens"] for r in reqs]:
+        fail("serve-admit (a): the CPU's streams end early")
+    blocked = {}
+    for budget in (ADMIT_SMALL["kv_admit_budget"], None):
+        for async_dispatch in (True, False):
+            got, blocked[(budget, async_dispatch)] = run("cuda", budget, async_dispatch)
+            if got != want:
+                fail(f"serve-admit (a) admission {budget} async={async_dispatch}: card "
+                     f"streams {got} differ from the CPU's {want}")
+    armed = [n for (b, _a), n in blocked.items() if b is not None]
+    if min(armed) < 1:
+        fail(f"serve-admit (a): admission never blocked the head ({blocked})")
+    print(f"serve-admit: (a) small f32 model at block 64 = 4 pages: {len(reqs)} greedy "
+          f"streams == CPU with admission on and off, pipelined and serial; head blocked "
+          f"{armed} times on {card}")
+
+
+def admit_divergence(run: List[dict], twin: List[dict]) -> str:
+    """Streams equal to the admission-off twin's, and at each first
+    divergence the top-2 logprob gaps of both runs, which must include one
+    within one bf16 step at the logits' magnitude (``onboard_agreement``)."""
+    same, notes = 0, []
+    step = bf16_step(4.85)
+    for i, (a, b) in enumerate(zip(run, twin)):
+        if a["tokens"] == b["tokens"]:
+            same += 1
+            continue
+        j = next((j for j, (x, y) in enumerate(zip(a["tokens"], b["tokens"])) if x != y),
+                 min(len(a["tokens"]), len(b["tokens"])))
+        gaps = []
+        for r in (a, b):
+            t = r["top"][j] if j < len(r["top"]) else None
+            if not t or len(t) < 2:
+                fail(f"serve-admit (b): stream {i} has no top-2 logprobs at token {j}")
+            gaps.append(t[0][1] - t[1][1])
+        if min(gaps) > step:
+            fail(f"serve-admit (b): stream {i} leaves the admission-off twin at token {j} "
+                 f"with top-2 gaps {gaps}, above one bf16 step {step}")
+        notes.append(f"stream {i} token {j} gaps {round(gaps[0], 5)}/{round(gaps[1], 5)} "
+                     f"({min(gaps) / step:.1f} steps)")
+    return f"{same} of {len(twin)} streams equal the twin's; first divergences: {notes or 'none'}"
+
+
+def serve_admit_phase(ref: Dict[str, object], params, card: str) -> Dict[str, int]:
+    """serve-admit: KV-budget admission at router blocks of 4 pages.  (a)
+    :func:`admit_small`; (b) Llama-3-8B at full width and depth on
+    serve-kvbm's bf16 weights, ``ADMIT_ENGINE``, pipelined and packed: the
+    admission batch (:func:`admit_requests`), cold and then warm on the
+    same engine.  Every request ends at its ``max_tokens``; the long
+    request is blocked, shorts pass it, and once it ages none passes it
+    until it admits; the launch invariants of kernels 5 and 1 are exact;
+    KV events come in 64-token blocks of 4 pages; the warm round's prompts
+    reuse whole blocks; no page is held after.  The same batch with
+    admission off is reported against it (first divergences within one
+    bf16 step of the top-2 logprobs).  Returns (b)'s launches."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.scheduler import parse_kv_admit_spec
+    from dynamo_tpu_torch.tokens.hashing import hash_blocks
+
+    t0 = time.perf_counter()
+    admit_small(ref, card)
+    cfg = ModelConfig.llama3_8b()
+    reqs, long_i = admit_requests(cfg.vocab_size)
+    floor_s = parse_kv_admit_spec(ADMIT_ENGINE["kv_admit_budget"]).floor_s
+    torch.cuda.reset_peak_memory_stats()
+    engine = TorchEngine(cfg, params, EngineConfig(**ADMIT_ENGINE))
+    events: List[dict] = []
+    engine.kv_event_sink = events.append
+    reset_launches()
+    t1 = time.perf_counter()
+    cold, warm = asyncio.run(admit_serve(engine, [reqs, reqs]))
+    counted = read_launches()
+    check_launch_invariants("serve-admit (b)", engine, counted)
+    for name in ("packed_ragged_attention", "paged_decode_attention"):
+        if counted[name] <= 0:
+            fail(f"serve-admit (b): {name} never launched")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    sched = engine.sched
+    skips, blocked = sched.admit_skips, sched.admit_blocked
+    held = engine.kv.allocator.used_pages
+    ppb = engine.kv.allocator.pages_per_block
+    for what, res in (("cold", cold), ("warm", warm)):
+        for i, (r, q) in enumerate(zip(res, reqs)):
+            want = q["stop_conditions"]["max_tokens"]
+            if len(r["tokens"]) != want or r["finish"] != "length":
+                fail(f"serve-admit (b) {what} request {i}: {len(r['tokens'])} tokens of "
+                     f"{want}, finish {r['finish']}")
+            if not all(0 <= t < cfg.vocab_size for t in r["tokens"]):
+                fail(f"serve-admit (b) {what} request {i}: token out of range")
+    if blocked < 1 or skips < 1:
+        fail(f"serve-admit (b): admit_blocked {blocked}, admit_skips {skips}")
+    admit_order_check("serve-admit (b) cold", cold, long_i, floor_s)
+    stored = {b["sequence_hash"] for e in events if e["type"] == "stored" for b in e["blocks"]}
+    for i, q in enumerate(reqs):
+        want = set(hash_blocks(q["token_ids"], 64)[1])
+        if not want <= stored:
+            fail(f"serve-admit (b): request {i}'s 64-token blocks are not all in the KV "
+                 f"events ({len(want - stored)} of {len(want)} missing)")
+    if ppb != 4 or sched.block_size != 64:
+        fail(f"serve-admit (b): {ppb} pages a block of {sched.block_size} tokens")
+    # the warm round's shorts reuse at least the system prompt's two blocks
+    cached = [r["cached"] for r in warm]
+    if any(c is None or c % 64 for c in cached) or min(
+            c for i, c in enumerate(cached) if i != long_i) < 128:
+        fail(f"serve-admit (b): the warm round's cached prompt tokens {cached}")
+    if held:
+        fail(f"serve-admit (b): {held} pages still held after the phase")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    twin_engine = TorchEngine(cfg, params, EngineConfig(**dict(ADMIT_ENGINE, kv_admit_budget=None)))
+    twin = asyncio.run(admit_serve(twin_engine, [reqs]))[0]
+    del twin_engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    agreement = admit_divergence(cold, twin)
+
+    def tok_s(res):
+        return sum(len(r["tokens"]) for r in res) / res[0]["wall"]
+
+    def ttft(res, idx):
+        return [round(res[i]["ttft"] * 1e3, 3) for i in idx]
+
+    shorts = [i for i in range(len(reqs)) if i != long_i]
+    long_wait = cold[long_i]["admit_t"] - cold[long_i]["arrival"]
+    print(f"serve-admit: (b) Llama-3-8B bf16, block 64 = {ppb} pages, {sched.allocator.num_pages}"
+          f" pages, budget {ADMIT_ENGINE['kv_admit_budget']}: admit_skips={skips} "
+          f"admit_blocked={blocked}; the long request admitted after {long_wait:.3f} s; "
+          f"cold tok_s={tok_s(cold):.3f} warm tok_s={tok_s(warm):.3f}; TTFT ms long "
+          f"cold {ttft(cold, [long_i])} warm {ttft(warm, [long_i])}, shorts cold "
+          f"{ttft(cold, shorts)} warm {ttft(warm, shorts)}; warm cached prompt tokens "
+          f"{cached}; {len(stored)} 64-token blocks stored; peak_mem_gib={peak:.3f}; "
+          f"{time.perf_counter() - t1:.3f} s on {card}")
+    print(f"serve-admit: (b) against admission off: {agreement}")
+    print(f"serve-admit: launches of kernels 5 and 1 {{'packed_ragged_attention': "
+          f"{counted['packed_ragged_attention']}, 'paged_decode_attention': "
+          f"{counted['paged_decode_attention']}}}; phase {time.perf_counter() - t0:.3f} s "
+          f"on {card}")
+    return counted
+
+
 def serve_kvbm_phase(ref: Dict[str, object], served: Dict[str, object], card: str
                      ) -> Dict[str, object]:
     """serve-kvbm: (a) ``kvbm_reference``, then at Llama-3-8B width from
     random bf16 weights of seed 0: (b) ``kvbm_tiers``, (c) ``kvbm_swap``,
-    (d) ``kvbm_int8``; then serve-chaos and serve-planner (a) and (b) on
-    the same weights, whose launches and seconds it returns."""
+    (d) ``kvbm_int8``; then serve-chaos, serve-planner (a) and (b) and
+    serve-admit on the same weights.  Returns serve-planner's launches and
+    seconds, and serve-admit's launches under ``admit``."""
     from dynamo_tpu_torch.engine.config import ModelConfig
     from dynamo_tpu_torch.engine.model import init_params
 
@@ -4550,6 +4817,7 @@ def serve_kvbm_phase(ref: Dict[str, object], served: Dict[str, object], card: st
     kvbm_int8(params, card)
     serve_chaos_phase(params, served, card)
     planner = serve_planner_phase(params, card)
+    planner["admit"] = serve_admit_phase(ref, params, card)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4992,17 +5260,18 @@ def dyn_reference(ref: Dict[str, object], tmp: str) -> None:
           f"the distributed leg within {err:.3e} of embed()")
 
 
-def dyn_requests(vocab: int) -> List[Tuple[int, dict]]:
+def dyn_requests(vocab: int, per_prefix: int = 4, block: int = 16) -> List[Tuple[int, dict]]:
     """(prefix index, request): 4 distinct 1024-token prefixes (64 blocks of
-    16), 4 requests each with suffixes of 16 to 256 tokens -- each request a
-    distinct length in blocks, which names it in the router's hit-rate
-    events --, 32 new tokens, greedy."""
+    16, or 16 of 64), ``per_prefix`` requests each with suffixes of 1 to 16
+    blocks -- each request a distinct length in blocks, which names it in
+    the router's hit-rate events --, 32 new tokens, greedy."""
     rng = np.random.default_rng(12)
     prefixes = [rng.integers(1, vocab, 1024) for _ in range(4)]
-    lengths = rng.permutation(np.arange(1, 17) * 16)
+    n = 4 * per_prefix
+    lengths = rng.permutation(np.arange(1, n + 1) * block)
     # round 1 takes prefixes 0 to 3 in order; round 2's order is shuffled,
     # so that round robin does not happen to follow round 1's placement
-    order = list(range(4)) + (4 + rng.permutation(12)).tolist()
+    order = list(range(4)) + (4 + rng.permutation(n - 4)).tolist()
     out = []
     for k, n in zip(order, lengths):
         p = k % 4
@@ -5010,11 +5279,14 @@ def dyn_requests(vocab: int) -> List[Tuple[int, dict]]:
     return out
 
 
-def dyn_full_width(mode: str, tok_dir: str, card: str) -> Dict[str, object]:
-    """serve-dyn (b) under one router mode: two fresh Llama-3-8B workers,
+def dyn_full_width(mode: str, tok_dir: str, card: str, block_size: Optional[int] = None,
+                   per_prefix: int = 4) -> Dict[str, object]:
+    """serve-dyn (b) under one router mode: two fresh Llama-3-8B workers
+    (router blocks of ``block_size`` tokens, default their 16-token pages),
     round 1 (one request per prefix), then -- once, under ``kv``, the
-    router's index holds round 1's 4 x 64 prefix blocks -- round 2 (the
-    other 12).  Returns the routing, hit and launch numbers."""
+    router's index holds round 1's prefix blocks -- round 2 (the other
+    requests).  Returns the routing, hit and launch numbers, and the block
+    size the model card names (the router's)."""
     from dynamo_tpu_torch.bench_serving import run_bench
     from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
     from dynamo_tpu_torch.engine.engine import TorchEngine
@@ -5022,10 +5294,11 @@ def dyn_full_width(mode: str, tok_dir: str, card: str) -> Dict[str, object]:
 
     cfg = ModelConfig.llama3_8b()
     torch.cuda.reset_peak_memory_stats()
-    engines = [TorchEngine.random_init(cfg, EngineConfig(num_pages=1024), seed=0)
+    engines = [TorchEngine.random_init(cfg, EngineConfig(num_pages=1024, block_size=block_size),
+                                       seed=0)
                for _ in range(2)]
-    block = engines[0].cfg.page_size
-    traffic = dyn_requests(cfg.vocab_size)
+    block = engines[0].sched.block_size
+    traffic = dyn_requests(cfg.vocab_size, per_prefix, block)
     rounds = [traffic[:4], traffic[4:]]
     out: Dict[str, object] = {}
 
@@ -5067,6 +5340,8 @@ def dyn_full_width(mode: str, tok_dir: str, card: str) -> Dict[str, object]:
                     events.append(await cluster.hit_rate_events(len(rnd)))
             out["wall_s"] = time.perf_counter() - t0
             out["leases"] = [rt.primary_lease for rt in cluster.workers]
+            if mode == "kv":
+                out["card_block"] = cluster.factory.choosers["m"].block_size
             return reports, events
         finally:
             await cluster.stop()
@@ -5107,12 +5382,16 @@ def check_launches_over(what: str, engines, counted: Dict[str, int],
 
 
 def dyn_check_kv(res: Dict[str, object]) -> int:
-    """Under ``kv`` every round-2 request went to the worker that served its
-    prefix in round 1, with at least 64 overlap blocks routed, and that
-    worker's engine counted at least 1024 cached prompt tokens for each.
-    Returns the round-2 prefix-hit blocks."""
+    """Under ``kv`` the model card names the engines' block size, every
+    round-2 request went to the worker that served its prefix in round 1,
+    with at least the prefix's 1024 tokens in overlap blocks routed (64 of
+    16, 16 of 64), and that worker's engine counted at least 1024 cached
+    prompt tokens for each.  Returns the round-2 prefix-hit blocks."""
     block, rounds, events = res["block"], res["rounds"], res["events"]
     leases = res["leases"]
+    if res["card_block"] != block:
+        fail(f"serve-dyn (b) kv: the card's kv_block_size {res['card_block']}, the engines' "
+             f"{block}")
 
     def by_isl(evs, rnd) -> List[Tuple[int, dict]]:
         """(prefix, the request's hit-rate event): a request's length in
@@ -5157,7 +5436,7 @@ def dyn_line(mode: str, res: Dict[str, object], card: str) -> str:
         ttft.append(f"{np.percentile(lat, 50):.3f}/{np.percentile(lat, 99):.3f}")
         toks += sum(r.usage["completion_tokens"] for r in rep.results)
     per_worker = [a + b for a, b in zip(res["routed_0"], res["routed_1"])]
-    return (f"serve-dyn: (b) {mode} requests_per_worker={per_worker} "
+    return (f"serve-dyn: (b) {mode} block={res['block']} requests_per_worker={per_worker} "
             f"round2_per_worker={res['routed_1']} round2_prefix_hit_blocks="
             f"{sum(res['hits_1']) // res['block']} ttft_p50/p99_ms round1={ttft[0]} "
             f"round2={ttft[1]} tok_s={toks / res['wall_s']:.3f} wall_s={res['wall_s']:.3f} "
@@ -5232,6 +5511,16 @@ def serve_dyn_phase(ref: Dict[str, object], card: str, ckpt) -> List[str]:
               f"{kv['index_wait_s']:.3f} s; round-2 cached prompt tokens per worker "
               f"{kv['hits_1']} ({hit_blocks} blocks)")
         print(dyn_line("kv", kv, card))
+        # the block-64 leg: router blocks of 4 pages, 3 requests a prefix
+        t64 = time.perf_counter()
+        kv64 = dyn_full_width("kv", tok_dir, card, block_size=64, per_prefix=3)
+        hit64 = dyn_check_kv(kv64)
+        print(f"serve-dyn: (b) kv block 64: the card's kv_block_size {kv64['card_block']}; "
+              f"every round-2 request went to its prefix's holder with >= 16 overlap blocks "
+              f"of 64; round-2 cached prompt tokens per worker {kv64['hits_1']} ({hit64} "
+              f"blocks of 64); launches {kv64['launches']}; "
+              f"{time.perf_counter() - t64:.3f} s")
+        print(dyn_line("kv block 64", kv64, card))
         rr = dyn_full_width("round_robin", tok_dir, card)
         check = [r for _, r in rr["rounds"][1]]
         print(dyn_line("round_robin", rr, card))
@@ -6907,11 +7196,28 @@ async def mocker_observatory(port: int, addr: str, local, client, slots: Dict[in
 
     what = "serve-mocker (f)"
     t0 = time.perf_counter()
-    # every worker steps (the process mockers did in (d)); then two
-    # telemetry intervals of no traffic: both observatories hold every step
+    # every worker steps (the process mockers did in (d)); for the torch
+    # worker this request is the warm-up of the window's shape (its graph
+    # captures and cold dispatches land here)
     for iid in [i for i in slots if kinds[i] != "mocker"]:
         await stream_traffic(lambda c, iid=iid: PushRouter(client).direct(c, iid),
                              [request(rng.integers(1, 128000, 64), 16)])
+    # once the warm-up's steps are in the series, the torch worker's window
+    # fills with the steps of the same shape warm: one request per
+    # telemetry interval until the window holds only their points
+    await asyncio.sleep(2.5)
+    for tid in [i for i in slots if kinds[i] == "torch"]:
+        for _ in range(local.straggler_window):
+            seen = len((local.worker_series(tid) or {}).get("step_ms", []))
+            await stream_traffic(lambda c, tid=tid: PushRouter(client).direct(c, tid),
+                                 [request(rng.integers(1, 128000, 64), 16)])
+            t1 = time.perf_counter()
+            while len((local.worker_series(tid) or {}).get("step_ms", [])) <= seen:
+                if time.perf_counter() - t1 > 10:
+                    fail(f"{what}: no telemetry step point of the torch worker {tid:x}")
+                await asyncio.sleep(0.05)
+    # then two telemetry intervals of no traffic: both observatories hold
+    # every step
     await asyncio.sleep(2.5)
     status, body = await http_call(port, "GET", "/fleet")
     doc = json.loads(body)
@@ -6919,19 +7225,22 @@ async def mocker_observatory(port: int, addr: str, local, client, slots: Dict[in
     if status != 200 or {i: w["role"] for i, w in rows.items()} != {i: "worker" for i in slots}:
         fail(f"{what}: GET /fleet -> {status}, workers {sorted(rows)} of {sorted(slots)}: "
              f"{body[:500]!r}")
-    means = {}
+    means, windows = {}, {}
     for wid in slots:
         steps = [v for _, v in (local.worker_series(wid) or {}).get("step_ms", [])]
         last = rows[wid]["step_ms"]
         if not steps or last != round(steps[-1], 3):
             fail(f"{what}: worker {wid:x}'s steps {steps[-3:]} here, {last} on /fleet")
         window = steps[-local.straggler_window:]
+        windows[wid] = [round(v, 3) for v in window]
         means[wid] = sum(window) / len(window)
     flagged = straggler_rule(means, local)
     print("serve-mocker: (f) step means ms " + ", ".join(
         f"{kinds[w]} {w:x} {m:.3f}" for w, m in means.items())
         + f"; /fleet stragglers {[kinds[w] for w in doc['stragglers']]} quarantined "
         f"{[kinds[w] for w in doc['quarantined']]} on {card}")
+    print("serve-mocker: (f) the windows' step points ms " + "; ".join(
+        f"{kinds[w]} {w:x} {v}" for w, v in windows.items()) + f" on {card}")
     if flagged != set(local.stragglers) or flagged != set(doc["stragglers"]):
         fail(f"{what}: the rule flags {sorted(flagged)}, this process's observatory "
              f"{local.stragglers}, the front end's {doc['stragglers']} (means {means})")
@@ -7193,10 +7502,54 @@ def moe_small(ref: Dict[str, object], card: str) -> None:
               f"CPU {err:.3e} on {card}")
 
 
+def card_holders(top: int = 6) -> str:
+    """Who holds the card's allocated bytes: the allocator's snapshot by
+    memory pool (a CUDA graph's private pool has a pool id other than (0,
+    0)), and the largest live CUDA tensors the garbage collector reaches,
+    each with the chain of what refers to it (type names, a dict's first
+    keys)."""
+    by_pool: Dict[Tuple[int, int], int] = {}
+    for seg in torch.cuda.memory_snapshot():
+        pool = tuple(seg.get("segment_pool_id", (0, 0)))
+        used = sum(b["size"] for b in seg["blocks"] if b["state"] == "active_allocated")
+        by_pool[pool] = by_pool.get(pool, 0) + used
+    seen, tensors = set(), []
+    for o in gc.get_objects():
+        if isinstance(o, torch.Tensor) and o.is_cuda:
+            ptr = o.untyped_storage().data_ptr()
+            if ptr not in seen:
+                seen.add(ptr)
+                tensors.append(o)
+    tensors.sort(key=lambda t: -t.untyped_storage().nbytes())
+    skip = {id(tensors)}
+
+    def name(o) -> str:
+        if isinstance(o, dict):
+            return f"dict{list(o)[:4]}"
+        return type(o).__qualname__
+
+    rows = []
+    for t in tensors[:top]:
+        chain, o = [], t
+        for _ in range(4):
+            refs = [r for r in gc.get_referrers(o)
+                    if id(r) not in skip and not isinstance(r, (list, type(sys._getframe())))]
+            if not refs:
+                break
+            o = refs[0]
+            chain.append(name(o))
+        rows.append(f"{tuple(t.shape)} {t.dtype} {t.untyped_storage().nbytes() / 2**20:.1f} MiB "
+                    f"<- {' <- '.join(chain) or '?'}")
+    pools = {str(k): round(v / 2**30, 3) for k, v in by_pool.items() if v}
+    live = sum(t.untyped_storage().nbytes() for t in tensors) / 2**30
+    return (f"allocated GiB by pool {pools}; {len(tensors)} live CUDA tensors reached, "
+            f"{live:.3f} GiB; largest: {rows}")
+
+
 def assert_card_free(what: str, plan) -> int:
     """Free the earlier phases' tensors; the card must have room for the
     plan's params, KV, scratch and dequantization.  Returns the bytes
-    still allocated."""
+    still allocated; above 0.1 GiB it prints who holds them."""
     gc.collect()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
@@ -7205,6 +7558,8 @@ def assert_card_free(what: str, plan) -> int:
     print(f"serve-moe: {what} before: {held / 2**30:.3f} GiB still allocated, "
           f"{free / 2**30:.3f} of {total / 2**30:.3f} GiB free, the plan needs "
           f"{need / 2**30:.3f}")
+    if held > 0.1 * 2**30:
+        print(f"serve-moe: {what} still allocated: {card_holders()}")
     if free < need:
         fail(f"serve-moe {what}: {held / 2**30:.3f} GiB still held, {free / 2**30:.3f} GiB "
              f"free, {need / 2**30:.3f} GiB needed")
@@ -7672,6 +8027,13 @@ def profile_phase(out_path: str, plain_walls: Dict[str, float]) -> None:
     torch.cuda.empty_cache()
 
 
+def held_after(phase: str) -> None:
+    """The bytes still allocated on the card once a phase has ended."""
+    gc.collect()
+    print(f"memory: after {phase}: {torch.cuda.memory_allocated() / 2**30:.3f} GiB still "
+          f"allocated")
+
+
 def main() -> None:
     t_all = time.perf_counter()
     args = sys.argv[1:]
@@ -7745,15 +8107,23 @@ def main() -> None:
 
     ref = reference_phase()
     served = serve_phase(main_kernels, card)
+    held_after("serve")
     classic, classic_walls = serve_classic_phase(kernels, card)
+    held_after("serve-classic")
     quant, quant_walls = serve_int8_phase(kernels, card)
+    held_after("serve-int8")
     http_launches = serve_http_phase(ref, served, card)
     print(f"serve-http: launches on the HTTP path {http_launches}")
+    held_after("serve-http")
     serve_prof_phase(ref, card)
+    held_after("serve-prof")
     a3 = serve_a3_phase(ref, card)
     print(f"serve-a3: flash prefill launches {a3['launches']}")
+    held_after("serve-a3")
     a45 = serve_a45_phase(ref, served, card)
+    held_after("serve-a45")
     planner = serve_kvbm_phase(ref, served, card)
+    held_after("serve-kvbm, serve-chaos, serve-planner (a, b) and serve-admit")
     # serve-dyn's, serve-disagg's and serve-onboard's (c), and serve-mocker's
     # torch worker, serve one checkpoint
     import shutil
@@ -7763,10 +8133,14 @@ def main() -> None:
     try:
         ckpt = write_cli_checkpoint(ckpt_tmp, "serve-dyn, serve-disagg and serve-onboard: (c)")
         direct = serve_dyn_phase(ref, card, ckpt)
+        held_after("serve-dyn")
         disagg = serve_disagg_phase(card, ckpt, direct)
+        held_after("serve-disagg")
         onboard = serve_onboard_phase(ref, card, ckpt, direct)
         print(f"serve-onboard: launches over (b)'s two legs {onboard}")
+        held_after("serve-onboard")
         serve_mocker_phase(card, ckpt)
+        held_after("serve-mocker")
         planner_s = planner_cli(ckpt, card)
         print(f"serve-planner: (c) {planner_s:.3f} s; phase {planner['seconds'] + planner_s:.3f} s; "
               f"launches of (a) and (b) {planner['launches']}")

@@ -130,7 +130,9 @@ def _add_engine_flags(p) -> None:
     p.add_argument("--page-size", type=int, default=16)
     p.add_argument("--num-pages", type=int, default=512)
     p.add_argument("--block-size", type=int, default=None,
-                   help="router-visible KV block size (default: page size)")
+                   help="router-visible KV block size, a multiple of the page "
+                        "size (default: page size; another value turns "
+                        "prefix caching off)")
     p.add_argument("--decode-block-size", type=int, default=16)
     p.add_argument("--kv-dtype", default=None, metavar="DTYPE",
                    help="paged KV pool dtype: 'int8' = quantized per-row "
@@ -155,8 +157,8 @@ def _add_engine_flags(p) -> None:
                         "DYN_PACKED_RAGGED overrides)")
     p.add_argument("--no-multistep-decode", dest="multistep_decode",
                    action="store_false", default=True,
-                   help="one decode step per packed dispatch (the port's "
-                        "multistep ceiling pinned to 1)")
+                   help="one decode step per packed dispatch (env "
+                        "DYN_MULTISTEP overrides)")
     p.add_argument("--multistep-max-k", type=int, default=8, metavar="K",
                    help="ceiling for the adaptive multi-step decode "
                         "controller (default 8)")
@@ -177,6 +179,12 @@ def _add_engine_flags(p) -> None:
                         "(env DYN_DRAFT_MODEL overrides)")
     p.add_argument("--quantize", choices=["int8"], default=None,
                    help="weight-only quantization of the matmul weights")
+    p.add_argument("--kv-admit-budget", default=None, metavar="SPEC",
+                   help="KV-budget admission: 'on' or "
+                        "'util=0.9,headroom=256,reserve=16,floor_s=2,"
+                        "skips=4' -- admit against predicted KV pages "
+                        "with a skip-ahead fairness floor instead of "
+                        "slot count (env DYN_KV_ADMIT_BUDGET overrides)")
     p.add_argument("--kv-prefetch-window", type=int, default=None,
                    help="queue-side prefetch window: offloaded prefix "
                         "chains of the first N queued requests stage "
@@ -493,13 +501,16 @@ def _make_engine(args):
         max_seq_len=args.max_seq_len,
         page_size=args.page_size,
         num_pages=args.num_pages,
+        block_size=args.block_size,
         decode_block_size=args.decode_block_size,
         prefill_chunk_tokens=args.prefill_chunk_tokens,
         mixed_batching=args.mixed_batching,
         packed_ragged=args.packed_ragged,
+        kv_admit_budget=args.kv_admit_budget,
         kv_dtype=args.kv_dtype,
         async_dispatch=args.async_dispatch,
-        multistep_max_k=args.multistep_max_k if args.multistep_decode else 1,
+        multistep_decode=args.multistep_decode,
+        multistep_max_k=args.multistep_max_k,
         fold_spec_verify=args.fold_spec_verify,
         spec_auto_disable=args.spec_auto_disable,
         draft_model=args.draft_model,
@@ -794,8 +805,9 @@ async def serve_worker(runtime, engine, endpoint: str, model_path: str,
     engine, or a ``--disagg decode`` worker's ``DisaggDecodeEngine``) on
     ``endpoint`` (``dyn://ns.comp.ep``), the engine's embeddings on
     ``{ep}_embed``, the KV event and load-metrics publishers, and the
-    model's registration with ``block_size`` (default: the engine's pages,
-    the mocker's blocks) as the router's blocks.  An engine serves only
+    model's registration with the engine's own block size as the router's
+    blocks (:func:`engine_block_size`; ``block_size`` only for an engine
+    without one).  An engine serves only
     the legs it has: the echo engine embeds nothing and publishes neither
     KV events nor load metrics, and without ``model_path`` no model card
     is registered (the card comes back None).  With the offload plane armed, as the JAX
@@ -841,16 +853,26 @@ async def serve_worker(runtime, engine, endpoint: str, model_path: str,
         worker.holdings = wire_offload_plane(runtime, engine, ns)
     if not model_path:
         return None, worker
-    # the router hashes prompts in the card's blocks: the engine's blocks
-    # are its pages (the mocker's, its blocks)
-    cfg = getattr(engine, "cfg", None)
+    # the router hashes prompts in the card's blocks, so they are the
+    # blocks the engine's KV events hash
     card = await register_llm(
         runtime, ep, model_path,
         model_name=model_name,
-        kv_block_size=block_size or getattr(cfg, "page_size", None) or cfg.block_size,
+        kv_block_size=engine_block_size(engine, block_size),
         embed_endpoint=embed_ep_name,
     )
     return card, worker
+
+
+def engine_block_size(engine, default: Optional[int] = None) -> int:
+    """The block size an engine's KV events hash: the torch engine's router
+    blocks (``EngineConfig.block_size``, else its pages), the mocker's
+    blocks; ``default`` (else 16) for an engine with neither."""
+    sched = getattr(engine, "sched", None)
+    if sched is not None and getattr(sched, "block_size", None):
+        return int(sched.block_size)
+    cfg = getattr(engine, "cfg", None)
+    return int(getattr(cfg, "block_size", None) or default or 16)
 
 
 async def serve_disagg_decode(runtime, engine, endpoint: str, model_path: str,
@@ -869,7 +891,7 @@ async def serve_disagg_decode(runtime, engine, endpoint: str, model_path: str,
 
     ns_name, comp_name, _ = parse_endpoint_id(endpoint)
     ns = runtime.namespace(ns_name)
-    block_size = block_size or engine.cfg.page_size
+    block_size = engine_block_size(engine, block_size)
     disagg = DisaggDecodeEngine(
         engine, ns, comp_name, instance_id=runtime.primary_lease, cfg=cfg,
         block_size=block_size,

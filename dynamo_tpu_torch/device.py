@@ -33,3 +33,24 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "run on the CPU"
         )
     return torch.device("cuda")
+
+
+def release_blas_workspaces(device: torch.device) -> None:
+    """Free the cuBLAS and cuBLASLt workspaces PyTorch holds on the card.
+
+    PyTorch keeps one workspace (some 32 MiB on Hopper) for every (cuBLAS
+    handle, stream) pair that ever ran a matmul, in a process-wide map that
+    only this clear empties.  An engine makes new pairs -- its executor
+    thread's handle with its streams, its graph captures' streams, the
+    workspace then landing in the graph's private pool -- and stopping it
+    leaves them allocated, so a process that starts and stops engines
+    holds more each time.  Cleared under ``DEVICE_TURN`` once the device is idle, so
+    no engine's matmul is being issued meanwhile; a live engine's next
+    matmul allocates its workspace again (a freed workspace returns to its
+    stream's pool, so stream order keeps in-flight work safe).  A no-op
+    off the card."""
+    if device.type != "cuda":
+        return
+    with DEVICE_TURN:
+        torch.cuda.synchronize(device)
+        torch._C._cuda_clearCublasWorkspaces()

@@ -217,13 +217,63 @@ class ModelConfig:
 
 @dataclass
 class EngineConfig:
+    """The engine's knobs: the JAX package's ``EngineConfig`` fields, names
+    and defaults, so a JAX config constructs here
+    (``EngineConfig(**dataclasses.asdict(jax_cfg))``).  Values the port
+    does not serve (``tp`` or ``dp`` above 1, a ``dtype`` other than the
+    model's) are refused at engine construction, by name.
+
+    ``seed`` is the start of the per-request nonce stream that keys the
+    sampling noise of unseeded lanes: the n-th request an engine admits
+    draws its noise from nonce ``seed + n`` (mod 2^32), so two engines with
+    the same seed serving the same requests in the same order give the same
+    unseeded streams, and another seed gives others.  A request's own
+    ``seed`` keys its lane instead, whatever the engine's."""
+
     max_batch_size: int = 8
     max_seq_len: int = 2048
     page_size: int = 16
     num_pages: int = 512
+    # router-visible KV block size: the KV events and the router hash
+    # prompts in blocks of this many tokens, each ``block_size //
+    # page_size`` pages.  None = the page size.  A block that is not a
+    # whole number of pages turns prefix caching off, with a warning
+    block_size: Optional[int] = None
+    # sequence-hash prefix-cache reuse (block_manager.PagePool); False runs
+    # a plain page allocator (kv_cache.PageAllocator) and publishes KV
+    # events per request instead of from the registry
+    enable_prefix_caching: bool = True
+    # KV-budget admission (scheduler.KVAdmitConfig): admit against
+    # predicted KV pages -- prompt plus max_tokens headroom -- with a
+    # skip-ahead and an aging fairness floor, instead of slot count.  A
+    # spec by scheduler.parse_kv_admit_spec ("on", or
+    # "util=0.9,headroom=256,reserve=16,floor_s=2,skips=4"); None = slot
+    # count.  DYN_KV_ADMIT_BUDGET wins; a malformed env value warns and
+    # keeps this, a malformed value here fails engine construction
+    kv_admit_budget: Optional[str] = None
+    # extra pages a lane takes per growth event, so its page table changes
+    # every few blocks instead of every block
+    grow_chunk_pages: int = 4
+    # width of the device-checked stop-token set per lane (a lane's first
+    # ``device_stop_width`` stop ids stop it on the device; the host replay
+    # applies them all)
+    device_stop_width: int = 8
+    # the nonce stream of unseeded lanes starts here (see the class
+    # docstring)
+    seed: int = 0
+    # the dense KV pool's dtype: None or the model's dtype; another dtype is
+    # refused (``kv_dtype`` names the pool when set)
+    dtype: Optional[str] = None
+    # tensor and data parallelism: 1 only (multi-GPU serving is not ported)
+    tp: int = 1
+    dp: int = 1
     # total fresh tokens per unified dispatch: decode lanes cost one each,
     # the remainder packs prefill chunks
     mixed_token_budget: int = 512
+    # multistep decode: pressure-free packed ticks fuse several decode steps
+    # into one dispatch; False pins single-step dispatches (DYN_MULTISTEP
+    # overrides)
+    multistep_decode: bool = True
     # ceiling of the adaptive multi-step controller: pressure-free decode
     # ticks fuse up to this many decode steps into one dispatch (1 pins
     # single-step dispatches)

@@ -182,7 +182,8 @@ from typing import (
 import numpy as np
 import torch
 
-from ..device import DEVICE_TURN, resolve_device
+from ..block_manager import PagePool
+from ..device import DEVICE_TURN, release_blas_workspaces, resolve_device
 from .. import offload as kvoffload
 from ..ops.build import check_geometry
 from ..protocols.common import (
@@ -228,7 +229,14 @@ from .kv_cache import (
 from .model import Params, init_params
 from .quant import quantize_params
 from .sampling import PROMPT_FLAG, SamplingParams, unpack_sampled_logprobs
-from .scheduler import MixedChunk, Scheduler, SchedulerConfig, SeqState, StepEvent
+from .scheduler import (
+    MixedChunk,
+    Scheduler,
+    SchedulerConfig,
+    SeqState,
+    StepEvent,
+    parse_kv_admit_spec,
+)
 from .step import (
     LANE_ROWS,
     StepFn,
@@ -254,11 +262,6 @@ from .step import (
 
 logger = logging.getLogger("dynamo.torch_engine")
 
-# extra pages a lane takes per growth event, so its page table changes
-# every few blocks instead of every block (the JAX engine's default)
-GROW_CHUNK_PAGES = 4
-# width of the device-checked stop-token set per lane
-DEVICE_STOP_WIDTH = 8
 # bound of the stream fanout queue (async mode): a slow consumer
 # backpressures the tick loop here
 FANOUT_DEPTH = 64
@@ -281,6 +284,35 @@ def _env_override(name: str, value: Any, parse) -> Any:
     except ValueError:
         logger.warning("ignoring malformed %s=%r", name, raw)
         return value
+
+
+def _refuse_unserved(cfg: EngineConfig, model_dtype: str) -> None:
+    """Refuse, by field name, the JAX config values the port does not
+    serve: tensor or data parallelism, and a dense pool dtype other than
+    the model's (the kernels read one dtype)."""
+    for name in ("tp", "dp"):
+        v = getattr(cfg, name)
+        if v != 1:
+            raise ValueError(
+                f"EngineConfig.{name}={v!r}: multi-GPU serving is not ported (1 only)"
+            )
+    if cfg.dtype is not None and cfg.dtype != model_dtype:
+        raise ValueError(
+            f"EngineConfig.dtype={cfg.dtype!r}: a KV pool of another dtype than "
+            f"the model's ({model_dtype}) is not served"
+        )
+
+
+def _kv_admit(cfg: EngineConfig):
+    """The scheduler's ``KVAdmitConfig``: config arms it (a malformed value
+    fails construction), a non-empty ``DYN_KV_ADMIT_BUDGET`` wins outright
+    (an explicit "off" disarms a config-armed budget; a malformed value
+    warns and keeps the config)."""
+    try:
+        spec = parse_kv_admit_spec(cfg.kv_admit_budget)
+    except ValueError as e:
+        raise ValueError(f"EngineConfig.kv_admit_budget: {e}") from None
+    return _env_override("DYN_KV_ADMIT_BUDGET", spec, parse_kv_admit_spec)
 
 
 def _env_flag(raw: str) -> bool:
@@ -604,6 +636,7 @@ class TorchEngine:
         self.params = params
         self.dtype = torch_dtype(model_cfg.dtype)
         c = self.cfg
+        _refuse_unserved(c, model_cfg.dtype)
         if c.quantize is not None:
             # before any pool is allocated: the int8 weights and the
             # one-slice f32 transient of the rounding come first
@@ -613,15 +646,32 @@ class TorchEngine:
         self.kv_dtype = _env_override(
             "DYN_KV_DTYPE", parse_kv_dtype(c.kv_dtype), parse_kv_dtype
         )
+        # the page allocator, as the JAX engine builds it: a block pool of
+        # ``block_size // page_size`` pages a router block with prefix
+        # caching on, else the plain free list.  A block that is not whole
+        # pages turns prefix caching off
+        block_size = c.block_size or c.page_size
+        pool: Optional[PagePool] = None
+        if c.enable_prefix_caching:
+            if block_size % c.page_size == 0:
+                pool = PagePool(c.num_pages, pages_per_block=block_size // c.page_size)
+            else:
+                logger.warning(
+                    "prefix caching disabled: block_size %d is not a multiple of "
+                    "page_size %d", block_size, c.page_size,
+                )
         self.kv = PagedKVCache(
             model_cfg, c.num_pages, c.page_size, self.dtype, self.device,
             quantized=pool_is_quantized(self.kv_dtype, model_cfg.dtype),
+            allocator=pool,
         )
         self.sched = Scheduler(
             SchedulerConfig(
                 max_batch_size=c.max_batch_size,
                 max_seq_len=c.max_seq_len,
                 page_size=c.page_size,
+                block_size=c.block_size,
+                kv_admit=_kv_admit(c),
             ),
             self.kv.allocator,
         )
@@ -635,7 +685,8 @@ class TorchEngine:
         # the offload plane's holdings deltas; None = not wired
         self.kv_event_sink: Optional[Any] = None
         self.kv_holdings_sink: Optional[Any] = None
-        self.kv.allocator.event_sink = self._emit_kv_event
+        if pool is not None:
+            pool.event_sink = self._emit_kv_event
         self._init_offload(metrics_registry)
         # speculative decoding: per-request drafters propose draft tokens
         # from the token history, a verify dispatch scores them in one
@@ -669,7 +720,7 @@ class TorchEngine:
         self._mixed = bool(c.mixed_batching)
         self._packed = _env_override("DYN_PACKED_RAGGED", bool(c.packed_ragged), _env_flag)
         # multistep decode rides the packed mixed plane only
-        self._multistep = self._mixed and self._packed
+        self._multistep = bool(c.multistep_decode) and self._mixed and self._packed
         # folded verify needs the packed mixed plane too
         self._fold_spec = (
             _env_override("DYN_SPEC_FOLD", bool(c.fold_spec_verify), _env_flag)
@@ -712,8 +763,9 @@ class TorchEngine:
         self.graphs = StepGraphs(self.device)
         # lanes whose classic chunked prefill is under way (one chunk per tick)
         self._chunking: List[SeqState] = []
-        # unseeded lanes key their noise on a per-request nonce
-        self._nonces = itertools.count(1)
+        # unseeded lanes key their noise on a per-request nonce, counted
+        # from the config's seed (EngineConfig's docstring)
+        self._nonces = itertools.count(int(c.seed) + 1)
         self._nonce_of: Dict[str, int] = {}
         self._queues: Dict[str, asyncio.Queue] = {}
         # live requests' contexts: a request killed before anything read its
@@ -785,7 +837,8 @@ class TorchEngine:
             host_blocks, disk_blocks = spec["host"], spec["disk"]
             disk_dir = spec["dir"] or disk_dir
             swap_on = spec["swap"] and c.swap_preemption
-        if host_blocks > 0 or disk_blocks > 0:
+        # the plane hangs off the block pool's evictions and prefix matches
+        if self.sched.pool is not None and (host_blocks > 0 or disk_blocks > 0):
             if disk_blocks > 0 and not disk_dir:
                 raise ValueError("disk_offload_blocks > 0 requires disk_offload_dir")
             oe = kvoffload.KVOffloadEngine(
@@ -928,6 +981,8 @@ class TorchEngine:
             self._ex.shutdown(wait=True)
             if self.offload_engine is not None:
                 self.offload_engine.close()
+            # the matmul workspaces this engine's thread and streams made
+            release_blas_workspaces(self.device)
 
     # -- AsyncEngine --------------------------------------------------------
 
@@ -1228,6 +1283,14 @@ class TorchEngine:
                 # freed slots and pages and committed stops reach this
                 # tick's plan
                 await self._commit_ready(inflight, self._pipe_depth)
+                # the budget planner charges each decode lane the
+                # uncommitted multistep tokens it may carry across the
+                # pipeline before this plan's admissions take effect
+                sched.decode_inflight_tokens = (
+                    self._pipe_depth * min(self._ms_fixed or self._ms_ramp, self._ms_max)
+                    if self._multistep
+                    else 0
+                )
                 plan = sched.plan()
                 if sched.num_active > 0:
                     # every uncommitted generation may hold a full block's
@@ -1244,7 +1307,7 @@ class TorchEngine:
                             lookahead, (self._pipe_depth + 1) * (MAX_DRAFT_TOKENS + 1) + 1
                         )
                     preempted = sched.ensure_decode_capacity(
-                        lookahead=lookahead, chunk_pages=GROW_CHUNK_PAGES
+                        lookahead=lookahead, chunk_pages=self.cfg.grow_chunk_pages
                     )
                     if preempted:
                         self.obs.preemptions.inc(len(preempted))
@@ -1686,7 +1749,7 @@ class TorchEngine:
             "seq_lens": torch.zeros((B + 1,), dtype=i64, device=dev),
             "limit_lens": torch.zeros((B + 1,), dtype=i64, device=dev),
             "active": torch.zeros((B + 1,), dtype=torch.bool, device=dev),
-            "stop_ids": torch.full((B + 1, DEVICE_STOP_WIDTH), -1, dtype=i64, device=dev),
+            "stop_ids": torch.full((B + 1, self.cfg.device_stop_width), -1, dtype=i64, device=dev),
             "page_table": torch.zeros(
                 (B + 1, self.sched.max_pages), dtype=torch.int32, device=dev
             ),
@@ -1713,6 +1776,8 @@ class TorchEngine:
         )
         self._counts_live = False
         self._dev_valid = False
+        # the scheduler's layout and growth versions the device state holds
+        self._dev_version = -1
         self._dev_growth = -1
         self._limit_host = np.zeros((B,), np.int64)
         # per lane: how often its row was pushed (rebuilds and row
@@ -1755,12 +1820,12 @@ class TorchEngine:
     def _lane_stop_row(self, seq: Optional[SeqState]) -> np.ndarray:
         """Device-swallowable stop tokens for one lane: only when the host
         rules coincide exactly (no min_tokens)."""
-        row = np.full((DEVICE_STOP_WIDTH,), -1, np.int64)
+        row = np.full((self.cfg.device_stop_width,), -1, np.int64)
         if seq is not None and seq.stop.min_tokens is None:
             ids = list(seq.stop.stop_token_ids_hidden or [])
             if not seq.stop.ignore_eos:
                 ids += list(seq.eos_ids)
-            for j, t in enumerate(ids[:DEVICE_STOP_WIDTH]):
+            for j, t in enumerate(ids[:self.cfg.device_stop_width]):
                 row[j] = t
         return row
 
@@ -1816,7 +1881,7 @@ class TorchEngine:
         if not self._dev_valid:
             self._push_device_state()
             return
-        if sched.dirty_slots:
+        if sched.dirty_slots or self._dev_version != sched.layout_version:
             self._apply_dirty_rows()
         if self._dev_growth != sched.growth_version:
             # growth-only refresh: keep tokens/seq_lens/active on the
@@ -1833,7 +1898,7 @@ class TorchEngine:
         B = self.cfg.max_batch_size
         limit = self._compute_limits()
         active = np.zeros((B,), bool)
-        stop_ids = np.full((B, DEVICE_STOP_WIDTH), -1, np.int64)
+        stop_ids = np.full((B, self.cfg.device_stop_width), -1, np.int64)
         for b, seq in enumerate(sched.slots):
             active[b] = self._lane_active(seq, int(limit[b]), int(sched.seq_lens[b]))
             stop_ids[b] = self._lane_stop_row(seq)
@@ -1856,6 +1921,7 @@ class TorchEngine:
                 del self._pending_injects[slot]
         self._counts_live = False
         self._dev_valid = True
+        self._dev_version = sched.layout_version
         self._dev_growth = sched.growth_version
         self._limit_host = limit
         self._row_pushes += 1
@@ -1881,7 +1947,7 @@ class TorchEngine:
             "seq_len": np.zeros((B,), np.int64),
             "limit": np.zeros((B,), np.int64),
             "active": np.zeros((B,), bool),
-            "stop": np.full((B, DEVICE_STOP_WIDTH), -1, np.int64),
+            "stop": np.full((B, self.cfg.device_stop_width), -1, np.int64),
             "pages": np.zeros((B, sched.max_pages), np.int32),
         }
         lanes: List[Optional[SeqState]] = [None] * B
@@ -1943,6 +2009,7 @@ class TorchEngine:
                 # (the row was just zeroed and re-seeded)
                 bump_counts(self._counts, idx, toks_t)
         sched.dirty_slots.clear()
+        self._dev_version = sched.layout_version
 
     def _live_page_bucket(self) -> int:
         """Power-of-two page-table width covering the longest slotted
@@ -3511,11 +3578,12 @@ class TorchEngine:
         and kv-remote threads -- run off the loop."""
         if not self._running:
             await self.start()
-        pool = self.kv.allocator
+        pool = self.sched.pool
         acquired = []
         snap = None
         try:
-            for blk in pool.match(seq_hashes):
+            # without the block pool (prefix caching off) nothing is resident
+            for blk in pool.match(seq_hashes) if pool is not None else ():
                 if pool.acquire(blk.sequence_hash) is None:
                     break
                 acquired.append(blk)
@@ -3831,7 +3899,7 @@ class TorchEngine:
         except Exception:
             logger.exception("swap snapshot failed for %s", seq.request_id)
             return False
-        n_blocks = -(-n_pages // self.sched.pool.pages_per_block)
+        n_blocks = -(-n_pages // self.sched.pages_per_block)
         if not self.offload_engine.swap_out(seq.request_id, snap, cache_len, n_blocks):
             return False
         self._swapped[seq.request_id] = seq
@@ -4009,6 +4077,12 @@ class TorchEngine:
             self._emit(item)
 
     def _emit(self, events: List[StepEvent]) -> None:
+        # with the block pool, stored and removed events come from the
+        # registry (registration and eviction, through _emit_kv_event);
+        # without it (prefix caching off) each request publishes its
+        # completed blocks and, at its end, their removal -- the JAX
+        # engine's fallback
+        pool = self.sched.pool
         for ev in events:
             queue = self._queues.get(ev.seq.request_id)
             self._tokens_generated += len(ev.tokens)
@@ -4027,6 +4101,8 @@ class TorchEngine:
                             queue_s=adm - ev.seq.arrival_s,
                             service_s=now_m - adm,
                         )
+            if ev.completed_blocks and pool is None:
+                self._publish_stored(ev.completed_blocks)
             if queue is None:
                 continue
             if ev.tokens:
@@ -4070,6 +4146,33 @@ class TorchEngine:
                             )
                 queue.put_nowait(Annotated.from_data(out.to_dict()))
                 queue.put_nowait(None)
+                if pool is None:
+                    self._publish_removed(ev.seq)
+
+    def _publish_stored(self, blocks) -> None:
+        if self.kv_event_sink is None:
+            return
+        self.kv_event_sink(
+            {
+                "type": "stored",
+                "blocks": [
+                    {
+                        "block_hash": b.block_hash,
+                        "sequence_hash": b.sequence_hash,
+                        "parent_sequence_hash": b.parent_sequence_hash,
+                        "position": b.position,
+                    }
+                    for b in blocks
+                ],
+            }
+        )
+
+    def _publish_removed(self, seq: SeqState) -> None:
+        if self.kv_event_sink is None or seq.blocks is None:
+            return
+        hashes = seq.blocks.sequence_hashes()
+        if hashes:
+            self.kv_event_sink({"type": "removed", "sequence_hashes": hashes})
 
     def _fail_seq(self, seq: SeqState, message: str) -> None:
         if seq.finish is None:
@@ -4125,6 +4228,10 @@ class TorchEngine:
                 self.offload_engine.drop_swap(rid)
             seq = by_id.get(rid)
             if seq is not None:
+                # with the block pool, a cancel only drops references:
+                # registered blocks stay resident until evicted
+                if self.sched.pool is None:
+                    self._publish_removed(seq)
                 self.sched.cancel(seq)
 
     def _handle_stalled_admission(self) -> None:
@@ -4134,7 +4241,7 @@ class TorchEngine:
         if sched.num_active > 0 or not sched.waiting:
             return
         head = sched.waiting[0]
-        if sched.min_total_pages(head) <= sched.pool.num_pages - 1:
+        if sched.min_total_pages(head) <= sched.allocator.num_pages - 1:
             return
         sched.waiting.popleft()
         self._fail_seq(head, "request needs more KV pages than the pool holds")

@@ -74,7 +74,10 @@ from .step import StepFn
 # pair ``PackedShapeBudget`` mints, at most PACKED_SHAPE_BUDGET of them live,
 # and only decode-only dispatches capture, whose s_max is 1 and whose Np is
 # a power-of-two bucket of the lane count: at most 9 pairs up to 256 lanes.
-# The decode step's key adds use_penalties instead of a pair.
+# The decode step's key adds use_penalties instead of a pair.  The stop-id
+# width (``EngineConfig.device_stop_width``) enters no key: it is fixed for
+# an engine's life and shapes only the persistent stop-id tensor a captured
+# step reads, so it adds no graph to the budgets.
 _SAMPLING_VARIANTS = 2 * 2
 _PAGE_TABLE_WIDTHS = 10
 _DECODE_PAIRS = min(PACKED_SHAPE_BUDGET, 9)

@@ -27,13 +27,14 @@ its dtype named by ``BlockMeta.kv_dtype``.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Any, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..block_manager import PagePool
+from ..block_manager import OutOfPages, PagePool
 from .config import ModelConfig
 
 _DTYPES = {
@@ -144,8 +145,49 @@ def quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, s
 
 
+class PageAllocator:
+    """LIFO free-list over page ids 1..num_pages-1 (0 is the trash page):
+    the allocator of a pool without prefix caching.  A copy of the JAX
+    package's ``PageAllocator``.
+
+    alloc/free are locked: the scheduler allocates on the tick-loop thread
+    while the disaggregated prefill export allocates scratch pages on the
+    engine's executor thread."""
+
+    def __init__(self, num_pages: int) -> None:
+        if num_pages < 2:
+            raise ValueError("need at least 2 pages (page 0 is reserved)")
+        self.num_pages = num_pages
+        self._free: List[int] = list(range(num_pages - 1, 0, -1))
+        self._lock = threading.Lock()
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_pages(self) -> int:
+        return (self.num_pages - 1) - len(self._free)
+
+    def alloc(self, n: int) -> List[int]:
+        if n <= 0:
+            return []
+        with self._lock:
+            if n > len(self._free):
+                raise OutOfPages(f"requested {n} pages, {len(self._free)} free")
+            out = self._free[-n:][::-1]
+            del self._free[len(self._free) - n :]
+            return out
+
+    def free(self, pages: List[int]) -> None:
+        with self._lock:
+            self._free.extend(pages)
+
+
 class PagedKVCache:
-    """Owns the pool (dense, or int8 with ``quantized``) and its page pool."""
+    """Owns the pool (dense, or int8 with ``quantized``) and its page
+    allocator: the engine's (a ``PagePool`` with prefix caching on), else
+    a plain :class:`PageAllocator`."""
 
     def __init__(
         self,
@@ -155,15 +197,14 @@ class PagedKVCache:
         dtype: torch.dtype,
         device: torch.device,
         quantized: bool = False,
+        allocator: Optional[Union[PagePool, PageAllocator]] = None,
     ) -> None:
         self.cfg = cfg
         self.num_pages = num_pages
         self.page_size = page_size
         self.quantized = quantized
         self.dtype = torch.int8 if quantized else dtype
-        # prefix caching is always on: the allocator is the block pool,
-        # one KV page per hashed token block
-        self.allocator = PagePool(num_pages)
+        self.allocator = allocator if allocator is not None else PageAllocator(num_pages)
         shape = (
             cfg.num_layers,
             2,

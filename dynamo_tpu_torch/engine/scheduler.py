@@ -13,8 +13,11 @@ the offload tiers (``offload_lookup``; hits become ``pending_onboard``
 scatters the engine applies at the prefill dispatch), and a preempted
 lane may swap its KV out instead of recomputing it (``swap_out``), parked
 ``awaiting_kv`` -- slotted with its pages but device-inactive -- until the
-engine restores it.  Not carried over: the KV-budget admission planner,
-data-parallel slot balancing and the disaggregation hooks.
+engine restores it; and KV-budget admission (``KVAdmitConfig``): admit
+against predicted KV pages with a skip-ahead and an aging floor instead of
+slot count.  A router block is ``block_size // page_size`` pages; prefix
+reuse runs when the allocator is a ``PagePool`` and the block is whole
+pages.  Not carried over: data-parallel slot balancing.
 
 The scheduler is sans-IO: it owns numpy mirrors of the device-side batch
 arrays (tokens / seq_lens / page_table) and pure-Python bookkeeping; the
@@ -48,10 +51,91 @@ from ..tokens.sequence import TokenBlock, TokenBlockSequence
 
 
 @dataclass
+class KVAdmitConfig:
+    """KV-budget admission: admit against a predicted KV-page commitment
+    instead of slot count, so one long prompt neither grabs a slot it
+    cannot feed nor blocks the queue while short traffic could still fit.
+
+    The predictor charges each request its peak pages -- sequence length
+    plus decode headroom (``remaining_budget``, optionally capped by
+    ``headroom_tokens``) -- against ``util * pool - reserve_pages``.  A
+    head that does not fit is skipped over (short traffic keeps
+    admitting, up to ``max_skips`` per pass) until it has aged past
+    ``floor_s`` seconds; from then on no request passes it, so freed
+    pages accumulate for the head instead of feeding newcomers -- the
+    fairness floor in both directions.  Admission order changes; token
+    streams never do.  The JAX package's model and grammar."""
+
+    # fraction of the (trash-page-excluded) pool the predictor may commit
+    util: float = 0.9
+    # cap on the predicted decode headroom per request, tokens; None =
+    # the request's full remaining token budget (max_tokens-capped)
+    headroom_tokens: Optional[int] = None
+    # pages withheld from the predictor (swap-restore / onboard slack)
+    reserve_pages: int = 0
+    # fairness floor: once the queue head has waited this long, nothing
+    # skips past it
+    floor_s: float = 2.0
+    # max requests admitted past a blocked head per planning pass
+    max_skips: int = 4
+
+
+def parse_kv_admit_spec(spec: Any) -> Optional[KVAdmitConfig]:
+    """Parse a ``DYN_KV_ADMIT_BUDGET`` value into a :class:`KVAdmitConfig`
+    (None = slot-count admission).
+
+    Grammar: ``0``/``off`` disarms, ``1``/``on`` arms the defaults, or a
+    comma-separated ``k=v`` list::
+
+        DYN_KV_ADMIT_BUDGET=util=0.9,headroom=256,reserve=16,floor_s=2,skips=4
+    """
+    if spec is None:
+        return None
+    if isinstance(spec, KVAdmitConfig):
+        return spec
+    if isinstance(spec, bool):
+        return KVAdmitConfig() if spec else None
+    s = str(spec).strip()
+    if not s or s.lower() in ("0", "off", "false", "no"):
+        return None
+    out = KVAdmitConfig()
+    if s.lower() in ("1", "on", "true", "yes"):
+        return out
+    for clause in filter(None, (c.strip() for c in s.split(","))):
+        k, sep, v = clause.partition("=")
+        k = k.strip().lower()
+        if not sep:
+            raise ValueError(f"malformed DYN_KV_ADMIT_BUDGET clause {clause!r}")
+        if k not in ("util", "headroom", "reserve", "floor_s", "skips"):
+            raise ValueError(f"unknown DYN_KV_ADMIT_BUDGET key {k!r}")
+        try:
+            if k == "util":
+                out.util = float(v)
+            elif k == "headroom":
+                out.headroom_tokens = int(v)
+            elif k == "reserve":
+                out.reserve_pages = int(v)
+            elif k == "floor_s":
+                out.floor_s = float(v)
+            elif k == "skips":
+                out.max_skips = int(v)
+        except ValueError as e:
+            raise ValueError(f"bad DYN_KV_ADMIT_BUDGET value {clause!r}") from e
+    return out
+
+
+@dataclass
 class SchedulerConfig:
     max_batch_size: int = 8
     max_seq_len: int = 2048
     page_size: int = 16
+    # router-visible KV block size (token hashing): a whole number of pages
+    # for prefix reuse; None = the page size
+    block_size: Optional[int] = None
+    # KV-budget admission (None = slot-count admission); see
+    # KVAdmitConfig.  Changes which tick a request admits on, never its
+    # tokens
+    kv_admit: Optional[KVAdmitConfig] = None
 
 
 @dataclass
@@ -196,12 +280,21 @@ class StepEvent:
 
 
 class Scheduler:
-    def __init__(self, cfg: SchedulerConfig, pool: PagePool) -> None:
+    def __init__(self, cfg: SchedulerConfig, allocator: Any) -> None:
         self.cfg = cfg
-        # the page allocator and prefix-cache registry; one hashed token
-        # block is one KV page
-        self.pool = pool
-        self.block_size = cfg.page_size
+        # the page allocator: a PagePool (block_manager) or the plain
+        # PageAllocator (kv_cache) when prefix caching is off
+        self.allocator = allocator
+        self.block_size = cfg.block_size or cfg.page_size
+        # prefix-cache reuse runs when the allocator is a PagePool (has a
+        # sequence-hash registry) and router blocks align to whole pages
+        self.pool: Optional[PagePool] = (
+            allocator
+            if isinstance(allocator, PagePool)
+            and self.block_size % cfg.page_size == 0
+            else None
+        )
+        self.pages_per_block = self.block_size // cfg.page_size
         # tiered prefix lookup hook: fn(seq_hash) -> (blob, meta) | None,
         # wired by the engine when offload tiers are configured
         self.offload_lookup: Optional[Any] = None
@@ -213,6 +306,15 @@ class Scheduler:
         self.swap_out: Optional[Any] = None
         self.preempt_swap = 0
         self.preempt_recompute = 0
+        # KV-budget admission (None = slot-count); its counters
+        self.kv_admit = cfg.kv_admit
+        self.admit_skips = 0  # admissions that passed a blocked head
+        self.admit_blocked = 0  # passes whose head did not fit the budget
+        # tokens a decode lane may grow by before the scheduler can react
+        # again: the engine sets it to its multistep K times its pipeline
+        # depth before each plan, so the budget planner charges every
+        # decode-phase lane at least that much in-flight growth
+        self.decode_inflight_tokens = 0
         # observability hook (runtime.metrics.EngineMetrics): the scheduler
         # stays sans-IO -- it only pokes gauges the engine wired in
         self.metrics: Optional[Any] = None
@@ -228,12 +330,14 @@ class Scheduler:
         self.tokens = np.zeros((B,), np.int32)
         self.seq_lens = np.zeros((B,), np.int32)
         self.page_table = np.zeros((B, self.max_pages), np.int32)
-        # growth_version: pages were appended to live lanes -- the engine
-        # refreshes the device page table and limits, keeping the decode
-        # pipeline running.  dirty_slots: lanes whose mirrors changed
+        # layout_version: slot membership changed (admission / release /
+        # preemption).  growth_version: pages were appended to live lanes --
+        # the engine refreshes the device page table and limits, keeping the
+        # decode pipeline running.  dirty_slots: lanes whose mirrors changed
         # (admission/release); the engine folds them into the device-resident
         # decode state with per-row scatters instead of a full rebuild, so
         # the decode pipeline never drains for batch-membership changes.
+        self.layout_version = 0
         self.growth_version = 0
         self.dirty_slots: set = set()
 
@@ -316,16 +420,25 @@ class Scheduler:
         return -(-n // self.cfg.page_size)
 
     def plan(self) -> TickPlan:
-        """Admit waiting requests strictly FIFO into free slots while the
-        physical page floor allows."""
+        """Admit waiting requests into free slots while the physical page
+        floor allows.
+
+        With ``kv_admit`` unset the queue admits strictly FIFO against
+        slot count and the page floor.  With it set, admission runs the
+        KV-budget model (:class:`KVAdmitConfig`): predicted peak pages
+        gate each candidate, and a head that does not fit is skipped over
+        -- bounded by the fairness floor."""
         plan = TickPlan()
-        while self.waiting:
-            slot = self._free_slot()
-            if slot is None:
-                break
-            if not self._try_admit(self.waiting[0], plan, slot):
-                break
-            self.waiting.popleft()
+        if self.kv_admit is not None:
+            self._plan_budget(plan)
+        else:
+            while self.waiting:
+                slot = self._free_slot()
+                if slot is None:
+                    break
+                if not self._try_admit(self.waiting[0], plan, slot):
+                    break
+                self.waiting.popleft()
         if self.metrics is not None:
             self.metrics.observe_sched(len(self.waiting), self.num_active)
         return plan
@@ -343,10 +456,10 @@ class Scheduler:
         # write, with one page of headroom per active seq for growth;
         # reused prefix pages are already resident and cost nothing
         need = self.min_total_pages(seq) - len(cached_pages)
-        if self.pool.free_pages < need + self.num_active:
+        if self.allocator.free_pages < need + self.num_active:
             self._unmatch_prefix(seq)
             return False
-        fresh = self.pool.alloc(n_pages - len(cached_pages))
+        fresh = self.allocator.alloc(n_pages - len(cached_pages))
         # onboard pages were allocated inside _match_prefix and stay
         # plain-owned until the engine registers them post-scatter
         onboard = [p for _h, pgs, _b, _m in seq.pending_onboard for p in pgs]
@@ -362,6 +475,67 @@ class Scheduler:
         # awaiting_kv lanes hold their pages and stay device-inactive until
         # the engine's swap-in restores their KV
         return True
+
+    def predicted_pages(self, seq: SeqState) -> int:
+        """Predicted peak KV pages for a request under the budget model:
+        current sequence length (the prompt, for a queued request) plus
+        decode headroom -- the remaining token budget, optionally capped
+        by ``headroom_tokens``.  Never below what the sequence already
+        holds, never above the per-lane page ceiling."""
+        adm = self.kv_admit
+        remaining = self.remaining_budget(seq)
+        head = remaining
+        if adm is not None and adm.headroom_tokens is not None:
+            head = min(head, adm.headroom_tokens)
+        # the JAX planner's test, kept as it is: ``slot`` is never None
+        # (-1 when queued), so every request not prefilling or parked is
+        # charged the in-flight growth
+        if seq.slot is not None and not seq.prefilling and not seq.awaiting_kv:
+            # a decode-phase lane has up to decode_inflight_tokens of
+            # uncommitted multistep growth in flight: charge at least that
+            # (still capped by what it may legally emit)
+            head = max(head, min(self.decode_inflight_tokens, remaining))
+        n = min(seq.seq_len + head, self.cfg.max_seq_len)
+        pages = -(-n // self.cfg.page_size)
+        return max(min(pages, self.max_pages), len(seq.pages))
+
+    def _plan_budget(self, plan: TickPlan) -> None:
+        """KV-budget admission pass (see :class:`KVAdmitConfig`)."""
+        adm = self.kv_admit
+        now = time.monotonic()
+        usable = self.allocator.num_pages - 1  # trash page excluded
+        budget = max(int(usable * adm.util) - adm.reserve_pages, 1)
+        committed = sum(self.predicted_pages(s) for s in self.slots if s is not None)
+
+        # fairness floor: an aged head stops all skip-ahead, so pages freed
+        # by completions accumulate for it.  Read against the CURRENT head
+        # at each gating point: an aged head that admits mid-pass must not
+        # gate the requests behind it
+        def head_aged() -> bool:
+            return bool(self.waiting) and now - self.waiting[0].arrival_s > adm.floor_s
+
+        skips = 0
+        i = 0
+        while i < len(self.waiting):
+            slot = self._free_slot()
+            if slot is None:
+                break
+            seq = self.waiting[i]
+            need = self.predicted_pages(seq)
+            # an empty batch always admits its head: a request whose
+            # prediction exceeds the whole budget must still run alone
+            fits = committed + need <= budget or (self.num_active == 0 and i == 0)
+            if fits and self._try_admit(seq, plan, slot):
+                del self.waiting[i]
+                committed += need
+                continue
+            if i == 0:
+                self.admit_blocked += 1
+            if head_aged() or skips >= adm.max_skips:
+                break
+            skips += 1
+            self.admit_skips += 1
+            i += 1
 
     # -- mixed-batch formation (unified ragged dispatch) ---------------------
 
@@ -456,7 +630,7 @@ class Scheduler:
         those pages stay plain-owned until the scatter is enqueued, so no
         other request can match a block whose contents haven't landed."""
         seq.cached_prompt_tokens = 0
-        if seq.blocks is None:
+        if self.pool is None or seq.blocks is None:
             return []
         max_blocks = max(0, (len(seq.prompt) - 1) // self.block_size)
         hashes = seq.blocks.sequence_hashes()[:max_blocks]
@@ -478,7 +652,7 @@ class Scheduler:
                     break
                 blob, meta = hit
                 try:
-                    got_pages = self.pool.alloc(self.pool.pages_per_block)
+                    got_pages = self.allocator.alloc(self.pages_per_block)
                 except OutOfPages:
                     break
                 seq.pending_onboard.append((h, got_pages, blob, meta))
@@ -491,14 +665,14 @@ class Scheduler:
             self.pool.release(h)
         seq.held_blocks = []
         for _h, pages, _blob, _meta in seq.pending_onboard:
-            self.pool.free(pages)
+            self.allocator.free(pages)
         seq.pending_onboard = []
         seq.cached_prompt_tokens = 0
 
     def _queue_prompt_registrations(self, seq: SeqState) -> None:
         """Prompt blocks beyond the reused prefix register once prefill's KV
         writes are committed (the catch-up in ``_register_ready``)."""
-        if seq.blocks is None:
+        if self.pool is None or seq.blocks is None:
             return
         n_reused = seq.cached_prompt_tokens // self.block_size
         n_prompt_blocks = len(seq.prompt) // self.block_size
@@ -516,6 +690,7 @@ class Scheduler:
         self.page_table[b, : len(seq.pages)] = seq.pages
         self.seq_lens[b] = len(seq.prompt)
         self.tokens[b] = seq.prompt[-1] if seq.prompt else 0
+        self.layout_version += 1
         self.dirty_slots.add(b)
 
     # -- decode bookkeeping --------------------------------------------------
@@ -555,7 +730,7 @@ class Scheduler:
                 want = min(want + chunk_pages, -(-useful // ps), self.max_pages)
             while len(seq.pages) < want:
                 try:
-                    page = self.pool.alloc(1)[0]
+                    page = self.allocator.alloc(1)[0]
                 except OutOfPages:
                     if len(seq.pages) >= need:
                         break  # best effort met; lane pauses at capacity
@@ -627,18 +802,24 @@ class Scheduler:
             self.page_table[b, :] = 0
             self.seq_lens[b] = 0
             self.tokens[b] = 0
+            self.layout_version += 1
             self.dirty_slots.add(b)
         # registered blocks outlive the sequence (refcount drops; the block
         # turns inactive-reusable at zero); only exclusively-owned pages and
         # never-registered completions return to the free list
-        self.pool.free(seq.owned_pages)
-        for h in seq.held_blocks:
-            self.pool.release(h)
-        seq.held_blocks = []
-        seq.pending_register = []
-        seq.pending_onboard = []  # pages were owned; freed above
-        seq.pages = []
-        seq.owned_pages = []
+        if self.pool is not None:
+            self.allocator.free(seq.owned_pages)
+            for h in seq.held_blocks:
+                self.pool.release(h)
+            seq.held_blocks = []
+            seq.pending_register = []
+            seq.pending_onboard = []  # pages were owned; freed above
+            seq.pages = []
+            seq.owned_pages = []
+        elif seq.pages:
+            self.allocator.free(seq.pages)
+            seq.pages = []
+            seq.owned_pages = []
 
     # -- per-token postprocessing -------------------------------------------
 
@@ -791,8 +972,9 @@ class Scheduler:
         # written by the upcoming decode step at exactly this position
         # (decode_step positions = seq_lens).
         self.seq_lens[b] = seq.seq_len - 1
-        seq.pending_register.extend(completed)
-        self._register_ready(seq)
+        if self.pool is not None:
+            seq.pending_register.extend(completed)
+            self._register_ready(seq)
 
         finished: Optional[FinishReason] = None
         if stop.max_tokens is not None and n_gen >= stop.max_tokens:
@@ -813,25 +995,28 @@ class Scheduler:
         later prefill that reuses the block reads it complete).
         """
         cache_len = int(self.seq_lens[seq.slot])
+        ppb = self.pages_per_block
         while seq.pending_register:
             blk = seq.pending_register[0]
             end = (blk.position + 1) * self.block_size
             if end > cache_len:
                 break
             seq.pending_register.pop(0)
-            if blk.position >= len(seq.pages):
-                break  # table shorter than the block (defensive)
-            page = seq.pages[blk.position]
+            start = blk.position * ppb
+            pages = seq.pages[start : start + ppb]
+            if len(pages) < ppb:
+                break  # table shorter than the block span (defensive)
             if self.pool.register(
                 blk.sequence_hash,
-                [page],
+                pages,
                 block_hash=blk.block_hash,
                 parent_sequence_hash=blk.parent_sequence_hash,
                 position=blk.position,
             ):
                 # ownership moves to the registry; this seq keeps a ref
                 seq.held_blocks.append(blk.sequence_hash)
-                seq.owned_pages.remove(page)
+                for p in pages:
+                    seq.owned_pages.remove(p)
             # register() == False: identical block already registered by a
             # concurrent twin; keep plain ownership of our duplicate pages
 
