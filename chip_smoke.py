@@ -534,8 +534,9 @@ def check_tensor_cores(build, checks) -> None:
     """Fail unless every bf16 instantiation of each library runs its
     products on the tensor cores.  ``checks`` holds ``(kernel, tc_name,
     core_name, count)``: the SASS of each of the ``count`` instantiations of
-    the tensor-core kernel ``tc_name`` in ``kernel``'s library (head dims 64
-    and 128 among them) holds ``HMMA`` or ``HGMMA`` instructions, and the
+    the tensor-core kernel ``tc_name`` in ``kernel``'s library (every head
+    dim of ``GEOM_HEAD_DIMS`` among them) holds ``HMMA`` or ``HGMMA``
+    instructions, and the
     CUDA-core kernel ``core_name`` has no bf16 instantiation.  The
     libraries are disassembled side by side."""
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
@@ -558,8 +559,8 @@ def check_tensor_cores(build, checks) -> None:
             if tc_name in name:
                 tc[name] = len(re.findall(r"\bH(?:G)?MMA\b", body))
         print(f"build: {kernel.source_name} SASS tensor-core instructions {tc}")
-        dims = {d for d in (64, 128) for name in tc if f"ILi{d}E" in name}
-        if len(tc) != count or dims != {64, 128} or not all(tc.values()):
+        dims = {d for d in GEOM_HEAD_DIMS for name in tc if f"ILi{d}E" in name}
+        if len(tc) != count or dims != set(GEOM_HEAD_DIMS) or not all(tc.values()):
             fail(f"the bf16 {tc_name} instantiations do not all run on the tensor cores: {tc}")
 
 
@@ -595,11 +596,13 @@ def f32_generator() -> torch.Generator:
 
 
 def agree(
-    what: str, out: torch.Tensor, ref: torch.Tensor, p_rounding: float = 0.0
+    what: str, out: torch.Tensor, ref: torch.Tensor, p_rounding: float = 0.0,
+    quiet: bool = False,
 ) -> float:
     """Fail unless the kernel's ``out`` matches the plain version's ``ref``
     within the dtype's tolerance (in bf16 plus ``p_rounding``, the bound of
-    a kernel that rounds P); returns the largest absolute error."""
+    a kernel that rounds P); returns the largest absolute error, printed
+    unless ``quiet``."""
     torch.cuda.synchronize()
     ref = ref.float()
     diff = (out.float() - ref).abs()
@@ -608,7 +611,8 @@ def agree(
         ok = err <= F32_TOL
     else:
         ok = bool((diff <= BF16_ATOL + BF16_RTOL * ref.abs() + p_rounding).all())
-    print(f"kernels: {what} {str(out.dtype)[6:]} max_abs_err={err:.3e}")
+    if not quiet:
+        print(f"kernels: {what} {str(out.dtype)[6:]} max_abs_err={err:.3e}")
     if not ok:
         fail(f"{what} disagrees with its plain version: max_abs_err {err}")
     return err
@@ -641,30 +645,35 @@ def sdpa_padded(q, k, v, mask):
     return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
 
-def sdpa_lanes(pool, table, bases, lanes, S):
+def sdpa_lanes(pool, table, bases, lanes, S, window: int = 0):
     """The ragged kernels' yardstick operands: ``(q, k, v, mask)`` for one
     SDPA call over the lanes padded to ``[B, Hq, S, K]``, each lane's
     resident prefix (layer 0, through its table row) followed by its fresh
-    rows, with the same causal-over-prefix mask.  ``lanes`` holds each
-    lane's fresh ``(q [n, Hq, D], k [n, Hkv, D], v)`` rows."""
+    rows, with the same causal-over-prefix mask (and window).  ``lanes``
+    holds each lane's fresh ``(q [n, Hq, D], k [n, Hkv, D], v)`` rows; the
+    head geometry and page size come from them and the pool."""
     B = len(lanes)
     K = max(bs + lq.shape[0] for bs, (lq, _, _) in zip(bases, lanes))
     dtype = lanes[0][0].dtype
-    qp = torch.zeros((B, HQ, S, D), dtype=dtype, device="cuda")
-    kp = torch.zeros((B, HQ, K, D), dtype=dtype, device="cuda")
+    hq, hkv, d = lanes[0][0].shape[1], lanes[0][1].shape[1], lanes[0][0].shape[2]
+    page = pool.shape[3]
+    qp = torch.zeros((B, hq, S, d), dtype=dtype, device="cuda")
+    kp = torch.zeros((B, hq, K, d), dtype=dtype, device="cuda")
     vp = torch.zeros_like(kp)
     mask = torch.zeros((B, 1, S, K), dtype=torch.bool, device="cuda")
     r = torch.arange(S, device="cuda")[:, None]
     c = torch.arange(K, device="cuda")[None, :]
     for b, (bs, (lq, lk, lv)) in enumerate(zip(bases, lanes)):
         n = lq.shape[0]
-        pages = table[b, : -(-bs // PAGE)].long()
-        keys = torch.cat([pool[0, 0][pages].reshape(-1, HKV, D)[:bs], lk])
-        vals = torch.cat([pool[0, 1][pages].reshape(-1, HKV, D)[:bs], lv])
+        pages = table[b, : -(-bs // page)].long()
+        keys = torch.cat([pool[0, 0][pages].reshape(-1, hkv, d)[:bs], lk])
+        vals = torch.cat([pool[0, 1][pages].reshape(-1, hkv, d)[:bs], lv])
         qp[b, :, :n] = lq.transpose(0, 1)
-        kp[b, :, : bs + n] = keys.repeat_interleave(HQ // HKV, 1).transpose(0, 1)
-        vp[b, :, : bs + n] = vals.repeat_interleave(HQ // HKV, 1).transpose(0, 1)
+        kp[b, :, : bs + n] = keys.repeat_interleave(hq // hkv, 1).transpose(0, 1)
+        vp[b, :, : bs + n] = vals.repeat_interleave(hq // hkv, 1).transpose(0, 1)
         mask[b, 0] = (c <= bs + r) & (r < n)
+        if window > 0:
+            mask[b, 0] &= bs + r - c < window
     mask[:, :, :, 0] |= ~mask.any(-1)  # no fully masked row (pad rows)
     return qp, kp, vp, mask
 
@@ -1432,6 +1441,273 @@ def check_quantize_rule() -> None:
     print(f"kernels: quantize_kv_rows card == cpu: int8 {same_q}, scales {same_s}")
     if not (same_q and same_s):
         fail("quantize_kv_rows on the card differs from the CPU's")
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: every head geometry the kernels take
+# ---------------------------------------------------------------------------
+
+GEOM_GROUPS = tuple(range(1, 9))
+GEOM_HEAD_DIMS = (64, 96, 128, 256)
+GEOM_HKV, GEOM_PAGE = 2, 16
+# the small shapes of each geometry's checks: decode lanes (a full table, a
+# partial one, one position, an idle lane), ragged lanes (two decode rows,
+# a chunk from position 0, a chunk over a 64-token prefix), a bucket of
+# full prefill lanes, suffixes over a gathered prefix
+GEOM_DECODE = dict(kv_lens=[256, 77, 1, 0], width=16, window=50)
+GEOM_RAGGED = dict(bases=[150, 37, 0, 64], q_lens=[1, 1, 70, 23], width=16, window=40)
+GEOM_FLASH = dict(T=96, lens=[96, 33], window=30)
+GEOM_PREFIX = dict(T=48, Kp=64, offsets=[64, 17], lens=[48, 5], window=30)
+
+
+def geometry_case(pa, fp, ra, bucketing, d: int, group: int, dtype, rng, gen) -> Dict[str, float]:
+    """One geometry (Hkv = 2 KV heads of ``group`` query heads each, head
+    dim ``d``) in one dtype: each of the seven entries against its plain
+    version, with and without a window; returns the largest error of each."""
+    hkv, hq, page = GEOM_HKV, GEOM_HKV * group, GEOM_PAGE
+    i32 = dict(dtype=torch.int32, device="cuda")
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def pr(*vs) -> float:  # the bf16 kernels' P-rounding bound over the V rows read
+        return p_rounding(torch.cat([v.flatten() for v in vs]))
+
+    errs: Dict[str, float] = {}
+
+    def note(name: str, out, ref, bound: float) -> None:
+        what = f"{name} D={d} Hq={hq} Hkv={hkv}"
+        errs[name] = max(errs.get(name, 0.0), agree(what, out, ref, bound, quiet=True))
+
+    layer = 1
+    dc = GEOM_DECODE
+    n_pages = len(dc["kv_lens"]) * dc["width"] + 1
+    pool = rand(2, 2, n_pages, page, hkv, d)
+    table = lane_tables([-(-n // page) for n in dc["kv_lens"]], dc["width"], n_pages, rng)
+    lens = torch.tensor(dc["kv_lens"], **i32)
+    q = rand(len(dc["kv_lens"]), hq, d)
+    for window in (0, dc["window"]):
+        note("paged_decode_attention",
+             pa.paged_decode_attention(q, pool, table, lens, layer, window),
+             pa.paged_decode_attention_plain(q, pool, table, lens, layer, window),
+             pr(pool[layer, 1]))
+
+    rc = GEOM_RAGGED
+    bases, q_lens = rc["bases"], rc["q_lens"]
+    B = len(bases)
+    n_pages = B * rc["width"] + 1
+    pool = rand(2, 2, n_pages, page, hkv, d)
+    table = lane_tables([-(-(b + n) // page) for b, n in zip(bases, q_lens)], rc["width"],
+                        n_pages, rng)
+    base_t, ql_t = torch.tensor(bases, **i32), torch.tensor(q_lens, **i32)
+    s_max = bucketing.pow2_bucket(max(q_lens))
+    seg_off = np.cumsum([0] + q_lens[:-1])
+    Np = bucketing.packed_axis_len(s_max, int(seg_off[-1]), sum(q_lens))
+    off_t = torch.tensor(seg_off.tolist(), **i32)
+    pq, ps = int8_pool(pool)
+    deq = dequantized(pq[layer, 1], ps[layer, 1], dtype)
+    packed = (rand(Np, hq, d), rand(Np, hkv, d), rand(Np, hkv, d))
+    rect = (rand(B, s_max, hq, d), rand(B, s_max, hkv, d), rand(B, s_max, hkv, d))
+    for window in (0, rc["window"]):
+        for name, kv, scales, v_pool in (("", pool, None, pool[layer, 1]),
+                                         ("_int8", pq, ps, deq)):
+            args = (*packed, kv, table, base_t, off_t, ql_t)
+            note(f"packed_ragged_attention{name}",
+                 ra.packed_ragged_attention(*args, s_max, layer, window, scales),
+                 ra.packed_ragged_attention_plain(*args, layer, window, scales),
+                 pr(v_pool, packed[2]))
+            args = (*rect, kv, table, base_t, ql_t, layer, window, scales)
+            note(f"ragged_paged_attention{name}", ra.ragged_paged_attention(*args),
+                 ra.ragged_paged_attention_plain(*args), pr(v_pool, rect[2]))
+
+    fc = GEOM_FLASH
+    T = fc["T"]
+    fq, fk, fv = rand(len(fc["lens"]), T, hq, d), rand(len(fc["lens"]), T, hkv, d), \
+        rand(len(fc["lens"]), T, hkv, d)
+    lens = torch.tensor(fc["lens"], **i32)
+    for window in (0, fc["window"]):
+        note("flash_prefill_attention", fp.flash_prefill_attention(fq, fk, fv, lens, window),
+             fp.flash_prefill_attention_plain(fq, fk, fv, lens, window), pr(fv))
+    xc = GEOM_PREFIX
+    T, Kp, B = xc["T"], xc["Kp"], len(xc["lens"])
+    xq, xk, xv = rand(B, T, hq, d), rand(B, Kp + T, hkv, d), rand(B, Kp + T, hkv, d)
+    offset, lens = torch.tensor(xc["offsets"], **i32), torch.tensor(xc["lens"], **i32)
+    for window in (0, xc["window"]):
+        note("flash_prefix_prefill_attention",
+             fp.flash_prefix_prefill_attention(xq, xk, xv, offset, lens, window),
+             fp.flash_prefix_prefill_attention_plain(xq, xk, xv, offset, lens, window), pr(xv))
+    return errs
+
+
+def check_geometries(pa, fp, ra, bucketing) -> int:
+    """Every entry x dtype x GQA group 1..8 x D in GEOM_HEAD_DIMS against
+    its plain version at small shapes, the existing tolerances (F32_TOL;
+    BF16_ATOL + BF16_RTOL |ref| + the P-rounding bound).  Prints one line
+    per geometry (each entry's largest error in bf16 and f32); returns the
+    number of comparisons."""
+    rng = np.random.default_rng(5)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    t0 = time.perf_counter()
+    n = 0
+    short = {"paged_decode_attention": "k1", "flash_prefill_attention": "k2",
+             "flash_prefix_prefill_attention": "k3", "ragged_paged_attention": "k4",
+             "ragged_paged_attention_int8": "k4q", "packed_ragged_attention": "k5",
+             "packed_ragged_attention_int8": "k5q"}
+    print(f"kernels: geometry rows give each entry's max_abs_err ({short})")
+    for d in GEOM_HEAD_DIMS:
+        for group in GEOM_GROUPS:
+            parts = []
+            for dtype in (torch.bfloat16, torch.float32):
+                errs = geometry_case(pa, fp, ra, bucketing, d, group, dtype, rng, gen)
+                n += 2 * len(errs)
+                parts.append(str(dtype)[6:] + " " + " ".join(
+                    f"{short[k]}={errs[k]:.2e}" for k in short))
+            print(f"kernels: geometry D={d} group={group} Hq={GEOM_HKV * group} "
+                  f"Hkv={GEOM_HKV}: {'; '.join(parts)}")
+    torch.cuda.synchronize()
+    print(f"kernels: geometries: {n} comparisons over {len(GEOM_HEAD_DIMS)} head dims x "
+          f"{len(GEOM_GROUPS)} groups x 2 dtypes x 7 entries in "
+          f"{time.perf_counter() - t0:.3f} s")
+    return n
+
+
+# the new geometries' timed rows: (model, Hq, Hkv, D, window) and the
+# kernels timed at serve's shapes for each
+GEOM_MODELS = {
+    "llama3_70b": ((64, 8, 128, 0), ("paged_decode_attention", "packed_ragged_attention")),
+    "gemma_7b": ((16, 16, 256, 0), ("paged_decode_attention", "flash_prefill_attention",
+                                    "packed_ragged_attention")),
+    "phi3_mini": ((32, 32, 96, 2047), ("paged_decode_attention", "flash_prefill_attention",
+                                       "packed_ragged_attention")),
+}
+GEOM_LAYERS = 8  # pool layers the timing rotates over (K/V cold in L2)
+
+
+def geometry_row(kind: str, model: str, geom, pa, fp, ra, bucketing, rng, gen) -> Dict[str, object]:
+    """One kernel timed at serve's shapes at a model's head geometry:
+    checked against its plain version (bf16), its CUDA-event time, its
+    plain version's, one SDPA call's on the same (gathered) operands, and
+    the bound from this run's inputs."""
+    hq, hkv, d, window = geom
+    i32 = dict(dtype=torch.int32, device="cuda")
+    bf = torch.bfloat16
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf)
+
+    what = f"{kind}/{model} Hq={hq} Hkv={hkv} D={d} window={window}"
+    if kind == "paged_decode_attention":
+        kv_lens = [2048, 1791, 1500, 1203, 1024, 640, 257, 33]
+        B, width = len(kv_lens), 2048 // PAGE
+        n_pages = B * width + 1
+        pool = rand(GEOM_LAYERS, 2, n_pages, PAGE, hkv, d)
+        table = lane_tables([-(-n // PAGE) for n in kv_lens], width, n_pages, rng)
+        lens = torch.tensor(kv_lens, **i32)
+        q = rand(B, hq, d)
+        err = agree(what, pa.paged_decode_attention(q, pool, table, lens, 3, window),
+                    pa.paged_decode_attention_plain(q, pool, table, lens, 3, window),
+                    p_rounding(pool[3, 1]))
+        call = lambda i: pa.paged_decode_attention(q, pool, table, lens, i % GEOM_LAYERS, window)  # noqa: E731
+        ms, dev_ms = cuda_ms(call, 64), device_ms(call)
+        plain_ms = cuda_ms(lambda i: pa.paged_decode_attention_plain(
+            q, pool, table, lens, i % GEOM_LAYERS, window), 8)
+        T = width * PAGE
+        k = pool[0, 0][table.long()].reshape(B, T, hkv, d).repeat_interleave(hq // hkv, 2)
+        v = pool[0, 1][table.long()].reshape(B, T, hkv, d).repeat_interleave(hq // hkv, 2)
+        k, v = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        idx = torch.arange(T, device="cuda")[None, :]
+        mask = idx < lens[:, None].long()
+        if window > 0:
+            mask &= idx >= lens[:, None].long() - window
+        mask = mask[:, None, None, :]
+        library_ms = cuda_ms(lambda i: sdpa_padded(q[:, :, None, :], k, v, mask), 64)
+        live = sum(min(n, window) if window > 0 else n for n in kv_lens)
+        bytes_moved = 2 * B * hq * d * 2 + live * hkv * d * 2 * 2 + table.numel() * 4 + B * 4
+        flops = 4.0 * live * hq * d
+        extra = dict(device_ms=dev_ms)
+        source, replaces = "paged_decode_attention.cu", "dynamo_tpu/ops/paged_attention.py:124"
+        del pool, k, v
+    elif kind == "flash_prefill_attention":
+        B, T, n = 1, 2048, 1200
+        lens = torch.tensor([n], **i32)
+        q, k, v = rand(B, T, hq, d), rand(B, T, hkv, d), rand(B, T, hkv, d)
+        err = agree(what, fp.flash_prefill_attention(q, k, v, lens, window),
+                    fp.flash_prefill_attention_plain(q, k, v, lens, window), p_rounding(v))
+        ms = cuda_ms(lambda i: fp.flash_prefill_attention(q, k, v, lens, window), 16)
+        plain_ms = cuda_ms(lambda i: fp.flash_prefill_attention_plain(q, k, v, lens, window), 4)
+        r = torch.arange(n, device="cuda")[:, None]
+        c = torch.arange(n, device="cuda")[None, :]
+        mask = (c <= r) & ((r - c < window) if window > 0 else True)
+        rep = hq // hkv
+        kh = k[0, :n].repeat_interleave(rep, 1).transpose(0, 1)[None].contiguous()
+        vh = v[0, :n].repeat_interleave(rep, 1).transpose(0, 1)[None].contiguous()
+        qh = q[:, :n].transpose(1, 2).contiguous()
+        library_ms = cuda_ms(lambda i: sdpa_padded(qh, kh, vh, mask[None, None]), 16)
+        pairs = sum(min(i + 1, window) if window > 0 else i + 1 for i in range(n))
+        bytes_moved = n * hq * d * 2 + 2 * n * hkv * d * 2 + B * T * hq * d * 2 + B * 4
+        flops = 4.0 * hq * d * pairs
+        extra = {}
+        source, replaces = "flash_prefill.cu", "dynamo_tpu/ops/flash_prefill.py:125"
+    else:
+        bases = [2047, 1790, 1499, 1202, 640, 256, 32, 1024]
+        q_lens = [1, 1, 1, 1, 1, 1, 1, 505]
+        B, width = len(bases), 2048 // PAGE
+        n_pages = B * width + 1
+        s_max = bucketing.pow2_bucket(max(q_lens))
+        seg_off = np.cumsum([0] + q_lens[:-1])
+        Np = bucketing.packed_axis_len(s_max, int(seg_off[-1]), sum(q_lens))
+        pool = rand(GEOM_LAYERS, 2, n_pages, PAGE, hkv, d)
+        table = lane_tables([-(-(b + n) // PAGE) for b, n in zip(bases, q_lens)], width,
+                            n_pages, rng)
+        base_t, ql_t = torch.tensor(bases, **i32), torch.tensor(q_lens, **i32)
+        off_t = torch.tensor(seg_off.tolist(), **i32)
+        q, k, v = rand(Np, hq, d), rand(Np, hkv, d), rand(Np, hkv, d)
+        args = (q, k, v, pool, table, base_t, off_t, ql_t)
+        err = agree(what, ra.packed_ragged_attention(*args, s_max, 3, window),
+                    ra.packed_ragged_attention_plain(*args, 3, window),
+                    p_rounding(torch.cat([pool[3, 1].flatten(), v.flatten()])))
+        ms = cuda_ms(lambda i: ra.packed_ragged_attention(
+            *args, s_max, i % GEOM_LAYERS, window), 32)
+        plain_ms = cuda_ms(lambda i: ra.packed_ragged_attention_plain(
+            *args, i % GEOM_LAYERS, window), 4)
+        segs = [slice(o, o + n) for o, n in zip(seg_off.tolist(), q_lens)]
+        padded = sdpa_lanes(pool, table, bases, [(q[sl], k[sl], v[sl]) for sl in segs], s_max,
+                            window)
+        library_ms = cuda_ms(lambda i: sdpa_padded(*padded), 32)
+        del padded
+        rows = sum(q_lens)
+        # keys each row attends (window cut) and the prefix positions read
+        pairs = sum(min(bs + r + 1, window) if window > 0 else bs + r + 1
+                    for bs, n in zip(bases, q_lens) for r in range(n))
+        prefix = sum(bs - max(0, bs - window + 1) if window > 0 else bs for bs in bases)
+        bytes_moved = (rows * hq * d * 2 + 2 * rows * hkv * d * 2 + Np * hq * d * 2
+                       + table.numel() * 4 + 3 * B * 4 + 2 * prefix * hkv * d * 2)
+        flops = 4.0 * pairs * hq * d
+        extra = {}
+        source, replaces = ("packed_ragged_attention.cu",
+                            "dynamo_tpu/ops/ragged_attention.py:527")
+        del pool
+    bound_ms, bound_by = bound(bytes_moved, flops)
+    return dict(
+        name=f"{kind}/{model}", route="cuda", source=f"dynamo_tpu_torch/csrc/{source}",
+        replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=library_ms, tflops=flops / ms / 1e9,
+        bound_share=bound_ms / ms, **extra,
+    )
+
+
+def geometry_rows(pa, fp, ra, bucketing) -> List[Dict[str, object]]:
+    rng = np.random.default_rng(6)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    rows = []
+    for model, (geom, kinds) in GEOM_MODELS.items():
+        for kind in kinds:
+            rows.append(geometry_row(kind, model, geom, pa, fp, ra, bucketing, rng, gen))
+            gc.collect()
+            torch.cuda.empty_cache()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -7546,7 +7822,7 @@ def card_holders(top: int = 6) -> str:
             f"{live:.3f} GiB; largest: {rows}")
 
 
-def assert_card_free(what: str, plan) -> int:
+def assert_card_free(what: str, plan, phase: str = "serve-moe") -> int:
     """Free the earlier phases' tensors; the card must have room for the
     plan's params, KV, scratch and dequantization.  Returns the bytes
     still allocated; above 0.1 GiB it prints who holds them."""
@@ -7555,13 +7831,13 @@ def assert_card_free(what: str, plan) -> int:
     held = torch.cuda.memory_allocated()
     free, total = torch.cuda.mem_get_info()
     need = plan.param_bytes + plan.kv_bytes + plan.scratch_bytes + plan.dequant_bytes
-    print(f"serve-moe: {what} before: {held / 2**30:.3f} GiB still allocated, "
+    print(f"{phase}: {what} before: {held / 2**30:.3f} GiB still allocated, "
           f"{free / 2**30:.3f} of {total / 2**30:.3f} GiB free, the plan needs "
           f"{need / 2**30:.3f}")
     if held > 0.1 * 2**30:
-        print(f"serve-moe: {what} still allocated: {card_holders()}")
+        print(f"{phase}: {what} still allocated: {card_holders()}")
     if free < need:
-        fail(f"serve-moe {what}: {held / 2**30:.3f} GiB still held, {free / 2**30:.3f} GiB "
+        fail(f"{phase} {what}: {held / 2**30:.3f} GiB still held, {free / 2**30:.3f} GiB "
              f"free, {need / 2**30:.3f} GiB needed")
     return held
 
@@ -7936,6 +8212,265 @@ def serve_moe_phase(ref: Dict[str, object], card: str) -> Dict[str, Dict[str, in
     return {"b": width, "c": whole}
 
 
+# ---------------------------------------------------------------------------
+# serve-geometry: the head geometries beyond Llama-3-8B's
+# ---------------------------------------------------------------------------
+
+# (a): small f32 models at the head counts and head dims of published
+# checkpoints (hidden 128, 2 layers): group 1 (Llama-2-7B), 3 (Llama-3.2-3B),
+# 7 (Qwen2-7B, its qkv bias), 8 (Llama-3-70B), D 96 (Phi-3-mini, a window
+# shorter than the longest prompt) and D 256 (Gemma-7B, its GELU, offset
+# norm and scaled embeddings)
+GEOM_SMALL = {
+    "group1-32-32-128": dict(num_heads=32, num_kv_heads=32, head_dim=128),
+    "group3-24-8-128": dict(num_heads=24, num_kv_heads=8, head_dim=128),
+    "group7-28-4-128": dict(num_heads=28, num_kv_heads=4, head_dim=128, attention_bias=True),
+    "group8-64-8-128": dict(num_heads=64, num_kv_heads=8, head_dim=128),
+    "d96-32-32-96": dict(num_heads=32, num_kv_heads=32, head_dim=96, sliding_window=32),
+    "d256-16-16-256": dict(num_heads=16, num_kv_heads=16, head_dim=256,
+                           hidden_act="gelu_tanh", rms_norm_offset=True,
+                           scale_embeddings=True, tie_word_embeddings=True),
+}
+# (b): Llama-3-70B at 16 of its 80 layers in bf16 (about 29 GiB of weights)
+GEOM_70B_LAYERS = 16
+# (d): the published config.json values of three checkpoints, served at
+# GEOM_WIDTH_LAYERS layers in bf16
+GEOM_HF_CONFIGS = {
+    "qwen2_7b": {"model_type": "qwen2", "vocab_size": 152064, "hidden_size": 3584,
+                 "intermediate_size": 18944, "num_hidden_layers": 28,
+                 "num_attention_heads": 28, "num_key_value_heads": 4,
+                 "rope_theta": 1000000.0, "rms_norm_eps": 1e-6,
+                 "max_position_embeddings": 131072, "use_sliding_window": False},
+    "gemma_7b": {"model_type": "gemma", "vocab_size": 256000, "hidden_size": 3072,
+                 "intermediate_size": 24576, "num_hidden_layers": 28,
+                 "num_attention_heads": 16, "num_key_value_heads": 16, "head_dim": 256,
+                 "hidden_activation": "gelu_pytorch_tanh", "rope_theta": 10000.0,
+                 "rms_norm_eps": 1e-6, "max_position_embeddings": 8192,
+                 "tie_word_embeddings": True},
+    "phi3_mini": {"model_type": "phi3", "vocab_size": 32064, "hidden_size": 3072,
+                  "intermediate_size": 8192, "num_hidden_layers": 32,
+                  "num_attention_heads": 32, "num_key_value_heads": 32,
+                  "rope_theta": 10000.0, "rms_norm_eps": 1e-5,
+                  "max_position_embeddings": 4096, "sliding_window": 2047},
+}
+GEOM_WIDTH_LAYERS = 2
+
+
+def geometry_small(ref: Dict[str, object], card: str) -> None:
+    """(a) Each small model on the card and on the CPU from the same f32
+    weights, under the default config and over the int8 pool: identical
+    greedy streams of the reference phase's first batch."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.model import init_params
+
+    batch = [dict(r, stop_conditions={"max_tokens": 12}) for r in ref["batches"][0][:3]]
+    for name, over in GEOM_SMALL.items():
+        cfg = ModelConfig.tiny(hidden_size=128, intermediate_size=256, num_layers=2, **over)
+        params = init_params(cfg, 4, torch.device("cpu"), torch.float32)
+        for kv in ("dense", "int8"):
+            ecfg = EngineConfig(**ref["ecfg"], **({"kv_dtype": "int8"} if kv == "int8" else {}))
+            streams = {}
+            for dev in ("cuda", "cpu"):
+                eng = TorchEngine(cfg, params_on(params, dev), ecfg, device=dev)
+                streams[dev] = [r["tokens"] for r in asyncio.run(serve(eng, [batch]))]
+            print(f"serve-geometry: (a) {name} {kv} card {streams['cuda']}")
+            if streams["cuda"] != streams["cpu"]:
+                fail(f"serve-geometry (a) {name} {kv}: card {streams['cuda']} != cpu "
+                     f"{streams['cpu']}")
+            if [len(t) for t in streams["cuda"]] != [12] * len(batch):
+                fail(f"serve-geometry (a) {name} {kv}: streams end early")
+
+
+def geometry_serve(engine, primer, batch, max_tokens: int, what: str, card: str,
+                   base: int) -> Dict[str, object]:
+    """One served run, cold then warm: every stream ends with its
+    ``max_tokens``, the launch invariants hold; prints tok/s, the
+    decode-phase rate, TTFT and the peak above ``base``."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res, wall, warm, wall_w, marks = serve_cold_warm(engine, primer, batch)
+    counted = read_launches()
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    check_launch_invariants(f"serve-geometry: {what}", engine, counted)
+    for i, r in enumerate(res[1:] + warm):
+        if len(r["tokens"]) != max_tokens or r["finish"] != "length":
+            fail(f"serve-geometry {what} request {i}: {len(r['tokens'])} tokens, "
+                 f"finish {r['finish']}")
+    st, st_w = served_stats(res, wall), served_stats(warm, wall_w, primed=False)
+    print(f"serve-geometry: {what} wall_s={wall:.3f} tok_s={st['tok_s']:.3f} "
+          f"decode_phase_tok_s={st['dec']:.3f} ttft_ms="
+          f"{[round(r['ttft'] * 1e3, 3) for r in res[1:]]} peak_mem_gib={peak_gib:.3f} "
+          f"(above the run's start) dispatches_by_k={dict(engine.dispatches_by_k)} on {card}")
+    print(f"serve-geometry: {what} warm wall_s={wall_w:.3f} tok_s={st_w['tok_s']:.3f} "
+          f"decode_phase_tok_s={st_w['dec']:.3f} ttft_ms="
+          f"{[round(r['ttft'] * 1e3, 3) for r in warm]} on {card}")
+    print(f"serve-geometry: {what} {loop_line(engine, wall + wall_w)}")
+    return dict(launches=counted, peak_gib=peak_gib, tok_s=st["tok_s"],
+                tok_s_warm=st_w["tok_s"])
+
+
+def geometry_70b(card: str) -> Dict[str, int]:
+    """(b) Llama-3-70B's widths at GEOM_70B_LAYERS layers, bf16, random
+    weights of seed 0, ``EngineConfig(num_pages=1024)``: the plan printed,
+    serve's primer and batch cold and warm.  Returns its launches."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.memory_plan import plan_memory
+
+    cfg = ModelConfig.llama3_70b(num_layers=GEOM_70B_LAYERS)
+    plan = plan_memory(cfg, num_pages=1024)
+    print(f"serve-geometry: (b) Llama-3-70B, {GEOM_70B_LAYERS} layers, bf16: plan params "
+          f"{plan.param_bytes / 2**30:.3f} GiB, kv {plan.kv_bytes / 2**30:.3f}, scratch "
+          f"{plan.scratch_bytes / 2**30:.3f}, reserve {plan.reserve_bytes / 2**30:.3f}, whole "
+          f"{plan.total_bytes / 2**30:.3f} of {plan.hbm_bytes / 2**30:.3f} GiB, fits {plan.fits}")
+    if not plan.fits:
+        fail(f"serve-geometry (b): the plan does not fit: {plan}")
+    base = assert_card_free("(b)", plan, "serve-geometry")
+    t0 = time.perf_counter()
+    engine = TorchEngine.random_init(cfg, EngineConfig(num_pages=1024), seed=0)
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated() - base
+    print(f"serve-geometry: (b) made in {time.perf_counter() - t0:.3f} s: "
+          f"{weights / 2**30:.3f} GiB allocated (plan params + kv "
+          f"{(plan.param_bytes + plan.kv_bytes) / 2**30:.3f}) on {card}")
+    primer, batch = serve_requests(cfg.vocab_size)
+    run = geometry_serve(engine, primer, batch, 64, "(b) Llama-3-70B 16 layers", card, base)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run["launches"]
+
+
+def geometry_70b_int8(card: str) -> Dict[str, int]:
+    """(c) The whole Llama-3-70B, 80 layers, int8 weights made and
+    quantized one layer at a time, ``EngineConfig(num_pages=256,
+    max_batch_size=4, quantize="int8")``: the plan printed, four of serve's
+    requests with 16 new tokens, cold and warm; the peak under the card's
+    memory and the plan's params + KV + scratch + dequantization."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.memory_plan import plan_memory
+    from dynamo_tpu_torch.engine.quant import weight_bytes
+
+    cfg = ModelConfig.llama3_70b()
+    plan = plan_memory(cfg, quantize="int8", num_pages=256, max_batch_size=4)
+    print(f"serve-geometry: (c) Llama-3-70B, 80 layers, int8 weights: plan params "
+          f"{plan.param_bytes / 2**30:.3f} GiB, kv {plan.kv_bytes / 2**30:.3f}, scratch "
+          f"{plan.scratch_bytes / 2**30:.3f}, dequant {plan.dequant_bytes / 2**30:.3f}, reserve "
+          f"{plan.reserve_bytes / 2**30:.3f}, whole {plan.total_bytes / 2**30:.3f} of "
+          f"{plan.hbm_bytes / 2**30:.3f} GiB, fits {plan.fits}")
+    if not plan.fits:
+        fail(f"serve-geometry (c): the plan does not fit: {plan}")
+    base = assert_card_free("(c)", plan, "serve-geometry")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = TorchEngine.random_init(
+        cfg, EngineConfig(num_pages=256, max_batch_size=4, quantize="int8"), seed=0
+    )
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated() - base
+    held = weight_bytes(engine.params)
+    print(f"serve-geometry: (c) int8 weights {held / 2**30:.3f} GiB (plan "
+          f"{plan.param_bytes / 2**30:.3f}) made layer by layer in "
+          f"{time.perf_counter() - t0:.3f} s, init peak {init_peak / 2**30:.3f} GiB on {card}")
+    if held != plan.param_bytes:
+        fail(f"serve-geometry (c): int8 weights hold {held} bytes, the plan {plan.param_bytes}")
+    primer, batch = serve_requests(cfg.vocab_size)
+    primer = [request(r["token_ids"][:64], 4) for r in primer]
+    batch = [dict(r, stop_conditions={"max_tokens": 16}) for r in batch[2:6]]
+    run = geometry_serve(engine, primer, batch, 16, "(c) Llama-3-70B 80 layers int8", card, base)
+    bound = plan.param_bytes + plan.kv_bytes + plan.scratch_bytes + plan.dequant_bytes
+    total = plan.hbm_bytes
+    print(f"serve-geometry: (c) peak {run['peak_gib']:.3f} GiB above the phase's start against "
+          f"the plan's params + kv + scratch + dequant {bound / 2**30:.3f} GiB and the card's "
+          f"{total / 2**30:.3f} GiB")
+    if run["peak_gib"] * 2**30 > min(bound, total - base):
+        fail(f"serve-geometry (c): peak {run['peak_gib']:.3f} GiB over the plan's "
+             f"{bound / 2**30:.3f} GiB or the card's")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run["launches"]
+
+
+def geometry_widths(card: str) -> Dict[str, Dict[str, int]]:
+    """(d) Qwen2-7B, Gemma-7B and Phi-3-mini from their published
+    config.json values at GEOM_WIDTH_LAYERS layers, bf16, random weights of
+    seed 0, ``EngineConfig(num_pages=1024)``: serve's batch once under the
+    default config and once classic (``mixed_batching=False``, whose full
+    prefills launch kernel 2), 32 new tokens a request; every stream ends
+    with them and the launch invariants hold.  Returns each model's
+    launches (kernels 1 and 5 of the default run, 2 of the classic)."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.model import init_params
+
+    out = {}
+    for name, hf in GEOM_HF_CONFIGS.items():
+        cfg = ModelConfig.from_hf_config(dict(hf, num_hidden_layers=GEOM_WIDTH_LAYERS))
+        params = init_params(cfg, 0, torch.device("cuda"), torch.bfloat16)
+        _, batch = serve_requests(cfg.vocab_size)
+        batch = [dict(r, stop_conditions={"max_tokens": 32}) for r in batch]
+        counted = {}
+        for what, kw in (("default", {}), ("classic", dict(mixed_batching=False))):
+            engine = TorchEngine(cfg, params, EngineConfig(num_pages=1024, **kw))
+            reset_launches()
+            t0 = time.perf_counter()
+            res = asyncio.run(serve(engine, [batch]))
+            wall = time.perf_counter() - t0
+            counted[what] = read_launches()
+            check_launch_invariants(f"serve-geometry: (d) {name} {what}", engine,
+                                    counted[what])
+            for i, r in enumerate(res):
+                if len(r["tokens"]) != 32 or r["finish"] != "length":
+                    fail(f"serve-geometry (d) {name} {what} request {i}: "
+                         f"{len(r['tokens'])} tokens, finish {r['finish']}")
+            print(f"serve-geometry: (d) {name} {what} Hq={cfg.num_heads} "
+                  f"Hkv={cfg.num_kv_heads} D={cfg.head_dim} window={cfg.sliding_window} "
+                  f"{GEOM_WIDTH_LAYERS} layers: wall_s={wall:.3f} "
+                  f"tok_s={sum(len(r['tokens']) for r in res) / wall:.3f} on {card}")
+            del engine
+        out[name] = {
+            "paged_decode_attention": counted["default"]["paged_decode_attention"],
+            "packed_ragged_attention": counted["default"]["packed_ragged_attention"],
+            "flash_prefill_attention": counted["classic"]["flash_prefill_attention"],
+        }
+        for kernel, n in out[name].items():
+            if n <= 0:
+                fail(f"serve-geometry (d) {name}: {kernel} never launched")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_geometry_phase(ref: Dict[str, object], card: str) -> Dict[str, Dict[str, int]]:
+    """The head geometries beyond Llama-3-8B's: (a) small f32 models card
+    against CPU, (b) Llama-3-70B's widths at 16 layers in bf16, (c) the
+    whole Llama-3-70B with int8 weights, (d) Qwen2-7B, Gemma-7B and
+    Phi-3-mini at two layers.  Returns each model's launches of the kernels
+    its timed rows measure."""
+    t0 = time.perf_counter()
+    geometry_small(ref, card)
+    t_a = time.perf_counter()
+    b = geometry_70b(card)
+    t_b = time.perf_counter()
+    c = geometry_70b_int8(card)
+    t_c = time.perf_counter()
+    widths = geometry_widths(card)
+    t_d = time.perf_counter()
+    print(f"serve-geometry: phase {t_d - t0:.3f} s ((a) {t_a - t0:.3f}, (b) {t_b - t_a:.3f}, "
+          f"(c) {t_c - t_b:.3f}, (d) {t_d - t_c:.3f}); launches (b) "
+          f"{ {k: b[k] for k in ('packed_ragged_attention', 'paged_decode_attention')} }, (c) "
+          f"{ {k: c[k] for k in ('packed_ragged_attention', 'paged_decode_attention')} }, "
+          f"(d) {widths} on {card}")
+    for kernel in ("packed_ragged_attention", "paged_decode_attention"):
+        if b[kernel] <= 0 or c[kernel] <= 0:
+            fail(f"serve-geometry: {kernel} never launched at Llama-3-70B's geometry")
+    return {"llama3_70b": b, **widths}
+
+
 def profile_phase(out_path: str, plain_walls: Dict[str, float]) -> None:
     """``--profile OUT.txt``: each served cell once more -- the serve
     phase's run, serve-classic runs A and B and serve-int8 run Q, the same
@@ -8073,10 +8608,10 @@ def main() -> None:
             if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln)):
                 fail(f"{name} spills: {ln}")
     check_tensor_cores(build, [
-        # head dims 64 and 128, groups 2 and 4
+        # one instantiation per head dim (64, 96, 128, 256), the group at
+        # run time; the ragged kernel's for the dense and the int8 pool
         (pa.KERNEL, "paged_decode_tc_kernel", "paged_decode_kernel", 4),
-        (fp.KERNEL, "flash_tc_kernel", "flash_kernel", 2),  # head dims 64 and 128
-        # head dims 64 and 128, groups 2 and 4, the dense and the int8 pool
+        (fp.KERNEL, "flash_tc_kernel", "flash_kernel", 4),
         (ra.KERNEL, "ragged_tc_kernel", "ragged_kernel", 8),
     ])
     print(f"build: {time.perf_counter() - t0:.3f} s", flush=True)
@@ -8093,6 +8628,8 @@ def main() -> None:
     rows += [check_export_flash(fp, bucketing, gen), check_disagg_decode(pa, rng, gen),
              check_disagg_packed(ra, bucketing, rng, gen)]
     check_quantize_rule()
+    check_geometries(pa, fp, ra, bucketing)
+    rows += geometry_rows(pa, fp, ra, bucketing)
     for r in rows:
         print(
             f"kernels: {r['name']} ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} "
@@ -8148,6 +8685,8 @@ def main() -> None:
     finally:
         shutil.rmtree(ckpt_tmp, ignore_errors=True)
     serve_moe_phase(ref, card)
+    held_after("serve-moe")
+    geometry = serve_geometry_phase(ref, card)
     if profile_out is not None:
         profile_phase(
             profile_out,
@@ -8173,6 +8712,10 @@ def main() -> None:
         "paged_decode_attention/disagg": disagg["paged_decode_attention"],
         "packed_ragged_attention/disagg": disagg["packed_ragged_attention"],
     }
+    # the new geometries' rows: from serve-geometry's runs
+    for model, (_, kinds) in GEOM_MODELS.items():
+        for kernel in kinds:
+            launches[f"{kernel}/{model}"] = geometry[model][kernel]
     for r in rows:
         r["launches"] = launches[r["name"]]
     print(f"chip_smoke: whole run {time.perf_counter() - t_all:.3f} s on {card}")

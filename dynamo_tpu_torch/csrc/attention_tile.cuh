@@ -14,9 +14,11 @@
 // with a window, only to keys with qpos - kpos < window.  A full prefill is
 // the case base = 0 with no prefix.
 //
-// One CTA serves TILE_QV = 64 query vectors: TQ = 64 / NREP consecutive rows
-// times the NREP query heads of one KV head, so every K/V row it loads
-// serves the whole GQA group.  The query vectors sit pre-scaled in shared
+// One CTA serves TILE_QV = 64 query vectors: TQ = 64 / nrep (rounded down)
+// consecutive rows times the nrep query heads of one KV head, so every K/V
+// row it loads serves the whole GQA group; a group that does not divide 64
+// (3, 5, 6, 7) leaves the last 64 - TQ * nrep vectors idle.  The group is a
+// runtime argument: the routine is instantiated by dtype and head dim.  The query vectors sit pre-scaled in shared
 // memory; keys stream through shared memory TILE_KT = 32 at a time as f32,
 // with 16-byte vector loads of the compute type (an int8 prefix row loads
 // the same elements in 4 or 8 bytes and dequantizes on the way in); each
@@ -116,22 +118,21 @@ struct ContiguousPrefix {
     }
 };
 
-// One CTA: query rows r < rows at absolute positions qpos0 + r (row r reads
-// q + r * q_stride + h * D for GQA head h of the group and writes out at the
-// same offset); fresh key row j (position base + j) at fk/fv + j * f_stride.
-// Launch with TILE_WARPS * 32 threads and tile_smem_bytes<D>() of dynamic
-// shared memory.
-template <typename T, int D, int NREP, typename Prefix>
+// One CTA: query rows r < rows (rows <= TILE_QV / nrep) at absolute
+// positions qpos0 + r (row r reads q + r * q_stride + h * D for GQA head h
+// of the group and writes out at the same offset); fresh key row j
+// (position base + j) at fk/fv + j * f_stride.  Launch with TILE_WARPS * 32
+// threads and tile_smem_bytes<D>() of dynamic shared memory.
+template <typename T, int D, typename Prefix>
 __device__ __forceinline__ void attend_tile(const T* __restrict__ q, T* __restrict__ out,
                                             size_t q_stride, const T* __restrict__ fk,
                                             const T* __restrict__ fv, size_t f_stride,
                                             const Prefix& prefix, int rows, int qpos0,
-                                            int base, int window, float scale) {
+                                            int base, int window, float scale, int nrep) {
     constexpr int VPW = TILE_QV / TILE_WARPS;  // query vectors per warp
     constexpr int EPL = D / 32;                // output dims per lane
     constexpr int VEC = 16 / (int)sizeof(T);   // elements per 16-byte load
     constexpr int CPR = D / VEC;               // 16-byte chunks per row
-    static_assert(TILE_QV % NREP == 0, "the GQA group must tile the CTA");
 
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
@@ -141,12 +142,12 @@ __device__ __forceinline__ void attend_tile(const T* __restrict__ q, T* __restri
     float* sk = sq + TILE_QV * D;         // [KT][D + 1] (padded: lane j reads row j)
     float* sv = sk + TILE_KT * (D + 1);   // [KT][D]
 
-    // vector qi = r * NREP + h: row r, query head h of the group
+    // vector qi = r * nrep + h: row r, query head h of the group
     for (int c = threadIdx.x; c < TILE_QV * CPR; c += blockDim.x) {
         const int qi = c / CPR;
         const int d0 = (c % CPR) * VEC;
-        const int r = qi / NREP;
-        const int h = qi % NREP;
+        const int r = qi / nrep;
+        const int h = qi % nrep;
         float x[VEC];
         if (r < rows) {
             load_vec<T, VEC>(q + (size_t)r * q_stride + (size_t)h * D + d0, x);
@@ -230,7 +231,7 @@ __device__ __forceinline__ void attend_tile(const T* __restrict__ q, T* __restri
 #pragma unroll
         for (int jv = 0; jv < VPW; ++jv) {
             const int qi = warp + TILE_WARPS * jv;
-            const int r = qi / NREP;
+            const int r = qi / nrep;
             if (r >= rows) continue;  // warp-uniform
             const int qpos = qpos0 + r;
             const bool valid = in_range && kpos <= qpos && (window <= 0 || qpos - kpos < window);
@@ -264,9 +265,9 @@ __device__ __forceinline__ void attend_tile(const T* __restrict__ q, T* __restri
 #pragma unroll
     for (int jv = 0; jv < VPW; ++jv) {
         const int qi = warp + TILE_WARPS * jv;
-        const int r = qi / NREP;
+        const int r = qi / nrep;
         if (r >= rows) continue;
-        const int h = qi % NREP;
+        const int h = qi % nrep;
         const float inv = l[jv] > 0.f ? 1.f / l[jv] : 0.f;
         T* o = out + (size_t)r * q_stride + (size_t)h * D + lane;
 #pragma unroll
@@ -274,32 +275,25 @@ __device__ __forceinline__ void attend_tile(const T* __restrict__ q, T* __restri
     }
 }
 
-// Runs f.template launch<T, D, NREP>() for the runtime dtype, head dim and
-// GQA group.  The instantiations are those of the port's configs: f32 and
-// bf16, D 64 and 128, groups 2 (ModelConfig.tiny) and 4 (Llama-3-8B);
-// another geometry is refused.
-template <typename T, int D, typename F>
-cudaError_t by_group(int n_rep, F& f) {
-    switch (n_rep) {
-        case 2: return f.template launch<T, D, 2>();
-        case 4: return f.template launch<T, D, 4>();
-        default: return cudaErrorInvalidValue;
-    }
-}
-
+// Runs f.template launch<T, D>() for the runtime dtype and head dim (the
+// group rides in ``f``).  The instantiations: f32 and bf16, D 64, 96, 128
+// and 256; another dtype or head dim is refused.
 template <typename T, typename F>
-cudaError_t by_head_dim(int D, int n_rep, F& f) {
+cudaError_t by_head_dim(int D, F& f) {
     switch (D) {
-        case 64: return by_group<T, 64>(n_rep, f);
-        case 128: return by_group<T, 128>(n_rep, f);
+        case 64: return f.template launch<T, 64>();
+        case 96: return f.template launch<T, 96>();
+        case 128: return f.template launch<T, 128>();
+        case 256: return f.template launch<T, 256>();
         default: return cudaErrorInvalidValue;
     }
 }
 
 template <typename F>
 cudaError_t by_geometry(int dtype, int D, int n_rep, F& f) {
-    if (dtype == DTYPE_BF16) return by_head_dim<__nv_bfloat16>(D, n_rep, f);
-    if (dtype == DTYPE_F32) return by_head_dim<float>(D, n_rep, f);
+    if (n_rep < 1 || n_rep > MAX_GROUP) return cudaErrorInvalidValue;
+    if (dtype == DTYPE_BF16) return by_head_dim<__nv_bfloat16>(D, f);
+    if (dtype == DTYPE_F32) return by_head_dim<float>(D, f);
     return cudaErrorInvalidValue;
 }
 

@@ -15,6 +15,9 @@ namespace dyn {
 constexpr int DTYPE_F32 = 0;
 constexpr int DTYPE_BF16 = 1;
 
+// the GQA groups (Hq / Hkv) every attention entry takes: 1 to MAX_GROUP
+constexpr int MAX_GROUP = 8;
+
 // score of a masked key before any valid one was seen; exp(NEG - m) == 0
 // for any real m, and a row whose every key is masked keeps l == 0 and
 // writes zeros (the Pallas kernels' convention for dead rows)
@@ -34,12 +37,17 @@ template <> struct VecType<16> { using type = uint4; };
 template <> struct VecType<8> { using type = uint2; };
 template <> struct VecType<4> { using type = unsigned int; };
 
-// N contiguous elements (N * sizeof(T) bytes, 4..16, or a multiple of 16)
-// into f32 registers with vector loads; the caller guarantees alignment
+// N contiguous elements (N * sizeof(T) bytes, 4, 8, 16 or a multiple of
+// 16) into f32 registers with vector loads; the caller guarantees
+// alignment.  Another width under 16 bytes (a lane's 3 f32 elements of a
+// D = 96 row) loads element by element.
 template <typename T, int N>
 __device__ __forceinline__ void load_vec(const T* __restrict__ p, float (&out)[N]) {
     constexpr int BYTES = N * (int)sizeof(T);
-    if constexpr (BYTES <= 16) {
+    if constexpr (BYTES != 4 && BYTES != 8 && BYTES < 16) {
+#pragma unroll
+        for (int i = 0; i < N; ++i) out[i] = to_float(p[i]);
+    } else if constexpr (BYTES <= 16) {
         using V = typename VecType<BYTES>::type;
         V raw = *reinterpret_cast<const V*>(p);
         const T* e = reinterpret_cast<const T*>(&raw);

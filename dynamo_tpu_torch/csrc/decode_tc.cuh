@@ -1,6 +1,6 @@
 // The bf16 paged decode attention kernel on Hopper's tensor cores (sm_90a),
 // behind the bf16 entry of paged_decode_attention.cu.  Lane b's one query
-// token (the NREP query heads of KV head g) attends to the lane's cached
+// token (the nrep query heads of KV head g) attends to the lane's cached
 // positions [lo, hi): hi = min(kv_len, P * page), lo = kv_len - window with
 // a window, else 0, read through its page-table row (ids clamped into
 // [0, N - 1]).  Scores and the online softmax in f32, P rounded to bf16 for
@@ -8,7 +8,7 @@
 // f32 P; a lane with no position writes zeros.
 //
 // What bounds it on an H100: bytes.  Every live K/V row is read once for
-// NREP query vectors, 4 * NREP flops a byte against the ~295 where the
+// nrep query vectors, 4 * nrep flops a byte against the ~295 where the
 // tensor cores would set the limit.  So the work is to keep enough bytes
 // in flight on every SM:
 //
@@ -24,11 +24,23 @@
 // - The body follows the decode lanes of ragged_tc_kernel (ragged_tc.cuh):
 //   64-key K/V tiles gathered through the page table by 16-byte cp.async
 //   into a ring of three 128-byte-swizzled stages, tiles t + 1 and t + 2
-//   in flight while t computes; the group's NREP query vectors in the
+//   in flight while t computes; the group's nrep query vectors in the
 //   first rows of an m16 tile (zero rows pad the rest: up to 16 query heads
-//   a KV head fit the same design), S = Q K^T and O += P V on mma.sync
-//   m16n8k16; each warp takes 16 keys of every tile under its own softmax
-//   and the four warps merge (m, l, O) in shared memory (merge_warps).
+//   a KV head fit the same design, so the group is a runtime argument and
+//   the kernel is instantiated by head dim alone), S = Q K^T and O += P V
+//   on mma.sync m16n8k16; each warp takes 16 keys of every tile under its
+//   own softmax and the four warps merge (m, l, O) in shared memory
+//   (merge_warps).
+// - Head dims.  Shared rows are tc_width<D>() wide (D 96 in 128-element
+//   rows; tc_common.cuh); the copies move the D / 8 real chunks of a row,
+//   and the products step over the real columns only, so the pad columns
+//   are never read.  At D <= 128 the query tile's A fragments stay in
+//   registers for the whole walk; at D 256 they are read again from shared
+//   memory each tile (ldmatrix), since the 128 f32 accumulators of O leave
+//   no room for 64 more registers of Q without spilling.  Shared memory
+//   (decode_tc_smem_bytes) sets the CTAs a SM holds: one at D 256 (200 KB),
+//   two at D 96 and 128, four at D 64; the wrapper's split rule asks the
+//   occupancy query for them (paged_decode_tc_ctas_per_sm).
 // - The splits' states merge in a second pass.  A lane whose positions
 //   fall in one split has that split write its output directly, and a lane
 //   with none has split 0 write zeros.  Otherwise each live split writes
@@ -49,10 +61,10 @@ namespace dyn {
 
 constexpr int DT_STAGES = 3;  // K/V ring
 
-// Q (16 rows) plus the K/V ring
+// Q (16 rows) plus the K/V ring, in rows of tc_width<D>() elements
 template <int D>
 constexpr size_t decode_tc_smem_bytes() {
-    return sizeof(__nv_bfloat16) * (size_t)(16 + 2 * DT_STAGES * TC_BN) * D;
+    return sizeof(__nv_bfloat16) * (size_t)(16 + 2 * DT_STAGES * TC_BN) * tc_width<D>();
 }
 
 // A lane's attended positions [lo, hi) and its live splits [s_lo, s_hi].
@@ -69,8 +81,8 @@ struct DecodeSpan {
 };
 
 // Launch with grid (splits, Hkv, B), 128 threads and decode_tc_smem_bytes<D>()
-// of dynamic shared memory.
-template <int D, int NREP>
+// of dynamic shared memory; nrep (the GQA group) is at most 16.
+template <int D>
 __global__ void __launch_bounds__(128)
 paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,     // [B, Hq, D]
                        const __nv_bfloat16* __restrict__ pool,  // [L, 2, N, page, Hkv, D]
@@ -79,13 +91,15 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,     // [B, Hq, D]
                        float* __restrict__ ws_o,                // [B, Hq, splits, D]
                        float* __restrict__ ws_ml,               // [B, Hq, splits, 2]
                        __nv_bfloat16* __restrict__ out,         // [B, Hq, D]
-                       int Hkv, int N, int page, int P, int layer, int window, int chunk,
-                       float scale_log2) {
+                       int Hkv, int nrep, int N, int page, int P, int layer, int window,
+                       int chunk, float scale_log2) {
     using bf16 = __nv_bfloat16;
-    constexpr int HALVES = D / 64;
+    constexpr int DP = tc_width<D>();       // shared row width
+    constexpr int HALVES = DP / 64;
     constexpr int AREA = HALVES * 64 * 64;  // elements of one K or V stage
-    constexpr int CPR = D / 8;              // 16-byte chunks of a row
-    static_assert(NREP <= 16, "the GQA group must fit the m16 row tile");
+    constexpr int CPR = DP / 8;             // 16-byte chunks of a shared row
+    constexpr int CR = D / 8;               // real 16-byte chunks of a row
+    constexpr bool Q_REGS = D <= 128;       // Q's A fragments held in registers
 
     const int split = blockIdx.x;
     const int g = blockIdx.y;
@@ -97,20 +111,20 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,     // [B, Hq, D]
     const int end = min(split * chunk + chunk, span.hi);
     if (start >= end) {
         if (split == 0 && span.live() == 0) {  // a lane with no position: zeros
-            for (int i = threadIdx.x; i < NREP * D; i += blockDim.x)
-                out[((size_t)b * Hkv * NREP + (size_t)g * NREP) * D + i] = __float2bfloat16(0.f);
+            for (int i = threadIdx.x; i < nrep * D; i += blockDim.x)
+                out[((size_t)b * Hkv * nrep + (size_t)g * nrep) * D + i] = __float2bfloat16(0.f);
         }
         return;
     }
     const int pos_base = start & ~(TC_BN - 1);  // tiles aligned to 64 positions
     const int n_tiles = (end - pos_base + TC_BN - 1) / TC_BN;
 
-    const int Hq = Hkv * NREP;
+    const int Hq = Hkv * nrep;
     const size_t row_stride = (size_t)Hkv * D;  // elements per pool row
     const size_t kv_stride = (size_t)N * page * row_stride;
     const bf16* pool_k = pool + (size_t)layer * 2 * kv_stride + (size_t)g * D;
     const int* lane_table = table + (size_t)b * P;
-    const size_t head0 = (size_t)b * Hq + (size_t)g * NREP;  // the group's first query head
+    const size_t head0 = (size_t)b * Hq + (size_t)g * nrep;  // the group's first query head
 
     extern __shared__ __align__(16) unsigned char smem_raw[];
     bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [HALVES][16][64]
@@ -126,23 +140,24 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,     // [B, Hq, D]
         return (c >> 3) * 16 * 64 + r * 64 + (((c & 7) ^ (r & 7)) << 3);
     };
 
-    // rows NREP .. 15 of the query tile are zeros
-    for (int i = tid; i < 16 * CPR; i += 128) {
-        const int r = i / CPR;
-        const int c = i % CPR;
-        const bool ok = r < NREP;
+    // rows nrep .. 15 of the query tile are zeros
+    for (int i = tid; i < 16 * CR; i += 128) {
+        const int r = i / CR;
+        const int c = i % CR;
+        const bool ok = r < nrep;
         cp_async16(smem_addr(sQ + q_at(r, c)), q + (head0 + (ok ? r : 0)) * D + c * 8, ok);
     }
 
     // Starts the copies of tile t into ``stage`` (nothing past the last
-    // tile): thread tid copies chunk tid % CPR of every (128 / CPR)-th row,
-    // zero-filling rows outside [start, end); its table reads come first.
+    // tile): thread tid copies chunk tid % CPR of every (128 / CPR)-th row
+    // (nothing for a pad chunk), zero-filling rows outside [start, end);
+    // its table reads come first.
     auto issue = [&](int t, int stage) {
-        if (t >= n_tiles) return;
         constexpr int ROWS = 64 * CPR / 128;  // rows a thread copies
         constexpr int STEP = 64 / ROWS;
         const int c = tid % CPR;
         const int j0 = tid / CPR;
+        if (t >= n_tiles || c >= CR) return;
         const int pos0 = pos_base + t * TC_BN;
         int pg = (pos0 + j0) / page;
         int sl = pos0 + j0 - pg * page;
@@ -175,7 +190,7 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,     // [B, Hq, D]
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
     RowSoftmax sm;
-    uint32_t qa[D / 16][4];  // the query tile's A fragments, loaded once
+    uint32_t qa[Q_REGS ? D / 16 : 1][4];  // the query tile's A fragments (D <= 128)
     const int qpos = kv_len - 1;
     const int k0 = 16 * warp;  // the warp's keys in every tile
 
@@ -189,10 +204,12 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,     // [B, Hq, D]
         __syncthreads();  // tile t landed; every warp is done with tile t - 1
         issue(t + 2, (t + 2) % DT_STAGES);
         cp_async_commit();
-        if (t == 0) {
+        if constexpr (Q_REGS) {
+            if (t == 0) {
 #pragma unroll
-            for (int kd = 0; kd < D / 16; ++kd)
-                ldmatrix_x4(qa[kd], smem_addr(sQ + q_at(lane & 15, 2 * kd + (lane >> 4))));
+                for (int kd = 0; kd < D / 16; ++kd)
+                    ldmatrix_x4(qa[kd], smem_addr(sQ + q_at(lane & 15, 2 * kd + (lane >> 4))));
+            }
         }
         const int kp0 = pos_base + t * TC_BN + k0;
         const int nv = end - kp0;  // valid keys from kp0 (window floor aside)
@@ -207,8 +224,15 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,     // [B, Hq, D]
             uint32_t bk[4];
             const int kr = k0 + (lane & 7) + ((lane >> 4) << 3);
             ldmatrix_x4(bk, smem_addr(k_st + box_at(kr, 2 * kd + ((lane >> 3) & 1))));
-            mma_16816(s[0], qa[kd], bk[0], bk[1]);
-            mma_16816(s[1], qa[kd], bk[2], bk[3]);
+            if constexpr (Q_REGS) {
+                mma_16816(s[0], qa[kd], bk[0], bk[1]);
+                mma_16816(s[1], qa[kd], bk[2], bk[3]);
+            } else {
+                uint32_t a[4];
+                ldmatrix_x4(a, smem_addr(sQ + q_at(lane & 15, 2 * kd + (lane >> 4))));
+                mma_16816(s[0], a, bk[0], bk[1]);
+                mma_16816(s[1], a, bk[2], bk[3]);
+            }
         }
         // keys at or past ``end`` by count, keys below the window floor
         // by the window rule (qpos - kpos < window); every key is in the
@@ -240,11 +264,11 @@ paged_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,     // [B, Hq, D]
     if (warp != 0) return;
     if (span.live() == 1) {
         // the lane's only live split: its output, normalised
-        store_rows<D, NREP>(o, sm, sQ, 0, 1, 1, out + head0 * D, (size_t)Hq * D);
+        store_rows<D, DP>(o, sm, sQ, 0, 1, 1, GroupDiv(nrep), out + head0 * D, (size_t)Hq * D);
         return;
     }
     const int r = lane >> 2;  // query head r of the group: row r of the tile
-    if (r >= NREP) return;
+    if (r >= nrep) return;
     float* wo = ws_o + ((head0 + r) * splits + split) * D;
 #pragma unroll
     for (int i = 0; i < D / 8; ++i)

@@ -35,7 +35,10 @@
 //     (attention_tile.cuh), every product in f32 on the CUDA cores.  The
 //     tensor cores take f32 only as TF32, which keeps about three decimal
 //     digits, far outside the f32 checks' 5e-5.  One CTA per (lane, KV
-//     head, tile of 64 / n_rep query rows); dead key tiles are never loaded.
+//     head, tile of 64 / n_rep query rows, rounded down); dead key tiles are
+//     never loaded.
+// Both take every GQA group from 1 to 8 at run time and head dims 64, 96,
+// 128 and 256 (attention_tile.cuh by_geometry).
 
 #include <math.h>
 
@@ -48,7 +51,7 @@ namespace {
 
 using namespace dyn;
 
-template <typename T, int D, int NREP>
+template <typename T, int D>
 __global__ void __launch_bounds__(TILE_WARPS * 32)
 flash_kernel(const T* __restrict__ q,         // [B, T, Hq, D]
              const T* __restrict__ k,         // [B, Kp + T, Hkv, D]
@@ -56,19 +59,19 @@ flash_kernel(const T* __restrict__ q,         // [B, T, Hq, D]
              const int* __restrict__ offset,  // [B] prefix length, or null: 0
              const int* __restrict__ lens,    // [B] valid query rows
              T* __restrict__ out,             // [B, T, Hq, D]
-             int T_, int Kp, int Hkv, int window, float scale) {
-    constexpr int TQ = TILE_QV / NREP;  // query rows per CTA
+             int T_, int Kp, int Hkv, int nrep, int window, float scale) {
+    const int TQ = TILE_QV / nrep;  // query rows per CTA
     const int b = blockIdx.z;
     const int g = blockIdx.y;
     const int r0 = blockIdx.x * TQ;
     const int len = min(lens[b], T_);
-    const int Hq = Hkv * NREP;
+    const int Hq = Hkv * nrep;
     {  // the tile's rows at or past len: zeros over the group's heads
         const int z0 = max(r0, len);
         const int z1 = min(r0 + TQ, T_);
         if (z1 > z0)
-            zero_rows(out + (((size_t)b * T_ + z0) * Hq + (size_t)g * NREP) * D, (size_t)Hq * D,
-                      z1 - z0, NREP * D);
+            zero_rows(out + (((size_t)b * T_ + z0) * Hq + (size_t)g * nrep) * D, (size_t)Hq * D,
+                      z1 - z0, nrep * D);
     }
     if (r0 >= len) return;
     const int base = offset != nullptr ? max(offset[b], 0) : 0;
@@ -76,10 +79,9 @@ flash_kernel(const T* __restrict__ q,         // [B, T, Hq, D]
     const size_t lane_at = (size_t)b * (Kp + T_) * row_stride + (size_t)g * D;
     const ContiguousPrefix<T> prefix{k + lane_at, v + lane_at, row_stride, min(base, Kp)};
     const size_t f_at = lane_at + (size_t)Kp * row_stride;
-    const size_t q_at = (((size_t)b * T_ + r0) * Hq + (size_t)g * NREP) * D;
-    attend_tile<T, D, NREP>(q + q_at, out + q_at, (size_t)Hq * D, k + f_at, v + f_at,
-                            row_stride, prefix, min(TQ, len - r0), base + r0, base, window,
-                            scale);
+    const size_t q_at = (((size_t)b * T_ + r0) * Hq + (size_t)g * nrep) * D;
+    attend_tile<T, D>(q + q_at, out + q_at, (size_t)Hq * D, k + f_at, v + f_at, row_stride,
+                      prefix, min(TQ, len - r0), base + r0, base, window, scale, nrep);
 }
 
 // cuTensorMapEncodeTiled, looked up at first use through the runtime's
@@ -128,15 +130,16 @@ struct FlashLaunch {
     void* out;
     int B, T, Kp, Hkv, window;
     cudaStream_t stream;
+    int n_rep = 0;  // the GQA group, set by run()
 
-    template <typename T_, int D, int NREP>
+    template <typename T_, int D>
     cudaError_t launch() {
         static bool smem_ok = false;
         if constexpr (std::is_same_v<T_, __nv_bfloat16>) {
             auto kern = flash_tc_kernel<D>;
             cudaError_t e = allow_smem(kern, tc_smem_bytes<D>(), smem_ok);
             if (e != cudaSuccess) return e;
-            const int Hq = Hkv * NREP;
+            const int Hq = Hkv * n_rep;
             CUtensorMap qm, km, vm;
             if (!tile_map(&qm, q, D, Hq, (long long)B * T) ||
                 !tile_map(&km, k, D, Hkv, (long long)B * (Kp + T)) ||
@@ -144,18 +147,19 @@ struct FlashLaunch {
                 return cudaErrorInvalidValue;
             dim3 grid(Hq, (T + TC_BM - 1) / TC_BM, B);
             kern<<<grid, 128, tc_smem_bytes<D>(), stream>>>(
-                qm, km, vm, offset, lens, static_cast<T_*>(out), T, Kp, Hq, NREP, window,
+                qm, km, vm, offset, lens, static_cast<T_*>(out), T, Kp, Hq, n_rep, window,
                 1.4426950408889634f / sqrtf((float)D));
             return cudaGetLastError();
         } else {
-            auto kern = flash_kernel<T_, D, NREP>;
+            auto kern = flash_kernel<T_, D>;
             cudaError_t e = allow_smem(kern, tile_smem_bytes<D>(), smem_ok);
             if (e != cudaSuccess) return e;
-            constexpr int TQ = TILE_QV / NREP;
+            const int TQ = TILE_QV / n_rep;
             dim3 grid((T + TQ - 1) / TQ, Hkv, B);
             kern<<<grid, TILE_WARPS * 32, tile_smem_bytes<D>(), stream>>>(
                 static_cast<const T_*>(q), static_cast<const T_*>(k), static_cast<const T_*>(v),
-                offset, lens, static_cast<T_*>(out), T, Kp, Hkv, window, 1.0f / sqrtf((float)D));
+                offset, lens, static_cast<T_*>(out), T, Kp, Hkv, n_rep, window,
+                1.0f / sqrtf((float)D));
             return cudaGetLastError();
         }
     }
@@ -164,7 +168,8 @@ struct FlashLaunch {
 int run(FlashLaunch& f, int dtype, int Hq, int D) {
     if (f.B <= 0 || f.T <= 0) return 0;
     if (f.Hkv <= 0 || Hq % f.Hkv || f.Kp < 0) return (int)cudaErrorInvalidValue;
-    return (int)by_geometry(dtype, D, Hq / f.Hkv, f);
+    f.n_rep = Hq / f.Hkv;
+    return (int)by_geometry(dtype, D, f.n_rep, f);
 }
 
 }  // namespace

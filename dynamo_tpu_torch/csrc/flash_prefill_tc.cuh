@@ -44,6 +44,15 @@
 //   a tile's valid span are read and masked: their V rows meet zero weights,
 //   as in the Pallas kernel, which multiplies whole blocks.
 //
+// - Head dims 64, 96, 128 and 256, any GQA group (a CTA serves one query
+//   head; the group only maps it to its KV head).  A row is tc_width<D>()
+//   / 64 boxes wide; at D 96 the second box's last 32 columns lie past the
+//   tensor's row, and TMA fills them with zeros.  S = Q K^T steps over the
+//   real columns only; the P V product of the last box fills pad output
+//   columns that the store skips.  At D 256 the O accumulators take 128
+//   registers a thread, S 32 and P 16; the three-stage ring takes 224 KB,
+//   one CTA a SM.
+//
 // The swizzle, the key walk, the softmax, the store and the wgmma and TMA
 // primitives live in tc_common.cuh, shared with the ragged kernel.
 #pragma once
@@ -55,10 +64,11 @@ namespace dyn {
 constexpr int TC_BM = 64;     // query rows per CTA
 constexpr int TC_STAGES = 3;  // K/V ring
 
-// Q plus the K/V ring, then the mbarriers (Q, one per stage)
+// Q plus the K/V ring, in rows of tc_width<D>() elements, then the
+// mbarriers (Q, one per stage)
 template <int D>
 constexpr size_t tc_smem_bytes() {
-    return sizeof(__nv_bfloat16) * (size_t)(TC_BM + 2 * TC_STAGES * TC_BN) * D + 64;
+    return sizeof(__nv_bfloat16) * (size_t)(TC_BM + 2 * TC_STAGES * TC_BN) * tc_width<D>() + 64;
 }
 
 // Launch with 128 threads and tc_smem_bytes<D>() of dynamic shared memory;
@@ -75,7 +85,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap q_map,  // q as [B T, Hq, D]
                 __nv_bfloat16* __restrict__ out,            // [B, T, Hq, D]
                 int T_, int Kp, int Hq, int n_rep, int window, float scale_log2) {
     using bf16 = __nv_bfloat16;
-    constexpr int HALVES = D / 64;  // 64-column boxes of a row
+    constexpr int DP = tc_width<D>();
+    constexpr int HALVES = DP / 64;  // 64-column boxes of a row
     constexpr int BOX = 64 * 64;    // elements of one box
     constexpr uint32_t BOX_BYTES = BOX * 2;
 
@@ -176,7 +187,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap q_map,  // q as [B T, Hq, D]
             const uint64_t dk = sw128_desc(sK + (stage * HALVES + hd) * BOX);
 #pragma unroll
             for (int kd = 0; kd < 4; ++kd)  // 16 columns (32 bytes) a step
-                wgmma_ss(s, dq + 2 * kd, dk + 2 * kd, hd | kd);
+                if (64 * hd + 16 * kd < D) wgmma_ss(s, dq + 2 * kd, dk + 2 * kd, hd | kd);
         }
         wgmma_commit();
         if (t > 0) issue_pv(prev);
@@ -215,17 +226,15 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap q_map,  // q as [B T, Hq, D]
         for (int hd = 0; hd < HALVES; ++hd) fence_acc(o[hd]);
     }
 
-    float of[D / 8][4];
+    float of[D / 8][4];  // the real columns' accumulators
 #pragma unroll
-    for (int hd = 0; hd < HALVES; ++hd)
+    for (int i = 0; i < D / 8; ++i)
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) of[hd * 8 + i][e] = o[hd][i][e];
+        for (int e = 0; e < 4; ++e) of[i][e] = o[i / 8][i % 8][e];
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();  // every warp is done with sQ
-    store_rows<D, 1>(of, sm, sQ, wr, rows, T_ - r0, o_lane + (size_t)r0 * q_stride,
-                     q_stride);
+    store_rows<D, DP>(of, sm, sQ, wr, rows, T_ - r0, GroupDiv(1),
+                      o_lane + (size_t)r0 * q_stride, q_stride);
 }
 
 }  // namespace dyn

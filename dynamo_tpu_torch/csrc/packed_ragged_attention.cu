@@ -43,9 +43,11 @@
 //     tests): ragged_kernel over the CUDA-core routine attend_tile
 //     (attention_tile.cuh), every product in f32 on the CUDA cores (the
 //     tensor cores take f32 only as TF32, far outside the f32 checks).
-// Both run one CTA per (lane, KV head, tile of 64 / n_rep query rows); CTAs
-// whose tile starts past q_len exit at once, so decode lanes cost one CTA
-// per KV head.
+// Both run one CTA per (lane, KV head, tile of 64 / n_rep query rows,
+// rounded down); CTAs whose tile starts past q_len exit at once, so decode
+// lanes cost one CTA per KV head.  Both take every GQA group from 1 to 8 at
+// run time and head dims 64, 96, 128 and 256 (attention_tile.cuh
+// by_geometry).
 
 #include <math.h>
 
@@ -58,7 +60,7 @@ namespace {
 
 using namespace dyn;
 
-template <typename T, int D, int NREP, bool QUANT>
+template <typename T, int D, bool QUANT>
 __global__ void __launch_bounds__(TILE_WARPS * 32)
 ragged_kernel(const T* __restrict__ q,          // [Np, Hq, D] (rectangle: [B * S, Hq, D])
               const T* __restrict__ fk,         // [Np, Hkv, D]
@@ -70,9 +72,9 @@ ragged_kernel(const T* __restrict__ q,          // [Np, Hq, D] (rectangle: [B * 
               const int* __restrict__ seg_off,  // [B], or null: the rectangle, b * S
               const int* __restrict__ q_lens,   // [B]
               T* __restrict__ out,              // [Np, Hq, D], zeroed
-              int Hkv, int N, int page, int P, int layer, int window, int S,
+              int Hkv, int nrep, int N, int page, int P, int layer, int window, int S,
               float scale) {
-    constexpr int TQ = TILE_QV / NREP;  // query rows per CTA
+    const int TQ = TILE_QV / nrep;  // query rows per CTA
     const int b = blockIdx.z;
     const int g = blockIdx.y;
     const int r0 = blockIdx.x * TQ;
@@ -80,14 +82,14 @@ ragged_kernel(const T* __restrict__ q,          // [Np, Hq, D] (rectangle: [B * 
     if (r0 >= q_len) return;
     const int base = base_arr[b];
     const int off = seg_off != nullptr ? seg_off[b] : b * S;
-    const int Hq = Hkv * NREP;
+    const int Hq = Hkv * nrep;
     const size_t row_stride = (size_t)Hkv * D;
     const size_t page_stride = (size_t)page * row_stride;
     const size_t kv_stride = (size_t)N * page_stride;
     const size_t layer_at = (size_t)layer * 2 * kv_stride + (size_t)g * D;
     const int* lane_table = table + (size_t)b * P;
     const int reach = P * page;  // prefix positions past the table are unreachable
-    const size_t q_at = ((size_t)(off + r0) * Hq + (size_t)g * NREP) * D;
+    const size_t q_at = ((size_t)(off + r0) * Hq + (size_t)g * nrep) * D;
     const size_t f_at = (size_t)off * row_stride + (size_t)g * D;
     const int rows = min(TQ, q_len - r0);
     if constexpr (QUANT) {
@@ -96,15 +98,15 @@ ragged_kernel(const T* __restrict__ q,          // [Np, Hq, D] (rectangle: [B * 
             static_cast<const int8_t*>(pool) + layer_at, scales + (size_t)layer * 2 * s_kv_stride,
             lane_table, kv_stride, row_stride, s_kv_stride, page, N, reach,
         };
-        attend_tile<T, D, NREP>(q + q_at, out + q_at, (size_t)Hq * D, fk + f_at, fv + f_at,
-                                row_stride, prefix, rows, base + r0, base, window, scale);
+        attend_tile<T, D>(q + q_at, out + q_at, (size_t)Hq * D, fk + f_at, fv + f_at,
+                          row_stride, prefix, rows, base + r0, base, window, scale, nrep);
     } else {
         const PagedPrefix<T> prefix{
             static_cast<const T*>(pool) + layer_at, lane_table, kv_stride, page_stride,
             row_stride, page, N, reach,
         };
-        attend_tile<T, D, NREP>(q + q_at, out + q_at, (size_t)Hq * D, fk + f_at, fv + f_at,
-                                row_stride, prefix, rows, base + r0, base, window, scale);
+        attend_tile<T, D>(q + q_at, out + q_at, (size_t)Hq * D, fk + f_at, fv + f_at,
+                          row_stride, prefix, rows, base + r0, base, window, scale, nrep);
     }
 }
 
@@ -115,44 +117,45 @@ struct RaggedLaunch {
     void* out;
     int B, Hkv, N, page, P, layer, window, S;
     cudaStream_t stream;
+    int n_rep = 0;  // the GQA group, set by run()
 
-    template <typename T, int D, int NREP>
+    template <typename T, int D>
     cudaError_t launch() {
-        return scales != nullptr ? launch_pool<T, D, NREP, true>()
-                                 : launch_pool<T, D, NREP, false>();
+        return scales != nullptr ? launch_pool<T, D, true>() : launch_pool<T, D, false>();
     }
 
-    template <typename T, int D, int NREP, bool QUANT>
+    template <typename T, int D, bool QUANT>
     cudaError_t launch_pool() {
         if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-            return launch_tc<D, NREP, QUANT>();
+            return launch_tc<D, QUANT>();
         } else {
             static bool smem_ok = false;
-            auto kern = ragged_kernel<T, D, NREP, QUANT>;
+            auto kern = ragged_kernel<T, D, QUANT>;
             cudaError_t e = allow_smem(kern, tile_smem_bytes<D>(), smem_ok);
             if (e != cudaSuccess) return e;
-            constexpr int TQ = TILE_QV / NREP;
+            const int TQ = TILE_QV / n_rep;
             dim3 grid((S + TQ - 1) / TQ, Hkv, B);
             kern<<<grid, TILE_WARPS * 32, tile_smem_bytes<D>(), stream>>>(
                 static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-                pool, scales, table, base, seg_off, q_lens, static_cast<T*>(out), Hkv, N, page,
-                P, layer, window, S, 1.0f / sqrtf((float)D));
+                pool, scales, table, base, seg_off, q_lens, static_cast<T*>(out), Hkv, n_rep, N,
+                page, P, layer, window, S, 1.0f / sqrtf((float)D));
             return cudaGetLastError();
         }
     }
 
-    template <int D, int NREP, bool QUANT>
+    template <int D, bool QUANT>
     cudaError_t launch_tc() {
         using bf16 = __nv_bfloat16;
         static bool smem_ok = false;
-        auto kern = ragged_tc_kernel<D, NREP, QUANT>;
+        auto kern = ragged_tc_kernel<D, QUANT>;
         cudaError_t e = allow_smem(kern, ragged_tc_smem_bytes<D>(), smem_ok);
         if (e != cudaSuccess) return e;
-        dim3 grid((S + 64 / NREP - 1) / (64 / NREP), Hkv, B);
+        const int TQ = 64 / n_rep;
+        dim3 grid((S + TQ - 1) / TQ, Hkv, B);
         kern<<<grid, 128, ragged_tc_smem_bytes<D>(), stream>>>(
             static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-            pool, scales, table, base, seg_off, q_lens, static_cast<bf16*>(out), Hkv, N, page, P,
-            layer, window, S, 1.4426950408889634f / sqrtf((float)D));
+            pool, scales, table, base, seg_off, q_lens, static_cast<bf16*>(out), Hkv, n_rep, N,
+            page, P, layer, window, S, 1.4426950408889634f / sqrtf((float)D));
         return cudaGetLastError();
     }
 };
@@ -163,7 +166,8 @@ int run(RaggedLaunch& r, int dtype, int Hq, int D, int L) {
         return (int)cudaErrorInvalidValue;
     }
     r.layer = clampi(r.layer, 0, L - 1);
-    return (int)by_geometry(dtype, D, Hq / r.Hkv, r);
+    r.n_rep = Hq / r.Hkv;
+    return (int)by_geometry(dtype, D, r.n_rep, r);
 }
 
 int packed(const void* q, const void* k, const void* v, const void* pool, const void* scales,

@@ -26,9 +26,16 @@
 // - f32 (the tensor cores take f32 only as TF32): paged_decode_kernel below,
 //   on the CUDA cores, one CTA per (lane, KV head) serving the group's n_rep
 //   query heads.  It walks only the live positions [lo, kv_len) with 8
-//   warps, each keeping UNROLL tokens' K and V rows in flight before it
-//   computes on them, each with its own f32 running max / sum /
-//   accumulator; the warps merge once through shared memory at the end.
+//   warps, each keeping a few tokens' K and V rows in flight before it
+//   computes on them (4, or 2 where the group's query and accumulator
+//   registers are many: n_rep * D >= 1024, or n_rep = 8), each with its own f32 running
+//   max / sum / accumulator; the warps merge through shared memory at the
+//   end, one query head at a time (8 KB at D 256 whatever the group).
+//
+// Head geometries: every GQA group from 1 to 8 and D 64, 96, 128 and 256.
+// The tensor-core kernel takes the group at run time (instantiated by D
+// alone); the CUDA-core kernel keeps its per-head registers sized by the
+// group, one instantiation per (D, group).
 //
 // The TPU kernel's grid walked pages in order and carried the softmax state
 // from one grid step to the next; here a CTA's sequential walk is the loop
@@ -45,7 +52,6 @@ namespace {
 using namespace dyn;
 
 constexpr int WARPS = 8;
-constexpr int UNROLL = 4;
 
 template <typename T, int D, int NREP>
 __global__ void __launch_bounds__(WARPS * 32)
@@ -57,6 +63,8 @@ paged_decode_kernel(const T* __restrict__ q,          // [B, Hq, D]
                     int Hkv, int N, int page, int P, int layer, int window,
                     float scale) {
     constexpr int EPL = D / 32;  // elements of a row each lane holds
+    // tokens in flight a warp (at D 64 and group 8, 4 of them spilled)
+    constexpr int UNROLL = NREP * EPL >= 32 || NREP >= 8 ? 2 : 4;
     const int g = blockIdx.x;    // KV head
     const int b = blockIdx.y;    // lane
     const int Hq = Hkv * NREP;
@@ -65,7 +73,7 @@ paged_decode_kernel(const T* __restrict__ q,          // [B, Hq, D]
 
     __shared__ float sm_m[WARPS][NREP];
     __shared__ float sm_l[WARPS][NREP];
-    __shared__ float sm_acc[WARPS][NREP][D];
+    __shared__ float sm_acc[WARPS][D];  // one query head's partials at a time
 
     float qf[NREP][EPL];
 #pragma unroll
@@ -135,47 +143,53 @@ paged_decode_kernel(const T* __restrict__ q,          // [B, Hq, D]
         }
     }
 #pragma unroll
-    for (int h = 0; h < NREP; ++h)
+    for (int h = 0; h < NREP; ++h) {
 #pragma unroll
-        for (int i = 0; i < EPL; ++i) sm_acc[warp][h][lane * EPL + i] = acc[h][i];
-    __syncthreads();
-
-    for (int idx = threadIdx.x; idx < NREP * D; idx += blockDim.x) {
-        const int h = idx / D;
-        const int d = idx % D;
-        float M = dyn::NEG;
+        for (int i = 0; i < EPL; ++i) sm_acc[warp][lane * EPL + i] = acc[h][i];
+        __syncthreads();
+        for (int d = threadIdx.x; d < D; d += blockDim.x) {
+            float M = dyn::NEG;
 #pragma unroll
-        for (int w = 0; w < WARPS; ++w) M = fmaxf(M, sm_m[w][h]);
-        float L = 0.f, O = 0.f;
+            for (int w = 0; w < WARPS; ++w) M = fmaxf(M, sm_m[w][h]);
+            float L = 0.f, O = 0.f;
 #pragma unroll
-        for (int w = 0; w < WARPS; ++w) {
-            const float f = __expf(sm_m[w][h] - M);
-            L += sm_l[w][h] * f;
-            O += sm_acc[w][h][d] * f;
+            for (int w = 0; w < WARPS; ++w) {
+                const float f = __expf(sm_m[w][h] - M);
+                L += sm_l[w][h] * f;
+                O += sm_acc[w][d] * f;
+            }
+            out[((size_t)b * Hq + g * NREP + h) * D + d] =
+                dyn::from_float<T>(L > 0.f ? O / L : 0.f);
         }
-        out[((size_t)b * Hq + g * NREP + h) * D + d] = dyn::from_float<T>(L > 0.f ? O / L : 0.f);
+        __syncthreads();  // sm_acc is free for the next head
     }
 }
 
 // The bf16 launch: the split kernel, then the merge of the splits (a lane
 // within one split gets its output from the split kernel alone, so a table
 // of one split needs no merge).
-template <int D, int NREP>
-cudaError_t launch_tc(const void* q, const void* pool, const int* table, const int* kv_lens,
-                      void* out, float* ws, int B, int Hkv, int N, int page, int P, int layer,
-                      int window, int chunk, cudaStream_t stream) {
-    using bf16 = __nv_bfloat16;
+// The tensor-core kernel at D, its shared-memory opt-in made once.
+template <int D>
+cudaError_t tc_ready() {
     static bool smem_ok = false;
-    auto kern = paged_decode_tc_kernel<D, NREP>;
-    cudaError_t e = allow_smem(kern, decode_tc_smem_bytes<D>(), smem_ok);
+    return allow_smem(paged_decode_tc_kernel<D>, decode_tc_smem_bytes<D>(), smem_ok);
+}
+
+template <int D>
+cudaError_t launch_tc(int n_rep, const void* q, const void* pool, const int* table,
+                      const int* kv_lens, void* out, float* ws, int B, int Hkv, int N, int page,
+                      int P, int layer, int window, int chunk, cudaStream_t stream) {
+    using bf16 = __nv_bfloat16;
+    auto kern = paged_decode_tc_kernel<D>;
+    cudaError_t e = tc_ready<D>();
     if (e != cudaSuccess) return e;
     const int splits = (P * page + chunk - 1) / chunk;
-    const int Hq = Hkv * NREP;
+    const int Hq = Hkv * n_rep;
     float* ws_o = ws;
     float* ws_ml = ws + (size_t)B * Hq * splits * D;
     kern<<<dim3(splits, Hkv, B), 128, decode_tc_smem_bytes<D>(), stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(pool), table, kv_lens, ws_o, ws_ml,
-        static_cast<bf16*>(out), Hkv, N, page, P, layer, window, chunk,
+        static_cast<bf16*>(out), Hkv, n_rep, N, page, P, layer, window, chunk,
         1.4426950408889634f / sqrtf((float)D));
     e = cudaGetLastError();
     if (e != cudaSuccess || splits == 1) return e;
@@ -195,32 +209,63 @@ cudaError_t launch_f32(const void* q, const void* pool, const int* table, const 
     return cudaGetLastError();
 }
 
-template <int D, int NREP>
-cudaError_t launch(int dtype, const void* q, const void* pool, const int* table,
-                   const int* kv_lens, void* out, float* ws, int B, int Hkv, int N, int page,
-                   int P, int layer, int window, int chunk, cudaStream_t s) {
-    if (dtype == DTYPE_F32) {
-        return launch_f32<D, NREP>(q, pool, table, kv_lens, out, B, Hkv, N, page, P, layer,
-                                   window, s);
-    }
-    return launch_tc<D, NREP>(q, pool, table, kv_lens, out, ws, B, Hkv, N, page, P, layer,
-                              window, chunk, s);
-}
-
-// The GQA groups of the port's configs: 2 (ModelConfig.tiny), 4
-// (Llama-3-8B); another group is refused.
+// The f32 instantiations, one per GQA group; another group is refused.
 template <int D>
-cudaError_t by_rep(int n_rep, int dtype, const void* q, const void* pool, const int* table,
-                   const int* kv_lens, void* out, float* ws, int B, int Hkv, int N, int page,
-                   int P, int layer, int window, int chunk, cudaStream_t s) {
+cudaError_t by_rep(int n_rep, const void* q, const void* pool, const int* table,
+                   const int* kv_lens, void* out, int B, int Hkv, int N, int page, int P,
+                   int layer, int window, cudaStream_t s) {
     switch (n_rep) {
-        case 2: return launch<D, 2>(dtype, q, pool, table, kv_lens, out, ws, B, Hkv, N, page, P, layer, window, chunk, s);
-        case 4: return launch<D, 4>(dtype, q, pool, table, kv_lens, out, ws, B, Hkv, N, page, P, layer, window, chunk, s);
+        case 1: return launch_f32<D, 1>(q, pool, table, kv_lens, out, B, Hkv, N, page, P, layer, window, s);
+        case 2: return launch_f32<D, 2>(q, pool, table, kv_lens, out, B, Hkv, N, page, P, layer, window, s);
+        case 3: return launch_f32<D, 3>(q, pool, table, kv_lens, out, B, Hkv, N, page, P, layer, window, s);
+        case 4: return launch_f32<D, 4>(q, pool, table, kv_lens, out, B, Hkv, N, page, P, layer, window, s);
+        case 5: return launch_f32<D, 5>(q, pool, table, kv_lens, out, B, Hkv, N, page, P, layer, window, s);
+        case 6: return launch_f32<D, 6>(q, pool, table, kv_lens, out, B, Hkv, N, page, P, layer, window, s);
+        case 7: return launch_f32<D, 7>(q, pool, table, kv_lens, out, B, Hkv, N, page, P, layer, window, s);
+        case 8: return launch_f32<D, 8>(q, pool, table, kv_lens, out, B, Hkv, N, page, P, layer, window, s);
         default: return cudaErrorInvalidValue;
     }
 }
 
+template <int D>
+cudaError_t launch(int dtype, int n_rep, const void* q, const void* pool, const int* table,
+                   const int* kv_lens, void* out, float* ws, int B, int Hkv, int N, int page,
+                   int P, int layer, int window, int chunk, cudaStream_t s) {
+    if (dtype == DTYPE_F32) {
+        return by_rep<D>(n_rep, q, pool, table, kv_lens, out, B, Hkv, N, page, P, layer,
+                         window, s);
+    }
+    return launch_tc<D>(n_rep, q, pool, table, kv_lens, out, ws, B, Hkv, N, page, P, layer,
+                        window, chunk, s);
+}
+
+// CTAs of the tensor-core kernel at D an SM of the current device holds at
+// once, or -(CUDA error).
+template <int D>
+int tc_ctas_per_sm() {
+    cudaError_t e = tc_ready<D>();
+    int n = 0;
+    if (e == cudaSuccess) {
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, paged_decode_tc_kernel<D>, 128,
+                                                          decode_tc_smem_bytes<D>());
+    }
+    return e == cudaSuccess ? n : -(int)e;
+}
+
 }  // namespace
+
+// The bf16 kernel's resident CTAs an SM at head dim D, by which the split
+// rule sizes its splits (ops/paged_attention.py); -(CUDA error) on failure,
+// -cudaErrorInvalidValue for a head dim no instantiation takes.
+extern "C" int paged_decode_tc_ctas_per_sm(int D) {
+    switch (D) {
+        case 64: return tc_ctas_per_sm<64>();
+        case 96: return tc_ctas_per_sm<96>();
+        case 128: return tc_ctas_per_sm<128>();
+        case 256: return tc_ctas_per_sm<256>();
+        default: return -(int)cudaErrorInvalidValue;
+    }
+}
 
 // Plain C entry (bound with ctypes).  Returns cudaGetLastError() after the
 // launches, or cudaErrorInvalidValue for a shape the kernel does not take.
@@ -241,13 +286,16 @@ extern "C" int paged_decode_attention(const void* q, const void* pool, const voi
     }
     layer = clampi(layer, 0, L - 1);
     const int n_rep = Hq / Hkv;
+    if (n_rep > MAX_GROUP) return (int)cudaErrorInvalidValue;
     const int* tab = static_cast<const int*>(table);
     const int* lens = static_cast<const int*>(kv_lens);
     float* w = static_cast<float*>(ws);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (D) {
-        case 64: return (int)by_rep<64>(n_rep, dtype, q, pool, tab, lens, out, w, B, Hkv, N, page, P, layer, window, chunk, s);
-        case 128: return (int)by_rep<128>(n_rep, dtype, q, pool, tab, lens, out, w, B, Hkv, N, page, P, layer, window, chunk, s);
+        case 64: return (int)launch<64>(dtype, n_rep, q, pool, tab, lens, out, w, B, Hkv, N, page, P, layer, window, chunk, s);
+        case 96: return (int)launch<96>(dtype, n_rep, q, pool, tab, lens, out, w, B, Hkv, N, page, P, layer, window, chunk, s);
+        case 128: return (int)launch<128>(dtype, n_rep, q, pool, tab, lens, out, w, B, Hkv, N, page, P, layer, window, chunk, s);
+        case 256: return (int)launch<256>(dtype, n_rep, q, pool, tab, lens, out, w, B, Hkv, N, page, P, layer, window, chunk, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -10,15 +10,20 @@
 // What bounds it on an H100: operations for a prefill chunk (each staged
 // key serves 64 query vectors: 4 * keys * Hq * D flops against 2 * Hkv * D
 // bytes of K/V per key, far above 295 flops per byte), bytes for decode rows
-// (a q_len = 1 lane reads its whole prefix for NREP query vectors).  So the
+// (a q_len = 1 lane reads its whole prefix for nrep query vectors).  So the
 // products run on the bf16 tensor cores, and the K/V rows stream through
 // shared memory behind them:
 //
-// - One CTA of four warps per (lane, KV head, 64 query vectors): 64 / NREP
-//   query rows times the NREP query heads of the KV head, vector i = row
-//   i / NREP, head i % NREP.  Every staged K/V tile serves the whole GQA
-//   group from shared memory.  The causal mask and the window follow the
-//   row, i / NREP.  CTAs whose first row is at or past q_len exit at once.
+// - One CTA of four warps per (lane, KV head, 64 query vectors): TQ = 64 /
+//   nrep (rounded down) query rows times the nrep query heads of the KV
+//   head, vector i = row i / nrep, head i % nrep.  Every staged K/V tile
+//   serves the whole GQA group from shared memory.  The causal mask and the
+//   window follow the row, i / nrep.  A group that does not divide 64 (3,
+//   5, 6, 7) leaves the vectors from TQ * nrep on as zero query rows whose
+//   outputs nothing stores.  The group is a runtime argument (1 to 8), as
+//   in the decode and flash kernels, divided by as a multiply and a shift
+//   (GroupDiv, tc_common.cuh): the kernel is instantiated by head dim and
+//   pool alone.  CTAs whose first row is at or past q_len exit at once.
 // - S = Q K^T in bf16 with f32 accumulators, scaled in f32 after the
 //   product (log2(e) folded in for exp2f), the online softmax in f32, P
 //   rounded to bf16 for P V, as the Pallas kernel's probs.astype(v.dtype);
@@ -28,8 +33,8 @@
 //   bit, P V right after the softmax, so a tile's stage is free when its
 //   products are.  (A form on mma.sync m16n8k16, each warp its 16 query
 //   vectors, ran 21% slower on an H100; PERF.md has both times.)
-// - A CTA whose live vectors all sit in its first 16 (a decode lane's NREP
-//   vectors; rows * NREP <= 16) splits every key tile over its warps
+// - A CTA whose live vectors all sit in its first 16 (a decode lane's nrep
+//   vectors; rows * nrep <= 16) splits every key tile over its warps
 //   instead: warp w takes keys 16 w .. 16 w + 15 of each tile for those 16
 //   vectors (mma.sync), under its own online softmax, and the four partial
 //   (m, l, O) merge in shared memory at the end.  One warp walking the
@@ -58,6 +63,16 @@
 //   that tile's products and is not overlapped with them inside the CTA:
 //   the other CTA on the SM keeps the tensor cores busy meanwhile.  The
 //   int8 bytes and their scales are the only prefix bytes that cross HBM.
+// - Head dims 64, 96, 128 and 256 (tc_common.cuh tc_width): rows of
+//   tc_width<D>() elements, copies of the D / 8 real chunks of a row, S
+//   over the real columns (mma.sync steps, or the wgmma steps of the real
+//   boxes' columns); the wgmma P V fills pad output columns of the last
+//   box that the store skips.  An int8 row's raw bytes sit in the upper
+//   half of the stage in rows of tc_width<D>() bytes.  At D 256 the O
+//   accumulators take 128 registers a thread and the ring 224 KB, one CTA a
+//   SM; the dequant reads a row's raw chunks in two halves (the first
+//   half's bf16 lands below the raw area, so it needs no barrier), so no
+//   thread holds a whole 256-byte row in registers.
 // - The key walk (KeyWalk, tc_common.cuh): the prefix run [lo, min(base,
 //   P * page)), then the fresh run [base, base + r0 + rows), each in 64-key
 //   tiles aligned within the run; key tiles in the causal future, past
@@ -72,10 +87,10 @@ namespace dyn {
 
 constexpr int RT_STAGES = 3;  // K/V ring
 
-// Q plus the K/V ring
+// Q plus the K/V ring, in rows of tc_width<D>() elements
 template <int D>
 constexpr size_t ragged_tc_smem_bytes() {
-    return sizeof(__nv_bfloat16) * (size_t)(64 + 2 * RT_STAGES * TC_BN) * D;
+    return sizeof(__nv_bfloat16) * (size_t)(64 + 2 * RT_STAGES * TC_BN) * tc_width<D>();
 }
 
 // 16 int8 values dequantized by ``scale`` to bf16 (float(q) * scale, one
@@ -103,7 +118,7 @@ __device__ __forceinline__ void dequant16(const uint4& w, float scale, uint4& lo
 // memory; the kernel declares no static shared memory, so the dynamic block
 // starts 1024-byte aligned, as the wgmma descriptors of the 128-byte swizzle
 // need (checked: a misaligned block traps).
-template <int D, int NREP, bool QUANT>
+template <int D, bool QUANT>
 __global__ void __launch_bounds__(128)
 ragged_tc_kernel(const __nv_bfloat16* __restrict__ q,   // [Np, Hq, D] (rectangle [B S, Hq, D])
                  const __nv_bfloat16* __restrict__ fk,  // [Np, Hkv, D]
@@ -115,16 +130,19 @@ ragged_tc_kernel(const __nv_bfloat16* __restrict__ q,   // [Np, Hq, D] (rectangl
                  const int* __restrict__ seg_off,       // [B], or null: the rectangle, b * S
                  const int* __restrict__ q_lens,        // [B]
                  __nv_bfloat16* __restrict__ out,       // [Np, Hq, D], zeroed
-                 int Hkv, int N, int page, int P, int layer, int window, int S,
+                 int Hkv, int nrep, int N, int page, int P, int layer, int window, int S,
                  float scale_log2) {
     using bf16 = __nv_bfloat16;
-    constexpr int HALVES = D / 64;  // 64-column boxes of a row
-    constexpr int BOX = 64 * 64;    // elements of one box
+    constexpr int DP = tc_width<D>();  // shared row width
+    constexpr int HALVES = DP / 64;    // 64-column boxes of a row
+    constexpr int BOX = 64 * 64;       // elements of one box
     constexpr int AREA = HALVES * BOX;
-    constexpr int TQ = 64 / NREP;   // query rows per CTA
-    constexpr int CPR = D / 8;      // 16-byte chunks of a bf16 row
-    constexpr int RCH = D / 16;     // 16-byte chunks of an int8 row
-    static_assert(64 % NREP == 0, "the GQA group must tile the CTA");
+    constexpr int CPR = DP / 8;        // 16-byte chunks of a shared bf16 row
+    constexpr int CR = D / 8;          // real 16-byte chunks of a bf16 row
+    constexpr int RCHP = DP / 16;      // 16-byte chunks of a shared int8 row
+    constexpr int RCH = D / 16;        // real 16-byte chunks of an int8 row
+    const GroupDiv rep(nrep);          // divides by the GQA group
+    const int TQ = rep.div(64);        // query rows per CTA
 
     const int b = blockIdx.z;
     const int g = blockIdx.y;
@@ -135,12 +153,12 @@ ragged_tc_kernel(const __nv_bfloat16* __restrict__ q,   // [Np, Hq, D] (rectangl
     const int base = base_arr[b];
     const int off = seg_off != nullptr ? seg_off[b] : b * S;
     const size_t row_stride = (size_t)Hkv * D;  // elements per position
-    const size_t q_stride = row_stride * NREP;
+    const size_t q_stride = row_stride * nrep;
     const size_t page_rows = (size_t)N * page;  // pool rows of one (layer, k|v)
     const size_t kv_stride = page_rows * row_stride;
     const int* lane_table = table + (size_t)b * P;
-    const size_t q_at = ((size_t)(off + r0) * Hkv * NREP + (size_t)g * NREP) * D;
-    const bf16* q_tile = q + q_at;  // vector i at (i / NREP) * q_stride + (i % NREP) * D
+    const size_t q_at = ((size_t)(off + r0) * Hkv * nrep + (size_t)g * nrep) * D;
+    const bf16* q_tile = q + q_at;  // vector i at (i / nrep) * q_stride + (i % nrep) * D
     bf16* o_tile = out + q_at;
     const size_t f_at = (size_t)off * row_stride + (size_t)g * D;  // fresh row 0
     const size_t pool_at = (size_t)layer * 2 * kv_stride + (size_t)g * D;
@@ -157,12 +175,12 @@ ragged_tc_kernel(const __nv_bfloat16* __restrict__ q,   // [Np, Hq, D] (rectangl
     const int tid = threadIdx.x;
 
     // query vectors past the valid rows are zeros
-    for (int i = tid; i < 64 * CPR; i += 128) {
-        const int v = i / CPR;
-        const int c = i % CPR;
-        const bool ok = v / NREP < rows;
-        const bf16* src =
-            q_tile + (size_t)(ok ? v / NREP : 0) * q_stride + (v % NREP) * D + c * 8;
+    for (int i = tid; i < 64 * CR; i += 128) {
+        const int v = i / CR;
+        const int c = i % CR;
+        const int vr = rep.div(v);
+        const bool ok = vr < rows;
+        const bf16* src = q_tile + (size_t)(ok ? vr : 0) * q_stride + (v - vr * nrep) * D + c * 8;
         cp_async16(smem_addr(sQ + box_at(v, c)), src, ok);
     }
 
@@ -189,7 +207,8 @@ ragged_tc_kernel(const __nv_bfloat16* __restrict__ q,   // [Np, Hq, D] (rectangl
     // Starts the copies of tile t into ``stage`` (nothing past the walk);
     // returns the scale of the int8 row this thread dequantizes (row tid %
     // 64 of side tid / 64), 0 where there is none.  Thread tid copies chunk
-    // tid % (chunks a row) of every (128 / chunks a row)-th row.
+    // tid % (chunks a shared row) of every (128 / chunks a shared row)-th
+    // row, nothing for a pad chunk.
     auto issue = [&](int t, int stage) -> float {
         if (t >= walk.n_tiles) return 0.f;
         int mem0, pos0, nv;
@@ -200,6 +219,7 @@ ragged_tc_kernel(const __nv_bfloat16* __restrict__ q,   // [Np, Hq, D] (rectangl
             constexpr int ROWS = 64 * CPR / 128;  // rows a thread copies
             const int c = tid % CPR;
             const int j0 = tid / CPR;
+            if (c >= CR) return 0.f;
             size_t at[ROWS];
             if (t >= walk.n_pre) {  // fresh rows
 #pragma unroll
@@ -224,23 +244,25 @@ ragged_tc_kernel(const __nv_bfloat16* __restrict__ q,   // [Np, Hq, D] (rectangl
             return 0.f;
         } else {
             // raw rows in the upper half of the K and V areas, row j's
-            // chunk c at byte j * D + (c ^ (j % RCH)) * 16
-            constexpr int ROWS = 64 * RCH / 128;
-            const int c = tid % RCH;
-            const int j0 = tid / RCH;
-            size_t at[ROWS];
-            slots(pos0 + j0, j0, nv, at);
-            const int8_t* pk = static_cast<const int8_t*>(pool) + pool_at;
-            unsigned char* rk = reinterpret_cast<unsigned char*>(dk) + AREA;
-            unsigned char* rv = reinterpret_cast<unsigned char*>(dv) + AREA;
+            // chunk c at byte j * DP + (c ^ (j % RCHP)) * 16
+            constexpr int ROWS = 64 * RCHP / 128;
+            const int c = tid % RCHP;
+            const int j0 = tid / RCHP;
+            if (c < RCH) {
+                size_t at[ROWS];
+                slots(pos0 + j0, j0, nv, at);
+                const int8_t* pk = static_cast<const int8_t*>(pool) + pool_at;
+                unsigned char* rk = reinterpret_cast<unsigned char*>(dk) + AREA;
+                unsigned char* rv = reinterpret_cast<unsigned char*>(dv) + AREA;
 #pragma unroll
-            for (int k = 0; k < ROWS; ++k) {
-                const int j = j0 + k * (64 / ROWS);
-                const bool ok = j < nv;
-                const int8_t* src = pk + at[k] * row_stride + c * 16;
-                const int to = j * D + ((c ^ (j & (RCH - 1))) << 4);
-                cp_async16(smem_addr(rk + to), src, ok);
-                cp_async16(smem_addr(rv + to), src + kv_stride, ok);
+                for (int k = 0; k < ROWS; ++k) {
+                    const int j = j0 + k * (64 / ROWS);
+                    const bool ok = j < nv;
+                    const int8_t* src = pk + at[k] * row_stride + c * 16;
+                    const int to = j * DP + ((c ^ (j & (RCHP - 1))) << 4);
+                    cp_async16(smem_addr(rk + to), src, ok);
+                    cp_async16(smem_addr(rv + to), src + kv_stride, ok);
+                }
             }
             const int j = tid & 63;
             size_t row[1];
@@ -250,23 +272,36 @@ ragged_tc_kernel(const __nv_bfloat16* __restrict__ q,   // [Np, Hq, D] (rectangl
     };
 
     // Dequantizes the landed int8 tile of ``stage`` in place (QUANT prefix
-    // tiles); the caller syncs after it.
+    // tiles); the caller syncs after it.  A thread reads its row's raw
+    // chunks into registers before the barrier and writes them after it,
+    // over the raw area.  At D 256 a whole row (16 chunks, 64 registers)
+    // would spill beside O's 128 accumulators, so there the first half
+    // goes first: raw chunks c < RCHP / 2 become bf16 columns below DP / 2,
+    // in the lower half of the stage, which holds no raw byte, and are
+    // written before the barrier.  (Below D 256 that split read 2 to 3%
+    // slower on an H100 in the int8 entries at Llama-3-8B's shapes.)
     auto dequant = [&](int stage, float scale) {
+        constexpr int LOW = D > 128 ? RCHP / 2 : 0;
         const int j = tid & 63;
         bf16* dst = (tid < 64 ? sK : sV) + stage * AREA;
         const unsigned char* raw = reinterpret_cast<const unsigned char*>(dst) + AREA;
-        uint4 w[RCH];
-#pragma unroll
-        for (int c = 0; c < RCH; ++c)
-            w[c] = *reinterpret_cast<const uint4*>(raw + j * D + ((c ^ (j & (RCH - 1))) << 4));
-        __syncthreads();  // every raw row is in registers before any is overwritten
-#pragma unroll
-        for (int c = 0; c < RCH; ++c) {
+        auto put = [&](int c, const uint4& w) {
             uint4 lo, hi;
-            dequant16(w[c], scale, lo, hi);
+            dequant16(w, scale, lo, hi);
             *reinterpret_cast<uint4*>(dst + box_at(j, 2 * c)) = lo;
             *reinterpret_cast<uint4*>(dst + box_at(j, 2 * c + 1)) = hi;
-        }
+        };
+        auto get = [&](int c) {
+            return *reinterpret_cast<const uint4*>(raw + j * DP + ((c ^ (j & (RCHP - 1))) << 4));
+        };
+#pragma unroll
+        for (int c = 0; c < LOW; ++c) put(c, get(c));
+        uint4 w[RCH - LOW > 0 ? RCH - LOW : 1];
+#pragma unroll
+        for (int c = LOW; c < RCH; ++c) w[c - LOW] = get(c);
+        __syncthreads();  // every raw row is read before any is overwritten
+#pragma unroll
+        for (int c = LOW; c < RCH; ++c) put(c, w[c - LOW]);
     };
 
     // The ring: tiles t + 1 and t + 2 load while ``products(t, stage)`` runs
@@ -338,14 +373,14 @@ ragged_tc_kernel(const __nv_bfloat16* __restrict__ q,   // [Np, Hq, D] (rectangl
     };
 
     const int wr = warp * 16;  // the warp's first query vector
-    if (rows * NREP <= 16) {
+    if (rows * nrep <= 16) {
         // Every live query vector sits in warp 0's 16 rows (decode lanes):
         // the warps split each key tile, warp w taking keys 16 w .. 16 w +
         // 15 for vectors 0 .. 15 under its own softmax, and merge at the end.
         const int wq_lo = qrow0;
-        const int wq_hi = qrow0 + 15 / NREP;
-        const int qpos0 = qrow0 + (lane >> 2) / NREP;
-        const int qpos1 = qrow0 + ((lane >> 2) + 8) / NREP;
+        const int wq_hi = qrow0 + rep.div(15);
+        const int qpos0 = qrow0 + rep.div(lane >> 2);
+        const int qpos1 = qrow0 + rep.div((lane >> 2) + 8);
         ring([&](int t, int stage) {
             int mem0, pos0, nv;
             walk.at(t, mem0, pos0, nv);
@@ -372,10 +407,10 @@ ragged_tc_kernel(const __nv_bfloat16* __restrict__ q,   // [Np, Hq, D] (rectangl
         __syncthreads();  // the ring is drained: its stages hold the partials
         merge_warps<D>(o, sm, reinterpret_cast<float*>(sK));
     } else {
-        const int wq_lo = qrow0 + wr / NREP;
-        const int wq_hi = qrow0 + (wr + 15) / NREP;
-        const int qpos0 = qrow0 + (wr + (lane >> 2)) / NREP;
-        const int qpos1 = qrow0 + (wr + (lane >> 2) + 8) / NREP;
+        const int wq_lo = qrow0 + rep.div(wr);
+        const int wq_hi = qrow0 + rep.div(wr + 15);
+        const int qpos0 = qrow0 + rep.div(wr + (lane >> 2));
+        const int qpos1 = qrow0 + rep.div(wr + (lane >> 2) + 8);
         float s[8][4];
         uint32_t pa[4][4];
         float oh[HALVES][8][4];
@@ -395,7 +430,7 @@ ragged_tc_kernel(const __nv_bfloat16* __restrict__ q,   // [Np, Hq, D] (rectangl
                 const uint64_t dk = sw128_desc(sK + stage * AREA + hd * BOX);
 #pragma unroll
                 for (int kd = 0; kd < 4; ++kd)
-                    wgmma_ss(s, dq + 2 * kd, dk + 2 * kd, hd | kd);
+                    if (64 * hd + 16 * kd < D) wgmma_ss(s, dq + 2 * kd, dk + 2 * kd, hd | kd);
             }
             wgmma_commit();
             wgmma_wait<0>();
@@ -429,15 +464,13 @@ ragged_tc_kernel(const __nv_bfloat16* __restrict__ q,   // [Np, Hq, D] (rectangl
             for (int hd = 0; hd < HALVES; ++hd) fence_acc(oh[hd]);
         });
 #pragma unroll
-        for (int hd = 0; hd < HALVES; ++hd)
+        for (int i = 0; i < D / 8; ++i)  // the real columns
 #pragma unroll
-            for (int i = 0; i < 8; ++i)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) o[hd * 8 + i][e] = oh[hd][i][e];
+            for (int e = 0; e < 4; ++e) o[i][e] = oh[i / 8][i % 8][e];
         fence_proxy_async();
     }
     __syncthreads();  // every warp is done with sQ
-    store_rows<D, NREP>(o, sm, sQ, wr, rows, rows, o_tile, q_stride);
+    store_rows<D, DP>(o, sm, sQ, wr, rows, rows, rep, o_tile, q_stride);
 }
 
 }  // namespace dyn

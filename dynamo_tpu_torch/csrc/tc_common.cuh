@@ -28,6 +28,21 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// v / n and v % n for 0 <= v < 4096 and a GQA group 1 <= n <= 16 that
+// arrives at run time, as a multiply and a shift (m = ceil(2^16 / n) errs by
+// less than one for such v).  A plain division by a runtime group in the
+// ragged kernel's row arithmetic cost 30% at Llama-3-8B's shapes on an
+// H100; this form reads within the run-to-run spread (PERF.md).
+struct GroupDiv {
+    int n;
+    uint32_t magic;
+    __device__ explicit GroupDiv(int n_) : n(n_), magic((65536u + (uint32_t)n_ - 1u) / (uint32_t)n_) {}
+    __device__ __forceinline__ int div(int v) const {
+        return (int)(((uint32_t)v * magic) >> 16);
+    }
+    __device__ __forceinline__ int mod(int v) const { return v - div(v) * n; }
+};
+
 // element offset of 16-byte chunk ``c`` of row ``r`` in a [rows][D] tile
 // whose chunks are XOR-swizzled by row (c ^ (r & 7): conflict-free for a
 // warp writing 4-byte pairs of 8 rows and reading 16-byte chunks)
@@ -36,8 +51,19 @@ __device__ __forceinline__ int swz(int r, int c) {
     return r * D + ((c ^ (r & 7)) << 3);
 }
 
-// element offset of 16-byte chunk ``c`` (of D / 8) of row ``r`` in a
-// [D / 64][64][64] tile of 128-byte-swizzled boxes
+// The shared-memory width of a D-element head row: D rounded up to whole
+// 64-element boxes.  A head dim that is not a multiple of 64 (96) keeps
+// its rows in the boxes of the next one (128): global loads move only its
+// D / 8 real chunks, and no product reads the pad columns' contents into a
+// real output (S = Q K^T steps over the real columns alone; a P V product
+// over a whole box fills pad output columns that nothing stores).
+template <int D>
+__host__ __device__ constexpr int tc_width() {
+    return (D + 63) / 64 * 64;
+}
+
+// element offset of 16-byte chunk ``c`` (of DP / 8) of row ``r`` in a
+// [DP / 64][64][64] tile of 128-byte-swizzled boxes
 __device__ __forceinline__ int box_at(int r, int c) {
     return (c >> 3) * 64 * 64 + r * 64 + (((c & 7) ^ (r & 7)) << 3);
 }
@@ -243,17 +269,19 @@ __device__ __forceinline__ void merge_warps(float (&o)[D / 8][4], RowSoftmax& sm
     sm.l1 = tq == 0 ? L1 : 0.f;
 }
 
-// Normalises a warp's 16 output rows (this thread's share in the m16n8
-// layout), stages them in rows wr .. wr + 15 of the swizzled tile ``stage``
-// (rows only this warp uses), and writes them with 16-byte stores.  Tile
-// row i is query head i % NREP of query row i / NREP, at ``o_tile + (i /
-// NREP) * q_stride + (i % NREP) * D``; query rows below ``rows`` get their
+// Normalises a warp's 16 output rows (this thread's share of the D real
+// columns in the m16n8 layout), stages them in rows wr .. wr + 15 of the
+// swizzled tile ``stage`` of DP-element rows (rows only this warp uses),
+// and writes them with 16-byte stores.  Tile row i is query head i % nrep
+// of query row i / nrep (``rep`` divides by the group), at ``o_tile + (i /
+// nrep) * q_stride + (i % nrep) * D``; query rows below ``rows`` get their
 // values, rows from ``rows`` to ``zero_to`` zeros, later rows nothing.
-template <int D, int NREP>
+template <int D, int DP>
 __device__ __forceinline__ void store_rows(const float (&o)[D / 8][4], const RowSoftmax& sm,
                                            __nv_bfloat16* stage, int wr, int rows, int zero_to,
-                                           __nv_bfloat16* o_tile, size_t q_stride) {
-    constexpr int CPR = D / 8;
+                                           const GroupDiv& rep, __nv_bfloat16* o_tile,
+                                           size_t q_stride) {
+    constexpr int CPR = D / 8;  // real 16-byte chunks of a row
     const int lane = threadIdx.x & 31;
     const int g = lane >> 2;
     const int tq = lane & 3;
@@ -266,10 +294,10 @@ __device__ __forceinline__ void store_rows(const float (&o)[D / 8][4], const Row
     const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
     __syncwarp();
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {  // 8-column tile i is 16-byte chunk i
-        *reinterpret_cast<uint32_t*>(stage + swz<D>(wr + g, i) + 2 * tq) =
+    for (int i = 0; i < CPR; ++i) {  // 8-column tile i is 16-byte chunk i
+        *reinterpret_cast<uint32_t*>(stage + swz<DP>(wr + g, i) + 2 * tq) =
             pack_bf16(o[i][0] * inv0, o[i][1] * inv0);
-        *reinterpret_cast<uint32_t*>(stage + swz<D>(wr + g + 8, i) + 2 * tq) =
+        *reinterpret_cast<uint32_t*>(stage + swz<DP>(wr + g + 8, i) + 2 * tq) =
             pack_bf16(o[i][2] * inv1, o[i][3] * inv1);
     }
     __syncwarp();
@@ -277,12 +305,13 @@ __device__ __forceinline__ void store_rows(const float (&o)[D / 8][4], const Row
     for (int i = 0; i < 16 * CPR / 32; ++i) {
         const int c = lane + i * 32;
         const int v = wr + c / CPR;
-        const int r = v / NREP;
+        const int r = rep.div(v);
         const int ch = c % CPR;
         if (r >= zero_to) break;
         uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (r < rows) val = *reinterpret_cast<const uint4*>(stage + swz<D>(v, ch));
-        *reinterpret_cast<uint4*>(o_tile + (size_t)r * q_stride + (v % NREP) * D + ch * 8) = val;
+        if (r < rows) val = *reinterpret_cast<const uint4*>(stage + swz<DP>(v, ch));
+        *reinterpret_cast<uint4*>(o_tile + (size_t)r * q_stride + (v - r * rep.n) * D + ch * 8) =
+            val;
     }
 }
 

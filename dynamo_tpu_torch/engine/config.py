@@ -90,6 +90,24 @@ class ModelConfig:
         return cls(**base)
 
     @classmethod
+    def llama3_70b(cls, **overrides: Any) -> "ModelConfig":
+        """Llama-3-70B: 80 layers, 64 query heads over 8 KV heads (GQA
+        group 8), head dim 128."""
+        base = dict(
+            vocab_size=128256,
+            hidden_size=8192,
+            intermediate_size=28672,
+            num_layers=80,
+            num_heads=64,
+            num_kv_heads=8,
+            head_dim=128,
+            rope_theta=500000.0,
+            max_position=8192,
+        )
+        base.update(overrides)
+        return cls(**base)
+
+    @classmethod
     def mixtral_8x7b(cls, **overrides: Any) -> "ModelConfig":
         base = dict(
             vocab_size=32000,

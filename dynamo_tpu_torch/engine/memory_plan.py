@@ -216,3 +216,9 @@ def max_kv_pages(
         return 0
     return free // base.bytes_per_page
 
+
+def llama3_70b_config(dtype: str = "bfloat16") -> ModelConfig:
+    """Real Llama-3-70B geometry (HF config.json: 80 layers, 64 q heads,
+    8 kv heads, ffn 28672, vocab 128256), the JAX plan's north-star model
+    shape, in ``dtype``."""
+    return ModelConfig.llama3_70b(dtype=dtype)

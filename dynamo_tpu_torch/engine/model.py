@@ -353,7 +353,10 @@ def transformer(
     land after Gemma's embedding scale, so they are not scaled."""
     x = params["embed"][tokens]
     if cfg.scale_embeddings:
-        x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype, device=x.device)
+        # sqrt(hidden) rounded to the embed dtype, as the JAX trunk's; a
+        # Python scalar, not a device tensor: a host-to-device copy inside
+        # a CUDA-graph capture fails it
+        x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype).item()
     if mm is not None:
         mm_embeds, mm_len = mm
         B, M = mm_embeds.shape[:2]

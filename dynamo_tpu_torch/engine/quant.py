@@ -71,20 +71,32 @@ def _quantize_slice(w: torch.Tensor, dtype: torch.dtype) -> QuantizedTensor:
     return QuantizedTensor(q=q, s=s.to(dtype))
 
 
+# output channels a 2-D weight quantizes at a time: each channel's scale is
+# its own, so the slices give the whole weight's bytes, and the f32 upcast
+# peaks at H x QUANT_COLUMNS (Llama-3-70B's lm_head whole: 4.2 GB)
+QUANT_COLUMNS = 8192
+
+
 def quantize_tensor(w: torch.Tensor, dtype: torch.dtype) -> QuantizedTensor:
     """Symmetric per-output-channel int8 over the contraction axis (-2), on
     ``w``'s device.  A stacked ``[L, ...]`` weight quantizes one leading
-    slice at a time into preallocated int8 and scale tensors, so the f32
-    upcast the rounding needs peaks at one layer's size: an 8B model must
-    not hold an f32 copy of a whole stack."""
-    if w.dim() < 3:
-        return _quantize_slice(w, dtype)
+    slice at a time into preallocated int8 and scale tensors, and a 2-D one
+    QUANT_COLUMNS output channels at a time, so the f32 upcast the rounding
+    needs peaks at one layer's size: an 8B model must not hold an f32 copy
+    of a whole stack, nor a 70B model one of its vocab-wide head."""
     q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
     s = torch.empty(
         w.shape[:-2] + (1, w.shape[-1]), dtype=dtype, device=w.device
     )
+    if w.dim() == 2:
+        for c in range(0, w.shape[-1], QUANT_COLUMNS):
+            cols = slice(c, c + QUANT_COLUMNS)
+            part = _quantize_slice(w[:, cols], dtype)
+            q[:, cols].copy_(part.q)
+            s[:, cols].copy_(part.s)
+        return QuantizedTensor(q=q, s=s)
     for i in range(w.shape[0]):
-        part = _quantize_slice(w[i], dtype)
+        part = quantize_tensor(w[i], dtype)
         q[i].copy_(part.q)
         s[i].copy_(part.s)
     return QuantizedTensor(q=q, s=s)

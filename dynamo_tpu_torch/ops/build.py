@@ -32,9 +32,12 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 # dtype codes of the C entries (csrc/common.cuh DTYPE_*)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the head geometries the kernels instantiate: those of the port's configs
-SUPPORTED_HEAD_DIMS = (64, 128)
-SUPPORTED_GROUPS = (2, 4)  # GQA groups of ModelConfig.tiny and llama3_8b
+# the head geometries the kernels take: every head dim and GQA group
+# (Hq / Hkv) of the published checkpoints the JAX package serves on its TPU
+# kernels (D 96: Phi-3; 256: Gemma; group 1: Llama-2, Gemma-7B, Phi-3; 3 to
+# 8: Llama-3.2-3B, Qwen2.5-14B, Qwen2-1.5B, Qwen2-7B, Llama-3-70B)
+SUPPORTED_HEAD_DIMS = (64, 96, 128, 256)
+SUPPORTED_GROUPS = tuple(range(1, 9))
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -73,6 +76,7 @@ class CudaKernel:
         self.argtypes = list(argtypes)
         self.launches = 0
         self._fn = None
+        self._lib = None
         KERNELS.append(self)
 
     @property
@@ -105,7 +109,7 @@ class CudaKernel:
             "-gencode", "arch=compute_90a,code=sm_90a",
             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
             # optimize a source's kernel instantiations on parallel threads
-            # (the ragged source has sixteen)
+            # (the paged decode source has forty)
             "--split-compile=0",
             "-Xptxas", "-v",
             "-o", str(tmp), str(self.source),
@@ -147,12 +151,25 @@ class CudaKernel:
     def _load(self):
         if self._fn is None:
             self.build()
-            lib = ctypes.CDLL(str(self.library_path()))
-            fn = getattr(lib, self.name)
+            self._lib = ctypes.CDLL(str(self.library_path()))
+            fn = getattr(self._lib, self.name)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
+
+    def query(self, symbol: str, *args: int) -> int:
+        """Call the int-valued C entry ``symbol`` of this kernel's library,
+        which reports on its instantiations and launches nothing; counts no
+        launch and raises on a negative (CUDA error) result."""
+        self._load()
+        fn = getattr(self._lib, symbol)
+        fn.argtypes = [ctypes.c_int] * len(args)
+        fn.restype = ctypes.c_int
+        value = fn(*args)
+        if value < 0:
+            raise RuntimeError(f"{symbol}: failed with CUDA error {-value}")
+        return value
 
     def launch(self, *args) -> None:
         rc = self._load()(*args)
@@ -195,8 +212,17 @@ def check_geometry(
         return
     if dtype not in DTYPE_CODES:
         raise ValueError(f"unsupported dtype {dtype}")
-    if D not in SUPPORTED_HEAD_DIMS or Hq % Hkv or Hq // Hkv not in SUPPORTED_GROUPS:
-        raise ValueError(f"unsupported head geometry Hq={Hq} Hkv={Hkv} D={D}")
+    if (
+        D not in SUPPORTED_HEAD_DIMS
+        or Hkv <= 0
+        or Hq % Hkv
+        or Hq // Hkv not in SUPPORTED_GROUPS
+    ):
+        raise ValueError(
+            f"unsupported head geometry Hq={Hq} Hkv={Hkv} D={D} (the kernels "
+            f"take D in {SUPPORTED_HEAD_DIMS} and Hq / Hkv from 1 to "
+            f"{SUPPORTED_GROUPS[-1]})"
+        )
 
 
 def check_cuda_operand(

@@ -43,10 +43,8 @@ KERNEL = CudaKernel(
     "paged_decode_attention",
     [P] * 6 + [I] * 12 + [P],
 )
-# the bf16 kernel's CTAs an SM holds at once (100 KB of shared memory
-# each), the fewest positions a split covers (two 64-key tiles) and the
-# most splits a lane takes
-CTAS_PER_SM = 2
+# the fewest positions a split covers (two 64-key tiles) and the most
+# splits a lane takes
 MIN_SPLIT_POSITIONS = 128
 MAX_SPLITS = 32
 
@@ -66,9 +64,14 @@ def decode_split(width: int, page: int, lane_heads: int, slots: int) -> Tuple[in
 
 
 @functools.lru_cache(maxsize=None)
-def resident_ctas(device: torch.device) -> int:
-    """The bf16 kernel's CTAs the card ``device`` holds at once."""
-    return CTAS_PER_SM * torch.cuda.get_device_properties(device).multi_processor_count
+def resident_ctas(device: torch.device, D: int) -> int:
+    """The bf16 kernel's CTAs at head dim ``D`` the card ``device`` holds
+    at once, by the CUDA occupancy query of the built kernel (on an H100,
+    by its shared memory: four an SM at D 64, 51 KB each; two at D 96,
+    which keeps 128-element rows, and 128, 100 KB; one at D 256, 200 KB)."""
+    with torch.cuda.device(device):
+        per_sm = KERNEL.query("paged_decode_tc_ctas_per_sm", D)
+    return per_sm * torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def paged_decode_attention_plain(
@@ -131,7 +134,7 @@ def paged_decode_attention(
         raise ValueError("operand shapes disagree")
     Pw = page_table.shape[1]
     out = torch.empty_like(q)
-    chunk, splits = decode_split(Pw, page, B * Hkv, resident_ctas(q.device))
+    chunk, splits = decode_split(Pw, page, B * Hkv, resident_ctas(q.device, D))
     ws = None
     if q.dtype == torch.bfloat16:
         ws = torch.empty(B * Hq * splits * (D + 2), dtype=torch.float32, device=q.device)

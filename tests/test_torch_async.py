@@ -46,6 +46,7 @@ from dynamo_tpu_torch.engine.scheduler import Scheduler, SchedulerConfig, SeqSta
 from dynamo_tpu_torch.engine.weights import params_from_numpy
 from dynamo_tpu_torch.protocols.common import PreprocessedRequest
 from dynamo_tpu_torch.runtime.engine import Context
+from tests.test_torch_ops import _free_compiled_programs  # noqa: F401 (autouse)
 
 ENGINE = dict(max_batch_size=4, max_seq_len=64, page_size=4, num_pages=64)
 WAIT_S = 60  # bound on any one served batch

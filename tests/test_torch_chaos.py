@@ -49,6 +49,7 @@ from dynamo_tpu_torch.runtime import faults
 from dynamo_tpu_torch.runtime.engine import Context
 from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
 from dynamo_tpu_torch.tokens.sequence import TokenBlockSequence
+from tests.test_torch_ops import _free_compiled_programs  # noqa: F401 (autouse)
 
 WAIT_S = 60  # bound on any one served request or batch
 RUN_S = 180  # bound on any one asyncio.run: a hang fails its test, not the run

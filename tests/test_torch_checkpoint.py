@@ -52,6 +52,7 @@ from dynamo_tpu.runtime.pipeline import link as jax_link
 from dynamo_tpu_torch.engine.config import ModelConfig
 from dynamo_tpu_torch.engine.engine import TorchEngine
 from dynamo_tpu_torch.engine.weights import SafetensorsFile, params_from_numpy
+from tests.test_torch_ops import _free_compiled_programs  # noqa: F401 (autouse)
 
 RUN_S = 180  # bound on any one asyncio.run: a hang fails its test, not the run
 

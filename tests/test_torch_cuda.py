@@ -54,7 +54,12 @@ pytestmark = pytest.mark.cuda
 L, N, PAGE, P = 2, 48, 8, 8  # layers, pool pages, page size, table width
 HKV = 2
 TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
-GEOMETRY = [(d, r) for d in (64, 128) for r in (2, 4)]
+# (D, n_rep): the port's first configs' geometries, then GQA groups 1, 3,
+# 7 and 8 and head dims 96 and 256 (Llama-2, Llama-3.2-3B, Qwen2-7B,
+# Llama-3-70B, Phi-3, Gemma)
+GEOMETRY = [(d, r) for d in (64, 128) for r in (2, 4)] + [
+    (64, 1), (128, 3), (64, 7), (128, 8), (96, 2), (96, 8), (256, 1), (256, 4),
+]
 
 
 @pytest.fixture(scope="module")
@@ -111,8 +116,9 @@ def test_paged_decode_kernel_matches_plain(card, D, n_rep, dtype, windowed, case
     window = window if windowed else 0
     q, pool, table, lens = _decode_case(card, dtype, D, n_rep, kv_lens, page, width, 1)
     if case == "splits":
-        chunk, splits = pa.decode_split(width, page, 8 * HKV, pa.resident_ctas(card))
-        assert chunk == 128 and splits > 8
+        # at D 256 the bf16 kernel holds one CTA a SM, so half the splits
+        chunk, splits = pa.decode_split(width, page, 8 * HKV, pa.resident_ctas(card, D))
+        assert chunk == (128 if D <= 128 else 256) and splits >= 8
     before = pa.KERNEL.launches
     got = pa.paged_decode_attention(q, pool, table, lens, 1, window)
     torch.cuda.synchronize()
@@ -129,7 +135,7 @@ def test_paged_decode_kernel_on_a_wide_table(card, dtype, window):
     # positions on an H100
     kv_lens = [16384, 9001, 513, 0]
     q, pool, table, lens = _decode_case(card, dtype, 128, 4, kv_lens, 16, 1024, 3)
-    chunk, splits = pa.decode_split(1024, 16, 4 * HKV, pa.resident_ctas(card))
+    chunk, splits = pa.decode_split(1024, 16, 4 * HKV, pa.resident_ctas(card, 128))
     assert chunk > 128 and splits == pa.MAX_SPLITS
     got = pa.paged_decode_attention(q, pool, table, lens, 0, window)
     want = pa.paged_decode_attention_plain(q, pool, table, lens, 0, window)
@@ -665,10 +671,11 @@ def _graph_engine(card, dtype, kv_dtype=None, max_batch_size=GB, model_kw=None, 
     from dynamo_tpu_torch.engine.kv_cache import QuantKV
     from dynamo_tpu_torch.engine.model import init_params
 
-    cfg = ModelConfig.tiny(
-        head_dim=64, num_heads=4, num_kv_heads=2,
-        dtype="bfloat16" if dtype == torch.bfloat16 else "float32", **(model_kw or {}),
-    )
+    cfg = ModelConfig.tiny(**{
+        **dict(head_dim=64, num_heads=4, num_kv_heads=2,
+               dtype="bfloat16" if dtype == torch.bfloat16 else "float32"),
+        **(model_kw or {}),
+    })
     ecfg = EngineConfig(
         max_batch_size=max_batch_size, max_seq_len=256, page_size=16, num_pages=64,
         kv_dtype=kv_dtype, **engine_kw,
@@ -784,6 +791,27 @@ def test_packed_graph_replay_equals_eager(card, dtype, kv_dtype, K):
         dispatch()
     torch.cuda.synchronize()
     assert [a - b for a, b in zip(launch_counts(), base)] == [3 * n for n in launches]
+
+
+# the head geometries and trunk switches of families beyond Llama's: Gemma
+# (D 256, GELU, offset norm, scaled embeddings, tied head), Phi-3 (D 96,
+# a window shorter than the lanes), Llama-3-70B's group 8
+FAMILIES = {
+    "gemma-d256": dict(head_dim=256, num_heads=2, num_kv_heads=1, hidden_act="gelu_tanh",
+                       rms_norm_offset=True, scale_embeddings=True,
+                       tie_word_embeddings=True),
+    "phi3-d96-window": dict(head_dim=96, num_heads=4, num_kv_heads=4, sliding_window=40),
+    "group8-d128": dict(head_dim=128, num_heads=8, num_kv_heads=1),
+}
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_family_packed_graph_replay_equals_eager(card, family):
+    """A K = 8 decode dispatch captures and replays at each family's
+    geometry and switches (Gemma's embedding scale once built a device
+    tensor inside the capture, which CUDA graphs refuse), bit for bit."""
+    eng = _graph_engine(card, torch.bfloat16, model_kw=FAMILIES[family])
+    _replay_equals_eager(eng, _packed_dispatch(eng, 8))
 
 
 @pytest.mark.parametrize("cf", [1.0, 2.0], ids=["binds", "mixtral"])

@@ -69,6 +69,7 @@ from dynamo_tpu_torch.runtime.pipeline import link
 from dynamo_tpu_torch.runtime.transports.hub import HubServer
 
 from test_torch_frontend import http
+from tests.test_torch_ops import _free_compiled_programs  # noqa: F401 (autouse)
 
 ENGINE = dict(max_batch_size=4, max_seq_len=128, page_size=4, num_pages=128,
               mixed_token_budget=16)

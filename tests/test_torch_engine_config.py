@@ -66,6 +66,7 @@ from dynamo_tpu_torch.runtime.engine import Context
 from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
 from dynamo_tpu_torch.runtime.transports.hub import HubServer
 from dynamo_tpu_torch.tokens.hashing import hash_blocks
+from tests.test_torch_ops import _free_compiled_programs  # noqa: F401 (autouse)
 
 WAIT_S = 30  # bound on any one served request or wait
 RUN_S = 180  # bound on any one asyncio.run

@@ -31,6 +31,7 @@ from dynamo_tpu_torch.engine.weights import params_from_numpy
 from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
 
 from tests.test_torch_score import ENGINE, WAIT_S, serve, workload
+from tests.test_torch_ops import _free_compiled_programs  # noqa: F401 (autouse)
 
 RUN_S = 180  # bound on any one asyncio.run: a hang fails its test, not the run
 

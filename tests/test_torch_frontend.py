@@ -53,6 +53,7 @@ from dynamo_tpu_torch.llm.embedding import EmbeddingEngine
 from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
 from dynamo_tpu_torch.llm.tokenizer import Tokenizer
 from dynamo_tpu_torch.runtime.pipeline import link
+from tests.test_torch_ops import _free_compiled_programs  # noqa: F401 (autouse)
 
 NAME = "tiny"
 ENGINE = dict(max_batch_size=4, max_seq_len=128, page_size=4, num_pages=128,

@@ -60,6 +60,7 @@ from dynamo_tpu_torch.protocols import common as tcommon
 from dynamo_tpu_torch.protocols.common import PreprocessedRequest
 from dynamo_tpu_torch.runtime.engine import Context
 from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
+from tests.test_torch_ops import _free_compiled_programs  # noqa: F401 (autouse)
 
 WAIT_S = 60  # bound on any one served request
 RUN_S = 180  # bound on any one asyncio.run

@@ -61,6 +61,7 @@ from dynamo_tpu_torch.ops.ragged_attention import (
 )
 from dynamo_tpu_torch.protocols.common import PreprocessedRequest
 from dynamo_tpu_torch.runtime.engine import Context
+from tests.test_torch_ops import _free_compiled_programs  # noqa: F401 (autouse)
 
 L, N, PAGE, P = 2, 40, 8, 8  # layers, pool pages, page size, table width
 HQ, HKV, D = 4, 2, 32  # GQA n_rep = 2

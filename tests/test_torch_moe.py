@@ -51,6 +51,7 @@ from dynamo_tpu_torch.engine.quant import QuantizedTensor, quantize_params
 from dynamo_tpu_torch.engine.weights import params_from_numpy
 from dynamo_tpu_torch.protocols.common import PreprocessedRequest
 from dynamo_tpu_torch.runtime.engine import Context
+from tests.test_torch_ops import _free_compiled_programs  # noqa: F401 (autouse)
 
 WAIT_S = 60  # bound on any one served batch
 RUN_S = 180  # bound on any one asyncio.run: a hang fails its test, not the run

@@ -44,6 +44,7 @@ from dynamo_tpu_torch.llm.tokenizer import Tokenizer
 from test_torch_checkpoint import MAX_TOKENS, jax_texts
 from test_torch_moe import port_causal
 from test_torch_tokenizer import sentencepiece_json
+from tests.test_torch_ops import _free_compiled_programs  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROMPTS = ["hello world", "tell me a story about the quick brown fox 😀"]
@@ -167,7 +168,7 @@ def test_profile_sla_serves_mixtral(mixtral):
 
 # -- the memory plan ----------------------------------------------------------
 
-PRESETS = ["tiny", "llama3_8b", "mixtral_8x7b"]
+PRESETS = ["tiny", "llama3_8b", "llama3_70b", "mixtral_8x7b"]
 FIELDS = ("param_bytes", "kv_bytes", "scratch_bytes", "reserve_bytes", "hbm_bytes",
           "num_pages", "bytes_per_page", "detail")
 CARD = 80 * 1024**3
@@ -241,3 +242,38 @@ def test_mixtral_preset_equals_jax():
     assert dataclasses.asdict(ModelConfig.mixtral_8x7b()) == dataclasses.asdict(
         JaxModelConfig.mixtral_8x7b()
     )
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_llama3_70b_preset_and_plan_config_equal_jax(dtype):
+    assert dataclasses.asdict(ModelConfig.llama3_70b()) == dataclasses.asdict(
+        JaxModelConfig.llama3_70b()
+    )
+    assert dataclasses.asdict(memory_plan.llama3_70b_config(dtype)) == dataclasses.asdict(
+        jax_plan.llama3_70b_config(dtype)
+    )
+
+
+# the plans chip_smoke.py serves Llama-3-70B under: 16 of its 80 layers in
+# bf16 over 1024 pages at batch 8, and the whole model with int8 weights
+# over 256 pages at batch 4; (layers, quantize, pages, batch, GiB of the
+# whole plan on a card of 85.52e9 bytes)
+LLAMA3_70B_PLANS = {
+    "16-layers-bf16": (16, None, 1024, 8, 37.014),
+    "80-layers-int8": (80, "int8", 256, 4, 77.554),
+}
+
+
+@pytest.mark.parametrize("name", list(LLAMA3_70B_PLANS))
+def test_llama3_70b_plan_bytes_equal_jax(name):
+    layers, quantize, pages, batch, gib = LLAMA3_70B_PLANS[name]
+    cfg = dataclasses.replace(memory_plan.llama3_70b_config(), num_layers=layers)
+    jcfg = dataclasses.replace(jax_plan.llama3_70b_config(), num_layers=layers)
+    kw = dict(quantize=quantize, num_pages=pages, max_batch_size=batch, hbm_bytes=int(85.52e9))
+    got, want = memory_plan.plan_memory(cfg, tp=1, **kw), jax_plan.plan_memory(jcfg, tp=1, **kw)
+    assert got.param_bytes == want.param_bytes
+    assert got.kv_bytes == want.kv_bytes
+    assert got.detail == want.detail
+    assert round(got.total_bytes / 2**30, 3) == gib
+    assert got.fits
+

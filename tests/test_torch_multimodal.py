@@ -52,6 +52,7 @@ from dynamo_tpu_torch.vision import (
 )
 
 from tests.test_torch_step import CFG, _check_packed, _check_written, _prefill_inputs, _samplers
+from tests.test_torch_ops import _free_compiled_programs  # noqa: F401 (autouse)
 
 ENGINE = dict(
     max_batch_size=4, max_seq_len=96, page_size=4, num_pages=64,

@@ -14,10 +14,15 @@ values of order one: 2e-2.
 Only rows somebody reads are compared: the XLA reference averages over
 fully masked rows, and the packed Pallas kernel lets a lane's ``s_max``
 window spill past its ``q_len`` into pad rows, where the port writes zeros.
+
+Every kernel (and the int8 branches of the ragged ones) is also held there
+at the head geometries the CUDA kernels take beyond the module's 4/2/32:
+GQA groups 1, 3, 7 and 8 and head dims 96 and 256 (``GEOMETRIES``).
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -25,6 +30,7 @@ import pytest
 import torch
 
 from dynamo_tpu.engine import attention as jatt
+from dynamo_tpu.engine import kv_cache as jkv
 from dynamo_tpu.ops.flash_prefill import (
     flash_prefill_attention as pallas_flash,
     flash_prefix_prefill_attention as pallas_flash_prefix,
@@ -57,10 +63,53 @@ L, N, PAGE, P = 2, 40, 8, 8  # layers, pool pages, page size, table width
 HQ, HKV, D = 4, 2, 32  # GQA n_rep = 2
 LAYER = 1
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# (Hq, Hkv, D) beyond the module's: the GQA groups of Llama-2 and Gemma-7B
+# (1), Llama-3.2-3B (3), Qwen2-7B (7) and Llama-3-70B (8), Phi-3's head dim
+# (96) and Gemma's (256), at small head counts
+GEOMETRIES = {
+    "group1": (2, 2, 64),
+    "group3": (6, 2, 64),
+    "group7": (7, 1, 64),
+    "group8": (8, 1, 64),
+    "d96": (4, 2, 96),
+    "d256": (2, 1, 256),
+}
 
 
 def _np(dtype: str, a: np.ndarray) -> np.ndarray:
     return a.astype(np.float32 if dtype == "float32" else ml_dtypes.bfloat16)
+
+
+# a process's memory mappings past which the module fixture below frees the
+# compiled JAX programs: Linux refuses more than vm.max_map_count (65530 by
+# default), and one module's cases add up to some 12000
+FREE_PROGRAMS_AT_MAPPINGS = 30000
+
+
+def _mappings() -> int:
+    try:
+        with open("/proc/self/maps") as f:
+            return sum(1 for _ in f)
+    except OSError:  # no /proc: not Linux, so not its limit
+        return 0
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _free_compiled_programs():
+    """Free the JAX programs compiled so far when the module starts or ends
+    with more than FREE_PROGRAMS_AT_MAPPINGS memory mappings.  Each compiled
+    program holds mappings of its own, and a test process that keeps every
+    program of its share of the suite reaches the kernel's limit, past
+    which the next compile crashes the process.  The test modules that
+    compile many programs import this fixture."""
+
+    def free() -> None:
+        if _mappings() > FREE_PROGRAMS_AT_MAPPINGS:
+            jax.clear_caches()
+
+    free()
+    yield
+    free()
 
 
 def _torch(a: np.ndarray) -> torch.Tensor:
@@ -75,23 +124,22 @@ def _f32(x) -> np.ndarray:
     return np.asarray(x).astype(np.float32)
 
 
-def _pool_and_table(rs, dtype: str, B: int):
-    pool = _np(dtype, rs.standard_normal((L, 2, N, PAGE, HKV, D)))
+def _pool_and_table(rs, dtype: str, B: int, hkv: int = HKV, d: int = D):
+    pool = _np(dtype, rs.standard_normal((L, 2, N, PAGE, hkv, d)))
     table = np.stack(
         [rs.permutation(N - 1)[:P] + 1 for _ in range(B)]
     ).astype(np.int32)
     return pool, table
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("window", [0, 10])
-def test_paged_decode_matches_pallas_and_xla(dtype, window):
+def _check_paged_decode(dtype, window, geom=(HQ, HKV, D)):
     """Full-table lane, partial lanes, a one-token lane and an idle lane."""
+    hq, hkv, d = geom
     rs = np.random.default_rng(7)
     kv_lens = np.array([P * PAGE, 23, 1, 0], np.int32)
     B = len(kv_lens)
-    pool, table = _pool_and_table(rs, dtype, B)
-    q = _np(dtype, rs.standard_normal((B, HQ, D)))
+    pool, table = _pool_and_table(rs, dtype, B, hkv, d)
+    q = _np(dtype, rs.standard_normal((B, hq, d)))
 
     got = _f32(
         paged_decode_attention(
@@ -119,10 +167,23 @@ def test_paged_decode_matches_pallas_and_xla(dtype, window):
     assert not got[~live].any(), "an idle lane gives zeros"
 
 
-def _packed_case(rs, dtype: str):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 10])
+def test_paged_decode_matches_pallas_and_xla(dtype, window):
+    _check_paged_decode(dtype, window)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("geometry", list(GEOMETRIES))
+def test_paged_decode_geometry_matches_pallas_and_xla(geometry, dtype):
+    _check_paged_decode(dtype, 10, GEOMETRIES[geometry])
+
+
+def _packed_case(rs, dtype: str, geom=(HQ, HKV, D)):
     """A decode lane, a prefill chunk from position 0, a prefix-hit lane
     (base > 0 with several rows) and an idle lane, packed by the engine's
     rule (segments in slot order, s_max = pow2, off + s_max <= Np)."""
+    hq, hkv, d = geom
     base = np.array([37, 0, 16, 0], np.int32)
     q_lens = np.array([1, 12, 7, 0], np.int32)
     B = len(base)
@@ -140,42 +201,52 @@ def _packed_case(rs, dtype: str):
         o, n = int(seg_off[b]), int(q_lens[b])
         lane[o : o + n] = b
         rel[o : o + n] = np.arange(n)
-    pool, table = _pool_and_table(rs, dtype, B)
-    q = _np(dtype, rs.standard_normal((Np, HQ, D)))
-    k = _np(dtype, rs.standard_normal((Np, HKV, D)))
-    v = _np(dtype, rs.standard_normal((Np, HKV, D)))
+    pool, table = _pool_and_table(rs, dtype, B, hkv, d)
+    q = _np(dtype, rs.standard_normal((Np, hq, d)))
+    k = _np(dtype, rs.standard_normal((Np, hkv, d)))
+    v = _np(dtype, rs.standard_normal((Np, hkv, d)))
     return dict(
         q=q, k=k, v=v, pool=pool, table=table, base=base, seg_off=seg_off,
         q_lens=q_lens, lane=lane, rel=rel, s_max=s_max,
     )
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("window", [0, 5])
-def test_packed_ragged_matches_pallas_and_xla(dtype, window):
-    c = _packed_case(np.random.default_rng(11), dtype)
+def _jax_int8(pool: np.ndarray):
+    """The int8 pool the JAX rule makes of a dense one: (data, scales)."""
+    q, s = jkv.quantize_kv_rows(jnp.asarray(pool.astype(np.float32)))
+    return np.array(q), np.array(s)
+
+
+def _check_packed_ragged(dtype, window, geom=(HQ, HKV, D), int8=False):
+    c = _packed_case(np.random.default_rng(11), dtype, geom)
+    scales = None
+    if int8:  # the int8 pool of the case's dense pool, by the JAX rule
+        c["pool"], scales = _jax_int8(c["pool"])
     got = _f32(
         packed_ragged_attention(
             _torch(c["q"]), _torch(c["k"]), _torch(c["v"]), _torch(c["pool"]),
             torch.from_numpy(c["table"]), torch.from_numpy(c["base"]),
             torch.from_numpy(c["seg_off"]), torch.from_numpy(c["q_lens"]),
             c["s_max"], LAYER, window,
+            kv_scales=None if scales is None else torch.from_numpy(scales),
         )
     )
     j = {k: jnp.asarray(v) for k, v in c.items() if isinstance(v, np.ndarray)}
+    js = None if scales is None else jnp.asarray(scales)
     # group=4: the JAX engine's setting (engine/attention.py:233)
     pallas = _f32(
         pallas_packed(
             j["q"], j["k"], j["v"], j["pool"], j["table"], j["base"],
             j["seg_off"], j["q_lens"], c["s_max"], LAYER, window, 4,
-            interpret=True,
+            interpret=True, kv_scales=js,
         )
     )
     xla = _f32(
         packed_ragged_attention_xla(
-            j["q"], j["k"], j["v"], j["pool"], j["table"], j["base"],
-            j["seg_off"], j["q_lens"], j["lane"], j["rel"], c["s_max"],
-            LAYER, window,
+            j["q"], j["k"], j["v"],
+            j["pool"] if js is None else jkv.QuantKV(j["pool"], js),
+            j["table"], j["base"], j["seg_off"], j["q_lens"], j["lane"], j["rel"],
+            c["s_max"], LAYER, window,
         )
     )
     tol = TOL[dtype]
@@ -183,6 +254,19 @@ def test_packed_ragged_matches_pallas_and_xla(dtype, window):
     np.testing.assert_allclose(got[valid], pallas[valid], atol=tol, rtol=0)
     np.testing.assert_allclose(got[valid], xla[valid], atol=tol, rtol=0)
     assert not got[~valid].any(), "pad rows give zeros"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 5])
+def test_packed_ragged_matches_pallas_and_xla(dtype, window):
+    _check_packed_ragged(dtype, window)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["dense", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("geometry", list(GEOMETRIES))
+def test_packed_ragged_geometry_matches_pallas_and_xla(geometry, dtype, int8):
+    _check_packed_ragged(dtype, 5, GEOMETRIES[geometry], int8)
 
 
 def test_packed_ragged_clips_table_and_layer():
@@ -265,16 +349,15 @@ def _rows_below(lens, T: int) -> np.ndarray:
     return np.arange(T)[None, :] < np.asarray(lens)[:, None]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("window", [0, 6])
-def test_flash_prefill_matches_pallas_and_xla(dtype, window):
+def _check_flash_prefill(dtype, window, geom=(HQ, HKV, D)):
     """A full bucket, a lane shorter than T, a one-token lane, a pad lane."""
+    hq, hkv, d = geom
     rs = np.random.default_rng(13)
     seq_lens = np.array([32, 19, 1, 0], np.int32)
     B, T = len(seq_lens), 32
-    q = _np(dtype, rs.standard_normal((B, T, HQ, D)))
-    k = _np(dtype, rs.standard_normal((B, T, HKV, D)))
-    v = _np(dtype, rs.standard_normal((B, T, HKV, D)))
+    q = _np(dtype, rs.standard_normal((B, T, hq, d)))
+    k = _np(dtype, rs.standard_normal((B, T, hkv, d)))
+    v = _np(dtype, rs.standard_normal((B, T, hkv, d)))
     got = _f32(
         flash_prefill_attention(
             _torch(q), _torch(k), _torch(v), torch.from_numpy(seq_lens), window
@@ -292,25 +375,36 @@ def test_flash_prefill_matches_pallas_and_xla(dtype, window):
     assert not got[~read].any(), "rows past seq_len give zeros"
 
 
-def _prefix_case(rs, dtype: str):
-    """Suffix lanes over a gathered prefix: a partial-page prefix (13
-    tokens), a whole-table one, an empty one and a pad lane; Pp = 4 pages
-    of 8, so Kp = 32 tiles the Pallas kernel's BK = gcd(T, 8)."""
-    offsets = np.array([13, 32, 0, 8], np.int32)
-    slens = np.array([16, 5, 11, 0], np.int32)
-    B, T, Pp = len(offsets), 16, 4
-    pool = _np(dtype, rs.standard_normal((L, 2, N, PAGE, HKV, D)))
-    pt = np.stack([rs.permutation(N - 1)[:Pp] + 1 for _ in range(B)]).astype(np.int32)
-    q = _np(dtype, rs.standard_normal((B, T, HQ, D)))
-    k = _np(dtype, rs.standard_normal((B, T, HKV, D)))
-    v = _np(dtype, rs.standard_normal((B, T, HKV, D)))
-    return dict(pool=pool, pt=pt, q=q, k=k, v=v, offsets=offsets, slens=slens, T=T)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 6])
+def test_flash_prefill_matches_pallas_and_xla(dtype, window):
+    _check_flash_prefill(dtype, window)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("window", [0, 9])
-def test_flash_prefix_prefill_matches_pallas_and_xla(dtype, window):
-    c = _prefix_case(np.random.default_rng(17), dtype)
+@pytest.mark.parametrize("geometry", list(GEOMETRIES))
+def test_flash_prefill_geometry_matches_pallas_and_xla(geometry, dtype):
+    _check_flash_prefill(dtype, 6, GEOMETRIES[geometry])
+
+
+def _prefix_case(rs, dtype: str, geom=(HQ, HKV, D)):
+    """Suffix lanes over a gathered prefix: a partial-page prefix (13
+    tokens), a whole-table one, an empty one and a pad lane; Pp = 4 pages
+    of 8, so Kp = 32 tiles the Pallas kernel's BK = gcd(T, 8)."""
+    hq, hkv, d = geom
+    offsets = np.array([13, 32, 0, 8], np.int32)
+    slens = np.array([16, 5, 11, 0], np.int32)
+    B, T, Pp = len(offsets), 16, 4
+    pool = _np(dtype, rs.standard_normal((L, 2, N, PAGE, hkv, d)))
+    pt = np.stack([rs.permutation(N - 1)[:Pp] + 1 for _ in range(B)]).astype(np.int32)
+    q = _np(dtype, rs.standard_normal((B, T, hq, d)))
+    k = _np(dtype, rs.standard_normal((B, T, hkv, d)))
+    v = _np(dtype, rs.standard_normal((B, T, hkv, d)))
+    return dict(pool=pool, pt=pt, q=q, k=k, v=v, offsets=offsets, slens=slens, T=T)
+
+
+def _check_flash_prefix_prefill(dtype, window, geom=(HQ, HKV, D)):
+    c = _prefix_case(np.random.default_rng(17), dtype, geom)
     t = {n: _torch(c[n]) for n in ("pool", "q", "k", "v")}
     got = _f32(
         tatt.prefill_prefix_attention_dispatch(
@@ -320,7 +414,9 @@ def test_flash_prefix_prefill_matches_pallas_and_xla(dtype, window):
     )
     j = {n: jnp.asarray(c[n]) for n in ("pool", "pt", "q", "k", "v", "offsets", "slens")}
     B, T = c["q"].shape[:2]
-    pre = lambda side: j["pool"][LAYER, side][j["pt"]].reshape(B, -1, HKV, D)  # noqa: E731
+    pre = lambda side: j["pool"][LAYER, side][j["pt"]].reshape(  # noqa: E731
+        B, -1, *c["pool"].shape[-2:]
+    )
     pallas = _f32(
         pallas_flash_prefix(
             j["q"], jnp.concatenate([pre(0), j["k"]], 1),
@@ -339,6 +435,18 @@ def test_flash_prefix_prefill_matches_pallas_and_xla(dtype, window):
     np.testing.assert_allclose(got[read], pallas[read], atol=tol, rtol=0)
     np.testing.assert_allclose(got[read], xla[read], atol=tol, rtol=0)
     assert not got[~read].any(), "rows past suffix_len give zeros"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 9])
+def test_flash_prefix_prefill_matches_pallas_and_xla(dtype, window):
+    _check_flash_prefix_prefill(dtype, window)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("geometry", list(GEOMETRIES))
+def test_flash_prefix_prefill_geometry_matches_pallas_and_xla(geometry, dtype):
+    _check_flash_prefix_prefill(dtype, 9, GEOMETRIES[geometry])
 
 
 def test_flash_prefix_takes_any_prefix_span():
@@ -362,43 +470,66 @@ def test_flash_prefix_takes_any_prefix_span():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
-def _rect_case(rs, dtype: str):
+def _rect_case(rs, dtype: str, geom=(HQ, HKV, D)):
     """The [B, S] rectangle: a decode lane, a chunk from position 0, a
     prefix-hit chunk over a partial page and an idle lane."""
+    hq, hkv, d = geom
     base = np.array([37, 0, 13, 0], np.int32)
     q_lens = np.array([1, 8, 5, 0], np.int32)
     B, S = len(base), 8
-    pool, table = _pool_and_table(rs, dtype, B)
-    q = _np(dtype, rs.standard_normal((B, S, HQ, D)))
-    k = _np(dtype, rs.standard_normal((B, S, HKV, D)))
-    v = _np(dtype, rs.standard_normal((B, S, HKV, D)))
+    pool, table = _pool_and_table(rs, dtype, B, hkv, d)
+    q = _np(dtype, rs.standard_normal((B, S, hq, d)))
+    k = _np(dtype, rs.standard_normal((B, S, hkv, d)))
+    v = _np(dtype, rs.standard_normal((B, S, hkv, d)))
     return dict(q=q, k=k, v=v, pool=pool, table=table, base=base, q_lens=q_lens)
 
 
-def _rect_torch(c, table=None, layer=LAYER, window=0):
+def _rect_torch(c, table=None, layer=LAYER, window=0, scales=None):
     t = {n: _torch(c[n]) for n in ("q", "k", "v", "pool")}
     return ragged_paged_attention(
         t["q"], t["k"], t["v"], t["pool"],
         torch.from_numpy(c["table"] if table is None else table),
         torch.from_numpy(c["base"]), torch.from_numpy(c["q_lens"]), layer, window,
+        kv_scales=None if scales is None else torch.from_numpy(scales),
     )
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("window", [0, 5])
-def test_rectangle_ragged_matches_pallas_and_xla(dtype, window):
-    c = _rect_case(np.random.default_rng(23), dtype)
-    got = _f32(_rect_torch(c, window=window))
+def _check_rectangle_ragged(dtype, window, geom=(HQ, HKV, D), int8=False):
+    c = _rect_case(np.random.default_rng(23), dtype, geom)
+    scales = None
+    if int8:  # the int8 pool of the case's dense pool, by the JAX rule
+        c["pool"], scales = _jax_int8(c["pool"])
+    got = _f32(_rect_torch(c, window=window, scales=scales))
     j = {n: jnp.asarray(x) for n, x in c.items()}
-    args = (j["q"], j["k"], j["v"], j["pool"], j["table"], j["base"], j["q_lens"])
+    js = None if scales is None else jnp.asarray(scales)
+    pool = j["pool"] if js is None else jkv.QuantKV(j["pool"], js)
+    lanes = (j["table"], j["base"], j["q_lens"])
     # group=4: the JAX engine's setting (engine/attention.py:191)
-    pallas = _f32(pallas_rect(*args, LAYER, window, 4, interpret=True))
-    xla = _f32(ragged_paged_attention_xla(*args, LAYER, window))
+    pallas = _f32(
+        pallas_rect(
+            j["q"], j["k"], j["v"], j["pool"], *lanes, LAYER, window, 4,
+            interpret=True, kv_scales=js,
+        )
+    )
+    xla = _f32(ragged_paged_attention_xla(j["q"], j["k"], j["v"], pool, *lanes, LAYER, window))
     read = _rows_below(c["q_lens"], c["q"].shape[1])
     tol = TOL[dtype]
     np.testing.assert_allclose(got[read], pallas[read], atol=tol, rtol=0)
     np.testing.assert_allclose(got[read], xla[read], atol=tol, rtol=0)
     assert not got[~read].any(), "rows past q_len give zeros"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 5])
+def test_rectangle_ragged_matches_pallas_and_xla(dtype, window):
+    _check_rectangle_ragged(dtype, window)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["dense", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("geometry", list(GEOMETRIES))
+def test_rectangle_ragged_geometry_matches_pallas_and_xla(geometry, dtype, int8):
+    _check_rectangle_ragged(dtype, 5, GEOMETRIES[geometry], int8)
 
 
 def test_rectangle_ragged_clips_table_and_layer():

@@ -52,6 +52,7 @@ from dynamo_tpu_torch.runtime.engine import AsyncEngineContext, Context
 from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
 from dynamo_tpu_torch.runtime.transports.hub import HubServer
 from dynamo_tpu_torch.tokens.hashing import hash_blocks
+from tests.test_torch_ops import _free_compiled_programs  # noqa: F401 (autouse)
 
 WAIT_S = 60  # bound on any one stream, export or onboard
 RUN_S = 180  # bound on any one asyncio.run: a hang fails its test, not the run

@@ -40,6 +40,7 @@ from dynamo_tpu_torch.engine.weights import params_from_numpy
 from dynamo_tpu_torch.runtime import profiling, slo, tracing
 
 from tests.test_torch_async import collect
+from tests.test_torch_ops import _free_compiled_programs  # noqa: F401 (autouse)
 
 ENGINE = dict(max_batch_size=4, max_seq_len=64, page_size=4, num_pages=64)
 WAIT_S = 60  # bound on any one served batch

@@ -36,6 +36,7 @@ from dynamo_tpu.engine.quant import quantize_tensor as jax_quantize_tensor
 from dynamo_tpu_torch import cli
 from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
 from dynamo_tpu_torch.engine.engine import TorchEngine
+from dynamo_tpu_torch.engine import quant as quant_module
 from dynamo_tpu_torch.engine.model import init_params
 from dynamo_tpu_torch.engine.quant import (
     QUANT_KEYS,
@@ -50,6 +51,7 @@ from dynamo_tpu_torch.engine.weights import params_from_numpy
 from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
 from tests.test_torch_checkpoint import hf_state_dict, run_cli, to_torch
 from tests.test_torch_spec import collect, request, streams
+from tests.test_torch_ops import _free_compiled_programs  # noqa: F401 (autouse)
 
 ENGINE = dict(max_batch_size=4, max_seq_len=96, page_size=4, num_pages=64,
               mixed_token_budget=16)
@@ -83,7 +85,11 @@ def _as_torch(a: np.ndarray) -> torch.Tensor:
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(64, 96), (3, 32, 48)], ids=["2d", "stacked"])
-def test_quantize_tensor_bit_for_bit(dtype, shape):
+def test_quantize_tensor_bit_for_bit(dtype, shape, monkeypatch):
+    # 40 output channels at a time: the weights quantize in column chunks,
+    # the last one short, as Llama-3-70B's lm_head does at 8192 (a weight
+    # within one chunk: quantize_params's lm_head, below)
+    monkeypatch.setattr(quant_module, "QUANT_COLUMNS", 40)
     rs = np.random.default_rng(0)
     # channels of magnitudes 1e-4 to 30, and one all-zero channel
     w = rs.standard_normal(shape) * np.logspace(-4, 1.5, shape[-1])

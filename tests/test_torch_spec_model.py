@@ -39,6 +39,7 @@ from dynamo_tpu_torch.runtime.metrics import MetricsRegistry
 from dynamo_tpu_torch.spec import DRAFTERS, MAX_DRAFT_TOKENS
 from dynamo_tpu_torch.spec.model_drafter import ModelDrafter, load_draft_model
 from tests.test_torch_spec import collect, request, streams
+from tests.test_torch_ops import _free_compiled_programs  # noqa: F401 (autouse)
 
 ENGINE = dict(max_batch_size=4, max_seq_len=96, page_size=4, num_pages=64,
               mixed_token_budget=16)

@@ -38,6 +38,7 @@ from dynamo_tpu_torch.engine.config import ModelConfig
 from dynamo_tpu_torch.engine.sampling import PROMPT_FLAG, SamplingParams, apply_penalties
 from dynamo_tpu_torch.engine.step import packed_unified_multistep, packed_unified_step
 from dynamo_tpu_torch.engine.weights import params_from_numpy
+from tests.test_torch_ops import _free_compiled_programs  # noqa: F401 (autouse)
 
 CFG = dict(num_layers=2)
 PAGE, N, P, E = 8, 40, 8, 4  # page size, pool pages, table width, stop width
