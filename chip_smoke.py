@@ -35,7 +35,9 @@ Every phase is fatal on failure:
    and serve-disagg's shapes: full flash prefill of its export batch (the
    8 long prompts of 1024 to 2000 tokens, B = 8, T = 2048), paged decode
    over the decode worker's 16 lanes, and packed ragged over its 16 decode
-   rows and over a 16-lane tick of its short prompts' local prefill.
+   rows and over a 16-lane tick of its short prompts' local prefill; and
+   eval's windows (serve-gguf (b)): full flash prefill of one lane of 512
+   and of 2048 tokens, every row valid.
    CUDA-event times of the kernel, the
    plain version and one ``scaled_dot_product_attention`` call over the
    gathered (dequantized) K/V with the same mask (a yardstick the port
@@ -397,6 +399,37 @@ Every phase is fatal on failure:
    Every run holds its launch invariants and prints wall, ``tok_s``,
    decode-phase tok/s, TTFT and peak GiB.
 
+18. serve-gguf: GGUF checkpoints (``llm/gguf.py``), the Unigram tokenizer
+   and eval (``llm/evaluate.py``), last.  Every file is written here from
+   seeded weights, quantized on the card tensor by tensor into a temporary
+   directory (GGUF v3, ``tests/test_gguf.py``'s Q8_0/Q4_0 layouts and q/k
+   permutation), and removed.  (a) A SentencePiece (``llama``) and a
+   ``gpt2`` GGUF of small f32 models (D 64, group 2; between them F32,
+   F16, BF16, Q8_0 and Q4_0 tensors, the second with tied embeddings): the
+   dequantized params on the card equal the CPU's bit for bit, greedy
+   streams of the default config are identical card to CPU, and
+   ``evaluate_perplexity`` agrees within ``GGUF_EVAL_RTOL``.  (b)
+   Mistral-7B-Instruct-v0.2's published widths at full depth from a Q4_0
+   file (Q4_0 trunk and ``token_embd``, Q8_0 ``output``, F32 norms; some 4.1
+   GB) with a 32000-piece SentencePiece tokenizer drawn from README.md and
+   a ``[INST]`` template: every leaf of ``TorchEngine.from_pretrained``
+   equals ``dequant(quant(w))`` of the seeded weights bit for bit; serve's
+   primer and batch, cold then warm, end every request with its 64 tokens
+   under exact launch invariants; ``evaluate_perplexity`` over README.md
+   at windows 512 and 2048 launches kernel 2 once per layer per window and
+   nothing else, and its first window's NLL equals the sum of an echo
+   request's ``-prompt_logprobs`` within ``GGUF_ECHO_RTOL``.  Printed: file
+   write seconds, load seconds and GB/s, peak GiB, cold and warm ``tok_s``
+   beside serve's, eval tokens/s per window.  (c) Llama-3-8B's widths at 4
+   layers from a Q8_0 file (F16 ``token_embd``) with a 128256-token
+   ``gpt2`` tokenizer converted from ``write_tokenizer``'s: ``python -m
+   dynamo_tpu_torch run in=http out=torch --model-path FILE.gguf`` answers
+   chats through the file's template (``length``, exact usage; SIGINT ends
+   it with exit code 0), and ``eval --model-path DIR --text-file README.md
+   --window 512``, bare and with ``--quantize int8``, print their JSON
+   lines, the bare one within ``GGUF_CLI_RTOL`` of in-process
+   ``evaluate_perplexity``.
+
 In every served run each kernel's launch count (graph replays included)
 must equal what the run's dispatches imply (``expected_launches``), and
 the run prints its loop mode, graph captures and replays and the dispatch
@@ -424,6 +457,7 @@ import json
 import math
 import os
 import re
+import struct
 import subprocess
 import sys
 import time
@@ -1256,6 +1290,46 @@ def check_export_flash(fp, bucketing, gen) -> Dict[str, object]:
     check(*[rand(h, torch.float32, g32) for h in (HQ, HKV, HKV)])
     return dict(
         name="flash_prefill_attention/export", route="cuda",
+        source="dynamo_tpu_torch/csrc/flash_prefill.cu",
+        replaces="dynamo_tpu/ops/flash_prefill.py:125",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=library_ms,
+        tflops=flops / ms / 1e9, bound_share=bound_ms / ms,
+    )
+
+
+def check_eval_flash(fp, gen, T: int) -> Dict[str, object]:
+    """Kernel 2 at eval's shape (``llm/evaluate.py`` over serve-gguf (b)'s
+    Mistral-7B widths): one window of ``T`` tokens, every row valid, no
+    sliding window."""
+    lens = torch.tensor([T], dtype=torch.int32, device="cuda")
+
+    def rand(h, dtype=torch.bfloat16, g=gen):
+        return torch.randn((1, T, h, D), generator=g, device="cuda").to(dtype)
+
+    def check(q, k, v) -> float:
+        out = fp.flash_prefill_attention(q, k, v, lens)
+        ref = fp.flash_prefill_attention_plain(q, k, v, lens)
+        return agree(f"flash_prefill_attention eval T={T}", out, ref, p_rounding(v))
+
+    q, k, v = rand(HQ), rand(HKV), rand(HKV)
+    err = check(q, k, v)
+    ms = cuda_ms(lambda i: fp.flash_prefill_attention(q, k, v, lens), 32)
+    plain_ms = cuda_ms(lambda i: fp.flash_prefill_attention_plain(q, k, v, lens), 4)
+    r = torch.arange(T, device="cuda")[:, None]
+    mask = (torch.arange(T, device="cuda")[None, :] <= r)[None, None]
+    library_ms = cuda_ms(sdpa_rows(q.transpose(1, 2).contiguous(), k[0], v[0], mask), 32)
+    bytes_moved = (
+        T * HQ * D * 2 + 2 * T * HKV * D * 2  # q, k, v read
+        + T * HQ * D * 2  # the output written
+        + 4
+    )
+    flops = 4.0 * HQ * D * T * (T + 1) / 2  # causal (query, key) pairs
+    bound_ms, bound_by = bound(bytes_moved, flops)
+    g32 = f32_generator()
+    check(*[rand(h, torch.float32, g32) for h in (HQ, HKV, HKV)])
+    return dict(
+        name=f"flash_prefill_attention/eval-{T}", route="cuda",
         source="dynamo_tpu_torch/csrc/flash_prefill.cu",
         replaces="dynamo_tpu/ops/flash_prefill.py:125",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -8283,7 +8357,7 @@ def geometry_small(ref: Dict[str, object], card: str) -> None:
 
 
 def geometry_serve(engine, primer, batch, max_tokens: int, what: str, card: str,
-                   base: int) -> Dict[str, object]:
+                   base: int, phase: str = "serve-geometry") -> Dict[str, object]:
     """One served run, cold then warm: every stream ends with its
     ``max_tokens``, the launch invariants hold; prints tok/s, the
     decode-phase rate, TTFT and the peak above ``base``."""
@@ -8292,20 +8366,20 @@ def geometry_serve(engine, primer, batch, max_tokens: int, what: str, card: str,
     res, wall, warm, wall_w, marks = serve_cold_warm(engine, primer, batch)
     counted = read_launches()
     peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
-    check_launch_invariants(f"serve-geometry: {what}", engine, counted)
+    check_launch_invariants(f"{phase}: {what}", engine, counted)
     for i, r in enumerate(res[1:] + warm):
         if len(r["tokens"]) != max_tokens or r["finish"] != "length":
-            fail(f"serve-geometry {what} request {i}: {len(r['tokens'])} tokens, "
+            fail(f"{phase} {what} request {i}: {len(r['tokens'])} tokens, "
                  f"finish {r['finish']}")
     st, st_w = served_stats(res, wall), served_stats(warm, wall_w, primed=False)
-    print(f"serve-geometry: {what} wall_s={wall:.3f} tok_s={st['tok_s']:.3f} "
+    print(f"{phase}: {what} wall_s={wall:.3f} tok_s={st['tok_s']:.3f} "
           f"decode_phase_tok_s={st['dec']:.3f} ttft_ms="
           f"{[round(r['ttft'] * 1e3, 3) for r in res[1:]]} peak_mem_gib={peak_gib:.3f} "
           f"(above the run's start) dispatches_by_k={dict(engine.dispatches_by_k)} on {card}")
-    print(f"serve-geometry: {what} warm wall_s={wall_w:.3f} tok_s={st_w['tok_s']:.3f} "
+    print(f"{phase}: {what} warm wall_s={wall_w:.3f} tok_s={st_w['tok_s']:.3f} "
           f"decode_phase_tok_s={st_w['dec']:.3f} ttft_ms="
           f"{[round(r['ttft'] * 1e3, 3) for r in warm]} on {card}")
-    print(f"serve-geometry: {what} {loop_line(engine, wall + wall_w)}")
+    print(f"{phase}: {what} {loop_line(engine, wall + wall_w)}")
     return dict(launches=counted, peak_gib=peak_gib, tok_s=st["tok_s"],
                 tok_s_warm=st_w["tok_s"])
 
@@ -8471,6 +8545,598 @@ def serve_geometry_phase(ref: Dict[str, object], card: str) -> Dict[str, Dict[st
     return {"llama3_70b": b, **widths}
 
 
+# ---------------------------------------------------------------------------
+# serve-gguf: GGUF checkpoints, the Unigram tokenizer and eval
+# ---------------------------------------------------------------------------
+
+# ggml tensor types (ggml.h) and their (elements, bytes) per block
+GGUF_F32, GGUF_F16, GGUF_Q4_0, GGUF_Q8_0, GGUF_BF16 = 0, 1, 2, 8, 30
+GGUF_BLOCKS = {GGUF_Q4_0: (32, 18), GGUF_Q8_0: (32, 34)}
+GGUF_PLAIN = {GGUF_F32: torch.float32, GGUF_F16: torch.float16, GGUF_BF16: torch.bfloat16}
+GGUF_ALIGN = 32
+# tensor kind -> (the port's leaf, whether the leaf is the [in, out] transpose)
+GGUF_LEAVES = {
+    "token_embd": ("embed", False), "output": ("lm_head", True),
+    "output_norm": ("final_norm", False), "attn_q": ("wq", True), "attn_k": ("wk", True),
+    "attn_v": ("wv", True), "attn_output": ("wo", True), "ffn_gate": ("w_gate", True),
+    "ffn_up": ("w_up", True), "ffn_down": ("w_down", True),
+    "attn_norm": ("input_norm", False), "ffn_norm": ("post_norm", False),
+}
+# (a): each kind in another type, so each file carries the five
+GGUF_SMALL_TYPES = {
+    "spm": {"token_embd": GGUF_F16, "output": GGUF_Q8_0, "output_norm": GGUF_F32,
+            "attn_q": GGUF_Q8_0, "attn_k": GGUF_Q4_0, "attn_v": GGUF_BF16,
+            "attn_output": GGUF_F32, "ffn_gate": GGUF_Q4_0, "ffn_up": GGUF_Q8_0,
+            "ffn_down": GGUF_F16, "attn_norm": GGUF_F32, "ffn_norm": GGUF_BF16},
+    # tied: no output tensor
+    "gpt2": {"token_embd": GGUF_BF16, "output_norm": GGUF_F16, "attn_q": GGUF_Q4_0,
+             "attn_k": GGUF_Q8_0, "attn_v": GGUF_F16, "attn_output": GGUF_BF16,
+             "ffn_gate": GGUF_Q8_0, "ffn_up": GGUF_Q4_0, "ffn_down": GGUF_F32,
+             "attn_norm": GGUF_F32, "ffn_norm": GGUF_F32},
+}
+# (b): the usual Q4_0 file -- a Q4_0 trunk and token_embd, a Q8_0 output,
+# F32 norms
+GGUF_Q4_TYPES = dict({k: GGUF_Q4_0 for k in GGUF_LEAVES}, output=GGUF_Q8_0,
+                     output_norm=GGUF_F32, attn_norm=GGUF_F32, ffn_norm=GGUF_F32)
+# (c): a Q8_0 trunk, an F16 token_embd
+GGUF_Q8_TYPES = dict({k: GGUF_Q8_0 for k in GGUF_LEAVES}, token_embd=GGUF_F16,
+                     output_norm=GGUF_F32, attn_norm=GGUF_F32, ffn_norm=GGUF_F32)
+MISTRAL_TEMPLATE = (
+    "{% for message in messages %}{% if message['role'] == 'user' %}"
+    "{{ '[INST] ' + message['content'] + ' [/INST]' }}{% else %}"
+    "{{ message['content'] + eos_token }}{% endif %}{% endfor %}"
+)
+GGUF_EVAL_WINDOWS = (512, 2048)
+# (c): Llama-3-8B's widths at 4 of its 32 layers
+GGUF_8B_LAYERS = 4
+# card against CPU: f32 eval sums in another order (tiled attention, GEMM
+# blocking), some 1e-6 relative
+GGUF_EVAL_RTOL = 1e-4
+# the echo scoring and eval's first window: two routes through kernel 2 in
+# bf16, at other GEMM shapes
+GGUF_ECHO_RTOL = 1e-2
+# the eval CLI against in-process eval, both in bf16 on the card (the CLI
+# prints 4 decimals)
+GGUF_CLI_RTOL = 1e-3
+
+
+def gguf_nbytes(gtype: int, shape: Tuple[int, ...]) -> int:
+    n = math.prod(shape)
+    if gtype in GGUF_BLOCKS:
+        per, nbytes = GGUF_BLOCKS[gtype]
+        return n // per * nbytes
+    return n * GGUF_PLAIN[gtype].itemsize
+
+
+def gguf_value(v) -> bytes:
+    """A metadata value: bool, u32, f32, string, or an array of strings,
+    f32s or u32s (the types ``tests/test_gguf.py``'s writer uses)."""
+    def s(txt: str) -> bytes:
+        b = txt.encode()
+        return struct.pack("<Q", len(b)) + b
+
+    if isinstance(v, bool):
+        return struct.pack("<IB", 7, int(v))
+    if isinstance(v, int):
+        return struct.pack("<II", 4, v)
+    if isinstance(v, float):
+        return struct.pack("<If", 6, v)
+    if isinstance(v, str):
+        return struct.pack("<I", 8) + s(v)
+    if v and isinstance(v[0], float):
+        return struct.pack("<IIQ", 9, 6, len(v)) + np.asarray(v, "<f4").tobytes()
+    if v and isinstance(v[0], int):
+        return struct.pack("<IIQ", 9, 4, len(v)) + np.asarray(v, "<u4").tobytes()
+    return struct.pack("<IIQ", 9, 8, len(v)) + b"".join(s(x) for x in v)
+
+
+def write_gguf(path: str, meta: Dict[str, object],
+               tensors: List[Tuple[str, Tuple[int, ...], int]],
+               make: Callable[[str], bytes]) -> int:
+    """A GGUF v3 file streamed tensor by tensor: the header, metadata and
+    tensor infos (``(name, numpy shape, ggml type)``, offsets from the
+    types' sizes), then each tensor's bytes as ``make(name)`` gives them,
+    each padded to ``GGUF_ALIGN``.  Returns the file's bytes."""
+    head = [struct.pack("<IIQQ", 0x46554747, 3, len(tensors), len(meta))]
+    for k, v in meta.items():
+        head.append(struct.pack("<Q", len(k.encode())) + k.encode() + gguf_value(v))
+    offset = 0
+    for name, shape, gtype in tensors:
+        dims = tuple(reversed(shape))  # ggml ne: the contiguous dim first
+        head.append(struct.pack("<Q", len(name.encode())) + name.encode()
+                    + struct.pack(f"<I{len(dims)}QIQ", len(dims), *dims, gtype, offset))
+        size = gguf_nbytes(gtype, shape)
+        offset += size + (-size) % GGUF_ALIGN
+    blob = b"".join(head)
+    with open(path, "wb") as f:
+        f.write(blob + b"\0" * ((-len(blob)) % GGUF_ALIGN))
+        for name, shape, gtype in tensors:
+            raw = make(name)
+            if len(raw) != gguf_nbytes(gtype, shape):
+                fail(f"serve-gguf: {name} made {len(raw)} bytes, not {gguf_nbytes(gtype, shape)}")
+            f.write(raw + b"\0" * ((-len(raw)) % GGUF_ALIGN))
+        return f.tell()
+
+
+def gguf_quantize(w: torch.Tensor, gtype: int) -> Tuple[bytes, torch.Tensor]:
+    """``w`` (f32 on the card, rows of the file's layout) in ``gtype``:
+    its bytes, and the f32 values a reader must get back (``dequant(quant(
+    w))``, from the blocks' own scales and ints).  Q8_0 and Q4_0 in
+    ``tests/test_gguf.py``'s llama.cpp layout (Q4_0: byte j holds elements
+    j low and j + 16 high)."""
+    if gtype in GGUF_PLAIN:
+        t = w.to(GGUF_PLAIN[gtype]).contiguous()
+        return t.view(torch.uint8).cpu().numpy().tobytes(), t.float()
+    blk = w.float().reshape(-1, 32)
+    if gtype == GGUF_Q8_0:
+        d = blk.abs().amax(1, keepdim=True) / 127.0
+        q = torch.where(d > 0, torch.round(blk / d), torch.zeros_like(blk))
+        d16 = d.to(torch.float16)
+        body = q.to(torch.int8).view(torch.uint8)
+        vals = q
+    else:
+        i = blk.abs().argmax(1, keepdim=True)
+        d = blk.gather(1, i) / -8.0
+        inv = torch.where(d != 0, 1.0 / d, torch.zeros_like(d))
+        q = torch.clamp(torch.round(blk * inv + 8.0), 0, 15).to(torch.uint8)
+        d16 = d.to(torch.float16)
+        body = q[:, :16] | (q[:, 16:] << 4)
+        vals = q.float() - 8.0
+    raw = torch.cat([d16.view(torch.uint8), body], dim=1)
+    return raw.cpu().numpy().tobytes(), (vals * d16.float()).reshape(w.shape)
+
+
+def gguf_permute_rope(w: torch.Tensor, n_head: int) -> torch.Tensor:
+    """convert_hf_to_gguf's q/k row permutation (HF -> GGUF layout)."""
+    out, inn = w.shape
+    return w.reshape(n_head, 2, out // n_head // 2, inn).transpose(1, 2).reshape(out, inn)
+
+
+def gguf_layout(cfg, tied: bool) -> List[Tuple[str, str, int, Tuple[int, ...]]]:
+    """Every tensor of a llama GGUF of ``cfg``: (name, kind, layer, HF
+    shape)."""
+    H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    out = [("token_embd.weight", "token_embd", -1, (V, H)),
+           ("output_norm.weight", "output_norm", -1, (H,))]
+    if not tied:
+        out.append(("output.weight", "output", -1, (V, H)))
+    shapes = {"attn_q": (q, H), "attn_k": (kv, H), "attn_v": (kv, H), "attn_output": (H, q),
+              "ffn_gate": (I, H), "ffn_up": (I, H), "ffn_down": (H, I),
+              "attn_norm": (H,), "ffn_norm": (H,)}
+    for i in range(cfg.num_layers):
+        out += [(f"blk.{i}.{kind}.weight", kind, i, shape) for kind, shape in shapes.items()]
+    return out
+
+
+def gguf_weight(seed: int, index: int, kind: str, shape: Tuple[int, ...]) -> torch.Tensor:
+    """Tensor ``index``'s seeded f32 weight on the card, in HF layout:
+    normal over 1/sqrt(fan_in) for the projections, 0.02 for the
+    embedding, 1 + 0.05 normal for the norms."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed * 100003 + index)
+    w = torch.randn(shape, generator=gen, device="cuda")
+    if len(shape) == 1:
+        return 1.0 + 0.05 * w
+    return w * (0.02 if kind == "token_embd" else 1.0 / math.sqrt(shape[1]))
+
+
+def write_gguf_model(path: str, cfg, types: Dict[str, int], meta: Dict[str, object],
+                     seed: int, tied: bool = False) -> int:
+    """A llama GGUF of ``cfg`` from seeded weights, quantized on the card
+    tensor by tensor into ``path`` (q/k rows permuted as llama.cpp's
+    converter does), with ``meta`` (the tokenizer's keys) beside the
+    architecture's.  Returns the file's bytes."""
+    layout = gguf_layout(cfg, tied)
+    meta = {
+        "general.architecture": "llama", "general.alignment": GGUF_ALIGN,
+        "llama.vocab_size": cfg.vocab_size, "llama.embedding_length": cfg.hidden_size,
+        "llama.feed_forward_length": cfg.intermediate_size,
+        "llama.block_count": cfg.num_layers, "llama.attention.head_count": cfg.num_heads,
+        "llama.attention.head_count_kv": cfg.num_kv_heads,
+        "llama.attention.key_length": cfg.head_dim,
+        "llama.rope.freq_base": float(cfg.rope_theta),
+        "llama.attention.layer_norm_rms_epsilon": float(cfg.rms_norm_eps),
+        "llama.context_length": cfg.max_position, **meta,
+    }
+    index = {name: (k, kind, shape) for k, (name, kind, _, shape) in enumerate(layout)}
+
+    def make(name: str) -> bytes:
+        k, kind, shape = index[name]
+        w = gguf_weight(seed, k, kind, shape)
+        if kind in ("attn_q", "attn_k"):
+            heads = cfg.num_heads if kind == "attn_q" else cfg.num_kv_heads
+            w = gguf_permute_rope(w, heads)
+        return gguf_quantize(w, types[kind])[0]
+
+    return write_gguf(path, meta, [(n, shape, types[kind]) for n, kind, _, shape in layout], make)
+
+
+def check_gguf_leaves(what: str, params, cfg, types: Dict[str, int], seed: int,
+                      tied: bool = False) -> int:
+    """Every leaf of ``params`` (loaded from ``write_gguf_model``'s file)
+    equals ``dequant(quant(w))`` of the seeded weights, computed here in
+    memory and cast to the leaf's dtype, bit for bit.  Returns the leaves
+    checked."""
+    n = 0
+    for k, (name, kind, layer, shape) in enumerate(gguf_layout(cfg, tied)):
+        leaf, transposed = GGUF_LEAVES[kind]
+        got = params[leaf] if layer < 0 else params["layers"][leaf][layer]
+        want = gguf_quantize(gguf_weight(seed, k, kind, shape), types[kind])[1]
+        want = (want.T if transposed else want).to(got.dtype)
+        if got.shape != want.shape or not torch.equal(got, want):
+            bad = (got.float() != want.float()).sum().item() if got.shape == want.shape else "all"
+            fail(f"serve-gguf {what}: {name} ({leaf}) differs from dequant(quant(w)) in "
+                 f"{bad} elements")
+        n += 1
+    return n
+
+
+def readme_text() -> str:
+    with open(os.path.join(ROOT, "README.md"), encoding="utf-8") as f:
+        return f.read()
+
+
+def spm_tokenizer_meta(text: str, n_pieces: int) -> Dict[str, object]:
+    """A ``llama`` (SentencePiece) GGUF tokenizer of ``n_pieces`` pieces:
+    ``<unk>``, ``<s>``, ``</s>``, the 256 ``<0xNN>`` byte pieces, ``▁`` and
+    the characters of ``text``, then ``▁``-led word prefixes and in-word
+    substrings of ``text`` (2 to 8 characters) by frequency, scored by log
+    frequency; a ``[INST]`` chat template."""
+    counts: Dict[str, int] = {}
+    for word in text.split():
+        w = "▁" + word
+        for i in range(len(w)):
+            for j in range(i + 2, min(len(w), i + 8) + 1):
+                counts[w[i:j]] = counts.get(w[i:j], 0) + 1
+    pieces = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+    seen = set(pieces)
+    scores = [0.0] * len(pieces)
+    total = sum(counts.values())
+    for c in ["▁"] + sorted({c for c in text if not c.isspace()}):
+        if c not in seen and len(pieces) < n_pieces:
+            seen.add(c)
+            pieces.append(c)
+            scores.append(-20.0)
+    for piece, c in sorted(counts.items(), key=lambda kv: (-kv[1], kv[0])):
+        if len(pieces) >= n_pieces:
+            break
+        if piece not in seen:
+            seen.add(piece)
+            pieces.append(piece)
+            scores.append(math.log(c / total))
+    if len(pieces) != n_pieces:
+        fail(f"serve-gguf: the text gives {len(pieces)} pieces, not {n_pieces}")
+    return {
+        "tokenizer.ggml.model": "llama", "tokenizer.ggml.tokens": pieces,
+        "tokenizer.ggml.scores": scores, "tokenizer.ggml.bos_token_id": 1,
+        "tokenizer.ggml.eos_token_id": 2, "tokenizer.ggml.unknown_token_id": 0,
+        "tokenizer.ggml.add_bos_token": True, "tokenizer.chat_template": MISTRAL_TEMPLATE,
+    }
+
+
+def gpt2_tokenizer_meta(tmp: str, ordinary: int, specials: int) -> Dict[str, object]:
+    """A ``gpt2`` GGUF tokenizer converted from ``write_tokenizer``'s
+    byte-level BPE: its tokens by id, its merges as ``"a b"``, bos
+    ``<|begin_of_text|>``, eos ``<|eot_id|>``, its chat template."""
+    d = os.path.join(tmp, f"bpe-{ordinary}")
+    os.makedirs(d)
+    write_tokenizer(d, ordinary, specials)
+    with open(os.path.join(d, "tokenizer.json")) as f:
+        spec = json.load(f)
+    tokens = [""] * (ordinary + specials)
+    for t, i in spec["model"]["vocab"].items():
+        tokens[i] = t
+    for a in spec["added_tokens"]:
+        tokens[a["id"]] = a["content"]
+    return {
+        "tokenizer.ggml.model": "gpt2", "tokenizer.ggml.tokens": tokens,
+        "tokenizer.ggml.merges": [f"{a} {b}" for a, b in spec["model"]["merges"]],
+        "tokenizer.ggml.bos_token_id": tokens.index("<|begin_of_text|>"),
+        "tokenizer.ggml.eos_token_id": tokens.index("<|eot_id|>"),
+        "tokenizer.chat_template": CHAT_TEMPLATE,
+    }
+
+
+def gguf_eval(what: str, params, cfg, ids: List[int], window: int) -> Dict[str, object]:
+    """``evaluate_perplexity`` on the card with the launch counts reset:
+    kernel 2 launches once per layer per scored window and no other kernel
+    launches.  Returns the result, its seconds and kernel 2's launches."""
+    from dynamo_tpu_torch.llm.evaluate import evaluate_perplexity
+
+    n_windows = sum(1 for s in range(0, len(ids), window) if len(ids[s:s + window]) >= 2)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = evaluate_perplexity(params, cfg, ids, window=window)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counted = read_launches()
+    want = {k: 0 for k in counted}
+    want["flash_prefill_attention"] = cfg.num_layers * n_windows
+    if counted != want:
+        fail(f"serve-gguf {what}: eval at window {window} launched {counted}, expected {want}")
+    if not (math.isfinite(res["avg_nll"]) and res["tokens_scored"] == len(ids) - n_windows):
+        fail(f"serve-gguf {what}: eval at window {window} gave {res}")
+    return dict(res, seconds=secs, launches=counted["flash_prefill_attention"],
+                windows=n_windows)
+
+
+def gguf_small(ref: Dict[str, object], tmp: str, card: str) -> None:
+    """(a) A SentencePiece (``llama``) and a ``gpt2`` GGUF of small f32
+    models (D 64, group 2; between them F32, F16, BF16, Q8_0 and Q4_0
+    tensors, the second tied): the dequantized params on the card equal
+    the CPU's bit for bit, the greedy streams of the default config are
+    identical, ``evaluate_perplexity`` agrees within GGUF_EVAL_RTOL."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.llm.gguf import load_gguf_params
+    from dynamo_tpu_torch.llm.tokenizer import Tokenizer
+
+    text = readme_text()
+    small = dict(hidden_size=256, intermediate_size=512, num_layers=2, num_heads=4,
+                 num_kv_heads=2, head_dim=64, max_position=512, dtype="float32")
+    for name, tok_meta in (("spm", spm_tokenizer_meta(text, 800)),
+                           ("gpt2", gpt2_tokenizer_meta(tmp, 1024, 16))):
+        tied = name == "gpt2"
+        cfg = ModelConfig.tiny(vocab_size=len(tok_meta["tokenizer.ggml.tokens"]),
+                               tie_word_embeddings=tied, **small)
+        path = os.path.join(tmp, f"small-{name}.gguf")
+        write_gguf_model(path, cfg, GGUF_SMALL_TYPES[name], tok_meta, seed=11, tied=tied)
+        cfg = dataclasses.replace(ModelConfig.from_pretrained(path), dtype="float32")
+        params = {dev: load_gguf_params(path, cfg, dev) for dev in ("cuda", "cpu")}
+        n = check_gguf_leaves(f"(a) {name}", params["cuda"], cfg, GGUF_SMALL_TYPES[name],
+                              seed=11, tied=tied)
+        for key, t in params["cpu"].items():
+            pairs = t.items() if isinstance(t, dict) else [(key, t)]
+            for k, v in pairs:
+                got = params["cuda"]["layers"][k] if isinstance(t, dict) else params["cuda"][k]
+                if not torch.equal(got.cpu(), v):
+                    fail(f"serve-gguf (a) {name}: {k} on the card differs from the CPU's")
+        streams = {}
+        for dev in ("cuda", "cpu"):
+            eng = TorchEngine(cfg, params[dev], EngineConfig(**ref["ecfg"]), device=dev)
+            streams[dev] = [r["tokens"] for r in asyncio.run(serve(eng, ref["batches"][:1]))]
+        if streams["cuda"] != streams["cpu"]:
+            fail(f"serve-gguf (a) {name}: card streams {streams['cuda']} != cpu {streams['cpu']}")
+        ids = Tokenizer.from_model_dir(path).encode(text[:6000])
+        card_eval = gguf_eval(f"(a) {name}", params["cuda"], cfg, ids, 64)
+        from dynamo_tpu_torch.llm.evaluate import evaluate_perplexity
+
+        cpu_eval = evaluate_perplexity(params["cpu"], cfg, ids, window=64)
+        rel = abs(card_eval["avg_nll"] - cpu_eval["avg_nll"]) / abs(cpu_eval["avg_nll"])
+        print(f"serve-gguf: (a) {name} {os.path.getsize(path)} bytes, {n} leaves equal "
+              f"dequant(quant(w)) and card == CPU bit for bit; streams equal; eval "
+              f"{len(ids)} tokens window 64: card avg_nll {card_eval['avg_nll']:.6f} cpu "
+              f"{cpu_eval['avg_nll']:.6f} rel {rel:.3e}, kernel 2 launches "
+              f"{card_eval['launches']} on {card}")
+        if rel > GGUF_EVAL_RTOL or card_eval["tokens_scored"] != cpu_eval["tokens_scored"]:
+            fail(f"serve-gguf (a) {name}: card eval {card_eval} differs from the CPU's {cpu_eval}")
+        os.remove(path)
+
+
+def gguf_echo_nll(engine_params, cfg, ids: List[int]) -> float:
+    """The sum of ``-prompt_logprobs`` of an echo request over ``ids`` (one
+    prompt-scoring dispatch, kernel 2 once per layer), on an engine over
+    ``engine_params`` whose ``max_seq_len`` holds the prompt."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+
+    engine = TorchEngine(cfg, engine_params, EngineConfig(num_pages=512, max_seq_len=4096))
+    reset_launches()
+    res = asyncio.run(serve(engine, [[dict(request(ids, 1), prompt_logprobs=0)]]))[0]
+    check_launch_invariants("serve-gguf: (b) echo", engine, read_launches())
+    del engine
+    if len(res["plp"]) != 1 or [e[0] for e in res["plp"][0]] != ids:
+        fail(f"serve-gguf (b): the echo's prompt logprobs do not cover its {len(ids)} ids")
+    return -sum(e[1] for e in res["plp"][0][1:])
+
+
+def gguf_mistral(tmp: str, served: Dict[str, object], card: str) -> Dict[int, int]:
+    """(b) Mistral-7B-Instruct-v0.2's widths at full depth from a Q4_0
+    file (``GGUF_Q4_TYPES``) with a 32000-piece SentencePiece tokenizer
+    drawn from README.md: every leaf of ``TorchEngine.from_pretrained(file)``
+    equals ``dequant(quant(w))`` bit for bit; serve's traffic cold and
+    warm; ``evaluate_perplexity`` over README.md at each window of
+    GGUF_EVAL_WINDOWS, whose first window's NLL equals an echo request's
+    within GGUF_ECHO_RTOL.  Returns kernel 2's launches per window."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.memory_plan import plan_memory
+    from dynamo_tpu_torch.llm.evaluate import window_nll
+    from dynamo_tpu_torch.llm.tokenizer import Tokenizer
+
+    text = readme_text()
+    tok_meta = spm_tokenizer_meta(text, 32000)
+    path = os.path.join(tmp, "mistral-7b-instruct-v0.2.Q4_0.gguf")
+    # HF mistralai/Mistral-7B-Instruct-v0.2 config.json, as llama.cpp's
+    # converter writes it into the metadata (the norm epsilon an f32 there)
+    want_cfg = ModelConfig(
+        vocab_size=32000, hidden_size=4096, intermediate_size=14336, num_layers=32,
+        num_heads=32, num_kv_heads=8, head_dim=128, rope_theta=1e6,
+        rms_norm_eps=float(np.float32(1e-5)), max_position=32768)
+    t0 = time.perf_counter()
+    size = write_gguf_model(path, want_cfg, GGUF_Q4_TYPES, tok_meta, seed=7)
+    write_s = time.perf_counter() - t0
+    cfg = ModelConfig.from_pretrained(path)
+    if cfg != want_cfg:
+        fail(f"serve-gguf (b): the file's config {cfg} is not Mistral-7B's {want_cfg}")
+    plan = plan_memory(cfg, num_pages=1024)
+    base = assert_card_free("(b)", plan, "serve-gguf")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = TorchEngine.from_pretrained(path, EngineConfig(num_pages=1024))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    load_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    n = check_gguf_leaves("(b)", engine.params, cfg, GGUF_Q4_TYPES, seed=7)
+    print(f"serve-gguf: (b) Mistral-7B-Instruct-v0.2 widths, 32 layers, Q4_0 file "
+          f"{size / 1e9:.3f} GB written in {write_s:.3f} s; from_pretrained {load_s:.3f} s "
+          f"({size / 1e9 / load_s:.3f} GB/s of file, warm page cache), peak "
+          f"{load_peak:.3f} GiB above the phase's start (plan params "
+          f"{plan.param_bytes / 2**30:.3f}); {n} leaves equal dequant(quant(w)) bit for bit "
+          f"on {card}")
+    primer, batch = serve_requests(cfg.vocab_size)
+    run = geometry_serve(engine, primer, batch, 64, "(b) Mistral-7B Q4_0", card, base,
+                         phase="serve-gguf")
+    print(f"serve-gguf: (b) tok_s cold {run['tok_s']:.3f} warm {run['tok_s_warm']:.3f} "
+          f"beside serve's (Llama-3-8B bf16) warm {served['tok_s_warm']:.3f} on {card}")
+    for kernel in ("packed_ragged_attention", "paged_decode_attention"):
+        if run["launches"][kernel] <= 0:
+            fail(f"serve-gguf (b): {kernel} never launched")
+    params = engine.params
+    del engine
+    gc.collect()
+    tok = Tokenizer.from_model_dir(path)
+    if tok.chat_template != MISTRAL_TEMPLATE or tok.eos_token_ids != [2]:
+        fail("serve-gguf (b): the GGUF tokenizer lost its chat template or eos")
+    t0 = time.perf_counter()
+    ids = tok.encode(text)
+    tok_s = time.perf_counter() - t0
+    launches = {}
+    for window in GGUF_EVAL_WINDOWS:
+        ev = gguf_eval("(b)", params, cfg, ids, window)
+        launches[window] = ev["launches"]
+        first = ids[:window]
+        buf = torch.tensor([first], dtype=torch.long, device="cuda")
+        nll = float(window_nll(params, cfg, buf, len(first)))
+        echo = gguf_echo_nll(params, cfg, first)
+        rel = abs(nll - echo) / abs(echo)
+        print(f"serve-gguf: (b) eval README.md ({len(text)} characters, {len(ids)} tokens "
+              f"encoded in {tok_s:.3f} s) window {window}: perplexity "
+              f"{ev['perplexity']:.4f} avg_nll {ev['avg_nll']:.6f} over "
+              f"{ev['tokens_scored']} tokens in {ev['seconds']:.3f} s "
+              f"({ev['tokens_scored'] / ev['seconds']:.3f} tokens/s), {ev['windows']} windows, "
+              f"kernel 2 launches {ev['launches']} ({cfg.num_layers} per window); first "
+              f"window NLL {nll:.4f} against the echo request's {echo:.4f} (rel {rel:.3e}) "
+              f"on {card}")
+        if rel > GGUF_ECHO_RTOL:
+            fail(f"serve-gguf (b): window {window}'s first NLL {nll} differs from the echo's "
+                 f"{echo} by {rel:.3e}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.remove(path)
+    return launches
+
+
+def gguf_cli_eval(proc: "Proc", what: str) -> Dict[str, object]:
+    """The JSON line an ``eval`` process printed, once it exited 0."""
+    proc.proc.wait(timeout=600)
+    Proc.running.remove(proc)
+    if proc.proc.returncode != 0:
+        fail(f"serve-gguf (c): {what} exited with {proc.proc.returncode}: {proc.log()[-3000:]}")
+    lines = [ln for ln in proc.log().splitlines() if ln.startswith('{"perplexity"')]
+    if len(lines) != 1:
+        fail(f"serve-gguf (c): {what} printed {len(lines)} JSON lines: {proc.log()[-2000:]}")
+    return json.loads(lines[0])
+
+
+def gguf_cli(tmp: str, card: str) -> None:
+    """(c) Llama-3-8B's widths at GGUF_8B_LAYERS layers from a Q8_0 file
+    with a 128256-token ``gpt2`` tokenizer and a chat template: ``run
+    in=http out=torch --model-path FILE.gguf`` answers chat requests
+    through the file's template (``length``, exact usage); ``eval
+    --model-path DIR --text-file README.md --window 512``, bare and with
+    ``--quantize int8``, each print their JSON line, the bare one within
+    GGUF_CLI_RTOL of in-process ``evaluate_perplexity``.  The three
+    processes run side by side."""
+    from dynamo_tpu_torch.engine.config import ModelConfig
+    from dynamo_tpu_torch.engine.weights import load_checkpoint_params
+    from dynamo_tpu_torch.llm.evaluate import evaluate_perplexity
+    from dynamo_tpu_torch.llm.preprocessor import PromptFormatter
+    from dynamo_tpu_torch.llm.tokenizer import Tokenizer
+
+    d = os.path.join(tmp, "llama3-8b-gguf")
+    os.makedirs(d)
+    path = os.path.join(d, "model.gguf")
+    cfg = ModelConfig.llama3_8b(num_layers=GGUF_8B_LAYERS)
+    t0 = time.perf_counter()
+    size = write_gguf_model(path, cfg, GGUF_Q8_TYPES, gpt2_tokenizer_meta(tmp, 128000, 256),
+                            seed=8)
+    write_s = time.perf_counter() - t0
+    readme = os.path.join(ROOT, "README.md")
+    port = free_port()
+    t0 = time.perf_counter()
+    server = Proc(tmp, "gguf-run", "run", "in=http", "out=torch", "--model-path", path,
+                  "--model-name", "gguf", "--port", str(port))
+    evals = {q: Proc(tmp, f"gguf-eval-{q}", "eval", "--model-path", d, "--text-file", readme,
+                     "--window", "512", *(["--quantize", q] if q != "bare" else []))
+             for q in ("bare", "int8")}
+    try:
+        up = wait_http(port, "/health", lambda body: True, [server], "serve-gguf (c)")
+        tok = Tokenizer.from_model_dir(path)
+        chats = [[{"role": "user", "content": "Hello from a GGUF file! Ça va? 😀"}],
+                 [{"role": "user", "content": "Summarize the port."},
+                  {"role": "assistant", "content": "It serves."},
+                  {"role": "user", "content": "And evaluates?"}]]
+        usages = []
+        for messages in chats:
+            body = {"model": "gguf", "max_tokens": 12, "ignore_eos": True, "messages": messages}
+            status, raw = asyncio.run(http_call(port, "POST", "/v1/chat/completions", body))
+            if status != 200:
+                fail(f"serve-gguf (c): chat answered {status}: {raw[:300]!r}")
+            doc = json.loads(raw)
+            usage = doc["usage"]
+            prompt = len(tok.encode(PromptFormatter(tok).render(messages)))
+            if (doc["choices"][0]["finish_reason"] != "length"
+                    or usage["completion_tokens"] != 12 or usage["prompt_tokens"] != prompt):
+                fail(f"serve-gguf (c): chat finished {doc['choices'][0]['finish_reason']} "
+                     f"with usage {usage}, expected 12 completion and {prompt} prompt tokens")
+            usages.append(usage)
+        server.interrupt("serve-gguf (c)")
+        outs = {q: gguf_cli_eval(p, f"eval {q}") for q, p in evals.items()}
+    finally:
+        server.kill()
+        for p in evals.values():
+            p.kill()
+    cli_s = time.perf_counter() - t0
+    params = load_checkpoint_params(d, ModelConfig.from_pretrained(d))
+    with open(readme, encoding="utf-8") as f:
+        ids = Tokenizer.from_model_dir(d).encode(f.read())
+    mine = evaluate_perplexity(params, ModelConfig.from_pretrained(d), ids, window=512)
+    del params
+    rel = abs(outs["bare"]["perplexity"] - mine["perplexity"]) / mine["perplexity"]
+    print(f"serve-gguf: (c) Llama-3-8B widths, {GGUF_8B_LAYERS} layers, Q8_0 file "
+          f"{size / 1e9:.3f} GB written in {write_s:.3f} s; run in=http healthy after "
+          f"{up:.3f} s, chats end length with usage {usages}, exit code 0 on SIGINT; eval "
+          f"{json.dumps(outs['bare'])} / {json.dumps(outs['int8'])}; in process perplexity "
+          f"{mine['perplexity']:.4f} (rel {rel:.3e}); the three processes {cli_s:.3f} s "
+          f"on {card}")
+    if rel > GGUF_CLI_RTOL or outs["bare"]["tokens_scored"] != mine["tokens_scored"]:
+        fail(f"serve-gguf (c): the eval CLI's {outs['bare']} differs from in-process {mine}")
+    if outs["int8"]["quantize"] != "int8" or not math.isfinite(outs["int8"]["perplexity"]):
+        fail(f"serve-gguf (c): the int8 eval printed {outs['int8']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_gguf_phase(ref: Dict[str, object], served: Dict[str, object],
+                     card: str) -> Dict[int, int]:
+    """GGUF checkpoints: (a) small f32 models card against CPU, (b)
+    Mistral-7B-Instruct-v0.2's widths from a Q4_0 file, served and
+    evaluated, (c) the CLI's ``run`` and ``eval`` on a Llama-3-8B-width
+    Q8_0 file.  The files are written into a temporary directory and
+    removed.  Returns (b)'s kernel 2 launches per eval window."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-gguf-")
+    t0 = time.perf_counter()
+    try:
+        gguf_small(ref, tmp, card)
+        t_a = time.perf_counter()
+        launches = gguf_mistral(tmp, served, card)
+        t_b = time.perf_counter()
+        gguf_cli(tmp, card)
+        t_c = time.perf_counter()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"serve-gguf: phase {t_c - t0:.3f} s ((a) {t_a - t0:.3f}, (b) {t_b - t_a:.3f}, "
+          f"(c) {t_c - t_b:.3f}); kernel 2 launches per eval window {launches} on {card}")
+    return launches
+
+
 def profile_phase(out_path: str, plain_walls: Dict[str, float]) -> None:
     """``--profile OUT.txt``: each served cell once more -- the serve
     phase's run, serve-classic runs A and B and serve-int8 run Q, the same
@@ -8630,6 +9296,8 @@ def main() -> None:
     check_quantize_rule()
     check_geometries(pa, fp, ra, bucketing)
     rows += geometry_rows(pa, fp, ra, bucketing)
+    # kernel 2 at eval's windows (serve-gguf (b))
+    rows += [check_eval_flash(fp, gen, T) for T in GGUF_EVAL_WINDOWS]
     for r in rows:
         print(
             f"kernels: {r['name']} ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} "
@@ -8687,6 +9355,9 @@ def main() -> None:
     serve_moe_phase(ref, card)
     held_after("serve-moe")
     geometry = serve_geometry_phase(ref, card)
+    held_after("serve-geometry")
+    gguf = serve_gguf_phase(ref, served, card)
+    held_after("serve-gguf")
     if profile_out is not None:
         profile_phase(
             profile_out,
@@ -8716,6 +9387,9 @@ def main() -> None:
     for model, (_, kinds) in GEOM_MODELS.items():
         for kernel in kinds:
             launches[f"{kernel}/{model}"] = geometry[model][kernel]
+    # eval's windows: serve-gguf (b)'s runs over README.md
+    for T in GGUF_EVAL_WINDOWS:
+        launches[f"flash_prefill_attention/eval-{T}"] = gguf[T]
     for r in rows:
         r["launches"] = launches[r["name"]]
     print(f"chip_smoke: whole run {time.perf_counter() - t_all:.3f} s on {card}")

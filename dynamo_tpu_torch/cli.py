@@ -21,16 +21,22 @@ The JAX package's ``run``, single-process and distributed::
     python -m dynamo_tpu_torch profile http://H:P --watch 5 --device 1 --json t.json
     python -m dynamo_tpu_torch profile-sla --out torch --model-path DIR --isl 128,512 --batch 1,4,8
     python -m dynamo_tpu_torch trace --hub H:P REQUEST_ID
+    python -m dynamo_tpu_torch eval --model-path DIR --text-file T [--window 512] [--quantize int8]
 
 ``in=http out=torch`` serves ``link(OpenAIPreprocessor, Backend,
 TorchEngine)`` behind the OpenAI ``HttpService``; ``in=text`` runs one
 prompt (or a stdin REPL) through the same pipeline, ``in=batch`` a JSONL
-file of prompts.  ``DIR`` is a local HuggingFace checkpoint directory:
-``config.json``, ``*.safetensors``, ``tokenizer.json`` and
-``tokenizer_config.json``.  The engine runs on the card; ``--device cpu``
-runs it on the CPU.  ``out=mocker`` and ``out=echo`` serve the model-free
-engines (``mocker/``, ``llm/echo.py``) on no device: the mocker's
-deterministic tokens (its vocabulary ``--model-path``'s tokenizer's, else
+file of prompts.  ``DIR`` is a local HuggingFace checkpoint directory
+(``config.json``, ``*.safetensors``, ``tokenizer.json`` and
+``tokenizer_config.json``) or a GGUF checkpoint: a ``.gguf`` file, or a
+directory holding one and no safetensors, whose metadata gives the config
+and the tokenizer and whose weights dequantize on load (``llm/gguf.py``).
+The engine runs on the card; ``--device cpu`` runs it on the CPU.
+``eval`` prints one JSON line, the windowed perplexity of the text under
+the checkpoint loaded as ``run`` loads it (``llm/evaluate.py``).
+``out=mocker`` and ``out=echo`` serve the model-free engines
+(``mocker/``, ``llm/echo.py``) on no device: the mocker's deterministic
+tokens (its vocabulary ``--model-path``'s tokenizer's, else
 32000) and the echo engine's prompt ids back (``--echo-delay-ms`` per
 token); ``/v1/embeddings`` answers with ``fake_embedder``'s vectors for an
 engine that embeds nothing.  ``bench`` drives a running front end with the serving
@@ -121,7 +127,7 @@ def _add_engine_flags(p) -> None:
     the JAX defaults, plus the refused ones."""
     p.add_argument("--echo-delay-ms", type=float, default=0.0,
                    help="out=echo: per-token delay")
-    p.add_argument("--model-path", help="HF model dir (weights + tokenizer)")
+    p.add_argument("--model-path", help="HF model dir (weights + tokenizer), or a .gguf checkpoint")
     p.add_argument("--model-name", help="served model name (default: dir name)")
     p.add_argument("--device", default=None,
                    help="torch device (default: the card; 'cpu' runs on the CPU)")
@@ -364,6 +370,17 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--ttft-slo-ms", type=float, default=None)
     ps.add_argument("--itl-slo-ms", type=float, default=None)
     _add_engine_flags(ps)
+
+    # eval: perplexity of a checkpoint on a text, loaded as serving loads it
+    ev = sub.add_parser("eval", help="score a checkpoint's perplexity on a text")
+    ev.add_argument("--model-path", required=True)
+    ev.add_argument("--text-file", help="UTF-8 text to score")
+    ev.add_argument("--text", help="inline text to score")
+    ev.add_argument("--window", type=int, default=512,
+                    help="independent scoring window (tokens)")
+    ev.add_argument("--quantize", choices=["int8"], default=None)
+    ev.add_argument("--device", default=None,
+                    help="torch device (default: the card; 'cpu' runs on the CPU)")
 
     bn = sub.add_parser("bench",
                         help="drive a frontend with a workload; report "
@@ -1548,6 +1565,47 @@ async def run_trace(args) -> int:
         await rt.shutdown()
 
 
+def run_eval(args) -> int:
+    """Perplexity of a checkpoint on a text: weights loaded as serving
+    loads them (safetensors, else GGUF; ``--quantize int8`` included),
+    scored by ``llm/evaluate.py`` on ``--device`` (default the card); one
+    JSON line, floats rounded to 4 decimals."""
+    from .device import resolve_device
+    from .engine.config import ModelConfig
+    from .engine.engine import check_model_geometry
+    from .engine.kv_cache import torch_dtype
+    from .engine.quant import quantize_params
+    from .engine.weights import load_checkpoint_params
+    from .llm.evaluate import evaluate_perplexity
+    from .llm.local_model import resolve_model_path
+    from .llm.tokenizer import Tokenizer
+
+    if not args.text and not args.text_file:
+        raise SystemExit("need --text or --text-file")
+    if args.text:
+        text = args.text
+    else:
+        with open(args.text_file, encoding="utf-8") as f:
+            text = f.read()
+    path = resolve_model_path(args.model_path)
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        raise SystemExit(f"{e} (--device cpu)")
+    model_cfg = ModelConfig.from_pretrained(path)
+    check_model_geometry(model_cfg, device)
+    params = load_checkpoint_params(path, model_cfg, device, quantize=args.quantize)
+    if args.quantize == "int8":
+        params = quantize_params(params, torch_dtype(model_cfg.dtype))
+    ids = Tokenizer.from_model_dir(path).encode(text)
+    out = evaluate_perplexity(params, model_cfg, ids, window=args.window)
+    out["model"] = args.model_path
+    out["quantize"] = args.quantize
+    print(json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
+                      for k, v in out.items()}), flush=True)
+    return 0
+
+
 def _write_text(path: str, payload: str) -> None:
     with open(path, "w", encoding="utf-8") as f:
         f.write(payload)
@@ -1572,6 +1630,8 @@ def main(argv=None) -> int:
     if args.cmd == "profile-sla":
         _check_refused(args)
         return asyncio.run(run_profile_sla(args))
+    if args.cmd == "eval":
+        return run_eval(args)
     if args.cmd == "hub":
         asyncio.run(run_hub(args))
         return 0

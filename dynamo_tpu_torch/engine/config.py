@@ -224,13 +224,19 @@ class ModelConfig:
 
     @classmethod
     def from_pretrained(cls, model_path: str) -> "ModelConfig":
-        """The config of a checkpoint directory's ``config.json`` (a GGUF
-        checkpoint's metadata config is not read by the port yet)."""
+        """The config of a checkpoint directory's ``config.json``, else of
+        a GGUF checkpoint's metadata (``model_path`` a ``.gguf`` file or a
+        directory holding one)."""
         cfg_json = os.path.join(model_path, "config.json")
-        if not os.path.exists(cfg_json):
-            raise FileNotFoundError(f"{model_path}: no config.json")
-        with open(cfg_json) as f:
-            return cls.from_hf_config(json.load(f))
+        if os.path.exists(cfg_json):
+            with open(cfg_json) as f:
+                return cls.from_hf_config(json.load(f))
+        from ..llm.gguf import find_gguf_file, gguf_model_config
+
+        gguf = find_gguf_file(model_path)
+        if gguf is not None:
+            return gguf_model_config(gguf)
+        raise FileNotFoundError(f"{model_path}: no config.json and no .gguf file")
 
 
 @dataclass

@@ -910,16 +910,22 @@ class TorchEngine:
         model_path: str,
         cfg: Optional[EngineConfig] = None,
         device: Optional[Union[str, torch.device]] = None,
+        model_cfg: Optional[ModelConfig] = None,
     ) -> "TorchEngine":
-        """An engine over a HuggingFace checkpoint directory: its
-        ``config.json`` and ``*.safetensors`` files, loaded leaf by leaf
-        onto ``device``."""
-        from .weights import load_safetensors_params
+        """An engine over a checkpoint: a HuggingFace directory
+        (``config.json`` and ``*.safetensors``) or a GGUF checkpoint (a
+        ``.gguf`` file, or a directory holding one and no safetensors),
+        loaded leaf by leaf onto ``device``; the geometry is checked before
+        any weight is read.  ``model_cfg``, as the JAX engine's, stands in
+        for the checkpoint's own config (a caller that parsed it already,
+        or one that loads in another dtype)."""
+        from .weights import load_checkpoint_params
 
         device = resolve_device(device)
-        model_cfg = ModelConfig.from_pretrained(model_path)
+        if model_cfg is None:
+            model_cfg = ModelConfig.from_pretrained(model_path)
         check_model_geometry(model_cfg, device)
-        params = load_safetensors_params(
+        params = load_checkpoint_params(
             model_path, model_cfg, device, quantize=cfg.quantize if cfg is not None else None
         )
         return cls(model_cfg, params, cfg, device=device)

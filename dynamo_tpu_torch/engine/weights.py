@@ -13,7 +13,10 @@ integer view.
 ``vision_params_from_numpy`` does the same for the vision encoder's
 parameters (``vision.py``).
 
-``load_safetensors_params`` reads a HuggingFace checkpoint's
+``load_checkpoint_params`` loads a checkpoint as serving does: its
+safetensors files when it has any, else its GGUF file (``llm/gguf.py``,
+through ``assemble_params``).  ``load_safetensors_params`` reads a
+HuggingFace checkpoint's
 ``*.safetensors`` files with the port's own reader (the card's machine has
 no ``safetensors`` package): an 8-byte little-endian header length, a JSON
 header, and raw tensors by ``dtype``/``shape``/``data_offsets``, read as
@@ -203,6 +206,29 @@ def load_safetensors_params(
     if not files:
         raise FileNotFoundError(f"no .safetensors files under {model_path}")
     return assemble_params(SafetensorsIndex(files), cfg, device, dtype, quantize)
+
+
+def load_checkpoint_params(
+    model_path: str,
+    cfg: ModelConfig,
+    device: Optional[Union[str, torch.device]] = None,
+    dtype: Optional[torch.dtype] = None,
+    quantize: Optional[str] = None,
+) -> Params:
+    """A checkpoint's weights as serving loads them: the ``*.safetensors``
+    files of a directory when it has any, else its GGUF file (``model_path``
+    a ``.gguf`` file or a directory holding one), dequantized on load
+    (``llm/gguf.py``)."""
+    if os.path.isdir(model_path) and any(
+        f.endswith(".safetensors") for f in os.listdir(model_path)
+    ):
+        return load_safetensors_params(model_path, cfg, device, dtype, quantize)
+    from ..llm.gguf import find_gguf_file, load_gguf_params
+
+    gguf = find_gguf_file(model_path)
+    if gguf is None:
+        raise FileNotFoundError(f"{model_path}: no .safetensors and no .gguf weights")
+    return load_gguf_params(gguf, cfg, device, dtype, quantize)
 
 
 def assemble_params(

@@ -1,5 +1,5 @@
 """Tokenizer: the JAX package's ``Tokenizer``/``DecodeStream`` interface,
-read from ``tokenizer.json`` in pure Python.
+read from ``tokenizer.json`` (or a GGUF file's metadata) in pure Python.
 
 The JAX package runs the Rust ``tokenizers`` core; the card's machine has
 neither that package nor ``regex``, so the port reads the same artifact
@@ -21,6 +21,9 @@ its published forms:
   ``ignore_merges``, ``unk_token``, ``fuse_unk`` and ``byte_fallback``
   (a character outside the vocabulary becomes its UTF-8 bytes as
   ``<0xNN>`` tokens);
+* the ``Unigram`` model (``vocab`` as ``[piece, score]`` pairs, ``unk_id``,
+  ``byte_fallback``): the SentencePiece models of GGUF files
+  (``llm/gguf.py`` writes their pipeline as this document);
 * the post-processors ``TemplateProcessing``, ``ByteLevel`` and
   ``Sequence``;
 * the decoders ``ByteLevel``, ``Metaspace``, ``Replace``,
@@ -43,6 +46,7 @@ from __future__ import annotations
 import functools
 import heapq
 import json
+import math
 import os
 import re
 import sys
@@ -444,6 +448,121 @@ class _BPE:
         return [t for t, a in zip(ids, alive) if a]
 
 
+# -- Unigram model -----------------------------------------------------------
+
+# the Rust core's penalty below the lowest piece score for an unknown
+# character (K_UNK_PENALTY)
+_UNK_PENALTY = 10.0
+_MISSING = object()
+
+
+class _Unigram:
+    """The ``Unigram`` model (SentencePiece's, as the Rust core runs it):
+    the segmentation of highest total score by Viterbi over the pieces
+    that start at each character, found through a map of every piece's
+    prefixes, so a long text costs its length times the longest match.  A
+    character that begins no one-character piece also takes an unknown
+    node scored ``min(scores) - 10``; consecutive unknown nodes fuse into
+    one piece (the Rust core always fuses, whatever the file says).  A
+    piece outside the vocabulary becomes its UTF-8 bytes as ``<0xNN>``
+    pieces under ``byte_fallback`` when each byte has one, else
+    ``unk_id``.  Duplicate pieces take their last id, as the core's map."""
+
+    def __init__(self, spec: Dict[str, Any]) -> None:
+        pairs = spec.get("vocab") or []
+        pieces = [p for p, _ in pairs]
+        self.scores: List[float] = [float(s) for _, s in pairs]
+        self.vocab: Dict[str, int] = {p: i for i, p in enumerate(pieces)}
+        self.id_to_token: Dict[int, str] = dict(enumerate(pieces))
+        self.unk_id: Optional[int] = spec.get("unk_id")
+        if self.unk_id is not None:
+            if not pairs:
+                raise TokenizerError("Unigram: the vocabulary is empty")
+            if not 0 <= self.unk_id < len(pairs):
+                raise TokenizerError(f"Unigram: unk_id {self.unk_id} is not in the vocabulary")
+        byte_fallback = spec.get("byte_fallback", False)
+        if not isinstance(byte_fallback, bool):
+            raise TokenizerError(f"unsupported Unigram option byte_fallback={byte_fallback!r}")
+        self.byte_fallback = byte_fallback
+        self.unk_score = min(self.scores, default=math.inf) - _UNK_PENALTY
+        self._prefixes: Optional[Dict[str, Optional[Tuple[int, float]]]] = None
+
+    def _prefix_map(self) -> Dict[str, Optional[Tuple[int, float]]]:
+        """Every proper prefix of a piece -> None, every piece -> its (id,
+        score); built at the first encode."""
+        if self._prefixes is None:
+            pm: Dict[str, Optional[Tuple[int, float]]] = {}
+            for p in self.vocab:
+                for k in range(1, len(p)):
+                    pm.setdefault(p[:k], None)
+            for p, i in self.vocab.items():
+                if p:
+                    pm[p] = (i, self.scores[i])
+            self._prefixes = pm
+        return self._prefixes
+
+    def _segment(self, text: str) -> List[str]:
+        n = len(text)
+        pm = self._prefix_map()
+        best = [0.0] * (n + 1)
+        start = [-1] * (n + 1)
+        ids = [0] * (n + 1)
+        for i in range(n):
+            base = best[i]
+            single = False
+            j = i + 1
+            while j <= n:
+                hit = pm.get(text[i:j], _MISSING)
+                if hit is _MISSING:
+                    break
+                if hit is not None:
+                    cand = hit[1] + base
+                    if start[j] < 0 or cand > best[j]:
+                        best[j], start[j], ids[j] = cand, i, hit[0]
+                    single = single or j == i + 1
+                j += 1
+            if not single:
+                if self.unk_id is None:
+                    raise TokenizerError("Unigram: an unknown character and no unk_id")
+                cand = self.unk_score + base
+                if start[i + 1] < 0 or cand > best[i + 1]:
+                    best[i + 1], start[i + 1], ids[i + 1] = cand, i, self.unk_id
+        out: List[str] = []
+        fused: List[str] = []
+        end = n
+        while end > 0:
+            s = start[end]
+            if ids[end] == self.unk_id:
+                fused.append(text[s:end])
+            else:
+                if fused:
+                    out.append("".join(reversed(fused)))
+                    fused = []
+                out.append(text[s:end])
+            end = s
+        if fused:
+            out.append("".join(reversed(fused)))
+        out.reverse()
+        return out
+
+    def tokenize(self, word: str) -> List[int]:
+        out: List[int] = []
+        for piece in self._segment(word) if word else []:
+            tid = self.vocab.get(piece)
+            if tid is not None:
+                out.append(tid)
+                continue
+            if self.byte_fallback:
+                raw = [self.vocab.get(f"<0x{b:02X}>") for b in piece.encode("utf-8")]
+                if all(t is not None for t in raw):
+                    out.extend(raw)
+                    continue
+            if self.unk_id is None:
+                raise TokenizerError(f"Unigram: piece {piece!r} is unknown and there is no unk_id")
+            out.append(self.unk_id)
+        return out
+
+
 # -- added tokens ------------------------------------------------------------
 
 
@@ -529,7 +648,8 @@ class _Core:
     def __init__(self, spec: Dict[str, Any]) -> None:
         self.normalizers = _parse_normalizer(spec.get("normalizer"))
         self.pre = _PreTokenizer(spec.get("pre_tokenizer"))
-        self.model = _BPE(spec.get("model") or {})
+        model = spec.get("model") or {}
+        self.model = _Unigram(model) if model.get("type") == "Unigram" else _BPE(model)
         self.decoders = _parse_decoder(spec.get("decoder"))
         self.template = self._parse_post(spec.get("post_processor"))
         added = [_AddedToken(d) for d in spec.get("added_tokens") or []]
@@ -778,9 +898,18 @@ class Tokenizer:
 
     @classmethod
     def from_model_dir(cls, path: str) -> "Tokenizer":
+        """``path``'s ``tokenizer.json`` (and ``tokenizer_config.json``),
+        or, where there is no ``tokenizer.json`` or ``path`` is a ``.gguf``
+        file, the tokenizer of its GGUF metadata (``gguf.gguf_tokenizer``),
+        with the file's chat template and bos and eos tokens."""
         tok_file = os.path.join(path, "tokenizer.json") if os.path.isdir(path) else path
-        if not os.path.exists(tok_file):
-            raise TokenizerError(f"no tokenizer.json under {path}")
+        if not os.path.exists(tok_file) or tok_file.endswith(".gguf"):
+            from .gguf import find_gguf_file, gguf_tokenizer
+
+            gguf_path = find_gguf_file(path)
+            if gguf_path is not None:
+                return gguf_tokenizer(gguf_path)[0]
+            raise TokenizerError(f"no tokenizer.json or .gguf under {path}")
         with open(tok_file, encoding="utf-8") as f:
             core = _Core(json.load(f))
         chat_template = eos = bos = None

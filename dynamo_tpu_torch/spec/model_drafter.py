@@ -31,7 +31,6 @@ Design constraints, in order:
 
 from __future__ import annotations
 
-import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -152,27 +151,21 @@ def load_draft_model(
 ) -> Tuple[ModelConfig, Dict[str, Any]]:
     """Resolve a ``draft_model`` spec to (config, params) on ``device``.
 
-    Grammar: a checkpoint directory (``config.json`` and ``*.safetensors``,
-    read by the port's loader), or ``random[:seed]`` -- ``ModelConfig.tiny()``
-    with random weights from ``seed`` (default 0) made by ``init_params``,
-    which are the weights ``TorchEngine.random_init`` gives that config on
-    the same device: a tiny target and its ``random`` drafter share
-    weights, a perfect-drafter preset.  A GGUF file is refused: the port
-    has no GGUF reader."""
+    Grammar: a checkpoint (a directory of ``config.json`` and
+    ``*.safetensors``, or a GGUF checkpoint: a ``.gguf`` file or a directory
+    holding one, dequantized on load), or ``random[:seed]`` --
+    ``ModelConfig.tiny()`` with random weights from ``seed`` (default 0)
+    made by ``init_params``, which are the weights
+    ``TorchEngine.random_init`` gives that config on the same device: a
+    tiny target and its ``random`` drafter share weights, a
+    perfect-drafter preset."""
     device = resolve_device(device)
     if spec.startswith("random"):
         _, _, seed_s = spec.partition(":")
         seed = int(seed_s) if seed_s else 0
         cfg = ModelConfig.tiny()
         return cfg, init_params(cfg, seed, device, torch_dtype(cfg.dtype))
-    if not (
-        os.path.isdir(spec) and any(f.endswith(".safetensors") for f in os.listdir(spec))
-    ):
-        raise FileNotFoundError(
-            f"draft_model {spec!r}: not a checkpoint directory with *.safetensors"
-            " (the port reads no GGUF file)"
-        )
-    from ..engine.weights import load_safetensors_params
+    from ..engine.weights import load_checkpoint_params
 
     cfg = ModelConfig.from_pretrained(spec)
-    return cfg, load_safetensors_params(spec, cfg, device)
+    return cfg, load_checkpoint_params(spec, cfg, device)

@@ -16,7 +16,9 @@ dispatch overwrites; a swapped lane resumes under graph replay with the
 streams of a roomy pool.  A disaggregated delivery lands as the same pool
 pages through the same-process device handoff as through the wire.
 The dense entries of the ragged and flash kernels also give, bit for bit,
-the outputs recorded in ``DENSE_DIGESTS``.
+the outputs recorded in ``DENSE_DIGESTS``.  GGUF dequantization
+(``llm/gguf.py``) on the card gives the CPU's bits for each of its five
+tensor types.
 
 These tests need an NVIDIA card and ``nvcc``, so they carry the ``cuda``
 marker and skip elsewhere.  They import no JAX (the card's machine has
@@ -1561,3 +1563,29 @@ def test_device_handoff_and_wire_delivery_give_the_same_pages(card, kv_dtype):
         q = quantize_kv_blob(blob)
         assert landed[0] == q.q.tobytes() + q.s.tobytes()
     assert streams[0] == streams[1] and len(streams[0]) == 12
+
+
+@pytest.mark.parametrize("gtype", [0, 1, 30, 8, 2], ids=["F32", "F16", "BF16", "Q8_0", "Q4_0"])
+def test_gguf_dequantize_on_card_equals_cpu(card, gtype):
+    """``llm/gguf.py``'s dequantization on the card gives the CPU's bits:
+    random blocks with finite f16 scales (Q8_0, Q4_0) and finite values
+    (F32, F16, BF16), 64 rows of 4096."""
+    from dynamo_tpu_torch.llm import gguf
+
+    shape = (64, 4096)
+    rs = np.random.default_rng(gtype)
+    vals = rs.standard_normal(shape).astype(np.float32)
+    if gtype in (8, 2):
+        per, nbytes = {8: (32, 34), 2: (32, 18)}[gtype]
+        blocks = rs.integers(0, 256, (vals.size // per, nbytes), dtype=np.uint8)
+        scales = (rs.standard_normal(len(blocks)) * 0.01).astype(np.float16)
+        blocks[:, :2] = scales.view(np.uint8).reshape(-1, 2)
+        raw = blocks.tobytes()
+    elif gtype == 30:
+        raw = (vals.view(np.uint32) >> 16).astype(np.uint16).tobytes()
+    else:
+        raw = vals.astype({0: np.float32, 1: np.float16}[gtype]).tobytes()
+    cpu = gguf.dequantize_ggml(raw, gtype, shape, "cpu")
+    got = gguf.dequantize_ggml(raw, gtype, shape, card)
+    assert got.device.type == "cuda" and got.dtype == cpu.dtype
+    assert torch.equal(got.cpu().view(torch.uint8), cpu.view(torch.uint8))

@@ -8,8 +8,9 @@ proposals for several histories, short and past its window.
 model, so a ``random`` drafter on that target accepts every column it
 drafts; a draft model of another vocabulary is refused at engine
 construction; a checkpoint directory the test writes loads through the
-port's safetensors reader and drafts for an engine, and a GGUF path is
-refused.  The drafter binds to its engine, not to the process-wide
+port's safetensors reader and drafts for an engine, and a directory with
+a config but no weights is refused with the JAX loader's error (a GGUF
+draft loads in ``test_torch_gguf.py``).  The drafter binds to its engine, not to the process-wide
 registry, and ``DYN_DRAFT_MODEL`` arms one.  Greedy streams with the
 model drafter equal the JAX engine's with its own.  Every wait is
 bounded (``asyncio.wait_for``).
@@ -168,8 +169,12 @@ def test_checkpoint_directory_loads_and_drafts(weights, tmp_path):
                              metrics_registry=MetricsRegistry()), [request(prompt, 12)])
     assert streams(out) == streams(base)
     assert out[0]["spec"]["drafted_tokens"] > 0
-    with pytest.raises(FileNotFoundError, match="GGUF"):
-        load_draft_model(str(tmp_path / "model.gguf"), "cpu")
+    # a checkpoint directory without weights: the JAX loader's error
+    bare = tmp_path / "bare"
+    bare.mkdir()
+    (bare / "config.json").write_text((ckpt / "config.json").read_text())
+    with pytest.raises(FileNotFoundError, match="no .safetensors and no .gguf"):
+        load_draft_model(str(bare), "cpu")
 
 
 def test_env_arms_the_model_drafter(monkeypatch):

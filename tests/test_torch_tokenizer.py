@@ -487,7 +487,7 @@ def test_sentencepiece_long_text_merges_fast(sp_pairs):
                                                    "prepend_scheme": "sometimes"}), "Metaspace"),
         (lambda s: s["model"].__setitem__("byte_fallback", "yes"), "byte_fallback"),
         (lambda s: s["model"].__setitem__("type", "WordPiece"), "WordPiece"),
-        (lambda s: s["model"].__setitem__("type", "Unigram"), "Unigram"),
+        (lambda s: s.__setitem__("decoder", {"type": "CTC"}), "CTC"),
         (lambda s: s.__setitem__("decoder", {"type": "Metaspace", "replacement": "▁▁"}), "Metaspace"),
         (lambda s: s.__setitem__("post_processor", {"type": "BertProcessing"}), "BertProcessing"),
     ],
