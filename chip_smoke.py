@@ -37,7 +37,8 @@ Every phase is fatal on failure:
    over the decode worker's 16 lanes, and packed ragged over its 16 decode
    rows and over a 16-lane tick of its short prompts' local prefill; and
    eval's windows (serve-gguf (b)): full flash prefill of one lane of 512
-   and of 2048 tokens, every row valid.
+   and of 2048 tokens, every row valid; and paged decode and packed
+   ragged at a rank of Llama-3-8B at tp = 2 (16/4/128, serve's shapes).
    CUDA-event times of the kernel, the
    plain version and one ``scaled_dot_product_attention`` call over the
    gathered (dequantized) K/V with the same mask (a yardstick the port
@@ -385,7 +386,7 @@ Every phase is fatal on failure:
    drops, within ``MOE_BF16_RTOL``; serve's primer and batch
    (``EngineConfig(num_pages=1024)``, 8 lanes, page 16, pipelined), cold
    and warm, at the preset's cf = 2, with the warm batch's dropped share
-   of assignments counted by this script (``DropCounter``); then at cf = E
+   of assignments counted by the dispatch (``model.moe_counts``); then at cf = E
    / K, where nothing can drop, the pipelined and the serial loop give the
    same streams.  (c) The whole model, 32 layers, int8 weights made and
    quantized one layer at a time (``TorchEngine.random_init`` under
@@ -429,6 +430,31 @@ Every phase is fatal on failure:
    --window 512``, bare and with ``--quantize int8``, print their JSON
    lines, the bare one within ``GGUF_CLI_RTOL`` of in-process
    ``evaluate_perplexity``.
+
+19. serve-tp: tensor and expert parallelism (``parallel/``), last.  Two
+   grids of two ranks, each a follower process beside this one, serve
+   one engine after another: on one card both ranks share it over gloo
+   (the one gloo mesh over CUDA tensors of the package's, built here and
+   printed; collectives eager, no graphs).  (a) The reference phase's
+   small f32 model at tp = 2 under the default, classic and rectangle
+   configs, the int8 pool and int8 weights, and a small MoE at ep = 2 (cf
+   = E / K, nothing dropped; cf = 0.5, the drops of one card on every
+   rank): greedy streams equal one card's and (dense) the CPU's; every
+   rank's pool the one-card pool's head slice (``tp_pools_match``); per
+   rank the launch invariants of the leader's dispatches, the same
+   collectives, and no graph.  (b) Llama-3-8B at full width and depth,
+   bf16, tp = 2, serve's weights and traffic with top-2 logprobs, cold
+   then warm: every request ends with its 64 tokens; per rank the launch
+   invariants, 2 all-reduces a layer and 2 all-gathers a trunk pass;
+   where streams part from serve run 0's, a greedy lane only at a bf16
+   near tie.  (c) Mixtral-8x7B's widths at 16 layers, bf16, ep = 2, cf =
+   4: nothing dropped on either rank, each rank half of one card's expert
+   bytes.  (d), with serve-mocker's checkpoint: ``run in=http --tp 2`` is
+   refused by name (one card: "mesh needs 2 devices, have 1"; two or
+   more: NCCL ranks are not served yet), and so are ``--dp``, ``--sp``
+   and ``--pp``.  Printed: backend, grid seconds, per rank launches,
+   collectives, graphs, drops, expert bytes and peak GiB, cold and warm
+   ``tok_s``, TTFT, the phase's seconds.
 
 In every served run each kernel's launch count (graph replays included)
 must equal what the run's dispatches imply (``expected_launches``), and
@@ -1771,12 +1797,12 @@ def geometry_row(kind: str, model: str, geom, pa, fp, ra, bucketing, rng, gen) -
     )
 
 
-def geometry_rows(pa, fp, ra, bucketing) -> List[Dict[str, object]]:
+def geometry_rows(pa, fp, ra, bucketing, models=None) -> List[Dict[str, object]]:
     rng = np.random.default_rng(6)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(6)
     rows = []
-    for model, (geom, kinds) in GEOM_MODELS.items():
+    for model, (geom, kinds) in (models or GEOM_MODELS).items():
         for kind in kinds:
             rows.append(geometry_row(kind, model, geom, pa, fp, ra, bucketing, rng, gen))
             gc.collect()
@@ -1790,13 +1816,15 @@ def geometry_rows(pa, fp, ra, bucketing) -> List[Dict[str, object]]:
 
 
 async def serve(
-    engine, batches: List[List[dict]], between: Callable[[int], None] = None
+    engine, batches: List[List[dict]], between: Callable[[int], None] = None,
+    before_stop: Callable[[], None] = None,
 ) -> List[dict]:
     """Serve each batch of requests concurrently, one batch after the
     other (``between(i)`` runs before batch ``i`` > 0 starts); returns per
     request its tokens, finish reason, frame times, time to first token,
     top logprobs, the frames' prompt logprobs and the finish item's
-    speculation stats."""
+    speculation stats.  The engine stops after (``before_stop()`` runs
+    just before, on the engine's loop: reads of a sharded engine's ranks)."""
     from dynamo_tpu_torch.protocols.common import PreprocessedRequest
     from dynamo_tpu_torch.runtime.engine import Context
 
@@ -1832,11 +1860,13 @@ async def serve(
             t0 = time.perf_counter()
             results += await asyncio.gather(*[one(r, t0) for r in batch])
     finally:
+        if before_stop is not None:
+            before_stop()
         await engine.stop()
     return results
 
 
-def serve_cold_warm(engine, primer: List[dict], reqs: List[dict], hook=None):
+def serve_cold_warm(engine, primer: List[dict], reqs: List[dict], hook=None, before_stop=None):
     """One served run: the primer and then the batch (cold: each graph is
     captured, after its eager warm-up, as its shape first comes), then the
     same batch once more on the same engine (warm: the graphs replay).
@@ -1857,7 +1887,7 @@ def serve_cold_warm(engine, primer: List[dict], reqs: List[dict], hook=None):
             marks["t"] = time.perf_counter()
 
     t0 = time.perf_counter()
-    res = asyncio.run(serve(engine, [primer, reqs, reqs], between))
+    res = asyncio.run(serve(engine, [primer, reqs, reqs], between, before_stop))
     cold, warm = res[: 1 + len(reqs)], res[1 + len(reqs):]
     wall_warm = max(r["frames"][-1][0] for r in warm) - marks["t"]
     return cold, marks["t"] - t0, warm, wall_warm, marks
@@ -7746,51 +7776,6 @@ MOE_CHAT_TEMPLATE = (
 )
 
 
-class DropCounter:
-    """Stands in for the trunk's ``_moe_mlp``: before each call of the
-    package's dispatch it routes the call's rows itself (its own router
-    product, stable top-k and slot rule) and adds, on the card, the
-    assignments and those past capacity to ``n``.  Its ops are captured
-    into the engine's decode graphs with the dispatch, so replays count
-    too; no host sync."""
-
-    def __init__(self, model_mod) -> None:
-        self.mod = model_mod
-        self.orig = model_mod._moe_mlp
-        # assignments, dropped; made at the first call (an eager prefill,
-        # before any graph is captured) on the rows' device
-        self.n = None
-
-    def __enter__(self) -> "DropCounter":
-        self.mod._moe_mlp = self
-        return self
-
-    def __exit__(self, *exc) -> None:
-        self.mod._moe_mlp = self.orig
-
-    def __call__(self, lp, x, cfg):
-        E, K = cfg.num_experts, cfg.num_experts_per_tok
-        xf = x.reshape(-1, x.shape[-1])
-        n = xf.shape[0]
-        logits = (xf @ lp["router"]).float()
-        top = torch.sort(logits, dim=-1, descending=True, stable=True).indices[:, :K]
-        cap = min(max(1, math.ceil(n * K * cfg.moe_capacity_factor / E)), n * K)
-        onehot = F.one_hot(top.reshape(-1), E)
-        rank = (onehot.cumsum(0) * onehot).sum(1) - 1
-        if self.n is None:
-            self.n = torch.zeros(2, dtype=torch.int64, device=x.device)
-        self.n[0].add_(n * K)
-        self.n[1].add_((rank >= cap).sum())
-        return self.orig(lp, x, cfg)
-
-    def read(self) -> Tuple[int, int]:
-        if self.n is None:
-            return 0, 0
-        torch.cuda.synchronize()
-        a, d = self.n.tolist()
-        return a, d
-
-
 def top_err(a, b) -> float:
     """The largest logprob difference between two top-logprob structures
     of the same shape, or inf where their ids or shapes differ."""
@@ -7961,17 +7946,20 @@ def moe_serve(engine, primer, batch, max_tokens: int, what: str, card: str, base
     launches, the warm batch's dropped assignments and the peak bytes
     above ``base`` (what the card held before the phase made its
     weights: tensors earlier phases left are not this run's)."""
-    from dynamo_tpu_torch.engine import model as moe_model
+    from dynamo_tpu_torch.engine.model import moe_counts
 
-    with DropCounter(moe_model) as counter:
-        at_warm = {}
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        res, wall, warm, wall_w, marks = serve_cold_warm(
-            engine, primer, batch, hook=lambda: at_warm.update(n=counter.read())
-        )
-        counted = read_launches()
-        end = counter.read()
+    def read() -> Tuple[int, int]:
+        torch.cuda.synchronize()  # the engine's streams too
+        return moe_counts(engine.device)
+
+    at_warm = {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res, wall, warm, wall_w, marks = serve_cold_warm(
+        engine, primer, batch, hook=lambda: at_warm.update(n=read())
+    )
+    counted = read_launches()
+    end = read()
     peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
     check_launch_invariants(f"serve-moe: {what}", engine, counted)
     for i, r in enumerate(res[1:] + warm):
@@ -9137,6 +9125,363 @@ def serve_gguf_phase(ref: Dict[str, object], served: Dict[str, object],
     return launches
 
 
+# ---------------------------------------------------------------------------
+# serve-tp: tensor and expert parallelism (parallel/)
+# ---------------------------------------------------------------------------
+
+# (c): Mixtral-8x7B's widths at serve-moe (b)'s 16 layers, ep = 2
+TP_MOE_LAYERS = MOE_LAYERS
+# (a)'s pools against one card's (``tp_pools_match``): on an NVIDIA H100
+# 80GB HBM3 at 700.00 W this phase read f32 pools within 0.89e-6 of the
+# largest value and, in the int8 pool, 58 of 258048 values one step off
+# with row scales within 4.7e-4
+TP_POOL_TOL = 5e-6
+TP_INT8_SHARE = 5e-3
+TP_INT8_SCALE = 2e-3
+# kernels 1 and 5 at a rank of Llama-3-8B at tp = 2: 16 query heads, 4 kv
+# heads, D 128 (the rows serve-tp (b)'s launches go with)
+TP_RANK_GEOM = {"llama3_8b_tp2_rank": ((16, 4, 128, 0), ("paged_decode_attention",
+                                                         "packed_ragged_attention"))}
+
+
+def tp_grid(mesh_cfg, what: str):
+    """Start a grid's follower ranks and the leader's mesh, every rank on
+    this card over gloo: the one mesh of the package's that takes CUDA
+    tensors over gloo, built here to hold the ranks against one card (the
+    package refuses NCCL ranks, one card each, by name: (d)).  Its
+    collectives are not captured, so an engine over it runs eagerly.  The
+    followers serve every engine built on the mesh until ``tp_end``.
+    Returns ``(mesh, ranks, backend)``."""
+    from dynamo_tpu_torch.parallel.launch import grid_spec, leader_mesh, start_local_ranks
+
+    n = mesh_cfg.num_devices
+    t0 = time.perf_counter()
+    ranks = start_local_ranks(mesh_cfg, grid_spec(mesh_cfg, ["cuda:0"] * n, "gloo"))
+    mesh = leader_mesh(mesh_cfg, ranks.spec, ranks)
+    print(f"serve-tp: {what} grid tp={mesh_cfg.tp} ep={mesh_cfg.ep}: backend gloo "
+          f"({n} ranks on one card, eager); formed in {time.perf_counter() - t0:.3f} s")
+    return mesh, ranks, "gloo"
+
+
+def tp_end(grid) -> None:
+    """Dismiss a grid's followers and wait for them."""
+    from dynamo_tpu_torch.parallel.launch import dismiss
+
+    mesh, ranks, _ = grid
+    dismiss(mesh)
+    mesh.close()
+    ranks.join()
+
+
+def tp_reads(engine, out: Dict[str, object], pools: bool = False):
+    """A ``before_stop`` that keeps the ranks' counters (and pools)."""
+
+    def read() -> None:
+        out["stats"] = engine.rank_stats()
+        if pools:
+            out["pools"] = engine.rank_pools()
+        if engine.mesh is not None:
+            out["sent"] = dict(engine.params.mirror.sent)
+
+    return read
+
+
+def tp_rank_launches(stats) -> List[Dict[str, int]]:
+    return [dict(s["launches"], gathered_decode=s["gathered_decode_calls"]) for s in stats]
+
+
+def tp_check_ranks(what: str, engine, stats) -> None:
+    """Every rank's kernel launches equal what the leader's dispatches
+    imply; every rank made the same collectives; per rank, graph captures
+    and replays printed."""
+    want = expected_launches(engine)
+    for s, got in zip(stats, tp_rank_launches(stats)):
+        got = {k: got.get(k, 0) for k in want}
+        print(f"serve-tp: {what} rank {s['rank']}: launches {got} (expected {want}); "
+              f"collectives {s['collectives']}; graphs {s['graphs']}; moe drops {s['moe_drops']}")
+        if got != want:
+            fail(f"serve-tp {what} rank {s['rank']}: launches {got} differ from the "
+                 f"leader's dispatches' {want}")
+    if len({json.dumps(s["collectives"], sort_keys=True) for s in stats}) != 1:
+        fail(f"serve-tp {what}: the ranks' collectives differ: {[s['collectives'] for s in stats]}")
+    graphs = [s["graphs"] for s in stats]
+    if any(g != {"captures": 0, "replays": 0} for g in graphs):
+        fail(f"serve-tp {what}: a gloo mesh runs eagerly, yet the ranks count graphs {graphs}")
+
+
+def tp_pools_match(what: str, one, ranks, tp: int) -> None:
+    """Every rank's pool against the one-card pool's head slice (page 0,
+    the trash page, aside).  f32: within TP_POOL_TOL of the largest
+    magnitude (the all-reduces sum partial products in another order,
+    and the rank's GEMMs are narrower).  int8: a value that lands a hair
+    from a rounding boundary may round the other way on a rank, and the
+    step it moves feeds the later layers, so the data may be one step off
+    in at most TP_INT8_SHARE of the elements and the row scales within
+    TP_INT8_SCALE relative; the streams must still be equal."""
+    if isinstance(one, tuple):
+        q1, s1 = one
+        w = q1.shape[4] // tp
+        for r, (q, s) in enumerate(ranks):
+            dq = (q[:, :, 1:].int() - q1[:, :, 1:, :, r * w:(r + 1) * w].int()).abs()
+            ds = ((s[:, :, 1:] - s1[:, :, 1:]).abs() / s1[:, :, 1:].abs().clamp(min=1e-30)).max()
+            print(f"serve-tp: {what} rank {r} int8 pool: data off by {int(dq.max())} at most "
+                  f"({int((dq > 0).sum())} of {dq.numel()}), scales within {float(ds):.3e}")
+            if int(dq.max()) > 1 or int((dq > 0).sum()) > TP_INT8_SHARE * dq.numel() or (
+                float(ds) > TP_INT8_SCALE
+            ):
+                fail(f"serve-tp {what} rank {r}: the int8 pool differs from one card's")
+        return
+    w = one.shape[4] // tp
+    for r, p in enumerate(ranks):
+        want = one[:, :, 1:, :, r * w:(r + 1) * w].float()
+        d = float((p[:, :, 1:].float() - want).abs().max())
+        scale = float(want.abs().max())
+        print(f"serve-tp: {what} rank {r} pool: max |diff| {d:.3e} against max |value| {scale:.3e}")
+        if d > TP_POOL_TOL * scale:
+            fail(f"serve-tp {what} rank {r}: the pool differs from one card's head slice by {d}")
+
+
+def tp_small(ref: Dict[str, object], grids, card: str) -> None:
+    """(a) Small f32 models, two ranks: tp = 2 under the default, classic
+    and rectangle configs, the int8 pool and int8 weights, and ep = 2 on a
+    small MoE at cf = E / K; each against one card (streams, pools) and the
+    CPU (streams); at a binding capacity (cf = 0.5) every rank counts one
+    card's drops."""
+    from dynamo_tpu_torch.engine import model as tmodel
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.model import init_params
+    from dynamo_tpu_torch.parallel.mesh import MeshConfig
+
+    cfg, params, batches = ref["cfg"], ref["params"], ref["batches"]
+    moe = dataclasses.replace(cfg, num_experts=4, num_experts_per_tok=2, moe_capacity_factor=2.0)
+    moe_params = init_params(moe, 4, torch.device("cpu"), torch.float32)
+    legs = {
+        **{name: (cfg, params, REFERENCE_CONFIGS[name], MeshConfig(tp=2))
+           for name in ("default", "classic", "rectangle")},
+        "int8-pool": (cfg, params, dict(kv_dtype="int8"), MeshConfig(tp=2)),
+        "int8-weights": (cfg, params, dict(quantize="int8"), MeshConfig(tp=2)),
+        "moe-ep2": (moe, moe_params, {}, MeshConfig(ep=2)),
+        "moe-ep2-binding": (dataclasses.replace(moe, moe_capacity_factor=0.5), moe_params, {},
+                            MeshConfig(ep=2)),
+    }
+    for name, (mcfg, mparams, kw, grid) in legs.items():
+        ecfg = EngineConfig(**ref["ecfg"], **kw)
+        cpu = asyncio.run(serve(TorchEngine(mcfg, mparams, ecfg, device="cpu"), batches))
+        one = TorchEngine(mcfg, params_on(mparams, "cuda"), ecfg, device="cuda")
+        tmodel.moe_counts(torch.device("cuda"), reset=True)
+        reset_launches()
+        kept: Dict[str, object] = {}
+        card_one = asyncio.run(serve(one, batches, before_stop=tp_reads(one, kept, pools=True)))
+        check_launch_invariants(f"serve-tp: (a) {name} one card", one, read_launches())
+        torch.cuda.synchronize()
+        drops = tmodel.moe_counts(torch.device("cuda"), reset=True)[1]
+        pool1 = kept["pools"][0]
+        del one
+        mesh, _, backend = grids["tp" if grid.tp > 1 else "ep"]
+        eng = TorchEngine(mcfg, params_on(mparams, "cuda"), ecfg, device="cuda", mesh=mesh)
+        eng.reset_rank_stats()
+        got = asyncio.run(serve(eng, batches, before_stop=tp_reads(eng, kept, pools=True)))
+        stats, pools = kept["stats"], kept["pools"]
+        tp_check_ranks(f"(a) {name}", eng, stats)
+        streams = [r["tokens"] for r in got]
+        print(f"serve-tp: (a) {name}: {first_divergence(streams, [r['tokens'] for r in card_one])} "
+              f"(one card); {first_divergence(streams, [r['tokens'] for r in cpu])} (CPU); "
+              f"backend {backend} on {card}")
+        if streams != [r["tokens"] for r in card_one]:
+            fail(f"serve-tp (a) {name}: streams differ from one card's")
+        if "int8" not in name and streams != [r["tokens"] for r in cpu]:
+            fail(f"serve-tp (a) {name}: streams differ from the CPU's")
+        if grid.tp > 1:
+            tp_pools_match(f"(a) {name}", pool1, pools, grid.tp)
+        rank_drops = [s["moe_drops"] for s in stats]
+        print(f"serve-tp: (a) {name}: dropped assignments one card {drops}, ranks {rank_drops}")
+        if mcfg.is_moe and rank_drops != [drops] * len(stats):
+            fail(f"serve-tp (a) {name}: drops {rank_drops} differ from one card's {drops}")
+        if name == "moe-ep2" and drops:
+            fail(f"serve-tp (a) moe-ep2: {drops} assignments dropped at cf = E / K")
+        if name == "moe-ep2-binding" and not drops:
+            fail("serve-tp (a) moe-ep2-binding: no assignment dropped at cf = 0.5")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def tp_near_ties(what: str, res: List[dict], plain: List[List[int]], greedy: List[bool]) -> str:
+    """Where each stream first parts from the one-card run's; a greedy
+    lane may part only at a bf16 near tie of this run's two best tokens
+    (their logprobs within one bf16 step: BF16_ATOL + BF16_RTOL x the
+    larger magnitude)."""
+    notes = []
+    for i, (r, want) in enumerate(zip(res, plain)):
+        j = next((j for j, (a, b) in enumerate(zip(r["tokens"], want)) if a != b), None)
+        if j is None:
+            continue
+        top = r["top"][j] if j < len(r["top"]) else None
+        notes.append(f"request {i} token {j} (top-2 logprobs {top})")
+        if greedy[i]:
+            lps = sorted((float(v) for v in dict(top).values()) if isinstance(top, dict)
+                         else [float(t[1]) for t in top], reverse=True) if top else []
+            if len(lps) < 2 or lps[0] - lps[1] > BF16_ATOL + BF16_RTOL * max(map(abs, lps[:2])):
+                fail(f"serve-tp {what}: greedy request {i} parts from one card at token {j} "
+                     f"away from a bf16 near tie (top-2 logprobs {top})")
+    same = sum(r["tokens"] == p for r, p in zip(res, plain))
+    return f"{same} of {len(plain)} equal one card's; parted at {notes or 'none'}"
+
+
+def tp_llama(served: Dict[str, object], grid, card: str) -> Dict[str, int]:
+    """(b) Llama-3-8B at full width and depth, bf16, tp = 2, serve's
+    weights (seed 0) and traffic, cold then warm, top-2 logprobs asked
+    for: every request ends with its max_tokens; per rank the launch
+    invariants and 2 all-reduces a layer and 2 all-gathers a trunk pass;
+    where streams part from serve run 0's.  Returns the leader rank's
+    launches of kernels 1 and 5."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+
+    cfg = ModelConfig.llama3_8b()
+    ecfg = EngineConfig(num_pages=1024)
+    primer, batch = serve_requests(cfg.vocab_size)
+    batch = [dict(r, sampling_options=dict(r["sampling_options"], logprobs=2)) for r in batch]
+    mesh, _, backend = grid
+    t0 = time.perf_counter()
+    eng = TorchEngine.random_init(cfg, ecfg, seed=0, device="cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng.reset_rank_stats()
+    sent0 = dict(eng.params.mirror.sent)
+    kept: Dict[str, object] = {}
+    res, wall, warm, wall_w, _marks = serve_cold_warm(eng, primer, batch,
+                                                      before_stop=tp_reads(eng, kept))
+    stats = kept["stats"]
+    sent = {k: v - sent0.get(k, 0) for k, v in kept["sent"].items()}
+    tp_check_ranks("(b)", eng, stats)
+    out = res[1:]
+    check_streams("serve-tp (b)", out, cfg.vocab_size)
+    check_streams("serve-tp (b) warm", warm, cfg.vocab_size)
+    trunks, heads = sent.get("trunk", 0), sent.get("logits", 0)
+    for s in stats:
+        c = s["collectives"]
+        print(f"serve-tp: (b) rank {s['rank']}: {c.get('all_reduce', 0)} all-reduces, "
+              f"{c.get('all_gather', 0)} all-gathers over {trunks} trunk passes "
+              f"({heads} head projections) of {cfg.num_layers} layers; peak "
+              f"{s.get('peak_bytes', 0) / 2**30:.3f} GiB")
+        if c.get("all_reduce", 0) != 2 * cfg.num_layers * trunks:
+            fail(f"serve-tp (b) rank {s['rank']}: {c.get('all_reduce')} all-reduces, not 2 a "
+                 f"layer over {trunks} trunk passes")
+        if heads != trunks or c.get("all_gather", 0) != 2 * trunks:
+            fail(f"serve-tp (b) rank {s['rank']}: {c.get('all_gather')} all-gathers over "
+                 f"{trunks} trunk passes and {heads} head projections, not 2 a pass")
+    st, st_w = served_stats(res, wall), served_stats(warm, wall_w, primed=False)
+    greedy = [not r["sampling_options"].get("temperature") for r in batch] * 2
+    parted = tp_near_ties("(b)", out + warm, served["streams"], greedy)
+    print(f"serve-tp: (b) Llama-3-8B tp=2 bf16 32 layers: init {init_s:.3f} s; cold wall "
+          f"{wall:.3f} s tok_s={st['tok_s']:.3f} decode_phase_tok_s={st['dec']:.3f} ttft_ms="
+          f"{[round(r['ttft'] * 1e3, 3) for r in out]}; warm wall {wall_w:.3f} s "
+          f"tok_s={st_w['tok_s']:.3f} decode_phase_tok_s={st_w['dec']:.3f} ttft_ms="
+          f"{[round(r['ttft'] * 1e3, 3) for r in warm]}; streams: {parted}; backend {backend} "
+          f"on {card}")
+    mine = tp_rank_launches(stats)[0]
+    return {k: mine[k] for k in ("paged_decode_attention", "packed_ragged_attention")}
+
+
+def tp_mixtral(grid, card: str) -> None:
+    """(c) Mixtral-8x7B's widths at 16 of 32 layers, bf16, ep = 2 at cf =
+    4 (seed 0: serve-moe (b)'s weights), serve's traffic cold then warm:
+    nothing dropped on either rank; each rank holds half of the experts'
+    bytes of one card's plan (serve-moe (b) holds exactly the plan's)."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.memory_plan import plan_memory
+
+    cfg = ModelConfig.mixtral_8x7b(num_layers=TP_MOE_LAYERS, moe_capacity_factor=4.0)
+    ecfg = EngineConfig(num_pages=1024)
+    # the plan's bytes of each leaf do not depend on the card's size
+    plan = plan_memory(cfg, num_pages=1024, hbm_bytes=2**40)
+    experts = sum(plan.detail[f"layers/{k}"] for k in ("w_gate", "w_up", "w_down"))
+    primer, batch = serve_requests(cfg.vocab_size)
+    mesh, _, backend = grid
+    eng = TorchEngine.random_init(cfg, ecfg, seed=0, device="cuda", mesh=mesh)
+    eng.reset_rank_stats()
+    kept: Dict[str, object] = {}
+    res, wall, warm, wall_w, _marks = serve_cold_warm(eng, primer, batch,
+                                                      before_stop=tp_reads(eng, kept))
+    stats = kept["stats"]
+    tp_check_ranks("(c)", eng, stats)
+    check_streams("serve-tp (c)", res[1:], cfg.vocab_size)
+    check_streams("serve-tp (c) warm", warm, cfg.vocab_size)
+    st_w = served_stats(warm, wall_w, primed=False)
+    for s in stats:
+        print(f"serve-tp: (c) rank {s['rank']}: expert bytes {s['expert_bytes']} (one card's "
+              f"plan {experts}), dropped {s['moe_drops']}, peak "
+              f"{s.get('peak_bytes', 0) / 2**30:.3f} GiB")
+        if s["moe_drops"]:
+            fail(f"serve-tp (c) rank {s['rank']}: {s['moe_drops']} assignments dropped at cf = 4")
+        if 2 * s["expert_bytes"] != experts:
+            fail(f"serve-tp (c) rank {s['rank']}: {s['expert_bytes']} expert bytes, not half of "
+                 f"{experts}")
+    print(f"serve-tp: (c) Mixtral-8x7B widths, {TP_MOE_LAYERS} layers, bf16, ep=2: cold wall "
+          f"{wall:.3f} s; warm wall {wall_w:.3f} s tok_s={st_w['tok_s']:.3f} "
+          f"decode_phase_tok_s={st_w['dec']:.3f}; backend {backend} on {card}")
+
+
+def tp_cli(ckpt, card: str) -> None:
+    """(d) The CLI: ``run in=http out=torch --tp 2`` is refused by name --
+    with one card by JAX's "mesh needs 2 devices, have 1", with two or more
+    because the package does not serve NCCL ranks yet -- and so are
+    ``--dp 2``, ``--sp 2`` and ``--pp 2``."""
+    from dynamo_tpu_torch.parallel.mesh import NCCL_NOT_SERVED
+
+    base = ("run", "in=http", "out=torch", "--model-path", ckpt[0], "--num-pages", "128")
+    cards = torch.cuda.device_count()
+    tp_refusal = f"mesh needs 2 devices, have {cards}" if cards < 2 else NCCL_NOT_SERVED
+    refusals = {"--dp": ("--dp", "2"), "--sp": ("--sp", "2"), "--pp": ("--pp", "2"),
+                tp_refusal: ("--tp", "2")}
+    procs = {want: subprocess.Popen([sys.executable, "-m", "dynamo_tpu_torch", *base, *argv],
+                                    cwd=ROOT, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for want, argv in refusals.items()}
+    for want, p in procs.items():
+        try:
+            out, err = p.communicate(timeout=180)
+        except subprocess.TimeoutExpired:
+            for q in procs.values():
+                q.kill()
+                q.wait(timeout=30)
+            fail(f"serve-tp (d): {refusals[want]} did not end")
+        print(f"serve-tp: (d) {' '.join(refusals[want])}: exit {p.returncode}: "
+              f"{err.strip().splitlines()[-1] if err.strip() else ''}")
+        if p.returncode == 0 or want not in err:
+            fail(f"serve-tp (d): {refusals[want]} not refused by name: {err[-2000:]}")
+    print(f"serve-tp: (d) {len(refusals)} refusals by name with {cards} card(s) on {card}")
+
+
+def serve_tp_phase(ref: Dict[str, object], served: Dict[str, object], card: str
+                   ) -> Dict[str, int]:
+    """serve-tp (a) to (c) (module docstring); (d) runs with the CLI
+    checkpoint (``tp_cli``).  Returns (b)'s leader-rank launches of kernels
+    1 and 5."""
+    from dynamo_tpu_torch.parallel.mesh import MeshConfig
+
+    t0 = time.perf_counter()
+    # two grids of two ranks, each serving its legs' engines one by one
+    grids = {"tp": tp_grid(MeshConfig(tp=2), "tp"), "ep": tp_grid(MeshConfig(ep=2), "ep")}
+    try:
+        tp_small(ref, grids, card)
+        ta = time.perf_counter()
+        llama = tp_llama(served, grids["tp"], card)
+        tb = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        tp_mixtral(grids["ep"], card)
+        tc = time.perf_counter()
+    finally:
+        for grid in grids.values():
+            tp_end(grid)
+    print(f"serve-tp: phase (a) to (c) {tc - t0:.3f} s ((a) {ta - t0:.3f}, (b) {tb - ta:.3f}, "
+          f"(c) {tc - tb:.3f}); launches (b), leader rank {llama} on {card}")
+    return llama
+
+
 def profile_phase(out_path: str, plain_walls: Dict[str, float]) -> None:
     """``--profile OUT.txt``: each served cell once more -- the serve
     phase's run, serve-classic runs A and B and serve-int8 run Q, the same
@@ -9296,6 +9641,7 @@ def main() -> None:
     check_quantize_rule()
     check_geometries(pa, fp, ra, bucketing)
     rows += geometry_rows(pa, fp, ra, bucketing)
+    rows += geometry_rows(pa, fp, ra, bucketing, TP_RANK_GEOM)
     # kernel 2 at eval's windows (serve-gguf (b))
     rows += [check_eval_flash(fp, gen, T) for T in GGUF_EVAL_WINDOWS]
     for r in rows:
@@ -9346,6 +9692,9 @@ def main() -> None:
         held_after("serve-onboard")
         serve_mocker_phase(card, ckpt)
         held_after("serve-mocker")
+        t_tp_cli = time.perf_counter()
+        tp_cli(ckpt, card)
+        t_tp_cli = time.perf_counter() - t_tp_cli
         planner_s = planner_cli(ckpt, card)
         print(f"serve-planner: (c) {planner_s:.3f} s; phase {planner['seconds'] + planner_s:.3f} s; "
               f"launches of (a) and (b) {planner['launches']}")
@@ -9358,6 +9707,11 @@ def main() -> None:
     held_after("serve-geometry")
     gguf = serve_gguf_phase(ref, served, card)
     held_after("serve-gguf")
+    t_tp = time.perf_counter()
+    tp_launches = serve_tp_phase(ref, served, card)
+    held_after("serve-tp")
+    print(f"serve-tp: phase {time.perf_counter() - t_tp + t_tp_cli:.3f} s ((d) {t_tp_cli:.3f}) "
+          f"on {card}")
     if profile_out is not None:
         profile_phase(
             profile_out,
@@ -9390,6 +9744,11 @@ def main() -> None:
     # eval's windows: serve-gguf (b)'s runs over README.md
     for T in GGUF_EVAL_WINDOWS:
         launches[f"flash_prefill_attention/eval-{T}"] = gguf[T]
+    # a rank of Llama-3-8B at tp = 2: serve-tp (b)'s leader rank (every
+    # rank launches as many: checked there)
+    for model, (_, kinds) in TP_RANK_GEOM.items():
+        for kernel in kinds:
+            launches[f"{kernel}/{model}"] = tp_launches[kernel]
     for r in rows:
         r["launches"] = launches[r["name"]]
     print(f"chip_smoke: whole run {time.perf_counter() - t_all:.3f} s on {card}")

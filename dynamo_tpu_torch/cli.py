@@ -112,13 +112,21 @@ logger = logging.getLogger("dynamo.torch.run")
 ENGINES = ("torch", "mocker", "echo")
 
 # flags the port refuses while their features are not ported: name ->
-# whether the parsed value asks for the feature
+# whether the parsed value asks for the feature (dp inside one engine,
+# sp's ring prefill and pp's pipeline prefill)
 _REFUSED = {
-    "--tp": lambda a: a.tp != 1,
     "--dp": lambda a: a.dp != 1,
     "--sp": lambda a: a.sp != 1,
     "--pp": lambda a: a.pp != 1,
-    "--ep": lambda a: a.ep != 1,
+}
+# the flags of what a tensor- or expert-parallel engine does not carry
+# yet: name -> whether the parsed value asks for it
+_REFUSED_UNDER_MESH = {
+    "--host-offload-blocks": lambda a: bool(a.host_offload_blocks),
+    "--disk-offload-blocks": lambda a: bool(a.disk_offload_blocks),
+    "--kv-remote": lambda a: a.kv_remote is not None,
+    "--draft-model": lambda a: bool(a.draft_model),
+    "--disagg decode": lambda a: a.disagg == "decode",
 }
 
 
@@ -214,9 +222,23 @@ def _add_engine_flags(p) -> None:
                    help="disable swap-based preemption (offload the "
                         "victim's KV and restore it on resume); preempted "
                         "sequences always recompute instead")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel degree: one rank per process with "
+                        "--device cpu (gloo; NCCL ranks on cards are not served "
+                        "yet); env DYN_TP wins")
+    p.add_argument("--ep", type=int, default=1,
+                   help="expert-parallel degree (MoE experts sharded over ranks)")
     # refused: their features are not ported yet
-    for flag in ("--tp", "--dp", "--sp", "--pp", "--ep"):
+    for flag in ("--dp", "--sp", "--pp"):
         p.add_argument(flag, type=int, default=1, help="not served by the port yet")
+    # multi-host engine (torch.distributed; env DYN_NUM_NODES /
+    # DYN_NODE_RANK / DYN_LEADER_ADDR also work)
+    p.add_argument("--num-nodes", type=int, default=None,
+                   help="hosts in the engine's multi-host world")
+    p.add_argument("--node-rank", type=int, default=None,
+                   help="this host's rank (0 = leader: scheduler and front end)")
+    p.add_argument("--leader-addr", default=None,
+                   help="leader host:port of the torch.distributed rendezvous")
 
 
 def _positive_int(v: str) -> int:
@@ -424,11 +446,137 @@ def _parse_io(io) -> Tuple[str, str]:
 
 
 def _check_refused(args) -> None:
+    _apply_parallel_env(args)
     refused = [flag for flag, asks in _REFUSED.items() if asks(args)]
     if refused:
         raise SystemExit(
             f"not served by the PyTorch port yet: {', '.join(refused)}"
         )
+    if max(getattr(args, "tp", 1), getattr(args, "ep", 1)) > 1:
+        refused = [f for f, asks in _REFUSED_UNDER_MESH.items() if asks(args)]
+        if refused:
+            raise SystemExit(
+                f"--tp {args.tp} --ep {args.ep}: not served under tensor or expert "
+                f"parallelism yet: {', '.join(refused)}"
+            )
+
+
+def _apply_parallel_env(args) -> None:
+    """``DYN_TP``/``DYN_DP`` win over the flags (the JAX CLI's rule; a
+    malformed value stops the command)."""
+    if not hasattr(args, "tp"):
+        return
+    from .parallel.mesh import env_parallel_spec
+
+    try:
+        env = env_parallel_spec()
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if env["tp"] is not None:
+        args.tp = env["tp"]
+    if env["dp"] is not None:
+        args.dp = env["dp"]
+
+
+def _multinode(args):
+    """The multi-host config from the flags over ``DYN_NUM_NODES`` /
+    ``DYN_NODE_RANK`` / ``DYN_LEADER_ADDR``."""
+    from .parallel.multihost import MultiNodeConfig
+
+    mn = MultiNodeConfig.from_env()
+    if args.num_nodes is not None:
+        mn.num_nodes = args.num_nodes
+    if args.node_rank is not None:
+        mn.node_rank = args.node_rank
+    if args.leader_addr is not None:
+        mn.leader_addr = args.leader_addr
+    try:
+        mn.validate()
+    except ValueError as e:
+        raise SystemExit(str(e))
+    return mn
+
+
+def _rank_plan(args, device):
+    """``(mesh_cfg, multinode, local_ranks, devices, backend)`` of a
+    sharded ``out=torch`` engine, checked before any weight loads: the
+    degrees against the model's heads and this host's cards (JAX's "mesh
+    needs N devices, have M"; NCCL ranks on cards, one each, are refused by
+    name after that)."""
+    from .engine.config import ModelConfig
+    from .parallel.mesh import MeshConfig
+
+    mesh_cfg = MeshConfig(tp=args.tp, ep=args.ep)
+    mn = _multinode(args)
+    if mesh_cfg.num_devices % mn.num_nodes:
+        raise SystemExit(
+            f"--tp {args.tp} --ep {args.ep}: {mesh_cfg.num_devices} ranks do not "
+            f"split over {mn.num_nodes} nodes"
+        )
+    local = mesh_cfg.num_devices // mn.num_nodes
+    model_cfg = ModelConfig.from_pretrained(args.model_path)
+    try:
+        model_cfg.validate_tp(args.tp)
+    except ValueError as e:
+        raise SystemExit(f"--tp {args.tp}: {e}")
+    try:
+        model_cfg.validate_ep(args.ep)
+    except ValueError as e:
+        raise SystemExit(f"--ep {args.ep}: {e}")
+    if device.type == "cuda":
+        from .parallel.mesh import check_devices
+
+        try:
+            check_devices(local, "nccl")
+        except ValueError as e:
+            raise SystemExit(f"--tp {args.tp} --ep {args.ep}: {e}")
+    return mesh_cfg, mn, local, [str(device)] * local, "gloo"
+
+
+def _start_node_ranks(args, cfg, device):
+    """A multi-host node: its other local ranks started, this process
+    joined to the world as the node's local rank 0.  Returns ``(mesh,
+    ranks)``; the leader's engine announces itself to every follower."""
+    from .parallel.launch import grid_spec, start_local_ranks
+    from .parallel.mesh import build_mesh
+    from .parallel.multihost import initialize_multihost
+
+    mesh_cfg, mn, local, devices, backend = _rank_plan(args, device)
+    spec = grid_spec(mesh_cfg, devices * mn.num_nodes, backend, local_ranks=local)
+    spec["multinode"] = dict(num_nodes=mn.num_nodes, node_rank=mn.node_rank,
+                             leader_addr=mn.leader_addr)
+    first = mn.global_rank(0, local)
+    ranks = start_local_ranks(mesh_cfg, spec, ranks=list(range(first + 1, first + local)))
+    initialize_multihost(mn, 0, local, backend)
+    mesh = build_mesh(mesh_cfg, first, devices[0], backend, local_ranks=local)
+    return mesh, ranks
+
+
+def run_follower_node(args) -> int:
+    """``--node-rank`` above 0: this host's ranks follow the leader's
+    engine (no front end here) until it stops."""
+    from .device import resolve_device
+    from .llm.local_model import resolve_model_path
+    from .parallel.launch import follow
+
+    if not args.model_path:
+        raise SystemExit("out=torch requires --model-path")
+    args.model_path = resolve_model_path(args.model_path)
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        raise SystemExit(f"{e} (--device cpu)")
+    mesh, ranks = _start_node_ranks(args, _engine_config(args), device)
+    print(f"follower ranks of node {args.node_rank} serving the leader at "
+          f"{args.leader_addr}", flush=True)
+    try:
+        follow(mesh)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        mesh.close()
+        ranks.join()
+    return 0
 
 
 def _check_served(args) -> None:
@@ -513,6 +661,39 @@ def _make_engine(args):
         device = resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"{e} (--device cpu)")
+    cfg = _engine_config(args)
+    logger.info("loading %s onto %s ...", args.model_path, device)
+    if max(args.tp, args.ep) > 1:
+        return _make_sharded_engine(args, cfg, device)
+    return TorchEngine.from_pretrained(args.model_path, cfg, device=device)
+
+
+def _make_sharded_engine(args, cfg, device):
+    """The leader's engine of a tp x ep grid: this host's follower ranks
+    started by the engine (one node), or joined through the multi-host
+    rendezvous (``--num-nodes``); the front end stays here."""
+    from .engine import TorchEngine
+    from .parallel.mesh import MeshConfig
+
+    mesh_cfg, mn, local, _devices, _backend = _rank_plan(args, device)
+    if not mn.is_multi_node:
+        return TorchEngine.from_pretrained(
+            args.model_path, cfg, device=device, mesh=MeshConfig(tp=args.tp, ep=args.ep)
+        )
+    mesh, ranks = _start_node_ranks(args, cfg, device)
+    try:
+        engine = TorchEngine.from_pretrained(args.model_path, cfg, device=device, mesh=mesh)
+    except BaseException:
+        ranks.kill()
+        raise
+    # the engine dismisses every node's followers when it stops
+    engine._ranks = ranks
+    return engine
+
+
+def _engine_config(args):
+    from .engine import EngineConfig
+
     cfg = EngineConfig(
         max_batch_size=args.max_batch_size,
         max_seq_len=args.max_seq_len,
@@ -542,8 +723,7 @@ def _make_engine(args):
         cfg.mixed_token_budget = args.mixed_token_budget
     if args.kv_prefetch_window is not None:
         cfg.kv_prefetch_window = args.kv_prefetch_window
-    logger.info("loading %s onto %s ...", args.model_path, device)
-    return TorchEngine.from_pretrained(args.model_path, cfg, device=device)
+    return cfg
 
 
 def _tokenizer_for(args):
@@ -1643,6 +1823,8 @@ def main(argv=None) -> int:
             return 0
     args.inp, args.out = _parse_io(args.io)
     _check_served(args)
+    if args.out == "torch" and max(args.tp, args.ep) > 1 and _multinode(args).node_rank > 0:
+        return run_follower_node(args)
     if args.out == "dyn":
         runner = run_http_frontend
     else:

@@ -52,14 +52,16 @@ def _scatter_rows(
     slot: Optional[torch.Tensor],
     k: torch.Tensor,
     v: torch.Tensor,
+    mesh=None,
 ) -> None:
     """K and V rows into the pool at ``(layer, ids, slot)``, or whole pages
     at ``(layer, ids)`` when ``slot`` is None; an int8 pool takes each
-    row's int8 data and its scale at the same index."""
+    row's int8 data and its scale at the same index (the scale of the
+    whole row on a tensor-parallel ``mesh``)."""
     at = (ids,) if slot is None else (ids, slot)
     for side, rows in ((0, k), (1, v)):
         if isinstance(kv_pages, QuantKV):
-            q, s = quantize_kv_rows(rows)
+            q, s = quantize_kv_rows(rows, mesh)
             kv_pages.q[(layer, side) + at] = q
             kv_pages.s[(layer, side) + at] = s
         else:
@@ -75,6 +77,7 @@ def write_packed_kv(
     pos: torch.Tensor,  # [Np] absolute position per token
     valid: torch.Tensor,  # [Np] bool (False = pad / dead row -> trash page 0)
     layer: int,
+    mesh=None,
 ) -> None:
     """Packed token ``n`` of lane ``lane[n]`` lands at position ``pos[n]``
     through that lane's page table; invalid rows and positions past the
@@ -89,7 +92,7 @@ def write_packed_kv(
     ok = ok & (ids >= 0) & (ids < num_pages)
     ids = torch.where(ok, ids, 0)
     slot = torch.where(ok, pos % page_size, 0)
-    _scatter_rows(kv_pages, layer, ids, slot, k, v)
+    _scatter_rows(kv_pages, layer, ids, slot, k, v, mesh)
 
 
 def write_prefill_kv(
@@ -98,6 +101,7 @@ def write_prefill_kv(
     v: torch.Tensor,
     page_table: torch.Tensor,  # [B, P] the lanes' pages from position 0
     layer: int,
+    mesh=None,
 ) -> None:
     """Whole pages: page ``i`` of lane ``b`` takes rows ``i*page ..`` of
     its prompt (``T`` is a multiple of the page).  Pad lanes, columns past
@@ -112,7 +116,7 @@ def write_prefill_kv(
     ids = torch.where((ids >= 0) & (ids < num_pages), ids, 0).reshape(-1)
     _scatter_rows(
         kv_pages, layer, ids, None,
-        k.reshape(-1, page_size, Hkv, D), v.reshape(-1, page_size, Hkv, D),
+        k.reshape(-1, page_size, Hkv, D), v.reshape(-1, page_size, Hkv, D), mesh,
     )
 
 
@@ -124,6 +128,7 @@ def write_spec_kv(
     base: torch.Tensor,  # [B] cache length
     n_tokens: torch.Tensor,  # [B] valid columns per lane
     layer: int,
+    mesh=None,
 ) -> None:
     """Token-granular rectangle writes: columns ``>= n_tokens`` and
     positions past the table go to trash page 0 (the packed writer over
@@ -136,7 +141,7 @@ def write_spec_kv(
     valid = (cols[None, :] < n_tokens.long()[:, None]).reshape(-1)
     write_packed_kv(
         kv_pages, k.flatten(0, 1), v.flatten(0, 1), page_table, lane, pos,
-        valid, layer,
+        valid, layer, mesh,
     )
 
 
@@ -148,6 +153,7 @@ def write_decode_kv(
     positions: torch.Tensor,  # [B] position the token lands at
     layer: int,
     write: Optional[torch.Tensor] = None,  # [] or [B] bool; False -> page 0
+    mesh=None,
 ) -> None:
     """One token per lane.  A lane frozen at its capacity (``page_idx ==
     P``) lands on trash page 0, never clamped into its own last page, and
@@ -162,7 +168,7 @@ def write_decode_kv(
         ok = ok & write
     ids = torch.where(ok, ids, 0)
     slot = torch.where(ok, positions % page_size, 0)
-    _scatter_rows(kv_pages, layer, ids, slot, k, v)
+    _scatter_rows(kv_pages, layer, ids, slot, k, v, mesh)
 
 
 def _same_dtype(q: torch.Tensor, kv_pages: torch.Tensor) -> None:

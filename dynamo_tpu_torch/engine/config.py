@@ -56,6 +56,37 @@ class ModelConfig:
     def is_moe(self) -> bool:
         return self.num_experts > 0
 
+    def validate_tp(self, tp: int) -> None:
+        """The JAX package's check, with its messages: a tensor-parallel
+        degree must divide the query heads (the column-parallel q/k/v
+        split) and the kv heads (a pool that replicated across the tp
+        group would pay a gather on every decode step; the engine carries
+        no head replication)."""
+        if tp <= 1:
+            return
+        if self.num_heads % tp:
+            raise ValueError(
+                f"tp={tp} does not divide num_heads={self.num_heads}"
+            )
+        if self.num_kv_heads % tp:
+            raise ValueError(
+                f"tp={tp} does not divide num_kv_heads={self.num_kv_heads}: "
+                "the paged KV pool would replicate across the tp group and "
+                "every decode step would pay a cross-chip gather"
+            )
+
+    def validate_ep(self, ep: int) -> None:
+        """The port's own check: an MoE model's expert-parallel degree
+        must divide its experts, so each ep rank holds ``E/ep`` of them
+        (the JAX package replicates experts an ``ep`` does not divide; the
+        port carries no expert replication).  A dense model has no experts
+        to split: its ep ranks repeat the tp row's work."""
+        if ep > 1 and self.is_moe and self.num_experts % ep:
+            raise ValueError(
+                f"ep={ep} does not divide num_experts={self.num_experts}: each "
+                "expert-parallel rank holds an equal share of the experts"
+            )
+
     @classmethod
     def tiny(cls, **overrides: Any) -> "ModelConfig":
         """A CI-sized config: runs in milliseconds on CPU, same code paths."""
@@ -244,8 +275,8 @@ class EngineConfig:
     """The engine's knobs: the JAX package's ``EngineConfig`` fields, names
     and defaults, so a JAX config constructs here
     (``EngineConfig(**dataclasses.asdict(jax_cfg))``).  Values the port
-    does not serve (``tp`` or ``dp`` above 1, a ``dtype`` other than the
-    model's) are refused at engine construction, by name.
+    does not serve (``dp`` above 1, a ``dtype`` other than the model's)
+    are refused at engine construction, by name.
 
     ``seed`` is the start of the per-request nonce stream that keys the
     sampling noise of unseeded lanes: the n-th request an engine admits
@@ -288,7 +319,9 @@ class EngineConfig:
     # the dense KV pool's dtype: None or the model's dtype; another dtype is
     # refused (``kv_dtype`` names the pool when set)
     dtype: Optional[str] = None
-    # tensor and data parallelism: 1 only (multi-GPU serving is not ported)
+    # tensor parallelism: the engine starts tp ranks of its own (one
+    # process each; DYN_TP wins).  Data parallelism inside one engine: 1
+    # only (refused by name)
     tp: int = 1
     dp: int = 1
     # total fresh tokens per unified dispatch: decode lanes cost one each,

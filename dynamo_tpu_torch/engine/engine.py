@@ -147,8 +147,29 @@ queue-versus-service split, ``engine.prefill_dispatch`` and ``engine.spec``
 spans record with tracing on, and ``status()`` is the flight recorder's
 ``engine`` provider while the engine runs.
 
-Not served yet (later slices): tensor/data parallelism, and CUDA graphs
-for dispatches that carry prefill chunks or verify columns.
+Tensor and expert parallelism (``parallel/``): with ``EngineConfig.tp``
+(or ``DYN_TP``) above 1, or a ``mesh`` (a ``parallel.MeshConfig`` of tp
+and ep, or a ``ParallelMesh`` whose followers the caller runs), the
+engine is the leader of a grid of ranks, one process each.  It starts this
+host's followers itself for a ``MeshConfig``; each holds its shard of the
+params and of the KV pool (``[L, 2, pages, page, Hkv/tp, D]``), and every
+trunk call of every dispatch reaches them first through the dispatch
+mirror (``parallel/sharding.py``).  The scheduler, the decode state, the
+sampling, the commits and the front end stay here; the followers keep no
+lane state, so no host write needs mirroring.  An export gathers every
+rank's head slice into the full-width blob, stamped with its shard
+geometry.  The ranks' collectives are gloo's, which a CUDA graph cannot
+capture, so on a mesh every dispatch runs eagerly; NCCL ranks (one card
+each) are refused by name (``parallel.mesh``).  A collective that fails
+(a rank lost) fails the requests in flight and stops the engine.  Under
+tp or ep the engine refuses, by name, what the mirror does not carry yet:
+the KV offload plane (and swap preemption and prefix onboarding over it),
+the G4 remote tier, importing a remote prefill's KV and the model
+drafter.
+
+Not served yet (later slices): NCCL ranks, data parallelism inside one
+engine, the ring (sp) and pipeline (pp) prefills, and CUDA graphs for
+dispatches that carry prefill chunks or verify columns.
 
 The serving-environment overrides the JAX engine reads at construction
 are read here too, with its parse, for the features the port has:
@@ -288,19 +309,65 @@ def _env_override(name: str, value: Any, parse) -> Any:
 
 def _refuse_unserved(cfg: EngineConfig, model_dtype: str) -> None:
     """Refuse, by field name, the JAX config values the port does not
-    serve: tensor or data parallelism, and a dense pool dtype other than
-    the model's (the kernels read one dtype)."""
-    for name in ("tp", "dp"):
-        v = getattr(cfg, name)
-        if v != 1:
-            raise ValueError(
-                f"EngineConfig.{name}={v!r}: multi-GPU serving is not ported (1 only)"
-            )
+    serve: data parallelism inside one engine, and a dense pool dtype
+    other than the model's (the kernels read one dtype)."""
+    if cfg.dp != 1:
+        raise ValueError(
+            f"EngineConfig.dp={cfg.dp!r}: data parallelism inside one engine is not "
+            "served by the port yet (1 only)"
+        )
     if cfg.dtype is not None and cfg.dtype != model_dtype:
         raise ValueError(
             f"EngineConfig.dtype={cfg.dtype!r}: a KV pool of another dtype than "
             f"the model's ({model_dtype}) is not served"
         )
+
+
+def _refuse_under_mesh(cfg: EngineConfig, tp: int, ep: int) -> None:
+    """What a tensor- or expert-parallel engine does not carry yet, refused
+    by field name before any rank starts: the KV offload plane (swap
+    preemption and prefix onboarding ride on it), the G4 remote tier and
+    the model drafter."""
+    where = f"EngineConfig.tp={tp}" if tp > 1 else f"ep={ep}"
+    offload = _env_override("DYN_KV_OFFLOAD", None, _parse_offload_spec)
+    host, disk = (offload["host"], offload["disk"]) if offload else (
+        cfg.host_offload_blocks, cfg.disk_offload_blocks
+    )
+    checks = [
+        ("host_offload_blocks", host, "the KV offload plane (and swap preemption over it)"),
+        ("disk_offload_blocks", disk, "the KV offload plane (and swap preemption over it)"),
+        ("kv_remote", cfg.kv_remote or os.environ.get("DYN_KV_REMOTE"),
+         "prefix onboarding's G4 remote tier"),
+        ("draft_model", _env_override("DYN_DRAFT_MODEL", cfg.draft_model, _parse_draft_model),
+         "the model drafter"),
+    ]
+    for name, value, what in checks:
+        if value and str(value).strip().lower() not in ("0", "off", "none"):
+            raise ValueError(
+                f"{where} with {name}={value!r}: {what} is not served under tensor "
+                "or expert parallelism yet"
+            )
+
+
+def resolve_mesh(cfg: Optional[EngineConfig], model_cfg: ModelConfig):
+    """The engine-startup grid (a ``parallel.MeshConfig``) from
+    ``EngineConfig.tp`` and ``DYN_TP``/``DYN_DP`` (a set variable wins, a
+    malformed one raises), or None at tp = 1: the JAX engine's
+    ``resolve_mesh``, its tp validated against the model's heads before
+    any rank starts.  Data parallelism inside one engine is refused."""
+    from ..parallel.mesh import env_parallel_spec, serving_mesh
+
+    cfg = cfg or EngineConfig()
+    env = env_parallel_spec()
+    tp = env["tp"] if env["tp"] is not None else cfg.tp
+    dp = env["dp"] if env["dp"] is not None else cfg.dp
+    if dp > 1:
+        raise ValueError(
+            f"EngineConfig.dp={dp}: data parallelism inside one engine is not served "
+            "by the port yet (1 only)"
+        )
+    model_cfg.validate_tp(tp)
+    return serving_mesh(tp=tp)
 
 
 def _kv_admit(cfg: EngineConfig):
@@ -337,14 +404,70 @@ def _parse_draft_model(raw: str) -> Optional[str]:
     return None if raw.lower() in ("0", "off", "none") else raw
 
 
-def check_model_geometry(model_cfg: ModelConfig, device: torch.device) -> None:
-    """Refuse a model whose head geometry the device's kernels do not take
-    (``check_geometry``, the wrappers' own rule): at construction, not at
-    the first dispatch.  The CPU serves any geometry."""
+def check_model_geometry(model_cfg: ModelConfig, device: torch.device, tp: int = 1) -> None:
+    """Refuse a model whose head geometry -- a rank's, ``Hq/tp`` and
+    ``Hkv/tp``, under tensor parallelism -- the device's kernels do not
+    take (``check_geometry``, the wrappers' own rule): at construction,
+    not at the first dispatch.  The CPU serves any geometry."""
     check_geometry(
-        device, torch_dtype(model_cfg.dtype), model_cfg.num_heads,
-        model_cfg.num_kv_heads, model_cfg.head_dim,
+        device, torch_dtype(model_cfg.dtype), model_cfg.num_heads // tp,
+        model_cfg.num_kv_heads // tp, model_cfg.head_dim,
     )
+
+
+def _mesh_config_of(mesh: Any, cfg: Optional[EngineConfig], model_cfg: ModelConfig):
+    """(grid to start, built mesh): a ``MeshConfig`` the engine starts
+    ranks for (given, or from ``resolve_mesh``), or a ``ParallelMesh``
+    whose followers the caller runs."""
+    from ..parallel.mesh import MeshConfig, refuse_unserved_axes
+
+    if mesh is None:
+        return resolve_mesh(cfg, model_cfg), None
+    if isinstance(mesh, MeshConfig):
+        refuse_unserved_axes(mesh)
+        model_cfg.validate_tp(mesh.tp)
+        model_cfg.validate_ep(mesh.ep)
+        return (mesh if mesh.num_devices > 1 else None), None
+    model_cfg.validate_tp(mesh.tp)
+    model_cfg.validate_ep(mesh.ep)
+    return None, mesh
+
+
+def start_ranks(
+    mesh_cfg: Any,
+    model_cfg: ModelConfig,
+    cfg: EngineConfig,
+    device: torch.device,
+    source: Dict[str, Any],
+):
+    """Start this host's follower ranks of ``mesh_cfg`` (gloo, on the CPU)
+    and build the leader's mesh.  Returns ``(mesh, ranks)``; the engine
+    announces itself to them after.  On the card the ranks would be NCCL's,
+    one card each: refused by name (``parallel.mesh.check_devices``)."""
+    from ..parallel.launch import grid_spec, leader_mesh, start_local_ranks
+
+    _refuse_under_mesh(cfg, mesh_cfg.tp, mesh_cfg.ep)
+    check_model_geometry(model_cfg, device, mesh_cfg.tp)
+    world = mesh_cfg.num_devices
+    if device.type == "cuda":
+        from ..parallel.mesh import check_devices
+
+        check_devices(world, "nccl")
+    spec = grid_spec(mesh_cfg, [str(device)] * world, "gloo")
+    ranks = start_local_ranks(mesh_cfg, spec)
+    return leader_mesh(mesh_cfg, spec, ranks), ranks
+
+
+def announce_engine(mesh, model_cfg: ModelConfig, cfg: EngineConfig, source: Dict[str, Any]) -> None:
+    """The next engine's spec to the mesh's followers (they build their
+    params from ``source`` and their pool, then serve it)."""
+    from ..parallel.launch import announce, engine_spec
+
+    kv_dtype = _env_override("DYN_KV_DTYPE", parse_kv_dtype(cfg.kv_dtype), parse_kv_dtype)
+    announce(mesh, engine_spec(
+        model_cfg, num_pages=cfg.num_pages, page_size=cfg.page_size,
+        quantized_pool=pool_is_quantized(kv_dtype, model_cfg.dtype), source=source,
+    ))
 
 
 # -- dispatched-but-uncommitted work ----------------------------------------
@@ -528,6 +651,9 @@ class KVExportStream:
     dtype: str
     row: np.ndarray  # packed [2 + 2N] (token | logprob | tops)
     spans: List[Tuple[int, int]]  # per-chunk [layer_lo, layer_hi)
+    # the source pool's shard geometry ({"axis": 4, "parts": tp}) or None:
+    # the blob itself is full width either way
+    shards: Optional[Dict[str, int]] = None
     started_at: float = 0.0
     first_ready_at: Optional[float] = None
     last_ready_at: Optional[float] = None
@@ -628,21 +754,41 @@ class TorchEngine:
         cfg: Optional[EngineConfig] = None,
         device: Optional[Union[str, torch.device]] = None,
         metrics_registry=None,  # runtime.metrics.MetricsRegistry | None
+        mesh: Any = None,  # parallel.MeshConfig | parallel.ParallelMesh | None
+        _ranks: Any = None,  # parallel.launch.LocalRanks this engine started
     ) -> None:
         self.device = resolve_device(device)
-        check_model_geometry(model_cfg, self.device)
         self.model_cfg = model_cfg
         self.cfg = cfg or EngineConfig()
         self.params = params
         self.dtype = torch_dtype(model_cfg.dtype)
         c = self.cfg
         _refuse_unserved(c, model_cfg.dtype)
-        if c.quantize is not None:
+        mesh_cfg, mesh = _mesh_config_of(mesh, c, model_cfg)
+        self._ranks = _ranks
+        self.mesh = mesh
+        self.mesh_error: Optional[str] = None
+        tp = (mesh or mesh_cfg).tp if (mesh or mesh_cfg) is not None else 1
+        check_model_geometry(model_cfg, self.device, tp)
+        if c.quantize is not None and c.quantize != "int8":
+            raise ValueError(f"unsupported quantize={c.quantize!r} (int8 only)")
+        if c.quantize is not None and not hasattr(params, "mesh"):
             # before any pool is allocated: the int8 weights and the
-            # one-slice f32 transient of the rounding come first
-            if c.quantize != "int8":
-                raise ValueError(f"unsupported quantize={c.quantize!r} (int8 only)")
+            # one-slice f32 transient of the rounding come first (whole,
+            # before sharding: a row-parallel weight's scales are its
+            # whole rows')
             self.params = quantize_params(params, self.dtype)
+        if mesh_cfg is not None:
+            # the engine's own ranks; the whole params go out leaf by leaf
+            self.mesh, self._ranks = start_ranks(
+                mesh_cfg, model_cfg, c, self.device, {"kind": "scatter"}
+            )
+        if self.mesh is not None:
+            try:
+                self._init_mesh()
+            except BaseException:
+                self._close_mesh()
+                raise
         self.kv_dtype = _env_override(
             "DYN_KV_DTYPE", parse_kv_dtype(c.kv_dtype), parse_kv_dtype
         )
@@ -663,7 +809,8 @@ class TorchEngine:
         self.kv = PagedKVCache(
             model_cfg, c.num_pages, c.page_size, self.dtype, self.device,
             quantized=pool_is_quantized(self.kv_dtype, model_cfg.dtype),
-            allocator=pool,
+            allocator=pool, kv_heads=model_cfg.num_kv_heads // tp,
+            shard_geometry=self._shard_geometry(),
         )
         self.sched = Scheduler(
             SchedulerConfig(
@@ -760,7 +907,8 @@ class TorchEngine:
         self._packed_shapes = PackedShapeBudget(
             _env_override("DYN_PACKED_SHAPE_BUDGET", PACKED_SHAPE_BUDGET, int)
         )
-        self.graphs = StepGraphs(self.device)
+        # a mesh runs every dispatch eagerly (its collectives are gloo's)
+        self.graphs = StepGraphs(self.device, enabled=self.mesh is None)
         # lanes whose classic chunked prefill is under way (one chunk per tick)
         self._chunking: List[SeqState] = []
         # unseeded lanes key their noise on a per-request nonce, counted
@@ -818,6 +966,134 @@ class TorchEngine:
         self.profiler = profiling.profiler
         self._tick: Optional[Any] = None
         self._hop_tick: Optional[Any] = None
+        if self.mesh is not None:
+            try:
+                # every rank built its shard and pool: the followers serve
+                self.mesh.gather_objects({"rank": 0, "ready": True})
+            except BaseException:
+                self._close_mesh()
+                raise
+
+    # -- tensor and expert parallelism ----------------------------------------
+
+    def _init_mesh(self) -> None:
+        """The leader's shard (the whole params scattered, unless a rank
+        recipe built it already) and its dispatch mirror."""
+        from ..parallel.sharding import DispatchMirror, build_rank_params
+
+        mesh = self.mesh
+        _refuse_under_mesh(self.cfg, mesh.tp, mesh.ep)
+        if not hasattr(self.params, "mesh"):
+            announce_engine(mesh, self.model_cfg, self.cfg, {"kind": "scatter"})
+            self.params = build_rank_params(
+                {"kind": "scatter"}, self.model_cfg, mesh, self.dtype, whole=self.params
+            )
+        self.params.mirror = DispatchMirror(mesh)
+        logger.info(
+            "leader of a tp=%d ep=%d grid over %s (%s; no graphs: eager dispatches)",
+            mesh.tp, mesh.ep, mesh.backend, mesh.device,
+        )
+
+    def _shard_geometry(self) -> Optional[Dict[str, int]]:
+        from ..parallel.sharding import kv_shard_geometry
+
+        return kv_shard_geometry(self.mesh, self.model_cfg) if self.mesh is not None else None
+
+    def _close_mesh(self) -> None:
+        """End this engine on the followers.  Ranks this engine started
+        are dismissed, joined (then killed if still alive) and the mesh
+        closed; a caller's mesh stays open, its followers waiting for the
+        next engine."""
+        from ..parallel.launch import dismiss
+
+        mirror = getattr(self.params, "mirror", None)
+        try:
+            if mirror is not None:
+                mirror.stop()
+            if self._ranks is not None:
+                dismiss(self.mesh)
+        except Exception:  # a follower already gone
+            pass
+        if self._ranks is not None:
+            # the groups close on both sides at once, then the processes end
+            self.mesh.close()
+            self._ranks.join()
+            self._ranks = None
+
+    def _mesh_lost(self, message: str) -> None:
+        """A collective failed: a rank is gone or its group broke.  The
+        engine stops; later requests fail at once with the cause."""
+        self.mesh_error = message
+        self._running = False
+        mirror = getattr(self.params, "mirror", None)
+        if mirror is not None:
+            mirror.closed = True
+        if self._ranks is not None:
+            self._ranks.kill()
+
+    def _refuse_on_mesh(self, what: str) -> None:
+        if self.mesh is not None:
+            raise ValueError(
+                f"{what} is not served under tensor or expert parallelism yet "
+                f"(tp={self.mesh.tp}, ep={self.mesh.ep})"
+            )
+
+    def _on_ranks(self, fn, *args):
+        """``fn`` on the executor thread, in order with the dispatches."""
+        return self._ex.submit(fn, *args).result()
+
+    def rank_stats(self) -> List[Dict[str, Any]]:
+        """Every rank's kernel launches, collectives, graphs and peak device
+        memory (``parallel.sharding.rank_stats``), in rank order; one card:
+        a list of none."""
+        if self.mesh is None:
+            return []
+        from ..parallel.sharding import rank_stats
+
+        def read():
+            own = rank_stats(self.mesh, {
+                "captures": self.graphs.captures,
+                "replays": sum(self.graphs.replays.values()),
+            }, self.params)
+            return self.params.mirror.rank_stats(own)
+
+        return self._on_ranks(read)
+
+    def reset_rank_stats(self) -> None:
+        """Zero every rank's launch, collective and peak-memory counters."""
+        if self.mesh is None:
+            return
+        from ..parallel.sharding import reset_rank_stats
+
+        def reset():
+            self.params.mirror.reset_stats()
+            reset_rank_stats(self.mesh)
+
+        self._on_ranks(reset)
+
+    def rank_pools(self) -> List[Any]:
+        """Every rank's whole KV pool on the host (a tensor, or the int8
+        pool's ``(data, scales)``), in rank order."""
+        if self.mesh is None:
+            from ..parallel.sharding import _host_pool
+
+            return [self._on_ranks(_host_pool, self.kv.pages)]
+        return self._on_ranks(self.params.mirror.rank_pools, self.kv.pages)
+
+    def _gather_pages(self, ids: torch.Tensor, layer_ids: Optional[torch.Tensor] = None):
+        """Pages ``ids`` (of layers ``layer_ids``, else all) of the pool,
+        full width: every tp rank's head slice under tensor parallelism."""
+        mirror = getattr(self.params, "mirror", None)
+        if mirror is not None:
+            return mirror.gather_pages(self.kv.pages, ids, layer_ids)
+        if layer_ids is None:
+            return gather_block_pages(self.kv.pages, ids)
+        return gather_layer_pages(self.kv.pages, layer_ids, ids)
+
+    def _export_shape(self) -> Tuple[int, ...]:
+        """``[L, 2, pages, page, Hkv, D]`` of the pool at full width."""
+        shape = blob_shape(self.kv.pages)
+        return shape[:4] + (self.model_cfg.num_kv_heads,) + shape[5:]
 
     def _init_offload(self, registry) -> None:
         """The G2/G3 offload plane (``offload.KVOffloadEngine``), armed by
@@ -892,17 +1168,48 @@ class TorchEngine:
         cfg: Optional[EngineConfig] = None,
         seed: int = 0,
         device: Optional[Union[str, torch.device]] = None,
+        mesh: Any = None,
     ) -> "TorchEngine":
         """An engine over random weights made on ``device`` from ``seed``;
         under ``cfg.quantize="int8"`` each layer is quantized as it is
-        made, so only the int8 model ever stands on the card."""
+        made, so only the int8 model ever stands on the card.  Under tensor
+        or expert parallelism every rank draws the same stream and keeps
+        its slice (``mesh`` as the constructor takes it)."""
         device = resolve_device(device)
+        quantize = cfg.quantize if cfg is not None else None
+        source = {"kind": "random", "seed": seed, "quantize": quantize}
+        sharded = cls._rank_start(model_cfg, cfg, device, mesh, source)
+        if sharded is not None:
+            return cls(model_cfg, sharded[0], cfg, device=device, mesh=sharded[1],
+                       _ranks=sharded[2])
         check_model_geometry(model_cfg, device)
-        params = init_params(
-            model_cfg, seed, device, torch_dtype(model_cfg.dtype),
-            quantize=cfg.quantize if cfg is not None else None,
-        )
+        params = init_params(model_cfg, seed, device, torch_dtype(model_cfg.dtype),
+                             quantize=quantize)
         return cls(model_cfg, params, cfg, device=device)
+
+    @classmethod
+    def _rank_start(cls, model_cfg, cfg, device, mesh, source):
+        """Under tensor or expert parallelism: ``(leader params, mesh,
+        ranks)`` with every rank's params built from ``source`` (the
+        engine's own ranks started first for a grid it owns); None on one
+        card."""
+        from ..parallel.sharding import build_rank_params
+
+        cfg = cfg or EngineConfig()
+        mesh_cfg, built = _mesh_config_of(mesh, cfg, model_cfg)
+        ranks = None
+        if mesh_cfg is not None:
+            built, ranks = start_ranks(mesh_cfg, model_cfg, cfg, device, source)
+        if built is None:
+            return None
+        try:
+            announce_engine(built, model_cfg, cfg, source)
+            params = build_rank_params(source, model_cfg, built, torch_dtype(model_cfg.dtype))
+        except BaseException:
+            if ranks is not None:
+                ranks.kill()
+            raise
+        return params, built, ranks
 
     @classmethod
     def from_pretrained(
@@ -911,6 +1218,7 @@ class TorchEngine:
         cfg: Optional[EngineConfig] = None,
         device: Optional[Union[str, torch.device]] = None,
         model_cfg: Optional[ModelConfig] = None,
+        mesh: Any = None,
     ) -> "TorchEngine":
         """An engine over a checkpoint: a HuggingFace directory
         (``config.json`` and ``*.safetensors``) or a GGUF checkpoint (a
@@ -918,16 +1226,22 @@ class TorchEngine:
         loaded leaf by leaf onto ``device``; the geometry is checked before
         any weight is read.  ``model_cfg``, as the JAX engine's, stands in
         for the checkpoint's own config (a caller that parsed it already,
-        or one that loads in another dtype)."""
+        or one that loads in another dtype).  Under tensor or expert
+        parallelism every rank reads its own slices (``mesh`` as the
+        constructor takes it)."""
         from .weights import load_checkpoint_params
 
         device = resolve_device(device)
         if model_cfg is None:
             model_cfg = ModelConfig.from_pretrained(model_path)
+        quantize = cfg.quantize if cfg is not None else None
+        source = {"kind": "pretrained", "path": model_path, "quantize": quantize}
+        sharded = cls._rank_start(model_cfg, cfg, device, mesh, source)
+        if sharded is not None:
+            return cls(model_cfg, sharded[0], cfg, device=device, mesh=sharded[1],
+                       _ranks=sharded[2])
         check_model_geometry(model_cfg, device)
-        params = load_checkpoint_params(
-            model_path, model_cfg, device, quantize=cfg.quantize if cfg is not None else None
-        )
+        params = load_checkpoint_params(model_path, model_cfg, device, quantize=quantize)
         return cls(model_cfg, params, cfg, device=device)
 
     # -- lifecycle ----------------------------------------------------------
@@ -982,13 +1296,28 @@ class TorchEngine:
         )
         if not self._stopped:
             self._stopped = True
-            self._ex.submit(self._drain_spans, True).result()
-            self._ex.submit(self._settle_onboards, True).result()
-            self._ex.shutdown(wait=True)
+            # on a mesh the device's queue holds collectives its peers must
+            # meet: the drain is bounded by the groups' timeout, and a
+            # drain that does not end is reported, not waited for
+            bound = self.mesh.timeout.total_seconds() if self.mesh is not None else None
+            try:
+                self._ex.submit(self._drain_spans, True).result(timeout=bound)
+                self._ex.submit(self._settle_onboards, True).result(timeout=bound)
+                drained = True
+            except concurrent.futures.TimeoutError:
+                drained = False
+                self.mesh_error = self.mesh_error or (
+                    f"stop: the device did not drain within {bound:.0f} s"
+                )
+                logger.error("engine %s", self.mesh_error)
+            self._ex.shutdown(wait=drained)
+            if self.mesh is not None:
+                self._close_mesh()
             if self.offload_engine is not None:
                 self.offload_engine.close()
-            # the matmul workspaces this engine's thread and streams made
-            release_blas_workspaces(self.device)
+            if drained:
+                # the matmul workspaces this engine's thread and streams made
+                release_blas_workspaces(self.device)
 
     # -- AsyncEngine --------------------------------------------------------
 
@@ -996,13 +1325,17 @@ class TorchEngine:
         self, request: Context[Any], _external: bool = False
     ) -> AsyncIterator[Annotated]:
         """Token-level generate; yields Annotated[LLMEngineOutput-dict]."""
-        if not self._running:
-            await self.start()
         data = request.data
         req = PreprocessedRequest.from_dict(data) if isinstance(data, dict) else data
         ctx = request.ctx
         message = None
+        if self.mesh_error is not None:
+            message = f"engine stopped: {self.mesh_error}"
+        elif not self._running:
+            await self.start()
         try:
+            if message is not None:
+                raise ValueError(message)
             seq = SeqState.from_request(request.id, req, self.sched.block_size)
             mm = seq.mm_embeds
             if mm is not None and (mm.ndim != 2 or mm.shape[1] != self.model_cfg.hidden_size):
@@ -1478,6 +1811,11 @@ class TorchEngine:
                 self._chunking = []
                 sched.mix_pending = []
                 self._fail_all(f"engine error: {e}")
+                if self.mesh is not None:
+                    # a collective failed: the ranks' pools can no longer
+                    # be trusted to match the leader's
+                    self._mesh_lost(f"{type(e).__name__}: {e}")
+                    return
                 self._firsts_last_tick = False
                 self._dev_valid = False  # full rebuild once work resumes
                 sched.dirty_slots.clear()
@@ -3053,6 +3391,7 @@ class TorchEngine:
     async def generate_external(self, request: Context[Any]) -> AsyncIterator[Annotated]:
         """Admit a request whose prompt KV a remote prefill worker delivers;
         the lane holds pages but decodes only after deliver_external."""
+        self._refuse_on_mesh("importing a remote prefill's KV (--disagg decode)")
         return await self.generate(request, _external=True)
 
     def awaiting_external(self, request_id: str) -> bool:
@@ -3491,7 +3830,7 @@ class TorchEngine:
         def export_one(group: List[int], results: List[Any]) -> None:
             allocated, rows, ids = self._export_dispatch(reqs, group)
             try:
-                dev = gather_block_pages(self.kv.pages, ids)
+                dev = self._gather_pages(ids)
                 pages = dev if device else PageSnapshot(dev)
             finally:
                 for p in allocated:
@@ -3527,7 +3866,7 @@ class TorchEngine:
         def wait_rows() -> List[Any]:
             return [p if isinstance(p, Exception) else p.rows.numpy()[p.row] for p in pending]
 
-        shape = blob_shape(self.kv.pages)
+        shape = self._export_shape()
         out: List[Any] = []
         for p, row in zip(pending, await asyncio.to_thread(wait_rows)):
             if isinstance(p, Exception):
@@ -3535,7 +3874,8 @@ class TorchEngine:
                 continue
             out.append(KVExportStream(
                 shape=shape[:2] + (p.n,) + shape[3:], dtype=dtype_name(self.kv.dtype),
-                row=row, spans=spans, _group=p.pages, _page_off=p.off,
+                row=row, spans=spans, shards=self.kv.shard_geometry,
+                _group=p.pages, _page_off=p.off,
             ))
         return out
 
@@ -3546,8 +3886,8 @@ class TorchEngine:
             allocated, rows, ids = self._export_dispatch(reqs, group)
             try:
                 shared = _GroupSpanExport([
-                    PageSnapshot(gather_layer_pages(
-                        self.kv.pages, self._put(np.arange(lo, hi, dtype=np.int64)), ids
+                    PageSnapshot(self._gather_pages(
+                        ids, self._put(np.arange(lo, hi, dtype=np.int64))
                     ))
                     for lo, hi in spans
                 ])
@@ -3568,7 +3908,8 @@ class TorchEngine:
     ) -> List[Tuple[int, Any, Dict[str, Any]]]:
         """Export the longest resident prefix of ``seq_hashes`` as ``(hash,
         blob, meta)`` triples -- the donor side of cross-worker prefix
-        onboarding (reference block_manager.rs:119-146 blockset export and
+        onboarding (refused under tensor or expert parallelism; reference
+        block_manager.rs:119-146 blockset export and
         import).  The G1 blocks come first, in one gather of all their
         pages; the offload tiers fill the tail; the chain stops at the first
         miss, because an importer can only use a contiguous prefix.  Blobs
@@ -3582,6 +3923,7 @@ class TorchEngine:
         the blocks are released once it is enqueued.  The wait for the
         gather's host copy and the tier reads -- which wait on the offload
         and kv-remote threads -- run off the loop."""
+        self._refuse_on_mesh("prefix onboarding's block export")
         if not self._running:
             await self.start()
         pool = self.sched.pool
@@ -4071,6 +4413,7 @@ class TorchEngine:
             "swapped": len(self._swapped),
             "external_parked": len(self._external),
             "tokens_generated": self._tokens_generated,
+            **({"mesh": self.mesh.describe()} if self.mesh is not None else {}),
         }
 
     # -- events -------------------------------------------------------------

@@ -50,6 +50,10 @@ budget in ``GRAPH_BUDGET`` -- the JAX engine's per-jit ``COMPILE_BUDGET``
 
 On the CPU there are no graphs: the same call runs eagerly.  On the card
 a capture or replay error raises; nothing falls back to eager.
+
+An engine on a tensor- or expert-parallel mesh gets ``enabled=False``:
+its collectives (gloo's) cannot be captured, so every step runs eagerly
+there, and no graph is counted.
 """
 
 from __future__ import annotations
@@ -111,8 +115,10 @@ class _Graph:
 class StepGraphs:
     """The captured decode graphs of one engine, by key."""
 
-    def __init__(self, device: torch.device) -> None:
+    def __init__(self, device: torch.device, enabled: bool = True) -> None:
         self.device = device
+        # a mesh, whose collectives cannot be captured, runs every step eagerly
+        self.enabled = enabled and device.type == "cuda"
         self.captures = 0
         # host wall time of the captures, their eager warm-ups included
         # (``torch.cuda.graph`` synchronizes the device as it begins)
@@ -131,8 +137,10 @@ class StepGraphs:
         """Run one step: ``inputs`` are host tensors (pinned on the
         card).  On the CPU ``call`` runs on them eagerly; on the card the
         key's graph replays, or is captured after an eager first run."""
-        if self.device.type != "cuda":
-            return call(tuple(inputs))
+        if not self.enabled:
+            if self.device.type != "cuda":
+                return call(tuple(inputs))
+            return call(tuple(x.to(self.device, non_blocking=True) for x in inputs))
         g = self._graphs.get(key)
         if g is None:
             return self._capture(kind, key, inputs, call)

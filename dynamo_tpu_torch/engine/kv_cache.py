@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
-from typing import Any, List, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -130,16 +130,20 @@ def pool_is_quantized(kv_dtype: Optional[str], model_dtype: str) -> bool:
     )
 
 
-def quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_kv_rows(x: torch.Tensor, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-row int8 over the trailing (heads, head_dim) axes:
     ``x [..., Hkv, D]`` gives ``(q int8 [..., Hkv, D], s f32 [...])`` with
     ``s = amax / 127`` (1 for an all-zero row) and ``q = clip(round(x /
     s), -127, 127)``, rounding half to even.  The JAX package's rule, bit
     for bit, on either device: the divisor is a tensor because CUDA
     divides by a Python scalar as a product with its reciprocal, which is
-    off by an ulp."""
+    off by an ulp.  On a tensor-parallel ``mesh`` a rank holds a slice of
+    each row's heads, and the row's amax is the max over the tp group's
+    slices: the scale of the whole row, as one card has it."""
     xf = x.float()
     amax = xf.abs().amax(dim=(-2, -1))
+    if mesh is not None:
+        amax = mesh.all_reduce(amax.contiguous(), over="tp", op="max")
     s = torch.where(amax > 0, amax / torch.full_like(amax, 127.0), torch.ones_like(amax))
     q = torch.round(xf / s[..., None, None]).clamp(-127, 127).to(torch.int8)
     return q, s
@@ -198,8 +202,14 @@ class PagedKVCache:
         device: torch.device,
         quantized: bool = False,
         allocator: Optional[Union[PagePool, PageAllocator]] = None,
+        kv_heads: Optional[int] = None,
+        shard_geometry: Optional[Dict[str, int]] = None,
     ) -> None:
         self.cfg = cfg
+        # a tensor-parallel rank holds kv heads ``Hkv / tp`` of every row
+        # (``shard_geometry``: {"axis": 4, "parts": tp}, JAX's form)
+        self.kv_heads = cfg.num_kv_heads if kv_heads is None else kv_heads
+        self.shard_geometry = shard_geometry
         self.num_pages = num_pages
         self.page_size = page_size
         self.quantized = quantized
@@ -210,7 +220,7 @@ class PagedKVCache:
             2,
             num_pages,
             page_size,
-            cfg.num_kv_heads,
+            self.kv_heads,
             cfg.head_dim,
         )
         data = torch.zeros(shape, dtype=self.dtype, device=device)
@@ -225,7 +235,7 @@ class PagedKVCache:
         """Device bytes per pool page, scale rows included."""
         c = self.cfg
         rows = c.num_layers * 2 * self.page_size
-        n = rows * c.num_kv_heads * c.head_dim * self.dtype.itemsize
+        n = rows * self.kv_heads * c.head_dim * self.dtype.itemsize
         return n + rows * 4 if self.quantized else n
 
     @property

@@ -12,14 +12,17 @@ Params and KV are byte-exact; activation scratch is a bound, sized from
 the dominant live tensors of a prefill dispatch, as in the JAX package.
 One term is the port's own: ``quant.mat`` writes each int8 weight out in
 the compute dtype before its product (XLA fuses that convert into the
-matmul's read), so an int8 plan adds ``dequant_bytes``, two copies of
-the largest per-layer weight (the cast and the scaled product live at
-once), to its total.
+matmul's read), so an int8 plan adds ``dequant_bytes``, one copy of the
+largest per-layer weight (the scale multiplies the cast in place), to its
+total.
 
 The card's memory comes from ``torch.cuda.mem_get_info()`` or from an
-explicit ``hbm_bytes``; there is no default card.  Only ``tp = ep = 1``
-is planned: the port serves one GPU, and sharded plans wait for the
-multi-GPU port (the JAX plan's divisors come from ``parallel.sharding``).
+explicit ``hbm_bytes``; there is no default card.  At ``tp`` or ``ep``
+above 1 the plan is one rank's, with the JAX plan's divisors: each leaf
+splits as ``parallel.sharding.param_pspecs`` splits it (an axis that does
+not divide stays whole), an int8 leaf's scales by their own shape (a
+row-parallel weight keeps its whole scales), the KV pool over kv heads,
+and the activation scratch over tp.
 """
 
 from __future__ import annotations
@@ -65,12 +68,21 @@ def _param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     return shapes
 
 
-def _refuse_sharding(tp: int, ep: int) -> None:
-    if tp != 1 or ep != 1:
-        raise NotImplementedError(
-            f"memory plans at tp={tp}, ep={ep} need the multi-GPU port, which "
-            "is not done (ROADMAP A6); the port plans one GPU (tp = ep = 1)"
-        )
+def _shard_divisor(path: str, shape: Tuple[int, ...], cfg: ModelConfig,
+                   tp: int, ep: int) -> int:
+    """How many ways the tensor splits on the grid, as ``param_pspecs``
+    and the divisibility rule place it (the JAX plan's divisor)."""
+    from ..parallel.sharding import param_pspecs
+
+    spec = param_pspecs(cfg).get(path)
+    if spec is None:
+        return 1
+    div = 1
+    for dim, axis in zip(shape, spec):
+        n = tp if axis == "tp" else ep if axis == "ep" else 1
+        if n > 1 and dim % n == 0:
+            div *= n
+    return div
 
 
 def _card_memory_bytes() -> int:
@@ -139,9 +151,8 @@ def plan_memory(
     hbm_bytes: Optional[int] = None,
     reserve_fraction: float = DEFAULT_RESERVE_FRACTION,
 ) -> MemoryPlan:
-    """Byte-exact params and KV, a bounded scratch estimate, on one card
+    """Byte-exact params and KV, a bounded scratch estimate, per rank
     (``hbm_bytes``, or the card's own memory when None)."""
-    _refuse_sharding(tp, ep)
     if quantize not in (None, "int8"):
         raise ValueError(f"unsupported quantize={quantize!r} (int8 only)")
     if hbm_bytes is None:
@@ -152,21 +163,25 @@ def plan_memory(
     dequant = 0
     for path, shape in _param_shapes(cfg).items():
         n = math.prod(shape)
+        div = _shard_divisor(path, shape, cfg, tp, ep)
         if quantize == "int8" and path in _QUANT_PATHS:
             # int8 body + one scale per output channel (the contracted
-            # axis -2 reduced to 1)
-            b = n + (n // shape[-2]) * wbytes
+            # axis -2 reduced to 1); the scales split by their own shape
+            sdiv = _shard_divisor(path, shape[:-2] + (1, shape[-1]), cfg, tp, ep)
+            b = n // div + ((n // shape[-2]) * wbytes) // sdiv
             # one layer's slice in the compute dtype at its point of use
             per_use = n // shape[0] if path.startswith("layers/") else n
-            dequant = max(dequant, 2 * per_use * wbytes)
+            dequant = max(dequant, (per_use // div) * wbytes)
         else:
-            b = n * wbytes
+            b = n * wbytes // div
         detail[path] = b
         pbytes += b
 
-    # KV pages [L, 2, pages, page, Hkv, D]
+    # KV pages [L, 2, pages, page, Hkv, D]; kv heads split over tp when
+    # they divide
+    kv_div = tp if tp > 1 and cfg.num_kv_heads % tp == 0 else 1
     bytes_per_page = (
-        cfg.num_layers * 2 * page_size * cfg.num_kv_heads * cfg.head_dim * wbytes
+        cfg.num_layers * 2 * page_size * (cfg.num_kv_heads // kv_div) * cfg.head_dim * wbytes
     )
     kv_bytes = bytes_per_page * num_pages
 
@@ -177,7 +192,7 @@ def plan_memory(
     act = 6 * B * T * H * wbytes
     heads = B * T * (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim * wbytes
     logits = B * cfg.vocab_size * 4 * 2  # f32 logits + softmax workspace
-    scratch = act + heads + logits
+    scratch = (act + heads) // max(tp, 1) + logits
 
     return MemoryPlan(
         param_bytes=pbytes,

@@ -18,6 +18,21 @@ dequantized there, a plain tensor passes as it is.
 Activations run on a flat token axis (``[T, H]``): every dispatch of the
 port's main path (packed unified step, decode step) is token-flat, so the
 JAX package's ``[B, T, H]`` batch axis has nothing to carry here.
+
+Tensor and expert parallelism (``parallel/``): a rank's params
+(``parallel.sharding.RankParams``) carry the mesh, and the trunk runs the
+collectives where the JAX package's shardings put them.  The embedding is
+split over the hidden axis, so its lookup is followed by an all-gather;
+q/k/v are column-parallel (a rank holds ``Hq/tp`` query and ``Hkv/tp`` kv
+heads, read off the weights' shapes), ``wo`` and the dense ``w_down`` are
+row-parallel and each followed by an all-reduce; the head is split over
+the vocabulary and its logits all-gathered (a tied head, split over the
+hidden axis with the embedding, all-reduces its partial logits).  An MoE
+layer's experts are split over ``ep`` (and each expert's columns and rows
+over ``tp``): every rank routes and slots all rows, so drops are those of
+one card, runs only its own experts' capacity slots and sums the layer's
+output over the whole grid with one all-reduce.  A plain params dict runs
+none of this.
 """
 
 from __future__ import annotations
@@ -73,6 +88,7 @@ def init_params(
     device: torch.device,
     dtype: Optional[torch.dtype] = None,
     quantize: Optional[str] = None,
+    shard: Optional[Any] = None,
 ) -> Params:
     """Random parameters made on ``device`` from ``seed`` (normal, scaled
     by 1/sqrt(fan_in) like the JAX package's ``init_params``; norms are
@@ -83,7 +99,12 @@ def init_params(
     quantizes as ``quant.QuantizedTensor`` leaves, each layer quantized as
     soon as it is drawn: the model never exists in ``dtype`` as a whole
     (Mixtral-8x7B holds about 93 GB in bf16 and 47 GB in int8).  The
-    values are those of ``quantize_params(init_params(...))``."""
+    values are those of ``quantize_params(init_params(...))``.
+
+    ``shard`` (a ``parallel.sharding.LeafSharder``) keeps one rank's
+    slice of every leaf: each layer is drawn whole, from the same stream,
+    (quantized whole,) and sliced, so a rank holds its shard and one
+    layer's transient."""
     if quantize not in (None, "int8"):
         raise ValueError(f"unsupported quantize={quantize!r} (int8 only)")
     dtype = dtype or torch_dtype(cfg.dtype)
@@ -95,41 +116,48 @@ def init_params(
         t = torch.empty(shape, dtype=dtype, device=device)
         return t.normal_(0.0, std, generator=gen)
 
-    def normal(shape, std, quantized: bool = False):
-        if quantized:
-            if len(shape) < 3:
-                return quantize_tensor(draw(shape, std), dtype)
-            q = torch.empty(shape, dtype=torch.int8, device=device)
-            s = torch.empty(shape[:-2] + (1, shape[-1]), dtype=dtype, device=device)
-            for i in range(shape[0]):
-                part = quantize_tensor(draw(shape[1:], std), dtype)
-                q[i].copy_(part.q)
-                s[i].copy_(part.s)
-            return QuantizedTensor(q, s)
-        t = torch.empty(shape, dtype=dtype, device=device)
-        # a stacked [L, ...] weight fills layer by layer
-        for part in t if len(shape) >= 3 else [t]:
-            part.normal_(0.0, std, generator=gen)
-        return t
+    def cut(path: str, x: Any, layer: bool = True) -> Any:
+        return x if shard is None else shard.take(path, x, layer=layer)
+
+    def normal(path: str, shape, std, quantized: bool = False):
+        if len(shape) < 3:
+            w = draw(shape, std)
+            return cut(path, quantize_tensor(w, dtype) if quantized else w, layer=False)
+        # a stacked [L, ...] weight fills layer by layer into its (shard's)
+        # stack: one layer's whole draw is the only transient
+        out: Any = None
+        for i in range(shape[0]):
+            w = draw(shape[1:], std)
+            part = cut(path, quantize_tensor(w, dtype) if quantized else w)
+            pieces = (part.q, part.s) if quantized else (part,)
+            if out is None:
+                out = [p.new_empty((shape[0],) + tuple(p.shape)) for p in pieces]
+            for dst, src in zip(out, pieces):
+                dst[i].copy_(src)
+        return QuantizedTensor(*out) if quantized else out[0]
 
     quantized = quantize == "int8"
     layers: Params = {}
     for name, shape in layer_shapes(cfg).items():
+        path = f"layers/{name}"
         if len(shape) == 1:
             fill = 0.0 if name.startswith("b") else 1.0
-            layers[name] = torch.full((L,) + shape, fill, dtype=dtype, device=device)
+            layers[name] = cut(
+                path, torch.full((L,) + shape, fill, dtype=dtype, device=device), layer=False
+            )
         else:
             layers[name] = normal(
-                (L,) + shape, 1.0 / math.sqrt(shape[-2]), quantized and name in QUANT_KEYS
+                path, (L,) + shape, 1.0 / math.sqrt(shape[-2]), quantized and name in QUANT_KEYS
             )
     params: Params = {
-        "embed": normal((cfg.vocab_size, cfg.hidden_size), 0.02),
+        "embed": normal("embed", (cfg.vocab_size, cfg.hidden_size), 0.02),
         "layers": layers,
         "final_norm": torch.ones(cfg.hidden_size, dtype=dtype, device=device),
     }
     if not cfg.tie_word_embeddings:
         params["lm_head"] = normal(
-            (cfg.hidden_size, cfg.vocab_size), 1.0 / math.sqrt(cfg.hidden_size), quantized
+            "lm_head", (cfg.hidden_size, cfg.vocab_size), 1.0 / math.sqrt(cfg.hidden_size),
+            quantized,
         )
     return params
 
@@ -201,9 +229,15 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return (x.float() * cos + rotated.float() * sin).to(x.dtype)
 
 
-def _dense_mlp(lp: Params, x: torch.Tensor, hidden_act: str) -> torch.Tensor:
+def mesh_of(params: Params) -> Optional[Any]:
+    """The ``parallel.mesh.ParallelMesh`` a rank's params carry, or None."""
+    return getattr(params, "mesh", None)
+
+
+def _dense_mlp(lp: Params, x: torch.Tensor, hidden_act: str, mesh=None) -> torch.Tensor:
     gate = _activate(x @ mat(lp["w_gate"]), hidden_act)
-    return (gate * (x @ mat(lp["w_up"]))) @ mat(lp["w_down"])
+    out = (gate * (x @ mat(lp["w_up"]))) @ mat(lp["w_down"])
+    return out if mesh is None else mesh.all_reduce(out, over="tp")
 
 
 def _route(lp: Params, xf: torch.Tensor, K: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -233,6 +267,29 @@ def _moe_mlp_dense(lp: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tenso
     return torch.einsum("enh,ne->nh", down, combine).reshape(x.shape)
 
 
+# MoE assignments and dropped assignments by device: a device pair each
+# capacity dispatch adds to (no host sync; made before a graph captures
+# it, at the eager warm-up), read and reset with :func:`moe_counts`
+_MOE_COUNTS: Dict[str, torch.Tensor] = {}
+
+
+def _counts_key(device) -> str:
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)
+
+
+def moe_counts(device: torch.device, reset: bool = False) -> Tuple[int, int]:
+    """``(assignments, dropped)``: the capacity dispatch's token-expert
+    assignments on ``device`` so far, and those past capacity."""
+    t = _MOE_COUNTS.get(_counts_key(device))
+    n = (0, 0) if t is None else tuple(int(v) for v in t.tolist())
+    if reset and t is not None:
+        t.zero_()
+    return n
+
+
 def moe_capacity(n: int, cfg: ModelConfig) -> int:
     """Rows per expert buffer for a dispatch of ``n`` flat rows (pad rows
     included): perfect balance ``n*K/E`` times the capacity factor,
@@ -242,7 +299,7 @@ def moe_capacity(n: int, cfg: ModelConfig) -> int:
     return min(C, n * K)
 
 
-def _moe_mlp(lp: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _moe_mlp(lp: Params, x: torch.Tensor, cfg: ModelConfig, mesh=None) -> torch.Tensor:
     """Capacity-based sparse MoE dispatch (GShard/Switch), the JAX
     package's ``_moe_mlp`` assignment for assignment.
 
@@ -262,7 +319,12 @@ def _moe_mlp(lp: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     sum in every run.  ``C`` is a Python int of the static row count and
     nothing here reads the device, so the dispatch captures in a CUDA
     graph.  The expert products are library batched matmuls, as the JAX
-    package's are XLA einsums."""
+    package's are XLA einsums.
+
+    On a mesh the rank holds experts ``[e0, e0 + E/ep)`` (each split over
+    tp): it routes and slots every row as one card would, runs its own
+    experts' ``C`` slots only, combines the assignments that went to
+    them, and the all-reduce over the grid sums the rest in."""
     H = x.shape[-1]
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     xf = x.reshape(-1, H)  # [N, H]
@@ -276,19 +338,37 @@ def _moe_mlp(lp: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     onehot = F.one_hot(flat_expert, E)  # [N*K, E]
     slot = onehot.cumsum(0).gather(1, flat_expert[:, None])[:, 0] - 1
     keep = slot < C
+    counts = _MOE_COUNTS.get(_counts_key(xf.device))
+    if counts is None:
+        # a normal tensor, not an inference one: it counts calls made
+        # under the engine's inference mode and outside it alike
+        with torch.inference_mode(False):
+            counts = _MOE_COUNTS[_counts_key(xf.device)] = torch.zeros(
+                2, dtype=torch.int64, device=xf.device
+            )
+    counts[0].add_(N * K)
+    counts[1].add_((~keep).sum())
     dispatch = torch.where(keep, flat_expert * C + slot, torch.full_like(slot, E * C))
 
     buf = xf.new_zeros((E * C + 1, H))  # row E*C: the trash row
     buf.index_copy_(0, dispatch, xf.repeat_interleave(K, dim=0))
     buf = buf[: E * C].view(E, C, H)
+    El, e0 = E, 0
+    if mesh is not None:
+        El = lp["w_gate"].shape[0]
+        e0 = mesh.coords["ep"] * El
+        buf = buf[e0 : e0 + El]
+        keep = keep & (flat_expert >= e0) & (flat_expert < e0 + El)
 
-    gate = F.silu(torch.bmm(buf, mat(lp["w_gate"])))  # [E, C, I]
+    gate = F.silu(torch.bmm(buf, mat(lp["w_gate"])))  # [El, C, I]
     up = torch.bmm(buf, mat(lp["w_up"]))
-    down = torch.bmm(gate * up, mat(lp["w_down"])).view(E * C, H)  # [E*C, H]
+    down = torch.bmm(gate * up, mat(lp["w_down"])).view(El * C, H)  # [El*C, H]
 
-    per_assign = down[dispatch.clamp(max=E * C - 1)]  # [N*K, H]
+    local = (dispatch - e0 * C).clamp(0, El * C - 1)
+    per_assign = down[local]  # [N*K, H]
     per_assign = per_assign * (flat_w * keep.to(flat_w.dtype))[:, None]
-    return per_assign.view(N, K, H).sum(dim=1).reshape(x.shape)
+    out = per_assign.view(N, K, H).sum(dim=1).reshape(x.shape)
+    return out if mesh is None else mesh.all_reduce(out, over="world")
 
 
 # ---------------------------------------------------------------------------
@@ -305,8 +385,11 @@ def transformer_layer(
     attn_fn: AttnFn,
     kv_pages: KVPool,  # [L, 2, num_pages, page, Hkv, D], updated in place
     layer: int,
+    mesh: Optional[Any] = None,
 ) -> torch.Tensor:
-    """One decoder layer (norm -> attention -> norm -> MLP, residuals)."""
+    """One decoder layer (norm -> attention -> norm -> MLP, residuals).
+    The head counts are the rank's: its weights' widths over the head
+    dim."""
     T = x.shape[0]
     D = cfg.head_dim
     h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps, cfg.rms_norm_offset)
@@ -317,20 +400,21 @@ def transformer_layer(
         q = q + lp["bq"]
         k = k + lp["bk"]
         v = v + lp["bv"]
-    q = q.view(T, cfg.num_heads, D)
-    k = k.view(T, cfg.num_kv_heads, D)
-    v = v.view(T, cfg.num_kv_heads, D)
+    q = q.view(T, -1, D)
+    k = k.view(T, -1, D)
+    v = v.view(T, -1, D)
     if cfg.qk_norm:
         q = rms_norm(q, lp["q_norm"], cfg.rms_norm_eps)
         k = rms_norm(k, lp["k_norm"], cfg.rms_norm_eps)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     attn = attn_fn(q, k, v, kv_pages, layer)
-    x = x + attn.reshape(T, cfg.num_heads * D) @ mat(lp["wo"])
+    o = attn.reshape(T, -1) @ mat(lp["wo"])
+    x = x + (o if mesh is None else mesh.all_reduce(o, over="tp"))
     h2 = rms_norm(x, lp["post_norm"], cfg.rms_norm_eps, cfg.rms_norm_offset)
     if cfg.is_moe:
-        return x + _moe_mlp(lp, h2, cfg)
-    return x + _dense_mlp(lp, h2, cfg.hidden_act)
+        return x + _moe_mlp(lp, h2, cfg, mesh)
+    return x + _dense_mlp(lp, h2, cfg.hidden_act, mesh)
 
 
 def transformer(
@@ -351,7 +435,10 @@ def transformer(
     ``min(mm_len[b], M, W)`` positions take rows of ``mm_embeds``, cast to
     the model's dtype, instead of the token-embedding lookup.  The rows
     land after Gemma's embedding scale, so they are not scaled."""
+    mesh = mesh_of(params)
     x = params["embed"][tokens]
+    if mesh is not None:  # the table is split over the hidden axis
+        x = mesh.all_gather(x, dim=-1, over="tp")
     if cfg.scale_embeddings:
         # sqrt(hidden) rounded to the embed dtype, as the JAX trunk's; a
         # Python scalar, not a device tensor: a host-to-device copy inside
@@ -371,10 +458,21 @@ def transformer(
     layers = params["layers"]
     for i in range(cfg.num_layers):
         lp = {name: w[i] for name, w in layers.items()}
-        x = transformer_layer(lp, x, cos, sin, cfg, attn_fn, kv_pages, i)
+        x = transformer_layer(lp, x, cos, sin, cfg, attn_fn, kv_pages, i, mesh)
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps, cfg.rms_norm_offset)
 
 
 def lm_logits(params: Params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
-    w = params["embed"].T if cfg.tie_word_embeddings else mat(params["lm_head"])
-    return (hidden @ w).float()
+    """f32 logits of ``hidden [..., H]``.  On a mesh the head's vocabulary
+    slices all-gather over tp; a tied head (the embedding, split over the
+    hidden axis) sums the rank's partial products over tp instead."""
+    mesh = mesh_of(params)
+    if cfg.tie_word_embeddings:
+        w = params["embed"]
+        if mesh is not None and w.shape[1] != hidden.shape[-1]:
+            h0 = mesh.coords["tp"] * w.shape[1]
+            part = (hidden[..., h0 : h0 + w.shape[1]] @ w.T).float()
+            return mesh.all_reduce(part, over="tp")
+        return (hidden @ w.T).float()
+    logits = (hidden @ mat(params["lm_head"])).float()
+    return logits if mesh is None else mesh.all_gather(logits, dim=-1, over="tp")

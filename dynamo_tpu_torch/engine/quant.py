@@ -57,9 +57,11 @@ class QuantizedTensor:
 
 def mat(w: Any) -> torch.Tensor:
     """A weight at its point of use: a :class:`QuantizedTensor`
-    dequantized to its scale's dtype, a plain tensor as it is."""
+    dequantized to its scale's dtype, a plain tensor as it is.  The scale
+    multiplies the cast in place, so the dequantization holds one copy of
+    the weight, not two (Llama-3-70B's head: 1.96 GiB in bf16)."""
     if isinstance(w, QuantizedTensor):
-        return w.q.to(w.s.dtype) * w.s
+        return w.q.to(w.s.dtype).mul_(w.s)
     return w
 
 

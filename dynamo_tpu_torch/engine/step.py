@@ -33,6 +33,11 @@ Those tensors carry one spare row at index B; a pad row of a scatter (the
 JAX functions' ``mode="drop"`` rows) carries slot B and lands there, and
 no step ever reads it.
 
+Every trunk pass goes through :func:`run_trunk` (its attention variant
+named, from ``ATTN_KINDS``) and every head projection through
+:func:`logits_at`: the seam a tensor-parallel leader mirrors to its
+follower ranks (``parallel/sharding.py``).
+
 Multi-step dispatches (the packed step's multistep tail and the decode
 block) keep their decode state in the tensors they are given, updated in
 place step by step, and run each step through a ``StepRunner``: eagerly
@@ -60,7 +65,7 @@ import torch
 from . import attention as att
 from .config import ModelConfig
 from .kv_cache import KVPool, QuantKV
-from .model import Params, lm_logits, transformer
+from .model import Params, lm_logits, mesh_of, transformer
 from .sampling import (
     PROMPT_FLAG,
     SamplingParams,
@@ -83,6 +88,141 @@ StepRunner = Callable[[str, StepFn, Tuple[torch.Tensor, ...]], torch.Tensor]
 def run_eager(kind: str, fn: StepFn, inputs: Tuple[torch.Tensor, ...]) -> torch.Tensor:
     """The default :data:`StepRunner`: the step itself, on its inputs."""
     return fn(inputs)
+
+
+# -- the trunk seam -------------------------------------------------------------
+#
+# Every trunk call names its attention variant and hands over the integer
+# tensors and Python ints the variant's callback closes over; on a
+# tensor-parallel leader (``params.mirror``) the call is sent to the
+# follower ranks first, which rebuild the same callback from the same
+# inputs (``parallel/sharding.py``).  ``mesh`` is the rank's mesh (an int8
+# pool's row scales reduce over it), None on one card.
+
+
+def _attn_packed(tensors, statics, mesh):
+    page_table, base, seg_off, q_lens, t_lane, pos, valid = tensors
+    s_max, window = statics
+
+    def attn_fn(q, k, v, kv, layer):
+        out = att.packed_ragged_attention_dispatch(
+            q, k, v, kv, layer, page_table, base, seg_off, q_lens, s_max, window
+        )
+        att.write_packed_kv(kv, k, v, page_table, t_lane, pos, valid, layer, mesh)
+        return out
+
+    return attn_fn
+
+
+def _attn_decode(tensors, statics, mesh):
+    page_table, positions, write = tensors
+    (window,) = statics
+
+    def attn_fn(q, k, v, kv, layer):
+        att.write_decode_kv(kv, k, v, page_table, positions, layer, write, mesh)
+        return att.decode_attention_dispatch(
+            q, kv, page_table, positions + 1, layer, window
+        )
+
+    return attn_fn
+
+
+def _attn_rect(tensors, statics, mesh):
+    page_table, base, q_lens = tensors
+    B, S, window = statics
+
+    def attn_fn(q, k, v, kv, layer):
+        q4, k4, v4 = (x.view(B, S, *x.shape[1:]) for x in (q, k, v))
+        out = att.ragged_attention_dispatch(
+            q4, k4, v4, kv, layer, page_table, base, q_lens, window
+        )
+        att.write_spec_kv(kv, k4, v4, page_table, base, q_lens, layer, mesh)
+        return out.view(q.shape)
+
+    return attn_fn
+
+
+def _attn_prefill(tensors, statics, mesh):
+    seq_lens, page_table = tensors
+    B, T, window = statics
+
+    def attn_fn(q, k, v, kv, layer):
+        q4, k4, v4 = (x.view(B, T, *x.shape[1:]) for x in (q, k, v))
+        out = att.prefill_attention_dispatch(q4, k4, v4, seq_lens, window)
+        if page_table is not None:
+            att.write_prefill_kv(kv, k4, v4, page_table, layer, mesh)
+        return out.view(q.shape)
+
+    return attn_fn
+
+
+def _attn_suffix(tensors, statics, mesh):
+    prefix_table, offset, suffix_lens, suffix_table = tensors
+    B, T, window = statics
+
+    def attn_fn(q, k, v, kv, layer):
+        q4, k4, v4 = (x.view(B, T, *x.shape[1:]) for x in (q, k, v))
+        out = att.prefill_prefix_attention_dispatch(
+            q4, k4, v4, kv, layer, prefix_table, offset, suffix_lens, window
+        )
+        att.write_prefill_kv(kv, k4, v4, suffix_table, layer, mesh)
+        return out.view(q.shape)
+
+    return attn_fn
+
+
+def _attn_verify(tensors, statics, mesh):
+    page_table, base, n_tokens = tensors
+    B, S, window = statics
+
+    def attn_fn(q, k, v, kv, layer):
+        q4, k4, v4 = (x.view(B, S, *x.shape[1:]) for x in (q, k, v))
+        out = att.prefill_prefix_attention_dispatch(
+            q4, k4, v4, kv, layer, page_table, base, n_tokens, window
+        )
+        att.write_spec_kv(kv, k4, v4, page_table, base, n_tokens, layer, mesh)
+        return out.view(q.shape)
+
+    return attn_fn
+
+
+ATTN_KINDS = {
+    "packed": _attn_packed, "decode": _attn_decode, "rect": _attn_rect,
+    "prefill": _attn_prefill, "suffix": _attn_suffix, "verify": _attn_verify,
+}
+
+
+def run_trunk(
+    params: Params,
+    cfg: ModelConfig,
+    kv_pages: KVPool,
+    kind: str,
+    tokens: torch.Tensor,  # [T]
+    positions: torch.Tensor,  # [T]
+    tensors: Sequence[Optional[torch.Tensor]],
+    statics: Sequence[int],
+    mm: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """The trunk over a flat token axis with attention variant ``kind``
+    (``ATTN_KINDS``) built from ``tensors`` and ``statics``; returns hidden
+    ``[T, H]`` and writes ``kv_pages`` in place."""
+    mirror = getattr(params, "mirror", None)
+    if mirror is not None:
+        mirror.trunk(kind, tokens, positions, tensors, statics, mm)
+    attn_fn = ATTN_KINDS[kind](tensors, statics, mesh_of(params))
+    return transformer(params, cfg, tokens, positions, kv_pages, attn_fn, mm)
+
+
+def logits_at(
+    params: Params, cfg: ModelConfig, hidden: torch.Tensor, idx: Optional[torch.Tensor]
+) -> torch.Tensor:
+    """f32 logits of the last trunk's rows ``idx`` (all of them when
+    None); on a tensor-parallel leader the followers project the same rows
+    through their slices of the head."""
+    mirror = getattr(params, "mirror", None)
+    if mirror is not None:
+        mirror.logits(idx)
+    return lm_logits(params, cfg, hidden if idx is None else hidden[idx])
 
 
 def _write_state(dst: Sequence[torch.Tensor], src: Sequence[torch.Tensor]) -> None:
@@ -210,15 +350,10 @@ def packed_unified_step(
     valid = (t_lane < B) & (t_rel < q_lens[lane_c])
     positions = torch.where(valid, pos, 0)
     window = cfg.sliding_window or 0
-
-    def attn_fn(q, k, v, kv, layer):
-        out = att.packed_ragged_attention_dispatch(
-            q, k, v, kv, layer, page_table, base, seg_off, q_lens, s_max, window
-        )
-        att.write_packed_kv(kv, k, v, page_table, t_lane, pos, valid, layer)
-        return out
-
-    hidden = transformer(params, cfg, tok_flat, positions, kv_pages, attn_fn)
+    hidden = run_trunk(
+        params, cfg, kv_pages, "packed", tok_flat, positions,
+        (page_table, base, seg_off, q_lens, t_lane, pos, valid), (s_max, window),
+    )
     if s_spec > 0:
         spec_packed = spec_columns_epilogue(
             params, cfg, hidden, base, seg_off, v_lens, sampling, s_spec, top_n,
@@ -229,7 +364,7 @@ def packed_unified_step(
             (B, 0, 2 + 2 * top_n), dtype=torch.int32, device=hidden.device
         )
     last = (seg_off + q_lens - 1).clamp(0, Np - 1)
-    logits = lm_logits(params, cfg, hidden[last])  # [B, V]
+    logits = logits_at(params, cfg, hidden, last)  # [B, V]
     return mixed_sample_epilogue(
         logits, base, q_lens, is_pf, p_start, p_lens, p_sample, p_activate,
         tokens, seq_lens, limit_lens, active, stop_ids, sampling, top_n,
@@ -273,7 +408,7 @@ def spec_columns_epilogue(
     Np = hidden.shape[0]
     cols = torch.arange(s_spec, device=hidden.device)
     idx = (seg_off[:, None] + cols[None, :]).clamp(0, Np - 1)
-    logits = lm_logits(params, cfg, hidden[idx.reshape(-1)])  # [B * S, V]
+    logits = logits_at(params, cfg, hidden, idx.reshape(-1))  # [B * S, V]
     positions = (base[:, None] + 1 + cols[None, :]).reshape(-1)
     sampled = sample_tokens(
         logits, _tile_sampling(sampling, s_spec), positions, use_filters
@@ -295,16 +430,11 @@ def decode_once(
 ) -> torch.Tensor:
     """One decode step for every lane; returns logits [B, V]."""
     positions = seq_lens
-    window = cfg.sliding_window or 0
-
-    def attn_fn(q, k, v, kv, layer):
-        att.write_decode_kv(kv, k, v, page_table, positions, layer, write)
-        return att.decode_attention_dispatch(
-            q, kv, page_table, positions + 1, layer, window
-        )
-
-    hidden = transformer(params, cfg, tokens, positions, kv_pages, attn_fn)
-    return lm_logits(params, cfg, hidden)
+    hidden = run_trunk(
+        params, cfg, kv_pages, "decode", tokens, positions,
+        (page_table, positions, write), (cfg.sliding_window or 0,),
+    )
+    return logits_at(params, cfg, hidden, None)
 
 
 def packed_unified_multistep(
@@ -531,21 +661,12 @@ def unified_step(
     toks2d = p_tokens.clone()
     toks2d[:, 0] = torch.where(is_pf, p_tokens[:, 0], tokens)
     positions = base[:, None] + torch.arange(S, device=base.device)[None, :]
-    window = cfg.sliding_window or 0
-
-    def attn_fn(q, k, v, kv, layer):
-        q4, k4, v4 = (x.view(B, S, *x.shape[1:]) for x in (q, k, v))
-        out = att.ragged_attention_dispatch(
-            q4, k4, v4, kv, layer, page_table, base, q_lens, window
-        )
-        att.write_spec_kv(kv, k4, v4, page_table, base, q_lens, layer)
-        return out.view(q.shape)
-
-    hidden = transformer(
-        params, cfg, toks2d.reshape(-1), positions.reshape(-1), kv_pages, attn_fn
+    hidden = run_trunk(
+        params, cfg, kv_pages, "rect", toks2d.reshape(-1), positions.reshape(-1),
+        (page_table, base, q_lens), (B, S, cfg.sliding_window or 0),
     )
     last = torch.arange(B, device=base.device) * S + (q_lens - 1).clamp(0, S - 1)
-    logits = lm_logits(params, cfg, hidden[last])  # [B, V]
+    logits = logits_at(params, cfg, hidden, last)  # [B, V]
     return mixed_sample_epilogue(
         logits, base, q_lens, is_pf, p_start, p_lens, p_sample, p_activate,
         tokens, seq_lens, limit_lens, active, stop_ids, sampling, top_n,
@@ -595,7 +716,7 @@ def sample_step_packed(
 
 def _last_row_logits(params, cfg, hidden, lens, B, T) -> torch.Tensor:
     last = torch.arange(B, device=lens.device) * T + (lens - 1).clamp(0, T - 1)
-    return lm_logits(params, cfg, hidden[last])
+    return logits_at(params, cfg, hidden, last)
 
 
 def _prefill_hidden(
@@ -613,16 +734,10 @@ def _prefill_hidden(
     None; returns the hidden rows ``[B * T, H]``."""
     B, T = tokens.shape
     positions = torch.arange(T, device=tokens.device).repeat(B)
-    window = cfg.sliding_window or 0
-
-    def attn_fn(q, k, v, kv, layer):
-        q4, k4, v4 = (x.view(B, T, *x.shape[1:]) for x in (q, k, v))
-        out = att.prefill_attention_dispatch(q4, k4, v4, seq_lens, window)
-        if page_table is not None:
-            att.write_prefill_kv(kv, k4, v4, page_table, layer)
-        return out.view(q.shape)
-
-    return transformer(params, cfg, tokens.reshape(-1), positions, kv_pages, attn_fn, mm)
+    return run_trunk(
+        params, cfg, kv_pages, "prefill", tokens.reshape(-1), positions,
+        (seq_lens, page_table), (B, T, cfg.sliding_window or 0), mm,
+    )
 
 
 def prefill_step(
@@ -708,12 +823,13 @@ def score_prompt_step(
     Returns ``packed [B, T, 2 + 2*top_n]`` int32."""
     B, T = tokens.shape
     hidden = _prefill_hidden(params, cfg, kv_pages, tokens, seq_lens, None)
-    hidden = hidden.view(B, T, -1)
     targets = torch.roll(tokens, -1, dims=1)  # targets[j] = tokens[j + 1]
+    lanes = torch.arange(B, device=tokens.device)[:, None] * T
     parts = []
     for lo in range(0, T, SCORE_CHUNK):
-        logits = lm_logits(params, cfg, hidden[:, lo : lo + SCORE_CHUNK])
-        span = logits.shape[1]
+        span = min(SCORE_CHUNK, T - lo)
+        rows = lanes + torch.arange(lo, lo + span, device=tokens.device)[None, :]
+        logits = logits_at(params, cfg, hidden, rows.reshape(-1)).view(B, span, -1)
         tgt = targets[:, lo : lo + span].reshape(B * span)
         lp, top_ids, top_lps = token_logprobs(logits.reshape(B * span, -1), tgt, top_n)
         parts.append(pack_sampled_logprobs(tgt, lp, top_ids, top_lps).view(B, span, -1))
@@ -759,18 +875,9 @@ def prefill_suffix_and_sample(
     token.  Returns ``packed [B, 2 + 2*top_n]``."""
     B, T = tokens.shape
     positions = (offset[:, None] + torch.arange(T, device=offset.device)[None, :])
-    window = cfg.sliding_window or 0
-
-    def attn_fn(q, k, v, kv, layer):
-        q4, k4, v4 = (x.view(B, T, *x.shape[1:]) for x in (q, k, v))
-        out = att.prefill_prefix_attention_dispatch(
-            q4, k4, v4, kv, layer, prefix_table, offset, suffix_lens, window
-        )
-        att.write_prefill_kv(kv, k4, v4, suffix_table, layer)
-        return out.view(q.shape)
-
-    hidden = transformer(
-        params, cfg, tokens.reshape(-1), positions.reshape(-1), kv_pages, attn_fn
+    hidden = run_trunk(
+        params, cfg, kv_pages, "suffix", tokens.reshape(-1), positions.reshape(-1),
+        (prefix_table, offset, suffix_lens, suffix_table), (B, T, cfg.sliding_window or 0),
     )
     logits = _last_row_logits(params, cfg, hidden, suffix_lens, B, T)
     pen = (
@@ -812,20 +919,11 @@ def verify_and_sample(
     B, S = tokens.shape
     cols = torch.arange(S, device=base.device)
     positions = base[:, None] + cols[None, :]
-    window = cfg.sliding_window or 0
-
-    def attn_fn(q, k, v, kv, layer):
-        q4, k4, v4 = (x.view(B, S, *x.shape[1:]) for x in (q, k, v))
-        out = att.prefill_prefix_attention_dispatch(
-            q4, k4, v4, kv, layer, page_table, base, n_tokens, window
-        )
-        att.write_spec_kv(kv, k4, v4, page_table, base, n_tokens, layer)
-        return out.view(q.shape)
-
-    hidden = transformer(
-        params, cfg, tokens.reshape(-1), positions.reshape(-1), kv_pages, attn_fn
+    hidden = run_trunk(
+        params, cfg, kv_pages, "verify", tokens.reshape(-1), positions.reshape(-1),
+        (page_table, base, n_tokens), (B, S, cfg.sliding_window or 0),
     )
-    logits = lm_logits(params, cfg, hidden)  # [B * S, V]
+    logits = logits_at(params, cfg, hidden, None)  # [B * S, V]
     sampled = sample_tokens(
         logits, _tile_sampling(sampling, S), (positions + 1).reshape(-1), use_filters
     )

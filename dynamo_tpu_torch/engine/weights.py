@@ -195,6 +195,7 @@ def load_safetensors_params(
     device: Optional[Union[str, torch.device]] = None,
     dtype: Optional[torch.dtype] = None,
     quantize: Optional[str] = None,
+    shard: Optional[Any] = None,
 ) -> Params:
     """Load all ``*.safetensors`` files under ``model_path`` (``quantize``
     as :func:`assemble_params` takes it)."""
@@ -205,7 +206,7 @@ def load_safetensors_params(
     )
     if not files:
         raise FileNotFoundError(f"no .safetensors files under {model_path}")
-    return assemble_params(SafetensorsIndex(files), cfg, device, dtype, quantize)
+    return assemble_params(SafetensorsIndex(files), cfg, device, dtype, quantize, shard)
 
 
 def load_checkpoint_params(
@@ -214,21 +215,22 @@ def load_checkpoint_params(
     device: Optional[Union[str, torch.device]] = None,
     dtype: Optional[torch.dtype] = None,
     quantize: Optional[str] = None,
+    shard: Optional[Any] = None,
 ) -> Params:
     """A checkpoint's weights as serving loads them: the ``*.safetensors``
     files of a directory when it has any, else its GGUF file (``model_path``
     a ``.gguf`` file or a directory holding one), dequantized on load
-    (``llm/gguf.py``)."""
+    (``llm/gguf.py``).  ``shard`` as :func:`assemble_params` takes it."""
     if os.path.isdir(model_path) and any(
         f.endswith(".safetensors") for f in os.listdir(model_path)
     ):
-        return load_safetensors_params(model_path, cfg, device, dtype, quantize)
+        return load_safetensors_params(model_path, cfg, device, dtype, quantize, shard)
     from ..llm.gguf import find_gguf_file, load_gguf_params
 
     gguf = find_gguf_file(model_path)
     if gguf is None:
         raise FileNotFoundError(f"{model_path}: no .safetensors and no .gguf weights")
-    return load_gguf_params(gguf, cfg, device, dtype, quantize)
+    return load_gguf_params(gguf, cfg, device, dtype, quantize, shard)
 
 
 def assemble_params(
@@ -237,9 +239,17 @@ def assemble_params(
     device: Optional[Union[str, torch.device]] = None,
     dtype: Optional[torch.dtype] = None,
     quantize: Optional[str] = None,
+    shard: Optional[Any] = None,
 ) -> Params:
     """The stacked parameter dict on ``device`` from a flat HF name ->
     CPU tensor mapping (a dict, or :class:`SafetensorsIndex`).
+
+    ``shard`` (a ``parallel.sharding.LeafSharder``) keeps one rank's
+    slice of every leaf: a layer's tensor is sliced where it is read (a
+    view of the mapped file; a rank of an expert-parallel grid stacks only
+    its experts), then copied to the device; a weight that quantizes lands
+    whole, is quantized (a row-parallel weight's scales are its whole
+    rows') and then sliced.
 
     ``quantize="int8"`` quantizes each layer's matmul weights as the layer
     lands (``quant.quantize_tensor``'s values), so a model that fits the
@@ -257,32 +267,45 @@ def assemble_params(
     def get(name: str) -> torch.Tensor:
         if name not in raw:
             raise KeyError(f"missing weight {name}")
-        return raw[name].to(device)
+        # one card: the whole tensor goes to the device (transposes run
+        # there); a rank slices the mapped view first
+        return raw[name].to(device) if shard is None else raw[name]
+
+    def cut(path: str, x: Any, layer: bool = True, done: Tuple[str, ...] = ()) -> Any:
+        return x if shard is None else shard.take(path, x, layer=layer, done=done)
+
+    def shape_of(path: str, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+        return tuple(shape) if shard is None else shard.shape(path, shape)
 
     def check(key: str, got: Tuple[int, ...], shape: Tuple[int, ...]) -> None:
         if tuple(got) != tuple(shape):
             raise ValueError(f"param {key}: shape {tuple(got)}, expected {tuple(shape)}")
 
-    def stack(key: str, layer_fn: Callable[[int], torch.Tensor]) -> Any:
-        shape = (L,) + want[key]
+    def stack(key: str, layer_fn: Callable[[int], torch.Tensor],
+              done: Tuple[str, ...] = ()) -> Any:
+        """One ``[L, ...]`` leaf, a layer at a time (``done``: axes
+        ``layer_fn`` already took this rank's part of)."""
+        path = f"layers/{key}"
         quantized = quantize == "int8" and key in QUANT_KEYS
-        if quantized:
-            out = QuantizedTensor(
-                torch.empty(shape, dtype=torch.int8, device=device),
-                torch.empty(shape[:-2] + (1, shape[-1]), dtype=dtype, device=device),
-            )
-        else:
-            out = torch.empty(shape, dtype=dtype, device=device)
+        out: Any = None
         for i in range(L):
             w = layer_fn(i)
-            check(f"layers.{key}", w.shape, want[key])
+            full = want[key]
+            if shard is not None and done:
+                full = shard.shape(path, full, layer=True, only=done)
+            check(f"layers.{key}", w.shape, full)
             if quantized:
-                part = quantize_tensor(w.to(device=device, dtype=dtype), dtype)
-                out.q[i].copy_(part.q)
-                out.s[i].copy_(part.s)
+                part = cut(path, quantize_tensor(w.to(device=device, dtype=dtype), dtype),
+                           done=done)
+                pieces = (part.q, part.s)
             else:
-                out[i].copy_(w)
-        return out
+                pieces = (cut(path, w, done=done),)
+            if out is None:
+                out = [torch.empty((L,) + tuple(p.shape), dtype=torch.int8 if j == 0 and quantized
+                                   else dtype, device=device) for j, p in enumerate(pieces)]
+            for dst, src in zip(out, pieces):
+                dst[i].copy_(src)
+        return QuantizedTensor(*out) if quantized else out[0]
 
     def linear(name: str) -> torch.Tensor:
         return get(name).T  # [out, in] -> [in, out]
@@ -293,14 +316,16 @@ def assemble_params(
         """One fused ``[sum(rows), H]`` tensor per layer -> several stacked
         ``[L, H, rows]`` leaves, one read per layer."""
         for key, _ in splits:
-            layers[key] = torch.empty((L,) + want[key], dtype=dtype, device=device)
+            layers[key] = torch.empty(
+                (L,) + shape_of(f"layers/{key}", (L,) + want[key])[1:], dtype=dtype, device=device
+            )
         for i in range(L):
             w = get(f"{pre}layers.{i}.{suffix}")
             lo = 0
             for key, rows in splits:
                 part = w[lo:lo + rows].T
                 check(f"layers.{key}", part.shape, want[key])
-                layers[key][i].copy_(part)
+                layers[key][i].copy_(cut(f"layers/{key}", part))
                 lo += rows
 
     if f"{pre}layers.0.self_attn.qkv_proj.weight" in raw:
@@ -342,12 +367,13 @@ def assemble_params(
             "router", lambda i: linear(f"{pre}layers.{i}.{moe}.gate.weight")
         )
         # Mixtral: w1 = gate, w3 = up, w2 = down, each layer's experts
-        # stacked [E, in, out]
+        # stacked [E, in, out] (an expert-parallel rank's own experts)
+        e_lo, e_hi = (0, cfg.num_experts) if shard is None else shard.expert_range(cfg)
         for key, w in (("w_gate", "w1"), ("w_up", "w3"), ("w_down", "w2")):
             layers[key] = stack(key, lambda i, w=w: torch.stack([
                 linear(f"{pre}layers.{i}.{moe}.experts.{e}.{w}.weight")
-                for e in range(cfg.num_experts)
-            ]))
+                for e in range(e_lo, e_hi)
+            ]), done=("ep",))
     elif f"{pre}layers.0.mlp.gate_up_proj.weight" in raw:
         # Phi-3: fused gate_up_proj rows are [gate | up]
         inter = cfg.intermediate_size
@@ -366,7 +392,8 @@ def assemble_params(
 
     def whole(key: str, w: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
         check(key, w.shape, shape)
-        out = torch.empty(shape, dtype=dtype, device=device)
+        w = cut(key, w, layer=False)
+        out = torch.empty(w.shape, dtype=dtype, device=device)
         out.copy_(w)
         return out
 

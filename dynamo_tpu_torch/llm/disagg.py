@@ -1051,6 +1051,11 @@ class PrefillWorker:
                 "first_token": first,
                 "lp_row": lp_row,
             }
+            shards = getattr(getattr(self.engine, "kv", None), "shard_geometry", None)
+            if shards is not None:
+                # a tensor-parallel prefill pool's geometry: the blob is
+                # full width all the same (JAX's provenance key)
+                meta["kv_shards"] = shards
             if quant:
                 # int8 export: the wire carries data bytes then the f32
                 # row scales (the pack_quant_blob_bytes layout, streamed
@@ -1119,6 +1124,9 @@ class PrefillWorker:
                 "total_bytes": stream.nbytes,
             },
         }
+        if stream.shards is not None:
+            # the exporting pool's shard geometry; the chunks are full width
+            meta["kv_shards"] = stream.shards
 
         async def frames() -> AsyncIterator[bytes]:
             truncated = False

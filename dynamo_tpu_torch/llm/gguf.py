@@ -454,13 +454,15 @@ def load_gguf_params(
     device: Optional[Union[str, torch.device]] = None,
     dtype: Optional[torch.dtype] = None,
     quantize: Optional[str] = None,
+    shard=None,
 ):
     """The engine's stacked parameters on ``device`` straight from a GGUF
-    file, each tensor dequantized there as its layer lands (``quantize``
-    as ``engine.weights.assemble_params`` takes it)."""
+    file, each tensor dequantized there as its layer lands, then sliced to
+    a rank's part with ``shard`` (``quantize`` and ``shard`` as
+    ``engine.weights.assemble_params`` takes them)."""
     from ..device import resolve_device
     from ..engine.weights import assemble_params
 
     device = resolve_device(device)
     view = _GgufHFView(path, cfg.num_heads, cfg.num_kv_heads, device)
-    return assemble_params(view, cfg, device, dtype, quantize)
+    return assemble_params(view, cfg, device, dtype, quantize, shard)

@@ -306,7 +306,8 @@ def test_cli_batch_prints_jax_text(checkpoint, expected, tmp_path):
 @pytest.mark.parametrize(
     "extra, name",
     [
-        (["--tp", "2"], "--tp"),
+        # tp is served; a degree that does not divide the heads is refused
+        (["--tp", "3"], "--tp"),
         (["--kv-remote", "on"], "--kv-remote"),
         (["--disagg", "decode"], "--disagg"),
         (["--hub", "h:1"], "--hub"),

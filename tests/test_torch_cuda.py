@@ -16,7 +16,10 @@ dispatch overwrites; a swapped lane resumes under graph replay with the
 streams of a roomy pool.  A disaggregated delivery lands as the same pool
 pages through the same-process device handoff as through the wire.
 The dense entries of the ragged and flash kernels also give, bit for bit,
-the outputs recorded in ``DENSE_DIGESTS``.  GGUF dequantization
+the outputs recorded in ``DENSE_DIGESTS``.  A tp = 2 engine on the card
+(both ranks on one card over gloo) gives one card's streams and pools;
+NCCL ranks (one card each, where there are two) are refused by name, and
+a tp above the card count by JAX's message.  GGUF dequantization
 (``llm/gguf.py``) on the card gives the CPU's bits for each of its five
 tensor types.
 
@@ -1589,3 +1592,107 @@ def test_gguf_dequantize_on_card_equals_cpu(card, gtype):
     got = gguf.dequantize_ggml(raw, gtype, shape, card)
     assert got.device.type == "cuda" and got.dtype == cpu.dtype
     assert torch.equal(got.cpu().view(torch.uint8), cpu.view(torch.uint8))
+
+
+# -- tensor and expert parallelism on the card ---------------------------------
+
+
+def _tp_engines(card, backend, **kw):
+    """A small f32 model (4 query heads, 2 kv heads, D 64: a rank of tp =
+    2 holds 2/1/64) on one card, and the same weights on a tp = 2 grid:
+    both ranks on this card over gloo, or one card a rank over NCCL (which
+    the package refuses by name before any rank starts)."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.engine.model import init_params
+    from dynamo_tpu_torch.parallel.launch import grid_spec, leader_mesh, start_local_ranks
+    from dynamo_tpu_torch.parallel.mesh import MeshConfig
+
+    cfg = ModelConfig.tiny(head_dim=64, num_heads=4, num_kv_heads=2)
+    ecfg = EngineConfig(num_pages=64, max_seq_len=256, mixed_token_budget=32, **kw)
+    params = init_params(cfg, 3, card, torch.float32)
+    grid = MeshConfig(tp=2)
+    devices = ["cuda:0", "cuda:1"] if backend == "nccl" else ["cuda:0", "cuda:0"]
+    ranks = start_local_ranks(grid, grid_spec(grid, devices, backend))
+    mesh = leader_mesh(grid, ranks.spec, ranks)
+    one = TorchEngine(cfg, params, ecfg, device=card)
+    sharded = TorchEngine(cfg, params, ecfg, device=card, mesh=mesh, _ranks=ranks)
+    return one, sharded
+
+
+def _tp_requests():
+    rs = np.random.default_rng(5)
+    return [{"token_ids": rs.integers(1, 256, n).tolist(),
+             "stop_conditions": {"max_tokens": 24}, "sampling_options": {},
+             "eos_token_ids": []} for n in (70, 3, 40, 9)]
+
+
+async def _tp_serve(engine, reqs, keep):
+    from dynamo_tpu_torch.protocols.common import PreprocessedRequest
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    async def one(r):
+        toks = []
+        async for item in await engine.generate(Context.new(PreprocessedRequest.from_dict(r))):
+            assert not item.is_error(), item.error_message()
+            toks += (item.data or {}).get("token_ids") or []
+        return toks
+
+    import asyncio
+
+    try:
+        out = await asyncio.wait_for(asyncio.gather(*[one(r) for r in reqs]), RUN_S)
+        keep["pools"] = engine.rank_pools()
+        keep["stats"] = engine.rank_stats()
+        return out
+    finally:
+        await engine.stop()
+
+
+@pytest.mark.parametrize("kw", [{}, {"mixed_batching": False}, {"kv_dtype": "int8"}],
+                         ids=["default", "classic", "int8-pool"])
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_tp_engine_on_card_equals_one_card(card, backend, kw):
+    """tp = 2 on the card over gloo: the streams of one card; every rank's
+    pool the one-card pool's head slice (f32 within 5e-6 of the largest
+    value; int8 data within one step in at most 0.5% of the values, as
+    ``chip_smoke.py`` serve-tp (a) holds them); no graph on either rank.
+    NCCL (two cards) is refused by name before any rank starts: an NCCL
+    engine's stop has not been shown to return."""
+    import asyncio
+
+    if backend == "nccl":
+        if torch.cuda.device_count() < 2:
+            pytest.skip("NCCL takes one card a rank: needs two cards")
+        with pytest.raises(ValueError, match="over NCCL"):
+            _tp_engines(card, backend, **kw)
+        return
+    one, sharded = _tp_engines(card, backend, **kw)
+    reqs = _tp_requests()
+    a, b = {}, {}
+    want = asyncio.run(_tp_serve(one, reqs, a))
+    got = asyncio.run(_tp_serve(sharded, reqs, b))
+    assert got == want
+    pool1 = a["pools"][0]
+    for r, p in enumerate(b["pools"]):
+        if isinstance(p, tuple):
+            dq = (p[0][:, :, 1:].int() - pool1[0][:, :, 1:, :, r:r + 1].int()).abs()
+            assert int(dq.max()) <= 1 and int((dq > 0).sum()) <= 5e-3 * dq.numel()
+        else:
+            want_p = pool1[:, :, 1:, :, r:r + 1]
+            assert (p[:, :, 1:] - want_p).abs().max() <= 5e-6 * want_p.abs().max()
+    graphs = [s["graphs"] for s in b["stats"]]
+    assert all(g == {"captures": 0, "replays": 0} for g in graphs), graphs
+
+
+def test_tp_refuses_more_ranks_than_cards(card):
+    """``EngineConfig(tp=N)`` on the card would start one NCCL rank a card:
+    with fewer cards it is refused by JAX's message, before any rank
+    starts."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+
+    n = torch.cuda.device_count() + 1
+    cfg = ModelConfig.tiny(head_dim=64, num_heads=n, num_kv_heads=n)
+    with pytest.raises(ValueError, match=f"mesh needs {n} devices, have {n - 1}"):
+        TorchEngine.random_init(cfg, EngineConfig(num_pages=16, tp=n), device=card)

@@ -256,8 +256,13 @@ def test_jax_config_constructs_on_the_port(weights, fields):
     ("tp", 2), ("dp", 2), ("dtype", "bfloat16"), ("kv_admit_budget", "util=0.8,bogus=1"),
 ])
 def test_refused_values_name_their_field(weights, field, value):
+    kw = {field: value, "num_pages": 16}
+    if field == "tp":
+        # tp is served; under it the offload plane is refused, by name,
+        # before any rank starts
+        kw["host_offload_blocks"] = 8
     with pytest.raises(ValueError, match=f"EngineConfig.{field}"):
-        make_engine("torch", weights, **{field: value, "num_pages": 16})
+        make_engine("torch", weights, **kw)
 
 
 # ---------------------------------------------------------------------------

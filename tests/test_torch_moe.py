@@ -368,9 +368,9 @@ def test_binding_capacity_parts_on_idle_rows_on_the_cpu():
         )
         return jax_moe(lp, x, c)
 
-    def spy_port(lp, x, c):
+    def spy_port(lp, x, c, mesh=None):
         calls["port"].append(x.reshape(-1, x.shape[-1]).numpy().copy())
-        return port_moe(lp, x, c)
+        return port_moe(lp, x, c, mesh)
 
     mp = pytest.MonkeyPatch()
     mp.setattr(jax_model, "_moe_mlp", spy_jax)
