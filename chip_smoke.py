@@ -37,8 +37,10 @@ Every phase is fatal on failure:
    over the decode worker's 16 lanes, and packed ragged over its 16 decode
    rows and over a 16-lane tick of its short prompts' local prefill; and
    eval's windows (serve-gguf (b)): full flash prefill of one lane of 512
-   and of 2048 tokens, every row valid; and paged decode and packed
-   ragged at a rank of Llama-3-8B at tp = 2 (16/4/128, serve's shapes).
+   and of 2048 tokens, every row valid; paged decode and packed
+   ragged at a rank of Llama-3-8B at tp = 2 (16/4/128, serve's shapes);
+   and full flash prefill of a pipeline stage's microbatch
+   (serve-sp-pp (b): two lanes of 1100 and 1500 tokens in a 2048 bucket).
    CUDA-event times of the kernel, the
    plain version and one ``scaled_dot_product_attention`` call over the
    gathered (dequantized) K/V with the same mask (a yardstick the port
@@ -269,16 +271,18 @@ Every phase is fatal on failure:
    pool fed by the dense prefiller (wire and device), and every remote
    lane's pages in the decode pool equal its export (or its quantization)
    bit for bit, and each run's launches equal both engines' dispatches.
-   (b) Two Llama-3-8B engines (full width and depth, bf16,
-   random weights of seed 0 each, ``EngineConfig(num_pages=1024,
-   max_batch_size=16)``: 16 lanes, so the long requests are admitted while
-   the short ones decode), a decode and a prefill worker in this process
+   (b) Two engines at Llama-3-8B's full width (bf16, random weights of
+   seed 0 each, ``EngineConfig(num_pages=1024, max_batch_size=16)``: 16
+   lanes, so the long requests are admitted while the short ones decode;
+   32 layers over the device handoff, ``WIRE_LAYERS`` = 8 over the two
+   host-bound wires, whose bytes and seconds move with the layer count),
+   a decode and a prefill worker in this process
    set up as the CLI sets them up: 8 short requests (16 to 256 prompt
    tokens, 128 new) start, and once all stream, 8 long ones (1024 to 2000
    tokens, 64 new) arrive and ship; greedy, top-2 logprobs.  Run over the
    device handoff, the chunked wire and the monolithic wire, each on fresh
-   engines, and once on one aggregated engine (``mixed_batching=False``,
-   the export's dispatch site) as the twin.  Every request must end with
+   engines, and once at each depth on one aggregated engine
+   (``mixed_batching=False``, the export's dispatch site) as the twin.  Every request must end with
    its tokens, 8 prompts go remote and 8 stay local, each remote lane's
    first token is the prefill worker's sample, its pages in the decode
    pool equal its export (blake2b of both), and the launches equal both
@@ -306,7 +310,9 @@ Every phase is fatal on failure:
    a 2-block prefix from the donor's ``kv_export``, then a fresh importer
    from an ``InMemoryBlobStore``; their greedy streams equal a plain CPU
    engine's, 2 blocks onboarded, no fetch failed.  (b) Llama-3-8B at full
-   width and depth, bf16, random weights of seed 0, two workers at a time
+   width and ``WIRE_LAYERS`` = 8 of its 32 layers (the legs move KV over
+   the host, so their seconds go with the layers), bf16, random weights
+   of seed 0, two workers at a time
    in this process set up by the CLI's ``serve_worker`` behind the
    KV-routed front end.  Peer leg: worker A (``EngineConfig(num_pages=
    1024, host_offload_blocks=512)``) serves 4 1024-token prefixes (64 new
@@ -431,11 +437,12 @@ Every phase is fatal on failure:
    lines, the bare one within ``GGUF_CLI_RTOL`` of in-process
    ``evaluate_perplexity``.
 
-19. serve-tp: tensor and expert parallelism (``parallel/``), last.  Two
+19. serve-tp: tensor and expert parallelism (``parallel/``).  Two
    grids of two ranks, each a follower process beside this one, serve
    one engine after another: on one card both ranks share it over gloo
    (the one gloo mesh over CUDA tensors of the package's, built here and
-   printed; collectives eager, no graphs).  (a) The reference phase's
+   printed; collectives eager, no graphs; NCCL ranks, one card each, run
+   on four cards in ``chip_multi.py``).  (a) The reference phase's
    small f32 model at tp = 2 under the default, classic and rectangle
    configs, the int8 pool and int8 weights, and a small MoE at ep = 2 (cf
    = E / K, nothing dropped; cf = 0.5, the drops of one card on every
@@ -449,12 +456,36 @@ Every phase is fatal on failure:
    where streams part from serve run 0's, a greedy lane only at a bf16
    near tie.  (c) Mixtral-8x7B's widths at 16 layers, bf16, ep = 2, cf =
    4: nothing dropped on either rank, each rank half of one card's expert
-   bytes.  (d), with serve-mocker's checkpoint: ``run in=http --tp 2`` is
-   refused by name (one card: "mesh needs 2 devices, have 1"; two or
-   more: NCCL ranks are not served yet), and so are ``--dp``, ``--sp``
-   and ``--pp``.  Printed: backend, grid seconds, per rank launches,
-   collectives, graphs, drops, expert bytes and peak GiB, cold and warm
-   ``tok_s``, TTFT, the phase's seconds.
+   bytes.  (d), with serve-mocker's checkpoint: ``run in=http --dp 2`` is
+   refused by name, and with one card ``--tp 2``, ``--sp 2`` and ``--pp
+   2`` by JAX's "mesh needs 2 devices, have 1".  Printed: backend, grid
+   seconds, per rank launches, collectives, graphs, drops, expert bytes
+   and peak GiB, cold and warm ``tok_s``, TTFT, the phase's seconds.
+
+20. serve-sp-pp: the ring prefill over sp (``parallel/ring_attention.py``)
+   and the pipeline prefill over pp (``parallel/pipeline_parallel.py``),
+   last.  A grid of two ranks a prefill axis, both on this card over
+   gloo, serve one engine after another; the leader holds the model, the
+   pool and the lanes and decodes alone (its graphs captured), mixed
+   batching pinned off.  (a) The reference phase's small f32 model at sp
+   = 2 and at pp = 2: the CPU's greedy streams (penalized lanes
+   included), the whole prompt blocks in the pool one card's within
+   ``SPPP_F32_BOUNDS``, full prefills routed.  (b) Llama-3-8B at full width and
+   depth, bf16, serve's weights on every rank, at sp = 2 and at pp = 2: a
+   pool-check batch (four fresh prompts of 1100 to 1900 tokens, one token
+   each: one prefill of four lanes, two microbatches of two) whose whole
+   prompt blocks in the pool must equal one card's prefill of them within
+   the bf16 bounds
+   ``SPPP_BF16_BOUNDS``, then
+   serve's primer and batch with top-2 logprobs, cold and warm: every
+   request ends with its 64 tokens, a greedy lane parts from serve run 0's
+   only at a bf16 near tie.  In (a) and (b) the leader's launches equal
+   its dispatches' (kernel 2 once per stage layer per microbatch of each
+   pipeline prefill; kernel 1 on the decode lanes), a ring follower
+   launches nothing and a pipeline follower kernel 2 alone, neither
+   captures a graph.  Printed: routed prefills and microbatches, bytes
+   each rank sent the leader, peak GiB a rank, TTFT, cold and warm
+   ``tok_s``, the phase's seconds.
 
 In every served run each kernel's launch count (graph replays included)
 must equal what the run's dispatches imply (``expected_launches``), and
@@ -2158,13 +2189,20 @@ def expected_launches(engine) -> Dict[str, int]:
         "ragged_paged_attention_int8": layers * unified if not packed and q else 0,
         "flash_prefill_attention": layers * (
             engine.prefill_dispatches["full"] + d.get("prompt_score", 0) + d.get("embed", 0)
-        ),
+        ) + stage_layers(engine) * engine.pp_microbatches,
         "flash_prefix_prefill_attention": layers * (
             engine.prefill_dispatches["suffix"] + d.get("verify", 0)
         ),
         "paged_decode_attention": 0 if q else layers * steps,
         "gathered_decode": layers * steps if q else 0,
     }
+
+
+def stage_layers(engine) -> int:
+    """The layers of one pipeline stage of a pp engine (0 for any other):
+    each runs kernel 2 once a microbatch of a pipeline prefill."""
+    mesh = engine.mesh
+    return engine.model_cfg.num_layers // mesh.pp if mesh is not None and mesh.pp > 1 else 0
 
 
 def check_launch_invariants(what: str, engine, launches: Dict[str, int]) -> None:
@@ -6359,16 +6397,17 @@ def check_links(what: str, samples: List[dict], src: int, dst: int, count: int,
     return line
 
 
-def disagg_full_width(mode: str, worker_kw: dict, tok_dir: str, shorts, longs) -> Dict[str, object]:
-    """serve-disagg (b) on one transfer path: fresh Llama-3-8B decode and
-    prefill engines (random weights of seed 0 each), the traffic of
-    ``disagg_traffic``; placement, first tokens, landed pages and the
-    launch invariants over both engines held.  Returns the run and its
-    numbers."""
+def disagg_full_width(mode: str, worker_kw: dict, tok_dir: str, shorts, longs,
+                      layers: int) -> Dict[str, object]:
+    """serve-disagg (b) on one transfer path: fresh decode and prefill
+    engines at Llama-3-8B's widths and ``layers`` of its layers (random
+    weights of seed 0 each), the traffic of ``disagg_traffic``; placement,
+    first tokens, landed pages and the launch invariants over both engines
+    held.  Returns the run and its numbers."""
     from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
     from dynamo_tpu_torch.engine.engine import TorchEngine
 
-    cfg = ModelConfig.llama3_8b()
+    cfg = ModelConfig.llama3_8b(num_layers=layers)
     torch.cuda.reset_peak_memory_stats()
     decode, prefill = (
         TorchEngine.random_init(cfg, EngineConfig(num_pages=1024, max_batch_size=16), seed=0)
@@ -6439,13 +6478,14 @@ def layer_spans(num_layers: int, per_chunk) -> List[Tuple[int, int]]:
     return layer_chunk_spans(num_layers, per_chunk, 8)
 
 
-def disagg_twin(shorts, longs) -> Dict[str, object]:
-    """The same traffic on one aggregated engine with ``mixed_batching=
-    False`` (full-prompt prefill dispatches, the export's site)."""
+def disagg_twin(shorts, longs, layers: int) -> Dict[str, object]:
+    """The same traffic on one aggregated engine of the legs' depth with
+    ``mixed_batching=False`` (full-prompt prefill dispatches, the export's
+    site)."""
     from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
     from dynamo_tpu_torch.engine.engine import TorchEngine
 
-    cfg = ModelConfig.llama3_8b()
+    cfg = ModelConfig.llama3_8b(num_layers=layers)
     engine = TorchEngine.random_init(
         cfg, EngineConfig(num_pages=1024, max_batch_size=16, mixed_batching=False), seed=0)
 
@@ -6606,6 +6646,13 @@ DISAGG_PATHS = {
     "chunked wire": dict(allow_local=False),
     "monolithic wire": dict(allow_local=False, chunked=False),
 }
+# the layers of Llama-3-8B each path runs at: the device handoff at full
+# depth; the host-bound wire legs (and serve-onboard (b)'s), whose bytes and
+# seconds move with the layer count, at a quarter of it (the chunked wire
+# still ships 8 layer chunks: one layer each)
+WIRE_LAYERS = 8
+DISAGG_LAYERS = {"device handoff": 32, "chunked wire": WIRE_LAYERS,
+                 "monolithic wire": WIRE_LAYERS}
 
 
 def serve_disagg_phase(card: str, ckpt, direct: List[str]) -> Dict[str, int]:
@@ -6625,11 +6672,21 @@ def serve_disagg_phase(card: str, ckpt, direct: List[str]) -> Dict[str, int]:
         os.makedirs(tok_dir)
         write_tokenizer(tok_dir, 128000, 256)
         shorts, longs = disagg_requests(ModelConfig.llama3_8b().vocab_size)
-        runs = {mode: disagg_full_width(mode, kw, tok_dir, shorts, longs)
-                for mode, kw in DISAGG_PATHS.items()}
-        twin = disagg_twin(shorts, longs)
+        runs, leg_s = {}, {}
+        for mode, kw in DISAGG_PATHS.items():
+            t_leg = time.perf_counter()
+            runs[mode] = disagg_full_width(mode, kw, tok_dir, shorts, longs, DISAGG_LAYERS[mode])
+            leg_s[mode] = time.perf_counter() - t_leg
+        twins = {}
+        for layers in sorted(set(DISAGG_LAYERS.values())):
+            t_leg = time.perf_counter()
+            twins[layers] = disagg_twin(shorts, longs, layers)
+            leg_s[f"twin at {layers} layers"] = time.perf_counter() - t_leg
+        print(f"serve-disagg: (b) legs' seconds {({k: round(v, 3) for k, v in leg_s.items()})} "
+              f"at layers {DISAGG_LAYERS} on {card}")
         launches: Dict[str, int] = {}
         for mode, run in runs.items():
+            twin = twins[DISAGG_LAYERS[mode]]
             print(disagg_line(mode, run, twin, card))
             print(f"serve-disagg: (b) {mode} greedy agreement: {twin_agreement(run, twin)}")
             print(f"serve-disagg: (b) {mode} transfer_stats {run['stats']}")
@@ -6644,9 +6701,10 @@ def serve_disagg_phase(card: str, ckpt, direct: List[str]) -> Dict[str, int]:
                   f"{[(r['bytes'], round(r['deliver_ms'], 3)) for r in run['rows']]}")
             for k, n in run["launches"].items():
                 launches[k] = launches.get(k, 0) + n
-        streams = [[r["tokens"] for r in run["short"] + run["long"]] for run in runs.values()]
-        print(f"serve-disagg: (b) the three paths' streams agree: "
-              f"{all(s == streams[0] for s in streams)}")
+        wire = [[r["tokens"] for r in runs[m]["short"] + runs[m]["long"]]
+                for m in DISAGG_PATHS if DISAGG_LAYERS[m] == WIRE_LAYERS]
+        print(f"serve-disagg: (b) the two wire paths' streams agree: "
+              f"{all(s == wire[0] for s in wire)}")
         disagg_cli(tmp, card, ckpt, direct)
         print(f"serve-disagg: phase {time.perf_counter() - t0:.3f} s")
         return launches
@@ -6879,8 +6937,8 @@ def onboard_twin(tok_dir: str, reqs: List[dict], routed: bool) -> List[dict]:
     from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
     from dynamo_tpu_torch.engine.engine import TorchEngine
 
-    engine = TorchEngine.random_init(ModelConfig.llama3_8b(), EngineConfig(**ONBOARD_ENGINE),
-                                     seed=0)
+    engine = TorchEngine.random_init(ModelConfig.llama3_8b(num_layers=WIRE_LAYERS),
+                                     EngineConfig(**ONBOARD_ENGINE), seed=0)
 
     async def body():
         cluster = await DynCluster().start([engine], tok_dir, "kv", lease_ttl=LEASE_TTL_S)
@@ -6910,7 +6968,7 @@ def onboard_peer(tok_dir: str) -> Dict[str, object]:
     from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
     from dynamo_tpu_torch.engine.engine import TorchEngine
 
-    cfg = ModelConfig.llama3_8b()
+    cfg = ModelConfig.llama3_8b(num_layers=WIRE_LAYERS)
     donor_reqs, reqs, routed = onboard_requests(cfg.vocab_size, 14)
     hashes = prefix_hashes(reqs)
     torch.cuda.reset_peak_memory_stats()
@@ -6986,7 +7044,7 @@ def onboard_g4(tok_dir: str) -> Dict[str, object]:
     from dynamo_tpu_torch.llm.kv_router.indexer import REMOTE_SOURCE_ID
     from dynamo_tpu_torch.offload import G4_STORE_ID
 
-    cfg = ModelConfig.llama3_8b()
+    cfg = ModelConfig.llama3_8b(num_layers=WIRE_LAYERS)
     donor_reqs, reqs, _ = onboard_requests(cfg.vocab_size, 15)
     rng = np.random.default_rng(16)
     churn = [request(rng.integers(1, cfg.vocab_size, 1900), 16) for _ in range(2)]
@@ -7258,8 +7316,13 @@ def serve_onboard_phase(ref: Dict[str, object], card: str, ckpt,
         write_tokenizer(tok_dir, 128000, 256)
         launches: Dict[str, int] = {}
         for leg, run in (("peer", onboard_peer), ("G4", onboard_g4)):
+            t_leg = time.perf_counter()
             res = run(tok_dir)
+            t_twin = time.perf_counter()
             twin = onboard_twin(tok_dir, res["reqs"], routed=leg == "G4")
+            print(f"serve-onboard: (b) {leg} leg {t_twin - t_leg:.3f} s, its twin "
+                  f"{time.perf_counter() - t_twin:.3f} s, at {WIRE_LAYERS} of Llama-3-8B's "
+                  f"32 layers on {card}")
             for r in res["run"] + twin:
                 if r["finish"] != "length" or len(r["tokens"]) != 64:
                     fail(f"serve-onboard (b) {leg}: a request ended {r['finish']} after "
@@ -9144,22 +9207,24 @@ TP_RANK_GEOM = {"llama3_8b_tp2_rank": ((16, 4, 128, 0), ("paged_decode_attention
                                                          "packed_ragged_attention"))}
 
 
-def tp_grid(mesh_cfg, what: str):
+def tp_grid(mesh_cfg, what: str, phase: str = "serve-tp"):
     """Start a grid's follower ranks and the leader's mesh, every rank on
     this card over gloo: the one mesh of the package's that takes CUDA
     tensors over gloo, built here to hold the ranks against one card (the
-    package refuses NCCL ranks, one card each, by name: (d)).  Its
-    collectives are not captured, so an engine over it runs eagerly.  The
-    followers serve every engine built on the mesh until ``tp_end``.
-    Returns ``(mesh, ranks, backend)``."""
+    package runs NCCL ranks, one card each, where there are enough cards).
+    Gloo's collectives are not captured, so an engine that shards its
+    trunk over it runs eagerly.  The followers serve every engine built on
+    the mesh until ``tp_end``.  Returns ``(mesh, ranks, backend)``."""
     from dynamo_tpu_torch.parallel.launch import grid_spec, leader_mesh, start_local_ranks
 
     n = mesh_cfg.num_devices
     t0 = time.perf_counter()
     ranks = start_local_ranks(mesh_cfg, grid_spec(mesh_cfg, ["cuda:0"] * n, "gloo"))
     mesh = leader_mesh(mesh_cfg, ranks.spec, ranks)
-    print(f"serve-tp: {what} grid tp={mesh_cfg.tp} ep={mesh_cfg.ep}: backend gloo "
-          f"({n} ranks on one card, eager); formed in {time.perf_counter() - t0:.3f} s")
+    axes = " ".join(f"{a}={getattr(mesh_cfg, a)}" for a in ("tp", "ep", "sp", "pp")
+                    if getattr(mesh_cfg, a) > 1)
+    print(f"{phase}: {what} grid {axes}: backend gloo ({n} ranks on one card); formed in "
+          f"{time.perf_counter() - t0:.3f} s")
     return mesh, ranks, "gloo"
 
 
@@ -9241,12 +9306,12 @@ def tp_pools_match(what: str, one, ranks, tp: int) -> None:
             fail(f"serve-tp {what} rank {r}: the pool differs from one card's head slice by {d}")
 
 
-def tp_small(ref: Dict[str, object], grids, card: str) -> None:
+def tp_small(ref: Dict[str, object], axis: str, grid_ranks, card: str) -> None:
     """(a) Small f32 models, two ranks: tp = 2 under the default, classic
     and rectangle configs, the int8 pool and int8 weights, and ep = 2 on a
     small MoE at cf = E / K; each against one card (streams, pools) and the
     CPU (streams); at a binding capacity (cf = 0.5) every rank counts one
-    card's drops."""
+    card's drops.  The legs of ``axis`` ("tp" or "ep"), on its grid."""
     from dynamo_tpu_torch.engine import model as tmodel
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.engine.engine import TorchEngine
@@ -9266,6 +9331,8 @@ def tp_small(ref: Dict[str, object], grids, card: str) -> None:
                             MeshConfig(ep=2)),
     }
     for name, (mcfg, mparams, kw, grid) in legs.items():
+        if getattr(grid, axis) == 1:
+            continue
         ecfg = EngineConfig(**ref["ecfg"], **kw)
         cpu = asyncio.run(serve(TorchEngine(mcfg, mparams, ecfg, device="cpu"), batches))
         one = TorchEngine(mcfg, params_on(mparams, "cuda"), ecfg, device="cuda")
@@ -9278,7 +9345,7 @@ def tp_small(ref: Dict[str, object], grids, card: str) -> None:
         drops = tmodel.moe_counts(torch.device("cuda"), reset=True)[1]
         pool1 = kept["pools"][0]
         del one
-        mesh, _, backend = grids["tp" if grid.tp > 1 else "ep"]
+        mesh, _, backend = grid_ranks
         eng = TorchEngine(mcfg, params_on(mparams, "cuda"), ecfg, device="cuda", mesh=mesh)
         eng.reset_rank_stats()
         got = asyncio.run(serve(eng, batches, before_stop=tp_reads(eng, kept, pools=True)))
@@ -9425,17 +9492,17 @@ def tp_mixtral(grid, card: str) -> None:
 
 
 def tp_cli(ckpt, card: str) -> None:
-    """(d) The CLI: ``run in=http out=torch --tp 2`` is refused by name --
-    with one card by JAX's "mesh needs 2 devices, have 1", with two or more
-    because the package does not serve NCCL ranks yet -- and so are
-    ``--dp 2``, ``--sp 2`` and ``--pp 2``."""
-    from dynamo_tpu_torch.parallel.mesh import NCCL_NOT_SERVED
-
+    """(d) The CLI: ``run in=http out=torch --dp 2`` is refused by name;
+    with one card, ``--tp 2``, ``--sp 2`` and ``--pp 2`` are refused by
+    JAX's "mesh needs 2 devices, have 1" (NCCL ranks take a card each;
+    ``chip_multi.py`` serves them on four)."""
     base = ("run", "in=http", "out=torch", "--model-path", ckpt[0], "--num-pages", "128")
     cards = torch.cuda.device_count()
-    tp_refusal = f"mesh needs 2 devices, have {cards}" if cards < 2 else NCCL_NOT_SERVED
-    refusals = {"--dp": ("--dp", "2"), "--sp": ("--sp", "2"), "--pp": ("--pp", "2"),
-                tp_refusal: ("--tp", "2")}
+    refusals = {"--dp": ("--dp", "2")}
+    if cards < 2:
+        refusals.update({f"--tp 2 --ep 1: mesh needs 2 devices, have {cards}": ("--tp", "2"),
+                         f"--sp 2: mesh needs 2 devices, have {cards}": ("--sp", "2"),
+                         f"--pp 2: mesh needs 2 devices, have {cards}": ("--pp", "2")})
     procs = {want: subprocess.Popen([sys.executable, "-m", "dynamo_tpu_torch", *base, *argv],
                                     cwd=ROOT, stdout=subprocess.PIPE,
                                     stderr=subprocess.PIPE, text=True)
@@ -9452,7 +9519,7 @@ def tp_cli(ckpt, card: str) -> None:
               f"{err.strip().splitlines()[-1] if err.strip() else ''}")
         if p.returncode == 0 or want not in err:
             fail(f"serve-tp (d): {refusals[want]} not refused by name: {err[-2000:]}")
-    print(f"serve-tp: (d) {len(refusals)} refusals by name with {cards} card(s) on {card}")
+    print(f"serve-tp: (d) {len(refusals)} refusals with {cards} card(s) on {card}")
 
 
 def serve_tp_phase(ref: Dict[str, object], served: Dict[str, object], card: str
@@ -9463,23 +9530,318 @@ def serve_tp_phase(ref: Dict[str, object], served: Dict[str, object], card: str
     from dynamo_tpu_torch.parallel.mesh import MeshConfig
 
     t0 = time.perf_counter()
-    # two grids of two ranks, each serving its legs' engines one by one
-    grids = {"tp": tp_grid(MeshConfig(tp=2), "tp"), "ep": tp_grid(MeshConfig(ep=2), "ep")}
+    # two grids of two ranks, one after the other (a process holds one
+    # mesh at a time), each serving its legs' engines one by one
+    grid = tp_grid(MeshConfig(tp=2), "tp")
     try:
-        tp_small(ref, grids, card)
+        tp_small(ref, "tp", grid, card)
         ta = time.perf_counter()
-        llama = tp_llama(served, grids["tp"], card)
+        llama = tp_llama(served, grid, card)
         tb = time.perf_counter()
-        gc.collect()
-        torch.cuda.empty_cache()
-        tp_mixtral(grids["ep"], card)
-        tc = time.perf_counter()
     finally:
-        for grid in grids.values():
-            tp_end(grid)
-    print(f"serve-tp: phase (a) to (c) {tc - t0:.3f} s ((a) {ta - t0:.3f}, (b) {tb - ta:.3f}, "
-          f"(c) {tc - tb:.3f}); launches (b), leader rank {llama} on {card}")
+        tp_end(grid)
+    gc.collect()
+    torch.cuda.empty_cache()
+    grid = tp_grid(MeshConfig(ep=2), "ep")
+    try:
+        tc = time.perf_counter()
+        tp_small(ref, "ep", grid, card)
+        td = time.perf_counter()
+        tp_mixtral(grid, card)
+        te = time.perf_counter()
+    finally:
+        tp_end(grid)
+    print(f"serve-tp: phase (a) to (c) {te - t0:.3f} s ((a) {ta - t0 + td - tc:.3f}, "
+          f"(b) {tb - ta:.3f}, (c) {te - td:.3f}); launches (b), leader rank {llama} on {card}")
     return llama
+
+
+# -- serve-sp-pp: ring (sp) and pipeline (pp) prefills -----------------------------
+
+# pools against one card's prefill of the same prompts, as (layer 0's max
+# |diff| over max |value|, every layer's max |diff| over max |value|, mean
+# |diff| over mean |value|).  (a), f32: within the JAX tests' own bound for
+# the ring and the pipeline against the plain prefill (1e-4).  (b), bf16:
+# layer 0's K/V are the projections of the embeddings, which GEMMs over
+# other row counts may round one bf16 step apart; the deeper layers part as
+# bf16 rows that round apart in one layer feed the next (two correct bf16
+# paths read a mean of 1.39e-2 apart at tp = 4 over 16 of Llama-3-70B's
+# layers and 1.52e-2 for the ring over Llama-3-8B's 32, on an NVIDIA H100
+# 80GB HBM3 at 700.00 W), while a wrong head, page or layer moves values
+# by their own size
+SPPP_F32_BOUNDS = (1e-4, 1e-4, 1e-4)
+SPPP_BF16_BOUNDS = (2.0**-7, 2.0**-4, 2.0**-4)
+# kernel 2 at one microbatch of a pipeline stage: Llama-3-8B's 32/8/128,
+# the first microbatch of (b)'s pool-check prefill (two lanes of its 2048
+# bucket)
+PP_STAGE_FLASH = dict(T=2048, lens=[1100, 1500])
+
+
+def check_pp_stage_flash(fp, gen) -> Dict[str, object]:
+    """Kernel 2 at a pipeline stage's microbatch (``PP_STAGE_FLASH``)
+    against its plain version, its time, one SDPA call's on the same
+    operands and the bound from this run's lengths."""
+    T, lens_l = PP_STAGE_FLASH["T"], PP_STAGE_FLASH["lens"]
+    B = len(lens_l)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+
+    def rand(h):
+        return torch.randn((B, T, h, D), generator=gen, device="cuda").to(torch.bfloat16)
+
+    q, k, v = rand(HQ), rand(HKV), rand(HKV)
+    err = agree("flash_prefill_attention pp stage", fp.flash_prefill_attention(q, k, v, lens),
+                fp.flash_prefill_attention_plain(q, k, v, lens), p_rounding(v))
+    ms = cuda_ms(lambda i: fp.flash_prefill_attention(q, k, v, lens), 32)
+    plain_ms = cuda_ms(lambda i: fp.flash_prefill_attention_plain(q, k, v, lens), 4)
+    idx = torch.arange(T, device="cuda")
+    mask = (idx[None, :] <= idx[:, None])[None, None] & (idx[None, None, None, :] < lens[:, None, None, None])
+    rep = HQ // HKV
+    kh = k.repeat_interleave(rep, 2).transpose(1, 2).contiguous()
+    vh = v.repeat_interleave(rep, 2).transpose(1, 2).contiguous()
+    qh = q.transpose(1, 2).contiguous()
+    library_ms = cuda_ms(lambda i: sdpa_padded(qh, kh, vh, mask), 32)
+    pairs = sum(n * (n + 1) // 2 for n in lens_l)
+    rows = sum(lens_l)
+    bytes_moved = rows * HQ * D * 2 + 2 * rows * HKV * D * 2 + B * T * HQ * D * 2 + B * 4
+    flops = 4.0 * HQ * D * pairs
+    bound_ms, bound_by = bound(bytes_moved, flops)
+    return dict(
+        name="flash_prefill_attention/pp_stage", route="cuda",
+        source="dynamo_tpu_torch/csrc/flash_prefill.cu",
+        replaces="dynamo_tpu/ops/flash_prefill.py:125",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=library_ms, tflops=flops / ms / 1e9, bound_share=bound_ms / ms,
+    )
+
+
+def sppp_check_ranks(what: str, engine, stats) -> None:
+    """The leader's launches equal its dispatches' (its pipeline stage's
+    kernel 2 included); a ring follower launches nothing, a pipeline
+    follower kernel 2 once per stage layer per microbatch and nothing
+    else; neither captures a graph."""
+    want = expected_launches(engine)
+    follower = {k: 0 for k in want}
+    follower["flash_prefill_attention"] = stage_layers(engine) * engine.pp_microbatches
+    for s, got in zip(stats, tp_rank_launches(stats)):
+        exp = want if s["rank"] == 0 else follower
+        got = {k: got.get(k, 0) for k in exp}
+        print(f"serve-sp-pp: {what} rank {s['rank']}: launches {got} (expected {exp}); "
+              f"collectives {s['collectives']}; graphs {s['graphs']}")
+        if got != exp:
+            fail(f"serve-sp-pp {what} rank {s['rank']}: launches {got}, expected {exp}")
+        if s["rank"] and s["graphs"] != {"captures": 0, "replays": 0}:
+            fail(f"serve-sp-pp {what} rank {s['rank']}: a follower counts graphs {s['graphs']}")
+
+
+def sppp_routed(what: str, engine, axis: str) -> int:
+    routed = engine.sp_prefills if axis == "sp" else engine.pp_prefills
+    if routed < 1:
+        fail(f"serve-sp-pp {what}: no full prefill went through the {axis} path")
+    return routed
+
+
+def sppp_small_pages(ref: Dict[str, object]) -> torch.Tensor:
+    """One card's (kernel 2's) prompt pages of (a)'s batches, in f32."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+
+    reqs = [r for batch in ref["batches"] for r in batch]
+    one = TorchEngine(ref["cfg"], params_on(ref["params"], "cuda"),
+                      EngineConfig(**ref["ecfg"], mixed_batching=False), device="cuda")
+    kept: Dict[str, object] = {}
+    asyncio.run(serve(one, ref["batches"],
+                      before_stop=lambda: kept.update(pool=sppp_prompt_pages(one, reqs))))
+    return kept["pool"]
+
+
+def sppp_small(ref: Dict[str, object], axis: str, grid, want_pages, card: str) -> None:
+    """(a) The reference phase's small f32 model at sp = 2 or at pp = 2
+    (gloo ranks on this card): the CPU's greedy streams, under the
+    default config (mixed batching pinned off by the mesh), penalized lanes
+    included; the prompt pages one card's (``want_pages``) within
+    ``SPPP_F32_BOUNDS``; full prefills routed; the launch invariants on
+    each rank."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+
+    cfg, params, batches = ref["cfg"], ref["params"], ref["batches"]
+    mesh, _, backend = grid
+    eng = TorchEngine(cfg, params_on(params, "cuda"), EngineConfig(**ref["ecfg"]),
+                      device="cuda", mesh=mesh)
+    eng.reset_rank_stats()
+    kept: Dict[str, object] = {}
+    reads = tp_reads(eng, kept)
+
+    def before_stop() -> None:
+        reads()
+        kept["pages"] = sppp_prompt_pages(eng, [r for batch in batches for r in batch])
+
+    got = asyncio.run(serve(eng, batches, before_stop=before_stop))
+    streams = [r["tokens"] for r in got]
+    pools = sppp_pool_check(f"(a) {axis}", kept["pages"], want_pages, SPPP_F32_BOUNDS)
+    print(f"serve-sp-pp: (a) {axis}=2: {first_divergence(streams, ref['streams'])} (CPU); "
+          f"routed {sppp_routed(f'(a) {axis}', eng, axis)} full prefills; prompt pages {pools}; "
+          f"graph captures {eng.graph_captures} replays {eng.graph_replays}; backend {backend} "
+          f"on {card}")
+    if streams != ref["streams"]:
+        fail(f"serve-sp-pp (a) {axis}=2: streams differ from the CPU's")
+    sppp_check_ranks(f"(a) {axis}", eng, kept["stats"])
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def sppp_pool_check(what: str, got, want, bounds=SPPP_BF16_BOUNDS) -> str:
+    """Pool pages ``[L, 2, pages, ...]`` against one card's, within
+    ``bounds`` (layer 0, whose K/V no attention output reaches; every
+    layer's max; every layer's mean)."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    worst, mean = float(d.max()) / float(w.abs().max()), float(d.mean()) / float(w.abs().mean())
+    first = float(d[0].max()) / float(w[0].abs().max())
+    line = (f"layer 0 max |diff| {first:.3e} of max |value|; all layers max |diff| {worst:.3e} "
+            f"of max |value|, mean |diff| {mean:.3e} of mean |value| (bounds "
+            f"{', '.join(f'{b:.3e}' for b in bounds)})")
+    if any(v > b for v, b in zip((first, worst, mean), bounds)):
+        fail(f"serve-sp-pp {what}: the pool differs from one card's prefill: {line}")
+    return line
+
+
+def sppp_pool_requests(vocab: int) -> List[dict]:
+    """(b)'s pool-check batch: four prompts no other request shares, one
+    token each (their prefills alone write the pool)."""
+    rng = np.random.default_rng(21)
+    # one bucket (2048): one prefill of 4 lanes, the pipeline's 2
+    # microbatches of 2
+    return [request(rng.integers(1, vocab, n), 1) for n in (1100, 1500, 1300, 1900)]
+
+
+def sppp_prompt_pages(engine, reqs: List[dict]) -> torch.Tensor:
+    """The pages of ``reqs``' whole prompt blocks in ``engine``'s pool, in
+    prompt order (each block once), on the host ``[L, 2, blocks, page,
+    Hkv, D]``: the rows
+    of prompt positions alone (past a lane's length the flash prefill
+    writes zero attention rows where the ring attends the prompt, so
+    those rows' later layers differ by design)."""
+    from dynamo_tpu_torch.tokens.hashing import hash_blocks
+
+    # a block that several prompts share appears once
+    hashes = list(dict.fromkeys(
+        h for r in reqs for h in hash_blocks(r["token_ids"], engine.cfg.page_size)[1]))
+    pages = prefix_pages(engine, hashes)
+    if len(pages) != len(hashes):
+        fail(f"serve-sp-pp: {len(pages)} of {len(hashes)} prompt blocks held in the pool")
+    return torch.cat([pages[h][0] for h in hashes], dim=2)
+
+
+def sppp_one_card_pool():
+    """One card's prefill of (b)'s pool-check batch (Llama-3-8B, serve's
+    weights, the classic path): its prompt pages on the host."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+
+    cfg = ModelConfig.llama3_8b()
+    reqs = sppp_pool_requests(cfg.vocab_size)
+    one = TorchEngine.random_init(cfg, EngineConfig(num_pages=1024, mixed_batching=False),
+                                  seed=0, device="cuda")
+    kept: Dict[str, object] = {}
+    asyncio.run(serve(one, [reqs],
+                      before_stop=lambda: kept.update(pool=sppp_prompt_pages(one, reqs))))
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    return kept["pool"]
+
+
+def sppp_llama(served: Dict[str, object], axis: str, grid, want_pool, card: str) -> int:
+    """(b) Llama-3-8B at full width and depth, bf16, serve's weights (seed
+    0) on every rank, at sp = 2 or at pp = 2 over gloo on this card: the
+    pool-check batch's pool against one card's prefill of it
+    (``want_pool``); serve's primer and batch with top-2 logprobs, cold
+    then warm, every request ending with its 64 tokens, where streams part
+    from serve run 0's a greedy lane only at a bf16 near tie; full
+    prefills routed; the launch invariants on each rank.  Returns the
+    leader's kernel-2 launches."""
+    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+
+    cfg = ModelConfig.llama3_8b()
+    primer, batch = serve_requests(cfg.vocab_size)
+    batch = [dict(r, sampling_options=dict(r["sampling_options"], logprobs=2)) for r in batch]
+    pool_reqs = sppp_pool_requests(cfg.vocab_size)
+    greedy = [not r["sampling_options"].get("temperature") for r in batch] * 2
+    mesh, _, backend = grid
+    t0 = time.perf_counter()
+    eng = TorchEngine.random_init(cfg, EngineConfig(num_pages=1024), seed=0, device="cuda",
+                                  mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng.reset_rank_stats()
+    kept: Dict[str, object] = {}
+    marks: Dict[str, object] = {}
+
+    def between(i: int) -> None:
+        if i == 1:
+            marks["pool"] = sppp_prompt_pages(eng, pool_reqs)
+        if i == 3:
+            marks["t"] = time.perf_counter()
+
+    t0 = time.perf_counter()
+    res = asyncio.run(serve(eng, [pool_reqs, primer, batch, batch], between,
+                            tp_reads(eng, kept)))
+    n = len(pool_reqs)
+    cold, warm = res[n:n + 1 + len(batch)], res[n + 1 + len(batch):]
+    wall, wall_w = marks["t"] - t0, max(r["frames"][-1][0] for r in warm) - marks["t"]
+    stats = kept["stats"]
+    sppp_check_ranks(f"(b) {axis}", eng, stats)
+    check_streams(f"serve-sp-pp (b) {axis}", cold[1:], cfg.vocab_size)
+    check_streams(f"serve-sp-pp (b) {axis} warm", warm, cfg.vocab_size)
+    pools = sppp_pool_check(f"(b) {axis}", marks.pop("pool"), want_pool)
+    parted = tp_near_ties(f"(b) {axis}", cold[1:] + warm, served["streams"], greedy)
+    st, st_w = served_stats(cold, wall), served_stats(warm, wall_w, primed=False)
+    for s in stats:
+        print(f"serve-sp-pp: (b) {axis} rank {s['rank']}: sent the leader "
+              f"{s['collectives'].get('to_leader_bytes', 0)} bytes; peak "
+              f"{s.get('peak_bytes', 0) / 2**30:.3f} GiB")
+    print(f"serve-sp-pp: (b) Llama-3-8B {axis}=2 bf16 32 layers: init {init_s:.3f} s; "
+          f"routed {sppp_routed(f'(b) {axis}', eng, axis)} full prefills "
+          f"(microbatches {eng.pp_microbatches}); pool {pools}; cold wall {wall:.3f} s "
+          f"tok_s={st['tok_s']:.3f} ttft_ms={[round(r['ttft'] * 1e3, 3) for r in cold[1:]]}; "
+          f"warm wall {wall_w:.3f} s tok_s={st_w['tok_s']:.3f} decode_phase_tok_s="
+          f"{st_w['dec']:.3f} ttft_ms={[round(r['ttft'] * 1e3, 3) for r in warm]}; graph "
+          f"captures {eng.graph_captures} replays {sum(eng.graph_replays.values())}; streams: "
+          f"{parted}; backend {backend} on {card}")
+    flash = tp_rank_launches(stats)[0]["flash_prefill_attention"]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return flash
+
+
+def serve_sp_pp_phase(ref: Dict[str, object], served: Dict[str, object], card: str
+                      ) -> Dict[str, int]:
+    """serve-sp-pp (a) and (b) (module docstring): one grid a prefill
+    axis, one after the other, each serving its legs' engines one by one.
+    Returns (b)'s pipeline-leader launches of kernel 2."""
+    from dynamo_tpu_torch.parallel.mesh import MeshConfig
+
+    t0 = time.perf_counter()
+    small_pages, want_pool = sppp_small_pages(ref), sppp_one_card_pool()
+    times = {"one card": time.perf_counter() - t0}
+    launches = {}
+    for axis in ("sp", "pp"):
+        grid = tp_grid(MeshConfig(**{axis: 2}), axis, "serve-sp-pp")
+        try:
+            ta = time.perf_counter()
+            sppp_small(ref, axis, grid, small_pages, card)
+            tb = time.perf_counter()
+            launches[axis] = sppp_llama(served, axis, grid, want_pool, card)
+            times[f"(a) {axis}"], times[f"(b) {axis}"] = tb - ta, time.perf_counter() - tb
+        finally:
+            tp_end(grid)
+    print(f"serve-sp-pp: phase {time.perf_counter() - t0:.3f} s "
+          f"({ {k: round(v, 3) for k, v in times.items()} }) on {card}")
+    return {"flash_prefill_attention": launches["pp"]}
 
 
 def profile_phase(out_path: str, plain_walls: Dict[str, float]) -> None:
@@ -9644,6 +10006,8 @@ def main() -> None:
     rows += geometry_rows(pa, fp, ra, bucketing, TP_RANK_GEOM)
     # kernel 2 at eval's windows (serve-gguf (b))
     rows += [check_eval_flash(fp, gen, T) for T in GGUF_EVAL_WINDOWS]
+    # kernel 2 at a pipeline stage's microbatch (serve-sp-pp (b))
+    rows.append(check_pp_stage_flash(fp, gen))
     for r in rows:
         print(
             f"kernels: {r['name']} ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} "
@@ -9712,6 +10076,8 @@ def main() -> None:
     held_after("serve-tp")
     print(f"serve-tp: phase {time.perf_counter() - t_tp + t_tp_cli:.3f} s ((d) {t_tp_cli:.3f}) "
           f"on {card}")
+    sppp = serve_sp_pp_phase(ref, served, card)
+    held_after("serve-sp-pp")
     if profile_out is not None:
         profile_phase(
             profile_out,
@@ -9749,6 +10115,8 @@ def main() -> None:
     for model, (_, kinds) in TP_RANK_GEOM.items():
         for kernel in kinds:
             launches[f"{kernel}/{model}"] = tp_launches[kernel]
+    # the pipeline leader's stage in serve-sp-pp (b)
+    launches["flash_prefill_attention/pp_stage"] = sppp["flash_prefill_attention"]
     for r in rows:
         r["launches"] = launches[r["name"]]
     print(f"chip_smoke: whole run {time.perf_counter() - t_all:.3f} s on {card}")

@@ -112,14 +112,11 @@ logger = logging.getLogger("dynamo.torch.run")
 ENGINES = ("torch", "mocker", "echo")
 
 # flags the port refuses while their features are not ported: name ->
-# whether the parsed value asks for the feature (dp inside one engine,
-# sp's ring prefill and pp's pipeline prefill)
+# whether the parsed value asks for the feature (dp inside one engine)
 _REFUSED = {
     "--dp": lambda a: a.dp != 1,
-    "--sp": lambda a: a.sp != 1,
-    "--pp": lambda a: a.pp != 1,
 }
-# the flags of what a tensor- or expert-parallel engine does not carry
+# the flags of what an engine on a mesh (tp, ep, sp or pp) does not carry
 # yet: name -> whether the parsed value asks for it
 _REFUSED_UNDER_MESH = {
     "--host-offload-blocks": lambda a: bool(a.host_offload_blocks),
@@ -223,14 +220,18 @@ def _add_engine_flags(p) -> None:
                         "victim's KV and restore it on resume); preempted "
                         "sequences always recompute instead")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel degree: one rank per process with "
-                        "--device cpu (gloo; NCCL ranks on cards are not served "
-                        "yet); env DYN_TP wins")
+                   help="tensor-parallel degree: one rank per process (NCCL, one "
+                        "card each; gloo with --device cpu); env DYN_TP wins")
     p.add_argument("--ep", type=int, default=1,
                    help="expert-parallel degree (MoE experts sharded over ranks)")
-    # refused: their features are not ported yet
-    for flag in ("--dp", "--sp", "--pp"):
-        p.add_argument(flag, type=int, default=1, help="not served by the port yet")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel degree: full prefills run as a ring over "
+                        "sp ranks (served alone)")
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline-parallel degree: full prefills run through pp "
+                        "stages of the layers (served alone)")
+    # refused: its feature is not ported yet
+    p.add_argument("--dp", type=int, default=1, help="not served by the port yet")
     # multi-host engine (torch.distributed; env DYN_NUM_NODES /
     # DYN_NODE_RANK / DYN_LEADER_ADDR also work)
     p.add_argument("--num-nodes", type=int, default=None,
@@ -452,13 +453,25 @@ def _check_refused(args) -> None:
         raise SystemExit(
             f"not served by the PyTorch port yet: {', '.join(refused)}"
         )
-    if max(getattr(args, "tp", 1), getattr(args, "ep", 1)) > 1:
+    if _mesh_degree(args) > 1:
         refused = [f for f, asks in _REFUSED_UNDER_MESH.items() if asks(args)]
         if refused:
             raise SystemExit(
-                f"--tp {args.tp} --ep {args.ep}: not served under tensor or expert "
-                f"parallelism yet: {', '.join(refused)}"
+                f"{_mesh_flags(args)}: not served under tensor, expert, sequence or "
+                f"pipeline parallelism yet: {', '.join(refused)}"
             )
+
+
+def _mesh_degree(args) -> int:
+    return max(getattr(args, a, 1) for a in ("tp", "ep", "sp", "pp"))
+
+
+def _mesh_flags(args) -> str:
+    """``--tp N --ep M`` (and ``--sp``/``--pp`` when set), as refusals
+    name the grid."""
+    flags = [f"--tp {args.tp}", f"--ep {args.ep}"]
+    flags += [f"--{a} {getattr(args, a)}" for a in ("sp", "pp") if getattr(args, a) != 1]
+    return " ".join(flags)
 
 
 def _apply_parallel_env(args) -> None:
@@ -500,18 +513,24 @@ def _multinode(args):
 def _rank_plan(args, device):
     """``(mesh_cfg, multinode, local_ranks, devices, backend)`` of a
     sharded ``out=torch`` engine, checked before any weight loads: the
-    degrees against the model's heads and this host's cards (JAX's "mesh
-    needs N devices, have M"; NCCL ranks on cards, one each, are refused by
-    name after that)."""
+    axes the port serves together, the degrees against the model's heads,
+    experts and layers, and this host's cards (JAX's "mesh needs N
+    devices, have M": NCCL ranks take one card each)."""
     from .engine.config import ModelConfig
-    from .parallel.mesh import MeshConfig
+    from .parallel.mesh import (
+        MeshConfig, check_devices, default_backend, rank_devices, refuse_unserved_axes,
+    )
 
-    mesh_cfg = MeshConfig(tp=args.tp, ep=args.ep)
+    mesh_cfg = MeshConfig(tp=args.tp, ep=args.ep, sp=args.sp, pp=args.pp)
+    flags = _mesh_flags(args)
+    try:
+        refuse_unserved_axes(mesh_cfg)
+    except ValueError as e:
+        raise SystemExit(f"{flags}: {e}")
     mn = _multinode(args)
     if mesh_cfg.num_devices % mn.num_nodes:
         raise SystemExit(
-            f"--tp {args.tp} --ep {args.ep}: {mesh_cfg.num_devices} ranks do not "
-            f"split over {mn.num_nodes} nodes"
+            f"{flags}: {mesh_cfg.num_devices} ranks do not split over {mn.num_nodes} nodes"
         )
     local = mesh_cfg.num_devices // mn.num_nodes
     model_cfg = ModelConfig.from_pretrained(args.model_path)
@@ -523,14 +542,17 @@ def _rank_plan(args, device):
         model_cfg.validate_ep(args.ep)
     except ValueError as e:
         raise SystemExit(f"--ep {args.ep}: {e}")
-    if device.type == "cuda":
-        from .parallel.mesh import check_devices
-
-        try:
-            check_devices(local, "nccl")
-        except ValueError as e:
-            raise SystemExit(f"--tp {args.tp} --ep {args.ep}: {e}")
-    return mesh_cfg, mn, local, [str(device)] * local, "gloo"
+    if model_cfg.num_layers % args.pp:
+        raise SystemExit(
+            f"--pp {args.pp}: the model's {model_cfg.num_layers} layers do not split over "
+            f"{args.pp} pipeline stages"
+        )
+    backend = default_backend(device)
+    try:
+        check_devices(local, backend)
+    except ValueError as e:
+        raise SystemExit(f"{flags}: {e}")
+    return mesh_cfg, mn, local, rank_devices(device, local), backend
 
 
 def _start_node_ranks(args, cfg, device):
@@ -663,23 +685,21 @@ def _make_engine(args):
         raise SystemExit(f"{e} (--device cpu)")
     cfg = _engine_config(args)
     logger.info("loading %s onto %s ...", args.model_path, device)
-    if max(args.tp, args.ep) > 1:
+    if _mesh_degree(args) > 1:
         return _make_sharded_engine(args, cfg, device)
     return TorchEngine.from_pretrained(args.model_path, cfg, device=device)
 
 
 def _make_sharded_engine(args, cfg, device):
-    """The leader's engine of a tp x ep grid: this host's follower ranks
-    started by the engine (one node), or joined through the multi-host
-    rendezvous (``--num-nodes``); the front end stays here."""
+    """The leader's engine of a grid (tp x ep, or sp or pp alone): this
+    host's follower ranks started by the engine (one node), or joined
+    through the multi-host rendezvous (``--num-nodes``); the front end
+    stays here."""
     from .engine import TorchEngine
-    from .parallel.mesh import MeshConfig
 
     mesh_cfg, mn, local, _devices, _backend = _rank_plan(args, device)
     if not mn.is_multi_node:
-        return TorchEngine.from_pretrained(
-            args.model_path, cfg, device=device, mesh=MeshConfig(tp=args.tp, ep=args.ep)
-        )
+        return TorchEngine.from_pretrained(args.model_path, cfg, device=device, mesh=mesh_cfg)
     mesh, ranks = _start_node_ranks(args, cfg, device)
     try:
         engine = TorchEngine.from_pretrained(args.model_path, cfg, device=device, mesh=mesh)
@@ -1823,7 +1843,7 @@ def main(argv=None) -> int:
             return 0
     args.inp, args.out = _parse_io(args.io)
     _check_served(args)
-    if args.out == "torch" and max(args.tp, args.ep) > 1 and _multinode(args).node_rank > 0:
+    if args.out == "torch" and _mesh_degree(args) > 1 and _multinode(args).node_rank > 0:
         return run_follower_node(args)
     if args.out == "dyn":
         runner = run_http_frontend

@@ -151,25 +151,41 @@ Tensor and expert parallelism (``parallel/``): with ``EngineConfig.tp``
 (or ``DYN_TP``) above 1, or a ``mesh`` (a ``parallel.MeshConfig`` of tp
 and ep, or a ``ParallelMesh`` whose followers the caller runs), the
 engine is the leader of a grid of ranks, one process each.  It starts this
-host's followers itself for a ``MeshConfig``; each holds its shard of the
-params and of the KV pool (``[L, 2, pages, page, Hkv/tp, D]``), and every
-trunk call of every dispatch reaches them first through the dispatch
-mirror (``parallel/sharding.py``).  The scheduler, the decode state, the
+host's followers itself for a ``MeshConfig``: NCCL ranks, one card each,
+on a card; gloo ranks on the CPU.  Each holds its shard of the params and
+of the KV pool (``[L, 2, pages, page, Hkv/tp, D]``), and every trunk call
+of every dispatch reaches them first through the dispatch mirror
+(``parallel/sharding.py``).  The scheduler, the decode state, the
 sampling, the commits and the front end stay here; the followers keep no
 lane state, so no host write needs mirroring.  An export gathers every
 rank's head slice into the full-width blob, stamped with its shard
-geometry.  The ranks' collectives are gloo's, which a CUDA graph cannot
-capture, so on a mesh every dispatch runs eagerly; NCCL ranks (one card
-each) are refused by name (``parallel.mesh``).  A collective that fails
-(a rank lost) fails the requests in flight and stops the engine.  Under
-tp or ep the engine refuses, by name, what the mirror does not carry yet:
-the KV offload plane (and swap preemption and prefix onboarding over it),
-the G4 remote tier, importing a remote prefill's KV and the model
+geometry.  Over NCCL the decode graphs are captured and replayed on every
+rank (the mirror carries the graph markers); a gloo mesh, whose
+collectives cannot be captured, runs every dispatch eagerly.  A
+collective that fails (a rank lost) fails the requests in flight and
+stops the engine, and a stop tears the ranks down in one order
+(``ParallelMesh.close``).
+
+Sequence and pipeline parallelism: a ``MeshConfig(sp=n)`` or
+``MeshConfig(pp=n)`` (each alone) routes full prefills through the ring
+(``parallel/ring_attention.py``) or the pipeline
+(``parallel/pipeline_parallel.py``): the JAX engine's
+``_dispatch_parallel_prefill``, sp when the bucket divides by sp, pp when
+the batch divides by its microbatches (the layers must divide by pp at
+construction); ``sp_prefills`` and ``pp_prefills`` count them.  The
+leader keeps the whole model, the pool and the lane state, and runs every
+other dispatch (suffix prefills, chunks, decode) alone, with its graphs;
+mixed batching is pinned off there, as JAX pins it, so full prefills take
+the classic dispatch that routes them.
+
+On any mesh the engine refuses, by name, what the mirror does not carry
+yet: the KV offload plane (and swap preemption and prefix onboarding over
+it), the G4 remote tier, importing a remote prefill's KV and the model
 drafter.
 
-Not served yet (later slices): NCCL ranks, data parallelism inside one
-engine, the ring (sp) and pipeline (pp) prefills, and CUDA graphs for
-dispatches that carry prefill chunks or verify columns.
+Not served yet (later slices): data parallelism inside one engine, sp or
+pp beside tp or ep, and CUDA graphs for dispatches that carry prefill
+chunks or verify columns.
 
 The serving-environment overrides the JAX engine reads at construction
 are read here too, with its parse, for the features the port has:
@@ -272,6 +288,8 @@ from .step import (
     packed_unified_multistep,
     prefill_mm_and_sample,
     prefill_suffix_and_sample,
+    prompt_penalized_logits,
+    sample_step_packed,
     scatter_layer_pages,
     score_prompt_step,
     seed_count_rows,
@@ -323,12 +341,14 @@ def _refuse_unserved(cfg: EngineConfig, model_dtype: str) -> None:
         )
 
 
-def _refuse_under_mesh(cfg: EngineConfig, tp: int, ep: int) -> None:
-    """What a tensor- or expert-parallel engine does not carry yet, refused
-    by field name before any rank starts: the KV offload plane (swap
-    preemption and prefix onboarding ride on it), the G4 remote tier and
-    the model drafter."""
-    where = f"EngineConfig.tp={tp}" if tp > 1 else f"ep={ep}"
+def _refuse_under_mesh(cfg: EngineConfig, grid: Any) -> None:
+    """What an engine on a mesh (``grid``: its ``MeshConfig`` or
+    ``ParallelMesh``) does not carry yet, refused by field name before any
+    rank starts: the KV offload plane (swap preemption and prefix
+    onboarding ride on it), the G4 remote tier and the model drafter."""
+    axis = next(a for a in ("tp", "ep", "sp", "pp") if getattr(grid, a) > 1)
+    where = (f"EngineConfig.tp={grid.tp}" if axis == "tp"
+             else f"{axis}={getattr(grid, axis)}")
     offload = _env_override("DYN_KV_OFFLOAD", None, _parse_offload_spec)
     host, disk = (offload["host"], offload["disk"]) if offload else (
         cfg.host_offload_blocks, cfg.disk_offload_blocks
@@ -344,8 +364,8 @@ def _refuse_under_mesh(cfg: EngineConfig, tp: int, ep: int) -> None:
     for name, value, what in checks:
         if value and str(value).strip().lower() not in ("0", "off", "none"):
             raise ValueError(
-                f"{where} with {name}={value!r}: {what} is not served under tensor "
-                "or expert parallelism yet"
+                f"{where} with {name}={value!r}: {what} is not served under tensor, "
+                "expert, sequence or pipeline parallelism yet"
             )
 
 
@@ -423,13 +443,17 @@ def _mesh_config_of(mesh: Any, cfg: Optional[EngineConfig], model_cfg: ModelConf
 
     if mesh is None:
         return resolve_mesh(cfg, model_cfg), None
+    grid = mesh if isinstance(mesh, MeshConfig) else mesh.config
+    refuse_unserved_axes(grid)
+    model_cfg.validate_tp(grid.tp)
+    model_cfg.validate_ep(grid.ep)
+    if model_cfg.num_layers % grid.pp:
+        raise ValueError(
+            f"pp={grid.pp}: the model's {model_cfg.num_layers} layers do not split over "
+            f"{grid.pp} pipeline stages"
+        )
     if isinstance(mesh, MeshConfig):
-        refuse_unserved_axes(mesh)
-        model_cfg.validate_tp(mesh.tp)
-        model_cfg.validate_ep(mesh.ep)
         return (mesh if mesh.num_devices > 1 else None), None
-    model_cfg.validate_tp(mesh.tp)
-    model_cfg.validate_ep(mesh.ep)
     return None, mesh
 
 
@@ -440,20 +464,19 @@ def start_ranks(
     device: torch.device,
     source: Dict[str, Any],
 ):
-    """Start this host's follower ranks of ``mesh_cfg`` (gloo, on the CPU)
-    and build the leader's mesh.  Returns ``(mesh, ranks)``; the engine
-    announces itself to them after.  On the card the ranks would be NCCL's,
-    one card each: refused by name (``parallel.mesh.check_devices``)."""
+    """Start this host's follower ranks of ``mesh_cfg`` and build the
+    leader's mesh: NCCL ranks on cards, one each (JAX's "mesh needs N
+    devices, have M" with fewer), gloo ranks on the CPU.  Returns ``(mesh,
+    ranks)``; the engine announces itself to them after."""
     from ..parallel.launch import grid_spec, leader_mesh, start_local_ranks
+    from ..parallel.mesh import check_devices, default_backend, rank_devices
 
-    _refuse_under_mesh(cfg, mesh_cfg.tp, mesh_cfg.ep)
+    _refuse_under_mesh(cfg, mesh_cfg)
     check_model_geometry(model_cfg, device, mesh_cfg.tp)
     world = mesh_cfg.num_devices
-    if device.type == "cuda":
-        from ..parallel.mesh import check_devices
-
-        check_devices(world, "nccl")
-    spec = grid_spec(mesh_cfg, [str(device)] * world, "gloo")
+    backend = default_backend(device)
+    check_devices(world, backend)
+    spec = grid_spec(mesh_cfg, rank_devices(device, world), backend)
     ranks = start_local_ranks(mesh_cfg, spec)
     return leader_mesh(mesh_cfg, spec, ranks), ranks
 
@@ -864,7 +887,12 @@ class TorchEngine:
         if c.prefill_chunk_tokens is not None:
             ps = c.page_size
             self._chunk_tokens = max(ps, -(-c.prefill_chunk_tokens // ps) * ps)
-        self._mixed = bool(c.mixed_batching)
+        # sp and pp meshes pin mixed batching off (the JAX engine's rule):
+        # they exist to speed up full prefills, which only the classic
+        # dispatch routes through the ring or the pipeline
+        self._mixed = bool(c.mixed_batching) and (
+            self.mesh is None or self.mesh.prefill_axis is None
+        )
         self._packed = _env_override("DYN_PACKED_RAGGED", bool(c.packed_ragged), _env_flag)
         # multistep decode rides the packed mixed plane only
         self._multistep = bool(c.multistep_decode) and self._mixed and self._packed
@@ -907,8 +935,16 @@ class TorchEngine:
         self._packed_shapes = PackedShapeBudget(
             _env_override("DYN_PACKED_SHAPE_BUDGET", PACKED_SHAPE_BUDGET, int)
         )
-        # a mesh runs every dispatch eagerly (its collectives are gloo's)
-        self.graphs = StepGraphs(self.device, enabled=self.mesh is None)
+        # an NCCL mesh that shards the trunk captures its decode graphs on
+        # every rank (the mirror carries the markers); a gloo one runs every
+        # dispatch eagerly; a ring or pipeline mesh decodes on the leader
+        # alone, with its own graphs
+        mirror = getattr(self.params, "mirror", None)
+        self.graphs = StepGraphs(
+            self.device,
+            enabled=self.mesh is None or not self.mesh.shards_trunk or self.mesh.capturable,
+            mirror=mirror if mirror is not None and mirror.mirrors_graphs else None,
+        )
         # lanes whose classic chunked prefill is under way (one chunk per tick)
         self._chunking: List[SeqState] = []
         # unseeded lanes key their noise on a per-request nonce, counted
@@ -952,6 +988,12 @@ class TorchEngine:
         # soft-prompt prefills included) and suffixes over a resident
         # prefix, chunks included (prefix-suffix flash prefill)
         self.prefill_dispatches: Dict[str, int] = {"full": 0, "suffix": 0}
+        # full prefills routed through the ring (sp) or the pipeline (pp),
+        # and the pipeline's microbatches over them (each stage runs each
+        # of its layers once a microbatch)
+        self.sp_prefills = 0
+        self.pp_prefills = 0
+        self.pp_microbatches = 0
         self._init_device_state()
         # dispatch spans on CUDA events (card only): (kind, start, end)
         # awaiting their end event, None marking an idle loop (no gap is
@@ -982,16 +1024,19 @@ class TorchEngine:
         from ..parallel.sharding import DispatchMirror, build_rank_params
 
         mesh = self.mesh
-        _refuse_under_mesh(self.cfg, mesh.tp, mesh.ep)
+        _refuse_under_mesh(self.cfg, mesh)
         if not hasattr(self.params, "mesh"):
             announce_engine(mesh, self.model_cfg, self.cfg, {"kind": "scatter"})
             self.params = build_rank_params(
                 {"kind": "scatter"}, self.model_cfg, mesh, self.dtype, whole=self.params
             )
         self.params.mirror = DispatchMirror(mesh)
+        # the ring's or the pipeline's sends and receives
+        self._exchange = (mesh.exchange(mesh.prefill_axis)
+                          if mesh.prefill_axis is not None else None)
         logger.info(
-            "leader of a tp=%d ep=%d grid over %s (%s; no graphs: eager dispatches)",
-            mesh.tp, mesh.ep, mesh.backend, mesh.device,
+            "leader of a tp=%d ep=%d sp=%d pp=%d grid over %s (%s)",
+            mesh.tp, mesh.ep, mesh.sp, mesh.pp, mesh.backend, mesh.device,
         )
 
     def _shard_geometry(self) -> Optional[Dict[str, int]]:
@@ -1004,21 +1049,28 @@ class TorchEngine:
         are dismissed, joined (then killed if still alive) and the mesh
         closed; a caller's mesh stays open, its followers waiting for the
         next engine."""
-        from ..parallel.launch import dismiss
+        from ..parallel.launch import dismiss, stop_watch
 
         mirror = getattr(self.params, "mirror", None)
-        try:
-            if mirror is not None:
-                mirror.stop()
+        graphs = getattr(self, "graphs", None)
+        if graphs is not None:
+            # the followers drop theirs at the stop
+            graphs.mirror = None
+            graphs.release(lambda key: False)
+        with stop_watch():
+            try:
+                if mirror is not None:
+                    mirror.stop()
+                if self._ranks is not None:
+                    dismiss(self.mesh)
+            except Exception:  # a follower already gone
+                self.mesh_error = self.mesh_error or "a follower rank is gone"
             if self._ranks is not None:
-                dismiss(self.mesh)
-        except Exception:  # a follower already gone
-            pass
-        if self._ranks is not None:
-            # the groups close on both sides at once, then the processes end
-            self.mesh.close()
-            self._ranks.join()
-            self._ranks = None
+                # every rank tears its groups down in one order, then the
+                # followers exit
+                self.mesh.close(lost=self.mesh_error is not None)
+                self._ranks.join()
+                self._ranks = None
 
     def _mesh_lost(self, message: str) -> None:
         """A collective failed: a rank is gone or its group broke.  The
@@ -1034,8 +1086,9 @@ class TorchEngine:
     def _refuse_on_mesh(self, what: str) -> None:
         if self.mesh is not None:
             raise ValueError(
-                f"{what} is not served under tensor or expert parallelism yet "
-                f"(tp={self.mesh.tp}, ep={self.mesh.ep})"
+                f"{what} is not served under tensor, expert, sequence or pipeline "
+                f"parallelism yet (tp={self.mesh.tp}, ep={self.mesh.ep}, "
+                f"sp={self.mesh.sp}, pp={self.mesh.pp})"
             )
 
     def _on_ranks(self, fn, *args):
@@ -3010,9 +3063,14 @@ class TorchEngine:
             table[i, :k] = seq.pages[:k]
             lanes[i] = seq
         put = self._put
-        self.prefill_dispatches["full"] += 1
         top_n = self._lp_top(lanes)
         penalized = any(self._seq_penalized(s) for s in seqs)
+        if all(s.mm_embeds is None for s in seqs):
+            routed = self._dispatch_parallel_prefill(tokens, lens, table, lanes, top_n,
+                                                     penalized)
+            if routed is not None:
+                return routed
+        self.prefill_dispatches["full"] += 1
         mm = mm_len = None
         if any(s.mm_embeds is not None for s in seqs):
             mm_lens = [0 if s.mm_embeds is None else len(s.mm_embeds) for s in seqs]
@@ -3029,6 +3087,52 @@ class TorchEngine:
             self.params, self.model_cfg, self.kv.pages, put(tokens), put(lens),
             put(table), mm, mm_len, self._sampling_params(lanes), top_n, penalized,
         )
+
+    def _dispatch_parallel_prefill(
+        self,
+        tokens: np.ndarray,  # [Bp, bucket]
+        lens: np.ndarray,
+        table: np.ndarray,
+        lanes: List[Optional[SeqState]],
+        top_n: int,
+        penalized: bool,
+    ) -> Optional[torch.Tensor]:
+        """A full prefill through the ring (sp) or the pipeline (pp) when
+        the mesh has that axis and the shapes qualify (the JAX engine's
+        ``_dispatch_parallel_prefill``): the ring wants the bucket divisible
+        by sp, the pipeline the batch divisible by its ``min(pp, B)``
+        microbatches.  Returns the packed first-token samples, or None for
+        the plain path."""
+        mesh = self.mesh
+        axis = mesh.prefill_axis if mesh is not None else None
+        if axis is None:
+            return None
+        Bp, bucket = tokens.shape
+        n = getattr(mesh, axis)
+        M = min(n, Bp)
+        if (axis == "sp" and bucket % n) or (axis == "pp" and Bp % M):
+            return None
+        put = self._put
+        tok, ln, pt = put(tokens), put(lens), put(table)
+        mirror = self.params.mirror
+        if axis == "sp":
+            from ..parallel.ring_attention import ring_prefill_step
+
+            mirror.ring(tok, ln)
+            logits = ring_prefill_step(self.params, self.model_cfg, self.kv.pages, tok, ln, pt,
+                                       self._exchange)
+            self.sp_prefills += 1
+        else:
+            from ..parallel.pipeline_parallel import pp_prefill_step
+
+            mirror.pipe(tok, ln, M)
+            logits = pp_prefill_step(self.params, self.model_cfg, self.kv.pages, tok, ln, pt, M,
+                                     self._exchange)
+            self.pp_prefills += 1
+            self.pp_microbatches += M
+        sampling = self._sampling_params(lanes)
+        pen = prompt_penalized_logits(logits, tok, ln, sampling) if penalized else None
+        return sample_step_packed(logits, sampling, top_n, ln, pen)
 
     def _dispatch_suffix_prefill_batch(
         self, entries: List[Tuple[SeqState, int, int]], Bp: int

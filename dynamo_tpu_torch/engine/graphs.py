@@ -51,9 +51,15 @@ budget in ``GRAPH_BUDGET`` -- the JAX engine's per-jit ``COMPILE_BUDGET``
 On the CPU there are no graphs: the same call runs eagerly.  On the card
 a capture or replay error raises; nothing falls back to eager.
 
-An engine on a tensor- or expert-parallel mesh gets ``enabled=False``:
-its collectives (gloo's) cannot be captured, so every step runs eagerly
-there, and no graph is counted.
+On a tensor- or expert-parallel mesh over NCCL the graphs hold the
+trunk's collectives, and the leader's dispatch mirror (``mirror``) tells
+the followers where each capture begins and ends, where each replay runs
+and which graphs go, each by the graph's id: a follower captures and
+replays its half of every graph in the leader's order
+(``parallel/sharding.py``).  Over gloo, whose collectives cannot be
+captured, such an engine gets ``enabled=False``: every step runs eagerly
+there, and no graph is counted.  A ring or pipeline mesh decodes on the
+leader alone, so its graphs hold no collective and need no mirror.
 """
 
 from __future__ import annotations
@@ -115,10 +121,16 @@ class _Graph:
 class StepGraphs:
     """The captured decode graphs of one engine, by key."""
 
-    def __init__(self, device: torch.device, enabled: bool = True) -> None:
+    def __init__(self, device: torch.device, enabled: bool = True, mirror=None) -> None:
         self.device = device
-        # a mesh, whose collectives cannot be captured, runs every step eagerly
+        # a gloo mesh, whose collectives cannot be captured, runs every step
+        # eagerly
         self.enabled = enabled and device.type == "cuda"
+        # the leader's dispatch mirror of an NCCL mesh (None: no followers
+        # to tell), and each key's graph id on the wire
+        self.mirror = mirror
+        self._ids: Dict[Hashable, int] = {}
+        self._next_id = 0
         self.captures = 0
         # host wall time of the captures, their eager warm-ups included
         # (``torch.cuda.graph`` synchronizes the device as it begins)
@@ -146,6 +158,8 @@ class StepGraphs:
             return self._capture(kind, key, inputs, call)
         for dst, src in zip(g.inputs, inputs):
             dst.copy_(src, non_blocking=True)
+        if self.mirror is not None:
+            self.mirror.graph_replay(self._ids[key])
         g.graph.replay()
         set_launch_counts([n + d for n, d in zip(launch_counts(), g.delta)])
         self.replays[kind] = self.replays.get(kind, 0) + 1
@@ -171,8 +185,15 @@ class StepGraphs:
         out.record_stream(cur)
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
+        gid = self._next_id
+        self._next_id += 1
+        if self.mirror is not None:
+            self.mirror.graph_begin(gid)
         with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
             output = call(static)
+        if self.mirror is not None:
+            self.mirror.graph_end(gid)
+        self._ids[key] = gid
         delta = [a - b for a, b in zip(launch_counts(), before)]
         set_launch_counts(before)
         self._graphs[key] = _Graph(graph, static, output, delta)
@@ -184,8 +205,11 @@ class StepGraphs:
     def release(self, keep: Callable[[Hashable], bool]) -> None:
         """Drop the graphs whose key ``keep`` refuses (a shape the budget
         evicted); their memory returns to the shared pool."""
-        for key in [k for k in self._graphs if not keep(k)]:
+        gone = [k for k in self._graphs if not keep(k)]
+        for key in gone:
             del self._graphs[key]
+        if self.mirror is not None and gone:
+            self.mirror.graph_release([self._ids.pop(k) for k in gone])
         if not self._graphs:
             # a pool no graph holds is released and cannot take another
             # capture: the next capture starts a fresh one

@@ -417,6 +417,22 @@ def transformer_layer(
     return x + _dense_mlp(lp, h2, cfg.hidden_act, mesh)
 
 
+def embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """The trunk's input rows of ``tokens [T]``: the embedding lookup
+    (gathered over tp on a mesh, whose table is split over the hidden
+    axis) and Gemma's scale."""
+    mesh = mesh_of(params)
+    x = params["embed"][tokens]
+    if mesh is not None:
+        x = mesh.all_gather(x, dim=-1, over="tp")
+    if cfg.scale_embeddings:
+        # sqrt(hidden) rounded to the embed dtype, as the JAX trunk's; a
+        # Python scalar, not a device tensor: a host-to-device copy inside
+        # a CUDA-graph capture fails it
+        x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype).item()
+    return x
+
+
 def transformer(
     params: Params,
     cfg: ModelConfig,
@@ -436,14 +452,7 @@ def transformer(
     the model's dtype, instead of the token-embedding lookup.  The rows
     land after Gemma's embedding scale, so they are not scaled."""
     mesh = mesh_of(params)
-    x = params["embed"][tokens]
-    if mesh is not None:  # the table is split over the hidden axis
-        x = mesh.all_gather(x, dim=-1, over="tp")
-    if cfg.scale_embeddings:
-        # sqrt(hidden) rounded to the embed dtype, as the JAX trunk's; a
-        # Python scalar, not a device tensor: a host-to-device copy inside
-        # a CUDA-graph capture fails it
-        x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype).item()
+    x = embed_tokens(params, cfg, tokens)
     if mm is not None:
         mm_embeds, mm_len = mm
         B, M = mm_embeds.shape[:2]

@@ -1,7 +1,7 @@
 """Multi-GPU serving: the rank grid, the sharding rules, the leader's
-dispatch mirror and its followers (the JAX package's ``parallel/``, whose
-tp and ep the port serves; dp inside one engine, sp's ring prefill and
-pp's pipeline prefill are later work)."""
+dispatch mirror and its followers, the ring prefill (sp) and the pipeline
+prefill (pp) -- the JAX package's ``parallel/``; dp inside one engine, and
+sp or pp beside tp or ep, are later work."""
 
 from .mesh import MeshConfig, ParallelMesh, build_mesh, env_parallel_spec, serving_mesh
 from .sharding import kv_pspec, param_pspecs, shard_params

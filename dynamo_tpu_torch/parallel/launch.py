@@ -13,13 +13,20 @@ from: drawn from a seed, read from a checkpoint, or sent by the leader),
 the follower builds its params shard and pool, reports ready and runs
 :class:`sharding.Follower`'s loop until that engine stops; a ``None``
 spec (:func:`dismiss`) ends it, and so does a lost leader.  Every wait
-here is bounded.
+here is bounded.  A follower then tears its groups down in the leader's
+order (``ParallelMesh.close``) and exits.
+
+``DYN_STOP_TRACE_S=N`` arms ``faulthandler`` on the leader and on every
+follower as a stop begins: a stop that has not returned within N seconds
+prints every thread's stack (to stderr), where the teardown waits.
 """
 
 from __future__ import annotations
 
 import atexit
 import concurrent.futures
+import contextlib
+import faulthandler
 import logging
 import os
 import pickle
@@ -33,7 +40,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from ..engine.config import ModelConfig
-from .mesh import MeshConfig, ParallelMesh, build_mesh, refuse_backend
+from .mesh import MeshConfig, ParallelMesh, build_mesh
 from .sharding import Follower, build_rank_params, make_pool
 
 logger = logging.getLogger("dynamo.torch_parallel")
@@ -50,9 +57,7 @@ def grid_spec(
     local_ranks: Optional[int] = None,
 ) -> Dict[str, Any]:
     """What a follower process needs to join the grid: ``devices[r]`` is
-    rank r's device.  A backend the port does not serve (NCCL) is refused
-    here, before any follower starts."""
-    refuse_backend(backend)
+    rank r's device."""
     return dict(mesh=asdict(mesh_cfg), devices=list(devices), backend=backend,
                 init_method=init_method, local_ranks=local_ranks)
 
@@ -66,6 +71,20 @@ def engine_spec(
     (``sharding.build_rank_params``)."""
     return dict(model=asdict(model_cfg), num_pages=num_pages, page_size=page_size,
                 quantized_pool=quantized_pool, source=dict(source))
+
+
+@contextlib.contextmanager
+def stop_watch():
+    """Within the block, ``DYN_STOP_TRACE_S=N`` (when set) has every
+    thread's stack printed if N seconds pass (module docstring)."""
+    raw = os.environ.get("DYN_STOP_TRACE_S", "").strip()
+    if raw:
+        faulthandler.dump_traceback_later(float(raw), exit=False)
+    try:
+        yield
+    finally:
+        if raw:
+            faulthandler.cancel_dump_traceback_later()
 
 
 def announce(mesh: ParallelMesh, spec: Dict[str, Any]) -> None:
@@ -100,6 +119,8 @@ def run_follower(
 def follow(mesh: ParallelMesh) -> int:
     """Serve the engines the leader announces until it dismisses this
     rank.  Returns how many were served."""
+    import gc
+
     served = 0
     while True:
         spec = mesh.broadcast_object()
@@ -107,11 +128,11 @@ def follow(mesh: ParallelMesh) -> int:
             return served
         run_follower(mesh, spec)
         served += 1
-        import gc
-
-        gc.collect()
-        if mesh.device.type == "cuda":
-            torch.cuda.empty_cache()
+        with stop_watch():
+            gc.collect()
+            if mesh.device.type == "cuda":
+                torch.cuda.synchronize(mesh.device)
+                torch.cuda.empty_cache()
 
 
 class LocalRanks:
@@ -236,8 +257,9 @@ def main(argv: List[str]) -> int:
         follow(mesh)
     except Exception as e:  # the leader is gone, or this rank failed
         logger.warning("follower rank %d stops: %s", rank, e)
+        mesh.close(lost=True)
         return 1
-    finally:
+    with stop_watch():
         mesh.close()
     return 0
 

@@ -3,31 +3,50 @@
 
 Axes are the JAX mesh's (``dp``, ``pp``, ``sp``, ``ep``, ``tp``; ``tp``
 innermost, so the ranks of one tensor-parallel group are neighbours).  The
-port serves ``tp`` and ``ep``: a :class:`ParallelMesh` is this rank's view
-of an ``ep x tp`` grid -- its coordinates and device, the process groups
-its collectives run over (the world, its tp row, its ep column, and a CPU
-side group the leader's small host descriptors ride), the backend and
-whether a CUDA graph can capture its collectives.
+port serves ``tp`` and ``ep`` together, and ``sp`` (the ring prefill) and
+``pp`` (the pipeline prefill) each alone; data parallelism inside one
+engine, and sp or pp beside another axis, are refused by name
+(:func:`refuse_unserved_axes`).  A :class:`ParallelMesh` is this rank's
+view of the grid -- its coordinates and device, the process groups its
+collectives run over (the world, one group per axis longer than one, and
+a CPU side group the leader's small host descriptors ride), the backend
+and whether a CUDA graph can capture its collectives.
 
-The backend follows the device: CPU ranks run gloo; CUDA ranks would run
-NCCL, one card each, and are refused by name -- an NCCL engine's stop has
-not been shown to return, so the port does not serve it yet.  A mesh that
-needs more cards than the host has is refused first, as JAX's
-``build_mesh`` refuses ("mesh needs N devices, have M").
+The backend follows the device: CPU ranks run gloo, CUDA ranks NCCL, one
+card each.  A mesh that needs more cards than the host has is refused, as
+JAX's ``build_mesh`` refuses ("mesh needs N devices, have M").
 ``build_mesh(..., backend="gloo")`` on a CUDA device is the one explicit
 exception (gloo takes CUDA tensors for its collectives, so two ranks can
-share one card): a check of agreement, not a served configuration.  Its
-collectives cannot be captured, so an engine over any mesh runs every
-dispatch eagerly.  Nothing picks a backend or a device by itself.
+share one card): a check of agreement, not a served configuration.  Gloo's
+collectives cannot be captured, so an engine over a gloo mesh runs every
+dispatch eagerly; over NCCL the decode graphs are captured and replayed on
+every rank (``sharding.DispatchMirror``).  Nothing picks a backend or a
+device by itself, and nothing falls back from one backend to another.
 
-Groups.  Inside a world that ``torch.distributed.init_process_group``
-already set up (``multihost.initialize_multihost``) the groups come from
-``new_group``; otherwise each is built straight from a store
-(``file://`` or ``tcp://``), so one process may hold several meshes one
-after another (tests build and tear down one per engine).  Every
-collective goes through the group objects' own methods and counts itself
-in :attr:`ParallelMesh.counts` (``all_reduce``, ``all_gather``,
-``broadcast``, ``amax``), the numbers a smoke run reads per rank.
+Groups.  A mesh outside an initialized world starts one
+(``init_process_group`` over a ``file://`` or ``tcp://`` store) and owns
+it; inside a world ``multihost.initialize_multihost`` set up it uses that
+world.  So a process holds one mesh at a time (one after another is
+fine: each tears its world down); a second one is refused at once.  Every group comes from ``new_group``, made by every rank in one
+order, and an NCCL group runs one collective at once, so its communicator
+exists before any graph capture.  Every collective goes through the
+group objects' own methods and counts itself in
+:attr:`ParallelMesh.counts` (``all_reduce``, ``all_gather``,
+``broadcast``, ``amax``, ``send``, ``recv``), the numbers a smoke run
+reads per rank.
+
+Teardown (:meth:`ParallelMesh.close`) runs the same steps on every rank:
+the device synchronized, a barrier on the side group, then
+``destroy_process_group`` on each group in one order (the world last,
+when the mesh owns it).  An NCCL communicator's destruction is collective
+in some NCCL versions, so a rank that destroys its groups while a peer is
+still inside a collective, or in another order, waits for ever; the
+barrier puts every rank past its last collective first.
+
+Point to point.  :class:`RankExchange` sends and receives over one axis
+(the ring's rotation is one ``batch_isend_irecv`` a step) and counts the
+bytes each rank sends to the leader; :class:`LocalExchange` is its twin
+for ranks that are threads of one process, which the tests drive.
 """
 
 from __future__ import annotations
@@ -35,8 +54,9 @@ from __future__ import annotations
 import collections
 import datetime
 import os
+import queue
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -48,6 +68,10 @@ DEFAULT_TIMEOUT_S = 120.0
 # leader is not a dead one (a dead leader closes its sockets, which ends
 # the wait at once)
 IDLE_TIMEOUT_S = 7 * 24 * 3600.0
+# the grid's axes, outermost first (tp innermost)
+AXES = ("dp", "pp", "sp", "ep", "tp")
+# the mesh this process holds, until it closes (module docstring)
+_held: Optional["ParallelMesh"] = None
 
 
 @dataclass(frozen=True)
@@ -65,44 +89,60 @@ class MeshConfig:
     def axis_names(self) -> List[str]:
         return ["dp", "pp", "sp", "ep", "tp"]
 
+    @property
+    def prefill_axis(self) -> Optional[str]:
+        """``"sp"`` or ``"pp"`` for a ring or pipeline mesh, else None."""
+        return "sp" if self.sp > 1 else "pp" if self.pp > 1 else None
+
 
 def refuse_unserved_axes(cfg: MeshConfig) -> None:
-    """The port serves tp and ep; dp inside one engine, sp's ring prefill
-    and pp's pipeline prefill are later work, refused by name."""
-    for axis in ("dp", "sp", "pp"):
-        if getattr(cfg, axis) != 1:
-            raise ValueError(
-                f"{axis}={getattr(cfg, axis)}: not served by the PyTorch port yet "
-                "(it serves tp and ep)"
-            )
+    """The port serves tp and ep (together), and sp and pp each alone:
+    dp inside one engine, and sp or pp beside any other axis, are later
+    work, refused by name."""
+    if cfg.dp != 1:
+        raise ValueError(
+            f"dp={cfg.dp}: data parallelism inside one engine is not served by the "
+            "PyTorch port yet"
+        )
+    axis = cfg.prefill_axis
+    if axis is None:
+        return
+    others = [f"{a}={getattr(cfg, a)}" for a in ("pp", "sp", "ep", "tp")
+              if a != axis and getattr(cfg, a) != 1]
+    if others:
+        raise ValueError(
+            f"{axis}={getattr(cfg, axis)} with {', '.join(others)}: not served by the "
+            "PyTorch port yet (sp and pp are served alone)"
+        )
 
 
-NCCL_NOT_SERVED = (
-    "tp and ep over NCCL (one card a rank) are not served by the PyTorch port "
-    "yet: an NCCL engine's stop has not been shown to return; serve them on "
-    "the CPU (--device cpu, gloo)"
-)
-
-
-def refuse_backend(backend: str) -> None:
-    if backend != "gloo":
-        raise ValueError(NCCL_NOT_SERVED if backend == "nccl" else
-                         f"backend {backend!r}: the port's ranks run gloo")
+def _check_backend(backend: str) -> None:
+    if backend not in ("gloo", "nccl"):
+        raise ValueError(f"backend {backend!r}: the port's ranks run gloo or nccl")
 
 
 def check_devices(local_ranks: int, backend: str) -> None:
-    """JAX's ``build_mesh`` refusal first: NCCL takes one card per rank,
-    so the ranks of one host need as many cards.  Then NCCL itself, by
-    name (module docstring)."""
+    """JAX's ``build_mesh`` refusal: NCCL takes one card per rank, so the
+    ranks of one host need as many cards."""
+    _check_backend(backend)
     if backend == "nccl":
         have = torch.cuda.device_count() if torch.cuda.is_available() else 0
         if have < local_ranks:
             raise ValueError(f"mesh needs {local_ranks} devices, have {have}")
-    refuse_backend(backend)
 
 
 def default_backend(device: torch.device) -> str:
     return "nccl" if device.type == "cuda" else "gloo"
+
+
+def rank_devices(device: torch.device, world: int) -> List[str]:
+    """Each rank's device: one card each from the leader's on (NCCL), or
+    the leader's own device for every rank (the CPU)."""
+    if device.type != "cuda":
+        return [str(device)] * world
+    first = device.index if device.index is not None else torch.cuda.current_device()
+    count = torch.cuda.device_count()
+    return [f"cuda:{(first + r) % count}" for r in range(world)]
 
 
 def _timeout() -> datetime.timedelta:
@@ -122,8 +162,33 @@ def _store_from(init_method: str, rank: int, world: int, timeout) -> Any:
     raise ValueError(f"unsupported init method {init_method!r} (file:// or tcp://)")
 
 
+def grid_coords(config: MeshConfig, rank: int) -> Dict[str, int]:
+    """Rank -> its index on ep, tp and every other axis longer than one,
+    in axis order (tp innermost)."""
+    index: Dict[str, int] = {}
+    rest = rank
+    for axis in reversed(AXES):
+        n = getattr(config, axis)
+        index[axis] = rest % n
+        rest //= n
+    return {a: index[a] for a in AXES if a in ("ep", "tp") or getattr(config, a) > 1}
+
+
+def grid_rank(config: MeshConfig, coords: Dict[str, int]) -> int:
+    rank = 0
+    for axis in AXES:
+        rank = rank * getattr(config, axis) + coords.get(axis, 0)
+    return rank
+
+
+def axis_ranks(config: MeshConfig, coords: Dict[str, int], axis: str) -> List[int]:
+    """The global ranks along ``axis`` through ``coords``, in axis order."""
+    return [grid_rank(config, dict(coords, **{axis: i}))
+            for i in range(getattr(config, axis))]
+
+
 class ParallelMesh:
-    """This rank's view of the ``ep x tp`` grid (see the module docstring).
+    """This rank's view of the grid (see the module docstring).
 
     ``coords`` maps each axis to this rank's index on it; ``tp_ranks`` and
     ``ep_ranks`` list the global ranks of this rank's groups.  Global rank
@@ -139,65 +204,90 @@ class ParallelMesh:
         timeout: Optional[datetime.timedelta] = None,
     ) -> None:
         refuse_unserved_axes(config)
-        refuse_backend(backend)
+        _check_backend(backend)
+        if _held is not None:
+            raise RuntimeError(
+                f"this process holds a mesh already ({_held.describe()}): close it first"
+            )
         self.config = config
         self.rank = rank
         self.world = config.num_devices
         self.device = device
         self.backend = backend
         self.timeout = timeout or _timeout()
-        tp, ep = config.tp, config.ep
-        self.coords = {"ep": rank // tp, "tp": rank % tp}
-        self.tp_ranks = [self.coords["ep"] * tp + j for j in range(tp)]
-        self.ep_ranks = [e * tp + self.coords["tp"] for e in range(ep)]
+        self.coords = grid_coords(config, rank)
+        self.tp_ranks = axis_ranks(config, self.coords, "tp")
+        self.ep_ranks = axis_ranks(config, self.coords, "ep")
         self.counts: Dict[str, int] = collections.Counter()
-        if dist.is_initialized():
-            self._groups_from_world()
-        else:
+        self.groups: Dict[str, Any] = {}
+        self._owns_world = False
+        self._closed = False
+        if not dist.is_initialized():
             if init_method is None:
                 raise ValueError("a mesh outside an initialized world needs init_method")
             store = _store_from(init_method, rank, self.world, self.timeout)
-            self._groups_from_store(store)
+            dist.init_process_group(
+                backend, store=dist.PrefixStore("mesh", store), rank=rank,
+                world_size=self.world, timeout=self.timeout,
+            )
+            self._owns_world = True
+        try:
+            self._make_groups()
+        except BaseException:
+            if self._owns_world:
+                dist.destroy_process_group()
+            raise
+        _hold(self)
 
     # -- groups -------------------------------------------------------------
 
-    def _groups_from_store(self, store) -> None:
-        def make(prefix: str, ranks: List[int], timeout) -> Any:
-            pstore = dist.PrefixStore(prefix, store)
-            return dist.ProcessGroupGloo(pstore, ranks.index(self.rank), len(ranks), timeout)
-
-        side_timeout = self.timeout if self.rank == 0 else datetime.timedelta(
-            seconds=IDLE_TIMEOUT_S
-        )
-        everyone = list(range(self.world))
-        self.world_group = make("world", everyone, self.timeout)
-        self.side_group = make("side", everyone, side_timeout)
-        self.tp_group = make(f"tp{self.coords['ep']}", self.tp_ranks, self.timeout)
-        self.ep_group = make(f"ep{self.coords['tp']}", self.ep_ranks, self.timeout)
-
-    def _groups_from_world(self) -> None:
+    def _make_groups(self) -> None:
         """``new_group`` for every group, made by every rank in one order
-        (the call is collective over the world)."""
-        tp, ep = self.config.tp, self.config.ep
+        (the call is collective over the world), then one collective on
+        each device group this rank is in, in the same order."""
         if dist.get_world_size() != self.world:
             raise ValueError(
                 f"mesh of {self.world} ranks in a world of {dist.get_world_size()}"
             )
-        self.world_group = dist.new_group(list(range(self.world)), timeout=self.timeout)
+        everyone = list(range(self.world))
+        self.groups["world"] = dist.new_group(everyone, timeout=self.timeout)
         side_timeout = self.timeout if self.rank == 0 else datetime.timedelta(
             seconds=IDLE_TIMEOUT_S
         )
-        self.side_group = dist.new_group(
-            list(range(self.world)), timeout=side_timeout, backend="gloo"
-        )
-        for e in range(ep):
-            g = dist.new_group([e * tp + j for j in range(tp)], timeout=self.timeout)
-            if e == self.coords["ep"]:
-                self.tp_group = g
-        for j in range(tp):
-            g = dist.new_group([e * tp + j for e in range(ep)], timeout=self.timeout)
-            if j == self.coords["tp"]:
-                self.ep_group = g
+        self.groups["side"] = dist.new_group(everyone, timeout=side_timeout, backend="gloo")
+        cfg = self.config
+        for axis in AXES[1:]:
+            if getattr(cfg, axis) == 1:
+                continue
+            # every line of the axis, each made by every rank
+            lines = sorted({tuple(axis_ranks(cfg, grid_coords(cfg, r), axis)) for r in everyone})
+            for line in lines:
+                g = dist.new_group(list(line), timeout=self.timeout)
+                if self.rank in line:
+                    self.groups[axis] = g
+        if self.backend == "nccl":
+            torch.cuda.set_device(self.device)
+            for name in ("world", *AXES[1:]):
+                if name in self.groups:
+                    x = torch.zeros(1, device=self.device)
+                    self.groups[name].allreduce([x]).wait()
+            torch.cuda.synchronize(self.device)
+
+    @property
+    def tp_group(self):
+        return self.groups.get("tp")
+
+    @property
+    def ep_group(self):
+        return self.groups.get("ep")
+
+    @property
+    def side_group(self):
+        return self.groups["side"]
+
+    @property
+    def world_group(self):
+        return self.groups["world"]
 
     # -- identity -----------------------------------------------------------
 
@@ -208,6 +298,29 @@ class ParallelMesh:
     @property
     def ep(self) -> int:
         return self.config.ep
+
+    @property
+    def sp(self) -> int:
+        return self.config.sp
+
+    @property
+    def pp(self) -> int:
+        return self.config.pp
+
+    @property
+    def prefill_axis(self) -> Optional[str]:
+        return self.config.prefill_axis
+
+    @property
+    def shards_trunk(self) -> bool:
+        """Whether every trunk pass runs on every rank (tp or ep); a ring
+        or pipeline mesh runs decode on the leader alone."""
+        return self.tp * self.ep > 1
+
+    @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can capture this mesh's collectives."""
+        return self.backend == "nccl"
 
     @property
     def is_leader(self) -> bool:
@@ -221,19 +334,18 @@ class ParallelMesh:
 
     def describe(self) -> Dict[str, Any]:
         return {
-            "tp": self.tp, "ep": self.ep, "world": self.world, "rank": self.rank,
-            "backend": self.backend,
-            "device": str(self.device),
+            "tp": self.tp, "ep": self.ep, "sp": self.sp, "pp": self.pp,
+            "world": self.world, "rank": self.rank, "backend": self.backend,
+            "device": str(self.device), "graphs": self.capturable,
         }
 
     # -- collectives ----------------------------------------------------------
 
     def _group(self, name: str):
-        return {"tp": self.tp_group, "ep": self.ep_group, "world": self.world_group,
-                "side": self.side_group}[name]
+        return self.groups[name]
 
     def size(self, name: str) -> int:
-        return {"tp": self.tp, "ep": self.ep, "world": self.world}[name]
+        return self.world if name == "world" else getattr(self.config, name)
 
     def all_reduce(self, x: torch.Tensor, over: str = "tp", op: str = "sum") -> torch.Tensor:
         """In-place sum (or max) of ``x`` over a group; returns ``x``."""
@@ -300,11 +412,43 @@ class ParallelMesh:
         self.broadcast(data, over="side")
         return obj if self.is_leader else pickle.loads(bytes(data.numpy()))
 
-    def close(self) -> None:
-        """Drop the groups (call it with no collective in flight: after the
-        leader's last descriptor)."""
-        for name in ("world_group", "side_group", "tp_group", "ep_group"):
-            setattr(self, name, None)
+    def exchange(self, axis: str) -> "RankExchange":
+        """Point-to-point sends and receives along ``axis``."""
+        return RankExchange(self, axis)
+
+    # -- teardown -------------------------------------------------------------
+
+    def close(self, lost: bool = False) -> None:
+        """The ordered teardown (module docstring): call it with no
+        collective in flight (after the leader's last descriptor), on every
+        rank.  ``lost``: a peer is gone, so the device is not waited for and
+        the barrier is skipped; the groups are aborted, not destroyed."""
+        if self._closed:
+            return
+        self._closed = True
+        _hold(None)
+        order = [self.groups[n] for n in ("world", "side", *AXES[1:]) if n in self.groups]
+        self.groups = {}
+        if lost and self.backend == "nccl":
+            abort = dist.distributed_c10d._abort_process_group
+            for g in [None] if self._owns_world else order:
+                abort(g)
+            return
+        if not lost:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            order[1].barrier().wait()
+        if self._owns_world:
+            # every group of the world, in the order of their names
+            dist.destroy_process_group()
+            return
+        for g in order:
+            dist.destroy_process_group(g)
+
+
+def _hold(mesh: Optional[ParallelMesh]) -> None:
+    global _held
+    _held = mesh
 
 
 def build_mesh(
@@ -318,9 +462,10 @@ def build_mesh(
     """This rank's :class:`ParallelMesh`.  ``backend`` defaults to the
     device's (NCCL on a card, gloo on the CPU); NCCL needs one card per
     rank of this host (``local_ranks``, default the whole mesh) and is
-    refused with fewer, by JAX's message, and with enough by name."""
+    refused with fewer, by JAX's message."""
     device = torch.device(device) if device is not None else torch.device("cpu")
     backend = backend or default_backend(device)
+    refuse_unserved_axes(cfg)
     check_devices(local_ranks or cfg.num_devices, backend)
     return ParallelMesh(cfg, rank, device, backend, init_method)
 
@@ -348,3 +493,91 @@ def env_parallel_spec() -> dict:
         except ValueError:
             raise ValueError(f"{name}={raw!r} is not an integer parallel degree") from None
     return out
+
+
+# ---------------------------------------------------------------------------
+# point to point
+# ---------------------------------------------------------------------------
+
+
+class RankExchange:
+    """Sends and receives between the ranks of one axis of a mesh, by
+    axis index.  ``rotate`` is the ring's step: every rank sends to the
+    next and receives from the previous in one ``batch_isend_irecv`` (NCCL
+    groups the pair, so no rank waits on another's send).  Gloo sends host
+    memory only, so a CUDA tensor is staged through the host there.  The
+    mesh's ``to_leader_bytes`` counts what ``send`` handed axis index 0
+    (the ring's rotations aside)."""
+
+    def __init__(self, mesh: ParallelMesh, axis: str) -> None:
+        self.mesh = mesh
+        self.group = mesh.groups[axis]
+        self.ranks = axis_ranks(mesh.config, mesh.coords, axis)
+        self.rank = mesh.coords[axis]
+        self.size = len(self.ranks)
+        self._host = mesh.backend == "gloo"
+
+    def _wire(self, t: torch.Tensor) -> torch.Tensor:
+        return t.cpu() if self._host else t.contiguous()
+
+    def send(self, t: torch.Tensor, dst: int) -> None:
+        self.mesh.counts["send"] += 1
+        if dst == 0:
+            self.mesh.counts["to_leader_bytes"] += t.numel() * t.element_size()
+        dist.send(self._wire(t), self.ranks[dst], group=self.group)
+
+    def recv(self, like: torch.Tensor, src: int) -> torch.Tensor:
+        buf = torch.empty(like.shape, dtype=like.dtype,
+                          device="cpu" if self._host else like.device)
+        dist.recv(buf, self.ranks[src], group=self.group)
+        self.mesh.counts["recv"] += 1
+        return buf.to(like.device)
+
+    def rotate(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Each tensor to the next rank of the ring; the previous rank's
+        in its place."""
+        nxt, prv = (self.rank + 1) % self.size, (self.rank - 1) % self.size
+        out = [torch.empty(t.shape, dtype=t.dtype, device="cpu" if self._host else t.device)
+               for t in tensors]
+        ops = []
+        for t, o in zip(tensors, out):
+            self.mesh.counts["send"] += 1
+            ops.append(dist.P2POp(dist.isend, self._wire(t), self.ranks[nxt], self.group))
+            ops.append(dist.P2POp(dist.irecv, o, self.ranks[prv], self.group))
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+        self.mesh.counts["recv"] += len(tensors)
+        return [o.to(t.device) for o, t in zip(out, tensors)]
+
+
+class LocalExchange:
+    """:class:`RankExchange` for ranks that are threads of one process:
+    one FIFO per (source, destination).  ``LocalExchange.group(n)`` gives
+    the ``n`` ranks' views; every wait is bounded."""
+
+    WAIT_S = 60.0
+
+    def __init__(self, rank: int, size: int, boxes: Dict[Any, "queue.Queue"]) -> None:
+        self.rank = rank
+        self.size = size
+        self._boxes = boxes
+        self.to_leader = 0
+
+    @classmethod
+    def group(cls, size: int) -> List["LocalExchange"]:
+        boxes = {(s, d): queue.Queue() for s in range(size) for d in range(size)}
+        return [cls(r, size, boxes) for r in range(size)]
+
+    def send(self, t: torch.Tensor, dst: int) -> None:
+        if dst == 0:
+            self.to_leader += t.numel() * t.element_size()
+        self._boxes[(self.rank, dst)].put(t.clone())
+
+    def recv(self, like: torch.Tensor, src: int) -> torch.Tensor:
+        return self._boxes[(src, self.rank)].get(timeout=self.WAIT_S)
+
+    def rotate(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        nxt, prv = (self.rank + 1) % self.size, (self.rank - 1) % self.size
+        for t in tensors:
+            self._boxes[(self.rank, nxt)].put(t.clone())
+        return [self.recv(t, prv) for t in tensors]

@@ -32,9 +32,22 @@ whole after the gather).  Export gathers (``gather_pages``) bring each
 rank's head slice to the leader, which rebuilds the full-width blob in
 JAX's head order (:func:`assemble_shards`).
 
-CUDA graphs.  Every mesh runs its dispatches eagerly: gloo's collectives
-cannot be captured, and NCCL (whose can) is not served yet
-(``parallel.mesh``).
+CUDA graphs.  Over NCCL the decode graphs run on every rank: the
+leader's ``engine/graphs.py`` sends a marker before each capture (begin),
+after it (end), before each replay and when it drops graphs (release),
+each with the graph's id, so a follower captures the same trunk calls the
+leader captures -- their descriptors arrive between begin and end -- and
+replays its graph where the leader replays its own, in the same order.
+A replay adds its capture's launch delta to the follower's counts too.
+Gloo's collectives cannot be captured, so a gloo mesh that shards the
+trunk runs every dispatch eagerly.
+
+Ring and pipeline prefills.  On an sp or pp mesh only the routed full
+prefills reach the followers (``OP_RING``, ``OP_PIPE``: the batch's
+geometry, then its tokens and lengths over the device group); every other
+trunk pass runs on the leader alone, which holds the whole model, the pool
+and the lane state, so the mirror sends nothing for it
+(``parallel/ring_attention.py``, ``parallel/pipeline_parallel.py``).
 
 :class:`Follower` is a follower's loop; :class:`DispatchMirror` the
 leader's sender.  A follower that dies fails the leader's next collective
@@ -255,7 +268,8 @@ def assemble_shards(parts: Sequence[KVPool], axis: int = 4) -> KVPool:
 # ---------------------------------------------------------------------------
 
 HEADER_LEN = 128
-OP_STOP, OP_TRUNK, OP_LOGITS, OP_GATHER, OP_STATS, OP_RESET, OP_POOL = range(7)
+(OP_STOP, OP_TRUNK, OP_LOGITS, OP_GATHER, OP_STATS, OP_RESET, OP_POOL, OP_GRAPH_BEGIN,
+ OP_GRAPH_END, OP_GRAPH_REPLAY, OP_GRAPH_RELEASE, OP_RING, OP_PIPE) = range(13)
 # the attention variants of ``engine.step.ATTN_KINDS``, by wire id
 KIND_IDS = {"packed": 1, "decode": 2, "rect": 3, "prefill": 4, "suffix": 5, "verify": 6}
 KIND_NAMES = {v: k for k, v in KIND_IDS.items()}
@@ -332,6 +346,8 @@ class DispatchMirror:
         statics: Sequence[int],
         mm: Optional[Tuple[torch.Tensor, torch.Tensor]],
     ) -> None:
+        if not self.mesh.shards_trunk:
+            return
         fields, parts = _pack_ints([tokens, positions, *tensors, *(mm[1:] if mm else ())])
         ints = [KIND_IDS[kind], len(statics), *statics, len(tensors), int(mm is not None)]
         if mm is not None:
@@ -371,6 +387,45 @@ class DispatchMirror:
         )
         return _gather_heads(self.mesh, local)
 
+    # -- graphs (``engine/graphs.py`` sends them where ``mirrors_graphs``) ------
+
+    @property
+    def mirrors_graphs(self) -> bool:
+        """Whether the followers capture and replay the leader's graphs
+        (an NCCL mesh that shards the trunk)."""
+        return self.mesh.shards_trunk and self.mesh.capturable
+
+    def graph_begin(self, gid: int) -> None:
+        self._send(OP_GRAPH_BEGIN, [gid])
+
+    def graph_end(self, gid: int) -> None:
+        self._send(OP_GRAPH_END, [gid])
+
+    def graph_replay(self, gid: int) -> None:
+        self._send(OP_GRAPH_REPLAY, [gid])
+
+    def graph_release(self, gids: Sequence[int]) -> None:
+        gids = list(gids)
+        while gids:
+            self._send(OP_GRAPH_RELEASE, gids[: HEADER_LEN - 2])
+            gids = gids[HEADER_LEN - 2:]
+
+    # -- ring and pipeline prefills -----------------------------------------------
+
+    def ring(self, tokens: torch.Tensor, seq_lens: torch.Tensor) -> None:
+        """A ring prefill of ``tokens [B, T]`` to every sp rank."""
+        self._prefill(OP_RING, tokens, seq_lens, [])
+
+    def pipe(self, tokens: torch.Tensor, seq_lens: torch.Tensor, num_microbatches: int) -> None:
+        """A pipeline prefill of ``tokens [B, T]`` to every pp stage."""
+        self._prefill(OP_PIPE, tokens, seq_lens, [num_microbatches])
+
+    def _prefill(self, op: int, tokens, seq_lens, extra: List[int]) -> None:
+        B, T = tokens.shape
+        self._send(op, [B, T, *extra])
+        self.mesh.broadcast(torch.cat([tokens.reshape(-1).long(), seq_lens.long()]),
+                            over="world")
+
     # -- reads ------------------------------------------------------------------
 
     def rank_stats(self, own: Dict[str, Any]) -> List[Dict[str, Any]]:
@@ -396,7 +451,9 @@ class DispatchMirror:
 
 _OP_NAMES = {
     OP_STOP: "stop", OP_TRUNK: "trunk", OP_LOGITS: "logits", OP_GATHER: "gather",
-    OP_STATS: "stats", OP_RESET: "reset", OP_POOL: "pool",
+    OP_STATS: "stats", OP_RESET: "reset", OP_POOL: "pool", OP_GRAPH_BEGIN: "graph_begin",
+    OP_GRAPH_END: "graph_end", OP_GRAPH_REPLAY: "graph_replay",
+    OP_GRAPH_RELEASE: "graph_release", OP_RING: "ring", OP_PIPE: "pipe",
 }
 
 
@@ -410,7 +467,9 @@ def _gather_heads(mesh: ParallelMesh, local: KVPool) -> KVPool:
     return mesh.all_gather(local, dim=4)
 
 
-def _host_pool(pool: KVPool) -> Any:
+def _host_pool(pool: Optional[KVPool]) -> Any:
+    if pool is None:
+        return None
     if isinstance(pool, QuantKV):
         return (pool.q.cpu(), pool.s.cpu())
     return pool.cpu()
@@ -465,14 +524,25 @@ def reset_rank_stats(mesh: ParallelMesh) -> None:
 
 
 class Follower:
-    """A follower rank's loop: receive each descriptor, run its part."""
+    """A follower rank's loop: receive each descriptor, run its part.
+    Between a graph's begin and end markers the trunk calls it runs are
+    captured into that graph (module docstring)."""
 
-    def __init__(self, mesh: ParallelMesh, cfg: ModelConfig, params: RankParams, pool: KVPool) -> None:
+    def __init__(self, mesh: ParallelMesh, cfg: ModelConfig, params: RankParams,
+                 pool: Optional[KVPool]) -> None:
         self.mesh = mesh
         self.cfg = cfg
         self.params = params
         self.pool = pool
         self.hidden: Optional[torch.Tensor] = None
+        self.exchange = (mesh.exchange(mesh.prefill_axis)
+                         if mesh.prefill_axis is not None else None)
+        # graph id -> (graph, launch delta of one replay)
+        self.graphs: Dict[int, Tuple[Any, List[int]]] = {}
+        self.captures = 0
+        self.replays = 0
+        self._pool = None
+        self._capture: Optional[Tuple[int, Any, Any, List[int]]] = None
 
     def _recv(self) -> Tuple[int, List[int]]:
         h = torch.zeros(HEADER_LEN, dtype=torch.int64)
@@ -486,6 +556,8 @@ class Follower:
         while True:
             op, ints = self._recv()
             if op == OP_STOP:
+                self.graphs.clear()
+                self._pool = None
                 return
             getattr(self, f"_on_{_OP_NAMES[op]}")(ints)
 
@@ -543,10 +615,66 @@ class Follower:
         _gather_heads(self.mesh, local)
 
     def _on_stats(self, ints: List[int]) -> None:
-        # a follower captures no graph: every mesh runs eagerly
         self.mesh.gather_objects(rank_stats(
-            self.mesh, {"captures": 0, "replays": 0}, self.params
+            self.mesh, {"captures": self.captures, "replays": self.replays}, self.params
         ))
+
+    def _on_graph_begin(self, ints: List[int]) -> None:
+        from ..engine.graphs import launch_counts
+
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        ctx = torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local")
+        before = launch_counts()
+        ctx.__enter__()
+        self._capture = (ints[0], graph, ctx, before)
+
+    def _on_graph_end(self, ints: List[int]) -> None:
+        from ..engine.graphs import launch_counts, set_launch_counts
+
+        gid, graph, ctx, before = self._capture
+        self._capture = None
+        ctx.__exit__(None, None, None)
+        if gid != ints[0]:
+            raise RuntimeError(f"graph {ints[0]} ended while graph {gid} was captured")
+        delta = [a - b for a, b in zip(launch_counts(), before)]
+        set_launch_counts(before)
+        self.graphs[gid] = (graph, delta)
+        self.captures += 1
+        # the captured trunk's rows live in the graphs' pool
+        self.hidden = None
+
+    def _on_graph_replay(self, ints: List[int]) -> None:
+        from ..engine.graphs import launch_counts, set_launch_counts
+
+        graph, delta = self.graphs[ints[0]]
+        graph.replay()
+        set_launch_counts([n + d for n, d in zip(launch_counts(), delta)])
+        self.replays += 1
+
+    def _on_graph_release(self, ints: List[int]) -> None:
+        for gid in ints:
+            del self.graphs[gid]
+        if not self.graphs:
+            self._pool = None
+
+    def _prefill_inputs(self, B: int, T: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        flat = torch.empty(B * T + B, dtype=torch.int64, device=self.mesh.device)
+        self.mesh.broadcast(flat, over="world")
+        return flat[: B * T].view(B, T), flat[B * T:]
+
+    def _on_ring(self, ints: List[int]) -> None:
+        from .ring_attention import ring_follower
+
+        tokens, lens = self._prefill_inputs(*ints[:2])
+        ring_follower(self.params, self.cfg, tokens, lens, self.exchange)
+
+    def _on_pipe(self, ints: List[int]) -> None:
+        from .pipeline_parallel import pp_follower
+
+        tokens, lens = self._prefill_inputs(*ints[:2])
+        pp_follower(self.params, self.cfg, tokens, lens, ints[2], self.exchange)
 
     def _on_reset(self, ints: List[int]) -> None:
         reset_rank_stats(self.mesh)
@@ -599,7 +727,16 @@ def build_rank_params(
         p = _scatter_params(mesh, sh, whole)
     else:
         raise ValueError(f"unknown params source {kind!r}")
-    return rank_params(p, mesh)
+    if mesh.shards_trunk:
+        return rank_params(p, mesh)
+    # a ring or pipeline mesh: the trunk runs on each rank alone; a
+    # follower stage keeps its layers only
+    out = RankParams(p)
+    if mesh.pp > 1 and not mesh.is_leader:
+        from .pipeline_parallel import stage_params
+
+        out = RankParams(stage_params(p, cfg, mesh.pp, mesh.coords["pp"]))
+    return out
 
 
 def _scatter_params(mesh: ParallelMesh, sh: LeafSharder, whole: Optional[Dict[str, Any]]) -> Dict[str, Any]:
@@ -631,11 +768,14 @@ def _scatter_params(mesh: ParallelMesh, sh: LeafSharder, whole: Optional[Dict[st
 
 
 def make_pool(cfg: ModelConfig, mesh: ParallelMesh, num_pages: int, page_size: int,
-              dtype: torch.dtype, quantized: bool) -> KVPool:
+              dtype: torch.dtype, quantized: bool) -> Optional[KVPool]:
     """A follower's pool: ``[L, 2, pages, page, Hkv/tp, D]`` (and the
-    int8 twin's row scales)."""
+    int8 twin's row scales); none on a ring or pipeline mesh, whose pool
+    is the leader's alone."""
     from ..engine.kv_cache import PagedKVCache
 
+    if not mesh.shards_trunk:
+        return None
     return PagedKVCache(cfg, num_pages, page_size, dtype, mesh.device, quantized=quantized,
                         kv_heads=cfg.num_kv_heads // mesh.tp).pages
 

@@ -17,9 +17,12 @@ streams of a roomy pool.  A disaggregated delivery lands as the same pool
 pages through the same-process device handoff as through the wire.
 The dense entries of the ragged and flash kernels also give, bit for bit,
 the outputs recorded in ``DENSE_DIGESTS``.  A tp = 2 engine on the card
-(both ranks on one card over gloo) gives one card's streams and pools;
-NCCL ranks (one card each, where there are two) are refused by name, and
-a tp above the card count by JAX's message.  GGUF dequantization
+gives one card's streams and pools, both ranks on one card over gloo
+(eager) and one card a rank over NCCL (where there are two: the decode
+graphs captured and replayed as often on the follower as on the leader,
+and the engine's stop returning); sp = 2 and pp = 2 engines give one
+card's streams over both backends; a tp above the card count is refused
+by JAX's message.  GGUF dequantization
 (``llm/gguf.py``) on the card gives the CPU's bits for each of its five
 tensor types.
 
@@ -42,6 +45,7 @@ to ~4, inside the same 2e-2.
 from __future__ import annotations
 
 import hashlib
+import time
 
 import numpy as np
 import pytest
@@ -1600,8 +1604,7 @@ def test_gguf_dequantize_on_card_equals_cpu(card, gtype):
 def _tp_engines(card, backend, **kw):
     """A small f32 model (4 query heads, 2 kv heads, D 64: a rank of tp =
     2 holds 2/1/64) on one card, and the same weights on a tp = 2 grid:
-    both ranks on this card over gloo, or one card a rank over NCCL (which
-    the package refuses by name before any rank starts)."""
+    both ranks on this card over gloo, or one card a rank over NCCL."""
     from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
     from dynamo_tpu_torch.engine.engine import TorchEngine
     from dynamo_tpu_torch.engine.model import init_params
@@ -1609,9 +1612,9 @@ def _tp_engines(card, backend, **kw):
     from dynamo_tpu_torch.parallel.mesh import MeshConfig
 
     cfg = ModelConfig.tiny(head_dim=64, num_heads=4, num_kv_heads=2)
-    ecfg = EngineConfig(num_pages=64, max_seq_len=256, mixed_token_budget=32, **kw)
     params = init_params(cfg, 3, card, torch.float32)
-    grid = MeshConfig(tp=2)
+    grid = kw.pop("grid", MeshConfig(tp=2))
+    ecfg = EngineConfig(num_pages=64, max_seq_len=256, mixed_token_budget=32, **kw)
     devices = ["cuda:0", "cuda:1"] if backend == "nccl" else ["cuda:0", "cuda:0"]
     ranks = start_local_ranks(grid, grid_spec(grid, devices, backend))
     mesh = leader_mesh(grid, ranks.spec, ranks)
@@ -1644,29 +1647,32 @@ async def _tp_serve(engine, reqs, keep):
         out = await asyncio.wait_for(asyncio.gather(*[one(r) for r in reqs]), RUN_S)
         keep["pools"] = engine.rank_pools()
         keep["stats"] = engine.rank_stats()
+        keep["graphs"] = (engine.graph_captures, sum(engine.graph_replays.values()))
         return out
     finally:
-        await engine.stop()
+        t0 = time.monotonic()
+        await asyncio.wait_for(engine.stop(), RUN_S)
+        keep["stop_s"] = time.monotonic() - t0
+
+
+def _skip_without_two_cards(backend):
+    if backend == "nccl" and torch.cuda.device_count() < 2:
+        pytest.skip("NCCL takes one card a rank: needs two cards")
 
 
 @pytest.mark.parametrize("kw", [{}, {"mixed_batching": False}, {"kv_dtype": "int8"}],
                          ids=["default", "classic", "int8-pool"])
 @pytest.mark.parametrize("backend", ["gloo", "nccl"])
 def test_tp_engine_on_card_equals_one_card(card, backend, kw):
-    """tp = 2 on the card over gloo: the streams of one card; every rank's
-    pool the one-card pool's head slice (f32 within 5e-6 of the largest
-    value; int8 data within one step in at most 0.5% of the values, as
-    ``chip_smoke.py`` serve-tp (a) holds them); no graph on either rank.
-    NCCL (two cards) is refused by name before any rank starts: an NCCL
-    engine's stop has not been shown to return."""
+    """tp = 2 on the card: the streams of one card; every rank's pool the
+    one-card pool's head slice (f32 within 5e-6 of the largest value; int8
+    data within one step in at most 0.5% of the values, as
+    ``chip_smoke.py`` serve-tp (a) holds them).  Over gloo no graph on
+    either rank; over NCCL (two cards) the follower captures and replays
+    as many graphs as the leader, and the stop returns within 30 s."""
     import asyncio
 
-    if backend == "nccl":
-        if torch.cuda.device_count() < 2:
-            pytest.skip("NCCL takes one card a rank: needs two cards")
-        with pytest.raises(ValueError, match="over NCCL"):
-            _tp_engines(card, backend, **kw)
-        return
+    _skip_without_two_cards(backend)
     one, sharded = _tp_engines(card, backend, **kw)
     reqs = _tp_requests()
     a, b = {}, {}
@@ -1682,7 +1688,42 @@ def test_tp_engine_on_card_equals_one_card(card, backend, kw):
             want_p = pool1[:, :, 1:, :, r:r + 1]
             assert (p[:, :, 1:] - want_p).abs().max() <= 5e-6 * want_p.abs().max()
     graphs = [s["graphs"] for s in b["stats"]]
-    assert all(g == {"captures": 0, "replays": 0} for g in graphs), graphs
+    if backend == "gloo":
+        assert all(g == {"captures": 0, "replays": 0} for g in graphs), graphs
+    else:
+        captures, replays = b["graphs"]
+        assert captures > 0 and replays > 0
+        assert all(g == {"captures": captures, "replays": replays} for g in graphs), graphs
+    assert b["stop_s"] < 30, b["stop_s"]
+
+
+@pytest.mark.parametrize("axis", ["sp", "pp"])
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_sp_pp_engine_on_card_equals_one_card(card, backend, axis):
+    """A ring (sp = 2) or pipeline (pp = 2) engine on the card: one card's
+    streams, every full prefill routed, bytes sent to the leader, the
+    decode graphs the leader's alone, and the stop returning within 30
+    s."""
+    import asyncio
+
+    from dynamo_tpu_torch.parallel.mesh import MeshConfig
+
+    _skip_without_two_cards(backend)
+    grid = MeshConfig(**{axis: 2})
+    one, sharded = _tp_engines(card, backend, mixed_batching=False, grid=grid)
+    reqs = _tp_requests()
+    a, b = {}, {}
+    want = asyncio.run(_tp_serve(one, reqs, a))
+    sharded.reset_rank_stats()
+    got = asyncio.run(_tp_serve(sharded, reqs, b))
+    assert got == want
+    routed = sharded.sp_prefills if axis == "sp" else sharded.pp_prefills
+    assert routed >= 1 and sharded.prefill_dispatches["full"] == 0
+    follower = b["stats"][1]
+    assert follower["graphs"] == {"captures": 0, "replays": 0}
+    assert b["graphs"][0] > 0
+    assert follower["collectives"].get("to_leader_bytes", 0) > 0
+    assert b["stop_s"] < 30, b["stop_s"]
 
 
 def test_tp_refuses_more_ranks_than_cards(card):

@@ -296,35 +296,37 @@ def test_single_node_is_noop():
 
 def test_build_mesh_refusals():
     """JAX's "mesh needs N devices, have M" for NCCL ranks past the cards
-    (none here), and dp, sp, pp refused by name."""
+    (none here); dp, and sp or pp beside another axis, refused by name."""
     have = torch.cuda.device_count() if torch.cuda.is_available() else 0
     with pytest.raises(ValueError, match=f"mesh needs {have + 1} devices, have {have}"):
         build_mesh(MeshConfig(tp=have + 1), device=torch.device("cuda"))
-    for axis in ("dp", "sp", "pp"):
-        with pytest.raises(ValueError, match=f"{axis}=2: not served"):
-            build_mesh(MeshConfig(**{axis: 2}), init_method="file:///nonexistent")
+    for grid, match in ((dict(dp=2), "dp=2: data parallelism"),
+                        (dict(sp=2, tp=2), "sp=2 with tp=2: not served"),
+                        (dict(pp=2, ep=2), "pp=2 with ep=2: not served"),
+                        (dict(sp=2, pp=2), "sp=2 with pp=2: not served")):
+        with pytest.raises(ValueError, match=match):
+            build_mesh(MeshConfig(**grid), init_method="file:///nonexistent")
     with pytest.raises(ValueError, match="mesh needs 8 devices"):
         jax_mesh.build_mesh(jax_mesh.MeshConfig(tp=8), jax.devices()[:4])
 
 
-def test_nccl_ranks_are_refused_by_name(monkeypatch):
-    """NCCL ranks, one card each, are not served yet: with enough cards a
-    mesh over NCCL is refused by name (with too few, JAX's message comes
-    first); gloo is the port's backend."""
+def test_nccl_ranks_take_one_card_each(monkeypatch):
+    """NCCL ranks take one card each: with too few cards a mesh over NCCL
+    is refused by JAX's message, with enough ``check_devices`` passes and
+    each rank gets a card of its own from the leader's on."""
     from dynamo_tpu_torch.parallel import mesh as port_mesh
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     with pytest.raises(ValueError, match="mesh needs 8 devices, have 4"):
         port_mesh.check_devices(8, "nccl")
-    with pytest.raises(ValueError, match="over NCCL"):
-        port_mesh.check_devices(2, "nccl")
-    with pytest.raises(ValueError, match="over NCCL"):
-        build_mesh(MeshConfig(tp=2), device=torch.device("cuda"), init_method="file:///nonexistent")
-    with pytest.raises(ValueError, match="over NCCL"):
-        port_mesh.ParallelMesh(MeshConfig(tp=2), 0, torch.device("cpu"), "nccl",
-                               init_method="file:///nonexistent")
+    port_mesh.check_devices(4, "nccl")
     port_mesh.check_devices(2, "gloo")
+    assert port_mesh.rank_devices(torch.device("cuda:1"), 4) == [
+        "cuda:1", "cuda:2", "cuda:3", "cuda:0"]
+    assert port_mesh.rank_devices(torch.device("cpu"), 2) == ["cpu", "cpu"]
+    with pytest.raises(ValueError, match="gloo or nccl"):
+        port_mesh.check_devices(2, "mpi")
 
 
 # -- memory plans -----------------------------------------------------------------

@@ -27,10 +27,10 @@ ranks by the leader.
   prefiller's export, equals the tp=1 export (layer 0 byte for byte, the
   rest within the pool tolerance) and JAX's (within 1e-5), and decodes on
   a one-card engine into the aggregated stream.
-* Refused by name: the offload plane, G4, the model drafter, dp, sp, pp,
-  a tp that does not divide the heads, an ep that does not divide the
-  experts, NCCL ranks on cards, importing a remote prefill and the block
-  export of prefix onboarding.
+* Refused by name: the offload plane, G4, the model drafter, dp, sp or
+  pp beside another axis, a tp that does not divide the heads, an ep that
+  does not divide the experts, importing a remote prefill and the block
+  export of prefix onboarding; NCCL ranks on cards take one card each.
 * A killed follower fails the leader's request within the groups' timeout
   and stops the engine; later requests fail at once.
 * ``run in=http out=torch --device cpu --tp 2`` and two ``--num-nodes 2``
@@ -393,8 +393,8 @@ REFUSALS = {
     "drafter": (dict(tp=2, draft_model="random"), None, "draft_model"),
     "ep-offload": (dict(host_offload_blocks=8), MeshConfig(ep=2), "ep=2 with host_offload_blocks"),
     "dp": (dict(dp=2), None, "EngineConfig.dp"),
-    "sp": ({}, MeshConfig(sp=2), "sp=2: not served"),
-    "pp": ({}, MeshConfig(pp=2), "pp=2: not served"),
+    "sp": ({}, MeshConfig(sp=2, tp=2), "sp=2 with tp=2: not served"),
+    "pp": ({}, MeshConfig(pp=2, ep=2), "pp=2 with ep=2: not served"),
     "tp3": (dict(tp=3), None, "tp=3 does not divide num_heads=4"),
     "tp4": (dict(tp=4), None, "num_kv_heads"),
 }
@@ -624,36 +624,47 @@ def test_cli_two_nodes_answer_chats_like_tp1(checkpoint, tp1_chats):
 
 @pytest.mark.parametrize("argv, name", [
     (["--dp", "2"], "--dp"),
-    (["--sp", "2"], "--sp"),
-    (["--pp", "2"], "--pp"),
+    (["--sp", "2", "--tp", "2"], "--sp"),
+    (["--pp", "2", "--ep", "2"], "--pp"),
     (["--tp", "2", "--host-offload-blocks", "8"], "--host-offload-blocks"),
     (["--ep", "2", "--draft-model", "random"], "--draft-model"),
     (["--tp", "3"], "--tp 3: tp=3 does not divide num_heads=4"),
 ])
 def test_cli_refuses_by_name(checkpoint, argv, name):
+    """Each refusal names its flag; sp or pp beside another axis is
+    refused as such ("sp=2 with tp=2: not served")."""
     from dynamo_tpu_torch import cli
 
     args = cli.build_parser().parse_args(
         ["run", "in=http", "out=torch", "--model-path", checkpoint, "--device", "cpu", *argv]
     )
     args.inp, args.out = "http", "torch"
-    with pytest.raises(SystemExit, match=name):
+    with pytest.raises(SystemExit, match=name) as e:
         cli._check_served(args)
         cli._rank_plan(args, torch.device("cpu"))
+    if name in ("--sp", "--pp"):
+        assert "with" in str(e.value) and "not served" in str(e.value)
 
 
-def test_cli_refuses_nccl_ranks_by_name(checkpoint, monkeypatch):
-    """With the cards there, ``--tp 2`` on them is still refused by name:
-    NCCL ranks are not served yet."""
+def test_cli_plans_nccl_ranks_one_card_each(checkpoint, monkeypatch):
+    """With the cards there, ``--tp 2`` (and ``--sp 2``, ``--pp 2``) on
+    them plans NCCL ranks, one card each; with too few, JAX's message."""
     from dynamo_tpu_torch import cli
 
-    args = cli.build_parser().parse_args(
-        ["run", "in=http", "out=torch", "--model-path", checkpoint, "--tp", "2"]
-    )
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(SystemExit, match="--tp 2 --ep 1: tp and ep over NCCL"):
-        cli._rank_plan(args, torch.device("cuda"))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    for flag in ("--tp", "--sp", "--pp"):
+        args = cli.build_parser().parse_args(
+            ["run", "in=http", "out=torch", "--model-path", checkpoint, flag, "2"]
+        )
+        mesh_cfg, _mn, local, devices, backend = cli._rank_plan(args, torch.device("cuda"))
+        assert (local, devices, backend) == (2, ["cuda:0", "cuda:1"], "nccl")
+        assert getattr(mesh_cfg, flag[2:]) == 2
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match="--tp 1 --ep 1 --sp 2: mesh needs 2 devices, have 1"):
+        cli._rank_plan(args.__class__(**{**vars(args), "pp": 1, "sp": 2}),
+                       torch.device("cuda"))
 
 
 def test_cli_refuses_more_ranks_than_cards(checkpoint):
